@@ -1,0 +1,76 @@
+"""AlignGCN — the 2-layer sparse-GCN entity-alignment encoder (counterpart
+of ``tpugraph/models/encoder.py``).
+
+A trainable entity-embedding table propagated through two
+GraphConvolution layers over the merged KG-pair adjacency.  Highway gates
+and dropout are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from tpugraph_torch.nn.graphconv import GraphConvolution
+from tpugraph_torch.sparse.ell import EllOperator
+
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class AlignGCN(nn.Module):
+    """Parameters: ``emb`` (n_ent, dim), ``gc1.w`` (dim, hidden), ``gc1.b``,
+    ``gc2.w`` (hidden, dim), ``gc2.b`` — the flax tree's leaves, flattened
+    (``convert.params_from_jax``)."""
+
+    def __init__(self, n_ent: int, dim: int = 128, hidden: int | None = None,
+                 highway: bool = False, dropout: float = 0.0,
+                 compute_dtype: str = "float32", l2_normalize: bool = False,
+                 device: torch.device | str | None = None):
+        super().__init__()
+        if highway:
+            raise NotImplementedError("highway gates are not ported yet")
+        if dropout > 0.0:
+            raise NotImplementedError("dropout is not ported yet")
+        if compute_dtype not in _COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {sorted(_COMPUTE_DTYPES)}")
+        hidden = hidden or dim
+        self.compute_dtype = _COMPUTE_DTYPES[compute_dtype]
+        self.l2_normalize = l2_normalize
+        self.emb = nn.Parameter(torch.empty(n_ent, dim, device=device))
+        self.gc1 = GraphConvolution(dim, hidden, device=device)
+        self.gc2 = GraphConvolution(hidden, dim, device=device)
+
+    def layer_activations(self, op: EllOperator) -> list[torch.Tensor]:
+        """[input embeddings, layer-1 act, layer-2 act] — the parity hook."""
+        x = self.emb.to(self.compute_dtype)
+        h = torch.relu(self.gc1(x, op))
+        out = self.gc2(h, op).float()  # losses/eval always in fp32
+        if self.l2_normalize:
+            out = out / (torch.linalg.vector_norm(out, dim=-1, keepdim=True) + 1e-8)
+        return [x, h, out]
+
+    def forward(self, op: EllOperator) -> torch.Tensor:
+        return self.layer_activations(op)[-1]
+
+
+def init_params(n_ent: int, dim: int = 128, hidden: int | None = None,
+                seed: int = 0) -> dict[str, torch.Tensor]:
+    """Random AlignGCN parameters from a numpy seed, drawn from the flax
+    initialisers' distributions: emb ~ N(0, 1/dim), W ~ xavier-uniform,
+    b = 0.  (The numbers differ from a ``jax.random`` init of the same seed.)"""
+    rng = np.random.default_rng(seed)
+    hidden = hidden or dim
+
+    def xavier(fan_in, fan_out):
+        lim = np.sqrt(6.0 / (fan_in + fan_out))
+        return rng.uniform(-lim, lim, (fan_in, fan_out)).astype(np.float32)
+
+    params = {
+        "emb": (rng.standard_normal((n_ent, dim)) / np.sqrt(dim)).astype(np.float32),
+        "gc1.w": xavier(dim, hidden),
+        "gc1.b": np.zeros(hidden, np.float32),
+        "gc2.w": xavier(hidden, dim),
+        "gc2.b": np.zeros(dim, np.float32),
+    }
+    return {k: torch.from_numpy(v) for k, v in params.items()}
