@@ -1,4 +1,5 @@
-"""The fused GCN-layer CUDA kernel against its plain version, on the card.
+"""The port's CUDA kernels (fused GCN layer, ELL SpMM, Sinkhorn potential
+update) against their plain versions, and training on the card.
 
 Marked ``gpu``; each test skips without a CUDA device.  This file imports
 neither JAX nor the JAX package, so on a machine with a card (and no JAX)
@@ -11,11 +12,16 @@ import numpy as np
 import pytest
 import torch
 
-from tpugraph_torch.kernels import gcn_fused
+from tpugraph_torch.configs.configs import get_config
+from tpugraph_torch.kernels import gcn_fused, sinkhorn_fused, spmm_ell
 from tpugraph_torch.kernels.gcn_fused import fused_gcn_layer, reference_layer
+from tpugraph_torch.kernels.sinkhorn_fused import sinkhorn_potential_update, sinkhorn_update_plain
+from tpugraph_torch.kernels.spmm_ell import apply_with_diag, ell_spmm
 from tpugraph_torch.models.encoder import AlignGCN, init_params
 from tpugraph_torch.sparse.build import build_adjacency
 from tpugraph_torch.sparse.ell import build_ell_operator
+from tpugraph_torch.train.driver import run
+from tpugraph_torch.train.ot import sinkhorn_align_loss, sinkhorn_align_loss_plain
 
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=0.05, atol=0.5)}
 
@@ -83,6 +89,8 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
 
 @pytest.mark.gpu
 def test_encoder_on_card_matches_host(cuda):
+    """Forward and gradients of the 2-layer encoder: kernels on the card
+    (2 gcn_fused + 2 spmm_ell launches) against the plain path on the host."""
     rng = np.random.default_rng(1)
     n = 400
     tri = np.stack([rng.integers(0, n, 1600), rng.integers(0, 7, 1600),
@@ -92,9 +100,95 @@ def test_encoder_on_card_matches_host(cuda):
     host, card = AlignGCN(n_ent=n), AlignGCN(n_ent=n, device=cuda)
     host.load_state_dict(params)
     card.load_state_dict(params)
-    with pytest.raises(NotImplementedError, match="training is not ported"):
-        card(op.to(cuda))
-    with torch.no_grad():
-        want = host(op)
-        got = card(op.to(cuda))
-    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    cot = torch.from_numpy(rng.standard_normal((n, 128)).astype(np.float32))
+    before = (gcn_fused.launches, spmm_ell.launches)
+    got = card(op.to(cuda))
+    (got * cot.to(cuda)).sum().backward()
+    torch.cuda.synchronize()
+    assert (gcn_fused.launches - before[0], spmm_ell.launches - before[1]) == (2, 2)
+    want = host(op)
+    (want * cot).sum().backward()
+    torch.testing.assert_close(got.detach().cpu(), want.detach(), rtol=1e-4, atol=1e-4)
+    for (name, p_card), p_host in zip(card.named_parameters(), host.parameters()):
+        torch.testing.assert_close(p_card.grad.cpu(), p_host.grad, rtol=1e-4, atol=1e-4,
+                                   msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("split_diag", [False, True])
+def test_spmm_ell_kernel_matches_plain(cuda, d, split_diag):
+    rng = np.random.default_rng(d + split_diag)
+    op = _graph(rng, split_diag=split_diag).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((op.n_rows, d)).astype(np.float32)).to(cuda)
+    for m in (op.fwd, op.bwd):
+        before = spmm_ell.launches
+        got = ell_spmm(m, op.diag, x)
+        torch.cuda.synchronize()
+        assert spmm_ell.launches == before + 1
+        torch.testing.assert_close(got, apply_with_diag(m, op.diag, x), rtol=1e-4, atol=1e-4)
+    with pytest.raises(TypeError):
+        ell_spmm(op.fwd, op.diag, x.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        ell_spmm(op.fwd, op.diag, x[:, :64].contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,c,d", [(70, 90, 16), (257, 300, 128), (33, 1000, 256),
+                                   (4500, 130, 128)])
+def test_sinkhorn_kernel_matches_plain(cuda, q, c, d):
+    """Query and candidate counts that are not multiples of the 32 × 128
+    tile; potentials of both signs.  fp32 dot products in another order:
+    rtol/atol 1e-4."""
+    rng = np.random.default_rng(q + c + d)
+
+    def unit(n):
+        x = rng.standard_normal((n, d)).astype(np.float32)
+        return torch.from_numpy(x / np.linalg.norm(x, axis=1, keepdims=True)).to(cuda)
+
+    l, r = unit(q), unit(c)
+    g = torch.from_numpy((0.2 * rng.standard_normal(c)).astype(np.float32)).to(cuda)
+    log_mu = torch.full((q,), -float(np.log(q)), device=cuda)
+    for tau in (0.05, 0.3):
+        before = sinkhorn_fused.launches
+        got = sinkhorn_potential_update(l, r, g, log_mu, tau)
+        torch.cuda.synchronize()
+        assert sinkhorn_fused.launches == before + 1
+        torch.testing.assert_close(got, sinkhorn_update_plain(l, r, g, log_mu, tau),
+                                   rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError):
+        sinkhorn_potential_update(l[:, :d - 2].contiguous(), r[:, :d - 2].contiguous(), g,
+                                  log_mu, 0.3)
+
+
+@pytest.mark.gpu
+def test_sinkhorn_loss_on_card_matches_plain(cuda):
+    """2·n_iters + 1 kernel launches; value rel 1e-4 and gradient relative
+    L2 1e-3 against autograd of the plain unrolled solver on the card."""
+    rng = np.random.default_rng(7)
+    emb = torch.from_numpy(rng.standard_normal((900, 128)).astype(np.float32)).to(cuda)
+    pairs = torch.stack([torch.arange(0, 300), torch.arange(450, 750)], 1).to(cuda)
+    e1, e2 = emb.clone().requires_grad_(True), emb.clone().requires_grad_(True)
+    before = sinkhorn_fused.launches
+    a = sinkhorn_align_loss(e1, pairs, tau=0.3, n_iters=20)
+    a.backward()
+    torch.cuda.synchronize()
+    assert sinkhorn_fused.launches == before + 41
+    b = sinkhorn_align_loss_plain(e2, pairs, tau=0.3, n_iters=20)
+    b.backward()
+    assert a.item() == pytest.approx(b.item(), rel=1e-4)
+    assert float((e1.grad - e2.grad).norm() / e2.grad.norm()) < 1e-3
+
+
+@pytest.mark.gpu
+def test_training_on_card(cuda):
+    cfg = get_config("sinkhorn", syn_n_ent=600, syn_n_triples=2400, epochs=4, neg_every=2,
+                     eval_every=0, k_neg=10)
+    before = (gcn_fused.launches, spmm_ell.launches, sinkhorn_fused.launches)
+    res = run(cfg, device=cuda)
+    after = (gcn_fused.launches, spmm_ell.launches, sinkhorn_fused.launches)
+    # 4 steps × 2 layers, one mining forward, one final eval forward
+    assert after[0] - before[0] == 4 * 2 + 2 + 2
+    assert after[1] - before[1] == 4 * 2
+    assert after[2] - before[2] == 4 * 41
+    assert np.isfinite(res.metrics["final_loss"]) and res.losses[-1] < res.losses[0]

@@ -12,7 +12,7 @@ from tpugraph.kernels.spmm_ell import spmm_ell
 from tpugraph.sparse.ell import build_ell_operator as jax_ell_operator
 from tpugraph_torch.kernels import gcn_fused
 from tpugraph_torch.kernels.gcn_fused import fused_gcn_layer, fused_plan, reference_layer
-from tpugraph_torch.kernels.spmm_ell import apply_with_diag, ell_apply
+from tpugraph_torch.kernels.spmm_ell import TILE_ROWS, apply_with_diag, ell_apply, ell_spmm
 from tpugraph_torch.nn.graphconv import GraphConvolution
 from tpugraph_torch.sparse.ell import build_ell_operator
 
@@ -114,7 +114,7 @@ def _replay_plan(m, diag, x, wmat, bias):
     out = torch.full((m.n_rows, wmat.shape[1]), float("nan"))
     written = np.zeros(m.n_rows, int)
     for row0, nrows, k, slot0 in plan.tiles.tolist():
-        assert 1 <= nrows <= gcn_fused.TILE_ROWS
+        assert 1 <= nrows <= TILE_ROWS
         for r in range(nrows):
             row = int(plan.rows[row0 + r])
             s = slot0 + r * k
@@ -166,7 +166,9 @@ def test_non_cpu_tensors_never_take_the_plain_version():
     op = build_ell_operator(src, dst, w, 20, split_diag=True)
     x = torch.empty(20, 128, device="meta")
     layer = GraphConvolution(128, 128, device="meta")
-    with pytest.raises(NotImplementedError, match="training is not ported"):
-        layer(x, op)  # grad enabled off the CPU: the kernel has no backward
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        layer(x, op)  # grad enabled: the trainable layer's forward refuses too
     with torch.no_grad(), pytest.raises(ValueError, match="cuda or cpu"):
         layer(x, op)
+    with torch.no_grad(), pytest.raises(ValueError, match="cuda or cpu"):
+        ell_spmm(op.bwd, op.diag, x)

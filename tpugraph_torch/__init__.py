@@ -9,10 +9,16 @@ with nvcc at first use and bound through ctypes (``kernels/_build.py``).
 Layer map:
     data/      synthetic DBP15K-shaped generator (numpy, identical arrays)
     sparse/    KG containers, adjacency build, degree-bucketed ELL operator
-    kernels/   plain-torch ELL SpMM + the fused GCN-layer CUDA kernel
-    nn/        GraphConvolution
-    models/    AlignGCN encoder
-    train/     pairwise L1, exact Hits@k, serving-side loop pieces, driver
+    kernels/   plain-torch ELL SpMM, distances and Sinkhorn solver, and the
+               three CUDA kernels: the fused GCN layer (forward), the ELL
+               SpMM (the layers' backward over the transpose) and the fused
+               Sinkhorn potential update (the OT head's forward)
+    nn/        GraphConvolution (trainable in fp32)
+    models/    AlignGCN encoder, AlignMTL (margin + Sinkhorn heads)
+    train/     losses, OT head, negatives, optimizer, metrics, exact Hits@k,
+               the training loops (``fit``, ``fit_mtl``) and the driver
+               (``run``, ``evaluate``)
+    cli/       ``python -m tpugraph_torch.cli.main`` — train a named config
     configs/   TrainConfig copies of the capability configs
     serve.py   top-k alignment search, export, embedding save/load, CLI
     convert.py flax parameter tree -> port parameters

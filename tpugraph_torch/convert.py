@@ -1,9 +1,10 @@
 """Parameters between the two packages, and the port's parameter file.
 
-``params_from_jax`` takes the flax parameter tree of ``AlignGCN`` as nested
-dicts of numpy arrays (the caller runs
-``jax.tree_util.tree_map(np.asarray, params)``) and returns the port's
-parameters: the ``AlignGCN`` state dict, with the same leaves and layouts.
+``params_from_jax`` takes the flax parameter tree of ``AlignGCN``, or of
+``AlignMTL`` (the encoder's tree under "encoder"), as nested dicts of numpy
+arrays (the caller runs ``jax.tree_util.tree_map(np.asarray, params)``) and
+returns the port's parameters: the matching state dict, with the same
+leaves and layouts.
 ``save_params`` writes them where ``train.driver.evaluate`` reads them.
 """
 
@@ -18,7 +19,13 @@ PARAMS_FILE = "params.pt"
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
-    """{"emb", "gc1": {"w", "b"}, "gc2": {"w", "b"}} -> {"emb", "gc1.w", ...}."""
+    """{"emb", "gc1": {"w", "b"}, "gc2": {"w", "b"}} -> {"emb", "gc1.w", ...};
+    {"encoder": {...}} -> {"encoder.emb", "encoder.gc1.w", ...}."""
+    if "encoder" in tree:
+        extra = set(tree) - {"encoder"}
+        if extra:
+            raise NotImplementedError(f"parameters {sorted(extra)} are not ported yet")
+        return {f"encoder.{k}": v for k, v in params_from_jax(tree["encoder"]).items()}
     extra = set(tree) - {"emb", "gc1", "gc2"}
     if extra:
         raise NotImplementedError(f"parameters {sorted(extra)} are not ported yet")

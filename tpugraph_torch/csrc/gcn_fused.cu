@@ -43,108 +43,22 @@
 #include <stdint.h>
 
 #include <algorithm>
-#include <cstring>
+
+#include "ell_gather.cuh"
 
 namespace {
+
+using ell::add_diag;
+using ell::gather_slots;
+using ell::put_row;
+using ell::store4;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileRows = 32;   // rows per tile at most (host plan agrees)
-constexpr int kUnroll = 8;      // source rows in flight per warp
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
-  const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
-  __nv_bfloat162 lo, hi;
-  memcpy(&lo, &t.x, 4);
-  memcpy(&hi, &t.y, 4);
-  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-}
-
-__device__ __forceinline__ void store4(float* p, const float v[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 t;
-  memcpy(&t.x, &lo, 4);
-  memcpy(&t.y, &hi, 4);
-  *reinterpret_cast<uint2*>(p) = t;
-}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// acc += Σ_{s in [s0, s1)} w[s] · x[idx[s]] over this lane's CI×4 columns.
-template <typename T, int D_IN>
-__device__ __forceinline__ void gather_slots(const T* __restrict__ x,
-                                             const int* __restrict__ idx,
-                                             const float* __restrict__ ew,
-                                             long s0, long s1, int lane,
-                                             float (&acc)[D_IN / 128][4]) {
-  constexpr int CI = D_IN / 128;
-  for (long base = s0; base < s1; base += 32) {
-    const long rem = s1 - base;
-    const int n = rem < 32 ? static_cast<int>(rem) : 32;
-    const int my_i = lane < n ? __ldg(idx + base + lane) : 0;
-    const float my_w = lane < n ? __ldg(ew + base + lane) : 0.f;
-    for (int j = 0; j < n; j += kUnroll) {
-      float v[kUnroll][CI][4];
-      float wj[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int src = __shfl_sync(kFull, my_i, (j + u) & 31);
-        wj[u] = __shfl_sync(kFull, my_w, (j + u) & 31);
-        if (j + u < n) {
-#pragma unroll
-          for (int c = 0; c < CI; ++c)
-            load4(x + static_cast<long>(src) * D_IN + c * 128 + lane * 4, v[u][c]);
-        } else {
-          wj[u] = 0.f;
-#pragma unroll
-          for (int c = 0; c < CI; ++c)
-            v[u][c][0] = v[u][c][1] = v[u][c][2] = v[u][c][3] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-#pragma unroll
-        for (int c = 0; c < CI; ++c)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[c][e] = fmaf(wj[u], v[u][c][e], acc[c][e]);
-    }
-  }
-}
-
-template <typename T, int D_IN>
-__device__ __forceinline__ void add_diag(const T* __restrict__ x, const float* __restrict__ diag,
-                                         int row, int lane, float (&acc)[D_IN / 128][4]) {
-  if (diag == nullptr) return;
-  const float d = __ldg(diag + row);
-#pragma unroll
-  for (int c = 0; c < D_IN / 128; ++c) {
-    float v[4];
-    load4(x + static_cast<long>(row) * D_IN + c * 128 + lane * 4, v);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[c][e] = fmaf(d, v[e], acc[c][e]);
-  }
-}
-
-template <int D_IN>
-__device__ __forceinline__ void put_row(float* dst, int lane, const float (&acc)[D_IN / 128][4]) {
-#pragma unroll
-  for (int c = 0; c < D_IN / 128; ++c)
-    *reinterpret_cast<float4*>(dst + c * 128 + lane * 4) =
-        make_float4(acc[c][0], acc[c][1], acc[c][2], acc[c][3]);
-}
 
 template <typename T, int D_IN, int D_OUT>
 __global__ void __launch_bounds__(kThreads)

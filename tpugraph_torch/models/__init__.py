@@ -1,1 +1,1 @@
-"""Encoders."""
+"""The encoder and the model with its alignment losses."""

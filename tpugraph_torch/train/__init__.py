@@ -1,1 +1,2 @@
-"""Losses, evaluation, the serving-side loop pieces and the driver."""
+"""Losses, the OT head, negatives, optimizer, metrics, evaluation, the
+training loops and the driver."""

@@ -1,8 +1,12 @@
-"""Eval-only entry (counterpart of ``tpugraph/train/driver.py::evaluate``).
+"""Config -> trainer dispatch, and the eval-only entry (counterpart of
+``tpugraph/train/driver.py``).
 
-Restore trained parameters, run the encoder forward over the merged graph
-once, and score the exact both-direction Hits@k; optionally hand the table
-to the serving path.  Training (``run``) comes with the training slice.
+``run`` trains: config ``sinkhorn`` (an OT head) goes to
+``train/mtl.py::fit_mtl``, config ``base`` to ``train/loop.py::fit``.
+``evaluate`` restores trained parameters, runs the encoder forward over the
+merged graph once, and scores the exact both-direction Hits@k; optionally
+it hands the table to the serving path.  Both run on the card unless the
+caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -17,11 +21,24 @@ from tpugraph_torch import resolve_device
 from tpugraph_torch.configs.configs import TrainConfig
 from tpugraph_torch.convert import PARAMS_FILE, load_params
 from tpugraph_torch.models.encoder import AlignGCN
-from tpugraph_torch.sparse.build import build_adjacency
 from tpugraph_torch.sparse.ell import EllOperator
 from tpugraph_torch.sparse.graph import AlignTask
 from tpugraph_torch.train.eval import hits_at_k
-from tpugraph_torch.train.loop import build_model, embed, load_task
+from tpugraph_torch.train.loop import (TrainResult, build_model, build_operator, embed, fit,
+                                       load_task)
+
+
+def run(cfg: TrainConfig, task: AlignTask | None = None, device: str | torch.device = "cuda",
+        verbose: bool = False) -> TrainResult:
+    """Train per ``cfg``.  ``task``: a pre-built AlignTask; None loads it
+    from ``cfg``."""
+    if max(cfg.n_shards, cfg.feature_shards, cfg.slice_shards) > 1:
+        raise NotImplementedError("the distributed trainer is not ported yet; see ROADMAP.md")
+    if cfg.use_sinkhorn or cfg.use_rel_head or cfg.use_attr_head or cfg.use_attr_channel:
+        from tpugraph_torch.train.mtl import fit_mtl
+
+        return fit_mtl(cfg, task=task, verbose=verbose, device=device)
+    return fit(cfg, task=task, verbose=verbose, device=device)
 
 
 @dataclass
@@ -66,8 +83,7 @@ def evaluate(cfg: TrainConfig, params: dict | None = None, task: AlignTask | Non
     timings = {}
     t0 = time.perf_counter()
     task = task or load_task(cfg)
-    op = build_adjacency(task.n_ent, task.merged_triples, n_rel=task.n_rel,
-                         weighting=cfg.weighting, norm=cfg.norm, fmt="ell").to(dev)
+    op = build_operator(cfg, task, dev)
     model = build_model(cfg, task, device=dev)
     model.load_state_dict(params)
     sync()
