@@ -13,8 +13,14 @@ Phases, each printing one JSON line:
              the zh-en-scale operator, fp32 and bf16, including the rows that
              lie in no ELL bucket; kernel, plain and library timings and the
              card's bound for the same work.  Then the same for the ELL SpMM
-             kernel on the transpose operator (the layers' backward) and for
-             the Sinkhorn potential-update kernel at 4,500 × 4,500 × 128.
+             kernel on the transpose operator (the layers' backward; two
+             launches must agree bit for bit; its device time is split
+             between the hub rows' work and the rest, and a call's host
+             time is read beside it) and for the Sinkhorn potential-update
+             kernel at 4,500 × 4,500 × 128 (at τ = 0.3 and 0.05, and at
+             twice the query rows).  Kernel times are CUDA events over
+             back-to-back calls; ``device_ms`` is the profiler's sum of the
+             call's device work alone.
 4. slice   — config ``base`` served at zh-en scale through the port's entry
              points: parameters saved with ``save_params``, restored by
              ``driver.evaluate`` (one forward + exact Hits@k), then
@@ -34,6 +40,7 @@ non-zero before that line.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -51,9 +58,11 @@ from tpugraph_torch.convert import save_params
 from tpugraph_torch.data.synthetic import synthetic_align_task
 from tpugraph_torch.kernels import _build, gcn_fused, sinkhorn_fused, spmm_ell
 from tpugraph_torch.kernels.gcn_fused import fused_gcn_layer, reference_layer
-from tpugraph_torch.kernels.sinkhorn_fused import (sinkhorn_potential_update,
+from tpugraph_torch.kernels.sinkhorn_fused import (PRECISION, stream_plan,
+                                                   sinkhorn_potential_update,
                                                    sinkhorn_update_plain, sq_norms)
-from tpugraph_torch.kernels.spmm_ell import apply_with_diag, ell_spmm, fused_plan
+from tpugraph_torch.kernels.spmm_ell import (SEG_SLOTS, apply_with_diag, ell_spmm, fused_plan,
+                                             segment_plan)
 from tpugraph_torch.models.encoder import init_params
 from tpugraph_torch.serve import topk_alignments
 from tpugraph_torch.sparse.build import build_adjacency, coo_from_triples, coo_normalize
@@ -70,6 +79,7 @@ from tpugraph_torch.train.ot import sinkhorn_align_loss, sinkhorn_align_loss_pla
 # rate for each input type — fp32 outside the tensor cores, bf16 on them
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_TF32_OPS = 495e12  # fp32 inputs rounded to TF32 on the tensor cores
 # the repo's zh-en-scale synthetic shape (scripts/disk_rehearsal.py, leg A)
 ZH_EN = dict(seed=7, n_ent=19000, n_rel=1200, n_triples=70000, n_pairs=15000,
              n_attr=1000, attrs_per_ent=4, name="zh_en")
@@ -98,6 +108,20 @@ def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call from a torch.profiler trace: the time of its
+    kernels and memsets on the card, summed, so the host's launch cost is
+    left out (``time_ms`` includes it when it exceeds the device's work)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / iters / 1e3
 
 
 def time_cold_ms(fn, iters: int = 10) -> float:
@@ -229,23 +253,64 @@ def phase_kernel(task, smi: str, dev: torch.device) -> dict:
             torch.testing.assert_close(got[zero_rows].float(), zx, **TOL[dtype])
             zero_err = float((got[zero_rows].float() - zx).abs().max())
         ms = time_ms(lambda: fused_gcn_layer(op.fwd, op.diag, x, wm, b))
+        dev_ms = device_ms(lambda: fused_gcn_layer(op.fwd, op.diag, x, wm, b))
         ms_cold = time_cold_ms(lambda: fused_gcn_layer(op.fwd, op.diag, x, wm, b))
         plain_ms = time_ms(lambda: reference_layer(op.fwd, op.diag, x, wm, b), iters=5)
-        lib_ms = lib_cold = None
-        if dtype == torch.float32:
-            lib = torch.sparse.mm(a_csr, x) @ wm + b
-            torch.testing.assert_close(lib, want, **TOL[dtype])
-            lib_ms = time_ms(lambda: torch.sparse.mm(a_csr, x) @ wm + b)
-            lib_cold = time_cold_ms(lambda: torch.sparse.mm(a_csr, x) @ wm + b)
+        lib_ms = lib_cold = lib_dev = lib_refused = None
+
+        def library():
+            return torch.sparse.mm(a_lib, x) @ wm + b.to(dtype)
+
+        try:
+            a_lib = a_csr.to(dtype)
+            lib = library()
+        except RuntimeError as e:  # a refusal of bf16 by the library is the finding
+            lib_refused = str(e).splitlines()[0][:200]
+        if lib_refused is None:
+            torch.testing.assert_close(lib.float(), want.float(), **TOL[dtype])
+            lib_ms = time_ms(library)
+            lib_dev = device_ms(library)
+            lib_cold = time_cold_ms(library)
         bound, bound_by = _bound_ms(op, x, wm, b)
         results[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                              bound_by=bound_by, library_ms=lib_ms)
+                              bound_by=bound_by, library_ms=lib_ms, device_ms=dev_ms,
+                              library_device_ms=lib_dev)
         emit({"phase": "kernel", "kernel": "gcn_fused", "dtype": str(dtype).split(".")[1],
               "max_abs_err": err, "no_bucket_rows_max_abs_err": zero_err, "ms": ms,
-              "ms_cold_l2": ms_cold, "plain_ms": plain_ms, "library_ms": lib_ms,
-              "library_ms_cold_l2": lib_cold, "bound_ms": bound,
+              "device_ms": dev_ms, "ms_cold_l2": ms_cold, "plain_ms": plain_ms,
+              "library_ms": lib_ms, "library_device_ms": lib_dev,
+              "library_ms_cold_l2": lib_cold, "library_refused": lib_refused, "bound_ms": bound,
               "bound_by": bound_by, "share_of_bound": bound / ms, "card": smi})
     return results[torch.float32]
+
+
+def host_ms(fn, calls: int = 200) -> float:
+    """Host time of one call: ``calls`` calls queued without a synchronise
+    (far fewer than the launch queue holds), so the device's time is not in it."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
+def _spmm_split(m, diag, g, hub_ks=(256, 1024)) -> dict:
+    """The kernel's device time on parts of its work table: all of it, then
+    for each K in ``hub_ks`` only the work of rows with K ≥ that K, and the
+    rest (the output rows outside the part are left unwritten; only the
+    time is read).  Device time, because a call's host time exceeds it."""
+    plan = segment_plan(m)
+    parts = [("all", plan)]
+    for k in hub_ks:
+        hub = plan.items[:, 2] >= k  # every segment of a cut row falls on one side
+        parts += [(f"k_ge_{k}", dataclasses.replace(plan, items=plan.items[hub].contiguous())),
+                  (f"k_lt_{k}", dataclasses.replace(plan, items=plan.items[~hub].contiguous()))]
+    return {name: {"items": int(part.items.shape[0]),
+                   "device_ms": device_ms(lambda part=part: spmm_ell._launch(m, diag, g, part))}
+            for name, part in parts}
 
 
 def phase_spmm(task, smi: str, dev: torch.device) -> dict:
@@ -270,13 +335,21 @@ def phase_spmm(task, smi: str, dev: torch.device) -> dict:
     want = apply_with_diag(m, op.diag, g)
     torch.testing.assert_close(got, want, **TOL[torch.float32])
     err = float((got - want).abs().max())
+    if not torch.equal(got, ell_spmm(m, op.diag, g)):  # the segments' sums run in a fixed order
+        raise AssertionError("spmm_ell: two launches on the same input differ")
+    seg = segment_plan(m)
     lib = torch.sparse.mm(at_csr, g)
     torch.testing.assert_close(lib, want, **TOL[torch.float32])
     ms = time_ms(lambda: ell_spmm(m, op.diag, g))
     ms_cold = time_cold_ms(lambda: ell_spmm(m, op.diag, g))
     plain_ms = time_ms(lambda: apply_with_diag(m, op.diag, g), iters=5)
     lib_ms = time_ms(lambda: torch.sparse.mm(at_csr, g))
+    dev_ms = device_ms(lambda: ell_spmm(m, op.diag, g))
+    lib_dev = device_ms(lambda: torch.sparse.mm(at_csr, g))
     lib_cold = time_cold_ms(lambda: torch.sparse.mm(at_csr, g))
+    host = host_ms(lambda: ell_spmm(m, op.diag, g))
+    lib_host = host_ms(lambda: torch.sparse.mm(at_csr, g))
+    split = _spmm_split(m, op.diag, g)
     # each input byte once (g, diag, the buckets' rows/idx/w), the output
     # once; 2 operations per real edge (diagonal included) and column
     ell_bytes = sum(b.rows.numel() * 4 + b.idx.numel() * 4 + b.w.numel() * 4
@@ -284,25 +357,41 @@ def phase_spmm(task, smi: str, dev: torch.device) -> dict:
     nbytes = 2 * m.n_rows * d * 4 + op.diag.numel() * 4 + ell_bytes
     bound, bound_by = _bound(nbytes, 2 * (m.nnz + op.n_diag) * d)
     emit({"phase": "kernel", "kernel": "spmm_ell", "operator": "transpose", "dtype": "float32",
-          "max_abs_err": err, "ms": ms, "ms_cold_l2": ms_cold, "plain_ms": plain_ms,
-          "library_ms": lib_ms, "library_ms_cold_l2": lib_cold, "bound_ms": bound,
-          "bound_by": bound_by, "share_of_bound": bound / ms, "card": smi})
+          "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "ms_cold_l2": ms_cold,
+          "plain_ms": plain_ms, "library_ms": lib_ms, "library_device_ms": lib_dev,
+          "library_ms_cold_l2": lib_cold, "host_ms": host, "library_host_ms": lib_host,
+          "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / ms,
+          "share_of_bound_device": bound / dev_ms, "bit_identical_runs": True,
+          "seg_cap": SEG_SLOTS, "work_items": int(seg.items.shape[0]),
+          "longest_item_slots": seg.max_item_slots, "cut_rows": int(seg.split_p0.shape[0] - 1),
+          "split": split, "card": smi})
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-                library_ms=lib_ms)
+                library_ms=lib_ms, device_ms=dev_ms, library_device_ms=lib_dev, seg_cap=SEG_SLOTS,
+                work_items=int(seg.items.shape[0]),
+                longest_item_slots=seg.max_item_slots)
+
+
+def _sinkhorn_inputs(dev: torch.device, s: int = 4500, d: int = 128, rows: int | None = None):
+    """l (``rows`` or s, d) and r (s, d) of unit rows, g (s,), log μ: one
+    update of config sinkhorn's OT head at zh-en scale."""
+    rng = np.random.default_rng(2)
+
+    def unit_rows(n):
+        x = rng.standard_normal((n, d)).astype(np.float32)
+        return torch.from_numpy(x / np.linalg.norm(x, axis=1, keepdims=True)).to(dev)
+
+    l, r = unit_rows(s), unit_rows(s)
+    g = torch.from_numpy((0.1 * rng.standard_normal(s)).astype(np.float32)).to(dev)
+    if rows is not None:
+        l = torch.cat([l, unit_rows(rows - s)])
+    log_mu = torch.full((l.shape[0],), -math.log(l.shape[0]), dtype=torch.float32, device=dev)
+    return l, r, g, log_mu
 
 
 def phase_sinkhorn(smi: str, dev: torch.device, s: int = 4500, d: int = 128,
                    tau: float = 0.3) -> dict:
     """One potential update of config sinkhorn's OT head at zh-en scale."""
-    rng = np.random.default_rng(2)
-
-    def unit_rows():
-        x = rng.standard_normal((s, d)).astype(np.float32)
-        return torch.from_numpy(x / np.linalg.norm(x, axis=1, keepdims=True)).to(dev)
-
-    l, r = unit_rows(), unit_rows()
-    g = torch.from_numpy((0.1 * rng.standard_normal(s)).astype(np.float32)).to(dev)
-    log_mu = torch.full((s,), -math.log(s), dtype=torch.float32, device=dev)
+    l, r, g, log_mu = _sinkhorn_inputs(dev, s, d)
     l_sq, r_sq = sq_norms(l), sq_norms(r)
 
     def kernel():
@@ -313,6 +402,11 @@ def phase_sinkhorn(smi: str, dev: torch.device, s: int = 4500, d: int = 128,
     want = sinkhorn_update_plain(l, r, g, log_mu, tau, l_sq, r_sq)
     torch.testing.assert_close(got, want, **TOL[torch.float32])
     err = float((got - want).abs().max())
+    # the config's default τ, where exp amplifies a product's rounding most
+    got05 = sinkhorn_potential_update(l, r, g, log_mu, 0.05, l_sq, r_sq)
+    want05 = sinkhorn_update_plain(l, r, g, log_mu, 0.05, l_sq, r_sq)
+    torch.testing.assert_close(got05, want05, **TOL[torch.float32])
+    err05 = float((got05 - want05).abs().max())
     # the yardstick, two library calls: one addmm builds
     # z = (g_j − ‖r_j‖² + 2·l_i·r_j)/τ, one logsumexp reduces it; ‖l_i‖²/τ
     # comes off the row LSE (no clamp at 0: equal up to rounding)
@@ -329,17 +423,35 @@ def phase_sinkhorn(smi: str, dev: torch.device, s: int = 4500, d: int = 128,
     plain_ms = time_ms(lambda: sinkhorn_update_plain(l, r, g, log_mu, tau, l_sq, r_sq), iters=5)
     addmm_ms = time_ms(lib_build)
     lse_ms = time_ms(lambda: torch.logsumexp(z, dim=1))
-    # inputs l, r, ‖l‖², ‖r‖², g, log μ once and f once; 2·Q·C·d for the
-    # dot products plus one exp per cost entry, at the fp32 rate
+    dev_ms = device_ms(kernel)
+    lib_dev = device_ms(lambda: torch.logsumexp(lib_build(), dim=1))
+    # twice the query rows against the same candidates: twice the work on
+    # the same grid, so the fixed cost per launch shows
+    l2x, _, _, mu2x = _sinkhorn_inputs(dev, s, d, rows=2 * s)
+    l2x_sq = sq_norms(l2x)
+    ms_2x = time_ms(lambda: sinkhorn_potential_update(l2x, r, g, mu2x, tau, l2x_sq, r_sq))
+    # inputs l, r, ‖l‖², ‖r‖², g, log μ once and f once.  What the kernel
+    # runs: three TF32 products of 2·Q·C·d on the tensor cores plus one exp
+    # per cost entry at the fp32 rate; beside it the fp32 bound of one
+    # product outside the tensor cores
     nbytes = (2 * s * d + 5 * s) * 4
-    bound, bound_by = _bound(nbytes, 2 * s * s * d + s * s)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (3 * 2 * s * s * d / PEAK_TF32_OPS + s * s / PEAK_OPS[torch.float32]) * 1e3
+    bound, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    bound_fp32, _ = _bound(nbytes, 2 * s * s * d + s * s)
+    grid, n_splits = stream_plan(s, s, torch.cuda.get_device_properties(dev).multi_processor_count)
     emit({"phase": "kernel", "kernel": "sinkhorn_fused", "q": s, "c": s, "d": d, "tau": tau,
-          "max_abs_err": err, "ms": ms, "ms_cold_l2": ms_cold, "plain_ms": plain_ms,
-          "library_ms": addmm_ms + lse_ms, "library_addmm_ms": addmm_ms,
+          "precision": PRECISION, "grid": grid, "candidate_splits": n_splits,
+          "max_abs_err": err, "max_abs_err_tau_0.05": err05, "ms": ms, "device_ms": dev_ms,
+          "ms_cold_l2": ms_cold, "plain_ms": plain_ms, "library_ms": addmm_ms + lse_ms,
+          "library_device_ms": lib_dev, "library_addmm_ms": addmm_ms,
           "library_logsumexp_ms": lse_ms, "bound_ms": bound, "bound_by": bound_by,
-          "share_of_bound": bound / ms, "card": smi})
+          "share_of_bound": bound / ms, "bound_fp32_ms": bound_fp32,
+          "share_of_fp32_bound": bound_fp32 / ms, "ms_2x_queries": ms_2x, "card": smi})
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-                library_ms=addmm_ms + lse_ms)
+                library_ms=addmm_ms + lse_ms, device_ms=dev_ms, library_device_ms=lib_dev,
+                bound_fp32_ms=bound_fp32, precision=PRECISION,
+                candidate_splits=n_splits)
 
 
 def phase_slice(task, smi: str, dev: torch.device) -> int:

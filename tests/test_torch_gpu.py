@@ -16,7 +16,7 @@ from tpugraph_torch.configs.configs import get_config
 from tpugraph_torch.kernels import gcn_fused, sinkhorn_fused, spmm_ell
 from tpugraph_torch.kernels.gcn_fused import fused_gcn_layer, reference_layer
 from tpugraph_torch.kernels.sinkhorn_fused import sinkhorn_potential_update, sinkhorn_update_plain
-from tpugraph_torch.kernels.spmm_ell import apply_with_diag, ell_spmm
+from tpugraph_torch.kernels.spmm_ell import SEG_SLOTS, apply_with_diag, ell_spmm
 from tpugraph_torch.models.encoder import AlignGCN, init_params
 from tpugraph_torch.sparse.build import build_adjacency
 from tpugraph_torch.sparse.ell import build_ell_operator
@@ -131,6 +131,97 @@ def test_spmm_ell_kernel_matches_plain(cuda, d, split_diag):
         ell_spmm(op.fwd, op.diag, x.to(torch.bfloat16))
     with pytest.raises(ValueError):
         ell_spmm(op.fwd, op.diag, x[:, :64].contiguous())
+
+
+def _hub_graph(rng, degrees, n=8000, split_diag=True):
+    """Random rows of low degree, plus rows 3, 11, ... of the exact ELL
+    degree given (the random edges avoid them)."""
+    src = rng.integers(0, n, 4 * n)
+    dst = rng.integers(20, n, 4 * n)
+    for row, deg in degrees.items():
+        k = deg - (0 if split_diag else 1)  # the self-loop stays in the ELL without a split
+        src = np.concatenate([src, rng.integers(20, n, k)])
+        dst = np.concatenate([dst, np.full(k, row)])
+    loops = np.arange(n)
+    src, dst = np.concatenate([src, loops]), np.concatenate([dst, loops])
+    w = rng.standard_normal(len(src)).astype(np.float32)
+    return build_ell_operator(src, dst, w, n, split_diag=split_diag)
+
+
+# bucket K of rows 3, 11, 17: a hub far above the segment cap with rows on
+# its boundaries (K = 2·cap, K = cap), or a largest K of cap + 1
+HUB_DEGREES = {"hub_5300": {3: 5300, 11: SEG_SLOTS + 100, 17: SEG_SLOTS - 20},
+               "cap_plus_1": {3: SEG_SLOTS + 1, 17: SEG_SLOTS}}
+HUB_KS = {"hub_5300": {5300, 2 * SEG_SLOTS, SEG_SLOTS},
+          "cap_plus_1": {SEG_SLOTS + 1, SEG_SLOTS}}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hub", list(HUB_DEGREES))
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("split_diag", [False, True])
+def test_spmm_ell_hub_segments_match_plain(cuda, hub, d, split_diag):
+    """Rows of K ≥ 5,000 and at the segment boundaries: the segments' fixed-
+    order sum matches the plain version, and two launches agree bit for bit."""
+    rng = np.random.default_rng(len(hub) + d + split_diag)
+    op = _hub_graph(rng, HUB_DEGREES[hub], split_diag=split_diag).to(cuda)
+    assert HUB_KS[hub] <= {b.k for b in op.fwd.buckets}
+    x = torch.from_numpy(rng.standard_normal((op.n_rows, d)).astype(np.float32)).to(cuda)
+    for m in (op.fwd, op.bwd):
+        before = spmm_ell.launches
+        got = ell_spmm(m, op.diag, x)
+        again = ell_spmm(m, op.diag, x)
+        torch.cuda.synchronize()
+        assert spmm_ell.launches == before + 2
+        torch.testing.assert_close(got, apply_with_diag(m, op.diag, x), rtol=1e-4, atol=1e-4)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,c,d", [(70, 4001, 4), (1000, 777, 20), (4500, 4500, 128),
+                                   (130, 2050, 256), (9000, 4500, 192), (333, 2049, 64)])
+def test_sinkhorn_splits_match_plain(cuda, q, c, d):
+    """Ragged Q and C (no multiple of the 64 × 128 tile or of a block's
+    share, odd Q too), every d the kernel takes from 4 to 256, τ = 0.05 and
+    0.3, and strips cut into one to 33 candidate splits; the wrapper refuses
+    other d."""
+    rng = np.random.default_rng(q + c + d)
+
+    def unit(n, dd=d):
+        x = rng.standard_normal((n, dd)).astype(np.float32)
+        return torch.from_numpy(x / np.linalg.norm(x, axis=1, keepdims=True)).to(cuda)
+
+    l, r = unit(q), unit(c)
+    g = torch.from_numpy((0.2 * rng.standard_normal(c)).astype(np.float32)).to(cuda)
+    log_mu = torch.full((q,), -float(np.log(q)), device=cuda)
+    for tau in (0.05, 0.3):
+        got = sinkhorn_potential_update(l, r, g, log_mu, tau)
+        torch.testing.assert_close(got, sinkhorn_update_plain(l, r, g, log_mu, tau),
+                                   rtol=1e-4, atol=1e-4)
+    for bad in (d + 2, 260):
+        with pytest.raises(ValueError):
+            sinkhorn_potential_update(unit(q, bad), unit(c, bad), g, log_mu, 0.3)
+
+
+@pytest.mark.gpu
+def test_sinkhorn_masked_columns_and_rows(cuda):
+    """Splits whose every column has g = -inf add nothing; with every column
+    -inf each row ends at lse = log(1e-38), the TPU kernel's guard.  5 strips
+    × 24 tiles on 120 blocks: one tile per split."""
+    rng = np.random.default_rng(9)
+    q, c, d = 300, 3000, 128
+    l = torch.nn.functional.normalize(torch.from_numpy(rng.standard_normal((q, d))).float(), dim=1)
+    r = torch.nn.functional.normalize(torch.from_numpy(rng.standard_normal((c, d))).float(), dim=1)
+    l, r = l.to(cuda), r.to(cuda)
+    g = torch.from_numpy((0.2 * rng.standard_normal(c)).astype(np.float32)).to(cuda)
+    g[:1000] = -float("inf")
+    log_mu = torch.full((q,), -float(np.log(q)), device=cuda)
+    got = sinkhorn_potential_update(l, r, g, log_mu, 0.3)
+    torch.testing.assert_close(got, sinkhorn_update_plain(l, r, g, log_mu, 0.3),
+                               rtol=1e-4, atol=1e-4)
+    g[:] = -float("inf")
+    got = sinkhorn_potential_update(l, r, g, log_mu, 0.3)
+    torch.testing.assert_close(got, 0.3 * (log_mu - float(np.log(1e-38))), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.gpu

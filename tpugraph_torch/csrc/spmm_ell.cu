@@ -10,119 +10,197 @@
 // the ELL arrays (~42 MB for the zh-en transpose at d = 128, ~12 µs at
 // 3.35 TB/s); its arithmetic, 2 operations per edge and column, is ~1 µs
 // of fp32.  So it is bytes-bound, and what a kernel actually pays is the
-// gather: every ELL slot reads one full row of x (512 B at d = 128), which
-// the 50 MB L2 mostly serves because x (19.5 MB) fits in it.  The design is
-// the gather half of gcn_fused.cu without the GEMM:
+// gather: every ELL slot reads one full row of x (512 B at d = 128, ~157 MB
+// for the zh-en transpose), which the 50 MB L2 mostly serves because x
+// (19.5 MB) fits in it.  What sets the time is how many of those row loads
+// are in flight, and how long the longest chain of dependent loads is.
 //
-//   * one launch covers every bucket: persistent blocks take tiles of the
-//     host's heaviest-first table (kernels/gcn_fused.py::fused_plan, the
-//     same table the fused layer walks) from an atomic counter;
-//   * one warp per row, 32 slots per chunk broadcast by shuffles, 8 source
-//     rows in flight (csrc/ell_gather.cuh); a tile of fewer than 8 rows —
-//     the high-K buckets — splits each row's K range over several warps and
-//     sums the partials in a fixed order in shared memory;
-//   * rows in no bucket are K = 0 tiles (diag·x, or 0 without a diagonal),
-//     so every output row is written exactly once: no atomics on out, no
-//     zero fill, no row_order gather.
+// Design: a warp-sized work item per row run or row segment, from the host's
+// segment table (kernels/spmm_ell.py::segment_plan, heaviest first):
+//
+//   * every row is a list of "virtual slots": its K ELL slots, then one for
+//     the split-out diagonal (source = the row itself, weight diag[row]);
+//   * short rows are packed, several rows per item, up to 64 virtual slots;
+//     a row whose K exceeds the segment cap (128) is cut into segments of at
+//     most cap slots, each an item of its own, so a 3,734-slot hub row is
+//     spread over 30 warps on any SMs instead of the 8 warps of one block;
+//   * a warp loads the (source, weight, row) of 32 virtual slots, one per
+//     lane, and broadcasts them by shuffles; the next 32 are loaded before
+//     this chunk's gathers start, so that load is off the critical path;
+//     8 source rows (4 at d = 256) are in flight per warp: at 79 registers
+//     that leaves room for more warps per SM, which measured faster on the
+//     H100 than 16 rows per warp at 127 registers;
+//   * a segment writes its partial row to fp32 scratch; the last segment of
+//     a row to finish (a per-row counter) sums the row's partials in segment
+//     order and writes the row, so the result does not depend on which
+//     segment finished last and is bit-identical from run to run;
+//   * every output row is written exactly once: no atomics on out, no zero
+//     fill, no row_order gather.  Rows in no bucket are items of diagonal
+//     slots only (0 without a diagonal).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <algorithm>
 
 #include "ell_gather.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
+using ell::kFull;
+
+// Virtual slot v of an item whose rows start at rows[pos0] with K ELL slots
+// each from slot0: ELL slot k < K of local row v / (K + 1), or, for k == K,
+// the row's diagonal.  src < 0 means nothing to gather (past the item, or
+// no diagonal).
+__device__ __forceinline__ void load_vslot(int v, int v1, int pos0, int k_row, long slot0,
+                                           const int* __restrict__ rows,
+                                           const int* __restrict__ idx,
+                                           const float* __restrict__ ew,
+                                           const float* __restrict__ diag, int& src, float& w,
+                                           int& row) {
+  src = -1;
+  w = 0.f;
+  row = -1;
+  if (v >= v1) return;
+  const int kp = k_row + 1, r = v / kp, k = v - r * kp;
+  row = __ldg(rows + pos0 + r);
+  if (k < k_row) {
+    const long s = slot0 + static_cast<long>(r) * k_row + k;
+    src = __ldg(idx + s);
+    w = __ldg(ew + s);
+  } else if (diag != nullptr) {
+    src = row;
+    w = __ldg(diag + row);
+  }
+}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 spmm_ell_kernel(const float* __restrict__ x, const float* __restrict__ diag,
                 const int* __restrict__ rows, const int* __restrict__ idx,
-                const float* __restrict__ ew, const int4* __restrict__ tiles, int n_tiles,
-                int* __restrict__ counter, float* __restrict__ out) {
-  __shared__ __align__(16) float p_s[kWarps * D];  // split-K partials
-  __shared__ int s_tile;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+                const float* __restrict__ ew, const int4* __restrict__ items, int n_items,
+                const int* __restrict__ split_p0, int* __restrict__ counters,
+                float* __restrict__ partial, float* __restrict__ out) {
+  constexpr int CI = D / 128;
+  constexpr int U = 8 / CI;  // source rows in flight per warp
+  const int lane = threadIdx.x & 31;
+  const int item = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (item >= n_items) return;
+  // (first row's position in rows, rows, K, first slot), (virtual slots
+  // [v0, v1), partial index or -1, split-row index or -1)
+  const int4 a = __ldg(items + 2 * item), b = __ldg(items + 2 * item + 1);
+  const int pos0 = a.x, k_row = a.z;
+  const long slot0 = a.w;
+  const int v0 = b.x, v1 = b.y, part = b.z, split = b.w;
 
-  while (true) {
-    if (tid == 0) s_tile = atomicAdd(counter, 1);
-    __syncthreads();  // publishes s_tile
-    const int t = s_tile;
-    if (t >= n_tiles) break;
-    const int4 td = tiles[t];
-    const int row0 = td.x, nrows = td.y, k = td.z;
-    const long slot0 = td.w;
-
-    if (nrows >= kWarps) {
-      for (int r = warp; r < nrows; r += kWarps) {
-        float acc[D / 128][4] = {};
-        const int row = __ldg(rows + row0 + r);
-        ell::gather_slots<float, D>(x, idx, ew, slot0 + static_cast<long>(r) * k,
-                                    slot0 + static_cast<long>(r + 1) * k, lane, acc);
-        ell::add_diag<float, D>(x, diag, row, lane, acc);
-        ell::put_row<D>(out + static_cast<long>(row) * D, lane, acc);
+  float acc[CI][4] = {};
+  int cur = -1;  // the row acc belongs to
+  int nx_src, nx_row;
+  float nx_w;
+  load_vslot(v0 + lane, v1, pos0, k_row, slot0, rows, idx, ew, diag, nx_src, nx_w, nx_row);
+  for (int base = v0; base < v1; base += 32) {
+    const int my_src = nx_src, my_row = nx_row;
+    const float my_w = nx_w;
+    if (base + 32 < v1)  // the next chunk's slots, in flight during this chunk's gathers
+      load_vslot(base + 32 + lane, v1, pos0, k_row, slot0, rows, idx, ew, diag, nx_src, nx_w,
+                 nx_row);
+    const int n = min(32, v1 - base);
+    for (int j = 0; j < n; j += U) {
+      float v[U][CI][4];
+      float wj[U];
+      int rj[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int src = __shfl_sync(kFull, my_src, j + u);
+        wj[u] = __shfl_sync(kFull, my_w, j + u);
+        rj[u] = __shfl_sync(kFull, my_row, j + u);
+        if (j + u < n && src >= 0) {
+#pragma unroll
+          for (int c = 0; c < CI; ++c)
+            ell::load4(x + static_cast<long>(src) * D + c * 128 + lane * 4, v[u][c]);
+        } else {
+          wj[u] = 0.f;
+#pragma unroll
+          for (int c = 0; c < CI; ++c) v[u][c][0] = v[u][c][1] = v[u][c][2] = v[u][c][3] = 0.f;
+        }
       }
-    } else {
-      // few long rows: split each row's K range over wpr warps
-      const int wpr = kWarps / nrows;
-      const int r = warp / wpr, part = warp % wpr;
-      if (r < nrows) {
-        float acc[D / 128][4] = {};
-        const int row = __ldg(rows + row0 + r);
-        const int chunk = (k + wpr - 1) / wpr;
-        const int s = min(k, part * chunk), e = min(k, s + chunk);
-        const long rbase = slot0 + static_cast<long>(r) * k;
-        ell::gather_slots<float, D>(x, idx, ew, rbase + s, rbase + e, lane, acc);
-        if (part == 0) ell::add_diag<float, D>(x, diag, row, lane, acc);
-        ell::put_row<D>(p_s + warp * D, lane, acc);
-      }
-      __syncthreads();
-      for (int i = tid; i < nrows * D; i += kThreads) {
-        const int rr = i / D, col = i % D;
-        float sum = 0.f;
-        for (int p = 0; p < wpr; ++p) sum += p_s[(rr * wpr + p) * D + col];
-        out[static_cast<long>(__ldg(rows + row0 + rr)) * D + col] = sum;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (j + u >= n) break;
+        if (rj[u] != cur) {  // a packed item moves on to its next row
+          if (cur >= 0) ell::put_row<D>(out + static_cast<long>(cur) * D, lane, acc);
+#pragma unroll
+          for (int c = 0; c < CI; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
+          cur = rj[u];
+        }
+#pragma unroll
+        for (int c = 0; c < CI; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[c][e] = fmaf(wj[u], v[u][c][e], acc[c][e]);
       }
     }
-    __syncthreads();  // every thread has read s_tile and p_s before the next tile
   }
+  if (part < 0) {
+    ell::put_row<D>(out + static_cast<long>(cur) * D, lane, acc);
+    return;
+  }
+
+  // one segment of a long row: publish the partial; the row's last segment
+  // to arrive sums all of them in segment order
+  ell::put_row<D>(partial + static_cast<long>(part) * D, lane, acc);
+  __threadfence();
+  __syncwarp();
+  const int p0 = __ldg(split_p0 + split), p1 = __ldg(split_p0 + split + 1);
+  int last = 0;
+  if (lane == 0) last = atomicAdd(counters + split, 1) == p1 - p0 - 1;
+  if (!__shfl_sync(kFull, last, 0)) return;
+  if (lane == 0) counters[split] = 0;  // every segment has counted: ready for the next launch
+  __threadfence();
+  float sum[CI][4] = {};
+  for (int p = p0; p < p1; ++p)
+#pragma unroll
+    for (int c = 0; c < CI; ++c) {
+      const float4 t =
+          __ldcg(reinterpret_cast<const float4*>(partial + static_cast<long>(p) * D + c * 128) + lane);
+      sum[c][0] += t.x;
+      sum[c][1] += t.y;
+      sum[c][2] += t.z;
+      sum[c][3] += t.w;
+    }
+  ell::put_row<D>(out + static_cast<long>(cur) * D, lane, sum);
 }
 
 template <int D>
 cudaError_t launch(const float* x, const float* diag, const int* rows, const int* idx,
-                   const float* ew, const int* tiles, int n_tiles, int* counter, float* out,
-                   cudaStream_t stream) {
-  auto kern = spmm_ell_kernel<D>;
-  cudaError_t err;
-  int dev = 0, n_sm = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, 0)) !=
-      cudaSuccess)
-    return err;
-  const int grid = std::max(1, std::min(n_tiles, n_sm * std::max(per_sm, 1)));
-  if ((err = cudaMemsetAsync(counter, 0, sizeof(int), stream)) != cudaSuccess) return err;
-  kern<<<grid, kThreads, 0, stream>>>(x, diag, rows, idx, ew,
-                                      reinterpret_cast<const int4*>(tiles), n_tiles, counter,
-                                      out);
+                   const float* ew, const int* items, int n_items, const int* split_p0,
+                   int* counters, float* partial, float* out, cudaStream_t stream) {
+  const int grid = (n_items + kWarps - 1) / kWarps;
+  spmm_ell_kernel<D><<<grid, kThreads, 0, stream>>>(x, diag, rows, idx, ew,
+                                                    reinterpret_cast<const int4*>(items), n_items,
+                                                    split_p0, counters, partial, out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // out (n_rows, d) float32 = A·x + diag ⊙ x.  diag may be null.  d is 128 or
-// 256.  Returns the launch's cudaError_t (0 on success); the work itself
-// runs asynchronously on `stream`.
+// 256.  items is the (n_items, 8) int32 segment table; split_p0 (n_split + 1)
+// the first partial of each cut row; counters (n_split) int scratch, zero on
+// entry and left zero on exit, and partial (split_p0[n_split], d) float32
+// scratch.  One kernel launch; returns its cudaError_t (0 on success), and
+// the work itself runs asynchronously on `stream`.
 extern "C" int spmm_ell_forward(const float* x, const float* diag, const int* rows,
-                                const int* idx, const float* ew, const int* tiles, int n_tiles,
-                                int* counter, float* out, int d, void* stream) {
+                                const int* idx, const float* ew, const int* items, int n_items,
+                                const int* split_p0, int* counters, float* partial, float* out,
+                                int d, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_tiles <= 0) return cudaSuccess;
-  if (d == 128) return launch<128>(x, diag, rows, idx, ew, tiles, n_tiles, counter, out, s);
-  if (d == 256) return launch<256>(x, diag, rows, idx, ew, tiles, n_tiles, counter, out, s);
+  if (n_items <= 0) return cudaSuccess;
+  if (d == 128)
+    return launch<128>(x, diag, rows, idx, ew, items, n_items, split_p0, counters, partial, out,
+                       s);
+  if (d == 256)
+    return launch<256>(x, diag, rows, idx, ew, items, n_items, split_p0, counters, partial, out,
+                       s);
   return cudaErrorInvalidValue;
 }

@@ -12,16 +12,22 @@ out[row] = Σ_k w[row, k] · x[idx[row, k]] + diag[row] · x[row].
   scatter (``kernels/gcn_fused.py::gcn_layer``).  Pad slots hold
   ``idx = 0``, ``w = 0``: a non-finite x[0] poisons the padded rows
   (0·NaN), as in the JAX package.
-* ``fused_plan`` — the tile table both ELL kernels walk (this one and the
-  fused GCN layer): every bucket cut into tiles of at most 32 rows (fewer
-  for large K, so a tile holds about ``TILE_SLOTS`` slots), plus K = 0 tiles
-  for the rows in no bucket, ordered heaviest first.
+* ``fused_plan`` — the tile table the fused GCN layer walks: every bucket
+  cut into tiles of at most 32 rows (fewer for large K, so a tile holds
+  about ``TILE_SLOTS`` slots), plus K = 0 tiles for the rows in no bucket,
+  ordered heaviest first.  Its flattened rows/idx/w arrays serve both ELL
+  kernels.
+* ``segment_plan`` — the work table of the SpMM kernel: warp-sized items,
+  either a run of short rows of one bucket (at most ``PACK_VSLOTS`` virtual
+  slots: each row's K slots plus one for the diagonal) or one segment of a
+  row whose K exceeds ``SEG_SLOTS``; a cut row's segments leave partial rows
+  that the last of them sums in segment order.  Heaviest first.
 """
 
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -31,6 +37,8 @@ from tpugraph_torch.sparse.ell import EllMatrix
 
 TILE_ROWS = 32  # kTileRows in csrc/gcn_fused.cu
 TILE_SLOTS = 1024  # target ELL slots per tile: large-K buckets get fewer rows
+SEG_SLOTS = 128  # longest run of one row's ELL slots in one SpMM work item
+PACK_VSLOTS = 64  # virtual slots (K + 1 per row) of a packed SpMM item: two chunks
 SUPPORTED_DIMS = (128, 256)  # csrc/spmm_ell.cu template instances
 
 # kernel launches since the process started (or the caller last reset it)
@@ -131,6 +139,69 @@ def fused_plan(m: EllMatrix) -> FusedPlan:
     return plan
 
 
+@dataclass
+class SegmentPlan:
+    """The SpMM kernel's work table for one EllMatrix, on that matrix's
+    device; the rows/idx/w arrays are ``base``'s (``fused_plan``)."""
+
+    base: FusedPlan
+    # (n_items, 8) int32: first row's position in base.rows, rows, K, first
+    # slot; virtual slots [v0, v1) of those rows (K + 1 per row, the last
+    # one the diagonal); partial index and cut-row index, or -1 for an item
+    # that writes its rows itself
+    items: torch.Tensor
+    split_p0: torch.Tensor  # (n_split + 1,) int32: each cut row's first partial
+    n_partials: int
+    max_item_slots: int  # the most ELL slots of any item
+    # (d, stream) -> the kernel's scratch there: the cut rows' partials, then
+    # their counters, zeroed once (the kernel leaves each counter at 0)
+    scratch: dict = field(default_factory=dict)
+
+
+def segment_plan(m: EllMatrix) -> SegmentPlan:
+    """Build the SpMM kernel's work table (once per matrix, cached on it
+    beside ``fused_plan``'s tiles)."""
+    if "segments" in m.cache:
+        return m.cache["segments"]
+    cap, pack = SEG_SLOTS, PACK_VSLOTS
+    base = fused_plan(m)
+    items, slots, split_p0 = [], [], [0]
+    pos = slot = 0
+    groups = [(b.k, int(b.rows.shape[0])) for b in m.buckets] + [(0, base.n_zero_rows)]
+    for k, n_rows in groups:
+        if k <= cap:  # runs of whole rows, within both the packing and the cap
+            per = max(1, min(pack // (k + 1), cap // k if k else pack))
+            for r0 in range(0, n_rows, per):
+                n = min(per, n_rows - r0)
+                items.append((pos + r0, n, k, slot + r0 * k, 0, n * (k + 1), -1, -1))
+                slots.append(n * k)
+        else:  # each row cut into balanced segments of at most cap slots
+            n_seg = -(-k // cap)
+            bounds = [j * k // n_seg for j in range(n_seg + 1)]
+            for r in range(n_rows):
+                p0, s = split_p0[-1], len(split_p0) - 1
+                for j in range(n_seg):
+                    last = j == n_seg - 1  # carries the diagonal's slot
+                    items.append((pos + r, 1, k, slot + r * k, bounds[j], bounds[j + 1] + last,
+                                  p0 + j, s))
+                    slots.append(bounds[j + 1] - bounds[j])
+                split_p0.append(p0 + n_seg)
+        pos += n_rows
+        slot += n_rows * k
+    t = np.asarray(items, np.int64).reshape(-1, 8)
+    t = t[np.argsort(-(t[:, 5] - t[:, 4]), kind="stable")]  # heaviest first
+    dev = m.device
+    plan = SegmentPlan(
+        base=base,
+        items=torch.from_numpy(t.astype(np.int32)).to(dev).contiguous(),
+        split_p0=torch.from_numpy(np.asarray(split_p0, np.int32)).to(dev),
+        n_partials=int(split_p0[-1]),
+        max_item_slots=max(slots, default=0),
+    )
+    m.cache["segments"] = plan
+    return plan
+
+
 def check_diag(m: EllMatrix, diag: torch.Tensor | None, dev: torch.device) -> None:
     if diag is None:
         return
@@ -146,7 +217,7 @@ def _lib():
     fn = _build.load("spmm_ell").spmm_ell_forward
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, p, p, i, p]
+        fn.argtypes = [p, p, p, p, p, p, i, p, p, p, p, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -168,13 +239,25 @@ def ell_spmm(m: EllMatrix, diag: torch.Tensor | None, x: torch.Tensor) -> torch.
     check_diag(m, diag, x.device)
     if m.device != x.device:
         raise ValueError(f"the operator must be on {x.device}")
-    plan = fused_plan(m)
-    out = torch.empty((m.n_rows, x.shape[1]), dtype=torch.float32, device=x.device)
-    counter = torch.empty(1, dtype=torch.int32, device=x.device)
+    return _launch(m, diag, x, segment_plan(m))
+
+
+def _launch(m: EllMatrix, diag: torch.Tensor | None, x: torch.Tensor,
+            plan: SegmentPlan) -> torch.Tensor:
+    """One kernel launch over ``plan``'s work items, on checked inputs."""
+    d = x.shape[1]
+    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+    scratch = plan.scratch.get((d, stream))
+    if scratch is None:
+        scratch = torch.zeros(plan.n_partials * d + plan.split_p0.shape[0] - 1,
+                              dtype=torch.float32, device=x.device)
+        plan.scratch[(d, stream)] = scratch
+    partial = scratch.data_ptr()
+    out = torch.empty((m.n_rows, d), dtype=torch.float32, device=x.device)
     err = _lib()(x.data_ptr(), None if diag is None else diag.data_ptr(),
-                 plan.rows.data_ptr(), plan.idx.data_ptr(), plan.w.data_ptr(),
-                 plan.tiles.data_ptr(), plan.tiles.shape[0], counter.data_ptr(),
-                 out.data_ptr(), x.shape[1], torch.cuda.current_stream(x.device).cuda_stream)
+                 plan.base.rows.data_ptr(), plan.base.idx.data_ptr(), plan.base.w.data_ptr(),
+                 plan.items.data_ptr(), plan.items.shape[0], plan.split_p0.data_ptr(),
+                 partial + 4 * plan.n_partials * d, partial, out.data_ptr(), d, stream)
     if err != 0:
         raise RuntimeError(f"spmm_ell launch failed with CUDA error {err}")
     global launches
