@@ -11,8 +11,11 @@ Phases, each printing one JSON line:
              nvcc (sm_90a), one nvcc per source, all started together.
 3. kernel  — the fused GCN-layer kernel against its plain PyTorch version at
              the zh-en-scale operator, fp32 and bf16, including the rows that
-             lie in no ELL bucket; kernel, plain and library timings and the
-             card's bound for the same work.  Then the same for the ELL SpMM
+             lie in no ELL bucket (two launches must agree bit for bit);
+             kernel, plain and library timings, the card's bound for the
+             same work, and its device time split between the hub rows'
+             segments, the rest, the short rows and the K = 0 tiles.  Then
+             the same for the ELL SpMM
              kernel on the transpose operator (the layers' backward; two
              launches must agree bit for bit; its device time is split
              between the hub rows' work and the rest, and a call's host
@@ -110,18 +113,29 @@ def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, tries: int = 3) -> float | None:
     """Device time of one call from a torch.profiler trace: the time of its
     kernels and memsets on the card, summed, so the host's launch cost is
-    left out (``time_ms`` includes it when it exceeds the device's work)."""
+    left out (``time_ms`` includes it when it exceeds the device's work).
+    A trace can come back without device events: the window is then taken
+    again, and after ``tries`` empty ones the time is None."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / iters / 1e3
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / iters / 1e3
+    return None
+
+
+def ratio(a: float | None, b: float | None) -> float | None:
+    """a / b, or None where either time was not measured."""
+    return None if a is None or b is None else a / b
 
 
 def time_cold_ms(fn, iters: int = 10) -> float:
@@ -180,19 +194,26 @@ def _bound(nbytes: float, ops: float, dtype: torch.dtype = torch.float32) -> tup
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _bound_ms(op, x, wmat, bias) -> tuple[float, str]:
+def _bound_ms(op, x, wmat, bias) -> tuple[float, str, float]:
     """Least time for one layer on this operator: each input byte read once
     (x, W, b, the buckets' rows/idx/w, diag), the output written once; the
-    operations this graph needs (real edges incl. the diagonal, then the
-    GEMM) at the peak rate of x's type."""
+    operations this graph needs as the kernel runs them: the real edges
+    (the diagonal included) at the fp32 SIMT rate, then the product as
+    three TF32 products on the tensor cores (two for a bf16 W, which is
+    exact in TF32).  Third, the bound with the whole product at the peak
+    rate of x's type (fp32 SIMT, or bf16 tensor cores)."""
     m = op.fwd
     n, d_in, d_out = m.n_rows, x.shape[1], wmat.shape[1]
     es = x.element_size()
     ell_bytes = sum(b.rows.numel() * 4 + b.idx.numel() * 4 + b.w.numel() * 4 for b in m.buckets)
     nbytes = (n * d_in * es + d_in * d_out * es + bias.numel() * 4 + op.diag.numel() * 4
               + ell_bytes + n * d_out * es)
-    ops = 2 * (m.nnz + op.n_diag) * d_in + 2 * n * d_in * d_out
-    return _bound(nbytes, ops, x.dtype)
+    edge_ops, gemm_ops = 2 * (m.nnz + op.n_diag) * d_in, 2 * n * d_in * d_out
+    n_products = 3 if x.dtype == torch.float32 else 2
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (edge_ops / PEAK_OPS[torch.float32] + n_products * gemm_ops / PEAK_TF32_OPS) * 1e3
+    bound, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound, bound_by, _bound(nbytes, edge_ops + gemm_ops, x.dtype)[0]
 
 
 def _csr(task, dev: torch.device, transpose: bool = False) -> torch.Tensor:
@@ -209,6 +230,29 @@ def _csr(task, dev: torch.device, transpose: bool = False) -> torch.Tensor:
             torch.from_numpy(crow), torch.from_numpy(cols[order]),
             torch.from_numpy(w[order].astype(np.float32)),
             size=(task.n_ent, task.n_ent), check_invariants=True).to(dev)
+
+
+def _gcn_split(m, diag, x, wmat, bias) -> dict:
+    """The fused layer's device time on parts of its work: all of it, the
+    rows of K ≥ 1,024 (their segments) and the rest, the short rows
+    (1 ≤ K ≤ 7), and the K = 0 tiles (no ELL gather: the diagonal and the
+    product alone).  Rows outside the part are left unwritten; only the
+    time is read."""
+    plan = gcn_fused.layer_plan(m)
+    tk, sk = plan.tiles.tiles[:, 2], plan.segs[:, 2]
+    masks = {"all": None, "k_ge_1024": (tk >= 1024, sk >= 1024),
+             "k_lt_1024": (tk < 1024, sk < 1024), "k_1_to_7": ((tk >= 1) & (tk <= 7), sk < 0),
+             "k_0": (tk == 0, sk < 0)}
+    out = {}
+    for name, mask in masks.items():
+        part = plan if mask is None else dataclasses.replace(
+            plan, tiles=dataclasses.replace(plan.tiles, tiles=plan.tiles.tiles[mask[0]].contiguous()),
+            segs=plan.segs[mask[1]].contiguous())
+        out[name] = {"tiles": int(part.tiles.tiles.shape[0]), "segments": int(part.segs.shape[0]),
+                     "device_ms": device_ms(
+                         lambda part=part: gcn_fused._launch(m, diag, x, wmat, bias, part))}
+    out["k_ge_1024_share"] = ratio(out["k_ge_1024"]["device_ms"], out["all"]["device_ms"])
+    return out
 
 
 def phase_kernel(task, smi: str, dev: torch.device) -> dict:
@@ -246,6 +290,10 @@ def phase_kernel(task, smi: str, dev: torch.device) -> dict:
         want = reference_layer(op.fwd, op.diag, x, wm, b)
         torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
         err = float((got.float() - want.float()).abs().max())
+        # every row's sum runs in a fixed order
+        same = torch.equal(got, fused_gcn_layer(op.fwd, op.diag, x, wm, b))
+        if not same:
+            raise AssertionError("gcn_fused: two launches on the same input differ")
         zero_err = None
         if zero_rows is not None:
             # rows in no bucket: diag·x·W + b, computed without the ELL
@@ -271,16 +319,21 @@ def phase_kernel(task, smi: str, dev: torch.device) -> dict:
             lib_ms = time_ms(library)
             lib_dev = device_ms(library)
             lib_cold = time_cold_ms(library)
-        bound, bound_by = _bound_ms(op, x, wm, b)
+        bound, bound_by, bound_x_type = _bound_ms(op, x, wm, b)
+        split = _gcn_split(op.fwd, op.diag, x, wm, b)
         results[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                               bound_by=bound_by, library_ms=lib_ms, device_ms=dev_ms,
-                              library_device_ms=lib_dev)
+                              library_device_ms=lib_dev, bound_x_type_ms=bound_x_type,
+                              precision="3xtf32" if dtype == torch.float32 else "2xtf32")
         emit({"phase": "kernel", "kernel": "gcn_fused", "dtype": str(dtype).split(".")[1],
               "max_abs_err": err, "no_bucket_rows_max_abs_err": zero_err, "ms": ms,
               "device_ms": dev_ms, "ms_cold_l2": ms_cold, "plain_ms": plain_ms,
               "library_ms": lib_ms, "library_device_ms": lib_dev,
               "library_ms_cold_l2": lib_cold, "library_refused": lib_refused, "bound_ms": bound,
-              "bound_by": bound_by, "share_of_bound": bound / ms, "card": smi})
+              "bound_by": bound_by, "share_of_bound": bound / ms,
+              "share_of_bound_device": ratio(bound, dev_ms), "bound_x_type_ms": bound_x_type,
+              "share_of_x_type_bound_device": ratio(bound_x_type, dev_ms),
+              "bit_identical_runs": same, "split": split, "card": smi})
     return results[torch.float32]
 
 
@@ -361,7 +414,7 @@ def phase_spmm(task, smi: str, dev: torch.device) -> dict:
           "plain_ms": plain_ms, "library_ms": lib_ms, "library_device_ms": lib_dev,
           "library_ms_cold_l2": lib_cold, "host_ms": host, "library_host_ms": lib_host,
           "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / ms,
-          "share_of_bound_device": bound / dev_ms, "bit_identical_runs": True,
+          "share_of_bound_device": ratio(bound, dev_ms), "bit_identical_runs": True,
           "seg_cap": SEG_SLOTS, "work_items": int(seg.items.shape[0]),
           "longest_item_slots": seg.max_item_slots, "cut_rows": int(seg.split_p0.shape[0] - 1),
           "split": split, "card": smi})

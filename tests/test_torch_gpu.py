@@ -178,6 +178,51 @@ def test_spmm_ell_hub_segments_match_plain(cuda, hub, d, split_diag):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d_in,d_out", [(128, 128), (128, 256), (256, 128)])
+def test_gcn_fused_short_and_hub_rows(cuda, dtype, d_in, d_out):
+    """Tiles of every K from 1 to 7 (packed virtual-slot walks, bucket tails
+    of under 8 rows among them) and a hub row of K ≥ 5,000, against the
+    plain version; two launches agree bit for bit, and the cached counters
+    read 0 after each call."""
+    rng = np.random.default_rng(d_in + d_out)
+    op = _hub_graph(rng, {3: 5300, 11: 300}).to(cuda)
+    ks = {b.k for b in op.fwd.buckets}
+    assert set(range(1, 8)) <= ks and max(ks) >= 5000
+    x = torch.from_numpy(rng.standard_normal((op.n_rows, d_in)).astype(np.float32))
+    wm = torch.from_numpy((rng.standard_normal((d_in, d_out)) / np.sqrt(d_in)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(d_out).astype(np.float32)).to(cuda)
+    x, wm = x.to(cuda, dtype), wm.to(cuda, dtype)
+    before = gcn_fused.launches
+    got = fused_gcn_layer(op.fwd, op.diag, x, wm, b)
+    again = fused_gcn_layer(op.fwd, op.diag, x, wm, b)
+    torch.cuda.synchronize()
+    assert gcn_fused.launches == before + 2
+    assert torch.equal(got, again)
+    plan = gcn_fused.layer_plan(op.fwd)
+    scratch = plan.scratch[(d_in, torch.cuda.current_stream().cuda_stream)]
+    assert plan.segs.shape[0] > 0 and not scratch[plan.n_partials * d_in:].view(torch.int32).any()
+    want = reference_layer(op.fwd, op.diag, x, wm, b)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_gcn_fused_call_is_one_kernel(cuda):
+    """A warm call is one kernel on the device: no memset, no other work."""
+    rng = np.random.default_rng(4)
+    op = _graph(rng).to(cuda)
+    x = torch.randn(op.n_rows, 128, device=cuda)
+    wm = torch.randn(128, 128, device=cuda)
+    fused_gcn_layer(op.fwd, op.diag, x, wm)  # builds the tile table and the counters
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fused_gcn_layer(op.fwd, op.diag, x, wm)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "gcn_fused_kernel" in names[0], names
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("q,c,d", [(70, 4001, 4), (1000, 777, 20), (4500, 4500, 128),
                                    (130, 2050, 256), (9000, 4500, 192), (333, 2049, 64)])
 def test_sinkhorn_splits_match_plain(cuda, q, c, d):

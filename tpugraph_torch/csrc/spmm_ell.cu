@@ -29,7 +29,8 @@
 //     this chunk's gathers start, so that load is off the critical path;
 //     8 source rows (4 at d = 256) are in flight per warp: at 79 registers
 //     that leaves room for more warps per SM, which measured faster on the
-//     H100 than 16 rows per warp at 127 registers;
+//     H100 than 16 rows per warp at 127 registers.  This walk is
+//     ell::walk_vslots (ell_gather.cuh), shared with gcn_fused.cu;
 //   * a segment writes its partial row to fp32 scratch; the last segment of
 //     a row to finish (a per-row counter) sums the row's partials in segment
 //     order and writes the row, so the result does not depend on which
@@ -49,32 +50,6 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 using ell::kFull;
 
-// Virtual slot v of an item whose rows start at rows[pos0] with K ELL slots
-// each from slot0: ELL slot k < K of local row v / (K + 1), or, for k == K,
-// the row's diagonal.  src < 0 means nothing to gather (past the item, or
-// no diagonal).
-__device__ __forceinline__ void load_vslot(int v, int v1, int pos0, int k_row, long slot0,
-                                           const int* __restrict__ rows,
-                                           const int* __restrict__ idx,
-                                           const float* __restrict__ ew,
-                                           const float* __restrict__ diag, int& src, float& w,
-                                           int& row) {
-  src = -1;
-  w = 0.f;
-  row = -1;
-  if (v >= v1) return;
-  const int kp = k_row + 1, r = v / kp, k = v - r * kp;
-  row = __ldg(rows + pos0 + r);
-  if (k < k_row) {
-    const long s = slot0 + static_cast<long>(r) * k_row + k;
-    src = __ldg(idx + s);
-    w = __ldg(ew + s);
-  } else if (diag != nullptr) {
-    src = row;
-    w = __ldg(diag + row);
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 spmm_ell_kernel(const float* __restrict__ x, const float* __restrict__ diag,
@@ -83,7 +58,6 @@ spmm_ell_kernel(const float* __restrict__ x, const float* __restrict__ diag,
                 const int* __restrict__ split_p0, int* __restrict__ counters,
                 float* __restrict__ partial, float* __restrict__ out) {
   constexpr int CI = D / 128;
-  constexpr int U = 8 / CI;  // source rows in flight per warp
   const int lane = threadIdx.x & 31;
   const int item = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (item >= n_items) return;
@@ -95,52 +69,12 @@ spmm_ell_kernel(const float* __restrict__ x, const float* __restrict__ diag,
   const int v0 = b.x, v1 = b.y, part = b.z, split = b.w;
 
   float acc[CI][4] = {};
-  int cur = -1;  // the row acc belongs to
-  int nx_src, nx_row;
-  float nx_w;
-  load_vslot(v0 + lane, v1, pos0, k_row, slot0, rows, idx, ew, diag, nx_src, nx_w, nx_row);
-  for (int base = v0; base < v1; base += 32) {
-    const int my_src = nx_src, my_row = nx_row;
-    const float my_w = nx_w;
-    if (base + 32 < v1)  // the next chunk's slots, in flight during this chunk's gathers
-      load_vslot(base + 32 + lane, v1, pos0, k_row, slot0, rows, idx, ew, diag, nx_src, nx_w,
-                 nx_row);
-    const int n = min(32, v1 - base);
-    for (int j = 0; j < n; j += U) {
-      float v[U][CI][4];
-      float wj[U];
-      int rj[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int src = __shfl_sync(kFull, my_src, j + u);
-        wj[u] = __shfl_sync(kFull, my_w, j + u);
-        rj[u] = __shfl_sync(kFull, my_row, j + u);
-        if (j + u < n && src >= 0) {
-#pragma unroll
-          for (int c = 0; c < CI; ++c)
-            ell::load4(x + static_cast<long>(src) * D + c * 128 + lane * 4, v[u][c]);
-        } else {
-          wj[u] = 0.f;
-#pragma unroll
-          for (int c = 0; c < CI; ++c) v[u][c][0] = v[u][c][1] = v[u][c][2] = v[u][c][3] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (j + u >= n) break;
-        if (rj[u] != cur) {  // a packed item moves on to its next row
-          if (cur >= 0) ell::put_row<D>(out + static_cast<long>(cur) * D, lane, acc);
-#pragma unroll
-          for (int c = 0; c < CI; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
-          cur = rj[u];
-        }
-#pragma unroll
-        for (int c = 0; c < CI; ++c)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[c][e] = fmaf(wj[u], v[u][c][e], acc[c][e]);
-      }
-    }
-  }
+  int cur;  // the row acc belongs to
+  ell::walk_vslots<float, D, true>(
+      x, diag, rows, idx, ew, pos0, k_row, slot0, v0, v1, lane, acc, cur,
+      [&](int row, const float (&a)[CI][4]) {  // a packed item moves on to its next row
+        ell::put_row<D>(out + static_cast<long>(row) * D, lane, a);
+      });
   if (part < 0) {
     ell::put_row<D>(out + static_cast<long>(cur) * D, lane, acc);
     return;

@@ -6,10 +6,17 @@ kernel in ``csrc/gcn_fused.cu``; on a CPU tensor it runs the plain version,
 ``reference_layer`` (ELL aggregate via ``index_select``, then the GEMM).  It
 never falls back from the card to the plain version.
 
-The kernel walks the tile table of ``kernels/spmm_ell.py::fused_plan``
-(built once per ELL matrix, heaviest tiles first) and writes each tile's
-rows straight to their natural positions, so the buckets' outputs need no
-concatenation and no ``row_order`` gather.
+``layer_plan`` is the kernel's work, built once per ELL matrix from the two
+tables the ELL kernels share (``kernels/spmm_ell.py``): the rows of
+K > ``SEG_SLOTS`` as ``segment_plan``'s segments, whose partial rows the
+row's last segment sums in order before its own product, then
+``fused_plan``'s tiles of the other rows, heaviest first.  Each tile's rows
+are aggregated in shared memory (packed virtual-slot walks) and multiplied
+by W on the tensor cores as a 3× TF32 split, fp32-accurate.  Every row is
+written straight to its natural position, so the buckets' outputs need no
+concatenation and no ``row_order`` gather.  The work counters and the
+segments' partials are cached per (d_in, stream) and left at zero by the
+kernel, so a call is one launch: no memset, no scratch allocation.
 
 ``gcn_layer`` is the trainable layer, a ``torch.autograd.Function``: the
 forward is this kernel; the backward is u = Aᵀ·ḡ by the ELL SpMM kernel
@@ -21,12 +28,14 @@ plain versions, so the CPU tests exercise the backward formula itself.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass, field
 
 import torch
 
 from tpugraph_torch.kernels import _build
-from tpugraph_torch.kernels.spmm_ell import (apply_with_diag, check_diag, check_n_cols,
-                                              ell_spmm, fused_plan)
+from tpugraph_torch.kernels.spmm_ell import (SEG_SLOTS, FusedPlan, apply_with_diag,
+                                              check_diag, check_n_cols, ell_spmm, fused_plan,
+                                              segment_plan)
 from tpugraph_torch.sparse.ell import EllMatrix, EllOperator
 
 SUPPORTED_DIMS = {(128, 128), (128, 256), (256, 128)}  # template instances
@@ -52,7 +61,7 @@ def _lib():
     fn = lib.gcn_fused_forward
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, p, p, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, p, i, i, p, p, p, p, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -89,17 +98,57 @@ def fused_gcn_layer(m: EllMatrix, diag: torch.Tensor | None, x: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"fused_gcn_layer runs on cuda or cpu, not {x.device}")
     _check(m, diag, x, wmat, bias)
-    plan = fused_plan(m)
-    fn = _lib()
+    return _launch(m, diag, x, wmat, bias, layer_plan(m))
+
+
+@dataclass
+class LayerPlan:
+    """The fused layer's work on one EllMatrix, on that matrix's device:
+    ``fused_plan``'s tiles for the rows of K ≤ SEG_SLOTS (the kernel skips
+    the other tiles), and ``segment_plan``'s segments of the rows it cuts."""
+
+    tiles: FusedPlan
+    segs: torch.Tensor  # (n_segs, 8) int32: the segment plan's items with a partial
+    split_p0: torch.Tensor  # (n_split + 1,) int32: each cut row's first partial
+    n_partials: int
+    # (d_in, stream) -> the kernel's scratch there: the cut rows' partials,
+    # then the work counters and one counter per cut row, zeroed once (the
+    # kernel leaves each at 0)
+    scratch: dict = field(default_factory=dict)
+
+
+def layer_plan(m: EllMatrix) -> LayerPlan:
+    """Build (once per matrix, cached on it) the fused layer's work."""
+    plan = m.cache.get("layer")
+    if plan is None:
+        seg = segment_plan(m)
+        plan = LayerPlan(tiles=seg.base, segs=seg.items[seg.items[:, 6] >= 0].contiguous(),
+                         split_p0=seg.split_p0, n_partials=seg.n_partials)
+        m.cache["layer"] = plan
+    return plan
+
+
+def _launch(m: EllMatrix, diag: torch.Tensor | None, x: torch.Tensor, wmat: torch.Tensor,
+            bias: torch.Tensor | None, plan: LayerPlan) -> torch.Tensor:
+    """One kernel launch over ``plan``'s segments and tiles, on checked inputs."""
+    d_in = x.shape[1]
+    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+    scratch = plan.scratch.get((d_in, stream))
+    if scratch is None:
+        scratch = torch.zeros(plan.n_partials * d_in + 2 + plan.split_p0.shape[0] - 1,
+                              dtype=torch.float32, device=x.device)
+        plan.scratch[(d_in, stream)] = scratch
+    partial = scratch.data_ptr()
+    tiles = plan.tiles
     out = torch.empty((m.n_rows, wmat.shape[1]), dtype=x.dtype, device=x.device)
-    counter = torch.empty(1, dtype=torch.int32, device=x.device)
-    err = fn(x.data_ptr(), wmat.data_ptr(),
-             None if bias is None else bias.data_ptr(),
-             None if diag is None else diag.data_ptr(),
-             plan.rows.data_ptr(), plan.idx.data_ptr(), plan.w.data_ptr(),
-             plan.tiles.data_ptr(), plan.tiles.shape[0], counter.data_ptr(),
-             out.data_ptr(), x.shape[1], wmat.shape[1], _DTYPE_CODE[x.dtype],
-             torch.cuda.current_stream(x.device).cuda_stream)
+    err = _lib()(x.data_ptr(), wmat.data_ptr(),
+                 None if bias is None else bias.data_ptr(),
+                 None if diag is None else diag.data_ptr(),
+                 tiles.rows.data_ptr(), tiles.idx.data_ptr(), tiles.w.data_ptr(),
+                 tiles.tiles.data_ptr(), tiles.tiles.shape[0], plan.segs.data_ptr(),
+                 plan.segs.shape[0], SEG_SLOTS, plan.split_p0.data_ptr(),
+                 partial + 4 * plan.n_partials * d_in, partial, out.data_ptr(), d_in,
+                 wmat.shape[1], _DTYPE_CODE[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"gcn_fused launch failed with CUDA error {err}")
     global launches
