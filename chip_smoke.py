@@ -10,17 +10,18 @@ Phases, each printing one JSON line:
 2. build   — compile every kernel of the serving and training paths with
              nvcc (sm_90a), one nvcc per source, all started together.
 3. kernel  — the fused GCN-layer kernel against its plain PyTorch version at
-             the zh-en-scale operator, fp32 and bf16, including the rows that
-             lie in no ELL bucket (two launches must agree bit for bit);
-             kernel, plain and library timings, the card's bound for the
-             same work, and its device time split between the hub rows'
+             the zh-en-scale operator, at (d_in, d_out) = (128, 128) and
+             (256, 256), fp32 and bf16, including the rows that lie in no
+             ELL bucket (two launches must agree bit for bit); kernel,
+             plain and library timings, the card's bound for the same
+             work, and its device time split between the hub rows'
              segments, the rest, the short rows and the K = 0 tiles.  Then
-             the same for the ELL SpMM
-             kernel on the transpose operator (the layers' backward; two
-             launches must agree bit for bit; its device time is split
-             between the hub rows' work and the rest, and a call's host
-             time is read beside it) and for the Sinkhorn potential-update
-             kernel at 4,500 × 4,500 × 128 (at τ = 0.3 and 0.05, and at
+             the same for the ELL SpMM kernel on the transpose operator
+             (the layers' backward, d = 128 and 256; two launches must
+             agree bit for bit; at d = 128 its device time is split between
+             the hub rows' work and the rest, and a call's host time is
+             read beside it) and for the Sinkhorn potential-update kernel
+             at 4,500 × 4,500 × 128 and × 256 (at τ = 0.3 and 0.05, and at
              twice the query rows).  Kernel times are CUDA events over
              back-to-back calls; ``device_ms`` is the profiler's sum of the
              call's device work alone.
@@ -35,6 +36,16 @@ Phases, each printing one JSON line:
              gradients held against the plain path on the card; the step's
              time split into forward, backward, OT forward, OT backward and
              Adam.
+6. recipe  — recipe v6 (dim 256, bootstrapping, the OT head, CSLS eval) at
+             zh-en scale through ``driver.run``, cut to 10 of 600 epochs,
+             proposals from epoch 2 (not 200), no periodic eval; every
+             kernel's launches counted; one step with the run's proposals
+             held against the plain path; the same run preempted by SIGTERM
+             during epoch 5 and resumed to epoch 10, its final loss held to
+             the uninterrupted run's; ``driver.evaluate`` from the run's
+             checkpoint directory (CSLS) and the CSLS top-10 for the 10,500
+             test queries, both held against a float64 search; the time of
+             each stage.
 
 It then prints the kernel table, the ``nvidia-smi`` name/power line, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -43,9 +54,12 @@ non-zero before that line.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
+import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -57,6 +71,7 @@ import numpy as np
 import torch
 
 from tpugraph_torch.configs.configs import get_config
+from tpugraph_torch.configs.recipes import RECIPES
 from tpugraph_torch.convert import save_params
 from tpugraph_torch.data.synthetic import synthetic_align_task
 from tpugraph_torch.kernels import _build, gcn_fused, sinkhorn_fused, spmm_ell
@@ -66,9 +81,11 @@ from tpugraph_torch.kernels.sinkhorn_fused import (PRECISION, stream_plan,
                                                    sinkhorn_update_plain, sq_norms)
 from tpugraph_torch.kernels.spmm_ell import (SEG_SLOTS, apply_with_diag, ell_spmm, fused_plan,
                                              segment_plan)
+from tpugraph_torch.models.align import AlignMTL
 from tpugraph_torch.models.encoder import init_params
 from tpugraph_torch.serve import topk_alignments
 from tpugraph_torch.sparse.build import build_adjacency, coo_from_triples, coo_normalize
+from tpugraph_torch.train.checkpoint import Checkpointer
 from tpugraph_torch.train.driver import evaluate, run
 from tpugraph_torch.train.eval import _both_direction_ranks
 from tpugraph_torch.train.loop import embed
@@ -278,9 +295,9 @@ def phase_kernel(task, smi: str, dev: torch.device) -> dict:
 
     zero_rows = plan.rows[-plan.n_zero_rows:].long() if plan.n_zero_rows else None
     rng = np.random.default_rng(0)
-    d = 128
     results = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for d, dtype in ((128, torch.float32), (128, torch.bfloat16), (256, torch.float32),
+                     (256, torch.bfloat16)):
         x = torch.from_numpy(rng.standard_normal((task.n_ent, d)).astype(np.float32)).to(dev)
         wm = torch.from_numpy((rng.standard_normal((d, d)) / np.sqrt(d)).astype(np.float32)).to(dev)
         b = torch.from_numpy(rng.standard_normal(d).astype(np.float32)).to(dev)
@@ -321,11 +338,14 @@ def phase_kernel(task, smi: str, dev: torch.device) -> dict:
             lib_cold = time_cold_ms(library)
         bound, bound_by, bound_x_type = _bound_ms(op, x, wm, b)
         split = _gcn_split(op.fwd, op.diag, x, wm, b)
-        results[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                              bound_by=bound_by, library_ms=lib_ms, device_ms=dev_ms,
-                              library_device_ms=lib_dev, bound_x_type_ms=bound_x_type,
-                              precision="3xtf32" if dtype == torch.float32 else "2xtf32")
-        emit({"phase": "kernel", "kernel": "gcn_fused", "dtype": str(dtype).split(".")[1],
+        results[d, dtype] = dict(
+            d_in=d, d_out=d, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=bound_by, library_ms=lib_ms, device_ms=dev_ms, ms_cold_l2=ms_cold,
+            library_device_ms=lib_dev, bound_x_type_ms=bound_x_type,
+            panels=gcn_fused.PANELS[d, d],
+            precision="3xtf32" if dtype == torch.float32 else "2xtf32")
+        emit({"phase": "kernel", "kernel": "gcn_fused", "d_in": d, "d_out": d,
+              "panels": gcn_fused.PANELS[d, d], "dtype": str(dtype).split(".")[1],
               "max_abs_err": err, "no_bucket_rows_max_abs_err": zero_err, "ms": ms,
               "device_ms": dev_ms, "ms_cold_l2": ms_cold, "plain_ms": plain_ms,
               "library_ms": lib_ms, "library_device_ms": lib_dev,
@@ -334,7 +354,10 @@ def phase_kernel(task, smi: str, dev: torch.device) -> dict:
               "share_of_bound_device": ratio(bound, dev_ms), "bound_x_type_ms": bound_x_type,
               "share_of_x_type_bound_device": ratio(bound_x_type, dev_ms),
               "bit_identical_runs": same, "split": split, "card": smi})
-    return results[torch.float32]
+    # the recipe's width first; the others beside it
+    return {**results[256, torch.float32],
+            "bf16": results[256, torch.bfloat16],
+            "at_d128": {**results[128, torch.float32], "bf16": results[128, torch.bfloat16]}}
 
 
 def host_ms(fn, calls: int = 200) -> float:
@@ -366,9 +389,10 @@ def _spmm_split(m, diag, g, hub_ks=(256, 1024)) -> dict:
             for name, part in parts}
 
 
-def phase_spmm(task, smi: str, dev: torch.device) -> dict:
+def phase_spmm(task, smi: str, dev: torch.device, d: int = 128, split: bool = True) -> dict:
     """The ELL SpMM kernel where training runs it: u = Aᵀ·ḡ over the
-    transpose operator, d = 128, fp32."""
+    transpose operator, fp32, at width ``d``; ``split`` adds the device
+    time of parts of its work and a call's host time."""
     op = build_adjacency(task.n_ent, task.merged_triples, n_rel=task.n_rel).to(dev)
     m = op.bwd
     plan = fused_plan(m)
@@ -381,7 +405,6 @@ def phase_spmm(task, smi: str, dev: torch.device) -> dict:
           "card": smi})
     at_csr = _csr(task, dev, transpose=True)
     rng = np.random.default_rng(1)
-    d = 128
     g = torch.from_numpy(rng.standard_normal((task.n_ent, d)).astype(np.float32)).to(dev)
     got = ell_spmm(m, op.diag, g)
     sync(dev)
@@ -400,9 +423,9 @@ def phase_spmm(task, smi: str, dev: torch.device) -> dict:
     dev_ms = device_ms(lambda: ell_spmm(m, op.diag, g))
     lib_dev = device_ms(lambda: torch.sparse.mm(at_csr, g))
     lib_cold = time_cold_ms(lambda: torch.sparse.mm(at_csr, g))
-    host = host_ms(lambda: ell_spmm(m, op.diag, g))
-    lib_host = host_ms(lambda: torch.sparse.mm(at_csr, g))
-    split = _spmm_split(m, op.diag, g)
+    host = host_ms(lambda: ell_spmm(m, op.diag, g)) if split else None
+    lib_host = host_ms(lambda: torch.sparse.mm(at_csr, g)) if split else None
+    split = _spmm_split(m, op.diag, g) if split else None
     # each input byte once (g, diag, the buckets' rows/idx/w), the output
     # once; 2 operations per real edge (diagonal included) and column
     ell_bytes = sum(b.rows.numel() * 4 + b.idx.numel() * 4 + b.w.numel() * 4
@@ -410,7 +433,7 @@ def phase_spmm(task, smi: str, dev: torch.device) -> dict:
     nbytes = 2 * m.n_rows * d * 4 + op.diag.numel() * 4 + ell_bytes
     bound, bound_by = _bound(nbytes, 2 * (m.nnz + op.n_diag) * d)
     emit({"phase": "kernel", "kernel": "spmm_ell", "operator": "transpose", "dtype": "float32",
-          "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "ms_cold_l2": ms_cold,
+          "d": d, "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "ms_cold_l2": ms_cold,
           "plain_ms": plain_ms, "library_ms": lib_ms, "library_device_ms": lib_dev,
           "library_ms_cold_l2": lib_cold, "host_ms": host, "library_host_ms": lib_host,
           "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / ms,
@@ -418,10 +441,10 @@ def phase_spmm(task, smi: str, dev: torch.device) -> dict:
           "seg_cap": SEG_SLOTS, "work_items": int(seg.items.shape[0]),
           "longest_item_slots": seg.max_item_slots, "cut_rows": int(seg.split_p0.shape[0] - 1),
           "split": split, "card": smi})
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-                library_ms=lib_ms, device_ms=dev_ms, library_device_ms=lib_dev, seg_cap=SEG_SLOTS,
-                work_items=int(seg.items.shape[0]),
-                longest_item_slots=seg.max_item_slots)
+    return dict(d=d, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by, library_ms=lib_ms, device_ms=dev_ms, ms_cold_l2=ms_cold,
+                library_device_ms=lib_dev, seg_cap=SEG_SLOTS,
+                work_items=int(seg.items.shape[0]), longest_item_slots=seg.max_item_slots)
 
 
 def _sinkhorn_inputs(dev: torch.device, s: int = 4500, d: int = 128, rows: int | None = None):
@@ -501,10 +524,10 @@ def phase_sinkhorn(smi: str, dev: torch.device, s: int = 4500, d: int = 128,
           "library_logsumexp_ms": lse_ms, "bound_ms": bound, "bound_by": bound_by,
           "share_of_bound": bound / ms, "bound_fp32_ms": bound_fp32,
           "share_of_fp32_bound": bound_fp32 / ms, "ms_2x_queries": ms_2x, "card": smi})
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-                library_ms=addmm_ms + lse_ms, device_ms=dev_ms, library_device_ms=lib_dev,
-                bound_fp32_ms=bound_fp32, precision=PRECISION,
-                candidate_splits=n_splits)
+    return dict(q=s, c=s, d=d, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by, library_ms=addmm_ms + lse_ms, device_ms=dev_ms,
+                ms_cold_l2=ms_cold, library_device_ms=lib_dev, bound_fp32_ms=bound_fp32,
+                precision=PRECISION, candidate_splits=n_splits)
 
 
 def phase_slice(task, smi: str, dev: torch.device) -> int:
@@ -589,6 +612,16 @@ def _reset_launch_counts() -> None:
     gcn_fused.launches = spmm_ell.launches = sinkhorn_fused.launches = 0
 
 
+def _expected_launches(cfg, t: dict) -> dict:
+    """A training run's launches from its timings' counts: two fused layers
+    per encoder forward (each step, each interval boundary's forward, each
+    eval), two SpMMs per step (the layers' backward), 2·iters + 1 potential
+    updates per step."""
+    return {"gcn_fused": 2 * (t["steps"] + t["forwards"] + t["evals"]),
+            "spmm_ell": 2 * t["steps"],
+            "sinkhorn_fused": (2 * cfg.sinkhorn_iters + 1) * t["steps"]}
+
+
 def _step_batch(res, cfg, dev):
     task = res.task
     pairs = torch.as_tensor(task.train_pairs, dtype=torch.int64, device=dev)
@@ -597,10 +630,13 @@ def _step_batch(res, cfg, dev):
     return {"pairs": pairs, "neg_l": neg_l, "neg_r": neg_r}
 
 
-def _check_step(res, cfg, dev) -> dict:
+def _check_step(res, cfg, dev, batch: dict | None = None) -> dict:
     """One step of the trained model through the kernels against the plain
-    path on the card: loss rel 1e-4, each gradient relative L2 1e-3."""
-    model, op, batch = res.model, res.op, _step_batch(res, cfg, dev)
+    path on the card: loss rel 1e-4, each gradient relative L2 1e-3.
+    ``batch``: the step's batch (with proposals ``pairs_aug`` and ``w``
+    when bootstrapping); None draws uniform negatives for the seed pairs."""
+    model, op = res.model, res.op
+    batch = batch or _step_batch(res, cfg, dev)
     model.zero_grad(set_to_none=True)
     _reset_launch_counts()
     loss, _ = model(op, batch)
@@ -616,7 +652,8 @@ def _check_step(res, cfg, dev) -> dict:
     h = torch.relu(reference_layer(op.fwd, op.diag, p["encoder.emb"], p["encoder.gc1.w"],
                                    p["encoder.gc1.b"]))
     emb = reference_layer(op.fwd, op.diag, h, p["encoder.gc2.w"], p["encoder.gc2.b"])
-    plain = (margin_align_loss(emb, batch["pairs"], batch["neg_l"], batch["neg_r"], cfg.gamma)
+    plain = (margin_align_loss(emb, batch.get("pairs_aug", batch["pairs"]), batch["neg_l"],
+                               batch["neg_r"], cfg.gamma, batch.get("w"))
              + cfg.sinkhorn_weight * sinkhorn_align_loss_plain(
                  emb, batch["pairs"], tau=cfg.sinkhorn_tau, n_iters=cfg.sinkhorn_iters))
     plain.backward()
@@ -718,9 +755,7 @@ def phase_train(task, smi: str, dev: torch.device) -> dict:
     run_s = time.perf_counter() - t0
     counts = _launch_counts()
     t = res.timings
-    expected = {"gcn_fused": 2 * (t["steps"] + t["minings"] + t["evals"]),
-                "spmm_ell": 2 * t["steps"],
-                "sinkhorn_fused": (2 * cfg.sinkhorn_iters + 1) * t["steps"]}
+    expected = _expected_launches(cfg, t)
     if counts != expected or t["steps"] != 10 or t["minings"] != 1:
         raise AssertionError(f"launches {counts} (expected {expected}), timings {t}")
     losses = res.losses
@@ -747,27 +782,196 @@ def phase_train(task, smi: str, dev: torch.device) -> dict:
     return counts
 
 
+# recipe v6 as chip_smoke runs it: only these are cut (value here, recipe's)
+RECIPE = "v6"
+RECIPE_CUTS = {"epochs": (10, 600), "boot_start": (2, 200), "eval_every": (0, 100)}
+
+
+@contextlib.contextmanager
+def _sigterm_in_step(n: int):
+    """Send this process SIGTERM during the n-th training step (the n-th
+    call of AlignMTL.forward), as a scheduler preempts a run."""
+    real, calls = AlignMTL.forward, [0]
+
+    def forward(self, op, batch):
+        calls[0] += 1
+        if calls[0] == n:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return real(self, op, batch)
+
+    AlignMTL.forward = forward
+    try:
+        yield
+    finally:
+        AlignMTL.forward = real
+
+
+def _hubness64(q: torch.Tensor, cands: torch.Tensor, k: int, block: int = 1024) -> torch.Tensor:
+    """Each candidate's mean float64 L1 distance to its k nearest queries."""
+    return torch.cat([torch.topk(torch.cdist(q, cands[c0:c0 + block], p=1), k, dim=0,
+                                 largest=False).values.mean(0)
+                      for c0 in range(0, cands.shape[0], block)])
+
+
+def _check_csls(emb, task, queries, candidates, vals, ids, k: int, csls_k: int,
+                dev: torch.device, sub: int = 64) -> dict:
+    """CSLS ranks (l2r) and top-k of the first ``sub`` queries against a
+    float64 search: a rank may differ only by the candidates whose score
+    lies within 1e-5 of the distance scale of the threshold; top-k ids agree
+    on 99 %, values within 1e-5 of that scale."""
+    pairs = torch.as_tensor(task.test_pairs, dtype=torch.int64, device=dev)
+    ranks_l2r, _ = _both_direction_ranks(emb, pairs, csls_k=csls_k)
+    left, right = emb[pairs[:, 0]].double(), emb[pairs[:, 1]].double()
+    r = _hubness64(left, right, csls_k)
+    d = torch.cdist(left[:sub], right, p=1)
+    eps = 1e-5 * d.max(dim=1, keepdim=True).values
+    score = 2 * d - r[None, :]
+    idx = torch.arange(sub, device=dev)
+    thresh = score[idx, idx][:, None]
+    score[idx, idx] = float("inf")
+    lo, hi = (score < thresh - eps).sum(1), (score < thresh + eps).sum(1)
+    got_r = ranks_l2r[:sub]
+    if not bool(((lo <= got_r) & (got_r <= hi)).all()):
+        raise AssertionError("CSLS ranks disagree with a float64 search")
+    q = emb[torch.as_tensor(queries, device=dev)].double()
+    c = emb[torch.as_tensor(candidates, device=dev)].double()
+    r = _hubness64(q, c, csls_k)
+    bv, bi = torch.topk(2 * torch.cdist(q[:sub], c, p=1) - r[None, :], k, largest=False)
+    scale = float(r.max())
+    np.testing.assert_allclose(vals[:sub], bv.cpu().numpy(), rtol=1e-5, atol=1e-5 * scale)
+    same_ids = float((candidates[bi.cpu().numpy()] == ids[:sub]).mean())
+    if same_ids < 0.99:
+        raise AssertionError(f"CSLS top-k ids agree with a float64 search on {same_ids:.3f}")
+    return {"ranks_checked": sub, "topk_ids_match_float64": same_ids}
+
+
+def phase_recipe(task, smi: str, dev: torch.device) -> dict:
+    """Recipe v6 through driver.run at zh-en scale (RECIPE_CUTS), then
+    checkpoint/resume, eval-only from the run's directory and CSLS
+    serving."""
+    cfg = get_config("base", **RECIPES[RECIPE]).replace(
+        syn_n_ent=task.kg1.n_ent, syn_n_rel=task.kg1.n_rel, syn_seed=ZH_EN["seed"],
+        checkpoint_every=4, **{k: v for k, (v, _) in RECIPE_CUTS.items()})
+    with tempfile.TemporaryDirectory() as tmp:
+        full_dir, kill_dir = os.path.join(tmp, "full"), os.path.join(tmp, "killed")
+        # the main path: counts at 0 just before, read just after
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run(cfg.replace(checkpoint_dir=full_dir), task=task, device=dev)
+        sync(dev)
+        run_s = time.perf_counter() - t0
+        counts = _launch_counts()
+        t = res.timings
+        expected = _expected_launches(cfg, t)
+        boundaries = (cfg.epochs - 1) // cfg.neg_every  # 2, 4, 6, 8: proposals and mining
+        if (counts != expected or t["steps"] != cfg.epochs or t["forwards"] != boundaries
+                or t["proposals"] != boundaries or t["minings"] != boundaries):
+            raise AssertionError(f"launches {counts} (expected {expected}), timings {t}")
+        enc = res.model.encoder
+        widths = [tuple(enc.gc1.w.shape), tuple(enc.gc2.w.shape)]
+        if widths != [(256, 256), (256, 256)]:
+            raise AssertionError(f"gcn_fused ran at {widths}, not (256, 256)")
+        losses = res.losses
+        if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"losses not finite or not falling: {losses}")
+        if not all(math.isfinite(v) for v in res.metrics.values()):
+            raise AssertionError(f"non-finite metrics {res.metrics}")
+        # the last interval's batch as the run saved it: its proposals and negatives
+        saved = Checkpointer(full_dir, cfg.checkpoint_every).restore_latest(dev)[1]
+        n_boot = int((saved["boot_w"] > 0).sum())
+        if n_boot == 0:
+            raise AssertionError("no proposal with weight > 0")
+        pairs = torch.as_tensor(task.train_pairs, dtype=torch.int64, device=dev)
+        batch = {"pairs": pairs, "neg_l": saved["neg_l"], "neg_r": saved["neg_r"],
+                 "pairs_aug": torch.cat([pairs, saved["boot_pairs"]]),
+                 "w": torch.cat([torch.ones(len(pairs), device=dev),
+                                 saved["boot_w"] * cfg.boot_weight])}
+        step = _check_step(res, cfg, dev, batch)
+
+        # the same run preempted during epoch 5 (saved at 4 and 5), resumed to 10
+        with _sigterm_in_step(6):
+            killed = run(cfg.replace(checkpoint_dir=kill_dir), task=task, device=dev)
+        killed_at = Checkpointer(kill_dir, cfg.checkpoint_every).latest_step()
+        resumed = run(cfg.replace(checkpoint_dir=kill_dir), task=task, device=dev)
+        want, got = res.metrics["final_loss"], resumed.metrics["final_loss"]
+        resume_rel = abs(got - want) / abs(want)
+        if (killed.timings["steps"] != 6 or killed_at != 5
+                or resumed.timings["start_epoch"] != 6 or resume_rel > 1e-4):
+            raise AssertionError(f"resume: killed after {killed.timings['steps']} steps, saved "
+                                 f"at {killed_at}, resumed at {resumed.timings['start_epoch']}, "
+                                 f"final loss {got} against {want}")
+
+        # eval-only from the trained directory, then CSLS serving
+        ev = evaluate(cfg.replace(checkpoint_dir=full_dir), task=task, device=dev)
+        eval_diff = max(abs(ev.metrics[k] - res.metrics[k]) for k in ev.metrics)
+        if eval_diff > 1e-4:
+            raise AssertionError(f"evaluate {ev.metrics} against the run's {res.metrics}")
+    n1 = task.kg1.n_ent
+    queries, candidates = task.test_pairs[:, 0], np.arange(n1, task.n_ent)
+    t0 = time.perf_counter()
+    vals, ids = topk_alignments(ev.emb, queries, candidates, k=10, csls_k=cfg.eval_csls_k)
+    sync(dev)
+    topk_s = time.perf_counter() - t0
+    csls = _check_csls(ev.emb, task, queries, candidates, vals, ids, 10, cfg.eval_csls_k, dev)
+
+    def per(key, count, timings=t):
+        return timings[key] / timings[count] if timings[count] else None
+
+    stages = {"step_median_s": float(np.median(t["step_s"])),
+              "step_mean_s": per("train_s", "steps"),
+              "boundary_forward_s": per("forward_s", "forwards"),
+              "proposal_s": per("propose_s", "proposals"), "mining_s": per("mine_s", "minings"),
+              "final_eval_csls_s": per("eval_s", "evals"),
+              "evaluate_build_s": ev.timings["build_s"],
+              "evaluate_forward_s": ev.timings["forward_s"],
+              "evaluate_eval_csls_s": ev.timings["eval_s"], "topk_csls_s": topk_s,
+              "save_s": per("save_s", "saves"), "load_s": resumed.timings["load_s"]}
+    emit({"phase": "recipe", "recipe": RECIPE, "n_ent": task.n_ent,
+          "train_pairs": int(len(task.train_pairs)), "test_pairs": int(len(task.test_pairs)),
+          "dim": cfg.dim, "gamma": cfg.gamma, "k_neg": cfg.k_neg, "neg_every": cfg.neg_every,
+          "boot": {"cap": cfg.boot_cap, "start": cfg.boot_start, "weight": cfg.boot_weight,
+                   "csls_k": cfg.boot_csls_k, "last_proposals_weighted": n_boot},
+          "sinkhorn": {"weight": cfg.sinkhorn_weight, "tau": cfg.sinkhorn_tau,
+                       "iters": cfg.sinkhorn_iters},
+          "eval_csls_k": cfg.eval_csls_k, "epochs": cfg.epochs,
+          "reduced": {k: f"{v} (recipe {r})" for k, (v, r) in RECIPE_CUTS.items()},
+          "losses": losses, "metrics": {k: res.metrics[k] for k in ("hits@1", "hits@10", "mrr")},
+          "launches": counts, "gcn_fused_dims": widths, "timings": t, "run_s": run_s,
+          "stages_s": stages, "step_check": step,
+          "resume": {"killed_after_steps": killed.timings["steps"], "saved_at": killed_at,
+                     "resumed_at": resumed.timings["start_epoch"], "final_loss": got,
+                     "uninterrupted_final_loss": want, "rel_err": resume_rel},
+          "evaluate_metrics_max_diff": eval_diff, "topk_queries": int(len(queries)),
+          "topk_candidates": int(len(candidates)), "csls_check": csls, "card": smi})
+    return counts
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
     task = synthetic_align_task(**ZH_EN)
     dev = torch.device("cuda")
     k_gcn = phase_kernel(task, smi, dev)
-    k_spmm = phase_spmm(task, smi, dev)
-    k_sink = phase_sinkhorn(smi, dev)
+    k_spmm = {**phase_spmm(task, smi, dev, d=256, split=False),
+              "at_d128": phase_spmm(task, smi, dev, d=128)}
+    k_sink = {**phase_sinkhorn(smi, dev, d=256), "at_d128": phase_sinkhorn(smi, dev, d=128)}
     serve_launches = phase_slice(task, smi, dev)
     train = phase_train(task, smi, dev)
+    recipe = phase_recipe(task, smi, dev)
+    # the numbers at the recipe's width (d = 256); launches of the recipe's
+    # run, with those of the sinkhorn training and base serving runs beside
     emit({"kernels": [
         {"name": "gcn_fused", "route": "cuda", "source": "tpugraph_torch/csrc/gcn_fused.cu",
-         "replaces": "tpugraph/kernels/gcn_fused_pallas.py:40", "launches": train["gcn_fused"],
-         "launches_serve": serve_launches, **k_gcn},
+         "replaces": "tpugraph/kernels/gcn_fused_pallas.py:40", "launches": recipe["gcn_fused"],
+         "launches_train": train["gcn_fused"], "launches_serve": serve_launches, **k_gcn},
         {"name": "spmm_ell", "route": "cuda", "source": "tpugraph_torch/csrc/spmm_ell.cu",
-         "replaces": "tpugraph/kernels/spmm_ell.py:19", "launches": train["spmm_ell"],
-         **k_spmm},
+         "replaces": "tpugraph/kernels/spmm_ell.py:19", "launches": recipe["spmm_ell"],
+         "launches_train": train["spmm_ell"], **k_spmm},
         {"name": "sinkhorn_fused", "route": "cuda",
          "source": "tpugraph_torch/csrc/sinkhorn_fused.cu",
          "replaces": "tpugraph/kernels/sinkhorn_pallas.py:38",
-         "launches": train["sinkhorn_fused"], **k_sink},
+         "launches": recipe["sinkhorn_fused"], "launches_train": train["sinkhorn_fused"],
+         **k_sink},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

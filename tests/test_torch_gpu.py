@@ -13,14 +13,17 @@ import pytest
 import torch
 
 from tpugraph_torch.configs.configs import get_config
+from tpugraph_torch.configs.recipes import RECIPES
 from tpugraph_torch.kernels import gcn_fused, sinkhorn_fused, spmm_ell
 from tpugraph_torch.kernels.gcn_fused import fused_gcn_layer, reference_layer
 from tpugraph_torch.kernels.sinkhorn_fused import sinkhorn_potential_update, sinkhorn_update_plain
 from tpugraph_torch.kernels.spmm_ell import SEG_SLOTS, apply_with_diag, ell_spmm
+from tpugraph_torch.models.align import AlignMTL
 from tpugraph_torch.models.encoder import AlignGCN, init_params
 from tpugraph_torch.sparse.build import build_adjacency
 from tpugraph_torch.sparse.ell import build_ell_operator
 from tpugraph_torch.train.driver import run
+from tpugraph_torch.train.losses import margin_align_loss
 from tpugraph_torch.train.ot import sinkhorn_align_loss, sinkhorn_align_loss_plain
 
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=0.05, atol=0.5)}
@@ -49,7 +52,7 @@ def _graph(rng, n=1000, split_diag=True):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d_in,d_out", [(128, 128), (128, 256), (256, 128)])
+@pytest.mark.parametrize("d_in,d_out", [(128, 128), (128, 256), (256, 128), (256, 256)])
 @pytest.mark.parametrize("split_diag", [False, True])
 def test_kernel_matches_plain(cuda, dtype, d_in, d_out, split_diag):
     rng = np.random.default_rng(d_in + d_out + split_diag)
@@ -179,7 +182,7 @@ def test_spmm_ell_hub_segments_match_plain(cuda, hub, d, split_diag):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d_in,d_out", [(128, 128), (128, 256), (256, 128)])
+@pytest.mark.parametrize("d_in,d_out", [(128, 128), (128, 256), (256, 128), (256, 256)])
 def test_gcn_fused_short_and_hub_rows(cuda, dtype, d_in, d_out):
     """Tiles of every K from 1 to 7 (packed virtual-slot walks, bucket tails
     of under 8 rows among them) and a hub row of K ≥ 5,000, against the
@@ -200,8 +203,9 @@ def test_gcn_fused_short_and_hub_rows(cuda, dtype, d_in, d_out):
     assert gcn_fused.launches == before + 2
     assert torch.equal(got, again)
     plan = gcn_fused.layer_plan(op.fwd)
-    scratch = plan.scratch[(d_in, torch.cuda.current_stream().cuda_stream)]
-    assert plan.segs.shape[0] > 0 and not scratch[plan.n_partials * d_in:].view(torch.int32).any()
+    scratch = plan.scratch[(d_in, d_out, torch.cuda.current_stream().cuda_stream)]
+    counters = scratch[gcn_fused.PANELS[(d_in, d_out)] * plan.n_partials * d_in:]
+    assert plan.segs.shape[0] > 0 and not counters.view(torch.int32).any()
     want = reference_layer(op.fwd, op.diag, x, wm, b)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
@@ -328,3 +332,46 @@ def test_training_on_card(cuda):
     assert after[1] - before[1] == 4 * 2
     assert after[2] - before[2] == 4 * 41
     assert np.isfinite(res.metrics["final_loss"]) and res.losses[-1] < res.losses[0]
+
+
+@pytest.mark.gpu
+def test_v6_step_at_dim_256_matches_plain(cuda):
+    """One step of recipe v6 (dim 256; seed pairs plus weighted proposals in
+    the margin loss, the Sinkhorn head on the seed pairs) through the
+    kernels (2 gcn_fused at (256, 256), 2 spmm_ell, 41 sinkhorn_fused)
+    against the plain path on the card: loss rel 1e-4, each gradient
+    relative L2 1e-3."""
+    cfg = get_config("base", **RECIPES["v6"])
+    rng = np.random.default_rng(11)
+    n, n1, s, cap = 1200, 600, 200, 100
+    tri = np.stack([rng.integers(0, n, 5000), rng.integers(0, 9, 5000),
+                    rng.integers(0, n, 5000)], 1)
+    op = build_adjacency(n, tri).to(cuda)
+    model = AlignMTL(n, cfg, device=cuda)
+    model.encoder.load_state_dict(init_params(n, cfg.dim, seed=4))
+    pairs = np.stack([rng.permutation(n1)[:s], n1 + rng.permutation(n1)[:s]], 1)
+    boot = np.stack([rng.integers(0, n1, cap), rng.integers(n1, n, cap)], 1)
+    w = np.concatenate([np.ones(s), np.where(np.arange(cap) < 60, cfg.boot_weight, 0.0)])
+    batch = {"pairs": torch.from_numpy(pairs).to(cuda),
+             "pairs_aug": torch.from_numpy(np.concatenate([pairs, boot])).to(cuda),
+             "w": torch.from_numpy(w.astype(np.float32)).to(cuda),
+             "neg_l": torch.from_numpy(rng.integers(0, n1, (s + cap, cfg.k_neg))).to(cuda),
+             "neg_r": torch.from_numpy(rng.integers(n1, n, (s + cap, cfg.k_neg))).to(cuda)}
+    before = (gcn_fused.launches, spmm_ell.launches, sinkhorn_fused.launches)
+    loss, _ = model(op, batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    after = (gcn_fused.launches, spmm_ell.launches, sinkhorn_fused.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (2, 2, 2 * cfg.sinkhorn_iters + 1)
+    p = {k: v.detach().clone().requires_grad_(True) for k, v in model.named_parameters()}
+    h = torch.relu(reference_layer(op.fwd, op.diag, p["encoder.emb"], p["encoder.gc1.w"],
+                                   p["encoder.gc1.b"]))
+    emb = reference_layer(op.fwd, op.diag, h, p["encoder.gc2.w"], p["encoder.gc2.b"])
+    plain = (margin_align_loss(emb, batch["pairs_aug"], batch["neg_l"], batch["neg_r"],
+                               cfg.gamma, batch["w"])
+             + cfg.sinkhorn_weight * sinkhorn_align_loss_plain(
+                 emb, batch["pairs"], tau=cfg.sinkhorn_tau, n_iters=cfg.sinkhorn_iters))
+    plain.backward()
+    assert loss.item() == pytest.approx(plain.item(), rel=1e-4)
+    for k, v in model.named_parameters():
+        assert float((v.grad - p[k].grad).norm() / p[k].grad.norm()) < 1e-3, k

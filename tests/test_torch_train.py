@@ -255,9 +255,11 @@ def test_cli_trains_and_prints_one_json_line(capsys):
 
 
 def test_unported_options_and_the_card_default():
-    for over in (dict(steps_per_call=5), dict(boot_cap=10), dict(sinkhorn_pairs=64),
-                 dict(checkpoint_dir="ckpt"), dict(param_dtype="bfloat16"),
-                 dict(neg_approx=True), dict(neg_csls_k=5), dict(n_shards=2)):
+    for over in (dict(steps_per_call=5), dict(boot_cap=10, boot_approx=True),
+                 dict(sinkhorn_pairs=64), dict(eval_approx_k=50), dict(profile_dir="prof"),
+                 dict(param_dtype="bfloat16"), dict(neg_approx=True), dict(neg_csls_k=5),
+                 dict(boot_cap=10, neg_metric="sqeuclidean"), dict(use_attr_head=True),
+                 dict(n_shards=2)):
         with pytest.raises(NotImplementedError):
             check_trainable(get_config("sinkhorn", **over))
     with pytest.raises(ValueError, match="sinkhorn_pairs"):

@@ -1,14 +1,17 @@
 """Trainer CLI (counterpart of ``tpugraph/cli/main.py``).
 
     python -m tpugraph_torch.cli.main --config sinkhorn --epochs 10
+    python -m tpugraph_torch.cli.main --recipe v6 --set checkpoint_dir=ckpt checkpoint_every=50
     python -m tpugraph_torch.cli.main --config base --set dim=128 neg_every=5 --device cpu
 
-Picks a named config, applies typed ``key=value`` overrides (``--set``),
-trains through ``train/driver.py::run`` on the card (``--device cuda``, the
+Picks a named config, applies a tuned recipe (``--recipe``,
+``configs/recipes.py``: v1–v6 run, v7 and v7r need the attribute head and
+are refused), then typed ``key=value`` overrides (``--set``), trains
+through ``train/driver.py::run`` on the card (``--device cuda``, the
 default) or the host, and prints the final metrics as one JSON line.
 ``--eval-only`` scores the parameters in ``checkpoint_dir`` instead
-(``driver.evaluate``).  The JAX CLI's ``--recipe``, ``--fast``,
-``--profile-dir`` and the dbp15k/openea readers are not ported.
+(``driver.evaluate``).  The JAX CLI's ``--fast``, ``--profile-dir`` and the
+dbp15k/openea readers are not ported.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import json
 import sys
 
 from tpugraph_torch.configs.configs import CONFIGS, get_config
+from tpugraph_torch.configs.recipes import RECIPES
 
 
 def _coerce(field_type, raw: str):
@@ -58,6 +62,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="tpugraph_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--config", default="base", choices=sorted(CONFIGS))
+    ap.add_argument("--recipe", default=None, choices=sorted(RECIPES),
+                    help="tuned training recipe (configs/recipes.py), applied before --set")
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--metrics", default=None, help="JSONL metrics path")
     ap.add_argument("--save-emb", default=None,
@@ -73,6 +79,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.config)
+    if args.recipe:
+        cfg = cfg.replace(**RECIPES[args.recipe])
     overrides = parse_overrides(cfg, [p for grp in args.set for p in grp])
     for k, flag in (("epochs", args.epochs), ("metrics_path", args.metrics),
                     ("save_emb_path", args.save_emb)):

@@ -37,10 +37,13 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
 
 
 def save_params(checkpoint_dir: str, params: dict[str, torch.Tensor]) -> str:
-    """Write ``<checkpoint_dir>/params.pt``; returns its path."""
+    """Write ``<checkpoint_dir>/params.pt`` (to a temporary name, then
+    renamed); returns its path."""
     os.makedirs(checkpoint_dir, exist_ok=True)
     path = os.path.join(checkpoint_dir, PARAMS_FILE)
-    torch.save({k: v.detach().cpu() for k, v in params.items()}, path)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save({k: v.detach().cpu() for k, v in params.items()}, tmp)
+    os.replace(tmp, path)
     return path
 
 

@@ -10,12 +10,14 @@ never falls back from the card to the plain version.
 tables the ELL kernels share (``kernels/spmm_ell.py``): the rows of
 K > ``SEG_SLOTS`` as ``segment_plan``'s segments, whose partial rows the
 row's last segment sums in order before its own product, then
-``fused_plan``'s tiles of the other rows, heaviest first.  Each tile's rows
+``fused_plan``'s tiles of the other rows, heaviest first.  At (256, 256)
+each block owns one 128-column panel of W (``PANELS``) and both panels'
+blocks walk the whole plan.  Each tile's rows
 are aggregated in shared memory (packed virtual-slot walks) and multiplied
 by W on the tensor cores as a 3× TF32 split, fp32-accurate.  Every row is
 written straight to its natural position, so the buckets' outputs need no
 concatenation and no ``row_order`` gather.  The work counters and the
-segments' partials are cached per (d_in, stream) and left at zero by the
+segments' partials are cached per (d_in, d_out, stream) and left at zero by the
 kernel, so a call is one launch: no memset, no scratch allocation.
 
 ``gcn_layer`` is the trainable layer, a ``torch.autograd.Function``: the
@@ -38,7 +40,10 @@ from tpugraph_torch.kernels.spmm_ell import (SEG_SLOTS, FusedPlan, apply_with_di
                                               segment_plan)
 from tpugraph_torch.sparse.ell import EllMatrix, EllOperator
 
-SUPPORTED_DIMS = {(128, 128), (128, 256), (256, 128)}  # template instances
+# (d_in, d_out) -> panels of W: the template instances of csrc/gcn_fused.cu.
+# At (256, 256) the fp32 Wᵀ does not fit in a block's shared memory, so each
+# block stages one 128-column panel and the grid holds both panels' blocks.
+PANELS = {(128, 128): 1, (128, 256): 1, (256, 128): 1, (256, 256): 2}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the process started (or the caller last reset it)
@@ -76,8 +81,8 @@ def _check(m: EllMatrix, diag, x, wmat, bias) -> None:
     if wmat.dtype != x.dtype or wmat.dim() != 2 or wmat.shape[0] != x.shape[1]:
         raise ValueError(f"W must be ({x.shape[1]}, d_out) of {x.dtype}, got "
                          f"{tuple(wmat.shape)} of {wmat.dtype}")
-    if (x.shape[1], wmat.shape[1]) not in SUPPORTED_DIMS:
-        raise ValueError(f"(d_in, d_out)={x.shape[1], wmat.shape[1]} not in {SUPPORTED_DIMS}")
+    if (x.shape[1], wmat.shape[1]) not in PANELS:
+        raise ValueError(f"(d_in, d_out)={x.shape[1], wmat.shape[1]} not in {sorted(PANELS)}")
     if bias is not None and (bias.dtype != torch.float32 or bias.shape != (wmat.shape[1],)):
         raise ValueError(f"bias must be float32 of shape ({wmat.shape[1]},)")
     check_diag(m, diag, dev)
@@ -111,9 +116,10 @@ class LayerPlan:
     segs: torch.Tensor  # (n_segs, 8) int32: the segment plan's items with a partial
     split_p0: torch.Tensor  # (n_split + 1,) int32: each cut row's first partial
     n_partials: int
-    # (d_in, stream) -> the kernel's scratch there: the cut rows' partials,
-    # then the work counters and one counter per cut row, zeroed once (the
-    # kernel leaves each at 0)
+    # (d_in, d_out, stream) -> the kernel's scratch there: the cut rows'
+    # partials (one per panel), then the panels' work counters, the done
+    # counter and one counter per cut row and panel, zeroed once (the kernel
+    # leaves each at 0)
     scratch: dict = field(default_factory=dict)
 
 
@@ -131,13 +137,15 @@ def layer_plan(m: EllMatrix) -> LayerPlan:
 def _launch(m: EllMatrix, diag: torch.Tensor | None, x: torch.Tensor, wmat: torch.Tensor,
             bias: torch.Tensor | None, plan: LayerPlan) -> torch.Tensor:
     """One kernel launch over ``plan``'s segments and tiles, on checked inputs."""
-    d_in = x.shape[1]
+    d_in, d_out = x.shape[1], wmat.shape[1]
+    n_panels = PANELS[(d_in, d_out)]
     stream = torch._C._cuda_getCurrentRawStream(x.device.index)
-    scratch = plan.scratch.get((d_in, stream))
+    scratch = plan.scratch.get((d_in, d_out, stream))
     if scratch is None:
-        scratch = torch.zeros(plan.n_partials * d_in + 2 + plan.split_p0.shape[0] - 1,
+        n_split = plan.split_p0.shape[0] - 1
+        scratch = torch.zeros(n_panels * (plan.n_partials * d_in + n_split) + n_panels + 1,
                               dtype=torch.float32, device=x.device)
-        plan.scratch[(d_in, stream)] = scratch
+        plan.scratch[(d_in, d_out, stream)] = scratch
     partial = scratch.data_ptr()
     tiles = plan.tiles
     out = torch.empty((m.n_rows, wmat.shape[1]), dtype=x.dtype, device=x.device)
@@ -147,8 +155,8 @@ def _launch(m: EllMatrix, diag: torch.Tensor | None, x: torch.Tensor, wmat: torc
                  tiles.rows.data_ptr(), tiles.idx.data_ptr(), tiles.w.data_ptr(),
                  tiles.tiles.data_ptr(), tiles.tiles.shape[0], plan.segs.data_ptr(),
                  plan.segs.shape[0], SEG_SLOTS, plan.split_p0.data_ptr(),
-                 partial + 4 * plan.n_partials * d_in, partial, out.data_ptr(), d_in,
-                 wmat.shape[1], _DTYPE_CODE[x.dtype], stream)
+                 partial + 4 * n_panels * plan.n_partials * d_in, partial, out.data_ptr(), d_in,
+                 d_out, _DTYPE_CODE[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"gcn_fused launch failed with CUDA error {err}")
     global launches

@@ -39,11 +39,15 @@ class AlignMTL(nn.Module):
         return self.encoder(op)
 
     def forward(self, op: EllOperator, batch: dict) -> tuple[torch.Tensor, dict]:
-        """batch: pairs (S, 2), neg_l, neg_r (S, k) int64 on the model's
-        device.  Returns (loss, {"margin", ["sinkhorn"], "total"})."""
+        """batch: pairs (S, 2), neg_l, neg_r (S', k) int64 on the model's
+        device, and with bootstrapping pairs_aug (S', 2) and w (S',): the
+        seed pairs and the proposals with their weights, for the margin loss
+        only.  The Sinkhorn head stays on the seed pairs.  Returns (loss,
+        {"margin", ["sinkhorn"], "total"})."""
         c = self.cfg
         emb = self.encoder(op)
-        loss = margin_align_loss(emb, batch["pairs"], batch["neg_l"], batch["neg_r"], c.gamma)
+        loss = margin_align_loss(emb, batch.get("pairs_aug", batch["pairs"]), batch["neg_l"],
+                                 batch["neg_r"], c.gamma, batch.get("w"))
         aux = {"margin": loss}
         if c.use_sinkhorn:
             l_ot = sinkhorn_align_loss(emb, batch["pairs"], tau=c.sinkhorn_tau,

@@ -1,13 +1,14 @@
 """Alignment serving (counterpart of ``tpugraph/serve.py``, exact raw-L1
-path).
+and CSLS paths).
 
 * ``topk_alignments`` — blockwise top-k candidate search with a running
   top-k, over query blocks × candidate blocks (never the full distance
-  matrix);
+  matrix); ``csls_k > 0`` ranks by the CSLS score 2·d(q, j) − r(j), r the
+  candidate's hubness over the query pool (``train/negatives.py``);
 * ``export_alignments`` — bulk predictions to a TSV of rank lists;
 * ``save_embeddings`` / ``load_embeddings`` — the table via ``torch.save``.
 
-CSLS re-scoring and the prefiltered approximate search are not ported yet.
+The prefiltered approximate search is not ported yet.
 """
 
 from __future__ import annotations
@@ -19,14 +20,16 @@ import torch
 
 from tpugraph_torch import resolve_device
 from tpugraph_torch.train.losses import pairwise_l1
+from tpugraph_torch.train.negatives import _cand_hubness
 
 
 BLOCK_Q = 256  # queries per block: (256, 2048, 128) fp32 is 268 MB
 
 
-def _topk_blockwise(q: torch.Tensor, cands: torch.Tensor, k: int,
-                    block_c: int = 2048) -> tuple[torch.Tensor, torch.Tensor]:
-    """(values, candidate positions), each (Q, k), best first.
+def _topk_blockwise(q: torch.Tensor, cands: torch.Tensor, k: int, block_c: int = 2048,
+                    csls_k: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """(values, candidate positions), each (Q, k), best first; the values
+    are L1 distances, or CSLS scores when ``csls_k > 0``.
 
     Merges each candidate block into the running top-k with a stable sort,
     so equal scores keep the earlier candidate — the order ``lax.top_k``
@@ -34,6 +37,7 @@ def _topk_blockwise(q: torch.Tensor, cands: torch.Tensor, k: int,
     position 0, as the JAX path does."""
     s = q.shape[0]
     c = cands.shape[0]
+    r_cand = _cand_hubness(q, cands, csls_k) if csls_k > 0 else None
     vals = torch.empty((s, k), dtype=torch.float32, device=q.device)
     idx = torch.empty((s, k), dtype=torch.int64, device=q.device)
     for q0 in range(0, s, BLOCK_Q):
@@ -43,6 +47,8 @@ def _topk_blockwise(q: torch.Tensor, cands: torch.Tensor, k: int,
         for c0 in range(0, c, block_c):
             cb = cands[c0:c0 + block_c]
             dmat = pairwise_l1(qb[:, None, :], cb[None, :, :]).float()
+            if r_cand is not None:
+                dmat = 2.0 * dmat - r_cand[None, c0:c0 + block_c]
             cidx = torch.arange(c0, c0 + cb.shape[0], device=q.device).expand(qb.shape[0], -1)
             allv = torch.cat([rv, dmat], dim=1)
             alli = torch.cat([ri, cidx], dim=1)
@@ -59,21 +65,24 @@ def topk_alignments(
     candidate_ids,  # candidate pool (e.g. all KG2 entities)
     k: int = 10,
     block_c: int = 2048,
+    csls_k: int = 0,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Returns (L1 distances (Q, k), candidate entity ids (Q, k)), best
-    first, computed on ``emb``'s device."""
+    """Returns (scores (Q, k), candidate entity ids (Q, k)), best first,
+    computed on ``emb``'s device.  The scores are L1 distances, or with
+    ``csls_k > 0`` the CSLS scores 2·d(q, j) − r(j), r(j) the candidate's
+    hubness over this query pool (the JAX package's convention)."""
     dev = emb.device
     qi = torch.as_tensor(np.asarray(query_ids), dtype=torch.int64, device=dev)
     ci = torch.as_tensor(np.asarray(candidate_ids), dtype=torch.int64, device=dev)
     vals, pos = _topk_blockwise(emb.index_select(0, qi), emb.index_select(0, ci), k,
-                                block_c=block_c)
+                                block_c=block_c, csls_k=csls_k)
     return vals.cpu().numpy(), ci[pos].cpu().numpy()
 
 
 def export_alignments(path: str, emb: torch.Tensor, query_ids, candidate_ids,
-                      k: int = 10) -> int:
+                      k: int = 10, csls_k: int = 0) -> int:
     """Write '<query>\\t<cand1>:<d1>\\t...' per line; returns #rows written."""
-    vals, ids = topk_alignments(emb, query_ids, candidate_ids, k=k)
+    vals, ids = topk_alignments(emb, query_ids, candidate_ids, k=k, csls_k=csls_k)
     with open(path, "w") as f:
         for qi, (row_ids, row_d) in zip(query_ids, zip(ids, vals)):
             cells = "\t".join(f"{int(c)}:{float(d):.6f}" for c, d in zip(row_ids, row_d))
@@ -111,6 +120,8 @@ def main(argv=None) -> int:
                     help="merged-id split: ids [0,n) query ids [n,N) "
                          "(default when no id files are given)")
     ap.add_argument("--k", type=int, default=10)
+    ap.add_argument("--csls-k", type=int, default=0,
+                    help=">0: CSLS hubness-corrected re-scoring")
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
 
@@ -129,7 +140,8 @@ def main(argv=None) -> int:
     else:
         ap.error("need --candidates or --n-left")
 
-    rows = export_alignments(args.out, emb, query_ids, candidate_ids, k=args.k)
+    rows = export_alignments(args.out, emb, query_ids, candidate_ids, k=args.k,
+                             csls_k=args.csls_k)
     print(f"wrote {rows} rows x top-{args.k} to {args.out}")
     return 0
 

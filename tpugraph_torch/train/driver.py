@@ -1,12 +1,13 @@
 """Config -> trainer dispatch, and the eval-only entry (counterpart of
 ``tpugraph/train/driver.py``).
 
-``run`` trains: config ``sinkhorn`` (an OT head) goes to
-``train/mtl.py::fit_mtl``, config ``base`` to ``train/loop.py::fit``.
-``evaluate`` restores trained parameters, runs the encoder forward over the
-merged graph once, and scores the exact both-direction Hits@k; optionally
-it hands the table to the serving path.  Both run on the card unless the
-caller passes ``device="cpu"``.
+``run`` trains: a config with an OT head (config ``sinkhorn``, recipes
+v5 and v6) goes to ``train/mtl.py::fit_mtl``, the others to
+``train/loop.py::fit``.  ``evaluate`` restores trained parameters (a
+training run's ``checkpoint_dir`` holds them), runs the encoder forward
+over the merged graph once, and scores the exact both-direction Hits@k,
+CSLS with ``eval_csls_k``; optionally it hands the table to the serving
+path.  Both run on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -68,13 +69,12 @@ def _params(cfg: TrainConfig, params):
 def evaluate(cfg: TrainConfig, params: dict | None = None, task: AlignTask | None = None,
              device: str | torch.device = "cuda") -> EvalResult:
     """Score trained parameters under ``cfg``: one forward, exact Hits@k
-    over the test pairs, and ``save_embeddings(cfg.save_emb_path, ...)``
-    when that is set.  ``params`` is a state dict
-    (``convert.params_from_jax``); None reads ``<checkpoint_dir>/params.pt``."""
+    over the test pairs (CSLS with ``cfg.eval_csls_k``), and
+    ``save_embeddings(cfg.save_emb_path, ...)`` when that is set.
+    ``params`` is the encoder's state dict (``convert.params_from_jax``);
+    None reads ``<checkpoint_dir>/params.pt``."""
     dev = resolve_device(device)
     params = _params(cfg, params)
-    if cfg.eval_csls_k:
-        raise NotImplementedError("CSLS eval is not ported yet")
 
     def sync():
         if dev.type == "cuda":
@@ -95,7 +95,7 @@ def evaluate(cfg: TrainConfig, params: dict | None = None, task: AlignTask | Non
     timings["forward_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    metrics = hits_at_k(emb, task.test_pairs)
+    metrics = hits_at_k(emb, task.test_pairs, csls_k=cfg.eval_csls_k)
     timings["eval_s"] = time.perf_counter() - t0
 
     if cfg.save_emb_path:

@@ -1,16 +1,24 @@
 """Full-graph training loop (counterpart of ``tpugraph/train/loop.py``).
 
-One optimizer step per epoch over the whole merged graph; negatives are
-drawn at each ``neg_every`` boundary (uniform at epoch 0, then exact-L1
-hard mining from the current parameters when ``neg_mode='hard'``); exact
-Hits@k at ``eval_every`` and at the end.  ``fit`` trains config ``base``
-(AlignGCN + margin loss); ``train/mtl.py::fit_mtl`` runs the same loop over
-AlignMTL.  Both run on the card unless the caller passes ``device="cpu"``.
+One optimizer step per epoch over the whole merged graph.  At each
+``neg_every`` boundary, in the JAX package's order: with ``boot_cap > 0``
+the mutual-NN proposals (from ``boot_start`` on, else a weight-0
+placeholder) join the seed pairs in the margin loss; then negatives are
+drawn over those pairs (uniform at epoch 0, then exact-L1 hard mining from
+the current parameters when ``neg_mode='hard'``).  Proposal and mining
+share one encoder forward, since both read the same parameters.  Exact
+Hits@k (CSLS with ``eval_csls_k``) at ``eval_every`` and at the end.  With
+``checkpoint_dir`` and ``checkpoint_every`` the loop saves and resumes
+(``train/checkpoint.py``), and SIGTERM makes it save and stop at the next
+epoch boundary.  ``fit`` trains config ``base`` (AlignGCN + margin loss);
+``train/mtl.py::fit_mtl`` runs the same loop over AlignMTL.  Both run on
+the card unless the caller passes ``device="cpu"``.
 
 Not ported yet, and refused up front (``check_trainable``): the fused
-``steps_per_call`` interval, bootstrapping, ``sinkhorn_pairs``,
-checkpoint/resume, profiling, bf16 training, CSLS/approximate eval and
-mining, and the distributed trainer (``ROADMAP.md``).
+``steps_per_call`` interval, ``sinkhorn_pairs``, approximate and
+sqeuclidean proposals, profiling, bf16 training, approximate eval,
+approximate, CSLS and sqeuclidean mining, the MTL heads and the
+distributed trainer (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ from tpugraph_torch.models.encoder import AlignGCN, init_params
 from tpugraph_torch.sparse.build import build_adjacency
 from tpugraph_torch.sparse.ell import EllOperator
 from tpugraph_torch.sparse.graph import AlignTask
+from tpugraph_torch.train.bootstrap import propose_mutual_nn_pairs
+from tpugraph_torch.train.checkpoint import Checkpointer
 from tpugraph_torch.train.eval import hits_at_k
 from tpugraph_torch.train.losses import margin_align_loss
 from tpugraph_torch.train.metrics import MetricsLogger, epoch_edge_ops
@@ -44,11 +54,14 @@ class TrainResult:
     op: EllOperator | None = None
     model: torch.nn.Module | None = None
     task: AlignTask | None = None
-    losses: list = field(default_factory=list)  # total loss of every step
+    losses: list = field(default_factory=list)  # total loss of every step run here
     # host wall seconds, each stage ended by a device synchronise: setup_s
-    # (optimizer and loop set-up), train_s (the steps), mine_s (hard
-    # mining), eval_s (evals incl. the final one), step_s (each step's);
-    # and the counts steps, minings, evals
+    # (optimizer and loop set-up), load_s (restoring a checkpoint), train_s
+    # (the steps), step_s (each step's), forward_s (the interval
+    # boundaries' encoder forwards), propose_s (bootstrap proposals), mine_s
+    # (hard mining), eval_s (evals incl. the final one), save_s
+    # (checkpoints); the counts steps, forwards, proposals, minings, evals,
+    # saves; and start_epoch, the first epoch this process ran
     timings: dict = field(default_factory=dict)
 
 
@@ -96,18 +109,20 @@ def check_trainable(cfg: TrainConfig) -> None:
                          "neg_every >= epochs)")
     unported = {
         "steps_per_call > 1 (the fused interval)": cfg.steps_per_call > 1,
-        "boot_cap > 0 (bootstrapping)": cfg.boot_cap > 0,
+        "boot_approx (approximate proposals)": cfg.boot_cap > 0 and cfg.boot_approx,
         "sinkhorn_pairs > 0": cfg.sinkhorn_pairs > 0,
-        "checkpoint_dir / checkpoint_every (checkpoint and resume)":
-            bool(cfg.checkpoint_dir) or cfg.checkpoint_every > 0,
         "profile_dir": bool(cfg.profile_dir),
         f"param_dtype={cfg.param_dtype!r} training (float32 only)":
             cfg.param_dtype != "float32",
-        "eval_csls_k / eval_approx_k": cfg.eval_csls_k > 0 or cfg.eval_approx_k > 0,
+        "eval_approx_k (approximate eval)": cfg.eval_approx_k > 0,
         "approximate, CSLS or sqeuclidean hard mining": cfg.neg_mode == "hard" and (
             cfg.neg_approx or cfg.neg_csls_k > 0 or cfg.neg_metric != "cityblock"),
+        "sqeuclidean proposals": cfg.boot_cap > 0 and cfg.neg_metric != "cityblock",
         "the distributed trainer": max(cfg.n_shards, cfg.feature_shards,
                                        cfg.slice_shards) > 1,
+        "use_attr_head (the attribute head; recipes v7 and v7r)": cfg.use_attr_head,
+        "use_rel_head (the relation head)": cfg.use_rel_head,
+        "use_attr_channel (the attribute channel)": cfg.use_attr_channel,
     }
     for what, hit in unported.items():
         if hit:
@@ -121,46 +136,129 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _check_resume(cfg: TrainConfig, state: dict, n_rows: int) -> None:
+    """Refuse a checkpoint that lacks what a resume cannot rebuild, or whose
+    interval batch belongs to another pair count (another ``boot_cap``)."""
+    need = ["model", "opt", "sched", "neg_l", "neg_r", "loss"]
+    if cfg.boot_cap > 0:
+        need += ["boot_pairs", "boot_w"]
+    missing = [k for k in need if k not in state]
+    if missing:
+        raise ValueError(
+            f"checkpoint at {cfg.checkpoint_dir!r} lacks {missing}: it predates the resume "
+            f"state (loss, interval negatives and proposals) — resuming it would re-mine "
+            f"the interval batch from the restored parameters and silently diverge; "
+            f"retrain or point checkpoint_dir elsewhere")
+    if state["neg_l"].shape != (n_rows, cfg.k_neg):
+        raise ValueError(
+            f"checkpoint at {cfg.checkpoint_dir!r} holds negatives of shape "
+            f"{tuple(state['neg_l'].shape)}, this run needs ({n_rows}, {cfg.k_neg}) "
+            f"(k_neg or boot_cap changed); retrain or point checkpoint_dir elsewhere")
+
+
 def train_loop(cfg: TrainConfig, task: AlignTask, op: EllOperator, model: torch.nn.Module,
                loss_fn: Callable[[dict], tuple[torch.Tensor, dict]],
                embed_fn: Callable[[], torch.Tensor], dev: torch.device,
                verbose: bool = False) -> TrainResult:
     """The epoch loop shared by ``fit`` and ``fit_mtl``: ``loss_fn(batch)``
-    returns (loss, aux) with grad; ``embed_fn()`` the eval table."""
+    returns (loss, aux) with grad; ``embed_fn()`` the encoder's table, which
+    the evals, proposals and mining read.  ``model.encoder`` (or the model
+    itself) is what a checkpoint's ``params.pt`` holds for ``evaluate``."""
     t_setup = time.perf_counter()
     opt, sched = make_optimizer(cfg, model.parameters())
     pairs = torch.as_tensor(np.asarray(task.train_pairs), dtype=torch.int64, device=dev)
     n1, n = task.kg1.n_ent, task.n_ent
+    encoder = getattr(model, "encoder", model)
     logger = MetricsLogger(cfg.metrics_path, config=cfg.to_dict(), tb_dir=cfg.tb_dir)
     history, losses = [], []
-    timings = {"train_s": 0.0, "mine_s": 0.0, "eval_s": 0.0, "step_s": [],
-               "steps": 0, "minings": 0, "evals": 0}
+    timings = {"load_s": 0.0, "train_s": 0.0, "step_s": [], "forward_s": 0.0,
+               "propose_s": 0.0, "mine_s": 0.0, "eval_s": 0.0, "save_s": 0.0, "steps": 0,
+               "forwards": 0, "proposals": 0, "minings": 0, "evals": 0, "saves": 0}
+
+    use_boot = cfg.boot_cap > 0
+    if use_boot:
+        mask1 = torch.ones(n1, dtype=torch.bool, device=dev)
+        mask1[pairs[:, 0]] = False
+        mask2 = torch.ones(n - n1, dtype=torch.bool, device=dev)
+        mask2[pairs[:, 1] - n1] = False
+        ones_seed = torch.ones(pairs.shape[0], dtype=torch.float32, device=dev)
+        placeholder = (torch.tensor([0, n1], device=dev).repeat(cfg.boot_cap, 1),
+                       torch.zeros(cfg.boot_cap, dtype=torch.float32, device=dev))
+
+    def interval_batch(boot, neg_l=None, neg_r=None):
+        """The seed pairs, with the proposals ``boot`` and their weights for
+        the margin loss when bootstrapping."""
+        batch = {"pairs": pairs, "neg_l": neg_l, "neg_r": neg_r}
+        if use_boot:
+            batch["pairs_aug"] = torch.cat([pairs, boot[0]])
+            batch["w"] = torch.cat([ones_seed, boot[1] * cfg.boot_weight])
+        return batch
+
+    def timed(key, count, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        timings[key] += time.perf_counter() - t0
+        timings[count] += 1
+        return out
 
     def evaluate_now():
+        emb = timed("eval_s", "evals", embed_fn)
         t0 = time.perf_counter()
-        emb = embed_fn()
-        m = hits_at_k(emb, task.test_pairs)
+        m = hits_at_k(emb, task.test_pairs, csls_k=cfg.eval_csls_k)
         timings["eval_s"] += time.perf_counter() - t0
-        timings["evals"] += 1
         return emb, m
 
-    batch, loss, aux = None, torch.tensor(float("nan")), {}
+    ckpt = Checkpointer(cfg.checkpoint_dir, cfg.checkpoint_every)
+    start_epoch, batch, boot = 0, None, None
+    loss, aux = torch.tensor(float("nan")), {}
+    t0 = time.perf_counter()
+    restored = ckpt.restore_latest(dev)
+    if restored is not None:
+        epoch, state = restored
+        _check_resume(cfg, state, pairs.shape[0] + (cfg.boot_cap if use_boot else 0))
+        model.load_state_dict(state["model"])
+        opt.load_state_dict(state["opt"])
+        sched.load_state_dict(state["sched"])
+        boot = (state["boot_pairs"], state["boot_w"]) if use_boot else None
+        batch = interval_batch(boot, state["neg_l"], state["neg_r"])
+        loss, start_epoch = state["loss"], epoch + 1
+    timings["load_s"] = time.perf_counter() - t0
+    timings["start_epoch"] = start_epoch
+
+    def save_now(epoch):
+        state = {"model": model.state_dict(), "opt": opt.state_dict(),
+                 "sched": sched.state_dict(), "neg_l": batch["neg_l"], "neg_r": batch["neg_r"],
+                 "loss": loss.detach()}
+        if use_boot:
+            state["boot_pairs"], state["boot_w"] = boot
+        timed("save_s", "saves", lambda: ckpt.save(epoch, state, encoder.state_dict()))
+
     t_start = time.perf_counter()
-    timings["setup_s"] = t_start - t_setup
+    timings["setup_s"] = t_start - t_setup - timings["load_s"]
+    ckpt.install_preemption_handler()
     try:
-        for epoch in range(cfg.epochs):
-            if epoch % cfg.neg_every == 0:
+        for epoch in range(start_epoch, cfg.epochs):
+            if epoch % cfg.neg_every == 0 or batch is None:
                 epoch0 = epoch - epoch % cfg.neg_every
-                if cfg.neg_mode == "hard" and epoch > 0:
-                    t0 = time.perf_counter()
-                    neg_l, neg_r = sample_hard_negatives(embed_fn(), pairs, n1, n, cfg.k_neg)
-                    _sync(dev)
-                    timings["mine_s"] += time.perf_counter() - t0
-                    timings["minings"] += 1
+                propose = use_boot and epoch >= cfg.boot_start and epoch > 0
+                mine = cfg.neg_mode == "hard" and epoch > 0
+                emb = timed("forward_s", "forwards", embed_fn) if propose or mine else None
+                if use_boot:
+                    boot = timed("propose_s", "proposals", lambda: propose_mutual_nn_pairs(
+                        emb, mask1, mask2, n1, n, cfg.boot_cap,
+                        csls_k=cfg.boot_csls_k)) if propose else placeholder
+                batch = interval_batch(boot)
+                pairs_t = batch.get("pairs_aug", pairs)
+                if mine:
+                    batch["neg_l"], batch["neg_r"] = timed(
+                        "mine_s", "minings",
+                        lambda: sample_hard_negatives(emb, pairs_t, n1, n, cfg.k_neg))
                 else:
                     gen = torch.Generator().manual_seed(cfg.seed * 1_000_003 + epoch0)
-                    neg_l, neg_r = sample_uniform_negatives(gen, pairs, n1, n, cfg.k_neg)
-                batch = {"pairs": pairs, "neg_l": neg_l, "neg_r": neg_r}
+                    batch["neg_l"], batch["neg_r"] = sample_uniform_negatives(
+                        gen, pairs_t, n1, n, cfg.k_neg)
+                del emb
             t0 = time.perf_counter()
             opt.zero_grad(set_to_none=True)
             loss, aux = loss_fn(batch)
@@ -172,6 +270,9 @@ def train_loop(cfg: TrainConfig, task: AlignTask, op: EllOperator, model: torch.
             timings["step_s"].append(time.perf_counter() - t0)
             timings["train_s"] += timings["step_s"][-1]
             timings["steps"] += 1
+            if ckpt.enabled and ((epoch > 0 and epoch % cfg.checkpoint_every == 0)
+                                 or epoch >= cfg.epochs - 1 or ckpt.preempted):
+                save_now(epoch)
             if cfg.eval_every and (epoch % cfg.eval_every == 0 or epoch >= cfg.epochs - 1):
                 _, m = evaluate_now()
                 wall = time.perf_counter() - t_start
@@ -179,7 +280,9 @@ def train_loop(cfg: TrainConfig, task: AlignTask, op: EllOperator, model: torch.
                     "epoch": epoch,
                     "loss": loss.item(),
                     "wall_s": round(wall, 3),
-                    "edges_per_s": round(epoch_edge_ops(op.nnz) * (epoch + 1) / max(wall, 1e-9), 1),
+                    # epochs run in this process: the wall covers only those
+                    "edges_per_s": round(epoch_edge_ops(op.nnz) * (epoch + 1 - start_epoch)
+                                         / max(wall, 1e-9), 1),
                     **{f"loss_{k}": v.item() for k, v in aux.items()},
                     **{k: round(v, 4) for k, v in m.items()},
                 }
@@ -188,6 +291,9 @@ def train_loop(cfg: TrainConfig, task: AlignTask, op: EllOperator, model: torch.
                 if verbose:
                     print(f"[{cfg.name}] epoch {epoch} loss {rec['loss']:.4f} "
                           f"hits@1 {m['hits@1']:.3f} hits@10 {m['hits@10']:.3f}")
+            if ckpt.preempted:
+                save_now(epoch)  # the latch may have fired after the save above
+                break  # exit cleanly for a relaunch
         final_emb, final = evaluate_now()
         final["final_loss"] = loss.item()
         if cfg.save_emb_path:  # hand the table to the serving path (tpugraph_torch.serve)
@@ -195,6 +301,7 @@ def train_loop(cfg: TrainConfig, task: AlignTask, op: EllOperator, model: torch.
 
             save_embeddings(cfg.save_emb_path, final_emb)
     finally:
+        ckpt.restore_handler()
         logger.close()
     return TrainResult(params={k: v.detach() for k, v in model.state_dict().items()},
                        metrics=final, history=history, op=op, model=model, task=task,
@@ -219,8 +326,8 @@ def fit(cfg: TrainConfig, task: AlignTask | None = None, verbose: bool = False,
     model.load_state_dict(init_params(task.n_ent, cfg.dim, cfg.hidden, seed=cfg.seed))
 
     def loss_fn(batch):
-        loss = margin_align_loss(model(op), batch["pairs"], batch["neg_l"], batch["neg_r"],
-                                 cfg.gamma)
+        loss = margin_align_loss(model(op), batch.get("pairs_aug", batch["pairs"]),
+                                 batch["neg_l"], batch["neg_r"], cfg.gamma, batch.get("w"))
         return loss, {"margin": loss}
 
     return train_loop(cfg, task, op, model, loss_fn, lambda: embed(model, op), dev, verbose)

@@ -4,8 +4,10 @@ AlignMTL.
 
 The epoch schedule is ``train/loop.py::train_loop``'s, which is the JAX
 package's plain path (``steps_per_call = 1``): uniform negatives at epoch
-0, hard mining at each later ``neg_every`` boundary, eval at
-``eval_every`` and at the end.  Each step runs, on the card, the fused
+0, bootstrap proposals and hard mining at each later ``neg_every``
+boundary, eval at ``eval_every`` and at the end, checkpoints and resume.
+The proposals join the margin loss only; the Sinkhorn head stays on the
+seed pairs (``models/align.py``).  Each step runs, on the card, the fused
 GCN-layer kernel twice (forward), the ELL SpMM kernel twice (the layers'
 backward) and the Sinkhorn potential-update kernel 2·sinkhorn_iters + 1
 times (the OT head's forward).

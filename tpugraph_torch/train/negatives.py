@@ -12,15 +12,16 @@
   row and takes one ``topk``: the same k smallest as the JAX package's
   running merge, without a sort per candidate block.
 
-The approximate (``approx``), CSLS (``csls_k``) and sqeuclidean mining paths
-are not ported yet (``ROADMAP.md``).
+``_cand_hubness`` is the CSLS hubness term that serving and bootstrapping
+share.  The approximate (``approx``), CSLS (``csls_k``) and sqeuclidean
+mining paths are not ported yet (``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpugraph_torch.train.eval import BLOCK_Q
+from tpugraph_torch.train.eval import BLOCK_Q, _knn_mean_l1
 from tpugraph_torch.train.losses import pairwise_l1
 
 
@@ -79,3 +80,11 @@ def sample_hard_negatives(emb: torch.Tensor, pairs: torch.Tensor, n_ent_1: int, 
                              approx, csls_k) + n_ent_1
     neg_l = blockwise_knn_l1(e_r, cand_l, pairs[:, 0], k, block_c, metric, approx, csls_k)
     return neg_l, neg_r
+
+
+def _cand_hubness(q: torch.Tensor, cands: torch.Tensor, csls_k: int,
+                  block_c: int = 1024) -> torch.Tensor:
+    """r(j): the mean L1 distance of candidate j to its csls_k nearest
+    queries, blocked over candidates and queries (cityblock only: the
+    sqeuclidean hubness is not ported yet)."""
+    return _knn_mean_l1(cands, q, csls_k, block_c)
