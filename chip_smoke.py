@@ -46,6 +46,28 @@ Phases, each printing one JSON line:
              checkpoint directory (CSLS) and the CSLS top-10 for the 10,500
              test queries, both held against a float64 search; the time of
              each stage.
+7. incidence — the ELL SpMM kernel on the attribute channel's entity ×
+             attribute incidence (no diagonal) and its transpose, at d = 128
+             and 256, against its plain version and ``torch.sparse.mm``.
+8. recipe_v7r — recipe v7r (v6 + the attribute head at weight 0.25) through
+             ``driver.run``, cut as v6 is (10 of 900 epochs); v7 resolved
+             and held to differ only in ``attr_weight``; one step with the
+             run's last interval batch held against the plain path; the
+             step's stages, the attribute head's among them.
+9. mtl      — config ``mtl`` with the attribute channel at dim 128 for 10
+             epochs: launches per step and per ``embed``; one step held
+             against the plain path, and one with an OT subsample of 2,048
+             pairs; a SIGTERM mid-interval and the resume; ``driver.evaluate``
+             from the run's directory; the relation head's and the channel's
+             shares of the step.
+10. highway — config ``highway`` (funifun weights, rw norm, highway gates)
+             with dropout 0.3 at dim 128 for 10 epochs: one step held against
+             the plain path with the same mask generator; the loss falling;
+             the eval forward equal with and without dropout.
+
+A step is held against its plain path by running the same model code with
+every kernel swapped for its plain version (``_plain_kernels``), which
+autograd differentiates.
 
 It then prints the kernel table, the ``nvidia-smi`` name/power line, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -81,16 +103,21 @@ from tpugraph_torch.kernels.sinkhorn_fused import (PRECISION, stream_plan,
                                                    sinkhorn_update_plain, sq_norms)
 from tpugraph_torch.kernels.spmm_ell import (SEG_SLOTS, apply_with_diag, ell_spmm, fused_plan,
                                              segment_plan)
+import tpugraph_torch.models.align as align_mod
+import tpugraph_torch.models.attr_channel as attr_channel_mod
+import tpugraph_torch.nn.graphconv as graphconv_mod
 from tpugraph_torch.models.align import AlignMTL
-from tpugraph_torch.models.encoder import init_params
+from tpugraph_torch.models.attr_channel import build_attr_operator
+from tpugraph_torch.models.encoder import AlignGCN, init_params
 from tpugraph_torch.serve import topk_alignments
-from tpugraph_torch.sparse.build import build_adjacency, coo_from_triples, coo_normalize
+from tpugraph_torch.sparse.build import build_adjacency
 from tpugraph_torch.train.checkpoint import Checkpointer
 from tpugraph_torch.train.driver import evaluate, run
 from tpugraph_torch.train.eval import _both_direction_ranks
 from tpugraph_torch.train.loop import embed
 from tpugraph_torch.train.losses import margin_align_loss
 from tpugraph_torch.train.metrics import epoch_edge_ops
+from tpugraph_torch.train.mtl import draw_interval
 from tpugraph_torch.train.negatives import sample_uniform_negatives
 from tpugraph_torch.train.optim import make_optimizer
 from tpugraph_torch.train.ot import sinkhorn_align_loss, sinkhorn_align_loss_plain
@@ -233,20 +260,25 @@ def _bound_ms(op, x, wmat, bias) -> tuple[float, str, float]:
     return bound, bound_by, _bound(nbytes, edge_ops + gemm_ops, x.dtype)[0]
 
 
-def _csr(task, dev: torch.device, transpose: bool = False) -> torch.Tensor:
-    """The whole normalised adjacency (diagonal included) as a CSR tensor:
-    A, or Aᵀ — the library yardsticks' operand, built here only."""
-    src, dst, w = coo_from_triples(task.n_ent, task.merged_triples, n_rel=task.n_rel)
-    w = coo_normalize(src, dst, w, task.n_ent)
-    rows, cols = (src, dst) if transpose else (dst, src)
+def _csr_of(m, diag: torch.Tensor | None = None) -> torch.Tensor:
+    """An EllMatrix plus its split diagonal as one CSR tensor on its device
+    (the pad slots, weight 0, dropped): the library yardsticks' operand,
+    built here only."""
+    parts = [(np.repeat(b.rows.cpu().numpy(), b.k), b.idx.cpu().numpy().reshape(-1),
+              b.w.cpu().numpy().reshape(-1)) for b in m.buckets]
+    if diag is not None:
+        parts.append((np.arange(m.n_rows), np.arange(m.n_rows), diag.cpu().numpy()))
+    rows, cols, w = (np.concatenate(a) for a in zip(*parts))
+    keep = w != 0
+    rows, cols, w = rows[keep], cols[keep], w[keep]
     order = np.lexsort((cols, rows))
-    crow = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=task.n_ent))])
+    crow = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=m.n_rows))])
     with warnings.catch_warnings():  # CSR support is "beta" in PyTorch
         warnings.simplefilter("ignore", UserWarning)
         return torch.sparse_csr_tensor(
-            torch.from_numpy(crow), torch.from_numpy(cols[order]),
-            torch.from_numpy(w[order].astype(np.float32)),
-            size=(task.n_ent, task.n_ent), check_invariants=True).to(dev)
+            torch.from_numpy(crow), torch.from_numpy(cols[order].astype(np.int64)),
+            torch.from_numpy(w[order]), size=(m.n_rows, m.n_cols),
+            check_invariants=True).to(m.device)
 
 
 def _gcn_split(m, diag, x, wmat, bias) -> dict:
@@ -291,7 +323,7 @@ def phase_kernel(task, smi: str, dev: torch.device) -> dict:
 
     # the library yardstick: one CSR product (cuSPARSE) then the GEMM —
     # timed here only, never called by the port
-    a_csr = _csr(task, dev)
+    a_csr = _csr_of(op.fwd, op.diag)
 
     zero_rows = plan.rows[-plan.n_zero_rows:].long() if plan.n_zero_rows else None
     rng = np.random.default_rng(0)
@@ -403,7 +435,7 @@ def phase_spmm(task, smi: str, dev: torch.device, d: int = 128, split: bool = Tr
           "offdiag_edges": m.nnz, "padded_slots": m.padded_edges,
           "rows_in_no_bucket": plan.n_zero_rows, "tiles": int(plan.tiles.shape[0]),
           "card": smi})
-    at_csr = _csr(task, dev, transpose=True)
+    at_csr = _csr_of(m, op.diag)
     rng = np.random.default_rng(1)
     g = torch.from_numpy(rng.standard_normal((task.n_ent, d)).astype(np.float32)).to(dev)
     got = ell_spmm(m, op.diag, g)
@@ -616,10 +648,22 @@ def _expected_launches(cfg, t: dict) -> dict:
     """A training run's launches from its timings' counts: two fused layers
     per encoder forward (each step, each interval boundary's forward, each
     eval), two SpMMs per step (the layers' backward), 2·iters + 1 potential
-    updates per step."""
-    return {"gcn_fused": 2 * (t["steps"] + t["forwards"] + t["evals"]),
-            "spmm_ell": 2 * t["steps"],
-            "sinkhorn_fused": (2 * cfg.sinkhorn_iters + 1) * t["steps"]}
+    updates per step with the OT head.  The attribute channel adds two
+    fused layers per forward, four SpMMs per step (its layers' backward,
+    the incidence forward and backward) and one per boundary forward and
+    eval (the incidence forward)."""
+    ae = cfg.use_attr_channel
+    forwards = t["steps"] + t["forwards"] + t["evals"]
+    return {"gcn_fused": (4 if ae else 2) * forwards,
+            "spmm_ell": (6 if ae else 2) * t["steps"] + (t["forwards"] + t["evals"] if ae else 0),
+            "sinkhorn_fused": (2 * cfg.sinkhorn_iters + 1) * t["steps"] if cfg.use_sinkhorn else 0}
+
+
+def _mtl_step_launches(cfg) -> dict:
+    """One AlignMTL training step's launches (``_expected_launches``'s per step)."""
+    ae = cfg.use_attr_channel
+    return {"gcn_fused": 4 if ae else 2, "spmm_ell": 6 if ae else 2,
+            "sinkhorn_fused": 2 * cfg.sinkhorn_iters + 1 if cfg.use_sinkhorn else 0}
 
 
 def _step_batch(res, cfg, dev):
@@ -630,73 +674,135 @@ def _step_batch(res, cfg, dev):
     return {"pairs": pairs, "neg_l": neg_l, "neg_r": neg_r}
 
 
-def _check_step(res, cfg, dev, batch: dict | None = None) -> dict:
-    """One step of the trained model through the kernels against the plain
-    path on the card: loss rel 1e-4, each gradient relative L2 1e-3.
-    ``batch``: the step's batch (with proposals ``pairs_aug`` and ``w``
-    when bootstrapping); None draws uniform negatives for the seed pairs."""
-    model, op = res.model, res.op
-    batch = batch or _step_batch(res, cfg, dev)
+def _saved_batch(ckpt_dir: str, cfg, task, dev) -> tuple[dict, int]:
+    """The last interval's batch as the run saved it: its negatives, its
+    proposals with their weights, fit_mtl's draws; and the proposals of
+    weight > 0.  The relation triples join it as fit_mtl's constant."""
+    saved = Checkpointer(ckpt_dir, cfg.checkpoint_every).restore_latest(dev)[1]
+    pairs = torch.as_tensor(task.train_pairs, dtype=torch.int64, device=dev)
+    batch = {"pairs": pairs, "neg_l": saved["neg_l"], "neg_r": saved["neg_r"],
+             **saved.get("extra", {})}
+    n_boot = 0
+    if cfg.boot_cap > 0:
+        n_boot = int((saved["boot_w"] > 0).sum())
+        batch["pairs_aug"] = torch.cat([pairs, saved["boot_pairs"]])
+        batch["w"] = torch.cat([torch.ones(len(pairs), device=dev),
+                                saved["boot_w"] * cfg.boot_weight])
+    if cfg.use_rel_head:
+        batch["rel_triples"] = torch.as_tensor(task.merged_triples, dtype=torch.int64,
+                                               device=dev)
+    return batch, n_boot
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """The plain path: every kernel of a training step swapped for its plain
+    PyTorch version where the model calls it (the GCN layer, the incidence
+    SpMM, the OT head), differentiated by autograd."""
+    saved = (graphconv_mod.gcn_layer, attr_channel_mod.spmm_ell, align_mod.sinkhorn_align_loss)
+    graphconv_mod.gcn_layer = lambda op, x, w, b=None: reference_layer(op.fwd, op.diag, x, w, b)
+    attr_channel_mod.spmm_ell = lambda op, x: apply_with_diag(op.fwd, op.diag, x)
+    align_mod.sinkhorn_align_loss = sinkhorn_align_loss_plain
+    try:
+        yield
+    finally:
+        (graphconv_mod.gcn_layer, attr_channel_mod.spmm_ell,
+         align_mod.sinkhorn_align_loss) = saved
+
+
+def _check_step(model, loss_fn, expect: dict, zero_grads: tuple[str, ...] = ()) -> dict:
+    """One training step's loss and gradients through the kernels against
+    the plain path on the card (``_plain_kernels``, which must launch no
+    kernel): loss rel 1e-4, each gradient relative L2 1e-3.  ``loss_fn()``
+    returns the step's loss; ``expect``, the kernels' launches in it.
+    ``zero_grads``: parameters whose gradient is 0 by construction (the AE
+    layer-2 bias: the AE margin reads only differences of rows); both paths
+    must give rounding noise there, under 1e-5 of the step's largest
+    gradient entry."""
     model.zero_grad(set_to_none=True)
     _reset_launch_counts()
-    loss, _ = model(op, batch)
+    loss = loss_fn()
     loss.backward()
-    sync(dev)
+    sync(loss.device)
     per_step = _launch_counts()
-    expect = {"gcn_fused": 2, "spmm_ell": 2, "sinkhorn_fused": 2 * cfg.sinkhorn_iters + 1}
     if per_step != expect:
         raise AssertionError(f"one step launched {per_step}, expected {expect}")
-    # the plain path: the fused layer's and the OT head's plain versions,
-    # differentiated by autograd
-    p = {k: v.detach().clone().requires_grad_(True) for k, v in model.named_parameters()}
-    h = torch.relu(reference_layer(op.fwd, op.diag, p["encoder.emb"], p["encoder.gc1.w"],
-                                   p["encoder.gc1.b"]))
-    emb = reference_layer(op.fwd, op.diag, h, p["encoder.gc2.w"], p["encoder.gc2.b"])
-    plain = (margin_align_loss(emb, batch.get("pairs_aug", batch["pairs"]), batch["neg_l"],
-                               batch["neg_r"], cfg.gamma, batch.get("w"))
-             + cfg.sinkhorn_weight * sinkhorn_align_loss_plain(
-                 emb, batch["pairs"], tau=cfg.sinkhorn_tau, n_iters=cfg.sinkhorn_iters))
-    plain.backward()
+    grads = {k: v.grad for k, v in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    with _plain_kernels():
+        plain = loss_fn()
+        plain.backward()
+    sync(loss.device)
+    if any(_launch_counts()[k] != v for k, v in per_step.items()):
+        raise AssertionError(f"the plain path launched kernels: {_launch_counts()}")
     loss_rel = abs(loss.item() - plain.item()) / abs(plain.item())
-    grad_rel = {k: float((v.grad - p[k].grad).norm() / p[k].grad.norm().clamp_min(1e-30))
-                for k, v in model.named_parameters()}
-    if loss_rel > 1e-4 or max(grad_rel.values()) > 1e-3:
-        raise AssertionError(f"step vs plain path: loss rel {loss_rel}, grads {grad_rel}")
+    plain_grads = dict((k, v.grad) for k, v in model.named_parameters())
+    grad_rel = {k: float((grads[k] - v).norm() / v.norm().clamp_min(1e-30))
+                for k, v in plain_grads.items() if k not in zero_grads}
+    scale = max(float(v.abs().max()) for v in plain_grads.values())
+    zero_abs = {k: max(float(grads[k].abs().max()), float(plain_grads[k].abs().max()))
+                for k in zero_grads}
+    if (loss_rel > 1e-4 or max(grad_rel.values()) > 1e-3
+            or any(v > 1e-5 * scale for v in zero_abs.values())):
+        raise AssertionError(f"step vs plain path: loss rel {loss_rel}, grads {grad_rel}, "
+                             f"zero grads {zero_abs} at scale {scale}")
     return {"per_step_launches": per_step, "loss": loss.item(), "loss_plain": plain.item(),
-            "loss_rel_err": loss_rel, "grad_rel_l2": grad_rel}
+            "loss_rel_err": loss_rel, "grad_rel_l2": grad_rel,
+            "zero_grad_max_abs": zero_abs, "grad_max_abs": scale}
 
 
-def _profile_step(res, cfg, dev, reps: int = 5) -> dict:
-    """Median host wall time of each stage of a step, each ended by a
-    synchronise: encoder + margin forward, OT forward, OT backward, the
-    rest of the backward (margin + both layers), Adam."""
-    model, op, batch = res.model, res.op, _step_batch(res, cfg, dev)
+def _profile_step(model, op, batch, cfg, dev, attr_op=None, reps: int = 5) -> dict:
+    """Median host wall time of each stage of an AlignMTL step, each ended
+    by a synchronise: encoder + margin forward; the OT head's forward and
+    backward; the relation head and the attribute head (forward and
+    backward each, on the detached table); the AE channel (its forward,
+    margin and backward); the rest of the backward (margin + the encoder's
+    layers); Adam."""
     opt, _ = make_optimizer(cfg, model.parameters())
-    names = ("forward", "ot_forward", "ot_backward", "backward", "adam")
+    m_pairs = batch.get("pairs_aug", batch["pairs"])
+    heads = []
+    if model.rel_head is not None:
+        heads.append(("rel_head", lambda e: cfg.rel_weight * model.rel_head(
+            e, batch["rel_triples"], batch["rel_neg_t"], batch["rel_neg_h"])))
+    if model.attr_head is not None:
+        heads.append(("attr_head", lambda e: cfg.attr_weight * model.attr_head(
+            e, batch["attr_triples"])))
+    names = ["forward", *(["ot_forward", "ot_backward"] if cfg.use_sinkhorn else []),
+             *(h for h, _ in heads), *(["ae_channel"] if attr_op is not None else []),
+             "backward", "adam"]
     times = {k: [] for k in (*names, "step")}
     for i in range(reps + 1):  # the first is a warm-up
         sync(dev)
         t = [time.perf_counter()]
+
+        def mark():
+            sync(dev)
+            t.append(time.perf_counter())
+
         opt.zero_grad(set_to_none=True)
         emb = model.encoder(op)
-        margin = margin_align_loss(emb, batch["pairs"], batch["neg_l"], batch["neg_r"],
-                                   cfg.gamma)
-        sync(dev)
-        t.append(time.perf_counter())
-        emb_ot = emb.detach().requires_grad_(True)
-        ot = sinkhorn_align_loss(emb_ot, batch["pairs"], tau=cfg.sinkhorn_tau,
-                                 n_iters=cfg.sinkhorn_iters)
-        sync(dev)
-        t.append(time.perf_counter())
-        (cfg.sinkhorn_weight * ot).backward()
-        sync(dev)
-        t.append(time.perf_counter())
-        torch.autograd.backward([margin, emb], [None, emb_ot.grad])
-        sync(dev)
-        t.append(time.perf_counter())
+        margin = margin_align_loss(emb, m_pairs, batch["neg_l"], batch["neg_r"], cfg.gamma,
+                                   batch.get("w"))
+        mark()
+        emb_d = emb.detach().requires_grad_(True)
+        if cfg.use_sinkhorn:
+            ot = sinkhorn_align_loss(emb_d, batch.get("ot_pairs", batch["pairs"]),
+                                     tau=cfg.sinkhorn_tau, n_iters=cfg.sinkhorn_iters)
+            mark()
+            (cfg.sinkhorn_weight * ot).backward()
+            mark()
+        for _, head in heads:
+            head(emb_d).backward()
+            mark()
+        if attr_op is not None:
+            ae = model.ae_encoder(op, attr_op)
+            (cfg.attr_channel_weight * margin_align_loss(
+                ae, m_pairs, batch["neg_l"], batch["neg_r"], cfg.gamma, batch.get("w"))).backward()
+            mark()
+        torch.autograd.backward([margin, emb], [None, emb_d.grad])
+        mark()
         opt.step()
-        sync(dev)
-        t.append(time.perf_counter())
+        mark()
         if i:
             for k, a, b in zip(names, t, t[1:]):
                 times[k].append(b - a)
@@ -742,30 +848,48 @@ def _device_busy(res, cfg, dev, steps: int = 3) -> dict:
             "top_kernels_ms_per_step": {k[:80]: v / steps / 1e3 for k, v in top}}
 
 
-def phase_train(task, smi: str, dev: torch.device) -> dict:
-    """Config sinkhorn through driver.run at zh-en scale: uniform negatives
-    for epochs 0-4, one hard-mining interval for 5-9."""
-    cfg = get_config("sinkhorn", syn_n_ent=task.kg1.n_ent, syn_n_rel=task.kg1.n_rel,
-                     syn_seed=ZH_EN["seed"], epochs=10, neg_every=5)
-    # the main path: counts at 0 just before, read just after
+def _run_checked(cfg, task, dev, **timing_counts) -> tuple:
+    """A run through driver.run with every count at 0 just before and read
+    just after: its result, its launches (held to ``_expected_launches``),
+    its wall seconds; ``timing_counts`` (steps, minings, ...) are held too."""
     _reset_launch_counts()
     t0 = time.perf_counter()
     res = run(cfg, task=task, device=dev)
     sync(dev)
     run_s = time.perf_counter() - t0
-    counts = _launch_counts()
-    t = res.timings
+    counts, t = _launch_counts(), res.timings
     expected = _expected_launches(cfg, t)
-    if counts != expected or t["steps"] != 10 or t["minings"] != 1:
+    if counts != expected or any(t[k] != v for k, v in timing_counts.items()):
         raise AssertionError(f"launches {counts} (expected {expected}), timings {t}")
     losses = res.losses
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"losses not finite or not falling: {losses}")
-    metrics = res.metrics
-    if not all(math.isfinite(v) for v in metrics.values()):
-        raise AssertionError(f"non-finite metrics {metrics}")
-    step = _check_step(res, cfg, dev)
-    prof = _profile_step(res, cfg, dev)
+    if not all(math.isfinite(v) for v in res.metrics.values()):
+        raise AssertionError(f"non-finite metrics {res.metrics}")
+    return res, counts, run_s
+
+
+def _stages(t: dict) -> dict:
+    def per(key, count):
+        return t[key] / t[count] if t[count] else None
+
+    return {"step_median_s": float(np.median(t["step_s"])), "step_mean_s": per("train_s", "steps"),
+            "boundary_forward_s": per("forward_s", "forwards"),
+            "proposal_s": per("propose_s", "proposals"), "mining_s": per("mine_s", "minings"),
+            "draw_s": per("draw_s", "draws"), "final_eval_s": per("eval_s", "evals"),
+            "save_s": per("save_s", "saves")}
+
+
+def phase_train(task, smi: str, dev: torch.device) -> dict:
+    """Config sinkhorn through driver.run at zh-en scale: uniform negatives
+    for epochs 0-4, one hard-mining interval for 5-9."""
+    cfg = get_config("sinkhorn", syn_n_ent=task.kg1.n_ent, syn_n_rel=task.kg1.n_rel,
+                     syn_seed=ZH_EN["seed"], epochs=10, neg_every=5)
+    res, counts, run_s = _run_checked(cfg, task, dev, steps=10, minings=1)
+    t, losses, metrics = res.timings, res.losses, res.metrics
+    batch = _step_batch(res, cfg, dev)
+    step = _check_step(res.model, lambda: res.model(res.op, batch)[0], _mtl_step_launches(cfg))
+    prof = _profile_step(res.model, res.op, batch, cfg, dev)
     busy = _device_busy(res, cfg, dev)
     emit({"phase": "train", "config": "sinkhorn", "n_ent": task.n_ent,
           "train_pairs": int(len(task.train_pairs)), "dim": cfg.dim, "k_neg": cfg.k_neg,
@@ -782,9 +906,19 @@ def phase_train(task, smi: str, dev: torch.device) -> dict:
     return counts
 
 
-# recipe v6 as chip_smoke runs it: only these are cut (value here, recipe's)
+# a recipe as chip_smoke runs it: only these are cut
 RECIPE = "v6"
-RECIPE_CUTS = {"epochs": (10, 600), "boot_start": (2, 200), "eval_every": (0, 100)}
+RECIPE_CUTS = {"epochs": 10, "boot_start": 2, "eval_every": 0}
+
+
+def _cut_config(task, name: str, cuts: dict, recipe: str | None = None, **over):
+    """The named config (with ``recipe`` applied) at the zh-en task, with
+    ``cuts`` applied, and what each cut replaced: ``reduced``."""
+    full = get_config(name, **(RECIPES[recipe] if recipe else {})).replace(
+        syn_n_ent=task.kg1.n_ent, syn_n_rel=task.kg1.n_rel, syn_seed=ZH_EN["seed"], **over)
+    origin = f"recipe {recipe}" if recipe else f"config {name}"
+    return full.replace(**cuts), {k: f"{v} ({origin}: {getattr(full, k)})"
+                                  for k, v in cuts.items()}
 
 
 @contextlib.contextmanager
@@ -793,11 +927,11 @@ def _sigterm_in_step(n: int):
     call of AlignMTL.forward), as a scheduler preempts a run."""
     real, calls = AlignMTL.forward, [0]
 
-    def forward(self, op, batch):
+    def forward(self, *args, **kwargs):
         calls[0] += 1
         if calls[0] == n:
             os.kill(os.getpid(), signal.SIGTERM)
-        return real(self, op, batch)
+        return real(self, *args, **kwargs)
 
     AlignMTL.forward = forward
     try:
@@ -849,44 +983,24 @@ def phase_recipe(task, smi: str, dev: torch.device) -> dict:
     """Recipe v6 through driver.run at zh-en scale (RECIPE_CUTS), then
     checkpoint/resume, eval-only from the run's directory and CSLS
     serving."""
-    cfg = get_config("base", **RECIPES[RECIPE]).replace(
-        syn_n_ent=task.kg1.n_ent, syn_n_rel=task.kg1.n_rel, syn_seed=ZH_EN["seed"],
-        checkpoint_every=4, **{k: v for k, (v, _) in RECIPE_CUTS.items()})
+    cfg, reduced = _cut_config(task, "base", RECIPE_CUTS, RECIPE, checkpoint_every=4)
     with tempfile.TemporaryDirectory() as tmp:
         full_dir, kill_dir = os.path.join(tmp, "full"), os.path.join(tmp, "killed")
-        # the main path: counts at 0 just before, read just after
-        _reset_launch_counts()
-        t0 = time.perf_counter()
-        res = run(cfg.replace(checkpoint_dir=full_dir), task=task, device=dev)
-        sync(dev)
-        run_s = time.perf_counter() - t0
-        counts = _launch_counts()
-        t = res.timings
-        expected = _expected_launches(cfg, t)
         boundaries = (cfg.epochs - 1) // cfg.neg_every  # 2, 4, 6, 8: proposals and mining
-        if (counts != expected or t["steps"] != cfg.epochs or t["forwards"] != boundaries
-                or t["proposals"] != boundaries or t["minings"] != boundaries):
-            raise AssertionError(f"launches {counts} (expected {expected}), timings {t}")
+        res, counts, run_s = _run_checked(
+            cfg.replace(checkpoint_dir=full_dir), task, dev, steps=cfg.epochs,
+            forwards=boundaries, proposals=boundaries, minings=boundaries)
+        t, losses = res.timings, res.losses
         enc = res.model.encoder
         widths = [tuple(enc.gc1.w.shape), tuple(enc.gc2.w.shape)]
         if widths != [(256, 256), (256, 256)]:
             raise AssertionError(f"gcn_fused ran at {widths}, not (256, 256)")
-        losses = res.losses
-        if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
-            raise AssertionError(f"losses not finite or not falling: {losses}")
-        if not all(math.isfinite(v) for v in res.metrics.values()):
-            raise AssertionError(f"non-finite metrics {res.metrics}")
         # the last interval's batch as the run saved it: its proposals and negatives
-        saved = Checkpointer(full_dir, cfg.checkpoint_every).restore_latest(dev)[1]
-        n_boot = int((saved["boot_w"] > 0).sum())
+        batch, n_boot = _saved_batch(full_dir, cfg, task, dev)
         if n_boot == 0:
             raise AssertionError("no proposal with weight > 0")
-        pairs = torch.as_tensor(task.train_pairs, dtype=torch.int64, device=dev)
-        batch = {"pairs": pairs, "neg_l": saved["neg_l"], "neg_r": saved["neg_r"],
-                 "pairs_aug": torch.cat([pairs, saved["boot_pairs"]]),
-                 "w": torch.cat([torch.ones(len(pairs), device=dev),
-                                 saved["boot_w"] * cfg.boot_weight])}
-        step = _check_step(res, cfg, dev, batch)
+        step = _check_step(res.model, lambda: res.model(res.op, batch, train=True)[0],
+                           _mtl_step_launches(cfg))
 
         # the same run preempted during epoch 5 (saved at 4 and 5), resumed to 10
         with _sigterm_in_step(6):
@@ -914,18 +1028,10 @@ def phase_recipe(task, smi: str, dev: torch.device) -> dict:
     topk_s = time.perf_counter() - t0
     csls = _check_csls(ev.emb, task, queries, candidates, vals, ids, 10, cfg.eval_csls_k, dev)
 
-    def per(key, count, timings=t):
-        return timings[key] / timings[count] if timings[count] else None
-
-    stages = {"step_median_s": float(np.median(t["step_s"])),
-              "step_mean_s": per("train_s", "steps"),
-              "boundary_forward_s": per("forward_s", "forwards"),
-              "proposal_s": per("propose_s", "proposals"), "mining_s": per("mine_s", "minings"),
-              "final_eval_csls_s": per("eval_s", "evals"),
-              "evaluate_build_s": ev.timings["build_s"],
+    stages = {**_stages(t), "evaluate_build_s": ev.timings["build_s"],
               "evaluate_forward_s": ev.timings["forward_s"],
               "evaluate_eval_csls_s": ev.timings["eval_s"], "topk_csls_s": topk_s,
-              "save_s": per("save_s", "saves"), "load_s": resumed.timings["load_s"]}
+              "load_s": resumed.timings["load_s"]}
     emit({"phase": "recipe", "recipe": RECIPE, "n_ent": task.n_ent,
           "train_pairs": int(len(task.train_pairs)), "test_pairs": int(len(task.test_pairs)),
           "dim": cfg.dim, "gamma": cfg.gamma, "k_neg": cfg.k_neg, "neg_every": cfg.neg_every,
@@ -934,7 +1040,7 @@ def phase_recipe(task, smi: str, dev: torch.device) -> dict:
           "sinkhorn": {"weight": cfg.sinkhorn_weight, "tau": cfg.sinkhorn_tau,
                        "iters": cfg.sinkhorn_iters},
           "eval_csls_k": cfg.eval_csls_k, "epochs": cfg.epochs,
-          "reduced": {k: f"{v} (recipe {r})" for k, (v, r) in RECIPE_CUTS.items()},
+          "reduced": reduced,
           "losses": losses, "metrics": {k: res.metrics[k] for k in ("hits@1", "hits@10", "mrr")},
           "launches": counts, "gcn_fused_dims": widths, "timings": t, "run_s": run_s,
           "stages_s": stages, "step_check": step,
@@ -944,6 +1050,194 @@ def phase_recipe(task, smi: str, dev: torch.device) -> dict:
           "evaluate_metrics_max_diff": eval_diff, "topk_queries": int(len(queries)),
           "topk_candidates": int(len(candidates)), "csls_check": csls, "card": smi})
     return counts
+
+
+def phase_incidence(task, smi: str, dev: torch.device, d: int) -> dict:
+    """The ELL SpMM kernel on the attribute channel's incidence, where
+    config mtl runs it: x0 = A_attr·attr_emb (entities × attributes, K ≤ 4,
+    no diagonal) and its gradient Aᵀ·ḡ (attributes × entities, K in the
+    hundreds, so nearly every row is cut into segments)."""
+    t0 = time.perf_counter()
+    op = build_attr_operator(task.merged_attr_triples, task.n_ent, task.n_attr).to(dev)
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(3)
+    out = {}
+    for name, m in (("forward", op.fwd), ("transpose", op.bwd)):
+        x = torch.from_numpy(rng.standard_normal((m.n_cols, d)).astype(np.float32)).to(dev)
+        got = ell_spmm(m, None, x)
+        sync(dev)
+        want = apply_with_diag(m, None, x)
+        torch.testing.assert_close(got, want, **TOL[torch.float32])
+        err = float((got - want).abs().max())
+        if not torch.equal(got, ell_spmm(m, None, x)):
+            raise AssertionError(f"spmm_ell ({name} incidence): two launches differ")
+        csr = _csr_of(m)
+        lib = torch.sparse.mm(csr, x)
+        torch.testing.assert_close(lib, want, **TOL[torch.float32])
+        seg = segment_plan(m)
+        ms = time_ms(lambda: ell_spmm(m, None, x))
+        ms_cold = time_cold_ms(lambda: ell_spmm(m, None, x))
+        dev_ms = device_ms(lambda: ell_spmm(m, None, x))
+        plain_ms = time_ms(lambda: apply_with_diag(m, None, x), iters=5)
+        lib_ms = time_ms(lambda: torch.sparse.mm(csr, x))
+        lib_dev = device_ms(lambda: torch.sparse.mm(csr, x))
+        # x and the output once, the buckets' rows/idx/w once; 2 operations
+        # per nonzero and column
+        ell_bytes = sum(b.rows.numel() * 4 + b.idx.numel() * 8 for b in m.buckets)
+        bound, bound_by = _bound((m.n_cols + m.n_rows) * d * 4 + ell_bytes, 2 * m.nnz * d)
+        ks = [b.k for b in m.buckets]
+        out[name] = dict(
+            rows=m.n_rows, cols=m.n_cols, nnz=m.nnz, k_min=min(ks), k_max=max(ks),
+            max_abs_err=err, ms=ms, device_ms=dev_ms, ms_cold_l2=ms_cold, plain_ms=plain_ms,
+            library_ms=lib_ms, library_device_ms=lib_dev, bound_ms=bound, bound_by=bound_by,
+            share_of_bound_device=ratio(bound, dev_ms), work_items=int(seg.items.shape[0]),
+            cut_rows=int(seg.split_p0.shape[0] - 1), longest_item_slots=seg.max_item_slots)
+    emit({"phase": "incidence", "kernel": "spmm_ell", "d": d, "n_attr": task.n_attr,
+          "build_s": build_s, "bit_identical_runs": True, **out, "card": smi})
+    return out
+
+
+def phase_recipe_v7r(task, smi: str, dev: torch.device) -> dict:
+    """Recipe v7r (v6 + the attribute head at weight 0.25) through
+    driver.run at zh-en scale, cut as v6 is (RECIPE_CUTS); v7 held to differ
+    from it only in attr_weight; one step with the run's last interval
+    batch against the plain path; the step's stages."""
+    v7, v7r = (get_config("base", **RECIPES[r]).to_dict() for r in ("v7", "v7r"))
+    differ = sorted(k for k in v7 if v7[k] != v7r[k])
+    if differ != ["attr_weight"]:
+        raise AssertionError(f"v7 and v7r differ in {differ}")
+    cfg, reduced = _cut_config(task, "base", RECIPE_CUTS, "v7r", checkpoint_every=4)
+    boundaries = (cfg.epochs - 1) // cfg.neg_every  # 2, 4, 6, 8
+    with tempfile.TemporaryDirectory() as tmp:
+        res, counts, run_s = _run_checked(
+            cfg.replace(checkpoint_dir=tmp), task, dev, steps=cfg.epochs, forwards=boundaries,
+            proposals=boundaries, minings=boundaries, draws=boundaries + 1)
+        batch, n_boot = _saved_batch(tmp, cfg, task, dev)
+    model = res.model
+    widths = [tuple(model.encoder.gc1.w.shape), tuple(model.encoder.gc2.w.shape),
+              tuple(model.attr_head.w.shape)]
+    if widths != [(256, 256), (256, 256), (256, task.n_attr)] or n_boot == 0:
+        raise AssertionError(f"widths {widths}, weighted proposals {n_boot}")
+    step = _check_step(model, lambda: model(res.op, batch, train=True)[0],
+                       _mtl_step_launches(cfg))
+    prof = _profile_step(model, res.op, batch, cfg, dev)
+    emit({"phase": "recipe_v7r", "recipe": "v7r", "n_ent": task.n_ent, "n_attr": task.n_attr,
+          "dim": cfg.dim, "attr_weight": cfg.attr_weight,
+          "attr_batch": int(batch["attr_triples"].shape[0]), "v7_differs_in": differ,
+          "epochs": cfg.epochs, "reduced": reduced, "losses": res.losses,
+          "metrics": {k: res.metrics[k] for k in ("hits@1", "hits@10", "mrr")},
+          "launches": counts, "gcn_fused_dims": widths[:2], "timings": res.timings,
+          "run_s": run_s, "stages_s": _stages(res.timings), "step_check": step,
+          "step_profile": prof, "card": smi})
+    return counts
+
+
+def phase_mtl(task, smi: str, dev: torch.device) -> dict:
+    """Config mtl with the attribute channel at zh-en scale, dim 128, 10
+    epochs: launches per run, step and embed; one step against the plain
+    path, and one with an OT subsample of 2,048 seed pairs; SIGTERM
+    mid-interval and the resume; eval-only from the run's directory; the
+    step's stages."""
+    cfg, reduced = _cut_config(task, "mtl", {"epochs": 10, "eval_every": 0},
+                               use_attr_channel=True, checkpoint_every=4)
+    with tempfile.TemporaryDirectory() as tmp:
+        full_dir, kill_dir = os.path.join(tmp, "full"), os.path.join(tmp, "killed")
+        res, counts, run_s = _run_checked(cfg.replace(checkpoint_dir=full_dir), task, dev,
+                                          steps=10, forwards=1, minings=1, draws=2)
+        model, op = res.model, res.op
+        attr_op = build_attr_operator(task.merged_attr_triples, task.n_ent,
+                                      task.n_attr).to(dev)
+        # the incidence's share of the run's SpMM launches: all but the
+        # four layers' backward of each step
+        incidence = counts["spmm_ell"] - 4 * res.timings["steps"]
+        _reset_launch_counts()
+        with torch.no_grad():
+            emb = model.embed(op, attr_op)
+        sync(dev)
+        per_embed = _launch_counts()
+        if per_embed != {"gcn_fused": 4, "spmm_ell": 1, "sinkhorn_fused": 0} or emb.shape != (
+                task.n_ent, 2 * cfg.dim):
+            raise AssertionError(f"embed launched {per_embed}, shape {tuple(emb.shape)}")
+        batch, _ = _saved_batch(full_dir, cfg, task, dev)
+        zero = ("ae_encoder.gc2.b",)
+        step = _check_step(model, lambda: model(op, batch, train=True, attr_op=attr_op)[0],
+                           _mtl_step_launches(cfg), zero)
+        ot_cfg = cfg.replace(sinkhorn_pairs=2048, use_rel_head=False, use_attr_head=False)
+        sub = draw_interval(ot_cfg, 0, batch["pairs"], task.n_ent, 0, None)["ot_pairs"]
+        ot_batch = {**batch, "ot_pairs": sub}
+        step_ot = _check_step(model, lambda: model(op, ot_batch, train=True, attr_op=attr_op)[0],
+                              _mtl_step_launches(cfg), zero)
+
+        # preempted during epoch 7 (saved at 4 and 7), mid-interval (the
+        # boundary is 5), resumed to 10
+        with _sigterm_in_step(8):
+            killed = run(cfg.replace(checkpoint_dir=kill_dir), task=task, device=dev)
+        killed_at = Checkpointer(kill_dir, cfg.checkpoint_every).latest_step()
+        resumed = run(cfg.replace(checkpoint_dir=kill_dir), task=task, device=dev)
+        want, got = res.metrics["final_loss"], resumed.metrics["final_loss"]
+        resume_rel = abs(got - want) / abs(want)
+        if (killed.timings["steps"] != 8 or killed_at != 7
+                or resumed.timings["start_epoch"] != 8 or resume_rel > 1e-4):
+            raise AssertionError(f"resume: killed after {killed.timings['steps']} steps, saved "
+                                 f"at {killed_at}, resumed at {resumed.timings['start_epoch']}, "
+                                 f"final loss {got} against {want}")
+        ev = evaluate(cfg.replace(checkpoint_dir=full_dir), task=task, device=dev)
+        eval_diff = max(abs(ev.metrics[k] - res.metrics[k]) for k in ev.metrics)
+        if eval_diff > 1e-4 or ev.emb.shape != (task.n_ent, 2 * cfg.dim):
+            raise AssertionError(f"evaluate {ev.metrics} against the run's {res.metrics}")
+    prof = _profile_step(model, op, batch, cfg, dev, attr_op=attr_op)
+    emit({"phase": "mtl", "config": "mtl", "use_attr_channel": True, "n_ent": task.n_ent,
+          "n_attr": task.n_attr, "rel_triples": int(batch["rel_triples"].shape[0]),
+          "dim": cfg.dim, "combined_dim": 2 * cfg.dim, "rel_k_neg": cfg.rel_k_neg,
+          "weights": {"sinkhorn": cfg.sinkhorn_weight, "rel": cfg.rel_weight,
+                      "attr": cfg.attr_weight, "ae": cfg.attr_channel_weight},
+          "epochs": cfg.epochs, "reduced": reduced, "losses": res.losses,
+          "metrics": {k: res.metrics[k] for k in ("hits@1", "hits@10", "mrr")},
+          "launches": counts, "incidence_launches": incidence, "per_embed_launches": per_embed,
+          "timings": res.timings, "run_s": run_s, "stages_s": _stages(res.timings),
+          "step_check": step, "step_check_ot_2048": step_ot,
+          "resume": {"killed_after_steps": killed.timings["steps"], "saved_at": killed_at,
+                     "resumed_at": resumed.timings["start_epoch"], "final_loss": got,
+                     "uninterrupted_final_loss": want, "rel_err": resume_rel},
+          "evaluate_metrics_max_diff": eval_diff, "step_profile": prof, "card": smi})
+    return {**counts, "incidence": incidence}
+
+
+def phase_highway(task, smi: str, dev: torch.device) -> dict:
+    """Config highway (funifun weights, rw norm, highway gates) with dropout
+    0.3 at zh-en scale, dim 128, 10 epochs: one step against the plain path
+    with the same mask generator; the eval forward equal with and without
+    dropout."""
+    cfg, reduced = _cut_config(task, "highway", {"epochs": 10, "eval_every": 0}, dropout=0.3)
+    res, counts, run_s = _run_checked(cfg, task, dev, steps=10, forwards=1, minings=1)
+    model, op = res.model, res.op
+    batch = _step_batch(res, cfg, dev)
+
+    def loss_fn():
+        gen = torch.Generator(device=dev).manual_seed(1234)
+        return margin_align_loss(model(op, train=True, generator=gen), batch["pairs"],
+                                 batch["neg_l"], batch["neg_r"], cfg.gamma)
+
+    step = _check_step(model, loss_fn, {"gcn_fused": 2, "spmm_ell": 2, "sinkhorn_fused": 0})
+    no_drop = AlignGCN(n_ent=task.n_ent, dim=cfg.dim, highway=True, device=dev)
+    no_drop.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        a, b, dropped = model(op), no_drop(op), model(op, train=True, generator=torch.Generator(
+            device=dev).manual_seed(1234))
+    if not torch.equal(a, b) or torch.equal(a, dropped):
+        raise AssertionError("the eval forward depends on dropout, or the training one does not")
+    emit({"phase": "highway", "config": "highway", "weighting": cfg.weighting, "norm": cfg.norm,
+          "dropout": cfg.dropout, "n_ent": task.n_ent, "dim": cfg.dim, "edges": op.nnz,
+          "transpose_differs": not torch.equal(op.fwd.row_order, op.bwd.row_order) or any(
+              not torch.equal(x.w, y.w) for x, y in zip(op.fwd.buckets, op.bwd.buckets)),
+          "epochs": cfg.epochs, "reduced": reduced, "losses": res.losses,
+          "metrics": {k: res.metrics[k] for k in ("hits@1", "hits@10", "mrr")},
+          "launches": counts, "timings": res.timings, "run_s": run_s,
+          "stages_s": _stages(res.timings), "step_check": step,
+          "eval_forward_equal_without_dropout": True, "card": smi})
+    return counts
+
 
 
 def main() -> int:
@@ -958,20 +1252,30 @@ def main() -> int:
     serve_launches = phase_slice(task, smi, dev)
     train = phase_train(task, smi, dev)
     recipe = phase_recipe(task, smi, dev)
+    incidence = {**phase_incidence(task, smi, dev, d=128),
+                 "at_d256": phase_incidence(task, smi, dev, d=256)}
+    v7r = phase_recipe_v7r(task, smi, dev)
+    mtl = phase_mtl(task, smi, dev)
+    highway = phase_highway(task, smi, dev)
     # the numbers at the recipe's width (d = 256); launches of the recipe's
-    # run, with those of the sinkhorn training and base serving runs beside
+    # run, with those of the other runs beside (the incidence's at mtl's
+    # width, d = 128, where config mtl runs it)
     emit({"kernels": [
         {"name": "gcn_fused", "route": "cuda", "source": "tpugraph_torch/csrc/gcn_fused.cu",
          "replaces": "tpugraph/kernels/gcn_fused_pallas.py:40", "launches": recipe["gcn_fused"],
-         "launches_train": train["gcn_fused"], "launches_serve": serve_launches, **k_gcn},
+         "launches_train": train["gcn_fused"], "launches_serve": serve_launches,
+         "launches_v7r": v7r["gcn_fused"], "launches_mtl": mtl["gcn_fused"],
+         "launches_highway": highway["gcn_fused"], **k_gcn},
         {"name": "spmm_ell", "route": "cuda", "source": "tpugraph_torch/csrc/spmm_ell.cu",
          "replaces": "tpugraph/kernels/spmm_ell.py:19", "launches": recipe["spmm_ell"],
-         "launches_train": train["spmm_ell"], **k_spmm},
+         "launches_train": train["spmm_ell"], "launches_v7r": v7r["spmm_ell"],
+         "launches_mtl": mtl["spmm_ell"], "launches_mtl_incidence": mtl["incidence"],
+         "launches_highway": highway["spmm_ell"], **k_spmm, "incidence": incidence},
         {"name": "sinkhorn_fused", "route": "cuda",
          "source": "tpugraph_torch/csrc/sinkhorn_fused.cu",
          "replaces": "tpugraph/kernels/sinkhorn_pallas.py:38",
          "launches": recipe["sinkhorn_fused"], "launches_train": train["sinkhorn_fused"],
-         **k_sink},
+         "launches_v7r": v7r["sinkhorn_fused"], "launches_mtl": mtl["sinkhorn_fused"], **k_sink},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

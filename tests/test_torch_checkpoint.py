@@ -1,8 +1,9 @@
 """Checkpoint and resume in the port (the counterparts of
 tests/test_checkpoint.py's kill-and-resume tests, and of the eval-only
 path): a resumed run reproduces the uninterrupted one bit for bit on the
-CPU — in ``base`` hard mode, with bootstrapping, and through ``fit_mtl`` —
-resuming mid-interval; SIGTERM saves and exits cleanly; the checkpointer
+CPU — in ``base`` hard mode, with bootstrapping, through ``fit_mtl`` (with
+both MTL heads and the attribute channel too), and in config ``highway``
+with dropout — resuming mid-interval; SIGTERM saves and exits cleanly; the checkpointer
 keeps the newest three and refuses a checkpoint without the resume state;
 ``driver.evaluate`` scores a trained directory as the run's final eval did."""
 
@@ -27,6 +28,13 @@ CASES = {
                                eval_csls_k=5)),
     "mtl_boot": ("sinkhorn", dict(neg_mode="hard", boot_cap=8, boot_start=2, boot_weight=0.5,
                                   sinkhorn_iters=5, eval_csls_k=5)),
+    # config mtl: both heads, the AE channel and the OT subsample, each
+    # interval's draws saved and reused
+    "mtl_channel_boot": ("mtl", dict(neg_mode="hard", boot_cap=8, boot_start=2,
+                                     boot_weight=0.5, sinkhorn_iters=5, rel_k_neg=3,
+                                     use_attr_channel=True, sinkhorn_pairs=16)),
+    # config highway with dropout: each step's mask from its own generator
+    "highway_dropout": ("highway", dict(neg_mode="hard", dropout=0.3)),
 }
 
 
@@ -69,6 +77,8 @@ def test_resume_reproduces_uninterrupted_run(case, task, tmp_path):
         assert full.timings["proposals"] == 3  # epochs 4, 8 and 12
         state = Checkpointer(cfg_a.checkpoint_dir, 6).restore_latest()[1]
         assert state["boot_w"].sum() > 0 and state["neg_l"].shape == (len(task.train_pairs) + 8, 5)
+        if config == "mtl":
+            assert set(state["extra"]) == {"ot_pairs", "rel_neg_t", "rel_neg_h", "attr_triples"}
 
 
 def test_sigterm_saves_and_exits_cleanly(task, tmp_path, monkeypatch):

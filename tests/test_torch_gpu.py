@@ -1,5 +1,7 @@
 """The port's CUDA kernels (fused GCN layer, ELL SpMM, Sinkhorn potential
-update) against their plain versions, and training on the card.
+update) against their plain versions, and training on the card: the
+attribute incidence's SpMM, a GCN layer on config highway's operator, and
+steps of recipes v6 and v7r.
 
 Marked ``gpu``; each test skips without a CUDA device.  This file imports
 neither JAX nor the JAX package, so on a machine with a card (and no JAX)
@@ -12,13 +14,17 @@ import numpy as np
 import pytest
 import torch
 
+import tpugraph_torch.models.align as align_mod
+import tpugraph_torch.models.attr_channel as attr_channel_mod
+import tpugraph_torch.nn.graphconv as graphconv_mod
 from tpugraph_torch.configs.configs import get_config
 from tpugraph_torch.configs.recipes import RECIPES
 from tpugraph_torch.kernels import gcn_fused, sinkhorn_fused, spmm_ell
-from tpugraph_torch.kernels.gcn_fused import fused_gcn_layer, reference_layer
+from tpugraph_torch.kernels.gcn_fused import fused_gcn_layer, gcn_layer, reference_layer
 from tpugraph_torch.kernels.sinkhorn_fused import sinkhorn_potential_update, sinkhorn_update_plain
 from tpugraph_torch.kernels.spmm_ell import SEG_SLOTS, apply_with_diag, ell_spmm
-from tpugraph_torch.models.align import AlignMTL
+from tpugraph_torch.models.align import AlignMTL, init_mtl_params
+from tpugraph_torch.models.attr_channel import build_attr_operator
 from tpugraph_torch.models.encoder import AlignGCN, init_params
 from tpugraph_torch.sparse.build import build_adjacency
 from tpugraph_torch.sparse.ell import build_ell_operator
@@ -375,3 +381,103 @@ def test_v6_step_at_dim_256_matches_plain(cuda):
     assert loss.item() == pytest.approx(plain.item(), rel=1e-4)
     for k, v in model.named_parameters():
         assert float((v.grad - p[k].grad).norm() / p[k].grad.norm()) < 1e-3, k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 256])
+def test_incidence_spmm_matches_plain(cuda, d):
+    """The attribute channel's rectangular incidence (no diagonal): the
+    forward over entities × attributes (K ≤ 4) and the transpose, whose
+    rows (K ≈ 240) are all cut into segments, against the plain version;
+    two launches agree bit for bit; the trainable form's gradient is the
+    transpose's launch."""
+    rng = np.random.default_rng(d)
+    n_ent, n_attr = 6000, 100
+    attr = np.stack([np.repeat(np.arange(n_ent), 4), rng.integers(0, n_attr, 4 * n_ent)], 1)
+    op = build_attr_operator(attr, n_ent, n_attr).to(cuda)
+    assert op.diag is None and min(b.k for b in op.bwd.buckets) > SEG_SLOTS
+    for m in (op.fwd, op.bwd):
+        x = torch.from_numpy(rng.standard_normal((m.n_cols, d)).astype(np.float32)).to(cuda)
+        got, again = ell_spmm(m, None, x), ell_spmm(m, None, x)
+        torch.testing.assert_close(got, apply_with_diag(m, None, x), rtol=1e-4, atol=1e-4)
+        assert torch.equal(got, again)
+    table = torch.from_numpy(rng.standard_normal((n_attr, d)).astype(np.float32)).to(cuda)
+    cot = torch.from_numpy(rng.standard_normal((n_ent, d)).astype(np.float32)).to(cuda)
+    t1, t2 = table.clone().requires_grad_(True), table.clone().requires_grad_(True)
+    before = spmm_ell.launches
+    (spmm_ell.spmm_ell(op, t1) * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert spmm_ell.launches == before + 2
+    (apply_with_diag(op.fwd, None, t2) * cot).sum().backward()
+    torch.testing.assert_close(t1.grad, t2.grad, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_gcn_layer_on_the_highway_operator_matches_plain(cuda):
+    """Config highway's funifun-weighted, rw-normalised operator is not
+    symmetric, so the backward's op.bwd is another matrix than op.fwd: the
+    layer's forward and its gradients against autograd of the plain layer."""
+    rng = np.random.default_rng(3)
+    n = 3000
+    tri = np.stack([rng.integers(0, n, 12000), rng.integers(0, 30, 12000),
+                    rng.integers(0, n, 12000)], 1)
+    op = build_adjacency(n, tri, n_rel=30, weighting="funifun", norm="rw").to(cuda)
+    x = torch.from_numpy(rng.standard_normal((n, 128)).astype(np.float32)).to(cuda)
+    wm = torch.from_numpy((rng.standard_normal((128, 128)) / 11.3).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.standard_normal(128).astype(np.float32)).to(cuda)
+    cot = torch.from_numpy(rng.standard_normal((n, 128)).astype(np.float32)).to(cuda)
+    args = [t.clone().requires_grad_(True) for t in (x, wm, b)]
+    plain = [t.clone().requires_grad_(True) for t in (x, wm, b)]
+    before = (gcn_fused.launches, spmm_ell.launches)
+    got = gcn_layer(op, *args)
+    (got * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert (gcn_fused.launches - before[0], spmm_ell.launches - before[1]) == (1, 1)
+    want = reference_layer(op.fwd, op.diag, *plain)
+    (want * cot).sum().backward()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    for a, p in zip(args, plain):
+        assert float((a.grad - p.grad).norm() / p.grad.norm()) < 1e-4
+
+
+@pytest.mark.gpu
+def test_v7r_step_at_dim_256_matches_plain(cuda, monkeypatch):
+    """One step of recipe v7r (v6 + the attribute head) at dim 256 through
+    the kernels (2 gcn_fused, 2 spmm_ell, 41 sinkhorn_fused) against the
+    same model with every kernel swapped for its plain version: loss rel
+    1e-4, each gradient (the attribute head's too) relative L2 1e-3."""
+    cfg = get_config("base", **RECIPES["v7r"])
+    rng = np.random.default_rng(12)
+    n, n1, s, n_attr = 1200, 600, 200, 40
+    tri = np.stack([rng.integers(0, n, 5000), rng.integers(0, 9, 5000),
+                    rng.integers(0, n, 5000)], 1)
+    op = build_adjacency(n, tri).to(cuda)
+    model = AlignMTL(n, cfg, device=cuda, n_attr=n_attr)
+    model.load_state_dict(init_mtl_params(cfg, n, n_attr=n_attr, seed=4))
+    pairs = np.stack([rng.permutation(n1)[:s], n1 + rng.permutation(n1)[:s]], 1)
+    batch = {"pairs": torch.from_numpy(pairs).to(cuda),
+             "neg_l": torch.from_numpy(rng.integers(0, n1, (s, cfg.k_neg))).to(cuda),
+             "neg_r": torch.from_numpy(rng.integers(n1, n, (s, cfg.k_neg))).to(cuda),
+             "attr_triples": torch.from_numpy(np.stack([rng.integers(0, n, 3000),
+                                                        rng.integers(0, n_attr, 3000)], 1)
+                                              ).to(cuda)}
+    before = (gcn_fused.launches, spmm_ell.launches, sinkhorn_fused.launches)
+    loss, aux = model(op, batch, train=True)
+    loss.backward()
+    torch.cuda.synchronize()
+    after = (gcn_fused.launches, spmm_ell.launches, sinkhorn_fused.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (2, 2, 2 * cfg.sinkhorn_iters + 1)
+    assert "attr" in aux
+    grads = {k: v.grad for k, v in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    monkeypatch.setattr(graphconv_mod, "gcn_layer",
+                        lambda op_, x, w, b=None: reference_layer(op_.fwd, op_.diag, x, w, b))
+    monkeypatch.setattr(attr_channel_mod, "spmm_ell",
+                        lambda op_, x: apply_with_diag(op_.fwd, op_.diag, x))
+    monkeypatch.setattr(align_mod, "sinkhorn_align_loss", sinkhorn_align_loss_plain)
+    plain, _ = model(op, batch, train=True)
+    plain.backward()
+    assert (gcn_fused.launches, spmm_ell.launches, sinkhorn_fused.launches) == after
+    assert loss.item() == pytest.approx(plain.item(), rel=1e-4)
+    for k, v in model.named_parameters():
+        assert float((grads[k] - v.grad).norm() / v.grad.norm()) < 1e-3, k

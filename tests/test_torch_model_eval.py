@@ -51,10 +51,10 @@ def test_align_gcn_bf16_and_unported_options():
     model.load_state_dict(params)
     out = model(build_adjacency(40, tri))
     assert out.dtype == torch.float32 and torch.isfinite(out).all()
-    with pytest.raises(NotImplementedError):
-        AlignGCN(n_ent=4, highway=True)
-    with pytest.raises(NotImplementedError):
-        AlignGCN(n_ent=4, dropout=0.1)
+    with pytest.raises(ValueError, match="hidden == dim"):
+        AlignGCN(n_ent=4, dim=8, hidden=16, highway=True)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        AlignGCN(n_ent=4, compute_dtype="float16")
 
 
 def _emb(seed, n=160, d=24):

@@ -69,11 +69,10 @@ def _boot_setup(seed, n1=80, n2=100, d=12, s=30):
 
 def test_recipes_equal_the_jax_table():
     assert RECIPES == JAX_RECIPES
-    for name in ("v1", "v2", "v3", "v4", "v5", "v6"):
+    for name in ("v1", "v2", "v3", "v4", "v5", "v6", "v7", "v7r"):
         check_trainable(get_config("base", **RECIPES[name]))
-    for name in ("v7", "v7r"):
-        with pytest.raises(NotImplementedError, match="attribute head"):
-            check_trainable(get_config("base", **RECIPES[name]))
+    v7, v7r = get_config("base", **RECIPES["v7"]), get_config("base", **RECIPES["v7r"])
+    assert {k for k, v in v7.to_dict().items() if v7r.to_dict()[k] != v} == {"attr_weight"}
 
 
 @pytest.mark.parametrize("case,csls_k", [("many", 0), ("many", 10), ("few_mutual", 0)])
@@ -257,13 +256,14 @@ def test_interval_boundary_matches_jax():
 
 
 def test_cli_recipe_v6_on_the_host(capsys, one_thread):
-    """v6 with small sizes: bootstrapping from epoch 2, CSLS eval; v7 is
-    refused naming the attribute head."""
+    """v6 with small sizes: bootstrapping from epoch 2, CSLS eval; v7 runs
+    with the same sizes."""
     argv = ["--recipe", "v6", "--device", "cpu", "--quiet", "--set", "syn_n_ent=150",
             "syn_n_triples=600", "epochs=4", "boot_start=2", "boot_cap=30", "k_neg=5",
             "eval_every=0", "dim=32"]
     assert cli_main(argv) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert np.isfinite(out["final_loss"]) and 0.0 <= out["hits@1"] <= 1.0
-    with pytest.raises(NotImplementedError, match="attribute head"):
-        cli_main(["--recipe", "v7", "--device", "cpu", "--quiet", "--set", "syn_n_ent=150"])
+    assert cli_main(["--recipe", "v7", *argv[2:]]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert np.isfinite(out["final_loss"]) and 0.0 <= out["hits@1"] <= 1.0

@@ -47,6 +47,8 @@ def _assert_same(res, emb, metrics):
 @pytest.mark.parametrize("overrides", [
     {},
     {"weighting": "funifun", "norm": "rw", "l2_normalize": True, "syn_seed": 3},
+    # config highway's gates, with dropout configured (an eval never drops)
+    {"weighting": "funifun", "norm": "rw", "highway": True, "dropout": 0.3, "syn_seed": 5},
 ])
 def test_evaluate_matches_jax_slice(overrides):
     params, emb, metrics = _jax_reference(overrides)

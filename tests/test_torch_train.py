@@ -256,17 +256,17 @@ def test_cli_trains_and_prints_one_json_line(capsys):
 
 def test_unported_options_and_the_card_default():
     for over in (dict(steps_per_call=5), dict(boot_cap=10, boot_approx=True),
-                 dict(sinkhorn_pairs=64), dict(eval_approx_k=50), dict(profile_dir="prof"),
+                 dict(neg_metric="sqeuclidean"), dict(eval_approx_k=50), dict(profile_dir="prof"),
                  dict(param_dtype="bfloat16"), dict(neg_approx=True), dict(neg_csls_k=5),
-                 dict(boot_cap=10, neg_metric="sqeuclidean"), dict(use_attr_head=True),
+                 dict(boot_cap=10, neg_metric="sqeuclidean"), dict(slice_shards=2),
                  dict(n_shards=2)):
         with pytest.raises(NotImplementedError):
             check_trainable(get_config("sinkhorn", **over))
     with pytest.raises(ValueError, match="sinkhorn_pairs"):
         check_ot_size(get_config("sinkhorn"), 9000)
     check_ot_size(get_config("sinkhorn"), 4500)
-    with pytest.raises(NotImplementedError):
-        AlignMTL(10, get_config("mtl"))
+    with pytest.raises(ValueError, match="n_rel"):
+        AlignMTL(10, get_config("mtl"))  # the heads need their sizes
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run(get_config("sinkhorn", **TINY, epochs=1))
     assert epoch_edge_ops(1234) == jax_epoch_edge_ops(1234)

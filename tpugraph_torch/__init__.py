@@ -11,10 +11,12 @@ Layer map:
     sparse/    KG containers, adjacency build, degree-bucketed ELL operator
     kernels/   plain-torch ELL SpMM, distances and Sinkhorn solver, and the
                three CUDA kernels: the fused GCN layer (forward), the ELL
-               SpMM (the layers' backward over the transpose) and the fused
+               SpMM (the layers' backward over the transpose, and the
+               attribute incidence forward and backward) and the fused
                Sinkhorn potential update (the OT head's forward)
-    nn/        GraphConvolution (trainable in fp32)
-    models/    AlignGCN encoder, AlignMTL (margin + Sinkhorn heads)
+    nn/        GraphConvolution (trainable in fp32), the highway gate
+    models/    AlignGCN encoder (highway gates, dropout), AlignMTL (margin,
+               Sinkhorn, relation and attribute heads, the AE channel)
     train/     losses, OT head, negatives, optimizer, metrics, exact Hits@k,
                the training loops (``fit``, ``fit_mtl``) and the driver
                (``run``, ``evaluate``)

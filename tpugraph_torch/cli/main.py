@@ -2,12 +2,14 @@
 
     python -m tpugraph_torch.cli.main --config sinkhorn --epochs 10
     python -m tpugraph_torch.cli.main --recipe v6 --set checkpoint_dir=ckpt checkpoint_every=50
+    python -m tpugraph_torch.cli.main --recipe v7r
+    python -m tpugraph_torch.cli.main --config mtl --set use_attr_channel=true
+    python -m tpugraph_torch.cli.main --config highway --set dropout=0.3
     python -m tpugraph_torch.cli.main --config base --set dim=128 neg_every=5 --device cpu
 
 Picks a named config, applies a tuned recipe (``--recipe``,
-``configs/recipes.py``: v1–v6 run, v7 and v7r need the attribute head and
-are refused), then typed ``key=value`` overrides (``--set``), trains
-through ``train/driver.py::run`` on the card (``--device cuda``, the
+``configs/recipes.py``: v1–v7r), then typed ``key=value`` overrides
+(``--set``), trains through ``train/driver.py::run`` on the card (``--device cuda``, the
 default) or the host, and prints the final metrics as one JSON line.
 ``--eval-only`` scores the parameters in ``checkpoint_dir`` instead
 (``driver.evaluate``).  The JAX CLI's ``--fast``, ``--profile-dir`` and the

@@ -12,8 +12,9 @@ A recipe is a dict of TrainConfig overrides, applied before ``--set`` by
     v7  v6 + attribute-prediction MTL head (w=4.0) + 900 epochs
     v7r v7 at attr_weight=0.25
 
-v1–v6 run in the port; v7 and v7r need the attribute head, which is not
-ported yet (``ROADMAP.md``), and the trainer refuses them.
+v7r is the reference's robust default for real-data runs: the w=4.0 win
+of v7 shows only where attributes are clean.  All eight run in the port;
+v5–v7r go through ``train/mtl.py::fit_mtl``.
 """
 
 from __future__ import annotations

@@ -12,6 +12,10 @@ out[row] = Σ_k w[row, k] · x[idx[row, k]] + diag[row] · x[row].
   scatter (``kernels/gcn_fused.py::gcn_layer``).  Pad slots hold
   ``idx = 0``, ``w = 0``: a non-finite x[0] poisons the padded rows
   (0·NaN), as in the JAX package.
+* ``spmm_ell`` — A·x with a gradient for x (an autograd Function, the
+  counterpart of the JAX ``spmm_ell`` custom VJP): ``ell_spmm`` over
+  ``op.fwd`` forward, over ``op.bwd`` backward.  The attribute channel's
+  rectangular entity × attribute incidence (no diagonal) runs through it.
 * ``fused_plan`` — the tile table the fused GCN layer walks: every bucket
   cut into tiles of at most 32 rows (fewer for large K, so a tile holds
   about ``TILE_SLOTS`` slots), plus K = 0 tiles for the rows in no bucket,
@@ -33,7 +37,7 @@ import numpy as np
 import torch
 
 from tpugraph_torch.kernels import _build
-from tpugraph_torch.sparse.ell import EllMatrix
+from tpugraph_torch.sparse.ell import EllMatrix, EllOperator
 
 TILE_ROWS = 32  # kTileRows in csrc/gcn_fused.cu
 TILE_SLOTS = 1024  # target ELL slots per tile: large-K buckets get fewer rows
@@ -263,3 +267,22 @@ def _launch(m: EllMatrix, diag: torch.Tensor | None, x: torch.Tensor,
     global launches
     launches += 1
     return out
+
+
+class _SpmmEll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, op):
+        ctx.op = op
+        return ell_spmm(op.fwd, op.diag, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the diagonal is symmetric, so Aᵀ = Bᵀ + diag with the same vector
+        return ell_spmm(ctx.op.bwd, ctx.op.diag, g.contiguous()), None
+
+
+def spmm_ell(op: EllOperator, x: torch.Tensor) -> torch.Tensor:
+    """A·x (+ diag ⊙ x) with a gradient for x; the operator is a constant
+    and gets none, as in the JAX package.  Forward and backward are one
+    ``ell_spmm`` launch each on the card."""
+    return _SpmmEll.apply(x, op)

@@ -1,1 +1,1 @@
-"""The encoder and the model with its alignment losses."""
+"""The encoder, the MTL heads, the attribute channel and the model with its losses."""

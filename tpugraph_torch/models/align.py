@@ -1,10 +1,9 @@
-"""AlignMTL — the encoder with the alignment losses (counterpart of
-``tpugraph/models/align.py``, margin and Sinkhorn heads):
+"""AlignMTL — the flagship multi-task model (counterpart of
+``tpugraph/models/align.py``): the shared AlignGCN encoder, the alignment
+losses (margin, optional Sinkhorn OT), the auxiliary relation and
+attribute heads, and optionally the GCN-Align attribute (AE) channel:
 
-    L = L_margin + λ_ot·L_ot
-
-The relation and attribute heads and the AE channel belong to the MTL
-slice and raise (``ROADMAP.md``).
+    L = L_margin + λ_ot·L_ot + λ_rel·L_rel + λ_attr·L_attr + λ_ae·L_ae
 """
 
 from __future__ import annotations
@@ -13,46 +12,96 @@ import torch
 from torch import nn
 
 from tpugraph_torch.configs.configs import TrainConfig
-from tpugraph_torch.models.encoder import AlignGCN
+from tpugraph_torch.models.attr_channel import (AttrChannelGCN, combine_channels,
+                                                init_attr_channel_params)
+from tpugraph_torch.models.encoder import AlignGCN, init_params
+from tpugraph_torch.models.heads import AttributeHead, RelationHead, init_head_params
 from tpugraph_torch.sparse.ell import EllOperator
 from tpugraph_torch.train.losses import margin_align_loss
 from tpugraph_torch.train.ot import sinkhorn_align_loss
 
 
 class AlignMTL(nn.Module):
-    """Parameters under ``encoder.`` (``convert.params_from_jax`` maps the
-    flax tree {"encoder": {...}} onto them)."""
+    """Parameters under ``encoder.``, ``rel_head.``, ``attr_head.`` and
+    ``ae_encoder.`` (``convert.params_from_jax`` maps the flax tree onto
+    them).  ``n_rel`` and ``n_attr`` size the heads and the AE channel."""
 
-    def __init__(self, n_ent: int, cfg: TrainConfig, device: torch.device | str | None = None):
+    def __init__(self, n_ent: int, cfg: TrainConfig, device: torch.device | str | None = None,
+                 n_rel: int = 0, n_attr: int = 0):
         super().__init__()
-        for flag in ("use_rel_head", "use_attr_head", "use_attr_channel"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(f"{flag} is not ported yet (the MTL slice)")
+        if (cfg.use_rel_head and n_rel < 1) or (
+                (cfg.use_attr_head or cfg.use_attr_channel) and n_attr < 1):
+            raise ValueError(f"the heads need n_rel >= 1 and n_attr >= 1 "
+                             f"(got n_rel={n_rel}, n_attr={n_attr})")
         self.cfg = cfg
         self.encoder = AlignGCN(n_ent=n_ent, dim=cfg.dim, hidden=cfg.hidden,
                                 highway=cfg.highway, dropout=cfg.dropout,
                                 compute_dtype=cfg.param_dtype,
                                 l2_normalize=cfg.l2_normalize, device=device)
+        self.rel_head = RelationHead(n_rel, cfg.dim, device) if cfg.use_rel_head else None
+        self.attr_head = AttributeHead(cfg.dim, n_attr, device) if cfg.use_attr_head else None
+        self.ae_encoder = (AttrChannelGCN(n_attr, cfg.dim, device) if cfg.use_attr_channel
+                           else None)
 
-    def embed(self, op: EllOperator) -> torch.Tensor:
-        """Evaluation embeddings (the SE channel)."""
-        return self.encoder(op)
+    def embed(self, op: EllOperator, attr_op: EllOperator | None = None) -> torch.Tensor:
+        """Evaluation embeddings: the SE table, or with the attribute channel
+        the β-weighted SE‖AE concat (2·dim wide)."""
+        se = self.encoder(op)
+        if self.ae_encoder is not None and attr_op is not None:
+            return combine_channels(se, self.ae_encoder(op, attr_op), self.cfg.attr_beta)
+        return se
 
-    def forward(self, op: EllOperator, batch: dict) -> tuple[torch.Tensor, dict]:
-        """batch: pairs (S, 2), neg_l, neg_r (S', k) int64 on the model's
-        device, and with bootstrapping pairs_aug (S', 2) and w (S',): the
-        seed pairs and the proposals with their weights, for the margin loss
-        only.  The Sinkhorn head stays on the seed pairs.  Returns (loss,
-        {"margin", ["sinkhorn"], "total"})."""
+    def forward(self, op: EllOperator, batch: dict, train: bool = False,
+                attr_op: EllOperator | None = None,
+                generator: torch.Generator | None = None) -> tuple[torch.Tensor, dict]:
+        """batch (int64 ids on the model's device): pairs (S, 2), neg_l,
+        neg_r (S', k); with bootstrapping pairs_aug (S', 2) and w (S'), the
+        seed pairs and the proposals for the margin losses only; optional
+        ot_pairs, the interval's subsample of the seed pairs for the OT head;
+        per enabled head rel_triples (T, 3), rel_neg_t, rel_neg_h (T, k) and
+        attr_triples (B, 2).  ``train`` (with ``generator``) turns the
+        encoder's dropout on.  Returns (loss, {"margin", ["sinkhorn"],
+        ["rel"], ["attr"], ["ae"], "total"})."""
         c = self.cfg
-        emb = self.encoder(op)
-        loss = margin_align_loss(emb, batch.get("pairs_aug", batch["pairs"]), batch["neg_l"],
-                                 batch["neg_r"], c.gamma, batch.get("w"))
+        emb = self.encoder(op, train=train, generator=generator)
+        m_pairs = batch.get("pairs_aug", batch["pairs"])
+        loss = margin_align_loss(emb, m_pairs, batch["neg_l"], batch["neg_r"], c.gamma,
+                                 batch.get("w"))
         aux = {"margin": loss}
         if c.use_sinkhorn:
-            l_ot = sinkhorn_align_loss(emb, batch["pairs"], tau=c.sinkhorn_tau,
-                                       n_iters=c.sinkhorn_iters)
+            l_ot = sinkhorn_align_loss(emb, batch.get("ot_pairs", batch["pairs"]),
+                                       tau=c.sinkhorn_tau, n_iters=c.sinkhorn_iters)
             aux["sinkhorn"] = l_ot
             loss = loss + c.sinkhorn_weight * l_ot
+        if self.rel_head is not None:
+            l_rel = self.rel_head(emb, batch["rel_triples"], batch["rel_neg_t"],
+                                  batch["rel_neg_h"])
+            aux["rel"] = l_rel
+            loss = loss + c.rel_weight * l_rel
+        if self.attr_head is not None:
+            l_attr = self.attr_head(emb, batch["attr_triples"])
+            aux["attr"] = l_attr
+            loss = loss + c.attr_weight * l_attr
+        if self.ae_encoder is not None and attr_op is not None:
+            ae = self.ae_encoder(op, attr_op)
+            l_ae = margin_align_loss(ae, m_pairs, batch["neg_l"], batch["neg_r"], c.gamma,
+                                     batch.get("w"))
+            aux["ae"] = l_ae
+            loss = loss + c.attr_channel_weight * l_ae
         aux["total"] = loss
         return loss, aux
+
+
+def init_mtl_params(cfg: TrainConfig, n_ent: int, n_rel: int = 0, n_attr: int = 0,
+                    seed: int = 0) -> dict[str, torch.Tensor]:
+    """Random AlignMTL parameters from a numpy seed: the encoder's are
+    ``init_params(seed)``'s, the heads' and the AE channel's come from
+    streams of their own."""
+    params = {f"encoder.{k}": v for k, v in init_params(
+        n_ent, cfg.dim, cfg.hidden, seed=seed, highway=cfg.highway).items()}
+    params.update(init_head_params(cfg.dim, n_rel if cfg.use_rel_head else 0,
+                                   n_attr if cfg.use_attr_head else 0, seed=seed))
+    if cfg.use_attr_channel:
+        params.update({f"ae_encoder.{k}": v
+                       for k, v in init_attr_channel_params(n_attr, cfg.dim, seed).items()})
+    return params

@@ -1,1 +1,1 @@
-"""Graph layers."""
+"""Graph layers and the highway gate."""

@@ -4,13 +4,16 @@ written with ``torch.save``.
 The trainer is deterministic given (config, epoch): uniform negatives come
 from an epoch-derived generator, and the state a resume cannot rebuild is
 saved: the model, the optimizer and its LR schedule, the interval's
-negatives and boot proposals (a resume mid-interval reuses them), the loss
-and the epoch.  So a resumed run reproduces the uninterrupted one.
+negatives, boot proposals and ``fit_mtl``'s draws (relation corruptions,
+attribute batch, OT subsample; a resume mid-interval reuses them), the
+loss and the epoch.  So a resumed run reproduces the uninterrupted one.
 
 Files under the checkpoint directory: ``ckpt-<epoch>.pt``, each written to
 a temporary name and renamed, the newest ``KEEP`` kept; and beside them
-``params.pt`` (``convert.PARAMS_FILE``), the encoder's parameters of the
-newest save, which ``train/driver.py::evaluate`` reads.
+``params.pt`` (``convert.PARAMS_FILE``), the parameters of the newest
+save that the evaluation embeddings read (the encoder's, and the AE
+channel's when it is on: ``convert.embed_params``), which
+``train/driver.py::evaluate`` reads.
 
 ``install_preemption_handler`` latches SIGTERM, the signal a scheduler
 sends before it reclaims a machine, into ``preempted``; the training loop

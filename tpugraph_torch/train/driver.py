@@ -1,13 +1,16 @@
 """Config -> trainer dispatch, and the eval-only entry (counterpart of
 ``tpugraph/train/driver.py``).
 
-``run`` trains: a config with an OT head (config ``sinkhorn``, recipes
-v5 and v6) goes to ``train/mtl.py::fit_mtl``, the others to
-``train/loop.py::fit``.  ``evaluate`` restores trained parameters (a
+``run`` trains: a config with an OT head or an MTL head or channel
+(configs ``sinkhorn`` and ``mtl``, recipes v5–v7r) goes to
+``train/mtl.py::fit_mtl``, the others (configs ``base`` and ``highway``)
+to ``train/loop.py::fit``.  ``evaluate`` restores trained parameters (a
 training run's ``checkpoint_dir`` holds them), runs the encoder forward
-over the merged graph once, and scores the exact both-direction Hits@k,
-CSLS with ``eval_csls_k``; optionally it hands the table to the serving
-path.  Both run on the card unless the caller passes ``device="cpu"``.
+over the merged graph once (with the attribute channel, the AE channel
+too, scoring the combined SE‖AE table as the run did), and scores the
+exact both-direction Hits@k, CSLS with ``eval_csls_k``; optionally it
+hands the table to the serving path.  Both run on the card unless the
+caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import torch
 
 from tpugraph_torch import resolve_device
 from tpugraph_torch.configs.configs import TrainConfig
-from tpugraph_torch.convert import PARAMS_FILE, load_params
+from tpugraph_torch.convert import AE_PREFIX, PARAMS_FILE, embed_params, load_params
+from tpugraph_torch.models.attr_channel import AttrChannelGCN, combine_channels
 from tpugraph_torch.models.encoder import AlignGCN
 from tpugraph_torch.sparse.ell import EllOperator
 from tpugraph_torch.sparse.graph import AlignTask
@@ -45,7 +49,7 @@ def run(cfg: TrainConfig, task: AlignTask | None = None, device: str | torch.dev
 @dataclass
 class EvalResult:
     metrics: dict
-    emb: torch.Tensor  # (n_ent, dim) fp32 on the run's device
+    emb: torch.Tensor  # (n_ent, dim) fp32 on the run's device, 2·dim with the AE channel
     op: EllOperator
     model: AlignGCN
     task: AlignTask
@@ -71,10 +75,16 @@ def evaluate(cfg: TrainConfig, params: dict | None = None, task: AlignTask | Non
     """Score trained parameters under ``cfg``: one forward, exact Hits@k
     over the test pairs (CSLS with ``cfg.eval_csls_k``), and
     ``save_embeddings(cfg.save_emb_path, ...)`` when that is set.
-    ``params`` is the encoder's state dict (``convert.params_from_jax``);
-    None reads ``<checkpoint_dir>/params.pt``."""
+    ``params``: an encoder's or an AlignMTL's state dict
+    (``convert.params_from_jax``), of which ``convert.embed_params`` keeps
+    the encoder's and the AE channel's; None reads
+    ``<checkpoint_dir>/params.pt``."""
+    from tpugraph_torch.train.mtl import attr_operator
+
     dev = resolve_device(device)
-    params = _params(cfg, params)
+    params = embed_params(_params(cfg, params))
+    ae_params = {k.removeprefix(AE_PREFIX): params.pop(k) for k in list(params)
+                 if k.startswith(AE_PREFIX)}
 
     def sync():
         if dev.type == "cuda":
@@ -86,11 +96,18 @@ def evaluate(cfg: TrainConfig, params: dict | None = None, task: AlignTask | Non
     op = build_operator(cfg, task, dev)
     model = build_model(cfg, task, device=dev)
     model.load_state_dict(params)
+    attr_op = attr_operator(cfg, task, dev)
+    if attr_op is not None:
+        ae = AttrChannelGCN(max(task.n_attr, 1), cfg.dim, device=dev)
+        ae.load_state_dict(ae_params)
     sync()
     timings["build_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     emb = embed(model, op)
+    if attr_op is not None:
+        with torch.no_grad():
+            emb = combine_channels(emb, ae(op, attr_op), cfg.attr_beta)
     sync()
     timings["forward_s"] = time.perf_counter() - t0
 

@@ -10,15 +10,16 @@ share one encoder forward, since both read the same parameters.  Exact
 Hits@k (CSLS with ``eval_csls_k``) at ``eval_every`` and at the end.  With
 ``checkpoint_dir`` and ``checkpoint_every`` the loop saves and resumes
 (``train/checkpoint.py``), and SIGTERM makes it save and stop at the next
-epoch boundary.  ``fit`` trains config ``base`` (AlignGCN + margin loss);
-``train/mtl.py::fit_mtl`` runs the same loop over AlignMTL.  Both run on
-the card unless the caller passes ``device="cpu"``.
+epoch boundary.  ``fit`` trains configs ``base`` and ``highway`` (AlignGCN
++ margin loss); ``train/mtl.py::fit_mtl`` runs the same loop over AlignMTL
+and adds its own per-interval draws to the batch.  Each step with dropout
+draws its mask from a generator of its own (``step_generator``).  Both run
+on the card unless the caller passes ``device="cpu"``.
 
 Not ported yet, and refused up front (``check_trainable``): the fused
-``steps_per_call`` interval, ``sinkhorn_pairs``, approximate and
-sqeuclidean proposals, profiling, bf16 training, approximate eval,
-approximate, CSLS and sqeuclidean mining, the MTL heads and the
-distributed trainer (``ROADMAP.md``).
+``steps_per_call`` interval, approximate and sqeuclidean proposals,
+profiling, bf16 training, approximate eval, approximate, CSLS and
+sqeuclidean mining, and the distributed trainer (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 
 from tpugraph_torch import resolve_device
 from tpugraph_torch.configs.configs import TrainConfig
+from tpugraph_torch.convert import embed_params
 from tpugraph_torch.data.synthetic import synthetic_align_task
 from tpugraph_torch.models.encoder import AlignGCN, init_params
 from tpugraph_torch.sparse.build import build_adjacency
@@ -59,9 +61,10 @@ class TrainResult:
     # (optimizer and loop set-up), load_s (restoring a checkpoint), train_s
     # (the steps), step_s (each step's), forward_s (the interval
     # boundaries' encoder forwards), propose_s (bootstrap proposals), mine_s
-    # (hard mining), eval_s (evals incl. the final one), save_s
-    # (checkpoints); the counts steps, forwards, proposals, minings, evals,
-    # saves; and start_epoch, the first epoch this process ran
+    # (hard mining), draw_s (fit_mtl's per-interval draws), eval_s (evals
+    # incl. the final one), save_s (checkpoints); the counts steps,
+    # forwards, proposals, minings, draws, evals, saves; and start_epoch,
+    # the first epoch this process ran
     timings: dict = field(default_factory=dict)
 
 
@@ -102,6 +105,20 @@ def embed(model: AlignGCN, op: EllOperator) -> torch.Tensor:
         return model(op)
 
 
+def interval_generator(cfg: TrainConfig, epoch0: int, stream: int = 0) -> torch.Generator:
+    """The host generator of one interval's draws, from (seed, the
+    interval's first epoch): the uniform negatives (stream 0) and
+    ``fit_mtl``'s relation corruptions (1), attribute batch (2) and OT
+    subsample (3)."""
+    return torch.Generator().manual_seed(cfg.seed * 1_000_003 + epoch0 + (stream << 40))
+
+
+def step_generator(cfg: TrainConfig, epoch: int, dev: torch.device) -> torch.Generator:
+    """The generator of one training step's dropout mask, on the run's
+    device, from (seed, epoch): the counterpart of the JAX step key."""
+    return torch.Generator(device=dev).manual_seed(cfg.seed * 1_000_003 + epoch + (4 << 40))
+
+
 def check_trainable(cfg: TrainConfig) -> None:
     """Refuse, before any work, a config that needs an unported part."""
     if cfg.neg_every < 1:
@@ -110,7 +127,6 @@ def check_trainable(cfg: TrainConfig) -> None:
     unported = {
         "steps_per_call > 1 (the fused interval)": cfg.steps_per_call > 1,
         "boot_approx (approximate proposals)": cfg.boot_cap > 0 and cfg.boot_approx,
-        "sinkhorn_pairs > 0": cfg.sinkhorn_pairs > 0,
         "profile_dir": bool(cfg.profile_dir),
         f"param_dtype={cfg.param_dtype!r} training (float32 only)":
             cfg.param_dtype != "float32",
@@ -120,9 +136,6 @@ def check_trainable(cfg: TrainConfig) -> None:
         "sqeuclidean proposals": cfg.boot_cap > 0 and cfg.neg_metric != "cityblock",
         "the distributed trainer": max(cfg.n_shards, cfg.feature_shards,
                                        cfg.slice_shards) > 1,
-        "use_attr_head (the attribute head; recipes v7 and v7r)": cfg.use_attr_head,
-        "use_rel_head (the relation head)": cfg.use_rel_head,
-        "use_attr_channel (the attribute channel)": cfg.use_attr_channel,
     }
     for what, hit in unported.items():
         if hit:
@@ -136,19 +149,23 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _check_resume(cfg: TrainConfig, state: dict, n_rows: int) -> None:
-    """Refuse a checkpoint that lacks what a resume cannot rebuild, or whose
-    interval batch belongs to another pair count (another ``boot_cap``)."""
+def _check_resume(cfg: TrainConfig, state: dict, n_rows: int,
+                  extra_keys: tuple[str, ...] = ()) -> None:
+    """Refuse a checkpoint that lacks what a resume cannot rebuild (with
+    ``extra_keys``, the interval's draws of ``fit_mtl``), or whose interval
+    batch belongs to another pair count (another ``boot_cap``)."""
     need = ["model", "opt", "sched", "neg_l", "neg_r", "loss"]
     if cfg.boot_cap > 0:
         need += ["boot_pairs", "boot_w"]
     missing = [k for k in need if k not in state]
+    missing += [f"extra.{k}" for k in extra_keys if k not in state.get("extra", {})]
     if missing:
         raise ValueError(
             f"checkpoint at {cfg.checkpoint_dir!r} lacks {missing}: it predates the resume "
-            f"state (loss, interval negatives and proposals) — resuming it would re-mine "
-            f"the interval batch from the restored parameters and silently diverge; "
-            f"retrain or point checkpoint_dir elsewhere")
+            f"state (loss, interval negatives, proposals and draws) or was written by "
+            f"another configuration — resuming it would redraw the interval batch from "
+            f"the restored parameters and silently diverge; retrain or point "
+            f"checkpoint_dir elsewhere")
     if state["neg_l"].shape != (n_rows, cfg.k_neg):
         raise ValueError(
             f"checkpoint at {cfg.checkpoint_dir!r} holds negatives of shape "
@@ -157,23 +174,29 @@ def _check_resume(cfg: TrainConfig, state: dict, n_rows: int) -> None:
 
 
 def train_loop(cfg: TrainConfig, task: AlignTask, op: EllOperator, model: torch.nn.Module,
-               loss_fn: Callable[[dict], tuple[torch.Tensor, dict]],
+               loss_fn: Callable[[dict, torch.Generator | None], tuple[torch.Tensor, dict]],
                embed_fn: Callable[[], torch.Tensor], dev: torch.device,
-               verbose: bool = False) -> TrainResult:
-    """The epoch loop shared by ``fit`` and ``fit_mtl``: ``loss_fn(batch)``
-    returns (loss, aux) with grad; ``embed_fn()`` the encoder's table, which
-    the evals, proposals and mining read.  ``model.encoder`` (or the model
-    itself) is what a checkpoint's ``params.pt`` holds for ``evaluate``."""
+               verbose: bool = False,
+               draw_extra: Callable[[int], dict[str, torch.Tensor]] | None = None,
+               extra_keys: tuple[str, ...] = ()) -> TrainResult:
+    """The epoch loop shared by ``fit`` and ``fit_mtl``: ``loss_fn(batch,
+    generator)`` returns (loss, aux) with grad for a training forward, whose
+    dropout mask (if any) comes from ``generator``; ``embed_fn()`` the
+    evaluation table, which the evals, proposals and mining read.
+    ``draw_extra(epoch0)`` returns the entries ``extra_keys`` that each
+    interval adds to the batch; a checkpoint saves them.  A checkpoint's
+    ``params.pt`` holds what the evaluation table reads
+    (``convert.embed_params``)."""
     t_setup = time.perf_counter()
     opt, sched = make_optimizer(cfg, model.parameters())
     pairs = torch.as_tensor(np.asarray(task.train_pairs), dtype=torch.int64, device=dev)
     n1, n = task.kg1.n_ent, task.n_ent
-    encoder = getattr(model, "encoder", model)
     logger = MetricsLogger(cfg.metrics_path, config=cfg.to_dict(), tb_dir=cfg.tb_dir)
     history, losses = [], []
     timings = {"load_s": 0.0, "train_s": 0.0, "step_s": [], "forward_s": 0.0,
-               "propose_s": 0.0, "mine_s": 0.0, "eval_s": 0.0, "save_s": 0.0, "steps": 0,
-               "forwards": 0, "proposals": 0, "minings": 0, "evals": 0, "saves": 0}
+               "propose_s": 0.0, "mine_s": 0.0, "draw_s": 0.0, "eval_s": 0.0, "save_s": 0.0,
+               "steps": 0, "forwards": 0, "proposals": 0, "minings": 0, "draws": 0, "evals": 0,
+               "saves": 0}
 
     use_boot = cfg.boot_cap > 0
     if use_boot:
@@ -216,12 +239,14 @@ def train_loop(cfg: TrainConfig, task: AlignTask, op: EllOperator, model: torch.
     restored = ckpt.restore_latest(dev)
     if restored is not None:
         epoch, state = restored
-        _check_resume(cfg, state, pairs.shape[0] + (cfg.boot_cap if use_boot else 0))
+        _check_resume(cfg, state, pairs.shape[0] + (cfg.boot_cap if use_boot else 0),
+                      extra_keys)
         model.load_state_dict(state["model"])
         opt.load_state_dict(state["opt"])
         sched.load_state_dict(state["sched"])
         boot = (state["boot_pairs"], state["boot_w"]) if use_boot else None
         batch = interval_batch(boot, state["neg_l"], state["neg_r"])
+        batch.update({k: state["extra"][k] for k in extra_keys})
         loss, start_epoch = state["loss"], epoch + 1
     timings["load_s"] = time.perf_counter() - t0
     timings["start_epoch"] = start_epoch
@@ -232,7 +257,10 @@ def train_loop(cfg: TrainConfig, task: AlignTask, op: EllOperator, model: torch.
                  "loss": loss.detach()}
         if use_boot:
             state["boot_pairs"], state["boot_w"] = boot
-        timed("save_s", "saves", lambda: ckpt.save(epoch, state, encoder.state_dict()))
+        if extra_keys:
+            state["extra"] = {k: batch[k] for k in extra_keys}
+        timed("save_s", "saves",
+              lambda: ckpt.save(epoch, state, embed_params(model.state_dict())))
 
     t_start = time.perf_counter()
     timings["setup_s"] = t_start - t_setup - timings["load_s"]
@@ -255,13 +283,15 @@ def train_loop(cfg: TrainConfig, task: AlignTask, op: EllOperator, model: torch.
                         "mine_s", "minings",
                         lambda: sample_hard_negatives(emb, pairs_t, n1, n, cfg.k_neg))
                 else:
-                    gen = torch.Generator().manual_seed(cfg.seed * 1_000_003 + epoch0)
                     batch["neg_l"], batch["neg_r"] = sample_uniform_negatives(
-                        gen, pairs_t, n1, n, cfg.k_neg)
+                        interval_generator(cfg, epoch0), pairs_t, n1, n, cfg.k_neg)
+                if draw_extra is not None:
+                    batch.update(timed("draw_s", "draws", lambda: draw_extra(epoch0)))
                 del emb
             t0 = time.perf_counter()
             opt.zero_grad(set_to_none=True)
-            loss, aux = loss_fn(batch)
+            gen = step_generator(cfg, epoch, dev) if cfg.dropout > 0.0 else None
+            loss, aux = loss_fn(batch, gen)
             loss.backward()
             opt.step()
             sched.step()
@@ -281,8 +311,8 @@ def train_loop(cfg: TrainConfig, task: AlignTask, op: EllOperator, model: torch.
                     "loss": loss.item(),
                     "wall_s": round(wall, 3),
                     # epochs run in this process: the wall covers only those
-                    "edges_per_s": round(epoch_edge_ops(op.nnz) * (epoch + 1 - start_epoch)
-                                         / max(wall, 1e-9), 1),
+                    "edges_per_s": round(epoch_edge_ops(op.nnz, cfg.use_attr_channel)
+                                         * (epoch + 1 - start_epoch) / max(wall, 1e-9), 1),
                     **{f"loss_{k}": v.item() for k, v in aux.items()},
                     **{k: round(v, 4) for k, v in m.items()},
                 }
@@ -316,17 +346,19 @@ def build_operator(cfg: TrainConfig, task: AlignTask, dev: torch.device) -> EllO
 
 def fit(cfg: TrainConfig, task: AlignTask | None = None, verbose: bool = False,
         device: str | torch.device = "cuda") -> TrainResult:
-    """Train an AlignGCN with the margin loss per ``cfg`` (config ``base``);
-    parameters start from ``init_params(seed=cfg.seed)``."""
+    """Train an AlignGCN with the margin loss per ``cfg`` (configs ``base``
+    and ``highway``); parameters start from ``init_params(seed=cfg.seed)``."""
     dev = resolve_device(device)
     check_trainable(cfg)
     task = task or load_task(cfg)
     op = build_operator(cfg, task, dev)
     model = build_model(cfg, task, device=dev)
-    model.load_state_dict(init_params(task.n_ent, cfg.dim, cfg.hidden, seed=cfg.seed))
+    model.load_state_dict(init_params(task.n_ent, cfg.dim, cfg.hidden, seed=cfg.seed,
+                                      highway=cfg.highway))
 
-    def loss_fn(batch):
-        loss = margin_align_loss(model(op), batch.get("pairs_aug", batch["pairs"]),
+    def loss_fn(batch, generator):
+        loss = margin_align_loss(model(op, train=True, generator=generator),
+                                 batch.get("pairs_aug", batch["pairs"]),
                                  batch["neg_l"], batch["neg_r"], cfg.gamma, batch.get("w"))
         return loss, {"margin": loss}
 
