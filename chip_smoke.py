@@ -64,6 +64,19 @@ Phases, each printing one JSON line:
              with dropout 0.3 at dim 128 for 10 epochs: one step held against
              the plain path with the same mask generator; the loss falling;
              the eval forward equal with and without dropout.
+11. approx  — the shortlist-distance kernel against its plain version at
+             the shapes its callers run at zh-en scale (mining, proposals
+             in both metrics, hubness, eval, serving; d = 256, and 512);
+             recipe v6 cut as in phase 6 with approximate proposals,
+             approximate mining and approximate history evals every 2
+             epochs, its stage times beside phase 6's exact run; then on
+             its final table each approximate stage held against the same
+             stage with every kernel swapped for its plain version and
+             against the exact stage (mining cityblock and sqeuclidean +
+             CSLS, proposals raw and CSLS, Hits@k raw and CSLS, the top-10
+             raw and CSLS), exact sqeuclidean mining against a float64
+             search, each approximate stage's device time by kernel, and
+             the serve CLI with ``--approx-k 128 --csls-k 10``.
 
 A step is held against its plain path by running the same model code with
 every kernel swapped for its plain version (``_plain_kernels``), which
@@ -96,7 +109,7 @@ from tpugraph_torch.configs.configs import get_config
 from tpugraph_torch.configs.recipes import RECIPES
 from tpugraph_torch.convert import save_params
 from tpugraph_torch.data.synthetic import synthetic_align_task
-from tpugraph_torch.kernels import _build, gcn_fused, sinkhorn_fused, spmm_ell
+from tpugraph_torch.kernels import _build, gcn_fused, shortlist_dist, sinkhorn_fused, spmm_ell
 from tpugraph_torch.kernels.gcn_fused import fused_gcn_layer, reference_layer
 from tpugraph_torch.kernels.sinkhorn_fused import (PRECISION, stream_plan,
                                                    sinkhorn_potential_update,
@@ -106,19 +119,25 @@ from tpugraph_torch.kernels.spmm_ell import (SEG_SLOTS, apply_with_diag, ell_spm
 import tpugraph_torch.models.align as align_mod
 import tpugraph_torch.models.attr_channel as attr_channel_mod
 import tpugraph_torch.nn.graphconv as graphconv_mod
+import tpugraph_torch.serve as serve_mod
+import tpugraph_torch.train.bootstrap as bootstrap_mod
+import tpugraph_torch.train.eval as eval_mod
+import tpugraph_torch.train.negatives as negatives_mod
 from tpugraph_torch.models.align import AlignMTL
 from tpugraph_torch.models.attr_channel import build_attr_operator
 from tpugraph_torch.models.encoder import AlignGCN, init_params
-from tpugraph_torch.serve import topk_alignments
+from tpugraph_torch.serve import save_embeddings, topk_alignments
 from tpugraph_torch.sparse.build import build_adjacency
 from tpugraph_torch.train.checkpoint import Checkpointer
 from tpugraph_torch.train.driver import evaluate, run
-from tpugraph_torch.train.eval import _both_direction_ranks
+from tpugraph_torch.train.bootstrap import propose_mutual_nn_pairs
+from tpugraph_torch.train.eval import _both_direction_ranks, hits_at_k
 from tpugraph_torch.train.loop import embed
 from tpugraph_torch.train.losses import margin_align_loss
 from tpugraph_torch.train.metrics import epoch_edge_ops
 from tpugraph_torch.train.mtl import draw_interval
-from tpugraph_torch.train.negatives import sample_uniform_negatives
+from tpugraph_torch.train.negatives import (APPROX_BLOCK_Q, HUB_BLOCK, blockwise_knn_l1,
+                                            sample_hard_negatives, sample_uniform_negatives)
 from tpugraph_torch.train.optim import make_optimizer
 from tpugraph_torch.train.ot import sinkhorn_align_loss, sinkhorn_align_loss_plain
 
@@ -214,7 +233,7 @@ def phase_device() -> str:
     return smi
 
 
-KERNELS = ("gcn_fused", "spmm_ell", "sinkhorn_fused")
+KERNELS = ("gcn_fused", "spmm_ell", "sinkhorn_fused", "shortlist_dist")
 
 
 def phase_build() -> None:
@@ -637,33 +656,62 @@ def phase_slice(task, smi: str, dev: torch.device) -> int:
 
 def _launch_counts() -> dict:
     return {"gcn_fused": gcn_fused.launches, "spmm_ell": spmm_ell.launches,
-            "sinkhorn_fused": sinkhorn_fused.launches}
+            "sinkhorn_fused": sinkhorn_fused.launches, "shortlist_dist": shortlist_dist.launches}
 
 
 def _reset_launch_counts() -> None:
     gcn_fused.launches = spmm_ell.launches = sinkhorn_fused.launches = 0
+    shortlist_dist.launches = 0
 
 
-def _expected_launches(cfg, t: dict) -> dict:
+def _blocks(n: int, block: int) -> int:
+    return -(-n // block)
+
+
+def _shortlist_launches(cfg, task, t: dict) -> int:
+    """A run's shortlist-distance launches: per approximate proposal one per
+    block of 4,096 queries in each direction; per approximate cityblock
+    mining one per query block in each direction; per approximate history
+    eval one per direction, and with CSLS one per 4,096-candidate hubness
+    tile of each direction.  The paths these runs do not take raise."""
+    n1, n2 = task.kg1.n_ent, task.n_ent - task.kg1.n_ent
+    n_pairs = len(task.train_pairs) + (cfg.boot_cap if cfg.boot_cap else 0)
+    n_test = len(task.test_pairs)
+    if (cfg.boot_cap and cfg.boot_approx and cfg.boot_csls_k) or (
+            cfg.neg_approx and (cfg.neg_metric != "cityblock" or cfg.neg_csls_k)):
+        raise NotImplementedError("launch count of this approximate path not modelled")
+    per_proposal = (_blocks(n1, APPROX_BLOCK_Q) + _blocks(n2, APPROX_BLOCK_Q)
+                    if cfg.boot_cap and cfg.boot_approx else 0)
+    per_mining = 2 * _blocks(n_pairs, APPROX_BLOCK_Q) if cfg.neg_approx else 0
+    per_eval = (2 + (2 * _blocks(n_test, HUB_BLOCK) if cfg.eval_csls_k else 0)
+                if cfg.eval_approx_k else 0)
+    return (per_proposal * t["proposals"] + per_mining * t["minings"]
+            + per_eval * (t["evals"] - 1))  # the final eval is exact
+
+
+def _expected_launches(cfg, t: dict, task) -> dict:
     """A training run's launches from its timings' counts: two fused layers
     per encoder forward (each step, each interval boundary's forward, each
     eval), two SpMMs per step (the layers' backward), 2·iters + 1 potential
     updates per step with the OT head.  The attribute channel adds two
     fused layers per forward, four SpMMs per step (its layers' backward,
     the incidence forward and backward) and one per boundary forward and
-    eval (the incidence forward)."""
+    eval (the incidence forward).  The shortlist kernel runs only on the
+    approximate search paths (``_shortlist_launches``)."""
     ae = cfg.use_attr_channel
     forwards = t["steps"] + t["forwards"] + t["evals"]
     return {"gcn_fused": (4 if ae else 2) * forwards,
             "spmm_ell": (6 if ae else 2) * t["steps"] + (t["forwards"] + t["evals"] if ae else 0),
-            "sinkhorn_fused": (2 * cfg.sinkhorn_iters + 1) * t["steps"] if cfg.use_sinkhorn else 0}
+            "sinkhorn_fused": (2 * cfg.sinkhorn_iters + 1) * t["steps"] if cfg.use_sinkhorn else 0,
+            "shortlist_dist": _shortlist_launches(cfg, task, t)}
 
 
 def _mtl_step_launches(cfg) -> dict:
     """One AlignMTL training step's launches (``_expected_launches``'s per step)."""
     ae = cfg.use_attr_channel
     return {"gcn_fused": 4 if ae else 2, "spmm_ell": 6 if ae else 2,
-            "sinkhorn_fused": 2 * cfg.sinkhorn_iters + 1 if cfg.use_sinkhorn else 0}
+            "sinkhorn_fused": 2 * cfg.sinkhorn_iters + 1 if cfg.use_sinkhorn else 0,
+            "shortlist_dist": 0}
 
 
 def _step_batch(res, cfg, dev):
@@ -694,20 +742,29 @@ def _saved_batch(ckpt_dir: str, cfg, task, dev) -> tuple[dict, int]:
     return batch, n_boot
 
 
+SHORTLIST_CALLERS = (negatives_mod, bootstrap_mod, eval_mod, serve_mod)
+
+
 @contextlib.contextmanager
 def _plain_kernels():
-    """The plain path: every kernel of a training step swapped for its plain
-    PyTorch version where the model calls it (the GCN layer, the incidence
-    SpMM, the OT head), differentiated by autograd."""
-    saved = (graphconv_mod.gcn_layer, attr_channel_mod.spmm_ell, align_mod.sinkhorn_align_loss)
+    """The plain path: every kernel swapped for its plain PyTorch version
+    where the port calls it (the GCN layer, the incidence SpMM, the OT head,
+    differentiated by autograd; the shortlist distances of the search
+    paths)."""
+    saved = (graphconv_mod.gcn_layer, attr_channel_mod.spmm_ell, align_mod.sinkhorn_align_loss,
+             [m.shortlist_dist for m in SHORTLIST_CALLERS])
     graphconv_mod.gcn_layer = lambda op, x, w, b=None: reference_layer(op.fwd, op.diag, x, w, b)
     attr_channel_mod.spmm_ell = lambda op, x: apply_with_diag(op.fwd, op.diag, x)
     align_mod.sinkhorn_align_loss = sinkhorn_align_loss_plain
+    for m in SHORTLIST_CALLERS:
+        m.shortlist_dist = shortlist_dist.shortlist_dist_plain
     try:
         yield
     finally:
         (graphconv_mod.gcn_layer, attr_channel_mod.spmm_ell,
-         align_mod.sinkhorn_align_loss) = saved
+         align_mod.sinkhorn_align_loss, fns) = saved
+        for m, fn in zip(SHORTLIST_CALLERS, fns):
+            m.shortlist_dist = fn
 
 
 def _check_step(model, loss_fn, expect: dict, zero_grads: tuple[str, ...] = ()) -> dict:
@@ -812,40 +869,47 @@ def _profile_step(model, op, batch, cfg, dev, attr_op=None, reps: int = 5) -> di
     return med
 
 
-def _device_busy(res, cfg, dev, steps: int = 3) -> dict:
-    """Device busy share over ``steps`` training steps (after one warm-up),
-    from a torch.profiler trace: the kernels' and copies' device time over
-    the window's host wall time, and the kernels that take the most.  All
-    None when the trace holds no device events."""
-    model, op, batch = res.model, res.op, _step_batch(res, cfg, dev)
-    opt, _ = make_optimizer(cfg, model.parameters())
-
-    def step():
-        opt.zero_grad(set_to_none=True)
-        loss, _ = model(op, batch)
-        loss.backward()
-        opt.step()
-
-    step()
+def _device_split(fn, dev, top: int = 6) -> dict:
+    """One call of ``fn`` (after one warm-up call) from a torch.profiler
+    trace: its host wall time, the device busy share (the kernels' and
+    copies' device time over that wall time) and the ``top`` kernels by
+    device time.  None where the trace holds no device events."""
+    fn()
     sync(dev)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            step()
+        fn()
         sync(dev)
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict[str, float] = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.time_range.elapsed_us()
     if not by_name:
-        return {"busy_share": None, "idle_share": None, "top_kernels_ms_per_step": None}
-    busy = sum(by_name.values()) / wall_us
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"busy_share": busy, "idle_share": 1.0 - busy, "window_steps": steps,
-            "window_wall_ms_per_step": wall_us / steps / 1e3,
-            "top_kernels_ms_per_step": {k[:80]: v / steps / 1e3 for k, v in top}}
+        return {"wall_ms": wall_us / 1e3, "busy_share": None, "top_kernels_ms": None}
+    top_k = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {"wall_ms": wall_us / 1e3, "busy_share": sum(by_name.values()) / wall_us,
+            "top_kernels_ms": {k: v / 1e3 for k, v in top_k}}
+
+
+def _device_busy(res, cfg, dev, steps: int = 3) -> dict:
+    """``_device_split`` of a window of ``steps`` training steps, per step."""
+    model, op, batch = res.model, res.op, _step_batch(res, cfg, dev)
+    opt, _ = make_optimizer(cfg, model.parameters())
+
+    def window():
+        for _ in range(steps):
+            opt.zero_grad(set_to_none=True)
+            loss, _ = model(op, batch)
+            loss.backward()
+            opt.step()
+
+    split = _device_split(window, dev, top=8)
+    busy, top = split["busy_share"], split["top_kernels_ms"]
+    return {"busy_share": busy, "idle_share": None if busy is None else 1.0 - busy,
+            "window_steps": steps, "window_wall_ms_per_step": split["wall_ms"] / steps,
+            "top_kernels_ms_per_step": top and {k: v / steps for k, v in top.items()}}
 
 
 def _run_checked(cfg, task, dev, **timing_counts) -> tuple:
@@ -858,7 +922,7 @@ def _run_checked(cfg, task, dev, **timing_counts) -> tuple:
     sync(dev)
     run_s = time.perf_counter() - t0
     counts, t = _launch_counts(), res.timings
-    expected = _expected_launches(cfg, t)
+    expected = _expected_launches(cfg, t, task)
     if counts != expected or any(t[k] != v for k, v in timing_counts.items()):
         raise AssertionError(f"launches {counts} (expected {expected}), timings {t}")
     losses = res.losses
@@ -1049,7 +1113,7 @@ def phase_recipe(task, smi: str, dev: torch.device) -> dict:
                      "uninterrupted_final_loss": want, "rel_err": resume_rel},
           "evaluate_metrics_max_diff": eval_diff, "topk_queries": int(len(queries)),
           "topk_candidates": int(len(candidates)), "csls_check": csls, "card": smi})
-    return counts
+    return counts, stages
 
 
 def phase_incidence(task, smi: str, dev: torch.device, d: int) -> dict:
@@ -1156,7 +1220,8 @@ def phase_mtl(task, smi: str, dev: torch.device) -> dict:
             emb = model.embed(op, attr_op)
         sync(dev)
         per_embed = _launch_counts()
-        if per_embed != {"gcn_fused": 4, "spmm_ell": 1, "sinkhorn_fused": 0} or emb.shape != (
+        if per_embed != {"gcn_fused": 4, "spmm_ell": 1, "sinkhorn_fused": 0,
+                         "shortlist_dist": 0} or emb.shape != (
                 task.n_ent, 2 * cfg.dim):
             raise AssertionError(f"embed launched {per_embed}, shape {tuple(emb.shape)}")
         batch, _ = _saved_batch(full_dir, cfg, task, dev)
@@ -1219,7 +1284,8 @@ def phase_highway(task, smi: str, dev: torch.device) -> dict:
         return margin_align_loss(model(op, train=True, generator=gen), batch["pairs"],
                                  batch["neg_l"], batch["neg_r"], cfg.gamma)
 
-    step = _check_step(model, loss_fn, {"gcn_fused": 2, "spmm_ell": 2, "sinkhorn_fused": 0})
+    step = _check_step(model, loss_fn, {"gcn_fused": 2, "spmm_ell": 2, "sinkhorn_fused": 0,
+                                        "shortlist_dist": 0})
     no_drop = AlignGCN(n_ent=task.n_ent, dim=cfg.dim, highway=True, device=dev)
     no_drop.load_state_dict(model.state_dict())
     with torch.no_grad():
@@ -1239,6 +1305,256 @@ def phase_highway(task, smi: str, dev: torch.device) -> dict:
     return counts
 
 
+# the shortlist kernel where its callers run it at zh-en scale:
+# (caller, queries S, entries K, table rows C, d, metric)
+SHORTLIST_SHAPES = (("mining", 7000, 200, 19000, 256, "cityblock"),
+                    ("proposals", 19000, 16, 19000, 256, "cityblock"),
+                    ("proposals_sq", 19000, 16, 19000, 256, "sqeuclidean"),
+                    ("hubness", 10500, 10, 10500, 256, "cityblock"),
+                    ("eval", 10500, 128, 10500, 256, "cityblock"),
+                    ("serving", 10500, 128, 19000, 256, "cityblock"),
+                    ("eval_d512", 10500, 128, 10500, 512, "cityblock"))
+SHORTLIST_TOL = dict(rtol=1e-5, atol=1e-5)  # d terms summed in another order
+
+
+def phase_shortlist(smi: str, dev: torch.device) -> dict:
+    """The shortlist-distance kernel against its plain version at each
+    caller's shape: random rows and random shortlists (every entry a
+    gathered table row); two launches must agree bit for bit."""
+    rng = np.random.default_rng(5)
+    out = {}
+    for name, s, k, c, d, metric in SHORTLIST_SHAPES:
+        q = torch.from_numpy(rng.standard_normal((s, d)).astype(np.float32)).to(dev)
+        table = torch.from_numpy(rng.standard_normal((c, d)).astype(np.float32)).to(dev)
+        idx = torch.from_numpy(rng.integers(0, c, (s, k))).to(dev)
+
+        def kernel():
+            return shortlist_dist.shortlist_dist(q, table, idx, metric)
+
+        got = kernel()
+        sync(dev)
+        want = shortlist_dist.shortlist_dist_plain(q, table, idx, metric)
+        torch.testing.assert_close(got, want, **SHORTLIST_TOL)
+        err = float((got - want).abs().max())
+        if not torch.equal(got, kernel()):
+            raise AssertionError(f"shortlist_dist ({name}): two launches differ")
+        # q, the table, idx once and out once; 3 operations a term
+        # (difference, |·| or square, sum) at the fp32 SIMT rate
+        bound, bound_by = _bound((s * d + c * d + s * k) * 4 + s * k * 8, 3 * s * k * d)
+        ms, dev_ms = time_ms(kernel), device_ms(kernel)
+        out[name] = dict(s=s, k=k, c=c, d=d, metric=metric, max_abs_err=err, ms=ms,
+                         device_ms=dev_ms, ms_cold_l2=time_cold_ms(kernel),
+                         plain_ms=time_ms(lambda: shortlist_dist.shortlist_dist_plain(
+                             q, table, idx, metric), warmup=1, iters=3),
+                         bound_ms=bound, bound_by=bound_by, share_of_bound_device=ratio(
+                             bound, dev_ms), gathered_bytes=s * k * d * 4, library_ms=None)
+        emit({"phase": "kernel", "kernel": "shortlist_dist", "caller": name, **out[name],
+              "bit_identical_runs": True, "card": smi})
+    return out
+
+
+def _recall(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Mean over rows of |set(a_i) ∩ set(b_i)| / |set(b_i)|."""
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    return float(np.mean([len(set(x) & set(y)) / len(set(y)) for x, y in zip(a, b)]))
+
+
+def _same_rows(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The share of rows whose index sets are equal."""
+    return float((a.sort(dim=1).values == b.sort(dim=1).values).all(dim=1).float().mean())
+
+
+def _pair_set(pairs: torch.Tensor, w: torch.Tensor) -> set:
+    return {tuple(r) for r in pairs[w > 0].tolist()}
+
+
+def _timed(dev: torch.device, fn):
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def _stage(dev, name: str, approx_fn, exact_fn, vs_plain, vs_exact) -> dict:
+    """One approximate stage on the run's table, timed; the same call with
+    every kernel swapped for its plain version (which must launch none);
+    the exact stage, timed.  ``vs_plain`` and ``vs_exact`` are each
+    (agreement(approx, other), floor)."""
+    approx, approx_s = _timed(dev, approx_fn)
+    with _plain_kernels():
+        before = shortlist_dist.launches
+        plain = approx_fn()
+        if shortlist_dist.launches != before:
+            raise AssertionError(f"{name}: the plain path launched the shortlist kernel")
+    exact, exact_s = _timed(dev, exact_fn)
+    (f_plain, plain_floor), (f_exact, exact_floor) = vs_plain, vs_exact
+    a_plain, a_exact = f_plain(approx, plain), f_exact(approx, exact)
+    if a_plain < plain_floor or a_exact < exact_floor:
+        raise AssertionError(f"{name}: {a_plain} of the plain path (floor {plain_floor}), "
+                             f"{a_exact} of the exact stage (floor {exact_floor})")
+    return {"approx_s": approx_s, "exact_s": exact_s, "vs_plain": a_plain,
+            "vs_plain_floor": plain_floor, "vs_exact": a_exact, "vs_exact_floor": exact_floor}
+
+
+def _check_sq_mining64(emb, pairs, n1, n, k: int, dev) -> dict:
+    """Exact sqeuclidean mining of the first 64 queries against a float64
+    search: each returned id within 1e-5 of the distance scale of the
+    float64 k-th nearest, and never the partner."""
+    e_l = emb[pairs[:64, 0]]
+    cand = emb[n1:n]
+    excl = pairs[:64, 1] - n1
+    got = blockwise_knn_l1(e_l, cand, excl, k, metric="sqeuclidean")
+    d64 = torch.cdist(e_l.double(), cand.double()) ** 2
+    d64[torch.arange(64, device=dev), excl] = float("inf")
+    kth = d64.topk(k, dim=1, largest=False).values[:, -1:]
+    eps = 1e-5 * d64[torch.isfinite(d64)].max()
+    ok = bool((d64.gather(1, got) <= kth + eps).all()) and bool((got != excl[:, None]).all())
+    if not ok:
+        raise AssertionError("exact sqeuclidean mining disagrees with a float64 search")
+    return {"queries": 64, "k": k, "ids_match_float64": _recall(got, d64.topk(
+        k, dim=1, largest=False).indices)}
+
+
+def phase_approx(task, smi: str, dev: torch.device, exact_stages: dict) -> dict:
+    """Recipe v6 cut as phase 6, with approximate proposals, mining and
+    history evals (every 2 epochs, shortlists of 128); the stage times
+    beside phase 6's exact run; each approximate stage on the final table
+    against the plain path and the exact stage, at the thresholds of the
+    JAX package's tests; the serve CLI with --approx-k and --csls-k."""
+    over = dict(boot_approx=True, neg_approx=True, eval_approx_k=128)
+    cfg, reduced = _cut_config(task, "base", {**RECIPE_CUTS, "eval_every": 2}, RECIPE, **over)
+    boundaries = (cfg.epochs - 1) // cfg.neg_every  # 2, 4, 6, 8
+    evals = cfg.epochs // cfg.eval_every + 2  # 0, 2, 4, 6, 8, the last epoch, the final
+    res, counts, run_s = _run_checked(cfg, task, dev, steps=cfg.epochs, forwards=boundaries,
+                                      proposals=boundaries, minings=boundaries, evals=evals)
+    if counts["shortlist_dist"] == 0:
+        raise AssertionError("the approximate run never launched the shortlist kernel")
+    t = res.timings
+    hist = res.history
+    final, last = res.metrics, hist[-1]
+    if [r["epoch"] for r in hist] != [0, 2, 4, 6, 8, 9]:
+        raise AssertionError(f"history evals at {[r['epoch'] for r in hist]}")
+    stages = {**_stages(t), "history_eval_s": (t["eval_s"] - t["final_eval_s"]) / (evals - 1),
+              "final_eval_s": t["final_eval_s"]}
+
+    with torch.no_grad():
+        emb = res.model.embed(res.op)
+    n1, n = task.kg1.n_ent, task.n_ent
+    pairs = torch.as_tensor(task.train_pairs, dtype=torch.int64, device=dev)
+    mask1 = torch.ones(n1, dtype=torch.bool, device=dev)
+    mask1[pairs[:, 0]] = False
+    mask2 = torch.ones(n - n1, dtype=torch.bool, device=dev)
+    mask2[pairs[:, 1] - n1] = False
+    test = torch.as_tensor(task.test_pairs, dtype=torch.int64, device=dev)
+    queries, candidates = task.test_pairs[:, 0], np.arange(n1, n)
+
+    def mining(**kw):
+        return lambda: torch.cat(sample_hard_negatives(emb, pairs, n1, n, cfg.k_neg, **kw), 1)
+
+    def proposals(approx, csls_k):
+        return lambda: propose_mutual_nn_pairs(emb, mask1, mask2, n1, n, cfg.boot_cap,
+                                               csls_k=csls_k, approx=approx)
+
+    def overlap(a, b):
+        sa, sb = _pair_set(*a), _pair_set(*b)
+        return len(sa & sb) / max(len(sb), 1)
+
+    def ranks(approx_k, csls_k):
+        return lambda: torch.stack(_both_direction_ranks(emb, test, csls_k=csls_k,
+                                                         approx_k=approx_k))
+
+    def metrics_gap(a, b):  # 1 − the largest gap in Hits@1/@10 and MRR
+        return 1.0 - max(abs(x - y) for x, y in zip(_hits_of(a), _hits_of(b)))
+
+    def same_ranks(a, b):  # the share of queries (both directions) with equal ranks
+        return float((a == b).double().mean())
+
+    def topk(approx_k, csls_k):
+        return lambda: torch.as_tensor(topk_alignments(
+            emb, queries, candidates, k=10, csls_k=csls_k, approx_k=approx_k)[1])
+
+    # floors: the same sets (ranks, pairs) as the plain path on 99 % of rows;
+    # against the exact stage, the JAX package's tests' thresholds
+    # (tests/test_sparse_build.py:171, test_csls.py:75, test_bootstrap.py:107
+    # and :137, test_eval_approx.py:41 (Hits@k and MRR within 0.02),
+    # test_serve.py:133 and :163)
+    plain_rows, plain_pairs, plain_ranks = (_same_rows, 0.99), (overlap, 0.99), (same_ranks, 0.99)
+    quality = {
+        "mining_cityblock": _stage(dev, "mining", mining(approx=True), mining(), plain_rows,
+                                   (_recall, 0.8)),
+        "mining_sqeuclidean_csls10": _stage(
+            dev, "mining sq+CSLS", mining(metric="sqeuclidean", approx=True, csls_k=10),
+            mining(metric="sqeuclidean", csls_k=10), plain_rows, (_recall, 0.8)),
+        "proposals": _stage(dev, "proposals", proposals(True, 0), proposals(False, 0),
+                            plain_pairs, (overlap, 0.7)),
+        "proposals_csls10": _stage(dev, "proposals CSLS", proposals(True, 10),
+                                   proposals(False, 10), plain_pairs, (overlap, 0.6)),
+        "eval": _stage(dev, "eval", ranks(128, 0), ranks(0, 0), plain_ranks,
+                       (metrics_gap, 0.98)),
+        "eval_csls10": _stage(dev, "eval CSLS", ranks(128, 10), ranks(0, 10), plain_ranks,
+                              (metrics_gap, 0.98)),
+        "topk10": _stage(dev, "top-10", topk(128, 0), topk(0, 0), plain_rows, (_recall, 0.9)),
+        "topk10_csls10": _stage(dev, "top-10 CSLS", topk(128, 10), topk(0, 10), plain_rows,
+                                (_recall, 0.8)),
+    }
+    quality["sq_mining_float64"] = _check_sq_mining64(emb, pairs, n1, n, cfg.k_neg, dev)
+    # where an approximate stage's time goes on the device (the run's own shapes)
+    pairs_run = torch.cat([pairs, pairs[: cfg.boot_cap]])  # 7,000 rows, as the run mines
+    split = {"proposal": _device_split(proposals(True, 0), dev),
+             "mining": _device_split(lambda: sample_hard_negatives(
+                 emb, pairs_run, n1, n, cfg.k_neg, approx=True), dev),
+             "eval_csls": _device_split(ranks(cfg.eval_approx_k, cfg.eval_csls_k), dev),
+             "topk10_csls": _device_split(topk(128, 10), dev)}
+
+    # the serve CLI on the same table: it must print what the library call returns
+    with tempfile.TemporaryDirectory() as tmp:
+        save_embeddings(os.path.join(tmp, "emb.pt"), emb)
+        np.savetxt(os.path.join(tmp, "q.txt"), queries, fmt="%d")
+        np.savetxt(os.path.join(tmp, "c.txt"), candidates, fmt="%d")
+        out = os.path.join(tmp, "al.tsv")
+        cmd = [sys.executable, "-m", "tpugraph_torch.serve", "--emb", os.path.join(tmp, "emb.pt"),
+               "--out", out, "--queries", os.path.join(tmp, "q.txt"), "--candidates",
+               os.path.join(tmp, "c.txt"), "--k", "10", "--approx-k", "128", "--csls-k", "10",
+               "--device", dev.type]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"serve CLI failed: {proc.stderr[-2000:]}")
+        lines = open(out).read().strip().splitlines()
+    cli_ids = np.array([[int(cell.split(":")[0]) for cell in ln.split("\t")[1:]] for ln in lines])
+    lib_ids = topk(128, 10)().numpy()
+    cli_same = float((np.sort(cli_ids, 1) == np.sort(lib_ids, 1)).all(1).mean())
+    if len(lines) != len(queries) or cli_same < 0.99:
+        raise AssertionError(f"serve CLI: {len(lines)} rows, {cli_same} equal to the library's")
+
+    beside = {k: {"approx": stages.get(k), "exact": exact_stages.get(k)}
+              for k in ("step_median_s", "proposal_s", "mining_s")}
+    beside["eval_csls_s"] = {"approx_history": stages["history_eval_s"],
+                             "exact_final": stages["final_eval_s"],
+                             "exact_v6_final": exact_stages["final_eval_s"]}
+    beside["topk10_csls_s"] = {"approx": quality["topk10_csls10"]["approx_s"],
+                               "exact": quality["topk10_csls10"]["exact_s"],
+                               "exact_v6": exact_stages["topk_csls_s"]}
+    emit({"phase": "approx", "recipe": RECIPE, "over": over, "epochs": cfg.epochs,
+          "reduced": reduced, "losses": res.losses,
+          "history": [{k: r[k] for k in ("epoch", "hits@1", "hits@10", "mrr")} for r in hist],
+          "final_metrics_exact": {k: final[k] for k in ("hits@1", "hits@10", "mrr")},
+          "last_history_approx": {k: last[k] for k in ("hits@1", "hits@10", "mrr")},
+          "launches": counts, "timings": t, "run_s": run_s, "stages_s": stages,
+          "stages_beside_exact_v6_s": beside, "quality": quality, "device_split": split,
+          "serve_cli": {"rows": len(lines), "same_ids_as_library": cli_same, "wall_s": cli_s},
+          "card": smi})
+    return counts
+
+
+def _hits_of(ranks: torch.Tensor) -> tuple:
+    """(Hits@1, Hits@10, MRR) of both directions' ranks, as ``hits_at_k``."""
+    r = ranks.double()
+    return (float((r < 1).double().mean()), float((r < 10).double().mean()),
+            float((1.0 / (r + 1.0)).mean()))
+
 
 def main() -> int:
     smi = phase_device()
@@ -1251,12 +1567,14 @@ def main() -> int:
     k_sink = {**phase_sinkhorn(smi, dev, d=256), "at_d128": phase_sinkhorn(smi, dev, d=128)}
     serve_launches = phase_slice(task, smi, dev)
     train = phase_train(task, smi, dev)
-    recipe = phase_recipe(task, smi, dev)
+    recipe, recipe_stages = phase_recipe(task, smi, dev)
     incidence = {**phase_incidence(task, smi, dev, d=128),
                  "at_d256": phase_incidence(task, smi, dev, d=256)}
     v7r = phase_recipe_v7r(task, smi, dev)
     mtl = phase_mtl(task, smi, dev)
     highway = phase_highway(task, smi, dev)
+    k_short = phase_shortlist(smi, dev)
+    approx = phase_approx(task, smi, dev, recipe_stages)
     # the numbers at the recipe's width (d = 256); launches of the recipe's
     # run, with those of the other runs beside (the incidence's at mtl's
     # width, d = 128, where config mtl runs it)
@@ -1276,6 +1594,11 @@ def main() -> int:
          "replaces": "tpugraph/kernels/sinkhorn_pallas.py:38",
          "launches": recipe["sinkhorn_fused"], "launches_train": train["sinkhorn_fused"],
          "launches_v7r": v7r["sinkhorn_fused"], "launches_mtl": mtl["sinkhorn_fused"], **k_sink},
+        {"name": "shortlist_dist", "route": "cuda",
+         "source": "tpugraph_torch/csrc/shortlist_dist.cu",
+         "replaces": "tpugraph/train/negatives.py:261", "replaces_kind": "an XLA op",
+         "launches": approx["shortlist_dist"], **k_short["mining"],
+         "at_callers": {k: v for k, v in k_short.items() if k != "mining"}},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

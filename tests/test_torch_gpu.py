@@ -1,7 +1,8 @@
 """The port's CUDA kernels (fused GCN layer, ELL SpMM, Sinkhorn potential
-update) against their plain versions, and training on the card: the
-attribute incidence's SpMM, a GCN layer on config highway's operator, and
-steps of recipes v6 and v7r.
+update, shortlist distances) against their plain versions, and training on
+the card: the attribute incidence's SpMM, a GCN layer on config highway's
+operator, steps of recipes v6 and v7r, and the approximate search paths
+against the same calls on the host.
 
 Marked ``gpu``; each test skips without a CUDA device.  This file imports
 neither JAX nor the JAX package, so on a machine with a card (and no JAX)
@@ -19,17 +20,21 @@ import tpugraph_torch.models.attr_channel as attr_channel_mod
 import tpugraph_torch.nn.graphconv as graphconv_mod
 from tpugraph_torch.configs.configs import get_config
 from tpugraph_torch.configs.recipes import RECIPES
-from tpugraph_torch.kernels import gcn_fused, sinkhorn_fused, spmm_ell
+from tpugraph_torch.kernels import gcn_fused, shortlist_dist, sinkhorn_fused, spmm_ell
 from tpugraph_torch.kernels.gcn_fused import fused_gcn_layer, gcn_layer, reference_layer
 from tpugraph_torch.kernels.sinkhorn_fused import sinkhorn_potential_update, sinkhorn_update_plain
 from tpugraph_torch.kernels.spmm_ell import SEG_SLOTS, apply_with_diag, ell_spmm
 from tpugraph_torch.models.align import AlignMTL, init_mtl_params
 from tpugraph_torch.models.attr_channel import build_attr_operator
 from tpugraph_torch.models.encoder import AlignGCN, init_params
+from tpugraph_torch.serve import topk_alignments
 from tpugraph_torch.sparse.build import build_adjacency
 from tpugraph_torch.sparse.ell import build_ell_operator
+from tpugraph_torch.train.bootstrap import propose_mutual_nn_pairs
 from tpugraph_torch.train.driver import run
+from tpugraph_torch.train.eval import _both_direction_ranks
 from tpugraph_torch.train.losses import margin_align_loss
+from tpugraph_torch.train.negatives import _hubness_both_approx, sample_hard_negatives
 from tpugraph_torch.train.ot import sinkhorn_align_loss, sinkhorn_align_loss_plain
 
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=0.05, atol=0.5)}
@@ -481,3 +486,106 @@ def test_v7r_step_at_dim_256_matches_plain(cuda, monkeypatch):
     assert loss.item() == pytest.approx(plain.item(), rel=1e-4)
     for k, v in model.named_parameters():
         assert float((grads[k] - v.grad).norm() / v.grad.norm()) < 1e-3, k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["cityblock", "sqeuclidean"])
+@pytest.mark.parametrize("d,k", [(d, k) for d in (32, 128, 256, 512) for k in (10, 16, 128, 200)]
+                         + [(37, 10), (6, 33)])
+def test_shortlist_dist_matches_plain(cuda, metric, d, k):
+    """The kernel against its plain version within 1e-5 + 1e-5·|x| (the d
+    terms summed in another order), one launch a call, and two launches
+    bit-identical; d = 37 and 6 take the kernel's scalar loads, K = 10, 33
+    and 200 leave a partial chunk of 32 entries."""
+    rng = np.random.default_rng(d * 1000 + k)
+    s, c = 1500, 2500
+    q = torch.from_numpy(rng.standard_normal((s, d)).astype(np.float32)).to(cuda)
+    table = torch.from_numpy(rng.standard_normal((c, d)).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, c, (s, k))).to(cuda)
+    before = shortlist_dist.launches
+    got = shortlist_dist.shortlist_dist(q, table, idx, metric)
+    torch.cuda.synchronize()
+    assert shortlist_dist.launches == before + 1 and got.shape == (s, k)
+    want = shortlist_dist.shortlist_dist_plain(q, table, idx, metric)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, shortlist_dist.shortlist_dist(q, table, idx, metric))
+
+
+@pytest.mark.gpu
+def test_shortlist_dist_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(8, 16, device=cuda)
+    idx = torch.zeros(8, 4, dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError):
+        shortlist_dist.shortlist_dist(q, q, idx.int())
+    with pytest.raises(ValueError):
+        shortlist_dist.shortlist_dist(q, q[:, :8].contiguous(), idx)
+    with pytest.raises(ValueError):
+        shortlist_dist.shortlist_dist(q.t(), q, idx)
+    assert shortlist_dist.shortlist_dist(q, q, idx[:, :0]).shape == (8, 0)
+
+
+def _aligned_pair(rng, n1=1500, n2=1700, d=64, noise=0.3):
+    base = rng.standard_normal((n1, d)).astype(np.float32)
+    right = (np.pad(base, ((0, n2 - n1), (0, 0)))
+             + noise * rng.standard_normal((n2, d)).astype(np.float32))
+    right[: n2 // 20] *= 0.05
+    return np.concatenate([base, right])
+
+
+def _same_rows(a, b):
+    a, b = torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()
+    return float((a.sort(dim=1).values == b.sort(dim=1).values).all(dim=1).float().mean())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["mining", "mining_sq_csls", "proposals", "proposals_csls",
+                                  "proposals_sq", "ranks", "ranks_csls", "topk", "topk_csls",
+                                  "hubness"])
+def test_approx_paths_on_the_card_match_the_host(cuda, path):
+    """Each approximate search path on the card (the shortlist kernel, fp32
+    products) against the same call on the host (plain versions): the same
+    sets on at least 99 % of rows (pairs, ranks), and the kernel launched."""
+    rng = np.random.default_rng(21)
+    n1, n2 = 1500, 1700
+    emb = _aligned_pair(rng, n1, n2)
+    n = n1 + n2
+    pairs = np.stack([rng.permutation(n1)[:600], n1 + rng.permutation(n1)[:600]], 1)
+    mask1, mask2 = np.ones(n1, bool), np.ones(n2, bool)
+    mask1[pairs[:, 0]] = False
+    mask2[pairs[:, 1] - n1] = False
+    test = np.stack([np.arange(n1), n1 + np.arange(n1)], 1)
+
+    def call(dev):
+        e = torch.from_numpy(emb).to(dev)
+        p = torch.from_numpy(pairs).to(dev)
+        m1, m2 = torch.from_numpy(mask1).to(dev), torch.from_numpy(mask2).to(dev)
+        if path.startswith("mining"):
+            kw = dict(metric="sqeuclidean", csls_k=10) if path == "mining_sq_csls" else {}
+            return torch.cat(sample_hard_negatives(e, p, n1, n, 50, approx=True, **kw), 1)
+        if path.startswith("proposals"):
+            kw = dict(csls_k=10 if path == "proposals_csls" else 0,
+                      metric="sqeuclidean" if path == "proposals_sq" else "cityblock")
+            bp, bw = propose_mutual_nn_pairs(e, m1, m2, n1, n, 800, approx=True, **kw)
+            return {tuple(r) for r in bp[bw > 0].tolist()}
+        if path.startswith("ranks"):
+            t = torch.from_numpy(test).to(dev)
+            return torch.stack(_both_direction_ranks(
+                e, t, csls_k=10 if path == "ranks_csls" else 0, approx_k=64))
+        if path.startswith("topk"):
+            return topk_alignments(e, np.arange(n1), n1 + np.arange(n2), k=10,
+                                   csls_k=10 if path == "topk_csls" else 0, approx_k=64)[1]
+        return torch.stack(_hubness_both_approx(e[:n1], e[n1:], 10))
+
+    before = shortlist_dist.launches
+    got = call(cuda)
+    torch.cuda.synchronize()
+    assert shortlist_dist.launches > before
+    want = call(torch.device("cpu"))
+    if path.startswith("proposals"):
+        assert len(got & want) >= 0.99 * len(want) and len(want) > 100
+    elif path.startswith("ranks"):
+        assert float((got.cpu() == want).double().mean()) >= 0.99
+    elif path == "hubness":
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    else:
+        assert _same_rows(got, want) >= 0.99

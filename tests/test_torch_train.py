@@ -131,9 +131,12 @@ def test_knn_matches_jax_including_the_tiny_pool(n_cands, k):
     got = blockwise_knn_l1(torch.from_numpy(q), torch.from_numpy(c),
                            torch.from_numpy(exclude).long(), k, block_c=16)
     np.testing.assert_array_equal(got.numpy(), want)
-    with pytest.raises(NotImplementedError):
-        blockwise_knn_l1(torch.from_numpy(q), torch.from_numpy(c),
-                         torch.from_numpy(exclude).long(), k, approx=True)
+    # the approximate path: the same index sets (CPU approx_min_k is exact)
+    want = np.asarray(jax_knn(jnp.asarray(q), jnp.asarray(c), jnp.asarray(exclude), k,
+                              approx=True))
+    got = blockwise_knn_l1(torch.from_numpy(q), torch.from_numpy(c),
+                           torch.from_numpy(exclude).long(), k, approx=True)
+    np.testing.assert_array_equal(np.sort(got.numpy(), 1), np.sort(want, 1))
 
 
 def test_hard_negatives_match_jax():
@@ -255,13 +258,17 @@ def test_cli_trains_and_prints_one_json_line(capsys):
 
 
 def test_unported_options_and_the_card_default():
-    for over in (dict(steps_per_call=5), dict(boot_cap=10, boot_approx=True),
-                 dict(neg_metric="sqeuclidean"), dict(eval_approx_k=50), dict(profile_dir="prof"),
-                 dict(param_dtype="bfloat16"), dict(neg_approx=True), dict(neg_csls_k=5),
-                 dict(boot_cap=10, neg_metric="sqeuclidean"), dict(slice_shards=2),
-                 dict(n_shards=2)):
+    for over in (dict(steps_per_call=5), dict(profile_dir="prof"),
+                 dict(param_dtype="bfloat16"), dict(slice_shards=2), dict(n_shards=2)):
         with pytest.raises(NotImplementedError):
             check_trainable(get_config("sinkhorn", **over))
+    # the approximate, CSLS-mining and sqeuclidean search paths are ported
+    for over in (dict(boot_cap=10, boot_approx=True), dict(neg_metric="sqeuclidean"),
+                 dict(eval_approx_k=50), dict(neg_approx=True), dict(neg_csls_k=5),
+                 dict(boot_cap=10, neg_metric="sqeuclidean")):
+        check_trainable(get_config("sinkhorn", **over))
+    with pytest.raises(ValueError, match="neg_metric"):
+        check_trainable(get_config("sinkhorn", neg_metric="cosine"))
     with pytest.raises(ValueError, match="sinkhorn_pairs"):
         check_ot_size(get_config("sinkhorn"), 9000)
     check_ot_size(get_config("sinkhorn"), 4500)

@@ -10,14 +10,16 @@ Layer map:
     data/      synthetic DBP15K-shaped generator (numpy, identical arrays)
     sparse/    KG containers, adjacency build, degree-bucketed ELL operator
     kernels/   plain-torch ELL SpMM, distances and Sinkhorn solver, and the
-               three CUDA kernels: the fused GCN layer (forward), the ELL
+               four CUDA kernels: the fused GCN layer (forward), the ELL
                SpMM (the layers' backward over the transpose, and the
-               attribute incidence forward and backward) and the fused
-               Sinkhorn potential update (the OT head's forward)
+               attribute incidence forward and backward), the fused
+               Sinkhorn potential update (the OT head's forward) and the
+               shortlist distances (the approximate search paths' rerank)
     nn/        GraphConvolution (trainable in fp32), the highway gate
     models/    AlignGCN encoder (highway gates, dropout), AlignMTL (margin,
                Sinkhorn, relation and attribute heads, the AE channel)
-    train/     losses, OT head, negatives, optimizer, metrics, exact Hits@k,
+    train/     losses, OT head, negatives (exact and approximate), optimizer,
+               metrics, Hits@k (exact, or within shortlists),
                the training loops (``fit``, ``fit_mtl``) and the driver
                (``run``, ``evaluate``)
     cli/       ``python -m tpugraph_torch.cli.main`` — train a named config

@@ -1,14 +1,17 @@
-"""Alignment serving (counterpart of ``tpugraph/serve.py``, exact raw-L1
-and CSLS paths).
+"""Alignment serving (counterpart of ``tpugraph/serve.py``).
 
 * ``topk_alignments`` — blockwise top-k candidate search with a running
   top-k, over query blocks × candidate blocks (never the full distance
   matrix); ``csls_k > 0`` ranks by the CSLS score 2·d(q, j) − r(j), r the
-  candidate's hubness over the query pool (``train/negatives.py``);
+  candidate's hubness over the query pool (``train/negatives.py``).
+  ``approx_k > 0`` searches within a shortlist per query instead
+  (``_topk_prefiltered``): the ``max(approx_k, k)`` nearest by the
+  sqeuclidean score (one fp32 product per block of 4,096 queries, then an
+  exact ``torch.topk``, where the JAX package's ``approx_min_k`` is
+  approximate on the TPU), rescored in exact L1 by the shortlist kernel
+  (``kernels/shortlist_dist.py``);
 * ``export_alignments`` — bulk predictions to a TSV of rank lists;
 * ``save_embeddings`` / ``load_embeddings`` — the table via ``torch.save``.
-
-The prefiltered approximate search is not ported yet.
 """
 
 from __future__ import annotations
@@ -19,8 +22,10 @@ import numpy as np
 import torch
 
 from tpugraph_torch import resolve_device
+from tpugraph_torch.kernels.shortlist_dist import shortlist_dist
+from tpugraph_torch.train.eval import dist_tile, sq_norms
 from tpugraph_torch.train.losses import pairwise_l1
-from tpugraph_torch.train.negatives import _cand_hubness
+from tpugraph_torch.train.negatives import APPROX_BLOCK_Q, _cand_hubness, _hubness_both_approx
 
 
 BLOCK_Q = 256  # queries per block: (256, 2048, 128) fp32 is 268 MB
@@ -59,6 +64,41 @@ def _topk_blockwise(q: torch.Tensor, cands: torch.Tensor, k: int, block_c: int =
     return vals, idx
 
 
+def _topk_prefiltered(q: torch.Tensor, cands: torch.Tensor, k: int, approx_k: int,
+                      csls_k: int = 0,
+                      block_q: int = APPROX_BLOCK_Q) -> tuple[torch.Tensor, torch.Tensor]:
+    """(values, candidate positions), each (Q, k), best first, within a
+    shortlist of kk = min(C, max(approx_k, k)) candidates per query,
+    selected by the sqeuclidean score (2·d₂ − r₂(j) with CSLS) and scored in
+    exact L1 (2·d − r(j) with CSLS, r the sqeuclidean-selected L1 hubness).
+    Equal scores keep the earlier shortlist entry, the order ``lax.top_k``
+    gives; a pool smaller than k pads with inf-valued entries at position 0,
+    as the JAX path does."""
+    q, cands = q.contiguous(), cands.contiguous()
+    s, c = q.shape[0], cands.shape[0]
+    kk = min(c, max(approx_k, k))
+    if csls_k > 0:
+        r_sel, r_score = _hubness_both_approx(q, cands, csls_k)
+    c2 = sq_norms(cands)
+    vals = torch.empty((s, k), dtype=torch.float32, device=q.device)
+    idx = torch.empty((s, k), dtype=torch.int64, device=q.device)
+    for q0 in range(0, s, block_q):
+        qq = q[q0:q0 + block_q]
+        sel = dist_tile(qq, cands, "sqeuclidean", c2=c2)
+        if csls_k > 0:
+            sel = 2.0 * sel - r_sel[None, :]
+        sidx = torch.topk(sel, kk, dim=1, largest=False).indices
+        score = shortlist_dist(qq, cands, sidx, "cityblock")
+        if csls_k > 0:
+            score = 2.0 * score - r_score[sidx]
+        if kk < k:
+            score = torch.cat([score, score.new_full((score.shape[0], k - kk), float("inf"))], 1)
+            sidx = torch.cat([sidx, sidx.new_zeros((sidx.shape[0], k - kk))], 1)
+        sv, pos = torch.sort(score, dim=1, stable=True)
+        vals[q0:q0 + block_q], idx[q0:q0 + block_q] = sv[:, :k], sidx.gather(1, pos[:, :k])
+    return vals, idx
+
+
 def topk_alignments(
     emb: torch.Tensor,
     query_ids,  # entity ids to align (global/merged ids)
@@ -66,23 +106,30 @@ def topk_alignments(
     k: int = 10,
     block_c: int = 2048,
     csls_k: int = 0,
+    approx_k: int = 0,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Returns (scores (Q, k), candidate entity ids (Q, k)), best first,
     computed on ``emb``'s device.  The scores are L1 distances, or with
     ``csls_k > 0`` the CSLS scores 2·d(q, j) − r(j), r(j) the candidate's
-    hubness over this query pool (the JAX package's convention)."""
+    hubness over this query pool (the JAX package's convention).
+    ``approx_k > 0`` searches within a shortlist of that many candidates
+    per query (``_topk_prefiltered``; approximate)."""
     dev = emb.device
     qi = torch.as_tensor(np.asarray(query_ids), dtype=torch.int64, device=dev)
     ci = torch.as_tensor(np.asarray(candidate_ids), dtype=torch.int64, device=dev)
-    vals, pos = _topk_blockwise(emb.index_select(0, qi), emb.index_select(0, ci), k,
-                                block_c=block_c, csls_k=csls_k)
+    q, cands = emb.index_select(0, qi), emb.index_select(0, ci)
+    if approx_k > 0:
+        vals, pos = _topk_prefiltered(q, cands, k, approx_k, csls_k)
+    else:
+        vals, pos = _topk_blockwise(q, cands, k, block_c=block_c, csls_k=csls_k)
     return vals.cpu().numpy(), ci[pos].cpu().numpy()
 
 
 def export_alignments(path: str, emb: torch.Tensor, query_ids, candidate_ids,
-                      k: int = 10, csls_k: int = 0) -> int:
+                      k: int = 10, csls_k: int = 0, approx_k: int = 0) -> int:
     """Write '<query>\\t<cand1>:<d1>\\t...' per line; returns #rows written."""
-    vals, ids = topk_alignments(emb, query_ids, candidate_ids, k=k, csls_k=csls_k)
+    vals, ids = topk_alignments(emb, query_ids, candidate_ids, k=k, csls_k=csls_k,
+                                approx_k=approx_k)
     with open(path, "w") as f:
         for qi, (row_ids, row_d) in zip(query_ids, zip(ids, vals)):
             cells = "\t".join(f"{int(c)}:{float(d):.6f}" for c, d in zip(row_ids, row_d))
@@ -122,6 +169,9 @@ def main(argv=None) -> int:
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--csls-k", type=int, default=0,
                     help=">0: CSLS hubness-corrected re-scoring")
+    ap.add_argument("--approx-k", type=int, default=0,
+                    help=">0: search within a sqeuclidean top-K shortlist per query "
+                         "(approximate)")
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
 
@@ -141,7 +191,7 @@ def main(argv=None) -> int:
         ap.error("need --candidates or --n-left")
 
     rows = export_alignments(args.out, emb, query_ids, candidate_ids, k=args.k,
-                             csls_k=args.csls_k)
+                             csls_k=args.csls_k, approx_k=args.approx_k)
     print(f"wrote {rows} rows x top-{args.k} to {args.out}")
     return 0
 

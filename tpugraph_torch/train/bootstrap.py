@@ -1,5 +1,5 @@
 """Bootstrapped pair augmentation (counterpart of
-``tpugraph/train/bootstrap.py``, exact cityblock path).
+``tpugraph/train/bootstrap.py``).
 
 At each resample interval after ``boot_start``, the trainer proposes new
 alignment pairs: the mutual nearest neighbours between the two KGs'
@@ -7,37 +7,47 @@ non-seed entities, the ``cap`` most confident by the direction-1 score, each
 added to the margin loss with weight ``boot_weight``.  The proposal is
 stateless: recomputed from the current embeddings each interval.
 
-The nearest neighbour is exact L1, blocked over queries and candidates so
-that no more than one (BLOCK_Q, block_c, d) difference tensor exists at a
-time, as in ``train/eval.py``.  The approximate (``boot_approx``) and
-sqeuclidean paths are not ported yet; ``train/loop.py::check_trainable``
-refuses them (``ROADMAP.md``).
+The exact nearest neighbour (L1 or sqeuclidean) is blocked over queries and
+candidates (``eval.dist_tile``).  ``approx=True`` (``boot_approx``)
+shortlists 16 candidates per query from a selection tile whose product
+takes both operands rounded to bf16 (then multiplied in fp32, which is
+exact for bf16 products, with TF32 off as it is by default; the norms come
+from the unrounded rows), as the JAX package's bf16 product with fp32
+output does, then takes the nearest within the shortlist in the exact
+metric through the shortlist kernel (``kernels/shortlist_dist.py``).  The
+JAX package selects with ``lax.approx_min_k`` (approximate on the TPU,
+exact on the CPU); the port selects exactly with ``torch.topk``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpugraph_torch.train.eval import BLOCK_Q
-from tpugraph_torch.train.losses import pairwise_l1
-from tpugraph_torch.train.negatives import _cand_hubness
+from tpugraph_torch.kernels.shortlist_dist import check_metric, shortlist_dist
+from tpugraph_torch.train.eval import BLOCK_Q, dist_tile, sq_norms
+from tpugraph_torch.train.negatives import (APPROX_BLOCK_Q, _cand_hubness,
+                                            _hubness_both_approx)
 
 
 def _nn1(q: torch.Tensor, cands: torch.Tensor, c_mask: torch.Tensor, block_c: int = 1024,
-         csls_k: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+         metric: str = "cityblock", csls_k: int = 0,
+         approx: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Per query, (score, index) of the nearest eligible candidate.
 
     csls_k > 0 scores by 2·d − r(j), r the candidate's hubness over the
     full, unmasked query pool.  Ties go to the lower index; a query with no
     eligible candidate gets (inf, 0), as in the JAX package."""
-    s, c = q.shape[0], cands.shape[0]
-    r = _cand_hubness(q, cands, csls_k, block_c) if csls_k > 0 else None
+    check_metric(metric)
+    q, cands = q.contiguous(), cands.contiguous()
+    if approx:
+        return _nn1_prefiltered(q, cands, c_mask, metric=metric, csls_k=csls_k)
+    s = q.shape[0]
+    r = _cand_hubness(q, cands, csls_k, metric, block_c) if csls_k > 0 else None
+    c2 = sq_norms(cands) if metric == "sqeuclidean" else None
     vals = torch.empty(s, dtype=torch.float32, device=q.device)
     idx = torch.empty(s, dtype=torch.int64, device=q.device)
     for q0 in range(0, s, BLOCK_Q):
-        qb = q[q0:q0 + BLOCK_Q]
-        dist = torch.cat([pairwise_l1(qb[:, None, :], cands[None, c0:c0 + block_c, :]).float()
-                          for c0 in range(0, c, block_c)], dim=1)
+        dist = dist_tile(q[q0:q0 + BLOCK_Q], cands, metric, block_c, c2)
         if r is not None:
             dist = 2.0 * dist - r[None, :]
         dist.masked_fill_(~c_mask[None, :], float("inf"))
@@ -45,9 +55,44 @@ def _nn1(q: torch.Tensor, cands: torch.Tensor, c_mask: torch.Tensor, block_c: in
     return vals, idx
 
 
+def _nn1_prefiltered(q: torch.Tensor, cands: torch.Tensor, c_mask: torch.Tensor,
+                     metric: str = "cityblock", block_q: int = APPROX_BLOCK_Q,
+                     k_short: int = 16, csls_k: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The nearest eligible candidate within a shortlist of ``k_short``.
+    Ineligible candidates are masked before selection, so the shortlist is
+    all eligible where the pool allows; the rerank scores the exact metric
+    (cityblock, or sqeuclidean in fp32).  csls_k > 0: the selection scores
+    2·d₂ − r₂(j) and the rerank 2·d − r(j), r the L1 hubness for cityblock
+    (both from ``_hubness_both_approx``)."""
+    c = cands.shape[0]
+    k_short = min(c, k_short)
+    c2 = sq_norms(cands)
+    c16 = cands.to(torch.bfloat16).float()  # the selection product's operand
+    if csls_k > 0:
+        r_sel, r_l1 = _hubness_both_approx(q, cands, csls_k)
+        r_score = r_l1 if metric == "cityblock" else r_sel
+    vals = torch.empty(q.shape[0], dtype=torch.float32, device=q.device)
+    idx = torch.empty(q.shape[0], dtype=torch.int64, device=q.device)
+    for q0 in range(0, q.shape[0], block_q):
+        qq = q[q0:q0 + block_q]
+        d2 = sq_norms(qq)[:, None] + c2[None, :] - 2.0 * (qq.to(torch.bfloat16).float() @ c16.t())
+        if csls_k > 0:
+            d2 = 2.0 * d2 - r_sel[None, :]
+        d2.masked_fill_(~c_mask[None, :], float("inf"))
+        sidx = torch.topk(d2, k_short, dim=1, largest=False).indices
+        ds = shortlist_dist(qq, cands, sidx, metric)
+        if csls_k > 0:
+            ds = 2.0 * ds - r_score[sidx]
+        ds.masked_fill_(~c_mask[sidx], float("inf"))
+        v, pos = ds.min(dim=1)
+        vals[q0:q0 + block_q], idx[q0:q0 + block_q] = v, sidx.gather(1, pos[:, None])[:, 0]
+    return vals, idx
+
+
 def propose_mutual_nn_pairs(emb: torch.Tensor, mask1: torch.Tensor, mask2: torch.Tensor,
                             n1: int, n: int, cap: int, block_c: int = 1024,
-                            csls_k: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+                            metric: str = "cityblock", csls_k: int = 0,
+                            approx: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-``cap`` most confident mutual-NN pairs among eligible entities.
 
     emb (n, d): KG1 = [:n1], KG2 = [n1:n]; mask1 (n1,) and mask2 (n − n1,)
@@ -57,8 +102,8 @@ def propose_mutual_nn_pairs(emb: torch.Tensor, mask1: torch.Tensor, mask2: torch
     score (the distance, or the CSLS score when csls_k > 0), smaller kept
     first, ties to the lower KG1 id."""
     cand1, cand2 = emb[:n1], emb[n1:n]
-    v12, i12 = _nn1(cand1, cand2, mask2, block_c, csls_k)
-    _, i21 = _nn1(cand2, cand1, mask1, block_c, csls_k)
+    v12, i12 = _nn1(cand1, cand2, mask2, block_c, metric, csls_k, approx)
+    _, i21 = _nn1(cand2, cand1, mask1, block_c, metric, csls_k, approx)
     mutual = mask1 & (i21[i12] == torch.arange(n1, device=emb.device))
     score = torch.where(mutual, v12, torch.full_like(v12, float("inf")))
     k_eff = min(cap, n1)

@@ -3,11 +3,14 @@
 One optimizer step per epoch over the whole merged graph.  At each
 ``neg_every`` boundary, in the JAX package's order: with ``boot_cap > 0``
 the mutual-NN proposals (from ``boot_start`` on, else a weight-0
-placeholder) join the seed pairs in the margin loss; then negatives are
-drawn over those pairs (uniform at epoch 0, then exact-L1 hard mining from
-the current parameters when ``neg_mode='hard'``).  Proposal and mining
-share one encoder forward, since both read the same parameters.  Exact
-Hits@k (CSLS with ``eval_csls_k``) at ``eval_every`` and at the end.  With
+placeholder; by ``neg_metric``, approximate with ``boot_approx``) join the
+seed pairs in the margin loss; then negatives are drawn over those pairs
+(uniform at epoch 0, then hard mining from the current parameters when
+``neg_mode='hard'``, by ``neg_metric``, approximate with ``neg_approx``,
+CSLS-scored with ``neg_csls_k``).  Proposal and mining share one encoder
+forward, since both read the same parameters.  Hits@k (CSLS with
+``eval_csls_k``) at ``eval_every``, within shortlists with
+``eval_approx_k``, and exact at the end.  With
 ``checkpoint_dir`` and ``checkpoint_every`` the loop saves and resumes
 (``train/checkpoint.py``), and SIGTERM makes it save and stop at the next
 epoch boundary.  ``fit`` trains configs ``base`` and ``highway`` (AlignGCN
@@ -17,9 +20,8 @@ draws its mask from a generator of its own (``step_generator``).  Both run
 on the card unless the caller passes ``device="cpu"``.
 
 Not ported yet, and refused up front (``check_trainable``): the fused
-``steps_per_call`` interval, approximate and sqeuclidean proposals,
-profiling, bf16 training, approximate eval, approximate, CSLS and
-sqeuclidean mining, and the distributed trainer (``ROADMAP.md``).
+``steps_per_call`` interval, profiling, bf16 training and the distributed
+trainer (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from tpugraph_torch import resolve_device
 from tpugraph_torch.configs.configs import TrainConfig
 from tpugraph_torch.convert import embed_params
 from tpugraph_torch.data.synthetic import synthetic_align_task
+from tpugraph_torch.kernels.shortlist_dist import METRICS
 from tpugraph_torch.models.encoder import AlignGCN, init_params
 from tpugraph_torch.sparse.build import build_adjacency
 from tpugraph_torch.sparse.ell import EllOperator
@@ -62,7 +65,8 @@ class TrainResult:
     # (the steps), step_s (each step's), forward_s (the interval
     # boundaries' encoder forwards), propose_s (bootstrap proposals), mine_s
     # (hard mining), draw_s (fit_mtl's per-interval draws), eval_s (evals
-    # incl. the final one), save_s (checkpoints); the counts steps,
+    # incl. the final one; final_eval_s, the final one alone), save_s
+    # (checkpoints); the counts steps,
     # forwards, proposals, minings, draws, evals, saves; and start_epoch,
     # the first epoch this process ran
     timings: dict = field(default_factory=dict)
@@ -126,14 +130,9 @@ def check_trainable(cfg: TrainConfig) -> None:
                          "neg_every >= epochs)")
     unported = {
         "steps_per_call > 1 (the fused interval)": cfg.steps_per_call > 1,
-        "boot_approx (approximate proposals)": cfg.boot_cap > 0 and cfg.boot_approx,
         "profile_dir": bool(cfg.profile_dir),
         f"param_dtype={cfg.param_dtype!r} training (float32 only)":
             cfg.param_dtype != "float32",
-        "eval_approx_k (approximate eval)": cfg.eval_approx_k > 0,
-        "approximate, CSLS or sqeuclidean hard mining": cfg.neg_mode == "hard" and (
-            cfg.neg_approx or cfg.neg_csls_k > 0 or cfg.neg_metric != "cityblock"),
-        "sqeuclidean proposals": cfg.boot_cap > 0 and cfg.neg_metric != "cityblock",
         "the distributed trainer": max(cfg.n_shards, cfg.feature_shards,
                                        cfg.slice_shards) > 1,
     }
@@ -142,6 +141,8 @@ def check_trainable(cfg: TrainConfig) -> None:
             raise NotImplementedError(f"{what} is not ported yet; see ROADMAP.md")
     if cfg.neg_mode not in ("uniform", "hard"):
         raise ValueError(f"unknown neg_mode {cfg.neg_mode!r}")
+    if cfg.neg_metric not in METRICS:
+        raise ValueError(f"unknown neg_metric {cfg.neg_metric!r}; expected one of {METRICS}")
 
 
 def _sync(dev: torch.device) -> None:
@@ -194,7 +195,8 @@ def train_loop(cfg: TrainConfig, task: AlignTask, op: EllOperator, model: torch.
     logger = MetricsLogger(cfg.metrics_path, config=cfg.to_dict(), tb_dir=cfg.tb_dir)
     history, losses = [], []
     timings = {"load_s": 0.0, "train_s": 0.0, "step_s": [], "forward_s": 0.0,
-               "propose_s": 0.0, "mine_s": 0.0, "draw_s": 0.0, "eval_s": 0.0, "save_s": 0.0,
+               "propose_s": 0.0, "mine_s": 0.0, "draw_s": 0.0, "eval_s": 0.0,
+               "final_eval_s": 0.0, "save_s": 0.0,
                "steps": 0, "forwards": 0, "proposals": 0, "minings": 0, "draws": 0, "evals": 0,
                "saves": 0}
 
@@ -225,12 +227,13 @@ def train_loop(cfg: TrainConfig, task: AlignTask, op: EllOperator, model: torch.
         timings[count] += 1
         return out
 
-    def evaluate_now():
-        emb = timed("eval_s", "evals", embed_fn)
+    def evaluate_now(approx_k):
         t0 = time.perf_counter()
-        m = hits_at_k(emb, task.test_pairs, csls_k=cfg.eval_csls_k)
-        timings["eval_s"] += time.perf_counter() - t0
-        return emb, m
+        emb = timed("eval_s", "evals", embed_fn)
+        t1 = time.perf_counter()
+        m = hits_at_k(emb, task.test_pairs, csls_k=cfg.eval_csls_k, approx_k=approx_k)
+        timings["eval_s"] += time.perf_counter() - t1
+        return emb, m, time.perf_counter() - t0
 
     ckpt = Checkpointer(cfg.checkpoint_dir, cfg.checkpoint_every)
     start_epoch, batch, boot = 0, None, None
@@ -274,14 +277,17 @@ def train_loop(cfg: TrainConfig, task: AlignTask, op: EllOperator, model: torch.
                 emb = timed("forward_s", "forwards", embed_fn) if propose or mine else None
                 if use_boot:
                     boot = timed("propose_s", "proposals", lambda: propose_mutual_nn_pairs(
-                        emb, mask1, mask2, n1, n, cfg.boot_cap,
-                        csls_k=cfg.boot_csls_k)) if propose else placeholder
+                        emb, mask1, mask2, n1, n, cfg.boot_cap, metric=cfg.neg_metric,
+                        csls_k=cfg.boot_csls_k, approx=cfg.boot_approx)) if propose else placeholder
                 batch = interval_batch(boot)
                 pairs_t = batch.get("pairs_aug", pairs)
                 if mine:
                     batch["neg_l"], batch["neg_r"] = timed(
                         "mine_s", "minings",
-                        lambda: sample_hard_negatives(emb, pairs_t, n1, n, cfg.k_neg))
+                        lambda: sample_hard_negatives(emb, pairs_t, n1, n, cfg.k_neg,
+                                                      metric=cfg.neg_metric,
+                                                      approx=cfg.neg_approx,
+                                                      csls_k=cfg.neg_csls_k))
                 else:
                     batch["neg_l"], batch["neg_r"] = sample_uniform_negatives(
                         interval_generator(cfg, epoch0), pairs_t, n1, n, cfg.k_neg)
@@ -304,7 +310,7 @@ def train_loop(cfg: TrainConfig, task: AlignTask, op: EllOperator, model: torch.
                                  or epoch >= cfg.epochs - 1 or ckpt.preempted):
                 save_now(epoch)
             if cfg.eval_every and (epoch % cfg.eval_every == 0 or epoch >= cfg.epochs - 1):
-                _, m = evaluate_now()
+                _, m, _ = evaluate_now(cfg.eval_approx_k)  # the history: shortlists if set
                 wall = time.perf_counter() - t_start
                 rec = {
                     "epoch": epoch,
@@ -324,7 +330,7 @@ def train_loop(cfg: TrainConfig, task: AlignTask, op: EllOperator, model: torch.
             if ckpt.preempted:
                 save_now(epoch)  # the latch may have fired after the save above
                 break  # exit cleanly for a relaunch
-        final_emb, final = evaluate_now()
+        final_emb, final, timings["final_eval_s"] = evaluate_now(0)  # always exact
         final["final_loss"] = loss.item()
         if cfg.save_emb_path:  # hand the table to the serving path (tpugraph_torch.serve)
             from tpugraph_torch.serve import save_embeddings

@@ -12,7 +12,11 @@ heads, the attribute head's batch of attribute triples, and with
 ``0 < sinkhorn_pairs < S`` the OT head's subsample of the seed pairs.
 The proposals join the margin losses only; the Sinkhorn head stays on the
 seed pairs (``models/align.py``).  Proposals, mining and evals read
-``AlignMTL.embed``: with the attribute channel, the combined SE‖AE space.
+``AlignMTL.embed``: with the attribute channel, the combined SE‖AE space,
+where a sqeuclidean score weights the channels β² : (1−β)².  The
+approximate and sqeuclidean search options (``boot_approx``,
+``neg_approx``, ``neg_metric``, ``neg_csls_k``, ``eval_approx_k``) reach
+them through ``train_loop`` as in ``fit``.
 
 Each step runs, on the card, the fused GCN-layer kernel twice (forward)
 and the ELL SpMM kernel twice (the layers' backward), the Sinkhorn

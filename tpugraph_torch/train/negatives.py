@@ -1,28 +1,46 @@
 """Negative sampling for the margin loss (counterpart of
-``tpugraph/train/negatives.py``, uniform and exact-L1 hard paths).
+``tpugraph/train/negatives.py``).
 
 * uniform: ``torch.randint`` from an explicit ``torch.Generator`` on the
   host, moved to the run's device, so one seed gives the same negatives on
   the CPU and on the card.  The numbers differ from ``jax.random``'s for the
   same seed; the parity tests inject one set of ids into both packages.
-* hard: the k nearest non-partner entities of the opposite KG in exact L1,
-  blocked over queries and candidates so that no more than one
-  (BLOCK_Q, block_c, d) difference tensor exists at a time, as in
-  ``train/eval.py``.  A block of queries keeps its (BLOCK_Q, C) distance
-  row and takes one ``topk``: the same k smallest as the JAX package's
-  running merge, without a sort per candidate block.
+* hard, exact (``approx=False``): the k nearest non-partner entities of the
+  opposite KG in L1 or sqeuclidean (``metric``), blocked over queries, each
+  block keeping its (BLOCK_Q, C) distance row (``eval.dist_tile``) and
+  taking one ``topk``: the same k smallest as the JAX package's running
+  merge, without a sort per candidate block.  ``csls_k > 0`` ranks by the
+  CSLS score 2·d(q, j) − r(j), r the candidate's hubness over the whole
+  query pool (the query's own term cannot change a row's top k).  Where the
+  pool is smaller than k, the JAX package's sqeuclidean path pads with a
+  finite sentinel whose ids escape its mask (ROADMAP Queue C 4); the port
+  has no pad columns, so every column without a real candidate takes the
+  row's best valid one, as in the cityblock path.
+* hard, approximate (``approx=True``): one (block_q, C) selection tile per
+  block of 4,096 queries, by the sqeuclidean product.  Cityblock without
+  CSLS shortlists ``k_short = min(C, max(2k, k + 8))`` candidates by it and
+  keeps the k nearest in exact L1, scored by the shortlist kernel
+  (``kernels/shortlist_dist.py``); the other combinations select the k
+  directly (sqeuclidean) or from an exact L1 tile (cityblock with CSLS).
+  The JAX package selects with ``lax.approx_min_k`` (approximate on the
+  TPU, exact on the CPU); the port selects exactly with ``torch.topk``.
+  Mining returns index sets: their order within a row is not part of the
+  contract.
 
-``_cand_hubness`` is the CSLS hubness term that serving and bootstrapping
-share.  The approximate (``approx``), CSLS (``csls_k``) and sqeuclidean
-mining paths are not ported yet (``ROADMAP.md``).
+``_cand_hubness`` (exact) and ``_hubness_both_approx`` (selected by the
+sqeuclidean score, its L1 term scored by the shortlist kernel) are the
+CSLS hubness terms that mining, proposals, eval and serving share.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpugraph_torch.train.eval import BLOCK_Q, _knn_mean_l1
-from tpugraph_torch.train.losses import pairwise_l1
+from tpugraph_torch.kernels.shortlist_dist import check_metric, shortlist_dist
+from tpugraph_torch.train.eval import BLOCK_Q, _knn_mean_l1, dist_tile, sq_norms
+
+HUB_BLOCK = 4096  # candidates per sqeuclidean hubness tile, as in the JAX package
+APPROX_BLOCK_Q = 4096  # queries per approximate selection tile: 311 MB at 19,000 candidates
 
 
 def sample_uniform_negatives(gen: torch.Generator, pairs: torch.Tensor, n_ent_1: int,
@@ -38,24 +56,27 @@ def sample_uniform_negatives(gen: torch.Generator, pairs: torch.Tensor, n_ent_1:
 def blockwise_knn_l1(q: torch.Tensor, cands: torch.Tensor, exclude: torch.Tensor, k: int,
                      block_c: int = 1024, metric: str = "cityblock", approx: bool = False,
                      csls_k: int = 0) -> torch.Tensor:
-    """Indices (into cands) of the k nearest candidates per query in L1,
-    the query's own partner ``exclude[i]`` (-1 = none) masked out.
+    """Indices (into cands) of the k nearest candidates per query by
+    ``metric`` (the CSLS score with ``csls_k > 0``), the query's own partner
+    ``exclude[i]`` (-1 = none) masked out.
 
     A pool smaller than k leaves columns with no real candidate, and an
     exhausted pool puts the masked partner among the k: both are filled
     with the row's best valid column, as the JAX package does."""
-    if metric != "cityblock" or approx or csls_k:
-        raise NotImplementedError(
-            "only exact cityblock mining is ported (metric='cityblock', approx=False, "
-            "csls_k=0); see ROADMAP.md")
+    check_metric(metric)
+    q, cands = q.contiguous(), cands.contiguous()
+    if approx:
+        return _knn_query_blocked_approx(q, cands, exclude, k, metric, csls_k=csls_k)
     s, c = q.shape[0], cands.shape[0]
     k_eff = min(k, c)
+    r = _cand_hubness(q, cands, csls_k, metric, block_c) if csls_k > 0 else None
+    c2 = sq_norms(cands) if metric == "sqeuclidean" else None
     out = torch.empty((s, k), dtype=torch.int64, device=q.device)
     col_ids = torch.arange(c, device=q.device)
     for q0 in range(0, s, BLOCK_Q):
-        qb = q[q0:q0 + BLOCK_Q]
-        dist = torch.cat([pairwise_l1(qb[:, None, :], cands[None, c0:c0 + block_c, :]).float()
-                          for c0 in range(0, c, block_c)], dim=1)
+        dist = dist_tile(q[q0:q0 + BLOCK_Q], cands, metric, block_c, c2)
+        if r is not None:
+            dist = 2.0 * dist - r[None, :]
         ex = exclude[q0:q0 + BLOCK_Q, None]
         dist.masked_fill_(col_ids[None, :] == ex, float("inf"))
         vals, idx = torch.topk(dist, k_eff, dim=1, largest=False, sorted=True)
@@ -68,23 +89,103 @@ def blockwise_knn_l1(q: torch.Tensor, cands: torch.Tensor, exclude: torch.Tensor
     return out
 
 
+def _cand_hubness(q: torch.Tensor, cands: torch.Tensor, csls_k: int, metric: str = "cityblock",
+                  block_c: int = 1024) -> torch.Tensor:
+    """r(j): the mean distance of candidate j to its csls_k nearest queries
+    (csls_k clamped to the query pool), over (HUB_BLOCK, S) sqeuclidean
+    tiles, or through ``eval._knn_mean_l1`` for cityblock."""
+    check_metric(metric)
+    if metric == "cityblock":
+        return _knn_mean_l1(cands, q, csls_k, block_c)
+    k = min(csls_k, q.shape[0])
+    q2 = sq_norms(q)
+    return torch.cat([
+        torch.topk(dist_tile(cands[c0:c0 + HUB_BLOCK], q, metric, c2=q2), k, dim=1,
+                   largest=False).values.mean(dim=1)
+        for c0 in range(0, cands.shape[0], HUB_BLOCK)])
+
+
+def _hubness_both_approx(q_pool: torch.Tensor, cands: torch.Tensor,
+                         k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(r_sq, r_l1): candidate j's mean sqeuclidean and mean exact-L1
+    distance to its k nearest queries (k clamped to the pool), "nearest"
+    selected by sqeuclidean: one (HUB_BLOCK, S) product tile and one
+    ``topk`` per candidate block, the L1 term by the shortlist kernel."""
+    q_pool, cands = q_pool.contiguous(), cands.contiguous()
+    k = min(k, q_pool.shape[0])
+    q2 = sq_norms(q_pool)
+    r_sq = torch.empty(cands.shape[0], dtype=torch.float32, device=cands.device)
+    r_l1 = torch.empty_like(r_sq)
+    for c0 in range(0, cands.shape[0], HUB_BLOCK):
+        blk = cands[c0:c0 + HUB_BLOCK]
+        hv2, hpos = torch.topk(dist_tile(blk, q_pool, "sqeuclidean", c2=q2), k, dim=1,
+                               largest=False)
+        r_sq[c0:c0 + HUB_BLOCK] = hv2.mean(dim=1)
+        r_l1[c0:c0 + HUB_BLOCK] = shortlist_dist(blk, q_pool, hpos, "cityblock").mean(dim=1)
+    return r_sq, r_l1
+
+
+def _knn_query_blocked_approx(q: torch.Tensor, cands: torch.Tensor, exclude: torch.Tensor,
+                              k: int, metric: str, block_q: int = APPROX_BLOCK_Q,
+                              csls_k: int = 0,
+                              r_cand: torch.Tensor | None = None) -> torch.Tensor:
+    """Query-blocked k-NN: one (block_q, C) selection tile per query block.
+
+    ``r_cand``: the candidates' hubness for the CSLS score (the approximate
+    eval passes the one it holds); computed here when None and
+    ``csls_k > 0``: the sqeuclidean one selected by sqeuclidean
+    (``_hubness_both_approx``), the exact L1 one for cityblock.  The
+    exclusion mask applies before selection and again in the rerank: the
+    partner can enter the shortlist only through ties."""
+    q, cands = q.contiguous(), cands.contiguous()
+    s, c = q.shape[0], cands.shape[0]
+    c2 = sq_norms(cands)
+    if r_cand is None and csls_k > 0:
+        r_cand = (_hubness_both_approx(q, cands, csls_k)[0] if metric == "sqeuclidean"
+                  else _cand_hubness(q, cands, csls_k, metric))
+    # cityblock without CSLS: shortlist by the sqeuclidean product, then
+    # exact L1 within the shortlist only
+    prefilter_l1 = metric == "cityblock" and csls_k == 0
+    k_eff = min(k, c)
+    k_short = min(c, max(2 * k_eff, k_eff + 8))
+    tile_metric = "sqeuclidean" if metric == "sqeuclidean" or prefilter_l1 else "cityblock"
+    col_ids = torch.arange(c, device=q.device)
+    idx = torch.empty((s, k_eff), dtype=torch.int64, device=q.device)
+    for q0 in range(0, s, block_q):
+        qq, ex = q[q0:q0 + block_q], exclude[q0:q0 + block_q, None]
+        dmat = dist_tile(qq, cands, tile_metric, c2=c2)
+        if csls_k > 0:
+            dmat = 2.0 * dmat - r_cand[None, :]
+        dmat.masked_fill_(col_ids[None, :] == ex, float("inf"))
+        if prefilter_l1:
+            sidx = torch.topk(dmat, k_short, dim=1, largest=False).indices
+            d_l1 = shortlist_dist(qq, cands, sidx, "cityblock")
+            d_l1.masked_fill_(sidx == ex, float("inf"))
+            pos = torch.topk(d_l1, k_eff, dim=1, largest=False).indices
+            idx[q0:q0 + block_q] = sidx.gather(1, pos)
+        else:
+            idx[q0:q0 + block_q] = torch.topk(dmat, k_eff, dim=1, largest=False).indices
+    if k_eff < k:
+        # tiny pool: repeat the row's best column, a valid negative (the
+        # mask ran before selection)
+        idx = torch.cat([idx, idx[:, :1].expand(-1, k - k_eff)], dim=1)
+    if k >= c:
+        # exhausted pool: the selection took every candidate, the masked
+        # partner (which sorts last) included
+        idx = torch.where(idx == exclude[:, None], idx[:, :1], idx)
+    return idx
+
+
 def sample_hard_negatives(emb: torch.Tensor, pairs: torch.Tensor, n_ent_1: int, n_ent: int,
                           k: int, block_c: int = 1024, metric: str = "cityblock",
                           approx: bool = False,
                           csls_k: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Truncated k-NN negatives: the k closest non-partner entities of the
-    opposite KG, in the current embedding space."""
+    opposite KG, in the current embedding space (by the CSLS score with
+    ``csls_k > 0``)."""
     e_l, e_r = emb[pairs[:, 0]], emb[pairs[:, 1]]
     cand_l, cand_r = emb[:n_ent_1], emb[n_ent_1:n_ent]
     neg_r = blockwise_knn_l1(e_l, cand_r, pairs[:, 1] - n_ent_1, k, block_c, metric,
                              approx, csls_k) + n_ent_1
     neg_l = blockwise_knn_l1(e_r, cand_l, pairs[:, 0], k, block_c, metric, approx, csls_k)
     return neg_l, neg_r
-
-
-def _cand_hubness(q: torch.Tensor, cands: torch.Tensor, csls_k: int,
-                  block_c: int = 1024) -> torch.Tensor:
-    """r(j): the mean L1 distance of candidate j to its csls_k nearest
-    queries, blocked over candidates and queries (cityblock only: the
-    sqeuclidean hubness is not ported yet)."""
-    return _knn_mean_l1(cands, q, csls_k, block_c)
