@@ -1,5 +1,6 @@
 """The port's CUDA kernels (fused GCN layer, ELL SpMM, Sinkhorn potential
-update, shortlist distances) against their plain versions, and training on
+update, shortlist select-and-rerank and gathered distances) against their
+plain versions, and training on
 the card: the attribute incidence's SpMM, a GCN layer on config highway's
 operator, steps of recipes v6 and v7r, and the approximate search paths
 against the same calls on the host.
@@ -524,6 +525,111 @@ def test_shortlist_dist_refuses_what_it_does_not_take(cuda):
     assert shortlist_dist.shortlist_dist(q, q, idx[:, :0]).shape == (8, 0)
 
 
+def _select_case(rng, s, c, d, masked, csls):
+    q = torch.from_numpy(rng.standard_normal((s, d)).astype(np.float32))
+    cands = torch.from_numpy(rng.standard_normal((c, d)).astype(np.float32))
+    kw = {}
+    if masked:
+        kw["exclude"] = torch.from_numpy(rng.integers(-1, c, s))
+        kw["col_mask"] = torch.from_numpy(rng.random(c) >= 0.25)
+    if csls:
+        kw["a"] = 2.0
+        kw["bias"] = torch.from_numpy((1.6 * d + 0.1 * d * rng.standard_normal(c))
+                                      .astype(np.float32))
+    return q, cands, kw
+
+
+def _by_id(idx, *vals):
+    order = idx.argsort(dim=1)
+    return [v.gather(1, order) for v in vals]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [10, 16, 128, 200, 256])
+@pytest.mark.parametrize("d", [128, 256, 512])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_shortlist_select_matches_plain(cuda, k, d, bf16, masked):
+    """The select-and-rerank kernel against its plain version at every
+    shortlist length the callers use (10, 16, 128, 200; 256 the queue's
+    largest) and every width the configs use, fp32 (3× TF32) and bf16
+    operands, with and without the mask, the exclusions and the CSLS bias:
+    the same index sets on ≥ 99 % of rows; where they agree the rerank
+    within 1e-5 + 1e-5·|x| and the score within 1e-5 of the expanded form's
+    scale a·(max ‖q‖² + max ‖c‖²); ascending by (score, column); one launch
+    a call, and two launches bit-identical."""
+    rng = np.random.default_rng(k * 7 + d + 2 * bf16 + masked)
+    q, cands, kw = _select_case(rng, 1500, 2500, d, masked, csls=masked)
+    rerank = ("cityblock", "sqeuclidean", None)[(k + d // 128 + bf16) % 3]
+    want = shortlist_dist.shortlist_select_plain(q, cands, k, bf16=bf16, rerank=rerank, **kw)
+    q, cands = q.to(cuda), cands.to(cuda)
+    kw = {key: v.to(cuda) if torch.is_tensor(v) else v for key, v in kw.items()}
+    before = shortlist_dist.select_launches
+    got = shortlist_dist.shortlist_select(q, cands, k, bf16=bf16, rerank=rerank, **kw)
+    torch.cuda.synchronize()
+    assert shortlist_dist.select_launches == before + 1
+    again = shortlist_dist.shortlist_select(q, cands, k, bf16=bf16, rerank=rerank, **kw)
+    for g, a in zip(got, again):
+        assert (g is None and a is None) or torch.equal(g, a)
+    sidx, sval = got[0].cpu(), got[1].cpu()
+    assert sidx.shape == (1500, k) and (got[2] is None) == (rerank is None)
+    later = (sval[:, 1:] > sval[:, :-1]) | ((sval[:, 1:] == sval[:, :-1])
+                                           & (sidx[:, 1:] > sidx[:, :-1]))
+    assert later.all()
+    rows = (sidx.sort(dim=1).values == want[0].sort(dim=1).values).all(dim=1)
+    assert float(rows.double().mean()) >= 0.99
+    scale = kw.get("a", 1.0) * float(shortlist_dist.sq_norms(cands).max()
+                                     + shortlist_dist.sq_norms(q).max())
+    torch.testing.assert_close(_by_id(sidx[rows], sval[rows])[0],
+                               _by_id(want[0][rows], want[1][rows])[0], rtol=1e-5,
+                               atol=1e-5 * scale)
+    if rerank is not None:
+        torch.testing.assert_close(_by_id(sidx[rows], got[2].cpu()[rows])[0],
+                                   _by_id(want[0][rows], want[2][rows])[0], rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_select_rerank_is_unfused_above_the_queue(cuda):
+    """A shortlist above the kernel's queue takes the selection tile,
+    ``torch.topk`` and the gather kernel: no select launch, one gather
+    launch, and the plain version's sets and distances."""
+    rng = np.random.default_rng(31)
+    q, cands, kw = _select_case(rng, 700, 1800, 256, masked=True, csls=True)
+    k = shortlist_dist.QUEUE_MAX + 44
+    want = shortlist_dist.shortlist_select_plain(q, cands, k, rerank="cityblock", **kw)
+    kw = {key: v.to(cuda) if torch.is_tensor(v) else v for key, v in kw.items()}
+    before = (shortlist_dist.select_launches, shortlist_dist.launches)
+    got = shortlist_dist.select_rerank(q.to(cuda), cands.to(cuda), k, rerank="cityblock", **kw)
+    torch.cuda.synchronize()
+    assert (shortlist_dist.select_launches, shortlist_dist.launches) == (before[0],
+                                                                        before[1] + 1)
+    rows = (got[0].cpu().sort(dim=1).values == want[0].sort(dim=1).values).all(dim=1)
+    assert float(rows.double().mean()) >= 0.99
+    torch.testing.assert_close(_by_id(got[0].cpu()[rows], got[2].cpu()[rows])[0],
+                               _by_id(want[0][rows], want[2][rows])[0], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_shortlist_select_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(8, 16, device=cuda)
+    with pytest.raises(ValueError):
+        shortlist_dist.shortlist_select(torch.zeros(8, 6, device=cuda),
+                                        torch.zeros(40, 6, device=cuda), 4)
+    with pytest.raises(ValueError):
+        shortlist_dist.shortlist_select(torch.zeros(8, 516, device=cuda),
+                                        torch.zeros(40, 516, device=cuda), 4)
+    with pytest.raises(TypeError):
+        shortlist_dist.shortlist_select(q.half(), q.half(), 4)
+    with pytest.raises(ValueError):
+        shortlist_dist.shortlist_select(q, torch.zeros(400, 16, device=cuda),
+                                        shortlist_dist.QUEUE_MAX + 1)
+    with pytest.raises(ValueError):
+        shortlist_dist.shortlist_select(q.t(), q, 4)
+    with pytest.raises(TypeError):
+        shortlist_dist.shortlist_select(q, q, 4, exclude=torch.zeros(8, device=cuda))
+
+
 def _aligned_pair(rng, n1=1500, n2=1700, d=64, noise=0.3):
     base = rng.standard_normal((n1, d)).astype(np.float32)
     right = (np.pad(base, ((0, n2 - n1), (0, 0)))
@@ -576,10 +682,10 @@ def test_approx_paths_on_the_card_match_the_host(cuda, path):
                                    csls_k=10 if path == "topk_csls" else 0, approx_k=64)[1]
         return torch.stack(_hubness_both_approx(e[:n1], e[n1:], 10))
 
-    before = shortlist_dist.launches
+    before = shortlist_dist.select_launches
     got = call(cuda)
     torch.cuda.synchronize()
-    assert shortlist_dist.launches > before
+    assert shortlist_dist.select_launches > before
     want = call(torch.device("cpu"))
     if path.startswith("proposals"):
         assert len(got & want) >= 0.99 * len(want) and len(want) > 100

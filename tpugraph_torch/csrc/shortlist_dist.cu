@@ -1,49 +1,82 @@
-// Gathered shortlist distances for Hopper (sm_90a):
+// The shortlist kernels of the approximate search paths, for Hopper (sm_90a).
 //
-//     out[i, j] = Σ_c f(q[i, c] − table[idx[i, j], c]),  f = |·| or (·)²
+// 1. shortlist_select_forward — select and rerank in one launch.  For a
+//    query block q (S, d) fp32 against cands (C, d) fp32:
 //
-// q (S, d) fp32, table (C, d) fp32, idx (S, K) int64, out (S, K) fp32.
+//      sel[i, j]  = ‖q_i‖² + c2[j] − 2·q_i·c_j        (the expanded form, not clamped)
+//      sel[i, j]  = a·sel[i, j] − bias[j]             (CSLS: a = 2, bias = r_sel)
+//      sel[i, j]  = +inf where col_mask[j] is 0 or j == exclude[i]
+//      sidx[i, :] = the k columns of least sel, ascending by (sel, column)
+//      sval[i, :] = sel at those columns
+//      dist[i, :] = Σ_c f(q[i, c] − cands[sidx[i, :], c]), f = |·| or (·)²   (optional)
 //
-// Replaces the XLA ops of the JAX package's approximate search paths: the
-// gather of each query's shortlisted rows into a (block_q, K, d) tensor and
-// its L1 (or squared) reduction, at tpugraph/train/negatives.py:179-180
-// (the hubness terms) and :261-262 (the mining rerank),
-// train/bootstrap.py:132-137 (the proposals' rerank), train/eval.py:158-159
-// (the prefiltered ranks) and serve.py:87-88 (the prefiltered top-k).
-// Plain torch builds that tensor: 839 MB per 4,096-query block when mining
-// at zh-en scale (K = 200, d = 256).  This kernel never stores it.
+//    Replaces the JAX package's composite of XLA ops and approx_min_k:
+//    the selection tile, mask, approx_min_k and gather + L1 of
+//    tpugraph/train/negatives.py:178 and :260-262 (mining),
+//    train/bootstrap.py:125-137 (proposals, bf16 operands), train/eval.py:112-159
+//    (prefiltered ranks) and serve.py:85-88 (prefiltered top-k).  No (S, C)
+//    tile is ever written to device memory.
 //
-// What bounds it on an H100: the bytes it must move are q, idx and out once
-// and the table once (~44 MB for the zh-en mining shortlist: 7,000 × 200 at
-// d = 256 over a 19,000-row table), ~13 µs at 3.35 TB/s; its arithmetic,
-// 3 operations per term, is ~16 µs of fp32.  What a kernel pays is the
-// gather: every shortlist entry reads one full table row (1 KB at d = 256,
-// 1.43 GB for that shortlist), which the 50 MB L2 mostly serves, because
-// the table (19.5 MB) fits in it.  So the time is set by how many row loads
-// are in flight.
+//    What bounds it on an H100: the S·C·d products.  With fp32 operands they
+//    run as a 3× TF32 split (x = big + small, a·b ≈ big·big + big·small +
+//    small·big, fp32 accumulation, as sinkhorn_fused.cu), so the bound is
+//    3·2·S·C·d at the TF32 rate (≈ 0.41 ms for 7,000 mining queries against
+//    19,000 rows at d = 256).  One TF32 product would move the shortlist's
+//    sets: near-fp32 scores keep them.  With bf16 operands (the proposals)
+//    each product of two bf16 values is exact in fp32, so one bf16 mma with
+//    fp32 accumulation gives the plain path's arithmetic.
 //
-// Design (a first, simple one):
-//   * one warp per query row; the row's K entries in chunks of 32: each
-//     lane loads one entry's index, and the warp takes them kUnroll at a
-//     time by shuffles, so kUnroll table rows are in flight per warp;
-//   * lanes stride over the width in float4 loads (plain float loads when
-//     d % 4 != 0 or a base pointer is not 16-byte aligned), so a warp reads
-//     512 contiguous bytes of a row at a time; the query row is re-read from
-//     L1 for every group of entries;
-//   * each lane keeps kUnroll partial sums; a butterfly of shuffles sums
-//     them across the warp, and lane u writes entry u.  Every sum runs in a
-//     fixed order, so two launches agree bit for bit;
-//   * no shared memory, no atomics, no scratch.  Indices are trusted to lie
-//     in [0, C): the callers take them from a top-k over the table.
+//    Design:
+//      * a block owns 32 query rows and is warp-specialised: 8 product warps
+//        (2 × 4) each compute a 16 × 32 piece of a 32 × 128 score tile with
+//        mma.sync (m16n8k8 TF32 ×3, or m16n8k16 bf16), and 8 selection
+//        warps each own 4 of the rows.  The query rows stay in shared memory
+//        in fp32; candidate tiles stream through a two-stage cp.async ring
+//        in chunks of 32 of d (unpadded rows with a swizzle);
+//      * the product warps' epilogue applies the norms, a, the bias, the
+//        column mask and the exclusion in registers and leaves the tile's
+//        scores in one of up to 4 slots of shared memory; named barriers
+//        ("full", "empty") per slot hand it to the selection warps, so the
+//        products of the next tiles run while the rows are selected;
+//      * a selection warp compares each of its rows' scores with the row's
+//        threshold, the key (sel, column) of the k-th entry of the row's
+//        queue (+inf until the queue fills); a warp vote skips a row with
+//        no survivor, and survivors go to the row's buffer of 128 in shared
+//        memory;
+//      * a full buffer is merged into the row's sorted queue by its warp in
+//        registers (shuffles): a bitonic sort of the buffer, the elementwise
+//        min of the queue and the reversed buffer (a bitonic sequence
+//        holding the least kq of both) and a bitonic merge (the block-select
+//        structure of Johnson, Douze and Jégou, "Billion-scale similarity
+//        search with GPUs", 2017); the threshold then falls.  No other warp
+//        waits on it.  After the last tile every buffer is merged;
+//      * keys are unique (a column enters a row's buffer at most once), so
+//        the result is the exact k least by (sel, column) whatever the order
+//        of the tiles, and two launches agree bit for bit;
+//      * the rerank scores the queue's rows with one warp per query, 8 table
+//        rows in flight, float4 loads, the query row from shared memory.
+//
+// 2. shortlist_dist_forward — the gathered distances alone, for a shortlist
+//    the caller already holds (the unfused route, k above the queue's 256):
+//
+//      out[i, j] = Σ_c f(q[i, c] − table[idx[i, j], c]),  f = |·| or (·)²
+//
+//    one warp per query row, its K entries taken 4 at a time (4 table rows in
+//    flight), lanes striding over the width in float4 loads.  Every sum runs
+//    in a fixed order.  Indices are trusted to lie in [0, C).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 4;  // table rows in flight per warp
+using tf32::mma_tf32;
+using tf32::split_tf32;
+
 constexpr unsigned kFull = 0xffffffffu;
 
 template <bool kSq>
@@ -63,61 +96,586 @@ __device__ __forceinline__ float terms(float4 a, float4 b) {
          term<kSq>(a.w, b.w);
 }
 
+// One query row's distances to n table rows, by one warp, kUnroll table
+// rows in flight: entry u of the row is table row idx_of(u).  qrow and table
+// hold Vec elements, dv per row.
+template <bool kSq, int kUnroll, typename Vec, typename IdxOf>
+__device__ __forceinline__ void row_dists(const Vec* qrow, const Vec* __restrict__ tab, int dv,
+                                          int n, IdxOf idx_of, float* __restrict__ orow,
+                                          int lane) {
+  for (int u0 = 0; u0 < n; u0 += kUnroll) {
+    const Vec* trow[kUnroll];
+    float acc[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      // entries past the end repeat the last one and are not written
+      trow[u] = tab + static_cast<size_t>(idx_of(min(u0 + u, n - 1))) * dv;
+      acc[u] = 0.f;
+    }
+    for (int c = lane; c < dv; c += 32) {
+      const Vec a = qrow[c];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) acc[u] += terms<kSq>(a, __ldg(trow[u] + c));
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) acc[u] += __shfl_xor_sync(kFull, acc[u], off);
+    }
+    float mine = acc[0];
+#pragma unroll
+    for (int u = 1; u < kUnroll; ++u) mine = lane == u ? acc[u] : mine;
+    if (lane < kUnroll && u0 + lane < n) orow[u0 + lane] = mine;
+  }
+}
+
+// ---------------------------------------------------------------- gather
+
+constexpr int kGatherThreads = 256;
+constexpr int kGatherWarps = kGatherThreads / 32;
+
 // Vec is float4 (d % 4 == 0, aligned) or float; dv = d / (width of Vec)
 template <bool kSq, typename Vec>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kGatherThreads)
 shortlist_dist_kernel(const float* __restrict__ q, const float* __restrict__ table,
                       const long long* __restrict__ idx, float* __restrict__ out, int s, int k,
                       int dv) {
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int row = blockIdx.x * kGatherWarps + (threadIdx.x >> 5);
   if (row >= s) return;  // warp-uniform: one row per warp
   const Vec* qrow = reinterpret_cast<const Vec*>(q) + static_cast<size_t>(row) * dv;
-  const Vec* tab = reinterpret_cast<const Vec*>(table);
   const long long* irow = idx + static_cast<size_t>(row) * k;
   float* orow = out + static_cast<size_t>(row) * k;
   for (int j0 = 0; j0 < k; j0 += 32) {
     const int n = min(32, k - j0);
     const long long mine = lane < n ? __ldg(irow + j0 + lane) : 0;
-    for (int u0 = 0; u0 < n; u0 += kUnroll) {
-      const Vec* trow[kUnroll];
-      float acc[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        // entries past the chunk's end repeat its last one and are not written
-        const long long t = __shfl_sync(kFull, mine, min(u0 + u, n - 1));
-        trow[u] = tab + static_cast<size_t>(t) * dv;
-        acc[u] = 0.f;
-      }
-      for (int c = lane; c < dv; c += 32) {
-        const Vec a = __ldg(qrow + c);
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) acc[u] += terms<kSq>(a, __ldg(trow[u] + c));
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) acc[u] += __shfl_xor_sync(kFull, acc[u], off);
-      }
-      float mine_out = acc[0];
-#pragma unroll
-      for (int u = 1; u < kUnroll; ++u) mine_out = lane == u ? acc[u] : mine_out;
-      if (lane < kUnroll && u0 + lane < n) orow[j0 + u0 + lane] = mine_out;
-    }
+    row_dists<kSq, 4>(qrow, reinterpret_cast<const Vec*>(table), dv, n,
+                   [&](int u) { return __shfl_sync(kFull, mine, u); }, orow + j0, lane);
   }
 }
 
 template <bool kSq>
-int launch(const float* q, const float* table, const long long* idx, float* out, int s, int k,
-           int d, cudaStream_t stream) {
-  const dim3 grid((s + kWarps - 1) / kWarps);
+int launch_gather(const float* q, const float* table, const long long* idx, float* out, int s,
+                  int k, int d, cudaStream_t stream) {
+  const dim3 grid((s + kGatherWarps - 1) / kGatherWarps);
   const bool vec4 = d % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(table) % 16 == 0;
   if (vec4)
-    shortlist_dist_kernel<kSq, float4><<<grid, kThreads, 0, stream>>>(q, table, idx, out, s, k,
-                                                                      d / 4);
+    shortlist_dist_kernel<kSq, float4><<<grid, kGatherThreads, 0, stream>>>(q, table, idx, out,
+                                                                            s, k, d / 4);
   else
-    shortlist_dist_kernel<kSq, float><<<grid, kThreads, 0, stream>>>(q, table, idx, out, s, k, d);
+    shortlist_dist_kernel<kSq, float><<<grid, kGatherThreads, 0, stream>>>(q, table, idx, out,
+                                                                           s, k, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------- select
+
+constexpr int kBQ = 32;        // query rows per block
+constexpr int kWarpsM = 2;     // product warps along the query rows
+constexpr int kWarpsN = 4;     // product warps along the candidate columns
+constexpr int kMmaWarps = kWarpsM * kWarpsN;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kSelWarps = 8;   // selection warps, each owning kBQ / kSelWarps rows
+constexpr int kSelRows = kBQ / kSelWarps;
+constexpr int kWarps = kMmaWarps + kSelWarps;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMT = kBQ / (16 * kWarpsM);  // m16 tiles per product warp
+constexpr int kRows = 2 * kMT;  // fragment rows per thread
+constexpr int kBC = 128;       // candidate columns per tile
+constexpr int kKC = 32;        // d per pipeline chunk: a ring row is 128 bytes
+constexpr int kStages = 2;     // ring depth: deeper rings measured no faster
+constexpr int kPad = 16;       // query-row padding (floats): stride ≡ 16 mod 32 banks
+constexpr int kBuf = 128;      // survivors per row between merges
+constexpr int kTStride = 128 + 4;  // score-tile row stride (floats): ≡ 4 mod 32 banks
+constexpr int kRerankRows = 8;  // table rows in flight per warp in the rerank
+constexpr int kNone = 0x7fffffff;  // the column of an empty queue slot
+
+struct SelectArgs {
+  const float* q;              // (s, d)
+  const float* cands;          // (c, d)
+  const float* q2;             // (s,)
+  const float* c2;             // (c,)
+  const float* bias;           // (c,) or null
+  const uint8_t* col_mask;     // (c,) or null
+  const long long* exclude;    // (s,) or null; -1 = none
+  float a;
+  int s, c, d, k, kq, rerank;  // rerank: 0 none, 1 cityblock, 2 sqeuclidean
+  long long* sidx;             // (s, k)
+  float* sval;                 // (s, k)
+  float* dist;                 // (s, k) or null
+};
+
+__device__ __forceinline__ bool key_less(float va, int ia, float vb, int ib) {
+  return va < vb || (va == vb && ia < ib);
+}
+
+// A queue entry: its selection score and its column.
+struct Key {
+  float v;
+  int i;
+};
+
+__device__ __forceinline__ bool key_less(Key a, Key b) { return key_less(a.v, a.i, b.v, b.i); }
+
+// One step of a bitonic network over N·32 keys held by a warp, element
+// e = 32·s + lane in slot s: e and e ^ stride compare-exchange, ascending
+// where e & size is 0.  Strides below 32 pair lanes (shuffles), the others
+// pair slots of one lane.
+template <int N>
+__device__ __forceinline__ void bitonic_step(Key (&x)[N], int size, int stride, int lane) {
+  if (stride >= 32) {
+    const int ds = stride >> 5;
+#pragma unroll
+    for (int s = 0; s < N; ++s)
+      if ((s & ds) == 0 && key_less(x[s + ds], x[s]) == (((32 * s) & size) == 0)) {
+        const Key t = x[s];
+        x[s] = x[s + ds];
+        x[s + ds] = t;
+      }
+  } else {
+#pragma unroll
+    for (int s = 0; s < N; ++s) {
+      const int e = 32 * s + lane;
+      const Key y{__shfl_xor_sync(kFull, x[s].v, stride), __shfl_xor_sync(kFull, x[s].i, stride)};
+      // the lower element of an ascending pair keeps the lesser key
+      const bool keep_less = ((e & stride) == 0) == ((e & size) == 0);
+      if (key_less(y, x[s]) == keep_less) x[s] = y;
+    }
+  }
+}
+
+// Merge a row's n buffered survivors (smem, unsorted) into its sorted queue
+// of 32·NQ (smem), by one warp in registers: a bitonic sort of the buffer,
+// the elementwise min of the queue and the reversed buffer (a rising then
+// falling sequence holding the 32·NQ least of both), a bitonic merge.
+// Returns the row's new threshold, the key of queue entry k − 1, in every
+// lane.
+template <int NQ>
+__device__ __noinline__ Key merge_row(float* qv, int* qi, const float* bv, const int* bi, int n,
+                                      int k, int lane) {
+  constexpr int NB = kBuf / 32;
+  Key b[NB], q[NQ];
+  __syncwarp();  // the buffer's entries, written by any lane, are in
+#pragma unroll
+  for (int s = 0; s < NB; ++s) {
+    const int e = 32 * s + lane;
+    b[s] = e < n ? Key{bv[e], bi[e]} : Key{INFINITY, kNone};
+  }
+#pragma unroll
+  for (int s = 0; s < NQ; ++s) q[s] = Key{qv[32 * s + lane], qi[32 * s + lane]};
+  __syncwarp();  // every lane has read the buffer before it is refilled
+#pragma unroll
+  for (int size = 2; size <= kBuf; size <<= 1)
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) bitonic_step<NB>(b, size, stride, lane);
+#pragma unroll
+  for (int s = 0; s < NQ; ++s) {
+    const int sb = NQ - 1 - s;  // queue entry 32s + l meets buffer entry 32·sb + 31 − l
+    if (sb < NB) {
+      const Key y{__shfl_sync(kFull, b[sb].v, 31 - lane), __shfl_sync(kFull, b[sb].i, 31 - lane)};
+      if (key_less(y, q[s])) q[s] = y;
+    }
+  }
+#pragma unroll
+  for (int stride = 16 * NQ; stride > 0; stride >>= 1)
+    bitonic_step<NQ>(q, 64 * NQ, stride, lane);
+  Key t{INFINITY, kNone};
+#pragma unroll
+  for (int s = 0; s < NQ; ++s) {
+    qv[32 * s + lane] = q[s].v;
+    qi[32 * s + lane] = q[s].i;
+    if (s == (k - 1) >> 5) t = q[s];
+  }
+  return Key{__shfl_sync(kFull, t.v, (k - 1) & 31), __shfl_sync(kFull, t.i, (k - 1) & 31)};
+}
+
+__device__ __forceinline__ Key merge_row(float* qv, int* qi, const float* bv, const int* bi,
+                                         int n, int k, int kq, int lane) {
+  switch (kq) {
+    case 32: return merge_row<1>(qv, qi, bv, bi, n, k, lane);
+    case 64: return merge_row<2>(qv, qi, bv, bi, n, k, lane);
+    case 128: return merge_row<4>(qv, qi, bv, bi, n, k, lane);
+    default: return merge_row<8>(qv, qi, bv, bi, n, k, lane);
+  }
+}
+
+// Named barriers: 0 is __syncthreads; the product warps' own per chunk;
+// per score-tile slot (up to 4), "full" (the product warps wrote it) and
+// "empty" (the selection warps are done with it).
+constexpr int kBarMma = 1, kBarFull = 2, kBarEmpty = 6;
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low 16 bits
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The ring's 16-byte granule g of candidate row `row` lies at granule
+// g ^ 4·(row & 1): the two rows a quarter-warp's fragment loads touch then
+// fill all 32 banks, with no padding.
+__device__ __forceinline__ int ring_at(int row, int granule) {
+  return row * kKC + ((granule ^ ((row & 1) << 2)) << 2);
+}
+
+// Candidate rows [c0, c0 + kBC) × d-chunk [k0, k0 + kKC) into one ring
+// slot; rows past C and columns past d are zero-filled.
+__device__ __forceinline__ void load_chunk(float* dst, const float* __restrict__ cands, int c0,
+                                           int k0, int n_c, int d, int tid) {
+#pragma unroll
+  for (int j = 0; j < kBC * (kKC / 4) / kMmaThreads; ++j) {
+    const int i = j * kMmaThreads + tid;
+    const int row = i / (kKC / 4), f4 = i % (kKC / 4);
+    const int col = c0 + row, k = k0 + f4 * 4;
+    const bool valid = col < n_c && k < d;
+    const float* src = valid ? cands + static_cast<size_t>(col) * d + k : cands;
+    cp_async16(dst + ring_at(row, f4), src, valid);
+  }
+}
+
+// This warp's piece of one d-chunk's products: its 32 columns of the tile
+// against its 16·kMT rows.  Fragment rows are g and g + 8 of each m-tile;
+// the k index of each group of 16 is permuted the same way for both operands
+// so every fragment row is one 16-byte shared load.
+template <bool kBf16>
+__device__ __forceinline__ void chunk_products(float (&acc)[kMT][4][4], const float* strip,
+                                               int l_stride, int koff, const float* rb, int wm,
+                                               int wn, int gq, int tq) {
+#pragma unroll
+  for (int kk = 0; kk < kKC; kk += 16) {
+    float4 av[kMT][2], bv[4];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        av[mt][h] = *reinterpret_cast<const float4*>(
+            strip + (wm * 16 * kMT + mt * 16 + h * 8 + gq) * l_stride + koff + kk + tq * 4);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+      bv[nt] = *reinterpret_cast<const float4*>(rb + ring_at(wn * 32 + nt * 8 + gq, kk / 4 + tq));
+    if constexpr (kBf16) {
+      // m16n8k16: a = (g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..);
+      // b = (2t..2t+1, g), (2t+8.., g); logical k 2t, 2t+1, 2t+8, 2t+9 are
+      // d = kk + 4t + 0, 1, 2, 3
+      uint32_t a[kMT][4], b[4][2];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        a[mt][0] = pack_bf16(av[mt][0].x, av[mt][0].y);
+        a[mt][1] = pack_bf16(av[mt][1].x, av[mt][1].y);
+        a[mt][2] = pack_bf16(av[mt][0].z, av[mt][0].w);
+        a[mt][3] = pack_bf16(av[mt][1].z, av[mt][1].w);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        b[nt][0] = pack_bf16(bv[nt].x, bv[nt].y);
+        b[nt][1] = pack_bf16(bv[nt].z, bv[nt].w);
+      }
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          mma_bf16(acc[mt][nt], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b[nt][0], b[nt][1]);
+    } else {
+      // m16n8k8: k-slots t and t+4 of the first k-step are d = kk+4t+{0,1},
+      // of the second d = kk+4t+{2,3}
+      uint32_t ab[kMT][2][4], as[kMT][2][4], bb[4][4], bs[4][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          split_tf32(av[mt][h].x, ab[mt][h][0], as[mt][h][0]);
+          split_tf32(av[mt][h].y, ab[mt][h][1], as[mt][h][1]);
+          split_tf32(av[mt][h].z, ab[mt][h][2], as[mt][h][2]);
+          split_tf32(av[mt][h].w, ab[mt][h][3], as[mt][h][3]);
+        }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        split_tf32(bv[nt].x, bb[nt][0], bs[nt][0]);
+        split_tf32(bv[nt].y, bb[nt][1], bs[nt][1]);
+        split_tf32(bv[nt].z, bb[nt][2], bs[nt][2]);
+        split_tf32(bv[nt].w, bb[nt][3], bs[nt][3]);
+      }
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        const int k0 = 2 * ks, k1 = 2 * ks + 1;  // the small terms first, then big·big
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            mma_tf32(acc[mt][nt], ab[mt][0][k0], ab[mt][1][k0], ab[mt][0][k1], ab[mt][1][k1],
+                     bs[nt][k0], bs[nt][k1]);
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            mma_tf32(acc[mt][nt], as[mt][0][k0], as[mt][1][k0], as[mt][0][k1], as[mt][1][k1],
+                     bb[nt][k0], bb[nt][k1]);
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            mma_tf32(acc[mt][nt], ab[mt][0][k0], ab[mt][1][k0], ab[mt][0][k1], ab[mt][1][k1],
+                     bb[nt][k0], bb[nt][k1]);
+      }
+    }
+  }
+}
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, 1)
+shortlist_select_kernel(SelectArgs p, int n_slots) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float thv[kBQ];  // each row's threshold: the key (value, column)
+  __shared__ int thi[kBQ];    // of its queue's entry k − 1, +inf until it fills
+  __shared__ int cnt[kBQ];    // each row's buffered survivors
+  const int d_pad = (p.d + kKC - 1) / kKC * kKC;
+  const int l_stride = d_pad + kPad;
+  const int kq = p.kq;
+  float* strip = smem;                                  // [kBQ][l_stride]
+  float* ring = strip + kBQ * l_stride;                 // [kStages][kBC][kKC]
+  float* tiles = ring + kStages * kBC * kKC;            // [n_slots][kBQ][kTStride]
+  float* qv = tiles + n_slots * kBQ * kTStride;         // [kBQ][kq]
+  int* qi = reinterpret_cast<int*>(qv + kBQ * kq);      // [kBQ][kq]
+  float* bv = reinterpret_cast<float*>(qi + kBQ * kq);  // [kBQ][kBuf]
+  int* bi = reinterpret_cast<int*>(bv + kBQ * kBuf);    // [kBQ][kBuf]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * kBQ;
+  const int n_rows = min(kBQ, p.s - q0);
+  const int n_tiles = (p.c + kBC - 1) / kBC;
+  const int nkc = d_pad / kKC;
+
+  // the product warps' loads run kStages - 1 chunks ahead of their products
+  int ld_left = n_tiles * nkc, ld_slot = 0, ld_tile = 0, ld_kc = 0;
+  auto load_next = [&]() {
+    if (ld_left > 0) {
+      load_chunk(ring + ld_slot * kBC * kKC, p.cands, ld_tile * kBC, ld_kc * kKC, p.c, p.d,
+                 tid);
+      --ld_left;
+      if (++ld_kc == nkc) {
+        ld_kc = 0;
+        ++ld_tile;
+      }
+      if (++ld_slot == kStages) ld_slot = 0;
+    }
+    cp_async_commit();
+  };
+  if (warp < kMmaWarps) {
+#pragma unroll
+    for (int st = 0; st < kStages - 1; ++st) load_next();
+  }
+
+  // the query rows in fp32, zero past S and past d; empty queues
+  const int per_row = d_pad / 4;
+  for (int i = tid; i < kBQ * per_row; i += kThreads) {
+    const int r = i / per_row, k = (i % per_row) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < n_rows && k < p.d)
+      v = __ldg(reinterpret_cast<const float4*>(p.q + static_cast<size_t>(q0 + r) * p.d + k));
+    *reinterpret_cast<float4*>(strip + r * l_stride + k) = v;
+  }
+  for (int i = tid; i < kBQ * kq; i += kThreads) {
+    qv[i] = INFINITY;
+    qi[i] = kNone;
+  }
+  if (tid < kBQ) {
+    thv[tid] = INFINITY;
+    thi[tid] = kNone;
+    cnt[tid] = 0;
+  }
+  __syncthreads();
+
+  if (warp < kMmaWarps) {
+    // product warps: each score tile into a slot of shared memory
+    const int gq = lane >> 2, tq = lane & 3;  // mma fragment coordinates
+    const int wm = warp / kWarpsN, wn = warp % kWarpsN;
+    auto row_of = [&](int i) { return wm * 16 * kMT + (i >> 1) * 16 + (i & 1) * 8 + gq; };
+    float row_q2[kRows];
+    long long row_ex[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int r = row_of(i);
+      row_q2[i] = r < n_rows ? __ldg(p.q2 + q0 + r) : 0.f;
+      row_ex[i] = r < n_rows && p.exclude != nullptr ? __ldg(p.exclude + q0 + r) : -1;
+    }
+    int slot = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int c0 = t * kBC;
+      float acc[kMT][4][4] = {};
+      for (int kc = 0; kc < nkc; ++kc) {
+        cp_async_wait<kStages - 2>();
+        bar_sync(kBarMma, kMmaThreads);  // this chunk is in; the oldest slot is free
+        load_next();
+        chunk_products<kBf16>(acc, strip, l_stride, kc * kKC, ring + slot * kBC * kKC, wm, wn,
+                              gq, tq);
+        if (++slot == kStages) slot = 0;
+      }
+      // the epilogue: norms, a, bias, mask and exclusion, into a slot for
+      // the selection warps (which skip the columns past C)
+      float c2[8], b[8];
+      bool ok[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = c0 + wn * 32 + (j >> 1) * 8 + tq * 2 + (j & 1);
+        const bool in = col < p.c;
+        ok[j] = in && (p.col_mask == nullptr || __ldg(p.col_mask + col) != 0);
+        c2[j] = in ? __ldg(p.c2 + col) : 0.f;
+        b[j] = in && p.bias != nullptr ? __ldg(p.bias + col) : 0.f;
+      }
+      const int ts = t % n_slots;
+      if (t >= n_slots) bar_sync(kBarEmpty + ts, kThreads);
+      float* tile = tiles + ts * kBQ * kTStride;
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          float v[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int j = 2 * nt + h;
+            const float raw = __fmaf_rn(-2.f, acc[i >> 1][nt][(i & 1) * 2 + h], row_q2[i] + c2[j]);
+            const int col = c0 + wn * 32 + nt * 8 + tq * 2 + h;
+            v[h] = ok[j] && col != row_ex[i] ? __fmaf_rn(p.a, raw, -b[j]) : INFINITY;
+          }
+          *reinterpret_cast<float2*>(tile + row_of(i) * kTStride + wn * 32 + nt * 8 + tq * 2) =
+              make_float2(v[0], v[1]);
+        }
+      bar_arrive(kBarFull + ts, kThreads);
+    }
+    cp_async_wait<0>();
+  } else {
+    // selection warps: each owns kSelRows rows' queues, thresholds and
+    // buffers, so no other warp waits on its merges.  Lane l scans columns
+    // 4l .. 4l + 3 of each of its rows.
+    const int r0 = (warp - kMmaWarps) * kSelRows;
+    const int r1 = min(r0 + kSelRows, n_rows);
+    const unsigned below = (1u << lane) - 1;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int c0 = t * kBC + 4 * lane, ts = t % n_slots;
+      bar_sync(kBarFull + ts, kThreads);
+      const float* tile = tiles + ts * kBQ * kTStride + 4 * lane;
+#pragma unroll 1
+      for (int r = r0; r < r1; ++r) {
+        const float4 v4 = *reinterpret_cast<const float4*>(tile + r * kTStride);
+        const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+        float tv = thv[r];
+        int ti = thi[r];
+        bool pass[4];
+#pragma unroll
+        for (int h = 0; h < 4; ++h) pass[h] = c0 + h < p.c && key_less(v[h], c0 + h, tv, ti);
+        if (!__any_sync(kFull, pass[0] || pass[1] || pass[2] || pass[3])) continue;
+        float* rbv = bv + r * kBuf;
+        int* rbi = bi + r * kBuf;
+        int n = cnt[r];
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          for (;;) {
+            const unsigned ball = __ballot_sync(kFull, pass[h]);
+            if (ball == 0) break;
+            const int pos = n + __popc(ball & below);
+            if (pass[h] && pos < kBuf) {
+              rbv[pos] = v[h];
+              rbi[pos] = c0 + h;
+              pass[h] = false;
+            }
+            n = min(kBuf, n + __popc(ball));
+            if (n < kBuf) break;
+            // a full buffer: merge it, and hold what waits to the new threshold
+            const Key th = merge_row(qv + r * kq, qi + r * kq, rbv, rbi, kBuf, p.k, kq, lane);
+            tv = th.v;
+            ti = th.i;
+            n = 0;
+#pragma unroll
+            for (int h2 = h; h2 < 4; ++h2) pass[h2] = pass[h2] && key_less(v[h2], c0 + h2, tv, ti);
+          }
+        }
+        __syncwarp();  // every lane has read the row's state
+        if (lane == 0) {
+          thv[r] = tv;
+          thi[r] = ti;
+          cnt[r] = n;
+        }
+        __syncwarp();
+      }
+      if (t + n_slots < n_tiles) bar_arrive(kBarEmpty + ts, kThreads);
+    }
+    for (int r = r0; r < r1; ++r)
+      if (cnt[r] > 0)
+        merge_row(qv + r * kq, qi + r * kq, bv + r * kBuf, bi + r * kBuf, cnt[r], p.k, kq, lane);
+  }
+  __syncthreads();
+
+  for (int i = tid; i < n_rows * p.k; i += kThreads) {
+    const int r = i / p.k, j = i % p.k;
+    const size_t o = static_cast<size_t>(q0 + r) * p.k + j;
+    p.sidx[o] = qi[r * kq + j];
+    p.sval[o] = qv[r * kq + j];
+  }
+  if (p.rerank == 0) return;
+  const float4* tab = reinterpret_cast<const float4*>(p.cands);
+  for (int r = warp; r < n_rows; r += kWarps) {
+    const float4* qrow = reinterpret_cast<const float4*>(strip + r * l_stride);
+    const int* rq = qi + r * kq;
+    float* orow = p.dist + static_cast<size_t>(q0 + r) * p.k;
+    if (p.rerank == 2)
+      row_dists<true, kRerankRows>(qrow, tab, p.d / 4, p.k, [&](int u) { return rq[u]; }, orow,
+                                   lane);
+    else
+      row_dists<false, kRerankRows>(qrow, tab, p.d / 4, p.k, [&](int u) { return rq[u]; }, orow,
+                                    lane);
+  }
+}
+
+size_t select_smem(int d, int kq, int n_slots) {
+  const int d_pad = (d + kKC - 1) / kKC * kKC;
+  return sizeof(float) * (static_cast<size_t>(kBQ) * (d_pad + kPad) +
+                          static_cast<size_t>(kStages) * kBC * kKC +
+                          static_cast<size_t>(n_slots) * kBQ * kTStride) +
+         (sizeof(float) + sizeof(int)) * kBQ * static_cast<size_t>(kq + kBuf);
+}
+
+// As many score-tile slots as fit, up to 4: they absorb the selection
+// warps' bursts of merges.
+template <bool kBf16>
+int launch_select(const SelectArgs& a, size_t room, cudaStream_t stream) {
+  int n_slots = 4;
+  while (n_slots > 1 && select_smem(a.d, a.kq, n_slots) > room) --n_slots;
+  const size_t smem = select_smem(a.d, a.kq, n_slots);
+  if (smem > room) return cudaErrorInvalidValue;
+  auto kern = shortlist_select_kernel<kBf16>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<(a.s + kBQ - 1) / kBQ, kThreads, smem, stream>>>(a, n_slots);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -130,6 +688,39 @@ extern "C" int shortlist_dist_forward(const float* q, const float* table, const 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (s <= 0 || k <= 0) return cudaSuccess;
   if (d < 0) return cudaErrorInvalidValue;  // d = 0 writes zeros
-  return sq ? launch<true>(q, table, idx, out, s, k, d, st)
-            : launch<false>(q, table, idx, out, s, k, d, st);
+  return sq ? launch_gather<true>(q, table, idx, out, s, k, d, st)
+            : launch_gather<false>(q, table, idx, out, s, k, d, st);
+}
+
+// The select-and-rerank launch.  q (s, d), cands (c, d), q2 (s,), c2 (c,)
+// float32; bias (c,) float32, col_mask (c,) uint8 and exclude (s,) int64
+// may be null; all contiguous, 16-byte aligned, d % 4 == 0, 4 ≤ d ≤ 512;
+// 1 ≤ k ≤ min(kq, c), kq a power of two in [32, 256].  bf16 = 1
+// rounds both operands of the product to bf16.  rerank: 0 none, 1
+// cityblock, 2 sqeuclidean (dist may then be null).  Writes sidx (s, k)
+// int64, sval (s, k) and dist (s, k) float32.  One kernel launch; returns
+// its cudaError_t (0 on success).
+extern "C" int shortlist_select_forward(const float* q, const float* cands, const float* q2,
+                                        const float* c2, const float* bias,
+                                        const uint8_t* col_mask, const long long* exclude,
+                                        float a, int s, int c, int d, int k, int kq, int bf16,
+                                        int rerank, long long* sidx, float* sval, float* dist,
+                                        void* stream) {
+  if (s <= 0) return cudaSuccess;
+  if (d < 4 || d > 512 || d % 4 != 0 || k < 1 || k > kq || kq < 32 || kq > 256 ||
+      (kq & (kq - 1)) != 0 || k > c || rerank < 0 || rerank > 2 ||
+      (rerank != 0 && dist == nullptr))
+    return cudaErrorInvalidValue;
+  cudaError_t err;
+  int dev = 0, limit = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+      cudaSuccess)
+    return err;
+  const size_t room = static_cast<size_t>(limit) - (2 * sizeof(float) + sizeof(int)) * kBQ;
+  if (select_smem(d, kq, 1) > room) return cudaErrorInvalidValue;
+  const SelectArgs args{q, cands, q2, c2, bias, col_mask, exclude, a, s, c, d, k, kq,
+                        rerank, sidx, sval, dist};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_select<true>(args, room, st) : launch_select<false>(args, room, st);
 }

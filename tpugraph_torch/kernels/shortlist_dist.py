@@ -1,24 +1,48 @@
-"""Gathered shortlist distances: the exact rerank that the approximate
-search paths share.
+"""The shortlist kernels that the approximate search paths share.
 
-    out[i, j] = Σ_c f(q[i, c] − table[idx[i, j], c]),
-    f = |·| (``metric="cityblock"``) or (·)² (``"sqeuclidean"``)
+Select and rerank (``shortlist_select``): for queries q (S, d) against
+candidates (C, d), both float32,
 
-q (S, d) float32, table (C, d) float32, idx (S, K) int64 in [0, C),
-out (S, K) float32.  The JAX package has no Pallas kernel here: its
-approximate paths gather each query's shortlisted rows into a
-(block_q, K, d) tensor and reduce it, as XLA ops
-(``tpugraph/train/negatives.py:179-180`` and ``:261-262``,
-``train/bootstrap.py:132-137``, ``train/eval.py:158-159``,
-``serve.py:87-88``).
+    sel[i, j]  = ‖q_i‖² + c2[j] − 2·q_i·c_j        (the expanded form, not clamped)
+    sel[i, j]  = a·sel[i, j] − bias[j]             (CSLS: a = 2, bias = r_sel)
+    sel[i, j]  = +inf where col_mask[j] is false or j == exclude[i]
+    sidx[i, :] = the k columns of least sel, ascending by (sel, column)
+    sval[i, :] = sel at those columns
+    dist[i, :] = Σ_c f(q[i, c] − cands[sidx[i, :], c]),
+                 f = |·| (``rerank="cityblock"``) or (·)² (``"sqeuclidean"``)
 
-* ``shortlist_dist`` — on a CUDA tensor one launch of the hand-written
-  Hopper kernel ``csrc/shortlist_dist.cu``, which never stores the
-  gathered rows; on a CPU tensor the plain version.  It never falls back
-  from the card.
-* ``shortlist_dist_plain`` — the plain version: gathers a block of queries
-  at a time (at most ``PLAIN_BLOCK_ELEMS`` gathered values) and applies
-  ``train/losses.py::pairwise_l1`` or the squared form.
+with ``bf16=True`` rounding both operands of the product to bf16 (the
+norms stay those of the unrounded rows).  The JAX package runs this as XLA
+ops and ``lax.approx_min_k`` (``tpugraph/train/negatives.py:178`` and
+``:260-262``, ``train/bootstrap.py:125-137``, ``train/eval.py:112-159``,
+``serve.py:85-88``); ``approx_min_k`` is exact on the CPU, where its order
+is ``lax.top_k``'s.
+
+* ``select_rerank`` — what the callers call.  On a CUDA tensor with
+  ``k ≤ QUEUE_MAX`` it is one launch of ``shortlist_select``'s kernel over
+  every query.  A larger ``k`` takes the unfused route, chosen on the shape
+  before any launch: a (4,096, C) selection tile per query block,
+  ``torch.topk``, then the gather kernel ``shortlist_dist``.  On a CPU tensor
+  it is the plain version.
+* ``shortlist_select`` — on a CUDA tensor one launch of the hand-written
+  Hopper kernel ``csrc/shortlist_dist.cu::shortlist_select_forward``, which
+  never writes an (S, C) tile; on a CPU tensor ``shortlist_select_plain``.
+  It refuses (``ValueError``) a ``k`` above ``QUEUE_MAX`` and a width it
+  lacks (d % 4 != 0 or d > ``SELECT_MAX_D``), and (``TypeError``) any
+  operand that is not float32.
+* ``shortlist_select_plain`` — the plain version: per block of
+  ``PLAIN_BLOCK_Q`` queries the fp32 (or bf16-rounded) product tile, the
+  bias and masks, the k least by ``torch.topk`` with ties at the k-th value
+  taken in column order, sorted by (sel, column), then
+  ``shortlist_dist_plain``.
+* ``shortlist_dist`` — the gathered distances alone for a shortlist the
+  caller holds, ``out[i, j] = Σ_c f(q[i, c] − table[idx[i, j], c])``: on a
+  CUDA tensor one launch of ``csrc/shortlist_dist.cu::shortlist_dist_forward``,
+  which never stores the gathered rows; on a CPU tensor
+  ``shortlist_dist_plain`` (a block of queries' rows gathered into a
+  (rows, K, d) tensor, at most ``PLAIN_BLOCK_ELEMS`` values, and reduced).
+
+No wrapper falls back from the card.
 """
 
 from __future__ import annotations
@@ -32,9 +56,14 @@ from tpugraph_torch.train.losses import pairwise_l1
 
 METRICS = ("cityblock", "sqeuclidean")
 PLAIN_BLOCK_ELEMS = 1 << 26  # 256 MB of fp32 per gathered (rows, K, d) block
+PLAIN_BLOCK_Q = 4096  # queries per plain selection tile: 311 MB at 19,000 candidates
+QUEUE_MAX = 256  # the select kernel's largest per-row queue
+SELECT_MAX_D = 512  # the query rows and queues fill up to 166 KB of shared memory at 512
 
-# kernel launches since the process started (or the caller last reset it)
+# kernel launches since the process started (or the caller last reset
+# them): the gather kernel's, and the select-and-rerank kernel's
 launches = 0
+select_launches = 0
 
 
 def check_metric(metric: str) -> None:
@@ -66,6 +95,15 @@ def _lib():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _select_lib():
+    fn = _build.load("shortlist_dist").shortlist_select_forward
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_float, i, i, i, i, i, i, i, p, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -107,3 +145,150 @@ def shortlist_dist(q: torch.Tensor, table: torch.Tensor, idx: torch.Tensor,
     global launches
     launches += 1
     return out
+
+
+def sq_norms(x: torch.Tensor) -> torch.Tensor:
+    """Row squared norms in fp32, the ‖·‖² terms of the expanded form."""
+    x = x.float()
+    return (x * x).sum(1)
+
+
+def queue_len(k: int) -> int:
+    """The select kernel's per-row queue for k entries: a power of two ≥ 32."""
+    return max(32, 1 << (k - 1).bit_length())
+
+
+def _least_k(sel: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(columns, values) of the k least entries of each row, ascending by
+    (value, column): ``torch.topk`` gives the k-th value; the entries equal
+    to it are taken in column order."""
+    kth = torch.topk(sel, k, dim=1, largest=False, sorted=True).values[:, -1:]
+    below = sel < kth
+    tied = sel == kth
+    need = k - below.sum(1, keepdim=True)
+    take = below | (tied & (tied.cumsum(1, dtype=torch.int32) <= need))
+    cols = take.nonzero()[:, 1].view(sel.shape[0], k)  # ascending columns per row
+    vals, order = torch.sort(sel.gather(1, cols), dim=1, stable=True)
+    return cols.gather(1, order), vals
+
+
+def _select_blocked(q, cands, k, dist_fn, q2=None, c2=None, a=1.0, bias=None, col_mask=None,
+                    exclude=None, bf16=False, rerank=None):
+    """The selection by product tiles of ``PLAIN_BLOCK_Q`` queries, then
+    ``dist_fn`` (the gather kernel or its plain version) for the rerank."""
+    s, c = q.shape[0], cands.shape[0]
+    q2 = sq_norms(q) if q2 is None else q2
+    c2 = sq_norms(cands) if c2 is None else c2
+    ct = (cands.to(torch.bfloat16) if bf16 else cands).float().t()
+    col_ids = torch.arange(c, device=q.device)
+    sidx = torch.empty((s, k), dtype=torch.int64, device=q.device)
+    sval = torch.empty((s, k), dtype=torch.float32, device=q.device)
+    for r0 in range(0, s, PLAIN_BLOCK_Q):
+        qq = q[r0:r0 + PLAIN_BLOCK_Q]
+        qa = (qq.to(torch.bfloat16) if bf16 else qq).float()
+        sel = q2[r0:r0 + PLAIN_BLOCK_Q, None] + c2[None, :] - 2.0 * (qa @ ct)
+        if bias is not None:
+            sel = a * sel - bias[None, :]
+        elif a != 1.0:
+            sel = a * sel
+        if col_mask is not None:
+            sel.masked_fill_(~col_mask[None, :], float("inf"))
+        if exclude is not None:
+            sel.masked_fill_(col_ids[None, :] == exclude[r0:r0 + PLAIN_BLOCK_Q, None],
+                             float("inf"))
+        sidx[r0:r0 + PLAIN_BLOCK_Q], sval[r0:r0 + PLAIN_BLOCK_Q] = _least_k(sel, k)
+    dist = None if rerank is None else dist_fn(q, cands, sidx, rerank)
+    return sidx, sval, dist
+
+
+def shortlist_select_plain(q: torch.Tensor, cands: torch.Tensor, k: int, **opts):
+    """The plain version of ``shortlist_select`` (the composite the kernel
+    replaces): (sidx, sval, dist or None)."""
+    if opts.get("rerank") is not None:
+        check_metric(opts["rerank"])
+    return _select_blocked(q, cands, k, shortlist_dist_plain, **opts)
+
+
+def _check_select(q, cands, k, q2, c2, bias, col_mask, exclude) -> None:
+    if q.dim() != 2 or cands.dim() != 2 or q.shape[1] != cands.shape[1]:
+        raise ValueError(f"q (S, d) and cands (C, d) must share d, got {tuple(q.shape)}, "
+                         f"{tuple(cands.shape)}")
+    s, c, d = q.shape[0], cands.shape[0], q.shape[1]
+    if not 1 <= k <= min(c, QUEUE_MAX):
+        raise ValueError(f"the select kernel takes 1 ≤ k ≤ min(C, {QUEUE_MAX}), got k = {k}, "
+                         f"C = {c}")
+    if d % 4 != 0 or not 4 <= d <= SELECT_MAX_D:
+        raise ValueError(f"the select kernel takes d % 4 == 0 and 4 ≤ d ≤ {SELECT_MAX_D}, "
+                         f"got d = {d}")
+    for name, t, n, dtype in (("q", q, None, torch.float32),
+                              ("cands", cands, None, torch.float32),
+                              ("q2", q2, s, torch.float32), ("c2", c2, c, torch.float32),
+                              ("bias", bias, c, torch.float32),
+                              ("col_mask", col_mask, c, torch.bool),
+                              ("exclude", exclude, s, torch.int64)):
+        if t is None:
+            continue
+        if t.dtype != dtype:
+            raise TypeError(f"the select kernel takes {name} as {dtype}, got {t.dtype}")
+        if n is not None and tuple(t.shape) != (n,):
+            raise ValueError(f"{name} must be ({n},), got {tuple(t.shape)}")
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous and on {q.device}")
+        if n is None and t.data_ptr() % 16:
+            raise ValueError(f"{name}'s rows must start 16-byte aligned")
+
+
+def shortlist_select(q: torch.Tensor, cands: torch.Tensor, k: int, *,
+                     q2: torch.Tensor | None = None, c2: torch.Tensor | None = None,
+                     a: float = 1.0, bias: torch.Tensor | None = None,
+                     col_mask: torch.Tensor | None = None, exclude: torch.Tensor | None = None,
+                     bf16: bool = False, rerank: str | None = None):
+    """(sidx (S, k) int64, sval (S, k) float32, dist (S, k) float32 or None):
+    the k least columns by the selection score, ascending by (sel, column),
+    and with ``rerank`` each entry's exact distance.  The kernel on a CUDA
+    tensor (one launch), ``shortlist_select_plain`` on a CPU tensor."""
+    opts = dict(q2=q2, c2=c2, a=a, bias=bias, col_mask=col_mask, exclude=exclude, bf16=bf16,
+                rerank=rerank)
+    if rerank is not None:
+        check_metric(rerank)
+    if q.device.type == "cpu":
+        return shortlist_select_plain(q, cands, k, **opts)
+    _check_select(q, cands, k, q2, c2, bias, col_mask, exclude)
+    if q.device.type != "cuda":
+        raise ValueError(f"shortlist_select runs on cuda or cpu, not {q.device}")
+    s = q.shape[0]
+    q2 = sq_norms(q) if q2 is None else q2
+    c2 = sq_norms(cands) if c2 is None else c2
+    sidx = torch.empty((s, k), dtype=torch.int64, device=q.device)
+    sval = torch.empty((s, k), dtype=torch.float32, device=q.device)
+    dist = None if rerank is None else torch.empty_like(sval)
+    if s == 0:
+        return sidx, sval, dist
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    index = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    err = _select_lib()(
+        q.data_ptr(), cands.data_ptr(), q2.data_ptr(), c2.data_ptr(), ptr(bias),
+        ptr(None if col_mask is None else col_mask.view(torch.uint8)), ptr(exclude), float(a), s,
+        cands.shape[0], q.shape[1], k, queue_len(k), int(bf16),
+        0 if rerank is None else 1 + METRICS.index(rerank), sidx.data_ptr(), sval.data_ptr(),
+        ptr(dist), torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(f"shortlist_select launch failed with CUDA error {err}")
+    global select_launches
+    select_launches += 1
+    return sidx, sval, dist
+
+
+def select_rerank(q: torch.Tensor, cands: torch.Tensor, k: int, **opts):
+    """The callers' entry, with ``shortlist_select``'s options and result.
+    On a CUDA tensor a ``k`` above ``QUEUE_MAX`` takes the unfused route
+    (product tiles, ``torch.topk``, the gather kernel ``shortlist_dist``);
+    the choice is made on the shape, before any launch."""
+    if q.device.type == "cuda" and k > QUEUE_MAX:
+        if opts.get("rerank") is not None:
+            check_metric(opts["rerank"])
+        return _select_blocked(q, cands, k, shortlist_dist, **opts)
+    return shortlist_select(q, cands, k, **opts)

@@ -6,10 +6,9 @@
   candidate's hubness over the query pool (``train/negatives.py``).
   ``approx_k > 0`` searches within a shortlist per query instead
   (``_topk_prefiltered``): the ``max(approx_k, k)`` nearest by the
-  sqeuclidean score (one fp32 product per block of 4,096 queries, then an
-  exact ``torch.topk``, where the JAX package's ``approx_min_k`` is
-  approximate on the TPU), rescored in exact L1 by the shortlist kernel
-  (``kernels/shortlist_dist.py``);
+  sqeuclidean score, selected exactly (the JAX package's ``approx_min_k``
+  is approximate on the TPU) and rescored in exact L1 in the same
+  select-and-rerank call (``kernels/shortlist_dist.py::select_rerank``);
 * ``export_alignments`` — bulk predictions to a TSV of rank lists;
 * ``save_embeddings`` / ``load_embeddings`` — the table via ``torch.save``.
 """
@@ -22,10 +21,9 @@ import numpy as np
 import torch
 
 from tpugraph_torch import resolve_device
-from tpugraph_torch.kernels.shortlist_dist import shortlist_dist
-from tpugraph_torch.train.eval import dist_tile, sq_norms
+from tpugraph_torch.kernels.shortlist_dist import select_rerank
 from tpugraph_torch.train.losses import pairwise_l1
-from tpugraph_torch.train.negatives import APPROX_BLOCK_Q, _cand_hubness, _hubness_both_approx
+from tpugraph_torch.train.negatives import _cand_hubness, _hubness_both_approx
 
 
 BLOCK_Q = 256  # queries per block: (256, 2048, 128) fp32 is 268 MB
@@ -65,8 +63,7 @@ def _topk_blockwise(q: torch.Tensor, cands: torch.Tensor, k: int, block_c: int =
 
 
 def _topk_prefiltered(q: torch.Tensor, cands: torch.Tensor, k: int, approx_k: int,
-                      csls_k: int = 0,
-                      block_q: int = APPROX_BLOCK_Q) -> tuple[torch.Tensor, torch.Tensor]:
+                      csls_k: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """(values, candidate positions), each (Q, k), best first, within a
     shortlist of kk = min(C, max(approx_k, k)) candidates per query,
     selected by the sqeuclidean score (2·d₂ − r₂(j) with CSLS) and scored in
@@ -75,28 +72,19 @@ def _topk_prefiltered(q: torch.Tensor, cands: torch.Tensor, k: int, approx_k: in
     gives; a pool smaller than k pads with inf-valued entries at position 0,
     as the JAX path does."""
     q, cands = q.contiguous(), cands.contiguous()
-    s, c = q.shape[0], cands.shape[0]
-    kk = min(c, max(approx_k, k))
+    kk = min(cands.shape[0], max(approx_k, k))
+    csls = {}
     if csls_k > 0:
         r_sel, r_score = _hubness_both_approx(q, cands, csls_k)
-    c2 = sq_norms(cands)
-    vals = torch.empty((s, k), dtype=torch.float32, device=q.device)
-    idx = torch.empty((s, k), dtype=torch.int64, device=q.device)
-    for q0 in range(0, s, block_q):
-        qq = q[q0:q0 + block_q]
-        sel = dist_tile(qq, cands, "sqeuclidean", c2=c2)
-        if csls_k > 0:
-            sel = 2.0 * sel - r_sel[None, :]
-        sidx = torch.topk(sel, kk, dim=1, largest=False).indices
-        score = shortlist_dist(qq, cands, sidx, "cityblock")
-        if csls_k > 0:
-            score = 2.0 * score - r_score[sidx]
-        if kk < k:
-            score = torch.cat([score, score.new_full((score.shape[0], k - kk), float("inf"))], 1)
-            sidx = torch.cat([sidx, sidx.new_zeros((sidx.shape[0], k - kk))], 1)
-        sv, pos = torch.sort(score, dim=1, stable=True)
-        vals[q0:q0 + block_q], idx[q0:q0 + block_q] = sv[:, :k], sidx.gather(1, pos[:, :k])
-    return vals, idx
+        csls = dict(a=2.0, bias=r_sel)
+    sidx, _, score = select_rerank(q, cands, kk, rerank="cityblock", **csls)
+    if csls_k > 0:
+        score = 2.0 * score - r_score[sidx]
+    if kk < k:
+        score = torch.cat([score, score.new_full((score.shape[0], k - kk), float("inf"))], 1)
+        sidx = torch.cat([sidx, sidx.new_zeros((sidx.shape[0], k - kk))], 1)
+    vals, pos = torch.sort(score, dim=1, stable=True)
+    return vals[:, :k], sidx.gather(1, pos[:, :k])
 
 
 def topk_alignments(

@@ -9,24 +9,23 @@ stateless: recomputed from the current embeddings each interval.
 
 The exact nearest neighbour (L1 or sqeuclidean) is blocked over queries and
 candidates (``eval.dist_tile``).  ``approx=True`` (``boot_approx``)
-shortlists 16 candidates per query from a selection tile whose product
-takes both operands rounded to bf16 (then multiplied in fp32, which is
-exact for bf16 products, with TF32 off as it is by default; the norms come
-from the unrounded rows), as the JAX package's bf16 product with fp32
-output does, then takes the nearest within the shortlist in the exact
-metric through the shortlist kernel (``kernels/shortlist_dist.py``).  The
-JAX package selects with ``lax.approx_min_k`` (approximate on the TPU,
-exact on the CPU); the port selects exactly with ``torch.topk``.
+shortlists 16 candidates per query by a selection score whose product
+takes both operands rounded to bf16 (products of bf16 values are exact in
+fp32; the norms come from the unrounded rows), as the JAX package's bf16
+product with fp32 output does, and takes the nearest within the shortlist
+in the exact metric, both in one select-and-rerank call
+(``kernels/shortlist_dist.py::select_rerank``).  The JAX package selects
+with ``lax.approx_min_k`` (approximate on the TPU, exact on the CPU); the
+port selects exactly.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpugraph_torch.kernels.shortlist_dist import check_metric, shortlist_dist
+from tpugraph_torch.kernels.shortlist_dist import check_metric, select_rerank
 from tpugraph_torch.train.eval import BLOCK_Q, dist_tile, sq_norms
-from tpugraph_torch.train.negatives import (APPROX_BLOCK_Q, _cand_hubness,
-                                            _hubness_both_approx)
+from tpugraph_torch.train.negatives import _cand_hubness, _hubness_both_approx
 
 
 def _nn1(q: torch.Tensor, cands: torch.Tensor, c_mask: torch.Tensor, block_c: int = 1024,
@@ -56,37 +55,27 @@ def _nn1(q: torch.Tensor, cands: torch.Tensor, c_mask: torch.Tensor, block_c: in
 
 
 def _nn1_prefiltered(q: torch.Tensor, cands: torch.Tensor, c_mask: torch.Tensor,
-                     metric: str = "cityblock", block_q: int = APPROX_BLOCK_Q,
-                     k_short: int = 16, csls_k: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+                     metric: str = "cityblock", k_short: int = 16,
+                     csls_k: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """The nearest eligible candidate within a shortlist of ``k_short``.
     Ineligible candidates are masked before selection, so the shortlist is
     all eligible where the pool allows; the rerank scores the exact metric
     (cityblock, or sqeuclidean in fp32).  csls_k > 0: the selection scores
     2·d₂ − r₂(j) and the rerank 2·d − r(j), r the L1 hubness for cityblock
     (both from ``_hubness_both_approx``)."""
-    c = cands.shape[0]
-    k_short = min(c, k_short)
-    c2 = sq_norms(cands)
-    c16 = cands.to(torch.bfloat16).float()  # the selection product's operand
+    k_short = min(cands.shape[0], k_short)
+    csls = {}
     if csls_k > 0:
         r_sel, r_l1 = _hubness_both_approx(q, cands, csls_k)
         r_score = r_l1 if metric == "cityblock" else r_sel
-    vals = torch.empty(q.shape[0], dtype=torch.float32, device=q.device)
-    idx = torch.empty(q.shape[0], dtype=torch.int64, device=q.device)
-    for q0 in range(0, q.shape[0], block_q):
-        qq = q[q0:q0 + block_q]
-        d2 = sq_norms(qq)[:, None] + c2[None, :] - 2.0 * (qq.to(torch.bfloat16).float() @ c16.t())
-        if csls_k > 0:
-            d2 = 2.0 * d2 - r_sel[None, :]
-        d2.masked_fill_(~c_mask[None, :], float("inf"))
-        sidx = torch.topk(d2, k_short, dim=1, largest=False).indices
-        ds = shortlist_dist(qq, cands, sidx, metric)
-        if csls_k > 0:
-            ds = 2.0 * ds - r_score[sidx]
-        ds.masked_fill_(~c_mask[sidx], float("inf"))
-        v, pos = ds.min(dim=1)
-        vals[q0:q0 + block_q], idx[q0:q0 + block_q] = v, sidx.gather(1, pos[:, None])[:, 0]
-    return vals, idx
+        csls = dict(a=2.0, bias=r_sel)
+    sidx, _, ds = select_rerank(q, cands, k_short, col_mask=c_mask.contiguous(), bf16=True,
+                                rerank=metric, **csls)
+    if csls_k > 0:
+        ds = 2.0 * ds - r_score[sidx]
+    ds.masked_fill_(~c_mask[sidx], float("inf"))
+    vals, pos = ds.min(dim=1)
+    return vals, sidx.gather(1, pos[:, None])[:, 0]
 
 
 def propose_mutual_nn_pairs(emb: torch.Tensor, mask1: torch.Tensor, mask2: torch.Tensor,

@@ -13,11 +13,12 @@ threshold.
 
 ``approx_k > 0`` (the training-history evals, ``eval_approx_k``) counts
 within a shortlist instead: each query's ``approx_k`` nearest candidates
-by the sqeuclidean score (one fp32 product per query block, then an exact
-``torch.topk``; the JAX package's ``approx_min_k`` is approximate on the
-TPU and exact on the CPU), scored in exact L1 by the shortlist kernel
-(``kernels/shortlist_dist.py``).  With CSLS both hubness terms come from
-one sqeuclidean-selected sweep (``negatives._hubness_both_approx``).
+by the sqeuclidean score, selected exactly (the JAX package's
+``approx_min_k`` is approximate on the TPU and exact on the CPU) and scored
+in exact L1 in the same select-and-rerank call
+(``kernels/shortlist_dist.py::select_rerank``).  With CSLS both hubness
+terms come from one sqeuclidean-selected sweep
+(``negatives._hubness_both_approx``).
 ``dist_tile`` is the (Q, C) distance tile that the search paths share.
 """
 
@@ -26,17 +27,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpugraph_torch.kernels.shortlist_dist import check_metric, shortlist_dist
+from tpugraph_torch.kernels.shortlist_dist import check_metric, select_rerank, sq_norms
 from tpugraph_torch.train.losses import pairwise_l1
 
 
 BLOCK_Q = 256  # queries per block: (256, 1024, 128) fp32 is 134 MB
-
-
-def sq_norms(x: torch.Tensor) -> torch.Tensor:
-    """Row squared norms in fp32, the ‖·‖² terms of the expanded form."""
-    x = x.float()
-    return (x * x).sum(1)
 
 
 def dist_tile(q: torch.Tensor, cands: torch.Tensor, metric: str = "cityblock",
@@ -104,16 +99,18 @@ def _ranks_l1_prefiltered(q: torch.Tensor, cands: torch.Tensor, d_true: torch.Te
     L1 (or L1 CSLS, with ``cand_corr``) score of each entry against the
     true match's.  Position-aligned pools; the true match is excluded by
     index.  ``r_sel``: the sqeuclidean hubness, when the caller holds it."""
-    from tpugraph_torch.train.negatives import _knn_query_blocked_approx
-
     s = q.shape[0]
     if s != cands.shape[0]:
         raise ValueError(f"_ranks_l1_prefiltered requires position-aligned pools, "
                          f"got S={s} C={cands.shape[0]}")
-    no_excl = torch.full((s,), -1, dtype=torch.int64, device=q.device)
-    short = _knn_query_blocked_approx(q, cands, no_excl, approx_k, "sqeuclidean",
-                                      csls_k=csls_k, r_cand=r_sel)
-    score = shortlist_dist(q, cands, short, "cityblock")
+    csls = {}
+    if csls_k > 0:
+        if r_sel is None:
+            from tpugraph_torch.train.negatives import _hubness_both_approx
+
+            r_sel = _hubness_both_approx(q, cands, csls_k)[0]
+        csls = dict(a=2.0, bias=r_sel)
+    short, _, score = select_rerank(q, cands, min(approx_k, s), rerank="cityblock", **csls)
     thresh = d_true
     if csls_k > 0:
         score = 2.0 * score - cand_corr[short]

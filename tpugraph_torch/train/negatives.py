@@ -16,31 +16,32 @@
   finite sentinel whose ids escape its mask (ROADMAP Queue C 4); the port
   has no pad columns, so every column without a real candidate takes the
   row's best valid one, as in the cityblock path.
-* hard, approximate (``approx=True``): one (block_q, C) selection tile per
-  block of 4,096 queries, by the sqeuclidean product.  Cityblock without
-  CSLS shortlists ``k_short = min(C, max(2k, k + 8))`` candidates by it and
-  keeps the k nearest in exact L1, scored by the shortlist kernel
-  (``kernels/shortlist_dist.py``); the other combinations select the k
-  directly (sqeuclidean) or from an exact L1 tile (cityblock with CSLS).
-  The JAX package selects with ``lax.approx_min_k`` (approximate on the
-  TPU, exact on the CPU); the port selects exactly with ``torch.topk``.
-  Mining returns index sets: their order within a row is not part of the
-  contract.
+* hard, approximate (``approx=True``): one select-and-rerank call per
+  direction (``kernels/shortlist_dist.py::select_rerank``: on the card one
+  launch that scores the sqeuclidean product on the tensor cores, keeps each
+  query's running shortlist and reranks it, with no (queries, C) tile in
+  device memory).  Cityblock without CSLS shortlists
+  ``k_short = min(C, max(2k, k + 8))`` candidates by the sqeuclidean score
+  and keeps the k nearest in exact L1; sqeuclidean selects the k directly;
+  cityblock with CSLS selects from exact L1 tiles of 4,096 queries.  The JAX
+  package selects with ``lax.approx_min_k`` (approximate on the TPU, exact
+  on the CPU); the port selects exactly.  Mining returns index sets: their
+  order within a row is not part of the contract.
 
 ``_cand_hubness`` (exact) and ``_hubness_both_approx`` (selected by the
-sqeuclidean score, its L1 term scored by the shortlist kernel) are the
-CSLS hubness terms that mining, proposals, eval and serving share.
+sqeuclidean score, its L1 term scored in the same call) are the CSLS
+hubness terms that mining, proposals, eval and serving share.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpugraph_torch.kernels.shortlist_dist import check_metric, shortlist_dist
+from tpugraph_torch.kernels.shortlist_dist import check_metric, select_rerank
 from tpugraph_torch.train.eval import BLOCK_Q, _knn_mean_l1, dist_tile, sq_norms
 
-HUB_BLOCK = 4096  # candidates per sqeuclidean hubness tile, as in the JAX package
-APPROX_BLOCK_Q = 4096  # queries per approximate selection tile: 311 MB at 19,000 candidates
+HUB_BLOCK = 4096  # candidates per exact sqeuclidean hubness tile, as in the JAX package
+APPROX_BLOCK_Q = 4096  # queries per exact L1 tile of approximate CSLS cityblock mining
 
 
 def sample_uniform_negatives(gen: torch.Generator, pairs: torch.Tensor, n_ent_1: int,
@@ -109,27 +110,21 @@ def _hubness_both_approx(q_pool: torch.Tensor, cands: torch.Tensor,
                          k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(r_sq, r_l1): candidate j's mean sqeuclidean and mean exact-L1
     distance to its k nearest queries (k clamped to the pool), "nearest"
-    selected by sqeuclidean: one (HUB_BLOCK, S) product tile and one
-    ``topk`` per candidate block, the L1 term by the shortlist kernel."""
+    selected by sqeuclidean: one select-and-rerank call with the candidates
+    as its queries."""
     q_pool, cands = q_pool.contiguous(), cands.contiguous()
     k = min(k, q_pool.shape[0])
-    q2 = sq_norms(q_pool)
-    r_sq = torch.empty(cands.shape[0], dtype=torch.float32, device=cands.device)
-    r_l1 = torch.empty_like(r_sq)
-    for c0 in range(0, cands.shape[0], HUB_BLOCK):
-        blk = cands[c0:c0 + HUB_BLOCK]
-        hv2, hpos = torch.topk(dist_tile(blk, q_pool, "sqeuclidean", c2=q2), k, dim=1,
-                               largest=False)
-        r_sq[c0:c0 + HUB_BLOCK] = hv2.mean(dim=1)
-        r_l1[c0:c0 + HUB_BLOCK] = shortlist_dist(blk, q_pool, hpos, "cityblock").mean(dim=1)
-    return r_sq, r_l1
+    _, v2, l1 = select_rerank(cands, q_pool, k, c2=sq_norms(q_pool), rerank="cityblock")
+    return v2.mean(dim=1), l1.mean(dim=1)
 
 
 def _knn_query_blocked_approx(q: torch.Tensor, cands: torch.Tensor, exclude: torch.Tensor,
                               k: int, metric: str, block_q: int = APPROX_BLOCK_Q,
                               csls_k: int = 0,
                               r_cand: torch.Tensor | None = None) -> torch.Tensor:
-    """Query-blocked k-NN: one (block_q, C) selection tile per query block.
+    """Approximate k-NN, selected by the sqeuclidean score through
+    ``select_rerank`` (cityblock with CSLS: from exact L1 tiles of
+    ``block_q`` queries).
 
     ``r_cand``: the candidates' hubness for the CSLS score (the approximate
     eval passes the one it holds); computed here when None and
@@ -139,31 +134,28 @@ def _knn_query_blocked_approx(q: torch.Tensor, cands: torch.Tensor, exclude: tor
     partner can enter the shortlist only through ties."""
     q, cands = q.contiguous(), cands.contiguous()
     s, c = q.shape[0], cands.shape[0]
-    c2 = sq_norms(cands)
+    exclude = exclude.contiguous()
     if r_cand is None and csls_k > 0:
         r_cand = (_hubness_both_approx(q, cands, csls_k)[0] if metric == "sqeuclidean"
                   else _cand_hubness(q, cands, csls_k, metric))
-    # cityblock without CSLS: shortlist by the sqeuclidean product, then
-    # exact L1 within the shortlist only
-    prefilter_l1 = metric == "cityblock" and csls_k == 0
+    csls = dict(a=2.0, bias=r_cand) if csls_k > 0 else {}
     k_eff = min(k, c)
-    k_short = min(c, max(2 * k_eff, k_eff + 8))
-    tile_metric = "sqeuclidean" if metric == "sqeuclidean" or prefilter_l1 else "cityblock"
-    col_ids = torch.arange(c, device=q.device)
-    idx = torch.empty((s, k_eff), dtype=torch.int64, device=q.device)
-    for q0 in range(0, s, block_q):
-        qq, ex = q[q0:q0 + block_q], exclude[q0:q0 + block_q, None]
-        dmat = dist_tile(qq, cands, tile_metric, c2=c2)
-        if csls_k > 0:
-            dmat = 2.0 * dmat - r_cand[None, :]
-        dmat.masked_fill_(col_ids[None, :] == ex, float("inf"))
-        if prefilter_l1:
-            sidx = torch.topk(dmat, k_short, dim=1, largest=False).indices
-            d_l1 = shortlist_dist(qq, cands, sidx, "cityblock")
-            d_l1.masked_fill_(sidx == ex, float("inf"))
-            pos = torch.topk(d_l1, k_eff, dim=1, largest=False).indices
-            idx[q0:q0 + block_q] = sidx.gather(1, pos)
-        else:
+    if metric == "cityblock" and csls_k == 0:
+        # shortlist by the sqeuclidean score, then exact L1 within it only
+        k_short = min(c, max(2 * k_eff, k_eff + 8))
+        sidx, _, d_l1 = select_rerank(q, cands, k_short, exclude=exclude, rerank="cityblock")
+        d_l1.masked_fill_(sidx == exclude[:, None], float("inf"))
+        pos = torch.topk(d_l1, k_eff, dim=1, largest=False).indices
+        idx = sidx.gather(1, pos)
+    elif metric == "sqeuclidean":
+        idx = select_rerank(q, cands, k_eff, exclude=exclude, **csls)[0]
+    else:
+        col_ids = torch.arange(c, device=q.device)
+        idx = torch.empty((s, k_eff), dtype=torch.int64, device=q.device)
+        for q0 in range(0, s, block_q):
+            ex = exclude[q0:q0 + block_q, None]
+            dmat = 2.0 * dist_tile(q[q0:q0 + block_q], cands) - r_cand[None, :]
+            dmat.masked_fill_(col_ids[None, :] == ex, float("inf"))
             idx[q0:q0 + block_q] = torch.topk(dmat, k_eff, dim=1, largest=False).indices
     if k_eff < k:
         # tiny pool: repeat the row's best column, a valid negative (the
