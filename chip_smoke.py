@@ -83,6 +83,33 @@ Phases, each printing one JSON line:
              its peak device memory (below one (4,096, C) selection tile),
              and the serve CLI with ``--approx-k 128 --csls-k 10``.
 
+12. fused   — the fused interval (``steps_per_call = neg_every``): one
+             interval of v6 with ``--fast``'s settings (``neg_every`` 2,
+             sqeuclidean approximate mining), ``highway`` with dropout 0.3
+             (``neg_every`` 5), ``base``, ``sinkhorn`` and ``mtl`` with the
+             channel, from the trainers' own model, loss and epoch-0
+             batch (``driver.step_parts``, ``loop.first_batch``), as
+             replays of the captured step against the same ``train_step``s
+             eager (each loss rel 1e-6, the parameters relative L2 1e-6;
+             the distance to the unfused path's Adam read beside), the
+             replayed kernels counted in a profiler trace (exactly the
+             interval's steps times the step's launches) and the device's
+             busy share over one replayed interval beside one unfused
+             interval; v6 ``--fast`` cut as in phase 6, ``base`` and
+             ``highway`` + dropout (20 epochs) through ``driver.run`` fused
+             and unfused (losses falling, v6's final loss rel 1e-4 and
+             Hits@1 within 0.01, the steady step wall of each), then the
+             fused run again under the profiler, whose trace gives its
+             launches on the device; a fused run stopped by SIGTERM and
+             resumed at its interval boundary, and a mid-interval
+             checkpoint refused.
+13. profile — a 6-epoch ``base`` run with ``profile_dir``: the trace of
+             epochs 2-5 it writes and its top device operations.
+14. readers — the zh-en task written as a DBP15K and as an OpenEA
+             directory, read back by the port's readers and held to the
+             task (each load timed), and the trainer CLI on the DBP15K
+             directory for 2 epochs.
+
 A step is held against its plain path by running the same model code with
 every kernel swapped for its plain version (``_plain_kernels``), which
 autograd differentiates.
@@ -110,10 +137,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from tpugraph_torch.configs.configs import get_config
+from tpugraph_torch.configs.configs import TrainConfig, get_config
 from tpugraph_torch.configs.recipes import RECIPES
 from tpugraph_torch.convert import save_params
-from tpugraph_torch.data.synthetic import synthetic_align_task
+from tpugraph_torch.data import load_dbp15k, load_openea, synthetic_align_task
 from tpugraph_torch.kernels import _build, gcn_fused, shortlist_dist, sinkhorn_fused, spmm_ell
 from tpugraph_torch.kernels.gcn_fused import fused_gcn_layer, reference_layer
 from tpugraph_torch.kernels.sinkhorn_fused import (PRECISION, stream_plan,
@@ -134,10 +161,11 @@ from tpugraph_torch.models.encoder import AlignGCN, init_params
 from tpugraph_torch.serve import save_embeddings, topk_alignments
 from tpugraph_torch.sparse.build import build_adjacency
 from tpugraph_torch.train.checkpoint import Checkpointer
-from tpugraph_torch.train.driver import evaluate, run
+from tpugraph_torch.train.driver import evaluate, run, step_parts, uses_mtl
 from tpugraph_torch.train.bootstrap import propose_mutual_nn_pairs
-from tpugraph_torch.train.eval import _both_direction_ranks, hits_at_k
-from tpugraph_torch.train.loop import embed
+from tpugraph_torch.train.eval import _both_direction_ranks
+from tpugraph_torch.train.fused import CapturedStep, train_step
+from tpugraph_torch.train.loop import embed, first_batch, step_generator, step_seed
 from tpugraph_torch.train.losses import margin_align_loss
 from tpugraph_torch.train.metrics import epoch_edge_ops
 from tpugraph_torch.train.mtl import draw_interval
@@ -1707,6 +1735,510 @@ def phase_approx(task, smi: str, dev: torch.device, exact_stages: dict) -> dict:
     return counts
 
 
+# ---- the fused interval (steps_per_call = neg_every): a captured step ----
+
+# device function names of the kernels, for counting launches in a profiler trace
+KERNEL_SYMBOLS = {"gcn_fused": "gcn_fused_kernel", "spmm_ell": "spmm_ell_kernel",
+                  "sinkhorn_fused": "sinkhorn_update_kernel",
+                  "shortlist_dist": "shortlist_select_kernel",
+                  "shortlist_gather": "shortlist_dist_kernel"}
+# the fused phase's configs at zh-en scale: (config, recipe, overrides); v6
+# with --fast's settings (steps_per_call = neg_every = 2, sqeuclidean
+# approximate mining), highway with dropout 0.3 (neg_every 5), base
+FUSED_CASES = {
+    "v6_fast": ("base", "v6", dict(neg_metric="sqeuclidean", neg_approx=True)),
+    "highway_dropout": ("highway", None, dict(dropout=0.3)),
+    "base": ("base", None, {}),
+    "sinkhorn": ("sinkhorn", None, {}),
+    "mtl_channel": ("mtl", None, dict(use_attr_channel=True)),
+}
+REPLAY_TOL = 1e-6  # each step's loss (rel) and the parameters (rel L2) after an interval
+
+
+def _fused_config(task, name: str) -> TrainConfig:
+    config, recipe, over = FUSED_CASES[name]
+    cfg = get_config(config, **(RECIPES[recipe] if recipe else {})).replace(
+        syn_n_ent=task.kg1.n_ent, syn_n_rel=task.kg1.n_rel, syn_seed=ZH_EN["seed"], **over)
+    return cfg.replace(steps_per_call=cfg.neg_every)
+
+
+def _per_step_launches(cfg) -> dict:
+    """The kernels' launches in one training step, the model the traces
+    are held to (AlignGCN: two fused layers forward, two SpMMs backward;
+    AlignMTL: ``_mtl_step_launches``)."""
+    if uses_mtl(cfg):
+        return _mtl_step_launches(cfg)
+    return {"gcn_fused": 2, "spmm_ell": 2, "sinkhorn_fused": 0, "shortlist_dist": 0,
+            "shortlist_gather": 0}
+
+
+def _traced_launches(fn, dev: torch.device, what: str, warm=None) -> tuple:
+    """``fn()`` under torch.profiler (CPU and CUDA activities): its result,
+    each kernel's launches on the device in the trace, by device symbol,
+    the device events of every kind (the padding and the step annotation
+    left out), and the first device events' names.  The trace's window
+    opens after a warm-up cycle, which runs ``warm()``: run after this
+    script's earlier phases, a trace of a graph's first replay in its
+    session lost that replay's first kernels' records (two of a replayed
+    v6 interval's four ``gcn_fused``; the cause is not known), and a
+    replay in the warm-up cycle keeps them.  ``fn`` starts 20 ms
+    and a spinning kernel into the window.  Raises when the trace holds
+    no device event or no kernel of KERNEL_SYMBOLS."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def pad():
+        sync(dev)
+        time.sleep(0.02)
+        torch.cuda._sleep(1_000_000)  # "spin_kernel", about 0.5 ms
+        sync(dev)
+
+    with torch.profiler.profile(activities=acts, schedule=torch.profiler.schedule(
+            wait=0, warmup=1, active=1)) as prof:
+        pad()
+        if warm is not None:
+            warm()
+            pad()
+        prof.step()  # the warm-up cycle ends; the traced one follows
+        pad()
+        out = fn()
+        pad()
+    traced, events = {k: 0 for k in KERNEL_SYMBOLS}, []
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name
+                and not e.name.startswith("ProfilerStep")):
+            events.append((e.time_range.start, e.name))
+            for k, sym in KERNEL_SYMBOLS.items():
+                if sym in e.name:
+                    traced[k] += 1
+    first = [name[:60] for _, name in sorted(events)[:8]]
+    if not events or not any(traced.values()):
+        raise AssertionError(f"{what}: the trace holds {len(events)} device events and no "
+                             f"launch of {sorted(KERNEL_SYMBOLS)}")
+    return out, traced, len(events), first
+
+
+def _interval_replay(task, name: str, dev: torch.device, busy: bool) -> dict:
+    """One interval of ``cfg``, from the trainer's own model, loss and
+    epoch-0 batch (``driver.step_parts``, ``loop.first_batch``), three
+    ways: replays of the captured step (capturable Adam), the same
+    ``train_step``s eager with the same Adam, and eager with the unfused
+    path's Adam.  Each step's loss and the parameters after the interval:
+    the replays are held to the eager steps of the same Adam within
+    REPLAY_TOL, and their distance to the unfused Adam is read.  The
+    warm-up step's and the capture's launches are counted through the
+    wrappers; the replays' launches on the device are read from a
+    profiler trace of one more interval and must equal its steps times
+    the step's launches.  With ``busy``, the device's busy share of one
+    replayed interval beside that of one unfused interval."""
+    cfg = _fused_config(task, name)
+    steps = cfg.steps_per_call
+    parts = step_parts(cfg, task, dev)
+    model, batch = parts.model, first_batch(cfg, task, parts, dev)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def eager(capturable):
+        model.load_state_dict(init)
+        opt, sched = make_optimizer(cfg, model.parameters(), capturable=capturable)
+        losses = []
+
+        def interval():
+            for e in range(steps):
+                gen = step_generator(cfg, e, dev) if cfg.dropout > 0 else None
+                losses.append(train_step(opt, parts.loss_fn, batch, gen)[0])
+                sched.step()
+
+        interval()
+        sync(dev)
+        return [float(v) for v in losses], {k: v.detach().clone() for k, v in
+                                            model.state_dict().items()}, interval
+
+    want, want_p, _ = eager(True)
+    plain, plain_p, plain_interval = eager(False)
+    model.load_state_dict(init)
+    opt, sched = make_optimizer(cfg, model.parameters(), capturable=True)
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    cap = CapturedStep(opt, parts.loss_fn, batch, dev, cfg.dropout > 0)
+    sync(dev)
+    capture_s = time.perf_counter() - t0
+    capture_counts = _launch_counts()  # the warm-up step's and the capture's
+
+    def replayed():
+        out = []
+        for e in range(steps):
+            out.append(cap.replay(step_seed(cfg, e)))
+            sched.step()
+        return out
+
+    _reset_launch_counts()
+    got = [float(v) for v in replayed()]
+    sync(dev)
+    if any(_launch_counts().values()):
+        raise AssertionError(f"a replay went through a wrapper: {_launch_counts()}")
+    got_p = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def rel_l2(a, b):
+        return max(float((a[k] - b[k]).norm() / b[k].norm().clamp_min(1e-30)) for k in b)
+
+    loss_rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    param_rel = rel_l2(got_p, want_p)
+    if loss_rel > REPLAY_TOL or param_rel > REPLAY_TOL or not all(map(math.isfinite, got)):
+        raise AssertionError(f"{name}: replayed interval against eager: losses {got} / "
+                             f"{want} (rel {loss_rel}), parameters rel L2 {param_rel}")
+    per_step = _per_step_launches(cfg)
+    if capture_counts != {k: 2 * v for k, v in per_step.items()}:
+        raise AssertionError(f"{name}: warm-up and capture launched {capture_counts}, "
+                             f"expected twice {per_step}")
+    # the replays' launches on the device, from a trace of one more interval
+    _, traced, every, first = _traced_launches(replayed, dev, f"{name}: a replayed interval",
+                                               warm=replayed)
+    want_traced = {k: steps * per_step[k] for k in KERNEL_SYMBOLS}
+    if traced != want_traced:
+        raise AssertionError(f"{name}: the trace of a replayed interval holds {traced}, "
+                             f"{steps} steps launch {want_traced}; its first events {first}")
+    out = {"config": cfg.name, "dim": cfg.dim, "steps": steps, "dropout": cfg.dropout,
+           "losses_replayed": got, "losses_eager": want, "losses_eager_unfused_adam": plain,
+           "loss_rel_err": loss_rel, "params_rel_l2": param_rel,
+           "bitwise": got == want and all(torch.equal(got_p[k], want_p[k]) for k in want_p),
+           "loss_rel_vs_unfused_adam": max(abs(g - w) / abs(w) for g, w in zip(got, plain)),
+           # per parameter: a bias whose gradient is 0 by construction (the
+           # margin reads differences of rows) takes Adam steps of rounding
+           # noise, so its relative distance is large and means nothing
+           "params_rel_l2_vs_unfused_adam": {
+               k: float((got_p[k] - v).norm() / v.norm().clamp_min(1e-30))
+               for k, v in plain_p.items()},
+           "capture_s": capture_s, "warm_up_and_capture_launches": capture_counts,
+           "replayed_interval_traced": {"launches": traced,
+                                        "device_events_per_step": every / steps}}
+    if busy:
+        model.load_state_dict(init)
+        out["busy"] = {"replayed": _device_split(replayed, dev, top=4),
+                       "unfused": _device_split(plain_interval, dev, top=4)}
+    return out
+
+
+def _steady_step(t: dict) -> float:
+    """Median step wall of a run, its first interval (or step) left out."""
+    return float(np.median(t["step_s"][1:]))
+
+
+def _fused_run_pair(task, name: str, dev: torch.device, cuts: dict) -> dict:
+    """The same run unfused and fused through driver.run: the steady step
+    wall of each, and the wrappers' launches held to the model.  Then the
+    fused run once more under torch.profiler: its launches on the device
+    (eager, warm-up step, replays) as the trace holds them."""
+    config, recipe, over = FUSED_CASES[name]
+    cfg, reduced = _cut_config(task, config, cuts, recipe, **over)
+    fused_cfg = cfg.replace(steps_per_call=cfg.neg_every)
+    per_step = _per_step_launches(cfg)
+    out = {"reduced": reduced}
+    for mode, c in (("unfused", cfg), ("fused", fused_cfg)):
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run(c, task=task, device=dev)
+        sync(dev)
+        run_s = time.perf_counter() - t0
+        counts, t = _launch_counts(), res.timings
+        if mode == "fused":  # the eager launches, the warm-up step's and the capture's
+            eager = _expected_launches(c, {**t, "steps": 0}, task)
+            expected = {k: eager[k] + 2 * per_step[k] for k in eager}
+        else:
+            expected = _expected_launches(c, t, task)
+        if counts != expected:
+            raise AssertionError(f"{name} {mode}: launches {counts}, expected {expected}")
+        if not all(map(math.isfinite, res.losses)) or not res.losses[-1] < res.losses[0]:
+            raise AssertionError(f"{name} {mode}: losses not finite or not falling")
+        out[mode] = {"res": res, "cfg": c, "run_s": run_s, "launches_device": counts,
+                     "steady_step_s": _steady_step(t)}
+    # the fused run traced: the replays pass through no wrapper, so the
+    # trace counts them; the wrappers' counts of this run (eager, warm-up
+    # step, capture) must account for it, each replay launching what the
+    # capture recorded
+    _reset_launch_counts()
+    res, traced, _, first = _traced_launches(lambda: run(fused_cfg, task=task, device=dev),
+                                             dev, f"{name}: the fused run")
+    counts = _launch_counts()
+    want = {k: counts[k] + (res.timings["steps"] - 1) * per_step[k] for k in KERNEL_SYMBOLS}
+    if traced != want:
+        raise AssertionError(f"{name}: the traced fused run launched {traced} on the device, "
+                             f"its wrappers counted {counts}: expected {want}; its first "
+                             f"events {first}")
+    final = out["fused"]["res"].metrics["final_loss"]
+    if abs(res.metrics["final_loss"] - final) > 1e-4 * abs(final):
+        raise AssertionError(f"{name}: the traced fused run ended at loss "
+                             f"{res.metrics['final_loss']}, the untraced one at {final}")
+    out["fused"]["launches_device"] = traced
+    return out
+
+
+def _summary(pair: dict) -> dict:
+    return {mode: {"losses": p["res"].losses, "run_s": p["run_s"],
+                   "steady_step_s": p["steady_step_s"], "timings": p["res"].timings,
+                   "launches_device": p["launches_device"],
+                   "metrics": {k: p["res"].metrics[k] for k in ("hits@1", "hits@10", "mrr")}}
+            for mode, p in pair.items() if mode != "reduced"}
+
+
+def phase_fused(task, smi: str, dev: torch.device) -> dict:
+    """The fused interval at zh-en scale: one interval of each FUSED_CASES
+    config replayed against eager; recipe v6 with --fast's settings (cut as
+    RECIPE_CUTS) fused against unfused through driver.run; base and
+    highway with dropout likewise (the steady step wall of each); a fused
+    run stopped by SIGTERM and resumed at its interval boundary, and a
+    mid-interval checkpoint refused."""
+    replay = {name: _interval_replay(task, name, dev, busy=name in ("v6_fast", "highway_dropout",
+                                                                      "base"))
+              for name in FUSED_CASES}
+    v6 = _fused_run_pair(task, "v6_fast", dev, RECIPE_CUTS)
+    want, got = v6["unfused"]["res"], v6["fused"]["res"]
+    loss_rel = abs(got.metrics["final_loss"] - want.metrics["final_loss"]) / abs(
+        want.metrics["final_loss"])
+    hits_diff = abs(got.metrics["hits@1"] - want.metrics["hits@1"])
+    if loss_rel > 1e-4 or hits_diff > 0.01:
+        raise AssertionError(f"v6 --fast fused against unfused: final loss rel {loss_rel}, "
+                             f"Hits@1 {got.metrics['hits@1']} against {want.metrics['hits@1']}")
+    cuts = {"epochs": 20, "eval_every": 0}
+    base, highway = (_fused_run_pair(task, n, dev, cuts) for n in ("base", "highway_dropout"))
+
+    # resume: base fused, stopped by SIGTERM during epoch 7 (the interval
+    # [5, 10)): it saves at 9 and stops; the relaunch starts at 10 and ends
+    # as the uninterrupted fused run
+    whole = base["fused"]["res"]
+    fused_cfg = base["fused"]["cfg"]
+    with tempfile.TemporaryDirectory() as tmp:
+        with _sigterm_in_replay(8):
+            killed = run(fused_cfg.replace(checkpoint_dir=tmp, checkpoint_every=100), task=task,
+                         device=dev)
+        killed_at = Checkpointer(tmp, 100).latest_step()
+        resumed = run(fused_cfg.replace(checkpoint_dir=tmp, checkpoint_every=100), task=task,
+                      device=dev)
+        resume_rel = abs(resumed.metrics["final_loss"] - whole.metrics["final_loss"]) / abs(
+            whole.metrics["final_loss"])
+        if (killed.timings["steps"] != 10 or killed_at != 9
+                or resumed.timings["start_epoch"] != 10 or resume_rel > 1e-4):
+            raise AssertionError(f"fused resume: killed after {killed.timings['steps']} steps, "
+                                 f"saved at {killed_at}, resumed at "
+                                 f"{resumed.timings['start_epoch']}, final loss rel {resume_rel}")
+    with tempfile.TemporaryDirectory() as tmp:
+        plain_cfg = fused_cfg.replace(steps_per_call=1, checkpoint_dir=tmp, checkpoint_every=3,
+                                      epochs=4)
+        run(plain_cfg, task=task, device=dev)  # saves at 3: the next epoch is 4, mid-interval
+        try:
+            run(plain_cfg.replace(steps_per_call=5, epochs=20), task=task, device=dev)
+            raise AssertionError("a mid-interval checkpoint was resumed by a fused run")
+        except ValueError as e:
+            if "mid-interval" not in str(e):
+                raise
+            refused = str(e)[:80]
+
+    steady = {n: {"unfused_s": p["unfused"]["steady_step_s"],
+                  "fused_s": p["fused"]["steady_step_s"],
+                  "fused_over_unfused": p["fused"]["steady_step_s"] / p["unfused"]["steady_step_s"]}
+              for n, p in (("v6_fast", v6), ("base", base), ("highway_dropout", highway))}
+    emit({"phase": "fused", "n_ent": task.n_ent, "replay_tol": REPLAY_TOL,
+          "interval_replay": replay, "steady_step": steady,
+          "v6_fast": {"reduced": v6["reduced"], "final_loss_rel": loss_rel,
+                      "hits1_diff": hits_diff, **_summary(v6)},
+          "base": {"reduced": base["reduced"], **_summary(base)},
+          "highway_dropout": {"reduced": highway["reduced"], **_summary(highway)},
+          "resume": {"killed_after_steps": killed.timings["steps"], "saved_at": killed_at,
+                     "resumed_at": resumed.timings["start_epoch"],
+                     "final_loss": resumed.metrics["final_loss"],
+                     "uninterrupted_final_loss": whole.metrics["final_loss"],
+                     "rel_err": resume_rel, "mid_interval_refused": refused},
+          "card": smi})
+    return {"v6_fast": v6["fused"]["launches_device"],
+            "base": base["fused"]["launches_device"],
+            "highway_dropout": highway["fused"]["launches_device"]}
+
+
+@contextlib.contextmanager
+def _sigterm_in_replay(n: int):
+    """Send this process SIGTERM during the n-th replay of a captured step
+    (a fused run's n-th training step on the card), as a scheduler
+    preempts a run."""
+    real, calls = CapturedStep.replay, [0]
+
+    def replay(self, *args, **kwargs):
+        calls[0] += 1
+        if calls[0] == n:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return real(self, *args, **kwargs)
+
+    CapturedStep.replay = replay
+    try:
+        yield
+    finally:
+        CapturedStep.replay = real
+
+
+def phase_profile(task, smi: str, dev: torch.device) -> dict:
+    """A 6-epoch base run with ``profile_dir``: the trace of epochs 2-5 it
+    writes, and the top device operations in it."""
+    cfg, reduced = _cut_config(task, "base", {"epochs": 6, "eval_every": 0})
+    with tempfile.TemporaryDirectory() as tmp:
+        res = run(cfg.replace(profile_dir=tmp), task=task, device=dev)
+        files = sorted(os.listdir(tmp))
+        if files != ["trace-epochs-2-5.json"]:
+            raise AssertionError(f"profile_dir holds {files}")
+        size_mb = os.path.getsize(os.path.join(tmp, files[0])) / 2**20
+        with open(os.path.join(tmp, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+    by_name: dict[str, list] = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            by_name.setdefault(e["name"][:80], []).append(e.get("dur", 0.0))
+    if not any(KERNEL_SYMBOLS["gcn_fused"] in k for k in by_name):
+        raise AssertionError(f"the trace holds no gcn_fused kernel: {sorted(by_name)[:10]}")
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]
+    emit({"phase": "profile", "config": "base", "epochs": cfg.epochs, "reduced": reduced,
+          "trace": files[0], "trace_mb": size_mb, "steps": res.timings["steps"],
+          "kernel_events": sum(len(v) for v in by_name.values()),
+          "top_device_ops_ms": {k: {"ms": sum(v) / 1e3, "calls": len(v)} for k, v in top},
+          "card": smi})
+    return {k: len(v) for k, v in top}
+
+
+def _write_dbp15k(task, root: str) -> None:
+    """``task`` as a DBP15K directory ``<root>/zh_en``: global ids (KG2's
+    after KG1's), integer triples and attributes, the seed pairs in
+    ``ref_ent_ids`` and the training ones in ``sup_ent_ids``."""
+    d = os.path.join(root, "zh_en")
+    os.makedirs(d)
+    n1 = task.kg1.n_ent
+
+    def write(name, rows):
+        with open(os.path.join(d, name), "w") as f:
+            f.write("".join("\t".join(map(str, r)) + "\n" for r in rows))
+
+    write("ent_ids_1", ((i, f"http://kg1/e{i}") for i in range(n1)))
+    write("ent_ids_2", ((n1 + i, f"http://kg2/e{i}") for i in range(task.kg2.n_ent)))
+    write("triples_1", task.kg1.triples.tolist())
+    write("triples_2", (task.kg2.triples + [n1, 0, n1]).tolist())
+    write("ref_ent_ids", np.concatenate([task.train_pairs, task.test_pairs]).tolist())
+    write("sup_ent_ids", task.train_pairs.tolist())
+    write("att_triples_1", task.kg1.attr_triples.tolist())
+    write("att_triples_2", (task.kg2.attr_triples + [n1, 0]).tolist())
+
+
+def _write_openea(task, root: str) -> None:
+    """``task`` as an OpenEA directory: URI triples, property-URI
+    attributes, ``ent_links`` and the split as ``721_5fold/1``."""
+    n1 = task.kg1.n_ent
+    fold = os.path.join(root, "721_5fold", "1")
+    os.makedirs(fold)
+
+    def write(path, rows):
+        with open(os.path.join(root, path), "w") as f:
+            f.write("".join("\t".join(r) + "\n" for r in rows))
+
+    for side, kg in ((1, task.kg1), (2, task.kg2)):
+        write(f"rel_triples_{side}", ((f"kg{side}/e{h}", f"kg{side}/r{r}", f"kg{side}/e{t}")
+                                      for h, r, t in kg.triples.tolist()))
+        write(f"attr_triples_{side}", ((f"kg{side}/e{e}", f"prop/a{a}", '"v"')
+                                       for e, a in kg.attr_triples.tolist()))
+
+    def links(pairs):
+        return ((f"kg1/e{a}", f"kg2/e{b - n1}") for a, b in pairs.tolist())
+
+    write("ent_links", links(np.concatenate([task.train_pairs, task.test_pairs])))
+    write("721_5fold/1/train_links", links(task.train_pairs))
+    write("721_5fold/1/test_links", links(task.test_pairs))
+
+
+def _first_seen(ids) -> dict:
+    return {v: i for i, v in enumerate(dict.fromkeys(ids))}
+
+
+def _check_openea(task, got) -> None:
+    """The OpenEA reader's arrays against ``task`` renumbered as the format
+    numbers it: entities and relations in first-seen order (an entity's
+    triples, then the links), attributes by frequency over both KGs, ties
+    by URI."""
+    n1 = task.kg1.n_ent
+    ents = [_first_seen(np.concatenate([kg.triples[:, [0, 2]].reshape(-1), side]).tolist())
+            for kg, side in ((task.kg1, np.concatenate([task.train_pairs, task.test_pairs])[:, 0]),
+                             (task.kg2, np.concatenate([task.train_pairs,
+                                                        task.test_pairs])[:, 1] - n1))]
+    # attribute rows of entities the format cannot name (in no triple and
+    # no link) are dropped, as the reader drops them
+    attrs = [[(e, a) for e, a in kg.attr_triples.tolist() if e in ent]
+             for kg, ent in ((task.kg1, ents[0]), (task.kg2, ents[1]))]
+    freq = {}
+    for e, a in attrs[0] + attrs[1]:
+        freq[a] = freq.get(a, 0) + 1
+    vocab = {a: i for i, a in enumerate(sorted(freq, key=lambda a: (-freq[a], f"prop/a{a}")))}
+    for kg, have, ent, att in ((task.kg1, got.kg1, ents[0], attrs[0]),
+                               (task.kg2, got.kg2, ents[1], attrs[1])):
+        rel = _first_seen(kg.triples[:, 1].tolist())
+        want = np.array([[ent[h], rel[r], ent[t]] for h, r, t in kg.triples.tolist()])
+        np.testing.assert_array_equal(have.triples, want)
+        np.testing.assert_array_equal(have.attr_triples, [[ent[e], vocab[a]] for e, a in att])
+        if have.n_ent != len(ent) or have.n_attr != len(vocab):
+            raise AssertionError(f"OpenEA: {have.n_ent} entities, {have.n_attr} attributes")
+    m1 = len(ents[0])
+    for have, pairs in ((got.train_pairs, task.train_pairs), (got.test_pairs, task.test_pairs)):
+        np.testing.assert_array_equal(
+            have, [[ents[0][a], ents[1][b - n1] + m1] for a, b in pairs.tolist()])
+
+
+def phase_readers(task, smi: str, dev: torch.device) -> dict:
+    """``task`` written as a DBP15K and as an OpenEA directory, read back by
+    the port's readers and held to the task (the load timed), then the
+    trainer CLI on the DBP15K directory for 2 epochs on the card."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _write_dbp15k(task, tmp)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = load_dbp15k(tmp, "zh_en")
+        load_s = time.perf_counter() - t0
+        rel = [np.unique(kg.triples[:, 1], return_inverse=True)[1] for kg in (task.kg1, task.kg2)]
+        for kg, have, r in ((task.kg1, got.kg1, rel[0]), (task.kg2, got.kg2, rel[1])):
+            np.testing.assert_array_equal(have.triples, np.column_stack(
+                [kg.triples[:, 0], r, kg.triples[:, 2]]))
+            np.testing.assert_array_equal(have.attr_triples, kg.attr_triples)
+        for name in ("train_pairs", "test_pairs"):
+            np.testing.assert_array_equal(getattr(got, name), getattr(task, name))
+        out["dbp15k"] = {"write_s": write_s, "load_s": load_s, "n_ent": got.n_ent,
+                         "triples": int(len(got.merged_triples)), "n_attr": got.n_attr,
+                         "train_pairs": int(len(got.train_pairs)),
+                         "test_pairs": int(len(got.test_pairs))}
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "tpugraph_torch.cli.main", "--dataset", "dbp15k",
+             "--data-root", tmp, "--pair", "zh_en", "--epochs", "2", "--quiet",
+             "--device", dev.type],
+            cwd=root, env={**os.environ, "PYTHONPATH": root}, capture_output=True, text=True,
+            timeout=600)
+        cli_s = time.perf_counter() - t0
+        if cli.returncode != 0:
+            raise AssertionError(f"the CLI on the DBP15K directory failed:\n{cli.stderr[-3000:]}")
+        line = json.loads(cli.stdout.strip().splitlines()[-1])
+        if not math.isfinite(line["final_loss"]):
+            raise AssertionError(f"the CLI printed {line}")
+        out["cli"] = {"argv": "--dataset dbp15k --pair zh_en --epochs 2", "wall_s": cli_s,
+                      "result": line}
+
+        d = os.path.join(tmp, "openea")
+        t0 = time.perf_counter()
+        _write_openea(task, d)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = load_openea(d, fold=1)
+        load_s = time.perf_counter() - t0
+        _check_openea(task, got)
+        out["openea"] = {"write_s": write_s, "load_s": load_s, "n_ent": got.n_ent,
+                         "triples": int(len(got.merged_triples)), "n_attr": got.n_attr,
+                         "train_pairs": int(len(got.train_pairs)),
+                         "test_pairs": int(len(got.test_pairs))}
+    emit({"phase": "readers", **out, "card": smi})
+    return out
+
+
 def _hits_of(ranks: torch.Tensor) -> tuple:
     """(Hits@1, Hits@10, MRR) of both directions' ranks, as ``hits_at_k``."""
     r = ranks.double()
@@ -1733,30 +2265,40 @@ def main() -> int:
     highway = phase_highway(task, smi, dev)
     k_select, k_gather = phase_shortlist(smi, dev)
     approx = phase_approx(task, smi, dev, recipe_stages)
+    fused = phase_fused(task, smi, dev)
+    phase_profile(task, smi, dev)
+    phase_readers(task, smi, dev)
     # the numbers at the recipe's width (d = 256); launches of the recipe's
     # run, with those of the other runs beside (the incidence's at mtl's
-    # width, d = 128, where config mtl runs it)
+    # width, d = 128, where config mtl runs it); a fused run's launches on
+    # the device as a profiler trace of the run counts them (its eager
+    # ones, the warm-up step's and each replay's)
     emit({"kernels": [
         {"name": "gcn_fused", "route": "cuda", "source": "tpugraph_torch/csrc/gcn_fused.cu",
          "replaces": "tpugraph/kernels/gcn_fused_pallas.py:40", "launches": recipe["gcn_fused"],
          "launches_train": train["gcn_fused"], "launches_serve": serve_launches,
          "launches_v7r": v7r["gcn_fused"], "launches_mtl": mtl["gcn_fused"],
-         "launches_highway": highway["gcn_fused"], **k_gcn},
+         "launches_highway": highway["gcn_fused"],
+         "launches_fused": {n: v["gcn_fused"] for n, v in fused.items()}, **k_gcn},
         {"name": "spmm_ell", "route": "cuda", "source": "tpugraph_torch/csrc/spmm_ell.cu",
          "replaces": "tpugraph/kernels/spmm_ell.py:19", "launches": recipe["spmm_ell"],
          "launches_train": train["spmm_ell"], "launches_v7r": v7r["spmm_ell"],
          "launches_mtl": mtl["spmm_ell"], "launches_mtl_incidence": mtl["incidence"],
-         "launches_highway": highway["spmm_ell"], **k_spmm, "incidence": incidence},
+         "launches_highway": highway["spmm_ell"],
+         "launches_fused": {n: v["spmm_ell"] for n, v in fused.items()}, **k_spmm,
+         "incidence": incidence},
         {"name": "sinkhorn_fused", "route": "cuda",
          "source": "tpugraph_torch/csrc/sinkhorn_fused.cu",
          "replaces": "tpugraph/kernels/sinkhorn_pallas.py:38",
          "launches": recipe["sinkhorn_fused"], "launches_train": train["sinkhorn_fused"],
-         "launches_v7r": v7r["sinkhorn_fused"], "launches_mtl": mtl["sinkhorn_fused"], **k_sink},
+         "launches_v7r": v7r["sinkhorn_fused"], "launches_mtl": mtl["sinkhorn_fused"],
+         "launches_fused_v6": fused["v6_fast"]["sinkhorn_fused"], **k_sink},
         {"name": "shortlist_dist", "route": "cuda",
          "source": "tpugraph_torch/csrc/shortlist_dist.cu",
          "replaces": "tpugraph/train/negatives.py:260",
          "replaces_kind": "XLA ops and lax.approx_min_k: select, then gather and rerank",
-         "launches": approx["shortlist_dist"], **k_select["mining"],
+         "launches": approx["shortlist_dist"],
+         "launches_fused_v6": fused["v6_fast"]["shortlist_dist"], **k_select["mining"],
          "at_callers": {k: v for k, v in k_select.items() if k != "mining"},
          "gather_entry": {"launches": approx["shortlist_gather"], "at_callers": k_gather}},
     ]})

@@ -12,6 +12,8 @@ it runs without the suite's conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,7 @@ import tpugraph_torch.models.attr_channel as attr_channel_mod
 import tpugraph_torch.nn.graphconv as graphconv_mod
 from tpugraph_torch.configs.configs import get_config
 from tpugraph_torch.configs.recipes import RECIPES
+from tpugraph_torch.data.synthetic import synthetic_align_task
 from tpugraph_torch.kernels import gcn_fused, shortlist_dist, sinkhorn_fused, spmm_ell
 from tpugraph_torch.kernels.gcn_fused import fused_gcn_layer, gcn_layer, reference_layer
 from tpugraph_torch.kernels.sinkhorn_fused import sinkhorn_potential_update, sinkhorn_update_plain
@@ -32,10 +35,13 @@ from tpugraph_torch.serve import topk_alignments
 from tpugraph_torch.sparse.build import build_adjacency
 from tpugraph_torch.sparse.ell import build_ell_operator
 from tpugraph_torch.train.bootstrap import propose_mutual_nn_pairs
-from tpugraph_torch.train.driver import run
+from tpugraph_torch.train.driver import run, step_parts
 from tpugraph_torch.train.eval import _both_direction_ranks
+from tpugraph_torch.train.fused import CapturedStep, train_step
+from tpugraph_torch.train.loop import first_batch, step_generator, step_seed
 from tpugraph_torch.train.losses import margin_align_loss
 from tpugraph_torch.train.negatives import _hubness_both_approx, sample_hard_negatives
+from tpugraph_torch.train.optim import make_optimizer
 from tpugraph_torch.train.ot import sinkhorn_align_loss, sinkhorn_align_loss_plain
 
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=0.05, atol=0.5)}
@@ -695,3 +701,144 @@ def test_approx_paths_on_the_card_match_the_host(cuda, path):
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     else:
         assert _same_rows(got, want) >= 0.99
+
+
+# ---- the fused interval: a captured training step, replayed ----
+
+CAPTURE_CASES = {
+    "base": ("base", dict(dim=128)),
+    "sinkhorn": ("sinkhorn", dict(sinkhorn_iters=5)),
+    "v6": ("base", dict(RECIPES["v6"], boot_cap=64, k_neg=10)),  # (256, 256) and the OT head
+    "highway_dropout": ("highway", dict(dropout=0.3)),
+    "mtl_channel": ("mtl", dict(use_attr_channel=True, sinkhorn_iters=5, rel_k_neg=3)),
+}
+
+
+def _captured_case(cfg, dev):
+    """The trainers' own model and loss for ``cfg`` (``driver.step_parts``)
+    on a small task, and epoch 0's batch as the loop builds it
+    (``loop.first_batch``; with bootstrapping, proposals of weight
+    ``boot_weight`` in place of the placeholder)."""
+    task = synthetic_align_task(seed=3, n_ent=1500, n_rel=20, n_triples=6000, n_attr=40)
+    parts = step_parts(cfg, task, dev)
+    boot = None
+    if cfg.boot_cap:
+        pairs = torch.as_tensor(task.train_pairs, dtype=torch.int64, device=dev)
+        boot = (pairs[:cfg.boot_cap], torch.ones(cfg.boot_cap, device=dev))
+    return parts, first_batch(cfg, task, parts, dev, boot)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CAPTURE_CASES))
+def test_captured_step_replays_as_eager(cuda, case):
+    """Three replays of the captured step against the same three steps
+    eager with the same (capturable) Adam, from the same parameters and
+    batch, the dropout masks from the same seeds: each loss rel 1e-6, the
+    parameters relative L2 1e-6; a replay goes through no wrapper."""
+    config, over = CAPTURE_CASES[case]
+    cfg = get_config(config, **{"k_neg": 10, **over})
+    parts, batch = _captured_case(cfg, cuda)
+    model = parts.model
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    opt, sched = make_optimizer(cfg, model.parameters(), capturable=True)
+    want = []
+    for e in range(3):
+        gen = step_generator(cfg, e, cuda) if cfg.dropout else None
+        want.append(train_step(opt, parts.loss_fn, batch, gen)[0].item())
+        sched.step()
+    want_p = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    model.load_state_dict(init)
+    opt, sched = make_optimizer(cfg, model.parameters(), capturable=True)
+    cap = CapturedStep(opt, parts.loss_fn, batch, cuda, cfg.dropout > 0)
+    before = (gcn_fused.launches, spmm_ell.launches, sinkhorn_fused.launches)
+    got = []
+    for e in range(3):
+        got.append(cap.replay(step_seed(cfg, e)))
+        sched.step()
+    torch.cuda.synchronize()
+    assert (gcn_fused.launches, spmm_ell.launches, sinkhorn_fused.launches) == before
+    for g, w in zip(got, want):
+        assert g.item() == pytest.approx(w, rel=1e-6)
+    for k, v in want_p.items():
+        assert float((model.state_dict()[k] - v).norm() / v.norm().clamp_min(1e-30)) < 1e-6, k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel, d", [("gcn_fused", (128, 128)), ("gcn_fused", (256, 256)),
+                                       ("gcn_fused", (128, 256)), ("gcn_fused", (256, 128)),
+                                       ("spmm_ell", 128), ("spmm_ell", 256),
+                                       ("sinkhorn_fused", 128), ("sinkhorn_fused", 256)])
+def test_kernel_warm_up_then_capture(cuda, kernel, d):
+    """Each wrapper, called once on a side stream (its library loaded, its
+    scratch for that stream allocated), then captured there and replayed
+    twice: both replays equal the eager call bit for bit."""
+    rng = np.random.default_rng(5)
+    op = _graph(rng, n=2000).to(cuda)
+    if kernel == "gcn_fused":
+        x = torch.from_numpy(rng.standard_normal((2000, d[0])).astype(np.float32)).to(cuda)
+        w = torch.from_numpy(rng.standard_normal(d).astype(np.float32) / 16).to(cuda)
+        b = torch.from_numpy(rng.standard_normal(d[1]).astype(np.float32)).to(cuda)
+
+        def call():
+            return fused_gcn_layer(op.fwd, op.diag, x, w, b)
+    elif kernel == "spmm_ell":
+        x = torch.from_numpy(rng.standard_normal((2000, d)).astype(np.float32)).to(cuda)
+
+        def call():
+            return ell_spmm(op.bwd, op.diag, x)
+    else:
+        lr = [torch.nn.functional.normalize(torch.from_numpy(
+            rng.standard_normal((700, d)).astype(np.float32)), dim=1).to(cuda) for _ in "lr"]
+        g = torch.from_numpy(rng.standard_normal(700).astype(np.float32) * 0.1).to(cuda)
+        log_mu = torch.full((700,), -math.log(700), device=cuda)
+
+        def call():
+            return sinkhorn_potential_update(lr[0], lr[1], g, log_mu, 0.3)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        want = call()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = call()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+@pytest.mark.gpu
+def test_fused_run_on_card_tracks_the_unfused_run(cuda):
+    """Config sinkhorn, 8 epochs in intervals of 4, fused (replays of a
+    captured step, capturable Adam) against unfused: every loss rel 1e-4,
+    the final metrics within 0.01; the wrappers count the eager forwards,
+    the warm-up step and the capture, not the replays."""
+    cfg = get_config("sinkhorn", syn_n_ent=600, syn_n_triples=2400, epochs=8, neg_every=4,
+                     eval_every=0, k_neg=10)
+    plain = run(cfg, device=cuda)
+    before = gcn_fused.launches
+    fused = run(cfg.replace(steps_per_call=4), device=cuda)
+    # one mining forward, the final eval's, the warm-up step and the capture
+    assert gcn_fused.launches - before == 2 + 2 + 2 + 2
+    assert fused.timings["steps"] == 8 and fused.timings["capture_s"] > 0
+    assert fused.losses == pytest.approx(plain.losses, rel=1e-4)
+    for k in ("hits@1", "hits@10"):
+        assert abs(fused.metrics[k] - plain.metrics[k]) <= 0.01
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("first, then", [(4, 1), (1, 4)])
+def test_checkpoint_crosses_modes_on_card(cuda, tmp_path, first, then):
+    """A run of 4 epochs in one mode (fused: a capturable Adam; unfused: a
+    plain one) saves at epoch 3; a run in the other mode resumes it at the
+    boundary 4 and ends as an uninterrupted 8-epoch run: each loss rel
+    1e-4."""
+    cfg = get_config("sinkhorn", syn_n_ent=600, syn_n_triples=2400, epochs=8, neg_every=4,
+                     eval_every=0, k_neg=10, checkpoint_every=100)
+    whole = run(cfg.replace(steps_per_call=first), device=cuda)
+    ck = cfg.replace(checkpoint_dir=str(tmp_path / "ck"))
+    head = run(ck.replace(epochs=4, steps_per_call=first), device=cuda)
+    tail = run(ck.replace(steps_per_call=then), device=cuda)
+    assert tail.timings["start_epoch"] == 4
+    assert head.losses + tail.losses == pytest.approx(whole.losses, rel=1e-4)

@@ -35,7 +35,7 @@ from tpugraph_torch.sparse.build import build_adjacency
 from tpugraph_torch.train.driver import run
 from tpugraph_torch.train.loop import check_trainable
 from tpugraph_torch.train.losses import margin_align_loss
-from tpugraph_torch.train.metrics import MetricsLogger, epoch_edge_ops
+from tpugraph_torch.train.metrics import epoch_edge_ops
 from tpugraph_torch.train.mtl import check_ot_size
 from tpugraph_torch.train.negatives import blockwise_knn_l1, sample_hard_negatives
 from tpugraph_torch.train.optim import lr_factor, make_optimizer
@@ -258,10 +258,13 @@ def test_cli_trains_and_prints_one_json_line(capsys):
 
 
 def test_unported_options_and_the_card_default():
-    for over in (dict(steps_per_call=5), dict(profile_dir="prof"),
-                 dict(param_dtype="bfloat16"), dict(slice_shards=2), dict(n_shards=2)):
+    for over in (dict(param_dtype="bfloat16"), dict(slice_shards=2), dict(n_shards=2)):
         with pytest.raises(NotImplementedError):
             check_trainable(get_config("sinkhorn", **over))
+    # the fused interval, profiling and the TensorBoard sink are ported
+    # (tests/test_torch_fused.py, tests/test_torch_observability.py)
+    for over in (dict(steps_per_call=5), dict(profile_dir="prof")):
+        check_trainable(get_config("sinkhorn", **over))
     # the approximate, CSLS-mining and sqeuclidean search paths are ported
     for over in (dict(boot_cap=10, boot_approx=True), dict(neg_metric="sqeuclidean"),
                  dict(eval_approx_k=50), dict(neg_approx=True), dict(neg_csls_k=5),
@@ -278,5 +281,3 @@ def test_unported_options_and_the_card_default():
         run(get_config("sinkhorn", **TINY, epochs=1))
     assert epoch_edge_ops(1234) == jax_epoch_edge_ops(1234)
     assert epoch_edge_ops(1234, True) == jax_epoch_edge_ops(1234, True)
-    with pytest.raises(NotImplementedError):
-        MetricsLogger(None, tb_dir="tb")

@@ -7,7 +7,8 @@ the TPU is a kernel written by hand for ``sm_90a`` under ``csrc/``, built
 with nvcc at first use and bound through ctypes (``kernels/_build.py``).
 
 Layer map:
-    data/      synthetic DBP15K-shaped generator (numpy, identical arrays)
+    data/      synthetic DBP15K-shaped generator and the DBP15K and OpenEA
+               readers (numpy, arrays identical to the JAX package's)
     sparse/    KG containers, adjacency build, degree-bucketed ELL operator
     kernels/   plain-torch ELL SpMM, distances and Sinkhorn solver, and the
                four CUDA kernels: the fused GCN layer (forward), the ELL
@@ -20,7 +21,8 @@ Layer map:
                Sinkhorn, relation and attribute heads, the AE channel)
     train/     losses, OT head, negatives (exact and approximate), optimizer,
                metrics, Hits@k (exact, or within shortlists),
-               the training loops (``fit``, ``fit_mtl``) and the driver
+               the training loops (``fit``, ``fit_mtl``; the fused interval
+               as a captured CUDA graph, ``fused.py``) and ``driver.py``
                (``run``, ``evaluate``)
     cli/       ``python -m tpugraph_torch.cli.main`` — train a named config
     configs/   TrainConfig copies of the capability configs

@@ -29,8 +29,8 @@ from tpugraph_torch.models.encoder import AlignGCN
 from tpugraph_torch.sparse.ell import EllOperator
 from tpugraph_torch.sparse.graph import AlignTask
 from tpugraph_torch.train.eval import hits_at_k
-from tpugraph_torch.train.loop import (TrainResult, build_model, build_operator, embed, fit,
-                                       load_task)
+from tpugraph_torch.train.loop import (StepParts, TrainResult, build_model, build_operator,
+                                       embed, fit, load_task, margin_parts)
 
 
 def run(cfg: TrainConfig, task: AlignTask | None = None, device: str | torch.device = "cuda",
@@ -39,11 +39,25 @@ def run(cfg: TrainConfig, task: AlignTask | None = None, device: str | torch.dev
     from ``cfg``."""
     if max(cfg.n_shards, cfg.feature_shards, cfg.slice_shards) > 1:
         raise NotImplementedError("the distributed trainer is not ported yet; see ROADMAP.md")
-    if cfg.use_sinkhorn or cfg.use_rel_head or cfg.use_attr_head or cfg.use_attr_channel:
+    if uses_mtl(cfg):
         from tpugraph_torch.train.mtl import fit_mtl
 
         return fit_mtl(cfg, task=task, verbose=verbose, device=device)
     return fit(cfg, task=task, verbose=verbose, device=device)
+
+
+def uses_mtl(cfg: TrainConfig) -> bool:
+    """Whether ``run`` trains ``cfg`` with ``fit_mtl`` (an OT or MTL head, or
+    the attribute channel) rather than ``fit``."""
+    return cfg.use_sinkhorn or cfg.use_rel_head or cfg.use_attr_head or cfg.use_attr_channel
+
+
+def step_parts(cfg: TrainConfig, task: AlignTask, dev: torch.device) -> StepParts:
+    """The model, loss and draws that ``run`` trains ``cfg`` with
+    (``loop.margin_parts`` or ``mtl.mtl_parts``), on ``dev``."""
+    from tpugraph_torch.train.mtl import mtl_parts
+
+    return mtl_parts(cfg, task, dev) if uses_mtl(cfg) else margin_parts(cfg, task, dev)
 
 
 @dataclass

@@ -19,13 +19,24 @@ and adds its own per-interval draws to the batch.  Each step with dropout
 draws its mask from a generator of its own (``step_generator``).  Both run
 on the card unless the caller passes ``device="cpu"``.
 
-Not ported yet, and refused up front (``check_trainable``): the fused
-``steps_per_call`` interval, profiling, bf16 training and the distributed
-trainer (``ROADMAP.md``).
+``steps_per_call = neg_every`` fuses each resample interval, as the JAX
+``train_interval`` does: the loop walks the epochs an interval at a time,
+saves and evaluates in the JAX fused windows (``last % every <
+steps_per_call``, at the interval's last epoch), and a save holds
+placeholder negatives and proposals, so a resume (only at an interval
+boundary) re-mines.  On the card the interval's steps are replays of one
+captured step (``train/fused.py``) with no host synchronise between them;
+on the host the same steps run eagerly.  ``profile_dir`` traces epochs
+``start + 2`` to ``start + 5`` with ``torch.profiler`` (or to the end of a
+shorter run) and writes a Chrome trace there.
+
+Not ported yet, and refused up front (``check_trainable``): bf16 training
+and the distributed trainer (``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from collections.abc import Callable
 from dataclasses import dataclass, field
@@ -36,7 +47,7 @@ import torch
 from tpugraph_torch import resolve_device
 from tpugraph_torch.configs.configs import TrainConfig
 from tpugraph_torch.convert import embed_params
-from tpugraph_torch.data.synthetic import synthetic_align_task
+from tpugraph_torch.data import load_dbp15k, load_openea, synthetic_align_task
 from tpugraph_torch.kernels.shortlist_dist import METRICS
 from tpugraph_torch.models.encoder import AlignGCN, init_params
 from tpugraph_torch.sparse.build import build_adjacency
@@ -45,10 +56,11 @@ from tpugraph_torch.sparse.graph import AlignTask
 from tpugraph_torch.train.bootstrap import propose_mutual_nn_pairs
 from tpugraph_torch.train.checkpoint import Checkpointer
 from tpugraph_torch.train.eval import hits_at_k
+from tpugraph_torch.train.fused import CapturedStep, train_step
 from tpugraph_torch.train.losses import margin_align_loss
 from tpugraph_torch.train.metrics import MetricsLogger, epoch_edge_ops
 from tpugraph_torch.train.negatives import sample_hard_negatives, sample_uniform_negatives
-from tpugraph_torch.train.optim import make_optimizer
+from tpugraph_torch.train.optim import load_optimizer_state, make_optimizer, optimizer_state
 
 
 @dataclass
@@ -62,7 +74,10 @@ class TrainResult:
     losses: list = field(default_factory=list)  # total loss of every step run here
     # host wall seconds, each stage ended by a device synchronise: setup_s
     # (optimizer and loop set-up), load_s (restoring a checkpoint), train_s
-    # (the steps), step_s (each step's), forward_s (the interval
+    # (the steps), step_s (each step's; with steps_per_call > 1 one entry
+    # per interval, its wall over its steps: the interval ends in one
+    # synchronise), capture_s (the fused interval's warm-up step and
+    # capture on the card, once per run), forward_s (the interval
     # boundaries' encoder forwards), propose_s (bootstrap proposals), mine_s
     # (hard mining), draw_s (fit_mtl's per-interval draws), eval_s (evals
     # incl. the final one; final_eval_s, the final one alone), save_s
@@ -70,6 +85,74 @@ class TrainResult:
     # forwards, proposals, minings, draws, evals, saves; and start_epoch,
     # the first epoch this process ran
     timings: dict = field(default_factory=dict)
+
+
+@dataclass
+class StepParts:
+    """What a trainer hands ``train_loop`` (``fit``: ``margin_parts``;
+    ``fit_mtl``: ``mtl.mtl_parts``): the model over ``op``, its training
+    loss ``loss_fn(batch, generator)`` -> (loss, aux) with grad (the
+    dropout mask, if any, from ``generator``), ``embed_fn()`` the
+    evaluation table that the evals, proposals and mining read, and with
+    ``draw_extra(epoch0)`` the entries ``extra_keys`` that each interval
+    adds to the batch."""
+    model: torch.nn.Module
+    op: EllOperator
+    loss_fn: Callable[[dict, torch.Generator | None], tuple[torch.Tensor, dict]]
+    embed_fn: Callable[[], torch.Tensor]
+    draw_extra: Callable[[int], dict[str, torch.Tensor]] | None = None
+    extra_keys: tuple[str, ...] = ()
+
+
+class IntervalBatch:
+    """The interval batch as ``train_loop`` assembles it at each boundary:
+    the seed pairs, with ``boot_cap > 0`` the proposals and their weights
+    (the seed pairs weigh 1, the proposals ``boot_weight``·w; before
+    ``boot_start`` the weight-0 ``placeholder``), then the negatives."""
+
+    def __init__(self, cfg: TrainConfig, task: AlignTask, dev: torch.device):
+        self.cfg, self.n1, self.n = cfg, task.kg1.n_ent, task.n_ent
+        self.pairs = torch.as_tensor(np.asarray(task.train_pairs), dtype=torch.int64, device=dev)
+        self.use_boot = cfg.boot_cap > 0
+        self.placeholder = None
+        if self.use_boot:
+            pairs, n1 = self.pairs, self.n1
+            self.mask1 = torch.ones(n1, dtype=torch.bool, device=dev)
+            self.mask1[pairs[:, 0]] = False
+            self.mask2 = torch.ones(self.n - n1, dtype=torch.bool, device=dev)
+            self.mask2[pairs[:, 1] - n1] = False
+            self.ones_seed = torch.ones(pairs.shape[0], dtype=torch.float32, device=dev)
+            self.placeholder = (torch.tensor([0, n1], device=dev).repeat(cfg.boot_cap, 1),
+                                torch.zeros(cfg.boot_cap, dtype=torch.float32, device=dev))
+
+    def __call__(self, boot, neg_l=None, neg_r=None) -> dict[str, torch.Tensor]:
+        """The batch of the proposals ``boot`` (pairs, weights), and the
+        negatives if given."""
+        batch = {"pairs": self.pairs, "neg_l": neg_l, "neg_r": neg_r}
+        if self.use_boot:
+            batch["pairs_aug"] = torch.cat([self.pairs, boot[0]])
+            batch["w"] = torch.cat([self.ones_seed, boot[1] * self.cfg.boot_weight])
+        return batch
+
+    def uniform(self, batch: dict, epoch0: int) -> None:
+        """The interval's uniform negatives over the batch's margin pairs,
+        from ``interval_generator(cfg, epoch0)``."""
+        batch["neg_l"], batch["neg_r"] = sample_uniform_negatives(
+            interval_generator(self.cfg, epoch0), batch.get("pairs_aug", self.pairs), self.n1,
+            self.n, self.cfg.k_neg)
+
+
+def first_batch(cfg: TrainConfig, task: AlignTask, parts: StepParts, dev: torch.device,
+                boot: tuple[torch.Tensor, torch.Tensor] | None = None) -> dict:
+    """Epoch 0's batch as ``train_loop`` builds it: the seed pairs, the
+    placeholder proposals (or ``boot``), uniform negatives and the
+    trainer's draws."""
+    make = IntervalBatch(cfg, task, dev)
+    batch = make(boot if boot is not None else make.placeholder)
+    make.uniform(batch, 0)
+    if parts.draw_extra is not None:
+        batch.update(parts.draw_extra(0))
+    return batch
 
 
 def load_task(cfg: TrainConfig) -> AlignTask:
@@ -84,7 +167,14 @@ def load_task(cfg: TrainConfig) -> AlignTask:
             train_ratio=cfg.train_ratio,
             name=f"synthetic-{cfg.pair}",
         )
-    raise NotImplementedError(f"dataset {cfg.dataset!r} is not ported yet (synthetic only)")
+    if cfg.dataset == "dbp15k":
+        return load_dbp15k(cfg.data_root, cfg.pair, train_ratio=cfg.train_ratio, seed=cfg.seed)
+    if cfg.dataset == "openea":
+        # openea_fold selects the official 721_5fold split (0: the seeded
+        # train_ratio split)
+        return load_openea(cfg.data_root, train_ratio=cfg.train_ratio, seed=cfg.seed,
+                           fold=cfg.openea_fold if cfg.openea_fold > 0 else None)
+    raise ValueError(f"unknown dataset {cfg.dataset!r}")
 
 
 def build_model(cfg: TrainConfig, task: AlignTask,
@@ -117,20 +207,36 @@ def interval_generator(cfg: TrainConfig, epoch0: int, stream: int = 0) -> torch.
     return torch.Generator().manual_seed(cfg.seed * 1_000_003 + epoch0 + (stream << 40))
 
 
+def step_seed(cfg: TrainConfig, epoch: int) -> int:
+    """The seed of one training step's dropout mask, from (seed, epoch): the
+    counterpart of the JAX step key."""
+    return cfg.seed * 1_000_003 + epoch + (4 << 40)
+
+
 def step_generator(cfg: TrainConfig, epoch: int, dev: torch.device) -> torch.Generator:
     """The generator of one training step's dropout mask, on the run's
-    device, from (seed, epoch): the counterpart of the JAX step key."""
-    return torch.Generator(device=dev).manual_seed(cfg.seed * 1_000_003 + epoch + (4 << 40))
+    device (``step_seed``)."""
+    return torch.Generator(device=dev).manual_seed(step_seed(cfg, epoch))
 
 
 def check_trainable(cfg: TrainConfig) -> None:
-    """Refuse, before any work, a config that needs an unported part."""
+    """Refuse, before any work, a config that needs an unported part, and
+    what the JAX trainers refuse of the fused interval."""
     if cfg.neg_every < 1:
         raise ValueError("neg_every must be >= 1 (to effectively never resample, set "
                          "neg_every >= epochs)")
+    steps = max(1, cfg.steps_per_call)
+    if steps > 1 and steps != cfg.neg_every:
+        raise ValueError("steps_per_call > 1 requires steps_per_call == neg_every "
+                         "(one fused dispatch per resample interval)")
+    if steps > 1 and cfg.epochs % steps:
+        raise ValueError(
+            f"epochs={cfg.epochs} is not a multiple of steps_per_call={steps}: the fused "
+            f"interval always runs a full {steps}-epoch scan, so the run would silently "
+            f"train past cfg.epochs — adjust one of them")
+    if steps > 1 and cfg.profile_dir:
+        raise ValueError("profile_dir requires steps_per_call=1 (per-epoch trace windows)")
     unported = {
-        "steps_per_call > 1 (the fused interval)": cfg.steps_per_call > 1,
-        "profile_dir": bool(cfg.profile_dir),
         f"param_dtype={cfg.param_dtype!r} training (float32 only)":
             cfg.param_dtype != "float32",
         "the distributed trainer": max(cfg.n_shards, cfg.feature_shards,
@@ -148,6 +254,25 @@ def check_trainable(cfg: TrainConfig) -> None:
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def _start_profile(dev: torch.device) -> torch.profiler.profile:
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof: torch.profiler.profile, dev: torch.device, directory: str,
+                  first: int, last: int) -> None:
+    """Stop the trace and write it as ``trace-epochs-<first>-<last>.json``
+    (Chrome trace format) under ``directory``."""
+    _sync(dev)
+    prof.stop()
+    os.makedirs(directory, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(directory, f"trace-epochs-{first}-{last}.json"))
 
 
 def _check_resume(cfg: TrainConfig, state: dict, n_rows: int,
@@ -174,50 +299,33 @@ def _check_resume(cfg: TrainConfig, state: dict, n_rows: int,
             f"(k_neg or boot_cap changed); retrain or point checkpoint_dir elsewhere")
 
 
-def train_loop(cfg: TrainConfig, task: AlignTask, op: EllOperator, model: torch.nn.Module,
-               loss_fn: Callable[[dict, torch.Generator | None], tuple[torch.Tensor, dict]],
-               embed_fn: Callable[[], torch.Tensor], dev: torch.device,
-               verbose: bool = False,
-               draw_extra: Callable[[int], dict[str, torch.Tensor]] | None = None,
-               extra_keys: tuple[str, ...] = ()) -> TrainResult:
-    """The epoch loop shared by ``fit`` and ``fit_mtl``: ``loss_fn(batch,
-    generator)`` returns (loss, aux) with grad for a training forward, whose
-    dropout mask (if any) comes from ``generator``; ``embed_fn()`` the
-    evaluation table, which the evals, proposals and mining read.
-    ``draw_extra(epoch0)`` returns the entries ``extra_keys`` that each
-    interval adds to the batch; a checkpoint saves them.  A checkpoint's
-    ``params.pt`` holds what the evaluation table reads
-    (``convert.embed_params``)."""
+def train_loop(cfg: TrainConfig, task: AlignTask, parts: StepParts, dev: torch.device,
+               verbose: bool = False) -> TrainResult:
+    """The epoch loop shared by ``fit`` and ``fit_mtl`` over a trainer's
+    ``parts`` (``StepParts``); a checkpoint saves the interval's draws
+    ``parts.extra_keys``.  A checkpoint's ``params.pt`` holds what the
+    evaluation table reads (``convert.embed_params``)."""
     t_setup = time.perf_counter()
-    opt, sched = make_optimizer(cfg, model.parameters())
-    pairs = torch.as_tensor(np.asarray(task.train_pairs), dtype=torch.int64, device=dev)
+    model, op, loss_fn, embed_fn = parts.model, parts.op, parts.loss_fn, parts.embed_fn
+    draw_extra, extra_keys = parts.draw_extra, parts.extra_keys
+    steps = max(1, cfg.steps_per_call)
+    captured_on_card = steps > 1 and dev.type == "cuda"
+    opt, sched = make_optimizer(cfg, model.parameters(), capturable=captured_on_card)
+    interval_batch = IntervalBatch(cfg, task, dev)
+    pairs = interval_batch.pairs
     n1, n = task.kg1.n_ent, task.n_ent
     logger = MetricsLogger(cfg.metrics_path, config=cfg.to_dict(), tb_dir=cfg.tb_dir)
     history, losses = [], []
-    timings = {"load_s": 0.0, "train_s": 0.0, "step_s": [], "forward_s": 0.0,
-               "propose_s": 0.0, "mine_s": 0.0, "draw_s": 0.0, "eval_s": 0.0,
-               "final_eval_s": 0.0, "save_s": 0.0,
+    timings = {"load_s": 0.0, "train_s": 0.0, "step_s": [], "capture_s": 0.0,
+               "forward_s": 0.0, "propose_s": 0.0, "mine_s": 0.0, "draw_s": 0.0,
+               "eval_s": 0.0, "final_eval_s": 0.0, "save_s": 0.0,
                "steps": 0, "forwards": 0, "proposals": 0, "minings": 0, "draws": 0, "evals": 0,
                "saves": 0}
 
-    use_boot = cfg.boot_cap > 0
+    use_boot = interval_batch.use_boot
     if use_boot:
-        mask1 = torch.ones(n1, dtype=torch.bool, device=dev)
-        mask1[pairs[:, 0]] = False
-        mask2 = torch.ones(n - n1, dtype=torch.bool, device=dev)
-        mask2[pairs[:, 1] - n1] = False
-        ones_seed = torch.ones(pairs.shape[0], dtype=torch.float32, device=dev)
-        placeholder = (torch.tensor([0, n1], device=dev).repeat(cfg.boot_cap, 1),
-                       torch.zeros(cfg.boot_cap, dtype=torch.float32, device=dev))
-
-    def interval_batch(boot, neg_l=None, neg_r=None):
-        """The seed pairs, with the proposals ``boot`` and their weights for
-        the margin loss when bootstrapping."""
-        batch = {"pairs": pairs, "neg_l": neg_l, "neg_r": neg_r}
-        if use_boot:
-            batch["pairs_aug"] = torch.cat([pairs, boot[0]])
-            batch["w"] = torch.cat([ones_seed, boot[1] * cfg.boot_weight])
-        return batch
+        mask1, mask2 = interval_batch.mask1, interval_batch.mask2
+        placeholder = interval_batch.placeholder
 
     def timed(key, count, fn):
         t0 = time.perf_counter()
@@ -242,10 +350,17 @@ def train_loop(cfg: TrainConfig, task: AlignTask, op: EllOperator, model: torch.
     restored = ckpt.restore_latest(dev)
     if restored is not None:
         epoch, state = restored
+        if steps > 1 and (epoch + 1) % steps:
+            raise ValueError(
+                f"checkpoint at {cfg.checkpoint_dir!r} resumes at epoch {epoch + 1}, "
+                f"mid-interval for steps_per_call={steps} — it was saved under "
+                f"steps_per_call=1 (fused chunks always save at interval ends); resume with "
+                f"steps_per_call=1 or retrain.  A misaligned fused resume would silently "
+                f"train past cfg.epochs with wrong interval keys")
         _check_resume(cfg, state, pairs.shape[0] + (cfg.boot_cap if use_boot else 0),
                       extra_keys)
         model.load_state_dict(state["model"])
-        opt.load_state_dict(state["opt"])
+        load_optimizer_state(opt, state["opt"])
         sched.load_state_dict(state["sched"])
         boot = (state["boot_pairs"], state["boot_w"]) if use_boot else None
         batch = interval_batch(boot, state["neg_l"], state["neg_r"])
@@ -255,21 +370,33 @@ def train_loop(cfg: TrainConfig, task: AlignTask, op: EllOperator, model: torch.
     timings["start_epoch"] = start_epoch
 
     def save_now(epoch):
-        state = {"model": model.state_dict(), "opt": opt.state_dict(),
-                 "sched": sched.state_dict(), "neg_l": batch["neg_l"], "neg_r": batch["neg_r"],
+        neg_l, neg_r, boot_s = batch["neg_l"], batch["neg_r"], boot
+        if steps > 1:  # a fused resume starts at a boundary and re-mines (and re-proposes)
+            neg_l = neg_r = torch.zeros_like(neg_l)
+            boot_s = placeholder if use_boot else None
+        state = {"model": model.state_dict(), "opt": optimizer_state(opt),
+                 "sched": sched.state_dict(), "neg_l": neg_l, "neg_r": neg_r,
                  "loss": loss.detach()}
         if use_boot:
-            state["boot_pairs"], state["boot_w"] = boot
+            state["boot_pairs"], state["boot_w"] = boot_s
         if extra_keys:
             state["extra"] = {k: batch[k] for k in extra_keys}
         timed("save_s", "saves",
               lambda: ckpt.save(epoch, state, embed_params(model.state_dict())))
 
+    def eager_step(epoch):
+        gen = step_generator(cfg, epoch, dev) if cfg.dropout > 0.0 else None
+        out = train_step(opt, loss_fn, batch, gen)
+        sched.step()
+        return out
+
+    captured = None
+    prof = None  # the profiler, from start_epoch + 2 until it is stopped
     t_start = time.perf_counter()
     timings["setup_s"] = t_start - t_setup - timings["load_s"]
     ckpt.install_preemption_handler()
     try:
-        for epoch in range(start_epoch, cfg.epochs):
+        for epoch in range(start_epoch, cfg.epochs, steps):
             if epoch % cfg.neg_every == 0 or batch is None:
                 epoch0 = epoch - epoch % cfg.neg_every
                 propose = use_boot and epoch >= cfg.boot_start and epoch > 0
@@ -289,47 +416,64 @@ def train_loop(cfg: TrainConfig, task: AlignTask, op: EllOperator, model: torch.
                                                       approx=cfg.neg_approx,
                                                       csls_k=cfg.neg_csls_k))
                 else:
-                    batch["neg_l"], batch["neg_r"] = sample_uniform_negatives(
-                        interval_generator(cfg, epoch0), pairs_t, n1, n, cfg.k_neg)
+                    interval_batch.uniform(batch, epoch0)
                 if draw_extra is not None:
                     batch.update(timed("draw_s", "draws", lambda: draw_extra(epoch0)))
                 del emb
+            if cfg.profile_dir and epoch == start_epoch + 2:
+                prof = _start_profile(dev)
+            if captured_on_card and captured is None:
+                t0 = time.perf_counter()
+                captured = CapturedStep(opt, loss_fn, batch, dev, cfg.dropout > 0.0)
+                _sync(dev)
+                timings["capture_s"] = time.perf_counter() - t0
             t0 = time.perf_counter()
-            opt.zero_grad(set_to_none=True)
-            gen = step_generator(cfg, epoch, dev) if cfg.dropout > 0.0 else None
-            loss, aux = loss_fn(batch, gen)
-            loss.backward()
-            opt.step()
-            sched.step()
-            losses.append(loss.detach())
+            if captured is not None:  # the interval's steps as replays, no synchronise
+                captured.load(batch)
+                for i in range(steps):
+                    losses.append(captured.replay(step_seed(cfg, epoch + i)))
+                    sched.step()
+                loss, aux = losses[-1], {k: v.clone() for k, v in captured.aux.items()}
+            else:
+                for i in range(steps):
+                    loss, aux = eager_step(epoch + i)
+                    losses.append(loss)
             _sync(dev)
-            timings["step_s"].append(time.perf_counter() - t0)
-            timings["train_s"] += timings["step_s"][-1]
-            timings["steps"] += 1
-            if ckpt.enabled and ((epoch > 0 and epoch % cfg.checkpoint_every == 0)
-                                 or epoch >= cfg.epochs - 1 or ckpt.preempted):
-                save_now(epoch)
-            if cfg.eval_every and (epoch % cfg.eval_every == 0 or epoch >= cfg.epochs - 1):
+            dt = time.perf_counter() - t0
+            timings["step_s"].append(dt / steps)
+            timings["train_s"] += dt
+            timings["steps"] += steps
+            if prof is not None and epoch >= start_epoch + 5:
+                _stop_profile(prof, dev, cfg.profile_dir, start_epoch + 2, epoch)
+                prof = None
+            last = epoch + steps - 1  # the interval's last epoch: the JAX fused windows
+            if ckpt.enabled and ((last > 0 and last % cfg.checkpoint_every < steps)
+                                 or last >= cfg.epochs - 1 or ckpt.preempted):
+                save_now(last)
+            if cfg.eval_every and (last % cfg.eval_every < steps or last >= cfg.epochs - 1):
                 _, m, _ = evaluate_now(cfg.eval_approx_k)  # the history: shortlists if set
                 wall = time.perf_counter() - t_start
                 rec = {
-                    "epoch": epoch,
+                    "epoch": last,
                     "loss": loss.item(),
                     "wall_s": round(wall, 3),
                     # epochs run in this process: the wall covers only those
                     "edges_per_s": round(epoch_edge_ops(op.nnz, cfg.use_attr_channel)
-                                         * (epoch + 1 - start_epoch) / max(wall, 1e-9), 1),
+                                         * (last + 1 - start_epoch) / max(wall, 1e-9), 1),
                     **{f"loss_{k}": v.item() for k, v in aux.items()},
                     **{k: round(v, 4) for k, v in m.items()},
                 }
                 history.append(rec)
                 logger.log(rec)
                 if verbose:
-                    print(f"[{cfg.name}] epoch {epoch} loss {rec['loss']:.4f} "
+                    print(f"[{cfg.name}] epoch {last} loss {rec['loss']:.4f} "
                           f"hits@1 {m['hits@1']:.3f} hits@10 {m['hits@10']:.3f}")
             if ckpt.preempted:
-                save_now(epoch)  # the latch may have fired after the save above
+                save_now(last)  # the latch may have fired after the save above
                 break  # exit cleanly for a relaunch
+        if prof is not None:  # a run that ended before start_epoch + 5
+            _stop_profile(prof, dev, cfg.profile_dir, start_epoch + 2, last)
+            prof = None
         final_emb, final, timings["final_eval_s"] = evaluate_now(0)  # always exact
         final["final_loss"] = loss.item()
         if cfg.save_emb_path:  # hand the table to the serving path (tpugraph_torch.serve)
@@ -337,6 +481,8 @@ def train_loop(cfg: TrainConfig, task: AlignTask, op: EllOperator, model: torch.
 
             save_embeddings(cfg.save_emb_path, final_emb)
     finally:
+        if prof is not None:
+            prof.stop()
         ckpt.restore_handler()
         logger.close()
     return TrainResult(params={k: v.detach() for k, v in model.state_dict().items()},
@@ -350,13 +496,9 @@ def build_operator(cfg: TrainConfig, task: AlignTask, dev: torch.device) -> EllO
                            weighting=cfg.weighting, norm=cfg.norm, fmt="ell").to(dev)
 
 
-def fit(cfg: TrainConfig, task: AlignTask | None = None, verbose: bool = False,
-        device: str | torch.device = "cuda") -> TrainResult:
-    """Train an AlignGCN with the margin loss per ``cfg`` (configs ``base``
-    and ``highway``); parameters start from ``init_params(seed=cfg.seed)``."""
-    dev = resolve_device(device)
-    check_trainable(cfg)
-    task = task or load_task(cfg)
+def margin_parts(cfg: TrainConfig, task: AlignTask, dev: torch.device) -> StepParts:
+    """``fit``'s model (AlignGCN, from ``init_params(seed=cfg.seed)``) and
+    margin loss over the batch's margin pairs and weights."""
     op = build_operator(cfg, task, dev)
     model = build_model(cfg, task, device=dev)
     model.load_state_dict(init_params(task.n_ent, cfg.dim, cfg.hidden, seed=cfg.seed,
@@ -368,4 +510,14 @@ def fit(cfg: TrainConfig, task: AlignTask | None = None, verbose: bool = False,
                                  batch["neg_l"], batch["neg_r"], cfg.gamma, batch.get("w"))
         return loss, {"margin": loss}
 
-    return train_loop(cfg, task, op, model, loss_fn, lambda: embed(model, op), dev, verbose)
+    return StepParts(model, op, loss_fn, lambda: embed(model, op))
+
+
+def fit(cfg: TrainConfig, task: AlignTask | None = None, verbose: bool = False,
+        device: str | torch.device = "cuda") -> TrainResult:
+    """Train an AlignGCN with the margin loss per ``cfg`` (configs ``base``
+    and ``highway``; ``margin_parts``)."""
+    dev = resolve_device(device)
+    check_trainable(cfg)
+    task = task or load_task(cfg)
+    return train_loop(cfg, task, margin_parts(cfg, task, dev), dev, verbose)

@@ -1,10 +1,13 @@
 """Multi-task training loop (counterpart of ``tpugraph/train/mtl.py``):
 configs ``sinkhorn`` and ``mtl`` and recipes v5–v7r, over AlignMTL.
 
-The epoch schedule is ``train/loop.py::train_loop``'s, which is the JAX
-package's plain path (``steps_per_call = 1``): uniform negatives at epoch
-0, bootstrap proposals and hard mining at each later ``neg_every``
-boundary, eval at ``eval_every`` and at the end, checkpoints and resume.
+The epoch schedule is ``train/loop.py::train_loop``'s, the JAX package's:
+uniform negatives at epoch 0, bootstrap proposals and hard mining at each
+later ``neg_every`` boundary, eval at ``eval_every`` and at the end,
+checkpoints and resume; with ``steps_per_call = neg_every`` the fused
+interval (on the card a captured step, replayed; ``train/fused.py``), with
+the JAX ``fit_mtl``'s refusals (``loop.check_trainable``).  A fused save
+keeps the interval's draws, as the JAX one keeps its batch.
 At each boundary ``fit_mtl`` adds its own draws to the batch, each from
 a host generator derived from (seed, the interval's first epoch)
 (``loop.interval_generator``): the relation head's corrupted tails and
@@ -37,8 +40,9 @@ from tpugraph_torch.models.align import AlignMTL, init_mtl_params
 from tpugraph_torch.models.attr_channel import build_attr_operator
 from tpugraph_torch.sparse.ell import EllOperator
 from tpugraph_torch.sparse.graph import AlignTask
-from tpugraph_torch.train.loop import (TrainResult, build_operator, check_trainable,
-                                       interval_generator, load_task, train_loop)
+from tpugraph_torch.train.loop import (StepParts, TrainResult, build_operator,
+                                       check_trainable, interval_generator, load_task,
+                                       train_loop)
 
 OT_PAIRS_MAX = 8192  # the JAX package's guard on the S×S OT problem
 ATTR_BATCH_MAX = 8192  # attribute triples per interval
@@ -111,15 +115,11 @@ def draw_interval(cfg: TrainConfig, epoch0: int, pairs: torch.Tensor, n_ent: int
     return out
 
 
-def fit_mtl(cfg: TrainConfig, task: AlignTask | None = None, verbose: bool = False,
-            device: str | torch.device = "cuda") -> TrainResult:
-    """Train AlignMTL per ``cfg``; parameters start from
-    ``init_mtl_params(seed=cfg.seed)``."""
-    dev = resolve_device(device)
-    check_trainable(cfg)
-    task = task or load_task(cfg)
+def mtl_parts(cfg: TrainConfig, task: AlignTask, dev: torch.device) -> StepParts:
+    """``fit_mtl``'s model (AlignMTL, from ``init_mtl_params(seed=cfg.seed)``),
+    its loss over the batch and the constant relation triples, its
+    evaluation table (``AlignMTL.embed``) and its per-interval draws."""
     attr_np = attr_triples_of(cfg, task)
-    check_ot_size(cfg, len(task.train_pairs))
     op = build_operator(cfg, task, dev)
     attr_op = attr_operator(cfg, task, dev)
     n_attr = max(task.n_attr, 1)
@@ -146,5 +146,15 @@ def fit_mtl(cfg: TrainConfig, task: AlignTask | None = None, verbose: bool = Fal
             return model.embed(op, attr_op)
 
     keys = interval_keys(cfg, len(pairs))
-    return train_loop(cfg, task, op, model, loss_fn, embed_fn, dev, verbose,
-                      draw_extra=draw if keys else None, extra_keys=keys)
+    return StepParts(model, op, loss_fn, embed_fn, draw if keys else None, keys)
+
+
+def fit_mtl(cfg: TrainConfig, task: AlignTask | None = None, verbose: bool = False,
+            device: str | torch.device = "cuda") -> TrainResult:
+    """Train AlignMTL per ``cfg`` (``mtl_parts``)."""
+    dev = resolve_device(device)
+    check_trainable(cfg)
+    task = task or load_task(cfg)
+    attr_triples_of(cfg, task)
+    check_ot_size(cfg, len(task.train_pairs))
+    return train_loop(cfg, task, mtl_parts(cfg, task, dev), dev, verbose)

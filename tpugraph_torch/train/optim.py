@@ -14,6 +14,14 @@ optax applies ``schedule(count)`` to the count-th update (count from 0);
 frameworks see the same lr sequence.  ``torch.optim.Adam`` and
 ``optax.adam`` share their defaults (β = (0.9, 0.999), ε = 1e-8 added to
 the bias-corrected √v̂) and put ε in the same place.
+
+The fused interval on the card (``train/fused.py``) replays a captured
+step, so its Adam is ``capturable``: the step count lives on the device
+and the learning rate in a device tensor, which ``LambdaLR`` fills in place
+between replays (``torch.optim.lr_scheduler._update_param_group_val``).  The
+schedule is the same.  ``optimizer_state`` / ``load_optimizer_state`` keep
+a checkpoint in one form, so that a run of either mode resumes the
+other's.
 """
 
 from __future__ import annotations
@@ -38,13 +46,44 @@ def lr_factor(t: float, total: int, schedule: str = "const", warmup: int = 0,
     return wu * dec
 
 
-def make_optimizer(cfg, params: Iterable[torch.nn.Parameter]
+def make_optimizer(cfg, params: Iterable[torch.nn.Parameter], capturable: bool = False
                    ) -> tuple[torch.optim.Adam, torch.optim.lr_scheduler.LambdaLR]:
     """(Adam, LambdaLR) for ``cfg``; call ``sched.step()`` after each
-    ``opt.step()``."""
+    ``opt.step()``.  ``capturable``: Adam for a captured step (CUDA
+    parameters), its learning rate a tensor on their device."""
     lr_factor(0, cfg.epochs, cfg.lr_schedule)  # rejects an unknown schedule now
-    opt = torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+    params = list(params)
+    lr = torch.tensor(cfg.lr, device=params[0].device) if capturable else cfg.lr
+    opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, capturable=capturable)
+    for group in opt.param_groups:
+        group["initial_lr"] = cfg.lr  # the schedule's base stays a float
     sched = torch.optim.lr_scheduler.LambdaLR(
         opt, lambda t: lr_factor(t, cfg.epochs, cfg.lr_schedule, cfg.lr_warmup,
                                  cfg.lr_final_frac))
     return opt, sched
+
+
+def optimizer_state(opt: torch.optim.Adam) -> dict:
+    """Adam's state dict in the form of a plain (not capturable) Adam: the
+    learning rates as floats (a capturable Adam's, its float32 tensor's
+    value), each step count a CPU float32 scalar."""
+    sd = opt.state_dict()
+    groups = [{**g, "lr": float(g["lr"]), "capturable": False} for g in sd["param_groups"]]
+    state = {i: {**st, "step": st["step"].detach().to("cpu", torch.float32)}
+             for i, st in sd["state"].items()}
+    return {"state": state, "param_groups": groups}
+
+
+def load_optimizer_state(opt: torch.optim.Adam, sd: dict) -> None:
+    """Load ``optimizer_state``'s form into ``opt``, which keeps its own
+    mode: its ``capturable`` flag (so the step counts move to the
+    parameters' device) and, when capturable, its learning-rate tensor,
+    filled with the saved value."""
+    live = [g["lr"] for g in opt.param_groups]
+    opt.load_state_dict({"state": sd["state"], "param_groups": [
+        {**saved, "capturable": g["capturable"]}
+        for g, saved in zip(opt.param_groups, sd["param_groups"], strict=True)]})
+    for group, lr in zip(opt.param_groups, live):
+        if isinstance(lr, torch.Tensor):  # the tensor a captured step reads
+            lr.fill_(float(group["lr"]))
+            group["lr"] = lr
