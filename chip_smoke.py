@@ -104,11 +104,32 @@ Phases, each printing one JSON line:
              resumed at its interval boundary, and a mid-interval
              checkpoint refused.
 13. profile — a 6-epoch ``base`` run with ``profile_dir``: the trace of
-             epochs 2-5 it writes and its top device operations.
+             epochs 2-5 it writes and its top device operations; a fused
+             ``sinkhorn`` run (``fit_mtl``, captured) with ``profile_dir``:
+             the trace of the intervals holding epochs 2-5.
 14. readers — the zh-en task written as a DBP15K and as an OpenEA
              directory, read back by the port's readers and held to the
              task (each load timed), and the trainer CLI on the DBP15K
              directory for 2 epochs.
+15. bf16    — the ELL SpMM's bf16 instance on Aᵀ at d = 256 and 128 (in
+             phase 3's kernel lines), then bf16 training: recipe v6 at dim
+             256 cut as phase 6 is, and config base at dim 128, 20 epochs:
+             launches, one step against the plain path at the bf16
+             tolerance (``STEP_TOL``), the forward + backward against the
+             same parameters in fp32.
+16. sorted  — the sorted-segment SpMM kernel on A and Aᵀ of the zh-en
+             adjacency, fp32 and bf16, against its plain version; at
+             d = 128 timed beside its bound and ``torch.sparse.mm``, with the
+             hub rows' device time apart; then config base with
+             ``spmm_impl`` ell fp32, sorted fp32 and sorted bf16 for 20
+             epochs (sorted's final loss within rel 1e-3 of ell's), one step
+             of each sorted run against the plain path.  Phase 12 replays a
+             captured interval of sorted ``base`` and of bf16 v6.
+17. native  — the native adjacency builder against the numpy one at
+             zh-en scale (timed, held equal).
+18. debug_nans — a poisoned run (learning rate 1e30) with ``debug_nans``
+             raises FloatingPointError unfused (naming the epoch) and fused
+             (naming the captured interval).
 
 A step is held against its plain path by running the same model code with
 every kernel swapped for its plain version (``_plain_kernels``), which
@@ -141,7 +162,10 @@ from tpugraph_torch.configs.configs import TrainConfig, get_config
 from tpugraph_torch.configs.recipes import RECIPES
 from tpugraph_torch.convert import save_params
 from tpugraph_torch.data import load_dbp15k, load_openea, synthetic_align_task
+from tpugraph_torch import native
 from tpugraph_torch.kernels import _build, gcn_fused, shortlist_dist, sinkhorn_fused, spmm_ell
+from tpugraph_torch.kernels import spmm as spmm_mod
+from tpugraph_torch.kernels.spmm import row_plan, segment_spmm, sorted_spmm, spmm_xla
 from tpugraph_torch.kernels.gcn_fused import fused_gcn_layer, reference_layer
 from tpugraph_torch.kernels.sinkhorn_fused import (PRECISION, stream_plan,
                                                    sinkhorn_potential_update,
@@ -159,13 +183,15 @@ from tpugraph_torch.models.align import AlignMTL
 from tpugraph_torch.models.attr_channel import build_attr_operator
 from tpugraph_torch.models.encoder import AlignGCN, init_params
 from tpugraph_torch.serve import save_embeddings, topk_alignments
-from tpugraph_torch.sparse.build import build_adjacency
+from tpugraph_torch.nn.graphconv import operator_format
+from tpugraph_torch.sparse.build import build_adjacency, coo_from_triples, coo_normalize
 from tpugraph_torch.train.checkpoint import Checkpointer
 from tpugraph_torch.train.driver import evaluate, run, step_parts, uses_mtl
 from tpugraph_torch.train.bootstrap import propose_mutual_nn_pairs
 from tpugraph_torch.train.eval import _both_direction_ranks
 from tpugraph_torch.train.fused import CapturedStep, train_step
-from tpugraph_torch.train.loop import embed, first_batch, step_generator, step_seed
+from tpugraph_torch.train.loop import (build_model, embed, first_batch, step_generator,
+                                       step_seed)
 from tpugraph_torch.train.losses import margin_align_loss
 from tpugraph_torch.train.metrics import epoch_edge_ops
 from tpugraph_torch.train.mtl import draw_interval
@@ -266,7 +292,7 @@ def phase_device() -> str:
     return smi
 
 
-KERNELS = ("gcn_fused", "spmm_ell", "sinkhorn_fused", "shortlist_dist")
+KERNELS = ("gcn_fused", "spmm_ell", "sinkhorn_fused", "shortlist_dist", "spmm_sorted")
 
 
 def phase_build() -> None:
@@ -473,10 +499,14 @@ def _spmm_split(m, diag, g, hub_ks=(256, 1024)) -> dict:
             for name, part in parts}
 
 
-def phase_spmm(task, smi: str, dev: torch.device, d: int = 128, split: bool = True) -> dict:
+def phase_spmm(task, smi: str, dev: torch.device, d: int = 128, split: bool = True,
+               dtype: torch.dtype = torch.float32) -> dict:
     """The ELL SpMM kernel where training runs it: u = Aᵀ·ḡ over the
-    transpose operator, fp32, at width ``d``; ``split`` adds the device
-    time of parts of its work and a call's host time."""
+    transpose operator, at width ``d``, in ``dtype`` (fp32, or bf16 under
+    bf16 training); ``split`` adds the device time of parts of its work
+    and a call's host time.  A bf16 result is held to the fp32 plain
+    version of the same bf16 input within half a bf16 ulp (one rounding of
+    fp32 sums), and to the bf16 plain version at the bf16 tolerance."""
     op = build_adjacency(task.n_ent, task.merged_triples, n_rel=task.n_rel).to(dev)
     m = op.bwd
     plan = fused_plan(m)
@@ -489,24 +519,35 @@ def phase_spmm(task, smi: str, dev: torch.device, d: int = 128, split: bool = Tr
           "card": smi})
     at_csr = _csr_of(m, op.diag)
     rng = np.random.default_rng(1)
-    g = torch.from_numpy(rng.standard_normal((task.n_ent, d)).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((task.n_ent, d)).astype(np.float32)).to(dev, dtype)
     got = ell_spmm(m, op.diag, g)
     sync(dev)
     want = apply_with_diag(m, op.diag, g)
-    torch.testing.assert_close(got, want, **TOL[torch.float32])
-    err = float((got - want).abs().max())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **TOL[torch.float32])
+    else:
+        torch.testing.assert_close(got.float(), apply_with_diag(m, op.diag, g.float()),
+                                   rtol=2 ** -8, atol=1e-3)
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    err = float((got.float() - want.float()).abs().max())
     if not torch.equal(got, ell_spmm(m, op.diag, g)):  # the segments' sums run in a fixed order
         raise AssertionError("spmm_ell: two launches on the same input differ")
     seg = segment_plan(m)
-    lib = torch.sparse.mm(at_csr, g)
-    torch.testing.assert_close(lib, want, **TOL[torch.float32])
+    lib_ms = lib_dev = lib_cold = lib_refused = None
+    try:
+        a_lib = at_csr.to(dtype)
+        lib = torch.sparse.mm(a_lib, g)
+    except RuntimeError as e:  # a refusal of bf16 by the library is the finding
+        lib_refused = str(e).splitlines()[0][:200]
+    if lib_refused is None:
+        torch.testing.assert_close(lib.float(), want.float(), **TOL[dtype])
+        lib_ms = time_ms(lambda: torch.sparse.mm(a_lib, g))
+        lib_dev = device_ms(lambda: torch.sparse.mm(a_lib, g))
+        lib_cold = time_cold_ms(lambda: torch.sparse.mm(a_lib, g))
     ms = time_ms(lambda: ell_spmm(m, op.diag, g))
     ms_cold = time_cold_ms(lambda: ell_spmm(m, op.diag, g))
     plain_ms = time_ms(lambda: apply_with_diag(m, op.diag, g), iters=5)
-    lib_ms = time_ms(lambda: torch.sparse.mm(at_csr, g))
     dev_ms = device_ms(lambda: ell_spmm(m, op.diag, g))
-    lib_dev = device_ms(lambda: torch.sparse.mm(at_csr, g))
-    lib_cold = time_cold_ms(lambda: torch.sparse.mm(at_csr, g))
     host = host_ms(lambda: ell_spmm(m, op.diag, g)) if split else None
     lib_host = host_ms(lambda: torch.sparse.mm(at_csr, g)) if split else None
     split = _spmm_split(m, op.diag, g) if split else None
@@ -514,21 +555,23 @@ def phase_spmm(task, smi: str, dev: torch.device, d: int = 128, split: bool = Tr
     # once; 2 operations per real edge (diagonal included) and column
     ell_bytes = sum(b.rows.numel() * 4 + b.idx.numel() * 4 + b.w.numel() * 4
                     for b in m.buckets)
-    nbytes = 2 * m.n_rows * d * 4 + op.diag.numel() * 4 + ell_bytes
-    bound, bound_by = _bound(nbytes, 2 * (m.nnz + op.n_diag) * d)
-    emit({"phase": "kernel", "kernel": "spmm_ell", "operator": "transpose", "dtype": "float32",
-          "d": d, "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "ms_cold_l2": ms_cold,
-          "plain_ms": plain_ms, "library_ms": lib_ms, "library_device_ms": lib_dev,
-          "library_ms_cold_l2": lib_cold, "host_ms": host, "library_host_ms": lib_host,
+    nbytes = 2 * m.n_rows * d * g.element_size() + op.diag.numel() * 4 + ell_bytes
+    bound, bound_by = _bound(nbytes, 2 * (m.nnz + op.n_diag) * d)  # fp32 sums either way
+    emit({"phase": "kernel", "kernel": "spmm_ell", "operator": "transpose",
+          "dtype": str(dtype).split(".")[1], "d": d, "max_abs_err": err, "ms": ms,
+          "device_ms": dev_ms, "ms_cold_l2": ms_cold, "plain_ms": plain_ms, "library_ms": lib_ms,
+          "library_device_ms": lib_dev, "library_ms_cold_l2": lib_cold,
+          "library_refused": lib_refused, "host_ms": host, "library_host_ms": lib_host,
           "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / ms,
           "share_of_bound_device": ratio(bound, dev_ms), "bit_identical_runs": True,
           "seg_cap": SEG_SLOTS, "work_items": int(seg.items.shape[0]),
           "longest_item_slots": seg.max_item_slots, "cut_rows": int(seg.split_p0.shape[0] - 1),
           "split": split, "card": smi})
-    return dict(d=d, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=bound_by, library_ms=lib_ms, device_ms=dev_ms, ms_cold_l2=ms_cold,
-                library_device_ms=lib_dev, seg_cap=SEG_SLOTS,
-                work_items=int(seg.items.shape[0]), longest_item_slots=seg.max_item_slots)
+    return dict(d=d, dtype=str(dtype).split(".")[1], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=bound_by, library_ms=lib_ms, device_ms=dev_ms,
+                ms_cold_l2=ms_cold, library_device_ms=lib_dev, library_refused=lib_refused,
+                seg_cap=SEG_SLOTS, work_items=int(seg.items.shape[0]),
+                longest_item_slots=seg.max_item_slots)
 
 
 def _sinkhorn_inputs(dev: torch.device, s: int = 4500, d: int = 128, rows: int | None = None):
@@ -693,12 +736,22 @@ def _launch_counts() -> dict:
     return {"gcn_fused": gcn_fused.launches, "spmm_ell": spmm_ell.launches,
             "sinkhorn_fused": sinkhorn_fused.launches,
             "shortlist_dist": shortlist_dist.select_launches,
-            "shortlist_gather": shortlist_dist.launches}
+            "shortlist_gather": shortlist_dist.launches, "spmm_sorted": spmm_mod.launches}
 
 
 def _reset_launch_counts() -> None:
     gcn_fused.launches = spmm_ell.launches = sinkhorn_fused.launches = 0
-    shortlist_dist.launches = shortlist_dist.select_launches = 0
+    shortlist_dist.launches = shortlist_dist.select_launches = spmm_mod.launches = 0
+
+
+def _sorted_launches(cfg, counts: dict) -> dict:
+    """The ELL model's launches moved to the sorted kernel for ``spmm_impl``
+    sorted: each fused layer is one sorted SpMM forward, each ELL SpMM (a
+    layer's backward, the incidence) one sorted SpMM."""
+    if operator_format(cfg.spmm_impl) != "sorted":
+        return {**counts, "spmm_sorted": 0}
+    return {**counts, "gcn_fused": 0, "spmm_ell": 0,
+            "spmm_sorted": counts["gcn_fused"] + counts["spmm_ell"]}
 
 
 def _shortlist_launches(cfg, task, t: dict) -> int:
@@ -738,18 +791,20 @@ def _expected_launches(cfg, t: dict, task) -> dict:
     approximate search paths (``_shortlist_launches``)."""
     ae = cfg.use_attr_channel
     forwards = t["steps"] + t["forwards"] + t["evals"]
-    return {"gcn_fused": (4 if ae else 2) * forwards,
-            "spmm_ell": (6 if ae else 2) * t["steps"] + (t["forwards"] + t["evals"] if ae else 0),
-            "sinkhorn_fused": (2 * cfg.sinkhorn_iters + 1) * t["steps"] if cfg.use_sinkhorn else 0,
-            "shortlist_dist": _shortlist_launches(cfg, task, t), "shortlist_gather": 0}
+    return _sorted_launches(cfg, {
+        "gcn_fused": (4 if ae else 2) * forwards,
+        "spmm_ell": (6 if ae else 2) * t["steps"] + (t["forwards"] + t["evals"] if ae else 0),
+        "sinkhorn_fused": (2 * cfg.sinkhorn_iters + 1) * t["steps"] if cfg.use_sinkhorn else 0,
+        "shortlist_dist": _shortlist_launches(cfg, task, t), "shortlist_gather": 0})
 
 
 def _mtl_step_launches(cfg) -> dict:
     """One AlignMTL training step's launches (``_expected_launches``'s per step)."""
     ae = cfg.use_attr_channel
-    return {"gcn_fused": 4 if ae else 2, "spmm_ell": 6 if ae else 2,
-            "sinkhorn_fused": 2 * cfg.sinkhorn_iters + 1 if cfg.use_sinkhorn else 0,
-            "shortlist_dist": 0, "shortlist_gather": 0}
+    return _sorted_launches(cfg, {
+        "gcn_fused": 4 if ae else 2, "spmm_ell": 6 if ae else 2,
+        "sinkhorn_fused": 2 * cfg.sinkhorn_iters + 1 if cfg.use_sinkhorn else 0,
+        "shortlist_dist": 0, "shortlist_gather": 0})
 
 
 def _step_batch(res, cfg, dev):
@@ -786,11 +841,14 @@ SHORTLIST_CALLERS = (negatives_mod, bootstrap_mod, eval_mod, serve_mod)
 @contextlib.contextmanager
 def _plain_kernels():
     """The plain path: every kernel swapped for its plain PyTorch version
-    where the port calls it (the GCN layer, the incidence SpMM, the OT head,
-    differentiated by autograd; the search paths' select-and-rerank)."""
-    saved = (graphconv_mod.gcn_layer, attr_channel_mod.spmm_ell, align_mod.sinkhorn_align_loss,
+    where the port calls it (the GCN layer, the ELL and sorted SpMMs, the
+    OT head, differentiated by autograd; the search paths'
+    select-and-rerank)."""
+    saved = (graphconv_mod.gcn_layer, graphconv_mod.spmm, attr_channel_mod.spmm_ell,
+             attr_channel_mod.spmm, align_mod.sinkhorn_align_loss,
              [m.select_rerank for m in SHORTLIST_CALLERS])
     graphconv_mod.gcn_layer = lambda op, x, w, b=None: reference_layer(op.fwd, op.diag, x, w, b)
+    graphconv_mod.spmm = attr_channel_mod.spmm = spmm_xla
     attr_channel_mod.spmm_ell = lambda op, x: apply_with_diag(op.fwd, op.diag, x)
     align_mod.sinkhorn_align_loss = sinkhorn_align_loss_plain
     for m in SHORTLIST_CALLERS:
@@ -798,16 +856,32 @@ def _plain_kernels():
     try:
         yield
     finally:
-        (graphconv_mod.gcn_layer, attr_channel_mod.spmm_ell,
-         align_mod.sinkhorn_align_loss, fns) = saved
+        (graphconv_mod.gcn_layer, graphconv_mod.spmm, attr_channel_mod.spmm_ell,
+         attr_channel_mod.spmm, align_mod.sinkhorn_align_loss, fns) = saved
         for m, fn in zip(SHORTLIST_CALLERS, fns):
             m.select_rerank = fn
 
 
-def _check_step(model, loss_fn, expect: dict, zero_grads: tuple[str, ...] = ()) -> dict:
+# one step through the kernels against the plain path: fp32, the sums in
+# another order (PERF.md §2); bf16, the two paths round at other points,
+# and a unit within those roundings of 0 takes the other side of the
+# layer-1 ReLU, moving its whole gradient: a fraction f ≈ 3e-3 of the
+# pre-activations lies within 2^-8 of their RMS of 0 (measured at the card
+# tests' shapes, tests/test_torch_gpu.py::BF16_STEP_TOL), giving a
+# relative L2 of up to sqrt(f) ≈ 5.5e-2, held at 2·sqrt(f) ≈ 1e-1; the
+# loss, a mean of many hinge terms, within a bf16 ulp (2^-7).  A gradient
+# that is 0 by construction is rounding noise in both paths: under 1e-5 of
+# the largest gradient entry in fp32; in bf16 the sum over the n rows of
+# each row's cotangent rounding (≤ 2^-9), under sqrt(n)·2^-8 of it.
+STEP_TOL = {torch.float32: dict(loss_rel=1e-4, grad_rel_l2=1e-3),
+            torch.bfloat16: dict(loss_rel=2 ** -7, grad_rel_l2=1e-1)}
+
+
+def _check_step(model, loss_fn, expect: dict, zero_grads: tuple[str, ...] = (),
+                dtype: torch.dtype = torch.float32) -> dict:
     """One training step's loss and gradients through the kernels against
     the plain path on the card (``_plain_kernels``, which must launch no
-    kernel): loss rel 1e-4, each gradient relative L2 1e-3.  ``loss_fn()``
+    kernel) at ``STEP_TOL[dtype]``, the compute type.  ``loss_fn()``
     returns the step's loss; ``expect``, the kernels' launches in it.
     ``zero_grads``: parameters whose gradient is 0 by construction (the AE
     layer-2 bias: the AE margin reads only differences of rows); both paths
@@ -836,12 +910,15 @@ def _check_step(model, loss_fn, expect: dict, zero_grads: tuple[str, ...] = ()) 
     scale = max(float(v.abs().max()) for v in plain_grads.values())
     zero_abs = {k: max(float(grads[k].abs().max()), float(plain_grads[k].abs().max()))
                 for k in zero_grads}
-    if (loss_rel > 1e-4 or max(grad_rel.values()) > 1e-3
-            or any(v > 1e-5 * scale for v in zero_abs.values())):
+    tol = STEP_TOL[dtype]
+    n_rows = max(p.shape[0] for p in model.parameters())  # the embedding table's rows
+    zero_rel = 1e-5 if dtype == torch.float32 else math.sqrt(n_rows) * 2 ** -8
+    if (loss_rel > tol["loss_rel"] or max(grad_rel.values()) > tol["grad_rel_l2"]
+            or any(v > zero_rel * scale for v in zero_abs.values())):
         raise AssertionError(f"step vs plain path: loss rel {loss_rel}, grads {grad_rel}, "
                              f"zero grads {zero_abs} at scale {scale}")
     return {"per_step_launches": per_step, "loss": loss.item(), "loss_plain": plain.item(),
-            "loss_rel_err": loss_rel, "grad_rel_l2": grad_rel,
+            "loss_rel_err": loss_rel, "grad_rel_l2": grad_rel, "tolerance": tol,
             "zero_grad_max_abs": zero_abs, "grad_max_abs": scale}
 
 
@@ -1265,7 +1342,7 @@ def phase_mtl(task, smi: str, dev: torch.device) -> dict:
             emb = model.embed(op, attr_op)
         sync(dev)
         per_embed = _launch_counts()
-        if per_embed != {"gcn_fused": 4, "spmm_ell": 1, "sinkhorn_fused": 0,
+        if per_embed != {"gcn_fused": 4, "spmm_ell": 1, "sinkhorn_fused": 0, "spmm_sorted": 0,
                          "shortlist_dist": 0, "shortlist_gather": 0} or emb.shape != (
                 task.n_ent, 2 * cfg.dim):
             raise AssertionError(f"embed launched {per_embed}, shape {tuple(emb.shape)}")
@@ -1330,7 +1407,8 @@ def phase_highway(task, smi: str, dev: torch.device) -> dict:
                                  batch["neg_l"], batch["neg_r"], cfg.gamma)
 
     step = _check_step(model, loss_fn, {"gcn_fused": 2, "spmm_ell": 2, "sinkhorn_fused": 0,
-                                        "shortlist_dist": 0, "shortlist_gather": 0})
+                                        "spmm_sorted": 0, "shortlist_dist": 0,
+                                        "shortlist_gather": 0})
     no_drop = AlignGCN(n_ent=task.n_ent, dim=cfg.dim, highway=True, device=dev)
     no_drop.load_state_dict(model.state_dict())
     with torch.no_grad():
@@ -1741,7 +1819,8 @@ def phase_approx(task, smi: str, dev: torch.device, exact_stages: dict) -> dict:
 KERNEL_SYMBOLS = {"gcn_fused": "gcn_fused_kernel", "spmm_ell": "spmm_ell_kernel",
                   "sinkhorn_fused": "sinkhorn_update_kernel",
                   "shortlist_dist": "shortlist_select_kernel",
-                  "shortlist_gather": "shortlist_dist_kernel"}
+                  "shortlist_gather": "shortlist_dist_kernel",
+                  "spmm_sorted": "spmm_sorted_kernel"}
 # the fused phase's configs at zh-en scale: (config, recipe, overrides); v6
 # with --fast's settings (steps_per_call = neg_every = 2, sqeuclidean
 # approximate mining), highway with dropout 0.3 (neg_every 5), base
@@ -1751,6 +1830,8 @@ FUSED_CASES = {
     "base": ("base", None, {}),
     "sinkhorn": ("sinkhorn", None, {}),
     "mtl_channel": ("mtl", None, dict(use_attr_channel=True)),
+    "v6_bf16": ("base", "v6", dict(param_dtype="bfloat16")),
+    "base_sorted": ("base", None, dict(spmm_impl="sorted")),
 }
 REPLAY_TOL = 1e-6  # each step's loss (rel) and the parameters (rel L2) after an interval
 
@@ -1768,8 +1849,8 @@ def _per_step_launches(cfg) -> dict:
     AlignMTL: ``_mtl_step_launches``)."""
     if uses_mtl(cfg):
         return _mtl_step_launches(cfg)
-    return {"gcn_fused": 2, "spmm_ell": 2, "sinkhorn_fused": 0, "shortlist_dist": 0,
-            "shortlist_gather": 0}
+    return _sorted_launches(cfg, {"gcn_fused": 2, "spmm_ell": 2, "sinkhorn_fused": 0,
+                                  "shortlist_dist": 0, "shortlist_gather": 0})
 
 
 def _traced_launches(fn, dev: torch.device, what: str, warm=None) -> tuple:
@@ -2049,7 +2130,9 @@ def phase_fused(task, smi: str, dev: torch.device) -> dict:
           "card": smi})
     return {"v6_fast": v6["fused"]["launches_device"],
             "base": base["fused"]["launches_device"],
-            "highway_dropout": highway["fused"]["launches_device"]}
+            "highway_dropout": highway["fused"]["launches_device"],
+            "replayed_interval": {n: r["replayed_interval_traced"]["launches"]
+                                  for n, r in replay.items()}}
 
 
 @contextlib.contextmanager
@@ -2073,30 +2156,46 @@ def _sigterm_in_replay(n: int):
 
 
 def phase_profile(task, smi: str, dev: torch.device) -> dict:
-    """A 6-epoch base run with ``profile_dir``: the trace of epochs 2-5 it
-    writes, and the top device operations in it."""
-    cfg, reduced = _cut_config(task, "base", {"epochs": 6, "eval_every": 0})
-    with tempfile.TemporaryDirectory() as tmp:
-        res = run(cfg.replace(profile_dir=tmp), task=task, device=dev)
-        files = sorted(os.listdir(tmp))
-        if files != ["trace-epochs-2-5.json"]:
-            raise AssertionError(f"profile_dir holds {files}")
-        size_mb = os.path.getsize(os.path.join(tmp, files[0])) / 2**20
-        with open(os.path.join(tmp, files[0])) as f:
-            events = json.load(f)["traceEvents"]
-    by_name: dict[str, list] = {}
-    for e in events:
-        if e.get("cat") == "kernel":
-            by_name.setdefault(e["name"][:80], []).append(e.get("dur", 0.0))
-    if not any(KERNEL_SYMBOLS["gcn_fused"] in k for k in by_name):
-        raise AssertionError(f"the trace holds no gcn_fused kernel: {sorted(by_name)[:10]}")
-    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]
-    emit({"phase": "profile", "config": "base", "epochs": cfg.epochs, "reduced": reduced,
-          "trace": files[0], "trace_mb": size_mb, "steps": res.timings["steps"],
-          "kernel_events": sum(len(v) for v in by_name.values()),
-          "top_device_ops_ms": {k: {"ms": sum(v) / 1e3, "calls": len(v)} for k, v in top},
-          "card": smi})
-    return {k: len(v) for k, v in top}
+    """``profile_dir`` on a 6-epoch base run (the trace of epochs 2-5 it
+    writes, and the top device operations in it), and on a fused
+    ``sinkhorn`` run through ``fit_mtl`` (``steps_per_call`` = 5, 10 epochs:
+    the trace of the two intervals that hold epochs 2-5, taken around the
+    captured step's replays, must hold its kernels)."""
+    fused_cfg, _ = _cut_config(task, "sinkhorn", {"epochs": 10, "eval_every": 0})
+    cases = (("base", *_cut_config(task, "base", {"epochs": 6, "eval_every": 0}),
+              "trace-epochs-2-5.json", ("gcn_fused",)),
+             ("sinkhorn_fused", fused_cfg.replace(steps_per_call=fused_cfg.neg_every),
+              {"epochs": "10 (config sinkhorn: 400)"},
+              f"trace-epochs-0-{2 * fused_cfg.neg_every - 1}.json",
+              ("gcn_fused", "spmm_ell", "sinkhorn_fused")))
+    out, top = {}, {}
+    for name, cfg, reduced, want, kernels in cases:
+        with tempfile.TemporaryDirectory() as tmp:
+            res = run(cfg.replace(profile_dir=tmp), task=task, device=dev)
+            files = sorted(os.listdir(tmp))
+            if files != [want]:
+                raise AssertionError(f"{name}: profile_dir holds {files}, not {want}")
+            size_mb = os.path.getsize(os.path.join(tmp, files[0])) / 2**20
+            with open(os.path.join(tmp, files[0])) as f:
+                events = json.load(f)["traceEvents"]
+        by_name: dict[str, list] = {}
+        for e in events:
+            if e.get("cat") == "kernel":
+                by_name.setdefault(e["name"][:80], []).append(e.get("dur", 0.0))
+        for k in kernels:
+            if not any(KERNEL_SYMBOLS[k] in n for n in by_name):
+                raise AssertionError(f"{name}: the trace holds no {k} kernel: "
+                                     f"{sorted(by_name)[:10]}")
+        top[name] = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]
+        out[name] = {"config": cfg.name, "epochs": cfg.epochs,
+                     "steps_per_call": cfg.steps_per_call, "reduced": reduced,
+                     "trace": files[0], "trace_mb": size_mb, "steps": res.timings["steps"],
+                     "capture_s": res.timings["capture_s"],
+                     "kernel_events": sum(len(v) for v in by_name.values()),
+                     "top_device_ops_ms": {k: {"ms": sum(v) / 1e3, "calls": len(v)}
+                                           for k, v in top[name]}}
+    emit({"phase": "profile", **out, "card": smi})
+    return {k: len(v) for k, v in top["base"]}
 
 
 def _write_dbp15k(task, root: str) -> None:
@@ -2239,6 +2338,272 @@ def phase_readers(task, smi: str, dev: torch.device) -> dict:
     return out
 
 
+def _csr_of_edges(edges) -> torch.Tensor:
+    """A sorted edge list's real edges as one CSR tensor on its device: the
+    library yardstick's operand, built here only."""
+    nnz = edges.nnz
+    dst = edges.dst[:nnz].cpu().numpy().astype(np.int64)
+    crow = np.concatenate([[0], np.cumsum(np.bincount(dst, minlength=edges.n_rows))])
+    with warnings.catch_warnings():  # CSR support is "beta" in PyTorch
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(crow), edges.src[:nnz].cpu().long(), edges.w[:nnz].cpu(),
+            size=(edges.n_rows, edges.n_cols), check_invariants=True).to(edges.device)
+
+
+# the sorted kernel against its plain version: fp32, the sums in another
+# order; bf16, both sum in fp32 and round once, so one bf16 ulp apart
+SORTED_TOL = {torch.float32: TOL[torch.float32],
+              torch.bfloat16: dict(rtol=2 ** -7, atol=1e-3)}
+
+
+def phase_sorted_kernel(task, smi: str, dev: torch.device) -> dict:
+    """The sorted-segment SpMM kernel on the zh-en adjacency as
+    ``spmm_impl="sorted"`` builds it (self-loops as edges): A (the layers'
+    forward) and Aᵀ (their backward), fp32 and bf16, held to its plain
+    version and bit-identical over two launches; timed at d = 128 (config
+    base's width) beside its bound and ``torch.sparse.mm`` on the CSR of
+    the same matrix, with the device time of the rows of degree ≥ 256
+    alone and of the rest (the skew: one warp per row); checked at
+    d = 256."""
+    t0 = time.perf_counter()
+    op = build_adjacency(task.n_ent, task.merged_triples, n_rel=task.n_rel, fmt="sorted").to(dev)
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(4)
+    out = {"build_s": build_s, "edges": op.nnz, "padded_edges": op.fwd.e_pad}
+    for name, edges in (("forward", op.fwd), ("transpose", op.bwd)):
+        plan = row_plan(edges)
+        csr = _csr_of_edges(edges)
+        deg = (plan.rowptr[1:] - plan.rowptr[:-1]).cpu().numpy()
+        out[name] = {"max_degree": plan.max_degree, "rows_deg_ge_256": int((deg >= 256).sum()),
+                     "edges_in_rows_deg_ge_256": int(deg[deg >= 256].sum())}
+        for d in (128, 256):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.from_numpy(rng.standard_normal((edges.n_cols, d)).astype(np.float32))
+                x = x.to(dev, dtype)
+                got = sorted_spmm(edges, x)
+                sync(dev)
+                want = segment_spmm(edges, x)
+                torch.testing.assert_close(got.float(), want.float(), **SORTED_TOL[dtype])
+                if not torch.equal(got, sorted_spmm(edges, x)):
+                    raise AssertionError(f"spmm_sorted ({name}): two launches differ")
+                r = {"max_abs_err": float((got.float() - want.float()).abs().max())}
+                if d == 128:
+                    r["ms"] = time_ms(lambda: sorted_spmm(edges, x))
+                    r["device_ms"] = device_ms(lambda: sorted_spmm(edges, x))
+                    r["ms_cold_l2"] = time_cold_ms(lambda: sorted_spmm(edges, x))
+                    r["plain_ms"] = time_ms(lambda: segment_spmm(edges, x), iters=5)
+                    r["library_ms"] = r["library_device_ms"] = r["library_refused"] = None
+                    try:
+                        a_lib = csr.to(dtype)
+                        lib = torch.sparse.mm(a_lib, x)
+                    except RuntimeError as e:  # a refusal of bf16 by the library
+                        r["library_refused"] = str(e).splitlines()[0][:200]
+                    if r["library_refused"] is None:
+                        torch.testing.assert_close(lib.float(), want.float(), **TOL[dtype])
+                        r["library_ms"] = time_ms(lambda: torch.sparse.mm(a_lib, x))
+                        r["library_device_ms"] = device_ms(lambda: torch.sparse.mm(a_lib, x))
+                    # x and the output once, the real edges' (src, w), the
+                    # row pointer and order; 2 operations per edge and column
+                    nbytes = ((edges.n_cols + edges.n_rows) * d * x.element_size()
+                              + edges.nnz * 8 + (2 * edges.n_rows + 1) * 4)
+                    r["bound_ms"], r["bound_by"] = _bound(nbytes, 2 * edges.nnz * d)
+                    r["share_of_bound_device"] = ratio(r["bound_ms"], r["device_ms"])
+                    if name == "forward" and dtype == torch.float32:
+                        hub = torch.from_numpy(deg >= 256).to(dev)[plan.order.long()]
+                        r["split_device_ms"] = {
+                            part: device_ms(lambda sub=sub: spmm_mod._launch(
+                                edges, x, dataclasses.replace(plan, order=sub.contiguous())))
+                            for part, sub in (("deg_ge_256", plan.order[hub]),
+                                              ("deg_lt_256", plan.order[~hub]))}
+                out[name][f"{str(dtype).split('.')[1]}_d{d}"] = r
+    emit({"phase": "kernel", "kernel": "spmm_sorted", **out, "card": smi})
+    return out
+
+
+def _step_ms(model, loss_fn) -> float:
+    """CUDA-event time of one forward + backward of ``loss_fn(model)``."""
+    def fb():
+        model.zero_grad(set_to_none=True)
+        loss_fn(model).backward()
+
+    return time_ms(fb, warmup=2, iters=10)
+
+
+def _step_vs_fp32(model, loss_fn, cfg, make) -> dict:
+    """The forward + backward of a bf16 model against an fp32 model of the
+    same parameters (``make(cfg32)`` builds it), in turns fp32, bf16, bf16,
+    fp32."""
+    m32 = make(cfg.replace(param_dtype="float32"))
+    m32.load_state_dict(model.state_dict())
+    t = [_step_ms(m, loss_fn) for m in (m32, model, model, m32)]
+    return {"fp32_ms": [t[0], t[3]], "bf16_ms": [t[1], t[2]],
+            "bf16_over_fp32": (t[1] + t[2]) / (t[0] + t[3])}
+
+
+def phase_bf16(task, smi: str, dev: torch.device) -> dict:
+    """bf16 training (``param_dtype="bfloat16"``): recipe v6 at dim 256 cut
+    as phase 6 is (RECIPE_CUTS; gcn_fused bf16 (256, 256), spmm_ell bf16
+    d = 256, sinkhorn_fused on the fp32 output), then config base at dim
+    128 for 20 epochs as phase 12 runs it (the (128, 128) instances; its
+    loss rises at the first hard-mining boundary, 5, and falls below the
+    start by 20): launches, one step with
+    the run's batch against the plain path at STEP_TOL[bf16], and the
+    forward + backward against the same parameters in fp32."""
+    cfg, reduced = _cut_config(task, "base", RECIPE_CUTS, RECIPE, param_dtype="bfloat16",
+                               checkpoint_every=4)
+    boundaries = (cfg.epochs - 1) // cfg.neg_every
+    with tempfile.TemporaryDirectory() as tmp:
+        res, counts, run_s = _run_checked(
+            cfg.replace(checkpoint_dir=tmp), task, dev, steps=cfg.epochs, forwards=boundaries,
+            proposals=boundaries, minings=boundaries)
+        batch, n_boot = _saved_batch(tmp, cfg, task, dev)
+    model = res.model
+    if model.encoder.compute_dtype != torch.bfloat16 or n_boot == 0:
+        raise AssertionError("the v6 run did not train in bf16 with proposals")
+    step = _check_step(model, lambda: model(res.op, batch, train=True)[0],
+                       _mtl_step_launches(cfg), dtype=torch.bfloat16)
+    vs32 = _step_vs_fp32(model, lambda m: m(res.op, batch, train=True)[0], cfg,
+                         lambda c: AlignMTL(task.n_ent, c, device=dev, n_rel=task.n_rel,
+                                            n_attr=max(task.n_attr, 1)))
+    v6 = {"reduced": reduced, "losses": res.losses,
+          "metrics": {k: res.metrics[k] for k in ("hits@1", "hits@10", "mrr")},
+          "launches": counts, "timings": res.timings, "run_s": run_s,
+          "stages_s": _stages(res.timings), "step_check": step, "step_vs_fp32": vs32}
+
+    cfg_b, reduced_b = _cut_config(task, "base", {"epochs": 20, "eval_every": 0},
+                                   param_dtype="bfloat16")
+    res_b, counts_b, run_b = _run_checked(cfg_b, task, dev, steps=20, forwards=3, minings=3)
+    mb, op = res_b.model, res_b.op
+    bb = _step_batch(res_b, cfg_b, dev)
+
+    def base_loss(m):
+        return margin_align_loss(m(op, train=True), bb["pairs"], bb["neg_l"], bb["neg_r"],
+                                 cfg_b.gamma)
+
+    step_b = _check_step(mb, lambda: base_loss(mb), _per_step_launches(cfg_b), ("gc2.b",),
+                         dtype=torch.bfloat16)
+    vs32_b = _step_vs_fp32(mb, base_loss, cfg_b, lambda c: build_model(c, task, device=dev))
+    base = {"dim": cfg_b.dim, "reduced": reduced_b, "losses": res_b.losses,
+            "metrics": {k: res_b.metrics[k] for k in ("hits@1", "hits@10", "mrr")},
+            "launches": counts_b, "run_s": run_b, "stages_s": _stages(res_b.timings),
+            "step_check": step_b, "step_vs_fp32": vs32_b}
+    emit({"phase": "bf16", "n_ent": task.n_ent, "v6": {"dim": cfg.dim, **v6}, "base": base,
+          "card": smi})
+    return {"v6": counts, "base": counts_b}
+
+
+def phase_sorted(task, smi: str, dev: torch.device) -> dict:
+    """spmm_impl sorted at zh-en scale: config base at dim 128 for 20
+    epochs (as phase 12 runs it), ell fp32 beside sorted fp32 and bf16 (launches; the final
+    losses of sorted and ell fp32 within rel 1e-3, the JAX package's own
+    bound, tests/test_ell.py:98), and one step of each sorted run against
+    the plain path."""
+    runs, out = {}, {}
+    for key, impl, dtype in (("ell_fp32", "ell", "float32"), ("sorted_fp32", "sorted", "float32"),
+                             ("sorted_bf16", "sorted", "bfloat16")):
+        cfg, reduced = _cut_config(task, "base", {"epochs": 20, "eval_every": 0},
+                                   spmm_impl=impl, param_dtype=dtype)
+        res, counts, run_s = _run_checked(cfg, task, dev, steps=20, forwards=3, minings=3)
+        runs[key] = counts
+        out[key] = {"reduced": reduced, "losses": res.losses, "launches": counts,
+                    "metrics": {k: res.metrics[k] for k in ("hits@1", "hits@10", "mrr")},
+                    "run_s": run_s, "stages_s": _stages(res.timings)}
+        if impl == "sorted":
+            model, op, batch = res.model, res.op, _step_batch(res, cfg, dev)
+            out[key]["step_check"] = _check_step(
+                model, lambda: margin_align_loss(model(op, train=True), batch["pairs"],
+                                                 batch["neg_l"], batch["neg_r"], cfg.gamma),
+                _per_step_launches(cfg), ("gc2.b",) if dtype == "bfloat16" else (),
+                dtype=getattr(torch, dtype))
+    want, got = out["ell_fp32"]["losses"][-1], out["sorted_fp32"]["losses"][-1]
+    rel = abs(got - want) / abs(want)
+    if rel > 1e-3:
+        raise AssertionError(f"sorted final loss {got} against ell's {want} (rel {rel})")
+    emit({"phase": "sorted", "n_ent": task.n_ent, "final_loss_rel_sorted_vs_ell": rel, **out,
+          "card": smi})
+    return runs
+
+
+def phase_native(task, smi: str, dev: torch.device) -> dict:
+    """The native adjacency builder, which must run on this machine (it has
+    a C++ compiler), against the numpy builder at zh-en scale, for config
+    base's weighting (uniform, sym) and highway's (funifun, rw): the COO
+    build timed (best of 3) and held equal (ids exactly, weights 1e-12),
+    and ``build_adjacency``'s ELL operator through each, equal to fp32."""
+    if not native.available():
+        raise AssertionError("the native builder is not available on this machine")
+    tri, n = task.merged_triples, task.n_ent
+    out = {}
+    for weighting, norm in (("uniform", "sym"), ("funifun", "rw")):
+        kw = dict(n_rel=task.n_rel, weighting=weighting)
+
+        def numpy_coo():
+            s_, d_, w_ = coo_from_triples(n, tri, **kw)
+            return s_, d_, coo_normalize(s_, d_, w_, n, norm=norm)
+
+        times = {}
+        for name, fn in (("native", lambda: native.native_coo_from_triples(n, tri, norm=norm,
+                                                                           **kw)),
+                         ("numpy", numpy_coo)):
+            best = math.inf
+            for _ in range(3):
+                t0 = time.perf_counter()
+                res = fn()
+                best = min(best, time.perf_counter() - t0)
+            times[name] = (best, res)
+        (s1, d1, w1), (s2, d2, w2) = times["numpy"][1], times["native"][1]
+        order = np.lexsort((s1, d1))
+        if not (np.array_equal(s1[order], s2) and np.array_equal(d1[order], d2)):
+            raise AssertionError("the native builder's edges differ from numpy's")
+        np.testing.assert_allclose(w1[order], w2, rtol=1e-12, atol=1e-15)
+        ops = {}
+        for use_native in (True, False):
+            t0 = time.perf_counter()
+            ops[use_native] = build_adjacency(n, tri, norm=norm, use_native=use_native, **kw)
+            ops[f"{use_native}_s"] = time.perf_counter() - t0
+        a, b = ops[True], ops[False]
+        np.testing.assert_allclose(a.diag.numpy(), b.diag.numpy(), rtol=1e-6)
+        for x, y in zip(a.fwd.buckets + a.bwd.buckets, b.fwd.buckets + b.bwd.buckets):
+            if not torch.equal(x.idx, y.idx):
+                raise AssertionError("the native ELL operator's ids differ from numpy's")
+            np.testing.assert_allclose(x.w.numpy(), y.w.numpy(), rtol=1e-6)
+        out[f"{weighting}_{norm}"] = {
+            "edges": int(len(s2)), "coo_native_s": times["native"][0],
+            "coo_numpy_s": times["numpy"][0],
+            "numpy_over_native": times["numpy"][0] / times["native"][0],
+            "build_adjacency_native_s": ops["True_s"], "build_adjacency_numpy_s": ops["False_s"],
+            "w_max_rel_diff": float(np.max(np.abs(w1[order] - w2) / np.abs(w1[order])))}
+    emit({"phase": "native", "n_ent": n, "triples": int(len(tri)), **out, "card": smi})
+    return out
+
+
+def phase_debug_nans(task, smi: str, dev: torch.device) -> dict:
+    """``debug_nans`` (the CLI's --debug-nans) on a poisoned run: config base
+    with a learning rate of 1e30, whose first Adam step overflows the
+    second step's forward.  Unfused, anomaly detection or the step check
+    raises FloatingPointError naming epoch 1; fused (a captured step on
+    the card), the interval's finite flag names epochs 0-4."""
+    cfg, reduced = _cut_config(task, "base", {"epochs": 10, "eval_every": 0}, lr=1e30)
+    out = {"reduced": reduced}
+    for mode, c, want in (("unfused", cfg, "epoch 1"),
+                          ("fused", cfg.replace(steps_per_call=cfg.neg_every),
+                           f"interval of epochs 0-{cfg.neg_every - 1}")):
+        t0 = time.perf_counter()
+        try:
+            run(c, task=task, device=dev, debug_nans=True)
+        except FloatingPointError as e:
+            msg = str(e)
+        else:
+            raise AssertionError(f"debug_nans {mode}: the poisoned run did not raise")
+        if want not in msg:
+            raise AssertionError(f"debug_nans {mode}: {msg!r} does not name {want!r}")
+        out[mode] = {"raised": msg[:200], "wall_s": time.perf_counter() - t0}
+    emit({"phase": "debug_nans", **out, "card": smi})
+    return out
+
+
 def _hits_of(ranks: torch.Tensor) -> tuple:
     """(Hits@1, Hits@10, MRR) of both directions' ranks, as ``hits_at_k``."""
     r = ranks.double()
@@ -2253,7 +2618,10 @@ def main() -> int:
     dev = torch.device("cuda")
     k_gcn = phase_kernel(task, smi, dev)
     k_spmm = {**phase_spmm(task, smi, dev, d=256, split=False),
-              "at_d128": phase_spmm(task, smi, dev, d=128)}
+              "at_d128": phase_spmm(task, smi, dev, d=128),
+              "bf16": {**phase_spmm(task, smi, dev, d=256, split=False, dtype=torch.bfloat16),
+                       "at_d128": phase_spmm(task, smi, dev, d=128, split=False,
+                                             dtype=torch.bfloat16)}}
     k_sink = {**phase_sinkhorn(smi, dev, d=256), "at_d128": phase_sinkhorn(smi, dev, d=128)}
     serve_launches = phase_slice(task, smi, dev)
     train = phase_train(task, smi, dev)
@@ -2263,11 +2631,16 @@ def main() -> int:
     v7r = phase_recipe_v7r(task, smi, dev)
     mtl = phase_mtl(task, smi, dev)
     highway = phase_highway(task, smi, dev)
+    bf16 = phase_bf16(task, smi, dev)
+    k_sorted = phase_sorted_kernel(task, smi, dev)
+    sorted_runs = phase_sorted(task, smi, dev)
     k_select, k_gather = phase_shortlist(smi, dev)
     approx = phase_approx(task, smi, dev, recipe_stages)
     fused = phase_fused(task, smi, dev)
     phase_profile(task, smi, dev)
     phase_readers(task, smi, dev)
+    phase_native(task, smi, dev)
+    phase_debug_nans(task, smi, dev)
     # the numbers at the recipe's width (d = 256); launches of the recipe's
     # run, with those of the other runs beside (the incidence's at mtl's
     # width, d = 128, where config mtl runs it); a fused run's launches on
@@ -2279,19 +2652,29 @@ def main() -> int:
          "launches_train": train["gcn_fused"], "launches_serve": serve_launches,
          "launches_v7r": v7r["gcn_fused"], "launches_mtl": mtl["gcn_fused"],
          "launches_highway": highway["gcn_fused"],
-         "launches_fused": {n: v["gcn_fused"] for n, v in fused.items()}, **k_gcn},
+         "launches_bf16_v6": bf16["v6"]["gcn_fused"], "launches_bf16_base": bf16["base"]["gcn_fused"],
+         "launches_fused": {n: v["gcn_fused"] for n, v in fused.items()
+                            if n != "replayed_interval"},
+         "launches_replayed_interval": {n: v["gcn_fused"]
+                                        for n, v in fused["replayed_interval"].items()},
+         **k_gcn},
         {"name": "spmm_ell", "route": "cuda", "source": "tpugraph_torch/csrc/spmm_ell.cu",
          "replaces": "tpugraph/kernels/spmm_ell.py:19", "launches": recipe["spmm_ell"],
          "launches_train": train["spmm_ell"], "launches_v7r": v7r["spmm_ell"],
          "launches_mtl": mtl["spmm_ell"], "launches_mtl_incidence": mtl["incidence"],
          "launches_highway": highway["spmm_ell"],
-         "launches_fused": {n: v["spmm_ell"] for n, v in fused.items()}, **k_spmm,
-         "incidence": incidence},
+         "launches_bf16_v6": bf16["v6"]["spmm_ell"], "launches_bf16_base": bf16["base"]["spmm_ell"],
+         "launches_fused": {n: v["spmm_ell"] for n, v in fused.items()
+                            if n != "replayed_interval"},
+         "launches_replayed_interval": {n: v["spmm_ell"]
+                                        for n, v in fused["replayed_interval"].items()},
+         **k_spmm, "incidence": incidence},
         {"name": "sinkhorn_fused", "route": "cuda",
          "source": "tpugraph_torch/csrc/sinkhorn_fused.cu",
          "replaces": "tpugraph/kernels/sinkhorn_pallas.py:38",
          "launches": recipe["sinkhorn_fused"], "launches_train": train["sinkhorn_fused"],
          "launches_v7r": v7r["sinkhorn_fused"], "launches_mtl": mtl["sinkhorn_fused"],
+         "launches_bf16_v6": bf16["v6"]["sinkhorn_fused"],
          "launches_fused_v6": fused["v6_fast"]["sinkhorn_fused"], **k_sink},
         {"name": "shortlist_dist", "route": "cuda",
          "source": "tpugraph_torch/csrc/shortlist_dist.cu",
@@ -2301,6 +2684,16 @@ def main() -> int:
          "launches_fused_v6": fused["v6_fast"]["shortlist_dist"], **k_select["mining"],
          "at_callers": {k: v for k, v in k_select.items() if k != "mining"},
          "gather_entry": {"launches": approx["shortlist_gather"], "at_callers": k_gather}},
+        {"name": "spmm_sorted", "route": "cuda", "source": "tpugraph_torch/csrc/spmm_sorted.cu",
+         "replaces": "tpugraph/kernels/spmm.py:33",
+         "replaces_kind": "XLA ops (gather, sorted segment_sum), not a Pallas kernel",
+         "launches": sorted_runs["sorted_fp32"]["spmm_sorted"],
+         "launches_bf16": sorted_runs["sorted_bf16"]["spmm_sorted"],
+         "launches_replayed_interval": fused["replayed_interval"]["base_sorted"]["spmm_sorted"],
+         **{k: k_sorted["forward"]["float32_d128"][k]
+            for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                      "device_ms", "ms_cold_l2", "library_device_ms", "split_device_ms")},
+         "d": 128, "dtype": "float32", "operator": "forward", "all": k_sorted},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -63,7 +63,7 @@ def test_build_adjacency_matches(weighting, norm):
                                    rtol=1e-6)
 
     jop = jax_build_adjacency(task.n_ent, tri, norm=norm, use_native=False, fmt="ell", **kw)
-    top = build_adjacency(task.n_ent, tri, norm=norm, **kw)
+    top = build_adjacency(task.n_ent, tri, norm=norm, use_native=False, **kw)
     _assert_ell_equal(jop.fwd, top.fwd)
     _assert_ell_equal(jop.bwd, top.bwd)
     np.testing.assert_array_equal(np.asarray(jop.diag), top.diag.numpy())

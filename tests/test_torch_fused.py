@@ -22,6 +22,7 @@ chip_smoke.py).
 import os
 import signal
 
+import numpy as np
 import pytest
 import torch
 
@@ -138,10 +139,12 @@ REFUSALS = {
 }
 
 
-# the JAX fit_mtl reads no profile_dir, so it has no such refusal to mirror
-@pytest.mark.parametrize("case, trainer", [(c, t) for c in REFUSALS for t in ("fit", "fit_mtl")
-                                           if not (t == "fit_mtl" and "profile" in c)])
-def test_jax_refusals_are_mirrored(case, trainer, task):
+@pytest.mark.parametrize("case, trainer", [(c, t) for c in REFUSALS for t in ("fit", "fit_mtl")])
+def test_jax_refusals_are_mirrored(case, trainer, task, tmp_path):
+    """Each JAX refusal is the port's, with its message.  The JAX fit_mtl
+    reads no profile_dir, so a fused fit_mtl with one trains in both
+    packages; the port's writes the trace of the interval that holds
+    epochs 2-5."""
     over, msg = REFUSALS[case]
     kw = dict(dim=8, k_neg=3, neg_mode="uniform", **over)
     jtask = jax_synthetic_task(seed=6, n_ent=150, n_rel=5, n_triples=600)
@@ -150,6 +153,13 @@ def test_jax_refusals_are_mirrored(case, trainer, task):
             jax_fit(jax_get_config("base", **kw), task=jtask)
         with pytest.raises(ValueError, match=msg):
             run(get_config("base", **kw), task=task, device="cpu")
+    elif "profile" in case:  # trains in both packages
+        kw["profile_dir"] = str(tmp_path / "prof")
+        jres = jax_fit_mtl(jax_get_config("sinkhorn", sinkhorn_iters=1, **kw), task=jtask)
+        res = fit_mtl(get_config("sinkhorn", sinkhorn_iters=1, **kw), task=task, device="cpu")
+        assert res.timings["steps"] == len(res.losses) == kw["epochs"]
+        assert np.isfinite(res.metrics["final_loss"]) and np.isfinite(jres.metrics["final_loss"])
+        assert os.listdir(kw["profile_dir"]) == ["trace-epochs-0-7.json"]
     else:  # the smallest fit_mtl config: the OT head alone
         with pytest.raises(ValueError, match=msg):
             jax_fit_mtl(jax_get_config("sinkhorn", sinkhorn_iters=1, **kw), task=jtask)

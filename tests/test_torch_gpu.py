@@ -1,9 +1,10 @@
-"""The port's CUDA kernels (fused GCN layer, ELL SpMM, Sinkhorn potential
-update, shortlist select-and-rerank and gathered distances) against their
-plain versions, and training on
+"""The port's CUDA kernels (fused GCN layer, ELL SpMM in fp32 and bf16,
+sorted-segment SpMM, Sinkhorn potential update, shortlist select-and-rerank
+and gathered distances) against their plain versions, and training on
 the card: the attribute incidence's SpMM, a GCN layer on config highway's
-operator, steps of recipes v6 and v7r, and the approximate search paths
-against the same calls on the host.
+operator, steps of recipes v6 and v7r, bf16 and sorted steps, captured
+steps, ``debug_nans`` on a captured interval, and the approximate search
+paths against the same calls on the host.
 
 Marked ``gpu``; each test skips without a CUDA device.  This file imports
 neither JAX nor the JAX package, so on a machine with a card (and no JAX)
@@ -25,6 +26,8 @@ from tpugraph_torch.configs.configs import get_config
 from tpugraph_torch.configs.recipes import RECIPES
 from tpugraph_torch.data.synthetic import synthetic_align_task
 from tpugraph_torch.kernels import gcn_fused, shortlist_dist, sinkhorn_fused, spmm_ell
+from tpugraph_torch.kernels import spmm as spmm_mod
+from tpugraph_torch.kernels.spmm import segment_spmm, sorted_spmm
 from tpugraph_torch.kernels.gcn_fused import fused_gcn_layer, gcn_layer, reference_layer
 from tpugraph_torch.kernels.sinkhorn_fused import sinkhorn_potential_update, sinkhorn_update_plain
 from tpugraph_torch.kernels.spmm_ell import SEG_SLOTS, apply_with_diag, ell_spmm
@@ -32,7 +35,7 @@ from tpugraph_torch.models.align import AlignMTL, init_mtl_params
 from tpugraph_torch.models.attr_channel import build_attr_operator
 from tpugraph_torch.models.encoder import AlignGCN, init_params
 from tpugraph_torch.serve import topk_alignments
-from tpugraph_torch.sparse.build import build_adjacency
+from tpugraph_torch.sparse.build import build_adjacency, build_spmm_operator
 from tpugraph_torch.sparse.ell import build_ell_operator
 from tpugraph_torch.train.bootstrap import propose_mutual_nn_pairs
 from tpugraph_torch.train.driver import run, step_parts
@@ -148,8 +151,8 @@ def test_spmm_ell_kernel_matches_plain(cuda, d, split_diag):
         torch.cuda.synchronize()
         assert spmm_ell.launches == before + 1
         torch.testing.assert_close(got, apply_with_diag(m, op.diag, x), rtol=1e-4, atol=1e-4)
-    with pytest.raises(TypeError):
-        ell_spmm(op.fwd, op.diag, x.to(torch.bfloat16))
+    with pytest.raises(TypeError):  # float32 and bfloat16 only
+        ell_spmm(op.fwd, op.diag, x.to(torch.float16))
     with pytest.raises(ValueError):
         ell_spmm(op.fwd, op.diag, x[:, :64].contiguous())
 
@@ -707,6 +710,9 @@ def test_approx_paths_on_the_card_match_the_host(cuda, path):
 
 CAPTURE_CASES = {
     "base": ("base", dict(dim=128)),
+    "base_bf16": ("base", dict(dim=128, param_dtype="bfloat16")),
+    "base_sorted": ("base", dict(dim=128, spmm_impl="sorted")),
+    "v6_bf16": ("base", dict(RECIPES["v6"], boot_cap=64, k_neg=10, param_dtype="bfloat16")),
     "sinkhorn": ("sinkhorn", dict(sinkhorn_iters=5)),
     "v6": ("base", dict(RECIPES["v6"], boot_cap=64, k_neg=10)),  # (256, 256) and the OT head
     "highway_dropout": ("highway", dict(dropout=0.3)),
@@ -767,6 +773,7 @@ def test_captured_step_replays_as_eager(cuda, case):
 @pytest.mark.parametrize("kernel, d", [("gcn_fused", (128, 128)), ("gcn_fused", (256, 256)),
                                        ("gcn_fused", (128, 256)), ("gcn_fused", (256, 128)),
                                        ("spmm_ell", 128), ("spmm_ell", 256),
+                                       ("spmm_sorted", 128), ("spmm_sorted", 256),
                                        ("sinkhorn_fused", 128), ("sinkhorn_fused", 256)])
 def test_kernel_warm_up_then_capture(cuda, kernel, d):
     """Each wrapper, called once on a side stream (its library loaded, its
@@ -786,6 +793,12 @@ def test_kernel_warm_up_then_capture(cuda, kernel, d):
 
         def call():
             return ell_spmm(op.bwd, op.diag, x)
+    elif kernel == "spmm_sorted":
+        x = torch.from_numpy(rng.standard_normal((2000, d)).astype(np.float32)).to(cuda)
+        edges = _sorted_graph(rng, n=2000).bwd.to(cuda)
+
+        def call():
+            return sorted_spmm(edges, x)
     else:
         lr = [torch.nn.functional.normalize(torch.from_numpy(
             rng.standard_normal((700, d)).astype(np.float32)), dim=1).to(cuda) for _ in "lr"]
@@ -842,3 +855,193 @@ def test_checkpoint_crosses_modes_on_card(cuda, tmp_path, first, then):
     tail = run(ck.replace(steps_per_call=then), device=cuda)
     assert tail.timings["start_epoch"] == 4
     assert head.losses + tail.losses == pytest.approx(whole.losses, rel=1e-4)
+
+
+# ---- bf16 training and the sorted SpMM ----
+
+def _sorted_graph(rng, n=8000, hubs=(5300, 700)):
+    """A sorted operator with hub rows of the given in-degrees (rows 3,
+    11, ...), many short rows, self-loops as edges and a padded tail."""
+    src = rng.integers(0, n, 4 * n)
+    dst = rng.integers(20, n, 4 * n)
+    for row, deg in zip((3, 11, 17), hubs):
+        src = np.concatenate([src, rng.integers(20, n, deg)])
+        dst = np.concatenate([dst, np.full(deg, row)])
+    loops = np.arange(n)
+    src, dst = np.concatenate([src, loops]), np.concatenate([dst, loops])
+    w = rng.standard_normal(len(src)).astype(np.float32)
+    return build_spmm_operator(src, dst, w, n, bucket=4096)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("hub", ["hub_5300", "cap_plus_1"])
+def test_spmm_ell_bf16_matches_plain(cuda, d, hub):
+    """The bf16 instance over A and Aᵀ of a hub graph and over the attribute
+    incidence and its transpose: against the fp32 plain version of the same
+    bf16 input within half a bf16 ulp (fp32 sums, one rounding: rel 2^-8,
+    atol 1e-3 for the fp32 sums' order) and against the bf16 plain version
+    (which rounds the bucket sum and the diagonal term apart) at the bf16
+    tolerance; two launches agree bit for bit."""
+    rng = np.random.default_rng(d + len(hub))
+    op = _hub_graph(rng, HUB_DEGREES[hub]).to(cuda)
+    attr = np.stack([np.repeat(np.arange(6000), 4), rng.integers(0, 100, 24000)], 1)
+    inc = build_attr_operator(attr, 6000, 100).to(cuda)
+    for m, diag in ((op.fwd, op.diag), (op.bwd, op.diag), (inc.fwd, None), (inc.bwd, None)):
+        x = torch.from_numpy(rng.standard_normal((m.n_cols, d)).astype(np.float32))
+        x = x.to(cuda, torch.bfloat16)
+        before = spmm_ell.launches
+        got, again = ell_spmm(m, diag, x), ell_spmm(m, diag, x)
+        torch.cuda.synchronize()
+        assert spmm_ell.launches == before + 2 and got.dtype == torch.bfloat16
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got.float(), apply_with_diag(m, diag, x.float()),
+                                   rtol=2 ** -8, atol=1e-3)
+        torch.testing.assert_close(got.float(), apply_with_diag(m, diag, x).float(),
+                                   **TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [128, 256])
+def test_spmm_sorted_matches_plain(cuda, dtype, d):
+    """The sorted-segment kernel over A and Aᵀ of a graph with 5,300- and
+    700-edge rows, and over the attribute incidence and its transpose:
+    against its plain version (fp32 1e-4; bf16: one rounding of fp32 sums
+    on both sides, so 1 ulp, rel 2^-7, atol 1e-3); two launches agree bit
+    for bit; the trainable form's gradient is the transpose's launch,
+    held to the plain version over op.bwd."""
+    rng = np.random.default_rng(d + (dtype == torch.bfloat16))
+    op = _sorted_graph(rng).to(cuda)
+    attr = np.stack([np.repeat(np.arange(6000), 4), rng.integers(0, 100, 24000)], 1)
+    inc = build_attr_operator(attr, 6000, 100, fmt="sorted", bucket=4096).to(cuda)
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=2 ** -7, atol=1e-3)
+    for edges in (op.fwd, op.bwd, inc.fwd, inc.bwd):
+        x = torch.from_numpy(rng.standard_normal((edges.n_cols, d)).astype(np.float32))
+        x = x.to(cuda, dtype)
+        before = spmm_mod.launches
+        got, again = sorted_spmm(edges, x), sorted_spmm(edges, x)
+        torch.cuda.synchronize()
+        assert spmm_mod.launches == before + 2 and got.dtype == dtype
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got.float(), segment_spmm(edges, x).float(), **tol)
+    table = torch.from_numpy(rng.standard_normal((100, d)).astype(np.float32)).to(cuda, dtype)
+    cot = torch.from_numpy(rng.standard_normal((6000, d)).astype(np.float32)).to(cuda, dtype)
+    t1 = table.clone().requires_grad_(True)
+    before = spmm_mod.launches
+    spmm_mod.spmm(inc, t1).backward(cot)
+    torch.cuda.synchronize()
+    assert spmm_mod.launches == before + 2
+    torch.testing.assert_close(t1.grad.float(), segment_spmm(inc.bwd, cot).float(), **tol)
+    with pytest.raises(TypeError):
+        sorted_spmm(op.fwd, x.to(torch.float16))
+    with pytest.raises(ValueError):
+        sorted_spmm(op.fwd, torch.zeros(op.fwd.n_cols, 64, device=cuda))
+
+
+# bf16 against the plain path on the card: the two round at other points
+# (the kernel rounds each layer's fp32 sum once; the plain path rounds the
+# aggregate, the product and the bias apart), so a value differs by a few
+# roundings of 2^-9 between them.  A unit whose pre-activation lies that
+# close to 0 takes the other side of the layer-1 ReLU in the other path,
+# and its whole gradient moves with it: on these graphs a fraction
+# f ≈ 3e-3 of the pre-activations lies within 2^-8 of their RMS of 0, and
+# flipped units make a relative L2 of up to ≈ sqrt(f) ≈ 5.5e-2 upstream of
+# the ReLU, held at 2·sqrt(f) ≈ 1e-1.  The loss, a mean of many L1 hinge
+# terms, moves within a bf16 ulp, 2^-7.  The layer-2 bias's gradient is 0
+# by construction (the margin reads differences of rows); in bf16 it is
+# the sum over the n rows of each row's rounding of its cotangent (≤ 2^-9
+# of it), held under sqrt(n)·2^-8 of the largest gradient entry.
+BF16_STEP_TOL = dict(loss_rel=2 ** -7, grad_rel_l2=1e-1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim", [128, 256])
+def test_bf16_step_matches_plain(cuda, dim):
+    """One bf16 training step of AlignGCN at (dim, dim) through the kernels
+    (2 gcn_fused bf16 forward, 2 spmm_ell bf16 backward) against the same
+    step with the layer swapped for its plain version (autograd through it)
+    on the card, at BF16_STEP_TOL; the parameters' gradients are fp32."""
+    rng = np.random.default_rng(dim)
+    n, n1, s, k = 2000, 1000, 300, 20
+    tri = np.stack([rng.integers(0, n, 8000), rng.integers(0, 9, 8000),
+                    rng.integers(0, n, 8000)], 1)
+    op = build_adjacency(n, tri).to(cuda)
+    model = AlignGCN(n_ent=n, dim=dim, compute_dtype="bfloat16", device=cuda)
+    model.load_state_dict(init_params(n, dim, seed=4))
+    pairs = torch.from_numpy(np.stack([rng.permutation(n1)[:s],
+                                       n1 + rng.permutation(n1)[:s]], 1)).to(cuda)
+    neg_l = torch.from_numpy(rng.integers(0, n1, (s, k))).to(cuda)
+    neg_r = torch.from_numpy(rng.integers(n1, n, (s, k))).to(cuda)
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        loss = margin_align_loss(model(op), pairs, neg_l, neg_r, 3.0)
+        loss.backward()
+        return loss.item(), {k: v.grad.clone() for k, v in model.named_parameters()}
+
+    before = (gcn_fused.launches, spmm_ell.launches)
+    loss, grads = step()
+    torch.cuda.synchronize()
+    assert (gcn_fused.launches - before[0], spmm_ell.launches - before[1]) == (2, 2)
+    assert all(g.dtype == torch.float32 and torch.isfinite(g).all() for g in grads.values())
+    real = graphconv_mod.gcn_layer
+    graphconv_mod.gcn_layer = lambda op, x, w, b=None: reference_layer(op.fwd, op.diag, x, w, b)
+    try:
+        plain_loss, plain = step()
+    finally:
+        graphconv_mod.gcn_layer = real
+    assert loss == pytest.approx(plain_loss, rel=BF16_STEP_TOL["loss_rel"])
+    scale = max(float(v.abs().max()) for v in plain.values())
+    for k, v in plain.items():
+        if k == "gc2.b":  # 0 by construction: both are rounding noise
+            assert max(float(grads[k].abs().max()), float(v.abs().max())) < (
+                math.sqrt(n) * 2 ** -8 * scale)
+        else:
+            assert float((grads[k] - v).norm() / v.norm()) < BF16_STEP_TOL["grad_rel_l2"], k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sorted_encoder_on_card_matches_host(cuda, dtype):
+    """The sorted encoder (2 spmm_sorted forward, 2 backward, no ELL kernel)
+    on the card against the plain path on the host: fp32 1e-4; bf16 at the
+    gradient tolerance BF16_STEP_TOL (cuBLAS and the host round the bf16
+    products apart)."""
+    rng = np.random.default_rng(2)
+    n = 1500
+    tri = np.stack([rng.integers(0, n, 6000), rng.integers(0, 7, 6000),
+                    rng.integers(0, n, 6000)], 1)
+    op = build_adjacency(n, tri, fmt="sorted", bucket=2048)
+    params = init_params(n, 128, seed=3)
+    kw = dict(n_ent=n, spmm_impl="sorted", compute_dtype=dtype)
+    host, card = AlignGCN(**kw), AlignGCN(**kw, device=cuda)
+    host.load_state_dict(params)
+    card.load_state_dict(params)
+    cot = torch.from_numpy(rng.standard_normal((n, 128)).astype(np.float32))
+    before = (gcn_fused.launches, spmm_ell.launches, spmm_mod.launches)
+    got = card(op.to(cuda))
+    (got * cot.to(cuda)).sum().backward()
+    torch.cuda.synchronize()
+    assert (gcn_fused.launches - before[0], spmm_ell.launches - before[1],
+            spmm_mod.launches - before[2]) == (0, 0, 4)
+    want = host(op)
+    (want * cot).sum().backward()
+    tol = 1e-4 if dtype == "float32" else BF16_STEP_TOL["grad_rel_l2"]
+    assert float((got.cpu() - want.detach()).norm() / want.norm()) < tol
+    for (k, a), (_, b) in zip(card.named_parameters(), host.named_parameters()):
+        assert float((a.grad.cpu() - b.grad).norm() / b.grad.norm()) < tol, k
+
+
+@pytest.mark.gpu
+def test_debug_nans_on_a_captured_interval(cuda):
+    """A fused run whose huge learning rate overflows the second step: the
+    captured step's finite flag, read at the interval's synchronise,
+    raises FloatingPointError naming the interval; unfused, anomaly mode
+    and the step check name the epoch."""
+    cfg = get_config("base", syn_n_ent=600, syn_n_triples=2400, epochs=8, neg_every=4,
+                     eval_every=0, k_neg=10, lr=1e30)
+    with pytest.raises(FloatingPointError, match="interval of epochs 0-3"):
+        run(cfg.replace(steps_per_call=4), device=cuda, debug_nans=True)
+    with pytest.raises(FloatingPointError, match="epoch 1"):
+        run(cfg, device=cuda, debug_nans=True)

@@ -33,7 +33,7 @@ from tpugraph_torch.models.align import AlignMTL
 from tpugraph_torch.nn.graphconv import GraphConvolution
 from tpugraph_torch.sparse.build import build_adjacency
 from tpugraph_torch.train.driver import run
-from tpugraph_torch.train.loop import check_trainable
+from tpugraph_torch.train.loop import build_model, check_trainable
 from tpugraph_torch.train.losses import margin_align_loss
 from tpugraph_torch.train.metrics import epoch_edge_ops
 from tpugraph_torch.train.mtl import check_ot_size
@@ -257,14 +257,40 @@ def test_cli_trains_and_prints_one_json_line(capsys):
     assert out["config"] == "sinkhorn" and np.isfinite(out["final_loss"])
 
 
+@pytest.mark.parametrize("fused", [False, True])
+def test_cli_debug_nans_raises_at_the_poisoned_step(fused, capsys):
+    """--debug-nans: a learning rate of 1e30 overflows the second step's
+    forward.  Unfused, anomaly detection or the step check names epoch 1;
+    fused, the interval's finite flag names the interval; without the flag
+    the run ends with a NaN loss."""
+    argv = ["--config", "base", "--epochs", "6", "--device", "cpu", "--quiet",
+            "--set", *(f"{k}={v}" for k, v in TINY.items()), "lr=1e30", "neg_every=3",
+            f"steps_per_call={3 if fused else 1}"]
+    with pytest.raises(FloatingPointError,
+                       match="interval of epochs 0-2" if fused else "epoch 1"):
+        cli_main([*argv, "--debug-nans"])
+    assert cli_main(argv) == 0
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["final_loss"] != 0.0
+
+
 def test_unported_options_and_the_card_default():
-    for over in (dict(param_dtype="bfloat16"), dict(slice_shards=2), dict(n_shards=2)):
+    for over in (dict(slice_shards=2), dict(n_shards=2), dict(feature_shards=2)):
         with pytest.raises(NotImplementedError):
             check_trainable(get_config("sinkhorn", **over))
     # the fused interval, profiling and the TensorBoard sink are ported
-    # (tests/test_torch_fused.py, tests/test_torch_observability.py)
-    for over in (dict(steps_per_call=5), dict(profile_dir="prof")):
+    # (tests/test_torch_fused.py, tests/test_torch_observability.py); bf16
+    # training too (tests/test_torch_bf16.py)
+    for over in (dict(steps_per_call=5), dict(profile_dir="prof"),
+                 dict(param_dtype="bfloat16")):
         check_trainable(get_config("sinkhorn", **over))
+    # every single-device SpMM impl builds (tests/test_torch_sorted.py); the
+    # operator's layout follows it
+    task = synthetic_align_task(seed=0, n_ent=40, n_rel=3, n_triples=120)
+    for impl in ("ell", "pallas", "sorted", "xla"):
+        model = build_model(get_config("base", spmm_impl=impl, dim=8), task)
+        assert model.gc1.impl == ("ell" if impl == "pallas" else impl)  # get_config resolves the alias
+    with pytest.raises(ValueError, match="spmm_impl"):
+        build_model(get_config("base", spmm_impl="dense"), task)
     # the approximate, CSLS-mining and sqeuclidean search paths are ported
     for over in (dict(boot_cap=10, boot_approx=True), dict(neg_metric="sqeuclidean"),
                  dict(eval_approx_k=50), dict(neg_approx=True), dict(neg_csls_k=5),

@@ -9,14 +9,20 @@ with nvcc at first use and bound through ctypes (``kernels/_build.py``).
 Layer map:
     data/      synthetic DBP15K-shaped generator and the DBP15K and OpenEA
                readers (numpy, arrays identical to the JAX package's)
-    sparse/    KG containers, adjacency build, degree-bucketed ELL operator
-    kernels/   plain-torch ELL SpMM, distances and Sinkhorn solver, and the
-               four CUDA kernels: the fused GCN layer (forward), the ELL
-               SpMM (the layers' backward over the transpose, and the
-               attribute incidence forward and backward), the fused
-               Sinkhorn potential update (the OT head's forward) and the
-               shortlist distances (the approximate search paths' rerank)
-    nn/        GraphConvolution (trainable in fp32), the highway gate
+    sparse/    KG containers, adjacency build, degree-bucketed ELL operator,
+               sorted padded edge lists (``spmm_impl`` sorted/xla)
+    native/    the C++ adjacency builder, compiled by g++ at first use
+    kernels/   plain-torch ELL and sorted SpMM, distances and Sinkhorn
+               solver, and the five CUDA kernels: the fused GCN layer
+               (forward), the ELL SpMM (the layers' backward over the
+               transpose, and the attribute incidence forward and
+               backward), the sorted-segment SpMM (both directions under
+               ``spmm_impl="sorted"``), the fused Sinkhorn potential
+               update (the OT head's forward) and the shortlist distances
+               (the approximate search paths' rerank); ELL and sorted
+               SpMMs and the fused layer in fp32 or bf16
+    nn/        GraphConvolution (trainable in fp32 and bf16, ELL, sorted or
+               xla aggregation), the highway gate
     models/    AlignGCN encoder (highway gates, dropout), AlignMTL (margin,
                Sinkhorn, relation and attribute heads, the AE channel)
     train/     losses, OT head, negatives (exact and approximate), optimizer,

@@ -22,6 +22,9 @@ replayed per epoch on the card, ``train/fused.py``) and mines hard
 negatives approximately in sqeuclidean (``neg_metric = "sqeuclidean"``,
 ``neg_approx = true``); a ``--set`` of any of the three wins.
 ``--profile-dir`` writes a ``torch.profiler`` trace of epochs 2–5;
+``--debug-nans`` raises ``FloatingPointError`` at the first non-finite
+loss, gradient or parameter (the counterpart of ``jax_debug_nans``:
+anomaly detection and a check per step, or per fused interval);
 ``--dataset``, ``--data-root`` and ``--pair`` read a DBP15K or OpenEA
 directory (``data/dbp15k.py``, ``data/openea.py``).
 """
@@ -97,6 +100,9 @@ def main(argv=None) -> int:
                          "(--set checkpoint_dir=...)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--quiet", action="store_true")
+    ap.add_argument("--debug-nans", action="store_true",
+                    help="dev flag: raise FloatingPointError at the first non-finite loss, "
+                         "gradient or parameter (per step, or per fused interval)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.config)
@@ -122,7 +128,8 @@ def main(argv=None) -> int:
     if args.eval_only:
         metrics = evaluate(cfg, device=args.device).metrics
     else:
-        metrics = run(cfg, device=args.device, verbose=not args.quiet).metrics
+        metrics = run(cfg, device=args.device, verbose=not args.quiet,
+                      debug_nans=args.debug_nans).metrics
     print(json.dumps({"config": cfg.name, **{k: round(v, 4) for k, v in metrics.items()}}))
     return 0
 

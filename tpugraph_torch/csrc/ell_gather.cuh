@@ -147,8 +147,9 @@ __device__ __forceinline__ void walk_vslots(const T* __restrict__ x,
   }
 }
 
-template <int D>
-__device__ __forceinline__ void put_row(float* dst, int lane, const float (&acc)[D / 128][4]) {
+// One row of D fp32 sums to dst, rounded once to dst's type (float or bf16).
+template <int D, typename T>
+__device__ __forceinline__ void put_row(T* dst, int lane, const float (&acc)[D / 128][4]) {
 #pragma unroll
   for (int c = 0; c < D / 128; ++c) store4(dst + c * 128 + lane * 4, acc[c]);
 }

@@ -1,10 +1,13 @@
 // ELL SpMM for Hopper (sm_90a): out = A·x + diag ⊙ x over a degree-bucketed
-// ELL matrix, fp32, written straight to natural row order.
+// ELL matrix, written straight to natural row order.  x and out are fp32,
+// or both bf16 (bf16 training): the products and sums are fp32 either way,
+// the cut rows' partials too, and a bf16 row is rounded once, at the end.
 //
 // Replaces the XLA ops of tpugraph/kernels/spmm_ell.py::_ell_apply and
 // _apply_with_diag (the bucket gathers + K reduction + row_order gather).
 // The training path runs it once per GCN layer in the backward, on the
-// prebuilt transpose A^T (op.bwd), to form u = A^T·ḡ.
+// prebuilt transpose A^T (op.bwd), to form u = A^T·ḡ, in the cotangent's
+// type (fp32, or bf16 under param_dtype="bfloat16").
 //
 // What bounds it on an H100: the bytes it must move are x, out, diag and
 // the ELL arrays (~42 MB for the zh-en transpose at d = 128, ~12 µs at
@@ -50,13 +53,13 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 using ell::kFull;
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-spmm_ell_kernel(const float* __restrict__ x, const float* __restrict__ diag,
+spmm_ell_kernel(const T* __restrict__ x, const float* __restrict__ diag,
                 const int* __restrict__ rows, const int* __restrict__ idx,
                 const float* __restrict__ ew, const int4* __restrict__ items, int n_items,
                 const int* __restrict__ split_p0, int* __restrict__ counters,
-                float* __restrict__ partial, float* __restrict__ out) {
+                float* __restrict__ partial, T* __restrict__ out) {
   constexpr int CI = D / 128;
   const int lane = threadIdx.x & 31;
   const int item = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -70,7 +73,7 @@ spmm_ell_kernel(const float* __restrict__ x, const float* __restrict__ diag,
 
   float acc[CI][4] = {};
   int cur;  // the row acc belongs to
-  ell::walk_vslots<float, D, true>(
+  ell::walk_vslots<T, D, true>(
       x, diag, rows, idx, ew, pos0, k_row, slot0, v0, v1, lane, acc, cur,
       [&](int row, const float (&a)[CI][4]) {  // a packed item moves on to its next row
         ell::put_row<D>(out + static_cast<long>(row) * D, lane, a);
@@ -105,36 +108,37 @@ spmm_ell_kernel(const float* __restrict__ x, const float* __restrict__ diag,
   ell::put_row<D>(out + static_cast<long>(cur) * D, lane, sum);
 }
 
-template <int D>
-cudaError_t launch(const float* x, const float* diag, const int* rows, const int* idx,
+template <typename T, int D>
+cudaError_t launch(const void* x, const float* diag, const int* rows, const int* idx,
                    const float* ew, const int* items, int n_items, const int* split_p0,
-                   int* counters, float* partial, float* out, cudaStream_t stream) {
+                   int* counters, float* partial, void* out, cudaStream_t stream) {
   const int grid = (n_items + kWarps - 1) / kWarps;
-  spmm_ell_kernel<D><<<grid, kThreads, 0, stream>>>(x, diag, rows, idx, ew,
-                                                    reinterpret_cast<const int4*>(items), n_items,
-                                                    split_p0, counters, partial, out);
+  spmm_ell_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), diag, rows, idx, ew, reinterpret_cast<const int4*>(items),
+      n_items, split_p0, counters, partial, static_cast<T*>(out));
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// out (n_rows, d) float32 = A·x + diag ⊙ x.  diag may be null.  d is 128 or
-// 256.  items is the (n_items, 8) int32 segment table; split_p0 (n_split + 1)
+// out (n_rows, d) of x's type = A·x + diag ⊙ x.  diag may be null.  d is
+// 128 or 256; dtype 0 is float32, 1 bfloat16.  items is the (n_items, 8) int32 segment table; split_p0 (n_split + 1)
 // the first partial of each cut row; counters (n_split) int scratch, zero on
 // entry and left zero on exit, and partial (split_p0[n_split], d) float32
 // scratch.  One kernel launch; returns its cudaError_t (0 on success), and
 // the work itself runs asynchronously on `stream`.
-extern "C" int spmm_ell_forward(const float* x, const float* diag, const int* rows,
+extern "C" int spmm_ell_forward(const void* x, const float* diag, const int* rows,
                                 const int* idx, const float* ew, const int* items, int n_items,
-                                const int* split_p0, int* counters, float* partial, float* out,
-                                int d, void* stream) {
+                                const int* split_p0, int* counters, float* partial, void* out,
+                                int d, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_items <= 0) return cudaSuccess;
-  if (d == 128)
-    return launch<128>(x, diag, rows, idx, ew, items, n_items, split_p0, counters, partial, out,
-                       s);
-  if (d == 256)
-    return launch<256>(x, diag, rows, idx, ew, items, n_items, split_p0, counters, partial, out,
-                       s);
+#define SPMM_ELL_LAUNCH(T, D) \
+  launch<T, D>(x, diag, rows, idx, ew, items, n_items, split_p0, counters, partial, out, s)
+  if (dtype == 0 && d == 128) return SPMM_ELL_LAUNCH(float, 128);
+  if (dtype == 0 && d == 256) return SPMM_ELL_LAUNCH(float, 256);
+  if (dtype == 1 && d == 128) return SPMM_ELL_LAUNCH(__nv_bfloat16, 128);
+  if (dtype == 1 && d == 256) return SPMM_ELL_LAUNCH(__nv_bfloat16, 256);
+#undef SPMM_ELL_LAUNCH
   return cudaErrorInvalidValue;
 }

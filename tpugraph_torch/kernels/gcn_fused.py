@@ -22,9 +22,11 @@ kernel, so a call is one launch: no memset, no scratch allocation.
 
 ``gcn_layer`` is the trainable layer, a ``torch.autograd.Function``: the
 forward is this kernel; the backward is u = Aᵀ·ḡ by the ELL SpMM kernel
-over the prebuilt transpose (one launch), then dx = u·Wᵀ, dW = xᵀ·u and
-db = Σ ḡ as plain matrix products.  On CPU tensors both halves run their
-plain versions, so the CPU tests exercise the backward formula itself.
+over the prebuilt transpose (one launch, in ḡ's type), then dx = u·Wᵀ,
+dW = xᵀ·u (plain matrix products in x's type, bf16 under bf16 training, as
+the JAX package leaves them to XLA) and db = Σ ḡ in fp32.  On CPU tensors
+both halves run their plain versions, so the CPU tests exercise the
+backward formula itself.
 """
 
 from __future__ import annotations
@@ -179,12 +181,14 @@ class _GcnLayer(torch.autograd.Function):
         u = ell_spmm(ctx.op.bwd, ctx.op.diag, g.contiguous())
         dx = u @ wmat.t() if need_x else None
         dw = x.t() @ u if need_w else None
-        db = g.sum(0) if need_b else None
+        db = g.float().sum(0) if need_b else None  # the bias is fp32 in both types
         return dx, dw, db, None
 
 
 def gcn_layer(op: EllOperator, x: torch.Tensor, wmat: torch.Tensor,
               bias: torch.Tensor | None = None) -> torch.Tensor:
-    """A·x·W + b with gradients for x, W and b (float32); the operator is a
-    constant and gets none, as in the JAX package's ``spmm_ell``."""
+    """A·x·W + b with gradients for x, W and b; x and W float32, or both
+    bfloat16 (W cast from the fp32 parameter, whose gradient flows back
+    through the cast), b float32.  The operator is a constant and gets
+    none, as in the JAX package's ``spmm_ell``."""
     return _GcnLayer.apply(x, wmat, bias, op)

@@ -1,0 +1,164 @@
+"""Sorted-segment SpMM forward and backward (counterpart of
+``tpugraph/kernels/spmm.py``), the layers' aggregation for ``spmm_impl``
+``sorted`` and ``xla``.
+
+out[i] = Σ_{e: dst[e]=i} w[e] · x[src[e]] over a ``PaddedEdges`` list.
+
+* ``segment_spmm`` — the plain version: an fp32 gather·w, ``index_add_``
+  into ``n_rows + 1`` rows (the last is the padding's dump row), sliced,
+  cast to x's type.
+* ``sorted_spmm`` — the same function by the hand-written Hopper kernel
+  ``csrc/spmm_sorted.cu`` on a CUDA tensor (fp32 or bf16, d ∈ {128, 256}),
+  the plain version on a CPU tensor.  It never falls back from the card.
+  Its row table (``row_plan``) is built on the host once per edge list and
+  cached on it, so a call does no host work beyond its checks and is legal
+  inside a CUDA graph capture.
+* ``spmm`` — A·x with a gradient for x (an autograd Function, the
+  counterpart of the JAX ``spmm`` custom VJP): ``sorted_spmm`` over
+  ``op.fwd`` forward, over ``op.bwd`` backward.  The operator is a
+  constant and gets no gradient (the contract of
+  ``tpugraph/kernels/vjp_util.py``).
+* ``spmm_xla`` — the plain composite on every device, with torch's
+  autograd through it (the backward of the gather is a scatter): the
+  counterpart of the JAX "XLA autodiff" baseline.  The JAX package's VMA
+  tokens (``vjp_util.vma_token``) are ``shard_map`` plumbing and have no
+  torch counterpart.
+
+Unlike the ELL path, a pad edge drains to the dump row, so a non-finite
+x[0] poisons no row: the path JAX points NaN-probing to.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from tpugraph_torch.kernels import _build
+from tpugraph_torch.sparse.graph import PaddedEdges, SpMMOperator
+
+SUPPORTED_DIMS = (128, 256)  # csrc/spmm_sorted.cu template instances
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# kernel launches since the process started (or the caller last reset it)
+launches = 0
+
+
+def check_n_cols(edges: PaddedEdges, x: torch.Tensor) -> None:
+    """A feature matrix of the wrong height would gather out of bounds on
+    the card; refuse it on every device."""
+    if edges.n_cols is not None and x.shape[0] != edges.n_cols:
+        raise ValueError(f"x has {x.shape[0]} rows but the operator expects {edges.n_cols}")
+
+
+def segment_spmm(edges: PaddedEdges, x: torch.Tensor) -> torch.Tensor:
+    """The plain version: rows [0, n_rows) of the dump-row-padded segment
+    sum, accumulated in fp32 and cast to x's type."""
+    check_n_cols(edges, x)
+    msg = x.index_select(0, edges.src).float() * edges.w[:, None]
+    out = torch.zeros((edges.n_rows + 1, x.shape[1]), dtype=torch.float32, device=x.device)
+    out.index_add_(0, edges.dst, msg)
+    return out[:edges.n_rows].to(x.dtype)
+
+
+@dataclass
+class RowPlan:
+    """The kernel's row table for one edge list, on that list's device."""
+
+    rowptr: torch.Tensor  # (n_rows + 1,) int32: row i's edges [rowptr[i], rowptr[i+1])
+    order: torch.Tensor  # (n_rows,) int32: the rows, heaviest first
+    max_degree: int
+
+
+def row_plan(edges: PaddedEdges) -> RowPlan:
+    """Build (once per edge list, cached on it) the kernel's row table,
+    checking the builder's contract on the host: dst non-decreasing, the
+    padding at the dump row, src within [0, n_cols)."""
+    plan = edges.cache.get("rows")
+    if plan is not None:
+        return plan
+    dst = edges.dst.cpu().numpy().astype(np.int64)
+    src = edges.src[:edges.nnz].cpu().numpy()
+    if np.any(np.diff(dst) < 0) or np.any(dst[edges.nnz:] != edges.n_rows) or (
+            edges.nnz and (int(dst[:edges.nnz].max()) >= edges.n_rows or int(dst[0]) < 0)):
+        raise ValueError("edges are not (dst)-sorted with the padding at the dump row")
+    n_cols = edges.n_cols if edges.n_cols is not None else edges.n_rows
+    if src.size and (int(src.min()) < 0 or int(src.max()) >= n_cols):
+        raise ValueError(f"edge source ids out of range for n_cols={n_cols}")
+    rowptr = np.searchsorted(dst[:edges.nnz], np.arange(edges.n_rows + 1), side="left")
+    deg = np.diff(rowptr)
+    order = np.argsort(-deg, kind="stable")
+    dev = edges.device
+    plan = RowPlan(rowptr=torch.from_numpy(rowptr.astype(np.int32)).to(dev),
+                   order=torch.from_numpy(order.astype(np.int32)).to(dev),
+                   max_degree=int(deg.max()) if deg.size else 0)
+    edges.cache["rows"] = plan
+    return plan
+
+
+def _lib():
+    fn = _build.load("spmm_sorted").spmm_sorted_forward
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, i, p, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def sorted_spmm(edges: PaddedEdges, x: torch.Tensor) -> torch.Tensor:
+    """A @ x over a sorted edge list: the kernel on a CUDA tensor,
+    ``segment_spmm`` on a CPU tensor.  x (n_cols, d) float32 or bfloat16,
+    d ∈ {128, 256} on the card; the output has x's type."""
+    if x.device.type == "cpu":
+        return segment_spmm(edges, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"sorted_spmm runs on cuda or cpu, not {x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"the sorted SpMM kernel takes float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 2 or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("x must be a contiguous, 16-byte aligned (N, d) tensor")
+    if x.shape[1] not in SUPPORTED_DIMS:
+        raise ValueError(f"d={x.shape[1]} not in {SUPPORTED_DIMS}")
+    check_n_cols(edges, x)
+    if edges.device != x.device:
+        raise ValueError(f"the operator must be on {x.device}")
+    return _launch(edges, x, row_plan(edges))
+
+
+def _launch(edges: PaddedEdges, x: torch.Tensor, plan: RowPlan) -> torch.Tensor:
+    """One kernel launch over ``plan``'s rows, on checked inputs."""
+    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+    out = torch.empty((edges.n_rows, x.shape[1]), dtype=x.dtype, device=x.device)
+    err = _lib()(x.data_ptr(), edges.src.data_ptr(), edges.w.data_ptr(),
+                 plan.rowptr.data_ptr(), plan.order.data_ptr(), plan.order.shape[0],
+                 out.data_ptr(), x.shape[1], _DTYPE_CODE[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"spmm_sorted launch failed with CUDA error {err}")
+    global launches
+    launches += 1
+    return out
+
+
+class _Spmm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, op):
+        ctx.op = op
+        return sorted_spmm(op.fwd, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return sorted_spmm(ctx.op.bwd, g.contiguous()), None
+
+
+def spmm(op: SpMMOperator, x: torch.Tensor) -> torch.Tensor:
+    """A·x with a gradient for x; the operator is a constant and gets none.
+    Forward and backward are one ``sorted_spmm`` launch each on the card."""
+    return _Spmm.apply(x, op)
+
+
+def spmm_xla(op: SpMMOperator, x: torch.Tensor) -> torch.Tensor:
+    """A·x by the plain composite, differentiated by torch's autograd (the
+    backward of the gather is a scatter), on every device."""
+    return segment_spmm(op.fwd, x)

@@ -6,8 +6,9 @@ out[row] = Σ_k w[row, k] · x[idx[row, k]] + diag[row] · x[row].
   ``index_select`` gather per degree bucket, an fp32 ``einsum`` over K, one
   ``row_order`` gather back to natural row order, plus ``diag ⊙ x``.
 * ``ell_spmm`` — the same function by the hand-written Hopper kernel
-  ``csrc/spmm_ell.cu`` on a CUDA tensor (fp32, d ∈ {128, 256}), the plain
-  version on a CPU tensor.  It never falls back from the card.  Applied to
+  ``csrc/spmm_ell.cu`` on a CUDA tensor (fp32 or bf16, d ∈ {128, 256};
+  fp32 sums, a bf16 row rounded once at the end), the plain version on a
+  CPU tensor.  It never falls back from the card.  Applied to
   the prebuilt transpose ``op.bwd`` it is the backward of A·x with no
   scatter (``kernels/gcn_fused.py::gcn_layer``).  Pad slots hold
   ``idx = 0``, ``w = 0``: a non-finite x[0] poisons the padded rows
@@ -44,6 +45,7 @@ TILE_SLOTS = 1024  # target ELL slots per tile: large-K buckets get fewer rows
 SEG_SLOTS = 128  # longest run of one row's ELL slots in one SpMM work item
 PACK_VSLOTS = 64  # virtual slots (K + 1 per row) of a packed SpMM item: two chunks
 SUPPORTED_DIMS = (128, 256)  # csrc/spmm_ell.cu template instances
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the process started (or the caller last reset it)
 launches = 0
@@ -157,8 +159,9 @@ class SegmentPlan:
     split_p0: torch.Tensor  # (n_split + 1,) int32: each cut row's first partial
     n_partials: int
     max_item_slots: int  # the most ELL slots of any item
-    # (d, stream) -> the kernel's scratch there: the cut rows' partials, then
-    # their counters, zeroed once (the kernel leaves each counter at 0)
+    # (d, stream) -> the kernel's scratch there: the cut rows' fp32 partials
+    # (for either type of x), then their counters, zeroed once (the kernel
+    # leaves each counter at 0)
     scratch: dict = field(default_factory=dict)
 
 
@@ -221,20 +224,21 @@ def _lib():
     fn = _build.load("spmm_ell").spmm_ell_forward
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, p, p, p, p, i, p]
+        fn.argtypes = [p, p, p, p, p, p, i, p, p, p, p, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def ell_spmm(m: EllMatrix, diag: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor:
     """A @ x + diag ⊙ x: the kernel on a CUDA tensor, ``apply_with_diag``
-    on a CPU tensor.  x (n_cols, d) float32, d ∈ {128, 256} on the card."""
+    on a CPU tensor.  x (n_cols, d) float32 or bfloat16, d ∈ {128, 256} on
+    the card; the output has x's type."""
     if x.device.type == "cpu":
         return apply_with_diag(m, diag, x)
     if x.device.type != "cuda":
         raise ValueError(f"ell_spmm runs on cuda or cpu, not {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"the ELL SpMM kernel takes float32, got {x.dtype}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"the ELL SpMM kernel takes float32 or bfloat16, got {x.dtype}")
     if x.dim() != 2 or not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("x must be a contiguous, 16-byte aligned (N, d) tensor")
     if x.shape[1] not in SUPPORTED_DIMS:
@@ -257,11 +261,12 @@ def _launch(m: EllMatrix, diag: torch.Tensor | None, x: torch.Tensor,
                               dtype=torch.float32, device=x.device)
         plan.scratch[(d, stream)] = scratch
     partial = scratch.data_ptr()
-    out = torch.empty((m.n_rows, d), dtype=torch.float32, device=x.device)
+    out = torch.empty((m.n_rows, d), dtype=x.dtype, device=x.device)
     err = _lib()(x.data_ptr(), None if diag is None else diag.data_ptr(),
                  plan.base.rows.data_ptr(), plan.base.idx.data_ptr(), plan.base.w.data_ptr(),
                  plan.items.data_ptr(), plan.items.shape[0], plan.split_p0.data_ptr(),
-                 partial + 4 * plan.n_partials * d, partial, out.data_ptr(), d, stream)
+                 partial + 4 * plan.n_partials * d, partial, out.data_ptr(), d,
+                 _DTYPE_CODE[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"spmm_ell launch failed with CUDA error {err}")
     global launches

@@ -17,8 +17,11 @@ from tpugraph_torch.models.attr_channel import (AttrChannelGCN, combine_channels
 from tpugraph_torch.models.encoder import AlignGCN, init_params
 from tpugraph_torch.models.heads import AttributeHead, RelationHead, init_head_params
 from tpugraph_torch.sparse.ell import EllOperator
+from tpugraph_torch.sparse.graph import SpMMOperator
 from tpugraph_torch.train.losses import margin_align_loss
 from tpugraph_torch.train.ot import sinkhorn_align_loss
+
+Operator = EllOperator | SpMMOperator
 
 
 class AlignMTL(nn.Module):
@@ -37,13 +40,14 @@ class AlignMTL(nn.Module):
         self.encoder = AlignGCN(n_ent=n_ent, dim=cfg.dim, hidden=cfg.hidden,
                                 highway=cfg.highway, dropout=cfg.dropout,
                                 compute_dtype=cfg.param_dtype,
-                                l2_normalize=cfg.l2_normalize, device=device)
+                                l2_normalize=cfg.l2_normalize, spmm_impl=cfg.spmm_impl,
+                                device=device)
         self.rel_head = RelationHead(n_rel, cfg.dim, device) if cfg.use_rel_head else None
         self.attr_head = AttributeHead(cfg.dim, n_attr, device) if cfg.use_attr_head else None
-        self.ae_encoder = (AttrChannelGCN(n_attr, cfg.dim, device) if cfg.use_attr_channel
-                           else None)
+        self.ae_encoder = (AttrChannelGCN(n_attr, cfg.dim, cfg.spmm_impl, device)
+                           if cfg.use_attr_channel else None)
 
-    def embed(self, op: EllOperator, attr_op: EllOperator | None = None) -> torch.Tensor:
+    def embed(self, op: Operator, attr_op: Operator | None = None) -> torch.Tensor:
         """Evaluation embeddings: the SE table, or with the attribute channel
         the β-weighted SE‖AE concat (2·dim wide)."""
         se = self.encoder(op)
@@ -51,8 +55,8 @@ class AlignMTL(nn.Module):
             return combine_channels(se, self.ae_encoder(op, attr_op), self.cfg.attr_beta)
         return se
 
-    def forward(self, op: EllOperator, batch: dict, train: bool = False,
-                attr_op: EllOperator | None = None,
+    def forward(self, op: Operator, batch: dict, train: bool = False,
+                attr_op: Operator | None = None,
                 generator: torch.Generator | None = None) -> tuple[torch.Tensor, dict]:
         """batch (int64 ids on the model's device): pairs (S, 2), neg_l,
         neg_r (S', k); with bootstrapping pairs_aug (S', 2) and w (S'), the

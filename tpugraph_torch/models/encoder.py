@@ -2,8 +2,13 @@
 of ``tpugraph/models/encoder.py``).
 
 A trainable entity-embedding table propagated through two
-GraphConvolution layers over the merged KG-pair adjacency, with optional
-highway gates (config ``highway``) and dropout on the second layer's input.
+GraphConvolution layers over the merged KG-pair adjacency (an
+``EllOperator`` for ``spmm_impl`` ell, an ``SpMMOperator`` for sorted and
+xla), with optional highway gates (config ``highway``) and dropout on the
+second layer's input.  With ``compute_dtype="bfloat16"`` the table is cast
+to bf16 on the way in, the layers, gates and dropout run in bf16 over the
+fp32 parameters, and the output goes back to fp32 for the losses and the
+evals, as in the JAX encoder.
 Dropout is active only in a training forward (``train=True``): the
 evaluation embeddings, the proposals, mining and evals never drop.
 """
@@ -17,6 +22,7 @@ from torch import nn
 from tpugraph_torch.nn.graphconv import GraphConvolution
 from tpugraph_torch.nn.highway import Highway
 from tpugraph_torch.sparse.ell import EllOperator
+from tpugraph_torch.sparse.graph import SpMMOperator
 
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -38,7 +44,7 @@ class AlignGCN(nn.Module):
     def __init__(self, n_ent: int, dim: int = 128, hidden: int | None = None,
                  highway: bool = False, dropout: float = 0.0,
                  compute_dtype: str = "float32", l2_normalize: bool = False,
-                 device: torch.device | str | None = None):
+                 spmm_impl: str = "ell", device: torch.device | str | None = None):
         super().__init__()
         if compute_dtype not in _COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_COMPUTE_DTYPES)}")
@@ -51,12 +57,12 @@ class AlignGCN(nn.Module):
         self.l2_normalize = l2_normalize
         self.dropout = dropout
         self.emb = nn.Parameter(torch.empty(n_ent, dim, device=device))
-        self.gc1 = GraphConvolution(dim, hidden, device=device)
-        self.gc2 = GraphConvolution(hidden, dim, device=device)
+        self.gc1 = GraphConvolution(dim, hidden, impl=spmm_impl, device=device)
+        self.gc2 = GraphConvolution(hidden, dim, impl=spmm_impl, device=device)
         self.hw1 = Highway(dim, device=device) if highway else None
         self.hw2 = Highway(dim, device=device) if highway else None
 
-    def layer_activations(self, op: EllOperator, train: bool = False,
+    def layer_activations(self, op: EllOperator | SpMMOperator, train: bool = False,
                           generator: torch.Generator | None = None) -> list[torch.Tensor]:
         """[input embeddings, layer-1 act, layer-2 act] — the parity hook.
         ``train`` turns dropout on, with its uniforms from ``generator``."""
@@ -73,7 +79,7 @@ class AlignGCN(nn.Module):
             out = out / (torch.linalg.vector_norm(out, dim=-1, keepdim=True) + 1e-8)
         return [x, h, out]
 
-    def forward(self, op: EllOperator, train: bool = False,
+    def forward(self, op: EllOperator | SpMMOperator, train: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         return self.layer_activations(op, train, generator)[-1]
 

@@ -1,13 +1,25 @@
 """GraphConvolution (counterpart of ``tpugraph/nn/graphconv.py``).
 
-out = A · x · W + b, computed as (A·x)·W by the fused GCN-layer kernel
-(``kernels/gcn_fused.py``); the JAX layer computes A·(x·W), which is equal
-by associativity.  The weight keeps the JAX layout (d_in, d_out).
+out = A · x · W + b.  The weight keeps the JAX layout (d_in, d_out).  The
+layer dispatches on ``impl``, and the operator's type must match it
+(``operator_format``):
 
-float32 layers train: ``gcn_layer`` is an autograd Function whose backward
-runs the ELL SpMM kernel over the transpose operator.  bfloat16 layers
-serve (forward only); asking one for a gradient on the card raises, since
-bf16 training is not ported (``ROADMAP.md``).
+* ``ell`` (``pallas`` is its alias): (A·x)·W in one launch of the fused
+  GCN-layer kernel (``kernels/gcn_fused.py::gcn_layer``) over an
+  ``EllOperator``; its backward runs the ELL SpMM kernel over the
+  transpose.  The JAX layer computes A·(x·W), equal by associativity in
+  fp32; in bf16 the two round at other points.  Pad slots gather x[0] with
+  weight 0, so a non-finite x[0] poisons the padded rows (0·NaN), as in the
+  JAX package (``tpugraph/kernels/spmm_ell.py:53-65``).
+* ``sorted``: support = x·W (``torch.matmul`` in x's type), then the
+  sorted-segment SpMM kernel over an ``SpMMOperator``
+  (``kernels/spmm.py::spmm``) — the JAX layer's own order.  Pad edges
+  drain to a dump row: the path for probing NaNs.
+* ``xla``: the same with the plain composite, differentiated by autograd.
+
+Training runs in fp32 or bf16 (bf16 activations, fp32 parameters: W and b
+are cast to x's type on the way in, and their gradients flow back through
+the casts).
 """
 
 from __future__ import annotations
@@ -15,25 +27,35 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from tpugraph_torch.kernels.gcn_fused import fused_gcn_layer, gcn_layer
+from tpugraph_torch.kernels.gcn_fused import gcn_layer
+from tpugraph_torch.kernels.spmm import spmm, spmm_xla
 from tpugraph_torch.sparse.ell import EllOperator
+from tpugraph_torch.sparse.graph import SpMMOperator
+
+IMPLS = ("ell", "pallas", "sorted", "xla")
+
+
+def operator_format(impl: str) -> str:
+    """The operator layout an impl takes: ``build_adjacency``'s ``fmt``."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown spmm_impl {impl!r}; expected one of {IMPLS}")
+    return "ell" if impl in ("ell", "pallas") else "sorted"
 
 
 class GraphConvolution(nn.Module):
     """One GCN layer; the activation is left to the caller."""
 
-    def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True,
+    def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True, impl: str = "ell",
                  device: torch.device | str | None = None):
         super().__init__()
+        operator_format(impl)
+        self.impl = impl
         self.w = nn.Parameter(torch.empty(in_dim, out_dim, device=device))
         self.b = nn.Parameter(torch.zeros(out_dim, device=device)) if use_bias else None
 
-    def forward(self, x: torch.Tensor, op: EllOperator) -> torch.Tensor:
-        if x.dtype == torch.float32:
-            return gcn_layer(op, x, self.w, self.b)
-        if x.device.type != "cpu" and torch.is_grad_enabled() and (
-                x.requires_grad or self.w.requires_grad):
-            raise NotImplementedError(
-                f"{x.dtype} training is not ported yet (float32 only); run the "
-                "layer under torch.no_grad() to serve")
-        return fused_gcn_layer(op.fwd, op.diag, x, self.w.to(x.dtype), self.b)
+    def forward(self, x: torch.Tensor, op: EllOperator | SpMMOperator) -> torch.Tensor:
+        if self.impl in ("ell", "pallas"):
+            return gcn_layer(op, x, self.w.to(x.dtype), self.b)
+        support = torch.matmul(x, self.w.to(x.dtype))
+        out = (spmm if self.impl == "sorted" else spmm_xla)(op, support)
+        return out if self.b is None else out + self.b.to(out.dtype)

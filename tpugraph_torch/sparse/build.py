@@ -1,5 +1,5 @@
-"""Adjacency construction: triples -> weighted COO -> normalized ELL
-operator (counterpart of ``tpugraph/sparse/build.py``, numpy path).
+"""Adjacency construction: triples -> weighted COO -> normalized ELL or
+sorted padded operator (counterpart of ``tpugraph/sparse/build.py``).
 
 * undirected message edges from each relation triple (h, r, t): h->t, t->h;
 * optional GCN-Align-style relation functionality weights ("funifun"):
@@ -9,13 +9,18 @@ operator (counterpart of ``tpugraph/sparse/build.py``, numpy path).
 * self-loops with weight 1;
 * degree normalization: 'sym' (D^-1/2 A D^-1/2), 'rw' (D^-1 A), or 'none'.
 
-Runs on the host once per dataset, in float64 like the reference, so the
-weights are bit-identical to the JAX package's numpy path.
+Runs on the host once per dataset, in float64 like the reference: the
+numpy path's weights are bit-identical to the JAX package's numpy path,
+and ``build_adjacency`` takes the native C++ builder (``native/``) first,
+as the JAX package does.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from tpugraph_torch.sparse.graph import PAD_BUCKET, PaddedEdges, SpMMOperator, _round_up
 
 
 def _funifun_weights(triples: np.ndarray, n_rel: int) -> tuple[np.ndarray, np.ndarray]:
@@ -111,6 +116,61 @@ def coo_normalize(
     raise ValueError(f"unknown norm {norm!r}")
 
 
+def pad_sort_edges(
+    src: np.ndarray,
+    dst: np.ndarray,
+    w: np.ndarray,
+    n_rows: int,
+    bucket: int = PAD_BUCKET,
+    sort_by: str = "dst",
+    n_cols: int | None = None,
+) -> PaddedEdges:
+    """Sort edges by (dst, src) (or (src, dst)) and pad to a bucket
+    multiple.  Padding edges: src=0, dst=n_rows (the dump row), w=0."""
+    nnz = len(src)
+    if sort_by == "dst":
+        order = np.lexsort((src, dst))
+    elif sort_by == "src":
+        order = np.lexsort((dst, src))
+    else:
+        raise ValueError(sort_by)
+    src, dst, w = src[order], dst[order], w[order]
+    e_pad = max(_round_up(max(nnz, 1), bucket), bucket)
+    pad = e_pad - nnz
+    src_p = np.concatenate([src, np.zeros(pad, dtype=np.int64)])
+    dst_p = np.concatenate([dst, np.full(pad, n_rows, dtype=np.int64)])
+    w_p = np.concatenate([w, np.zeros(pad)])
+    return PaddedEdges(
+        src=torch.from_numpy(src_p.astype(np.int32)),
+        dst=torch.from_numpy(dst_p.astype(np.int32)),
+        w=torch.from_numpy(w_p.astype(np.float32)),
+        n_rows=int(n_rows),
+        nnz=int(nnz),
+        n_cols=int(n_cols) if n_cols is not None else None,
+    )
+
+
+def build_spmm_operator(
+    src: np.ndarray,
+    dst: np.ndarray,
+    w: np.ndarray,
+    n_rows: int,
+    bucket: int = PAD_BUCKET,
+    n_cols: int | None = None,
+) -> SpMMOperator:
+    """A COO matrix as forward (A@x) and transpose (Aᵀ@g) sorted edge
+    lists.  A rectangular A (n_rows × n_cols, e.g. the entity × attribute
+    incidence) needs ``n_cols``: the transpose has that many output rows."""
+    nc = n_cols if n_cols is not None else n_rows
+    if len(src) and (int(np.max(src)) >= nc or int(np.min(src)) < 0):
+        raise ValueError(
+            f"build_spmm_operator: src ids span [{int(np.min(src))}, {int(np.max(src))}], "
+            f"out of range for n_cols={nc} (rectangular matrix? pass n_cols explicitly)")
+    fwd = pad_sort_edges(src, dst, w, n_rows, bucket, sort_by="dst", n_cols=nc)
+    bwd = pad_sort_edges(dst, src, w, nc, bucket, sort_by="dst", n_cols=n_rows)
+    return SpMMOperator(fwd=fwd, bwd=bwd)
+
+
 def build_adjacency(
     n_ent: int,
     triples: np.ndarray,
@@ -119,19 +179,45 @@ def build_adjacency(
     norm: str = "sym",
     self_loops: bool = True,
     w_min: float = 0.3,
+    bucket: int = PAD_BUCKET,
+    use_native: bool = True,
     fmt: str = "ell",
 ):
-    """Full pipeline: triples -> weighted, normalized ELL operator (host
-    tensors; move it with ``.to(device)``).  Only ``fmt='ell'`` is ported:
-    the sorted-COO layout waits for the ``sorted`` SpMM impl."""
-    if fmt != "ell":
-        raise NotImplementedError(f"fmt={fmt!r} is not ported yet (only 'ell')")
+    """Full pipeline: triples -> weighted, normalized operator (host
+    tensors; move it with ``.to(device)``).  The native C++ builder
+    (``native/``) runs where a C++ compiler exists, else the numpy path.
+    ``fmt`` selects the layout, which must match the layer's SpMM impl
+    (``nn/graphconv.py::operator_format``): 'ell' -> EllOperator with the
+    self-loops split out as the diagonal, 'sorted' -> SpMMOperator whose
+    self-loops stay edges."""
+    if fmt not in ("ell", "sorted"):
+        raise ValueError(f"unknown fmt {fmt!r}; expected 'ell' or 'sorted'")
+    out = None
+    if use_native:
+        from tpugraph_torch import native
+
+        if native.available():
+            out = native.native_coo_from_triples(
+                n_ent, triples, n_rel=n_rel, weighting=weighting, w_min=w_min,
+                self_loops=self_loops, norm=norm)
+    if out is not None:
+        src, dst, w = out
+    else:
+        src, dst, w = coo_from_triples(
+            n_ent, triples, n_rel=n_rel, weighting=weighting, w_min=w_min,
+            self_loops=self_loops,
+        )
+        w = coo_normalize(src, dst, w, n_ent, norm=norm)
+    if fmt == "sorted":
+        return build_spmm_operator(src, dst, w, n_ent, bucket=bucket)
     from tpugraph_torch.sparse.ell import build_ell_operator
 
-    src, dst, w = coo_from_triples(
-        n_ent, triples, n_rel=n_rel, weighting=weighting, w_min=w_min,
-        self_loops=self_loops,
-    )
-    w = coo_normalize(src, dst, w, n_ent, norm=norm)
     # self-loops (the diagonal) go through the gather-free diag vector
     return build_ell_operator(src, dst, w, n_ent, split_diag=self_loops)
+
+
+def coo_to_dense(src, dst, w, n_rows, n_cols) -> np.ndarray:
+    """Test oracle: the dense matrix, duplicates summed."""
+    a = np.zeros((n_rows, n_cols))
+    np.add.at(a, (dst, src), w)
+    return a

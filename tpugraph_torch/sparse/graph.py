@@ -1,14 +1,20 @@
-"""Host-side KG containers (counterpart of ``tpugraph/sparse/graph.py``).
+"""Host-side KG containers and the sorted padded edge operator
+(counterpart of ``tpugraph/sparse/graph.py``).
 
-Plain numpy dataclasses: the KGs and alignment pairs live on the host; only
-the operator built from them (``sparse/ell.py``) goes to the device.
+The KGs and alignment pairs are plain numpy dataclasses on the host; only
+an operator built from them goes to the device: the degree-bucketed ELL
+(``sparse/ell.py``) or, for ``spmm_impl`` ``sorted``/``xla``,
+``SpMMOperator`` below, whose tensors move with ``.to(device)``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
+import torch
+
+PAD_BUCKET = 8192  # edges padded up to a multiple of this (the JAX package's)
 
 
 @dataclass
@@ -83,3 +89,62 @@ class AlignTask:
         if not parts:
             return None
         return np.concatenate(parts, axis=0)
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass
+class PaddedEdges:
+    """An edge list sorted by (dst, src) and padded to a bucket multiple.
+
+    ``out = index_add(w[:, None] * x[src], dst)`` over ``n_rows + 1`` rows
+    computes A @ x in rows [0, n_rows); row ``n_rows`` is the padding dump
+    row, dropped by the consumer.  Padding edges have ``w == 0``,
+    ``src == 0`` and ``dst == n_rows``.  The dst non-decreasing order is
+    the builder's contract (``sparse/build.py::pad_sort_edges``)."""
+
+    src: torch.Tensor  # (E_pad,) int32
+    dst: torch.Tensor  # (E_pad,) int32, non-decreasing; padding uses n_rows
+    w: torch.Tensor  # (E_pad,) float32
+    n_rows: int
+    nnz: int  # true edge count (pre-pad)
+    n_cols: int | None = None  # the x-row count the gather expects
+    # derived kernel layouts (kernels/spmm.py::row_plan), built at first
+    # use on this list's device; a moved copy starts empty
+    cache: dict = field(default_factory=dict, repr=False, compare=False)
+
+    @property
+    def e_pad(self) -> int:
+        return self.src.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.src.device
+
+    def to(self, device) -> "PaddedEdges":
+        return PaddedEdges(src=self.src.to(device), dst=self.dst.to(device),
+                           w=self.w.to(device), n_rows=self.n_rows, nnz=self.nnz,
+                           n_cols=self.n_cols)
+
+
+@dataclass
+class SpMMOperator:
+    """A sparse matrix A for the sorted SpMM: ``fwd`` holds A's edges
+    sorted by destination row, ``bwd`` the same edges re-sorted for Aᵀ, so
+    the backward is another sorted-segment SpMM, not a scatter."""
+
+    fwd: PaddedEdges
+    bwd: PaddedEdges
+
+    @property
+    def n_rows(self) -> int:
+        return self.fwd.n_rows
+
+    @property
+    def nnz(self) -> int:
+        return self.fwd.nnz
+
+    def to(self, device) -> "SpMMOperator":
+        return SpMMOperator(fwd=self.fwd.to(device), bwd=self.bwd.to(device))

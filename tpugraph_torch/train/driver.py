@@ -27,23 +27,24 @@ from tpugraph_torch.convert import AE_PREFIX, PARAMS_FILE, embed_params, load_pa
 from tpugraph_torch.models.attr_channel import AttrChannelGCN, combine_channels
 from tpugraph_torch.models.encoder import AlignGCN
 from tpugraph_torch.sparse.ell import EllOperator
-from tpugraph_torch.sparse.graph import AlignTask
+from tpugraph_torch.sparse.graph import AlignTask, SpMMOperator
 from tpugraph_torch.train.eval import hits_at_k
 from tpugraph_torch.train.loop import (StepParts, TrainResult, build_model, build_operator,
                                        embed, fit, load_task, margin_parts)
 
 
 def run(cfg: TrainConfig, task: AlignTask | None = None, device: str | torch.device = "cuda",
-        verbose: bool = False) -> TrainResult:
+        verbose: bool = False, debug_nans: bool = False) -> TrainResult:
     """Train per ``cfg``.  ``task``: a pre-built AlignTask; None loads it
-    from ``cfg``."""
+    from ``cfg``.  ``debug_nans``: raise ``FloatingPointError`` at the first
+    non-finite step (``train/loop.py``)."""
     if max(cfg.n_shards, cfg.feature_shards, cfg.slice_shards) > 1:
         raise NotImplementedError("the distributed trainer is not ported yet; see ROADMAP.md")
     if uses_mtl(cfg):
         from tpugraph_torch.train.mtl import fit_mtl
 
-        return fit_mtl(cfg, task=task, verbose=verbose, device=device)
-    return fit(cfg, task=task, verbose=verbose, device=device)
+        return fit_mtl(cfg, task=task, verbose=verbose, device=device, debug_nans=debug_nans)
+    return fit(cfg, task=task, verbose=verbose, device=device, debug_nans=debug_nans)
 
 
 def uses_mtl(cfg: TrainConfig) -> bool:
@@ -64,7 +65,7 @@ def step_parts(cfg: TrainConfig, task: AlignTask, dev: torch.device) -> StepPart
 class EvalResult:
     metrics: dict
     emb: torch.Tensor  # (n_ent, dim) fp32 on the run's device, 2·dim with the AE channel
-    op: EllOperator
+    op: EllOperator | SpMMOperator
     model: AlignGCN
     task: AlignTask
     # host wall seconds of each stage, each ended by a device synchronise:
@@ -112,7 +113,7 @@ def evaluate(cfg: TrainConfig, params: dict | None = None, task: AlignTask | Non
     model.load_state_dict(params)
     attr_op = attr_operator(cfg, task, dev)
     if attr_op is not None:
-        ae = AttrChannelGCN(max(task.n_attr, 1), cfg.dim, device=dev)
+        ae = AttrChannelGCN(max(task.n_attr, 1), cfg.dim, cfg.spmm_impl, device=dev)
         ae.load_state_dict(ae_params)
     sync()
     timings["build_s"] = time.perf_counter() - t0

@@ -19,7 +19,10 @@ buffers (``load``).  ``CapturedStep`` holds:
 * with dropout, the generator of the mask, registered with the graph and
   reseeded before each replay with ``loop.step_seed``, so a replayed epoch
   draws the mask that the eager epoch draws from a fresh
-  ``loop.step_generator``.
+  ``loop.step_generator``;
+* with ``check_finite`` (``--debug-nans``), a static flag that each replay
+  folds the step's ``finite_flag`` into on the device; the loop resets it
+  before an interval and reads it at the interval's one synchronise.
 
 Before capture, one warm-up step on the capture stream builds and loads
 every kernel, allocates the wrappers' per-stream scratch, cuBLAS's
@@ -51,6 +54,15 @@ def train_step(opt: torch.optim.Optimizer,
     return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
 
+def finite_flag(opt: torch.optim.Optimizer, loss: torch.Tensor) -> torch.Tensor:
+    """A 0-dim bool on the loss's device, computed there without a
+    synchronise: whether the step's loss, every gradient and every updated
+    parameter of ``opt`` are finite."""
+    params = [p for g in opt.param_groups for p in g["params"]]
+    ts = [loss, *params, *(p.grad for p in params if p.grad is not None)]
+    return torch.stack([torch.isfinite(t).all() for t in ts]).all()
+
+
 class CapturedStep:
     """One training step over ``opt``'s parameters, captured on ``dev``.
     ``loss_fn(batch, generator)`` returns (loss, aux) with grad, as
@@ -62,7 +74,8 @@ class CapturedStep:
 
     def __init__(self, opt: torch.optim.Adam,
                  loss_fn: Callable[[dict, torch.Generator | None], tuple[torch.Tensor, dict]],
-                 batch: dict[str, torch.Tensor], dev: torch.device, dropout: bool):
+                 batch: dict[str, torch.Tensor], dev: torch.device, dropout: bool,
+                 check_finite: bool = False):
         if dev.type != "cuda":
             raise ValueError(f"a captured step runs on the card, not {dev}")
         if not all(g["capturable"] for g in opt.param_groups):
@@ -72,11 +85,15 @@ class CapturedStep:
         self.gen = torch.Generator(device=dev) if dropout else None
         self.stream = torch.cuda.Stream(dev)
         self.graph = torch.cuda.CUDAGraph()
+        # the replays' finite flag (check_finite); None when not checked
+        self.finite = torch.ones((), dtype=torch.bool, device=dev) if check_finite else None
         self._warm_up()
         if self.gen is not None:
             self.graph.register_generator_state(self.gen)
         with torch.cuda.graph(self.graph, stream=self.stream):
             self.loss, self.aux = train_step(opt, loss_fn, self.batch, self.gen)
+            if self.finite is not None:
+                self.finite &= finite_flag(opt, self.loss)
 
     def _warm_up(self) -> None:
         """One eager step on the capture stream, then the parameters and
@@ -104,7 +121,10 @@ class CapturedStep:
         self.opt.zero_grad(set_to_none=True)
 
     def load(self, batch: dict[str, torch.Tensor]) -> None:
-        """Copy an interval's batch into the static buffers."""
+        """Copy an interval's batch into the static buffers (and set the
+        finite flag)."""
+        if self.finite is not None:
+            self.finite.fill_(True)
         for k, buf in self.batch.items():
             src = batch[k]
             if src.shape != buf.shape or src.dtype != buf.dtype:

@@ -28,10 +28,23 @@ boundary) re-mines.  On the card the interval's steps are replays of one
 captured step (``train/fused.py``) with no host synchronise between them;
 on the host the same steps run eagerly.  ``profile_dir`` traces epochs
 ``start + 2`` to ``start + 5`` with ``torch.profiler`` (or to the end of a
-shorter run) and writes a Chrome trace there.
+shorter run) and writes a Chrome trace there; a fused run (``fit_mtl``
+only: the JAX ``fit`` refuses it) traces the intervals that hold those
+epochs, after the capture.
 
-Not ported yet, and refused up front (``check_trainable``): bf16 training
-and the distributed trainer (``ROADMAP.md``).
+``param_dtype="bfloat16"`` trains with bf16 activations over fp32
+parameters, and ``spmm_impl`` picks the layers' aggregation and the
+operator's layout (``nn/graphconv.py``).  ``debug_nans`` (the CLI's
+``--debug-nans``, the counterpart of ``jax_debug_nans``) raises
+``FloatingPointError`` at the first non-finite value: unfused, under
+autograd's anomaly detection and a finite check of each step's loss,
+gradients and updated parameters, naming the epoch; fused, from a flag
+each step of the interval folds on the device (inside the captured graph
+on the card) and the interval's one synchronise reads, naming the
+interval's epochs.
+
+Not ported yet, and refused up front (``check_trainable``): the
+distributed trainer (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -50,13 +63,14 @@ from tpugraph_torch.convert import embed_params
 from tpugraph_torch.data import load_dbp15k, load_openea, synthetic_align_task
 from tpugraph_torch.kernels.shortlist_dist import METRICS
 from tpugraph_torch.models.encoder import AlignGCN, init_params
+from tpugraph_torch.nn.graphconv import operator_format
 from tpugraph_torch.sparse.build import build_adjacency
 from tpugraph_torch.sparse.ell import EllOperator
-from tpugraph_torch.sparse.graph import AlignTask
+from tpugraph_torch.sparse.graph import AlignTask, SpMMOperator
 from tpugraph_torch.train.bootstrap import propose_mutual_nn_pairs
 from tpugraph_torch.train.checkpoint import Checkpointer
 from tpugraph_torch.train.eval import hits_at_k
-from tpugraph_torch.train.fused import CapturedStep, train_step
+from tpugraph_torch.train.fused import CapturedStep, finite_flag, train_step
 from tpugraph_torch.train.losses import margin_align_loss
 from tpugraph_torch.train.metrics import MetricsLogger, epoch_edge_ops
 from tpugraph_torch.train.negatives import sample_hard_negatives, sample_uniform_negatives
@@ -68,7 +82,7 @@ class TrainResult:
     params: dict  # the model's state dict, on the run's device
     metrics: dict
     history: list = field(default_factory=list)
-    op: EllOperator | None = None
+    op: EllOperator | SpMMOperator | None = None
     model: torch.nn.Module | None = None
     task: AlignTask | None = None
     losses: list = field(default_factory=list)  # total loss of every step run here
@@ -97,7 +111,7 @@ class StepParts:
     ``draw_extra(epoch0)`` the entries ``extra_keys`` that each interval
     adds to the batch."""
     model: torch.nn.Module
-    op: EllOperator
+    op: EllOperator | SpMMOperator
     loss_fn: Callable[[dict, torch.Generator | None], tuple[torch.Tensor, dict]]
     embed_fn: Callable[[], torch.Tensor]
     draw_extra: Callable[[int], dict[str, torch.Tensor]] | None = None
@@ -179,8 +193,7 @@ def load_task(cfg: TrainConfig) -> AlignTask:
 
 def build_model(cfg: TrainConfig, task: AlignTask,
                 device: torch.device | str | None = None) -> AlignGCN:
-    if cfg.spmm_impl not in ("ell", "pallas"):
-        raise NotImplementedError(f"spmm_impl={cfg.spmm_impl!r} is not ported yet (ell only)")
+    operator_format(cfg.spmm_impl)  # an unknown impl raises here
     return AlignGCN(
         n_ent=task.n_ent,
         dim=cfg.dim,
@@ -189,11 +202,12 @@ def build_model(cfg: TrainConfig, task: AlignTask,
         dropout=cfg.dropout,
         compute_dtype=cfg.param_dtype,
         l2_normalize=cfg.l2_normalize,
+        spmm_impl=cfg.spmm_impl,
         device=device,
     )
 
 
-def embed(model: AlignGCN, op: EllOperator) -> torch.Tensor:
+def embed(model: AlignGCN, op: EllOperator | SpMMOperator) -> torch.Tensor:
     """The encoder's output table (fp32), forward only."""
     with torch.no_grad():
         return model(op)
@@ -219,9 +233,11 @@ def step_generator(cfg: TrainConfig, epoch: int, dev: torch.device) -> torch.Gen
     return torch.Generator(device=dev).manual_seed(step_seed(cfg, epoch))
 
 
-def check_trainable(cfg: TrainConfig) -> None:
+def check_trainable(cfg: TrainConfig, refuse_fused_profile: bool = False) -> None:
     """Refuse, before any work, a config that needs an unported part, and
-    what the JAX trainers refuse of the fused interval."""
+    what the JAX trainers refuse of the fused interval; with
+    ``refuse_fused_profile`` (``fit``, as the JAX ``fit`` alone does) also
+    ``profile_dir`` with ``steps_per_call > 1``."""
     if cfg.neg_every < 1:
         raise ValueError("neg_every must be >= 1 (to effectively never resample, set "
                          "neg_every >= epochs)")
@@ -234,17 +250,10 @@ def check_trainable(cfg: TrainConfig) -> None:
             f"epochs={cfg.epochs} is not a multiple of steps_per_call={steps}: the fused "
             f"interval always runs a full {steps}-epoch scan, so the run would silently "
             f"train past cfg.epochs — adjust one of them")
-    if steps > 1 and cfg.profile_dir:
+    if refuse_fused_profile and steps > 1 and cfg.profile_dir:
         raise ValueError("profile_dir requires steps_per_call=1 (per-epoch trace windows)")
-    unported = {
-        f"param_dtype={cfg.param_dtype!r} training (float32 only)":
-            cfg.param_dtype != "float32",
-        "the distributed trainer": max(cfg.n_shards, cfg.feature_shards,
-                                       cfg.slice_shards) > 1,
-    }
-    for what, hit in unported.items():
-        if hit:
-            raise NotImplementedError(f"{what} is not ported yet; see ROADMAP.md")
+    if max(cfg.n_shards, cfg.feature_shards, cfg.slice_shards) > 1:
+        raise NotImplementedError("the distributed trainer is not ported yet; see ROADMAP.md")
     if cfg.neg_mode not in ("uniform", "hard"):
         raise ValueError(f"unknown neg_mode {cfg.neg_mode!r}")
     if cfg.neg_metric not in METRICS:
@@ -299,12 +308,17 @@ def _check_resume(cfg: TrainConfig, state: dict, n_rows: int,
             f"(k_neg or boot_cap changed); retrain or point checkpoint_dir elsewhere")
 
 
+def _non_finite(epochs: str, what: str = "a non-finite loss, gradient or parameter"):
+    return FloatingPointError(f"debug_nans: {epochs}: {what}")
+
+
 def train_loop(cfg: TrainConfig, task: AlignTask, parts: StepParts, dev: torch.device,
-               verbose: bool = False) -> TrainResult:
+               verbose: bool = False, debug_nans: bool = False) -> TrainResult:
     """The epoch loop shared by ``fit`` and ``fit_mtl`` over a trainer's
     ``parts`` (``StepParts``); a checkpoint saves the interval's draws
     ``parts.extra_keys``.  A checkpoint's ``params.pt`` holds what the
-    evaluation table reads (``convert.embed_params``)."""
+    evaluation table reads (``convert.embed_params``).  ``debug_nans``:
+    see the module's docstring."""
     t_setup = time.perf_counter()
     model, op, loss_fn, embed_fn = parts.model, parts.op, parts.loss_fn, parts.embed_fn
     draw_extra, extra_keys = parts.draw_extra, parts.extra_keys
@@ -390,12 +404,29 @@ def train_loop(cfg: TrainConfig, task: AlignTask, parts: StepParts, dev: torch.d
         sched.step()
         return out
 
+    def checked_step(epoch):
+        """An unfused step under debug_nans: anomaly detection in its
+        backward, then the finite check, each raising for its epoch."""
+        try:
+            loss, aux = eager_step(epoch)
+        except RuntimeError as err:  # anomaly mode's report of a NaN in the backward
+            if "nan" not in str(err).lower():
+                raise
+            raise _non_finite(f"epoch {epoch}", str(err).splitlines()[0]) from err
+        if not bool(finite_flag(opt, loss)):
+            raise _non_finite(f"epoch {epoch}")
+        return loss, aux
+
     captured = None
-    prof = None  # the profiler, from start_epoch + 2 until it is stopped
+    prof, prof_first = None, None  # the profiler over epochs start_epoch + 2 to + 5
+    anomaly_was = torch.is_anomaly_enabled()
     t_start = time.perf_counter()
     timings["setup_s"] = t_start - t_setup - timings["load_s"]
     ckpt.install_preemption_handler()
     try:
+        # anomaly detection names the op whose backward made a NaN (unfused only:
+        # its checks synchronise, which a captured step cannot)
+        torch.autograd.set_detect_anomaly(anomaly_was or (debug_nans and steps == 1))
         for epoch in range(start_epoch, cfg.epochs, steps):
             if epoch % cfg.neg_every == 0 or batch is None:
                 epoch0 = epoch - epoch % cfg.neg_every
@@ -420,13 +451,18 @@ def train_loop(cfg: TrainConfig, task: AlignTask, parts: StepParts, dev: torch.d
                 if draw_extra is not None:
                     batch.update(timed("draw_s", "draws", lambda: draw_extra(epoch0)))
                 del emb
-            if cfg.profile_dir and epoch == start_epoch + 2:
-                prof = _start_profile(dev)
             if captured_on_card and captured is None:
                 t0 = time.perf_counter()
-                captured = CapturedStep(opt, loss_fn, batch, dev, cfg.dropout > 0.0)
+                captured = CapturedStep(opt, loss_fn, batch, dev, cfg.dropout > 0.0,
+                                        check_finite=debug_nans)
                 _sync(dev)
                 timings["capture_s"] = time.perf_counter() - t0
+            last = epoch + steps - 1  # the interval's last epoch: the JAX fused windows
+            if cfg.profile_dir and prof_first is None and last >= start_epoch + 2:
+                prof, prof_first = _start_profile(dev), epoch
+            # a fused interval's finite flag under debug_nans (the host's too)
+            finite = (torch.ones((), dtype=torch.bool, device=dev)
+                      if debug_nans and steps > 1 else None)
             t0 = time.perf_counter()
             if captured is not None:  # the interval's steps as replays, no synchronise
                 captured.load(batch)
@@ -434,19 +470,24 @@ def train_loop(cfg: TrainConfig, task: AlignTask, parts: StepParts, dev: torch.d
                     losses.append(captured.replay(step_seed(cfg, epoch + i)))
                     sched.step()
                 loss, aux = losses[-1], {k: v.clone() for k, v in captured.aux.items()}
+                finite = captured.finite
             else:
                 for i in range(steps):
-                    loss, aux = eager_step(epoch + i)
+                    loss, aux = (checked_step if debug_nans and steps == 1
+                                 else eager_step)(epoch + i)
+                    if finite is not None:
+                        finite &= finite_flag(opt, loss)
                     losses.append(loss)
             _sync(dev)
             dt = time.perf_counter() - t0
             timings["step_s"].append(dt / steps)
             timings["train_s"] += dt
             timings["steps"] += steps
-            if prof is not None and epoch >= start_epoch + 5:
-                _stop_profile(prof, dev, cfg.profile_dir, start_epoch + 2, epoch)
+            if finite is not None and not bool(finite):
+                raise _non_finite(f"the interval of epochs {epoch}-{last}")
+            if prof is not None and last >= start_epoch + 5:
+                _stop_profile(prof, dev, cfg.profile_dir, prof_first, last)
                 prof = None
-            last = epoch + steps - 1  # the interval's last epoch: the JAX fused windows
             if ckpt.enabled and ((last > 0 and last % cfg.checkpoint_every < steps)
                                  or last >= cfg.epochs - 1 or ckpt.preempted):
                 save_now(last)
@@ -472,7 +513,7 @@ def train_loop(cfg: TrainConfig, task: AlignTask, parts: StepParts, dev: torch.d
                 save_now(last)  # the latch may have fired after the save above
                 break  # exit cleanly for a relaunch
         if prof is not None:  # a run that ended before start_epoch + 5
-            _stop_profile(prof, dev, cfg.profile_dir, start_epoch + 2, last)
+            _stop_profile(prof, dev, cfg.profile_dir, prof_first, last)
             prof = None
         final_emb, final, timings["final_eval_s"] = evaluate_now(0)  # always exact
         final["final_loss"] = loss.item()
@@ -481,6 +522,7 @@ def train_loop(cfg: TrainConfig, task: AlignTask, parts: StepParts, dev: torch.d
 
             save_embeddings(cfg.save_emb_path, final_emb)
     finally:
+        torch.autograd.set_detect_anomaly(anomaly_was)
         if prof is not None:
             prof.stop()
         ckpt.restore_handler()
@@ -491,9 +533,12 @@ def train_loop(cfg: TrainConfig, task: AlignTask, parts: StepParts, dev: torch.d
                        timings=timings)
 
 
-def build_operator(cfg: TrainConfig, task: AlignTask, dev: torch.device) -> EllOperator:
+def build_operator(cfg: TrainConfig, task: AlignTask,
+                   dev: torch.device) -> EllOperator | SpMMOperator:
+    """The merged adjacency in the layout of ``cfg.spmm_impl``, on ``dev``."""
     return build_adjacency(task.n_ent, task.merged_triples, n_rel=task.n_rel,
-                           weighting=cfg.weighting, norm=cfg.norm, fmt="ell").to(dev)
+                           weighting=cfg.weighting, norm=cfg.norm, bucket=cfg.pad_bucket,
+                           fmt=operator_format(cfg.spmm_impl)).to(dev)
 
 
 def margin_parts(cfg: TrainConfig, task: AlignTask, dev: torch.device) -> StepParts:
@@ -514,10 +559,10 @@ def margin_parts(cfg: TrainConfig, task: AlignTask, dev: torch.device) -> StepPa
 
 
 def fit(cfg: TrainConfig, task: AlignTask | None = None, verbose: bool = False,
-        device: str | torch.device = "cuda") -> TrainResult:
+        device: str | torch.device = "cuda", debug_nans: bool = False) -> TrainResult:
     """Train an AlignGCN with the margin loss per ``cfg`` (configs ``base``
     and ``highway``; ``margin_parts``)."""
     dev = resolve_device(device)
-    check_trainable(cfg)
+    check_trainable(cfg, refuse_fused_profile=True)
     task = task or load_task(cfg)
-    return train_loop(cfg, task, margin_parts(cfg, task, dev), dev, verbose)
+    return train_loop(cfg, task, margin_parts(cfg, task, dev), dev, verbose, debug_nans)

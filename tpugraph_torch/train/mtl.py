@@ -6,7 +6,9 @@ uniform negatives at epoch 0, bootstrap proposals and hard mining at each
 later ``neg_every`` boundary, eval at ``eval_every`` and at the end,
 checkpoints and resume; with ``steps_per_call = neg_every`` the fused
 interval (on the card a captured step, replayed; ``train/fused.py``), with
-the JAX ``fit_mtl``'s refusals (``loop.check_trainable``).  A fused save
+the JAX ``fit_mtl``'s refusals (``loop.check_trainable``: unlike ``fit``,
+a fused run may set ``profile_dir``, as the JAX ``fit_mtl`` never reads
+it; the port traces the intervals that hold epochs 2–5).  A fused save
 keeps the interval's draws, as the JAX one keeps its batch.
 At each boundary ``fit_mtl`` adds its own draws to the batch, each from
 a host generator derived from (seed, the interval's first epoch)
@@ -38,8 +40,9 @@ from tpugraph_torch import resolve_device
 from tpugraph_torch.configs.configs import TrainConfig
 from tpugraph_torch.models.align import AlignMTL, init_mtl_params
 from tpugraph_torch.models.attr_channel import build_attr_operator
+from tpugraph_torch.nn.graphconv import operator_format
 from tpugraph_torch.sparse.ell import EllOperator
-from tpugraph_torch.sparse.graph import AlignTask
+from tpugraph_torch.sparse.graph import AlignTask, SpMMOperator
 from tpugraph_torch.train.loop import (StepParts, TrainResult, build_operator,
                                        check_trainable, interval_generator, load_task,
                                        train_loop)
@@ -71,12 +74,15 @@ def attr_triples_of(cfg: TrainConfig, task: AlignTask) -> np.ndarray | None:
     return attr
 
 
-def attr_operator(cfg: TrainConfig, task: AlignTask, dev: torch.device) -> EllOperator | None:
-    """The AE channel's incidence operator on ``dev``, or None when the
-    channel is off."""
+def attr_operator(cfg: TrainConfig, task: AlignTask,
+                  dev: torch.device) -> EllOperator | SpMMOperator | None:
+    """The AE channel's incidence operator on ``dev``, in the layout of
+    ``cfg.spmm_impl``, or None when the channel is off."""
     if not cfg.use_attr_channel:
         return None
-    return build_attr_operator(attr_triples_of(cfg, task), task.n_ent, task.n_attr).to(dev)
+    return build_attr_operator(attr_triples_of(cfg, task), task.n_ent, task.n_attr,
+                               fmt=operator_format(cfg.spmm_impl),
+                               bucket=cfg.pad_bucket).to(dev)
 
 
 def interval_keys(cfg: TrainConfig, n_seed: int) -> tuple[str, ...]:
@@ -150,11 +156,11 @@ def mtl_parts(cfg: TrainConfig, task: AlignTask, dev: torch.device) -> StepParts
 
 
 def fit_mtl(cfg: TrainConfig, task: AlignTask | None = None, verbose: bool = False,
-            device: str | torch.device = "cuda") -> TrainResult:
+            device: str | torch.device = "cuda", debug_nans: bool = False) -> TrainResult:
     """Train AlignMTL per ``cfg`` (``mtl_parts``)."""
     dev = resolve_device(device)
     check_trainable(cfg)
     task = task or load_task(cfg)
     attr_triples_of(cfg, task)
     check_ot_size(cfg, len(task.train_pairs))
-    return train_loop(cfg, task, mtl_parts(cfg, task, dev), dev, verbose)
+    return train_loop(cfg, task, mtl_parts(cfg, task, dev), dev, verbose, debug_nans)
