@@ -118,13 +118,17 @@ Phases, each printing one JSON line:
              tolerance (``STEP_TOL``), the forward + backward against the
              same parameters in fp32.
 16. sorted  — the sorted-segment SpMM kernel on A and Aᵀ of the zh-en
-             adjacency, fp32 and bf16, against its plain version; at
-             d = 128 timed beside its bound and ``torch.sparse.mm``, with the
-             hub rows' device time apart; then config base with
-             ``spmm_impl`` ell fp32, sorted fp32 and sorted bf16 for 20
-             epochs (sorted's final loss within rel 1e-3 of ell's), one step
-             of each sorted run against the plain path.  Phase 12 replays a
-             captured interval of sorted ``base`` and of bf16 v6.
+             adjacency and on the attribute incidence and its transpose
+             (``fmt="sorted"``), fp32 and bf16 at d = 128 and 256, against
+             its plain version and bit-identical over two launches; timed
+             (A and Aᵀ at d = 128, the incidence at both widths) beside its
+             bound and ``torch.sparse.mm``, with the device time of the
+             work items of the rows of degree ≥ 256 apart from the rest;
+             then config base with ``spmm_impl`` ell fp32, sorted fp32 and
+             sorted bf16 for 20 epochs (sorted's final loss within rel 1e-3
+             of ell's), one step of each sorted run against the plain path.
+             Phase 12 replays a captured interval of sorted ``base`` and of
+             bf16 v6.
 17. native  — the native adjacency builder against the numpy one at
              zh-en scale (timed, held equal).
 18. debug_nans — a poisoned run (learning rate 1e30) with ``debug_nans``
@@ -165,7 +169,7 @@ from tpugraph_torch.data import load_dbp15k, load_openea, synthetic_align_task
 from tpugraph_torch import native
 from tpugraph_torch.kernels import _build, gcn_fused, shortlist_dist, sinkhorn_fused, spmm_ell
 from tpugraph_torch.kernels import spmm as spmm_mod
-from tpugraph_torch.kernels.spmm import row_plan, segment_spmm, sorted_spmm, spmm_xla
+from tpugraph_torch.kernels.spmm import SEG_EDGES, segment_spmm, sorted_spmm, spmm_xla
 from tpugraph_torch.kernels.gcn_fused import fused_gcn_layer, reference_layer
 from tpugraph_torch.kernels.sinkhorn_fused import (PRECISION, stream_plan,
                                                    sinkhorn_potential_update,
@@ -2357,66 +2361,107 @@ SORTED_TOL = {torch.float32: TOL[torch.float32],
               torch.bfloat16: dict(rtol=2 ** -7, atol=1e-3)}
 
 
+def _sorted_split(edges, x, deg: np.ndarray) -> dict:
+    """The kernel's device time on parts of its work table: the items of
+    rows of degree ≥ 256 (only a cut row's segments hold such a row, and
+    every segment of one falls on this side) and the rest (the output rows
+    outside the part are left unwritten; only the time is read)."""
+    plan = spmm_mod.segment_plan(edges)
+    hub = torch.from_numpy(deg >= 256).to(plan.items.device)[plan.items[:, 0].long()]
+    parts = {name: dataclasses.replace(plan, items=plan.items[sub].contiguous())
+             for name, sub in (("deg_ge_256", hub), ("deg_lt_256", ~hub))}
+    return {name: {"items": int(part.items.shape[0]),
+                   "device_ms": device_ms(lambda part=part: spmm_mod._launch(edges, x, part))}
+            for name, part in parts.items()}
+
+
+def _sorted_case(edges, csr, x: torch.Tensor, timed: bool) -> dict:
+    """The sorted kernel on one edge list and input: held to its plain
+    version at SORTED_TOL and bit-identical over two launches; if
+    ``timed``, its time beside the plain version, ``torch.sparse.mm`` on
+    the CSR of the same matrix (or its refusal) and the bound."""
+    dtype, d = x.dtype, x.shape[1]
+    got = sorted_spmm(edges, x)
+    sync(x.device)
+    want = segment_spmm(edges, x)
+    torch.testing.assert_close(got.float(), want.float(), **SORTED_TOL[dtype])
+    if not torch.equal(got, sorted_spmm(edges, x)):
+        raise AssertionError(f"spmm_sorted ({edges.n_rows} rows, d {d}): two launches differ")
+    r = {"max_abs_err": float((got.float() - want.float()).abs().max())}
+    if not timed:
+        return r
+    r["ms"] = time_ms(lambda: sorted_spmm(edges, x))
+    r["device_ms"] = device_ms(lambda: sorted_spmm(edges, x))
+    r["ms_cold_l2"] = time_cold_ms(lambda: sorted_spmm(edges, x))
+    r["plain_ms"] = time_ms(lambda: segment_spmm(edges, x), iters=5)
+    r["library_ms"] = r["library_device_ms"] = r["library_refused"] = None
+    try:
+        a_lib = csr.to(dtype)
+        lib = torch.sparse.mm(a_lib, x)
+    except RuntimeError as e:  # a refusal of bf16 by the library
+        r["library_refused"] = str(e).splitlines()[0][:200]
+    if r["library_refused"] is None:
+        torch.testing.assert_close(lib.float(), want.float(), **TOL[dtype])
+        r["library_ms"] = time_ms(lambda: torch.sparse.mm(a_lib, x))
+        r["library_device_ms"] = device_ms(lambda: torch.sparse.mm(a_lib, x))
+    # x and the output once, the real edges' (src, dst, w) once; 2
+    # operations per edge and column
+    nbytes = (edges.n_cols + edges.n_rows) * d * x.element_size() + edges.nnz * 12
+    r["bound_ms"], r["bound_by"] = _bound(nbytes, 2 * edges.nnz * d)
+    r["share_of_bound_device"] = ratio(r["bound_ms"], r["device_ms"])
+    return r
+
+
+def _sorted_table(edges) -> tuple[dict, np.ndarray]:
+    """The edge list's degrees and its work table's shape."""
+    plan = spmm_mod.segment_plan(edges)
+    deg = np.bincount(edges.dst[:edges.nnz].cpu().numpy(), minlength=edges.n_rows)
+    items = plan.items.cpu().numpy()
+    return {"rows": edges.n_rows, "cols": edges.n_cols, "nnz": edges.nnz,
+            "max_degree": int(deg.max()), "rows_deg_0": int((deg == 0).sum()),
+            "rows_deg_ge_256": int((deg >= 256).sum()),
+            "edges_in_rows_deg_ge_256": int(deg[deg >= 256].sum()), "seg_cap": SEG_EDGES,
+            "work_items": int(items.shape[0]), "cut_rows": int(plan.split_p0.shape[0] - 1),
+            "partials": plan.n_partials,
+            "longest_item_edges": int((items[:, 3] - items[:, 2]).max(initial=0))}, deg
+
+
 def phase_sorted_kernel(task, smi: str, dev: torch.device) -> dict:
     """The sorted-segment SpMM kernel on the zh-en adjacency as
     ``spmm_impl="sorted"`` builds it (self-loops as edges): A (the layers'
-    forward) and Aᵀ (their backward), fp32 and bf16, held to its plain
-    version and bit-identical over two launches; timed at d = 128 (config
-    base's width) beside its bound and ``torch.sparse.mm`` on the CSR of
-    the same matrix, with the device time of the rows of degree ≥ 256
-    alone and of the rest (the skew: one warp per row); checked at
-    d = 256."""
+    forward) and Aᵀ (their backward), fp32 and bf16 at d = 128 and 256,
+    held to its plain version and bit-identical over two launches; timed at
+    d = 128 (config base's width) beside its bound and ``torch.sparse.mm``
+    on the CSR of the same matrix, with the device time of the work items
+    of rows of degree ≥ 256 alone and of the rest (A, fp32).  Then the same
+    on the attribute channel's incidence and its transpose
+    (``fmt="sorted"``, where config mtl runs it under ``spmm_impl``
+    sorted), timed at d = 128 and 256."""
     t0 = time.perf_counter()
     op = build_adjacency(task.n_ent, task.merged_triples, n_rel=task.n_rel, fmt="sorted").to(dev)
     sync(dev)
     build_s = time.perf_counter() - t0
+    inc = build_attr_operator(task.merged_attr_triples, task.n_ent, task.n_attr,
+                              fmt="sorted").to(dev)
     rng = np.random.default_rng(4)
     out = {"build_s": build_s, "edges": op.nnz, "padded_edges": op.fwd.e_pad}
-    for name, edges in (("forward", op.fwd), ("transpose", op.bwd)):
-        plan = row_plan(edges)
+    for name, edges in (("forward", op.fwd), ("transpose", op.bwd),
+                        ("incidence", inc.fwd), ("incidence_transpose", inc.bwd)):
+        t0 = time.perf_counter()
+        out[name], deg = _sorted_table(edges)
+        out[name]["plan_s"] = time.perf_counter() - t0
         csr = _csr_of_edges(edges)
-        deg = (plan.rowptr[1:] - plan.rowptr[:-1]).cpu().numpy()
-        out[name] = {"max_degree": plan.max_degree, "rows_deg_ge_256": int((deg >= 256).sum()),
-                     "edges_in_rows_deg_ge_256": int(deg[deg >= 256].sum())}
         for d in (128, 256):
             for dtype in (torch.float32, torch.bfloat16):
                 x = torch.from_numpy(rng.standard_normal((edges.n_cols, d)).astype(np.float32))
                 x = x.to(dev, dtype)
-                got = sorted_spmm(edges, x)
-                sync(dev)
-                want = segment_spmm(edges, x)
-                torch.testing.assert_close(got.float(), want.float(), **SORTED_TOL[dtype])
-                if not torch.equal(got, sorted_spmm(edges, x)):
-                    raise AssertionError(f"spmm_sorted ({name}): two launches differ")
-                r = {"max_abs_err": float((got.float() - want.float()).abs().max())}
-                if d == 128:
-                    r["ms"] = time_ms(lambda: sorted_spmm(edges, x))
-                    r["device_ms"] = device_ms(lambda: sorted_spmm(edges, x))
-                    r["ms_cold_l2"] = time_cold_ms(lambda: sorted_spmm(edges, x))
-                    r["plain_ms"] = time_ms(lambda: segment_spmm(edges, x), iters=5)
-                    r["library_ms"] = r["library_device_ms"] = r["library_refused"] = None
-                    try:
-                        a_lib = csr.to(dtype)
-                        lib = torch.sparse.mm(a_lib, x)
-                    except RuntimeError as e:  # a refusal of bf16 by the library
-                        r["library_refused"] = str(e).splitlines()[0][:200]
-                    if r["library_refused"] is None:
-                        torch.testing.assert_close(lib.float(), want.float(), **TOL[dtype])
-                        r["library_ms"] = time_ms(lambda: torch.sparse.mm(a_lib, x))
-                        r["library_device_ms"] = device_ms(lambda: torch.sparse.mm(a_lib, x))
-                    # x and the output once, the real edges' (src, w), the
-                    # row pointer and order; 2 operations per edge and column
-                    nbytes = ((edges.n_cols + edges.n_rows) * d * x.element_size()
-                              + edges.nnz * 8 + (2 * edges.n_rows + 1) * 4)
-                    r["bound_ms"], r["bound_by"] = _bound(nbytes, 2 * edges.nnz * d)
-                    r["share_of_bound_device"] = ratio(r["bound_ms"], r["device_ms"])
-                    if name == "forward" and dtype == torch.float32:
-                        hub = torch.from_numpy(deg >= 256).to(dev)[plan.order.long()]
-                        r["split_device_ms"] = {
-                            part: device_ms(lambda sub=sub: spmm_mod._launch(
-                                edges, x, dataclasses.replace(plan, order=sub.contiguous())))
-                            for part, sub in (("deg_ge_256", plan.order[hub]),
-                                              ("deg_lt_256", plan.order[~hub]))}
+                r = _sorted_case(edges, csr, x,
+                                 timed=d == 128 or name.startswith("incidence"))
+                if name == "forward" and d == 128 and dtype == torch.float32:
+                    split = _sorted_split(edges, x, deg)
+                    r["split_items"] = {k: v["items"] for k, v in split.items()}
+                    r["split_device_ms"] = {k: v["device_ms"] for k, v in split.items()}
+                    r["host_ms"] = host_ms(lambda: sorted_spmm(edges, x))
                 out[name][f"{str(dtype).split('.')[1]}_d{d}"] = r
     emit({"phase": "kernel", "kernel": "spmm_sorted", **out, "card": smi})
     return out
@@ -2499,7 +2544,11 @@ def phase_sorted(task, smi: str, dev: torch.device) -> dict:
     epochs (as phase 12 runs it), ell fp32 beside sorted fp32 and bf16 (launches; the final
     losses of sorted and ell fp32 within rel 1e-3, the JAX package's own
     bound, tests/test_ell.py:98), and one step of each sorted run against
-    the plain path."""
+    the plain path.  The layer-2 bias's gradient is 0 by construction (the
+    margin reads only differences of rows) and is computed before any
+    kernel of the backward: it is held as rounding noise in both types
+    (``_check_step``'s ``zero_grads``), since the kernel's sums round the
+    forward apart from the plain path's and the two noises differ."""
     runs, out = {}, {}
     for key, impl, dtype in (("ell_fp32", "ell", "float32"), ("sorted_fp32", "sorted", "float32"),
                              ("sorted_bf16", "sorted", "bfloat16")):
@@ -2515,8 +2564,7 @@ def phase_sorted(task, smi: str, dev: torch.device) -> dict:
             out[key]["step_check"] = _check_step(
                 model, lambda: margin_align_loss(model(op, train=True), batch["pairs"],
                                                  batch["neg_l"], batch["neg_r"], cfg.gamma),
-                _per_step_launches(cfg), ("gc2.b",) if dtype == "bfloat16" else (),
-                dtype=getattr(torch, dtype))
+                _per_step_launches(cfg), ("gc2.b",), dtype=getattr(torch, dtype))
     want, got = out["ell_fp32"]["losses"][-1], out["sorted_fp32"]["losses"][-1]
     rel = abs(got - want) / abs(want)
     if rel > 1e-3:

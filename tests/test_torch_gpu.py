@@ -27,7 +27,7 @@ from tpugraph_torch.configs.recipes import RECIPES
 from tpugraph_torch.data.synthetic import synthetic_align_task
 from tpugraph_torch.kernels import gcn_fused, shortlist_dist, sinkhorn_fused, spmm_ell
 from tpugraph_torch.kernels import spmm as spmm_mod
-from tpugraph_torch.kernels.spmm import segment_spmm, sorted_spmm
+from tpugraph_torch.kernels.spmm import PACK_SLOTS, SEG_EDGES, segment_spmm, sorted_spmm
 from tpugraph_torch.kernels.gcn_fused import fused_gcn_layer, gcn_layer, reference_layer
 from tpugraph_torch.kernels.sinkhorn_fused import sinkhorn_potential_update, sinkhorn_update_plain
 from tpugraph_torch.kernels.spmm_ell import SEG_SLOTS, apply_with_diag, ell_spmm
@@ -937,6 +937,75 @@ def test_spmm_sorted_matches_plain(cuda, dtype, d):
         sorted_spmm(op.fwd, x.to(torch.float16))
     with pytest.raises(ValueError):
         sorted_spmm(op.fwd, torch.zeros(op.fwd.n_cols, 64, device=cuda))
+
+
+def _gapped_sorted_graph(rng, n=6000):
+    """A sorted operator with rows of exactly SEG_EDGES and SEG_EDGES + 1
+    edges (the second cut in two), rows of PACK_SLOTS ± 1 slots, a 2,000-edge
+    hub, and rows with no edge: all rows below 40 but those, every fifth
+    row of [100, 2000) and the last 300 rows before the dump row."""
+    dst = rng.integers(40, n - 300, 4 * n)
+    dst = dst[(dst >= 2000) | (dst < 100) | (dst % 5 != 0)]
+    src = rng.integers(0, n, len(dst))
+    for row, deg in ((3, SEG_EDGES), (7, SEG_EDGES + 1), (11, PACK_SLOTS - 1),
+                     (13, PACK_SLOTS), (17, 2000)):
+        src = np.concatenate([src, rng.integers(0, n, deg)])
+        dst = np.concatenate([dst, np.full(deg, row)])
+    w = rng.standard_normal(len(src)).astype(np.float32)
+    return build_spmm_operator(src, dst, w, n, bucket=4096)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [128, 256])
+def test_spmm_sorted_cut_and_empty_rows(cuda, dtype, d):
+    """Rows at the segment cap and one over it, and rows with no edge
+    inside packed runs and before the dump row, over A and Aᵀ: against the
+    plain version (the tolerances of test_spmm_sorted_matches_plain), the
+    empty rows exactly 0 although the output's memory held NaN just before
+    (every row is written), two launches bit for bit."""
+    rng = np.random.default_rng(d + 2 * (dtype == torch.bfloat16))
+    op = _gapped_sorted_graph(rng).to(cuda)
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=2 ** -7, atol=1e-3)
+    for edges in (op.fwd, op.bwd):
+        deg = torch.bincount(edges.dst[:edges.nnz].long(), minlength=edges.n_rows)
+        if edges is op.fwd:
+            assert int(deg[3]) == SEG_EDGES and int(deg[7]) == SEG_EDGES + 1
+            assert int((deg == 0).sum()) >= 300 + 380
+        x = torch.from_numpy(rng.standard_normal((edges.n_cols, d)).astype(np.float32))
+        x = x.to(cuda, dtype)
+        torch.full((edges.n_rows, d), float("nan"), dtype=dtype, device=cuda)  # freed to the cache
+        got = sorted_spmm(edges, x)
+        again = sorted_spmm(edges, x)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert torch.equal(got[deg == 0], torch.zeros_like(got[deg == 0]))
+        torch.testing.assert_close(got.float(), segment_spmm(edges, x).float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 256])
+def test_spmm_sorted_twice_in_one_graph(cuda, d):
+    """Two launches over cut hub rows inside one captured CUDA graph (on
+    two inputs), replayed twice: each output equals its eager call bit for
+    bit, so every cut row's counter is back at 0 after each launch."""
+    rng = np.random.default_rng(d)
+    edges = _sorted_graph(rng, n=4000, hubs=(3000, 400)).fwd.to(cuda)
+    xs = [torch.from_numpy(rng.standard_normal((4000, d)).astype(np.float32)).to(cuda)
+          for _ in range(2)]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        want = [sorted_spmm(edges, x) for x in xs]
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        outs = [sorted_spmm(edges, x) for x in xs]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, w in zip(outs, want):
+            assert torch.equal(o, w)
 
 
 # bf16 against the plain path on the card: the two round at other points

@@ -1,11 +1,12 @@
-// The ELL gather shared by gcn_fused.cu and spmm_ell.cu: one warp
-// accumulates rows of A·x + diag ⊙ x in registers, 4 columns per lane per
-// 128-column chunk, walking a run of whole rows of one bucket (or one
-// segment of a long row) as "virtual slots": each row's K ELL slots, then
-// one for the split-out diagonal (source the row itself, weight
-// diag[row]).  32 slots at a time, across row boundaries, so a run of short
-// rows keeps 8 source rows in flight; a finished row goes to the caller's
-// sink.
+// The gather walk shared by gcn_fused.cu, spmm_ell.cu and spmm_sorted.cu:
+// one warp accumulates rows of A·x in registers, 4 columns per lane per
+// 128-column chunk, walking a work item's slots (walk_slots) 32 at a time,
+// across row boundaries, so a run of short rows keeps 8 source rows in
+// flight; a finished row goes to the caller's sink.  The ELL kernels walk
+// a run of whole rows of one bucket (or one segment of a long row) as
+// "virtual slots" (walk_vslots): each row's K ELL slots, then one for the
+// split-out diagonal (source the row itself, weight diag[row]).  The sorted
+// kernel walks a range of its edge list, keyed by each edge's dst.
 //
 // Each lane loads one slot's (idx, w) and the warp broadcasts them with
 // shuffles, so a row of any K (up to the 3,734 of the zh-en hubs) needs no
@@ -81,34 +82,29 @@ __device__ __forceinline__ void load_vslot(int v, int v1, int pos0, int k_row, l
   }
 }
 
-// The virtual slots [v0, v1) of a run of rows (see load_vslot), 32 at a
-// time: each lane loads one slot's (source, weight, key), the warp
-// broadcasts them by shuffles, and the next 32 load before this chunk's
-// gathers start, so that load is off the critical path.  8 source rows (4
-// at D = 256) are in flight per warp.  When the walk moves on to the next
-// row, sink(key, acc) takes the finished row and acc restarts at 0; on
-// return acc holds the last row, whose key is `cur`.
-template <typename T, int D, bool kNatural, typename Sink>
-__device__ __forceinline__ void walk_vslots(const T* __restrict__ x,
-                                            const float* __restrict__ diag,
-                                            const int* __restrict__ rows,
-                                            const int* __restrict__ idx,
-                                            const float* __restrict__ ew, int pos0, int k_row,
-                                            long slot0, int v0, int v1, int lane,
-                                            float (&acc)[D / 128][4], int& cur, Sink&& sink) {
+// The slots [v0, v1) of a work item, 32 at a time: each lane loads one
+// slot's (source, weight, key) by load(v, src, w, key), which gives src < 0
+// for nothing to gather (v ≥ v1 among them); the warp broadcasts them by
+// shuffles, and the next 32 load before this chunk's gathers start, so that
+// load is off the critical path.  8 source rows (4 at D = 256) are in
+// flight per warp.  When the key changes, sink(key, acc) takes the finished
+// row and acc restarts at 0; on return acc holds the last row, whose key is
+// `cur` (-1 if the item had no slot).
+template <typename T, int D, typename Load, typename Sink>
+__device__ __forceinline__ void walk_slots(const T* __restrict__ x, int v0, int v1, int lane,
+                                           float (&acc)[D / 128][4], int& cur, Load&& load,
+                                           Sink&& sink) {
   constexpr int CI = D / 128;
   constexpr int U = 8 / CI;  // source rows in flight per warp
   cur = -1;
   int nx_src, nx_key;
   float nx_w;
-  load_vslot<kNatural>(v0 + lane, v1, pos0, k_row, slot0, rows, idx, ew, diag, nx_src, nx_w,
-                       nx_key);
+  load(v0 + lane, nx_src, nx_w, nx_key);
   for (int base = v0; base < v1; base += 32) {
     const int my_src = nx_src, my_key = nx_key;
     const float my_w = nx_w;
     if (base + 32 < v1)  // the next chunk's slots, in flight during this chunk's gathers
-      load_vslot<kNatural>(base + 32 + lane, v1, pos0, k_row, slot0, rows, idx, ew, diag,
-                           nx_src, nx_w, nx_key);
+      load(base + 32 + lane, nx_src, nx_w, nx_key);
     const int n = min(32, v1 - base);
     for (int j = 0; j < n; j += U) {
       float v[U][CI][4];
@@ -147,11 +143,64 @@ __device__ __forceinline__ void walk_vslots(const T* __restrict__ x,
   }
 }
 
+// The virtual slots [v0, v1) of a run of rows of one ELL bucket (see
+// load_vslot), walked by walk_slots.
+template <typename T, int D, bool kNatural, typename Sink>
+__device__ __forceinline__ void walk_vslots(const T* __restrict__ x,
+                                            const float* __restrict__ diag,
+                                            const int* __restrict__ rows,
+                                            const int* __restrict__ idx,
+                                            const float* __restrict__ ew, int pos0, int k_row,
+                                            long slot0, int v0, int v1, int lane,
+                                            float (&acc)[D / 128][4], int& cur, Sink&& sink) {
+  walk_slots<T, D>(
+      x, v0, v1, lane, acc, cur,
+      [&](int v, int& src, float& w, int& key) {
+        load_vslot<kNatural>(v, v1, pos0, k_row, slot0, rows, idx, ew, diag, src, w, key);
+      },
+      sink);
+}
+
 // One row of D fp32 sums to dst, rounded once to dst's type (float or bf16).
 template <int D, typename T>
 __device__ __forceinline__ void put_row(T* dst, int lane, const float (&acc)[D / 128][4]) {
 #pragma unroll
   for (int c = 0; c < D / 128; ++c) store4(dst + c * 128 + lane * 4, acc[c]);
+}
+
+// One segment of a cut row, as the SpMM kernels' work tables cut it: acc
+// is published as partial row `part` (rows of D fp32); the row's partials
+// are [p0, p1), and its counter picks the last of its segments to finish.
+// That one (and only that one) returns true, with the partials summed in
+// segment order in sum, so the result does not depend on which segment
+// finished last; it leaves the counter at 0 for the next launch.
+template <int D>
+__device__ __forceinline__ bool sum_segments(float* __restrict__ partial, int part, int p0,
+                                             int p1, int* __restrict__ counter, int lane,
+                                             const float (&acc)[D / 128][4],
+                                             float (&sum)[D / 128][4]) {
+  put_row<D>(partial + static_cast<long>(part) * D, lane, acc);
+  __threadfence();
+  __syncwarp();
+  int last = 0;
+  if (lane == 0) last = atomicAdd(counter, 1) == p1 - p0 - 1;
+  if (!__shfl_sync(kFull, last, 0)) return false;
+  if (lane == 0) *counter = 0;  // every segment has counted: ready for the next launch
+  __threadfence();
+#pragma unroll
+  for (int c = 0; c < D / 128; ++c) sum[c][0] = sum[c][1] = sum[c][2] = sum[c][3] = 0.f;
+#pragma unroll 4  // loads in flight; the adds stay in segment order
+  for (int p = p0; p < p1; ++p)
+#pragma unroll
+    for (int c = 0; c < D / 128; ++c) {
+      const float4 t =
+          __ldcg(reinterpret_cast<const float4*>(partial + static_cast<long>(p) * D + c * 128) + lane);
+      sum[c][0] += t.x;
+      sum[c][1] += t.y;
+      sum[c][2] += t.z;
+      sum[c][3] += t.w;
+    }
+  return true;
 }
 
 }  // namespace ell

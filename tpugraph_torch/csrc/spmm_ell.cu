@@ -51,7 +51,6 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-using ell::kFull;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -85,27 +84,10 @@ spmm_ell_kernel(const T* __restrict__ x, const float* __restrict__ diag,
 
   // one segment of a long row: publish the partial; the row's last segment
   // to arrive sums all of them in segment order
-  ell::put_row<D>(partial + static_cast<long>(part) * D, lane, acc);
-  __threadfence();
-  __syncwarp();
-  const int p0 = __ldg(split_p0 + split), p1 = __ldg(split_p0 + split + 1);
-  int last = 0;
-  if (lane == 0) last = atomicAdd(counters + split, 1) == p1 - p0 - 1;
-  if (!__shfl_sync(kFull, last, 0)) return;
-  if (lane == 0) counters[split] = 0;  // every segment has counted: ready for the next launch
-  __threadfence();
-  float sum[CI][4] = {};
-  for (int p = p0; p < p1; ++p)
-#pragma unroll
-    for (int c = 0; c < CI; ++c) {
-      const float4 t =
-          __ldcg(reinterpret_cast<const float4*>(partial + static_cast<long>(p) * D + c * 128) + lane);
-      sum[c][0] += t.x;
-      sum[c][1] += t.y;
-      sum[c][2] += t.z;
-      sum[c][3] += t.w;
-    }
-  ell::put_row<D>(out + static_cast<long>(cur) * D, lane, sum);
+  float sum[CI][4];
+  if (ell::sum_segments<D>(partial, part, __ldg(split_p0 + split), __ldg(split_p0 + split + 1),
+                           counters + split, lane, acc, sum))
+    ell::put_row<D>(out + static_cast<long>(cur) * D, lane, sum);
 }
 
 template <typename T, int D>

@@ -209,6 +209,21 @@ def segment_plan(m: EllMatrix) -> SegmentPlan:
     return plan
 
 
+def segment_scratch(plan, d: int, device: torch.device, stream: int) -> tuple[int, int]:
+    """The addresses of the cut rows' fp32 partials and of their counters
+    in a segment table's scratch for width d on ``stream`` (``plan`` has
+    ``n_partials``, ``split_p0`` and the ``scratch`` dict: this module's
+    ``SegmentPlan`` or the sorted kernel's).  Allocated and zeroed at the
+    first call there, outside any capture; the kernels leave each counter
+    at 0."""
+    scratch = plan.scratch.get((d, stream))
+    if scratch is None:
+        scratch = torch.zeros(plan.n_partials * d + plan.split_p0.shape[0] - 1,
+                              dtype=torch.float32, device=device)
+        plan.scratch[(d, stream)] = scratch
+    return scratch.data_ptr(), scratch.data_ptr() + 4 * plan.n_partials * d
+
+
 def check_diag(m: EllMatrix, diag: torch.Tensor | None, dev: torch.device) -> None:
     if diag is None:
         return
@@ -255,18 +270,12 @@ def _launch(m: EllMatrix, diag: torch.Tensor | None, x: torch.Tensor,
     """One kernel launch over ``plan``'s work items, on checked inputs."""
     d = x.shape[1]
     stream = torch._C._cuda_getCurrentRawStream(x.device.index)
-    scratch = plan.scratch.get((d, stream))
-    if scratch is None:
-        scratch = torch.zeros(plan.n_partials * d + plan.split_p0.shape[0] - 1,
-                              dtype=torch.float32, device=x.device)
-        plan.scratch[(d, stream)] = scratch
-    partial = scratch.data_ptr()
+    partial, counters = segment_scratch(plan, d, x.device, stream)
     out = torch.empty((m.n_rows, d), dtype=x.dtype, device=x.device)
     err = _lib()(x.data_ptr(), None if diag is None else diag.data_ptr(),
                  plan.base.rows.data_ptr(), plan.base.idx.data_ptr(), plan.base.w.data_ptr(),
                  plan.items.data_ptr(), plan.items.shape[0], plan.split_p0.data_ptr(),
-                 partial + 4 * plan.n_partials * d, partial, out.data_ptr(), d,
-                 _DTYPE_CODE[x.dtype], stream)
+                 counters, partial, out.data_ptr(), d, _DTYPE_CODE[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"spmm_ell launch failed with CUDA error {err}")
     global launches

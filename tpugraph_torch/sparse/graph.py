@@ -111,7 +111,7 @@ class PaddedEdges:
     n_rows: int
     nnz: int  # true edge count (pre-pad)
     n_cols: int | None = None  # the x-row count the gather expects
-    # derived kernel layouts (kernels/spmm.py::row_plan), built at first
+    # derived kernel layouts (kernels/spmm.py::segment_plan), built at first
     # use on this list's device; a moved copy starts empty
     cache: dict = field(default_factory=dict, repr=False, compare=False)
 
