@@ -134,6 +134,19 @@ Phases, each printing one JSON line:
 18. debug_nans — a poisoned run (learning rate 1e30) with ``debug_nans``
              raises FloatingPointError unfused (naming the epoch) and fused
              (naming the captured interval).
+19. dist    — config ``dwy100k_dist`` at full width (100,000 entities per
+             KG, 500,000 triples, 8 shards, dim 128, k_neg 25) through
+             ``driver.run`` on an NCCL group of one rank holding the 8
+             shards, cut to 10 of 400 epochs (one uniform interval, one
+             mined by ``ring_knn``, the exact final eval): the partition,
+             each stage's time, the launches (``spmm_ell`` on every shard's
+             local and boundary operators, both ways), the loss falling in
+             each interval; one step with injected negatives against the
+             single-device port's step on the same parameters, in ell and
+             in sorted, timed beside it; both SpMM kernels on shard 0's
+             local, boundary and boundary-transpose operators (output
+             memory prefilled with NaN) against their plain versions, timed
+             beside ``torch.sparse.mm`` and the bound.
 
 A step is held against its plain path by running the same model code with
 every kernel swapped for its plain version (``_plain_kernels``), which
@@ -167,6 +180,8 @@ from tpugraph_torch.configs.recipes import RECIPES
 from tpugraph_torch.convert import save_params
 from tpugraph_torch.data import load_dbp15k, load_openea, synthetic_align_task
 from tpugraph_torch import native
+from tpugraph_torch.dist.mesh import make_mesh
+from tpugraph_torch.dist.trainer import dist_parts
 from tpugraph_torch.kernels import _build, gcn_fused, shortlist_dist, sinkhorn_fused, spmm_ell
 from tpugraph_torch.kernels import spmm as spmm_mod
 from tpugraph_torch.kernels.spmm import SEG_EDGES, segment_spmm, sorted_spmm, spmm_xla
@@ -194,8 +209,8 @@ from tpugraph_torch.train.driver import evaluate, run, step_parts, uses_mtl
 from tpugraph_torch.train.bootstrap import propose_mutual_nn_pairs
 from tpugraph_torch.train.eval import _both_direction_ranks
 from tpugraph_torch.train.fused import CapturedStep, train_step
-from tpugraph_torch.train.loop import (build_model, embed, first_batch, step_generator,
-                                       step_seed)
+from tpugraph_torch.train.loop import (build_model, embed, first_batch, load_task,
+                                       step_generator, step_seed)
 from tpugraph_torch.train.losses import margin_align_loss
 from tpugraph_torch.train.metrics import epoch_edge_ops
 from tpugraph_torch.train.mtl import draw_interval
@@ -888,9 +903,8 @@ def _check_step(model, loss_fn, expect: dict, zero_grads: tuple[str, ...] = (),
     kernel) at ``STEP_TOL[dtype]``, the compute type.  ``loss_fn()``
     returns the step's loss; ``expect``, the kernels' launches in it.
     ``zero_grads``: parameters whose gradient is 0 by construction (the AE
-    layer-2 bias: the AE margin reads only differences of rows); both paths
-    must give rounding noise there, under 1e-5 of the step's largest
-    gradient entry."""
+    layer-2 bias: the AE margin reads only differences of rows), held as
+    rounding noise (``_step_gap``)."""
     model.zero_grad(set_to_none=True)
     _reset_launch_counts()
     loss = loss_fn()
@@ -907,23 +921,32 @@ def _check_step(model, loss_fn, expect: dict, zero_grads: tuple[str, ...] = (),
     sync(loss.device)
     if any(_launch_counts()[k] != v for k, v in per_step.items()):
         raise AssertionError(f"the plain path launched kernels: {_launch_counts()}")
-    loss_rel = abs(loss.item() - plain.item()) / abs(plain.item())
-    plain_grads = dict((k, v.grad) for k, v in model.named_parameters())
-    grad_rel = {k: float((grads[k] - v).norm() / v.norm().clamp_min(1e-30))
-                for k, v in plain_grads.items() if k not in zero_grads}
-    scale = max(float(v.abs().max()) for v in plain_grads.values())
-    zero_abs = {k: max(float(grads[k].abs().max()), float(plain_grads[k].abs().max()))
-                for k in zero_grads}
-    tol = STEP_TOL[dtype]
     n_rows = max(p.shape[0] for p in model.parameters())  # the embedding table's rows
     zero_rel = 1e-5 if dtype == torch.float32 else math.sqrt(n_rows) * 2 ** -8
-    if (loss_rel > tol["loss_rel"] or max(grad_rel.values()) > tol["grad_rel_l2"]
-            or any(v > zero_rel * scale for v in zero_abs.values())):
-        raise AssertionError(f"step vs plain path: loss rel {loss_rel}, grads {grad_rel}, "
-                             f"zero grads {zero_abs} at scale {scale}")
-    return {"per_step_launches": per_step, "loss": loss.item(), "loss_plain": plain.item(),
-            "loss_rel_err": loss_rel, "grad_rel_l2": grad_rel, "tolerance": tol,
-            "zero_grad_max_abs": zero_abs, "grad_max_abs": scale}
+    return {"per_step_launches": per_step,
+            **_step_gap(loss, grads, plain, {k: v.grad for k, v in model.named_parameters()},
+                        zero_grads, zero_rel, STEP_TOL[dtype])}
+
+
+def _step_gap(loss, grads: dict, ref_loss, ref: dict, zero_grads: tuple[str, ...] = (),
+              zero_rel: float = 1e-5, tol: dict | None = None) -> dict:
+    """A step's loss and gradients against a reference step's on the same
+    parameters and batch: the loss's relative error, each gradient's
+    relative L2 distance; a gradient 0 by construction (``zero_grads``) is
+    rounding noise in both, under ``zero_rel`` of the largest gradient
+    entry.  Held at ``tol`` (a STEP_TOL entry) unless it is None."""
+    loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    rel = {k: float((grads[k] - v).norm() / v.norm().clamp_min(1e-30))
+           for k, v in ref.items() if k not in zero_grads}
+    scale = max(float(v.abs().max()) for v in ref.values())
+    zero = {k: max(float(grads[k].abs().max()), float(ref[k].abs().max())) for k in zero_grads}
+    if tol is not None and (loss_rel > tol["loss_rel"] or max(rel.values()) > tol["grad_rel_l2"]
+                            or any(v > zero_rel * scale for v in zero.values())):
+        raise AssertionError(f"step vs its reference: loss rel {loss_rel}, grads {rel}, "
+                             f"zero grads {zero} at scale {scale}")
+    return {"loss": loss.item(), "loss_reference": ref_loss.item(), "loss_rel_err": loss_rel,
+            "grad_rel_l2": rel, "tolerance": tol, "zero_grad_max_abs": zero,
+            "grad_max_abs": scale}
 
 
 def _profile_step(model, op, batch, cfg, dev, attr_op=None, reps: int = 5) -> dict:
@@ -2343,15 +2366,19 @@ def phase_readers(task, smi: str, dev: torch.device) -> dict:
 
 
 def _csr_of_edges(edges) -> torch.Tensor:
-    """A sorted edge list's real edges as one CSR tensor on its device: the
+    """A sorted edge list's real edges as one CSR tensor on its device (each
+    row's columns sorted: a shard's edge group is sorted by dst alone): the
     library yardstick's operand, built here only."""
     nnz = edges.nnz
     dst = edges.dst[:nnz].cpu().numpy().astype(np.int64)
+    src = edges.src[:nnz].cpu().numpy().astype(np.int64)
+    order = np.lexsort((src, dst))
     crow = np.concatenate([[0], np.cumsum(np.bincount(dst, minlength=edges.n_rows))])
     with warnings.catch_warnings():  # CSR support is "beta" in PyTorch
         warnings.simplefilter("ignore", UserWarning)
         return torch.sparse_csr_tensor(
-            torch.from_numpy(crow), edges.src[:nnz].cpu().long(), edges.w[:nnz].cpu(),
+            torch.from_numpy(crow), torch.from_numpy(src[order]),
+            edges.w[:nnz].cpu()[torch.from_numpy(order)],
             size=(edges.n_rows, edges.n_cols), check_invariants=True).to(edges.device)
 
 
@@ -2404,10 +2431,12 @@ def _sorted_case(edges, csr, x: torch.Tensor, timed: bool) -> dict:
         torch.testing.assert_close(lib.float(), want.float(), **TOL[dtype])
         r["library_ms"] = time_ms(lambda: torch.sparse.mm(a_lib, x))
         r["library_device_ms"] = device_ms(lambda: torch.sparse.mm(a_lib, x))
-    # x and the output once, the real edges' (src, dst, w) once; 2
-    # operations per edge and column
-    nbytes = (edges.n_cols + edges.n_rows) * d * x.element_size() + edges.nnz * 12
+    # the rows of x the edges read and the output once, the real edges'
+    # (src, dst, w) once; 2 operations per edge and column
+    x_rows = int(torch.unique(edges.src[:edges.nnz]).numel())
+    nbytes = (x_rows + edges.n_rows) * d * x.element_size() + edges.nnz * 12
     r["bound_ms"], r["bound_by"] = _bound(nbytes, 2 * edges.nnz * d)
+    r["x_rows_read"] = x_rows
     r["share_of_bound_device"] = ratio(r["bound_ms"], r["device_ms"])
     return r
 
@@ -2652,6 +2681,186 @@ def phase_debug_nans(task, smi: str, dev: torch.device) -> dict:
     return out
 
 
+# config dwy100k_dist as chip_smoke.py trains it: only these are cut (of 400
+# epochs: one uniform interval, then one mined by ring_knn; the exact final
+# eval is the only eval)
+DIST_CUTS = {"epochs": 10, "neg_every": 5, "eval_every": 0}
+
+
+def _dist_launches(t: dict, n_shards: int) -> int:
+    """A distributed run's SpMM launches: per encoder forward 2 layers × the
+    shards × (local + boundary), and as many again in each step's backward."""
+    return 4 * n_shards * (2 * t["steps"] + t["forwards"] + t["evals"])
+
+
+def _nan_cache(rows: int, d: int, dev: torch.device) -> None:
+    """Free a NaN-filled block of an output's size to the allocator's cache:
+    the next output of that size lands on it, so a row the kernel leaves
+    unwritten shows as NaN."""
+    torch.full((rows, d), float("nan"), device=dev)
+
+
+def _dist_ell_case(m, diag, x: torch.Tensor) -> dict:
+    """``spmm_ell`` on one shard operator: against its plain version (on
+    NaN-prefilled output memory), bit-identical over two launches, timed
+    beside the plain version, ``torch.sparse.mm`` and the bound (bytes)."""
+    d = x.shape[1]
+    _nan_cache(m.n_rows, d, x.device)
+    got = ell_spmm(m, diag, x)
+    sync(x.device)
+    want = apply_with_diag(m, diag, x)
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
+    if not torch.equal(got, ell_spmm(m, diag, x)):
+        raise AssertionError(f"spmm_ell ({m.n_rows} rows): two launches differ")
+    csr = _csr_of(m, diag)
+    lib = torch.sparse.mm(csr, x)
+    torch.testing.assert_close(lib, want, **TOL[torch.float32])
+    plan = segment_plan(m)
+    # the rows of x the real slots (and the diagonal) read, the output, the
+    # buckets and the diagonal once
+    ell_bytes = sum(b.rows.numel() * 4 + b.idx.numel() * 4 + b.w.numel() * 4 for b in m.buckets)
+    read = torch.cat([b.idx[b.w != 0] for b in m.buckets]
+                     + ([] if diag is None else [torch.arange(m.n_rows, device=x.device)]))
+    x_rows = int(torch.unique(read).numel())
+    nbytes = (m.n_rows + x_rows) * d * 4 + ell_bytes + (0 if diag is None else diag.numel() * 4)
+    n_diag = 0 if diag is None else int(torch.count_nonzero(diag))
+    r = {"rows": m.n_rows, "cols": m.n_cols, "x_rows_read": x_rows, "edges": m.nnz + n_diag,
+         "rows_in_no_bucket": plan.base.n_zero_rows, "work_items": int(plan.items.shape[0]),
+         "max_abs_err": float((got - want).abs().max()),
+         "ms": time_ms(lambda: ell_spmm(m, diag, x)),
+         "device_ms": device_ms(lambda: ell_spmm(m, diag, x)),
+         "plain_ms": time_ms(lambda: apply_with_diag(m, diag, x), iters=5),
+         "library_ms": time_ms(lambda: torch.sparse.mm(csr, x)),
+         "library_device_ms": device_ms(lambda: torch.sparse.mm(csr, x))}
+    r["bound_ms"], r["bound_by"] = _bound(nbytes, 2 * (m.nnz + n_diag) * d)
+    r["share_of_bound_device"] = ratio(r["bound_ms"], r["device_ms"])
+    return r
+
+
+def _dist_step(parts, batch) -> tuple[torch.Tensor, dict, dict]:
+    """One distributed step's loss and gradients, with its launches."""
+    _reset_launch_counts()
+    loss = parts.grads(batch)
+    sync(loss.device)
+    return loss, {k: p.grad.clone() for k, p in parts.model.named_parameters()}, _launch_counts()
+
+
+def phase_dist(smi: str, dev: torch.device) -> dict:
+    """Config dwy100k_dist at full width (100,000 entities per KG, 500,000
+    triples, 300 relations, 8 shards, dim 128, k_neg 25, spmm_impl ell),
+    cut to DIST_CUTS, through driver.run on one card: an NCCL group of one
+    rank holding the 8 shards.  Its partition, stage times, launches
+    (held to ``_dist_launches``: spmm_ell does every shard's aggregation both
+    ways) and losses.  Then one step with injected negatives against the
+    single-device port's (``driver.step_parts``) on the same parameters, in
+    ell and in sorted (spmm_sorted on the same edge groups), each step's
+    time beside the single-device one's; then both kernels on shard 0's
+    local, boundary and boundary-transpose operators at d = 128 fp32.
+    The distributed steps are held to the single-device step's plain path
+    (``_plain_kernels``), the reference of every step check; their distance
+    to its kernel path is read beside, with the kernel path's own distance
+    to the plain one."""
+    cfg = get_config("dwy100k_dist", **DIST_CUTS)
+    t0 = time.perf_counter()
+    task = load_task(cfg)
+    task_s = time.perf_counter() - t0
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run(cfg, task=task, device=dev)
+    sync(dev)
+    run_s = time.perf_counter() - t0
+    counts, t, losses = _launch_counts(), res.timings, res.losses
+    per_step = 8 * cfg.n_shards
+    expected = {**{k: 0 for k in counts}, "spmm_ell": _dist_launches(t, cfg.n_shards)}
+    if counts != expected or t["steps"] != cfg.epochs or t["minings"] != 1:
+        raise AssertionError(f"launches {counts} (expected {expected}), timings {t}")
+    nb = cfg.neg_every
+    if not all(math.isfinite(v) for v in losses) or not all(
+            losses[i + nb - 1] < losses[i] for i in range(0, cfg.epochs, nb)):
+        raise AssertionError(f"losses not finite or not falling in each interval: {losses}")
+    if not all(math.isfinite(v) for v in res.metrics.values()):
+        raise AssertionError(f"non-finite metrics {res.metrics}")
+    geometry = res.op.geometry
+    emit({"phase": "dist", "config": cfg.name, "cuts": DIST_CUTS, "n_ent": task.n_ent,
+          "train_pairs": int(len(task.train_pairs)), "test_pairs": int(len(task.test_pairs)),
+          "partition": geometry, "halo_buffer_mb_per_rank": cfg.n_shards ** 2
+          * geometry["halo_b"] * cfg.dim * 4 / 2 ** 20, "launches": counts,
+          "launches_per_step": {"spmm_ell": per_step}, "losses": losses,
+          "metrics": {k: res.metrics[k] for k in ("hits@1", "hits@10", "mrr")},
+          "stages_s": {"task_s": task_s, "build_s": t["build_s"],
+                       "step_median_s": float(np.median(t["step_s"])),
+                       "step_first_s": t["step_s"][0], "mining_forward_s": t["forward_s"],
+                       "mining_s": t["mine_s"], "final_eval_s": t["final_eval_s"],
+                       "run_s": run_s},
+          "peak_device_mb": torch.cuda.max_memory_allocated() / 2 ** 20, "card": smi})
+
+    pairs = torch.as_tensor(task.train_pairs, dtype=torch.int64, device=dev)
+    neg_l, neg_r = sample_uniform_negatives(torch.Generator().manual_seed(1), pairs,
+                                            task.kg1.n_ent, task.n_ent, cfg.k_neg)
+    batch = {"pairs": pairs, "neg_l": neg_l, "neg_r": neg_r}
+    single = step_parts(cfg.replace(n_shards=1), task, dev)
+
+    def single_step():
+        single.model.zero_grad(set_to_none=True)
+        loss = single.loss_fn(batch, None)[0]
+        loss.backward()
+        return loss.detach(), {k: p.grad.clone() for k, p in single.model.named_parameters()}
+
+    s_kernels = single_step()
+    with _plain_kernels():
+        s_plain = single_step()
+    def gap(step, ref, hold=True):  # the table's gradient on its n real rows
+        (loss, grads), (ref_loss, ref_grads) = step, ref
+        return _step_gap(loss, {**grads, "emb": grads["emb"][:task.n_ent]}, ref_loss, ref_grads,
+                         ("gc2.b",), tol=STEP_TOL[torch.float32] if hold else None)
+
+    checks = {"single_kernels_vs_plain": gap(s_kernels, s_plain, hold=False)}
+    ops = {}
+    with make_mesh(cfg.n_shards, dev) as mesh:
+        for impl in ("ell", "sorted"):
+            parts = dist_parts(cfg.replace(spmm_impl=impl), task, mesh)
+            loss, grads, launched = _dist_step(parts, batch)
+            kernel = "spmm_ell" if impl == "ell" else "spmm_sorted"
+            if launched != {**{k: 0 for k in launched}, kernel: per_step}:
+                raise AssertionError(f"{impl} step launched {launched}, expected {per_step}")
+            checks[impl] = {
+                "vs_single_plain": gap((loss, grads), s_plain),
+                "vs_single_kernels": gap((loss, grads), s_kernels, hold=False),
+                "launches": launched,
+                "step_ms": [time_ms(lambda: parts.grads(batch), 1, 5),
+                            time_ms(single_step, 1, 5),
+                            time_ms(lambda: parts.grads(batch), 1, 5)]}
+            if impl == "ell":
+                checks[impl]["device_split"] = _device_split(lambda: parts.grads(batch), dev,
+                                                             top=10)
+            ops[impl] = parts.op
+            del parts
+    emit({"phase": "dist_step", "checks": checks,
+          "step_ms_order": ["distributed", "single-device", "distributed"], "card": smi})
+
+    rng = np.random.default_rng(5)
+    d = cfg.dim
+
+    def x_for(n_cols):
+        return torch.from_numpy(rng.standard_normal((n_cols, d)).astype(np.float32)).to(dev)
+
+    loc, bnd = ops["ell"].loc[0], ops["ell"].bnd[0]
+    ell_ops = {name: _dist_ell_case(m, diag, x_for(m.n_cols)) for name, m, diag in (
+        ("local", loc.fwd, loc.diag), ("boundary", bnd.fwd, None),
+        ("boundary_transpose", bnd.bwd, None))}
+    sorted_ops = {}
+    s_loc, s_bnd = ops["sorted"].loc[0], ops["sorted"].bnd[0]
+    for name, edges in (("local", s_loc.fwd), ("boundary", s_bnd.fwd),
+                        ("boundary_transpose", s_bnd.bwd)):
+        x, table, csr = x_for(edges.n_cols), _sorted_table(edges)[0], _csr_of_edges(edges)
+        _nan_cache(edges.n_rows, d, dev)
+        sorted_ops[name] = {**table, **_sorted_case(edges, csr, x, timed=True)}
+    emit({"phase": "kernel", "kernel": "dist_shard_operators", "shard": 0, "d": d,
+          "dtype": "float32", "spmm_ell": ell_ops, "spmm_sorted": sorted_ops, "card": smi})
+    return {"launches": counts, "per_step": per_step, "spmm_ell": ell_ops,
+            "spmm_sorted": sorted_ops, "sorted_step_launches": checks["sorted"]["launches"]}
+
+
 def _hits_of(ranks: torch.Tensor) -> tuple:
     """(Hits@1, Hits@10, MRR) of both directions' ranks, as ``hits_at_k``."""
     r = ranks.double()
@@ -2689,6 +2898,7 @@ def main() -> int:
     phase_readers(task, smi, dev)
     phase_native(task, smi, dev)
     phase_debug_nans(task, smi, dev)
+    dist = phase_dist(smi, dev)
     # the numbers at the recipe's width (d = 256); launches of the recipe's
     # run, with those of the other runs beside (the incidence's at mtl's
     # width, d = 128, where config mtl runs it); a fused run's launches on
@@ -2716,7 +2926,8 @@ def main() -> int:
                             if n != "replayed_interval"},
          "launches_replayed_interval": {n: v["spmm_ell"]
                                         for n, v in fused["replayed_interval"].items()},
-         **k_spmm, "incidence": incidence},
+         **k_spmm, "incidence": incidence, "launches_dist": dist["launches"]["spmm_ell"],
+         "launches_dist_per_step": dist["per_step"], "dist_shard_ops": dist["spmm_ell"]},
         {"name": "sinkhorn_fused", "route": "cuda",
          "source": "tpugraph_torch/csrc/sinkhorn_fused.cu",
          "replaces": "tpugraph/kernels/sinkhorn_pallas.py:38",
@@ -2741,7 +2952,9 @@ def main() -> int:
          **{k: k_sorted["forward"]["float32_d128"][k]
             for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                       "device_ms", "ms_cold_l2", "library_device_ms", "split_device_ms")},
-         "d": 128, "dtype": "float32", "operator": "forward", "all": k_sorted},
+         "d": 128, "dtype": "float32", "operator": "forward", "all": k_sorted,
+         "launches_dist_sorted_step": dist["sorted_step_launches"]["spmm_sorted"],
+         "dist_shard_ops": dist["spmm_sorted"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

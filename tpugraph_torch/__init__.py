@@ -10,7 +10,8 @@ Layer map:
     data/      synthetic DBP15K-shaped generator and the DBP15K and OpenEA
                readers (numpy, arrays identical to the JAX package's)
     sparse/    KG containers, adjacency build, degree-bucketed ELL operator,
-               sorted padded edge lists (``spmm_impl`` sorted/xla)
+               sorted padded edge lists (``spmm_impl`` sorted/xla), the
+               edge partitioner and each shard's halo operators
     native/    the C++ adjacency builder, compiled by g++ at first use
     kernels/   plain-torch ELL and sorted SpMM, distances and Sinkhorn
                solver, and the five CUDA kernels: the fused GCN layer
@@ -30,6 +31,10 @@ Layer map:
                the training loops (``fit``, ``fit_mtl``; the fused interval
                as a captured CUDA graph, ``fused.py``) and ``driver.py``
                (``run``, ``evaluate``)
+    dist/      the edge-partitioned distributed trainer (config
+               ``dwy100k_dist``) over ``torch.distributed``: shards to
+               ranks, the halo-exchange SpMM on the hand SpMM kernels,
+               ring mining and eval, ``fit_distributed``
     cli/       ``python -m tpugraph_torch.cli.main`` — train a named config
     configs/   TrainConfig copies of the capability configs
     serve.py   top-k alignment search, export, embedding save/load, CLI

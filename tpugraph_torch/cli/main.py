@@ -10,6 +10,8 @@
     python -m tpugraph_torch.cli.main --config base --profile-dir prof --epochs 10
     python -m tpugraph_torch.cli.main --dataset dbp15k --data-root data --pair zh_en
     python -m tpugraph_torch.cli.main --dataset openea --data-root data/D_W_15K_V1
+    python -m tpugraph_torch.cli.main --config dwy100k_dist --epochs 10
+    torchrun --nproc_per_node=8 -m tpugraph_torch.cli.main --config dwy100k_dist
 
 Picks a named config, applies a tuned recipe (``--recipe``,
 ``configs/recipes.py``: v1–v7r), then the flags and typed ``key=value``
@@ -26,7 +28,10 @@ negatives approximately in sqeuclidean (``neg_metric = "sqeuclidean"``,
 loss, gradient or parameter (the counterpart of ``jax_debug_nans``:
 anomaly detection and a check per step, or per fused interval);
 ``--dataset``, ``--data-root`` and ``--pair`` read a DBP15K or OpenEA
-directory (``data/dbp15k.py``, ``data/openea.py``).
+directory (``data/dbp15k.py``, ``data/openea.py``).  Config
+``dwy100k_dist`` trains its 8 shards in one process on one card (an NCCL
+group of one rank), or one rank per card under torchrun (NCCL allows one
+rank per device; ``dist/mesh.py``); rank 0 prints the line.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 
 from tpugraph_torch.configs.configs import CONFIGS, get_config
@@ -130,7 +136,8 @@ def main(argv=None) -> int:
     else:
         metrics = run(cfg, device=args.device, verbose=not args.quiet,
                       debug_nans=args.debug_nans).metrics
-    print(json.dumps({"config": cfg.name, **{k: round(v, 4) for k, v in metrics.items()}}))
+    if int(os.environ.get("RANK", "0")) == 0:  # under torchrun, rank 0 speaks
+        print(json.dumps({"config": cfg.name, **{k: round(v, 4) for k, v in metrics.items()}}))
     return 0
 
 

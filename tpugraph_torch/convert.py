@@ -2,7 +2,10 @@
 
 ``params_from_jax`` takes the flax parameter tree of ``AlignGCN``, or of
 ``AlignMTL`` (the encoder's tree under "encoder", the heads' and the AE
-channel's beside it), as nested dicts of numpy arrays (the caller runs
+channel's beside it), or of the distributed trainer (``AlignGCN``'s
+leaves, its ``emb`` the padded (n_pad, dim) table, which
+``dist/trainer.py::DistEncoder.load_full`` cuts into each rank's rows), as
+nested dicts of numpy arrays (the caller runs
 ``jax.tree_util.tree_map(np.asarray, params)``) and returns the port's
 parameters: the matching state dict, with the same leaves and layouts.  A
 gradient tree maps the same way.

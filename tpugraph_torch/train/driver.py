@@ -1,10 +1,11 @@
 """Config -> trainer dispatch, and the eval-only entry (counterpart of
 ``tpugraph/train/driver.py``).
 
-``run`` trains: a config with an OT head or an MTL head or channel
-(configs ``sinkhorn`` and ``mtl``, recipes v5–v7r) goes to
-``train/mtl.py::fit_mtl``, the others (configs ``base`` and ``highway``)
-to ``train/loop.py::fit``.  ``evaluate`` restores trained parameters (a
+``run`` trains: a config of more than one shard (config
+``dwy100k_dist``) goes to ``dist/trainer.py::fit_distributed``, one with
+an OT head or an MTL head or channel (configs ``sinkhorn`` and ``mtl``,
+recipes v5–v7r) to ``train/mtl.py::fit_mtl``, the others (configs
+``base`` and ``highway``) to ``train/loop.py::fit``.  ``evaluate`` restores trained parameters (a
 training run's ``checkpoint_dir`` holds them), runs the encoder forward
 over the merged graph once (with the attribute channel, the AE channel
 too, scoring the combined SE‖AE table as the run did), and scores the
@@ -37,9 +38,17 @@ def run(cfg: TrainConfig, task: AlignTask | None = None, device: str | torch.dev
         verbose: bool = False, debug_nans: bool = False) -> TrainResult:
     """Train per ``cfg``.  ``task``: a pre-built AlignTask; None loads it
     from ``cfg``.  ``debug_nans``: raise ``FloatingPointError`` at the first
-    non-finite step (``train/loop.py``)."""
+    non-finite step (``train/loop.py``).  A distributed run starts a
+    world-size-1 group in this process, or joins torchrun's
+    (``dist/mesh.py``)."""
     if max(cfg.n_shards, cfg.feature_shards, cfg.slice_shards) > 1:
-        raise NotImplementedError("the distributed trainer is not ported yet; see ROADMAP.md")
+        from tpugraph_torch.dist.trainer import fit_distributed
+
+        if debug_nans:
+            raise NotImplementedError("debug_nans is not ported to the distributed trainer "
+                                      "yet; see ROADMAP.md")
+
+        return fit_distributed(cfg, task=task, verbose=verbose, device=device)
     if uses_mtl(cfg):
         from tpugraph_torch.train.mtl import fit_mtl
 

@@ -161,6 +161,13 @@ def hits_at_k(emb: torch.Tensor, test_pairs, ks: tuple[int, ...] = (1, 10),
     pairs = torch.as_tensor(np.asarray(test_pairs), dtype=torch.int64, device=emb.device)
     rl, rr = _both_direction_ranks(emb, pairs, block_c=block_c, csls_k=csls_k,
                                    approx_k=approx_k)
+    return rank_metrics(rl, rr, ks)
+
+
+def rank_metrics(rl: torch.Tensor, rr: torch.Tensor,
+                 ks: tuple[int, ...] = (1, 10)) -> dict[str, float]:
+    """Hits@k and MRR of each direction's ranks and their means (the ring
+    eval's, ``dist/ring.py``, too)."""
     both = torch.stack([rl, rr]).cpu().numpy()  # single readback
     out = {}
     for tag, ranks in (("l2r", both[0]), ("r2l", both[1])):

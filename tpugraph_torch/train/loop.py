@@ -43,8 +43,9 @@ each step of the interval folds on the device (inside the captured graph
 on the card) and the interval's one synchronise reads, naming the
 interval's epochs.
 
-Not ported yet, and refused up front (``check_trainable``): the
-distributed trainer (``ROADMAP.md``).
+These trainers are single-device: ``check_trainable`` refuses more than
+one shard (``train/driver.py::run`` sends such a config to
+``dist/trainer.py::fit_distributed``).
 """
 
 from __future__ import annotations
@@ -234,10 +235,20 @@ def step_generator(cfg: TrainConfig, epoch: int, dev: torch.device) -> torch.Gen
 
 
 def check_trainable(cfg: TrainConfig, refuse_fused_profile: bool = False) -> None:
-    """Refuse, before any work, a config that needs an unported part, and
-    what the JAX trainers refuse of the fused interval; with
-    ``refuse_fused_profile`` (``fit``, as the JAX ``fit`` alone does) also
-    ``profile_dir`` with ``steps_per_call > 1``."""
+    """Refuse, before any work, a sharded config (``fit`` and ``fit_mtl``
+    train on one device) and what ``check_schedule`` refuses."""
+    check_schedule(cfg, refuse_fused_profile)
+    if max(cfg.n_shards, cfg.feature_shards, cfg.slice_shards) > 1:
+        raise NotImplementedError(
+            "fit and fit_mtl train on one device; a sharded config goes through "
+            "train.driver.run to dist.trainer.fit_distributed (ROADMAP.md)")
+
+
+def check_schedule(cfg: TrainConfig, refuse_fused_profile: bool = False) -> None:
+    """What the JAX trainers refuse of the resample interval, the fused
+    interval and the negatives; with ``refuse_fused_profile`` (the JAX
+    ``fit`` and distributed trainer) also ``profile_dir`` with
+    ``steps_per_call > 1``."""
     if cfg.neg_every < 1:
         raise ValueError("neg_every must be >= 1 (to effectively never resample, set "
                          "neg_every >= epochs)")
@@ -252,8 +263,6 @@ def check_trainable(cfg: TrainConfig, refuse_fused_profile: bool = False) -> Non
             f"train past cfg.epochs — adjust one of them")
     if refuse_fused_profile and steps > 1 and cfg.profile_dir:
         raise ValueError("profile_dir requires steps_per_call=1 (per-epoch trace windows)")
-    if max(cfg.n_shards, cfg.feature_shards, cfg.slice_shards) > 1:
-        raise NotImplementedError("the distributed trainer is not ported yet; see ROADMAP.md")
     if cfg.neg_mode not in ("uniform", "hard"):
         raise ValueError(f"unknown neg_mode {cfg.neg_mode!r}")
     if cfg.neg_metric not in METRICS:

@@ -17,7 +17,9 @@ def epoch_edge_ops(nnz: int, use_attr_channel: bool = False) -> int:
     """Edge-ops of one training epoch: one forward+backward pass of one
     adjacency SpMM over one nonzero counts one edge-op, so the 2-layer GCN
     does 2·nnz per epoch (4·nnz with the AE channel).  Trainers log
-    ``edges_per_s = epoch_edge_ops(...) * epochs / wall``."""
+    ``edges_per_s = epoch_edge_ops(...) * epochs / wall``; the distributed
+    trainer also ``edges_per_s_chip = edges_per_s / R`` over its R ranks
+    (devices, not shards), both unrounded."""
     return nnz * (4 if use_attr_channel else 2)
 
 
