@@ -148,6 +148,21 @@ Phases, each printing one JSON line:
              memory prefilled with NaN) against their plain versions, timed
              beside ``torch.sparse.mm`` and the bound.
 
+20. dist_v7r — recipe v7r on config ``dwy100k_dist`` at full width (dim
+             256, k_neg 100, the OT head on 4,096 seed pairs, the attribute
+             head, bootstrapping, CSLS eval) through ``driver.run`` on the
+             same one-rank group, cut to 4 of 900 epochs, proposals from
+             epoch 2 (not 200), no periodic eval: the launches
+             (``sinkhorn_fused`` 41 per step through the ring OT,
+             ``spmm_ell`` 64 per step and 32 per forward), each stage's time
+             (one exact proposal, one mining, the exact CSLS final eval), the
+             peak device memory, the loss falling in each interval; one step
+             on an injected batch (proposals, negatives, the OT subsample,
+             the attribute batch) against the single-device step's plain
+             path on the same parameters; the ring OT alone at 4,096 × 256
+             against its plain version, timed beside the single-device
+             loss; and the potential update at the ring caller's shape.
+
 A step is held against its plain path by running the same model code with
 every kernel swapped for its plain version (``_plain_kernels``), which
 autograd differentiates.
@@ -180,7 +195,9 @@ from tpugraph_torch.configs.recipes import RECIPES
 from tpugraph_torch.convert import save_params
 from tpugraph_torch.data import load_dbp15k, load_openea, synthetic_align_task
 from tpugraph_torch import native
+from tpugraph_torch.dist import mp_worker
 from tpugraph_torch.dist.mesh import make_mesh
+from tpugraph_torch.dist.ring import ring_sinkhorn_align_loss
 from tpugraph_torch.dist.trainer import dist_parts
 from tpugraph_torch.kernels import _build, gcn_fused, shortlist_dist, sinkhorn_fused, spmm_ell
 from tpugraph_torch.kernels import spmm as spmm_mod
@@ -254,23 +271,37 @@ def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, tries: int = 3) -> float | None:
+def device_ms(fn, iters: int = 20, tries: int = 3, floor_ms: float | None = None,
+              log: list | None = None) -> float | None:
     """Device time of one call from a torch.profiler trace: the time of its
     kernels and memsets on the card, summed, so the host's launch cost is
     left out (``time_ms`` includes it when it exceeds the device's work).
     A trace can come back without device events: the window is then taken
-    again, and after ``tries`` empty ones the time is None."""
+    again, and after ``tries`` empty ones the time is None.  With
+    ``floor_ms``, the least time the card could take for the call's work
+    (its bound), a reading below it is a trace that lost kernel records:
+    it is taken again too, and after ``tries`` traces without a reading at
+    or above the floor the call raises.  ``log`` gains each trace's reading
+    and its count of device events."""
     fn()
     torch.cuda.synchronize()
+    low = []
     for _ in range(tries):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-        if us > 0:
-            return us / iters / 1e3
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        ms = sum(e.time_range.elapsed_us() for e in events) / iters / 1e3
+        if log is not None:
+            log.append({"device_ms": ms, "device_events": len(events), "calls": iters})
+        if ms > 0 and (floor_ms is None or ms >= floor_ms):
+            return ms
+        if ms > 0:
+            low.append(ms)
+    if low:
+        raise AssertionError(f"device time {low} ms under the bound {floor_ms} ms in every "
+                             f"trace with device events ({tries} traces)")
     return None
 
 
@@ -645,7 +676,6 @@ def phase_sinkhorn(smi: str, dev: torch.device, s: int = 4500, d: int = 128,
     plain_ms = time_ms(lambda: sinkhorn_update_plain(l, r, g, log_mu, tau, l_sq, r_sq), iters=5)
     addmm_ms = time_ms(lib_build)
     lse_ms = time_ms(lambda: torch.logsumexp(z, dim=1))
-    dev_ms = device_ms(kernel)
     lib_dev = device_ms(lambda: torch.logsumexp(lib_build(), dim=1))
     # twice the query rows against the same candidates: twice the work on
     # the same grid, so the fixed cost per launch shows
@@ -660,19 +690,23 @@ def phase_sinkhorn(smi: str, dev: torch.device, s: int = 4500, d: int = 128,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = (3 * 2 * s * s * d / PEAK_TF32_OPS + s * s / PEAK_OPS[torch.float32]) * 1e3
     bound, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    traces = []  # each trace's reading and device events: a lost record shows as fewer
+    dev_ms = device_ms(kernel, floor_ms=bound, log=traces)
     bound_fp32, _ = _bound(nbytes, 2 * s * s * d + s * s)
     grid, n_splits = stream_plan(s, s, torch.cuda.get_device_properties(dev).multi_processor_count)
     emit({"phase": "kernel", "kernel": "sinkhorn_fused", "q": s, "c": s, "d": d, "tau": tau,
           "precision": PRECISION, "grid": grid, "candidate_splits": n_splits,
           "max_abs_err": err, "max_abs_err_tau_0.05": err05, "ms": ms, "device_ms": dev_ms,
-          "ms_cold_l2": ms_cold, "plain_ms": plain_ms, "library_ms": addmm_ms + lse_ms,
+          "device_traces": traces, "ms_cold_l2": ms_cold, "plain_ms": plain_ms,
+          "library_ms": addmm_ms + lse_ms,
           "library_device_ms": lib_dev, "library_addmm_ms": addmm_ms,
           "library_logsumexp_ms": lse_ms, "bound_ms": bound, "bound_by": bound_by,
           "share_of_bound": bound / ms, "bound_fp32_ms": bound_fp32,
           "share_of_fp32_bound": bound_fp32 / ms, "ms_2x_queries": ms_2x, "card": smi})
     return dict(q=s, c=s, d=d, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=bound_by, library_ms=addmm_ms + lse_ms, device_ms=dev_ms,
-                ms_cold_l2=ms_cold, library_device_ms=lib_dev, bound_fp32_ms=bound_fp32,
+                device_traces=traces, ms_cold_l2=ms_cold, library_device_ms=lib_dev,
+                bound_fp32_ms=bound_fp32,
                 precision=PRECISION, candidate_splits=n_splits)
 
 
@@ -2861,6 +2895,179 @@ def phase_dist(smi: str, dev: torch.device) -> dict:
             "spmm_sorted": sorted_ops, "sorted_step_launches": checks["sorted"]["launches"]}
 
 
+# recipe v7r on config dwy100k_dist as chip_smoke.py trains it: only these
+# are cut (of 900 epochs, proposals from epoch 200, an eval every 100: one
+# uniform interval, then one with the proposals and mined negatives; the
+# exact CSLS final eval is the only eval); sinkhorn_pairs 4096 is the
+# reference's own cap at this seed count, not a cut
+DIST_V7R_CUTS = {"epochs": 4, "boot_start": 2, "eval_every": 0}
+DIST_V7R_OT_PAIRS = 4096
+
+
+def _ring_ot_check(smi: str, dev: torch.device, s: int = DIST_V7R_OT_PAIRS,
+                   d: int = 256) -> dict:
+    """The ring OT loss alone at s pairs × d (v7r's τ 0.3, 20 iterations),
+    one rank holding 8 shards: value and gradient against the plain version
+    (``sinkhorn_align_loss_plain``, autograd through the unrolled solver) at
+    PERF.md §2's step limits, 2·20 + 1 launches; the forward and the
+    forward + backward timed beside the single-device ``sinkhorn_align_loss``
+    (same kernel, same reverse sweep) and the plain version."""
+    l, r, _, _ = _sinkhorn_inputs(dev, s, d)
+    table = torch.cat([l, r])
+    pairs = torch.stack([torch.arange(s), s + torch.arange(s)], 1).to(dev)
+    kw = dict(tau=0.3, n_iters=20)
+    with make_mesh(8, dev) as mesh:
+        def ring_fn():
+            return ring_sinkhorn_align_loss(x, pairs, mesh, **kw)
+
+        def single_fn():
+            return sinkhorn_align_loss(x, pairs, **kw)
+
+        def plain_fn():
+            return sinkhorn_align_loss_plain(x, pairs, **kw)
+
+        def both(fn):
+            def step():
+                x.grad = None
+                fn().backward()
+            return step
+
+        x = table.clone().requires_grad_()
+        _reset_launch_counts()
+        loss = ring_fn()
+        loss.backward()
+        sync(dev)
+        launched = _launch_counts()
+        if launched != {**{k: 0 for k in launched}, "sinkhorn_fused": 2 * kw["n_iters"] + 1}:
+            raise AssertionError(f"the ring OT launched {launched}")
+        got = x.grad.clone()
+        x.grad = None
+        want = plain_fn()
+        want.backward()
+        sync(dev)
+        loss_rel = abs(loss.item() - want.item()) / abs(want.item())
+        grad_rel = float((got - x.grad).norm() / x.grad.norm())
+        tol = STEP_TOL[torch.float32]
+        if not (loss_rel <= tol["loss_rel"] and grad_rel <= tol["grad_rel_l2"]
+                and torch.isfinite(got).all()):
+            raise AssertionError(f"ring OT vs plain: loss rel {loss_rel}, grad rel {grad_rel}")
+        with torch.no_grad():
+            fwd = {"ring_ms": time_ms(ring_fn, 1, 5), "single_ms": time_ms(single_fn, 1, 5),
+                   "plain_ms": time_ms(plain_fn, 1, 3), "ring_ms_again": time_ms(ring_fn, 1, 5)}
+        fwd_bwd = {"ring_ms": time_ms(both(ring_fn), 1, 5),
+                   "single_ms": time_ms(both(single_fn), 1, 5),
+                   "plain_ms": time_ms(both(plain_fn), 1, 3),
+                   "ring_ms_again": time_ms(both(ring_fn), 1, 5)}
+        dev_ms = device_ms(ring_fn, iters=3)
+    out = {"pairs": s, "d": d, "launches": launched["sinkhorn_fused"], "loss": loss.item(),
+           "loss_plain": want.item(), "loss_rel_err": loss_rel, "grad_rel_l2": grad_rel,
+           "tolerance": tol, "forward": fwd, "forward_backward": fwd_bwd,
+           "forward_device_ms": dev_ms}
+    emit({"phase": "dist_ring_ot", **out, "card": smi})
+    return out
+
+
+def phase_dist_v7r(smi: str, dev: torch.device) -> dict:
+    """Recipe v7r on config dwy100k_dist at full width (100,000 entities per
+    KG, 500,000 triples, 8 shards, dim 256, k_neg 100, the OT head on 4,096
+    seed pairs, the attribute head, bootstrapping, CSLS eval), cut to
+    DIST_V7R_CUTS, through driver.run on an NCCL group of one rank holding
+    the 8 shards: stage times, the launches (``sinkhorn_fused`` 41 per
+    step, ``spmm_ell`` 64 per step and 32 per forward, nothing else), the
+    losses falling in each interval, the CSLS metrics finite.  Then one
+    step on an injected batch (``mp_worker.surface_batch``: proposals,
+    negatives and the interval's draws) against the single-device step's
+    plain path on the same parameters, and the ring OT alone
+    (``_ring_ot_check``)."""
+    cfg = get_config("dwy100k_dist", **RECIPES["v7r"]).replace(
+        sinkhorn_pairs=DIST_V7R_OT_PAIRS, **DIST_V7R_CUTS)
+    t0 = time.perf_counter()
+    task = load_task(cfg)
+    task_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run(cfg, task=task, device=dev)
+    sync(dev)
+    run_s = time.perf_counter() - t0
+    counts, t, losses = _launch_counts(), res.timings, res.losses
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    per_step = {"spmm_ell": 8 * cfg.n_shards, "sinkhorn_fused": 2 * cfg.sinkhorn_iters + 1}
+    expected = {**{k: 0 for k in counts}, "spmm_ell": _dist_launches(t, cfg.n_shards),
+                "sinkhorn_fused": per_step["sinkhorn_fused"] * t["steps"]}
+    if counts != expected or (t["steps"], t["proposals"], t["minings"], t["forwards"],
+                              t["draws"], t["evals"]) != (cfg.epochs, 1, 1, 1, 2, 1):
+        raise AssertionError(f"launches {counts} (expected {expected}), timings {t}")
+    nb = cfg.neg_every
+    if not all(math.isfinite(v) for v in losses) or not all(
+            losses[i + nb - 1] < losses[i] for i in range(0, cfg.epochs, nb)):
+        raise AssertionError(f"losses not finite or not falling in each interval: {losses}")
+    metrics = {k: res.metrics[k] for k in ("hits@1", "hits@10", "mrr")}
+    if not all(math.isfinite(v) for v in res.metrics.values()):
+        raise AssertionError(f"non-finite metrics {res.metrics}")
+    widths = [tuple(res.model.gc1.w.shape), tuple(res.model.attr_head.w.shape)]
+    if widths != [(256, 256), (256, task.n_attr)]:
+        raise AssertionError(f"widths {widths}")
+    emit({"phase": "dist_v7r", "config": cfg.name, "recipe": "v7r", "cuts": DIST_V7R_CUTS,
+          "sinkhorn_pairs": cfg.sinkhorn_pairs, "n_ent": task.n_ent, "n_attr": task.n_attr,
+          "train_pairs": int(len(task.train_pairs)), "test_pairs": int(len(task.test_pairs)),
+          "dim": cfg.dim, "k_neg": cfg.k_neg, "eval_csls_k": cfg.eval_csls_k,
+          "launches": counts, "launches_per_step": per_step, "losses": losses,
+          "metrics_csls": metrics, "timings": {k: v for k, v in t.items() if k != "step_s"},
+          "stages_s": {"task_s": task_s, "build_s": t["build_s"],
+                       "step_median_s": float(np.median(t["step_s"])),
+                       "step_first_s": t["step_s"][0], "boundary_forward_s": t["forward_s"],
+                       "proposal_s": t["propose_s"], "mining_s": t["mine_s"],
+                       "draw_s": t["draw_s"], "csls_final_eval_s": t["final_eval_s"],
+                       "run_s": run_s},
+          "peak_device_mb": peak_mb, "card": smi})
+    del res
+
+    batch = mp_worker.surface_batch(cfg, task, device=dev)
+    n_boot = int((batch["w"][len(task.train_pairs):] > 0).sum())
+    single = step_parts(cfg.replace(n_shards=1), task, dev)
+
+    def single_step():
+        single.model.zero_grad(set_to_none=True)
+        loss = single.loss_fn(batch, None)[0]
+        loss.backward()
+        return loss.detach(), {k.removeprefix("encoder."): p.grad.clone()
+                               for k, p in single.model.named_parameters()}
+
+    s_kernels = single_step()
+    with _plain_kernels():
+        s_plain = single_step()
+
+    def gap(step, ref, hold=True):  # the table's gradient on its n real rows
+        (loss, grads), (ref_loss, ref_grads) = step, ref
+        return _step_gap(loss, {**grads, "emb": grads["emb"][:task.n_ent]}, ref_loss, ref_grads,
+                         tol=STEP_TOL[torch.float32] if hold else None)
+
+    checks = {"single_kernels_vs_plain": gap(s_kernels, s_plain, hold=False)}
+    with make_mesh(cfg.n_shards, dev) as mesh:
+        parts = dist_parts(cfg, task, mesh)
+        loss, grads, launched = _dist_step(parts, batch)
+        if launched != {**{k: 0 for k in launched}, **per_step}:
+            raise AssertionError(f"the v7r step launched {launched}, expected {per_step}")
+        checks["dist"] = {"vs_single_plain": gap((loss, grads), s_plain),
+                          "vs_single_kernels": gap((loss, grads), s_kernels, hold=False),
+                          "launches": launched, "loss_terms": {k: v.item() for k, v in
+                                                               parts.aux.items()},
+                          "step_ms": [time_ms(lambda: parts.grads(batch), 1, 5),
+                                      time_ms(single_step, 1, 5),
+                                      time_ms(lambda: parts.grads(batch), 1, 5)],
+                          "device_split": _device_split(lambda: parts.grads(batch), dev,
+                                                        top=10)}
+        del parts
+    del single
+    emit({"phase": "dist_v7r_step", "weighted_proposals": n_boot,
+          "ot_pairs": int(batch.get("ot_pairs", batch["pairs"]).shape[0]),
+          "attr_batch": int(batch["attr_triples"].shape[0]), "checks": checks,
+          "step_ms_order": ["distributed", "single-device", "distributed"], "card": smi})
+    ring_ot = _ring_ot_check(smi, dev)
+    return {"launches": counts, "per_step": per_step, "ring_ot": ring_ot}
+
+
 def _hits_of(ranks: torch.Tensor) -> tuple:
     """(Hits@1, Hits@10, MRR) of both directions' ranks, as ``hits_at_k``."""
     r = ranks.double()
@@ -2899,6 +3106,10 @@ def main() -> int:
     phase_native(task, smi, dev)
     phase_debug_nans(task, smi, dev)
     dist = phase_dist(smi, dev)
+    dist_v7r = phase_dist_v7r(smi, dev)
+    # one potential update at the ring caller's shape: the v7r run's 4,096
+    # pairs, one rank holding the 8 shards, so one launch per update
+    k_sink_ring = phase_sinkhorn(smi, dev, s=DIST_V7R_OT_PAIRS, d=256)
     # the numbers at the recipe's width (d = 256); launches of the recipe's
     # run, with those of the other runs beside (the incidence's at mtl's
     # width, d = 128, where config mtl runs it); a fused run's launches on
@@ -2927,14 +3138,19 @@ def main() -> int:
          "launches_replayed_interval": {n: v["spmm_ell"]
                                         for n, v in fused["replayed_interval"].items()},
          **k_spmm, "incidence": incidence, "launches_dist": dist["launches"]["spmm_ell"],
-         "launches_dist_per_step": dist["per_step"], "dist_shard_ops": dist["spmm_ell"]},
+         "launches_dist_per_step": dist["per_step"], "dist_shard_ops": dist["spmm_ell"],
+         "launches_dist_v7r": dist_v7r["launches"]["spmm_ell"],
+         "launches_dist_v7r_per_step": dist_v7r["per_step"]["spmm_ell"]},
         {"name": "sinkhorn_fused", "route": "cuda",
          "source": "tpugraph_torch/csrc/sinkhorn_fused.cu",
          "replaces": "tpugraph/kernels/sinkhorn_pallas.py:38",
          "launches": recipe["sinkhorn_fused"], "launches_train": train["sinkhorn_fused"],
          "launches_v7r": v7r["sinkhorn_fused"], "launches_mtl": mtl["sinkhorn_fused"],
          "launches_bf16_v6": bf16["v6"]["sinkhorn_fused"],
-         "launches_fused_v6": fused["v6_fast"]["sinkhorn_fused"], **k_sink},
+         "launches_fused_v6": fused["v6_fast"]["sinkhorn_fused"], **k_sink,
+         "launches_dist_v7r": dist_v7r["launches"]["sinkhorn_fused"],
+         "launches_dist_v7r_per_step": dist_v7r["per_step"]["sinkhorn_fused"],
+         "dist_ring": {"kernel_at_ring_shape": k_sink_ring, "loss": dist_v7r["ring_ot"]}},
         {"name": "shortlist_dist", "route": "cuda",
          "source": "tpugraph_torch/csrc/shortlist_dist.cu",
          "replaces": "tpugraph/train/negatives.py:260",

@@ -1,25 +1,33 @@
 """Where one training step of config ``dwy100k_dist`` parts between the
 port's paths, on an NVIDIA GPU.
 
-    python3 scripts/dist_step_probe.py
+    python3 scripts/dist_step_probe.py [--recipe v7r]
 
 From the repository root: the full-width task of ``chip_smoke.py``'s dist
 phase and one batch of injected uniform negatives, through four paths on
 the same parameters: the single-device step (``driver.step_parts``) with
 its kernels and with its plain versions (``chip_smoke._plain_kernels``),
 and the distributed step (8 shards on an NCCL group of one rank) in ell
-and in sorted.  For each pair it prints, as one JSON object: the loss's
-relative difference; each gradient's relative L2 difference (``gc2.b``,
-0 by construction, left out); the largest relative difference of the
-layer-1 pre-activations and of the output table; the layer-1 units whose
-ReLU takes the other side; and the L1 margin terms (a pair's row against
-a right negative's, per component) whose sign differs.  A gradient's
-relative L2 difference grows as the square root of the flipped units and
-terms, so a few flips among 25.6 million units move it by ≈ 1e-3.
+and in sorted.  With ``--recipe v7r``, ``chip_smoke.py::phase_dist_v7r``'s
+configuration (dim 256, k_neg 100, the ring OT on 4,096 pairs, the
+attribute head) and its injected batch (``mp_worker.surface_batch``:
+proposals at their weights, uniform negatives over seeds and proposals,
+the interval's draws), through the single-device paths and the
+distributed step in ell.  For each pair of paths it prints, as one JSON
+object: the loss's relative difference; each gradient's relative L2
+difference (``gc2.b``, 0 by construction, left out); the largest relative
+difference of the layer-1 pre-activations and of the output table; the
+layer-1 units whose ReLU takes the other side; the L1 margin terms (a
+pair's row against a negative's, per component, both sides, over the
+margin pairs of weight > 0) whose sign differs; and the hinge terms
+(pair, negative) that are active on one path only.  A gradient's relative
+L2 difference grows as the square root of the flipped units and terms, so
+a few flips among 25.6 million units move it by ≈ 1e-3.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import os
@@ -28,26 +36,63 @@ import sys
 
 import torch
 
+BLOCK = 1024  # margin rows per comparison block: (1,024, k, d) fp32 each
 
-def main() -> int:
+
+def _margin_flips(ta, tb, pairs, neg_l, neg_r, gamma: float) -> tuple[int, int]:
+    """(component sign flips of e_l − e_neg_r and e_neg_l − e_r, hinge
+    activity flips) between the tables ``ta`` and ``tb``."""
+    signs = hinges = 0
+    for a in range(0, pairs.shape[0], BLOCK):
+        p, nl, nr = pairs[a:a + BLOCK], neg_l[a:a + BLOCK], neg_r[a:a + BLOCK]
+        active = []
+        for t in (ta, tb):
+            dr = t[p[:, 0], None, :] - t[nr]
+            dl = t[nl] - t[p[:, 1], None, :]
+            d_pos = (t[p[:, 0]] - t[p[:, 1]]).abs().sum(-1, keepdim=True)
+            active.append((torch.sign(dr), torch.sign(dl),
+                           d_pos + gamma - dr.abs().sum(-1) > 0,
+                           d_pos + gamma - dl.abs().sum(-1) > 0))
+        (sra, sla, hra, hla), (srb, slb, hrb, hlb) = active
+        signs += int((sra != srb).sum()) + int((sla != slb).sum())
+        hinges += int((hra != hrb).sum()) + int((hla != hlb).sum())
+    return signs, hinges
+
+
+def main(argv=None) -> int:
+    args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    args.add_argument("--recipe", choices=["v7r"], default=None)
+    args = args.parse_args(argv)
     sys.path.insert(0, os.getcwd())
     g = runpy.run_path("chip_smoke.py", run_name="not_main")["main"].__globals__
     smi = g["phase_device"]()
     dev = torch.device("cuda")
-    cfg = g["get_config"]("dwy100k_dist", **g["DIST_CUTS"])
-    task = g["load_task"](cfg)
+    if args.recipe:
+        cfg = g["get_config"]("dwy100k_dist", **g["RECIPES"][args.recipe]).replace(
+            sinkhorn_pairs=g["DIST_V7R_OT_PAIRS"], **g["DIST_V7R_CUTS"])
+        task = g["load_task"](cfg)
+        batch = g["mp_worker"].surface_batch(cfg, task, device=dev)
+        impls = ("ell",)
+    else:
+        cfg = g["get_config"]("dwy100k_dist", **g["DIST_CUTS"])
+        task = g["load_task"](cfg)
+        pairs = torch.as_tensor(task.train_pairs, dtype=torch.int64, device=dev)
+        neg_l, neg_r = g["sample_uniform_negatives"](torch.Generator().manual_seed(1), pairs,
+                                                     task.kg1.n_ent, task.n_ent, cfg.k_neg)
+        batch = {"pairs": pairs, "neg_l": neg_l, "neg_r": neg_r}
+        impls = ("ell", "sorted")
     n = task.n_ent
-    pairs = torch.as_tensor(task.train_pairs, dtype=torch.int64, device=dev)
-    neg_l, neg_r = g["sample_uniform_negatives"](torch.Generator().manual_seed(1), pairs,
-                                                 task.kg1.n_ent, n, cfg.k_neg)
-    batch = {"pairs": pairs, "neg_l": neg_l, "neg_r": neg_r}
+    m_pairs = batch.get("pairs_aug", batch["pairs"])
+    live = batch["w"] > 0 if "w" in batch else slice(None)  # the margin rows that count
+    margin = (m_pairs[live], batch["neg_l"][live], batch["neg_r"][live])
     paths = {}  # name -> (loss, grads, layer-1 pre-activations, output table)
 
     def grads_of(model):
-        return {k: p.grad.detach().clone()[:n] if k == "emb" else p.grad.detach().clone()
-                for k, p in model.named_parameters()}
+        return {k.removeprefix("encoder."): p.grad.detach().clone()[:n] if k.endswith("emb")
+                else p.grad.detach().clone() for k, p in model.named_parameters()}
 
     single = g["step_parts"](cfg.replace(n_shards=1), task, dev)
+    enc = getattr(single.model, "encoder", single.model)
     for name, ctx in (("single_kernels", contextlib.nullcontext),
                       ("single_plain", g["_plain_kernels"])):
         with ctx():
@@ -55,11 +100,11 @@ def main() -> int:
             loss = single.loss_fn(batch, None)[0]
             loss.backward()
             with torch.no_grad():
-                z1 = single.model.gc1(single.model.emb, single.op)
-                table = single.model(single.op)
+                z1 = enc.gc1(enc.emb, single.op)
+                table = enc(single.op)
         paths[name] = (loss.item(), grads_of(single.model), z1, table)
     with g["make_mesh"](cfg.n_shards, dev) as mesh:
-        for impl in ("ell", "sorted"):
+        for impl in impls:
             parts = g["dist_parts"](cfg.replace(spmm_impl=impl), task, mesh)
             loss = parts.grads(batch)
             with torch.no_grad():
@@ -73,8 +118,7 @@ def main() -> int:
     for i, a in enumerate(names):
         for b in names[i + 1:]:
             (la, ga, za, ta), (lb, gb, zb, tb) = paths[a], paths[b]
-            sa = torch.sign(ta[pairs[:, 0], None, :] - ta[neg_r])
-            sb = torch.sign(tb[pairs[:, 0], None, :] - tb[neg_r])
+            signs, hinges = _margin_flips(ta, tb, *margin, cfg.gamma)
             out[f"{a} ~ {b}"] = {
                 "loss_rel": abs(la - lb) / abs(lb),
                 "grad_rel_l2": {k: float((ga[k] - gb[k]).norm() / gb[k].norm())
@@ -82,12 +126,14 @@ def main() -> int:
                 "layer1_max_rel": float((za - zb).abs().max() / zb.abs().max()),
                 "table_max_rel": float((ta - tb).abs().max() / tb.abs().max()),
                 "relu1_flips": int(((za > 0) != (zb > 0)).sum()),
-                "margin_sign_flips": int((sa != sb).sum())}
+                "margin_sign_flips": signs, "hinge_flips": hinges}
     z_plain = paths["single_plain"][2]
-    print(json.dumps({"card": smi, "layer1_units": int(z_plain.numel()),
-                      "layer1_active": int((z_plain > 0).sum()),
-                      "margin_terms": int(pairs.shape[0] * cfg.k_neg * cfg.dim),
-                      "pairs": out}))
+    rows = margin[0].shape[0]
+    print(json.dumps({"card": smi, "recipe": args.recipe, "dim": cfg.dim, "k_neg": cfg.k_neg,
+                      "layer1_units": int(z_plain.numel()),
+                      "layer1_active": int((z_plain > 0).sum()), "margin_rows": rows,
+                      "margin_terms": int(2 * rows * cfg.k_neg * cfg.dim),
+                      "hinge_terms": int(2 * rows * cfg.k_neg), "pairs": out}))
     return 0
 
 

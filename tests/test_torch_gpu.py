@@ -4,7 +4,9 @@ and gathered distances) against their plain versions, and training on
 the card: the attribute incidence's SpMM, a GCN layer on config highway's
 operator, steps of recipes v6 and v7r, bf16 and sorted steps, captured
 steps, ``debug_nans`` on a captured interval, and the approximate search
-paths against the same calls on the host.
+paths against the same calls on the host; the distributed trainer's
+shard operators and steps (margin, and recipe v7r's surface with the ring
+OT), and its ring stages.
 
 Marked ``gpu``; each test skips without a CUDA device.  This file imports
 neither JAX nor the JAX package, so on a machine with a card (and no JAX)
@@ -46,7 +48,9 @@ from tpugraph_torch.train.losses import margin_align_loss
 from tpugraph_torch.train.negatives import _hubness_both_approx, sample_hard_negatives
 from tpugraph_torch.train.optim import make_optimizer
 from tpugraph_torch.train.ot import sinkhorn_align_loss, sinkhorn_align_loss_plain
+from tpugraph_torch.dist import mp_worker
 from tpugraph_torch.dist.mesh import make_mesh
+from tpugraph_torch.dist.ring import ring_hits_at_k, ring_knn, ring_sinkhorn_align_loss
 from tpugraph_torch.dist.trainer import dist_parts
 from tpugraph_torch.sparse.build import coo_from_triples, coo_normalize
 from tpugraph_torch.sparse.halo_ell import build_halo_ell, shard_edge_operators
@@ -1195,3 +1199,78 @@ def test_distributed_step_on_the_card_matches_the_host(cuda, impl):
             assert float(got.abs().max()) < 1e-5 * scale
         else:
             assert float((got - g).norm() / g.norm()) < 1e-4, k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s, d", [(4096, 256), (4096, 128), (1000, 256), (9, 256)])
+def test_ring_ot_on_card_matches_plain(cuda, s, d):
+    """The ring OT (one NCCL rank holding 8 shards: one ``sinkhorn_fused``
+    launch per update on the chunk's real rows, 41 per loss) against its
+    plain version on the card, at the configs' widths (128:
+    ``dwy100k_dist``, 256: recipes v6–v7r), v7r's τ 0.3; 9 pairs leave shards
+    without a real row.  Loss rel 1e-4, gradient relative L2 1e-3 (PERF.md
+    §2's step limits)."""
+    rng = np.random.default_rng(s + d)
+    table = torch.from_numpy(rng.standard_normal((2 * s, d)).astype(np.float32)).to(cuda)
+    pairs = torch.stack([torch.arange(s), s + torch.randperm(s)], 1).to(cuda)
+    x = table.clone().requires_grad_()
+    with make_mesh(8, cuda) as mesh:
+        before = sinkhorn_fused.launches
+        loss = ring_sinkhorn_align_loss(x, pairs, mesh, tau=0.3, n_iters=20)
+        assert sinkhorn_fused.launches == before + 41
+        loss.backward()
+    y = table.clone().requires_grad_()
+    want = sinkhorn_align_loss_plain(y, pairs, tau=0.3, n_iters=20)
+    want.backward()
+    assert torch.isfinite(x.grad).all()
+    assert loss.item() == pytest.approx(want.item(), rel=1e-4)
+    assert float((x.grad - y.grad).norm() / y.grad.norm()) < 1e-3
+
+
+@pytest.mark.gpu
+def test_ring_csls_stages_on_card_match_the_host(cuda):
+    """CSLS ring mining and eval on the card (one rank, 8 shards) against
+    the same calls on the host: the same id sets on ≥ 99 % of rows, Hits@k
+    and MRR within 2e-3 (the L1 sums run in another order on the card, and a
+    near tie may flip one of the 900 ranks: PERF.md §2)."""
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(rng.standard_normal((700, 64)).astype(np.float32))
+    c = torch.from_numpy(rng.standard_normal((2000, 64)).astype(np.float32))
+    ex = torch.from_numpy(rng.integers(0, 2000, 700))
+    emb = torch.from_numpy(rng.standard_normal((3000, 64)).astype(np.float32))
+    pairs = np.stack([rng.choice(1500, 900, replace=False),
+                      1500 + rng.choice(1500, 900, replace=False)], 1)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        with make_mesh(8, dev) as mesh:
+            out[dev.type] = (ring_knn(q.to(dev), c.to(dev), ex.to(dev), 10, mesh, csls_k=10).cpu(),
+                             ring_hits_at_k(emb.to(dev), pairs, mesh, csls_k=10))
+    same = (out["cuda"][0].sort(1).values == out["cpu"][0].sort(1).values).all(1)
+    assert float(same.float().mean()) >= 0.99  # a near-tie may flip (PERF.md §2)
+    for k, v in out["cpu"][1].items():
+        assert out["cuda"][1][k] == pytest.approx(v, abs=2e-3), k
+
+
+@pytest.mark.gpu
+def test_distributed_v7r_step_on_the_card_matches_the_host(cuda):
+    """One step of recipe v7r's surface (the margin with proposals at their
+    weights, the ring OT on a subsample through ``sinkhorn_fused``, the
+    relation and attribute heads) on 4 shards, on the card against the
+    host: loss rel 1e-4, each gradient relative L2 1e-4."""
+    task, _ = _shard_graph()
+    cfg = get_config("dwy100k_dist", **RECIPES["v7r"]).replace(
+        n_shards=4, dim=128, k_neg=10, boot_cap=200, sinkhorn_pairs=512, use_rel_head=True)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        batch = mp_worker.surface_batch(cfg, task, device=dev)
+        with make_mesh(4, dev) as mesh:
+            parts = dist_parts(cfg, task, mesh)
+            before = (spmm_ell.launches, sinkhorn_fused.launches)
+            loss = parts.grads(batch)
+            launched = (spmm_ell.launches - before[0], sinkhorn_fused.launches - before[1])
+            out[dev.type] = (loss.item(), {k: p.grad.cpu() for k, p in
+                                           parts.model.named_parameters()}, launched)
+    assert out["cuda"][2] == (32, 41)
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-4)
+    for k, g in out["cpu"][1].items():
+        assert float((out["cuda"][1][k] - g).norm() / g.norm()) < 1e-4, k

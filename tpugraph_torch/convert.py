@@ -4,7 +4,8 @@
 ``AlignMTL`` (the encoder's tree under "encoder", the heads' and the AE
 channel's beside it), or of the distributed trainer (``AlignGCN``'s
 leaves, its ``emb`` the padded (n_pad, dim) table, which
-``dist/trainer.py::DistEncoder.load_full`` cuts into each rank's rows), as
+``dist/trainer.py::DistEncoder.load_full`` cuts into each rank's rows,
+and the heads' ``rel`` and ``attr_out`` beside them), as
 nested dicts of numpy arrays (the caller runs
 ``jax.tree_util.tree_map(np.asarray, params)``) and returns the port's
 parameters: the matching state dict, with the same leaves and layouts.  A
@@ -40,7 +41,8 @@ def _leaves(tree: dict, layers: dict[str, str], top: tuple[str, ...] = ()) -> di
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
-    """{"emb", "gc1", "gc2"[, "hw1", "hw2"]} -> {"emb", "gc1.w", ...};
+    """{"emb", "gc1", "gc2"[, "hw1", "hw2"][, "rel"][, "attr_out"]} ->
+    {"emb", "gc1.w", ..., "rel_head.rel", "attr_head.w", "attr_head.b"};
     {"encoder", ["rel_head"], ["attr_head"], ["ae_encoder"]} ->
     {"encoder.emb", ..., "rel_head.rel", "attr_head.w", "attr_head.b",
     "ae_encoder.attr_emb", "ae_encoder.gc1.w", ...}."""
@@ -63,7 +65,10 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
                                               "GraphConvolution_1": "gc2"}, ("attr_emb",))
             out.update({f"{AE_PREFIX}{k}": v for k, v in ae.items()})
     else:
-        out = _leaves(tree, {"gc1": "gc1", "gc2": "gc2", "hw1": "hw1", "hw2": "hw2"}, ("emb",))
+        out = _leaves(tree, {"gc1": "gc1", "gc2": "gc2", "hw1": "hw1", "hw2": "hw2",
+                             "attr_out": "attr_head"}, ("emb", "rel"))
+        if "rel" in out:
+            out["rel_head.rel"] = out.pop("rel")
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
 
 

@@ -11,12 +11,15 @@ killed) and returns the ranks' results in rank order.  The children import
 the port only, never JAX.
 
 Mode ``check`` runs, one after the other, the halo SpMM forward and
-gradient in both impls (``halo_mode``), ring mining and eval
-(``ring_mode``) and ``fit_distributed`` (``fit_mode``).  The JAX worker's
-rehearsal modes
-(checkpoint save and resume, the production surface with CSLS, boot, the
-ring OT and tensor parallelism, and the attribute-channel and slice legs)
-exercise parts the port refuses: they raise ``NotImplementedError``.
+gradient in both impls (``halo_mode``), ring mining and eval, raw and
+CSLS, and the ring OT's potentials, loss and gradient (``ring_mode``),
+``fit_distributed`` (``fit_mode``), and with a config of recipe v7r's
+surface (bootstrapping, the OT head on a subsample, the relation and
+attribute heads, CSLS) one step on an injected batch (``surface_batch``)
+and a run (``surface_mode``).  The JAX worker's rehearsal modes
+(checkpoint save and resume, the production surface with tensor
+parallelism, and the attribute-channel and slice legs) exercise parts the
+port refuses: they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -70,11 +73,24 @@ def halo_mode(n_shards: int, d: int = 8, seed: int = 1) -> dict:
     return out
 
 
+def ot_pairs_of(s: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A (120, 8) table and s pairs of it for the ring OT's checks."""
+    rng = np.random.default_rng(seed)
+    emb = torch.from_numpy(rng.standard_normal((120, 8)).astype(np.float32))
+    pairs = np.stack([rng.choice(60, s, replace=False), 60 + rng.choice(60, s, replace=False)], 1)
+    return emb, torch.from_numpy(pairs)
+
+
+OT_SIZES = (37, 9, 2)  # 2 pairs on 4 shards leave rank 1 of 2 without a real row
+
+
 def ring_mode(n_shards: int, seed: int = 3) -> dict:
-    """Ring mining (both metrics, a pool smaller than k included) and ring
-    eval on random tables."""
+    """Ring mining (both metrics, a pool smaller than k included, CSLS) and
+    ring eval (raw and CSLS) on random tables; the ring OT's potentials and
+    loss with its gradient for each of ``OT_SIZES`` pairs."""
     from tpugraph_torch.dist.mesh import make_mesh
-    from tpugraph_torch.dist.ring import ring_hits_at_k, ring_knn
+    from tpugraph_torch.dist.ring import (ring_hits_at_k, ring_knn, ring_sinkhorn_align_loss,
+                                          ring_sinkhorn_potentials)
 
     rng = np.random.default_rng(seed)
     q = torch.from_numpy(rng.standard_normal((37, 8)).astype(np.float32))
@@ -84,10 +100,21 @@ def ring_mode(n_shards: int, seed: int = 3) -> dict:
     pairs = np.stack([rng.choice(150, 83, replace=False),
                       150 + rng.choice(150, 83, replace=False)], axis=1)
     with make_mesh(n_shards, torch.device("cpu")) as mesh:
-        return {"cityblock": ring_knn(q, c, ex, 5, mesh),
-                "sqeuclidean": ring_knn(q, c, ex, 5, mesh, metric="sqeuclidean"),
-                "tiny_pool": ring_knn(q, c[:3], ex % 3, 5, mesh),
-                "hits": ring_hits_at_k(emb, pairs, mesh)}
+        out = {"cityblock": ring_knn(q, c, ex, 5, mesh),
+               "sqeuclidean": ring_knn(q, c, ex, 5, mesh, metric="sqeuclidean"),
+               "tiny_pool": ring_knn(q, c[:3], ex % 3, 5, mesh),
+               "csls": ring_knn(q, c, ex, 5, mesh, csls_k=7),
+               "hits": ring_hits_at_k(emb, pairs, mesh),
+               "hits_csls": ring_hits_at_k(emb, pairs, mesh, csls_k=10)}
+        for s in OT_SIZES:
+            table, ot_pairs = ot_pairs_of(s, seed)
+            x = table.clone().requires_grad_()
+            loss = ring_sinkhorn_align_loss(x, ot_pairs, mesh, tau=0.1, n_iters=12)
+            loss.backward()
+            pots = ring_sinkhorn_potentials(table[ot_pairs[:, 0]], table[ot_pairs[:, 1]], mesh,
+                                            tau=0.1, n_iters=25)
+            out[f"ot_{s}"] = (loss.detach(), x.grad, *pots)
+        return out
 
 
 def fit_mode(cfg, task_kw: dict) -> dict:
@@ -99,10 +126,57 @@ def fit_mode(cfg, task_kw: dict) -> dict:
             "params": res.params}
 
 
-def check_mode(n_shards: int, cfg, task_kw: dict) -> dict:
-    """The halo SpMM, the ring stages and ``fit_distributed`` in one spawn."""
-    return {"halo": halo_mode(n_shards), "ring": ring_mode(n_shards),
-            "fit": fit_mode(cfg, task_kw)}
+def surface_batch(cfg, task, seed: int = 5, device: str | torch.device = "cpu") -> dict:
+    """An injected interval batch of ``cfg``'s surface, the same for every
+    rank: the seed pairs and ``boot_cap`` proposals of distinct eligible
+    entities (two thirds of weight 1, the rest weight-0 placeholders),
+    uniform negatives over both, and ``train/mtl.py::draw_interval``'s
+    draws."""
+    from tpugraph_torch.train.loop import IntervalBatch
+    from tpugraph_torch.train.mtl import draw_interval
+
+    make = IntervalBatch(cfg, task, torch.device(device))
+    gen = torch.Generator().manual_seed(seed)
+    left = make.mask1.nonzero()[:, 0].cpu()
+    right = make.mask2.nonzero()[:, 0].cpu() + task.kg1.n_ent
+    cap = cfg.boot_cap
+    live = 2 * min(cap, len(left), len(right)) // 3
+    boot = make.placeholder[0].cpu().clone()
+    boot[:live, 0] = left[torch.randperm(len(left), generator=gen)[:live]]
+    boot[:live, 1] = right[torch.randperm(len(right), generator=gen)[:live]]
+    w = (torch.arange(cap) < live).float()
+    batch = make((boot.to(make.pairs.device), w.to(make.pairs.device)))
+    make.uniform(batch, 0)
+    attr = torch.as_tensor(task.merged_attr_triples, dtype=torch.int64, device=make.pairs.device)
+    batch.update(draw_interval(cfg, 0, make.pairs, task.n_ent, len(task.merged_triples), attr))
+    return batch
+
+
+def surface_mode(n_shards: int, cfg, task_kw: dict) -> dict:
+    """One step of ``cfg`` on ``surface_batch`` (its loss, terms and the
+    rank's gradients: the table's own rows, the rest whole) and a run of
+    ``cfg`` (``fit_mode``)."""
+    from tpugraph_torch.data import synthetic_align_task
+    from tpugraph_torch.dist.mesh import make_mesh
+    from tpugraph_torch.dist.trainer import dist_parts
+
+    task = synthetic_align_task(**task_kw)
+    with make_mesh(n_shards, torch.device("cpu")) as mesh:
+        parts = dist_parts(cfg.replace(n_shards=n_shards), task, mesh)
+        loss = parts.grads(surface_batch(cfg, task))
+        step = {"loss": loss, "aux": parts.aux,
+                "grads": {k: p.grad for k, p in parts.model.named_parameters()}}
+    return {"step": step, "fit": fit_mode(cfg.replace(n_shards=n_shards), task_kw)}
+
+
+def check_mode(n_shards: int, cfg, task_kw: dict, surface_cfg=None) -> dict:
+    """The halo SpMM, the ring stages, ``fit_distributed`` and, given
+    ``surface_cfg``, ``surface_mode`` in one spawn."""
+    out = {"halo": halo_mode(n_shards), "ring": ring_mode(n_shards),
+           "fit": fit_mode(cfg, task_kw)}
+    if surface_cfg is not None:
+        out["surface"] = surface_mode(n_shards, surface_cfg, task_kw)
+    return out
 
 
 MODES = {"check": check_mode}

@@ -12,27 +12,43 @@ margin loss, and the gradients of the replicated weights (the layers', the
 gates') are summed over the ranks before Adam (``train/optim.py``).  A
 reduce-scatter there would count the embedding gradient R times.
 
-Negatives: uniform at epoch 0 from ``loop.interval_generator`` (seed, the
-interval's first epoch), then hard ones mined by ``dist/ring.py::ring_knn``
-at each ``neg_every`` boundary; the evals are ``ring_hits_at_k``, exact.
-Draws and initialisation are the same on every rank and for every R and S:
-the parameters are ``models/encoder.py::init_params``'s for the n real
-rows (the single-device trainer's), the padding rows 0, so a run starts
-where ``train/loop.py::fit`` starts.
+The loss is ``AlignMTL``'s on the gathered table
+(``models/align.py::table_losses``): the margin over the seed pairs and,
+with ``boot_cap > 0``, the proposals at their weights; the OT head on the
+interval's ``ot_pairs`` (the ring loss
+``dist/ring.py::ring_sinkhorn_align_loss``, for every S: the JAX trainer
+takes the single-device loss at S = 1, which the ring equals there within
+rounding); the relation and attribute heads
+(``models/heads.py``, parameters ``rel_head.*`` and ``attr_head.*``,
+replicated: every rank holds their whole gradient, so they are not summed).
+
+The interval batch is ``train/loop.py::train_loop``'s
+(``loop.IntervalBatch.at_boundary``): at each ``neg_every`` boundary, from
+``boot_start`` on, the mutual-NN proposals of
+``train/bootstrap.py::propose_mutual_nn_pairs`` on the gathered table;
+then negatives over the seed pairs and proposals, uniform at epoch 0 from
+``loop.interval_generator`` (seed, the interval's first epoch), then hard
+ones mined by ``dist/ring.py::ring_knn`` (CSLS with ``neg_csls_k``); then
+``train/mtl.py::draw_interval``'s draws (the OT subsample, the relation
+corruptions, the attribute batch).  The evals are ``ring_hits_at_k``
+(CSLS with ``eval_csls_k``), exact.  Draws and initialisation are the same
+on every rank and for every R and S: the parameters are
+``models/align.py::init_mtl_params``'s for the n real rows (the
+single-device trainer's), the padding rows 0, so a run starts where
+``train/mtl.py::fit_mtl`` (or ``train/loop.py::fit``) starts.
 
 Refused, with ``NotImplementedError`` naming ROADMAP.md, where they are
-queued (``check_distributed``): tensor parallelism, slices, the grouped
-exchange, checkpoints, the OT head, the relation and attribute heads and
-channel, bootstrapping, ring CSLS and approximate stages, bf16, dropout
-and ``l2_normalize``, the fused interval and ``profile_dir``.
+queued (``check_distributed``): checkpoints, the attribute channel, the
+approximate ring stages, bf16, dropout and ``l2_normalize``, the fused
+interval, ``profile_dir``, tensor parallelism, slices and the grouped
+exchange.
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
-import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
@@ -41,36 +57,33 @@ from tpugraph_torch import resolve_device
 from tpugraph_torch.configs.configs import TrainConfig
 from tpugraph_torch.dist.halo import HaloOperator, halo_spmm, halo_spmm_ell
 from tpugraph_torch.dist.mesh import ShardMesh, make_mesh, shard_operator
-from tpugraph_torch.dist.ring import ring_hits_at_k, ring_knn
+from tpugraph_torch.dist.ring import ring_hits_at_k, ring_knn, ring_sinkhorn_align_loss
+from tpugraph_torch.models.align import table_losses
 from tpugraph_torch.models.encoder import init_params as single_device_init
+from tpugraph_torch.models.heads import AttributeHead, RelationHead, init_head_params
 from tpugraph_torch.nn.graphconv import operator_format
 from tpugraph_torch.nn.highway import Highway
 from tpugraph_torch.sparse.build import coo_from_triples, coo_normalize
 from tpugraph_torch.sparse.graph import AlignTask
 from tpugraph_torch.sparse.partition import HaloGraph, partition_edges
-from tpugraph_torch.train.loop import TrainResult, check_schedule, interval_generator, load_task
-from tpugraph_torch.train.losses import margin_align_loss
+from tpugraph_torch.train.loop import IntervalBatch, TrainResult, check_schedule, load_task
 from tpugraph_torch.train.metrics import MetricsLogger, epoch_edge_ops
-from tpugraph_torch.train.mtl import check_ot_size
-from tpugraph_torch.train.negatives import sample_uniform_negatives
+from tpugraph_torch.train.mtl import attr_triples_of, check_ot_size, draw_interval, interval_keys
 from tpugraph_torch.train.optim import make_optimizer
 
 # what the port's distributed trainer does not do yet, in ROADMAP.md's order
 UNPORTED = (
-    ("feature_shards > 1 (tensor parallelism)", lambda c: c.feature_shards > 1),
-    ("slice_shards > 1", lambda c: c.slice_shards > 1),
-    ("halo_grouped", lambda c: c.halo_grouped),
     ("checkpoint and resume (checkpoint_dir)", lambda c: bool(c.checkpoint_dir)),
-    ("use_sinkhorn (the ring OT)", lambda c: c.use_sinkhorn),
-    ("the relation and attribute heads", lambda c: c.use_rel_head or c.use_attr_head),
     ("the attribute channel", lambda c: c.use_attr_channel),
-    ("boot_cap > 0", lambda c: c.boot_cap > 0),
-    ("ring CSLS and approximate stages (neg_csls_k, eval_csls_k, neg_approx, eval_approx_k)",
-     lambda c: c.neg_csls_k > 0 or c.eval_csls_k > 0 or c.neg_approx or c.eval_approx_k > 0),
+    ("the approximate ring stages (neg_approx, eval_approx_k)",
+     lambda c: c.neg_approx or c.eval_approx_k > 0),
     ("bf16, dropout and l2_normalize in the distributed encoder",
      lambda c: c.param_dtype != "float32" or c.dropout > 0 or c.l2_normalize),
     ("steps_per_call > 1", lambda c: c.steps_per_call > 1),
     ("profile_dir", lambda c: bool(c.profile_dir)),
+    ("feature_shards > 1 (tensor parallelism)", lambda c: c.feature_shards > 1),
+    ("slice_shards > 1", lambda c: c.slice_shards > 1),
+    ("halo_grouped", lambda c: c.halo_grouped),
 )
 
 
@@ -105,12 +118,17 @@ def check_distributed(cfg: TrainConfig, task: AlignTask) -> None:
 
 
 def init_params(n_rows: int, n_pad: int, dim: int, hidden: int | None = None,
-                seed: int = 0, highway: bool = False) -> dict[str, torch.Tensor]:
+                seed: int = 0, highway: bool = False, n_rel: int = 0,
+                n_attr: int = 0) -> dict[str, torch.Tensor]:
     """The whole parameter set, the same on every rank for every R and S:
     ``models/encoder.py::init_params`` for the n real rows, the table's
-    padding rows (n_pad − n) zero."""
+    padding rows (n_pad − n) zero; ``n_rel`` > 0 adds the relation head's
+    ``rel_head.rel``, ``n_attr`` > 0 the attribute head's ``attr_head.w``
+    and ``attr_head.b`` (``models/heads.py::init_head_params``, as
+    ``init_mtl_params`` draws them)."""
     p = single_device_init(n_rows, dim, hidden, seed=seed, highway=highway)
     p["emb"] = torch.cat([p["emb"], p["emb"].new_zeros((n_pad - n_rows, dim))])
+    p.update(init_head_params(dim, n_rel, n_attr, seed=seed))
     return p
 
 
@@ -149,13 +167,19 @@ class HaloConv(nn.Module):
         return spmm(x @ self.w, op) + self.b
 
 
+# the parameters of the heads, whose gradient every rank holds whole
+HEADS = ("rel_head.", "attr_head.")
+
+
 class DistEncoder(nn.Module):
     """``AlignGCN`` (fp32, no dropout) over the rank's shards.  Parameters
     ``emb`` (the rank's per_rank·n_loc rows), ``gc1``, ``gc2`` and with
-    highway gates ``hw1``, ``hw2``: the names of ``AlignGCN``'s."""
+    highway gates ``hw1``, ``hw2``: the names of ``AlignGCN``'s; with
+    ``n_rel`` or ``n_attr`` the heads ``rel_head`` and ``attr_head``
+    (``AlignMTL``'s names), which read the gathered table."""
 
     def __init__(self, op: HaloOperator, dim: int = 128, hidden: int | None = None,
-                 highway: bool = False, device=None):
+                 highway: bool = False, device=None, n_rel: int = 0, n_attr: int = 0):
         super().__init__()
         hidden = hidden or dim
         self.op = op
@@ -164,6 +188,8 @@ class DistEncoder(nn.Module):
         self.gc2 = HaloConv(hidden, dim, device=device)
         self.hw1 = Highway(dim, device=device) if highway else None
         self.hw2 = Highway(dim, device=device) if highway else None
+        self.rel_head = RelationHead(n_rel, dim, device) if n_rel else None
+        self.attr_head = AttributeHead(dim, n_attr, device) if n_attr else None
 
     @property
     def first_row(self) -> int:
@@ -204,6 +230,8 @@ class DistParts:
     op: HaloOperator
     hg: HaloGraph
     cfg: TrainConfig
+    rel_triples: torch.Tensor | None = None  # the relation head's constant (T, 3)
+    aux: dict = field(default_factory=dict)  # the last step's loss terms
 
     def table(self) -> torch.Tensor:
         """The whole (n_pad, dim) encoder output, with its gradient."""
@@ -214,17 +242,27 @@ class DistParts:
         with torch.no_grad():
             return self.table()
 
-    def loss(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
-        return margin_align_loss(self.table(), batch["pairs"], batch["neg_l"],
-                                 batch["neg_r"], self.cfg.gamma)
+    def loss(self, batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, dict]:
+        """(loss, its terms): ``models/align.py::table_losses`` of ``batch``
+        (``AlignMTL.forward``'s keys) on the table, with the ring OT."""
+        mesh = self.op.mesh
+
+        def ot(emb, pairs, **kw):
+            return ring_sinkhorn_align_loss(emb, pairs, mesh, **kw)
+
+        return table_losses(self.cfg, self.table(), {**batch, "rel_triples": self.rel_triples},
+                            self.model.rel_head, self.model.attr_head, ot)
 
     def grads(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
-        """One step's loss and gradients: the replicated weights' summed
-        over the ranks, the table's the rank's own rows."""
+        """One step's loss (its terms in ``aux``) and gradients: the
+        encoder's replicated weights' summed over the ranks, the table's the
+        rank's own rows, the heads' whole on every rank."""
         self.model.zero_grad(set_to_none=True)
-        loss = self.loss(batch)
+        loss, aux = self.loss(batch)
         loss.backward()
-        shared = [p for n, p in self.model.named_parameters() if n != "emb"]
+        self.aux = {k: v.detach() for k, v in aux.items()}
+        shared = [p for n, p in self.model.named_parameters()
+                  if n != "emb" and not n.startswith(HEADS)]
         flat = torch.cat([p.grad.reshape(-1) for p in shared])
         dist.all_reduce(flat)
         for p, g in zip(shared, flat.split([p.numel() for p in shared])):
@@ -234,17 +272,21 @@ class DistParts:
 
 def dist_parts(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh) -> DistParts:
     """The adjacency of ``task`` partitioned into ``cfg.n_shards`` shards,
-    the rank's halo operator on its device, and the encoder loaded with
-    ``init_params(seed=cfg.seed)``."""
+    the rank's halo operator on its device, and the encoder with the heads
+    ``cfg`` turns on, loaded with ``init_params(seed=cfg.seed)``."""
     src, dst, w = coo_from_triples(task.n_ent, task.merged_triples, n_rel=task.n_rel,
                                    weighting=cfg.weighting)
     w = coo_normalize(src, dst, w, task.n_ent, norm=cfg.norm)
     hg = partition_edges(src, dst, w, task.n_ent, cfg.n_shards)
     op = shard_operator(hg, mesh, operator_format(cfg.spmm_impl))
-    model = DistEncoder(op, cfg.dim, cfg.hidden, cfg.highway, device=mesh.device)
+    heads = dict(n_rel=task.n_rel if cfg.use_rel_head else 0,
+                 n_attr=max(task.n_attr, 1) if cfg.use_attr_head else 0)
+    model = DistEncoder(op, cfg.dim, cfg.hidden, cfg.highway, device=mesh.device, **heads)
     model.load_full(init_params(task.n_ent, hg.n_loc * hg.n_shards, cfg.dim, cfg.hidden,
-                                seed=cfg.seed, highway=cfg.highway))
-    return DistParts(model=model, op=op, hg=hg, cfg=cfg)
+                                seed=cfg.seed, highway=cfg.highway, **heads))
+    rel = (torch.as_tensor(task.merged_triples, dtype=torch.int64, device=mesh.device)
+           if cfg.use_rel_head else None)
+    return DistParts(model=model, op=op, hg=hg, cfg=cfg, rel_triples=rel)
 
 
 def _sync(dev: torch.device) -> None:
@@ -260,8 +302,9 @@ def fit_distributed(cfg: TrainConfig, task: AlignTask | None = None, verbose: bo
     ``op`` the rank's ``HaloOperator``; ``timings`` the host wall seconds
     of build_s (partition and operators), train_s and step_s (each step's,
     ended by a synchronise), forward_s (the boundaries' encoder forwards),
-    mine_s, eval_s and final_eval_s, with the counts steps, forwards,
-    minings and evals."""
+    propose_s, mine_s, draw_s (the interval's draws), eval_s and
+    final_eval_s, with the counts steps, forwards, proposals, minings,
+    draws and evals."""
     dev = resolve_device(device)
     task = task or load_task(cfg)
     check_distributed(cfg, task)
@@ -271,9 +314,10 @@ def fit_distributed(cfg: TrainConfig, task: AlignTask | None = None, verbose: bo
 
 def _fit(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh, verbose: bool) -> TrainResult:
     dev = mesh.device
-    timings = {"build_s": 0.0, "train_s": 0.0, "step_s": [], "forward_s": 0.0, "mine_s": 0.0,
-               "eval_s": 0.0, "final_eval_s": 0.0, "steps": 0, "forwards": 0, "minings": 0,
-               "evals": 0}
+    timings = {"build_s": 0.0, "train_s": 0.0, "step_s": [], "forward_s": 0.0,
+               "propose_s": 0.0, "mine_s": 0.0, "draw_s": 0.0, "eval_s": 0.0,
+               "final_eval_s": 0.0, "steps": 0, "forwards": 0, "proposals": 0, "minings": 0,
+               "draws": 0, "evals": 0}
 
     def timed(key, count, fn):
         t0 = time.perf_counter()
@@ -289,23 +333,28 @@ def _fit(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh, verbose: bool) -> T
     timings["build_s"] = time.perf_counter() - t0
     hg = parts.hg
     opt, sched = make_optimizer(cfg, parts.model.parameters())
-    pairs = torch.as_tensor(np.asarray(task.train_pairs), dtype=torch.int64, device=dev)
+    make = IntervalBatch(cfg, task, dev)
+    pairs = make.pairs
     n1, n = task.kg1.n_ent, task.n_ent
+    attr = (torch.as_tensor(attr_triples_of(cfg, task), dtype=torch.int64, device=dev)
+            if cfg.use_attr_head else None)
+    draws = bool(interval_keys(cfg, len(pairs)))
     rank0 = mesh.rank == 0  # the one writer of the shared sinks
     logger = MetricsLogger(cfg.metrics_path if rank0 else None, config=cfg.to_dict(),
                            tb_dir=cfg.tb_dir if rank0 else None)
 
-    def mine():
-        emb = timed("forward_s", "forwards", parts.embed)
-        kw = dict(metric=cfg.neg_metric)
-        return timed("mine_s", "minings", lambda: (
-            ring_knn(emb[pairs[:, 1]], emb[:n1], pairs[:, 0], cfg.k_neg, mesh, **kw),
-            ring_knn(emb[pairs[:, 0]], emb[n1:n], pairs[:, 1] - n1, cfg.k_neg, mesh, **kw)
-            + n1))
+    def mine(emb, pairs_t):
+        kw = dict(metric=cfg.neg_metric, csls_k=cfg.neg_csls_k)
+        return (ring_knn(emb[pairs_t[:, 1]], emb[:n1], pairs_t[:, 0], cfg.k_neg, mesh, **kw),
+                ring_knn(emb[pairs_t[:, 0]], emb[n1:n], pairs_t[:, 1] - n1, cfg.k_neg, mesh,
+                         **kw) + n1)
+
+    def draw(epoch0):
+        return draw_interval(cfg, epoch0, pairs, n, len(task.merged_triples), attr)
 
     def evaluate():
         t0 = time.perf_counter()
-        m = ring_hits_at_k(parts.embed(), task.test_pairs, mesh)
+        m = ring_hits_at_k(parts.embed(), task.test_pairs, mesh, csls_k=cfg.eval_csls_k)
         timings["eval_s"] += time.perf_counter() - t0
         timings["evals"] += 1
         return m
@@ -316,13 +365,8 @@ def _fit(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh, verbose: bool) -> T
     try:
         for epoch in range(cfg.epochs):
             if epoch % cfg.neg_every == 0 or batch is None:
-                if cfg.neg_mode == "hard" and epoch > 0:
-                    neg_l, neg_r = mine()
-                else:
-                    neg_l, neg_r = sample_uniform_negatives(
-                        interval_generator(cfg, epoch - epoch % cfg.neg_every), pairs, n1, n,
-                        cfg.k_neg)
-                batch = {"pairs": pairs, "neg_l": neg_l, "neg_r": neg_r}
+                batch, _ = make.at_boundary(epoch, parts.embed, mine, draw if draws else None,
+                                            timed)
             t0 = time.perf_counter()
             loss = parts.grads(batch)
             opt.step()
@@ -340,7 +384,8 @@ def _fit(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh, verbose: bool) -> T
                 rec = {"epoch": epoch, "loss": loss.item(), "wall_s": round(wall, 3),
                        # unrounded, so the two rates compare exactly (ROADMAP.md Queue C 2)
                        "edges_per_s": eps, "edges_per_s_chip": eps / mesh.world,
-                       "loss_margin": loss.item(), **{k: round(v, 4) for k, v in m.items()}}
+                       **{f"loss_{k}": v.item() for k, v in parts.aux.items()},
+                       **{k: round(v, 4) for k, v in m.items()}}
                 history.append(rec)
                 logger.log(rec)
                 if verbose and rank0:

@@ -68,32 +68,40 @@ class AlignMTL(nn.Module):
         ["rel"], ["attr"], ["ae"], "total"})."""
         c = self.cfg
         emb = self.encoder(op, train=train, generator=generator)
-        m_pairs = batch.get("pairs_aug", batch["pairs"])
-        loss = margin_align_loss(emb, m_pairs, batch["neg_l"], batch["neg_r"], c.gamma,
-                                 batch.get("w"))
-        aux = {"margin": loss}
-        if c.use_sinkhorn:
-            l_ot = sinkhorn_align_loss(emb, batch.get("ot_pairs", batch["pairs"]),
-                                       tau=c.sinkhorn_tau, n_iters=c.sinkhorn_iters)
-            aux["sinkhorn"] = l_ot
-            loss = loss + c.sinkhorn_weight * l_ot
-        if self.rel_head is not None:
-            l_rel = self.rel_head(emb, batch["rel_triples"], batch["rel_neg_t"],
-                                  batch["rel_neg_h"])
-            aux["rel"] = l_rel
-            loss = loss + c.rel_weight * l_rel
-        if self.attr_head is not None:
-            l_attr = self.attr_head(emb, batch["attr_triples"])
-            aux["attr"] = l_attr
-            loss = loss + c.attr_weight * l_attr
+        loss, aux = table_losses(c, emb, batch, self.rel_head, self.attr_head)
         if self.ae_encoder is not None and attr_op is not None:
             ae = self.ae_encoder(op, attr_op)
-            l_ae = margin_align_loss(ae, m_pairs, batch["neg_l"], batch["neg_r"], c.gamma,
-                                     batch.get("w"))
+            l_ae = margin_align_loss(ae, batch.get("pairs_aug", batch["pairs"]), batch["neg_l"],
+                                     batch["neg_r"], c.gamma, batch.get("w"))
             aux["ae"] = l_ae
             loss = loss + c.attr_channel_weight * l_ae
         aux["total"] = loss
         return loss, aux
+
+
+def table_losses(cfg: TrainConfig, emb: torch.Tensor, batch: dict,
+                 rel_head: RelationHead | None = None, attr_head: AttributeHead | None = None,
+                 ot_loss=None) -> tuple[torch.Tensor, dict]:
+    """The losses that read the entity table ``emb`` (``AlignMTL.forward``'s
+    batch keys): the margin, the OT head (``ot_loss``, by default
+    ``sinkhorn_align_loss``; the distributed trainer passes the ring loss)
+    and the heads given, weighted; returns (loss, {"margin", ["sinkhorn"],
+    ["rel"], ["attr"]})."""
+    loss = margin_align_loss(emb, batch.get("pairs_aug", batch["pairs"]), batch["neg_l"],
+                             batch["neg_r"], cfg.gamma, batch.get("w"))
+    aux = {"margin": loss}
+    if cfg.use_sinkhorn:
+        aux["sinkhorn"] = (ot_loss or sinkhorn_align_loss)(
+            emb, batch.get("ot_pairs", batch["pairs"]), tau=cfg.sinkhorn_tau,
+            n_iters=cfg.sinkhorn_iters)
+        loss = loss + cfg.sinkhorn_weight * aux["sinkhorn"]
+    if rel_head is not None:
+        aux["rel"] = rel_head(emb, batch["rel_triples"], batch["rel_neg_t"], batch["rel_neg_h"])
+        loss = loss + cfg.rel_weight * aux["rel"]
+    if attr_head is not None:
+        aux["attr"] = attr_head(emb, batch["attr_triples"])
+        loss = loss + cfg.attr_weight * aux["attr"]
+    return loss, aux
 
 
 def init_mtl_params(cfg: TrainConfig, n_ent: int, n_rel: int = 0, n_attr: int = 0,

@@ -120,7 +120,8 @@ class StepParts:
 
 
 class IntervalBatch:
-    """The interval batch as ``train_loop`` assembles it at each boundary:
+    """The interval batch as ``train_loop`` and the distributed trainer
+    assemble it at each boundary (``at_boundary``):
     the seed pairs, with ``boot_cap > 0`` the proposals and their weights
     (the seed pairs weigh 1, the proposals ``boot_weight``·w; before
     ``boot_start`` the weight-0 ``placeholder``), then the negatives."""
@@ -155,6 +156,37 @@ class IntervalBatch:
         batch["neg_l"], batch["neg_r"] = sample_uniform_negatives(
             interval_generator(self.cfg, epoch0), batch.get("pairs_aug", self.pairs), self.n1,
             self.n, self.cfg.k_neg)
+
+    def at_boundary(self, epoch: int, embed_fn: Callable[[], torch.Tensor],
+                    mine_fn: Callable[[torch.Tensor, torch.Tensor], tuple],
+                    draw_extra: Callable[[int], dict] | None, timed: Callable) -> tuple:
+        """(batch, proposals) of the interval starting at ``epoch``, in the
+        JAX package's order: one forward ``embed_fn()`` where the interval
+        proposes or mines; from ``boot_start`` the mutual-NN proposals on
+        it; the negatives over the seed pairs and proposals,
+        ``mine_fn(table, pairs)`` in hard mode after epoch 0, else
+        uniform; then ``draw_extra(epoch0)``.  ``timed(key, count, fn)``
+        runs each stage under its ``TrainResult.timings`` names."""
+        cfg = self.cfg
+        epoch0 = epoch - epoch % cfg.neg_every
+        propose = self.use_boot and epoch >= cfg.boot_start and epoch > 0
+        mine = cfg.neg_mode == "hard" and epoch > 0
+        emb = timed("forward_s", "forwards", embed_fn) if propose or mine else None
+        boot = self.placeholder
+        if propose:
+            boot = timed("propose_s", "proposals", lambda: propose_mutual_nn_pairs(
+                emb, self.mask1, self.mask2, self.n1, self.n, cfg.boot_cap,
+                metric=cfg.neg_metric, csls_k=cfg.boot_csls_k, approx=cfg.boot_approx))
+        batch = self(boot)
+        if mine:
+            pairs_t = batch.get("pairs_aug", self.pairs)
+            batch["neg_l"], batch["neg_r"] = timed("mine_s", "minings",
+                                                   lambda: mine_fn(emb, pairs_t))
+        else:
+            self.uniform(batch, epoch0)
+        if draw_extra is not None:
+            batch.update(timed("draw_s", "draws", lambda: draw_extra(epoch0)))
+        return batch, boot
 
 
 def first_batch(cfg: TrainConfig, task: AlignTask, parts: StepParts, dev: torch.device,
@@ -345,10 +377,11 @@ def train_loop(cfg: TrainConfig, task: AlignTask, parts: StepParts, dev: torch.d
                "steps": 0, "forwards": 0, "proposals": 0, "minings": 0, "draws": 0, "evals": 0,
                "saves": 0}
 
-    use_boot = interval_batch.use_boot
-    if use_boot:
-        mask1, mask2 = interval_batch.mask1, interval_batch.mask2
-        placeholder = interval_batch.placeholder
+    use_boot, placeholder = interval_batch.use_boot, interval_batch.placeholder
+
+    def mine_fn(emb, pairs_t):
+        return sample_hard_negatives(emb, pairs_t, n1, n, cfg.k_neg, metric=cfg.neg_metric,
+                                     approx=cfg.neg_approx, csls_k=cfg.neg_csls_k)
 
     def timed(key, count, fn):
         t0 = time.perf_counter()
@@ -396,7 +429,7 @@ def train_loop(cfg: TrainConfig, task: AlignTask, parts: StepParts, dev: torch.d
         neg_l, neg_r, boot_s = batch["neg_l"], batch["neg_r"], boot
         if steps > 1:  # a fused resume starts at a boundary and re-mines (and re-proposes)
             neg_l = neg_r = torch.zeros_like(neg_l)
-            boot_s = placeholder if use_boot else None
+            boot_s = placeholder
         state = {"model": model.state_dict(), "opt": optimizer_state(opt),
                  "sched": sched.state_dict(), "neg_l": neg_l, "neg_r": neg_r,
                  "loss": loss.detach()}
@@ -438,28 +471,8 @@ def train_loop(cfg: TrainConfig, task: AlignTask, parts: StepParts, dev: torch.d
         torch.autograd.set_detect_anomaly(anomaly_was or (debug_nans and steps == 1))
         for epoch in range(start_epoch, cfg.epochs, steps):
             if epoch % cfg.neg_every == 0 or batch is None:
-                epoch0 = epoch - epoch % cfg.neg_every
-                propose = use_boot and epoch >= cfg.boot_start and epoch > 0
-                mine = cfg.neg_mode == "hard" and epoch > 0
-                emb = timed("forward_s", "forwards", embed_fn) if propose or mine else None
-                if use_boot:
-                    boot = timed("propose_s", "proposals", lambda: propose_mutual_nn_pairs(
-                        emb, mask1, mask2, n1, n, cfg.boot_cap, metric=cfg.neg_metric,
-                        csls_k=cfg.boot_csls_k, approx=cfg.boot_approx)) if propose else placeholder
-                batch = interval_batch(boot)
-                pairs_t = batch.get("pairs_aug", pairs)
-                if mine:
-                    batch["neg_l"], batch["neg_r"] = timed(
-                        "mine_s", "minings",
-                        lambda: sample_hard_negatives(emb, pairs_t, n1, n, cfg.k_neg,
-                                                      metric=cfg.neg_metric,
-                                                      approx=cfg.neg_approx,
-                                                      csls_k=cfg.neg_csls_k))
-                else:
-                    interval_batch.uniform(batch, epoch0)
-                if draw_extra is not None:
-                    batch.update(timed("draw_s", "draws", lambda: draw_extra(epoch0)))
-                del emb
+                batch, boot = interval_batch.at_boundary(epoch, embed_fn, mine_fn, draw_extra,
+                                                         timed)
             if captured_on_card and captured is None:
                 t0 = time.perf_counter()
                 captured = CapturedStep(opt, loss_fn, batch, dev, cfg.dropout > 0.0,

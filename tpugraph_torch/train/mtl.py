@@ -52,17 +52,23 @@ ATTR_BATCH_MAX = 8192  # attribute triples per interval
 
 
 def check_ot_size(cfg: TrainConfig, n_seed: int) -> None:
-    """The JAX package refuses an effective OT problem above 8,192 pairs
-    (its S×S cost failed to compile); the port keeps the guard so that a
-    config behaves the same in both packages."""
+    """The JAX package refuses an effective OT problem above 8,192 pairs:
+    on one shard its S×S cost failed to compile; over more shards the ring
+    loss recomputes every S×S cost tile about 3× per iteration.  The port
+    keeps the guard, with the JAX message of each branch, so that a config
+    behaves the same in both packages."""
     if not cfg.use_sinkhorn or cfg.epochs == 0:
         return
     ot_eff = min(cfg.sinkhorn_pairs, n_seed) if cfg.sinkhorn_pairs > 0 else n_seed
     if ot_eff > OT_PAIRS_MAX:
+        where = ("does not compile in the JAX package at this scale" if cfg.n_shards <= 1 else
+                 f"runs the ring loss's ~3·S² per-iteration recompute "
+                 f"({3 * cfg.sinkhorn_iters * ot_eff ** 2 * cfg.dim:.1e} flops per loss step "
+                 f"at dim={cfg.dim}) — quadratically past any training-relevant budget")
         raise ValueError(
             f"use_sinkhorn with an effective OT problem of {ot_eff} pairs (seeds={n_seed}, "
-            f"sinkhorn_pairs={cfg.sinkhorn_pairs}) does not compile in the JAX package at "
-            f"this scale — set sinkhorn_pairs <= {OT_PAIRS_MAX} (e.g. 4096)")
+            f"sinkhorn_pairs={cfg.sinkhorn_pairs}) {where} — set sinkhorn_pairs <= "
+            f"{OT_PAIRS_MAX} (e.g. 4096)")
 
 
 def attr_triples_of(cfg: TrainConfig, task: AlignTask) -> np.ndarray | None:
