@@ -163,6 +163,27 @@ Phases, each printing one JSON line:
              against its plain version, timed beside the single-device
              loss; and the potential update at the ring caller's shape.
 
+21. dist_options — the distributed trainer's run options on
+             ``dwy100k_dist`` at full width through ``driver.run`` /
+             ``driver.evaluate`` on the same one-rank group.  A: recipe v7r
+             as in phase 20 with the ``--fast`` search set (sqeuclidean
+             mining, shortlisted), shortlisted proposals and a shortlisted
+             CSLS history eval every 2 epochs: the select-and-rerank
+             launches (one per direction and shard block of each ring
+             stage) beside the other kernels' phase-20 counts, the stage
+             times beside phase 20's exact ones, and on the last table
+             each stage alone, mining against exact ``ring_knn`` (recall ≥
+             0.8), the eval against the exact final eval (within 0.02),
+             the kernel at the ring's block shapes against its plain
+             version, timed.  B: ``DIST_CUTS`` with checkpoints, the run
+             stopped by SIGTERM mid-interval and resumed (final loss rel
+             1e-4), eval-only from the directory (within 1e-4), save and
+             load times, the checkpoint's size.  C: one step each with the
+             attribute channel, dropout 0.3, ``l2_normalize`` and bf16
+             against the single-device step's plain path on the same
+             parameters, batch and mask, with ``spmm_ell``'s launches.  D:
+             ``debug_nans`` at lr 1e30 raises naming epoch 1.
+
 A step is held against its plain path by running the same model code with
 every kernel swapped for its plain version (``_plain_kernels``), which
 autograd differentiates.
@@ -197,7 +218,7 @@ from tpugraph_torch.data import load_dbp15k, load_openea, synthetic_align_task
 from tpugraph_torch import native
 from tpugraph_torch.dist import mp_worker
 from tpugraph_torch.dist.mesh import make_mesh
-from tpugraph_torch.dist.ring import ring_sinkhorn_align_loss
+from tpugraph_torch.dist.ring import ring_hits_at_k, ring_knn, ring_sinkhorn_align_loss
 from tpugraph_torch.dist.trainer import dist_parts
 from tpugraph_torch.kernels import _build, gcn_fused, shortlist_dist, sinkhorn_fused, spmm_ell
 from tpugraph_torch.kernels import spmm as spmm_mod
@@ -226,7 +247,7 @@ from tpugraph_torch.train.driver import evaluate, run, step_parts, uses_mtl
 from tpugraph_torch.train.bootstrap import propose_mutual_nn_pairs
 from tpugraph_torch.train.eval import _both_direction_ranks
 from tpugraph_torch.train.fused import CapturedStep, train_step
-from tpugraph_torch.train.loop import (build_model, embed, first_batch, load_task,
+from tpugraph_torch.train.loop import (IntervalBatch, build_model, embed, first_batch, load_task,
                                        step_generator, step_seed)
 from tpugraph_torch.train.losses import margin_align_loss
 from tpugraph_torch.train.metrics import epoch_edge_ops
@@ -1616,60 +1637,67 @@ def _by_id(idx: torch.Tensor, *vals: torch.Tensor) -> list:
     return [v.gather(1, order) for v in vals]
 
 
+def _select_case(name: str, q, cands, k: int, kw: dict, opts: dict, smi: str,
+                 kernel_name: str = "shortlist_dist") -> dict:
+    """The select-and-rerank kernel on (q, cands, k, kw) against its plain
+    version (the same sets on ≥ 99 % of rows; where the sets agree, the
+    rerank within 1e-5 + 1e-5·|x| and the selection score within 1e-5 of
+    a·(max ‖q‖² + max ‖c‖²), the expanded form's scale; two launches bit for
+    bit), timed beside the route it replaces and its bound."""
+    s, c, d = q.shape[0], cands.shape[0], q.shape[1]
+
+    def kernel():
+        return shortlist_dist.shortlist_select(q, cands, k, **kw)
+
+    got = kernel()
+    sync(q.device)
+    want = shortlist_dist.shortlist_select_plain(q, cands, k, **kw)
+    same = _same_rows(got[0], want[0])
+    rows = (got[0].sort(dim=1).values == want[0].sort(dim=1).values).all(dim=1)
+    g_val, w_val = _by_id(got[0][rows], got[1][rows])[0], _by_id(want[0][rows],
+                                                                want[1][rows])[0]
+    scale = kw.get("a", 1.0) * float(shortlist_dist.sq_norms(q).max()
+                                     + shortlist_dist.sq_norms(cands).max())
+    sval_err = float((g_val - w_val).abs().max())
+    dist_err = None
+    if kw.get("rerank"):
+        g_d, w_d = _by_id(got[0][rows], got[2][rows])[0], _by_id(want[0][rows],
+                                                              want[2][rows])[0]
+        torch.testing.assert_close(g_d, w_d, **SHORTLIST_TOL)
+        dist_err = float((g_d - w_d).abs().max())
+    again = kernel()
+    if same < 0.99 or sval_err > 1e-5 * scale or not all(
+            a is None and b is None or torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"shortlist_select ({name}): same rows {same}, score error "
+                             f"{sval_err} at scale {scale}, or two launches differ")
+    bound, bound_by = _select_bound(s, c, d, k, kw)
+    ms, dev_ms = time_ms(kernel), device_ms(kernel)
+    comp_ms = time_ms(lambda: _composite(q, cands, k, kw), warmup=1, iters=5)
+    out = dict(s=s, k=k, c=c, d=d, options=opts, same_sets_share=same,
+               max_abs_err=dist_err, sval_max_abs_err=sval_err,
+               sval_scale=scale, ms=ms, device_ms=dev_ms,
+               ms_cold_l2=time_cold_ms(kernel),
+               plain_ms=time_ms(lambda: shortlist_dist.shortlist_select_plain(
+                   q, cands, k, **kw), warmup=1, iters=3),
+               bound_ms=bound, bound_by=bound_by,
+               share_of_bound_device=ratio(bound, dev_ms),
+               library_ms=comp_ms,
+               library_device_ms=device_ms(lambda: _composite(q, cands, k, kw), iters=3),
+               library="the replaced route: selection tile, torch.topk, gather kernel")
+    emit({"phase": "kernel", "kernel": kernel_name, "caller": name, **out,
+          "bit_identical_runs": True, "card": smi})
+    return out
+
+
 def phase_shortlist(smi: str, dev: torch.device) -> tuple[dict, dict]:
     """The select-and-rerank kernel against its plain version at each
-    caller's shape (the same sets on ≥ 99 % of rows; where the sets agree,
-    the rerank within 1e-5 + 1e-5·|x| and the selection score within 1e-5
-    of a·(max ‖q‖² + max ‖c‖²), the expanded form's scale; two launches bit
-    for bit), timed beside the route it replaces; then the gather-only
-    entry against its plain version."""
+    caller's shape (``_select_case``), timed beside the route it replaces;
+    then the gather-only entry against its plain version."""
     rng = np.random.default_rng(6)
     out = {}
     for name, s, k, c, d, opts in SELECT_SHAPES:
         q, cands, kw = _select_inputs(rng, s, c, d, opts, dev)
-
-        def kernel():
-            return shortlist_dist.shortlist_select(q, cands, k, **kw)
-
-        got = kernel()
-        sync(dev)
-        want = shortlist_dist.shortlist_select_plain(q, cands, k, **kw)
-        same = _same_rows(got[0], want[0])
-        rows = (got[0].sort(dim=1).values == want[0].sort(dim=1).values).all(dim=1)
-        g_val, w_val = _by_id(got[0][rows], got[1][rows])[0], _by_id(want[0][rows],
-                                                                    want[1][rows])[0]
-        scale = kw.get("a", 1.0) * float(shortlist_dist.sq_norms(q).max()
-                                         + shortlist_dist.sq_norms(cands).max())
-        sval_err = float((g_val - w_val).abs().max())
-        dist_err = None
-        if kw.get("rerank"):
-            g_d, w_d = _by_id(got[0][rows], got[2][rows])[0], _by_id(want[0][rows],
-                                                                  want[2][rows])[0]
-            torch.testing.assert_close(g_d, w_d, **SHORTLIST_TOL)
-            dist_err = float((g_d - w_d).abs().max())
-        again = kernel()
-        if same < 0.99 or sval_err > 1e-5 * scale or not all(
-                a is None and b is None or torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"shortlist_select ({name}): same rows {same}, score error "
-                                 f"{sval_err} at scale {scale}, or two launches differ")
-        bound, bound_by = _select_bound(s, c, d, k, kw)
-        ms, dev_ms = time_ms(kernel), device_ms(kernel)
-        comp_ms = time_ms(lambda: _composite(q, cands, k, kw), warmup=1, iters=5)
-        out[name] = dict(s=s, k=k, c=c, d=d, options=opts, same_sets_share=same,
-                         max_abs_err=dist_err, sval_max_abs_err=sval_err,
-                         sval_scale=scale, ms=ms, device_ms=dev_ms,
-                         ms_cold_l2=time_cold_ms(kernel),
-                         plain_ms=time_ms(lambda: shortlist_dist.shortlist_select_plain(
-                             q, cands, k, **kw), warmup=1, iters=3),
-                         bound_ms=bound, bound_by=bound_by,
-                         share_of_bound_device=ratio(bound, dev_ms),
-                         library_ms=comp_ms,
-                         library_device_ms=device_ms(lambda: _composite(q, cands, k, kw),
-                                                     iters=3),
-                         library="the replaced route: selection tile, torch.topk, gather "
-                                 "kernel")
-        emit({"phase": "kernel", "kernel": "shortlist_dist", "caller": name, **out[name],
-              "bit_identical_runs": True, "card": smi})
+        out[name] = _select_case(name, q, cands, k, kw, opts, smi)
     return out, _gather_entry(smi, dev)
 
 
@@ -2734,21 +2762,28 @@ def _nan_cache(rows: int, d: int, dev: torch.device) -> None:
     torch.full((rows, d), float("nan"), device=dev)
 
 
-def _dist_ell_case(m, diag, x: torch.Tensor) -> dict:
+def _dist_ell_case(m, diag, x: torch.Tensor, cold: bool = False) -> dict:
     """``spmm_ell`` on one shard operator: against its plain version (on
-    NaN-prefilled output memory), bit-identical over two launches, timed
-    beside the plain version, ``torch.sparse.mm`` and the bound (bytes)."""
+    NaN-prefilled output memory; a bf16 result also within half a bf16 ulp
+    of the fp32 plain sums of the same input), bit-identical over two
+    launches, timed (with ``cold`` also after an L2 flush) beside the plain
+    version, ``torch.sparse.mm`` and the bound (bytes)."""
     d = x.shape[1]
     _nan_cache(m.n_rows, d, x.device)
     got = ell_spmm(m, diag, x)
     sync(x.device)
     want = apply_with_diag(m, diag, x)
-    torch.testing.assert_close(got, want, **TOL[torch.float32])
+    torch.testing.assert_close(got.float(), want.float(), **TOL[x.dtype])
+    if x.dtype != torch.float32:
+        torch.testing.assert_close(got.float(), apply_with_diag(m, diag, x.float()),
+                                   rtol=2 ** -8, atol=1e-3)
     if not torch.equal(got, ell_spmm(m, diag, x)):
         raise AssertionError(f"spmm_ell ({m.n_rows} rows): two launches differ")
-    csr = _csr_of(m, diag)
-    lib = torch.sparse.mm(csr, x)
-    torch.testing.assert_close(lib, want, **TOL[torch.float32])
+    csr, refused = _csr_of(m, diag).to(x.dtype), None
+    try:
+        torch.testing.assert_close(torch.sparse.mm(csr, x).float(), want.float(), **TOL[x.dtype])
+    except RuntimeError as e:  # the library's refusal of a type is the finding
+        refused = str(e).splitlines()[0][:200]
     plan = segment_plan(m)
     # the rows of x the real slots (and the diagonal) read, the output, the
     # buckets and the diagonal once
@@ -2756,16 +2791,20 @@ def _dist_ell_case(m, diag, x: torch.Tensor) -> dict:
     read = torch.cat([b.idx[b.w != 0] for b in m.buckets]
                      + ([] if diag is None else [torch.arange(m.n_rows, device=x.device)]))
     x_rows = int(torch.unique(read).numel())
-    nbytes = (m.n_rows + x_rows) * d * 4 + ell_bytes + (0 if diag is None else diag.numel() * 4)
+    nbytes = ((m.n_rows + x_rows) * d * x.element_size() + ell_bytes
+              + (0 if diag is None else diag.numel() * 4))
     n_diag = 0 if diag is None else int(torch.count_nonzero(diag))
     r = {"rows": m.n_rows, "cols": m.n_cols, "x_rows_read": x_rows, "edges": m.nnz + n_diag,
+         "dtype": str(x.dtype).removeprefix("torch."),
          "rows_in_no_bucket": plan.base.n_zero_rows, "work_items": int(plan.items.shape[0]),
-         "max_abs_err": float((got - want).abs().max()),
+         "max_abs_err": float((got.float() - want.float()).abs().max()),
          "ms": time_ms(lambda: ell_spmm(m, diag, x)),
+         "ms_cold_l2": time_cold_ms(lambda: ell_spmm(m, diag, x)) if cold else None,
          "device_ms": device_ms(lambda: ell_spmm(m, diag, x)),
          "plain_ms": time_ms(lambda: apply_with_diag(m, diag, x), iters=5),
-         "library_ms": time_ms(lambda: torch.sparse.mm(csr, x)),
-         "library_device_ms": device_ms(lambda: torch.sparse.mm(csr, x))}
+         "library_ms": None if refused else time_ms(lambda: torch.sparse.mm(csr, x)),
+         "library_device_ms": None if refused else device_ms(lambda: torch.sparse.mm(csr, x)),
+         "library_refused": refused}
     r["bound_ms"], r["bound_by"] = _bound(nbytes, 2 * (m.nnz + n_diag) * d)
     r["share_of_bound_device"] = ratio(r["bound_ms"], r["device_ms"])
     return r
@@ -3065,7 +3104,289 @@ def phase_dist_v7r(smi: str, dev: torch.device) -> dict:
           "attr_batch": int(batch["attr_triples"].shape[0]), "checks": checks,
           "step_ms_order": ["distributed", "single-device", "distributed"], "card": smi})
     ring_ot = _ring_ot_check(smi, dev)
-    return {"launches": counts, "per_step": per_step, "ring_ot": ring_ot}
+    return {"launches": counts, "per_step": per_step, "ring_ot": ring_ot,
+            "stages_s": {"proposal_s": t["propose_s"], "mining_s": t["mine_s"],
+                         "csls_final_eval_s": t["final_eval_s"], "run_s": run_s}}
+
+
+# recipe v7r on dwy100k_dist with --fast's search set (sqeuclidean mining,
+# shortlisted), shortlisted proposals and a shortlisted history eval every 2
+# epochs, cut as phase_dist_v7r is (DIST_V7R_CUTS)
+DIST_APPROX = {"neg_metric": "sqeuclidean", "neg_approx": True, "boot_approx": True,
+               "eval_approx_k": 128, "eval_every": 2}
+# checkpoints of DIST_CUTS every 4 epochs; SIGTERM during the 8th step
+# (epoch 7, the middle of the mined interval 5-9)
+DIST_CKPT_EVERY, DIST_SIGTERM_STEP = 4, 8
+DIST_OPTIONS = {"channel": dict(use_attr_channel=True), "dropout": dict(dropout=0.3),
+                "l2_normalize": dict(l2_normalize=True), "bf16": dict(param_dtype="bfloat16")}
+# the gradients 0 by construction: each margin reads differences of rows,
+# so the last layer's bias cancels (not under l2_normalize)
+DIST_OPTION_ZERO_GRADS = {"channel": ("gc2.b", "ae_encoder.gc2.b"), "dropout": ("gc2.b",),
+                          "l2_normalize": (), "bf16": ("gc2.b",)}
+
+
+def _dist_select_launches(t: dict, cfg) -> int:
+    """A distributed run's select-and-rerank launches: one per (direction,
+    shard block) of each shortlisted mining and history eval (the eval's
+    CSLS hubness as many again), one per direction of each shortlisted
+    proposal (on the gathered table).  A shortlist above the kernel's queue
+    would take the unfused route, which these runs must not: it raises."""
+    k2 = max(2 * cfg.k_neg, cfg.k_neg + 8)
+    if max(k2 if cfg.neg_approx else 0, cfg.eval_approx_k) > shortlist_dist.QUEUE_MAX:
+        raise NotImplementedError(f"a shortlist above the queue: {k2}, {cfg.eval_approx_k}")
+    s = cfg.n_shards
+    per_mining = 2 * s if cfg.neg_approx and not cfg.neg_csls_k else 0
+    per_eval = 2 * s * (1 + bool(cfg.eval_csls_k)) if cfg.eval_approx_k else 0
+    per_proposal = 2 * (1 + bool(cfg.boot_csls_k)) if cfg.boot_cap and cfg.boot_approx else 0
+    return (per_mining * t["minings"] + per_proposal * t["proposals"]
+            + per_eval * (t["evals"] - 1))  # the final eval is exact
+
+
+def _counted(dev: torch.device, fn) -> tuple:
+    """(fn(), its host wall seconds ended by a synchronise, the kernels it
+    launched)."""
+    _reset_launch_counts()
+    out, sec = _timed(dev, fn)
+    return out, sec, {k: v for k, v in _launch_counts().items() if v}
+
+
+def _dist_approx_leg(smi: str, dev: torch.device, exact_stages: dict) -> dict:
+    """Leg A: approximate v7r (``DIST_APPROX``) through ``driver.run``: the
+    launches (the ring stages' select-and-rerank, ``_dist_select_launches``;
+    nothing else beyond phase_dist_v7r's), the stage times beside the exact
+    run's; then on the run's last table each stage alone with its launches,
+    the shortlisted mining against exact ``ring_knn`` (recall ≥ 0.8), the
+    shortlisted CSLS eval against the run's exact final eval (Hits@1/@10,
+    MRR within 0.02), and the kernel at the ring's block shapes against its
+    plain version (``_select_case``: one mining block of the last table; the
+    eval's and the hubness's blocks)."""
+    cfg = get_config("dwy100k_dist", **RECIPES["v7r"]).replace(
+        sinkhorn_pairs=DIST_V7R_OT_PAIRS, **{**DIST_V7R_CUTS, **DIST_APPROX})
+    task = load_task(cfg)
+    res, run_s, counts = _counted(dev, lambda: run(cfg, task=task, device=dev))
+    t, losses = res.timings, res.losses
+    s = cfg.n_shards
+    expected = {"spmm_ell": _dist_launches(t, s),
+                "sinkhorn_fused": (2 * cfg.sinkhorn_iters + 1) * t["steps"],
+                "shortlist_dist": _dist_select_launches(t, cfg)}
+    if counts != expected or (t["steps"], t["proposals"], t["minings"], t["forwards"],
+                              t["draws"], t["evals"]) != (cfg.epochs, 1, 1, 1, 2, 4):
+        raise AssertionError(f"launches {counts} (expected {expected}), timings {t}")
+    nb = cfg.neg_every
+    if not all(math.isfinite(v) for v in losses) or not all(
+            losses[i + nb - 1] < losses[i] for i in range(0, cfg.epochs, nb)):
+        raise AssertionError(f"losses not finite or not falling in each interval: {losses}")
+    history_s = (t["eval_s"] - t["final_eval_s"]) / (t["evals"] - 1)
+    stages = {"proposal_s": t["propose_s"], "mining_s": t["mine_s"],
+              "history_eval_s_each": history_s, "csls_final_eval_s": t["final_eval_s"],
+              "step_median_s": float(np.median(t["step_s"])), "run_s": run_s}
+
+    n1, n = task.kg1.n_ent, task.n_ent
+    pairs = torch.as_tensor(task.train_pairs, dtype=torch.int64, device=dev)
+    kw = dict(metric=cfg.neg_metric)
+    with make_mesh(s, dev) as mesh:
+        parts = dist_parts(cfg, task, mesh)
+        parts.model.load_full(res.params)
+        table = parts.embed()
+        del parts
+
+        def mine(approx):
+            return (ring_knn(table[pairs[:, 1]], table[:n1], pairs[:, 0], cfg.k_neg, mesh,
+                             approx=approx, **kw),
+                    ring_knn(table[pairs[:, 0]], table[n1:n], pairs[:, 1] - n1, cfg.k_neg,
+                             mesh, approx=approx, **kw))
+
+        approx, mine_s, mine_launched = _counted(dev, lambda: mine(True))
+        exact, exact_s, _ = _counted(dev, lambda: mine(False))
+        hits, eval_s, eval_launched = _counted(dev, lambda: ring_hits_at_k(
+            table, task.test_pairs, mesh, csls_k=cfg.eval_csls_k, approx_k=cfg.eval_approx_k))
+    make = IntervalBatch(cfg, task, dev)
+    _, prop_s, prop_launched = _counted(dev, lambda: propose_mutual_nn_pairs(
+        table, make.mask1, make.mask2, n1, n, cfg.boot_cap, metric=cfg.neg_metric,
+        approx=True))
+    recall = min(_recall(a, e) for a, e in zip(approx, exact))
+    gaps = {k: abs(hits[k] - res.metrics[k]) for k in ("hits@1", "hits@10", "mrr")}
+    per_stage = {"mining": mine_launched, "history_eval": eval_launched,
+                 "proposal": prop_launched}
+    if recall < 0.8 or max(gaps.values()) > 0.02 or per_stage != {
+            "mining": {"shortlist_dist": 2 * s}, "history_eval": {"shortlist_dist": 4 * s},
+            "proposal": {"shortlist_dist": 2}}:
+        raise AssertionError(f"approximate stages: recall {recall}, eval gaps {gaps}, "
+                             f"launches {per_stage}")
+
+    # the kernel at the ring's block shapes, on the last table
+    bc, bt = -(-(n - n1) // s), -(-len(task.test_pairs) // s)
+    extra = make.mask1.nonzero()[:, 0][:cfg.boot_cap]  # as many KG1 rows as proposals
+    q_mine = table[torch.cat([pairs[:, 0], extra])]
+    partner = torch.cat([pairs[:, 1] - n1, torch.full_like(extra, -1)])
+    k2 = min(bc, max(2 * cfg.k_neg, cfg.k_neg + 8))
+    test = torch.as_tensor(task.test_pairs, dtype=torch.int64, device=dev)
+    left, right = table[test[:, 0]], table[test[:, 1]]
+    r_sq = negatives_mod._hubness_both_approx(left, right, cfg.eval_csls_k)[0]
+    me = torch.arange(len(test), device=dev)
+    cases = {
+        "dist_mining_block": (q_mine, table[n1:n1 + bc], k2, dict(
+            exclude=torch.where(partner < bc, partner, -1), rerank=cfg.neg_metric)),
+        "dist_eval_csls_block": (left, right[:bt], cfg.eval_approx_k, dict(
+            exclude=torch.where(me < bt, me, -1), a=2.0, bias=r_sq[:bt].contiguous(),
+            rerank="cityblock")),
+        "dist_hubness_block": (right, left[:bt], cfg.eval_csls_k, dict(rerank="cityblock"))}
+    kernel = {name: _select_case(name, q.contiguous(), c.contiguous(), k, kw_,
+                                 {k_: v for k_, v in kw_.items() if not torch.is_tensor(v)},
+                                 smi) for name, (q, c, k, kw_) in cases.items()}
+    out = {"config": cfg.name, "recipe": "v7r", "cuts": {**DIST_V7R_CUTS, **DIST_APPROX},
+           "launches": counts, "timings": {k: v for k, v in t.items() if k != "step_s"},
+           "losses": losses, "stages_s": stages, "exact_stages_s": exact_stages,
+           "select_launches_per_stage": per_stage,
+           "on_last_table": {"mining_recall_min": recall, "mining_s": mine_s,
+                             "exact_mining_s": exact_s, "eval_gaps": gaps,
+                             "history_eval_s": eval_s, "proposal_s": prop_s},
+           "metrics_final_exact": {k: res.metrics[k] for k in ("hits@1", "hits@10", "mrr")},
+           "metrics_shortlisted": {k: hits[k] for k in ("hits@1", "hits@10", "mrr")}}
+    emit({"phase": "dist_options", "leg": "A_approximate_v7r", **out, "card": smi})
+    return {**out, "kernel": kernel}
+
+
+def _dist_checkpoint_leg(smi: str, dev: torch.device) -> dict:
+    """Leg B: ``dwy100k_dist`` cut to DIST_CUTS with checkpoints every
+    DIST_CKPT_EVERY epochs: the run; the same run stopped by SIGTERM during
+    its DIST_SIGTERM_STEP-th step (mid-interval) and resumed (final loss rel
+    1e-4); ``driver.evaluate`` from the run's directory (each metric within
+    1e-4); save and load seconds, the checkpoint's size."""
+    cfg = get_config("dwy100k_dist", **DIST_CUTS).replace(checkpoint_every=DIST_CKPT_EVERY)
+    task = load_task(cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        full_cfg, cut_cfg = (cfg.replace(checkpoint_dir=os.path.join(tmp, d))
+                             for d in ("full", "cut"))
+        full, full_s = _timed(dev, lambda: run(full_cfg, task=task, device=dev))
+        undo = mp_worker.sigterm_at_call(DIST_SIGTERM_STEP)
+        try:
+            first = run(cut_cfg, task=task, device=dev)
+        finally:
+            undo()
+        resumed = run(cut_cfg, task=task, device=dev)
+        ev, ev_s = _timed(dev, lambda: evaluate(full_cfg, task=task, device=dev))
+        ckpt_mb = os.path.getsize(os.path.join(full_cfg.checkpoint_dir,
+                                               f"ckpt-{cfg.epochs - 1}.pt")) / 2 ** 20
+    loss_rel = abs(resumed.metrics["final_loss"] / full.metrics["final_loss"] - 1)
+    eval_gaps = {k: abs(ev.metrics[k] - full.metrics[k]) for k in ("hits@1", "hits@10", "mrr",
+                                                                  "final_loss")}
+    stopped = (first.timings["steps"], resumed.timings["start_epoch"])
+    if stopped != (DIST_SIGTERM_STEP, DIST_SIGTERM_STEP) or loss_rel > 1e-4 or max(
+            eval_gaps.values()) > 1e-4:
+        raise AssertionError(f"checkpoints: stopped/resumed at {stopped}, final loss rel "
+                             f"{loss_rel}, eval-only gaps {eval_gaps}")
+    out = {"cuts": DIST_CUTS, "checkpoint_every": DIST_CKPT_EVERY,
+           "sigterm_step": DIST_SIGTERM_STEP, "final_loss_rel_err": loss_rel,
+           "losses_rel_err_max": float(np.max(np.abs(
+               np.array(first.losses + resumed.losses) / np.array(full.losses) - 1))),
+           "eval_only_gaps": eval_gaps, "checkpoint_mb": ckpt_mb,
+           "save_s": full.timings["save_s"], "saves": full.timings["saves"],
+           "save_s_each": full.timings["save_s"] / full.timings["saves"],
+           "load_s": resumed.timings["load_s"], "eval_only_s": ev_s,
+           "eval_only_load_s": ev.timings["load_s"], "run_s": full_s}
+    emit({"phase": "dist_options", "leg": "B_checkpoints", **out, "card": smi})
+    return out
+
+
+def _dist_options_leg(smi: str, dev: torch.device) -> dict:
+    """Leg C: one step of ``dwy100k_dist`` at full width with each of
+    ``DIST_OPTIONS`` (the attribute channel, dropout 0.3 with epoch 1's keep
+    mask, l2_normalize, bf16), its ``spmm_ell`` launches, held against the
+    single-device step's plain path (``driver.step_parts`` under
+    ``_plain_kernels``) on the same parameters, batch and mask at PERF.md
+    §2's step limits (bf16 at its bf16 limits)."""
+    base = get_config("dwy100k_dist", **DIST_CUTS)
+    task = load_task(base)
+    pairs = torch.as_tensor(task.train_pairs, dtype=torch.int64, device=dev)
+    neg_l, neg_r = sample_uniform_negatives(torch.Generator().manual_seed(1), pairs,
+                                            task.kg1.n_ent, task.n_ent, base.k_neg)
+    batch = {"pairs": pairs, "neg_l": neg_l, "neg_r": neg_r}
+    n, epoch = task.n_ent, 1
+    out = {}
+    for name, over in DIST_OPTIONS.items():
+        cfg = base.replace(**over)
+        dtype = torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
+        single = step_parts(cfg.replace(n_shards=1), task, dev)
+        gen = step_generator(cfg, epoch, dev) if cfg.dropout > 0 else None
+        single.model.zero_grad(set_to_none=True)
+        with _plain_kernels():
+            ref = single.loss_fn(batch, gen)[0]
+            ref.backward()
+        ref_grads = {k.removeprefix("encoder."): p.grad for k, p in
+                     single.model.named_parameters()}
+        del single
+        with make_mesh(cfg.n_shards, dev) as mesh:
+            parts = dist_parts(cfg, task, mesh)
+            mask = parts.drop_mask(epoch)
+            loss, _, launched = _counted(dev, lambda: parts.grads(batch, mask))
+            grads = {k: p.grad.clone() for k, p in parts.model.named_parameters()}
+            step_ms = time_ms(lambda: parts.grads(batch, mask), 1, 5)
+            if cfg.use_attr_channel:  # shard 0's operators, for the kernel's new callers
+                inc0, loc0, bnd0 = parts.model.ae_encoder.inc[0], parts.op.loc[0], parts.op.bnd[0]
+            del parts
+        zero_rel = 1e-5 if dtype == torch.float32 else math.sqrt(n) * 2 ** -8
+        per_step = 8 * cfg.n_shards * (2 if cfg.use_attr_channel else 1) + (
+            2 * cfg.n_shards if cfg.use_attr_channel else 0)
+        if launched != {"spmm_ell": per_step}:
+            raise AssertionError(f"{name}: one step launched {launched}, expected {per_step}")
+        out[name] = {"launches_per_step": launched, "step_ms": step_ms,
+                     **_step_gap(loss, {**grads, "emb": grads["emb"][:n]}, ref, ref_grads,
+                                 DIST_OPTION_ZERO_GRADS[name], zero_rel, STEP_TOL[dtype])}
+    emit({"phase": "dist_options", "leg": "C_encoder_options", "mask_epoch": epoch,
+          "options": out, "card": smi})
+    # spmm_ell's new callers, on shard 0: the attribute incidence (the
+    # channel's input, fp32) and the halo's local and boundary operators in
+    # bf16 (the bf16 step)
+    rng = np.random.default_rng(7)
+    d = base.dim
+
+    def x_for(n_cols, dtype=torch.float32):
+        return torch.from_numpy(rng.standard_normal((n_cols, d)).astype(np.float32)).to(
+            dev, dtype)
+
+    kernel = {name: _dist_ell_case(m, diag, x_for(m.n_cols, dtype), cold=True)
+              for name, m, diag, dtype in (
+                  ("incidence", inc0.fwd, None, torch.float32),
+                  ("incidence_transpose", inc0.bwd, None, torch.float32),
+                  ("local_bf16", loc0.fwd, loc0.diag, torch.bfloat16),
+                  ("boundary_bf16", bnd0.fwd, None, torch.bfloat16),
+                  ("boundary_transpose_bf16", bnd0.bwd, None, torch.bfloat16))}
+    emit({"phase": "kernel", "kernel": "dist_option_operators", "shard": 0, "d": d,
+          "spmm_ell": kernel, "card": smi})
+    return {**out, "kernel": kernel}
+
+
+def _dist_debug_nans_leg(smi: str, dev: torch.device) -> dict:
+    """Leg D: ``dwy100k_dist`` at learning rate 1e30 with ``debug_nans``:
+    ``FloatingPointError`` naming epoch 1, agreed over the ranks."""
+    cfg = get_config("dwy100k_dist", **DIST_CUTS).replace(lr=1e30)
+    task = load_task(cfg)
+    t0 = time.perf_counter()
+    try:
+        run(cfg, task=task, device=dev, debug_nans=True)
+    except FloatingPointError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("debug_nans: the poisoned distributed run did not raise")
+    if "epoch 1" not in msg:
+        raise AssertionError(f"debug_nans: {msg!r} does not name epoch 1")
+    out = {"raised": msg[:200], "wall_s": time.perf_counter() - t0}
+    emit({"phase": "dist_options", "leg": "D_debug_nans", **out, "card": smi})
+    return out
+
+
+def phase_dist_options(smi: str, dev: torch.device, exact_stages: dict) -> dict:
+    """The distributed trainer's run options on ``dwy100k_dist`` at full
+    width, through ``driver.run`` / ``driver.evaluate`` on an NCCL group of
+    one rank holding the 8 shards: Leg A, the approximate ring stages
+    (``_dist_approx_leg``); Leg B, checkpoints, SIGTERM and resume,
+    eval-only (``_dist_checkpoint_leg``); Leg C, the encoder options
+    (``_dist_options_leg``); Leg D, ``debug_nans`` (``_dist_debug_nans_leg``)."""
+    return {"approx": _dist_approx_leg(smi, dev, exact_stages),
+            "checkpoints": _dist_checkpoint_leg(smi, dev),
+            "options": _dist_options_leg(smi, dev),
+            "debug_nans": _dist_debug_nans_leg(smi, dev)}
 
 
 def _hits_of(ranks: torch.Tensor) -> tuple:
@@ -3107,6 +3428,7 @@ def main() -> int:
     phase_debug_nans(task, smi, dev)
     dist = phase_dist(smi, dev)
     dist_v7r = phase_dist_v7r(smi, dev)
+    dist_options = phase_dist_options(smi, dev, dist_v7r["stages_s"])
     # one potential update at the ring caller's shape: the v7r run's 4,096
     # pairs, one rank holding the 8 shards, so one launch per update
     k_sink_ring = phase_sinkhorn(smi, dev, s=DIST_V7R_OT_PAIRS, d=256)
@@ -3140,7 +3462,11 @@ def main() -> int:
          **k_spmm, "incidence": incidence, "launches_dist": dist["launches"]["spmm_ell"],
          "launches_dist_per_step": dist["per_step"], "dist_shard_ops": dist["spmm_ell"],
          "launches_dist_v7r": dist_v7r["launches"]["spmm_ell"],
-         "launches_dist_v7r_per_step": dist_v7r["per_step"]["spmm_ell"]},
+         "launches_dist_v7r_per_step": dist_v7r["per_step"]["spmm_ell"],
+         "launches_dist_approx": dist_options["approx"]["launches"]["spmm_ell"],
+         "launches_dist_options": {k: v["launches_per_step"]["spmm_ell"]
+                                   for k, v in dist_options["options"].items() if k != "kernel"},
+         "dist_option_operators": dist_options["options"]["kernel"]},
         {"name": "sinkhorn_fused", "route": "cuda",
          "source": "tpugraph_torch/csrc/sinkhorn_fused.cu",
          "replaces": "tpugraph/kernels/sinkhorn_pallas.py:38",
@@ -3158,6 +3484,9 @@ def main() -> int:
          "launches": approx["shortlist_dist"],
          "launches_fused_v6": fused["v6_fast"]["shortlist_dist"], **k_select["mining"],
          "at_callers": {k: v for k, v in k_select.items() if k != "mining"},
+         "launches_dist_approx": dist_options["approx"]["launches"]["shortlist_dist"],
+         "launches_dist_approx_per_stage": dist_options["approx"]["select_launches_per_stage"],
+         "at_dist_ring_callers": dist_options["approx"]["kernel"],
          "gather_entry": {"launches": approx["shortlist_gather"], "at_callers": k_gather}},
         {"name": "spmm_sorted", "route": "cuda", "source": "tpugraph_torch/csrc/spmm_sorted.cu",
          "replaces": "tpugraph/kernels/spmm.py:33",

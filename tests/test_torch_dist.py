@@ -27,6 +27,7 @@ package's and against itself across shard and rank counts, on the CPU
 """
 
 import json
+import os
 from types import SimpleNamespace
 
 import jax
@@ -220,31 +221,43 @@ TWO_RANK_CFG = get_config("base", n_shards=4, dim=16, epochs=3, eval_every=1, k_
 TWO_RANK_TASK = dict(seed=9, n_ent=120, n_rel=5, n_triples=500)
 
 
+# one step with the encoder's options on the v7r surface: the attribute
+# channel, dropout, bf16
+OPTIONS_CFG = SURFACE.replace(use_attr_channel=True, dropout=0.3, param_dtype="bfloat16")
+# a checkpointed run that SIGTERM stops: mined negatives from epoch 3, the
+# signal reaching rank 1 alone at its 5th step (epoch 4, mid-interval)
+PREEMPT_CFG = get_config("base", n_shards=4, dim=16, epochs=8, eval_every=0, k_neg=4,
+                         neg_every=3, neg_mode="hard", neg_approx=True, checkpoint_every=2,
+                         syn_n_ent=120)
+
+
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
     """One spawn of two gloo ranks holding 4 shards, and the same work on
-    one in-process rank."""
-    args = (4, TWO_RANK_CFG, TWO_RANK_TASK, SURFACE.replace(epochs=4))
-    ranks = mp_worker.run_ranks("check", 2, tmp_path_factory.mktemp("ranks"), *args,
-                                timeout=300.0)
-    return ranks, mp_worker.check_mode(*args)
+    one in-process rank; the spawn's checkpoint directory."""
+    tmp = tmp_path_factory.mktemp("ranks")
+    args = (4, TWO_RANK_CFG, TWO_RANK_TASK, SURFACE.replace(epochs=4), OPTIONS_CFG)
+    ck = str(tmp / "ck")
+    ranks = mp_worker.run_ranks("check", 2, tmp, *args, (PREEMPT_CFG, ck, 5, 1), timeout=300.0)
+    return ranks, mp_worker.check_mode(*args), ck
 
 
 @pytest.mark.parametrize("impl", ["ell", "sorted"])
 def test_two_ranks_halo_equals_one(two_ranks, impl):
-    ranks, one = two_ranks
+    ranks, one, _ = two_ranks
     for i in range(2):  # output, gradient
         got = torch.cat([r["halo"][impl][i] for r in ranks])
         torch.testing.assert_close(got, one["halo"][impl][i], rtol=1e-5, atol=1e-6)
 
 
 def test_two_ranks_ring_equals_one(two_ranks):
-    ranks, one = two_ranks
+    ranks, one, _ = two_ranks
     for r in ranks:
-        for k in ("cityblock", "sqeuclidean", "tiny_pool", "csls"):
+        for k in ("cityblock", "sqeuclidean", "tiny_pool", "csls", "approx_cityblock",
+                  "approx_sqeuclidean", "approx_csls_cityblock", "approx_csls_sqeuclidean"):
             assert torch.equal(r["ring"][k], one["ring"][k]), k
-        assert r["ring"]["hits"] == one["ring"]["hits"]
-        assert r["ring"]["hits_csls"] == one["ring"]["hits_csls"]
+        for k in ("hits", "hits_csls", "hits_approx", "hits_approx_csls"):
+            assert r["ring"][k] == one["ring"][k], k
         for s in mp_worker.OT_SIZES:  # loss, the table's gradient, f, g: whole on each rank
             for got, want in zip(r["ring"][f"ot_{s}"], one["ring"][f"ot_{s}"]):
                 assert torch.isfinite(got).all()
@@ -255,7 +268,7 @@ def test_two_ranks_v7r_surface_equals_one(two_ranks):
     """The ring OT computed in part on each rank keeps the replicated-loss
     convention: the loss and every gradient (the table's rows, the shared
     weights summed once, the heads' not summed) equal one rank's."""
-    ranks, one = two_ranks
+    ranks, one, _ = two_ranks
     want = one["surface"]["step"]
     for r in ranks:
         assert float(r["surface"]["step"]["loss"]) == pytest.approx(float(want["loss"]),
@@ -274,7 +287,7 @@ def test_two_ranks_v7r_surface_equals_one(two_ranks):
 
 
 def test_two_ranks_train_as_one_with_the_per_device_rate(two_ranks):
-    ranks, one = two_ranks
+    ranks, one, _ = two_ranks
     for r in ranks:
         np.testing.assert_allclose(r["fit"]["losses"], one["fit"]["losses"], rtol=1e-5)
         for k, v in one["fit"]["params"].items():
@@ -288,27 +301,63 @@ def test_two_ranks_train_as_one_with_the_per_device_rate(two_ranks):
         assert rec["edges_per_s_chip"] == rec["edges_per_s"]
 
 
+def test_two_ranks_step_with_the_encoder_options_equals_one(two_ranks):
+    """The attribute channel (its replicated weights summed over the
+    ranks), dropout (each rank's rows of one global mask) and bf16 (the
+    halo exchange's rows in bf16): the loss and every gradient equal one
+    rank's within rel 1e-5."""
+    ranks, one, _ = two_ranks
+    want = one["options"]
+    assert {"margin", "ae", "sinkhorn", "rel", "attr"} == set(want["aux"])
+    got = {k: v for k, v in ranks[0]["options"]["grads"].items() if k != "emb"}
+    got["emb"] = torch.cat([r["options"]["grads"]["emb"] for r in ranks])
+    assert set(got) == set(want["grads"])
+    for r in ranks:
+        assert float(r["options"]["loss"]) == pytest.approx(float(want["loss"]), rel=1e-5)
+    for k, v in want["grads"].items():
+        assert float((got[k] - v).norm() / v.norm()) < 1e-5, k
+
+
+def test_two_ranks_agree_on_a_sigterm_and_one_rank_resumes(two_ranks):
+    """SIGTERM reaching rank 1 alone stops both ranks at the same epoch
+    (the agreed latch), both save there (rank 0 writes), and one rank
+    resumes the two ranks' checkpoint to the uninterrupted run's losses."""
+    ranks, _, ck = two_ranks
+    assert [r["preempt"]["steps"] for r in ranks] == [5, 5]  # epochs 0-4
+    assert [r["preempt"]["saves"] for r in ranks] == [2, 2]  # epochs 2 and 4
+    assert ranks[0]["preempt"]["losses"] == ranks[1]["preempt"]["losses"]
+    assert sorted(os.listdir(ck)) == ["ckpt-2.pt", "ckpt-4.pt", "params.pt"]
+    task = synthetic_align_task(**TWO_RANK_TASK)
+    full = fit_distributed(PREEMPT_CFG, task=task, device="cpu")
+    resumed = fit_distributed(PREEMPT_CFG.replace(checkpoint_dir=ck), task=task, device="cpu")
+    assert resumed.timings["start_epoch"] == 5  # mid-interval: the saved negatives
+    np.testing.assert_allclose(ranks[0]["preempt"]["losses"] + resumed.losses, full.losses,
+                               rtol=1e-4)
+    assert resumed.metrics["final_loss"] == pytest.approx(full.metrics["final_loss"], rel=1e-4)
+
+
 REFUSED = {
+    "steps_per_call": dict(steps_per_call=4, neg_every=4, epochs=8),
+    "profile_dir": dict(profile_dir="prof"),
     "feature_shards > 1": dict(feature_shards=2),
     "slice_shards > 1": dict(slice_shards=2),
     "halo_grouped": dict(halo_grouped=True),
-    "checkpoint": dict(checkpoint_dir="ck", checkpoint_every=2),
-    "attribute channel": dict(use_attr_channel=True),
-    "approximate ring stages": dict(neg_approx=True),
-    "bf16": dict(param_dtype="bfloat16"),
-    "steps_per_call": dict(steps_per_call=4, neg_every=4, epochs=8),
-    "profile_dir": dict(profile_dir="prof"),
 }
 
 
 def test_unported_options_refuse_and_the_jax_refusals_come_first():
     task = synthetic_align_task(**TASK)
     assert len(REFUSED) == len(UNPORTED)
-    more = [dict(eval_approx_k=16), dict(dropout=0.3), dict(l2_normalize=True)]
-    for over in [*REFUSED.values(), *more]:
+    for (what, _), (name, over) in zip(UNPORTED, REFUSED.items()):
+        assert name in what  # in ROADMAP.md's order
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             fit_distributed(get_config("base", **{**KW, "n_shards": 2, **over}), task=task,
                             device="cpu")
+    ported = [dict(checkpoint_dir="ck", checkpoint_every=2), dict(use_attr_channel=True),
+              dict(neg_approx=True), dict(eval_approx_k=16), dict(param_dtype="bfloat16"),
+              dict(dropout=0.3), dict(l2_normalize=True)]
+    for over in ported:  # no longer refused
+        check_distributed(get_config("base", **{**KW, "n_shards": 2, **over}), task)
     for over, what in ((dict(param_dtype="float16"), "param_dtype"),
                        (dict(halo_grouped=True, n_shards=3), "even n_shards"),
                        (dict(highway=True, hidden=8), "hidden == dim"),
@@ -322,8 +371,6 @@ def test_unported_options_refuse_and_the_jax_refusals_come_first():
                        (dict(use_rel_head=True), "relation head")):
         with pytest.raises(ValueError, match=what):
             check_distributed(get_config("base", **{**KW, "n_shards": 2, **over}), bare)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        run(get_config("base", n_shards=2, **KW), task=task, device="cpu", debug_nans=True)
     for mode in mp_worker.REHEARSALS:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             mp_worker.run_ranks(mode, 2, "unused")

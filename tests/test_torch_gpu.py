@@ -5,8 +5,9 @@ the card: the attribute incidence's SpMM, a GCN layer on config highway's
 operator, steps of recipes v6 and v7r, bf16 and sorted steps, captured
 steps, ``debug_nans`` on a captured interval, and the approximate search
 paths against the same calls on the host; the distributed trainer's
-shard operators and steps (margin, and recipe v7r's surface with the ring
-OT), and its ring stages.
+shard operators and steps (margin, recipe v7r's surface with the ring OT,
+the attribute channel, bf16), its ring stages (exact and shortlisted, at
+``dwy100k_dist``'s block sizes) and a resume.
 
 Marked ``gpu``; each test skips without a CUDA device.  This file imports
 neither JAX nor the JAX package, so on a machine with a card (and no JAX)
@@ -1274,3 +1275,127 @@ def test_distributed_v7r_step_on_the_card_matches_the_host(cuda):
     assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-4)
     for k, g in out["cpu"][1].items():
         assert float((out["cuda"][1][k] - g).norm() / g.norm()) < 1e-4, k
+
+
+def _stage_sets_agree(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.sort(1).values == want.sort(1).values).all(1).float().mean())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [100, 150])
+def test_ring_approx_mining_on_card_matches_the_host(cuda, k):
+    """Shortlisted ring mining at ``dwy100k_dist``'s block size (100,000
+    candidates over 8 shards: blocks of 12,500), d 256, on one NCCL rank
+    against the host: k 100 gives shortlists of 200 (one select-and-rerank
+    launch per block), k 150 of 300 (above the kernel's queue: the
+    selection tile, ``torch.topk`` and one gather launch per block).  The
+    same sets on ≥ 99 % of rows (a near tie may flip: PERF.md §2)."""
+    rng = np.random.default_rng(k)
+    q = torch.from_numpy(rng.standard_normal((2000, 256)).astype(np.float32))
+    c = torch.from_numpy(rng.standard_normal((100_000, 256)).astype(np.float32))
+    ex = torch.from_numpy(rng.integers(0, 100_000, 2000))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        with make_mesh(8, dev) as mesh:
+            before = (shortlist_dist.select_launches, shortlist_dist.launches)
+            out[dev.type] = ring_knn(q.to(dev), c.to(dev), ex.to(dev), k, mesh,
+                                     approx=True).cpu()
+            launched = (shortlist_dist.select_launches - before[0],
+                        shortlist_dist.launches - before[1])
+        if dev.type == "cuda":
+            assert launched == ((8, 0) if 2 * k <= shortlist_dist.QUEUE_MAX else (0, 8))
+    assert not (out["cuda"] == ex[:, None]).any()
+    assert _stage_sets_agree(out["cuda"], out["cpu"]) >= 0.99
+
+
+@pytest.mark.gpu
+def test_ring_approx_eval_on_card_matches_the_host(cuda, approx_k=128, csls_k=10):
+    """The shortlisted CSLS ring eval at ``dwy100k_dist``'s block size
+    (35,000 test pairs over 8 shards: blocks of 4,375), d 128, shortlists of
+    128 (the hubness pair and the ranks: one launch per direction and block
+    each), on the card against the host: Hits@k and MRR within 2e-3.  (The
+    route above the queue runs in the mining test; the host's plain
+    selection at this size takes about a minute.)"""
+    rng = np.random.default_rng(approx_k)
+    base = rng.standard_normal((35_000, 128)).astype(np.float32)
+    emb = torch.from_numpy(np.concatenate(
+        [base, base + 0.8 * rng.standard_normal((35_000, 128)).astype(np.float32)]))
+    pairs = np.stack([np.arange(35_000), 35_000 + np.arange(35_000)], 1)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        with make_mesh(8, dev) as mesh:
+            before = (shortlist_dist.select_launches, shortlist_dist.launches)
+            out[dev.type] = ring_hits_at_k(emb.to(dev), pairs, mesh, csls_k=csls_k,
+                                           approx_k=approx_k)
+            launched = (shortlist_dist.select_launches - before[0],
+                        shortlist_dist.launches - before[1])
+        if dev.type == "cuda":
+            assert launched == ((32, 0) if csls_k else (0, 16))
+    for key, v in out["cpu"].items():
+        assert out["cuda"][key] == pytest.approx(v, abs=2e-3), key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("option", ["channel", "bf16"])
+def test_distributed_option_step_on_the_card_matches_the_host(cuda, option):
+    """One distributed step (4 shards, one NCCL rank) with the attribute
+    channel (fp32: loss rel 1e-4, each gradient relative L2 1e-4) or in
+    bf16 (PERF.md §2's bf16 step limits; gc2.b, 0 by construction, as noise
+    under sqrt(n)·2^-8 of the largest entry) against the same step on the
+    host."""
+    task, _ = _shard_graph()
+    over = dict(use_attr_channel=True) if option == "channel" else dict(param_dtype="bfloat16")
+    cfg = get_config("base", n_shards=4, dim=128, k_neg=10, **over)
+    pairs = torch.as_tensor(task.train_pairs, dtype=torch.int64)
+    neg_l, neg_r = sample_uniform_negatives(torch.Generator().manual_seed(0), pairs,
+                                            task.kg1.n_ent, task.n_ent, cfg.k_neg)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        batch = {"pairs": pairs.to(dev), "neg_l": neg_l.to(dev), "neg_r": neg_r.to(dev)}
+        with make_mesh(4, dev) as mesh:
+            parts = dist_parts(cfg, task, mesh)
+            before = spmm_ell.launches
+            loss = parts.grads(batch)
+            out[dev.type] = (loss.item(), {k: p.grad.cpu() for k, p in
+                                           parts.model.named_parameters()},
+                             spmm_ell.launches - before)
+    assert out["cuda"][2] == (32 + 32 + 8 if option == "channel" else 32)
+    host = out["cpu"][1]
+    scale = max(float(g.abs().max()) for g in host.values())
+    if option == "bf16":
+        assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=2 ** -7)
+        for k, g in host.items():
+            got = out["cuda"][1][k]
+            if k == "gc2.b":
+                noise = max(float(got.abs().max()), float(g.abs().max()))
+                assert noise <= math.sqrt(task.n_ent) * 2 ** -8 * scale
+            else:
+                assert float((got - g).norm() / g.norm()) < 1e-1, k
+        return
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-4)
+    for k, g in host.items():
+        got = out["cuda"][1][k]
+        if k in ("gc2.b", "ae_encoder.gc2.b"):
+            assert float(got.abs().max()) < 1e-5 * scale, k
+        else:
+            assert float((got - g).norm() / g.norm()) < 1e-4, k
+
+
+@pytest.mark.gpu
+def test_distributed_resume_on_the_card(cuda, tmp_path):
+    """A ``dwy100k_dist``-shaped run on the card (8 shards, one NCCL rank,
+    shortlisted mining) stopped by SIGTERM in the middle of an interval and
+    resumed: the final loss within rel 1e-4 of the uninterrupted run's."""
+    task, _ = _shard_graph()
+    cfg = get_config("dwy100k_dist", dim=128, k_neg=10, epochs=8, neg_every=3, eval_every=0,
+                     neg_approx=True, checkpoint_every=2)
+    full = run(cfg, task=task, device=cuda)
+    cut = cfg.replace(checkpoint_dir=str(tmp_path / "ck"))
+    undo = mp_worker.sigterm_at_call(5)  # epoch 4, the middle of the interval 3-5
+    try:
+        first = run(cut, task=task, device=cuda)
+    finally:
+        undo()
+    resumed = run(cut, task=task, device=cuda)
+    assert first.timings["steps"] == 5 and resumed.timings["start_epoch"] == 5
+    assert resumed.metrics["final_loss"] == pytest.approx(full.metrics["final_loss"], rel=1e-4)

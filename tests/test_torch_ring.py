@@ -180,12 +180,13 @@ def test_ring_sinkhorn_loss_and_grad_match_jax_and_single_device(n_shards, s):
 
 
 def test_unported_ring_stages_refuse():
+    """Every ring stage is ported (the approximate ones in
+    ``tests/test_torch_ring_approx.py``); what is still refused: an
+    unknown metric, and an OT solve of no iteration (as in JAX)."""
     q, c, ex = map(torch.from_numpy, _data())
     with make_mesh(2, torch.device("cpu")) as mesh:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ring.ring_knn(q, c, ex, 5, mesh, approx=True)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ring.ring_hits_at_k(c, np.array([[0, 60]]), mesh, approx_k=16)
+        with pytest.raises(ValueError, match="unknown metric"):
+            ring.ring_knn(q, c, ex, 5, mesh, metric="cosine", approx=True)
         with pytest.raises(ValueError, match="n_iters"):
             ring.ring_sinkhorn_align_loss(c, torch.tensor([[0, 60]]), mesh, n_iters=0)
         with pytest.raises(ValueError, match="n_iters"):

@@ -5,7 +5,8 @@
 channel's beside it), or of the distributed trainer (``AlignGCN``'s
 leaves, its ``emb`` the padded (n_pad, dim) table, which
 ``dist/trainer.py::DistEncoder.load_full`` cuts into each rank's rows,
-and the heads' ``rel`` and ``attr_out`` beside them), as
+the heads' ``rel`` and ``attr_out`` and the attribute channel's
+``attr_emb``, ``ae_gc1`` and ``ae_gc2`` beside them), as
 nested dicts of numpy arrays (the caller runs
 ``jax.tree_util.tree_map(np.asarray, params)``) and returns the port's
 parameters: the matching state dict, with the same leaves and layouts.  A
@@ -41,8 +42,9 @@ def _leaves(tree: dict, layers: dict[str, str], top: tuple[str, ...] = ()) -> di
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
-    """{"emb", "gc1", "gc2"[, "hw1", "hw2"][, "rel"][, "attr_out"]} ->
-    {"emb", "gc1.w", ..., "rel_head.rel", "attr_head.w", "attr_head.b"};
+    """{"emb", "gc1", "gc2"[, "hw1", "hw2"][, "rel"][, "attr_out"][, "attr_emb",
+    "ae_gc1", "ae_gc2"]} -> {"emb", "gc1.w", ..., "rel_head.rel", "attr_head.w",
+    "attr_head.b", "ae_encoder.attr_emb", "ae_encoder.gc1.w", ...};
     {"encoder", ["rel_head"], ["attr_head"], ["ae_encoder"]} ->
     {"encoder.emb", ..., "rel_head.rel", "attr_head.w", "attr_head.b",
     "ae_encoder.attr_emb", "ae_encoder.gc1.w", ...}."""
@@ -66,9 +68,12 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
             out.update({f"{AE_PREFIX}{k}": v for k, v in ae.items()})
     else:
         out = _leaves(tree, {"gc1": "gc1", "gc2": "gc2", "hw1": "hw1", "hw2": "hw2",
-                             "attr_out": "attr_head"}, ("emb", "rel"))
+                             "attr_out": "attr_head", "ae_gc1": f"{AE_PREFIX}gc1",
+                             "ae_gc2": f"{AE_PREFIX}gc2"}, ("emb", "rel", "attr_emb"))
         if "rel" in out:
             out["rel_head.rel"] = out.pop("rel")
+        if "attr_emb" in out:
+            out[f"{AE_PREFIX}attr_emb"] = out.pop("attr_emb")
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
 
 

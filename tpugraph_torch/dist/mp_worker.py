@@ -16,10 +16,14 @@ CSLS, and the ring OT's potentials, loss and gradient (``ring_mode``),
 ``fit_distributed`` (``fit_mode``), and with a config of recipe v7r's
 surface (bootstrapping, the OT head on a subsample, the relation and
 attribute heads, CSLS) one step on an injected batch (``surface_batch``)
-and a run (``surface_mode``).  The JAX worker's rehearsal modes
-(checkpoint save and resume, the production surface with tensor
-parallelism, and the attribute-channel and slice legs) exercise parts the
-port refuses: they raise ``NotImplementedError``.
+and a run (``surface_mode``); the approximate ring stages; one step with
+the encoder's options (``step_mode``); and a checkpointed run that a
+SIGTERM reaching one rank stops (``preempt_mode``, ``sigterm_at_call``).
+The JAX worker's rehearsal modes (checkpoint save and resume across
+processes, the production surface with tensor parallelism, and the
+attribute-channel and slice legs) run their own configurations, which the
+port's multi-process tests do not mirror yet: they raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-# the JAX worker's modes over parts that are not ported yet (ROADMAP.md)
+# the JAX worker's rehearsal modes, not mirrored yet (ROADMAP.md)
 REHEARSALS = ("fit_checkpoint", "fitprod", "fitprod2")
 
 
@@ -106,6 +110,12 @@ def ring_mode(n_shards: int, seed: int = 3) -> dict:
                "csls": ring_knn(q, c, ex, 5, mesh, csls_k=7),
                "hits": ring_hits_at_k(emb, pairs, mesh),
                "hits_csls": ring_hits_at_k(emb, pairs, mesh, csls_k=10)}
+        for metric in ("cityblock", "sqeuclidean"):  # the approximate stages
+            out[f"approx_{metric}"] = ring_knn(q, c, ex, 5, mesh, metric=metric, approx=True)
+            out[f"approx_csls_{metric}"] = ring_knn(q, c, ex, 5, mesh, metric=metric, csls_k=7,
+                                                    approx=True)
+        out["hits_approx"] = ring_hits_at_k(emb, pairs, mesh, approx_k=8)
+        out["hits_approx_csls"] = ring_hits_at_k(emb, pairs, mesh, csls_k=10, approx_k=8)
         for s in OT_SIZES:
             table, ot_pairs = ot_pairs_of(s, seed)
             x = table.clone().requires_grad_()
@@ -152,10 +162,10 @@ def surface_batch(cfg, task, seed: int = 5, device: str | torch.device = "cpu") 
     return batch
 
 
-def surface_mode(n_shards: int, cfg, task_kw: dict) -> dict:
-    """One step of ``cfg`` on ``surface_batch`` (its loss, terms and the
-    rank's gradients: the table's own rows, the rest whole) and a run of
-    ``cfg`` (``fit_mode``)."""
+def step_mode(n_shards: int, cfg, task_kw: dict, mask_epoch: int | None = None) -> dict:
+    """One step of ``cfg`` on ``surface_batch`` (with dropout, epoch
+    ``mask_epoch``'s keep mask): its loss, terms and the rank's gradients
+    (the table's own rows, the rest whole)."""
     from tpugraph_torch.data import synthetic_align_task
     from tpugraph_torch.dist.mesh import make_mesh
     from tpugraph_torch.dist.trainer import dist_parts
@@ -163,19 +173,69 @@ def surface_mode(n_shards: int, cfg, task_kw: dict) -> dict:
     task = synthetic_align_task(**task_kw)
     with make_mesh(n_shards, torch.device("cpu")) as mesh:
         parts = dist_parts(cfg.replace(n_shards=n_shards), task, mesh)
-        loss = parts.grads(surface_batch(cfg, task))
-        step = {"loss": loss, "aux": parts.aux,
+        mask = None if mask_epoch is None else parts.drop_mask(mask_epoch)
+        loss = parts.grads(surface_batch(cfg, task), mask)
+        return {"loss": loss, "aux": parts.aux,
                 "grads": {k: p.grad for k, p in parts.model.named_parameters()}}
-    return {"step": step, "fit": fit_mode(cfg.replace(n_shards=n_shards), task_kw)}
 
 
-def check_mode(n_shards: int, cfg, task_kw: dict, surface_cfg=None) -> dict:
-    """The halo SpMM, the ring stages, ``fit_distributed`` and, given
-    ``surface_cfg``, ``surface_mode`` in one spawn."""
+def surface_mode(n_shards: int, cfg, task_kw: dict) -> dict:
+    """One step of ``cfg`` (``step_mode``) and a run of ``cfg``
+    (``fit_mode``)."""
+    return {"step": step_mode(n_shards, cfg, task_kw),
+            "fit": fit_mode(cfg.replace(n_shards=n_shards), task_kw)}
+
+
+def sigterm_at_call(n: int, rank: int | None = None):
+    """Wrap ``DistParts.grads`` so that its n-th call (on ``rank`` only, on
+    every rank when None) first sends this process SIGTERM: a preemption
+    that reaches one rank in the middle of a run.  Returns the undo."""
+    import signal
+
+    from tpugraph_torch.dist import trainer
+
+    orig, calls = trainer.DistParts.grads, [0]
+
+    def grads(self, *args, **kw):
+        calls[0] += 1
+        if calls[0] == n and (rank is None or self.op.mesh.rank == rank):
+            os.kill(os.getpid(), signal.SIGTERM)
+        return orig(self, *args, **kw)
+
+    trainer.DistParts.grads = grads
+    return lambda: setattr(trainer.DistParts, "grads", orig)
+
+
+def preempt_mode(cfg, task_kw: dict, ckpt_dir: str, stop_call: int, stop_rank: int) -> dict:
+    """``cfg`` with checkpoints in ``ckpt_dir``, SIGTERM reaching rank
+    ``stop_rank`` alone at its ``stop_call``-th step: the steps each rank
+    ran, its losses and its saves."""
+    from tpugraph_torch.data import synthetic_align_task
+    from tpugraph_torch.dist.trainer import fit_distributed
+
+    undo = sigterm_at_call(stop_call, stop_rank)
+    try:
+        res = fit_distributed(cfg.replace(checkpoint_dir=ckpt_dir), task=synthetic_align_task(
+            **task_kw), device="cpu")
+    finally:
+        undo()
+    return {"steps": res.timings["steps"], "losses": res.losses, "saves": res.timings["saves"]}
+
+
+def check_mode(n_shards: int, cfg, task_kw: dict, surface_cfg=None, options_cfg=None,
+               preempt: tuple | None = None) -> dict:
+    """The halo SpMM, the ring stages (exact and approximate),
+    ``fit_distributed`` and, given ``surface_cfg``, ``surface_mode``, given
+    ``options_cfg``, its ``step_mode``, and given ``preempt`` (``preempt_mode``'s
+    arguments after ``task_kw``) a run that a SIGTERM stops, in one spawn."""
     out = {"halo": halo_mode(n_shards), "ring": ring_mode(n_shards),
            "fit": fit_mode(cfg, task_kw)}
     if surface_cfg is not None:
         out["surface"] = surface_mode(n_shards, surface_cfg, task_kw)
+    if options_cfg is not None:  # the encoder's options, dropout with epoch 1's mask
+        out["options"] = step_mode(n_shards, options_cfg, task_kw, mask_epoch=1)
+    if preempt is not None:
+        out["preempt"] = preempt_mode(preempt[0], task_kw, *preempt[1:])
     return out
 
 
@@ -201,8 +261,8 @@ def run_ranks(mode: str, world: int, tmp_dir, *args, timeout: float = 120.0) -> 
     results in rank order.  Raises if a rank fails or outlives ``timeout``."""
     if mode in REHEARSALS:
         raise NotImplementedError(
-            f"the multi-process rehearsal mode {mode!r} runs parts of the distributed "
-            f"trainer that are not ported yet; see ROADMAP.md")
+            f"the multi-process rehearsal mode {mode!r} of the JAX worker is not ported yet; "
+            f"see ROADMAP.md")
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {sorted(MODES)}")
     tmp_dir = str(tmp_dir)

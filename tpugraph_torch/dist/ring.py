@@ -1,8 +1,8 @@
 """Ring-blockwise computations over the graph shards (counterpart of
-``tpugraph/dist/ring.py``): the exact hard-negative mining (``ring_knn``),
-the exact Hits@k (``ring_hits_at_k``), both raw or CSLS, and the Sinkhorn
-OT head (``ring_sinkhorn_potentials``, ``ring_sinkhorn_align_loss``) of
-the distributed trainer.
+``tpugraph/dist/ring.py``): the hard-negative mining (``ring_knn``) and the
+Hits@k (``ring_hits_at_k``), raw or CSLS, exact or approximate, and the
+Sinkhorn OT head (``ring_sinkhorn_potentials``, ``ring_sinkhorn_align_loss``)
+of the distributed trainer.
 
 Every set is cut into S blocks, one per shard.  Rank r owns the query and
 candidate blocks of its shards (its chunk: ``per_rank`` blocks, padded
@@ -37,7 +37,27 @@ all-gathered at the end, so every rank returns the same answer.
   end.  Value and gradient are whole on every rank (the trainer's
   replicated loss).
 
-Not ported yet, and refused: the approximate stages (ROADMAP.md).
+* The approximate stages (``approx`` in ``ring_knn``, ``approx_k`` in
+  ``ring_hits_at_k``; the trainer's ``neg_approx`` and ``eval_approx_k``)
+  fold one shard block of b rows per hop, as the JAX ring does with one
+  block per device, so S shards on one rank shortlist from the blocks JAX
+  cuts at S devices, and R ranks give what one gives.  Each block's
+  shortlist is one ``kernels/shortlist_dist.py::select_rerank`` call over
+  the rank's real queries and the block's real rows (on the card one
+  select-and-rerank launch; on the host its plain version); padding and
+  the excluded partner are masked by index, where the JAX ring pads the
+  candidates with 1e17 sentinel rows.  Mining without CSLS shortlists
+  k2 = min(b, max(2k, k + 8)) by the sqeuclidean score and keeps the k
+  best by the exact metric; with CSLS the score stays exact (the exact
+  hubness, then 2·d − r): sqeuclidean through the kernel with a = 2, bias
+  r, each block keeping its own top k; cityblock in the exact path's L1
+  tiles, whose merge is the same.  The history eval shortlists
+  min(b, approx_k) per block by the sqeuclidean score (2·d₂ − r₂ with
+  CSLS) and counts within it by exact L1 (its CSLS score), the hubness
+  pair (r₂, r₁) from ``_ring_hubness_approx`` (each candidate's csls_k
+  nearest queries by d₂, their L1 carried along, as
+  ``train/negatives.py::_hubness_both_approx``).  The selection is exact
+  (``approx_min_k`` is approximate on the TPU, exact on the CPU).
 """
 
 from __future__ import annotations
@@ -50,6 +70,7 @@ import torch
 import torch.distributed as dist
 
 from tpugraph_torch.dist.mesh import ShardMesh
+from tpugraph_torch.kernels.shortlist_dist import check_metric, select_rerank
 from tpugraph_torch.kernels.sinkhorn_fused import sinkhorn_potential_update, sq_norms
 from tpugraph_torch.train.eval import dist_tile, rank_metrics
 from tpugraph_torch.train.losses import pairwise_l1
@@ -57,10 +78,6 @@ from tpugraph_torch.train.ot import _normalized_sides
 
 BLOCK_Q = 4096  # rows per tile: a (4,096, C_block) fp32 tile and its keys
 _INF_BITS = 0x7F800000  # float32 +inf
-
-
-def _refuse(what: str) -> None:
-    raise NotImplementedError(f"the ring {what} is not ported yet; see ROADMAP.md")
 
 
 def _rotate(held: tuple[torch.Tensor, ...], mesh: ShardMesh) -> tuple[torch.Tensor, ...]:
@@ -112,6 +129,28 @@ def _valid(n: int, src: int, mesh: ShardMesh) -> int:
     return max(0, min(n - src * w, w))
 
 
+def _block_rows(n: int, g: int, b: int) -> int:
+    """The real rows of global block ``g`` of an n-row set cut into blocks
+    of b rows."""
+    return max(0, min(n - g * b, b))
+
+
+def _local(ids: torch.Tensor, base: int, nv: int) -> torch.Tensor:
+    """Global row ids as positions in the block of rows [base, base + nv),
+    -1 outside it (the select kernel's "no exclusion")."""
+    loc = ids - base
+    return torch.where((loc >= 0) & (loc < nv), loc, torch.full_like(loc, -1))
+
+
+def _merge(keys: torch.Tensor, new: torch.Tensor, *payload) -> tuple:
+    """The k least of ``keys`` and ``new`` (rows of int64 ``_keys``), and
+    each (old, new) pair of ``payload`` taken at the same places."""
+    both = torch.cat([keys, new], dim=1)
+    pos = torch.topk(both, keys.shape[1], dim=1, largest=False, sorted=True).indices
+    return (both.gather(1, pos),
+            *(torch.cat(p, dim=1).gather(1, pos) for p in payload))
+
+
 def _chunk(t: torch.Tensor, mesh: ShardMesh) -> torch.Tensor:
     """The rank's chunk of ``t``, padded with zero rows to per_rank·b."""
     b, r0 = _rank_rows(t.shape[0], mesh)
@@ -150,6 +189,45 @@ def _ring_hubness(cands: torch.Tensor, q: torch.Tensor, k: int, metric: str,
     return torch.where(torch.isfinite(r), r, torch.zeros_like(r))
 
 
+def _ring_hubness_approx(cands: torch.Tensor, q: torch.Tensor, k: int,
+                         mesh: ShardMesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """(r_sq, r_l1) of the rank's chunk of ``cands``: each candidate's k
+    nearest of all of ``q``'s rows by the sqeuclidean score, selected per
+    query block (one ``select_rerank`` with the candidates as its queries,
+    the L1 distance of each entry carried along) and merged keyed on
+    (d₂, query index); their mean d₂ and mean L1 over the entries found
+    (fewer than k where the pool is smaller), 0 on padding rows: the JAX
+    ring's ``_ring_hubness_approx_body``, in the order of
+    ``train/negatives.py::_hubness_both_approx``."""
+    n_q = q.shape[0]
+    bq, _ = _rank_rows(n_q, mesh)
+    own = _chunk(cands, mesh)
+    nc = _valid(cands.shape[0], mesh.rank, mesh)
+    init = (torch.tensor(_INF_BITS, dtype=torch.int64) << 32).to(q.device)
+    keys = init.expand(nc, k).clone()
+    v2 = own.new_zeros((nc, k))
+    l1 = own.new_zeros((nc, k))
+
+    def visit(src, held):
+        nonlocal keys, v2, l1
+        for j in range(mesh.per_rank):
+            g = src * mesh.per_rank + j
+            nv = _block_rows(n_q, g, bq)
+            if nv == 0 or nc == 0:
+                continue
+            sidx, sv, sl1 = select_rerank(own[:nc], held[0][j * bq:j * bq + nv], min(k, nv),
+                                          rerank="cityblock")
+            keys, v2, l1 = _merge(keys, _keys(sv, g * bq + sidx), (v2, sv), (l1, sl1))
+
+    _ring_pass((_chunk(q, mesh),), mesh, visit)
+    found = (keys >> 32) != _INF_BITS
+    cnt = found.sum(dim=1).clamp_min(1)
+    r_sq, r_l1 = own.new_zeros(own.shape[0]), own.new_zeros(own.shape[0])
+    r_sq[:nc] = torch.where(found, v2, 0.0).sum(dim=1) / cnt
+    r_l1[:nc] = torch.where(found, l1, 0.0).sum(dim=1) / cnt
+    return r_sq, r_l1
+
+
 def ring_knn(q: torch.Tensor, cands: torch.Tensor, exclude: torch.Tensor, k: int,
              mesh: ShardMesh, *, metric: str = "cityblock", csls_k: int = 0,
              approx: bool = False) -> torch.Tensor:
@@ -158,31 +236,54 @@ def ring_knn(q: torch.Tensor, cands: torch.Tensor, exclude: torch.Tensor, k: int
     score, the hubness over all of ``q``), ``exclude[i]`` (its partner, -1
     for none) masked out; the same sets as ``blockwise_knn_l1``, with its
     fill (a column without a real candidate, or the masked partner in an
-    exhausted pool, takes the row's best)."""
-    if approx:
-        _refuse("approximate mining")
+    exhausted pool, takes the row's best).  ``approx``: each shard block
+    shortlisted (see the module docstring), the JAX ring's
+    ``_ring_topk_body(approx=True)``."""
+    check_metric(metric)
     c = cands.shape[0]
     bc, _ = _rank_rows(c, mesh)
     qs, ex = _chunk(q, mesh), _chunk(exclude, mesh)
+    nq = _valid(q.shape[0], mesh.rank, mesh)
     held = (_chunk(cands, mesh),)
     if csls_k > 0:
         held += (_ring_hubness(cands, q, csls_k, metric, mesh),)
     init = (torch.tensor(_INF_BITS, dtype=torch.int64) << 32).to(q.device)
     keys = init.expand(qs.shape[0], k).clone()
+    k2 = min(bc, max(2 * k, k + 8))
+
+    def exact(held, j, gidx, cb):
+        for a in range(0, qs.shape[0], BLOCK_Q):
+            d = dist_tile(qs[a:a + BLOCK_Q], cb, metric)
+            if csls_k > 0:
+                d = 2.0 * d - held[1][None, j * bc:(j + 1) * bc]
+            d.masked_fill_((gidx[None, :] >= c) | (gidx[None, :] == ex[a:a + BLOCK_Q, None]),
+                           float("inf"))
+            keys[a:a + BLOCK_Q] = _merge(keys[a:a + BLOCK_Q], _keys(d, gidx.expand_as(d)))[0]
+
+    def shortlisted(held, j, g, cb):
+        nv = _block_rows(c, g, bc)
+        if nv == 0 or nq == 0:
+            return
+        rows, loc_ex = cb[:nv], _local(ex[:nq], g * bc, nv)
+        if csls_k == 0:  # shortlist by d₂, keep the best by the exact metric
+            sidx, _, score = select_rerank(qs[:nq], rows, min(k2, nv), exclude=loc_ex,
+                                           rerank=metric)
+        else:  # the exact CSLS score, the block's own top k
+            sidx, score, _ = select_rerank(qs[:nq], rows, min(k, nv), exclude=loc_ex, a=2.0,
+                                           bias=held[1][j * bc:j * bc + nv])
+        score = score.masked_fill(sidx == loc_ex[:, None], float("inf"))
+        keys[:nq] = _merge(keys[:nq], _keys(score, g * bc + sidx))[0]
 
     def visit(src, held):
         for j in range(mesh.per_rank):  # the source's shards' blocks, in order
+            g = src * mesh.per_rank + j
             cb = held[0][j * bc:(j + 1) * bc]
-            gidx = (src * mesh.per_rank + j) * bc + torch.arange(bc, device=q.device)
-            for a in range(0, qs.shape[0], BLOCK_Q):
-                d = dist_tile(qs[a:a + BLOCK_Q], cb, metric)
-                if csls_k > 0:
-                    d = 2.0 * d - held[1][None, j * bc:(j + 1) * bc]
-                d.masked_fill_((gidx[None, :] >= c) | (gidx[None, :] == ex[a:a + BLOCK_Q, None]),
-                               float("inf"))
-                both = torch.cat([keys[a:a + BLOCK_Q], _keys(d, gidx.expand_as(d))], dim=1)
-                keys[a:a + BLOCK_Q] = torch.topk(both, k, dim=1, largest=False,
-                                                 sorted=True).values
+            # cityblock CSLS has no shortlist kernel: its L1 tiles are exact,
+            # and the merge of a block's own top k is the exact merge
+            if approx and not (csls_k > 0 and metric == "cityblock"):
+                shortlisted(held, j, g, cb)
+            else:
+                exact(held, j, g * bc + torch.arange(bc, device=q.device), cb)
 
     _ring_pass(held, mesh, visit)
     idx = keys & 0xFFFFFFFF
@@ -192,31 +293,57 @@ def ring_knn(q: torch.Tensor, cands: torch.Tensor, exclude: torch.Tensor, k: int
 
 
 def _ring_ranks(q: torch.Tensor, cands: torch.Tensor, d_true: torch.Tensor,
-                mesh: ShardMesh, csls_k: int = 0) -> torch.Tensor:
+                mesh: ShardMesh, csls_k: int = 0, approx_k: int = 0) -> torch.Tensor:
     """The rank's queries' counts of candidates strictly closer than the
     true match (candidate i is query i's, excluded by index): in L1, or by
-    the CSLS score against 2·d_true − r(true) with ``csls_k > 0``."""
+    the CSLS score against 2·d_true − r(true) with ``csls_k > 0``.  With
+    ``approx_k > 0`` counted within each block's shortlist of
+    min(b, approx_k) (see the module docstring)."""
     n = q.shape[0]
     b, r0 = _rank_rows(n, mesh)
     qs, th = _chunk(q, mesh), _chunk(d_true, mesh)
+    nq = _valid(n, mesh.rank, mesh)
     held = (_chunk(cands, mesh),)
     if csls_k > 0:
-        r_own = _ring_hubness(cands, q, csls_k, "cityblock", mesh)
+        if approx_k > 0:
+            r_sq, r_own = _ring_hubness_approx(cands, q, csls_k, mesh)
+            held += (r_own, r_sq)
+        else:
+            r_own = _ring_hubness(cands, q, csls_k, "cityblock", mesh)
+            held += (r_own,)
         th = 2.0 * th - r_own  # the true match sits in the rank's own chunk
-        held += (r_own,)
     qid = r0 + torch.arange(qs.shape[0], device=q.device)
     count = torch.zeros(qs.shape[0], dtype=torch.int64, device=q.device)
 
+    def exact(held, j, gcol, cb):
+        for a in range(0, qs.shape[0], BLOCK_Q):
+            d = dist_tile(qs[a:a + BLOCK_Q], cb)
+            if csls_k > 0:
+                d = 2.0 * d - held[1][None, j * b:(j + 1) * b]
+            ok = (gcol[None, :] < n) & (gcol[None, :] != qid[a:a + BLOCK_Q, None])
+            count[a:a + BLOCK_Q] += ((d < th[a:a + BLOCK_Q, None]) & ok).sum(dim=1)
+
+    def shortlisted(held, j, g, cb):
+        nv = _block_rows(n, g, b)
+        if nv == 0 or nq == 0:
+            return
+        me = _local(qid[:nq], g * b, nv)
+        csls = dict(a=2.0, bias=held[2][j * b:j * b + nv]) if csls_k > 0 else {}
+        sidx, _, score = select_rerank(qs[:nq], cb[:nv], min(approx_k, nv), exclude=me,
+                                       rerank="cityblock", **csls)
+        if csls_k > 0:
+            score = 2.0 * score - held[1][j * b:j * b + nv][sidx]
+        ok = sidx != me[:, None]
+        count[:nq] += ((score < th[:nq, None]) & ok).sum(dim=1)
+
     def visit(src, held):
         for j in range(mesh.per_rank):
+            g = src * mesh.per_rank + j
             cb = held[0][j * b:(j + 1) * b]
-            gcol = (src * mesh.per_rank + j) * b + torch.arange(b, device=q.device)
-            for a in range(0, qs.shape[0], BLOCK_Q):
-                d = dist_tile(qs[a:a + BLOCK_Q], cb)
-                if csls_k > 0:
-                    d = 2.0 * d - held[1][None, j * b:(j + 1) * b]
-                ok = (gcol[None, :] < n) & (gcol[None, :] != qid[a:a + BLOCK_Q, None])
-                count[a:a + BLOCK_Q] += ((d < th[a:a + BLOCK_Q, None]) & ok).sum(dim=1)
+            if approx_k > 0:
+                shortlisted(held, j, g, cb)
+            else:
+                exact(held, j, g * b + torch.arange(b, device=q.device), cb)
 
     _ring_pass(held, mesh, visit)
     return _gather(count, mesh)[:n]
@@ -227,14 +354,14 @@ def ring_hits_at_k(emb: torch.Tensor, test_pairs, mesh: ShardMesh,
                    approx_k: int = 0) -> dict[str, float]:
     """Both-direction Hits@k and MRR over the test pairs, with the
     candidate blocks passed around the ring: the semantics of
-    ``train/eval.py::hits_at_k`` (raw L1, or CSLS with ``csls_k``)."""
-    if approx_k > 0:
-        _refuse("approximate eval (approx_k > 0)")
+    ``train/eval.py::hits_at_k`` (raw L1, or CSLS with ``csls_k``); with
+    ``approx_k > 0`` counted within shortlists (the trainer's history
+    evals; its final eval stays exact)."""
     pairs = torch.as_tensor(np.asarray(test_pairs), dtype=torch.int64, device=emb.device)
     left, right = emb.index_select(0, pairs[:, 0]), emb.index_select(0, pairs[:, 1])
     d_true = pairwise_l1(left, right).float()
-    return rank_metrics(_ring_ranks(left, right, d_true, mesh, csls_k),
-                        _ring_ranks(right, left, d_true, mesh, csls_k), ks)
+    return rank_metrics(_ring_ranks(left, right, d_true, mesh, csls_k, approx_k),
+                        _ring_ranks(right, left, d_true, mesh, csls_k, approx_k), ks)
 
 
 # ------------------------------------------------------------ ring Sinkhorn

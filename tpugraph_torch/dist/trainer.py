@@ -9,8 +9,29 @@ encoder's output is all-gathered to every rank (the gather's backward
 keeps the rank's own rows of the gradient, with no sum: every rank holds
 the whole, identical gradient of the loss), every rank computes the same
 margin loss, and the gradients of the replicated weights (the layers', the
-gates') are summed over the ranks before Adam (``train/optim.py``).  A
-reduce-scatter there would count the embedding gradient R times.
+gates', the attribute channel's) are summed over the ranks before Adam
+(``train/optim.py``).  A reduce-scatter there would count the embedding
+gradient R times.
+
+The encoder's options are the JAX ``make_encoder``'s:
+``param_dtype="bfloat16"`` runs the activations, the GEMMs, the SpMMs (the
+bf16 instances of ``spmm_ell`` / ``spmm_sorted``) and the halo exchange's
+rows in bf16 over fp32 parameters, cast at use, and returns fp32; the
+layers' weight and bias gradients are summed over the rows in fp32 and
+not rounded to bf16, so a step's gradients do not depend on R;
+``dropout`` masks gc2's input (the highway gate reads it unmasked) with
+one global (n_pad, hidden) keep mask per epoch: the n real rows drawn as
+the single-device encoder draws its mask (``models/encoder.py::keep_mask``
+from ``loop.step_generator(cfg, epoch)``), the padding rows kept, each
+rank taking its rows, so every R and S sees the mask of the single-device
+run; ``l2_normalize`` divides the fp32 output by its row norm + 1e-8.
+With ``use_attr_channel`` the GCN-Align attribute (AE) channel runs beside
+it (``DistAttrChannel``: the rank's shard rows of the entity × attribute
+incidence, ``sparse/halo_ell.py::build_attr_incidence_ell``, one
+``spmm_ell`` per shard each way, times the replicated ``attr_emb``, then
+two halo layers); the loss adds ``attr_channel_weight`` × its margin, and
+the evals, proposals and mining read ``combine_channels`` of the gathered
+tables, as the single-device ``AlignMTL.embed``.
 
 The loss is ``AlignMTL``'s on the gathered table
 (``models/align.py::table_losses``): the margin over the seed pairs and,
@@ -28,20 +49,37 @@ The interval batch is ``train/loop.py::train_loop``'s
 ``train/bootstrap.py::propose_mutual_nn_pairs`` on the gathered table;
 then negatives over the seed pairs and proposals, uniform at epoch 0 from
 ``loop.interval_generator`` (seed, the interval's first epoch), then hard
-ones mined by ``dist/ring.py::ring_knn`` (CSLS with ``neg_csls_k``); then
-``train/mtl.py::draw_interval``'s draws (the OT subsample, the relation
-corruptions, the attribute batch).  The evals are ``ring_hits_at_k``
-(CSLS with ``eval_csls_k``), exact.  Draws and initialisation are the same
-on every rank and for every R and S: the parameters are
-``models/align.py::init_mtl_params``'s for the n real rows (the
-single-device trainer's), the padding rows 0, so a run starts where
+ones mined by ``dist/ring.py::ring_knn`` (CSLS with ``neg_csls_k``,
+shortlisted with ``neg_approx``); then ``train/mtl.py::draw_interval``'s
+draws (the OT subsample, the relation corruptions, the attribute batch).
+The evals are ``ring_hits_at_k`` (CSLS with ``eval_csls_k``): the history
+within shortlists with ``eval_approx_k``, the final one exact.  Draws and
+initialisation are the same on every rank and for every R and S: the
+parameters are ``models/align.py::init_mtl_params``'s for the n real rows
+(the single-device trainer's), the padding rows 0, so a run starts where
 ``train/mtl.py::fit_mtl`` (or ``train/loop.py::fit``) starts.
 
+Checkpoints (``checkpoint_dir``, ``checkpoint_every``;
+``train/checkpoint.py``) hold the whole parameter set with the gathered
+(n_pad, dim) table, Adam's state with the table's moments gathered, the
+schedule, the loss, the row-layout stamp (halo_grouped, kg2_base) and the
+interval's batch (negatives, proposals, draws), so a resume in the middle
+of an interval rebuilds the batch it was cut in.  Rank 0 writes, then the
+ranks meet at a barrier; a restore re-slices the table for this run's R
+(and re-pads it for this run's S), and refuses another layout stamp with
+the JAX messages.  SIGTERM latches ``Checkpointer.preempted`` on the rank
+it reaches; the ranks agree on the latch once after each step and again
+after the eval (an ``all_reduce(MAX)``), so all of them save and leave the
+loop at the same epoch.  ``debug_nans`` checks each step's loss, gradients
+and updated parameters (``train/fused.py::finite_flag``), agreed over the
+ranks (``all_reduce(MIN)``) before any raises, so every rank raises
+``FloatingPointError`` naming the same epoch.  (Autograd's anomaly mode,
+which the single-device check adds, would raise on one rank inside the
+backward and leave the others waiting in its collectives.)
+
 Refused, with ``NotImplementedError`` naming ROADMAP.md, where they are
-queued (``check_distributed``): checkpoints, the attribute channel, the
-approximate ring stages, bf16, dropout and ``l2_normalize``, the fused
-interval, ``profile_dir``, tensor parallelism, slices and the grouped
-exchange.
+queued (``check_distributed``): the fused interval (``steps_per_call > 1``),
+``profile_dir``, tensor parallelism, slices and the grouped exchange.
 """
 
 from __future__ import annotations
@@ -58,27 +96,30 @@ from tpugraph_torch.configs.configs import TrainConfig
 from tpugraph_torch.dist.halo import HaloOperator, halo_spmm, halo_spmm_ell
 from tpugraph_torch.dist.mesh import ShardMesh, make_mesh, shard_operator
 from tpugraph_torch.dist.ring import ring_hits_at_k, ring_knn, ring_sinkhorn_align_loss
+from tpugraph_torch.kernels.spmm_ell import spmm_ell
 from tpugraph_torch.models.align import table_losses
+from tpugraph_torch.models.attr_channel import combine_channels, init_attr_channel_params
+from tpugraph_torch.models.encoder import _COMPUTE_DTYPES, dropout, keep_mask
 from tpugraph_torch.models.encoder import init_params as single_device_init
 from tpugraph_torch.models.heads import AttributeHead, RelationHead, init_head_params
 from tpugraph_torch.nn.graphconv import operator_format
 from tpugraph_torch.nn.highway import Highway
 from tpugraph_torch.sparse.build import coo_from_triples, coo_normalize
+from tpugraph_torch.sparse.ell import EllOperator
 from tpugraph_torch.sparse.graph import AlignTask
+from tpugraph_torch.sparse.halo_ell import build_attr_incidence_ell
 from tpugraph_torch.sparse.partition import HaloGraph, partition_edges
-from tpugraph_torch.train.loop import IntervalBatch, TrainResult, check_schedule, load_task
+from tpugraph_torch.train.checkpoint import Checkpointer
+from tpugraph_torch.train.fused import finite_flag
+from tpugraph_torch.train.loop import (IntervalBatch, TrainResult, _check_resume, _non_finite,
+                                       check_schedule, load_task, step_generator)
+from tpugraph_torch.train.losses import margin_align_loss
 from tpugraph_torch.train.metrics import MetricsLogger, epoch_edge_ops
 from tpugraph_torch.train.mtl import attr_triples_of, check_ot_size, draw_interval, interval_keys
-from tpugraph_torch.train.optim import make_optimizer
+from tpugraph_torch.train.optim import load_optimizer_state, make_optimizer, optimizer_state
 
 # what the port's distributed trainer does not do yet, in ROADMAP.md's order
 UNPORTED = (
-    ("checkpoint and resume (checkpoint_dir)", lambda c: bool(c.checkpoint_dir)),
-    ("the attribute channel", lambda c: c.use_attr_channel),
-    ("the approximate ring stages (neg_approx, eval_approx_k)",
-     lambda c: c.neg_approx or c.eval_approx_k > 0),
-    ("bf16, dropout and l2_normalize in the distributed encoder",
-     lambda c: c.param_dtype != "float32" or c.dropout > 0 or c.l2_normalize),
     ("steps_per_call > 1", lambda c: c.steps_per_call > 1),
     ("profile_dir", lambda c: bool(c.profile_dir)),
     ("feature_shards > 1 (tensor parallelism)", lambda c: c.feature_shards > 1),
@@ -119,16 +160,22 @@ def check_distributed(cfg: TrainConfig, task: AlignTask) -> None:
 
 def init_params(n_rows: int, n_pad: int, dim: int, hidden: int | None = None,
                 seed: int = 0, highway: bool = False, n_rel: int = 0,
-                n_attr: int = 0) -> dict[str, torch.Tensor]:
+                n_attr: int = 0, n_attr_channel: int = 0) -> dict[str, torch.Tensor]:
     """The whole parameter set, the same on every rank for every R and S:
     ``models/encoder.py::init_params`` for the n real rows, the table's
     padding rows (n_pad − n) zero; ``n_rel`` > 0 adds the relation head's
     ``rel_head.rel``, ``n_attr`` > 0 the attribute head's ``attr_head.w``
-    and ``attr_head.b`` (``models/heads.py::init_head_params``, as
-    ``init_mtl_params`` draws them)."""
+    and ``attr_head.b`` (``models/heads.py::init_head_params``), and
+    ``n_attr_channel`` > 0 the attribute channel's ``ae_encoder.attr_emb``,
+    ``ae_encoder.gc1.*`` and ``ae_encoder.gc2.*``
+    (``models/attr_channel.py::init_attr_channel_params``), as
+    ``init_mtl_params`` draws them."""
     p = single_device_init(n_rows, dim, hidden, seed=seed, highway=highway)
     p["emb"] = torch.cat([p["emb"], p["emb"].new_zeros((n_pad - n_rows, dim))])
     p.update(init_head_params(dim, n_rel, n_attr, seed=seed))
+    if n_attr_channel:
+        p.update({f"ae_encoder.{k}": v for k, v in
+                  init_attr_channel_params(n_attr_channel, dim, seed).items()})
     return p
 
 
@@ -153,9 +200,41 @@ def gather_rows(x: torch.Tensor, mesh: ShardMesh) -> torch.Tensor:
     return _GatherRows.apply(x, mesh)
 
 
+class _CastMatmul(torch.autograd.Function):
+    """x·W with the fp32 W cast to x's (bf16) type at use; the backward's
+    W̄ = xᵀ·ḡ summed in fp32 and left fp32 (not rounded to bf16), so that a
+    replicated weight's gradient is the same fp32 sum over the rows
+    whatever rows each rank holds."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return x @ w.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return g @ w.to(g.dtype).t(), x.float().t() @ g.float()
+
+
+class _CastBias(torch.autograd.Function):
+    """y + b with the fp32 b cast to y's (bf16) type; b̄ summed over the
+    rows in fp32, as ``_CastMatmul``'s W̄."""
+
+    @staticmethod
+    def forward(ctx, y, b):
+        return y + b.to(y.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, g.float().sum(0)
+
+
 class HaloConv(nn.Module):
     """A GCN layer over the rank's shards: halo(x·W) + b, the JAX
-    layer's order (``graphconv``'s sorted path)."""
+    layer's order (``graphconv``'s sorted path), in x's type (W and b
+    cast at use; in bf16 their gradients summed in fp32: ``_CastMatmul``,
+    ``_CastBias``)."""
 
     def __init__(self, in_dim: int, out_dim: int, device=None):
         super().__init__()
@@ -164,7 +243,29 @@ class HaloConv(nn.Module):
 
     def forward(self, x: torch.Tensor, op: HaloOperator) -> torch.Tensor:
         spmm = halo_spmm_ell if op.impl == "ell" else halo_spmm
-        return spmm(x @ self.w, op) + self.b
+        if x.dtype == self.w.dtype:
+            return spmm(x @ self.w, op) + self.b
+        return _CastBias.apply(spmm(_CastMatmul.apply(x, self.w), op), self.b)
+
+
+class DistAttrChannel(nn.Module):
+    """The attribute (AE) channel over the rank's shards, with
+    ``AttrChannelGCN``'s parameters ``attr_emb`` (replicated), ``gc1`` and
+    ``gc2``: each shard's rows of the incidence (``inc``, one
+    ``EllOperator`` per shard of the rank) times ``attr_emb``, then two
+    halo layers over the structure's operator."""
+
+    def __init__(self, inc: list[EllOperator], n_attr: int, dim: int, device=None):
+        super().__init__()
+        self.inc = inc
+        self.attr_emb = nn.Parameter(torch.empty(n_attr, dim, device=device))
+        self.gc1 = HaloConv(dim, dim, device=device)
+        self.gc2 = HaloConv(dim, dim, device=device)
+
+    def forward(self, op: HaloOperator, dtype: torch.dtype) -> torch.Tensor:
+        # a cast per shard: the shards' gradients of attr_emb add up in fp32
+        x0 = torch.cat([spmm_ell(m, self.attr_emb.to(dtype)) for m in self.inc])
+        return self.gc2(torch.relu(self.gc1(x0, op)), op).float()
 
 
 # the parameters of the heads, whose gradient every rank holds whole
@@ -172,17 +273,25 @@ HEADS = ("rel_head.", "attr_head.")
 
 
 class DistEncoder(nn.Module):
-    """``AlignGCN`` (fp32, no dropout) over the rank's shards.  Parameters
+    """``AlignGCN`` over the rank's shards (``compute_dtype``, ``dropout``
+    and ``l2_normalize`` as the JAX ``make_encoder``'s).  Parameters
     ``emb`` (the rank's per_rank·n_loc rows), ``gc1``, ``gc2`` and with
     highway gates ``hw1``, ``hw2``: the names of ``AlignGCN``'s; with
     ``n_rel`` or ``n_attr`` the heads ``rel_head`` and ``attr_head``
-    (``AlignMTL``'s names), which read the gathered table."""
+    (``AlignMTL``'s names), which read the gathered table; with ``inc``
+    (the attribute incidence's shard operators) the AE channel
+    ``ae_encoder`` over ``n_attr_channel`` attributes."""
 
     def __init__(self, op: HaloOperator, dim: int = 128, hidden: int | None = None,
-                 highway: bool = False, device=None, n_rel: int = 0, n_attr: int = 0):
+                 highway: bool = False, device=None, n_rel: int = 0, n_attr: int = 0,
+                 compute_dtype: str = "float32", dropout: float = 0.0,
+                 l2_normalize: bool = False, inc: list[EllOperator] | None = None,
+                 n_attr_channel: int = 0):
         super().__init__()
         hidden = hidden or dim
         self.op = op
+        self.cdt = _COMPUTE_DTYPES[compute_dtype]
+        self.dropout, self.l2_normalize = dropout, l2_normalize
         self.emb = nn.Parameter(torch.empty(len(op.loc) * op.n_loc, dim, device=device))
         self.gc1 = HaloConv(dim, hidden, device=device)
         self.gc2 = HaloConv(hidden, dim, device=device)
@@ -190,21 +299,31 @@ class DistEncoder(nn.Module):
         self.hw2 = Highway(dim, device=device) if highway else None
         self.rel_head = RelationHead(n_rel, dim, device) if n_rel else None
         self.attr_head = AttributeHead(dim, n_attr, device) if n_attr else None
+        self.ae_encoder = (DistAttrChannel(inc, n_attr_channel, dim, device)
+                           if inc is not None else None)
 
     @property
     def first_row(self) -> int:
         return self.op.mesh.shards.start * self.op.n_loc
 
-    def forward(self) -> torch.Tensor:
-        """The rank's rows of the encoder output."""
-        x = self.emb
+    def forward(self, mask: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """The rank's rows of the encoder output (fp32) and of the AE
+        channel's (None without it); ``mask``: the rank's rows of the
+        epoch's keep mask (a training step with dropout)."""
+        x = self.emb.to(self.cdt)
         h = torch.relu(self.gc1(x, self.op))
         if self.hw1 is not None:
             h = self.hw1(x, h)
-        h2 = self.gc2(h, self.op)
+        h_in = h if mask is None else dropout(h, self.dropout, None, mask=mask)
+        h2 = self.gc2(h_in, self.op)
         if self.hw2 is not None:
-            h2 = self.hw2(h, h2)
-        return h2.float()
+            h2 = self.hw2(h, h2)  # the gate reads the unmasked h
+        se = h2.float()
+        if self.l2_normalize:
+            se = se / (torch.linalg.vector_norm(se, dim=-1, keepdim=True) + 1e-8)
+        ae = None if self.ae_encoder is None else self.ae_encoder(self.op, self.cdt)
+        return se, ae
 
     def load_full(self, params: dict[str, torch.Tensor]) -> None:
         """Load a whole parameter set (``init_params``, ``full_state``, or
@@ -215,7 +334,8 @@ class DistEncoder(nn.Module):
         self.load_state_dict(state)
 
     def full_state(self) -> dict[str, torch.Tensor]:
-        """The state dict with the whole (n_pad, dim) table, on every rank."""
+        """The state dict with the whole (n_pad, dim) table, on every rank
+        (a collective: every rank calls it)."""
         state = {k: v.detach() for k, v in self.state_dict().items()}
         with torch.no_grad():
             state["emb"] = gather_rows(self.emb.detach(), self.op.mesh)
@@ -231,34 +351,65 @@ class DistParts:
     hg: HaloGraph
     cfg: TrainConfig
     rel_triples: torch.Tensor | None = None  # the relation head's constant (T, 3)
+    n_real: int = 0  # the task's entities: the table's real rows
     aux: dict = field(default_factory=dict)  # the last step's loss terms
 
-    def table(self) -> torch.Tensor:
-        """The whole (n_pad, dim) encoder output, with its gradient."""
-        return gather_rows(self.model(), self.op.mesh)
+    def tables(self, mask: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """The whole (n_pad, dim) encoder output and AE channel output
+        (None without it), with their gradients."""
+        se, ae = self.model(mask)
+        mesh = self.op.mesh
+        return gather_rows(se, mesh), (None if ae is None else gather_rows(ae, mesh))
 
     def embed(self) -> torch.Tensor:
-        """The whole output table, forward only."""
+        """The evaluation table, forward only: the encoder's output, or with
+        the AE channel ``combine_channels`` of both."""
         with torch.no_grad():
-            return self.table()
+            se, ae = self.tables()
+            return se if ae is None else combine_channels(se, ae, self.cfg.attr_beta)
 
-    def loss(self, batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, dict]:
+    def drop_mask(self, epoch: int) -> torch.Tensor | None:
+        """The rank's rows of epoch ``epoch``'s keep mask (None without
+        dropout): the n real rows from ``step_generator(cfg, epoch)``, as the
+        single-device encoder draws its (n, hidden) mask, the padding kept."""
+        cfg = self.cfg
+        if cfg.dropout <= 0.0:
+            return None
+        dev, model = self.op.mesh.device, self.model
+        n_pad, hidden = self.hg.n_loc * self.hg.n_shards, model.gc1.w.shape[1]
+        full = torch.ones((n_pad, hidden), dtype=torch.bool, device=dev)
+        full[:self.n_real] = keep_mask((self.n_real, hidden), cfg.dropout,
+                                       step_generator(cfg, epoch, dev), dev)
+        return full[model.first_row:model.first_row + model.emb.shape[0]]
+
+    def loss(self, batch: dict[str, torch.Tensor],
+             mask: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
         """(loss, its terms): ``models/align.py::table_losses`` of ``batch``
-        (``AlignMTL.forward``'s keys) on the table, with the ring OT."""
-        mesh = self.op.mesh
+        (``AlignMTL.forward``'s keys) on the table, with the ring OT, and
+        with the AE channel ``attr_channel_weight`` × its margin."""
+        cfg, mesh = self.cfg, self.op.mesh
 
         def ot(emb, pairs, **kw):
             return ring_sinkhorn_align_loss(emb, pairs, mesh, **kw)
 
-        return table_losses(self.cfg, self.table(), {**batch, "rel_triples": self.rel_triples},
-                            self.model.rel_head, self.model.attr_head, ot)
+        se, ae = self.tables(mask)
+        loss, aux = table_losses(cfg, se, {**batch, "rel_triples": self.rel_triples},
+                                 self.model.rel_head, self.model.attr_head, ot)
+        if ae is not None:
+            aux["ae"] = margin_align_loss(ae, batch.get("pairs_aug", batch["pairs"]),
+                                          batch["neg_l"], batch["neg_r"], cfg.gamma,
+                                          batch.get("w"))
+            loss = loss + cfg.attr_channel_weight * aux["ae"]
+        return loss, aux
 
-    def grads(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
+    def grads(self, batch: dict[str, torch.Tensor],
+              mask: torch.Tensor | None = None) -> torch.Tensor:
         """One step's loss (its terms in ``aux``) and gradients: the
         encoder's replicated weights' summed over the ranks, the table's the
         rank's own rows, the heads' whole on every rank."""
         self.model.zero_grad(set_to_none=True)
-        loss, aux = self.loss(batch)
+        loss, aux = self.loss(batch, mask)
         loss.backward()
         self.aux = {k: v.detach() for k, v in aux.items()}
         shared = [p for n, p in self.model.named_parameters()
@@ -272,21 +423,32 @@ class DistParts:
 
 def dist_parts(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh) -> DistParts:
     """The adjacency of ``task`` partitioned into ``cfg.n_shards`` shards,
-    the rank's halo operator on its device, and the encoder with the heads
-    ``cfg`` turns on, loaded with ``init_params(seed=cfg.seed)``."""
+    the rank's halo operator on its device (and with the AE channel the
+    rank's shards of the attribute incidence), and the encoder with the
+    heads and options ``cfg`` turns on, loaded with
+    ``init_params(seed=cfg.seed)``."""
     src, dst, w = coo_from_triples(task.n_ent, task.merged_triples, n_rel=task.n_rel,
                                    weighting=cfg.weighting)
     w = coo_normalize(src, dst, w, task.n_ent, norm=cfg.norm)
     hg = partition_edges(src, dst, w, task.n_ent, cfg.n_shards)
     op = shard_operator(hg, mesh, operator_format(cfg.spmm_impl))
+    n_pad = hg.n_loc * hg.n_shards
     heads = dict(n_rel=task.n_rel if cfg.use_rel_head else 0,
                  n_attr=max(task.n_attr, 1) if cfg.use_attr_head else 0)
-    model = DistEncoder(op, cfg.dim, cfg.hidden, cfg.highway, device=mesh.device, **heads)
-    model.load_full(init_params(task.n_ent, hg.n_loc * hg.n_shards, cfg.dim, cfg.hidden,
-                                seed=cfg.seed, highway=cfg.highway, **heads))
+    inc, n_ch = None, 0
+    if cfg.use_attr_channel:
+        n_ch = task.n_attr
+        stacked = build_attr_incidence_ell(attr_triples_of(cfg, task), n_pad, n_ch,
+                                           cfg.n_shards, hg.n_loc)
+        inc = [stacked.shard(s).to(mesh.device) for s in mesh.shards]
+    model = DistEncoder(op, cfg.dim, cfg.hidden, cfg.highway, device=mesh.device,
+                        compute_dtype=cfg.param_dtype, dropout=cfg.dropout,
+                        l2_normalize=cfg.l2_normalize, inc=inc, n_attr_channel=n_ch, **heads)
+    model.load_full(init_params(task.n_ent, n_pad, cfg.dim, cfg.hidden, seed=cfg.seed,
+                                highway=cfg.highway, n_attr_channel=n_ch, **heads))
     rel = (torch.as_tensor(task.merged_triples, dtype=torch.int64, device=mesh.device)
            if cfg.use_rel_head else None)
-    return DistParts(model=model, op=op, hg=hg, cfg=cfg, rel_triples=rel)
+    return DistParts(model=model, op=op, hg=hg, cfg=cfg, rel_triples=rel, n_real=task.n_ent)
 
 
 def _sync(dev: torch.device) -> None:
@@ -294,30 +456,91 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _pad_rows(t: torch.Tensor, n: int, n_pad: int) -> torch.Tensor:
+    """A saved table (or its moments) re-padded to this run's n_pad rows:
+    its n real rows, zeros after (another S pads to another n_pad)."""
+    if t.shape[0] == n_pad:
+        return t
+    return torch.cat([t[:n], t.new_zeros((n_pad - n,) + tuple(t.shape[1:]))])
+
+
+def _emb_index(model: DistEncoder) -> int:
+    """The table's place among the optimizer's parameters."""
+    return [n for n, _ in model.named_parameters()].index("emb")
+
+
+def _full_optimizer_state(opt: torch.optim.Adam, model: DistEncoder) -> dict:
+    """``optimizer_state`` with the table's moments gathered to the whole
+    table (a collective)."""
+    sd = optimizer_state(opt)
+    i = _emb_index(model)
+    if i in sd["state"]:
+        st = dict(sd["state"][i])
+        with torch.no_grad():
+            for key in ("exp_avg", "exp_avg_sq"):
+                st[key] = gather_rows(st[key], model.op.mesh)
+        sd["state"] = {**sd["state"], i: st}
+    return sd
+
+
+def _load_rank_state(model: DistEncoder, opt: torch.optim.Adam, state: dict, n: int,
+                     n_pad: int) -> None:
+    """A checkpoint's parameters and Adam state into this rank: the table
+    and its moments re-padded to n_pad rows and cut to the rank's."""
+    model.load_full({**state["model"], "emb": _pad_rows(state["model"]["emb"], n, n_pad)})
+    sd, i = state["opt"], _emb_index(model)
+    if i in sd["state"]:
+        rows = slice(model.first_row, model.first_row + model.emb.shape[0])
+        st = dict(sd["state"][i])
+        for key in ("exp_avg", "exp_avg_sq"):
+            st[key] = _pad_rows(st[key], n, n_pad)[rows]
+        sd = {**sd, "state": {**sd["state"], i: st}}
+    load_optimizer_state(opt, sd)
+
+
+def check_layout(cfg: TrainConfig, state: dict, kg2_base: int) -> None:
+    """Refuse a checkpoint without the row-layout stamp, or with another
+    one, with the JAX trainer's messages: restoring would permute entity
+    rows silently."""
+    if "layout" not in state:
+        raise ValueError(
+            f"checkpoint at {cfg.checkpoint_dir!r} predates the row-layout stamp — its "
+            f"partition layout cannot be verified; retrain or point checkpoint_dir elsewhere")
+    got, want = tuple(int(v) for v in state["layout"]), (int(cfg.halo_grouped), int(kg2_base))
+    if got != want:
+        raise ValueError(
+            f"checkpoint at {cfg.checkpoint_dir!r} was written with row layout "
+            f"(halo_grouped, kg2_base)={got} but this run uses {want} — restoring would "
+            f"permute entity rows silently; retrain or point checkpoint_dir elsewhere")
+
+
 def fit_distributed(cfg: TrainConfig, task: AlignTask | None = None, verbose: bool = False,
-                    device: str | torch.device = "cuda") -> TrainResult:
+                    device: str | torch.device = "cuda",
+                    debug_nans: bool = False) -> TrainResult:
     """Train ``cfg`` over ``cfg.n_shards`` shards on the group of
     ``dist/mesh.py::make_mesh`` (NCCL on the card, gloo on the host).
     ``TrainResult.params`` holds the whole parameter set on every rank;
     ``op`` the rank's ``HaloOperator``; ``timings`` the host wall seconds
-    of build_s (partition and operators), train_s and step_s (each step's,
-    ended by a synchronise), forward_s (the boundaries' encoder forwards),
-    propose_s, mine_s, draw_s (the interval's draws), eval_s and
-    final_eval_s, with the counts steps, forwards, proposals, minings,
-    draws and evals."""
+    of build_s (partition and operators), load_s (a restore), train_s and
+    step_s (each step's, ended by a synchronise), forward_s (the
+    boundaries' encoder forwards), propose_s, mine_s, draw_s (the
+    interval's draws), eval_s, final_eval_s and save_s, with the counts
+    steps, forwards, proposals, minings, draws, evals and saves, and
+    start_epoch.  ``debug_nans``: see the module docstring."""
     dev = resolve_device(device)
     task = task or load_task(cfg)
     check_distributed(cfg, task)
     with make_mesh(cfg.n_shards, dev) as mesh:
-        return _fit(cfg, task, mesh, verbose)
+        return _fit(cfg, task, mesh, verbose, debug_nans)
 
 
-def _fit(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh, verbose: bool) -> TrainResult:
+def _fit(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh, verbose: bool,
+         debug_nans: bool) -> TrainResult:
     dev = mesh.device
-    timings = {"build_s": 0.0, "train_s": 0.0, "step_s": [], "forward_s": 0.0,
+    timings = {"build_s": 0.0, "load_s": 0.0, "train_s": 0.0, "step_s": [], "forward_s": 0.0,
                "propose_s": 0.0, "mine_s": 0.0, "draw_s": 0.0, "eval_s": 0.0,
-               "final_eval_s": 0.0, "steps": 0, "forwards": 0, "proposals": 0, "minings": 0,
-               "draws": 0, "evals": 0}
+               "final_eval_s": 0.0, "save_s": 0.0, "steps": 0, "forwards": 0, "proposals": 0,
+               "minings": 0, "draws": 0, "evals": 0, "saves": 0}
 
     def timed(key, count, fn):
         t0 = time.perf_counter()
@@ -331,20 +554,22 @@ def _fit(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh, verbose: bool) -> T
     parts = dist_parts(cfg, task, mesh)
     _sync(dev)
     timings["build_s"] = time.perf_counter() - t0
-    hg = parts.hg
-    opt, sched = make_optimizer(cfg, parts.model.parameters())
+    model, hg = parts.model, parts.hg
+    n_pad = hg.n_loc * hg.n_shards
+    opt, sched = make_optimizer(cfg, model.parameters())
     make = IntervalBatch(cfg, task, dev)
     pairs = make.pairs
     n1, n = task.kg1.n_ent, task.n_ent
     attr = (torch.as_tensor(attr_triples_of(cfg, task), dtype=torch.int64, device=dev)
             if cfg.use_attr_head else None)
-    draws = bool(interval_keys(cfg, len(pairs)))
-    rank0 = mesh.rank == 0  # the one writer of the shared sinks
+    extra_keys = interval_keys(cfg, len(pairs))
+    layout = [int(cfg.halo_grouped), n1]  # the row-layout stamp: KG2's rows start at n1
+    rank0 = mesh.rank == 0  # the one writer of the shared sinks and checkpoints
     logger = MetricsLogger(cfg.metrics_path if rank0 else None, config=cfg.to_dict(),
                            tb_dir=cfg.tb_dir if rank0 else None)
 
     def mine(emb, pairs_t):
-        kw = dict(metric=cfg.neg_metric, csls_k=cfg.neg_csls_k)
+        kw = dict(metric=cfg.neg_metric, csls_k=cfg.neg_csls_k, approx=cfg.neg_approx)
         return (ring_knn(emb[pairs_t[:, 1]], emb[:n1], pairs_t[:, 0], cfg.k_neg, mesh, **kw),
                 ring_knn(emb[pairs_t[:, 0]], emb[n1:n], pairs_t[:, 1] - n1, cfg.k_neg, mesh,
                          **kw) + n1)
@@ -352,23 +577,75 @@ def _fit(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh, verbose: bool) -> T
     def draw(epoch0):
         return draw_interval(cfg, epoch0, pairs, n, len(task.merged_triples), attr)
 
-    def evaluate():
+    def evaluate(approx_k):
         t0 = time.perf_counter()
-        m = ring_hits_at_k(parts.embed(), task.test_pairs, mesh, csls_k=cfg.eval_csls_k)
+        m = ring_hits_at_k(parts.embed(), task.test_pairs, mesh, csls_k=cfg.eval_csls_k,
+                           approx_k=approx_k)
         timings["eval_s"] += time.perf_counter() - t0
         timings["evals"] += 1
         return m
 
-    history, losses, batch = [], [], None
+    def agreed(flag: bool, op=dist.ReduceOp.MAX) -> bool:
+        """``flag`` reduced over the ranks (one collective)."""
+        t = torch.tensor([int(flag)], dtype=torch.int32, device=dev)
+        if mesh.world > 1:
+            dist.all_reduce(t, op=op)
+        return bool(t.item())
+
+    ckpt = Checkpointer(cfg.checkpoint_dir, cfg.checkpoint_every)
+    start_epoch, batch, boot, saved = 0, None, None, None
     loss = torch.tensor(float("nan"))
+    t0 = time.perf_counter()
+    restored = ckpt.restore_latest(dev)
+    if restored is not None:
+        epoch, state = restored
+        check_layout(cfg, state, n1)
+        _check_resume(cfg, state, len(pairs) + (cfg.boot_cap if make.use_boot else 0),
+                      extra_keys)
+        _load_rank_state(model, opt, state, n, n_pad)
+        sched.load_state_dict(state["sched"])
+        boot = (state["boot_pairs"], state["boot_w"]) if make.use_boot else None
+        batch = make(boot, state["neg_l"], state["neg_r"])
+        batch.update({k: state["extra"][k] for k in extra_keys})
+        loss, start_epoch, saved = state["loss"], epoch + 1, epoch
+    _sync(dev)
+    timings["load_s"] = time.perf_counter() - t0
+    timings["start_epoch"] = start_epoch
+
+    def save_now(epoch):
+        """Every rank gathers the table and its moments; rank 0 writes."""
+        nonlocal saved
+        if saved == epoch:
+            return
+
+        def write():
+            full = model.full_state()
+            state = {"model": full, "opt": _full_optimizer_state(opt, model),
+                     "sched": sched.state_dict(), "layout": layout, "neg_l": batch["neg_l"],
+                     "neg_r": batch["neg_r"], "loss": loss.detach()}
+            if make.use_boot:
+                state["boot_pairs"], state["boot_w"] = boot
+            if extra_keys:
+                state["extra"] = {k: batch[k] for k in extra_keys}
+            if rank0:  # what the evaluation table reads: the encoder's, the channel's
+                ckpt.save(epoch, state, {**{k: v for k, v in full.items()
+                                            if not k.startswith(HEADS)}, "emb": full["emb"][:n]})
+            if mesh.world > 1:
+                dist.barrier()
+
+        timed("save_s", "saves", write)
+        saved = epoch
+
+    history, losses = [], []
     t_start = time.perf_counter()
+    ckpt.install_preemption_handler()
     try:
-        for epoch in range(cfg.epochs):
+        for epoch in range(start_epoch, cfg.epochs):
             if epoch % cfg.neg_every == 0 or batch is None:
-                batch, _ = make.at_boundary(epoch, parts.embed, mine, draw if draws else None,
-                                            timed)
+                batch, boot = make.at_boundary(epoch, parts.embed, mine,
+                                               draw if extra_keys else None, timed)
             t0 = time.perf_counter()
-            loss = parts.grads(batch)
+            loss = parts.grads(batch, parts.drop_mask(epoch))
             opt.step()
             sched.step()
             _sync(dev)
@@ -377,10 +654,17 @@ def _fit(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh, verbose: bool) -> T
             timings["train_s"] += dt
             timings["steps"] += 1
             losses.append(loss)
+            if debug_nans and not agreed(bool(finite_flag(opt, loss)), dist.ReduceOp.MIN):
+                raise _non_finite(f"epoch {epoch}")
+            stop = ckpt.enabled and agreed(ckpt.preempted)
+            if ckpt.enabled and ((epoch > 0 and epoch % cfg.checkpoint_every == 0)
+                                 or epoch >= cfg.epochs - 1 or stop):
+                save_now(epoch)
             if cfg.eval_every and (epoch % cfg.eval_every == 0 or epoch >= cfg.epochs - 1):
-                m = evaluate()
+                m = evaluate(cfg.eval_approx_k)  # the history: shortlists if set
                 wall = time.perf_counter() - t_start
-                eps = epoch_edge_ops(hg.nnz) * (epoch + 1) / max(wall, 1e-9)
+                eps = (epoch_edge_ops(hg.nnz, cfg.use_attr_channel) * (epoch + 1 - start_epoch)
+                       / max(wall, 1e-9))  # epochs run in this process
                 rec = {"epoch": epoch, "loss": loss.item(), "wall_s": round(wall, 3),
                        # unrounded, so the two rates compare exactly (ROADMAP.md Queue C 2)
                        "edges_per_s": eps, "edges_per_s_chip": eps / mesh.world,
@@ -391,11 +675,17 @@ def _fit(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh, verbose: bool) -> T
                 if verbose and rank0:
                     print(f"[dist:{cfg.name}@{cfg.n_shards}/{mesh.world}] epoch {epoch} loss "
                           f"{rec['loss']:.4f} hits@1 {m['hits@1']:.3f}")
+            # the latch may fire after the check above: every rank takes this
+            # branch at the same epoch
+            if ckpt.enabled and (stop or agreed(ckpt.preempted)):
+                save_now(epoch)
+                break  # exit cleanly for a relaunch
+        ckpt.restore_handler()
         t0 = time.perf_counter()
-        final = evaluate()  # always exact
+        final = evaluate(0)  # always exact
         timings["final_eval_s"] = time.perf_counter() - t0
         final["final_loss"] = loss.item()
-        params = parts.model.full_state()
+        params = model.full_state()
         if cfg.save_emb_path:
             emb = parts.embed()  # a collective: every rank joins it
             if rank0:  # row == entity id: the serving path's table
@@ -403,7 +693,8 @@ def _fit(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh, verbose: bool) -> T
 
                 save_embeddings(cfg.save_emb_path, emb[:n])
     finally:
+        ckpt.restore_handler()
         logger.close()
     return TrainResult(params=params, metrics=final, history=history, op=parts.op,
-                       model=parts.model, task=task,
+                       model=model, task=task,
                        losses=torch.stack(losses).tolist() if losses else [], timings=timings)

@@ -27,12 +27,20 @@ from tpugraph_torch.sparse.graph import SpMMOperator
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
-    """Inverted dropout, flax's rule: keep where uniform < 1 − rate, scaled
-    by 1/(1 − rate).  The uniforms come from ``generator``, on x's device."""
-    keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+def keep_mask(shape: tuple[int, ...], rate: float, generator: torch.Generator | None,
+              device: torch.device) -> torch.Tensor:
+    """flax's dropout rule as a bool mask: keep where uniform < 1 − rate,
+    the uniforms from ``generator`` on ``device``."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Inverted dropout: x/(1 − rate) where ``mask`` (by default
+    ``keep_mask`` of x's shape from ``generator``, on x's device) keeps, 0
+    elsewhere."""
+    mask = keep_mask(x.shape, rate, generator, x.device) if mask is None else mask
+    return torch.where(mask, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class AlignGCN(nn.Module):

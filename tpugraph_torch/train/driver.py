@@ -6,7 +6,8 @@
 an OT head or an MTL head or channel (configs ``sinkhorn`` and ``mtl``,
 recipes v5–v7r) to ``train/mtl.py::fit_mtl``, the others (configs
 ``base`` and ``highway``) to ``train/loop.py::fit``.  ``evaluate`` restores trained parameters (a
-training run's ``checkpoint_dir`` holds them), runs the encoder forward
+training run's ``checkpoint_dir`` holds them; a sharded config's are scored
+by the distributed trainer at ``epochs=0``), runs the encoder forward
 over the merged graph once (with the attribute channel, the AE channel
 too, scoring the combined SE‖AE table as the run did), and scores the
 exact both-direction Hits@k, CSLS with ``eval_csls_k``; optionally it
@@ -41,19 +42,22 @@ def run(cfg: TrainConfig, task: AlignTask | None = None, device: str | torch.dev
     non-finite step (``train/loop.py``).  A distributed run starts a
     world-size-1 group in this process, or joins torchrun's
     (``dist/mesh.py``)."""
-    if max(cfg.n_shards, cfg.feature_shards, cfg.slice_shards) > 1:
+    if sharded(cfg):
         from tpugraph_torch.dist.trainer import fit_distributed
 
-        if debug_nans:
-            raise NotImplementedError("debug_nans is not ported to the distributed trainer "
-                                      "yet; see ROADMAP.md")
-
-        return fit_distributed(cfg, task=task, verbose=verbose, device=device)
+        return fit_distributed(cfg, task=task, verbose=verbose, device=device,
+                               debug_nans=debug_nans)
     if uses_mtl(cfg):
         from tpugraph_torch.train.mtl import fit_mtl
 
         return fit_mtl(cfg, task=task, verbose=verbose, device=device, debug_nans=debug_nans)
     return fit(cfg, task=task, verbose=verbose, device=device, debug_nans=debug_nans)
+
+
+def sharded(cfg: TrainConfig) -> bool:
+    """Whether ``cfg`` runs on the distributed trainer (more than one shard
+    on any axis)."""
+    return max(cfg.n_shards, cfg.feature_shards, cfg.slice_shards) > 1
 
 
 def uses_mtl(cfg: TrainConfig) -> bool:
@@ -94,17 +98,49 @@ def _params(cfg: TrainConfig, params):
     return load_params(cfg.checkpoint_dir)
 
 
+def _evaluate_distributed(cfg: TrainConfig, task: AlignTask | None,
+                          device: str | torch.device) -> TrainResult:
+    """A sharded config's eval-only run, the JAX ``evaluate``'s: the
+    distributed trainer at ``epochs=0`` from the newest checkpoint under
+    ``checkpoint_dir`` (the exact final eval, and the table saved when
+    ``save_emb_path`` is set); a missing directory or checkpoint is refused
+    with the JAX messages."""
+    from tpugraph_torch.train.checkpoint import Checkpointer
+
+    if not cfg.checkpoint_dir:
+        raise ValueError(
+            "evaluate() needs cfg.checkpoint_dir pointing at a trained checkpoint (set "
+            "checkpoint_dir/checkpoint_every on the training run); without one there is "
+            "nothing to evaluate")
+    every = max(cfg.checkpoint_every, 1)  # the restore needs the checkpointer enabled
+    if Checkpointer(cfg.checkpoint_dir, every).latest_step() is None:
+        raise ValueError(
+            f"no checkpoint found under {cfg.checkpoint_dir!r} — evaluate() refuses to report "
+            f"metrics from a fresh random init; train first or fix the path")
+    return run(cfg.replace(epochs=0, checkpoint_every=every, steps_per_call=1, profile_dir=None),
+               task=task, device=device)
+
+
 def evaluate(cfg: TrainConfig, params: dict | None = None, task: AlignTask | None = None,
-             device: str | torch.device = "cuda") -> EvalResult:
+             device: str | torch.device = "cuda") -> EvalResult | TrainResult:
     """Score trained parameters under ``cfg``: one forward, exact Hits@k
     over the test pairs (CSLS with ``cfg.eval_csls_k``), and
     ``save_embeddings(cfg.save_emb_path, ...)`` when that is set.
     ``params``: an encoder's or an AlignMTL's state dict
     (``convert.params_from_jax``), of which ``convert.embed_params`` keeps
     the encoder's and the AE channel's; None reads
-    ``<checkpoint_dir>/params.pt``."""
+    ``<checkpoint_dir>/params.pt``.  A sharded config
+    (``dwy100k_dist``) is scored by the distributed trainer from its
+    checkpoint instead, as the JAX ``evaluate`` does
+    (``_evaluate_distributed``; it takes no ``params`` and returns the
+    trainer's ``TrainResult``)."""
     from tpugraph_torch.train.mtl import attr_operator
 
+    if sharded(cfg):
+        if params is not None:
+            raise ValueError("a sharded config is evaluated from its checkpoint_dir, "
+                             "not from params")
+        return _evaluate_distributed(cfg, task, device)
     dev = resolve_device(device)
     params = embed_params(_params(cfg, params))
     ae_params = {k.removeprefix(AE_PREFIX): params.pop(k) for k in list(params)
