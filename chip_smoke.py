@@ -139,11 +139,12 @@ Phases, each printing one JSON line:
              ``driver.run`` on an NCCL group of one rank holding the 8
              shards, cut to 10 of 400 epochs (one uniform interval, one
              mined by ``ring_knn``, the exact final eval): the partition,
-             each stage's time, the launches (``spmm_ell`` on every shard's
-             local and boundary operators, both ways), the loss falling in
+             each stage's time, the launches (``spmm_ell`` on the rank's
+             stacked local and boundary operators, both ways; at R = 1 the
+             boundary reads the table's own rows), the loss falling in
              each interval; one step with injected negatives against the
              single-device port's step on the same parameters, in ell and
-             in sorted, timed beside it; both SpMM kernels on shard 0's
+             in sorted, timed beside it; both SpMM kernels on the rank's
              local, boundary and boundary-transpose operators (output
              memory prefilled with NaN) against their plain versions, timed
              beside ``torch.sparse.mm`` and the bound.
@@ -154,7 +155,7 @@ Phases, each printing one JSON line:
              same one-rank group, cut to 4 of 900 epochs, proposals from
              epoch 2 (not 200), no periodic eval: the launches
              (``sinkhorn_fused`` 41 per step through the ring OT,
-             ``spmm_ell`` 64 per step and 32 per forward), each stage's time
+             ``spmm_ell`` 8 per step and 4 per forward), each stage's time
              (one exact proposal, one mining, the exact CSLS final eval), the
              peak device memory, the loss falling in each interval; one step
              on an injected batch (proposals, negatives, the OT subsample,
@@ -176,13 +177,32 @@ Phases, each printing one JSON line:
              0.8), the eval against the exact final eval (within 0.02),
              the kernel at the ring's block shapes against its plain
              version, timed.  B: ``DIST_CUTS`` with checkpoints, the run
-             stopped by SIGTERM mid-interval and resumed (final loss rel
-             1e-4), eval-only from the directory (within 1e-4), save and
+             stopped by SIGTERM mid-interval and resumed (every loss bit for
+             bit), eval-only from the directory (within 1e-4), save and
              load times, the checkpoint's size.  C: one step each with the
              attribute channel, dropout 0.3, ``l2_normalize`` and bf16
              against the single-device step's plain path on the same
              parameters, batch and mask, with ``spmm_ell``'s launches.  D:
              ``debug_nans`` at lr 1e30 raises naming epoch 1.
+
+22. dist_fused — ``dwy100k_dist`` at full width on the same one-rank
+             group.  The R = 1 step at d 128 fp32 (``DIST_CUTS``): its
+             launches in ell and sorted, its time by events beside the
+             15.8 ms of the step through the exchange (PERF.md §5) and the
+             single-device step's, its device events (no
+             ``nccl``; copies and index adds read), two calls bit for bit;
+             the same step through the exchange route (the NCCL self-copy,
+             the fixed-order backward) at PERF.md §2's step limits, two
+             backward calls of the exchange bit for bit, the halo SpMM with
+             and without ``force_serialize``.  One interval at d 128 and
+             on v7r (``steps_per_call = neg_every = 2``) replayed against
+             eager (PERF.md §2's replay limits), the replays' launches in a
+             profiler trace, the capture's seconds, the steady step fused
+             and unfused by events and the busy share of each;
+             ``--config dwy100k_dist --fast`` through the CLI and the fused
+             v7r run of phase 21 A's configuration, their steady steps
+             beside phases 19's and 21 A's unfused runs; ``profile_dir``
+             on a 6-epoch run (the trace of epochs 2-5 holds ``spmm_ell``).
 
 A step is held against its plain path by running the same model code with
 every kernel swapped for its plain version (``_plain_kernels``), which
@@ -217,6 +237,8 @@ from tpugraph_torch.convert import save_params
 from tpugraph_torch.data import load_dbp15k, load_openea, synthetic_align_task
 from tpugraph_torch import native
 from tpugraph_torch.dist import mp_worker
+from tpugraph_torch.cli.main import main as cli_main
+from tpugraph_torch.dist.halo import exchange, halo_spmm_ell
 from tpugraph_torch.dist.mesh import make_mesh
 from tpugraph_torch.dist.ring import ring_hits_at_k, ring_knn, ring_sinkhorn_align_loss
 from tpugraph_torch.dist.trainer import dist_parts
@@ -2749,10 +2771,23 @@ def phase_debug_nans(task, smi: str, dev: torch.device) -> dict:
 DIST_CUTS = {"epochs": 10, "neg_every": 5, "eval_every": 0}
 
 
-def _dist_launches(t: dict, n_shards: int) -> int:
-    """A distributed run's SpMM launches: per encoder forward 2 layers × the
-    shards × (local + boundary), and as many again in each step's backward."""
-    return 4 * n_shards * (2 * t["steps"] + t["forwards"] + t["evals"])
+# the SpMM launches of one halo layer's forward at R = 1: the rank's stacked
+# local group and its boundary group over the table's own rows
+HALO_LAYER_LAUNCHES = 2
+
+
+def _dist_launches(t: dict) -> int:
+    """A distributed run's SpMM launches at R = 1: per encoder forward 2
+    layers × (local + boundary), as many again in each step's backward."""
+    return 2 * HALO_LAYER_LAUNCHES * (2 * t["steps"] + t["forwards"] + t["evals"])
+
+
+def _dist_batch(task, cfg, dev) -> dict:
+    """The seed pairs with uniform negatives from a fixed generator."""
+    pairs = torch.as_tensor(task.train_pairs, dtype=torch.int64, device=dev)
+    neg_l, neg_r = sample_uniform_negatives(torch.Generator().manual_seed(1), pairs,
+                                            task.kg1.n_ent, task.n_ent, cfg.k_neg)
+    return {"pairs": pairs, "neg_l": neg_l, "neg_r": neg_r}
 
 
 def _nan_cache(rows: int, d: int, dev: torch.device) -> None:
@@ -2827,8 +2862,9 @@ def phase_dist(smi: str, dev: torch.device) -> dict:
     ways) and losses.  Then one step with injected negatives against the
     single-device port's (``driver.step_parts``) on the same parameters, in
     ell and in sorted (spmm_sorted on the same edge groups), each step's
-    time beside the single-device one's; then both kernels on shard 0's
-    local, boundary and boundary-transpose operators at d = 128 fp32.
+    time beside the single-device one's; then both kernels on the rank's
+    stacked local, boundary and boundary-transpose operators at d = 128
+    fp32.
     The distributed steps are held to the single-device step's plain path
     (``_plain_kernels``), the reference of every step check; their distance
     to its kernel path is read beside, with the kernel path's own distance
@@ -2843,8 +2879,8 @@ def phase_dist(smi: str, dev: torch.device) -> dict:
     sync(dev)
     run_s = time.perf_counter() - t0
     counts, t, losses = _launch_counts(), res.timings, res.losses
-    per_step = 8 * cfg.n_shards
-    expected = {**{k: 0 for k in counts}, "spmm_ell": _dist_launches(t, cfg.n_shards)}
+    per_step = 4 * HALO_LAYER_LAUNCHES
+    expected = {**{k: 0 for k in counts}, "spmm_ell": _dist_launches(t)}
     if counts != expected or t["steps"] != cfg.epochs or t["minings"] != 1:
         raise AssertionError(f"launches {counts} (expected {expected}), timings {t}")
     nb = cfg.neg_every
@@ -2856,7 +2892,7 @@ def phase_dist(smi: str, dev: torch.device) -> dict:
     geometry = res.op.geometry
     emit({"phase": "dist", "config": cfg.name, "cuts": DIST_CUTS, "n_ent": task.n_ent,
           "train_pairs": int(len(task.train_pairs)), "test_pairs": int(len(task.test_pairs)),
-          "partition": geometry, "halo_buffer_mb_per_rank": cfg.n_shards ** 2
+          "partition": geometry, "exchange_route_buffer_mb": cfg.n_shards ** 2
           * geometry["halo_b"] * cfg.dim * 4 / 2 ** 20, "launches": counts,
           "launches_per_step": {"spmm_ell": per_step}, "losses": losses,
           "metrics": {k: res.metrics[k] for k in ("hits@1", "hits@10", "mrr")},
@@ -2867,10 +2903,7 @@ def phase_dist(smi: str, dev: torch.device) -> dict:
                        "run_s": run_s},
           "peak_device_mb": torch.cuda.max_memory_allocated() / 2 ** 20, "card": smi})
 
-    pairs = torch.as_tensor(task.train_pairs, dtype=torch.int64, device=dev)
-    neg_l, neg_r = sample_uniform_negatives(torch.Generator().manual_seed(1), pairs,
-                                            task.kg1.n_ent, task.n_ent, cfg.k_neg)
-    batch = {"pairs": pairs, "neg_l": neg_l, "neg_r": neg_r}
+    batch = _dist_batch(task, cfg, dev)
     single = step_parts(cfg.replace(n_shards=1), task, dev)
 
     def single_step():
@@ -2917,21 +2950,22 @@ def phase_dist(smi: str, dev: torch.device) -> dict:
     def x_for(n_cols):
         return torch.from_numpy(rng.standard_normal((n_cols, d)).astype(np.float32)).to(dev)
 
-    loc, bnd = ops["ell"].loc[0], ops["ell"].bnd[0]
+    loc, bnd = ops["ell"].loc, ops["ell"].bnd
     ell_ops = {name: _dist_ell_case(m, diag, x_for(m.n_cols)) for name, m, diag in (
         ("local", loc.fwd, loc.diag), ("boundary", bnd.fwd, None),
         ("boundary_transpose", bnd.bwd, None))}
     sorted_ops = {}
-    s_loc, s_bnd = ops["sorted"].loc[0], ops["sorted"].bnd[0]
+    s_loc, s_bnd = ops["sorted"].loc, ops["sorted"].bnd
     for name, edges in (("local", s_loc.fwd), ("boundary", s_bnd.fwd),
                         ("boundary_transpose", s_bnd.bwd)):
         x, table, csr = x_for(edges.n_cols), _sorted_table(edges)[0], _csr_of_edges(edges)
         _nan_cache(edges.n_rows, d, dev)
         sorted_ops[name] = {**table, **_sorted_case(edges, csr, x, timed=True)}
-    emit({"phase": "kernel", "kernel": "dist_shard_operators", "shard": 0, "d": d,
+    emit({"phase": "kernel", "kernel": "dist_rank_operators", "shards": cfg.n_shards, "d": d,
           "dtype": "float32", "spmm_ell": ell_ops, "spmm_sorted": sorted_ops, "card": smi})
     return {"launches": counts, "per_step": per_step, "spmm_ell": ell_ops,
-            "spmm_sorted": sorted_ops, "sorted_step_launches": checks["sorted"]["launches"]}
+            "spmm_sorted": sorted_ops, "sorted_step_launches": checks["sorted"]["launches"],
+            "steady_step_s": _steady_step(t)}
 
 
 # recipe v7r on config dwy100k_dist as chip_smoke.py trains it: only these
@@ -3031,8 +3065,9 @@ def phase_dist_v7r(smi: str, dev: torch.device) -> dict:
     run_s = time.perf_counter() - t0
     counts, t, losses = _launch_counts(), res.timings, res.losses
     peak_mb = torch.cuda.max_memory_allocated(dev) / 2 ** 20
-    per_step = {"spmm_ell": 8 * cfg.n_shards, "sinkhorn_fused": 2 * cfg.sinkhorn_iters + 1}
-    expected = {**{k: 0 for k in counts}, "spmm_ell": _dist_launches(t, cfg.n_shards),
+    per_step = {"spmm_ell": 4 * HALO_LAYER_LAUNCHES,
+                "sinkhorn_fused": 2 * cfg.sinkhorn_iters + 1}
+    expected = {**{k: 0 for k in counts}, "spmm_ell": _dist_launches(t),
                 "sinkhorn_fused": per_step["sinkhorn_fused"] * t["steps"]}
     if counts != expected or (t["steps"], t["proposals"], t["minings"], t["forwards"],
                               t["draws"], t["evals"]) != (cfg.epochs, 1, 1, 1, 2, 1):
@@ -3166,7 +3201,7 @@ def _dist_approx_leg(smi: str, dev: torch.device, exact_stages: dict) -> dict:
     res, run_s, counts = _counted(dev, lambda: run(cfg, task=task, device=dev))
     t, losses = res.timings, res.losses
     s = cfg.n_shards
-    expected = {"spmm_ell": _dist_launches(t, s),
+    expected = {"spmm_ell": _dist_launches(t),
                 "sinkhorn_fused": (2 * cfg.sinkhorn_iters + 1) * t["steps"],
                 "shortlist_dist": _dist_select_launches(t, cfg)}
     if counts != expected or (t["steps"], t["proposals"], t["minings"], t["forwards"],
@@ -3179,7 +3214,8 @@ def _dist_approx_leg(smi: str, dev: torch.device, exact_stages: dict) -> dict:
     history_s = (t["eval_s"] - t["final_eval_s"]) / (t["evals"] - 1)
     stages = {"proposal_s": t["propose_s"], "mining_s": t["mine_s"],
               "history_eval_s_each": history_s, "csls_final_eval_s": t["final_eval_s"],
-              "step_median_s": float(np.median(t["step_s"])), "run_s": run_s}
+              "step_median_s": float(np.median(t["step_s"])),
+              "steady_step_s": _steady_step(t), "run_s": run_s}
 
     n1, n = task.kg1.n_ent, task.n_ent
     pairs = torch.as_tensor(task.train_pairs, dtype=torch.int64, device=dev)
@@ -3250,9 +3286,10 @@ def _dist_approx_leg(smi: str, dev: torch.device, exact_stages: dict) -> dict:
 def _dist_checkpoint_leg(smi: str, dev: torch.device) -> dict:
     """Leg B: ``dwy100k_dist`` cut to DIST_CUTS with checkpoints every
     DIST_CKPT_EVERY epochs: the run; the same run stopped by SIGTERM during
-    its DIST_SIGTERM_STEP-th step (mid-interval) and resumed (final loss rel
-    1e-4); ``driver.evaluate`` from the run's directory (each metric within
-    1e-4); save and load seconds, the checkpoint's size."""
+    its DIST_SIGTERM_STEP-th step (mid-interval) and resumed (each loss and
+    the final loss bit for bit: the step sums in a fixed order);
+    ``driver.evaluate`` from the run's directory (each metric within 1e-4);
+    save and load seconds, the checkpoint's size."""
     cfg = get_config("dwy100k_dist", **DIST_CUTS).replace(checkpoint_every=DIST_CKPT_EVERY)
     task = load_task(cfg)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3272,12 +3309,14 @@ def _dist_checkpoint_leg(smi: str, dev: torch.device) -> dict:
     eval_gaps = {k: abs(ev.metrics[k] - full.metrics[k]) for k in ("hits@1", "hits@10", "mrr",
                                                                   "final_loss")}
     stopped = (first.timings["steps"], resumed.timings["start_epoch"])
-    if stopped != (DIST_SIGTERM_STEP, DIST_SIGTERM_STEP) or loss_rel > 1e-4 or max(
+    bitwise = first.losses + resumed.losses == full.losses and loss_rel == 0.0
+    if stopped != (DIST_SIGTERM_STEP, DIST_SIGTERM_STEP) or not bitwise or max(
             eval_gaps.values()) > 1e-4:
         raise AssertionError(f"checkpoints: stopped/resumed at {stopped}, final loss rel "
                              f"{loss_rel}, eval-only gaps {eval_gaps}")
     out = {"cuts": DIST_CUTS, "checkpoint_every": DIST_CKPT_EVERY,
            "sigterm_step": DIST_SIGTERM_STEP, "final_loss_rel_err": loss_rel,
+           "bitwise": bitwise,
            "losses_rel_err_max": float(np.max(np.abs(
                np.array(first.losses + resumed.losses) / np.array(full.losses) - 1))),
            "eval_only_gaps": eval_gaps, "checkpoint_mb": ckpt_mb,
@@ -3298,10 +3337,7 @@ def _dist_options_leg(smi: str, dev: torch.device) -> dict:
     §2's step limits (bf16 at its bf16 limits)."""
     base = get_config("dwy100k_dist", **DIST_CUTS)
     task = load_task(base)
-    pairs = torch.as_tensor(task.train_pairs, dtype=torch.int64, device=dev)
-    neg_l, neg_r = sample_uniform_negatives(torch.Generator().manual_seed(1), pairs,
-                                            task.kg1.n_ent, task.n_ent, base.k_neg)
-    batch = {"pairs": pairs, "neg_l": neg_l, "neg_r": neg_r}
+    batch = _dist_batch(task, base, dev)
     n, epoch = task.n_ent, 1
     out = {}
     for name, over in DIST_OPTIONS.items():
@@ -3322,11 +3358,11 @@ def _dist_options_leg(smi: str, dev: torch.device) -> dict:
             loss, _, launched = _counted(dev, lambda: parts.grads(batch, mask))
             grads = {k: p.grad.clone() for k, p in parts.model.named_parameters()}
             step_ms = time_ms(lambda: parts.grads(batch, mask), 1, 5)
-            if cfg.use_attr_channel:  # shard 0's operators, for the kernel's new callers
-                inc0, loc0, bnd0 = parts.model.ae_encoder.inc[0], parts.op.loc[0], parts.op.bnd[0]
+            if cfg.use_attr_channel:  # the operators of the kernel's callers
+                inc0, loc0, bnd0 = parts.model.ae_encoder.inc[0], parts.op.loc, parts.op.bnd
             del parts
         zero_rel = 1e-5 if dtype == torch.float32 else math.sqrt(n) * 2 ** -8
-        per_step = 8 * cfg.n_shards * (2 if cfg.use_attr_channel else 1) + (
+        per_step = 4 * HALO_LAYER_LAUNCHES * (2 if cfg.use_attr_channel else 1) + (
             2 * cfg.n_shards if cfg.use_attr_channel else 0)
         if launched != {"spmm_ell": per_step}:
             raise AssertionError(f"{name}: one step launched {launched}, expected {per_step}")
@@ -3335,9 +3371,8 @@ def _dist_options_leg(smi: str, dev: torch.device) -> dict:
                                  DIST_OPTION_ZERO_GRADS[name], zero_rel, STEP_TOL[dtype])}
     emit({"phase": "dist_options", "leg": "C_encoder_options", "mask_epoch": epoch,
           "options": out, "card": smi})
-    # spmm_ell's new callers, on shard 0: the attribute incidence (the
-    # channel's input, fp32) and the halo's local and boundary operators in
-    # bf16 (the bf16 step)
+    # spmm_ell's callers: shard 0's attribute incidence (the channel's
+    # input, fp32) and the rank's halo operators in bf16 (the bf16 step)
     rng = np.random.default_rng(7)
     d = base.dim
 
@@ -3352,7 +3387,7 @@ def _dist_options_leg(smi: str, dev: torch.device) -> dict:
                   ("local_bf16", loc0.fwd, loc0.diag, torch.bfloat16),
                   ("boundary_bf16", bnd0.fwd, None, torch.bfloat16),
                   ("boundary_transpose_bf16", bnd0.bwd, None, torch.bfloat16))}
-    emit({"phase": "kernel", "kernel": "dist_option_operators", "shard": 0, "d": d,
+    emit({"phase": "kernel", "kernel": "dist_option_operators", "d": d,
           "spmm_ell": kernel, "card": smi})
     return {**out, "kernel": kernel}
 
@@ -3387,6 +3422,329 @@ def phase_dist_options(smi: str, dev: torch.device, exact_stages: dict) -> dict:
             "checkpoints": _dist_checkpoint_leg(smi, dev),
             "options": _dist_options_leg(smi, dev),
             "debug_nans": _dist_debug_nans_leg(smi, dev)}
+
+
+# ---- the distributed step at R = 1, the exchange route, the fused interval ----
+
+# the one-step times by events at d 128 that PERF.md §5 records from before
+# the boundary read the table's rows (NVIDIA H100 80GB HBM3, 700.00 W): the
+# step through the exchange at R = 1, and the single-device step on the
+# same parameters and batch
+EARLIER_STEP_MS = {"distributed_through_the_exchange": 15.84521026611328,
+                "single_device": 6.092704010009766}
+DIST_FAST = {"neg_metric": "sqeuclidean", "neg_approx": True}  # --fast's search set
+# device events the R = 1 step must not hold: the collective, the atomic
+# index add of the exchange's old backward
+NO_EXCHANGE = ("nccl", "all_to_all")
+INDEX_ADD = ("indexFunc", "index_add")  # the atomic index add (read, not refused)
+
+
+def _all_events_ms(fn, dev) -> dict:
+    """``_device_split`` of one call of ``fn`` with every device event kept."""
+    return _device_split(fn, dev, top=10_000)
+
+
+def _copies_ms(events: dict) -> float:
+    """The device time of the copies and fills among ``events``."""
+    return sum(v for k, v in events.items()
+               if any(w in k.lower() for w in ("copy", "memcpy", "memset", "fill")))
+
+
+def _dist_r1_leg(smi: str, dev: torch.device, task, cfg) -> dict:
+    """The R = 1 step at d 128 fp32 (``DIST_CUTS``): its launches in ell
+    and in sorted, its time by events beside ``EARLIER_STEP_MS`` and a
+    single-device step's, its device events (none of ``NO_EXCHANGE``), two
+    calls equal bit for bit; then the same step through the exchange route at R = 1 (the
+    NCCL self-copy, the fixed-order backward) held to it at PERF.md §2's
+    step limits, two backward calls of the exchange bit for bit, and the
+    halo SpMM's forward + backward with and without ``force_serialize``."""
+    batch = _dist_batch(task, cfg, dev)
+    per_step = 4 * HALO_LAYER_LAUNCHES
+    out = {}
+    single = step_parts(cfg.replace(n_shards=1), task, dev)
+
+    def single_step():
+        single.model.zero_grad(set_to_none=True)
+        single.loss_fn(batch, None)[0].backward()
+
+    single_ms = time_ms(single_step, 1, 5)
+    del single
+    with make_mesh(cfg.n_shards, dev) as mesh:
+        for impl in ("sorted", "ell"):
+            parts = dist_parts(cfg.replace(spmm_impl=impl), task, mesh)
+            loss, grads, launched = _dist_step(parts, batch)
+            kernel = "spmm_ell" if impl == "ell" else "spmm_sorted"
+            if launched != {**{k: 0 for k in launched}, kernel: per_step}:
+                raise AssertionError(f"the R = 1 {impl} step launched {launched}")
+            again, grads2, _ = _dist_step(parts, batch)
+            differ = [k for k in grads if not torch.equal(grads[k], grads2[k])]
+            if not torch.equal(loss, again) or differ:
+                raise AssertionError(f"two R = 1 {impl} steps differ: loss {loss.item()} / "
+                                     f"{again.item()}, gradients {differ}")
+            out[impl] = {"launches_per_step": launched[kernel],
+                         "step_ms": time_ms(lambda: parts.grads(batch), 1, 5)}
+            if impl == "sorted":
+                del parts
+        split = _all_events_ms(lambda: parts.grads(batch), dev)
+        events = split["top_kernels_ms"] or {}
+        found = [k for k in events if any(w in k for w in NO_EXCHANGE)]
+        if not events or found:
+            raise AssertionError(f"the R = 1 step's device events: {len(events)}, of the "
+                                 f"exchange {found}")
+        out["ell"].update(
+            index_add_events=[k for k in events if any(w in k for w in INDEX_ADD)],
+            single_device_step_ms=single_ms, earlier_step_ms=EARLIER_STEP_MS,
+            busy_share=split["busy_share"], wall_ms=split["wall_ms"],
+            copies_ms=_copies_ms(events),
+            top_device_ms=dict(sorted(events.items(), key=lambda kv: -kv[1])[:10]))
+
+        # the exchange route at R = 1: the NCCL self-copy and its backward
+        xparts = dist_parts(cfg, task, mesh, exchange=True)
+        x_loss, x_grads, x_launched = _dist_step(xparts, batch)
+        want = per_step + 2  # each layer's backward sums the returned rows: one launch
+        if x_launched != {**{k: 0 for k in x_launched}, "spmm_ell": want}:
+            raise AssertionError(f"the exchange route's step launched {x_launched}")
+        gap = _step_gap(x_loss, {**x_grads, "emb": x_grads["emb"][:task.n_ent]}, loss,
+                        {**grads, "emb": grads["emb"][:task.n_ent]}, ("gc2.b",),
+                        tol=STEP_TOL[torch.float32])
+        op = xparts.op
+        rng = torch.Generator(device=dev).manual_seed(3)
+        x = torch.randn((op.n_rows, cfg.dim), generator=rng, device=dev)
+        g = torch.randn((op.per_rank, cfg.n_shards * op.halo_b, cfg.dim), generator=rng,
+                        device=dev)
+        back = []
+        for _ in range(2):
+            xt = x.clone().requires_grad_()
+            exchange(xt, op).backward(g)
+            back.append(xt.grad)
+        if not torch.equal(back[0], back[1]):
+            raise AssertionError("two backward calls of the exchange differ")
+        gh = torch.randn((op.n_rows, cfg.dim), generator=rng, device=dev)
+        xt = x.clone().requires_grad_()
+
+        def halo(serial):
+            def call():
+                xt.grad = None
+                halo_spmm_ell(xt, op, force_serialize=serial).backward(gh)
+            return call
+
+        x_split = _all_events_ms(lambda: xparts.grads(batch), dev)
+        x_events = x_split["top_kernels_ms"] or {}
+        out["exchange_route"] = {
+            "launches_per_step": x_launched["spmm_ell"], "vs_r1_step": gap,
+            "bitwise_loss_vs_r1": bool(torch.equal(x_loss, loss)),
+            "backward_bitwise_over_two_calls": True,
+            "step_ms": time_ms(lambda: xparts.grads(batch), 1, 5),
+            "halo_fwd_bwd_ms": {"overlapped": time_ms(halo(False), 1, 5),
+                                "force_serialize": time_ms(halo(True), 1, 5),
+                                "overlapped_again": time_ms(halo(False), 1, 5)},
+            "nccl_ms": sum(v for k, v in x_events.items() if "nccl" in k),
+            "copies_ms": _copies_ms(x_events), "wall_ms": x_split["wall_ms"],
+            "top_device_ms": dict(sorted(x_events.items(), key=lambda kv: -kv[1])[:10])}
+        del parts, xparts
+    emit({"phase": "dist_fused", "leg": "r1_step", "d": cfg.dim, **out, "card": smi})
+    return out
+
+
+def _dist_interval(task, cfg, batch, dev: torch.device, what: str) -> dict:
+    """One interval (``neg_every`` steps) of the distributed trainer's own
+    step (``DistParts.loss_fn``, ``sum_grads``) on ``batch``, three ways
+    (as ``_interval_replay``): replays of the captured step (capturable
+    Adam), the same ``train_step``s eager with the same Adam, and eager
+    with the unfused path's Adam.  The replays are held to the eager steps
+    of the same Adam at REPLAY_TOL; the warm-up step's and the capture's
+    launches counted through the wrappers, the replays' in a profiler
+    trace of one more interval (the step's launches, each ``steps`` times);
+    the step's time by events fused and unfused, the capture's seconds, the
+    device's busy share over a replayed and an unfused interval."""
+    steps = cfg.neg_every
+    per_step = {"spmm_ell": 4 * HALO_LAYER_LAUNCHES,
+                "sinkhorn_fused": (2 * cfg.sinkhorn_iters + 1) if cfg.use_sinkhorn else 0}
+    with make_mesh(cfg.n_shards, dev) as mesh:
+        parts = dist_parts(cfg, task, mesh)
+        model = parts.model
+        init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+        def gen(e):
+            return step_generator(cfg, e, dev) if cfg.dropout > 0 else None
+
+        def eager(capturable):
+            model.load_state_dict(init)
+            opt, sched = make_optimizer(cfg, model.parameters(), capturable=capturable)
+            losses = []
+
+            def interval():
+                for e in range(steps):
+                    losses.append(train_step(opt, parts.loss_fn, batch, gen(e),
+                                             parts.sum_grads)[0])
+                    sched.step()
+
+            interval()
+            sync(dev)
+            return [float(v) for v in losses], {k: v.detach().clone() for k, v in
+                                                model.state_dict().items()}, interval
+
+        want, want_p, _ = eager(True)
+        plain, _, unfused_interval = eager(False)
+        model.load_state_dict(init)
+        opt, sched = make_optimizer(cfg, model.parameters(), capturable=True)
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        cap = CapturedStep(opt, parts.loss_fn, batch, dev, cfg.dropout > 0,
+                           after_backward=parts.sum_grads)
+        sync(dev)
+        capture_s = time.perf_counter() - t0
+        capture_counts = {k: v for k, v in _launch_counts().items() if v}
+
+        def replayed():
+            out = []
+            for e in range(steps):
+                out.append(cap.replay(step_seed(cfg, e)))
+                sched.step()
+            return out
+
+        _reset_launch_counts()
+        got = [float(v) for v in replayed()]
+        sync(dev)
+        if any(_launch_counts().values()):
+            raise AssertionError(f"{what}: a replay went through a wrapper: {_launch_counts()}")
+        got_p = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        loss_rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+        param_rel = max(float((got_p[k] - v).norm() / v.norm().clamp_min(1e-30))
+                        for k, v in want_p.items())
+        if loss_rel > REPLAY_TOL or param_rel > REPLAY_TOL or not all(map(math.isfinite, got)):
+            raise AssertionError(f"{what}: replayed interval against eager: losses {got} / "
+                                 f"{want} (rel {loss_rel}), parameters rel L2 {param_rel}")
+        want_counts = {k: 2 * v for k, v in per_step.items() if v}
+        if capture_counts != want_counts:
+            raise AssertionError(f"{what}: warm-up and capture launched {capture_counts}, "
+                                 f"expected {want_counts}")
+        _, traced, every, first = _traced_launches(replayed, dev, f"{what}: a replayed interval",
+                                                   warm=replayed)
+        want_traced = {k: steps * per_step.get(k, 0) for k in KERNEL_SYMBOLS}
+        if traced != want_traced:
+            raise AssertionError(f"{what}: the trace of a replayed interval holds {traced}, "
+                                 f"expected {want_traced}; its first events {first}")
+        fused_ms = time_ms(replayed, 1, 3) / steps
+        unfused_ms = time_ms(unfused_interval, 1, 3) / steps
+        out = {"steps": steps, "losses_replayed": got, "losses_eager": want,
+               "losses_eager_unfused_adam": plain, "loss_rel_err": loss_rel,
+               "params_rel_l2": param_rel,
+               "bitwise": got == want and all(torch.equal(got_p[k], v)
+                                              for k, v in want_p.items()),
+               "capture_s": capture_s, "warm_up_and_capture_launches": capture_counts,
+               "replayed_launches_per_step": {k: v // steps for k, v in traced.items() if v},
+               "device_events_per_step": every / steps,
+               "step_ms": {"fused": fused_ms, "unfused": unfused_ms,
+                           "fused_over_unfused": fused_ms / unfused_ms},
+               "busy": {"replayed": _device_split(replayed, dev, top=4),
+                        "unfused": _device_split(unfused_interval, dev, top=4)}}
+        del cap, parts, model
+    return out
+
+
+def _dist_fused_run(cfg, dev, fn) -> dict:
+    """A run of ``cfg`` (``fn()`` returns its ``TrainResult``), its
+    launches held to the model: the boundary forwards and evals eager, the
+    warm-up step and the capture (fused) or every step (unfused), the
+    shortlisted ring stages."""
+    res, run_s, counts = _counted(dev, fn)
+    t = res.timings
+    steps = t["steps"] if cfg.steps_per_call == 1 else 2  # the warm-up step and the capture
+    expected = {"spmm_ell": 2 * HALO_LAYER_LAUNCHES * (2 * steps + t["forwards"] + t["evals"])}
+    if cfg.use_sinkhorn:
+        expected["sinkhorn_fused"] = (2 * cfg.sinkhorn_iters + 1) * steps
+    if _dist_select_launches(t, cfg):
+        expected["shortlist_dist"] = _dist_select_launches(t, cfg)
+    losses = res.losses
+    if counts != expected or t["steps"] != cfg.epochs or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{cfg.name} steps_per_call={cfg.steps_per_call}: launches "
+                             f"{counts} (expected {expected}), timings {t}, losses {losses}")
+    return {"steps_per_call": cfg.steps_per_call, "launches": counts, "run_s": run_s,
+            "steady_step_s": _steady_step(t), "capture_s": t["capture_s"], "losses": losses,
+            "metrics": {k: res.metrics[k] for k in ("hits@1", "hits@10", "mrr", "final_loss")},
+            "stages_s": {k: t[k] for k in ("build_s", "forward_s", "propose_s", "mine_s",
+                                           "final_eval_s")}}
+
+
+@contextlib.contextmanager
+def _results_of_run():
+    """Keep what ``driver.run`` returns while the CLI calls it."""
+    import tpugraph_torch.train.driver as driver_mod
+
+    real, kept = driver_mod.run, []
+
+    def keep(*args, **kwargs):
+        kept.append(real(*args, **kwargs))
+        return kept[-1]
+
+    driver_mod.run = keep
+    try:
+        yield kept
+    finally:
+        driver_mod.run = real
+
+
+def _dist_profile_leg(smi: str, dev: torch.device, task) -> dict:
+    """``profile_dir`` on an unfused 6-epoch run (``DIST_CUTS``' interval,
+    the ``--fast`` search set): the trace of epochs 2-5 it writes holds the
+    halo SpMM's kernel records."""
+    cfg = get_config("dwy100k_dist", **{**DIST_CUTS, "epochs": 6, **DIST_FAST})
+    with tempfile.TemporaryDirectory() as tmp:
+        res, run_s = _timed(dev, lambda: run(cfg.replace(profile_dir=tmp), task=task,
+                                             device=dev))
+        files = sorted(os.listdir(tmp))
+        if files != ["trace-epochs-2-5.json"]:
+            raise AssertionError(f"profile_dir holds {files}")
+        size_mb = os.path.getsize(os.path.join(tmp, files[0])) / 2 ** 20
+        with open(os.path.join(tmp, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    spmm = [e for e in kernels if KERNEL_SYMBOLS["spmm_ell"] in e["name"]]
+    if not spmm:
+        raise AssertionError(f"the trace holds no spmm_ell record of {len(kernels)} kernels")
+    out = {"trace": files[0], "trace_mb": size_mb, "kernel_records": len(kernels),
+           "spmm_ell_records": len(spmm), "steps": res.timings["steps"], "run_s": run_s}
+    emit({"phase": "dist_fused", "leg": "profile_dir", **out, "card": smi})
+    return out
+
+
+def phase_dist_fused(smi: str, dev: torch.device, dist: dict, leg_a_stages: dict) -> dict:
+    """``dwy100k_dist`` at full width on an NCCL group of one rank holding
+    the 8 shards: the R = 1 step (``_dist_r1_leg``); one interval replayed
+    against eager at d 128 (``DIST_CUTS``) and on v7r
+    (``DIST_V7R_CUTS``, ``steps_per_call = neg_every = 2``) with its
+    launches, capture seconds, steady step fused and unfused and busy
+    shares (``_dist_interval``); ``--config dwy100k_dist --fast`` through
+    the CLI (``DIST_CUTS``) and the fused v7r run of phase 21's leg A's
+    configuration, their steady steps beside the unfused runs' of phases 19
+    and 21; and ``profile_dir`` (``_dist_profile_leg``)."""
+    cfg = get_config("dwy100k_dist", **DIST_CUTS)
+    task = load_task(cfg)
+    r1 = _dist_r1_leg(smi, dev, task, cfg)
+    v7r = get_config("dwy100k_dist", **RECIPES["v7r"]).replace(
+        sinkhorn_pairs=DIST_V7R_OT_PAIRS, **DIST_V7R_CUTS)
+    intervals = {"d128": _dist_interval(task, cfg, _dist_batch(task, cfg, dev), dev, "d128"),
+                 "v7r": _dist_interval(task, v7r, mp_worker.surface_batch(v7r, task, device=dev),
+                                       dev, "v7r")}
+    emit({"phase": "dist_fused", "leg": "interval_replay", "replay_tol": REPLAY_TOL,
+          **intervals, "card": smi})
+    def cli_fast():
+        with _results_of_run() as kept:
+            if cli_main(["--config", "dwy100k_dist", "--fast", "--quiet", "--set",
+                         *(f"{k}={v}" for k, v in DIST_CUTS.items())]) != 0:
+                raise AssertionError("the CLI with --fast failed")
+        return kept[0]
+
+    d128 = _dist_fused_run(cfg.replace(steps_per_call=cfg.neg_every, **DIST_FAST), dev, cli_fast)
+    v7r_cfg = v7r.replace(**DIST_APPROX, steps_per_call=v7r.neg_every)
+    v7r_fast = _dist_fused_run(v7r_cfg, dev, lambda: run(v7r_cfg, task=task, device=dev))
+    runs = {"d128_cli_fast": {**d128, "unfused_steady_step_s_phase19": dist["steady_step_s"]},
+            "v7r_fast": {**v7r_fast,
+                         "unfused_steady_step_s_phase21_leg_a": leg_a_stages["steady_step_s"]}}
+    emit({"phase": "dist_fused", "leg": "fused_runs", **runs, "card": smi})
+    profile = _dist_profile_leg(smi, dev, task)
+    return {"r1": r1, "intervals": intervals, "runs": runs, "profile": profile}
 
 
 def _hits_of(ranks: torch.Tensor) -> tuple:
@@ -3429,6 +3787,7 @@ def main() -> int:
     dist = phase_dist(smi, dev)
     dist_v7r = phase_dist_v7r(smi, dev)
     dist_options = phase_dist_options(smi, dev, dist_v7r["stages_s"])
+    dist_fused = phase_dist_fused(smi, dev, dist, dist_options["approx"]["stages_s"])
     # one potential update at the ring caller's shape: the v7r run's 4,096
     # pairs, one rank holding the 8 shards, so one launch per update
     k_sink_ring = phase_sinkhorn(smi, dev, s=DIST_V7R_OT_PAIRS, d=256)
@@ -3466,7 +3825,14 @@ def main() -> int:
          "launches_dist_approx": dist_options["approx"]["launches"]["spmm_ell"],
          "launches_dist_options": {k: v["launches_per_step"]["spmm_ell"]
                                    for k, v in dist_options["options"].items() if k != "kernel"},
-         "dist_option_operators": dist_options["options"]["kernel"]},
+         "dist_option_operators": dist_options["options"]["kernel"],
+         "launches_dist_fused": {
+             "r1_step_per_step": dist_fused["r1"]["ell"]["launches_per_step"],
+             "exchange_route_per_step": dist_fused["r1"]["exchange_route"]["launches_per_step"],
+             "replayed_per_step": {k: v["replayed_launches_per_step"]["spmm_ell"]
+                                   for k, v in dist_fused["intervals"].items()},
+             "fused_runs": {k: v["launches"]["spmm_ell"]
+                            for k, v in dist_fused["runs"].items()}}},
         {"name": "sinkhorn_fused", "route": "cuda",
          "source": "tpugraph_torch/csrc/sinkhorn_fused.cu",
          "replaces": "tpugraph/kernels/sinkhorn_pallas.py:38",
@@ -3476,7 +3842,11 @@ def main() -> int:
          "launches_fused_v6": fused["v6_fast"]["sinkhorn_fused"], **k_sink,
          "launches_dist_v7r": dist_v7r["launches"]["sinkhorn_fused"],
          "launches_dist_v7r_per_step": dist_v7r["per_step"]["sinkhorn_fused"],
-         "dist_ring": {"kernel_at_ring_shape": k_sink_ring, "loss": dist_v7r["ring_ot"]}},
+         "dist_ring": {"kernel_at_ring_shape": k_sink_ring, "loss": dist_v7r["ring_ot"]},
+         "launches_dist_fused": {
+             "replayed_per_step_v7r":
+                 dist_fused["intervals"]["v7r"]["replayed_launches_per_step"]["sinkhorn_fused"],
+             "fused_run_v7r": dist_fused["runs"]["v7r_fast"]["launches"]["sinkhorn_fused"]}},
         {"name": "shortlist_dist", "route": "cuda",
          "source": "tpugraph_torch/csrc/shortlist_dist.cu",
          "replaces": "tpugraph/train/negatives.py:260",
@@ -3499,6 +3869,7 @@ def main() -> int:
                       "device_ms", "ms_cold_l2", "library_device_ms", "split_device_ms")},
          "d": 128, "dtype": "float32", "operator": "forward", "all": k_sorted,
          "launches_dist_sorted_step": dist["sorted_step_launches"]["spmm_sorted"],
+         "launches_dist_r1_sorted_step": dist_fused["r1"]["sorted"]["launches_per_step"],
          "dist_shard_ops": dist["spmm_sorted"]},
     ]})
     print(smi, flush=True)

@@ -21,7 +21,8 @@ package's and against itself across shard and rank counts, on the CPU
   OT's potentials, loss and gradient among them), three trainer steps
   within rel 1e-5, and ``edges_per_s_chip == edges_per_s / R`` exactly,
   unrounded; one v7r-surface step's loss and every gradient, and a run's
-  losses, within rel 1e-5;
+  losses, within rel 1e-5; a fused run's losses and parameters within rel
+  1e-5; the profiler's trace written by rank 0 alone;
 * every refusal, the OT-size guard's message on each branch, the routing
   of ``driver.run`` and the CLI, and the saved table.
 """
@@ -229,6 +230,8 @@ OPTIONS_CFG = SURFACE.replace(use_attr_channel=True, dropout=0.3, param_dtype="b
 PREEMPT_CFG = get_config("base", n_shards=4, dim=16, epochs=8, eval_every=0, k_neg=4,
                          neg_every=3, neg_mode="hard", neg_approx=True, checkpoint_every=2,
                          syn_n_ent=120)
+# the fused interval: two steps a call, mined negatives in the second interval
+FUSED_CFG = TWO_RANK_CFG.replace(epochs=4, steps_per_call=2, eval_every=2)
 
 
 @pytest.fixture(scope="module")
@@ -238,8 +241,9 @@ def two_ranks(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("ranks")
     args = (4, TWO_RANK_CFG, TWO_RANK_TASK, SURFACE.replace(epochs=4), OPTIONS_CFG)
     ck = str(tmp / "ck")
-    ranks = mp_worker.run_ranks("check", 2, tmp, *args, (PREEMPT_CFG, ck, 5, 1), timeout=300.0)
-    return ranks, mp_worker.check_mode(*args), ck
+    ranks = mp_worker.run_ranks("check", 2, tmp, *args, (PREEMPT_CFG, ck, 5, 1), FUSED_CFG,
+                                str(tmp / "prof"), timeout=300.0)
+    return ranks, mp_worker.check_mode(*args, fused_cfg=FUSED_CFG), ck
 
 
 @pytest.mark.parametrize("impl", ["ell", "sorted"])
@@ -318,6 +322,27 @@ def test_two_ranks_step_with_the_encoder_options_equals_one(two_ranks):
         assert float((got[k] - v).norm() / v.norm()) < 1e-5, k
 
 
+def test_two_ranks_fused_equal_one_and_rank_zero_alone_traces(two_ranks):
+    """A fused run (two steps an interval, eager on the host) on two ranks
+    equals one rank's: each step's loss and the parameters within rel 1e-5,
+    the metrics within 1e-6; the traced run wrote its trace of epochs 2-2
+    (the run's end) on rank 0 only."""
+    ranks, one, ck = two_ranks
+    want = one["fused"]
+    for r in ranks:
+        np.testing.assert_allclose(r["fused"]["losses"], want["losses"], rtol=1e-5)
+        assert len(r["fused"]["losses"]) == FUSED_CFG.epochs
+        assert [h["epoch"] for h in r["fused"]["history"]] == [1, 3]
+        for k in ("hits@1", "hits@10", "mrr"):
+            assert r["fused"]["metrics"][k] == pytest.approx(want["metrics"][k], abs=1e-6), k
+        for k, v in want["params"].items():
+            if k != "gc2.b":  # 0 gradient by construction: Adam steps on rounding noise
+                assert float((r["fused"]["params"][k] - v).norm() / v.norm()) < 1e-5, k
+    prof = os.path.join(os.path.dirname(ck), "prof")
+    assert os.listdir(os.path.join(prof, "rank0")) == ["trace-epochs-2-2.json"]
+    assert not os.path.exists(os.path.join(prof, "rank1"))
+
+
 def test_two_ranks_agree_on_a_sigterm_and_one_rank_resumes(two_ranks):
     """SIGTERM reaching rank 1 alone stops both ranks at the same epoch
     (the agreed latch), both save there (rank 0 writes), and one rank
@@ -337,8 +362,6 @@ def test_two_ranks_agree_on_a_sigterm_and_one_rank_resumes(two_ranks):
 
 
 REFUSED = {
-    "steps_per_call": dict(steps_per_call=4, neg_every=4, epochs=8),
-    "profile_dir": dict(profile_dir="prof"),
     "feature_shards > 1": dict(feature_shards=2),
     "slice_shards > 1": dict(slice_shards=2),
     "halo_grouped": dict(halo_grouped=True),
@@ -355,7 +378,8 @@ def test_unported_options_refuse_and_the_jax_refusals_come_first():
                             device="cpu")
     ported = [dict(checkpoint_dir="ck", checkpoint_every=2), dict(use_attr_channel=True),
               dict(neg_approx=True), dict(eval_approx_k=16), dict(param_dtype="bfloat16"),
-              dict(dropout=0.3), dict(l2_normalize=True)]
+              dict(dropout=0.3), dict(l2_normalize=True),
+              dict(steps_per_call=4, neg_every=4, epochs=8), dict(profile_dir="prof")]
     for over in ported:  # no longer refused
         check_distributed(get_config("base", **{**KW, "n_shards": 2, **over}), task)
     for over, what in ((dict(param_dtype="float16"), "param_dtype"),

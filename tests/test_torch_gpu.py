@@ -6,8 +6,9 @@ operator, steps of recipes v6 and v7r, bf16 and sorted steps, captured
 steps, ``debug_nans`` on a captured interval, and the approximate search
 paths against the same calls on the host; the distributed trainer's
 shard operators and steps (margin, recipe v7r's surface with the ring OT,
-the attribute channel, bf16), its ring stages (exact and shortlisted, at
-``dwy100k_dist``'s block sizes) and a resume.
+the attribute channel, bf16) and the exchange route beside them, a
+replayed distributed interval, its ring stages (exact and shortlisted, at
+``dwy100k_dist``'s block sizes) and a bitwise resume.
 
 Marked ``gpu``; each test skips without a CUDA device.  This file imports
 neither JAX nor the JAX package, so on a machine with a card (and no JAX)
@@ -50,7 +51,8 @@ from tpugraph_torch.train.negatives import _hubness_both_approx, sample_hard_neg
 from tpugraph_torch.train.optim import make_optimizer
 from tpugraph_torch.train.ot import sinkhorn_align_loss, sinkhorn_align_loss_plain
 from tpugraph_torch.dist import mp_worker
-from tpugraph_torch.dist.mesh import make_mesh
+from tpugraph_torch.dist.halo import exchange
+from tpugraph_torch.dist.mesh import make_mesh, shard_operator
 from tpugraph_torch.dist.ring import ring_hits_at_k, ring_knn, ring_sinkhorn_align_loss
 from tpugraph_torch.dist.trainer import dist_parts
 from tpugraph_torch.sparse.build import coo_from_triples, coo_normalize
@@ -1173,9 +1175,10 @@ def test_spmm_kernels_on_a_shard_boundary_and_its_transpose(cuda, d):
 @pytest.mark.parametrize("impl", ["ell", "sorted"])
 def test_distributed_step_on_the_card_matches_the_host(cuda, impl):
     """One distributed step (4 shards, an NCCL group of one rank, the
-    kernels doing every shard's aggregation both ways) against the same
-    step on the host (gloo, plain versions): loss rel 1e-4, each gradient
-    relative L2 1e-4 (gc2.b, 0 by construction, as noise)."""
+    kernels doing the rank's stacked local and boundary aggregation both
+    ways) against the same step on the host (gloo, plain versions): loss
+    rel 1e-4, each gradient relative L2 1e-4 (gc2.b, 0 by construction, as
+    noise)."""
     task, _ = _shard_graph()
     cfg = get_config("base", n_shards=4, dim=128, k_neg=10, spmm_impl=impl)
     pairs = torch.as_tensor(task.train_pairs, dtype=torch.int64)
@@ -1191,7 +1194,7 @@ def test_distributed_step_on_the_card_matches_the_host(cuda, impl):
             launched = (spmm_ell.launches - before[0], spmm_mod.launches - before[1])
             out[dev.type] = (loss.item(), {k: p.grad.cpu() for k, p in
                                            parts.model.named_parameters()}, launched)
-    assert out["cuda"][2] == ((32, 0) if impl == "ell" else (0, 32))
+    assert out["cuda"][2] == ((8, 0) if impl == "ell" else (0, 8))
     assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-4)
     scale = max(float(g.abs().max()) for g in out["cpu"][1].values())
     for k, g in out["cpu"][1].items():
@@ -1271,7 +1274,7 @@ def test_distributed_v7r_step_on_the_card_matches_the_host(cuda):
             launched = (spmm_ell.launches - before[0], sinkhorn_fused.launches - before[1])
             out[dev.type] = (loss.item(), {k: p.grad.cpu() for k, p in
                                            parts.model.named_parameters()}, launched)
-    assert out["cuda"][2] == (32, 41)
+    assert out["cuda"][2] == (8, 41)
     assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-4)
     for k, g in out["cpu"][1].items():
         assert float((out["cuda"][1][k] - g).norm() / g.norm()) < 1e-4, k
@@ -1359,7 +1362,9 @@ def test_distributed_option_step_on_the_card_matches_the_host(cuda, option):
             out[dev.type] = (loss.item(), {k: p.grad.cpu() for k, p in
                                            parts.model.named_parameters()},
                              spmm_ell.launches - before)
-    assert out["cuda"][2] == (32 + 32 + 8 if option == "channel" else 32)
+    # the encoder's and the channel's halo layers 8 each, the incidence one
+    # launch per shard each way
+    assert out["cuda"][2] == (8 + 8 + 8 if option == "channel" else 8)
     host = out["cpu"][1]
     scale = max(float(g.abs().max()) for g in host.values())
     if option == "bf16":
@@ -1385,7 +1390,8 @@ def test_distributed_option_step_on_the_card_matches_the_host(cuda, option):
 def test_distributed_resume_on_the_card(cuda, tmp_path):
     """A ``dwy100k_dist``-shaped run on the card (8 shards, one NCCL rank,
     shortlisted mining) stopped by SIGTERM in the middle of an interval and
-    resumed: the final loss within rel 1e-4 of the uninterrupted run's."""
+    resumed: each loss and the final loss equal the uninterrupted run's bit
+    for bit (every sum of the step runs in a fixed order)."""
     task, _ = _shard_graph()
     cfg = get_config("dwy100k_dist", dim=128, k_neg=10, epochs=8, neg_every=3, eval_every=0,
                      neg_approx=True, checkpoint_every=2)
@@ -1398,4 +1404,103 @@ def test_distributed_resume_on_the_card(cuda, tmp_path):
         undo()
     resumed = run(cut, task=task, device=cuda)
     assert first.timings["steps"] == 5 and resumed.timings["start_epoch"] == 5
-    assert resumed.metrics["final_loss"] == pytest.approx(full.metrics["final_loss"], rel=1e-4)
+    assert first.losses + resumed.losses == full.losses
+    assert resumed.metrics["final_loss"] == full.metrics["final_loss"]
+
+
+@pytest.mark.gpu
+def test_two_backward_calls_of_the_exchange_are_equal_bit_for_bit(cuda):
+    """The exchange at R = 1 (the NCCL self-copy) on 8 shards: its backward
+    sums each row's returned slots through the send map's transpose
+    (``spmm_ell``, one launch), so two calls are equal bit for bit, and
+    equal the host's ``index_add_`` of the same rows within rounding."""
+    _, hg = _shard_graph(n_shards=8)
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal((hg.n_loc * 8, 128)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((8, 8 * hg.halo_b, 128)).astype(np.float32))
+    with make_mesh(8, cuda) as mesh:
+        op = shard_operator(hg, mesh, "ell", exchange=True)
+        grads = []
+        for _ in range(2):
+            xt = x.to(cuda).requires_grad_()
+            before = spmm_ell.launches
+            exchange(xt, op).backward(g.to(cuda))
+            assert spmm_ell.launches == before + 1
+            grads.append(xt.grad.cpu())
+        live, rows = op.live.cpu(), op.live_rows.cpu()
+    assert torch.equal(grads[0], grads[1])
+    back = g.reshape(8, 8, hg.halo_b, 128).transpose(0, 1).reshape(-1, 128)
+    want = torch.zeros_like(x).index_add_(0, rows, back.index_select(0, live))
+    torch.testing.assert_close(grads[0], want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["ell", "sorted"])
+def test_the_one_rank_step_equals_the_exchange_route(cuda, impl):
+    """One distributed step at R = 1 (8 shards, the boundary over the
+    table's own rows: 8 launches, no exchange) against the same step
+    through the exchange (its NCCL self-copy and fixed-order backward: 2
+    more ``spmm_ell`` launches) at PERF.md §2's step limits: loss rel 1e-4,
+    each gradient relative L2 1e-3 (gc2.b as noise)."""
+    task, _ = _shard_graph()
+    cfg = get_config("base", n_shards=8, dim=128, k_neg=10, spmm_impl=impl)
+    pairs = torch.as_tensor(task.train_pairs, dtype=torch.int64, device=cuda)
+    neg_l, neg_r = sample_uniform_negatives(torch.Generator().manual_seed(0), pairs,
+                                            task.kg1.n_ent, task.n_ent, cfg.k_neg)
+    batch = {"pairs": pairs, "neg_l": neg_l, "neg_r": neg_r}
+    out = {}
+    with make_mesh(8, cuda) as mesh:
+        for route in (False, True):
+            parts = dist_parts(cfg, task, mesh, exchange=route)
+            assert parts.op.direct == (not route)
+            before = (spmm_ell.launches, spmm_mod.launches)
+            loss = parts.grads(batch)
+            launched = (spmm_ell.launches - before[0], spmm_mod.launches - before[1])
+            out[route] = (loss.item(), {k: p.grad.clone() for k, p in
+                                        parts.model.named_parameters()}, launched)
+    assert out[False][2] == ((8, 0) if impl == "ell" else (0, 8))
+    assert out[True][2] == ((10, 0) if impl == "ell" else (2, 8))
+    assert out[True][0] == pytest.approx(out[False][0], rel=1e-4)
+    scale = max(float(g.abs().max()) for g in out[False][1].values())
+    for k, g in out[False][1].items():
+        got = out[True][1][k]
+        if k == "gc2.b":
+            assert float(got.abs().max()) < 1e-5 * scale
+        else:
+            assert float((got - g).norm() / g.norm()) < 1e-3, k
+
+
+@pytest.mark.gpu
+def test_a_replayed_distributed_interval_equals_its_eager_steps(cuda):
+    """One interval of recipe v7r's surface with dropout on 8 shards (one
+    NCCL rank): the distributed step captured (``CapturedStep`` with
+    ``DistParts.loss_fn`` and ``sum_grads``, a capturable Adam, the mask's
+    generator reseeded with ``step_seed``) and replayed against the same
+    steps eager with the same Adam, at PERF.md §2's replay limits: each
+    loss rel 1e-6, the parameters relative L2 1e-6."""
+    task, _ = _shard_graph()
+    cfg = get_config("dwy100k_dist", **RECIPES["v7r"]).replace(
+        n_shards=8, dim=128, k_neg=10, boot_cap=200, sinkhorn_pairs=512, dropout=0.3)
+    batch = mp_worker.surface_batch(cfg, task, device=cuda)
+    steps = cfg.neg_every
+    with make_mesh(8, cuda) as mesh:
+        parts = dist_parts(cfg, task, mesh)
+        init = {k: v.detach().clone() for k, v in parts.model.state_dict().items()}
+        opt, sched = make_optimizer(cfg, parts.model.parameters(), capturable=True)
+        want = []
+        for e in range(steps):
+            want.append(train_step(opt, parts.loss_fn, batch, step_generator(cfg, e, cuda),
+                                   parts.sum_grads)[0].item())
+            sched.step()
+        want_p = {k: v.detach().clone() for k, v in parts.model.state_dict().items()}
+        parts.model.load_state_dict(init)
+        opt, sched = make_optimizer(cfg, parts.model.parameters(), capturable=True)
+        cap = CapturedStep(opt, parts.loss_fn, batch, cuda, True, after_backward=parts.sum_grads)
+        got = []
+        for e in range(steps):
+            got.append(cap.replay(step_seed(cfg, e)).item())
+            sched.step()
+        for k, v in want_p.items():
+            assert float((parts.model.state_dict()[k] - v).norm() / v.norm()) < 1e-6, k
+    for g, w in zip(got, want):
+        assert g == pytest.approx(w, rel=1e-6)

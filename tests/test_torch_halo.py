@@ -1,8 +1,11 @@
 """The halo-exchange SpMM of the distributed trainer against the dense
 A·x and the JAX package's ``halo_spmm_ell`` / ``halo_spmm`` under
 ``shard_map`` (the conftest's 8 virtual CPU devices), forward and gradient
-of Σ(A·x)², at 1, 2 and 8 shards on one gloo rank; the kernels run their
-plain versions here.  Tolerances: the JAX tests' (rtol 2e-4, atol 1e-4)."""
+of Σ(A·x)², at 1, 2 and 8 shards on one gloo rank, by both routes (the
+boundary over x's rows, and over the exchange's receive buffers); the
+kernels run their plain versions here.  Tolerances: the JAX tests' (rtol
+2e-4, atol 1e-4).  The exchange's fixed-order backward against an
+``index_add_``, and ``force_serialize``."""
 
 from functools import partial
 
@@ -74,19 +77,28 @@ def test_halo_spmm_matches_dense_and_jax(n_shards, impl):
     x[:N] = np.random.default_rng(1).standard_normal((N, 8))
     a = coo_to_dense(src, dst, w, N, N)
     fn = halo_spmm_ell if impl == "ell" else halo_spmm
+    routes = {}
     with make_mesh(n_shards, torch.device("cpu")) as mesh:
-        op = shard_operator(hg, mesh, impl)
-        assert op.has_halo == (n_shards > 1)
-        xt = torch.from_numpy(x).requires_grad_()
-        out = fn(xt, op)
-        (out ** 2).sum().backward()
-    out, grad = out.detach().numpy(), xt.grad.numpy()
+        for exchange_route in (False, True):  # R = 1: x's rows; the exchange
+            op = shard_operator(hg, mesh, impl, exchange=exchange_route)
+            assert op.has_halo == (n_shards > 1) and op.direct == (not exchange_route)
+            xt = torch.from_numpy(x).requires_grad_()
+            y = fn(xt, op)
+            (y ** 2).sum().backward()
+            routes[exchange_route] = (y.detach(), xt.grad)
+    # each row keeps its entries in their order: the forward sums are the
+    # exchange route's bit for bit; the backward sums the boundary's rows
+    # in another order
+    assert torch.equal(routes[False][0], routes[True][0])
+    torch.testing.assert_close(routes[False][1], routes[True][1], rtol=1e-6, atol=1e-6)
+    out, grad = (t.numpy() for t in routes[False])
     np.testing.assert_allclose(out[:N], a @ x[:N], **TOL)
     np.testing.assert_allclose(out[N:], 0.0, atol=1e-6)
     np.testing.assert_allclose(grad[:N], 2 * a.T @ (a @ x[:N]), **TOL)
     j_out, j_grad = _jax_halo(hg, impl, x)
-    np.testing.assert_allclose(out, j_out, **TOL)
-    np.testing.assert_allclose(grad, j_grad, **TOL)
+    for r_out, r_grad in routes.values():
+        np.testing.assert_allclose(r_out.numpy(), j_out, **TOL)
+        np.testing.assert_allclose(r_grad.numpy(), j_grad, **TOL)
 
 
 def test_exchange_delivers_the_send_rows_and_returns_their_gradient():
@@ -110,6 +122,51 @@ def test_exchange_delivers_the_send_rows_and_returns_their_gradient():
                 assert torch.equal(recv[s, o * b + j], x[row].detach() * live)
                 want_g[row] += g[s, o * b + j] * live
     torch.testing.assert_close(x.grad, want_g)
+
+
+def test_the_fixed_order_backward_equals_an_index_add():
+    """The exchange's backward sums each row's returned slots through the
+    send map's transpose (one weight-1 ELL matrix, rows in slot order):
+    on the host it equals an ``index_add_`` of the same rows, and two
+    backward calls are equal bit for bit."""
+    src, dst, w = halo_graph()
+    hg = partition_edges(src, dst, w, N, 8)
+    x = torch.randn(hg.n_loc * 8, 8, generator=torch.Generator().manual_seed(2))
+    with make_mesh(8, torch.device("cpu")) as mesh:
+        op = shard_operator(hg, mesh, "ell", exchange=True)
+        g = torch.randn(8, 8 * hg.halo_b, 8, generator=torch.Generator().manual_seed(3))
+        grads = []
+        for _ in range(2):
+            xt = x.clone().requires_grad_()
+            exchange(xt, op).backward(g)
+            grads.append(xt.grad)
+    assert op.send_t.nnz == len(op.live) == int(hg.send_mask.sum())
+    # the returned rows in the send buffer's layout: slot (o, s, b) of the
+    # receive buffers is live slot ((rank · P + o) · P + s) · B + b, R = 1
+    back = g.reshape(8, 8, hg.halo_b, 8).transpose(0, 1).reshape(-1, 8)
+    want = torch.zeros_like(x).index_add_(0, op.live_rows, back.index_select(0, op.live))
+    assert torch.equal(grads[0], want)
+    assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.parametrize("impl", ["ell", "sorted"])
+def test_force_serialize_moves_only_the_schedule(impl):
+    """``force_serialize`` (the JAX ablation): the local aggregation waits
+    for the exchange; the output and the gradient are the same bit for
+    bit."""
+    src, dst, w = halo_graph()
+    hg = partition_edges(src, dst, w, N, 4)
+    fn = halo_spmm_ell if impl == "ell" else halo_spmm
+    x = torch.randn(hg.n_loc * 4, 8, generator=torch.Generator().manual_seed(4))
+    out = []
+    with make_mesh(4, torch.device("cpu")) as mesh:
+        op = shard_operator(hg, mesh, impl, exchange=True)
+        for serial in (False, True):
+            xt = x.clone().requires_grad_()
+            y = fn(xt, op, force_serialize=serial)
+            (y ** 2).sum().backward()
+            out.append((y.detach(), xt.grad))
+    assert all(torch.equal(a, b) for a, b in zip(*out))
 
 
 def test_kernel_launch_counts_on_the_host_stay_zero():

@@ -15,8 +15,9 @@ S shards, R dividing S: rank r owns the contiguous shards
   a world-size-1 group in this process on a ``HashStore``; inside a group
   the caller started (the multi-process tests), it uses that group.  A
   group it started, it destroys on leaving.
-* ``shard_operator`` moves each of the rank's shards' operators and
-  exchange lists to the rank's device (``dist/halo.py::HaloOperator``).
+* ``shard_operator`` stacks the rank's shards' operators, builds the
+  exchange lists and moves them to the rank's device
+  (``dist/halo.py::HaloOperator``).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
-from tpugraph_torch.sparse.halo_ell import build_halo_ell, shard_edge_operators
+from tpugraph_torch.sparse.halo_ell import rank_operators, send_transpose
 from tpugraph_torch.sparse.partition import HaloGraph
 
 
@@ -99,26 +100,27 @@ def make_mesh(n_shards: int, device: torch.device) -> Iterator[ShardMesh]:
             dist.destroy_process_group()
 
 
-def shard_operator(hg: HaloGraph, mesh: ShardMesh, impl: str):
-    """The rank's part of the halo SpMM on its device: each of its shards'
-    local and boundary operators (``impl`` "ell": the stacked ELL's shard
-    slices; "sorted": the edge groups as sorted operators) and the
-    exchange lists."""
+def shard_operator(hg: HaloGraph, mesh: ShardMesh, impl: str, exchange: bool | None = None):
+    """The rank's part of the halo SpMM on its device: its shards' local
+    and boundary groups, each stacked into one operator (``impl`` "ell" or
+    "sorted"; ``sparse/halo_ell.py::rank_operators``), and the exchange
+    lists.  ``exchange`` (default: R > 1) builds the boundary over the
+    exchange's receive buffers; without it (R = 1 only) the boundary reads
+    x's rows and no exchange runs."""
     from tpugraph_torch.dist.halo import HaloOperator
 
-    if hg.n_groups != 1:
-        raise NotImplementedError("the grouped halo exchange is not ported yet; see ROADMAP.md")
-    if impl == "ell":
-        he = build_halo_ell(hg)
-        pairs = [(he.loc.shard(s), he.bnd.shard(s)) for s in mesh.shards]
-    elif impl == "sorted":
-        pairs = [shard_edge_operators(hg, s) for s in mesh.shards]
-    else:
+    if impl not in ("ell", "sorted"):
         raise ValueError(f"unknown halo impl {impl!r}; expected 'ell' or 'sorted'")
-    dev, sh = mesh.device, slice(mesh.shards.start, mesh.shards.stop)
+    if exchange is None:
+        exchange = mesh.world > 1
+    if not exchange and mesh.world > 1:
+        raise ValueError("a boundary over x's rows needs one rank holding every shard")
+    loc, bnd = rank_operators(hg, mesh.shards, impl, direct=not exchange)
+    sh = slice(mesh.shards.start, mesh.shards.stop)
+    live, rows, send_t = send_transpose(hg.send_idx[sh], hg.send_mask[sh], hg.n_loc)
+    dev = mesh.device
     return HaloOperator(
-        loc=[loc.to(dev) for loc, _ in pairs], bnd=[bnd.to(dev) for _, bnd in pairs],
-        send_idx=torch.from_numpy(hg.send_idx[sh]).to(dev, torch.int64),
-        send_mask=torch.from_numpy(hg.send_mask[sh]).to(dev),
-        n_loc=hg.n_loc, halo_b=hg.halo_b, has_halo=hg.has_halo, impl=impl, mesh=mesh,
-        geometry=hg.geometry())
+        loc=loc.to(dev), bnd=None if bnd is None else bnd.to(dev), direct=not exchange,
+        live=torch.from_numpy(live).to(dev), live_rows=torch.from_numpy(rows).to(dev),
+        send_t=send_t.to(dev), per_rank=mesh.per_rank, n_loc=hg.n_loc, halo_b=hg.halo_b,
+        has_halo=hg.has_halo, impl=impl, mesh=mesh, geometry=hg.geometry())

@@ -18,7 +18,9 @@ surface (bootstrapping, the OT head on a subsample, the relation and
 attribute heads, CSLS) one step on an injected batch (``surface_batch``)
 and a run (``surface_mode``); the approximate ring stages; one step with
 the encoder's options (``step_mode``); and a checkpointed run that a
-SIGTERM reaching one rank stops (``preempt_mode``, ``sigterm_at_call``).
+SIGTERM reaching one rank stops (``preempt_mode``, ``sigterm_at_call``);
+a fused run (``steps_per_call = neg_every``); the run of ``fit_mode``
+traced with ``profile_dir`` (each rank its own directory).
 The JAX worker's rehearsal modes (checkpoint save and resume across
 processes, the production surface with tensor parallelism, and the
 attribute-channel and slice legs) run their own configurations, which the
@@ -127,10 +129,15 @@ def ring_mode(n_shards: int, seed: int = 3) -> dict:
         return out
 
 
-def fit_mode(cfg, task_kw: dict) -> dict:
+def fit_mode(cfg, task_kw: dict, profile_root: str | None = None) -> dict:
+    """``fit_distributed`` of ``cfg``; with ``profile_root`` traced into
+    ``profile_root/rank<r>`` (rank 0 alone writes a trace)."""
     from tpugraph_torch.data import synthetic_align_task
     from tpugraph_torch.dist.trainer import fit_distributed
 
+    if profile_root is not None:
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        cfg = cfg.replace(profile_dir=os.path.join(profile_root, f"rank{rank}"))
     res = fit_distributed(cfg, task=synthetic_align_task(**task_kw), device="cpu")
     return {"losses": res.losses, "history": res.history, "metrics": res.metrics,
             "params": res.params}
@@ -223,13 +230,18 @@ def preempt_mode(cfg, task_kw: dict, ckpt_dir: str, stop_call: int, stop_rank: i
 
 
 def check_mode(n_shards: int, cfg, task_kw: dict, surface_cfg=None, options_cfg=None,
-               preempt: tuple | None = None) -> dict:
+               preempt: tuple | None = None, fused_cfg=None,
+               profile_root: str | None = None) -> dict:
     """The halo SpMM, the ring stages (exact and approximate),
-    ``fit_distributed`` and, given ``surface_cfg``, ``surface_mode``, given
-    ``options_cfg``, its ``step_mode``, and given ``preempt`` (``preempt_mode``'s
-    arguments after ``task_kw``) a run that a SIGTERM stops, in one spawn."""
+    ``fit_distributed`` (traced with ``profile_root``) and, given
+    ``surface_cfg``, ``surface_mode``, given ``options_cfg``, its
+    ``step_mode``, given ``preempt`` (``preempt_mode``'s arguments after
+    ``task_kw``) a run that a SIGTERM stops, and given ``fused_cfg`` a fused
+    run, in one spawn."""
     out = {"halo": halo_mode(n_shards), "ring": ring_mode(n_shards),
-           "fit": fit_mode(cfg, task_kw)}
+           "fit": fit_mode(cfg, task_kw, profile_root)}
+    if fused_cfg is not None:
+        out["fused"] = fit_mode(fused_cfg, task_kw)
     if surface_cfg is not None:
         out["surface"] = surface_mode(n_shards, surface_cfg, task_kw)
     if options_cfg is not None:  # the encoder's options, dropout with epoch 1's mask

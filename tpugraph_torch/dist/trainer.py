@@ -2,16 +2,20 @@
 (counterpart of ``tpugraph/dist/trainer.py``).
 
 The encoder is ``AlignGCN``'s with one change: each layer's SpMM is the
-halo SpMM over the rank's graph shards (``dist/halo.py``), with the
-embedding table split by entity range as the shards are
-(``sparse/partition.py``).  The rest of the step is replicated: the
-encoder's output is all-gathered to every rank (the gather's backward
-keeps the rank's own rows of the gradient, with no sum: every rank holds
-the whole, identical gradient of the loss), every rank computes the same
-margin loss, and the gradients of the replicated weights (the layers', the
-gates', the attribute channel's) are summed over the ranks before Adam
-(``train/optim.py``).  A reduce-scatter there would count the embedding
-gradient R times.
+halo SpMM over the rank's graph shards (``dist/halo.py``: at R = 1 the
+boundary reads the table's own rows and no exchange runs; at R > 1 the
+exchange overlaps the local aggregation), with the embedding table split
+by entity range as the shards are (``sparse/partition.py``).  The rest of
+the step is replicated: the encoder's output is all-gathered to every
+rank (the gather's backward keeps the rank's own rows of the gradient,
+with no sum: every rank holds the whole, identical gradient of the loss),
+every rank computes the same margin loss, and the gradients of the
+replicated weights (the layers', the gates', the attribute channel's) are
+summed over the ranks before Adam (``train/optim.py``;
+``DistParts.sum_grads``).  A reduce-scatter there would count the
+embedding gradient R times.  The gather and the sum are skipped at R = 1,
+as the ring's collectives are, so a step at R = 1 calls no
+``torch.distributed`` function.
 
 The encoder's options are the JAX ``make_encoder``'s:
 ``param_dtype="bfloat16"`` runs the activations, the GEMMs, the SpMMs (the
@@ -59,27 +63,44 @@ parameters are ``models/align.py::init_mtl_params``'s for the n real rows
 (the single-device trainer's), the padding rows 0, so a run starts where
 ``train/mtl.py::fit_mtl`` (or ``train/loop.py::fit``) starts.
 
+The epochs run an interval (``steps_per_call``) at a time, as
+``train/loop.py::train_loop`` runs them: the boundary stays eager
+(``IntervalBatch.at_boundary``: ring mining, proposals, draws); with
+``steps_per_call = neg_every > 1`` (the JAX ``train_interval``, ``--fast``)
+the card replays one captured distributed step
+(``train/fused.py::CapturedStep``, a capturable Adam, the dropout mask from
+its registered generator reseeded with ``loop.step_seed``; the gradient
+sum over the ranks runs inside the capture, ``after_backward``) once per
+epoch with no host synchronise between replays, and the host runs the
+same steps eagerly.  The saves and evals fall in the JAX fused windows
+(``last % every < steps``).
+
 Checkpoints (``checkpoint_dir``, ``checkpoint_every``;
 ``train/checkpoint.py``) hold the whole parameter set with the gathered
 (n_pad, dim) table, Adam's state with the table's moments gathered, the
-schedule, the loss, the row-layout stamp (halo_grouped, kg2_base) and the
-interval's batch (negatives, proposals, draws), so a resume in the middle
-of an interval rebuilds the batch it was cut in.  Rank 0 writes, then the
+schedule, the loss, the row-layout stamp (halo_grouped, kg2_base) and,
+unfused, the interval's batch (negatives, proposals, draws), so a resume
+in the middle of an interval rebuilds the batch it was cut in; a fused
+save, always at an interval's end, carries no batch, and a resume across
+the two modes is refused with the JAX messages.  Rank 0 writes, then the
 ranks meet at a barrier; a restore re-slices the table for this run's R
 (and re-pads it for this run's S), and refuses another layout stamp with
 the JAX messages.  SIGTERM latches ``Checkpointer.preempted`` on the rank
-it reaches; the ranks agree on the latch once after each step and again
-after the eval (an ``all_reduce(MAX)``), so all of them save and leave the
-loop at the same epoch.  ``debug_nans`` checks each step's loss, gradients
-and updated parameters (``train/fused.py::finite_flag``), agreed over the
-ranks (``all_reduce(MIN)``) before any raises, so every rank raises
-``FloatingPointError`` naming the same epoch.  (Autograd's anomaly mode,
-which the single-device check adds, would raise on one rank inside the
-backward and leave the others waiting in its collectives.)
+it reaches; the ranks agree on the latch once after each interval and
+again after the eval (an ``all_reduce(MAX)``), so all of them save and
+leave the loop at the same epoch.  ``debug_nans`` checks each step's loss,
+gradients and updated parameters (``train/fused.py::finite_flag``; fused,
+folded into one flag per interval), agreed over the ranks
+(``all_reduce(MIN)``) before any raises, so every rank raises
+``FloatingPointError`` naming the same epoch (or interval).  (Autograd's
+anomaly mode, which the single-device check adds, would raise on one rank
+inside the backward and leave the others waiting in its collectives.)
+``profile_dir`` traces epochs start + 2 to start + 5 on rank 0 (the JAX
+window, ``train/loop.py``'s trace file); the other ranks trace nothing.
 
 Refused, with ``NotImplementedError`` naming ROADMAP.md, where they are
-queued (``check_distributed``): the fused interval (``steps_per_call > 1``),
-``profile_dir``, tensor parallelism, slices and the grouped exchange.
+queued (``check_distributed``): tensor parallelism, slices and the grouped
+exchange.
 """
 
 from __future__ import annotations
@@ -110,9 +131,10 @@ from tpugraph_torch.sparse.graph import AlignTask
 from tpugraph_torch.sparse.halo_ell import build_attr_incidence_ell
 from tpugraph_torch.sparse.partition import HaloGraph, partition_edges
 from tpugraph_torch.train.checkpoint import Checkpointer
-from tpugraph_torch.train.fused import finite_flag
+from tpugraph_torch.train.fused import CapturedStep, finite_flag
 from tpugraph_torch.train.loop import (IntervalBatch, TrainResult, _check_resume, _non_finite,
-                                       check_schedule, load_task, step_generator)
+                                       _start_profile, _stop_profile, check_schedule, load_task,
+                                       step_generator, step_seed)
 from tpugraph_torch.train.losses import margin_align_loss
 from tpugraph_torch.train.metrics import MetricsLogger, epoch_edge_ops
 from tpugraph_torch.train.mtl import attr_triples_of, check_ot_size, draw_interval, interval_keys
@@ -120,8 +142,6 @@ from tpugraph_torch.train.optim import load_optimizer_state, make_optimizer, opt
 
 # what the port's distributed trainer does not do yet, in ROADMAP.md's order
 UNPORTED = (
-    ("steps_per_call > 1", lambda c: c.steps_per_call > 1),
-    ("profile_dir", lambda c: bool(c.profile_dir)),
     ("feature_shards > 1 (tensor parallelism)", lambda c: c.feature_shards > 1),
     ("slice_shards > 1", lambda c: c.slice_shards > 1),
     ("halo_grouped", lambda c: c.halo_grouped),
@@ -197,7 +217,8 @@ class _GatherRows(torch.autograd.Function):
 
 
 def gather_rows(x: torch.Tensor, mesh: ShardMesh) -> torch.Tensor:
-    return _GatherRows.apply(x, mesh)
+    """Every rank's rows of x (x itself at R = 1: no collective)."""
+    return x if mesh.world == 1 else _GatherRows.apply(x, mesh)
 
 
 class _CastMatmul(torch.autograd.Function):
@@ -292,7 +313,7 @@ class DistEncoder(nn.Module):
         self.op = op
         self.cdt = _COMPUTE_DTYPES[compute_dtype]
         self.dropout, self.l2_normalize = dropout, l2_normalize
-        self.emb = nn.Parameter(torch.empty(len(op.loc) * op.n_loc, dim, device=device))
+        self.emb = nn.Parameter(torch.empty(op.n_rows, dim, device=device))
         self.gc1 = HaloConv(dim, hidden, device=device)
         self.gc2 = HaloConv(hidden, dim, device=device)
         self.hw1 = Highway(dim, device=device) if highway else None
@@ -369,19 +390,31 @@ class DistParts:
             se, ae = self.tables()
             return se if ae is None else combine_channels(se, ae, self.cfg.attr_beta)
 
-    def drop_mask(self, epoch: int) -> torch.Tensor | None:
-        """The rank's rows of epoch ``epoch``'s keep mask (None without
-        dropout): the n real rows from ``step_generator(cfg, epoch)``, as the
-        single-device encoder draws its (n, hidden) mask, the padding kept."""
+    def mask_of(self, gen: torch.Generator | None) -> torch.Tensor | None:
+        """The rank's rows of a step's keep mask (None without dropout):
+        the n real rows from ``gen``, as the single-device encoder draws its
+        (n, hidden) mask, the padding kept."""
         cfg = self.cfg
         if cfg.dropout <= 0.0:
             return None
         dev, model = self.op.mesh.device, self.model
         n_pad, hidden = self.hg.n_loc * self.hg.n_shards, model.gc1.w.shape[1]
         full = torch.ones((n_pad, hidden), dtype=torch.bool, device=dev)
-        full[:self.n_real] = keep_mask((self.n_real, hidden), cfg.dropout,
-                                       step_generator(cfg, epoch, dev), dev)
+        full[:self.n_real] = keep_mask((self.n_real, hidden), cfg.dropout, gen, dev)
         return full[model.first_row:model.first_row + model.emb.shape[0]]
+
+    def drop_mask(self, epoch: int) -> torch.Tensor | None:
+        """The rank's rows of epoch ``epoch``'s keep mask
+        (``mask_of(step_generator(cfg, epoch))``), None without dropout."""
+        if self.cfg.dropout <= 0.0:
+            return None
+        return self.mask_of(step_generator(self.cfg, epoch, self.op.mesh.device))
+
+    def loss_fn(self, batch: dict[str, torch.Tensor],
+                gen: torch.Generator | None) -> tuple[torch.Tensor, dict]:
+        """``loss`` with the keep mask drawn from ``gen``: the step
+        ``train/fused.py::train_step`` runs and ``CapturedStep`` captures."""
+        return self.loss(batch, self.mask_of(gen))
 
     def loss(self, batch: dict[str, torch.Tensor],
              mask: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
@@ -412,18 +445,27 @@ class DistParts:
         loss, aux = self.loss(batch, mask)
         loss.backward()
         self.aux = {k: v.detach() for k, v in aux.items()}
+        self.sum_grads()
+        return loss.detach()
+
+    def sum_grads(self) -> None:
+        """Sum the encoder's replicated weights' gradients over the ranks
+        (one ``all_reduce``; nothing at R = 1)."""
+        if self.op.mesh.world == 1:
+            return
         shared = [p for n, p in self.model.named_parameters()
                   if n != "emb" and not n.startswith(HEADS)]
         flat = torch.cat([p.grad.reshape(-1) for p in shared])
         dist.all_reduce(flat)
         for p, g in zip(shared, flat.split([p.numel() for p in shared])):
             p.grad.copy_(g.view_as(p))
-        return loss.detach()
 
 
-def dist_parts(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh) -> DistParts:
+def dist_parts(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh,
+               exchange: bool | None = None) -> DistParts:
     """The adjacency of ``task`` partitioned into ``cfg.n_shards`` shards,
-    the rank's halo operator on its device (and with the AE channel the
+    the rank's halo operator on its device (``exchange``: its route, as
+    ``dist/mesh.py::shard_operator`` takes it; and with the AE channel the
     rank's shards of the attribute incidence), and the encoder with the
     heads and options ``cfg`` turns on, loaded with
     ``init_params(seed=cfg.seed)``."""
@@ -431,7 +473,7 @@ def dist_parts(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh) -> DistParts:
                                    weighting=cfg.weighting)
     w = coo_normalize(src, dst, w, task.n_ent, norm=cfg.norm)
     hg = partition_edges(src, dst, w, task.n_ent, cfg.n_shards)
-    op = shard_operator(hg, mesh, operator_format(cfg.spmm_impl))
+    op = shard_operator(hg, mesh, operator_format(cfg.spmm_impl), exchange)
     n_pad = hg.n_loc * hg.n_shards
     heads = dict(n_rel=task.n_rel if cfg.use_rel_head else 0,
                  n_attr=max(task.n_attr, 1) if cfg.use_attr_head else 0)
@@ -514,6 +556,21 @@ def check_layout(cfg: TrainConfig, state: dict, kg2_base: int) -> None:
             f"permute entity rows silently; retrain or point checkpoint_dir elsewhere")
 
 
+def check_mode(cfg: TrainConfig, state: dict) -> None:
+    """Refuse a resume across a change of mode, with the JAX trainer's
+    messages: an unfused save carries the interval's batch, a fused one
+    (always at an interval's end) does not."""
+    has_batch = "neg_l" in state
+    if cfg.steps_per_call <= 1 and not has_batch:
+        raise ValueError(
+            f"checkpoint at {cfg.checkpoint_dir!r} was saved with steps_per_call > 1 (no "
+            f"interval-batch state) — resume it with the same fused steps_per_call, or retrain")
+    if cfg.steps_per_call > 1 and has_batch:
+        raise ValueError(
+            f"checkpoint at {cfg.checkpoint_dir!r} was saved with steps_per_call == 1 (carries "
+            f"interval-batch state) — resume it with steps_per_call=1, or retrain")
+
+
 def fit_distributed(cfg: TrainConfig, task: AlignTask | None = None, verbose: bool = False,
                     device: str | torch.device = "cuda",
                     debug_nans: bool = False) -> TrainResult:
@@ -521,8 +578,10 @@ def fit_distributed(cfg: TrainConfig, task: AlignTask | None = None, verbose: bo
     ``dist/mesh.py::make_mesh`` (NCCL on the card, gloo on the host).
     ``TrainResult.params`` holds the whole parameter set on every rank;
     ``op`` the rank's ``HaloOperator``; ``timings`` the host wall seconds
-    of build_s (partition and operators), load_s (a restore), train_s and
-    step_s (each step's, ended by a synchronise), forward_s (the
+    of build_s (partition and operators), load_s (a restore), capture_s
+    (the fused step's warm-up and capture, on the card), train_s and step_s
+    (each step's, ended by a synchronise; fused, each interval's over its
+    steps), forward_s (the
     boundaries' encoder forwards), propose_s, mine_s, draw_s (the
     interval's draws), eval_s, final_eval_s and save_s, with the counts
     steps, forwards, proposals, minings, draws, evals and saves, and
@@ -537,8 +596,8 @@ def fit_distributed(cfg: TrainConfig, task: AlignTask | None = None, verbose: bo
 def _fit(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh, verbose: bool,
          debug_nans: bool) -> TrainResult:
     dev = mesh.device
-    timings = {"build_s": 0.0, "load_s": 0.0, "train_s": 0.0, "step_s": [], "forward_s": 0.0,
-               "propose_s": 0.0, "mine_s": 0.0, "draw_s": 0.0, "eval_s": 0.0,
+    timings = {"build_s": 0.0, "load_s": 0.0, "capture_s": 0.0, "train_s": 0.0, "step_s": [],
+               "forward_s": 0.0, "propose_s": 0.0, "mine_s": 0.0, "draw_s": 0.0, "eval_s": 0.0,
                "final_eval_s": 0.0, "save_s": 0.0, "steps": 0, "forwards": 0, "proposals": 0,
                "minings": 0, "draws": 0, "evals": 0, "saves": 0}
 
@@ -556,7 +615,9 @@ def _fit(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh, verbose: bool,
     timings["build_s"] = time.perf_counter() - t0
     model, hg = parts.model, parts.hg
     n_pad = hg.n_loc * hg.n_shards
-    opt, sched = make_optimizer(cfg, model.parameters())
+    steps = max(1, cfg.steps_per_call)
+    captured_on_card = steps > 1 and dev.type == "cuda"
+    opt, sched = make_optimizer(cfg, model.parameters(), capturable=captured_on_card)
     make = IntervalBatch(cfg, task, dev)
     pairs = make.pairs
     n1, n = task.kg1.n_ent, task.n_ent
@@ -600,13 +661,16 @@ def _fit(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh, verbose: bool,
     if restored is not None:
         epoch, state = restored
         check_layout(cfg, state, n1)
-        _check_resume(cfg, state, len(pairs) + (cfg.boot_cap if make.use_boot else 0),
-                      extra_keys)
+        check_mode(cfg, state)
+        if steps == 1:
+            _check_resume(cfg, state, len(pairs) + (cfg.boot_cap if make.use_boot else 0),
+                          extra_keys)
         _load_rank_state(model, opt, state, n, n_pad)
         sched.load_state_dict(state["sched"])
-        boot = (state["boot_pairs"], state["boot_w"]) if make.use_boot else None
-        batch = make(boot, state["neg_l"], state["neg_r"])
-        batch.update({k: state["extra"][k] for k in extra_keys})
+        if steps == 1:  # a fused resume starts at a boundary and rebuilds the batch there
+            boot = (state["boot_pairs"], state["boot_w"]) if make.use_boot else None
+            batch = make(boot, state["neg_l"], state["neg_r"])
+            batch.update({k: state["extra"][k] for k in extra_keys})
         loss, start_epoch, saved = state["loss"], epoch + 1, epoch
     _sync(dev)
     timings["load_s"] = time.perf_counter() - t0
@@ -621,12 +685,13 @@ def _fit(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh, verbose: bool,
         def write():
             full = model.full_state()
             state = {"model": full, "opt": _full_optimizer_state(opt, model),
-                     "sched": sched.state_dict(), "layout": layout, "neg_l": batch["neg_l"],
-                     "neg_r": batch["neg_r"], "loss": loss.detach()}
-            if make.use_boot:
-                state["boot_pairs"], state["boot_w"] = boot
-            if extra_keys:
-                state["extra"] = {k: batch[k] for k in extra_keys}
+                     "sched": sched.state_dict(), "layout": layout, "loss": loss.detach()}
+            if steps == 1:  # the interval's batch: a resume may start mid-interval
+                state.update(neg_l=batch["neg_l"], neg_r=batch["neg_r"])
+                if make.use_boot:
+                    state["boot_pairs"], state["boot_w"] = boot
+                if extra_keys:
+                    state["extra"] = {k: batch[k] for k in extra_keys}
             if rank0:  # what the evaluation table reads: the encoder's, the channel's
                 ckpt.save(epoch, state, {**{k: v for k, v in full.items()
                                             if not k.startswith(HEADS)}, "emb": full["emb"][:n]})
@@ -636,50 +701,90 @@ def _fit(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh, verbose: bool,
         timed("save_s", "saves", write)
         saved = epoch
 
+    def eager_steps(epoch, finite):
+        """The interval's steps eagerly (each through ``DistParts.grads``);
+        ``finite`` (fused under debug_nans) folds each step's flag."""
+        out = []
+        for e in range(epoch, epoch + steps):
+            step_loss = parts.grads(batch, parts.drop_mask(e))
+            opt.step()
+            sched.step()
+            if finite is not None:
+                finite &= finite_flag(opt, step_loss)
+            out.append(step_loss)
+        return out
+
     history, losses = [], []
+    captured, prof, prof_first, last = None, None, None, start_epoch - 1
     t_start = time.perf_counter()
     ckpt.install_preemption_handler()
     try:
-        for epoch in range(start_epoch, cfg.epochs):
+        for epoch in range(start_epoch, cfg.epochs, steps):
             if epoch % cfg.neg_every == 0 or batch is None:
                 batch, boot = make.at_boundary(epoch, parts.embed, mine,
                                                draw if extra_keys else None, timed)
+            if captured_on_card and captured is None:
+                t0 = time.perf_counter()
+                captured = CapturedStep(opt, parts.loss_fn, batch, dev, cfg.dropout > 0.0,
+                                        check_finite=debug_nans, after_backward=parts.sum_grads)
+                _sync(dev)
+                timings["capture_s"] = time.perf_counter() - t0
+            last = epoch + steps - 1  # the interval's last epoch: the JAX fused windows
+            if cfg.profile_dir and rank0 and prof_first is None and epoch >= start_epoch + 2:
+                prof, prof_first = _start_profile(dev), epoch
+            finite = (torch.ones((), dtype=torch.bool, device=dev)
+                      if debug_nans and steps > 1 else None)
             t0 = time.perf_counter()
-            loss = parts.grads(batch, parts.drop_mask(epoch))
-            opt.step()
-            sched.step()
+            if captured is not None:  # the interval's steps as replays, no synchronise
+                captured.load(batch)
+                for e in range(epoch, epoch + steps):
+                    losses.append(captured.replay(step_seed(cfg, e)))
+                    sched.step()
+                parts.aux = {k: v.clone() for k, v in captured.aux.items()}
+                finite = captured.finite
+            else:
+                losses += eager_steps(epoch, finite)
+            loss = losses[-1]
             _sync(dev)
             dt = time.perf_counter() - t0
-            timings["step_s"].append(dt)
+            timings["step_s"].append(dt / steps)
             timings["train_s"] += dt
-            timings["steps"] += 1
-            losses.append(loss)
-            if debug_nans and not agreed(bool(finite_flag(opt, loss)), dist.ReduceOp.MIN):
-                raise _non_finite(f"epoch {epoch}")
+            timings["steps"] += steps
+            if debug_nans:
+                ok = finite if finite is not None else finite_flag(opt, loss)
+                if not agreed(bool(ok), dist.ReduceOp.MIN):
+                    raise _non_finite(f"epoch {epoch}" if steps == 1 else
+                                      f"the interval of epochs {epoch}-{last}")
+            if prof is not None and last >= start_epoch + 5:
+                _stop_profile(prof, dev, cfg.profile_dir, prof_first, last)
+                prof = None
             stop = ckpt.enabled and agreed(ckpt.preempted)
-            if ckpt.enabled and ((epoch > 0 and epoch % cfg.checkpoint_every == 0)
-                                 or epoch >= cfg.epochs - 1 or stop):
-                save_now(epoch)
-            if cfg.eval_every and (epoch % cfg.eval_every == 0 or epoch >= cfg.epochs - 1):
+            if ckpt.enabled and ((last > 0 and last % cfg.checkpoint_every < steps)
+                                 or last >= cfg.epochs - 1 or stop):
+                save_now(last)
+            if cfg.eval_every and (last % cfg.eval_every < steps or last >= cfg.epochs - 1):
                 m = evaluate(cfg.eval_approx_k)  # the history: shortlists if set
                 wall = time.perf_counter() - t_start
-                eps = (epoch_edge_ops(hg.nnz, cfg.use_attr_channel) * (epoch + 1 - start_epoch)
+                eps = (epoch_edge_ops(hg.nnz, cfg.use_attr_channel) * (last + 1 - start_epoch)
                        / max(wall, 1e-9))  # epochs run in this process
-                rec = {"epoch": epoch, "loss": loss.item(), "wall_s": round(wall, 3),
-                       # unrounded, so the two rates compare exactly (ROADMAP.md Queue C 2)
+                rec = {"epoch": last, "loss": loss.item(), "wall_s": round(wall, 3),
+                       # unrounded, so the two rates compare exactly
                        "edges_per_s": eps, "edges_per_s_chip": eps / mesh.world,
                        **{f"loss_{k}": v.item() for k, v in parts.aux.items()},
                        **{k: round(v, 4) for k, v in m.items()}}
                 history.append(rec)
                 logger.log(rec)
                 if verbose and rank0:
-                    print(f"[dist:{cfg.name}@{cfg.n_shards}/{mesh.world}] epoch {epoch} loss "
+                    print(f"[dist:{cfg.name}@{cfg.n_shards}/{mesh.world}] epoch {last} loss "
                           f"{rec['loss']:.4f} hits@1 {m['hits@1']:.3f}")
             # the latch may fire after the check above: every rank takes this
             # branch at the same epoch
             if ckpt.enabled and (stop or agreed(ckpt.preempted)):
-                save_now(epoch)
+                save_now(last)
                 break  # exit cleanly for a relaunch
+        if prof is not None:  # a run that ended before start_epoch + 5
+            _stop_profile(prof, dev, cfg.profile_dir, prof_first, last)
+            prof = None
         ckpt.restore_handler()
         t0 = time.perf_counter()
         final = evaluate(0)  # always exact
@@ -693,6 +798,8 @@ def _fit(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh, verbose: bool,
 
                 save_embeddings(cfg.save_emb_path, emb[:n])
     finally:
+        if prof is not None:
+            prof.stop()
         ckpt.restore_handler()
         logger.close()
     return TrainResult(params=params, metrics=final, history=history, op=parts.op,

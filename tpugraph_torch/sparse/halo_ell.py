@@ -21,17 +21,30 @@ For ``spmm_impl="sorted"``, ``shard_edge_operators`` gives each shard's
 local and boundary edge groups as ``SpMMOperator``s (``sparse/graph.py``):
 the HaloGraph's own dst-sorted lists forward, re-sorted lists for the
 transpose.
+
+The distributed trainer runs a rank's shards as one operator per group
+(``rank_operators``): the local groups stacked block-diagonally over the
+rank's rows (per_rank·n_loc), and the boundary groups stacked over either
+the exchange's receive buffers, laid out as the collective delivers them
+[sender shard, receiving shard, slot], or, with one rank holding every
+shard, the rows of x themselves (a receive slot's column becomes the row
+it carries, owner·n_loc + send_idx[owner, me, slot]: no exchange).  Each
+row keeps its entries in the HaloGraph's order (the ELL build sorts by row
+stably, the sorted build keeps the list's order forward), so a row's sums
+are those of the per-shard operators, and the direct boundary's those of
+the receive-buffer one.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import partial
 
 import numpy as np
 import torch
 
 from tpugraph_torch.sparse.build import pad_sort_edges
-from tpugraph_torch.sparse.ell import EllBucket, EllMatrix, EllOperator
+from tpugraph_torch.sparse.ell import EllBucket, EllMatrix, EllOperator, build_ell
 from tpugraph_torch.sparse.graph import PaddedEdges, SpMMOperator
 from tpugraph_torch.sparse.partition import HaloGraph
 
@@ -253,3 +266,102 @@ def shard_edge_operators(hg: HaloGraph, s: int,
     transposes."""
     return (_group_edges(hg, "loc", s, hg.n_loc, pad_to),
             _group_edges(hg, "bnd", s, hg.group_size * hg.halo_b, pad_to))
+
+
+def _rank_edges(hg: HaloGraph, group: str, shards: range,
+                col_of) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The real edges of ``group`` over the rank's shards, in the
+    HaloGraph's order: row i·n_loc + dst for the rank's i-th shard, column
+    ``col_of(i, s, src)``."""
+    parts = []
+    for i, s in enumerate(shards):
+        src, dst, w = (getattr(hg, f"{group}_{a}")[s] for a in ("src", "dst", "w"))
+        real = dst < hg.n_loc
+        parts.append((col_of(i, s, src[real].astype(np.int64)),
+                      dst[real].astype(np.int64) + i * hg.n_loc, w[real].astype(np.float64)))
+    return tuple(np.concatenate(a) for a in zip(*parts))
+
+
+def _ell_of(src, dst, w, n_rows: int, n_cols: int, split_diag: bool = False) -> EllOperator:
+    """A stacked group as an ``EllOperator`` (``_build_stacked_ell``'s
+    power-of-two caps; the diagonal split out of a local group as
+    ``build_halo_ell`` splits it)."""
+    diag, n_diag = None, 0
+    if split_diag:
+        on_d = src == dst
+        diag = np.zeros(n_rows, np.float32)
+        np.add.at(diag, dst[on_d], w[on_d])
+        n_diag = int(on_d.sum())
+        src, dst, w = src[~on_d], dst[~on_d], w[~on_d]
+    fwd = _build_stacked_ell([(src, dst, w)], n_rows, n_cols=n_cols).shard(0)
+    bwd = _build_stacked_ell([(dst, src, w)], n_cols, n_cols=n_rows).shard(0)
+    return EllOperator(fwd=fwd, bwd=bwd, n_diag=n_diag,
+                       diag=None if diag is None else torch.from_numpy(diag))
+
+
+def _sorted_of(src, dst, w, n_rows: int, n_cols: int, pad_to: int) -> SpMMOperator:
+    """A stacked group as a sorted operator: its edges in their order
+    forward (sorted by row already), padded to ``pad_to``; re-sorted for the
+    transpose."""
+    nnz = len(src)
+    pad = max(-(-max(nnz, 1) // pad_to) * pad_to, pad_to) - nnz
+    fwd = PaddedEdges(
+        src=torch.from_numpy(np.concatenate([src, np.zeros(pad, np.int64)]).astype(np.int32)),
+        dst=torch.from_numpy(np.concatenate([dst, np.full(pad, n_rows)]).astype(np.int32)),
+        w=torch.from_numpy(np.concatenate([w, np.zeros(pad)]).astype(np.float32)),
+        n_rows=n_rows, nnz=nnz, n_cols=n_cols)
+    bwd = pad_sort_edges(dst, src, w, n_cols, bucket=pad_to, n_cols=n_rows)
+    return SpMMOperator(fwd=fwd, bwd=bwd)
+
+
+def rank_operators(hg: HaloGraph, shards: range, impl: str, direct: bool,
+                   pad_to: int = 1024):
+    """(local, boundary) of the rank holding ``shards``, on the host (see
+    the module docstring): ``impl`` "ell" (``EllOperator``s, the local one
+    with the split diagonal) or "sorted" (``SpMMOperator``s).  The local
+    group is (P·n_loc)², P = len(shards).  The boundary group (None without
+    a halo) reads, with ``direct``, the rows of x, which must then be every
+    shard's (P·n_loc columns); otherwise the receive buffers as
+    ``dist/halo.py::exchange`` lays them out, (S·P·B) columns."""
+    per, n_loc, b = len(shards), hg.n_loc, hg.halo_b
+    if hg.n_groups != 1:
+        raise NotImplementedError("the grouped halo exchange is not ported yet; see ROADMAP.md")
+    if direct and per != hg.n_shards:
+        raise ValueError(f"a boundary over x's rows needs every shard on the rank, not {per} "
+                         f"of {hg.n_shards}")
+    build = _ell_of if impl == "ell" else partial(_sorted_of, pad_to=pad_to)
+    rows = per * n_loc
+    loc = build(*_rank_edges(hg, "loc", shards, lambda i, s, src: src + i * n_loc), rows, rows,
+                **({"split_diag": True} if impl == "ell" else {}))
+    if not hg.has_halo:
+        return loc, None
+    if direct:
+        def col_of(i, s, slot):  # the row a slot of the buffer carries
+            owner = slot // b
+            return owner * n_loc + hg.send_idx[owner, s, slot % b].astype(np.int64)
+        n_cols = rows
+    else:
+        def col_of(i, s, slot):  # [owner, my shard i, slot] of the collective's layout
+            return ((slot // b) * per + i) * b + slot % b
+        n_cols = hg.n_shards * per * b
+    return loc, build(*_rank_edges(hg, "bnd", shards, col_of), rows, n_cols)
+
+
+def send_transpose(send_idx: np.ndarray, send_mask: np.ndarray,
+                   n_loc: int) -> tuple[np.ndarray, np.ndarray, EllMatrix]:
+    """The exchange's send lists of a rank, its shards' (P, S, B) rows of
+    ``send_idx`` / ``send_mask``: the live slots of the collective's send
+    buffer, laid out [receiver rank, my shard, receiver's shard, slot]
+    (flattened), the rows of the rank's x they carry, and the map's
+    transpose as a weight-1 ELL matrix (P·n_loc rows, one entry per live
+    slot carrying the row, in slot order), which sums the returned rows of
+    the backward in a fixed order."""
+    per, s, b = send_idx.shape
+    j, recv, slot = np.nonzero(send_mask)
+    rank, i = recv // per, recv % per
+    live = ((rank * per + j) * per + i) * b + slot
+    order = np.argsort(live, kind="stable")
+    live = live[order]
+    rows = (j * n_loc + send_idx[j, recv, slot].astype(np.int64))[order]
+    t = build_ell(live, rows, np.ones(len(live)), per * n_loc, n_cols=per * s * b)
+    return live, rows, t

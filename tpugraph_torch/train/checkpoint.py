@@ -90,6 +90,15 @@ class Checkpointer:
         for old in self._epochs()[:-KEEP]:
             os.remove(os.path.join(self.dir, f"ckpt-{old}.pt"))
 
+    def latest_has_key(self, key: str) -> bool | None:
+        """Whether the newest checkpoint holds ``key`` (None when there is
+        none); the file is mapped, not read."""
+        step = self.latest_step()
+        if step is None:
+            return None
+        return key in torch.load(os.path.join(self.dir, f"ckpt-{step}.pt"), map_location="cpu",
+                                 weights_only=True, mmap=True)
+
     def restore_latest(self, device: torch.device | str = "cpu") -> tuple[int, dict] | None:
         """(epoch, state) of the newest checkpoint, tensors on ``device``;
         None when there is none."""

@@ -113,12 +113,16 @@ def _evaluate_distributed(cfg: TrainConfig, task: AlignTask | None,
             "checkpoint_dir/checkpoint_every on the training run); without one there is "
             "nothing to evaluate")
     every = max(cfg.checkpoint_every, 1)  # the restore needs the checkpointer enabled
-    if Checkpointer(cfg.checkpoint_dir, every).latest_step() is None:
+    has_batch = Checkpointer(cfg.checkpoint_dir, every).latest_has_key("neg_l")
+    if has_batch is None:
         raise ValueError(
             f"no checkpoint found under {cfg.checkpoint_dir!r} — evaluate() refuses to report "
             f"metrics from a fresh random init; train first or fix the path")
-    return run(cfg.replace(epochs=0, checkpoint_every=every, steps_per_call=1, profile_dir=None),
-               task=task, device=device)
+    # the checkpoint's mode, as the JAX evaluate adopts it: a fused save
+    # carries no interval batch (no interval runs at epochs=0)
+    steps = 1 if has_batch else max(cfg.neg_every, 1)
+    return run(cfg.replace(epochs=0, checkpoint_every=every, steps_per_call=steps,
+                           profile_dir=None), task=task, device=device)
 
 
 def evaluate(cfg: TrainConfig, params: dict | None = None, task: AlignTask | None = None,

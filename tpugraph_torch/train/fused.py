@@ -40,16 +40,20 @@ import torch
 
 def train_step(opt: torch.optim.Optimizer,
                loss_fn: Callable[[dict, torch.Generator | None], tuple[torch.Tensor, dict]],
-               batch: dict[str, torch.Tensor], gen: torch.Generator | None
+               batch: dict[str, torch.Tensor], gen: torch.Generator | None,
+               after_backward: Callable[[], None] | None = None
                ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """One training step: ``zero_grad``, forward and loss (the dropout mask
-    from ``gen``), backward, the optimizer's step.  The unfused loop runs
-    it eagerly and ``CapturedStep`` captures it; the caller steps the
-    learning-rate schedule after it.  Returns the loss and ``aux``,
-    detached."""
+    from ``gen``), backward, ``after_backward`` (the distributed trainer's
+    sum of the replicated weights' gradients over the ranks), the
+    optimizer's step.  The unfused loop runs it eagerly and
+    ``CapturedStep`` captures it; the caller steps the learning-rate
+    schedule after it.  Returns the loss and ``aux``, detached."""
     opt.zero_grad(set_to_none=True)
     loss, aux = loss_fn(batch, gen)
     loss.backward()
+    if after_backward is not None:
+        after_backward()
     opt.step()
     return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
@@ -67,20 +71,23 @@ class CapturedStep:
     """One training step over ``opt``'s parameters, captured on ``dev``.
     ``loss_fn(batch, generator)`` returns (loss, aux) with grad, as
     ``train_loop``'s; ``batch`` gives the static buffers' shapes and
-    types.  The caller must hold no autograd graph of the parameters (a
-    loss it kept): a parameter's gradient accumulator lives as long as
-    such a graph, on the stream that made it, and the capture stream's
-    backward would then wait on that stream, which capture forbids."""
+    types; ``after_backward`` as ``train_step``'s.  The caller must hold
+    no autograd graph of the parameters (a loss it kept): a parameter's
+    gradient accumulator lives as long as such a graph, on the stream that
+    made it, and the capture stream's backward would then wait on that
+    stream, which capture forbids."""
 
     def __init__(self, opt: torch.optim.Adam,
                  loss_fn: Callable[[dict, torch.Generator | None], tuple[torch.Tensor, dict]],
                  batch: dict[str, torch.Tensor], dev: torch.device, dropout: bool,
-                 check_finite: bool = False):
+                 check_finite: bool = False,
+                 after_backward: Callable[[], None] | None = None):
         if dev.type != "cuda":
             raise ValueError(f"a captured step runs on the card, not {dev}")
         if not all(g["capturable"] for g in opt.param_groups):
             raise ValueError("a captured step needs a capturable Adam (make_optimizer)")
         self.opt, self.loss_fn, self.dev = opt, loss_fn, dev
+        self.after_backward = after_backward
         self.batch = {k: v.clone() for k, v in batch.items()}
         self.gen = torch.Generator(device=dev) if dropout else None
         self.stream = torch.cuda.Stream(dev)
@@ -91,7 +98,7 @@ class CapturedStep:
         if self.gen is not None:
             self.graph.register_generator_state(self.gen)
         with torch.cuda.graph(self.graph, stream=self.stream):
-            self.loss, self.aux = train_step(opt, loss_fn, self.batch, self.gen)
+            self.loss, self.aux = train_step(opt, loss_fn, self.batch, self.gen, after_backward)
             if self.finite is not None:
                 self.finite &= finite_flag(opt, self.loss)
 
@@ -107,7 +114,7 @@ class CapturedStep:
         with torch.cuda.stream(self.stream):
             if self.gen is not None:
                 self.gen.manual_seed(0)
-            train_step(self.opt, self.loss_fn, self.batch, self.gen)
+            train_step(self.opt, self.loss_fn, self.batch, self.gen, self.after_backward)
             with torch.no_grad():
                 for p, v in zip(params, saved):
                     p.copy_(v)
