@@ -185,7 +185,20 @@ Phases, each printing one JSON line:
              parameters, batch and mask, with ``spmm_ell``'s launches.  D:
              ``debug_nans`` at lr 1e30 raises naming epoch 1.
 
-22. dist_fused — ``dwy100k_dist`` at full width on the same one-rank
+22. dist_mesh — tensor parallelism and slices (``feature_shards = 2``,
+             ``slice_shards = 2``) on ``dwy100k_dist`` at full width on the
+             same one-rank group, which holds every feature block and
+             slice: one step at d 128 and one v7r step at d 256 equal to the
+             F = L = 1 steps bit for bit with the same launches, no
+             ``nccl`` event in the d-128 step's trace, its time by events
+             within 0.97–1.03 of the F = L = 1 step's; phase 21 A's run at
+             F = L = 2 through ``driver.run`` equal to it (each loss, the
+             final loss, the launches), and cut by SIGTERM and resumed at
+             F = L = 1, equal to it too; then ``spmm_ell`` and
+             ``spmm_sorted`` at a tensor-parallel rank's width (d/F = 64)
+             on the rank's stacked operators against their plain versions.
+
+23. dist_fused — ``dwy100k_dist`` at full width on the same one-rank
              group.  The R = 1 step at d 128 fp32 (``DIST_CUTS``): its
              launches in ell and sorted, its time by events beside the
              15.8 ms of the step through the exchange (PERF.md §5) and the
@@ -239,7 +252,7 @@ from tpugraph_torch import native
 from tpugraph_torch.dist import mp_worker
 from tpugraph_torch.cli.main import main as cli_main
 from tpugraph_torch.dist.halo import exchange, halo_spmm_ell
-from tpugraph_torch.dist.mesh import make_mesh
+from tpugraph_torch.dist.mesh import make_mesh, shard_operator
 from tpugraph_torch.dist.ring import ring_hits_at_k, ring_knn, ring_sinkhorn_align_loss
 from tpugraph_torch.dist.trainer import dist_parts
 from tpugraph_torch.kernels import _build, gcn_fused, shortlist_dist, sinkhorn_fused, spmm_ell
@@ -3272,8 +3285,8 @@ def _dist_approx_leg(smi: str, dev: torch.device, exact_stages: dict) -> dict:
                                  smi) for name, (q, c, k, kw_) in cases.items()}
     out = {"config": cfg.name, "recipe": "v7r", "cuts": {**DIST_V7R_CUTS, **DIST_APPROX},
            "launches": counts, "timings": {k: v for k, v in t.items() if k != "step_s"},
-           "losses": losses, "stages_s": stages, "exact_stages_s": exact_stages,
-           "select_launches_per_stage": per_stage,
+           "losses": losses, "final_loss": res.metrics["final_loss"], "stages_s": stages,
+           "exact_stages_s": exact_stages, "select_launches_per_stage": per_stage,
            "on_last_table": {"mining_recall_min": recall, "mining_s": mine_s,
                              "exact_mining_s": exact_s, "eval_gaps": gaps,
                              "history_eval_s": eval_s, "proposal_s": prop_s},
@@ -3422,6 +3435,152 @@ def phase_dist_options(smi: str, dev: torch.device, exact_stages: dict) -> dict:
             "checkpoints": _dist_checkpoint_leg(smi, dev),
             "options": _dist_options_leg(smi, dev),
             "debug_nans": _dist_debug_nans_leg(smi, dev)}
+
+
+# ---- tensor parallelism and slices on the one-rank group ----
+
+# the grid asked for: two feature blocks and two slices; one rank of one
+# card holds every block (W = 1), so its step is the F = L = 1 step
+DIST_MESH = {"feature_shards": 2, "slice_shards": 2}
+MESH_STEP_RATIO = (0.97, 1.03)  # the F = L = 2 step's time over the F = L = 1 step's
+MESH_SIGTERM_STEP = 3  # the cut run stops after epoch 2, in the v7r run's second interval
+
+
+def _mesh_step_pair(task, cfg, batch, dev) -> dict:
+    """One step of ``cfg`` at F = L = 1 and at ``DIST_MESH`` (each its own
+    ``make_mesh`` on the one-rank group; the grid is (1, 1, 1)): the loss
+    and every gradient bit for bit, the same launches; returns both parts
+    with the launches."""
+    with make_mesh(cfg.n_shards, dev) as flat_mesh, \
+            make_mesh(cfg.n_shards, dev, DIST_MESH["feature_shards"],
+                      DIST_MESH["slice_shards"]) as tp_mesh:
+        if tp_mesh.grid != (1, 1, 1) or tp_mesh.groups:
+            raise AssertionError(f"one rank's grid {tp_mesh.grid}, groups {tp_mesh.groups}")
+        flat = dist_parts(cfg, task, flat_mesh)
+        tp = dist_parts(cfg.replace(**DIST_MESH), task, tp_mesh)
+        f_loss, f_grads, f_launched = _dist_step(flat, batch)
+        t_loss, t_grads, t_launched = _dist_step(tp, batch)
+        differ = [k for k in f_grads if not torch.equal(f_grads[k], t_grads[k])]
+        if not torch.equal(f_loss, t_loss) or differ or f_launched != t_launched:
+            raise AssertionError(f"F = L = 2 step against F = L = 1: loss {t_loss.item()} / "
+                                 f"{f_loss.item()}, gradients differ {differ}, launches "
+                                 f"{t_launched} / {f_launched}")
+        return {"flat": flat, "tp": tp, "loss": float(t_loss),
+                "launches": {k: v for k, v in t_launched.items() if v}}
+
+
+def phase_dist_mesh(smi: str, dev: torch.device, leg_a: dict) -> dict:
+    """Tensor parallelism and slices (``DIST_MESH``) on ``dwy100k_dist`` at
+    full width, on the NCCL group of one rank, which holds every feature
+    block and slice: one step at d 128 (``DIST_CUTS``, ``_dist_batch``) and
+    one v7r step at d 256 (phase 20's cuts, ``mp_worker.surface_batch``),
+    each equal to its F = L = 1 step bit for bit with the same launches;
+    a profiler trace of the d-128 step (no ``nccl`` event); its time by
+    events beside the F = L = 1 step's, interleaved, within
+    ``MESH_STEP_RATIO``; phase 21 A's approximate v7r run through
+    ``driver.run`` at F = L = 2, each loss and the final loss equal to that
+    run's; the same run with checkpoints stopped by SIGTERM during its
+    ``MESH_SIGTERM_STEP``-th step and resumed at F = L = 1, equal to it too.
+    Then the kernels at a tensor-parallel rank's width (d/F = 64) on the
+    rank's stacked operators: ``spmm_ell`` fp32 and bf16, ``spmm_sorted``,
+    against their plain versions."""
+    t_leg = time.perf_counter()
+    cfg = get_config("dwy100k_dist", **DIST_CUTS)
+    task = load_task(cfg)
+    batch = _dist_batch(task, cfg, dev)
+    d128 = _mesh_step_pair(task, cfg, batch, dev)
+    flat, tp = d128.pop("flat"), d128.pop("tp")
+    if d128["launches"] != {"spmm_ell": 4 * HALO_LAYER_LAUNCHES}:
+        raise AssertionError(f"the d-128 step launched {d128['launches']}")
+    events = _all_events_ms(lambda: tp.grads(batch), dev)["top_kernels_ms"] or {}
+    found = [k for k in events if any(w in k for w in NO_EXCHANGE)]
+    if not events or found:
+        raise AssertionError(f"the F = L = 2 step's device events: {len(events)}, of a "
+                             f"collective {found}")
+    rounds = []  # F = L = 1, F = L = 2, F = L = 2, F = L = 1
+    for _ in range(3):
+        rounds.append([time_ms(lambda: p.grads(batch), 1, 10) for p in (flat, tp, tp, flat)])
+    flat_ms = float(np.median([r[0] + r[3] for r in rounds])) / 2
+    tp_ms = float(np.median([r[1] + r[2] for r in rounds])) / 2
+    d128.update(step_ms={"flat": flat_ms, "tp": tp_ms, "rounds": rounds},
+                step_ratio=tp_ms / flat_ms, nccl_events=found, device_events=len(events))
+    ops, hg = tp.op, tp.hg
+    del flat, tp
+    if not MESH_STEP_RATIO[0] <= d128["step_ratio"] <= MESH_STEP_RATIO[1]:
+        raise AssertionError(f"F = L = 2 step over F = L = 1: {d128['step_ratio']}")
+
+    v7r = get_config("dwy100k_dist", **RECIPES["v7r"]).replace(
+        sinkhorn_pairs=DIST_V7R_OT_PAIRS, **DIST_V7R_CUTS)
+    v7r_step = _mesh_step_pair(task, v7r, mp_worker.surface_batch(v7r, task, device=dev), dev)
+    del v7r_step["flat"], v7r_step["tp"]
+    want = {"spmm_ell": 4 * HALO_LAYER_LAUNCHES, "sinkhorn_fused": 2 * v7r.sinkhorn_iters + 1}
+    if v7r_step["launches"] != want:
+        raise AssertionError(f"the v7r step launched {v7r_step['launches']}, expected {want}")
+
+    run_cfg = get_config("dwy100k_dist", **RECIPES["v7r"]).replace(
+        sinkhorn_pairs=DIST_V7R_OT_PAIRS, **{**DIST_V7R_CUTS, **DIST_APPROX}, **DIST_MESH)
+    res, run_s, counts = _counted(dev, lambda: run(run_cfg, task=task, device=dev))
+    same_run = (res.losses == leg_a["losses"]
+                and res.metrics["final_loss"] == leg_a["final_loss"])
+    if not same_run or counts != {k: v for k, v in leg_a["launches"].items() if v}:
+        raise AssertionError(f"the F = L = 2 run: losses {res.losses}, final "
+                             f"{res.metrics['final_loss']}, launches {counts}; leg A's "
+                             f"{leg_a['losses']}, {leg_a['final_loss']}, {leg_a['launches']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        cut_cfg = run_cfg.replace(checkpoint_dir=tmp, checkpoint_every=run_cfg.epochs)
+        undo = mp_worker.sigterm_at_call(MESH_SIGTERM_STEP)
+        try:
+            first, cut_s = _timed(dev, lambda: run(cut_cfg, task=task, device=dev))
+        finally:
+            undo()
+        flat_cfg = cut_cfg.replace(feature_shards=1, slice_shards=1)
+        resumed, resume_s = _timed(dev, lambda: run(flat_cfg, task=task, device=dev))
+    stopped = (first.timings["steps"], resumed.timings["start_epoch"])
+    resumed_equal = (first.losses + resumed.losses == leg_a["losses"]
+                     and resumed.metrics["final_loss"] == leg_a["final_loss"])
+    if stopped != (MESH_SIGTERM_STEP, MESH_SIGTERM_STEP) or not resumed_equal:
+        raise AssertionError(f"cut at F = L = 2, resumed at F = L = 1: stopped/resumed at "
+                             f"{stopped}, losses {first.losses} + {resumed.losses}, final "
+                             f"{resumed.metrics['final_loss']}; leg A's {leg_a['losses']}")
+    leg_s = time.perf_counter() - t_leg
+    out = {"grid_asked": DIST_MESH, "grid_held": [1, 1, 1], "d128_step": d128,
+           "v7r_step": v7r_step,
+           "run": {"cuts": {**DIST_V7R_CUTS, **DIST_APPROX}, "losses": res.losses,
+                   "final_loss": res.metrics["final_loss"], "equal_to_leg_a": same_run,
+                   "launches": counts, "run_s": run_s,
+                   "steady_step_s": _steady_step(res.timings)},
+           "resume": {"sigterm_step": MESH_SIGTERM_STEP, "stopped_resumed_at": stopped,
+                      "equal_to_leg_a": resumed_equal, "cut_run_s": cut_s,
+                      "resumed_run_s": resume_s, "load_s": resumed.timings["load_s"]},
+           "leg_s": leg_s}
+    emit({"phase": "dist_mesh", **out, "card": smi})
+
+    # the kernels at d/F = 64 on the rank's stacked operators (fp32, bf16)
+    rng = np.random.default_rng(9)
+
+    def x_for(n_cols, dtype=torch.float32):
+        return torch.from_numpy(rng.standard_normal((n_cols, 64)).astype(np.float32)).to(
+            dev, dtype)
+
+    loc, bnd = ops.loc, ops.bnd
+    ell = {name: _dist_ell_case(m, diag, x_for(m.n_cols, dtype)) for name, m, diag, dtype in (
+        ("local", loc.fwd, loc.diag, torch.float32), ("boundary", bnd.fwd, None, torch.float32),
+        ("boundary_transpose", bnd.bwd, None, torch.float32),
+        ("local_bf16", loc.fwd, loc.diag, torch.bfloat16))}
+    with make_mesh(cfg.n_shards, dev) as mesh:
+        s_op = shard_operator(hg, mesh, "sorted")
+    sorted_ops = {}
+    for name, edges, dtype in (("local", s_op.loc.fwd, torch.float32),
+                               ("boundary", s_op.bnd.fwd, torch.float32),
+                               ("boundary_transpose", s_op.bnd.bwd, torch.float32),
+                               ("local_bf16", s_op.loc.fwd, torch.bfloat16)):
+        _nan_cache(edges.n_rows, 64, dev)
+        sorted_ops[name] = _sorted_case(edges, _csr_of_edges(edges), x_for(edges.n_cols, dtype),
+                                        timed=name == "local")
+    phase_s = time.perf_counter() - t_leg
+    emit({"phase": "kernel", "kernel": "dist_tp_operators", "d": 64, "spmm_ell": ell,
+          "spmm_sorted": sorted_ops, "leg_s": leg_s, "phase_s": phase_s, "card": smi})
+    return {**out, "kernel": {"spmm_ell": ell, "spmm_sorted": sorted_ops}, "phase_s": phase_s}
 
 
 # ---- the distributed step at R = 1, the exchange route, the fused interval ----
@@ -3787,6 +3946,7 @@ def main() -> int:
     dist = phase_dist(smi, dev)
     dist_v7r = phase_dist_v7r(smi, dev)
     dist_options = phase_dist_options(smi, dev, dist_v7r["stages_s"])
+    dist_mesh = phase_dist_mesh(smi, dev, dist_options["approx"])
     dist_fused = phase_dist_fused(smi, dev, dist, dist_options["approx"]["stages_s"])
     # one potential update at the ring caller's shape: the v7r run's 4,096
     # pairs, one rank holding the 8 shards, so one launch per update
@@ -3832,7 +3992,11 @@ def main() -> int:
              "replayed_per_step": {k: v["replayed_launches_per_step"]["spmm_ell"]
                                    for k, v in dist_fused["intervals"].items()},
              "fused_runs": {k: v["launches"]["spmm_ell"]
-                            for k, v in dist_fused["runs"].items()}}},
+                            for k, v in dist_fused["runs"].items()}},
+         "launches_dist_mesh": {"d128_step": dist_mesh["d128_step"]["launches"]["spmm_ell"],
+                                "v7r_step": dist_mesh["v7r_step"]["launches"]["spmm_ell"],
+                                "v7r_run": dist_mesh["run"]["launches"]["spmm_ell"]},
+         "dist_tp_operators_d64": dist_mesh["kernel"]["spmm_ell"]},
         {"name": "sinkhorn_fused", "route": "cuda",
          "source": "tpugraph_torch/csrc/sinkhorn_fused.cu",
          "replaces": "tpugraph/kernels/sinkhorn_pallas.py:38",
@@ -3846,7 +4010,10 @@ def main() -> int:
          "launches_dist_fused": {
              "replayed_per_step_v7r":
                  dist_fused["intervals"]["v7r"]["replayed_launches_per_step"]["sinkhorn_fused"],
-             "fused_run_v7r": dist_fused["runs"]["v7r_fast"]["launches"]["sinkhorn_fused"]}},
+             "fused_run_v7r": dist_fused["runs"]["v7r_fast"]["launches"]["sinkhorn_fused"]},
+         "launches_dist_mesh": {
+             "v7r_step": dist_mesh["v7r_step"]["launches"]["sinkhorn_fused"],
+             "v7r_run": dist_mesh["run"]["launches"]["sinkhorn_fused"]}},
         {"name": "shortlist_dist", "route": "cuda",
          "source": "tpugraph_torch/csrc/shortlist_dist.cu",
          "replaces": "tpugraph/train/negatives.py:260",
@@ -3856,6 +4023,7 @@ def main() -> int:
          "at_callers": {k: v for k, v in k_select.items() if k != "mining"},
          "launches_dist_approx": dist_options["approx"]["launches"]["shortlist_dist"],
          "launches_dist_approx_per_stage": dist_options["approx"]["select_launches_per_stage"],
+         "launches_dist_mesh_v7r_run": dist_mesh["run"]["launches"]["shortlist_dist"],
          "at_dist_ring_callers": dist_options["approx"]["kernel"],
          "gather_entry": {"launches": approx["shortlist_gather"], "at_callers": k_gather}},
         {"name": "spmm_sorted", "route": "cuda", "source": "tpugraph_torch/csrc/spmm_sorted.cu",
@@ -3870,7 +4038,8 @@ def main() -> int:
          "d": 128, "dtype": "float32", "operator": "forward", "all": k_sorted,
          "launches_dist_sorted_step": dist["sorted_step_launches"]["spmm_sorted"],
          "launches_dist_r1_sorted_step": dist_fused["r1"]["sorted"]["launches_per_step"],
-         "dist_shard_ops": dist["spmm_sorted"]},
+         "dist_shard_ops": dist["spmm_sorted"],
+         "dist_tp_operators_d64": dist_mesh["kernel"]["spmm_sorted"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -362,8 +362,6 @@ def test_two_ranks_agree_on_a_sigterm_and_one_rank_resumes(two_ranks):
 
 
 REFUSED = {
-    "feature_shards > 1": dict(feature_shards=2),
-    "slice_shards > 1": dict(slice_shards=2),
     "halo_grouped": dict(halo_grouped=True),
 }
 
@@ -379,7 +377,8 @@ def test_unported_options_refuse_and_the_jax_refusals_come_first():
     ported = [dict(checkpoint_dir="ck", checkpoint_every=2), dict(use_attr_channel=True),
               dict(neg_approx=True), dict(eval_approx_k=16), dict(param_dtype="bfloat16"),
               dict(dropout=0.3), dict(l2_normalize=True),
-              dict(steps_per_call=4, neg_every=4, epochs=8), dict(profile_dir="prof")]
+              dict(steps_per_call=4, neg_every=4, epochs=8), dict(profile_dir="prof"),
+              dict(feature_shards=2), dict(slice_shards=2)]
     for over in ported:  # no longer refused
         check_distributed(get_config("base", **{**KW, "n_shards": 2, **over}), task)
     for over, what in ((dict(param_dtype="float16"), "param_dtype"),

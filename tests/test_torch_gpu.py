@@ -8,7 +8,9 @@ paths against the same calls on the host; the distributed trainer's
 shard operators and steps (margin, recipe v7r's surface with the ring OT,
 the attribute channel, bf16) and the exchange route beside them, a
 replayed distributed interval, its ring stages (exact and shortlisted, at
-``dwy100k_dist``'s block sizes) and a bitwise resume.
+``dwy100k_dist``'s block sizes), a bitwise resume, and one card holding
+every feature block and slice (its step bit for bit the F = L = 1 step);
+both SpMM kernels also at a tensor-parallel rank's width, d = 64.
 
 Marked ``gpu``; each test skips without a CUDA device.  This file imports
 neither JAX nor the JAX package, so on a machine with a card (and no JAX)
@@ -152,7 +154,7 @@ def test_encoder_on_card_matches_host(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("split_diag", [False, True])
 def test_spmm_ell_kernel_matches_plain(cuda, d, split_diag):
     rng = np.random.default_rng(d + split_diag)
@@ -166,8 +168,8 @@ def test_spmm_ell_kernel_matches_plain(cuda, d, split_diag):
         torch.testing.assert_close(got, apply_with_diag(m, op.diag, x), rtol=1e-4, atol=1e-4)
     with pytest.raises(TypeError):  # float32 and bfloat16 only
         ell_spmm(op.fwd, op.diag, x.to(torch.float16))
-    with pytest.raises(ValueError):
-        ell_spmm(op.fwd, op.diag, x[:, :64].contiguous())
+    with pytest.raises(ValueError):  # 64, 128 and 256 only
+        ell_spmm(op.fwd, op.diag, x[:, :32].contiguous())
 
 
 def _hub_graph(rng, degrees, n=8000, split_diag=True):
@@ -195,7 +197,7 @@ HUB_KS = {"hub_5300": {5300, 2 * SEG_SLOTS, SEG_SLOTS},
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("hub", list(HUB_DEGREES))
-@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("split_diag", [False, True])
 def test_spmm_ell_hub_segments_match_plain(cuda, hub, d, split_diag):
     """Rows of K ≥ 5,000 and at the segment boundaries: the segments' fixed-
@@ -887,7 +889,7 @@ def _sorted_graph(rng, n=8000, hubs=(5300, 700)):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("hub", ["hub_5300", "cap_plus_1"])
 def test_spmm_ell_bf16_matches_plain(cuda, d, hub):
     """The bf16 instance over A and Aᵀ of a hub graph and over the attribute
@@ -916,7 +918,7 @@ def test_spmm_ell_bf16_matches_plain(cuda, d, hub):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_spmm_sorted_matches_plain(cuda, dtype, d):
     """The sorted-segment kernel over A and Aᵀ of a graph with 5,300- and
     700-edge rows, and over the attribute incidence and its transpose:
@@ -948,8 +950,8 @@ def test_spmm_sorted_matches_plain(cuda, dtype, d):
     torch.testing.assert_close(t1.grad.float(), segment_spmm(inc.bwd, cot).float(), **tol)
     with pytest.raises(TypeError):
         sorted_spmm(op.fwd, x.to(torch.float16))
-    with pytest.raises(ValueError):
-        sorted_spmm(op.fwd, torch.zeros(op.fwd.n_cols, 64, device=cuda))
+    with pytest.raises(ValueError):  # 64, 128 and 256 only
+        sorted_spmm(op.fwd, torch.zeros(op.fwd.n_cols, 32, device=cuda))
 
 
 def _gapped_sorted_graph(rng, n=6000):
@@ -970,7 +972,7 @@ def _gapped_sorted_graph(rng, n=6000):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_spmm_sorted_cut_and_empty_rows(cuda, dtype, d):
     """Rows at the segment cap and one over it, and rows with no edge
     inside packed runs and before the dump row, over A and Aᵀ: against the
@@ -1139,7 +1141,7 @@ def _shard_graph(n_shards=4, seed=6):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_spmm_kernels_on_a_shard_boundary_and_its_transpose(cuda, d):
     """Both SpMM kernels on each shard's boundary operator (n_loc × S·B)
     and its transpose (S·B rows, most of them pad slots with no edge), and
@@ -1278,6 +1280,44 @@ def test_distributed_v7r_step_on_the_card_matches_the_host(cuda):
     assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-4)
     for k, g in out["cpu"][1].items():
         assert float((out["cuda"][1][k] - g).norm() / g.norm()) < 1e-4, k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("recipe", ["margin", "v7r"])
+def test_one_card_holds_every_feature_block_and_slice(cuda, recipe):
+    """``feature_shards = slice_shards = 2`` on one NCCL rank: the rank
+    holds every feature block and slice (the grid (1, 1, 1), no subgroup),
+    and its step equals the F = L = 1 step bit for bit, the loss and every
+    gradient, with the same launches (the margin step on injected
+    negatives, and recipe v7r's surface with the ring OT)."""
+    task, _ = _shard_graph()
+    if recipe == "v7r":
+        cfg = get_config("dwy100k_dist", **RECIPES["v7r"]).replace(
+            n_shards=4, dim=128, k_neg=10, boot_cap=200, sinkhorn_pairs=512, use_rel_head=True)
+        batch = mp_worker.surface_batch(cfg, task, device=cuda)
+    else:
+        cfg = get_config("base", n_shards=4, dim=128, k_neg=10)
+        pairs = torch.as_tensor(task.train_pairs, dtype=torch.int64)
+        neg_l, neg_r = sample_uniform_negatives(torch.Generator().manual_seed(0), pairs,
+                                                task.kg1.n_ent, task.n_ent, cfg.k_neg)
+        batch = {"pairs": pairs.to(cuda), "neg_l": neg_l.to(cuda), "neg_r": neg_r.to(cuda)}
+    out = []
+    for n_feature, n_slice in ((1, 1), (2, 2)):
+        with make_mesh(4, cuda, n_feature, n_slice) as mesh:
+            assert mesh.grid == (1, 1, 1) and not mesh.groups
+            parts = dist_parts(cfg.replace(feature_shards=n_feature, slice_shards=n_slice), task,
+                               mesh)
+            before = (spmm_ell.launches, sinkhorn_fused.launches)
+            loss = parts.grads(batch)
+            torch.cuda.synchronize()
+            out.append((loss, {k: p.grad.clone() for k, p in parts.model.named_parameters()},
+                        (spmm_ell.launches - before[0], sinkhorn_fused.launches - before[1])))
+    (flat_loss, flat_grads, flat_n), (loss, grads, n) = out
+    assert n == flat_n == ((8, 41) if recipe == "v7r" else (8, 0))
+    assert torch.equal(loss, flat_loss)
+    assert set(grads) == set(flat_grads)
+    for k, g in grads.items():
+        assert torch.equal(g, flat_grads[k]), k
 
 
 def _stage_sets_agree(got: torch.Tensor, want: torch.Tensor) -> float:

@@ -1,6 +1,7 @@
 // The gather walk shared by gcn_fused.cu, spmm_ell.cu and spmm_sorted.cu:
 // one warp accumulates rows of A·x in registers, 4 columns per lane per
-// 128-column chunk, walking a work item's slots (walk_slots) 32 at a time,
+// 128-column chunk (D = 128, 256; at D = 64, a tensor-parallel rank's half
+// of a 128-wide layer, 2 columns per lane in one 64-column chunk), walking a work item's slots (walk_slots) 32 at a time,
 // across row boundaries, so a run of short rows keeps 8 source rows in
 // flight; a finished row goes to the caller's sink.  The ELL kernels walk
 // a run of whole rows of one bucket (or one segment of a long row) as
@@ -10,9 +11,9 @@
 //
 // Each lane loads one slot's (idx, w) and the warp broadcasts them with
 // shuffles, so a row of any K (up to the 3,734 of the zh-en hubs) needs no
-// shared memory sized by K.  Each source row is one coalesced
-// 16-byte-per-lane load.  Pad slots (idx 0, w 0) read row 0 and add
-// 0·x[0].
+// shared memory sized by K.  Each source row is one coalesced load, 16
+// bytes per lane in fp32 (8 at D = 64).  Pad slots (idx 0, w 0) read row 0
+// and add 0·x[0].
 
 #pragma once
 
@@ -25,6 +26,16 @@
 namespace ell {
 
 constexpr unsigned kFull = 0xffffffffu;
+
+// A row of D columns as kChunks<D> chunks of kCols<D>, kVec<D> columns per
+// lane: 128-column chunks of 4 at D >= 128, one 64-column chunk of 2 at 64.
+// The accumulators keep 4 floats per chunk; at D = 64 two are unused.
+template <int D>
+constexpr int kChunks = D >= 128 ? D / 128 : 1;
+template <int D>
+constexpr int kVec = D >= 128 ? 4 : D / 32;
+template <int D>
+constexpr int kCols = 32 * kVec<D>;
 
 __device__ __forceinline__ void load4(const float* p, float v[4]) {
   const float4 t = __ldg(reinterpret_cast<const float4*>(p));
@@ -40,6 +51,25 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
   v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
 }
 
+__device__ __forceinline__ void load2(const float* p, float v[4]) {
+  const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+  v[0] = t.x; v[1] = t.y;
+}
+
+__device__ __forceinline__ void load2(const __nv_bfloat16* p, float v[4]) {
+  const unsigned t = __ldg(reinterpret_cast<const unsigned*>(p));
+  __nv_bfloat162 lo;
+  memcpy(&lo, &t, 4);
+  const float2 a = __bfloat1622float2(lo);
+  v[0] = a.x; v[1] = a.y;
+}
+
+// kVec<D> columns of one lane: 4 or 2
+template <int D, typename T>
+__device__ __forceinline__ void load_vec(const T* p, float v[4]) {
+  if constexpr (kVec<D> == 4) load4(p, v); else load2(p, v);
+}
+
 __device__ __forceinline__ void store4(float* p, const float v[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
@@ -51,6 +81,22 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
   memcpy(&t.x, &lo, 4);
   memcpy(&t.y, &hi, 4);
   *reinterpret_cast<uint2*>(p) = t;
+}
+
+__device__ __forceinline__ void store2(float* p, const float v[4]) {
+  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, const float v[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  unsigned t;
+  memcpy(&t, &lo, 4);
+  *reinterpret_cast<unsigned*>(p) = t;
+}
+
+template <int D, typename T>
+__device__ __forceinline__ void store_vec(T* p, const float v[4]) {
+  if constexpr (kVec<D> == 4) store4(p, v); else store2(p, v);
 }
 
 // Virtual slot v of a run of rows that starts at rows[pos0], with K ELL
@@ -87,14 +133,14 @@ __device__ __forceinline__ void load_vslot(int v, int v1, int pos0, int k_row, l
 // for nothing to gather (v ≥ v1 among them); the warp broadcasts them by
 // shuffles, and the next 32 load before this chunk's gathers start, so that
 // load is off the critical path.  8 source rows (4 at D = 256) are in
-// flight per warp.  When the key changes, sink(key, acc) takes the finished
+// flight per warp (8 at D = 64 too).  When the key changes, sink(key, acc) takes the finished
 // row and acc restarts at 0; on return acc holds the last row, whose key is
 // `cur` (-1 if the item had no slot).
 template <typename T, int D, typename Load, typename Sink>
 __device__ __forceinline__ void walk_slots(const T* __restrict__ x, int v0, int v1, int lane,
-                                           float (&acc)[D / 128][4], int& cur, Load&& load,
+                                           float (&acc)[kChunks<D>][4], int& cur, Load&& load,
                                            Sink&& sink) {
-  constexpr int CI = D / 128;
+  constexpr int CI = kChunks<D>, V = kVec<D>;
   constexpr int U = 8 / CI;  // source rows in flight per warp
   cur = -1;
   int nx_src, nx_key;
@@ -118,7 +164,7 @@ __device__ __forceinline__ void walk_slots(const T* __restrict__ x, int v0, int 
         if (j + u < n && src >= 0) {
 #pragma unroll
           for (int c = 0; c < CI; ++c)
-            load4(x + static_cast<long>(src) * D + c * 128 + lane * 4, v[u][c]);
+            load_vec<D>(x + static_cast<long>(src) * D + c * kCols<D> + lane * V, v[u][c]);
         } else {
           wj[u] = 0.f;
 #pragma unroll
@@ -137,7 +183,7 @@ __device__ __forceinline__ void walk_slots(const T* __restrict__ x, int v0, int 
 #pragma unroll
         for (int c = 0; c < CI; ++c)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[c][e] = fmaf(wj[u], v[u][c][e], acc[c][e]);
+          for (int e = 0; e < V; ++e) acc[c][e] = fmaf(wj[u], v[u][c][e], acc[c][e]);
       }
     }
   }
@@ -152,7 +198,7 @@ __device__ __forceinline__ void walk_vslots(const T* __restrict__ x,
                                             const int* __restrict__ idx,
                                             const float* __restrict__ ew, int pos0, int k_row,
                                             long slot0, int v0, int v1, int lane,
-                                            float (&acc)[D / 128][4], int& cur, Sink&& sink) {
+                                            float (&acc)[kChunks<D>][4], int& cur, Sink&& sink) {
   walk_slots<T, D>(
       x, v0, v1, lane, acc, cur,
       [&](int v, int& src, float& w, int& key) {
@@ -163,9 +209,9 @@ __device__ __forceinline__ void walk_vslots(const T* __restrict__ x,
 
 // One row of D fp32 sums to dst, rounded once to dst's type (float or bf16).
 template <int D, typename T>
-__device__ __forceinline__ void put_row(T* dst, int lane, const float (&acc)[D / 128][4]) {
+__device__ __forceinline__ void put_row(T* dst, int lane, const float (&acc)[kChunks<D>][4]) {
 #pragma unroll
-  for (int c = 0; c < D / 128; ++c) store4(dst + c * 128 + lane * 4, acc[c]);
+  for (int c = 0; c < kChunks<D>; ++c) store_vec<D>(dst + c * kCols<D> + lane * kVec<D>, acc[c]);
 }
 
 // One segment of a cut row, as the SpMM kernels' work tables cut it: acc
@@ -177,8 +223,8 @@ __device__ __forceinline__ void put_row(T* dst, int lane, const float (&acc)[D /
 template <int D>
 __device__ __forceinline__ bool sum_segments(float* __restrict__ partial, int part, int p0,
                                              int p1, int* __restrict__ counter, int lane,
-                                             const float (&acc)[D / 128][4],
-                                             float (&sum)[D / 128][4]) {
+                                             const float (&acc)[kChunks<D>][4],
+                                             float (&sum)[kChunks<D>][4]) {
   put_row<D>(partial + static_cast<long>(part) * D, lane, acc);
   __threadfence();
   __syncwarp();
@@ -188,17 +234,23 @@ __device__ __forceinline__ bool sum_segments(float* __restrict__ partial, int pa
   if (lane == 0) *counter = 0;  // every segment has counted: ready for the next launch
   __threadfence();
 #pragma unroll
-  for (int c = 0; c < D / 128; ++c) sum[c][0] = sum[c][1] = sum[c][2] = sum[c][3] = 0.f;
+  for (int c = 0; c < kChunks<D>; ++c) sum[c][0] = sum[c][1] = sum[c][2] = sum[c][3] = 0.f;
 #pragma unroll 4  // loads in flight; the adds stay in segment order
   for (int p = p0; p < p1; ++p)
 #pragma unroll
-    for (int c = 0; c < D / 128; ++c) {
-      const float4 t =
-          __ldcg(reinterpret_cast<const float4*>(partial + static_cast<long>(p) * D + c * 128) + lane);
-      sum[c][0] += t.x;
-      sum[c][1] += t.y;
-      sum[c][2] += t.z;
-      sum[c][3] += t.w;
+    for (int c = 0; c < kChunks<D>; ++c) {
+      const float* row = partial + static_cast<long>(p) * D + c * kCols<D>;
+      if constexpr (kVec<D> == 4) {
+        const float4 t = __ldcg(reinterpret_cast<const float4*>(row) + lane);
+        sum[c][0] += t.x;
+        sum[c][1] += t.y;
+        sum[c][2] += t.z;
+        sum[c][3] += t.w;
+      } else {
+        const float2 t = __ldcg(reinterpret_cast<const float2*>(row) + lane);
+        sum[c][0] += t.x;
+        sum[c][1] += t.y;
+      }
     }
   return true;
 }

@@ -59,7 +59,7 @@ spmm_ell_kernel(const T* __restrict__ x, const float* __restrict__ diag,
                 const float* __restrict__ ew, const int4* __restrict__ items, int n_items,
                 const int* __restrict__ split_p0, int* __restrict__ counters,
                 float* __restrict__ partial, T* __restrict__ out) {
-  constexpr int CI = D / 128;
+  constexpr int CI = ell::kChunks<D>;
   const int lane = threadIdx.x & 31;
   const int item = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (item >= n_items) return;
@@ -104,11 +104,13 @@ cudaError_t launch(const void* x, const float* diag, const int* rows, const int*
 }  // namespace
 
 // out (n_rows, d) of x's type = A·x + diag ⊙ x.  diag may be null.  d is
-// 128 or 256; dtype 0 is float32, 1 bfloat16.  items is the (n_items, 8) int32 segment table; split_p0 (n_split + 1)
-// the first partial of each cut row; counters (n_split) int scratch, zero on
-// entry and left zero on exit, and partial (split_p0[n_split], d) float32
-// scratch.  One kernel launch; returns its cudaError_t (0 on success), and
-// the work itself runs asynchronously on `stream`.
+// 64 (a tensor-parallel rank's half of a 128-wide layer), 128 or 256; dtype
+// 0 is float32, 1 bfloat16.  items is the (n_items, 8) int32 segment table;
+// split_p0 (n_split + 1) the first partial of each cut row; counters
+// (n_split) int scratch, zero on entry and left zero on exit, and partial
+// (split_p0[n_split], d) float32 scratch.  One kernel launch; returns its
+// cudaError_t (0 on success), and the work itself runs asynchronously on
+// `stream`.
 extern "C" int spmm_ell_forward(const void* x, const float* diag, const int* rows,
                                 const int* idx, const float* ew, const int* items, int n_items,
                                 const int* split_p0, int* counters, float* partial, void* out,
@@ -117,8 +119,10 @@ extern "C" int spmm_ell_forward(const void* x, const float* diag, const int* row
   if (n_items <= 0) return cudaSuccess;
 #define SPMM_ELL_LAUNCH(T, D) \
   launch<T, D>(x, diag, rows, idx, ew, items, n_items, split_p0, counters, partial, out, s)
+  if (dtype == 0 && d == 64) return SPMM_ELL_LAUNCH(float, 64);
   if (dtype == 0 && d == 128) return SPMM_ELL_LAUNCH(float, 128);
   if (dtype == 0 && d == 256) return SPMM_ELL_LAUNCH(float, 256);
+  if (dtype == 1 && d == 64) return SPMM_ELL_LAUNCH(__nv_bfloat16, 64);
   if (dtype == 1 && d == 128) return SPMM_ELL_LAUNCH(__nv_bfloat16, 128);
   if (dtype == 1 && d == 256) return SPMM_ELL_LAUNCH(__nv_bfloat16, 256);
 #undef SPMM_ELL_LAUNCH

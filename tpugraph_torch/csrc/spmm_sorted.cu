@@ -1,6 +1,7 @@
 // Sorted-segment SpMM for Hopper (sm_90a): out[i] = Σ_{e: dst[e]=i} w[e]·x[src[e]]
-// over a (dst, src)-sorted padded edge list, x float32 or bfloat16, d = 128
-// or 256, fp32 accumulation and one rounding to x's type at the end.
+// over a (dst, src)-sorted padded edge list, x float32 or bfloat16, d = 64,
+// 128 or 256 (64: a tensor-parallel rank's half of a 128-wide layer), fp32
+// accumulation and one rounding to x's type at the end.
 //
 // Replaces the XLA ops of tpugraph/kernels/spmm.py::_segment_spmm (a gather,
 // a multiply and a sorted segment_sum); no Pallas kernel exists for it.
@@ -57,7 +58,7 @@ spmm_sorted_kernel(const T* __restrict__ x, const int* __restrict__ src,
                    const float* __restrict__ ew, const int* __restrict__ dst,
                    const int4* __restrict__ items, int n_items, const int* __restrict__ split_p0,
                    int* __restrict__ counters, float* __restrict__ partial, T* __restrict__ out) {
-  constexpr int CI = D / 128;
+  constexpr int CI = ell::kChunks<D>;
   const int lane = threadIdx.x & 31;
   const int item = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (item >= n_items) return;
@@ -118,7 +119,7 @@ cudaError_t launch(const void* x, const int* src, const float* ew, const int* ds
 // (n_items, 8) int32 work table (kernels/spmm.py::segment_plan); split_p0
 // (n_split + 1) the first partial of each cut row; counters (n_split) int
 // scratch, zero on entry and left zero on exit; partial (split_p0[n_split],
-// d) float32 scratch.  d is 128 or 256; dtype 0 is float32, 1 bfloat16.
+// d) float32 scratch.  d is 64, 128 or 256; dtype 0 is float32, 1 bfloat16.
 // One kernel launch; returns its cudaError_t (0 on success), and the work
 // itself runs asynchronously on `stream`.
 extern "C" int spmm_sorted_forward(const void* x, const int* src, const float* ew,
@@ -129,8 +130,10 @@ extern "C" int spmm_sorted_forward(const void* x, const int* src, const float* e
   if (n_items <= 0) return cudaSuccess;
 #define SPMM_SORTED_LAUNCH(T, D) \
   launch<T, D>(x, src, ew, dst, items, n_items, split_p0, counters, partial, out, s)
+  if (dtype == 0 && d == 64) return SPMM_SORTED_LAUNCH(float, 64);
   if (dtype == 0 && d == 128) return SPMM_SORTED_LAUNCH(float, 128);
   if (dtype == 0 && d == 256) return SPMM_SORTED_LAUNCH(float, 256);
+  if (dtype == 1 && d == 64) return SPMM_SORTED_LAUNCH(__nv_bfloat16, 64);
   if (dtype == 1 && d == 128) return SPMM_SORTED_LAUNCH(__nv_bfloat16, 128);
   if (dtype == 1 && d == 256) return SPMM_SORTED_LAUNCH(__nv_bfloat16, 256);
 #undef SPMM_SORTED_LAUNCH

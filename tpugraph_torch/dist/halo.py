@@ -9,18 +9,21 @@ plus the boundary aggregation, each one ``kernels/spmm_ell.py::spmm_ell``
 launch each way with ``impl`` "ell", one ``kernels/spmm.py::spmm`` launch
 with "sorted" (the JAX ``_segsum``).  Where the boundary rows come from:
 
-* **One rank holding every shard** (R = 1, the trainer's route on one
-  card): the boundary operator reads the rows of x the receive slots would
+* **One rank holding every shard** (Gr = 1 graph ranks: W = 1, the
+  trainer's route on one card, or a grid of slices and feature blocks
+  only): the boundary operator reads the rows of x the receive slots would
   carry (``direct``), so no exchange runs: no collective, no receive
   buffer, no copy.  Its backward is the operator's transpose, a fixed-order
   sum by construction.  Each row keeps its entries in their order, so the
   forward sums are bitwise those of the exchange route.
-* **The exchange** (R > 1, or asked for with ``shard_operator(...,
-  exchange=True)``; ``_Exchange``, an autograd Function): the live send
-  rows gathered into a zeroed buffer already laid out as the collective
-  sends it, [receiver rank, my shard, its shard, slot] (``send_mask``'s
-  ones: the JAX gather-and-mask without gathering the pad slots), one
-  ``all_to_all_single`` issued with ``async_op=True``; the boundary
+* **The exchange** (Gr > 1, or asked for with ``shard_operator(...,
+  exchange=True)``; ``_Exchange``, an autograd Function), within the graph
+  group (``dist/mesh.py``): the live send rows gathered into a zeroed
+  buffer already laid out as the collective sends it, [receiver rank, my
+  shard, its shard, slot] (``send_mask``'s ones: the JAX gather-and-mask
+  without gathering the pad slots), one ``all_to_all_single`` issued with
+  ``async_op=True`` (under tensor parallelism x holds the rank's d/F
+  columns, so each rank moves 1/F of the bytes); the boundary
   operator reads the received buffer as delivered, so nothing is permuted.
   The local aggregation runs while the exchange is in flight and the
   boundary aggregation waits on it, the JAX schedule ("local aggregation —
@@ -79,11 +82,12 @@ class HaloOperator:
         return self.mesh.n_shards * self.per_rank * self.halo_b
 
 
-def _all_to_all(buf: torch.Tensor, async_op: bool = False):
-    """Chunk k of ``buf`` (its rows split evenly over the ranks) to rank k;
-    with ``async_op`` also the collective's handle."""
+def _all_to_all(buf: torch.Tensor, group, async_op: bool = False):
+    """Chunk k of ``buf`` (its rows split evenly over the graph group's
+    ranks) to its k-th rank; with ``async_op`` also the collective's
+    handle."""
     out = torch.empty_like(buf)
-    work = dist.all_to_all_single(out, buf, async_op=async_op)
+    work = dist.all_to_all_single(out, buf, group=group, async_op=async_op)
     return (out, work) if async_op else out
 
 
@@ -97,7 +101,7 @@ class _Exchange(torch.autograd.Function):
         ctx.op = op
         send = x.new_zeros((op.slots, x.shape[1]))  # the pad slots stay 0
         send.index_copy_(0, op.live, x.index_select(0, op.live_rows))
-        recv, work = _all_to_all(send, async_op=True)
+        recv, work = _all_to_all(send, op.mesh.group("graph"), async_op=True)
         pending.append(work)
         return recv
 
@@ -105,7 +109,7 @@ class _Exchange(torch.autograd.Function):
     def backward(ctx, g):
         # back to the senders, in the send buffer's layout; then each row of
         # x sums its live slots in slot order
-        back = _all_to_all(g.contiguous())
+        back = _all_to_all(g.contiguous(), ctx.op.mesh.group("graph"))
         return ell_spmm(ctx.op.send_t, None, back), None, None
 
 

@@ -21,6 +21,13 @@ the encoder's options (``step_mode``); and a checkpointed run that a
 SIGTERM reaching one rank stops (``preempt_mode``, ``sigterm_at_call``);
 a fused run (``steps_per_call = neg_every``); the run of ``fit_mode``
 traced with ``profile_dir`` (each rank its own directory).
+
+Mode ``mesh`` runs on a grid of slices and feature blocks (``dist/mesh.py``;
+each config's ``feature_shards`` and ``slice_shards`` with the world's
+size): steps from given whole parameters and batches, or from the
+config's own (``whole_step``: the encoder's output, the loss, its terms and
+every gradient whole on every rank), and a checkpointed run that SIGTERM
+stops (``preempt_mode``).
 The JAX worker's rehearsal modes (checkpoint save and resume across
 processes, the production surface with tensor parallelism, and the
 attribute-channel and slice legs) run their own configurations, which the
@@ -140,7 +147,7 @@ def fit_mode(cfg, task_kw: dict, profile_root: str | None = None) -> dict:
         cfg = cfg.replace(profile_dir=os.path.join(profile_root, f"rank{rank}"))
     res = fit_distributed(cfg, task=synthetic_align_task(**task_kw), device="cpu")
     return {"losses": res.losses, "history": res.history, "metrics": res.metrics,
-            "params": res.params}
+            "params": res.params, "timings": res.timings}
 
 
 def surface_batch(cfg, task, seed: int = 5, device: str | torch.device = "cpu") -> dict:
@@ -251,7 +258,45 @@ def check_mode(n_shards: int, cfg, task_kw: dict, surface_cfg=None, options_cfg=
     return out
 
 
-MODES = {"check": check_mode}
+def whole_step(cfg, task_kw: dict, params: dict | None = None,
+               batch: dict | None = None, mask_epoch: int | None = None) -> dict:
+    """One step of ``cfg`` on its grid (``cfg.feature_shards``,
+    ``cfg.slice_shards``) from the whole parameter set ``params`` (None:
+    the config's initialisation) on ``batch`` (None: ``surface_batch``),
+    with dropout epoch ``mask_epoch``'s keep mask: the encoder's whole
+    output, the loss, its terms and every gradient, gathered whole on every
+    rank (``DistEncoder.whole``)."""
+    from tpugraph_torch.data import synthetic_align_task
+    from tpugraph_torch.dist.mesh import make_mesh
+    from tpugraph_torch.dist.trainer import dist_parts
+
+    task = synthetic_align_task(**task_kw)
+    with make_mesh(cfg.n_shards, torch.device("cpu"), cfg.feature_shards,
+                   cfg.slice_shards) as mesh:
+        parts = dist_parts(cfg, task, mesh)
+        if params is not None:
+            parts.model.load_full(params)
+        emb = parts.embed()
+        mask = None if mask_epoch is None else parts.drop_mask(mask_epoch)
+        loss = parts.grads(surface_batch(cfg, task) if batch is None else batch, mask)
+        return {"emb": emb, "loss": loss, "aux": parts.aux, "grid": mesh.grid,
+                "grads": {k: parts.model.whole(k, p.grad)
+                          for k, p in parts.model.named_parameters()}}
+
+
+def mesh_mode(steps: dict, preempt: tuple | None = None, fit: tuple | None = None) -> dict:
+    """``whole_step(*args)`` for each of ``steps`` (name: args), then,
+    given ``preempt``, ``preempt_mode(*preempt)``, and given ``fit``,
+    ``fit_mode(*fit)``, in one spawn."""
+    out = {name: whole_step(*args) for name, args in steps.items()}
+    if preempt is not None:
+        out["preempt"] = preempt_mode(*preempt)
+    if fit is not None:
+        out["fit"] = fit_mode(*fit)
+    return out
+
+
+MODES = {"check": check_mode, "mesh": mesh_mode}
 
 
 def _entry(mode: str, rank: int, world: int, tmp_dir: str, args: tuple) -> None:

@@ -4,15 +4,19 @@ Hits@k (``ring_hits_at_k``), raw or CSLS, exact or approximate, and the
 Sinkhorn OT head (``ring_sinkhorn_potentials``, ``ring_sinkhorn_align_loss``)
 of the distributed trainer.
 
-Every set is cut into S blocks, one per shard.  Rank r owns the query and
-candidate blocks of its shards (its chunk: ``per_rank`` blocks, padded
-with trailing zero rows).  At each of the R hops it folds what it holds
-into a running reduction over its own rows (a top-k, a count, a
-log-sum-exp), then passes the held chunk on to rank r + 1 with
-``torch.distributed.batch_isend_irecv`` (``_ring_pass``); after R hops
-every row has met every block.  The callers pass the full tables (every
-rank holds the trainer's all-gathered output); each rank's results are
-all-gathered at the end, so every rank returns the same answer.
+Every set is cut into S blocks, one per shard.  The ring runs in the
+graph group (``dist/mesh.py``): its R = Gr ranks, graph rank r owning the
+query and candidate blocks of its shards (its chunk: ``per_rank`` blocks,
+padded with trailing zero rows).  At each of the R hops it folds what it
+holds into a running reduction over its own rows (a top-k, a count, a
+log-sum-exp), then passes the held chunk on to graph rank r + 1 (by its
+global rank) with ``torch.distributed.batch_isend_irecv``
+(``_ring_pass``); after R hops every row has met every block.  The callers
+pass the full tables (every rank holds the trainer's all-gathered,
+full-width output); each rank's results are all-gathered over the graph
+group at the end, so every rank returns the same answer, and the replicas
+along the feature and slice axes compute the same results in their own
+graph groups.
 
 * Mining and eval fold one distance tile (``train/eval.py::dist_tile``) per
   held block.  Ties go to the lower global candidate index, as
@@ -81,12 +85,14 @@ _INF_BITS = 0x7F800000  # float32 +inf
 
 
 def _rotate(held: tuple[torch.Tensor, ...], mesh: ShardMesh) -> tuple[torch.Tensor, ...]:
-    """Send each tensor of ``held`` to rank r + 1 and take rank r − 1's."""
+    """Send each tensor of ``held`` to the next rank of the graph group and
+    take the previous one's (by their global ranks)."""
     out = tuple(torch.empty_like(t) for t in held)
+    group, nxt, prv = mesh.group("graph"), mesh.peer("graph", 1), mesh.peer("graph", -1)
     ops = []
     for tag, (t, o) in enumerate(zip(held, out)):
-        ops += [dist.P2POp(dist.isend, t.contiguous(), (mesh.rank + 1) % mesh.world, tag=tag),
-                dist.P2POp(dist.irecv, o, (mesh.rank - 1) % mesh.world, tag=tag)]
+        ops += [dist.P2POp(dist.isend, t.contiguous(), nxt, group=group, tag=tag),
+                dist.P2POp(dist.irecv, o, prv, group=group, tag=tag)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return out
@@ -94,23 +100,24 @@ def _rotate(held: tuple[torch.Tensor, ...], mesh: ShardMesh) -> tuple[torch.Tens
 
 def _ring_pass(held: tuple[torch.Tensor, ...], mesh: ShardMesh,
                visit: Callable[[int, tuple], None], home: bool = False) -> tuple:
-    """``visit(src, held)`` at each of the R hops, ``src`` the rank whose
-    chunk is held, the chunk passed on between hops; with ``home`` once
-    more after the last, so each rank ends holding its own chunk (and what
-    the others added to it)."""
-    for hop in range(mesh.world):
-        visit((mesh.rank - hop) % mesh.world, held)
-        if hop < mesh.world - 1 or (home and mesh.world > 1):
+    """``visit(src, held)`` at each of the R hops, ``src`` the graph rank
+    whose chunk is held, the chunk passed on between hops; with ``home``
+    once more after the last, so each rank ends holding its own chunk (and
+    what the others added to it)."""
+    r, world = mesh.graph_rank, mesh.n_graph
+    for hop in range(world):
+        visit((r - hop) % world, held)
+        if hop < world - 1 or (home and world > 1):
             held = _rotate(held, mesh)
     return held
 
 
 def _gather(t: torch.Tensor, mesh: ShardMesh) -> torch.Tensor:
-    """Every rank's ``t`` (equal shapes), concatenated in rank order."""
-    if mesh.world == 1:
+    """Every graph rank's ``t`` (equal shapes), concatenated in rank order."""
+    if mesh.n_graph == 1:
         return t
-    parts = [torch.empty_like(t) for _ in range(mesh.world)]
-    dist.all_gather(parts, t.contiguous())
+    parts = [torch.empty_like(t) for _ in range(mesh.n_graph)]
+    dist.all_gather(parts, t.contiguous(), group=mesh.group("graph"))
     return torch.cat(parts)
 
 
@@ -119,7 +126,7 @@ def _rank_rows(n: int, mesh: ShardMesh) -> tuple[int, int]:
     into S blocks of b rows; the chunk is per_rank·b rows, the last ones
     past n on the last ranks."""
     b = -(-n // mesh.n_shards)
-    return b, mesh.rank * mesh.per_rank * b
+    return b, mesh.graph_rank * mesh.per_rank * b
 
 
 def _valid(n: int, src: int, mesh: ShardMesh) -> int:
@@ -202,7 +209,7 @@ def _ring_hubness_approx(cands: torch.Tensor, q: torch.Tensor, k: int,
     n_q = q.shape[0]
     bq, _ = _rank_rows(n_q, mesh)
     own = _chunk(cands, mesh)
-    nc = _valid(cands.shape[0], mesh.rank, mesh)
+    nc = _valid(cands.shape[0], mesh.graph_rank, mesh)
     init = (torch.tensor(_INF_BITS, dtype=torch.int64) << 32).to(q.device)
     keys = init.expand(nc, k).clone()
     v2 = own.new_zeros((nc, k))
@@ -243,7 +250,7 @@ def ring_knn(q: torch.Tensor, cands: torch.Tensor, exclude: torch.Tensor, k: int
     c = cands.shape[0]
     bc, _ = _rank_rows(c, mesh)
     qs, ex = _chunk(q, mesh), _chunk(exclude, mesh)
-    nq = _valid(q.shape[0], mesh.rank, mesh)
+    nq = _valid(q.shape[0], mesh.graph_rank, mesh)
     held = (_chunk(cands, mesh),)
     if csls_k > 0:
         held += (_ring_hubness(cands, q, csls_k, metric, mesh),)
@@ -302,7 +309,7 @@ def _ring_ranks(q: torch.Tensor, cands: torch.Tensor, d_true: torch.Tensor,
     n = q.shape[0]
     b, r0 = _rank_rows(n, mesh)
     qs, th = _chunk(q, mesh), _chunk(d_true, mesh)
-    nq = _valid(n, mesh.rank, mesh)
+    nq = _valid(n, mesh.graph_rank, mesh)
     held = (_chunk(cands, mesh),)
     if csls_k > 0:
         if approx_k > 0:
@@ -394,7 +401,7 @@ def _ring_solve(lq, rq, l_sq, r_sq, n: int, tau: float, n_iters: int,
                 mesh: ShardMesh) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
     """The rank's chunks of every iterate, ([f_1..f_n], [g_1..g_n]), from
     f = g = 0 and uniform marginals over the n real pairs."""
-    nq, log_m = _valid(n, mesh.rank, mesh), -math.log(n)
+    nq, log_m = _valid(n, mesh.graph_rank, mesh), -math.log(n)
     g = lq.new_zeros(lq.shape[0])
     fs, gs = [], []
     for _ in range(n_iters):
@@ -406,8 +413,8 @@ def _ring_solve(lq, rq, l_sq, r_sq, n: int, tau: float, n_iters: int,
 
 
 def _sum_ranks(t: torch.Tensor, mesh: ShardMesh) -> torch.Tensor:
-    if mesh.world > 1:
-        dist.all_reduce(t)
+    if mesh.n_graph > 1:
+        dist.all_reduce(t, group=mesh.group("graph"))
     return t
 
 
@@ -420,7 +427,7 @@ class _RingSinkhornNLL(torch.autograd.Function):
         n = l.shape[0]
         lq, rq = _chunk(l, mesh), _chunk(r, mesh)
         l_sq, r_sq = sq_norms(lq), sq_norms(rq)
-        nq, log_m = _valid(n, mesh.rank, mesh), -math.log(n)
+        nq, log_m = _valid(n, mesh.graph_rank, mesh), -math.log(n)
         fs, gs = _ring_solve(lq, rq, l_sq, r_sq, n, tau, n_iters, mesh)
         f_last = _ring_update(lq, l_sq, nq, (rq, r_sq, gs[-1]), n, log_m, tau, mesh)
         c_diag = (l_sq + r_sq - 2.0 * (lq * rq).sum(1)).clamp_min(0.0)
@@ -435,7 +442,7 @@ class _RingSinkhornNLL(torch.autograd.Function):
         tau, n, mesh = ctx.tau, ctx.n, ctx.mesh
         k_iters = (len(pots) - 1) // 2
         fs, gs, f_last = pots[:k_iters], pots[k_iters:2 * k_iters], pots[-1]
-        w, nq, log_m = lq.shape[0], _valid(n, mesh.rank, mesh), -math.log(n)
+        w, nq, log_m = lq.shape[0], _valid(n, mesh.graph_rank, mesh), -math.log(n)
         lv = lq[:nq]
 
         def cols(src):  # the share's columns of rank src's chunk (its real rows), their count
@@ -443,7 +450,7 @@ class _RingSinkhornNLL(torch.autograd.Function):
             return slice(src * w, src * w + m), m
 
         # the rank's rows of the cost, against every rank's chunk of r
-        c_raw = lq.new_zeros((nq, mesh.world * w))
+        c_raw = lq.new_zeros((nq, mesh.n_graph * w))
 
         def build(src, held):
             cs, m = cols(src)
@@ -453,7 +460,8 @@ class _RingSinkhornNLL(torch.autograd.Function):
         cost = c_raw.clamp_min(0.0)
         c = grad / (n * tau)
         cbar = torch.zeros_like(cost)
-        cbar[:, mesh.rank * w:mesh.rank * w + nq].diagonal().add_(c)
+        g0 = mesh.graph_rank * w
+        cbar[:, g0:g0 + nq].diagonal().add_(c)
 
         def rows_rev(out, out_bar, b):
             """The reverse of an f-update out = τ(log m − LSE_j((b − C)/τ))

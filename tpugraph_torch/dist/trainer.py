@@ -2,19 +2,35 @@
 (counterpart of ``tpugraph/dist/trainer.py``).
 
 The encoder is ``AlignGCN``'s with one change: each layer's SpMM is the
-halo SpMM over the rank's graph shards (``dist/halo.py``: at R = 1 the
-boundary reads the table's own rows and no exchange runs; at R > 1 the
+halo SpMM over the rank's graph shards (``dist/halo.py``: at Gr = 1 the
+boundary reads the table's own rows and no exchange runs; at Gr > 1 the
 exchange overlaps the local aggregation), with the embedding table split
-by entity range as the shards are (``sparse/partition.py``).  The rest of
-the step is replicated: the encoder's output is all-gathered to every
-rank (the gather's backward keeps the rank's own rows of the gradient,
-with no sum: every rank holds the whole, identical gradient of the loss),
-every rank computes the same margin loss, and the gradients of the
-replicated weights (the layers', the gates', the attribute channel's) are
-summed over the ranks before Adam (``train/optim.py``;
+by entity range as the shards are (``sparse/partition.py``).  The ranks
+form the grid of ``dist/mesh.py`` (slices L, graph ranks Gr, feature ranks
+F; at W = 1 one rank holds every block and the step runs no collective):
+
+* **Tensor parallelism** (F > 1) is the JAX body's column-parallel
+  encoder: each rank holds the f-th column block of the table and of every
+  encoder weight (``DistEncoder``); each layer's input is all-gathered to
+  full width over the feature group (``gather_f``, whose backward sums the
+  cotangent over the feature group and keeps the rank's columns: each
+  rank's GEMM touches only its own columns of W), the rank computes its
+  output columns, and the halo SpMM runs on those d/F columns.
+* **Slices** (L > 1) split the loss: the interval batch is drawn whole on
+  every rank and each slice scores a contiguous stripe of it
+  (``DistParts.slice_loss``); the gradients are summed over the slice
+  group.
+
+The rest of the step is replicated within a slice: the encoder's output
+is gathered to the whole table on every rank (columns over the feature
+group, rows over the graph group; the gather's backward keeps the rank's
+own block, with no sum: every rank holds the whole, identical gradient of
+its slice's loss), every rank computes the same loss, and the gradients of
+the encoder's weights (the layers', the gates', the attribute channel's)
+are summed over the graph group before Adam (``train/optim.py``;
 ``DistParts.sum_grads``).  A reduce-scatter there would count the
-embedding gradient R times.  The gather and the sum are skipped at R = 1,
-as the ring's collectives are, so a step at R = 1 calls no
+embedding gradient Gr times.  The gathers and sums are skipped in a group
+of one rank, as the ring's collectives are, so a step at W = 1 calls no
 ``torch.distributed`` function.
 
 The encoder's options are the JAX ``make_encoder``'s:
@@ -28,7 +44,10 @@ one global (n_pad, hidden) keep mask per epoch: the n real rows drawn as
 the single-device encoder draws its mask (``models/encoder.py::keep_mask``
 from ``loop.step_generator(cfg, epoch)``), the padding rows kept, each
 rank taking its rows, so every R and S sees the mask of the single-device
-run; ``l2_normalize`` divides the fp32 output by its row norm + 1e-8.
+run (under tensor parallelism the mask is full width: it multiplies the
+gathered h); ``l2_normalize`` divides the fp32 output by its row norm +
+1e-8 (under tensor parallelism the row's squared sum is summed over the
+feature group, the JAX ``psum``).
 With ``use_attr_channel`` the GCN-Align attribute (AE) channel runs beside
 it (``DistAttrChannel``: the rank's shard rows of the entity × attribute
 incidence, ``sparse/halo_ell.py::build_attr_incidence_ell``, one
@@ -45,7 +64,8 @@ interval's ``ot_pairs`` (the ring loss
 takes the single-device loss at S = 1, which the ring equals there within
 rounding); the relation and attribute heads
 (``models/heads.py``, parameters ``rel_head.*`` and ``attr_head.*``,
-replicated: every rank holds their whole gradient, so they are not summed).
+replicated: every rank of a slice holds their whole gradient, so they are
+summed over the slices only).
 
 The interval batch is ``train/loop.py::train_loop``'s
 (``loop.IntervalBatch.at_boundary``): at each ``neg_every`` boundary, from
@@ -77,18 +97,22 @@ same steps eagerly.  The saves and evals fall in the JAX fused windows
 
 Checkpoints (``checkpoint_dir``, ``checkpoint_every``;
 ``train/checkpoint.py``) hold the whole parameter set with the gathered
-(n_pad, dim) table, Adam's state with the table's moments gathered, the
+(n_pad, dim) table and full-width weights, Adam's state with its moments
+gathered the same way, the
 schedule, the loss, the row-layout stamp (halo_grouped, kg2_base) and,
 unfused, the interval's batch (negatives, proposals, draws), so a resume
 in the middle of an interval rebuilds the batch it was cut in; a fused
 save, always at an interval's end, carries no batch, and a resume across
-the two modes is refused with the JAX messages.  Rank 0 writes, then the
-ranks meet at a barrier; a restore re-slices the table for this run's R
-(and re-pads it for this run's S), and refuses another layout stamp with
-the JAX messages.  SIGTERM latches ``Checkpointer.preempted`` on the rank
+the two modes is refused with the JAX messages.  Rank 0 of the world
+writes, then the ranks meet at a barrier; a restore cuts each tensor and
+its moments to this run's block (rows and columns, for this run's grid;
+the table re-padded for this run's S), so a run saved on one grid resumes
+on another, and refuses another layout stamp with the JAX messages (F and
+L move no rows).  SIGTERM latches ``Checkpointer.preempted`` on the rank
 it reaches; the ranks agree on the latch once after each interval and
 again after the eval (an ``all_reduce(MAX)``), so all of them save and
-leave the loop at the same epoch.  ``debug_nans`` checks each step's loss,
+leave the loop at the same epoch; these agreements and the barrier run on
+the world group.  ``debug_nans`` checks each step's loss,
 gradients and updated parameters (``train/fused.py::finite_flag``; fused,
 folded into one flag per interval), agreed over the ranks
 (``all_reduce(MIN)``) before any raises, so every rank raises
@@ -98,9 +122,8 @@ inside the backward and leave the others waiting in its collectives.)
 ``profile_dir`` traces epochs start + 2 to start + 5 on rank 0 (the JAX
 window, ``train/loop.py``'s trace file); the other ranks trace nothing.
 
-Refused, with ``NotImplementedError`` naming ROADMAP.md, where they are
-queued (``check_distributed``): tensor parallelism, slices and the grouped
-exchange.
+Refused, with ``NotImplementedError`` naming ROADMAP.md, where it is
+queued (``check_distributed``): the grouped exchange.
 """
 
 from __future__ import annotations
@@ -118,7 +141,7 @@ from tpugraph_torch.dist.halo import HaloOperator, halo_spmm, halo_spmm_ell
 from tpugraph_torch.dist.mesh import ShardMesh, make_mesh, shard_operator
 from tpugraph_torch.dist.ring import ring_hits_at_k, ring_knn, ring_sinkhorn_align_loss
 from tpugraph_torch.kernels.spmm_ell import spmm_ell
-from tpugraph_torch.models.align import table_losses
+from tpugraph_torch.models.align import table_losses, weighted_loss
 from tpugraph_torch.models.attr_channel import combine_channels, init_attr_channel_params
 from tpugraph_torch.models.encoder import _COMPUTE_DTYPES, dropout, keep_mask
 from tpugraph_torch.models.encoder import init_params as single_device_init
@@ -142,8 +165,6 @@ from tpugraph_torch.train.optim import load_optimizer_state, make_optimizer, opt
 
 # what the port's distributed trainer does not do yet, in ROADMAP.md's order
 UNPORTED = (
-    ("feature_shards > 1 (tensor parallelism)", lambda c: c.feature_shards > 1),
-    ("slice_shards > 1", lambda c: c.slice_shards > 1),
     ("halo_grouped", lambda c: c.halo_grouped),
 )
 
@@ -200,25 +221,96 @@ def init_params(n_rows: int, n_pad: int, dim: int, hidden: int | None = None,
 
 
 class _GatherRows(torch.autograd.Function):
-    """The rank's rows -> every rank's rows; the backward keeps the rank's
-    own rows of the (replicated) gradient."""
+    """The rank's rows -> every graph rank's rows; the backward keeps the
+    rank's own rows of the (replicated) gradient."""
 
     @staticmethod
     def forward(ctx, x, mesh):
         ctx.mesh, ctx.rows = mesh, x.shape[0]
-        parts = [torch.empty_like(x) for _ in range(mesh.world)]
-        dist.all_gather(parts, x.contiguous())
+        parts = [torch.empty_like(x) for _ in range(mesh.n_graph)]
+        dist.all_gather(parts, x.contiguous(), group=mesh.group("graph"))
         return torch.cat(parts)
 
     @staticmethod
     def backward(ctx, g):
-        r0 = ctx.mesh.rank * ctx.rows
+        r0 = ctx.mesh.graph_rank * ctx.rows
         return g[r0:r0 + ctx.rows].contiguous(), None
 
 
+class _GatherCols(torch.autograd.Function):
+    """The rank's column block -> the full width (an ``all_gather`` over
+    the feature group along the last dim).  The backward keeps the rank's
+    own columns; with ``reduce`` it first sums the cotangent over the
+    feature group (a reduce-scatter, in fp32): a layer input, whose every
+    feature rank's GEMM touches only its own columns of W.  Without it the
+    cotangent is the replicated loss's, whole on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, reduce):
+        ctx.mesh, ctx.reduce, ctx.cols = mesh, reduce, x.shape[-1]
+        parts = [torch.empty_like(x) for _ in range(mesh.n_feature)]
+        dist.all_gather(parts, x.contiguous(), group=mesh.group("feature"))
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.reduce:
+            total = g.to(torch.float32, copy=True)
+            dist.all_reduce(total, group=ctx.mesh.group("feature"))
+            g = total.to(g.dtype)
+        c0 = ctx.mesh.feature_rank * ctx.cols
+        return g[..., c0:c0 + ctx.cols].contiguous(), None, None
+
+
+def gather_f(x: torch.Tensor, mesh: ShardMesh) -> torch.Tensor:
+    """A layer input at full width from the rank's column block (the JAX
+    ``gather_f``: an ``all_gather`` over the feature group whose backward
+    is a reduce-scatter); x itself at F = 1."""
+    return x if mesh.n_feature == 1 else _GatherCols.apply(x, mesh, True)
+
+
 def gather_rows(x: torch.Tensor, mesh: ShardMesh) -> torch.Tensor:
-    """Every rank's rows of x (x itself at R = 1: no collective)."""
-    return x if mesh.world == 1 else _GatherRows.apply(x, mesh)
+    """The whole table from the rank's block of it: its columns gathered
+    over the feature group, then its rows over the graph group; the
+    backward keeps the rank's own block and sums nothing.  x itself at
+    Gr = F = 1: no collective."""
+    if mesh.n_feature > 1:
+        x = _GatherCols.apply(x, mesh, False)
+    return x if mesh.n_graph == 1 else _GatherRows.apply(x, mesh)
+
+
+class _SumFeature(torch.autograd.Function):
+    """A per-row partial sum -> its sum over the feature group (the JAX
+    ``psum`` over 'feature'); each rank's cotangent is its own share of the
+    sum's, so the backward sums them too."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        x = x.clone()
+        dist.all_reduce(x, group=mesh.group("feature"))
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.mesh.group("feature"))
+        return g, None
+
+
+class _Whole(torch.autograd.Function):
+    """The slice's share of a value -> ``whole``, the shares' sum over the
+    slice group (computed by the caller); the backward passes the gradient
+    to the share: each slice backpropagates its own share, and
+    ``DistParts.sum_grads`` sums the gradients over the slices."""
+
+    @staticmethod
+    def forward(ctx, share, whole):
+        return whole.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 class _CastMatmul(torch.autograd.Function):
@@ -255,7 +347,9 @@ class HaloConv(nn.Module):
     """A GCN layer over the rank's shards: halo(x·W) + b, the JAX
     layer's order (``graphconv``'s sorted path), in x's type (W and b
     cast at use; in bf16 their gradients summed in fp32: ``_CastMatmul``,
-    ``_CastBias``)."""
+    ``_CastBias``).  Under tensor parallelism W and b are the rank's output
+    column block (``out_dim`` = the layer's width / F) and x is the
+    full-width input: column-parallel, as the JAX layer."""
 
     def __init__(self, in_dim: int, out_dim: int, device=None):
         super().__init__()
@@ -271,26 +365,35 @@ class HaloConv(nn.Module):
 
 class DistAttrChannel(nn.Module):
     """The attribute (AE) channel over the rank's shards, with
-    ``AttrChannelGCN``'s parameters ``attr_emb`` (replicated), ``gc1`` and
+    ``AttrChannelGCN``'s parameters ``attr_emb`` (replicated over the
+    graph ranks; a column block under tensor parallelism), ``gc1`` and
     ``gc2``: each shard's rows of the incidence (``inc``, one
-    ``EllOperator`` per shard of the rank) times ``attr_emb``, then two
-    halo layers over the structure's operator."""
+    ``EllOperator`` per shard of the rank) times ``attr_emb``, gathered to
+    full width, then two halo layers over the structure's operator."""
 
-    def __init__(self, inc: list[EllOperator], n_attr: int, dim: int, device=None):
+    def __init__(self, inc: list[EllOperator], n_attr: int, dim: int, cols: int, device=None):
         super().__init__()
         self.inc = inc
-        self.attr_emb = nn.Parameter(torch.empty(n_attr, dim, device=device))
-        self.gc1 = HaloConv(dim, dim, device=device)
-        self.gc2 = HaloConv(dim, dim, device=device)
+        self.attr_emb = nn.Parameter(torch.empty(n_attr, cols, device=device))
+        self.gc1 = HaloConv(dim, cols, device=device)
+        self.gc2 = HaloConv(dim, cols, device=device)
 
     def forward(self, op: HaloOperator, dtype: torch.dtype) -> torch.Tensor:
+        mesh = op.mesh
         # a cast per shard: the shards' gradients of attr_emb add up in fp32
-        x0 = torch.cat([spmm_ell(m, self.attr_emb.to(dtype)) for m in self.inc])
-        return self.gc2(torch.relu(self.gc1(x0, op)), op).float()
+        x0 = gather_f(torch.cat([spmm_ell(m, self.attr_emb.to(dtype)) for m in self.inc]), mesh)
+        ah = gather_f(torch.relu(self.gc1(x0, op)), mesh)
+        return self.gc2(ah, op).float()
 
 
 # the parameters of the heads, whose gradient every rank holds whole
 HEADS = ("rel_head.", "attr_head.")
+
+
+def column_split(name: str) -> bool:
+    """Whether a rank holds a column block of parameter ``name`` (its last
+    dim split over the feature group): every one but the heads'."""
+    return not name.startswith(HEADS)
 
 
 class DistEncoder(nn.Module):
@@ -301,7 +404,11 @@ class DistEncoder(nn.Module):
     ``n_rel`` or ``n_attr`` the heads ``rel_head`` and ``attr_head``
     (``AlignMTL``'s names), which read the gathered table; with ``inc``
     (the attribute incidence's shard operators) the AE channel
-    ``ae_encoder`` over ``n_attr_channel`` attributes."""
+    ``ae_encoder`` over ``n_attr_channel`` attributes.  Under tensor
+    parallelism (F = ``op.mesh.n_feature`` > 1) the rank holds the f-th
+    column block of every parameter but the heads' (``column_split``):
+    ``emb`` (rows, dim/F), W (in, out/F), b (out/F,), ``attr_emb`` (n_attr,
+    dim/F); the heads stay whole."""
 
     def __init__(self, op: HaloOperator, dim: int = 128, hidden: int | None = None,
                  highway: bool = False, device=None, n_rel: int = 0, n_attr: int = 0,
@@ -310,17 +417,18 @@ class DistEncoder(nn.Module):
                  n_attr_channel: int = 0):
         super().__init__()
         hidden = hidden or dim
+        n_f = op.mesh.n_feature
         self.op = op
         self.cdt = _COMPUTE_DTYPES[compute_dtype]
         self.dropout, self.l2_normalize = dropout, l2_normalize
-        self.emb = nn.Parameter(torch.empty(op.n_rows, dim, device=device))
-        self.gc1 = HaloConv(dim, hidden, device=device)
-        self.gc2 = HaloConv(hidden, dim, device=device)
-        self.hw1 = Highway(dim, device=device) if highway else None
-        self.hw2 = Highway(dim, device=device) if highway else None
+        self.emb = nn.Parameter(torch.empty(op.n_rows, dim // n_f, device=device))
+        self.gc1 = HaloConv(dim, hidden // n_f, device=device)
+        self.gc2 = HaloConv(hidden, dim // n_f, device=device)
+        self.hw1 = Highway(dim, device=device, cols=dim // n_f) if highway else None
+        self.hw2 = Highway(dim, device=device, cols=dim // n_f) if highway else None
         self.rel_head = RelationHead(n_rel, dim, device) if n_rel else None
         self.attr_head = AttributeHead(dim, n_attr, device) if n_attr else None
-        self.ae_encoder = (DistAttrChannel(inc, n_attr_channel, dim, device)
+        self.ae_encoder = (DistAttrChannel(inc, n_attr_channel, dim, dim // n_f, device)
                            if inc is not None else None)
 
     @property
@@ -329,38 +437,64 @@ class DistEncoder(nn.Module):
 
     def forward(self, mask: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
-        """The rank's rows of the encoder output (fp32) and of the AE
+        """The rank's block of the encoder output (fp32) and of the AE
         channel's (None without it); ``mask``: the rank's rows of the
-        epoch's keep mask (a training step with dropout)."""
-        x = self.emb.to(self.cdt)
-        h = torch.relu(self.gc1(x, self.op))
+        epoch's keep mask, full width (a training step with dropout).  The
+        JAX body's order: each layer's input gathered to full width, the
+        highway gates reading it and mixing the rank's columns, the mask on
+        the gathered h."""
+        mesh = self.op.mesh
+        x_c = self.emb.to(self.cdt)
+        x = gather_f(x_c, mesh)
+        h_c = torch.relu(self.gc1(x, self.op))
         if self.hw1 is not None:
-            h = self.hw1(x, h)
+            h_c = self.hw1(x, h_c, mix=x_c)
+        h = gather_f(h_c, mesh)
         h_in = h if mask is None else dropout(h, self.dropout, None, mask=mask)
         h2 = self.gc2(h_in, self.op)
         if self.hw2 is not None:
-            h2 = self.hw2(h, h2)  # the gate reads the unmasked h
+            h2 = self.hw2(h, h2, mix=h_c)  # the gate reads the unmasked h
         se = h2.float()
-        if self.l2_normalize:
+        if self.l2_normalize and mesh.n_feature == 1:
             se = se / (torch.linalg.vector_norm(se, dim=-1, keepdim=True) + 1e-8)
+        elif self.l2_normalize:  # the row's squared sum over its column blocks
+            ss = _SumFeature.apply((se * se).sum(-1, keepdim=True), mesh)
+            se = se / (torch.sqrt(ss) + 1e-8)
         ae = None if self.ae_encoder is None else self.ae_encoder(self.op, self.cdt)
         return se, ae
+
+    def block(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The rank's block of a whole tensor of parameter ``name`` (or of
+        its Adam moments): the table's rows, and the f-th column block of
+        every parameter but the heads'."""
+        if name == "emb":
+            t = t[self.first_row:self.first_row + self.emb.shape[0]]
+        if column_split(name) and self.op.mesh.n_feature > 1:
+            c = t.shape[-1] // self.op.mesh.n_feature
+            t = t[..., self.op.mesh.feature_rank * c:(self.op.mesh.feature_rank + 1) * c]
+        return t
+
+    def whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of parameter ``name`` from the rank's block of
+        it (the inverse of ``block``; a collective: every rank calls it)."""
+        mesh = self.op.mesh
+        with torch.no_grad():
+            if name == "emb":
+                return gather_rows(t, mesh)
+            if column_split(name) and mesh.n_feature > 1:
+                return _GatherCols.apply(t, mesh, False)
+        return t
 
     def load_full(self, params: dict[str, torch.Tensor]) -> None:
         """Load a whole parameter set (``init_params``, ``full_state``, or
         ``convert.params_from_jax`` of the JAX trainer's tree), keeping the
-        rank's rows of its table."""
-        rows = self.emb.shape[0]
-        state = {**params, "emb": params["emb"][self.first_row:self.first_row + rows]}
-        self.load_state_dict(state)
+        rank's block of each."""
+        self.load_state_dict({k: self.block(k, v) for k, v in params.items()})
 
     def full_state(self) -> dict[str, torch.Tensor]:
-        """The state dict with the whole (n_pad, dim) table, on every rank
-        (a collective: every rank calls it)."""
-        state = {k: v.detach() for k, v in self.state_dict().items()}
-        with torch.no_grad():
-            state["emb"] = gather_rows(self.emb.detach(), self.op.mesh)
-        return state
+        """The whole state dict, the (n_pad, dim) table and the full-width
+        weights, on every rank (a collective: every rank calls it)."""
+        return {k: self.whole(k, v.detach()) for k, v in self.state_dict().items()}
 
 
 @dataclass
@@ -398,7 +532,7 @@ class DistParts:
         if cfg.dropout <= 0.0:
             return None
         dev, model = self.op.mesh.device, self.model
-        n_pad, hidden = self.hg.n_loc * self.hg.n_shards, model.gc1.w.shape[1]
+        n_pad, hidden = self.hg.n_loc * self.hg.n_shards, cfg.hidden or cfg.dim
         full = torch.ones((n_pad, hidden), dtype=torch.bool, device=dev)
         full[:self.n_real] = keep_mask((self.n_real, hidden), cfg.dropout, gen, dev)
         return full[model.first_row:model.first_row + model.emb.shape[0]]
@@ -420,27 +554,77 @@ class DistParts:
              mask: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
         """(loss, its terms): ``models/align.py::table_losses`` of ``batch``
         (``AlignMTL.forward``'s keys) on the table, with the ring OT, and
-        with the AE channel ``attr_channel_weight`` × its margin."""
+        with the AE channel ``attr_channel_weight`` × its margin.  Across L
+        > 1 slice ranks, the rank's slice's share of it (``slice_loss``),
+        whose value is the whole loss."""
         cfg, mesh = self.cfg, self.op.mesh
+        se, ae = self.tables(mask)
+        batch = {**batch, "rel_triples": self.rel_triples}
+        if mesh.n_slice > 1:
+            return self.slice_loss(se, ae, batch)
 
         def ot(emb, pairs, **kw):
             return ring_sinkhorn_align_loss(emb, pairs, mesh, **kw)
 
-        se, ae = self.tables(mask)
-        loss, aux = table_losses(cfg, se, {**batch, "rel_triples": self.rel_triples},
-                                 self.model.rel_head, self.model.attr_head, ot)
+        _, aux = table_losses(cfg, se, batch, self.model.rel_head, self.model.attr_head, ot)
         if ae is not None:
             aux["ae"] = margin_align_loss(ae, batch.get("pairs_aug", batch["pairs"]),
                                           batch["neg_l"], batch["neg_r"], cfg.gamma,
                                           batch.get("w"))
-            loss = loss + cfg.attr_channel_weight * aux["ae"]
-        return loss, aux
+        return weighted_loss(cfg, aux), aux
+
+    def slice_loss(self, se: torch.Tensor, ae: torch.Tensor | None,
+                   batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, dict]:
+        """The rank's slice's share of ``loss``: ``table_losses`` (and the
+        AE channel's margin) on the batch with each leaf that JAX's
+        ``shard_slice`` stripes cut to the slice's contiguous stripe
+        (``_stripe``: the margin's pairs, weights and negatives, the
+        relation triples with their corruptions, the attribute batch; the
+        OT pairs stay whole), each term, a mean over its leaf's rows, times
+        its stripe's share of the whole batch (``share``).  What is computed
+        whole (the ring OT, a leaf L does not divide) counts on slice 0
+        alone, so that it counts once in the gradient summed over the
+        slices.  The value returned is the whole loss (the shares summed
+        over the slice group; its gradient the share's), and the terms are
+        whole."""
+        cfg, mesh = self.cfg, self.op.mesh
+        first = mesh.slice_rank == 0
+        whole = {**batch, "ot_pairs": batch.get("ot_pairs", batch["pairs"])}
+        rows = {k: None if k == "ot_pairs" or v is None else _stripe(v.shape[0], mesh)
+                for k, v in whole.items()}
+        part = {k: v if rows[k] is None else v[rows[k]] for k, v in whole.items()}
+        pk = "pairs_aug" if "pairs_aug" in whole else "pairs"
+
+        def share(key: str):
+            """The stripe's share of a mean over leaf ``key``'s rows (of the
+            margin's over the weights, with weights); for a whole leaf 1 on
+            slice 0, 0 elsewhere."""
+            r, w = rows[key], whole.get("w")
+            if r is None:
+                return float(first)
+            if key == pk and w is not None:
+                return w[r].sum() / w.sum().clamp_min(1e-9)
+            return (r.stop - r.start) / whole[key].shape[0]
+
+        def ot(emb, pairs, **kw):  # whole, on slice 0 alone
+            return ring_sinkhorn_align_loss(emb, pairs, mesh, **kw) if first else se[:0].sum()
+
+        _, aux = table_losses(cfg, se, part, self.model.rel_head, self.model.attr_head, ot)
+        if ae is not None:
+            aux["ae"] = margin_align_loss(ae, part[pk], part["neg_l"], part["neg_r"], cfg.gamma,
+                                          part.get("w"))
+        of = {"margin": pk, "ae": pk, "rel": "rel_neg_t", "attr": "attr_triples"}
+        aux = {k: v * share(of[k]) if k in of else v for k, v in aux.items()}
+        loss = weighted_loss(cfg, aux)
+        summed = torch.stack([loss.detach(), *(v.detach() for v in aux.values())])
+        dist.all_reduce(summed, group=mesh.group("slice"))
+        return _Whole.apply(loss, summed[0]), dict(zip(aux, summed[1:]))
 
     def grads(self, batch: dict[str, torch.Tensor],
               mask: torch.Tensor | None = None) -> torch.Tensor:
-        """One step's loss (its terms in ``aux``) and gradients: the
-        encoder's replicated weights' summed over the ranks, the table's the
-        rank's own rows, the heads' whole on every rank."""
+        """One step's loss (its terms in ``aux``) and gradients
+        (``sum_grads``): the table's the rank's own block, the encoder's
+        weights' the rank's column blocks, the heads' whole on every rank."""
         self.model.zero_grad(set_to_none=True)
         loss, aux = self.loss(batch, mask)
         loss.backward()
@@ -449,16 +633,38 @@ class DistParts:
         return loss.detach()
 
     def sum_grads(self) -> None:
-        """Sum the encoder's replicated weights' gradients over the ranks
-        (one ``all_reduce``; nothing at R = 1)."""
-        if self.op.mesh.world == 1:
-            return
-        shared = [p for n, p in self.model.named_parameters()
-                  if n != "emb" and not n.startswith(HEADS)]
-        flat = torch.cat([p.grad.reshape(-1) for p in shared])
-        dist.all_reduce(flat)
-        for p, g in zip(shared, flat.split([p.numel() for p in shared])):
-            p.grad.copy_(g.view_as(p))
+        """Sum the gradients over the grid (nothing at W = 1): the
+        encoder's weights' column blocks over the graph group (each graph
+        rank computed them from its rows; never over the feature group,
+        whose ranks hold other columns), then every parameter's over the
+        slice group (each slice computed its share of the loss).  One
+        ``all_reduce`` each."""
+        mesh = self.op.mesh
+        named = list(self.model.named_parameters())
+        if mesh.n_graph > 1:
+            _sum_grads([p for n, p in named if n != "emb" and column_split(n)],
+                       mesh.group("graph"))
+        if mesh.n_slice > 1:
+            _sum_grads([p for _, p in named], mesh.group("slice"))
+
+
+def _sum_grads(params: list[nn.Parameter], group) -> None:
+    """Each parameter's gradient summed over ``group`` (one flat
+    ``all_reduce``)."""
+    flat = torch.cat([p.grad.reshape(-1) for p in params])
+    dist.all_reduce(flat, group=group)
+    for p, g in zip(params, flat.split([p.numel() for p in params])):
+        p.grad.copy_(g.view_as(p))
+
+
+def _stripe(n: int, mesh: ShardMesh) -> slice | None:
+    """The rank's slice's contiguous stripe of a leaf of n rows (JAX's
+    ``shard_slice``); None where L does not divide n: the leaf stays
+    whole."""
+    if n % mesh.n_slice:
+        return None
+    m = n // mesh.n_slice
+    return slice(mesh.slice_rank * m, (mesh.slice_rank + 1) * m)
 
 
 def dist_parts(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh,
@@ -506,38 +712,36 @@ def _pad_rows(t: torch.Tensor, n: int, n_pad: int) -> torch.Tensor:
     return torch.cat([t[:n], t.new_zeros((n_pad - n,) + tuple(t.shape[1:]))])
 
 
-def _emb_index(model: DistEncoder) -> int:
-    """The table's place among the optimizer's parameters."""
-    return [n for n, _ in model.named_parameters()].index("emb")
-
-
 def _full_optimizer_state(opt: torch.optim.Adam, model: DistEncoder) -> dict:
-    """``optimizer_state`` with the table's moments gathered to the whole
-    table (a collective)."""
+    """``optimizer_state`` with each parameter's moments whole: the
+    table's gathered over rows and columns, the weights' over columns (a
+    collective)."""
     sd = optimizer_state(opt)
-    i = _emb_index(model)
-    if i in sd["state"]:
-        st = dict(sd["state"][i])
-        with torch.no_grad():
-            for key in ("exp_avg", "exp_avg_sq"):
-                st[key] = gather_rows(st[key], model.op.mesh)
-        sd["state"] = {**sd["state"], i: st}
-    return sd
+    names = [n for n, _ in model.named_parameters()]
+    state = {}
+    for i, st in sd["state"].items():
+        st = dict(st)
+        for key in ("exp_avg", "exp_avg_sq"):
+            st[key] = model.whole(names[i], st[key])
+        state[i] = st
+    return {**sd, "state": state}
 
 
 def _load_rank_state(model: DistEncoder, opt: torch.optim.Adam, state: dict, n: int,
                      n_pad: int) -> None:
     """A checkpoint's parameters and Adam state into this rank: the table
-    and its moments re-padded to n_pad rows and cut to the rank's."""
+    and its moments re-padded to n_pad rows, then each parameter and its
+    moments cut to the rank's block (``DistEncoder.block``)."""
     model.load_full({**state["model"], "emb": _pad_rows(state["model"]["emb"], n, n_pad)})
-    sd, i = state["opt"], _emb_index(model)
-    if i in sd["state"]:
-        rows = slice(model.first_row, model.first_row + model.emb.shape[0])
-        st = dict(sd["state"][i])
+    sd, names = state["opt"], [n_ for n_, _ in model.named_parameters()]
+    rank_state = {}
+    for i, st in sd["state"].items():
+        st = dict(st)
         for key in ("exp_avg", "exp_avg_sq"):
-            st[key] = _pad_rows(st[key], n, n_pad)[rows]
-        sd = {**sd, "state": {**sd["state"], i: st}}
-    load_optimizer_state(opt, sd)
+            t = _pad_rows(st[key], n, n_pad) if names[i] == "emb" else st[key]
+            st[key] = model.block(names[i], t)
+        rank_state[i] = st
+    load_optimizer_state(opt, {**sd, "state": rank_state})
 
 
 def check_layout(cfg: TrainConfig, state: dict, kg2_base: int) -> None:
@@ -589,7 +793,7 @@ def fit_distributed(cfg: TrainConfig, task: AlignTask | None = None, verbose: bo
     dev = resolve_device(device)
     task = task or load_task(cfg)
     check_distributed(cfg, task)
-    with make_mesh(cfg.n_shards, dev) as mesh:
+    with make_mesh(cfg.n_shards, dev, cfg.feature_shards, cfg.slice_shards) as mesh:
         return _fit(cfg, task, mesh, verbose, debug_nans)
 
 

@@ -47,7 +47,7 @@ from tpugraph_torch.kernels import _build
 from tpugraph_torch.kernels.spmm_ell import segment_scratch
 from tpugraph_torch.sparse.graph import PaddedEdges, SpMMOperator
 
-SUPPORTED_DIMS = (128, 256)  # csrc/spmm_sorted.cu template instances
+SUPPORTED_DIMS = (64, 128, 256)  # csrc/spmm_sorted.cu template instances
 # The work table's two constants, chosen on an H100 at zh-en scale (the
 # sweep in PERF.md §6): caps of 64/96/128/192 edges by packings of 32/64/128
 # slots; 96 and 32 were best, or within noise of it, at d = 128 and on the

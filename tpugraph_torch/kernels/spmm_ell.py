@@ -44,7 +44,7 @@ TILE_ROWS = 32  # kTileRows in csrc/gcn_fused.cu
 TILE_SLOTS = 1024  # target ELL slots per tile: large-K buckets get fewer rows
 SEG_SLOTS = 128  # longest run of one row's ELL slots in one SpMM work item
 PACK_VSLOTS = 64  # virtual slots (K + 1 per row) of a packed SpMM item: two chunks
-SUPPORTED_DIMS = (128, 256)  # csrc/spmm_ell.cu template instances
+SUPPORTED_DIMS = (64, 128, 256)  # csrc/spmm_ell.cu template instances
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the process started (or the caller last reset it)

@@ -87,21 +87,33 @@ def table_losses(cfg: TrainConfig, emb: torch.Tensor, batch: dict,
     ``sinkhorn_align_loss``; the distributed trainer passes the ring loss)
     and the heads given, weighted; returns (loss, {"margin", ["sinkhorn"],
     ["rel"], ["attr"]})."""
-    loss = margin_align_loss(emb, batch.get("pairs_aug", batch["pairs"]), batch["neg_l"],
-                             batch["neg_r"], cfg.gamma, batch.get("w"))
-    aux = {"margin": loss}
+    aux = {"margin": margin_align_loss(emb, batch.get("pairs_aug", batch["pairs"]),
+                                       batch["neg_l"], batch["neg_r"], cfg.gamma, batch.get("w"))}
     if cfg.use_sinkhorn:
         aux["sinkhorn"] = (ot_loss or sinkhorn_align_loss)(
             emb, batch.get("ot_pairs", batch["pairs"]), tau=cfg.sinkhorn_tau,
             n_iters=cfg.sinkhorn_iters)
-        loss = loss + cfg.sinkhorn_weight * aux["sinkhorn"]
     if rel_head is not None:
         aux["rel"] = rel_head(emb, batch["rel_triples"], batch["rel_neg_t"], batch["rel_neg_h"])
-        loss = loss + cfg.rel_weight * aux["rel"]
     if attr_head is not None:
         aux["attr"] = attr_head(emb, batch["attr_triples"])
-        loss = loss + cfg.attr_weight * aux["attr"]
-    return loss, aux
+    return weighted_loss(cfg, aux), aux
+
+
+# each term's weight in the config; the margin's is 1
+LOSS_WEIGHTS = {"sinkhorn": "sinkhorn_weight", "rel": "rel_weight", "attr": "attr_weight",
+                "ae": "attr_channel_weight"}
+
+
+def weighted_loss(cfg: TrainConfig, aux: dict) -> torch.Tensor:
+    """The loss of its terms ``aux`` (``table_losses``'s, and the AE
+    channel's "ae"): the margin plus each other term times its weight, in
+    ``aux``'s order."""
+    loss = aux["margin"]
+    for k, v in aux.items():
+        if k != "margin":
+            loss = loss + getattr(cfg, LOSS_WEIGHTS[k]) * v
+    return loss
 
 
 def init_mtl_params(cfg: TrainConfig, n_ent: int, n_rel: int = 0, n_attr: int = 0,

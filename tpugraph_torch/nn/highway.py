@@ -15,13 +15,19 @@ from torch import nn
 
 class Highway(nn.Module):
     """Parameters ``w`` (dim, dim) and ``b`` (dim,), the flax tree's
-    ``hw1``/``hw2`` leaves."""
+    ``hw1``/``hw2`` leaves; with ``cols`` a column block of them, (dim,
+    cols) and (cols,), as a tensor-parallel rank holds them."""
 
-    def __init__(self, dim: int, device: torch.device | str | None = None):
+    def __init__(self, dim: int, device: torch.device | str | None = None,
+                 cols: int | None = None):
         super().__init__()
-        self.w = nn.Parameter(torch.empty(dim, dim, device=device))
-        self.b = nn.Parameter(torch.zeros(dim, device=device))
+        cols = cols or dim
+        self.w = nn.Parameter(torch.empty(dim, cols, device=device))
+        self.b = nn.Parameter(torch.zeros(cols, device=device))
 
-    def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, h: torch.Tensor,
+                mix: torch.Tensor | None = None) -> torch.Tensor:
+        """The gate reads the full-width x; it mixes h with ``mix`` (by
+        default x; a tensor-parallel rank's own columns of x)."""
         t = torch.sigmoid(x @ self.w.to(x.dtype) + self.b.to(x.dtype))
-        return t * h + (1.0 - t) * x
+        return t * h + (1.0 - t) * (x if mix is None else mix)
