@@ -190,15 +190,24 @@ Phases, each printing one JSON line:
              same one-rank group, which holds every feature block and
              slice: one step at d 128 and one v7r step at d 256 equal to the
              F = L = 1 steps bit for bit with the same launches, no
-             ``nccl`` event in the d-128 step's trace, its time by events
-             within 0.97–1.03 of the F = L = 1 step's; phase 21 A's run at
-             F = L = 2 through ``driver.run`` equal to it (each loss, the
-             final loss, the launches), and cut by SIGTERM and resumed at
-             F = L = 1, equal to it too; then ``spmm_ell`` and
+             ``nccl`` event in the d-128 step's trace; then ``spmm_ell`` and
              ``spmm_sorted`` at a tensor-parallel rank's width (d/F = 64)
              on the rank's stacked operators against their plain versions.
 
-23. dist_fused — ``dwy100k_dist`` at full width on the same one-rank
+23. dist_grouped — the grouped halo exchange (``halo_grouped``) on
+             ``dwy100k_dist`` at full width on the same one-rank group: at
+             the config's identity remap one d-128 step grouped equal to
+             the ungrouped step bit for bit in ell and in sorted (output,
+             loss, gradients, launches), the two steps' times by events; at
+             99,998 entities a KG (KG2 moved by 2 rows) the two steps from
+             the same parameters by entity within PERF.md §2's fp32 limits;
+             phase 21 A's run grouped, equal to it; that run cut by SIGTERM
+             and resumed grouped, equal to it; the resume without
+             ``halo_grouped`` refused by the layout stamp; ``spmm_ell`` and
+             ``spmm_sorted`` on the moved task's grouped rank operators
+             against their plain versions, timed.
+
+24. dist_fused — ``dwy100k_dist`` at full width on the same one-rank
              group.  The R = 1 step at d 128 fp32 (``DIST_CUTS``): its
              launches in ell and sorted, its time by events beside the
              15.8 ms of the step through the exchange (PERF.md §5) and the
@@ -254,7 +263,7 @@ from tpugraph_torch.cli.main import main as cli_main
 from tpugraph_torch.dist.halo import exchange, halo_spmm_ell
 from tpugraph_torch.dist.mesh import make_mesh, shard_operator
 from tpugraph_torch.dist.ring import ring_hits_at_k, ring_knn, ring_sinkhorn_align_loss
-from tpugraph_torch.dist.trainer import dist_parts
+from tpugraph_torch.dist.trainer import RowLayout, dist_parts
 from tpugraph_torch.kernels import _build, gcn_fused, shortlist_dist, sinkhorn_fused, spmm_ell
 from tpugraph_torch.kernels import spmm as spmm_mod
 from tpugraph_torch.kernels.spmm import SEG_EDGES, segment_spmm, sorted_spmm, spmm_xla
@@ -3442,8 +3451,6 @@ def phase_dist_options(smi: str, dev: torch.device, exact_stages: dict) -> dict:
 # the grid asked for: two feature blocks and two slices; one rank of one
 # card holds every block (W = 1), so its step is the F = L = 1 step
 DIST_MESH = {"feature_shards": 2, "slice_shards": 2}
-MESH_STEP_RATIO = (0.97, 1.03)  # the F = L = 2 step's time over the F = L = 1 step's
-MESH_SIGTERM_STEP = 3  # the cut run stops after epoch 2, in the v7r run's second interval
 
 
 def _mesh_step_pair(task, cfg, batch, dev) -> dict:
@@ -3469,21 +3476,18 @@ def _mesh_step_pair(task, cfg, batch, dev) -> dict:
                 "launches": {k: v for k, v in t_launched.items() if v}}
 
 
-def phase_dist_mesh(smi: str, dev: torch.device, leg_a: dict) -> dict:
+def phase_dist_mesh(smi: str, dev: torch.device) -> dict:
     """Tensor parallelism and slices (``DIST_MESH``) on ``dwy100k_dist`` at
     full width, on the NCCL group of one rank, which holds every feature
-    block and slice: one step at d 128 (``DIST_CUTS``, ``_dist_batch``) and
-    one v7r step at d 256 (phase 20's cuts, ``mp_worker.surface_batch``),
-    each equal to its F = L = 1 step bit for bit with the same launches;
-    a profiler trace of the d-128 step (no ``nccl`` event); its time by
-    events beside the F = L = 1 step's, interleaved, within
-    ``MESH_STEP_RATIO``; phase 21 A's approximate v7r run through
-    ``driver.run`` at F = L = 2, each loss and the final loss equal to that
-    run's; the same run with checkpoints stopped by SIGTERM during its
-    ``MESH_SIGTERM_STEP``-th step and resumed at F = L = 1, equal to it too.
-    Then the kernels at a tensor-parallel rank's width (d/F = 64) on the
-    rank's stacked operators: ``spmm_ell`` fp32 and bf16, ``spmm_sorted``,
-    against their plain versions."""
+    block and slice (the grid (1, 1, 1), no subgroup): one step at d 128
+    (``DIST_CUTS``, ``_dist_batch``) and one v7r step at d 256 (phase 20's
+    cuts, ``mp_worker.surface_batch``), each equal to its F = L = 1 step
+    bit for bit with the same launches; a profiler trace of the d-128 step
+    (no ``nccl`` event).  Then the kernels at a tensor-parallel rank's
+    width (d/F = 64) on the rank's stacked operators: ``spmm_ell`` fp32 and
+    bf16, ``spmm_sorted``, against their plain versions.  (Leg A's run at
+    F = L = 2 and its cut and resume, and the interleaved step timing,
+    replayed phase 21 A's code on one card; they are not run.)"""
     t_leg = time.perf_counter()
     cfg = get_config("dwy100k_dist", **DIST_CUTS)
     task = load_task(cfg)
@@ -3497,17 +3501,9 @@ def phase_dist_mesh(smi: str, dev: torch.device, leg_a: dict) -> dict:
     if not events or found:
         raise AssertionError(f"the F = L = 2 step's device events: {len(events)}, of a "
                              f"collective {found}")
-    rounds = []  # F = L = 1, F = L = 2, F = L = 2, F = L = 1
-    for _ in range(3):
-        rounds.append([time_ms(lambda: p.grads(batch), 1, 10) for p in (flat, tp, tp, flat)])
-    flat_ms = float(np.median([r[0] + r[3] for r in rounds])) / 2
-    tp_ms = float(np.median([r[1] + r[2] for r in rounds])) / 2
-    d128.update(step_ms={"flat": flat_ms, "tp": tp_ms, "rounds": rounds},
-                step_ratio=tp_ms / flat_ms, nccl_events=found, device_events=len(events))
+    d128.update(nccl_events=found, device_events=len(events))
     ops, hg = tp.op, tp.hg
     del flat, tp
-    if not MESH_STEP_RATIO[0] <= d128["step_ratio"] <= MESH_STEP_RATIO[1]:
-        raise AssertionError(f"F = L = 2 step over F = L = 1: {d128['step_ratio']}")
 
     v7r = get_config("dwy100k_dist", **RECIPES["v7r"]).replace(
         sinkhorn_pairs=DIST_V7R_OT_PAIRS, **DIST_V7R_CUTS)
@@ -3516,43 +3512,9 @@ def phase_dist_mesh(smi: str, dev: torch.device, leg_a: dict) -> dict:
     want = {"spmm_ell": 4 * HALO_LAYER_LAUNCHES, "sinkhorn_fused": 2 * v7r.sinkhorn_iters + 1}
     if v7r_step["launches"] != want:
         raise AssertionError(f"the v7r step launched {v7r_step['launches']}, expected {want}")
-
-    run_cfg = get_config("dwy100k_dist", **RECIPES["v7r"]).replace(
-        sinkhorn_pairs=DIST_V7R_OT_PAIRS, **{**DIST_V7R_CUTS, **DIST_APPROX}, **DIST_MESH)
-    res, run_s, counts = _counted(dev, lambda: run(run_cfg, task=task, device=dev))
-    same_run = (res.losses == leg_a["losses"]
-                and res.metrics["final_loss"] == leg_a["final_loss"])
-    if not same_run or counts != {k: v for k, v in leg_a["launches"].items() if v}:
-        raise AssertionError(f"the F = L = 2 run: losses {res.losses}, final "
-                             f"{res.metrics['final_loss']}, launches {counts}; leg A's "
-                             f"{leg_a['losses']}, {leg_a['final_loss']}, {leg_a['launches']}")
-    with tempfile.TemporaryDirectory() as tmp:
-        cut_cfg = run_cfg.replace(checkpoint_dir=tmp, checkpoint_every=run_cfg.epochs)
-        undo = mp_worker.sigterm_at_call(MESH_SIGTERM_STEP)
-        try:
-            first, cut_s = _timed(dev, lambda: run(cut_cfg, task=task, device=dev))
-        finally:
-            undo()
-        flat_cfg = cut_cfg.replace(feature_shards=1, slice_shards=1)
-        resumed, resume_s = _timed(dev, lambda: run(flat_cfg, task=task, device=dev))
-    stopped = (first.timings["steps"], resumed.timings["start_epoch"])
-    resumed_equal = (first.losses + resumed.losses == leg_a["losses"]
-                     and resumed.metrics["final_loss"] == leg_a["final_loss"])
-    if stopped != (MESH_SIGTERM_STEP, MESH_SIGTERM_STEP) or not resumed_equal:
-        raise AssertionError(f"cut at F = L = 2, resumed at F = L = 1: stopped/resumed at "
-                             f"{stopped}, losses {first.losses} + {resumed.losses}, final "
-                             f"{resumed.metrics['final_loss']}; leg A's {leg_a['losses']}")
     leg_s = time.perf_counter() - t_leg
     out = {"grid_asked": DIST_MESH, "grid_held": [1, 1, 1], "d128_step": d128,
-           "v7r_step": v7r_step,
-           "run": {"cuts": {**DIST_V7R_CUTS, **DIST_APPROX}, "losses": res.losses,
-                   "final_loss": res.metrics["final_loss"], "equal_to_leg_a": same_run,
-                   "launches": counts, "run_s": run_s,
-                   "steady_step_s": _steady_step(res.timings)},
-           "resume": {"sigterm_step": MESH_SIGTERM_STEP, "stopped_resumed_at": stopped,
-                      "equal_to_leg_a": resumed_equal, "cut_run_s": cut_s,
-                      "resumed_run_s": resume_s, "load_s": resumed.timings["load_s"]},
-           "leg_s": leg_s}
+           "v7r_step": v7r_step, "leg_s": leg_s}
     emit({"phase": "dist_mesh", **out, "card": smi})
 
     # the kernels at d/F = 64 on the rank's stacked operators (fp32, bf16)
@@ -3580,6 +3542,181 @@ def phase_dist_mesh(smi: str, dev: torch.device, leg_a: dict) -> dict:
     phase_s = time.perf_counter() - t_leg
     emit({"phase": "kernel", "kernel": "dist_tp_operators", "d": 64, "spmm_ell": ell,
           "spmm_sorted": sorted_ops, "leg_s": leg_s, "phase_s": phase_s, "card": smi})
+    return {**out, "kernel": {"spmm_ell": ell, "spmm_sorted": sorted_ops}, "phase_s": phase_s}
+
+
+# ---- the grouped halo exchange (halo_grouped) on the one-rank group ----
+
+GROUPED_SIGTERM_STEP = 3  # the cut run stops after epoch 2, in the v7r run's second interval
+GROUPED_MOVED_N_ENT = 99_998  # entities a KG: r0 = 4·25,000 = 100,000, KG2 moved by 2 rows
+FP32_OUT_TOL = dict(rtol=1e-4, atol=1e-4)  # PERF.md §2: 1e-4 + 1e-4·|x|
+
+
+def _grouped_pair(task, cfg, dev, batches: tuple[dict, dict]) -> dict:
+    """One step of ``cfg`` ungrouped and with ``halo_grouped`` (each on its
+    own ``make_mesh`` of the one-rank group), each on its batch of
+    ``batches`` (the grouped one in the grouped layout's rows), from the
+    same parameters indexed by entity (``dist_parts`` places entity j's
+    initial row at its row): the encoder outputs and the steps' losses,
+    gradients and launches, with the layouts and both parts."""
+    out = {}
+    for grouped, batch in zip((False, True), batches):
+        c = cfg.replace(halo_grouped=grouped)
+        with make_mesh(c.n_shards, dev, halo_grouped=grouped) as mesh:
+            parts = dist_parts(c, task, mesh)
+            with torch.no_grad():
+                emb = parts.embed()
+            loss, grads, launched = _dist_step(parts, batch)
+        out[grouped] = {"parts": parts, "emb": emb, "loss": loss, "grads": grads,
+                        "launches": {k: v for k, v in launched.items() if v}}
+    return out
+
+
+def phase_dist_grouped(smi: str, dev: torch.device, leg_a: dict) -> dict:
+    """The grouped halo exchange (``halo_grouped``) on ``dwy100k_dist`` at
+    full width, on the NCCL group of one rank holding the 8 shards (both KG
+    halves: no collective).  (a) The config's own task, 100,000 entities a
+    KG: r0 = n1, the identity remap; one d-128 step (``DIST_CUTS``,
+    ``_dist_batch``) grouped against ungrouped in ell and in sorted: the
+    encoder output, the loss and every gradient bit for bit (each row keeps
+    its entries in their order), the same launches, and the two steps'
+    times by events, interleaved.  (b) ``GROUPED_MOVED_N_ENT`` entities a
+    KG: KG2 moves by 2 rows; the two steps from the same parameters indexed
+    by entity, the de-remapped output and the loss within PERF.md §2's fp32
+    limit, the gradients within its step limits.  (c) Phase 21 A's
+    approximate v7r run at ``halo_grouped`` through ``driver.run``: each
+    loss, the final loss and the launches leg A's (the identity remap); the
+    run cut by SIGTERM in its ``GROUPED_SIGTERM_STEP``-th step and resumed
+    grouped, equal to it; a resume of that directory without
+    ``halo_grouped`` refused by the layout stamp.  (d) ``spmm_ell`` fp32 on
+    (b)'s grouped rank operators (local, boundary, its transpose) and
+    ``spmm_sorted`` on its local operator against their plain versions,
+    timed as phase 19's rank operators."""
+    t_phase = time.perf_counter()
+    cfg = get_config("dwy100k_dist", **DIST_CUTS)
+    task = load_task(cfg)
+    batch = _dist_batch(task, cfg, dev)
+    per_step = 4 * HALO_LAYER_LAUNCHES
+    identity, step_ms = {}, {}
+    for impl in ("ell", "sorted"):
+        pair = _grouped_pair(task, cfg.replace(spmm_impl=impl), dev, (batch, batch))
+        u, g = pair[False], pair[True]
+        rows = g["parts"].layout
+        kernel = "spmm_ell" if impl == "ell" else "spmm_sorted"
+        differ = [k for k in u["grads"] if not torch.equal(u["grads"][k], g["grads"][k])]
+        if (rows.r0 != rows.n1 or not torch.equal(u["emb"], g["emb"])
+                or not torch.equal(u["loss"], g["loss"]) or differ
+                or u["launches"] != g["launches"] or g["launches"] != {kernel: per_step}):
+            raise AssertionError(f"{impl}: the grouped step at the identity remap (r0 "
+                                 f"{rows.r0}, n1 {rows.n1}): loss {g['loss'].item()} / "
+                                 f"{u['loss'].item()}, gradients differ {differ}, launches "
+                                 f"{g['launches']} / {u['launches']}")
+        rounds = []  # ungrouped, grouped, grouped, ungrouped
+        for _ in range(3):
+            rounds.append([time_ms(lambda: p.grads(batch), 1, 10)
+                           for p in (u["parts"], g["parts"], g["parts"], u["parts"])])
+        step_ms[impl] = {"ungrouped": float(np.median([r[0] + r[3] for r in rounds])) / 2,
+                         "grouped": float(np.median([r[1] + r[2] for r in rounds])) / 2,
+                         "rounds": rounds}
+        identity[impl] = {"loss": float(g["loss"]), "launches": g["launches"],
+                          "r0": rows.r0, "geometry": g["parts"].op.geometry}
+        del pair, u, g
+
+    moved_cfg = cfg.replace(syn_n_ent=GROUPED_MOVED_N_ENT)
+    moved_task = load_task(moved_cfg)
+    m_batch = _dist_batch(moved_task, moved_cfg, dev)
+    rows = RowLayout.of(moved_cfg.replace(halo_grouped=True), moved_task)
+    g_batch = {k: rows.rows(v) for k, v in m_batch.items()}
+    pair = _grouped_pair(moved_task, moved_cfg, dev, (m_batch, g_batch))
+    u, g = pair[False], pair[True]
+    n = moved_task.n_ent
+    emb_g, emb_u = rows.entities(g["emb"]), u["emb"][:n]
+    torch.testing.assert_close(emb_g, emb_u, **FP32_OUT_TOL)
+    torch.testing.assert_close(g["loss"], u["loss"], **FP32_OUT_TOL)
+    gap = _step_gap(g["loss"], {**g["grads"], "emb": rows.entities(g["grads"]["emb"])},
+                    u["loss"], {**u["grads"], "emb": u["grads"]["emb"][:n]}, ("gc2.b",),
+                    tol=STEP_TOL[torch.float32])
+    if rows.r0 - rows.n1 != 2 or g["launches"] != {"spmm_ell": per_step}:
+        raise AssertionError(f"the moved remap: r0 {rows.r0}, n1 {rows.n1}, launches "
+                             f"{g['launches']}")
+    moved = {"n1": rows.n1, "r0": rows.r0, "n_rows": rows.n_rows, "launches": g["launches"],
+             "max_abs_err_emb": float((emb_g - emb_u).abs().max()),
+             "loss_rel_err": gap["loss_rel_err"], "step": gap,
+             "geometry": {"grouped": g["parts"].op.geometry,
+                          "ungrouped": u["parts"].op.geometry}}
+    g_hg, g_op = g["parts"].hg, g["parts"].op
+    del pair, u, g
+    t_steps = time.perf_counter() - t_phase
+
+    run_cfg = get_config("dwy100k_dist", **RECIPES["v7r"]).replace(
+        sinkhorn_pairs=DIST_V7R_OT_PAIRS, **{**DIST_V7R_CUTS, **DIST_APPROX}, halo_grouped=True)
+    res, run_s, counts = _counted(dev, lambda: run(run_cfg, task=task, device=dev))
+    same_run = (res.losses == leg_a["losses"]
+                and res.metrics["final_loss"] == leg_a["final_loss"])
+    if not same_run or counts != {k: v for k, v in leg_a["launches"].items() if v}:
+        raise AssertionError(f"the grouped run: losses {res.losses}, final "
+                             f"{res.metrics['final_loss']}, launches {counts}; leg A's "
+                             f"{leg_a['losses']}, {leg_a['final_loss']}, {leg_a['launches']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        cut_cfg = run_cfg.replace(checkpoint_dir=tmp, checkpoint_every=run_cfg.epochs)
+        undo = mp_worker.sigterm_at_call(GROUPED_SIGTERM_STEP)
+        try:
+            first, cut_s, cut_counts = _counted(dev, lambda: run(cut_cfg, task=task, device=dev))
+        finally:
+            undo()
+        resumed, resume_s, resume_counts = _counted(dev, lambda: run(cut_cfg, task=task,
+                                                                     device=dev))
+        try:
+            run(cut_cfg.replace(halo_grouped=False), task=task, device=dev)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+    stopped = (first.timings["steps"], resumed.timings["start_epoch"])
+    resumed_equal = (first.losses + resumed.losses == res.losses
+                     and resumed.metrics["final_loss"] == res.metrics["final_loss"])
+    if (stopped != (GROUPED_SIGTERM_STEP, GROUPED_SIGTERM_STEP) or not resumed_equal
+            or refused is None or f"row layout (halo_grouped, kg2_base)=(1, {task.kg1.n_ent}) "
+            f"but this run uses (0, {task.kg1.n_ent})" not in refused):
+        raise AssertionError(f"cut and resumed grouped: stopped/resumed at {stopped}, losses "
+                             f"{first.losses} + {resumed.losses}, final "
+                             f"{resumed.metrics['final_loss']}; the uncut run's {res.losses}; "
+                             f"the ungrouped resume: {refused}")
+    run_out = {"cuts": {**DIST_V7R_CUTS, **DIST_APPROX}, "losses": res.losses,
+               "final_loss": res.metrics["final_loss"], "equal_to_leg_a": same_run,
+               "launches": counts, "run_s": run_s, "steady_step_s": _steady_step(res.timings),
+               "resume": {"sigterm_step": GROUPED_SIGTERM_STEP, "stopped_resumed_at": stopped,
+                          "equal_to_uncut": resumed_equal, "cut_run_s": cut_s,
+                          "resumed_run_s": resume_s, "load_s": resumed.timings["load_s"],
+                          "cut_launches": cut_counts, "resumed_launches": resume_counts,
+                          "ungrouped_resume_refused": refused[:160]}}
+    t_run = time.perf_counter() - t_phase - t_steps
+    out = {"identity": identity, "step_ms": step_ms,
+           "step_ms_order": ["ungrouped", "grouped", "grouped", "ungrouped"], "moved": moved,
+           "run": run_out, "steps_s": t_steps, "run_legs_s": t_run}
+    emit({"phase": "dist_grouped", **out, "card": smi})
+
+    # the kernels on the moved task's grouped rank operators, d 128 fp32
+    rng = np.random.default_rng(11)
+    d = cfg.dim
+
+    def x_for(n_cols):
+        return torch.from_numpy(rng.standard_normal((n_cols, d)).astype(np.float32)).to(dev)
+
+    loc, bnd = g_op.loc, g_op.bnd
+    ell = {name: _dist_ell_case(m, diag, x_for(m.n_cols), cold=True) for name, m, diag in (
+        ("local", loc.fwd, loc.diag), ("boundary", bnd.fwd, None),
+        ("boundary_transpose", bnd.bwd, None))}
+    with make_mesh(cfg.n_shards, dev, halo_grouped=True) as mesh:
+        s_op = shard_operator(g_hg, mesh, "sorted")
+    edges = s_op.loc.fwd
+    _nan_cache(edges.n_rows, d, dev)
+    sorted_ops = {"local": {**_sorted_table(edges)[0],
+                            **_sorted_case(edges, _csr_of_edges(edges), x_for(edges.n_cols),
+                                           timed=True)}}
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "kernel", "kernel": "dist_grouped_operators", "n1": rows.n1, "r0": rows.r0,
+          "d": d, "dtype": "float32", "spmm_ell": ell, "spmm_sorted": sorted_ops,
+          "phase_s": phase_s, "card": smi})
     return {**out, "kernel": {"spmm_ell": ell, "spmm_sorted": sorted_ops}, "phase_s": phase_s}
 
 
@@ -3946,7 +4083,8 @@ def main() -> int:
     dist = phase_dist(smi, dev)
     dist_v7r = phase_dist_v7r(smi, dev)
     dist_options = phase_dist_options(smi, dev, dist_v7r["stages_s"])
-    dist_mesh = phase_dist_mesh(smi, dev, dist_options["approx"])
+    dist_mesh = phase_dist_mesh(smi, dev)
+    dist_grouped = phase_dist_grouped(smi, dev, dist_options["approx"])
     dist_fused = phase_dist_fused(smi, dev, dist, dist_options["approx"]["stages_s"])
     # one potential update at the ring caller's shape: the v7r run's 4,096
     # pairs, one rank holding the 8 shards, so one launch per update
@@ -3994,9 +4132,15 @@ def main() -> int:
              "fused_runs": {k: v["launches"]["spmm_ell"]
                             for k, v in dist_fused["runs"].items()}},
          "launches_dist_mesh": {"d128_step": dist_mesh["d128_step"]["launches"]["spmm_ell"],
-                                "v7r_step": dist_mesh["v7r_step"]["launches"]["spmm_ell"],
-                                "v7r_run": dist_mesh["run"]["launches"]["spmm_ell"]},
-         "dist_tp_operators_d64": dist_mesh["kernel"]["spmm_ell"]},
+                                "v7r_step": dist_mesh["v7r_step"]["launches"]["spmm_ell"]},
+         "dist_tp_operators_d64": dist_mesh["kernel"]["spmm_ell"],
+         "launches_dist_grouped": {
+             "d128_step": dist_grouped["identity"]["ell"]["launches"]["spmm_ell"],
+             "moved_step": dist_grouped["moved"]["launches"]["spmm_ell"],
+             "v7r_run": dist_grouped["run"]["launches"]["spmm_ell"],
+             "v7r_cut_run": dist_grouped["run"]["resume"]["cut_launches"]["spmm_ell"],
+             "v7r_resumed_run": dist_grouped["run"]["resume"]["resumed_launches"]["spmm_ell"]},
+         "dist_grouped_operators": dist_grouped["kernel"]["spmm_ell"]},
         {"name": "sinkhorn_fused", "route": "cuda",
          "source": "tpugraph_torch/csrc/sinkhorn_fused.cu",
          "replaces": "tpugraph/kernels/sinkhorn_pallas.py:38",
@@ -4012,8 +4156,12 @@ def main() -> int:
                  dist_fused["intervals"]["v7r"]["replayed_launches_per_step"]["sinkhorn_fused"],
              "fused_run_v7r": dist_fused["runs"]["v7r_fast"]["launches"]["sinkhorn_fused"]},
          "launches_dist_mesh": {
-             "v7r_step": dist_mesh["v7r_step"]["launches"]["sinkhorn_fused"],
-             "v7r_run": dist_mesh["run"]["launches"]["sinkhorn_fused"]}},
+             "v7r_step": dist_mesh["v7r_step"]["launches"]["sinkhorn_fused"]},
+         "launches_dist_grouped": {
+             "v7r_run": dist_grouped["run"]["launches"]["sinkhorn_fused"],
+             "v7r_cut_run": dist_grouped["run"]["resume"]["cut_launches"]["sinkhorn_fused"],
+             "v7r_resumed_run":
+                 dist_grouped["run"]["resume"]["resumed_launches"]["sinkhorn_fused"]}},
         {"name": "shortlist_dist", "route": "cuda",
          "source": "tpugraph_torch/csrc/shortlist_dist.cu",
          "replaces": "tpugraph/train/negatives.py:260",
@@ -4023,7 +4171,11 @@ def main() -> int:
          "at_callers": {k: v for k, v in k_select.items() if k != "mining"},
          "launches_dist_approx": dist_options["approx"]["launches"]["shortlist_dist"],
          "launches_dist_approx_per_stage": dist_options["approx"]["select_launches_per_stage"],
-         "launches_dist_mesh_v7r_run": dist_mesh["run"]["launches"]["shortlist_dist"],
+         "launches_dist_grouped": {
+             "v7r_run": dist_grouped["run"]["launches"]["shortlist_dist"],
+             "v7r_cut_run": dist_grouped["run"]["resume"]["cut_launches"]["shortlist_dist"],
+             "v7r_resumed_run":
+                 dist_grouped["run"]["resume"]["resumed_launches"]["shortlist_dist"]},
          "at_dist_ring_callers": dist_options["approx"]["kernel"],
          "gather_entry": {"launches": approx["shortlist_gather"], "at_callers": k_gather}},
         {"name": "spmm_sorted", "route": "cuda", "source": "tpugraph_torch/csrc/spmm_sorted.cu",
@@ -4039,7 +4191,10 @@ def main() -> int:
          "launches_dist_sorted_step": dist["sorted_step_launches"]["spmm_sorted"],
          "launches_dist_r1_sorted_step": dist_fused["r1"]["sorted"]["launches_per_step"],
          "dist_shard_ops": dist["spmm_sorted"],
-         "dist_tp_operators_d64": dist_mesh["kernel"]["spmm_sorted"]},
+         "dist_tp_operators_d64": dist_mesh["kernel"]["spmm_sorted"],
+         "launches_dist_grouped_sorted_step":
+             dist_grouped["identity"]["sorted"]["launches"]["spmm_sorted"],
+         "dist_grouped_operators": dist_grouped["kernel"]["spmm_sorted"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,6 +25,9 @@ package's and against itself across shard and rank counts, on the CPU
   1e-5; the profiler's trace written by rank 0 alone;
 * every refusal, the OT-size guard's message on each branch, the routing
   of ``driver.run`` and the CLI, and the saved table.
+
+The grouped exchange (``halo_grouped``) is ``tests/test_torch_dist_grouped.py``'s,
+the JAX worker's rehearsal modes ``tests/test_torch_dist_rehearsal.py``'s.
 """
 
 import json
@@ -54,7 +57,7 @@ from tpugraph_torch.convert import params_from_jax
 from tpugraph_torch.data.synthetic import synthetic_align_task
 from tpugraph_torch.dist import mp_worker
 from tpugraph_torch.dist.mesh import make_mesh, shards_of
-from tpugraph_torch.dist.trainer import UNPORTED, check_distributed, dist_parts, fit_distributed
+from tpugraph_torch.dist.trainer import check_distributed, dist_parts, fit_distributed
 from tpugraph_torch.models.encoder import AlignGCN
 from tpugraph_torch.serve import load_embeddings
 from tpugraph_torch.sparse.build import build_adjacency
@@ -361,24 +364,16 @@ def test_two_ranks_agree_on_a_sigterm_and_one_rank_resumes(two_ranks):
     assert resumed.metrics["final_loss"] == pytest.approx(full.metrics["final_loss"], rel=1e-4)
 
 
-REFUSED = {
-    "halo_grouped": dict(halo_grouped=True),
-}
-
-
 def test_unported_options_refuse_and_the_jax_refusals_come_first():
+    """Every option of the JAX trainer passes ``check_distributed`` and
+    every rehearsal mode of the JAX worker is a mode of ``run_ranks``; what
+    the JAX trainer refuses is refused with its message."""
     task = synthetic_align_task(**TASK)
-    assert len(REFUSED) == len(UNPORTED)
-    for (what, _), (name, over) in zip(UNPORTED, REFUSED.items()):
-        assert name in what  # in ROADMAP.md's order
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fit_distributed(get_config("base", **{**KW, "n_shards": 2, **over}), task=task,
-                            device="cpu")
     ported = [dict(checkpoint_dir="ck", checkpoint_every=2), dict(use_attr_channel=True),
               dict(neg_approx=True), dict(eval_approx_k=16), dict(param_dtype="bfloat16"),
               dict(dropout=0.3), dict(l2_normalize=True),
               dict(steps_per_call=4, neg_every=4, epochs=8), dict(profile_dir="prof"),
-              dict(feature_shards=2), dict(slice_shards=2)]
+              dict(feature_shards=2), dict(slice_shards=2), dict(halo_grouped=True)]
     for over in ported:  # no longer refused
         check_distributed(get_config("base", **{**KW, "n_shards": 2, **over}), task)
     for over, what in ((dict(param_dtype="float16"), "param_dtype"),
@@ -394,9 +389,10 @@ def test_unported_options_refuse_and_the_jax_refusals_come_first():
                        (dict(use_rel_head=True), "relation head")):
         with pytest.raises(ValueError, match=what):
             check_distributed(get_config("base", **{**KW, "n_shards": 2, **over}), bare)
-    for mode in mp_worker.REHEARSALS:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            mp_worker.run_ranks(mode, 2, "unused")
+    for mode in ("fit_checkpoint", "fitprod", "fitprod2"):  # the JAX worker's fit, fitprod*
+        assert mode in mp_worker.MODES
+    with pytest.raises(ValueError, match="unknown mode"):
+        mp_worker.run_ranks("fit", 2, "unused")
     with pytest.raises(ValueError, match="multiple of the world size"):
         shards_of(4, 3, 0)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -10,7 +10,8 @@ the attribute channel, bf16) and the exchange route beside them, a
 replayed distributed interval, its ring stages (exact and shortlisted, at
 ``dwy100k_dist``'s block sizes), a bitwise resume, and one card holding
 every feature block and slice (its step bit for bit the F = L = 1 step);
-both SpMM kernels also at a tensor-parallel rank's width, d = 64.
+both SpMM kernels also at a tensor-parallel rank's width, d = 64; the
+grouped layout's halo SpMM (``halo_grouped``) by both routes.
 
 Marked ``gpu``; each test skips without a CUDA device.  This file imports
 neither JAX nor the JAX package, so on a machine with a card (and no JAX)
@@ -53,7 +54,7 @@ from tpugraph_torch.train.negatives import _hubness_both_approx, sample_hard_neg
 from tpugraph_torch.train.optim import make_optimizer
 from tpugraph_torch.train.ot import sinkhorn_align_loss, sinkhorn_align_loss_plain
 from tpugraph_torch.dist import mp_worker
-from tpugraph_torch.dist.halo import exchange
+from tpugraph_torch.dist.halo import exchange, halo_spmm, halo_spmm_ell
 from tpugraph_torch.dist.mesh import make_mesh, shard_operator
 from tpugraph_torch.dist.ring import ring_hits_at_k, ring_knn, ring_sinkhorn_align_loss
 from tpugraph_torch.dist.trainer import dist_parts
@@ -1544,3 +1545,42 @@ def test_a_replayed_distributed_interval_equals_its_eager_steps(cuda):
             assert float((parts.model.state_dict()[k] - v).norm() / v.norm()) < 1e-6, k
     for g, w in zip(got, want):
         assert g == pytest.approx(w, rel=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["ell", "sorted"])
+def test_the_grouped_halo_spmm_by_both_routes(cuda, impl):
+    """The grouped layout (``halo_grouped``) at a remap that moves KG2 (999
+    entities a KG, 8 shards in two groups: r0 = 1,000) on the card: the halo
+    SpMM over the rank's grouped operators, its boundary read from x's rows
+    and through the exchange (the NCCL self-copy of the grouped send
+    lists), equals the host's plain result of the same route (rtol 1e-5,
+    atol 1e-5; the gradient 1e-4), the two routes' forwards equal bit for
+    bit, the padding rows' gradient 0."""
+    task = synthetic_align_task(seed=6, n_ent=999, n_rel=10, n_triples=6000)
+    src, dst, w = coo_from_triples(task.n_ent, task.merged_triples, n_rel=task.n_rel)
+    w = coo_normalize(src, dst, w, task.n_ent)
+    n1, r0 = task.kg1.n_ent, 1000
+    src, dst = (np.where(a < n1, a, a - n1 + r0) for a in (src, dst))
+    hg = partition_edges(src, dst, w, 2 * r0, 8, n_groups=2)
+    rng = np.random.default_rng(12)
+    x = np.zeros((hg.n_loc * 8, 64), np.float32)
+    x[:n1] = rng.standard_normal((n1, 64))
+    x[r0:r0 + n1] = rng.standard_normal((n1, 64))
+    g = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+    fn = halo_spmm_ell if impl == "ell" else halo_spmm
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        with make_mesh(8, dev, halo_grouped=True) as mesh:
+            for route in (False, True):
+                op = shard_operator(hg, mesh, impl, exchange=route)
+                xt = torch.from_numpy(x).to(dev).requires_grad_()
+                y = fn(xt, op)
+                y.backward(g.to(dev))
+                out[dev.type, route] = (y.detach().cpu(), xt.grad.cpu())
+    for route in (False, True):
+        (got, got_g), (want, want_g) = out["cuda", route], out["cpu", route]
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(got_g, want_g, rtol=1e-4, atol=1e-4)
+        assert not got_g[n1:r0].any() and not got_g[r0 + n1:].any()
+    assert torch.equal(out["cuda", False][0], out["cuda", True][0])

@@ -9,19 +9,23 @@ plus the boundary aggregation, each one ``kernels/spmm_ell.py::spmm_ell``
 launch each way with ``impl`` "ell", one ``kernels/spmm.py::spmm`` launch
 with "sorted" (the JAX ``_segsum``).  Where the boundary rows come from:
 
-* **One rank holding every shard** (Gr = 1 graph ranks: W = 1, the
-  trainer's route on one card, or a grid of slices and feature blocks
-  only): the boundary operator reads the rows of x the receive slots would
-  carry (``direct``), so no exchange runs: no collective, no receive
-  buffer, no copy.  Its backward is the operator's transpose, a fixed-order
+* **One rank holding every shard of its exchange group** (Gr = 1 graph
+  ranks: W = 1, the trainer's route on one card, or a grid of slices and
+  feature blocks only; under ``halo_grouped`` also Gr = 2, each rank
+  holding one KG's half): the boundary operator reads the rows of x the
+  receive slots would carry (``direct``), so no exchange runs: no
+  collective, no receive buffer, no copy.  Its backward is the operator's transpose, a fixed-order
   sum by construction.  Each row keeps its entries in their order, so the
   forward sums are bitwise those of the exchange route.
-* **The exchange** (Gr > 1, or asked for with ``shard_operator(...,
-  exchange=True)``; ``_Exchange``, an autograd Function), within the graph
-  group (``dist/mesh.py``): the live send rows gathered into a zeroed
-  buffer already laid out as the collective sends it, [receiver rank, my
-  shard, its shard, slot] (``send_mask``'s ones: the JAX gather-and-mask
-  without gathering the pad slots), one ``all_to_all_single`` issued with
+* **The exchange** (an exchange group of Q > 1 ranks, or asked for with
+  ``shard_operator(..., exchange=True)``; ``_Exchange``, an autograd
+  Function), within the exchange group (``dist/mesh.py``): the graph
+  group, or under ``halo_grouped`` at Gr >= 4 the rank's halo group, the
+  half of the graph group holding its KG's shards (the JAX
+  ``axis_index_groups``): the live send rows gathered into a zeroed
+  buffer already laid out as the collective sends it, [receiver's rank in
+  the group, my shard, its shard, slot] (``send_mask``'s ones: the JAX
+  gather-and-mask without gathering the pad slots), one ``all_to_all_single`` issued with
   ``async_op=True`` (under tensor parallelism x holds the rank's d/F
   columns, so each rank moves 1/F of the bytes); the boundary
   operator reads the received buffer as delivered, so nothing is permuted.
@@ -63,7 +67,7 @@ class HaloOperator:
     direct: bool  # the boundary reads x's rows: no exchange
     live: torch.Tensor  # (L,) int64: the live slots of the flat send buffer
     live_rows: torch.Tensor  # (L,) int64: the rows of x they carry
-    send_t: EllMatrix  # the send map's transpose: P·n_loc × (S·P·B), weight 1
+    send_t: EllMatrix  # the send map's transpose: P·n_loc × (Q·P·P·B), weight 1
     per_rank: int
     n_loc: int
     halo_b: int
@@ -71,6 +75,8 @@ class HaloOperator:
     impl: str  # "ell" or "sorted"
     mesh: ShardMesh
     geometry: dict  # the partition's shapes (sparse/partition.py::HaloGraph.geometry)
+    n_peers: int = 1  # Q: the ranks of the exchange group (Gr ungrouped, Gr/2 grouped)
+    group: object = None  # the exchange's process group (None: the rank alone)
 
     @property
     def n_rows(self) -> int:
@@ -78,12 +84,13 @@ class HaloOperator:
 
     @property
     def slots(self) -> int:
-        """The rows of the send (and of the receive) buffer: S·P·B."""
-        return self.mesh.n_shards * self.per_rank * self.halo_b
+        """The rows of the send (and of the receive) buffer: Q·P·P·B
+        (S·P·B ungrouped)."""
+        return self.n_peers * self.per_rank * self.per_rank * self.halo_b
 
 
 def _all_to_all(buf: torch.Tensor, group, async_op: bool = False):
-    """Chunk k of ``buf`` (its rows split evenly over the graph group's
+    """Chunk k of ``buf`` (its rows split evenly over the group's
     ranks) to its k-th rank; with ``async_op`` also the collective's
     handle."""
     out = torch.empty_like(buf)
@@ -92,7 +99,7 @@ def _all_to_all(buf: torch.Tensor, group, async_op: bool = False):
 
 
 class _Exchange(torch.autograd.Function):
-    """x (P·n_loc, d) -> the receive buffer (S·P·B, d), laid out [sender
+    """x (P·n_loc, d) -> the receive buffer (Q·P·P·B, d), laid out [sender
     shard, my shard, slot]; the collective's handle appended to
     ``pending`` (the caller waits on it before reading the buffer)."""
 
@@ -101,7 +108,7 @@ class _Exchange(torch.autograd.Function):
         ctx.op = op
         send = x.new_zeros((op.slots, x.shape[1]))  # the pad slots stay 0
         send.index_copy_(0, op.live, x.index_select(0, op.live_rows))
-        recv, work = _all_to_all(send, op.mesh.group("graph"), async_op=True)
+        recv, work = _all_to_all(send, op.group, async_op=True)
         pending.append(work)
         return recv
 
@@ -109,18 +116,21 @@ class _Exchange(torch.autograd.Function):
     def backward(ctx, g):
         # back to the senders, in the send buffer's layout; then each row of
         # x sums its live slots in slot order
-        back = _all_to_all(g.contiguous(), ctx.op.mesh.group("graph"))
+        back = _all_to_all(g.contiguous(), ctx.op.group)
         return ell_spmm(ctx.op.send_t, None, back), None, None
 
 
 def exchange(x: torch.Tensor, op: HaloOperator) -> torch.Tensor:
     """The halo exchange with its gradient: each of the rank's shards'
-    receive buffer, (P, S·B, d), laid out [owner shard, slot]."""
+    receive buffer, (P, Q·P·B, d), laid out [owner, slot]: the owner shard
+    ungrouped (S·B rows), its index in the receiver's KG half under the
+    grouped layout across ranks (G·B rows, the JAX buffer)."""
     pending = []
     recv = _Exchange.apply(x, op, pending)
     pending[0].wait()
-    s, per, b = op.mesh.n_shards, op.per_rank, op.halo_b
-    return recv.view(s, per, b, -1).transpose(0, 1).reshape(per, s * b, -1)
+    per, b = op.per_rank, op.halo_b
+    return recv.view(op.n_peers * per, per, b, -1).transpose(0, 1).reshape(
+        per, op.n_peers * per * b, -1)
 
 
 def _halo(x: torch.Tensor, op: HaloOperator, aggregate, force_serialize: bool) -> torch.Tensor:

@@ -15,15 +15,17 @@ world of W ranks is one of two cases (``grid_of``):
   column block (d/F wide) of the table and of the encoder's weights, and
   the s-th stripe of the loss batch.
 
-Any other W raises ``ValueError``.  ``make_mesh`` builds three subgroups
+Any other W raises ``ValueError``.  ``make_mesh`` builds the subgroups
 with ``dist.new_group``, every rank creating every group in one fixed
 order (``group_members``): the **graph** group, the ranks of the same
 (s, f) (the halo exchange, the ring, the row gathers, the sum of the
 weights' gradients); the **feature** group, the same (s, g) (the column
 gathers, ``l2_normalize``'s sum of squares); the **slice** group, the same
-(g, f) (the gradient sum over the loss stripes).  A group of one rank is
-not created and runs no collective; a group of the whole world is the
-default group.
+(g, f) (the gradient sum over the loss stripes); with ``halo_grouped`` at
+Gr >= 4 also the **halo** groups, each graph group's two halves (the
+grouped exchange, one KG's shards each).  A group of one rank is not
+created and runs no collective; a group of the whole world is the default
+group.
 
 * The backend follows the device: NCCL for a CUDA device, gloo for the
   CPU.  Nothing falls back from one to the other.  NCCL allows one rank
@@ -50,7 +52,7 @@ from dataclasses import dataclass, field
 import torch
 import torch.distributed as dist
 
-from tpugraph_torch.sparse.halo_ell import rank_operators, send_transpose
+from tpugraph_torch.sparse.halo_ell import exchange_ranks, rank_operators, send_transpose
 from tpugraph_torch.sparse.partition import HaloGraph
 
 
@@ -104,12 +106,17 @@ def rank_of(s: int, g: int, f: int, grid: tuple[int, int, int]) -> int:
     return (s * n_graph + g) * n_feature + f
 
 
-def group_members(grid: tuple[int, int, int]) -> dict[str, list[list[int]]]:
+def group_members(grid: tuple[int, int, int],
+                  halo_grouped: bool = False) -> dict[str, list[list[int]]]:
     """Every group of each axis as its global ranks in axis order, the
     groups in the order ``make_mesh`` creates them: graph groups by (s, f),
-    feature groups by (s, g), slice groups by (g, f)."""
+    feature groups by (s, g), slice groups by (g, f); with ``halo_grouped``
+    and Gr >= 4 also the halo groups, each graph group's two halves in
+    turn (the grouped exchange's, one KG's shards each: the JAX
+    ``axis_index_groups``).  At Gr <= 2 a rank holds whole KG halves and
+    the grouped exchange needs no group."""
     n_slice, n_graph, n_feature = grid
-    return {
+    out = {
         "graph": [[rank_of(s, g, f, grid) for g in range(n_graph)]
                   for s in range(n_slice) for f in range(n_feature)],
         "feature": [[rank_of(s, g, f, grid) for f in range(n_feature)]
@@ -117,6 +124,13 @@ def group_members(grid: tuple[int, int, int]) -> dict[str, list[list[int]]]:
         "slice": [[rank_of(s, g, f, grid) for s in range(n_slice)]
                   for g in range(n_graph) for f in range(n_feature)],
     }
+    if halo_grouped and n_graph > 2:
+        if n_graph % 2:
+            raise ValueError(f"halo_grouped splits the graph ranks into two halves: "
+                             f"{n_graph} graph ranks do not split")
+        half = n_graph // 2
+        out["halo"] = [ranks[h * half:(h + 1) * half] for ranks in out["graph"] for h in (0, 1)]
+    return out
 
 
 @dataclass
@@ -181,9 +195,10 @@ class ShardMesh:
 
 @contextlib.contextmanager
 def make_mesh(n_shards: int, device: torch.device, n_feature: int = 1,
-              n_slice: int = 1) -> Iterator[ShardMesh]:
+              n_slice: int = 1, halo_grouped: bool = False) -> Iterator[ShardMesh]:
     """The group of the run on ``device`` and its grid of subgroups (see
-    the module docstring)."""
+    the module docstring; ``halo_grouped``: the grouped exchange's halo
+    groups too, ``group_members``)."""
     backend = backend_for(device)
     started = False
     torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
@@ -206,7 +221,7 @@ def make_mesh(n_shards: int, device: torch.device, n_feature: int = 1,
         rank, world = dist.get_rank(), dist.get_world_size()
         grid = grid_of(world, n_slice, n_shards, n_feature)
         groups, members = {}, {}
-        for axis, all_ranks in group_members(grid).items():
+        for axis, all_ranks in group_members(grid, halo_grouped).items():
             for ranks in all_ranks:
                 if rank in ranks:
                     members[axis] = ranks
@@ -233,26 +248,38 @@ def shard_operator(hg: HaloGraph, mesh: ShardMesh, impl: str, exchange: bool | N
     """The rank's part of the halo SpMM on its device: its shards' local
     and boundary groups, each stacked into one operator (``impl`` "ell" or
     "sorted"; ``sparse/halo_ell.py::rank_operators``), and the exchange
-    lists.  ``exchange`` (default: Gr > 1 graph ranks) builds the boundary
-    over the exchange's receive buffers, which runs in the graph group;
-    without it (Gr = 1 only) the boundary reads x's rows and no exchange
-    runs."""
+    lists.  ``exchange`` (default: an exchange group of Q > 1 ranks,
+    ``exchange_ranks``) builds the boundary over the exchange's receive
+    buffers, which runs in the exchange group: the graph group, or under
+    the grouped layout (``hg.n_groups == 2``) the rank's halo group;
+    without it (Q = 1 only: Gr = 1, or Gr = 2 grouped, each rank holding
+    one KG's shards) the boundary reads x's rows and no exchange runs."""
     from tpugraph_torch.dist.halo import HaloOperator
 
     if impl not in ("ell", "sorted"):
         raise ValueError(f"unknown halo impl {impl!r}; expected 'ell' or 'sorted'")
+    n_peers = exchange_ranks(hg, mesh.per_rank)
     if exchange is None:
-        exchange = mesh.n_graph > 1
-    if not exchange and mesh.n_graph > 1:
-        raise ValueError("a boundary over x's rows needs one rank holding every shard")
-    if exchange and mesh.n_graph == 1 and mesh.world > 1:
-        raise ValueError("the exchange at one graph rank runs on a world of one rank only")
+        exchange = n_peers > 1
+    if not exchange and n_peers > 1:
+        raise ValueError("a boundary over x's rows needs one rank holding every shard of its "
+                         "exchange group")
+    if exchange and n_peers == 1 and mesh.world > 1:
+        raise ValueError("the exchange within one rank runs on a world of one rank only")
+    group = None
+    if exchange and n_peers > 1:
+        group = mesh.group("graph" if hg.n_groups == 1 else "halo")
+        if group is None:
+            raise ValueError("the grouped exchange across ranks needs the mesh's halo groups "
+                             "(make_mesh(..., halo_grouped=True))")
     loc, bnd = rank_operators(hg, mesh.shards, impl, direct=not exchange)
     sh = slice(mesh.shards.start, mesh.shards.stop)
-    live, rows, send_t = send_transpose(hg.send_idx[sh], hg.send_mask[sh], hg.n_loc)
+    live, rows, send_t = send_transpose(hg.send_idx[sh], hg.send_mask[sh], hg.n_loc,
+                                        first=mesh.shards.start)
     dev = mesh.device
     return HaloOperator(
         loc=loc.to(dev), bnd=None if bnd is None else bnd.to(dev), direct=not exchange,
         live=torch.from_numpy(live).to(dev), live_rows=torch.from_numpy(rows).to(dev),
         send_t=send_t.to(dev), per_rank=mesh.per_rank, n_loc=hg.n_loc, halo_b=hg.halo_b,
-        has_halo=hg.has_halo, impl=impl, mesh=mesh, geometry=hg.geometry())
+        has_halo=hg.has_halo, impl=impl, mesh=mesh, geometry=hg.geometry(),
+        n_peers=n_peers, group=group)

@@ -27,12 +27,22 @@ each config's ``feature_shards`` and ``slice_shards`` with the world's
 size): steps from given whole parameters and batches, or from the
 config's own (``whole_step``: the encoder's output, the loss, its terms and
 every gradient whole on every rank), and a checkpointed run that SIGTERM
-stops (``preempt_mode``).
-The JAX worker's rehearsal modes (checkpoint save and resume across
-processes, the production surface with tensor parallelism, and the
-attribute-channel and slice legs) run their own configurations, which the
-port's multi-process tests do not mirror yet: they raise
-``NotImplementedError``.
+stops (``preempt_mode``).  Mode ``grouped`` runs the grouped halo exchange
+(``halo_grouped``): the halo SpMM on a graph of two components and runs of
+the given configs, counting the ``all_to_all_single`` calls and their
+groups' sizes, or refusing every one.
+
+The JAX worker's three rehearsal modes, on the port's copies of its
+configurations (``fit_rehearsal_config``, ``fit_prod_rehearsal_config``,
+``fit_prod2_configs``, the task ``REHEARSAL_TASK``; the JAX ones run 2
+processes of 4 devices, a port rank is a process, so W = 4 ranks hold its
+8 devices' blocks): ``fit_checkpoint`` (the JAX ``fit``: 4 epochs with
+checkpoints, a relaunch to 6 epochs that resumes from the same directory,
+then the grouped exchange across the ranks), ``fitprod`` (ring CSLS
+mining, proposals, the ring OT on a subsample, CSLS eval, tensor
+parallelism) and ``fitprod2`` (leg A: the attribute channel with dropout
+and the attribute head; leg B: slices, the slice group the only one
+across ranks).  Each returns ``fit_mode``'s results of its runs.
 """
 
 from __future__ import annotations
@@ -46,8 +56,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-# the JAX worker's rehearsal modes, not mirrored yet (ROADMAP.md)
-REHEARSALS = ("fit_checkpoint", "fitprod", "fitprod2")
+# the JAX worker's rehearsal task (tpugraph/dist/mp_worker.py::fit_rehearsal_task)
+REHEARSAL_TASK = dict(seed=23, n_ent=128, n_rel=6, n_triples=500)
 
 
 def halo_graph(n: int = 96, t: int = 400, seed: int = 0):
@@ -296,7 +306,139 @@ def mesh_mode(steps: dict, preempt: tuple | None = None, fit: tuple | None = Non
     return out
 
 
-MODES = {"check": check_mode, "mesh": mesh_mode}
+def two_components(n1: int = 60, n2: int = 84, t: int = 300, seed: int = 0):
+    """A graph of two components, rows [0, n1) and [n1, n1 + n2) (the
+    merged KG pair's shape), as sym-normalised COO with n = n1 + n2."""
+    from tpugraph_torch.sparse.build import coo_from_triples, coo_normalize
+
+    rng = np.random.default_rng(seed)
+    tris = []
+    for base, nn in ((0, n1), (n1, n2)):
+        h, tt = base + rng.integers(0, nn, t), base + rng.integers(0, nn, t)
+        keep = h != tt
+        tris.append(np.stack([h[keep], rng.integers(0, 5, keep.sum()), tt[keep]], 1))
+    n = n1 + n2
+    src, dst, w = coo_from_triples(n, np.concatenate(tris), weighting="uniform")
+    return src, dst, coo_normalize(src, dst, w, n, "sym")
+
+
+def grouped_halo_mode(n_shards: int, exchange: bool | None = None, d: int = 8, seed: int = 1,
+                      n1: int = 60, n2: int = 84) -> dict:
+    """``halo_mode`` under the grouped layout: ``two_components`` with KG2
+    moved to row r0 (``dist/trainer.py::RowLayout``), partitioned into two
+    groups; the rank's rows of A·x and of the gradient of Σ(A·x)², both
+    impls, by the route ``exchange`` picks (``shard_operator``'s), and
+    whether the boundary read x's rows (``direct``)."""
+    from tpugraph_torch.dist.halo import halo_spmm, halo_spmm_ell
+    from tpugraph_torch.dist.mesh import make_mesh, shard_operator
+    from tpugraph_torch.sparse.partition import partition_edges
+
+    src, dst, w = two_components(n1, n2)
+    half = n_shards // 2
+    r0 = half * -(-max(n1, n2) // half)
+    src, dst = (np.where(a < n1, a, a - n1 + r0) for a in (src, dst))
+    hg = partition_edges(src, dst, w, 2 * r0, n_shards, n_groups=2)
+    x_all = np.zeros((hg.n_loc * n_shards, d), np.float32)
+    x = np.random.default_rng(seed).standard_normal((n1 + n2, d)).astype(np.float32)
+    x_all[:n1], x_all[r0:r0 + n2] = x[:n1], x[n1:]
+    out = {"r0": r0}
+    with make_mesh(n_shards, torch.device("cpu"), halo_grouped=True) as mesh:
+        rows = slice(mesh.shards.start * hg.n_loc, mesh.shards.stop * hg.n_loc)
+        for impl, fn in (("ell", halo_spmm_ell), ("sorted", halo_spmm)):
+            op = shard_operator(hg, mesh, impl, exchange)
+            xt = torch.from_numpy(x_all[rows].copy()).requires_grad_()
+            y = fn(xt, op)
+            (y ** 2).sum().backward()
+            out[impl] = (y.detach(), xt.grad)
+            out["direct"] = op.direct
+    return out
+
+
+def grouped_mode(n_shards: int, cfgs: dict, task_kw: dict, refuse_exchange: bool) -> dict:
+    """``grouped_halo_mode`` and ``fit_mode`` of each of ``cfgs`` (name:
+    config), with every ``all_to_all_single`` refused (``refuse_exchange``:
+    it raises) or counted: ``calls``, the size of each call's group."""
+    orig, calls = dist.all_to_all_single, []
+
+    def all_to_all_single(out, inp, *args, group=None, **kw):
+        if refuse_exchange:
+            raise AssertionError("an all_to_all_single where each rank holds its KG half")
+        calls.append(dist.get_world_size(group))
+        return orig(out, inp, *args, group=group, **kw)
+
+    dist.all_to_all_single = all_to_all_single
+    try:
+        out = {"halo": grouped_halo_mode(n_shards)}
+        out.update({name: fit_mode(cfg, task_kw) for name, cfg in cfgs.items()})
+    finally:
+        dist.all_to_all_single = orig
+    return {**out, "calls": calls}
+
+
+def fit_rehearsal_config(n_devices: int, ckpt_dir: str | None = None, epochs: int = 4,
+                         grouped: bool = False):
+    """The JAX worker's ``fit_rehearsal_config``: the pinned tiny config of
+    the checkpoint rehearsal."""
+    from tpugraph_torch.configs.configs import get_config
+
+    return get_config(
+        "base", n_shards=n_devices, dim=16, epochs=epochs, eval_every=2, k_neg=4, neg_every=2,
+        neg_mode="uniform", syn_n_ent=128, syn_n_triples=500, checkpoint_dir=ckpt_dir or "",
+        checkpoint_every=2, halo_grouped=grouped)
+
+
+def fit_prod_rehearsal_config(n_devices: int):
+    """The JAX worker's ``fit_prod_rehearsal_config``: hard CSLS ring
+    mining, proposals, the ring OT on a seed subsample, CSLS eval, tensor
+    parallelism."""
+    from tpugraph_torch.configs.configs import get_config
+
+    return get_config(
+        "base", n_shards=n_devices // 2, feature_shards=2, dim=16, epochs=4, eval_every=2,
+        k_neg=4, neg_every=2, neg_mode="hard", neg_csls_k=4, boot_cap=8, boot_start=2,
+        boot_weight=0.5, use_sinkhorn=True, sinkhorn_iters=4, sinkhorn_pairs=16, eval_csls_k=5,
+        syn_n_ent=128, syn_n_triples=500)
+
+
+def fit_prod2_configs(n_devices: int):
+    """The JAX worker's ``fit_prod2_configs``: leg A, the attribute channel,
+    the attribute head and dropout on (graph, feature) ranks; leg B, the
+    same on slices × graph × feature."""
+    from tpugraph_torch.configs.configs import get_config
+
+    common = dict(dim=16, epochs=4, eval_every=2, k_neg=4, neg_every=2, neg_mode="uniform",
+                  syn_n_ent=128, dropout=0.3, use_attr_channel=True, attr_channel_weight=0.5,
+                  attr_beta=0.8, use_attr_head=True)
+    return (get_config("base", n_shards=n_devices // 2, feature_shards=2, **common),
+            get_config("base", slice_shards=2, n_shards=n_devices // 4, feature_shards=2,
+                       **common))
+
+
+def fit_checkpoint_mode(ckpt_dir: str, n_devices: int = 8) -> dict:
+    """The JAX worker's ``fit`` rehearsal: ``fit_rehearsal_config`` for 4
+    epochs with checkpoints in ``ckpt_dir`` (saves at 2 and 3), a relaunch
+    to 6 epochs that resumes there, and the grouped config's 4 epochs."""
+    return {"fit4": fit_mode(fit_rehearsal_config(n_devices, ckpt_dir), REHEARSAL_TASK),
+            "fit6": fit_mode(fit_rehearsal_config(n_devices, ckpt_dir, epochs=6),
+                             REHEARSAL_TASK),
+            "grouped": fit_mode(fit_rehearsal_config(n_devices, grouped=True), REHEARSAL_TASK)}
+
+
+def fitprod_mode(n_devices: int = 8) -> dict:
+    """The JAX worker's ``fitprod`` rehearsal: ``fit_prod_rehearsal_config``."""
+    return {"prod": fit_mode(fit_prod_rehearsal_config(n_devices), REHEARSAL_TASK)}
+
+
+def fitprod2_mode(n_devices: int = 8) -> dict:
+    """The JAX worker's ``fitprod2`` rehearsal: both legs of
+    ``fit_prod2_configs``."""
+    leg_a, leg_b = fit_prod2_configs(n_devices)
+    return {"leg_a": fit_mode(leg_a, REHEARSAL_TASK), "leg_b": fit_mode(leg_b, REHEARSAL_TASK)}
+
+
+MODES = {"check": check_mode, "mesh": mesh_mode, "grouped": grouped_mode,
+         "fit_checkpoint": fit_checkpoint_mode, "fitprod": fitprod_mode,
+         "fitprod2": fitprod2_mode}
 
 
 def _entry(mode: str, rank: int, world: int, tmp_dir: str, args: tuple) -> None:
@@ -316,10 +458,6 @@ def _entry(mode: str, rank: int, world: int, tmp_dir: str, args: tuple) -> None:
 def run_ranks(mode: str, world: int, tmp_dir, *args, timeout: float = 120.0) -> list:
     """Run ``MODES[mode](*args)`` on ``world`` spawned gloo ranks; their
     results in rank order.  Raises if a rank fails or outlives ``timeout``."""
-    if mode in REHEARSALS:
-        raise NotImplementedError(
-            f"the multi-process rehearsal mode {mode!r} of the JAX worker is not ported yet; "
-            f"see ROADMAP.md")
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {sorted(MODES)}")
     tmp_dir = str(tmp_dir)

@@ -122,8 +122,23 @@ inside the backward and leave the others waiting in its collectives.)
 ``profile_dir`` traces epochs start + 2 to start + 5 on rank 0 (the JAX
 window, ``train/loop.py``'s trace file); the other ranks trace nothing.
 
-Refused, with ``NotImplementedError`` naming ROADMAP.md, where it is
-queued (``check_distributed``): the grouped exchange.
+``halo_grouped`` (an even ``n_shards``) is the JAX trainer's
+component-grouped exchange: the table's rows follow ``RowLayout``, KG1 in
+the first half of the shards and KG2 from row r0 in the second, so that
+the merged graph's two components never share an edge across the halves
+and each shard's halo comes from its own half (``partition_edges(...,
+n_groups=2)``: send lists of G = S/2 receivers).  Every entity id the
+trainer reads is moved to its row: the seed, test and relation triples'
+ids, the attribute triples' entities, the proposals' masks (padding rows
+never eligible), the negatives (KG2's uniform draws and ring mining over
+rows [r0, r1)), the relation corruptions (drawn as entity ids, then
+moved), the initial table and the dropout mask (entity j's row at its
+row).  The saved evaluation table and ``save_emb_path`` are in entity
+order; ``TrainResult.params`` and the checkpoints keep the rows.  The
+exchange (``dist/mesh.py::shard_operator``): at Gr = 1 and Gr = 2 a rank
+holds whole halves and its boundary reads its own rows, no collective; at
+Gr >= 4 one ``all_to_all_single`` in the rank's halo group, its half of
+the graph group.
 """
 
 from __future__ import annotations
@@ -131,6 +146,7 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
@@ -163,16 +179,9 @@ from tpugraph_torch.train.metrics import MetricsLogger, epoch_edge_ops
 from tpugraph_torch.train.mtl import attr_triples_of, check_ot_size, draw_interval, interval_keys
 from tpugraph_torch.train.optim import load_optimizer_state, make_optimizer, optimizer_state
 
-# what the port's distributed trainer does not do yet, in ROADMAP.md's order
-UNPORTED = (
-    ("halo_grouped", lambda c: c.halo_grouped),
-)
-
-
 def check_distributed(cfg: TrainConfig, task: AlignTask) -> None:
     """Refuse, before any work, what the JAX trainer refuses (ValueError,
-    in its order), then what the port does not do yet (NotImplementedError
-    naming ROADMAP.md, in the order queued there)."""
+    in its order)."""
     if cfg.param_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unsupported param_dtype {cfg.param_dtype!r}")
     check_ot_size(cfg, len(task.train_pairs))
@@ -193,17 +202,69 @@ def check_distributed(cfg: TrainConfig, task: AlignTask) -> None:
         raise ValueError(f"feature_shards={n_feat} must divide dim={cfg.dim} and hidden={hidden}")
     check_schedule(cfg, refuse_fused_profile=True)
     operator_format(cfg.spmm_impl)  # an unknown impl raises
-    for what, refused in UNPORTED:
-        if refused(cfg):
-            raise NotImplementedError(
-                f"the distributed trainer does not port {what} yet; see ROADMAP.md")
+
+
+@dataclass(frozen=True)
+class RowLayout:
+    """The table's rows of the entities (the JAX trainer's ``row_of``).
+    Ungrouped, row = entity id.  Under ``halo_grouped`` each KG takes one
+    contiguous half of the shards, G = S/2 shards of n_loc =
+    ceil(max(n1, n2)/G) rows, so that no edge crosses the halves: KG1 keeps
+    rows [0, n1), rows [n1, r0) are padding, KG2 entity n1 + j lives at row
+    r0 + j, r0 = G·n_loc, and the partition spans 2·r0 rows.  r0 (KG2's
+    first row) is the checkpoints' layout stamp."""
+
+    n1: int  # KG1's entities
+    n: int  # all entities
+    r0: int  # KG2's first row: n1 ungrouped
+    n_rows: int  # the rows the partition spans: n ungrouped, 2·r0 grouped
+
+    @classmethod
+    def of(cls, cfg: TrainConfig, task: AlignTask) -> RowLayout:
+        n1, n = task.kg1.n_ent, task.n_ent
+        if not cfg.halo_grouped:
+            return cls(n1, n, n1, n)
+        half = cfg.n_shards // 2
+        r0 = half * -(-max(n1, n - n1) // half)
+        return cls(n1, n, r0, 2 * r0)
+
+    @property
+    def r1(self) -> int:
+        """The row after KG2's last."""
+        return self.r0 + self.n - self.n1
+
+    def rows(self, ids):
+        """The rows of entity ids (a numpy array or a tensor, any shape)."""
+        lib = np if isinstance(ids, np.ndarray) else torch
+        return lib.where(ids < self.n1, ids, ids - self.n1 + self.r0)
+
+    def entity_rows(self, device=None) -> torch.Tensor:
+        """The n entities' rows, in entity order."""
+        return self.rows(torch.arange(self.n, device=device))
+
+    def entities(self, t: torch.Tensor) -> torch.Tensor:
+        """A table (or its moments) in entity order: its n real rows."""
+        return torch.cat([t[:self.n1], t[self.r0:self.r1]])
+
+    def triples(self, t: np.ndarray | None, cols: tuple[int, ...]) -> np.ndarray | None:
+        """Triples (or None) with the entity ids of columns ``cols`` moved
+        to their rows: the relation triples' head and tail, the attribute
+        triples' entity."""
+        if t is None:
+            return None
+        t = np.array(t)
+        for c in cols:
+            t[:, c] = self.rows(t[:, c])
+        return t
 
 
 def init_params(n_rows: int, n_pad: int, dim: int, hidden: int | None = None,
                 seed: int = 0, highway: bool = False, n_rel: int = 0,
-                n_attr: int = 0, n_attr_channel: int = 0) -> dict[str, torch.Tensor]:
+                n_attr: int = 0, n_attr_channel: int = 0,
+                rows: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
     """The whole parameter set, the same on every rank for every R and S:
-    ``models/encoder.py::init_params`` for the n real rows, the table's
+    ``models/encoder.py::init_params`` for the n real rows, entity j's at
+    row ``rows[j]`` (default j; ``RowLayout.entity_rows``), the table's
     padding rows (n_pad − n) zero; ``n_rel`` > 0 adds the relation head's
     ``rel_head.rel``, ``n_attr`` > 0 the attribute head's ``attr_head.w``
     and ``attr_head.b`` (``models/heads.py::init_head_params``), and
@@ -212,7 +273,8 @@ def init_params(n_rows: int, n_pad: int, dim: int, hidden: int | None = None,
     (``models/attr_channel.py::init_attr_channel_params``), as
     ``init_mtl_params`` draws them."""
     p = single_device_init(n_rows, dim, hidden, seed=seed, highway=highway)
-    p["emb"] = torch.cat([p["emb"], p["emb"].new_zeros((n_pad - n_rows, dim))])
+    rows = torch.arange(n_rows) if rows is None else rows
+    p["emb"] = p["emb"].new_zeros((n_pad, dim)).index_copy_(0, rows, p["emb"])
     p.update(init_head_params(dim, n_rel, n_attr, seed=seed))
     if n_attr_channel:
         p.update({f"ae_encoder.{k}": v for k, v in
@@ -505,8 +567,9 @@ class DistParts:
     op: HaloOperator
     hg: HaloGraph
     cfg: TrainConfig
-    rel_triples: torch.Tensor | None = None  # the relation head's constant (T, 3)
-    n_real: int = 0  # the task's entities: the table's real rows
+    layout: RowLayout
+    rel_triples: torch.Tensor | None = None  # the relation head's constant (T, 3), rows
+    attr_triples: torch.Tensor | None = None  # the attribute head's source (Ta, 2), rows
     aux: dict = field(default_factory=dict)  # the last step's loss terms
 
     def tables(self, mask: torch.Tensor | None = None
@@ -527,14 +590,16 @@ class DistParts:
     def mask_of(self, gen: torch.Generator | None) -> torch.Tensor | None:
         """The rank's rows of a step's keep mask (None without dropout):
         the n real rows from ``gen``, as the single-device encoder draws its
-        (n, hidden) mask, the padding kept."""
+        (n, hidden) mask, entity j's row at its table row (``RowLayout``),
+        the padding kept: each entity sees the single-device run's mask
+        under every layout, R and S."""
         cfg = self.cfg
         if cfg.dropout <= 0.0:
             return None
-        dev, model = self.op.mesh.device, self.model
+        dev, model, n = self.op.mesh.device, self.model, self.layout.n
         n_pad, hidden = self.hg.n_loc * self.hg.n_shards, cfg.hidden or cfg.dim
         full = torch.ones((n_pad, hidden), dtype=torch.bool, device=dev)
-        full[:self.n_real] = keep_mask((self.n_real, hidden), cfg.dropout, gen, dev)
+        full[self.layout.entity_rows(dev)] = keep_mask((n, hidden), cfg.dropout, gen, dev)
         return full[model.first_row:model.first_row + model.emb.shape[0]]
 
     def drop_mask(self, epoch: int) -> torch.Tensor | None:
@@ -669,34 +734,44 @@ def _stripe(n: int, mesh: ShardMesh) -> slice | None:
 
 def dist_parts(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh,
                exchange: bool | None = None) -> DistParts:
-    """The adjacency of ``task`` partitioned into ``cfg.n_shards`` shards,
-    the rank's halo operator on its device (``exchange``: its route, as
-    ``dist/mesh.py::shard_operator`` takes it; and with the AE channel the
-    rank's shards of the attribute incidence), and the encoder with the
-    heads and options ``cfg`` turns on, loaded with
+    """The adjacency of ``task`` over the rows of its ``RowLayout``
+    partitioned into ``cfg.n_shards`` shards (with ``halo_grouped`` into
+    two groups, one KG each), the rank's halo operator on its device
+    (``exchange``: its route, as ``dist/mesh.py::shard_operator`` takes it;
+    and with the AE channel the rank's shards of the attribute incidence),
+    and the encoder with the heads and options ``cfg`` turns on, loaded with
     ``init_params(seed=cfg.seed)``."""
+    layout = RowLayout.of(cfg, task)
     src, dst, w = coo_from_triples(task.n_ent, task.merged_triples, n_rel=task.n_rel,
                                    weighting=cfg.weighting)
     w = coo_normalize(src, dst, w, task.n_ent, norm=cfg.norm)
-    hg = partition_edges(src, dst, w, task.n_ent, cfg.n_shards)
+    hg = partition_edges(layout.rows(src), layout.rows(dst), w, layout.n_rows, cfg.n_shards,
+                         n_groups=2 if cfg.halo_grouped else 1)
     op = shard_operator(hg, mesh, operator_format(cfg.spmm_impl), exchange)
     n_pad = hg.n_loc * hg.n_shards
     heads = dict(n_rel=task.n_rel if cfg.use_rel_head else 0,
                  n_attr=max(task.n_attr, 1) if cfg.use_attr_head else 0)
+    # one remapped copy of the attribute triples feeds the incidence and the head
+    attr = layout.triples(attr_triples_of(cfg, task), (0,))
     inc, n_ch = None, 0
     if cfg.use_attr_channel:
         n_ch = task.n_attr
-        stacked = build_attr_incidence_ell(attr_triples_of(cfg, task), n_pad, n_ch,
-                                           cfg.n_shards, hg.n_loc)
+        stacked = build_attr_incidence_ell(attr, n_pad, n_ch, cfg.n_shards, hg.n_loc)
         inc = [stacked.shard(s).to(mesh.device) for s in mesh.shards]
     model = DistEncoder(op, cfg.dim, cfg.hidden, cfg.highway, device=mesh.device,
                         compute_dtype=cfg.param_dtype, dropout=cfg.dropout,
                         l2_normalize=cfg.l2_normalize, inc=inc, n_attr_channel=n_ch, **heads)
     model.load_full(init_params(task.n_ent, n_pad, cfg.dim, cfg.hidden, seed=cfg.seed,
-                                highway=cfg.highway, n_attr_channel=n_ch, **heads))
-    rel = (torch.as_tensor(task.merged_triples, dtype=torch.int64, device=mesh.device)
-           if cfg.use_rel_head else None)
-    return DistParts(model=model, op=op, hg=hg, cfg=cfg, rel_triples=rel, n_real=task.n_ent)
+                                highway=cfg.highway, n_attr_channel=n_ch,
+                                rows=layout.entity_rows(), **heads))
+
+    def on_dev(t):
+        return torch.as_tensor(t, dtype=torch.int64, device=mesh.device)
+
+    rel = on_dev(layout.triples(task.merged_triples, (0, 2))) if cfg.use_rel_head else None
+    head_attr = on_dev(attr) if cfg.use_attr_head else None
+    return DistParts(model=model, op=op, hg=hg, cfg=cfg, layout=layout, rel_triples=rel,
+                     attr_triples=head_attr)
 
 
 def _sync(dev: torch.device) -> None:
@@ -704,12 +779,15 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _pad_rows(t: torch.Tensor, n: int, n_pad: int) -> torch.Tensor:
+def _pad_rows(t: torch.Tensor, layout: RowLayout, n_pad: int) -> torch.Tensor:
     """A saved table (or its moments) re-padded to this run's n_pad rows:
-    its n real rows, zeros after (another S pads to another n_pad)."""
+    the layout's real rows kept where they are, zeros elsewhere (another S
+    pads to another n_pad; a checkpoint of another layout is refused before,
+    ``check_layout``)."""
     if t.shape[0] == n_pad:
         return t
-    return torch.cat([t[:n], t.new_zeros((n_pad - n,) + tuple(t.shape[1:]))])
+    rows = layout.entity_rows(t.device)
+    return t.new_zeros((n_pad,) + tuple(t.shape[1:])).index_copy_(0, rows, t[rows])
 
 
 def _full_optimizer_state(opt: torch.optim.Adam, model: DistEncoder) -> dict:
@@ -727,18 +805,18 @@ def _full_optimizer_state(opt: torch.optim.Adam, model: DistEncoder) -> dict:
     return {**sd, "state": state}
 
 
-def _load_rank_state(model: DistEncoder, opt: torch.optim.Adam, state: dict, n: int,
-                     n_pad: int) -> None:
+def _load_rank_state(model: DistEncoder, opt: torch.optim.Adam, state: dict,
+                     layout: RowLayout, n_pad: int) -> None:
     """A checkpoint's parameters and Adam state into this rank: the table
     and its moments re-padded to n_pad rows, then each parameter and its
     moments cut to the rank's block (``DistEncoder.block``)."""
-    model.load_full({**state["model"], "emb": _pad_rows(state["model"]["emb"], n, n_pad)})
+    model.load_full({**state["model"], "emb": _pad_rows(state["model"]["emb"], layout, n_pad)})
     sd, names = state["opt"], [n_ for n_, _ in model.named_parameters()]
     rank_state = {}
     for i, st in sd["state"].items():
         st = dict(st)
         for key in ("exp_avg", "exp_avg_sq"):
-            t = _pad_rows(st[key], n, n_pad) if names[i] == "emb" else st[key]
+            t = _pad_rows(st[key], layout, n_pad) if names[i] == "emb" else st[key]
             st[key] = model.block(names[i], t)
         rank_state[i] = st
     load_optimizer_state(opt, {**sd, "state": rank_state})
@@ -793,7 +871,8 @@ def fit_distributed(cfg: TrainConfig, task: AlignTask | None = None, verbose: bo
     dev = resolve_device(device)
     task = task or load_task(cfg)
     check_distributed(cfg, task)
-    with make_mesh(cfg.n_shards, dev, cfg.feature_shards, cfg.slice_shards) as mesh:
+    with make_mesh(cfg.n_shards, dev, cfg.feature_shards, cfg.slice_shards,
+                   cfg.halo_grouped) as mesh:
         return _fit(cfg, task, mesh, verbose, debug_nans)
 
 
@@ -822,13 +901,13 @@ def _fit(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh, verbose: bool,
     steps = max(1, cfg.steps_per_call)
     captured_on_card = steps > 1 and dev.type == "cuda"
     opt, sched = make_optimizer(cfg, model.parameters(), capturable=captured_on_card)
-    make = IntervalBatch(cfg, task, dev)
+    rows = parts.layout  # the ids of every batch, mining and eval are table rows
+    make = IntervalBatch(cfg, task, dev, kg2_row=rows.r0)
     pairs = make.pairs
-    n1, n = task.kg1.n_ent, task.n_ent
-    attr = (torch.as_tensor(attr_triples_of(cfg, task), dtype=torch.int64, device=dev)
-            if cfg.use_attr_head else None)
+    n1, n, r0, r1 = rows.n1, rows.n, rows.r0, rows.r1
     extra_keys = interval_keys(cfg, len(pairs))
-    layout = [int(cfg.halo_grouped), n1]  # the row-layout stamp: KG2's rows start at n1
+    layout = [int(cfg.halo_grouped), r0]  # the row-layout stamp: KG2's rows start at r0
+    test_rows = rows.rows(task.test_pairs)
     rank0 = mesh.rank == 0  # the one writer of the shared sinks and checkpoints
     logger = MetricsLogger(cfg.metrics_path if rank0 else None, config=cfg.to_dict(),
                            tb_dir=cfg.tb_dir if rank0 else None)
@@ -836,15 +915,20 @@ def _fit(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh, verbose: bool,
     def mine(emb, pairs_t):
         kw = dict(metric=cfg.neg_metric, csls_k=cfg.neg_csls_k, approx=cfg.neg_approx)
         return (ring_knn(emb[pairs_t[:, 1]], emb[:n1], pairs_t[:, 0], cfg.k_neg, mesh, **kw),
-                ring_knn(emb[pairs_t[:, 0]], emb[n1:n], pairs_t[:, 1] - n1, cfg.k_neg, mesh,
-                         **kw) + n1)
+                ring_knn(emb[pairs_t[:, 0]], emb[r0:r1], pairs_t[:, 1] - r0, cfg.k_neg, mesh,
+                         **kw) + r0)
 
     def draw(epoch0):
-        return draw_interval(cfg, epoch0, pairs, n, len(task.merged_triples), attr)
+        """The interval's draws over the rows: the relation corruptions
+        drawn as entity ids, then moved to their rows (a draw over the rows
+        would hit the grouped layout's padding)."""
+        out = draw_interval(cfg, epoch0, pairs, n, len(task.merged_triples),
+                            parts.attr_triples)
+        return {k: rows.rows(v) if k.startswith("rel_neg") else v for k, v in out.items()}
 
     def evaluate(approx_k):
         t0 = time.perf_counter()
-        m = ring_hits_at_k(parts.embed(), task.test_pairs, mesh, csls_k=cfg.eval_csls_k,
+        m = ring_hits_at_k(parts.embed(), test_rows, mesh, csls_k=cfg.eval_csls_k,
                            approx_k=approx_k)
         timings["eval_s"] += time.perf_counter() - t0
         timings["evals"] += 1
@@ -864,12 +948,12 @@ def _fit(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh, verbose: bool,
     restored = ckpt.restore_latest(dev)
     if restored is not None:
         epoch, state = restored
-        check_layout(cfg, state, n1)
+        check_layout(cfg, state, r0)
         check_mode(cfg, state)
         if steps == 1:
             _check_resume(cfg, state, len(pairs) + (cfg.boot_cap if make.use_boot else 0),
                           extra_keys)
-        _load_rank_state(model, opt, state, n, n_pad)
+        _load_rank_state(model, opt, state, rows, n_pad)
         sched.load_state_dict(state["sched"])
         if steps == 1:  # a fused resume starts at a boundary and rebuilds the batch there
             boot = (state["boot_pairs"], state["boot_w"]) if make.use_boot else None
@@ -898,7 +982,8 @@ def _fit(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh, verbose: bool,
                     state["extra"] = {k: batch[k] for k in extra_keys}
             if rank0:  # what the evaluation table reads: the encoder's, the channel's
                 ckpt.save(epoch, state, {**{k: v for k, v in full.items()
-                                            if not k.startswith(HEADS)}, "emb": full["emb"][:n]})
+                                            if not k.startswith(HEADS)},
+                                         "emb": rows.entities(full["emb"])})
             if mesh.world > 1:
                 dist.barrier()
 
@@ -1000,7 +1085,7 @@ def _fit(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh, verbose: bool,
             if rank0:  # row == entity id: the serving path's table
                 from tpugraph_torch.serve import save_embeddings
 
-                save_embeddings(cfg.save_emb_path, emb[:n])
+                save_embeddings(cfg.save_emb_path, rows.entities(emb))
     finally:
         if prof is not None:
             prof.stop()

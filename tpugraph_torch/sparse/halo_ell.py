@@ -26,9 +26,13 @@ The distributed trainer runs a rank's shards as one operator per group
 (``rank_operators``): the local groups stacked block-diagonally over the
 rank's rows (per_rank·n_loc), and the boundary groups stacked over either
 the exchange's receive buffers, laid out as the collective delivers them
-[sender shard, receiving shard, slot], or, with one rank holding every
-shard, the rows of x themselves (a receive slot's column becomes the row
-it carries, owner·n_loc + send_idx[owner, me, slot]: no exchange).  Each
+[sender's rank in the exchange group, its shard, receiving shard, slot],
+or, with one rank holding every shard of its exchange group, the rows of
+x themselves (a receive slot's column becomes the row it carries, the
+owner's local rows + send_idx[owner, me, slot]: no exchange).  The
+exchange group is every shard, or under the grouped layout
+(``n_groups`` = 2) the receiving shard's KG half, whose send lists
+address G = S/2 receivers.  Each
 row keeps its entries in the HaloGraph's order (the ELL build sorts by row
 stably, the sorted build keeps the list's order forward), so a row's sums
 are those of the per-shard operators, and the direct boundary's those of
@@ -225,9 +229,7 @@ def build_attr_incidence_ell(attr_triples: np.ndarray, n_ent: int, n_attr: int,
     graph: per shard (n_loc × n_attr) forward, (n_attr × n_loc) transpose.
     Weights 1/deg with the degree over all shards, duplicate (entity,
     attribute) pairs counted once, as ``models/attr_channel.py`` builds
-    the single-device operator.  (The distributed trainer refuses the
-    attribute channel for now, ROADMAP.md; the builder is held to the JAX
-    one.)"""
+    the single-device operator."""
     ent = attr_triples[:, 0].astype(np.int64)
     att = attr_triples[:, 1].astype(np.int64)
     uniq = np.unique(ent * n_attr + att)
@@ -314,54 +316,78 @@ def _sorted_of(src, dst, w, n_rows: int, n_cols: int, pad_to: int) -> SpMMOperat
     return SpMMOperator(fwd=fwd, bwd=bwd)
 
 
+def exchange_ranks(hg: HaloGraph, per: int) -> int:
+    """Q: the ranks of one exchange group when each holds ``per`` shards.
+    An exchange group of G = ``hg.group_size`` shards (every shard
+    ungrouped, one KG's half under ``halo_grouped``) spans G/P ranks; a
+    rank holding whole groups (P a multiple of G) exchanges with itself
+    alone (Q = 1).  Any other P straddles a group and raises."""
+    g = hg.group_size
+    if g % per and per % g:
+        raise ValueError(f"a rank of {per} shards straddles the exchange groups of {g} shards "
+                         f"(n_shards={hg.n_shards}, n_groups={hg.n_groups}): the grouped "
+                         f"exchange needs 1 or an even number of graph ranks")
+    return max(1, g // per)
+
+
 def rank_operators(hg: HaloGraph, shards: range, impl: str, direct: bool,
                    pad_to: int = 1024):
     """(local, boundary) of the rank holding ``shards``, on the host (see
     the module docstring): ``impl`` "ell" (``EllOperator``s, the local one
     with the split diagonal) or "sorted" (``SpMMOperator``s).  The local
     group is (P·n_loc)², P = len(shards).  The boundary group (None without
-    a halo) reads, with ``direct``, the rows of x, which must then be every
-    shard's (P·n_loc columns); otherwise the receive buffers as
-    ``dist/halo.py::exchange`` lays them out, (S·P·B) columns."""
-    per, n_loc, b = len(shards), hg.n_loc, hg.halo_b
-    if hg.n_groups != 1:
-        raise NotImplementedError("the grouped halo exchange is not ported yet; see ROADMAP.md")
-    if direct and per != hg.n_shards:
-        raise ValueError(f"a boundary over x's rows needs every shard on the rank, not {per} "
-                         f"of {hg.n_shards}")
+    a halo) reads, with ``direct``, the rows of x, which must then hold
+    every shard of the rank's exchange groups (Q = 1, ``exchange_ranks``;
+    P·n_loc columns); otherwise the receive buffers as
+    ``dist/halo.py::exchange`` lays them out, [sender's rank in the exchange
+    group, its shard, my shard, slot] (Q·P·P·B columns).  A boundary slot
+    of receiving shard s reads owner (s // G)·G + slot // B, G the
+    exchange group's shards (``hg.group_size``)."""
+    per, n_loc, b, g = len(shards), hg.n_loc, hg.halo_b, hg.group_size
+    n_peers = exchange_ranks(hg, per)
+    if direct and n_peers > 1:
+        raise ValueError(f"a boundary over x's rows needs every shard of the rank's exchange "
+                         f"group on the rank, not {per} of {g}")
     build = _ell_of if impl == "ell" else partial(_sorted_of, pad_to=pad_to)
     rows = per * n_loc
     loc = build(*_rank_edges(hg, "loc", shards, lambda i, s, src: src + i * n_loc), rows, rows,
                 **({"split_diag": True} if impl == "ell" else {}))
     if not hg.has_halo:
         return loc, None
+
+    def owner(s, slot):  # the global shard a slot of receiving shard s reads
+        return s // g * g + slot // b
+
     if direct:
-        def col_of(i, s, slot):  # the row a slot of the buffer carries
-            owner = slot // b
-            return owner * n_loc + hg.send_idx[owner, s, slot % b].astype(np.int64)
+        def col_of(i, s, slot):  # the row of x the slot carries
+            o = owner(s, slot)
+            return (o - shards.start) * n_loc + hg.send_idx[o, s % g, slot % b].astype(np.int64)
         n_cols = rows
     else:
-        def col_of(i, s, slot):  # [owner, my shard i, slot] of the collective's layout
-            return ((slot // b) * per + i) * b + slot % b
-        n_cols = hg.n_shards * per * b
+        def col_of(i, s, slot):  # [owner's rank in the group, its shard, my shard i, slot]
+            o = owner(s, slot)
+            return (((o % g) // per * per + o % per) * per + i) * b + slot % b
+        n_cols = n_peers * per * per * b
     return loc, build(*_rank_edges(hg, "bnd", shards, col_of), rows, n_cols)
 
 
-def send_transpose(send_idx: np.ndarray, send_mask: np.ndarray,
-                   n_loc: int) -> tuple[np.ndarray, np.ndarray, EllMatrix]:
-    """The exchange's send lists of a rank, its shards' (P, S, B) rows of
-    ``send_idx`` / ``send_mask``: the live slots of the collective's send
-    buffer, laid out [receiver rank, my shard, receiver's shard, slot]
-    (flattened), the rows of the rank's x they carry, and the map's
-    transpose as a weight-1 ELL matrix (P·n_loc rows, one entry per live
-    slot carrying the row, in slot order), which sums the returned rows of
-    the backward in a fixed order."""
-    per, s, b = send_idx.shape
+def send_transpose(send_idx: np.ndarray, send_mask: np.ndarray, n_loc: int,
+                   first: int = 0) -> tuple[np.ndarray, np.ndarray, EllMatrix]:
+    """The exchange's send lists of a rank, its shards' (P, G, B) rows of
+    ``send_idx`` / ``send_mask`` (G: the exchange group's shards; the
+    rank's first shard ``first``): the live slots of the collective's send
+    buffer, laid out [receiver's rank in the exchange group, my shard,
+    receiver's shard, slot] (flattened), the rows of the rank's x they
+    carry, and the map's transpose as a weight-1 ELL matrix (P·n_loc rows,
+    one entry per live slot carrying the row, in slot order), which sums
+    the returned rows of the backward in a fixed order."""
+    per, g, b = send_idx.shape
     j, recv, slot = np.nonzero(send_mask)
-    rank, i = recv // per, recv % per
-    live = ((rank * per + j) * per + i) * b + slot
+    to = (first + j) // g * g + recv  # the receiver's global shard
+    live = ((((to % g) // per) * per + j) * per + to % per) * b + slot
     order = np.argsort(live, kind="stable")
     live = live[order]
     rows = (j * n_loc + send_idx[j, recv, slot].astype(np.int64))[order]
-    t = build_ell(live, rows, np.ones(len(live)), per * n_loc, n_cols=per * s * b)
+    n_cols = max(1, g // per) * per * per * b
+    t = build_ell(live, rows, np.ones(len(live)), per * n_loc, n_cols=n_cols)
     return live, rows, t

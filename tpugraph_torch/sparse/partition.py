@@ -86,9 +86,9 @@ def partition_edges(src: np.ndarray, dst: np.ndarray, w: np.ndarray, n_rows: int
 
     ``n_groups > 1``: the component-grouped exchange, shards split into
     ``n_groups`` contiguous groups that exchange only within themselves
-    (the JAX package's ``halo_grouped``); an edge across two groups raises.
-    The distributed trainer refuses ``halo_grouped`` for now (ROADMAP.md),
-    but the builder is held to the JAX one for both layouts."""
+    (the JAX package's ``halo_grouped``, which the distributed trainer runs
+    with ``n_groups=2`` over its row remap, ``dist/trainer.py::RowLayout``);
+    an edge across two groups raises."""
     if n_shards % n_groups:
         raise ValueError(f"n_groups={n_groups} must divide n_shards={n_shards}")
     g_size = n_shards // n_groups

@@ -124,21 +124,33 @@ class IntervalBatch:
     assemble it at each boundary (``at_boundary``):
     the seed pairs, with ``boot_cap > 0`` the proposals and their weights
     (the seed pairs weigh 1, the proposals ``boot_weight``·w; before
-    ``boot_start`` the weight-0 ``placeholder``), then the negatives."""
+    ``boot_start`` the weight-0 ``placeholder``), then the negatives.
 
-    def __init__(self, cfg: TrainConfig, task: AlignTask, dev: torch.device):
+    ``kg2_row`` (default n1): the table row of KG2's first entity, r0 of
+    the distributed trainer's grouped layout (``dist/trainer.py::
+    RowLayout``), whose KG1 rows [n1, r0) are padding: the pairs, the
+    proposals and the negatives are then rows of that table, KG2 entity
+    n1 + j at row r0 + j."""
+
+    def __init__(self, cfg: TrainConfig, task: AlignTask, dev: torch.device,
+                 kg2_row: int | None = None):
         self.cfg, self.n1, self.n = cfg, task.kg1.n_ent, task.n_ent
-        self.pairs = torch.as_tensor(np.asarray(task.train_pairs), dtype=torch.int64, device=dev)
+        self.r0 = self.n1 if kg2_row is None else kg2_row
+        self.r1 = self.r0 + self.n - self.n1
+        pairs = np.asarray(task.train_pairs)
+        pairs = np.where(pairs < self.n1, pairs, pairs - self.n1 + self.r0)
+        self.pairs = torch.as_tensor(pairs, dtype=torch.int64, device=dev)
         self.use_boot = cfg.boot_cap > 0
         self.placeholder = None
         if self.use_boot:
-            pairs, n1 = self.pairs, self.n1
-            self.mask1 = torch.ones(n1, dtype=torch.bool, device=dev)
+            pairs, r0 = self.pairs, self.r0
+            self.mask1 = torch.zeros(r0, dtype=torch.bool, device=dev)
+            self.mask1[:self.n1] = True  # rows [n1, r0): the grouped layout's padding
             self.mask1[pairs[:, 0]] = False
-            self.mask2 = torch.ones(self.n - n1, dtype=torch.bool, device=dev)
-            self.mask2[pairs[:, 1] - n1] = False
+            self.mask2 = torch.ones(self.n - self.n1, dtype=torch.bool, device=dev)
+            self.mask2[pairs[:, 1] - r0] = False
             self.ones_seed = torch.ones(pairs.shape[0], dtype=torch.float32, device=dev)
-            self.placeholder = (torch.tensor([0, n1], device=dev).repeat(cfg.boot_cap, 1),
+            self.placeholder = (torch.tensor([0, r0], device=dev).repeat(cfg.boot_cap, 1),
                                 torch.zeros(cfg.boot_cap, dtype=torch.float32, device=dev))
 
     def __call__(self, boot, neg_l=None, neg_r=None) -> dict[str, torch.Tensor]:
@@ -152,10 +164,12 @@ class IntervalBatch:
 
     def uniform(self, batch: dict, epoch0: int) -> None:
         """The interval's uniform negatives over the batch's margin pairs,
-        from ``interval_generator(cfg, epoch0)``."""
-        batch["neg_l"], batch["neg_r"] = sample_uniform_negatives(
+        from ``interval_generator(cfg, epoch0)`` (KG2's drawn as entity ids,
+        then moved to its rows)."""
+        neg_l, neg_r = sample_uniform_negatives(
             interval_generator(self.cfg, epoch0), batch.get("pairs_aug", self.pairs), self.n1,
             self.n, self.cfg.k_neg)
+        batch["neg_l"], batch["neg_r"] = neg_l, neg_r + (self.r0 - self.n1)
 
     def at_boundary(self, epoch: int, embed_fn: Callable[[], torch.Tensor],
                     mine_fn: Callable[[torch.Tensor, torch.Tensor], tuple],
@@ -175,7 +189,7 @@ class IntervalBatch:
         boot = self.placeholder
         if propose:
             boot = timed("propose_s", "proposals", lambda: propose_mutual_nn_pairs(
-                emb, self.mask1, self.mask2, self.n1, self.n, cfg.boot_cap,
+                emb, self.mask1, self.mask2, self.r0, self.r1, cfg.boot_cap,
                 metric=cfg.neg_metric, csls_k=cfg.boot_csls_k, approx=cfg.boot_approx))
         batch = self(boot)
         if mine:
