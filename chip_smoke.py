@@ -82,6 +82,18 @@ Phases, each printing one JSON line:
              search, each approximate stage's device time by kernel and
              its peak device memory (below one (4,096, C) selection tile),
              and the serve CLI with ``--approx-k 128 --csls-k 10``.
+             Between the two, ``l1_search``: the exact L1 search's top-k
+             and rank-count entries against their plain versions at their
+             callers' shapes (``L1_SHAPES``: zh-en mining at k 100 with
+             exclusions, proposals at k 1 with the seed mask, CSLS hubness
+             at k 10 and d 256 and 512, serving's CSLS top-10, the rank
+             count raw and CSLS, one ring block of ``dwy100k_dist`` v7r's
+             mining and CSLS eval, and the tile route above the queue at
+             k 300), timed beside the plain version, ``torch.cdist(p=1)``
+             with ``torch.topk`` or a compare-and-sum, and the bound.  The
+             exact cityblock stages of every run (proposals, mining, CSLS
+             hubness, evals, serving, the ring's) launch it, and each
+             run's launches are held to ``_l1_launches``.
 
 12. fused   — the fused interval (``steps_per_call = neg_every``): one
              interval of v6 with ``--fast``'s settings (``neg_every`` 2,
@@ -264,7 +276,8 @@ from tpugraph_torch.dist.halo import exchange, halo_spmm_ell
 from tpugraph_torch.dist.mesh import make_mesh, shard_operator
 from tpugraph_torch.dist.ring import ring_hits_at_k, ring_knn, ring_sinkhorn_align_loss
 from tpugraph_torch.dist.trainer import RowLayout, dist_parts
-from tpugraph_torch.kernels import _build, gcn_fused, shortlist_dist, sinkhorn_fused, spmm_ell
+from tpugraph_torch.kernels import (_build, gcn_fused, l1_search, shortlist_dist, sinkhorn_fused,
+                                    spmm_ell)
 from tpugraph_torch.kernels import spmm as spmm_mod
 from tpugraph_torch.kernels.spmm import SEG_EDGES, segment_spmm, sorted_spmm, spmm_xla
 from tpugraph_torch.kernels.gcn_fused import fused_gcn_layer, reference_layer
@@ -273,6 +286,7 @@ from tpugraph_torch.kernels.sinkhorn_fused import (PRECISION, stream_plan,
                                                    sinkhorn_update_plain, sq_norms)
 from tpugraph_torch.kernels.spmm_ell import (SEG_SLOTS, apply_with_diag, ell_spmm, fused_plan,
                                              segment_plan)
+import tpugraph_torch.dist.ring as ring_mod
 import tpugraph_torch.models.align as align_mod
 import tpugraph_torch.models.attr_channel as attr_channel_mod
 import tpugraph_torch.nn.graphconv as graphconv_mod
@@ -293,7 +307,7 @@ from tpugraph_torch.train.eval import _both_direction_ranks
 from tpugraph_torch.train.fused import CapturedStep, train_step
 from tpugraph_torch.train.loop import (IntervalBatch, build_model, embed, first_batch, load_task,
                                        step_generator, step_seed)
-from tpugraph_torch.train.losses import margin_align_loss
+from tpugraph_torch.train.losses import margin_align_loss, pairwise_l1
 from tpugraph_torch.train.metrics import epoch_edge_ops
 from tpugraph_torch.train.mtl import draw_interval
 from tpugraph_torch.train.negatives import (blockwise_knn_l1, sample_hard_negatives,
@@ -407,7 +421,8 @@ def phase_device() -> str:
     return smi
 
 
-KERNELS = ("gcn_fused", "spmm_ell", "sinkhorn_fused", "shortlist_dist", "spmm_sorted")
+KERNELS = ("gcn_fused", "spmm_ell", "sinkhorn_fused", "shortlist_dist", "spmm_sorted",
+           "l1_search")
 
 
 def phase_build() -> None:
@@ -850,16 +865,57 @@ def phase_slice(task, smi: str, dev: torch.device) -> int:
 
 def _launch_counts() -> dict:
     """Each kernel's launches; ``shortlist_dist`` is the select-and-rerank
-    kernel, ``shortlist_gather`` its gather-only entry (the unfused route)."""
+    kernel, ``shortlist_gather`` its gather-only entry (the unfused route);
+    ``l1_topk``, ``l1_count`` and ``l1_tile`` the L1 search's three entries."""
     return {"gcn_fused": gcn_fused.launches, "spmm_ell": spmm_ell.launches,
             "sinkhorn_fused": sinkhorn_fused.launches,
             "shortlist_dist": shortlist_dist.select_launches,
-            "shortlist_gather": shortlist_dist.launches, "spmm_sorted": spmm_mod.launches}
+            "shortlist_gather": shortlist_dist.launches, "spmm_sorted": spmm_mod.launches,
+            "l1_topk": l1_search.topk_launches, "l1_count": l1_search.count_launches,
+            "l1_tile": l1_search.tile_launches}
+
+
+L1_NONE = {"l1_topk": 0, "l1_count": 0, "l1_tile": 0}  # a step's: it searches nothing
 
 
 def _reset_launch_counts() -> None:
     gcn_fused.launches = spmm_ell.launches = sinkhorn_fused.launches = 0
     shortlist_dist.launches = shortlist_dist.select_launches = spmm_mod.launches = 0
+    l1_search.topk_launches = l1_search.count_launches = l1_search.tile_launches = 0
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _l1_launches(cfg, t: dict, per_mining_block: int = 1) -> dict:
+    """A run's L1 search launches (each over all of a stage's queries): per
+    exact cityblock mining one top-k per direction (``per_mining_block``:
+    per direction and shard block on the ring), one more per direction
+    with CSLS (the hubness); approximate cityblock mining with CSLS is
+    exact too; per exact cityblock proposal one top-k (k = 1) per
+    direction, with CSLS as many again; per exact eval (the final always,
+    the history ones without ``eval_approx_k``) one count per direction
+    (and shard block), with CSLS one hubness top-k per direction.  The
+    tile route (k above the queue) never runs: k_neg and csls_k are ≤ 256."""
+    city = cfg.neg_metric == "cityblock"
+    mine_exact = city and (not cfg.neg_approx or cfg.neg_csls_k > 0)
+    per_mining = 2 * (per_mining_block + bool(cfg.neg_csls_k)) if mine_exact else 0
+    per_proposal = 2 * (1 + bool(cfg.boot_csls_k)) if city and not cfg.boot_approx else 0
+    exact_evals = min(t["evals"], 1) if cfg.eval_approx_k else t["evals"]
+    if max(cfg.k_neg, cfg.eval_csls_k, cfg.neg_csls_k, cfg.boot_csls_k) > l1_search.QUEUE_MAX:
+        raise NotImplementedError("a search above the queue: the tile route")
+    return {"l1_topk": per_mining * t["minings"] + per_proposal * t["proposals"]
+            + 2 * bool(cfg.eval_csls_k) * exact_evals,
+            "l1_count": 2 * per_mining_block * exact_evals, "l1_tile": 0}
+
+
+def _dist_l1_launches(t: dict, cfg) -> dict:
+    """``_l1_launches`` of a distributed run at R = 1: the ring folds one
+    search per (direction, shard block) of its mining and evals; its
+    hubness one per direction (one held chunk); the proposals run on the
+    gathered table."""
+    return _l1_launches(cfg, t, per_mining_block=cfg.n_shards)
 
 
 def _sorted_launches(cfg, counts: dict) -> dict:
@@ -906,14 +962,16 @@ def _expected_launches(cfg, t: dict, task) -> dict:
     fused layers per forward, four SpMMs per step (its layers' backward,
     the incidence forward and backward) and one per boundary forward and
     eval (the incidence forward).  The shortlist kernel runs only on the
-    approximate search paths (``_shortlist_launches``)."""
+    approximate search paths (``_shortlist_launches``), the L1 search on the
+    exact cityblock ones (``_l1_launches``)."""
     ae = cfg.use_attr_channel
     forwards = t["steps"] + t["forwards"] + t["evals"]
     return _sorted_launches(cfg, {
         "gcn_fused": (4 if ae else 2) * forwards,
         "spmm_ell": (6 if ae else 2) * t["steps"] + (t["forwards"] + t["evals"] if ae else 0),
         "sinkhorn_fused": (2 * cfg.sinkhorn_iters + 1) * t["steps"] if cfg.use_sinkhorn else 0,
-        "shortlist_dist": _shortlist_launches(cfg, task, t), "shortlist_gather": 0})
+        "shortlist_dist": _shortlist_launches(cfg, task, t), "shortlist_gather": 0,
+        **_l1_launches(cfg, t)})
 
 
 def _mtl_step_launches(cfg) -> dict:
@@ -922,7 +980,7 @@ def _mtl_step_launches(cfg) -> dict:
     return _sorted_launches(cfg, {
         "gcn_fused": 4 if ae else 2, "spmm_ell": 6 if ae else 2,
         "sinkhorn_fused": 2 * cfg.sinkhorn_iters + 1 if cfg.use_sinkhorn else 0,
-        "shortlist_dist": 0, "shortlist_gather": 0})
+        "shortlist_dist": 0, "shortlist_gather": 0, **L1_NONE})
 
 
 def _step_batch(res, cfg, dev):
@@ -954,6 +1012,10 @@ def _saved_batch(ckpt_dir: str, cfg, task, dev) -> tuple[dict, int]:
 
 
 SHORTLIST_CALLERS = (negatives_mod, bootstrap_mod, eval_mod, serve_mod)
+# the L1 search's entries where the port calls them, and their plain versions
+L1_CALLERS = ((eval_mod, ("l1_topk", "l1_count", "l1_tile")), (negatives_mod, ("l1_topk",)),
+              (bootstrap_mod, ("l1_topk",)), (serve_mod, ("l1_topk",)),
+              (ring_mod, ("l1_topk", "l1_count")))
 
 
 @contextlib.contextmanager
@@ -961,23 +1023,30 @@ def _plain_kernels():
     """The plain path: every kernel swapped for its plain PyTorch version
     where the port calls it (the GCN layer, the ELL and sorted SpMMs, the
     OT head, differentiated by autograd; the search paths'
-    select-and-rerank)."""
+    select-and-rerank and L1 search)."""
     saved = (graphconv_mod.gcn_layer, graphconv_mod.spmm, attr_channel_mod.spmm_ell,
              attr_channel_mod.spmm, align_mod.sinkhorn_align_loss,
-             [m.select_rerank for m in SHORTLIST_CALLERS])
+             [m.select_rerank for m in SHORTLIST_CALLERS],
+             [[getattr(m, n) for n in names] for m, names in L1_CALLERS])
     graphconv_mod.gcn_layer = lambda op, x, w, b=None: reference_layer(op.fwd, op.diag, x, w, b)
     graphconv_mod.spmm = attr_channel_mod.spmm = spmm_xla
     attr_channel_mod.spmm_ell = lambda op, x: apply_with_diag(op.fwd, op.diag, x)
     align_mod.sinkhorn_align_loss = sinkhorn_align_loss_plain
     for m in SHORTLIST_CALLERS:
         m.select_rerank = shortlist_dist.shortlist_select_plain
+    for m, names in L1_CALLERS:
+        for n in names:
+            setattr(m, n, getattr(l1_search, f"{n}_plain"))
     try:
         yield
     finally:
         (graphconv_mod.gcn_layer, graphconv_mod.spmm, attr_channel_mod.spmm_ell,
-         attr_channel_mod.spmm, align_mod.sinkhorn_align_loss, fns) = saved
+         attr_channel_mod.spmm, align_mod.sinkhorn_align_loss, fns, l1_fns) = saved
         for m, fn in zip(SHORTLIST_CALLERS, fns):
             m.select_rerank = fn
+        for (m, names), got in zip(L1_CALLERS, l1_fns):
+            for n, fn in zip(names, got):
+                setattr(m, n, fn)
 
 
 # one step through the kernels against the plain path: fp32, the sums in
@@ -1303,6 +1372,8 @@ def phase_recipe(task, smi: str, dev: torch.device) -> dict:
             cfg.replace(checkpoint_dir=full_dir), task, dev, steps=cfg.epochs,
             forwards=boundaries, proposals=boundaries, minings=boundaries)
         t, losses = res.timings, res.losses
+        if not (counts["l1_topk"] and counts["l1_count"]):
+            raise AssertionError(f"the exact stages never launched the L1 search: {counts}")
         enc = res.model.encoder
         widths = [tuple(enc.gc1.w.shape), tuple(enc.gc2.w.shape)]
         if widths != [(256, 256), (256, 256)]:
@@ -1469,7 +1540,7 @@ def phase_mtl(task, smi: str, dev: torch.device) -> dict:
         sync(dev)
         per_embed = _launch_counts()
         if per_embed != {"gcn_fused": 4, "spmm_ell": 1, "sinkhorn_fused": 0, "spmm_sorted": 0,
-                         "shortlist_dist": 0, "shortlist_gather": 0} or emb.shape != (
+                         "shortlist_dist": 0, "shortlist_gather": 0, **L1_NONE} or emb.shape != (
                 task.n_ent, 2 * cfg.dim):
             raise AssertionError(f"embed launched {per_embed}, shape {tuple(emb.shape)}")
         batch, _ = _saved_batch(full_dir, cfg, task, dev)
@@ -1534,7 +1605,7 @@ def phase_highway(task, smi: str, dev: torch.device) -> dict:
 
     step = _check_step(model, loss_fn, {"gcn_fused": 2, "spmm_ell": 2, "sinkhorn_fused": 0,
                                         "spmm_sorted": 0, "shortlist_dist": 0,
-                                        "shortlist_gather": 0})
+                                        "shortlist_gather": 0, **L1_NONE})
     no_drop = AlignGCN(n_ent=task.n_ent, dim=cfg.dim, highway=True, device=dev)
     no_drop.load_state_dict(model.state_dict())
     with torch.no_grad():
@@ -1743,6 +1814,188 @@ def phase_shortlist(smi: str, dev: torch.device) -> tuple[dict, dict]:
         q, cands, kw = _select_inputs(rng, s, c, d, opts, dev)
         out[name] = _select_case(name, q, cands, k, kw, opts, smi)
     return out, _gather_entry(smi, dev)
+
+
+# the L1 search at its callers' shapes: (name, entry, queries, candidates,
+# d, k, options); zh-en (7,000 mining queries: 4,500 seed pairs and 2,500
+# proposals; 19,000 entities a KG; 10,500 test pairs) and one ring block of
+# dwy100k_dist v7r (17,500 mining queries against a 12,500-row block; the
+# CSLS eval's 35,000 queries against a 4,375-row block)
+L1_SHAPES = (
+    ("mining", "topk", 7000, 19000, 256, 100, dict(exclude=True)),
+    ("proposals", "topk", 19000, 19000, 256, 1, dict(mask=True)),
+    ("hubness", "topk", 10500, 10500, 256, 10, {}),
+    ("serving_csls", "topk", 10500, 19000, 256, 10, dict(csls=True)),
+    ("ranks", "count", 10500, 10500, 256, 0, {}),
+    ("ranks_csls", "count", 10500, 10500, 256, 0, dict(csls=True)),
+    ("dist_mining_block", "topk", 17500, 12500, 256, 100, dict(exclude=True)),
+    ("dist_ranks_csls_block", "count", 35000, 4375, 256, 0, dict(csls=True)),
+    ("hubness_d512", "topk", 10500, 10500, 512, 10, {}),
+    ("above_queue_k300", "topk", 10500, 10500, 256, 300, {}),
+)
+L1_TOL = 1e-5  # PERF.md §2: top-k values rtol (CSLS: of the distance scale); counts' band
+# one fp32 instruction per lane per clock: the 67 TFLOP/s of PEAK_OPS counts an FMA as two
+SIMT_INSTR_PER_S = PEAK_OPS[torch.float32] / 2
+
+
+def _l1_bound(entry: str, s: int, c: int, d: int, k: int, kw: dict) -> tuple[float, str]:
+    """The least time of one L1 search: its rows, bias, mask, exclusions or
+    thresholds read once and its outputs written once, or its S·C·d terms
+    |a − b| at two fp32 instructions each (a subtract, an add of the
+    absolute value; L1 has no tensor-core form), whichever is larger."""
+    nbytes = ((s + c) * d * 4 + c * 4 * ("bias" in kw) + c * ("col_mask" in kw)
+              + s * 8 * ("exclude" in kw or "self_col" in kw) + s * 4 * ("thresh" in kw)
+              + (s * k * 12 if entry == "topk" else s * 8))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * s * c * d / SIMT_INSTR_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _l1_library(entry: str, q, cands, k: int, kw: dict):
+    """One PyTorch call that computes the same function: ``torch.cdist(q, c,
+    p=1)``, then the CSLS affine step and masks, then ``torch.topk`` or a
+    compare-and-sum (the (Q, C) tile fits at every shape here)."""
+    d = torch.cdist(q, cands, p=1)
+    if "bias" in kw:
+        d = kw["a"] * d - kw["bias"][None, :]
+    if entry == "count":
+        cols = torch.arange(cands.shape[0], device=q.device)
+        return ((d < kw["thresh"][:, None]) & (cols[None, :] != kw["self_col"][:, None])).sum(1)
+    if "col_mask" in kw:
+        d.masked_fill_(~kw["col_mask"][None, :], float("inf"))
+    if "exclude" in kw:
+        cols = torch.arange(cands.shape[0], device=q.device)
+        d.masked_fill_(cols[None, :] == kw["exclude"][:, None], float("inf"))
+    return torch.topk(d, k, dim=1, largest=False)
+
+
+def _l1_case(name: str, entry: str, q, cands, k: int, kw: dict, smi: str) -> dict:
+    """One L1 search entry on the card against its plain version (top-k:
+    the same sets on ≥ 99 % of rows and, where they agree, the values within
+    rtol L1_TOL, atol L1_TOL of the distance scale; count: equal but for the
+    candidates whose plain score lies within L1_TOL·|thresh| of the
+    threshold), two launches bit for bit, one launch a call (the tile route
+    above the queue: one tile launch a block of 4,096 queries); timed beside
+    its plain version, ``cdist`` + ``topk`` or compare-and-sum, and its
+    bound."""
+    s, c, d = q.shape[0], cands.shape[0], q.shape[1]
+    if entry == "topk":
+        fn, plain = l1_search.l1_topk, l1_search.l1_topk_plain
+        opts = {key: v for key, v in kw.items() if key in ("a", "bias", "col_mask", "exclude")}
+        args = (q, cands, k)
+    else:
+        fn, plain = l1_search.l1_count, l1_search.l1_count_plain
+        opts = {key: v for key, v in kw.items() if key in ("a", "bias", "self_col")}
+        args = (q, cands, kw["thresh"])
+
+    def kernel():
+        return fn(*args, **opts)
+
+    before = _launch_counts()
+    got = kernel()
+    sync(q.device)
+    launched = {key: v - before[key] for key, v in _launch_counts().items() if v != before[key]}
+    want = plain(*args, **opts)
+    if entry == "topk":
+        rows = (got[1].sort(dim=1).values == want[1].sort(dim=1).values).all(dim=1)
+        same = float(rows.double().mean())
+        scale = 1.0
+        if "bias" in kw:
+            fin = torch.isfinite(want[0])
+            scale = float((want[0] + kw["bias"][want[1]])[fin].max())
+        g_val, w_val = _by_id(got[1][rows], got[0][rows])[0], _by_id(want[1][rows],
+                                                                    want[0][rows])[0]
+        fin = torch.isfinite(w_val)
+        err = float((g_val - w_val)[fin].abs().max()) if bool(fin.any()) else 0.0
+        ok = same >= 0.99 and torch.equal(torch.isinf(g_val), torch.isinf(w_val)) and bool(
+            ((g_val - w_val)[fin].abs() <= L1_TOL * scale + L1_TOL * w_val[fin].abs()).all())
+        check = {"same_sets_share": same, "max_abs_err": err, "value_scale": scale}
+        want_launch = ({"l1_topk": 1} if k <= l1_search.QUEUE_MAX
+                       else {"l1_tile": -(-s // l1_search.TILE_BLOCK_Q)})
+    else:
+        near = torch.zeros(s, dtype=torch.int64, device=q.device)
+        for r0 in range(0, s, l1_search.BLOCK_Q * 16):
+            sc = l1_search.l1_tile_plain(q[r0:r0 + l1_search.BLOCK_Q * 16], cands,
+                                         **{key: v for key, v in opts.items() if key != "self_col"})
+            th = kw["thresh"][r0:r0 + len(sc), None]
+            near[r0:r0 + len(sc)] = ((sc - th).abs() <= L1_TOL * th.abs()).sum(1)
+        diff = (got - want).abs()
+        ok = bool((diff <= near).all()) and int(want.sum()) > 0
+        check = {"rows_equal_share": float((diff == 0).double().mean()),
+                 "max_count_diff": int(diff.max()), "near_threshold_max": int(near.max())}
+        err = float(diff.max())
+        want_launch = {"l1_count": 1}
+    again = kernel()
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again)) if entry == "topk" else \
+        torch.equal(got, again)
+    if not ok or not bitwise or launched != want_launch:
+        raise AssertionError(f"l1_search ({name}): {check}, bit for bit {bitwise}, launches "
+                             f"{launched} (expected {want_launch})")
+    bound, bound_by = _l1_bound(entry, s, c, d, k, kw)
+    ms = time_ms(kernel)
+    # below the queue a call is one kernel, so a trace holding fewer device
+    # events than calls lost records (its reading would be low): taken
+    # again, and after three such traces the device time is not measured
+    dev_ms, traces = None, []
+    for _ in range(3 if k <= l1_search.QUEUE_MAX else 1):
+        log = []
+        reading = device_ms(kernel, iters=10, log=log)
+        traces += log
+        if k > l1_search.QUEUE_MAX or (log and log[-1]["device_events"] == log[-1]["calls"]):
+            dev_ms = reading
+            break
+    out = dict(entry=entry, s=s, c=c, d=d, k=k, options=sorted(kw), **check,
+               ms=ms, device_ms=dev_ms, device_traces=traces,
+               ms_cold_l2=time_cold_ms(kernel, iters=3),
+               plain_ms=time_ms(lambda: plain(*args, **opts), warmup=1, iters=2),
+               bound_ms=bound, bound_by=bound_by, share_of_bound=ratio(bound, ms),
+               share_of_bound_device=ratio(bound, dev_ms),
+               library_ms=time_ms(lambda: _l1_library(entry, q, cands, k, kw), warmup=1,
+                                  iters=2),
+               library="torch.cdist(p=1), then torch.topk or a compare-and-sum")
+    emit({"phase": "kernel", "kernel": "l1_search", "caller": name, **out,
+          "bit_identical_runs": True, "card": smi})
+    return out
+
+
+def phase_l1_search(smi: str, dev: torch.device) -> dict:
+    """The L1 search's two entries on the card against their plain versions
+    at each caller's shape (``L1_SHAPES``): random rows; the partner of
+    query i at a random column; a mask of 24 % of the columns (the seed
+    entities proposals skip); a CSLS bias near the rows' L1 hubness; for
+    the counts each row's threshold its true match's score, as the eval's:
+    the match at column i (aligned pools) or at a random column of the
+    block, excluded by index, or (-1) outside the block, a row of its
+    own."""
+    rng = np.random.default_rng(8)
+    out = {}
+    t0 = time.perf_counter()
+    for name, entry, s, c, d, k, opts in L1_SHAPES:
+        q = torch.from_numpy(rng.standard_normal((s, d)).astype(np.float32)).to(dev)
+        cands = torch.from_numpy(rng.standard_normal((c, d)).astype(np.float32)).to(dev)
+        kw = {}
+        if opts.get("exclude"):
+            kw["exclude"] = torch.from_numpy(rng.integers(0, c, s)).to(dev)
+        if opts.get("mask"):
+            kw["col_mask"] = torch.from_numpy(rng.random(c) >= 0.24).to(dev)
+        if opts.get("csls"):
+            kw["a"] = 2.0
+            kw["bias"] = torch.from_numpy(
+                (1.0 * d + 0.05 * d * rng.standard_normal(c)).astype(np.float32)).to(dev)
+        if entry == "count":
+            kw["self_col"] = (torch.arange(s, device=dev) if s == c
+                              else torch.from_numpy(rng.integers(-1, c, s)).to(dev))
+            own = kw["self_col"].clamp_min(0)
+            elsewhere = torch.from_numpy(rng.standard_normal((s, d)).astype(np.float32)).to(dev)
+            match = torch.where(kw["self_col"][:, None] >= 0, cands[own], elsewhere)
+            d_true = pairwise_l1(q, match).float()
+            kw["thresh"] = (2.0 * d_true - kw["bias"][own] if "bias" in kw
+                            else d_true).contiguous()
+        out[name] = _l1_case(name, entry, q, cands, k, kw, smi)
+        del q, cands, kw
+    emit({"phase": "l1_search", "cases": len(out), "phase_s": time.perf_counter() - t0,
+          "card": smi})
+    return out
 
 
 def _recall(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1983,7 +2236,7 @@ def _per_step_launches(cfg) -> dict:
     if uses_mtl(cfg):
         return _mtl_step_launches(cfg)
     return _sorted_launches(cfg, {"gcn_fused": 2, "spmm_ell": 2, "sinkhorn_fused": 0,
-                                  "shortlist_dist": 0, "shortlist_gather": 0})
+                                  "shortlist_dist": 0, "shortlist_gather": 0, **L1_NONE})
 
 
 def _traced_launches(fn, dev: torch.device, what: str, warm=None) -> tuple:
@@ -2902,7 +3155,8 @@ def phase_dist(smi: str, dev: torch.device) -> dict:
     run_s = time.perf_counter() - t0
     counts, t, losses = _launch_counts(), res.timings, res.losses
     per_step = 4 * HALO_LAYER_LAUNCHES
-    expected = {**{k: 0 for k in counts}, "spmm_ell": _dist_launches(t)}
+    expected = {**{k: 0 for k in counts}, "spmm_ell": _dist_launches(t),
+                **_dist_l1_launches(t, cfg)}
     if counts != expected or t["steps"] != cfg.epochs or t["minings"] != 1:
         raise AssertionError(f"launches {counts} (expected {expected}), timings {t}")
     nb = cfg.neg_every
@@ -3090,7 +3344,8 @@ def phase_dist_v7r(smi: str, dev: torch.device) -> dict:
     per_step = {"spmm_ell": 4 * HALO_LAYER_LAUNCHES,
                 "sinkhorn_fused": 2 * cfg.sinkhorn_iters + 1}
     expected = {**{k: 0 for k in counts}, "spmm_ell": _dist_launches(t),
-                "sinkhorn_fused": per_step["sinkhorn_fused"] * t["steps"]}
+                "sinkhorn_fused": per_step["sinkhorn_fused"] * t["steps"],
+                **_dist_l1_launches(t, cfg)}
     if counts != expected or (t["steps"], t["proposals"], t["minings"], t["forwards"],
                               t["draws"], t["evals"]) != (cfg.epochs, 1, 1, 1, 2, 1):
         raise AssertionError(f"launches {counts} (expected {expected}), timings {t}")
@@ -3225,7 +3480,8 @@ def _dist_approx_leg(smi: str, dev: torch.device, exact_stages: dict) -> dict:
     s = cfg.n_shards
     expected = {"spmm_ell": _dist_launches(t),
                 "sinkhorn_fused": (2 * cfg.sinkhorn_iters + 1) * t["steps"],
-                "shortlist_dist": _dist_select_launches(t, cfg)}
+                "shortlist_dist": _dist_select_launches(t, cfg),
+                **_nonzero(_dist_l1_launches(t, cfg))}
     if counts != expected or (t["steps"], t["proposals"], t["minings"], t["forwards"],
                               t["draws"], t["evals"]) != (cfg.epochs, 1, 1, 1, 2, 4):
         raise AssertionError(f"launches {counts} (expected {expected}), timings {t}")
@@ -3952,6 +4208,7 @@ def _dist_fused_run(cfg, dev, fn) -> dict:
         expected["sinkhorn_fused"] = (2 * cfg.sinkhorn_iters + 1) * steps
     if _dist_select_launches(t, cfg):
         expected["shortlist_dist"] = _dist_select_launches(t, cfg)
+    expected.update(_nonzero(_dist_l1_launches(t, cfg)))
     losses = res.losses
     if counts != expected or t["steps"] != cfg.epochs or not all(map(math.isfinite, losses)):
         raise AssertionError(f"{cfg.name} steps_per_call={cfg.steps_per_call}: launches "
@@ -4074,6 +4331,7 @@ def main() -> int:
     k_sorted = phase_sorted_kernel(task, smi, dev)
     sorted_runs = phase_sorted(task, smi, dev)
     k_select, k_gather = phase_shortlist(smi, dev)
+    k_l1 = phase_l1_search(smi, dev)
     approx = phase_approx(task, smi, dev, recipe_stages)
     fused = phase_fused(task, smi, dev)
     phase_profile(task, smi, dev)
@@ -4195,6 +4453,25 @@ def main() -> int:
          "launches_dist_grouped_sorted_step":
              dist_grouped["identity"]["sorted"]["launches"]["spmm_sorted"],
          "dist_grouped_operators": dist_grouped["kernel"]["spmm_sorted"]},
+        {"name": "l1_search", "route": "cuda", "source": "tpugraph_torch/csrc/l1_search.cu",
+         "replaces": "tpugraph/train/negatives.py:45",
+         "replaces_kind": "XLA ops (blockwise L1 tiles, lax.top_k, argmin, rank count), "
+                          "not a Pallas kernel",
+         "launches": recipe["l1_topk"] + recipe["l1_count"] + recipe["l1_tile"],
+         "launches_by_entry": {k: recipe[k] for k in L1_NONE},
+         "launches_train": {k: train[k] for k in L1_NONE},
+         "launches_v7r": {k: v7r[k] for k in L1_NONE},
+         "launches_approx_v6": {k: approx[k] for k in L1_NONE},
+         "launches_dist": {k: dist["launches"][k] for k in L1_NONE},
+         "launches_dist_v7r": {k: dist_v7r["launches"][k] for k in L1_NONE},
+         "launches_dist_approx": {k: dist_options["approx"]["launches"].get(k, 0)
+                                  for k in L1_NONE},
+         **{k: k_l1["mining"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms", "device_ms",
+                                           "ms_cold_l2")},
+         "caller": "mining", "s": k_l1["mining"]["s"], "c": k_l1["mining"]["c"],
+         "d": k_l1["mining"]["d"], "k": k_l1["mining"]["k"],
+         "at_callers": {k: v for k, v in k_l1.items() if k != "mining"}},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,8 @@
 """The port's CUDA kernels (fused GCN layer, ELL SpMM in fp32 and bf16,
 sorted-segment SpMM, Sinkhorn potential update, shortlist select-and-rerank
-and gathered distances) against their plain versions, and training on
+and gathered distances, the exact L1 search's top-k, count and tile)
+against their plain versions, each exact cityblock search path on the card
+against the host, and training on
 the card: the attribute incidence's SpMM, a GCN layer on config highway's
 operator, steps of recipes v6 and v7r, bf16 and sorted steps, captured
 steps, ``debug_nans`` on a captured interval, and the approximate search
@@ -32,7 +34,7 @@ import tpugraph_torch.nn.graphconv as graphconv_mod
 from tpugraph_torch.configs.configs import get_config
 from tpugraph_torch.configs.recipes import RECIPES
 from tpugraph_torch.data.synthetic import synthetic_align_task
-from tpugraph_torch.kernels import gcn_fused, shortlist_dist, sinkhorn_fused, spmm_ell
+from tpugraph_torch.kernels import gcn_fused, l1_search, shortlist_dist, sinkhorn_fused, spmm_ell
 from tpugraph_torch.kernels import spmm as spmm_mod
 from tpugraph_torch.kernels.spmm import PACK_SLOTS, SEG_EDGES, segment_spmm, sorted_spmm
 from tpugraph_torch.kernels.gcn_fused import fused_gcn_layer, gcn_layer, reference_layer
@@ -655,6 +657,169 @@ def test_shortlist_select_refuses_what_it_does_not_take(cuda):
         shortlist_dist.shortlist_select(q, q, 4, exclude=torch.zeros(8, device=cuda))
 
 
+def _l1_case(rng, s, c, d, masked, csls):
+    """Queries and candidates on the host, and the search's options: with
+    ``masked`` a quarter of the columns masked and an exclusion per row
+    (some -1); with ``csls`` a = 2 and a bias near the rows' hubness."""
+    q = torch.from_numpy(rng.standard_normal((s, d)).astype(np.float32))
+    cands = torch.from_numpy(rng.standard_normal((c, d)).astype(np.float32))
+    kw = {}
+    if masked:
+        kw["exclude"] = torch.from_numpy(rng.integers(-1, c, s))
+        kw["col_mask"] = torch.from_numpy(rng.random(c) >= 0.25)
+    if csls:
+        kw["a"] = 2.0
+        kw["bias"] = torch.from_numpy((1.6 * d + 0.1 * d * rng.standard_normal(c))
+                                      .astype(np.float32))
+    return q, cands, kw
+
+
+def _on(dev, kw):
+    return {key: v.to(dev) if torch.is_tensor(v) else v for key, v in kw.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 10, 25, 100, 256, 300])
+@pytest.mark.parametrize("d", [128, 256, 512])
+def test_l1_topk_matches_plain(cuda, k, d):
+    """``l1_topk`` on ragged Q and C (1,003 × 2,503) against its plain version
+    at every table width and at k from 1 to the queue's 256 and above it
+    (300: the tile entry and ``torch.topk``), raw or CSLS, with or without
+    the mask and exclusions: ascending by (score, column); the same index
+    sets on ≥ 99 % of rows and, where they agree, the values within rtol
+    1e-5 (atol 1e-5, with CSLS 1e-5 of the distance scale a·max d); one
+    launch a call; two calls bit for bit."""
+    rng = np.random.default_rng(k * 11 + d)
+    masked, csls = (k + d // 128) % 2 == 0, (k // 10 + d // 128) % 2 == 1
+    q, cands, kw = _l1_case(rng, 1003, 2503, d, masked, csls)
+    want = l1_search.l1_topk_plain(q, cands, k, **kw)
+    q, cands, kw = q.to(cuda), cands.to(cuda), _on(cuda, kw)
+    before = (l1_search.topk_launches, l1_search.tile_launches)
+    got = l1_search.l1_topk(q, cands, k, **kw)
+    torch.cuda.synchronize()
+    assert (l1_search.topk_launches, l1_search.tile_launches) == (
+        (before[0] + 1, before[1]) if k <= l1_search.QUEUE_MAX else (before[0], before[1] + 1))
+    again = l1_search.l1_topk(q, cands, k, **kw)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    vals, idx = got[0].cpu(), got[1].cpu()
+    later = (vals[:, 1:] > vals[:, :-1]) | ((vals[:, 1:] == vals[:, :-1])
+                                           & (idx[:, 1:] > idx[:, :-1]))
+    assert later.all() and idx.shape == (1003, k)
+    rows = (idx.sort(dim=1).values == want[1].sort(dim=1).values).all(dim=1)
+    assert float(rows.double().mean()) >= 0.99
+    finite = torch.isfinite(want[0])
+    scale = 1.0
+    if csls:
+        scale = float((want[0] + kw["bias"].cpu()[want[1]])[finite].max())
+    torch.testing.assert_close(_by_id(idx[rows], vals[rows])[0],
+                               _by_id(want[1][rows], want[0][rows])[0], rtol=1e-5,
+                               atol=1e-5 * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 256, 512])
+@pytest.mark.parametrize("csls", [False, True])
+def test_l1_count_matches_plain(cuda, d, csls):
+    """``l1_count`` against its plain version: position-aligned pools (the
+    true match, column i of row i, excluded by index) and ragged ones with
+    random self columns (some -1), each row's threshold another
+    candidate's score, so the counts spread over the pool; each count equal
+    but for candidates whose score lies within 1e-5 of the threshold's
+    scale; one launch a call; two calls bit for bit."""
+    rng = np.random.default_rng(d + csls)
+    for s, c, aligned in ((1500, 1500, True), (1003, 2503, False)):
+        q, cands, kw = _l1_case(rng, s, c, d, False, csls)
+        self_col = torch.arange(s) if aligned else torch.from_numpy(rng.integers(-1, c, s))
+        other = torch.from_numpy(rng.integers(0, c, s))
+        d_true = (q - cands[other]).abs().sum(1)
+        thresh = d_true if not csls else 2.0 * d_true - kw["bias"][other]
+        want = l1_search.l1_count_plain(q, cands, thresh, self_col=self_col, **kw)
+        scores = l1_search.l1_tile_plain(q, cands, **kw)
+        near = ((scores - thresh[:, None]).abs() <= 1e-5 * thresh.abs()[:, None]).sum(1)
+        before = l1_search.count_launches
+        got = l1_search.l1_count(q.to(cuda), cands.to(cuda), thresh.to(cuda),
+                                 self_col=self_col.to(cuda), **_on(cuda, kw))
+        torch.cuda.synchronize()
+        assert l1_search.count_launches == before + 1
+        again = l1_search.l1_count(q.to(cuda), cands.to(cuda), thresh.to(cuda),
+                                   self_col=self_col.to(cuda), **_on(cuda, kw))
+        assert torch.equal(got, again) and got.dtype == torch.int64
+        assert ((got.cpu() - want).abs() <= near).all() and int(want.sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 512])
+def test_l1_tile_matches_plain(cuda, d):
+    """The tile entry (the route above the queue, ``dist_tile``'s cityblock
+    branch) against its plain version within rtol 1e-5 of each score's
+    distance scale, +inf where masked, and two launches bit for bit."""
+    rng = np.random.default_rng(d + 5)
+    q, cands, kw = _l1_case(rng, 333, 1031, d, True, True)
+    want = l1_search.l1_tile_plain(q, cands, **kw)
+    got = l1_search.l1_tile(q.to(cuda), cands.to(cuda), **_on(cuda, kw))
+    assert torch.equal(got, l1_search.l1_tile(q.to(cuda), cands.to(cuda), **_on(cuda, kw)))
+    got = got.cpu()
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    scale = float((want + kw["bias"][None, :])[fin].max())
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.gpu
+def test_l1_topk_all_masked_rows_and_exhausted_pools(cuda):
+    """A row with no eligible column returns the k lowest columns at +inf
+    (``_nn1``'s (inf, 0) at k = 1), and so does a row of NaN scores; k = C
+    returns every column."""
+    rng = np.random.default_rng(41)
+    q, cands, _ = _l1_case(rng, 70, 300, 128, False, False)
+    none = torch.zeros(300, dtype=torch.bool)
+    for k in (1, 17, 256):
+        vals, idx = l1_search.l1_topk(q.to(cuda), cands.to(cuda), k, col_mask=none.to(cuda))
+        assert torch.isinf(vals).all()
+        assert torch.equal(idx.cpu(), torch.arange(k).expand(70, k))
+    few = torch.zeros(300, dtype=torch.bool)
+    few[[5, 250]] = True
+    vals, idx = l1_search.l1_topk(q.to(cuda), cands.to(cuda), 4, col_mask=few.to(cuda))
+    want = l1_search.l1_topk_plain(q, cands, 4, col_mask=few)
+    assert torch.equal(idx.cpu(), want[1]) and torch.isinf(vals[:, 2:]).all()
+    vals, idx = l1_search.l1_topk(q.to(cuda), cands[:200].to(cuda), 200)
+    assert torch.equal(idx.cpu().sort(dim=1).values, torch.arange(200).expand(70, 200))
+    q[3, 7] = float("nan")  # a diverged row scores +inf everywhere, as masked
+    vals, idx = l1_search.l1_topk(q.to(cuda), cands.to(cuda), 5)
+    assert torch.isinf(vals[3]).all() and torch.equal(idx[3].cpu(), torch.arange(5))
+
+
+@pytest.mark.gpu
+def test_l1_search_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(8, 16, device=cuda)
+    c = torch.zeros(40, 16, device=cuda)
+    th = torch.zeros(8, device=cuda)
+    with pytest.raises(TypeError):
+        l1_search.l1_topk(q.double(), c.double(), 4)
+    with pytest.raises(TypeError):
+        l1_search.l1_count(q, c, th.double())
+    for width in (6, 516):
+        with pytest.raises(ValueError):
+            l1_search.l1_topk(torch.zeros(8, width, device=cuda),
+                              torch.zeros(40, width, device=cuda), 4)
+    with pytest.raises(ValueError):
+        l1_search.l1_topk(q, c.cpu(), 4)
+    with pytest.raises(ValueError):
+        l1_search.l1_count(q, c, th.cpu())
+    with pytest.raises(ValueError):
+        l1_search.l1_topk(q.cpu(), c, 4)
+    with pytest.raises(ValueError):
+        l1_search.l1_topk(q, c, 41)
+    with pytest.raises(ValueError):
+        l1_search.l1_topk(q, c, 0)
+    with pytest.raises(ValueError):
+        l1_search.l1_topk(q, torch.zeros(16, 40, device=cuda).t(), 4)
+    with pytest.raises(TypeError):
+        l1_search.l1_topk(q, c, 4, col_mask=torch.ones(40, dtype=torch.uint8, device=cuda))
+    with pytest.raises(TypeError):
+        l1_search.l1_count(q, c, th, self_col=torch.zeros(8, dtype=torch.int32, device=cuda))
+
+
 def _aligned_pair(rng, n1=1500, n2=1700, d=64, noise=0.3):
     base = rng.standard_normal((n1, d)).astype(np.float32)
     right = (np.pad(base, ((0, n2 - n1), (0, 0)))
@@ -718,6 +883,64 @@ def test_approx_paths_on_the_card_match_the_host(cuda, path):
         assert float((got.cpu() == want).double().mean()) >= 0.99
     elif path == "hubness":
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    else:
+        assert _same_rows(got, want) >= 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["mining", "mining_csls", "mining_approx_csls", "proposals",
+                                  "proposals_csls", "ranks", "ranks_csls", "topk", "topk_csls",
+                                  "ring_knn", "ring_knn_csls", "ring_hits_csls"])
+def test_exact_l1_paths_on_the_card_launch_l1_search(cuda, path):
+    """Each exact cityblock search path on the card goes through the L1
+    search kernel (its launches counted, no plain fallback) and gives the
+    same call's answer on the host: the same sets on ≥ 99 % of rows (pairs,
+    ranks, top-k ids); the ring at 8 shards on one rank."""
+    rng = np.random.default_rng(22)
+    n1, n2 = 1500, 1700
+    emb = _aligned_pair(rng, n1, n2, d=128)
+    n = n1 + n2
+    pairs = np.stack([rng.permutation(n1)[:600], n1 + rng.permutation(n1)[:600]], 1)
+    mask1, mask2 = np.ones(n1, bool), np.ones(n2, bool)
+    mask1[pairs[:, 0]] = False
+    mask2[pairs[:, 1] - n1] = False
+    test = np.stack([np.arange(n1), n1 + np.arange(n1)], 1)
+    csls = 10 if path.endswith("csls") else 0
+
+    def call(dev):
+        e = torch.from_numpy(emb).to(dev)
+        p = torch.from_numpy(pairs).to(dev)
+        if path.startswith("mining"):
+            return torch.cat(sample_hard_negatives(e, p, n1, n, 50, csls_k=csls,
+                                                   approx=path == "mining_approx_csls"), 1)
+        if path.startswith("proposals"):
+            m1, m2 = torch.from_numpy(mask1).to(dev), torch.from_numpy(mask2).to(dev)
+            bp, bw = propose_mutual_nn_pairs(e, m1, m2, n1, n, 800, csls_k=csls)
+            return {tuple(r) for r in bp[bw > 0].tolist()}
+        if path.startswith("ranks"):
+            return torch.stack(_both_direction_ranks(e, torch.from_numpy(test).to(dev),
+                                                     csls_k=csls))
+        if path.startswith("topk"):
+            return topk_alignments(e, np.arange(n1), n1 + np.arange(n2), k=10, csls_k=csls)[1]
+        with make_mesh(8, dev) as mesh:
+            if path == "ring_hits_csls":
+                return ring_hits_at_k(e, test, mesh, csls_k=csls)
+            return ring_knn(e[p[:, 0]], e[n1:], p[:, 1] - n1, 50, mesh, csls_k=csls)
+
+    before = (l1_search.topk_launches, l1_search.count_launches, l1_search.tile_launches)
+    got = call(cuda)
+    torch.cuda.synchronize()
+    after = (l1_search.topk_launches, l1_search.count_launches, l1_search.tile_launches)
+    counted = path.startswith("ranks") or path == "ring_hits_csls"
+    assert after[1] > before[1] if counted else after[0] > before[0]
+    assert after[2] == before[2]
+    want = call(torch.device("cpu"))
+    if path.startswith("proposals"):
+        assert len(got & want) >= 0.99 * len(want) and len(want) > 100
+    elif path.startswith("ranks"):
+        assert float((got.cpu() == want).double().mean()) >= 0.99
+    elif path == "ring_hits_csls":
+        assert all(abs(got[k] - want[k]) <= 2e-3 for k in want)
     else:
         assert _same_rows(got, want) >= 0.99
 

@@ -38,21 +38,10 @@
 //        scores in one of up to 4 slots of shared memory; named barriers
 //        ("full", "empty") per slot hand it to the selection warps, so the
 //        products of the next tiles run while the rows are selected;
-//      * a selection warp compares each of its rows' scores with the row's
-//        threshold, the key (sel, column) of the k-th entry of the row's
-//        queue (+inf until the queue fills); a warp vote skips a row with
-//        no survivor, and survivors go to the row's buffer of 128 in shared
-//        memory;
-//      * a full buffer is merged into the row's sorted queue by its warp in
-//        registers (shuffles): a bitonic sort of the buffer, the elementwise
-//        min of the queue and the reversed buffer (a bitonic sequence
-//        holding the least kq of both) and a bitonic merge (the block-select
-//        structure of Johnson, Douze and Jégou, "Billion-scale similarity
-//        search with GPUs", 2017); the threshold then falls.  No other warp
-//        waits on it.  After the last tile every buffer is merged;
-//      * keys are unique (a column enters a row's buffer at most once), so
-//        the result is the exact k least by (sel, column) whatever the order
-//        of the tiles, and two launches agree bit for bit;
+//      * the selection warps keep each row's running top-k in the warp-merged
+//        queue of topk_queue.cuh (the block-select structure of Johnson,
+//        Douze and Jégou, 2017): exact by (sel, column) whatever the order
+//        of the tiles, so two launches agree bit for bit;
 //      * the rerank scores the queue's rows with one warp per query, 8 table
 //        rows in flight, float4 loads, the query row from shared memory.
 //
@@ -71,13 +60,13 @@
 #include <stdint.h>
 
 #include "tf32_mma.cuh"
+#include "topk_queue.cuh"
 
 namespace {
 
+using namespace topk;
 using tf32::mma_tf32;
 using tf32::split_tf32;
-
-constexpr unsigned kFull = 0xffffffffu;
 
 template <bool kSq>
 __device__ __forceinline__ float term(float a, float b) {
@@ -171,25 +160,18 @@ int launch_gather(const float* q, const float* table, const long long* idx, floa
 
 // ---------------------------------------------------------------- select
 
-constexpr int kBQ = 32;        // query rows per block
 constexpr int kWarpsM = 2;     // product warps along the query rows
 constexpr int kWarpsN = 4;     // product warps along the candidate columns
 constexpr int kMmaWarps = kWarpsM * kWarpsN;
 constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kSelWarps = 8;   // selection warps, each owning kBQ / kSelWarps rows
-constexpr int kSelRows = kBQ / kSelWarps;
 constexpr int kWarps = kMmaWarps + kSelWarps;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMT = kBQ / (16 * kWarpsM);  // m16 tiles per product warp
 constexpr int kRows = 2 * kMT;  // fragment rows per thread
-constexpr int kBC = 128;       // candidate columns per tile
 constexpr int kKC = 32;        // d per pipeline chunk: a ring row is 128 bytes
 constexpr int kStages = 2;     // ring depth: deeper rings measured no faster
 constexpr int kPad = 16;       // query-row padding (floats): stride ≡ 16 mod 32 banks
-constexpr int kBuf = 128;      // survivors per row between merges
-constexpr int kTStride = 128 + 4;  // score-tile row stride (floats): ≡ 4 mod 32 banks
 constexpr int kRerankRows = 8;  // table rows in flight per warp in the rerank
-constexpr int kNone = 0x7fffffff;  // the column of an empty queue slot
 
 struct SelectArgs {
   const float* q;              // (s, d)
@@ -205,126 +187,6 @@ struct SelectArgs {
   float* sval;                 // (s, k)
   float* dist;                 // (s, k) or null
 };
-
-__device__ __forceinline__ bool key_less(float va, int ia, float vb, int ib) {
-  return va < vb || (va == vb && ia < ib);
-}
-
-// A queue entry: its selection score and its column.
-struct Key {
-  float v;
-  int i;
-};
-
-__device__ __forceinline__ bool key_less(Key a, Key b) { return key_less(a.v, a.i, b.v, b.i); }
-
-// One step of a bitonic network over N·32 keys held by a warp, element
-// e = 32·s + lane in slot s: e and e ^ stride compare-exchange, ascending
-// where e & size is 0.  Strides below 32 pair lanes (shuffles), the others
-// pair slots of one lane.
-template <int N>
-__device__ __forceinline__ void bitonic_step(Key (&x)[N], int size, int stride, int lane) {
-  if (stride >= 32) {
-    const int ds = stride >> 5;
-#pragma unroll
-    for (int s = 0; s < N; ++s)
-      if ((s & ds) == 0 && key_less(x[s + ds], x[s]) == (((32 * s) & size) == 0)) {
-        const Key t = x[s];
-        x[s] = x[s + ds];
-        x[s + ds] = t;
-      }
-  } else {
-#pragma unroll
-    for (int s = 0; s < N; ++s) {
-      const int e = 32 * s + lane;
-      const Key y{__shfl_xor_sync(kFull, x[s].v, stride), __shfl_xor_sync(kFull, x[s].i, stride)};
-      // the lower element of an ascending pair keeps the lesser key
-      const bool keep_less = ((e & stride) == 0) == ((e & size) == 0);
-      if (key_less(y, x[s]) == keep_less) x[s] = y;
-    }
-  }
-}
-
-// Merge a row's n buffered survivors (smem, unsorted) into its sorted queue
-// of 32·NQ (smem), by one warp in registers: a bitonic sort of the buffer,
-// the elementwise min of the queue and the reversed buffer (a rising then
-// falling sequence holding the 32·NQ least of both), a bitonic merge.
-// Returns the row's new threshold, the key of queue entry k − 1, in every
-// lane.
-template <int NQ>
-__device__ __noinline__ Key merge_row(float* qv, int* qi, const float* bv, const int* bi, int n,
-                                      int k, int lane) {
-  constexpr int NB = kBuf / 32;
-  Key b[NB], q[NQ];
-  __syncwarp();  // the buffer's entries, written by any lane, are in
-#pragma unroll
-  for (int s = 0; s < NB; ++s) {
-    const int e = 32 * s + lane;
-    b[s] = e < n ? Key{bv[e], bi[e]} : Key{INFINITY, kNone};
-  }
-#pragma unroll
-  for (int s = 0; s < NQ; ++s) q[s] = Key{qv[32 * s + lane], qi[32 * s + lane]};
-  __syncwarp();  // every lane has read the buffer before it is refilled
-#pragma unroll
-  for (int size = 2; size <= kBuf; size <<= 1)
-#pragma unroll
-    for (int stride = size >> 1; stride > 0; stride >>= 1) bitonic_step<NB>(b, size, stride, lane);
-#pragma unroll
-  for (int s = 0; s < NQ; ++s) {
-    const int sb = NQ - 1 - s;  // queue entry 32s + l meets buffer entry 32·sb + 31 − l
-    if (sb < NB) {
-      const Key y{__shfl_sync(kFull, b[sb].v, 31 - lane), __shfl_sync(kFull, b[sb].i, 31 - lane)};
-      if (key_less(y, q[s])) q[s] = y;
-    }
-  }
-#pragma unroll
-  for (int stride = 16 * NQ; stride > 0; stride >>= 1)
-    bitonic_step<NQ>(q, 64 * NQ, stride, lane);
-  Key t{INFINITY, kNone};
-#pragma unroll
-  for (int s = 0; s < NQ; ++s) {
-    qv[32 * s + lane] = q[s].v;
-    qi[32 * s + lane] = q[s].i;
-    if (s == (k - 1) >> 5) t = q[s];
-  }
-  return Key{__shfl_sync(kFull, t.v, (k - 1) & 31), __shfl_sync(kFull, t.i, (k - 1) & 31)};
-}
-
-__device__ __forceinline__ Key merge_row(float* qv, int* qi, const float* bv, const int* bi,
-                                         int n, int k, int kq, int lane) {
-  switch (kq) {
-    case 32: return merge_row<1>(qv, qi, bv, bi, n, k, lane);
-    case 64: return merge_row<2>(qv, qi, bv, bi, n, k, lane);
-    case 128: return merge_row<4>(qv, qi, bv, bi, n, k, lane);
-    default: return merge_row<8>(qv, qi, bv, bi, n, k, lane);
-  }
-}
-
-// Named barriers: 0 is __syncthreads; the product warps' own per chunk;
-// per score-tile slot (up to 4), "full" (the product warps wrote it) and
-// "empty" (the selection warps are done with it).
-constexpr int kBarMma = 1, kBarFull = 2, kBarEmpty = 6;
-
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low 16 bits
@@ -463,10 +325,7 @@ shortlist_select_kernel(SelectArgs p, int n_slots) {
   float* strip = smem;                                  // [kBQ][l_stride]
   float* ring = strip + kBQ * l_stride;                 // [kStages][kBC][kKC]
   float* tiles = ring + kStages * kBC * kKC;            // [n_slots][kBQ][kTStride]
-  float* qv = tiles + n_slots * kBQ * kTStride;         // [kBQ][kq]
-  int* qi = reinterpret_cast<int*>(qv + kBQ * kq);      // [kBQ][kq]
-  float* bv = reinterpret_cast<float*>(qi + kBQ * kq);  // [kBQ][kBuf]
-  int* bi = reinterpret_cast<int*>(bv + kBQ * kBuf);    // [kBQ][kBuf]
+  const Rows rs = carve_rows(tiles + n_slots * kBQ * kTStride, kq, thv, thi, cnt);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.x * kBQ;
@@ -503,15 +362,7 @@ shortlist_select_kernel(SelectArgs p, int n_slots) {
       v = __ldg(reinterpret_cast<const float4*>(p.q + static_cast<size_t>(q0 + r) * p.d + k));
     *reinterpret_cast<float4*>(strip + r * l_stride + k) = v;
   }
-  for (int i = tid; i < kBQ * kq; i += kThreads) {
-    qv[i] = INFINITY;
-    qi[i] = kNone;
-  }
-  if (tid < kBQ) {
-    thv[tid] = INFINITY;
-    thi[tid] = kNone;
-    cnt[tid] = 0;
-  }
+  init_rows(rs, kq, tid, kThreads);
   __syncthreads();
 
   if (warp < kMmaWarps) {
@@ -533,7 +384,7 @@ shortlist_select_kernel(SelectArgs p, int n_slots) {
       float acc[kMT][4][4] = {};
       for (int kc = 0; kc < nkc; ++kc) {
         cp_async_wait<kStages - 2>();
-        bar_sync(kBarMma, kMmaThreads);  // this chunk is in; the oldest slot is free
+        bar_sync(kBarScore, kMmaThreads);  // this chunk is in; the oldest slot is free
         load_next();
         chunk_products<kBf16>(acc, strip, l_stride, kc * kKC, ring + slot * kBC * kKC, wm, wn,
                               gq, tq);
@@ -574,77 +425,24 @@ shortlist_select_kernel(SelectArgs p, int n_slots) {
     cp_async_wait<0>();
   } else {
     // selection warps: each owns kSelRows rows' queues, thresholds and
-    // buffers, so no other warp waits on its merges.  Lane l scans columns
-    // 4l .. 4l + 3 of each of its rows.
+    // buffers, so no other warp waits on its merges
     const int r0 = (warp - kMmaWarps) * kSelRows;
-    const int r1 = min(r0 + kSelRows, n_rows);
-    const unsigned below = (1u << lane) - 1;
-    for (int t = 0; t < n_tiles; ++t) {
-      const int c0 = t * kBC + 4 * lane, ts = t % n_slots;
-      bar_sync(kBarFull + ts, kThreads);
-      const float* tile = tiles + ts * kBQ * kTStride + 4 * lane;
-#pragma unroll 1
-      for (int r = r0; r < r1; ++r) {
-        const float4 v4 = *reinterpret_cast<const float4*>(tile + r * kTStride);
-        const float v[4] = {v4.x, v4.y, v4.z, v4.w};
-        float tv = thv[r];
-        int ti = thi[r];
-        bool pass[4];
-#pragma unroll
-        for (int h = 0; h < 4; ++h) pass[h] = c0 + h < p.c && key_less(v[h], c0 + h, tv, ti);
-        if (!__any_sync(kFull, pass[0] || pass[1] || pass[2] || pass[3])) continue;
-        float* rbv = bv + r * kBuf;
-        int* rbi = bi + r * kBuf;
-        int n = cnt[r];
-#pragma unroll
-        for (int h = 0; h < 4; ++h) {
-          for (;;) {
-            const unsigned ball = __ballot_sync(kFull, pass[h]);
-            if (ball == 0) break;
-            const int pos = n + __popc(ball & below);
-            if (pass[h] && pos < kBuf) {
-              rbv[pos] = v[h];
-              rbi[pos] = c0 + h;
-              pass[h] = false;
-            }
-            n = min(kBuf, n + __popc(ball));
-            if (n < kBuf) break;
-            // a full buffer: merge it, and hold what waits to the new threshold
-            const Key th = merge_row(qv + r * kq, qi + r * kq, rbv, rbi, kBuf, p.k, kq, lane);
-            tv = th.v;
-            ti = th.i;
-            n = 0;
-#pragma unroll
-            for (int h2 = h; h2 < 4; ++h2) pass[h2] = pass[h2] && key_less(v[h2], c0 + h2, tv, ti);
-          }
-        }
-        __syncwarp();  // every lane has read the row's state
-        if (lane == 0) {
-          thv[r] = tv;
-          thi[r] = ti;
-          cnt[r] = n;
-        }
-        __syncwarp();
-      }
-      if (t + n_slots < n_tiles) bar_arrive(kBarEmpty + ts, kThreads);
-    }
-    for (int r = r0; r < r1; ++r)
-      if (cnt[r] > 0)
-        merge_row(qv + r * kq, qi + r * kq, bv + r * kBuf, bi + r * kBuf, cnt[r], p.k, kq, lane);
+    select_rows(tiles, n_slots, n_tiles, p.c, p.k, kq, rs, r0, min(r0 + kSelRows, n_rows), lane,
+                kThreads);
   }
   __syncthreads();
 
   for (int i = tid; i < n_rows * p.k; i += kThreads) {
     const int r = i / p.k, j = i % p.k;
     const size_t o = static_cast<size_t>(q0 + r) * p.k + j;
-    p.sidx[o] = qi[r * kq + j];
-    p.sval[o] = qv[r * kq + j];
+    p.sidx[o] = rs.qi[r * kq + j];
+    p.sval[o] = rs.qv[r * kq + j];
   }
   if (p.rerank == 0) return;
   const float4* tab = reinterpret_cast<const float4*>(p.cands);
   for (int r = warp; r < n_rows; r += kWarps) {
     const float4* qrow = reinterpret_cast<const float4*>(strip + r * l_stride);
-    const int* rq = qi + r * kq;
+    const int* rq = rs.qi + r * kq;
     float* orow = p.dist + static_cast<size_t>(q0 + r) * p.k;
     if (p.rerank == 2)
       row_dists<true, kRerankRows>(qrow, tab, p.d / 4, p.k, [&](int u) { return rq[u]; }, orow,
@@ -660,14 +458,14 @@ size_t select_smem(int d, int kq, int n_slots) {
   return sizeof(float) * (static_cast<size_t>(kBQ) * (d_pad + kPad) +
                           static_cast<size_t>(kStages) * kBC * kKC +
                           static_cast<size_t>(n_slots) * kBQ * kTStride) +
-         (sizeof(float) + sizeof(int)) * kBQ * static_cast<size_t>(kq + kBuf);
+         queue_smem(kq);
 }
 
 // As many score-tile slots as fit, up to 4: they absorb the selection
 // warps' bursts of merges.
 template <bool kBf16>
 int launch_select(const SelectArgs& a, size_t room, cudaStream_t stream) {
-  int n_slots = 4;
+  int n_slots = kMaxSlots;
   while (n_slots > 1 && select_smem(a.d, a.kq, n_slots) > room) --n_slots;
   const size_t smem = select_smem(a.d, a.kq, n_slots);
   if (smem > room) return cudaErrorInvalidValue;

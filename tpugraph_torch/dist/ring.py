@@ -18,11 +18,16 @@ group at the end, so every rank returns the same answer, and the replicas
 along the feature and slice axes compute the same results in their own
 graph groups.
 
-* Mining and eval fold one distance tile (``train/eval.py::dist_tile``) per
-  held block.  Ties go to the lower global candidate index, as
-  ``blockwise_knn_l1`` (``train/negatives.py``) orders them: the running
-  top-k keeps 64-bit keys of (the score's order-preserving bits, global
-  index), so the merge is exact and the same for every R and S.
+* Exact mining and eval fold one L1 search per held block
+  (``kernels/l1_search.py``: the block's own top k by ``l1_topk``, or its
+  count by ``l1_count``; on the card one kernel launch each, over the
+  rank's real queries and the block's real rows, padding and the partner
+  masked by index); sqeuclidean folds one distance tile
+  (``train/eval.py::dist_tile``).  Ties go to the lower global candidate
+  index, as ``blockwise_knn_l1`` (``train/negatives.py``) orders them: the
+  running top-k keeps 64-bit keys of (the score's order-preserving bits,
+  global index), so the merge is exact and the same for every R and S (a
+  distance does not depend on the block it is computed in).
 * CSLS (``csls_k > 0``) scores 2·d(q, j) − r(j), r(j) the mean distance of
   candidate j to its csls_k nearest queries: a first ring pass in which the
   candidates stay home and the query chunks travel (``_ring_hubness``),
@@ -55,7 +60,7 @@ graph groups.
   best by the exact metric; with CSLS the score stays exact (the exact
   hubness, then 2·d − r): sqeuclidean through the kernel with a = 2, bias
   r, each block keeping its own top k; cityblock in the exact path's L1
-  tiles, whose merge is the same.  The history eval shortlists
+  search, whose merge is the same.  The history eval shortlists
   min(b, approx_k) per block by the sqeuclidean score (2·d₂ − r₂ with
   CSLS) and counts within it by exact L1 (its CSLS score), the hubness
   pair (r₂, r₁) from ``_ring_hubness_approx`` (each candidate's csls_k
@@ -74,13 +79,14 @@ import torch
 import torch.distributed as dist
 
 from tpugraph_torch.dist.mesh import ShardMesh
+from tpugraph_torch.kernels.l1_search import l1_count, l1_topk
 from tpugraph_torch.kernels.shortlist_dist import check_metric, select_rerank
 from tpugraph_torch.kernels.sinkhorn_fused import sinkhorn_potential_update, sq_norms
 from tpugraph_torch.train.eval import dist_tile, rank_metrics
 from tpugraph_torch.train.losses import pairwise_l1
 from tpugraph_torch.train.ot import _normalized_sides
 
-BLOCK_Q = 4096  # rows per tile: a (4,096, C_block) fp32 tile and its keys
+BLOCK_Q = 4096  # rows per sqeuclidean tile: a (4,096, C_block) fp32 tile and its keys
 _INF_BITS = 0x7F800000  # float32 +inf
 
 
@@ -186,6 +192,10 @@ def _ring_hubness(cands: torch.Tensor, q: torch.Tensor, k: int, metric: str,
 
     def visit(src, held):
         nv = _valid(q.shape[0], src, mesh)
+        if nv and metric == "cityblock":
+            d = l1_topk(own, held[0][:nv], min(k, nv))[0]
+            run[:] = torch.topk(torch.cat([run, d], dim=1), k, dim=1, largest=False).values
+            return
         for a in range(0, own.shape[0] if nv else 0, BLOCK_Q):
             d = dist_tile(own[a:a + BLOCK_Q], held[0][:nv], metric)
             run[a:a + BLOCK_Q] = torch.topk(torch.cat([run[a:a + BLOCK_Q], d], dim=1), k,
@@ -258,7 +268,17 @@ def ring_knn(q: torch.Tensor, cands: torch.Tensor, exclude: torch.Tensor, k: int
     keys = init.expand(qs.shape[0], k).clone()
     k2 = min(bc, max(2 * k, k + 8))
 
-    def exact(held, j, gidx, cb):
+    def exact(held, j, g, cb):
+        if metric == "cityblock":  # the block's own top k over its real rows
+            nv = _block_rows(c, g, bc)
+            if nv == 0 or nq == 0:
+                return
+            csls = dict(a=2.0, bias=held[1][j * bc:j * bc + nv]) if csls_k > 0 else {}
+            v, i = l1_topk(qs[:nq], cb[:nv], min(k, nv), exclude=_local(ex[:nq], g * bc, nv),
+                           **csls)
+            keys[:nq] = _merge(keys[:nq], _keys(v, g * bc + i))[0]
+            return
+        gidx = g * bc + torch.arange(bc, device=q.device)
         for a in range(0, qs.shape[0], BLOCK_Q):
             d = dist_tile(qs[a:a + BLOCK_Q], cb, metric)
             if csls_k > 0:
@@ -285,12 +305,12 @@ def ring_knn(q: torch.Tensor, cands: torch.Tensor, exclude: torch.Tensor, k: int
         for j in range(mesh.per_rank):  # the source's shards' blocks, in order
             g = src * mesh.per_rank + j
             cb = held[0][j * bc:(j + 1) * bc]
-            # cityblock CSLS has no shortlist kernel: its L1 tiles are exact,
-            # and the merge of a block's own top k is the exact merge
+            # cityblock CSLS has no shortlist: its search is exact, and the
+            # merge of a block's own top k is the exact merge
             if approx and not (csls_k > 0 and metric == "cityblock"):
                 shortlisted(held, j, g, cb)
             else:
-                exact(held, j, g * bc + torch.arange(bc, device=q.device), cb)
+                exact(held, j, g, cb)
 
     _ring_pass(held, mesh, visit)
     idx = keys & 0xFFFFFFFF
@@ -322,13 +342,13 @@ def _ring_ranks(q: torch.Tensor, cands: torch.Tensor, d_true: torch.Tensor,
     qid = r0 + torch.arange(qs.shape[0], device=q.device)
     count = torch.zeros(qs.shape[0], dtype=torch.int64, device=q.device)
 
-    def exact(held, j, gcol, cb):
-        for a in range(0, qs.shape[0], BLOCK_Q):
-            d = dist_tile(qs[a:a + BLOCK_Q], cb)
-            if csls_k > 0:
-                d = 2.0 * d - held[1][None, j * b:(j + 1) * b]
-            ok = (gcol[None, :] < n) & (gcol[None, :] != qid[a:a + BLOCK_Q, None])
-            count[a:a + BLOCK_Q] += ((d < th[a:a + BLOCK_Q, None]) & ok).sum(dim=1)
+    def exact(held, j, g, cb):
+        nv = _block_rows(n, g, b)
+        if nv == 0 or nq == 0:
+            return
+        csls = dict(a=2.0, bias=held[1][j * b:j * b + nv]) if csls_k > 0 else {}
+        count[:nq] += l1_count(qs[:nq], cb[:nv], th[:nq], self_col=_local(qid[:nq], g * b, nv),
+                               **csls)
 
     def shortlisted(held, j, g, cb):
         nv = _block_rows(n, g, b)
@@ -350,7 +370,7 @@ def _ring_ranks(q: torch.Tensor, cands: torch.Tensor, d_true: torch.Tensor,
             if approx_k > 0:
                 shortlisted(held, j, g, cb)
             else:
-                exact(held, j, g * b + torch.arange(b, device=q.device), cb)
+                exact(held, j, g, cb)
 
     _ring_pass(held, mesh, visit)
     return _gather(count, mesh)[:n]

@@ -1,9 +1,10 @@
 """Alignment serving (counterpart of ``tpugraph/serve.py``).
 
-* ``topk_alignments`` — blockwise top-k candidate search with a running
-  top-k, over query blocks × candidate blocks (never the full distance
-  matrix); ``csls_k > 0`` ranks by the CSLS score 2·d(q, j) − r(j), r the
-  candidate's hubness over the query pool (``train/negatives.py``).
+* ``topk_alignments`` — the exact top-k candidate search, one
+  ``kernels/l1_search.py::l1_topk`` (on the card one kernel launch with a
+  running queue per query, never the distance matrix); ``csls_k > 0``
+  ranks by the CSLS score 2·d(q, j) − r(j), r the candidate's hubness over
+  the query pool (``train/negatives.py``).
   ``approx_k > 0`` searches within a shortlist per query instead
   (``_topk_prefiltered``): the ``max(approx_k, k)`` nearest by the
   sqeuclidean score, selected exactly (the JAX package's ``approx_min_k``
@@ -21,12 +22,9 @@ import numpy as np
 import torch
 
 from tpugraph_torch import resolve_device
+from tpugraph_torch.kernels.l1_search import l1_topk
 from tpugraph_torch.kernels.shortlist_dist import select_rerank
-from tpugraph_torch.train.losses import pairwise_l1
 from tpugraph_torch.train.negatives import _cand_hubness, _hubness_both_approx
-
-
-BLOCK_Q = 256  # queries per block: (256, 2048, 128) fp32 is 268 MB
 
 
 def _topk_blockwise(q: torch.Tensor, cands: torch.Tensor, k: int, block_c: int = 2048,
@@ -34,31 +32,17 @@ def _topk_blockwise(q: torch.Tensor, cands: torch.Tensor, k: int, block_c: int =
     """(values, candidate positions), each (Q, k), best first; the values
     are L1 distances, or CSLS scores when ``csls_k > 0``.
 
-    Merges each candidate block into the running top-k with a stable sort,
-    so equal scores keep the earlier candidate — the order ``lax.top_k``
+    Equal scores keep the earlier candidate — the order ``lax.top_k``
     gives.  A pool smaller than k leaves inf-valued entries pointing at
-    position 0, as the JAX path does."""
-    s = q.shape[0]
-    c = cands.shape[0]
-    r_cand = _cand_hubness(q, cands, csls_k) if csls_k > 0 else None
-    vals = torch.empty((s, k), dtype=torch.float32, device=q.device)
-    idx = torch.empty((s, k), dtype=torch.int64, device=q.device)
-    for q0 in range(0, s, BLOCK_Q):
-        qb = q[q0:q0 + BLOCK_Q]
-        rv = torch.full((qb.shape[0], k), float("inf"), device=q.device)
-        ri = torch.zeros((qb.shape[0], k), dtype=torch.int64, device=q.device)
-        for c0 in range(0, c, block_c):
-            cb = cands[c0:c0 + block_c]
-            dmat = pairwise_l1(qb[:, None, :], cb[None, :, :]).float()
-            if r_cand is not None:
-                dmat = 2.0 * dmat - r_cand[None, c0:c0 + block_c]
-            cidx = torch.arange(c0, c0 + cb.shape[0], device=q.device).expand(qb.shape[0], -1)
-            allv = torch.cat([rv, dmat], dim=1)
-            alli = torch.cat([ri, cidx], dim=1)
-            sv, pos = torch.sort(allv, dim=1, stable=True)
-            rv, ri = sv[:, :k], alli.gather(1, pos[:, :k])
-        vals[q0:q0 + qb.shape[0]] = rv
-        idx[q0:q0 + qb.shape[0]] = ri
+    position 0, as the JAX path does.  ``block_c`` is kept for the JAX
+    signature."""
+    q, cands = q.contiguous(), cands.contiguous()
+    kk = min(k, cands.shape[0])
+    csls = dict(a=2.0, bias=_cand_hubness(q, cands, csls_k)) if csls_k > 0 else {}
+    vals, idx = l1_topk(q, cands, kk, **csls)
+    if kk < k:
+        vals = torch.cat([vals, vals.new_full((vals.shape[0], k - kk), float("inf"))], 1)
+        idx = torch.cat([idx, idx.new_zeros((idx.shape[0], k - kk))], 1)
     return vals, idx
 
 

@@ -7,8 +7,10 @@ non-seed entities, the ``cap`` most confident by the direction-1 score, each
 added to the margin loss with weight ``boot_weight``.  The proposal is
 stateless: recomputed from the current embeddings each interval.
 
-The exact nearest neighbour (L1 or sqeuclidean) is blocked over queries and
-candidates (``eval.dist_tile``).  ``approx=True`` (``boot_approx``)
+The exact nearest neighbour is one ``kernels/l1_search.py::l1_topk`` at
+k = 1 for L1 (on the card one kernel launch per direction, no distance
+tile in device memory) and blocked over queries (``eval.dist_tile``) for
+sqeuclidean.  ``approx=True`` (``boot_approx``)
 shortlists 16 candidates per query by a selection score whose product
 takes both operands rounded to bf16 (products of bf16 values are exact in
 fp32; the norms come from the unrounded rows), as the JAX package's bf16
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from tpugraph_torch.kernels.l1_search import l1_topk
 from tpugraph_torch.kernels.shortlist_dist import check_metric, select_rerank
 from tpugraph_torch.train.eval import BLOCK_Q, dist_tile, sq_norms
 from tpugraph_torch.train.negatives import _cand_hubness, _hubness_both_approx
@@ -42,7 +45,11 @@ def _nn1(q: torch.Tensor, cands: torch.Tensor, c_mask: torch.Tensor, block_c: in
         return _nn1_prefiltered(q, cands, c_mask, metric=metric, csls_k=csls_k)
     s = q.shape[0]
     r = _cand_hubness(q, cands, csls_k, metric, block_c) if csls_k > 0 else None
-    c2 = sq_norms(cands) if metric == "sqeuclidean" else None
+    if metric == "cityblock":
+        csls = {} if r is None else dict(a=2.0, bias=r)
+        vals, idx = l1_topk(q, cands, 1, col_mask=c_mask.contiguous(), **csls)
+        return vals[:, 0], idx[:, 0]
+    c2 = sq_norms(cands)
     vals = torch.empty(s, dtype=torch.float32, device=q.device)
     idx = torch.empty(s, dtype=torch.int64, device=q.device)
     for q0 in range(0, s, BLOCK_Q):

@@ -5,11 +5,11 @@
 with s = d, the L1 distance, or with ``csls_k > 0`` the CSLS score
 s(q, j) = 2·d(q, j) − r(j), r(j) the mean distance of candidate j to its
 csls_k nearest queries (the query's own term cancels within a row).
-The exact path counts over query blocks × candidate blocks, so no more
-than a (block_q, block_c, d) difference tensor exists at a time (a single
-query block against 1,024 candidates at 10,500 × 128 would be 5.5 GB).
-The true match is excluded by index, not by its score tying the
-threshold.
+The exact path is the L1 search (``kernels/l1_search.py``): the counts
+one ``l1_count`` per direction, the hubness terms one ``l1_topk`` each (on
+the card one kernel launch apiece, with no distance tile in device
+memory).  The true match is excluded by index, not by its score tying
+the threshold.
 
 ``approx_k > 0`` (the training-history evals, ``eval_approx_k``) counts
 within a shortlist instead: each query's ``approx_k`` nearest candidates
@@ -19,7 +19,9 @@ in exact L1 in the same select-and-rerank call
 (``kernels/shortlist_dist.py::select_rerank``).  With CSLS both hubness
 terms come from one sqeuclidean-selected sweep
 (``negatives._hubness_both_approx``).
-``dist_tile`` is the (Q, C) distance tile that the search paths share.
+``dist_tile`` is the (Q, C) distance tile of the sqeuclidean search paths
+(an fp32 product, as the JAX package computes it outside any kernel) and
+of cityblock callers that need the whole tile (``l1_search.l1_tile``).
 """
 
 from __future__ import annotations
@@ -27,27 +29,26 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpugraph_torch.kernels.l1_search import l1_count, l1_tile, l1_topk
 from tpugraph_torch.kernels.shortlist_dist import check_metric, select_rerank, sq_norms
 from tpugraph_torch.train.losses import pairwise_l1
 
 
-BLOCK_Q = 256  # queries per block: (256, 1024, 128) fp32 is 134 MB
+BLOCK_Q = 256  # queries per sqeuclidean block of the exact search paths
 
 
 def dist_tile(q: torch.Tensor, cands: torch.Tensor, metric: str = "cityblock",
               block_c: int = 1024, c2: torch.Tensor | None = None) -> torch.Tensor:
-    """(Q, C) fp32 distances.  cityblock: L1 over BLOCK_Q × block_c
-    blocks.  sqeuclidean: the expanded form ‖q‖² + ‖c‖² − 2·q·c in one
-    fp32 product, not clamped at 0, as in the JAX package (``c2``: the
+    """(Q, C) fp32 distances.  cityblock: ``l1_search.l1_tile`` (``block_c``
+    is kept for the JAX signature: the search blocks its own work).
+    sqeuclidean: the expanded form ‖q‖² + ‖c‖² − 2·q·c in one fp32
+    product, not clamped at 0, as in the JAX package (``c2``: the
     candidates' ``sq_norms``, when the caller holds them)."""
     check_metric(metric)
     if metric == "sqeuclidean":
         c2 = sq_norms(cands) if c2 is None else c2
         return sq_norms(q)[:, None] + c2[None, :] - 2.0 * (q.float() @ cands.float().t())
-    return torch.cat([
-        torch.cat([pairwise_l1(q[q0:q0 + BLOCK_Q, None, :], cands[None, c0:c0 + block_c, :])
-                   .float() for c0 in range(0, cands.shape[0], block_c)], dim=1)
-        for q0 in range(0, q.shape[0], BLOCK_Q)], dim=0)
+    return l1_tile(q.contiguous(), cands.contiguous())
 
 
 def _ranks_l1(q: torch.Tensor, cands: torch.Tensor, d_true: torch.Tensor,
@@ -56,38 +57,24 @@ def _ranks_l1(q: torch.Tensor, cands: torch.Tensor, d_true: torch.Tensor,
     """For each query, count candidates strictly closer than its true match
     (candidate i is query i's true match: position-aligned pools).  With
     (cand_corr, true_corr) candidate j scores 2·d(q, j) − cand_corr[j]
-    against the threshold 2·d_true − true_corr."""
+    against the threshold 2·d_true − true_corr.  One ``l1_count``
+    (``block_c`` is kept for the JAX signature)."""
     s, c = q.shape[0], cands.shape[0]
     if s != c:
         raise ValueError(f"_ranks_l1 requires position-aligned pools, got S={s} C={c}")
-    thresh_all = d_true if cand_corr is None else 2.0 * d_true - true_corr
-    ranks = torch.empty(s, dtype=torch.int64, device=q.device)
-    for q0 in range(0, s, BLOCK_Q):
-        qb = q[q0:q0 + BLOCK_Q]
-        thresh = thresh_all[q0:q0 + BLOCK_Q, None]
-        row_ids = torch.arange(q0, q0 + qb.shape[0], device=q.device)[:, None]
-        count = torch.zeros(qb.shape[0], dtype=torch.int64, device=q.device)
-        for c0 in range(0, c, block_c):
-            cb = cands[c0:c0 + block_c]
-            score = pairwise_l1(qb[:, None, :], cb[None, :, :])
-            if cand_corr is not None:
-                score = 2.0 * score - cand_corr[None, c0:c0 + block_c]
-            col_ids = torch.arange(c0, c0 + cb.shape[0], device=q.device)[None, :]
-            count += ((score < thresh) & (col_ids != row_ids)).sum(dim=1)
-        ranks[q0:q0 + qb.shape[0]] = count
-    return ranks
+    csls = {} if cand_corr is None else dict(a=2.0, bias=cand_corr.contiguous())
+    thresh = d_true if cand_corr is None else 2.0 * d_true - true_corr
+    return l1_count(q.contiguous(), cands.contiguous(), thresh.float().contiguous(),
+                    self_col=torch.arange(s, device=q.device), **csls)
 
 
 def _knn_mean_l1(q: torch.Tensor, cands: torch.Tensor, k: int,
                  block_c: int = 1024) -> torch.Tensor:
     """Mean L1 distance of each query to its k nearest candidates (the CSLS
-    hubness term), k clamped to the pool size."""
+    hubness term), k clamped to the pool size: one ``l1_topk``'s values
+    (``block_c`` is kept for the JAX signature)."""
     k = min(k, cands.shape[0])
-    out = torch.empty(q.shape[0], dtype=torch.float32, device=q.device)
-    for q0 in range(0, q.shape[0], BLOCK_Q):
-        dist = dist_tile(q[q0:q0 + BLOCK_Q], cands, block_c=block_c)
-        out[q0:q0 + BLOCK_Q] = torch.topk(dist, k, dim=1, largest=False).values.mean(dim=1)
-    return out
+    return l1_topk(q.contiguous(), cands.contiguous(), k)[0].mean(dim=1)
 
 
 def _ranks_l1_prefiltered(q: torch.Tensor, cands: torch.Tensor, d_true: torch.Tensor,

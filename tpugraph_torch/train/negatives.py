@@ -6,10 +6,12 @@
   the CPU and on the card.  The numbers differ from ``jax.random``'s for the
   same seed; the parity tests inject one set of ids into both packages.
 * hard, exact (``approx=False``): the k nearest non-partner entities of the
-  opposite KG in L1 or sqeuclidean (``metric``), blocked over queries, each
-  block keeping its (BLOCK_Q, C) distance row (``eval.dist_tile``) and
-  taking one ``topk``: the same k smallest as the JAX package's running
-  merge, without a sort per candidate block.  ``csls_k > 0`` ranks by the
+  opposite KG in L1 or sqeuclidean (``metric``): cityblock in one
+  ``kernels/l1_search.py::l1_topk`` (on the card one kernel launch with a
+  running queue per query, no distance tile in device memory);
+  sqeuclidean blocked over queries, each block keeping its (BLOCK_Q, C)
+  distance row (``eval.dist_tile``) and taking one ``topk``: the same k
+  smallest as the JAX package's running merge.  ``csls_k > 0`` ranks by the
   CSLS score 2·d(q, j) − r(j), r the candidate's hubness over the whole
   query pool (the query's own term cannot change a row's top k).  Where the
   pool is smaller than k, the JAX package's sqeuclidean path pads with a
@@ -23,7 +25,7 @@
   device memory).  Cityblock without CSLS shortlists
   ``k_short = min(C, max(2k, k + 8))`` candidates by the sqeuclidean score
   and keeps the k nearest in exact L1; sqeuclidean selects the k directly;
-  cityblock with CSLS selects from exact L1 tiles of 4,096 queries.  The JAX
+  cityblock with CSLS selects exactly through ``l1_topk``.  The JAX
   package selects with ``lax.approx_min_k`` (approximate on the TPU, exact
   on the CPU); the port selects exactly.  Mining returns index sets: their
   order within a row is not part of the contract.
@@ -37,11 +39,11 @@ from __future__ import annotations
 
 import torch
 
+from tpugraph_torch.kernels.l1_search import l1_topk
 from tpugraph_torch.kernels.shortlist_dist import check_metric, select_rerank
 from tpugraph_torch.train.eval import BLOCK_Q, _knn_mean_l1, dist_tile, sq_norms
 
 HUB_BLOCK = 4096  # candidates per exact sqeuclidean hubness tile, as in the JAX package
-APPROX_BLOCK_Q = 4096  # queries per exact L1 tile of approximate CSLS cityblock mining
 
 
 def sample_uniform_negatives(gen: torch.Generator, pairs: torch.Tensor, n_ent_1: int,
@@ -71,23 +73,28 @@ def blockwise_knn_l1(q: torch.Tensor, cands: torch.Tensor, exclude: torch.Tensor
     s, c = q.shape[0], cands.shape[0]
     k_eff = min(k, c)
     r = _cand_hubness(q, cands, csls_k, metric, block_c) if csls_k > 0 else None
-    c2 = sq_norms(cands) if metric == "sqeuclidean" else None
-    out = torch.empty((s, k), dtype=torch.int64, device=q.device)
-    col_ids = torch.arange(c, device=q.device)
-    for q0 in range(0, s, BLOCK_Q):
-        dist = dist_tile(q[q0:q0 + BLOCK_Q], cands, metric, block_c, c2)
-        if r is not None:
-            dist = 2.0 * dist - r[None, :]
-        ex = exclude[q0:q0 + BLOCK_Q, None]
-        dist.masked_fill_(col_ids[None, :] == ex, float("inf"))
-        vals, idx = torch.topk(dist, k_eff, dim=1, largest=False, sorted=True)
-        if k_eff < k:  # tiny pool: the JAX merge's (inf, 0) init columns
-            pad = k - k_eff
-            vals = torch.cat([vals, vals.new_full((vals.shape[0], pad), float("inf"))], 1)
-            idx = torch.cat([idx, idx.new_zeros((idx.shape[0], pad))], 1)
-        bad = torch.isinf(vals) | (idx == ex)
-        out[q0:q0 + BLOCK_Q] = torch.where(bad, idx[:, :1], idx)
-    return out
+    exclude = exclude.contiguous()
+    if metric == "cityblock":
+        csls = {} if r is None else dict(a=2.0, bias=r)
+        vals, idx = l1_topk(q, cands, k_eff, exclude=exclude, **csls)
+    else:
+        c2 = sq_norms(cands)
+        col_ids = torch.arange(c, device=q.device)
+        vals = torch.empty((s, k_eff), dtype=torch.float32, device=q.device)
+        idx = torch.empty((s, k_eff), dtype=torch.int64, device=q.device)
+        for q0 in range(0, s, BLOCK_Q):
+            dist = dist_tile(q[q0:q0 + BLOCK_Q], cands, metric, block_c, c2)
+            if r is not None:
+                dist = 2.0 * dist - r[None, :]
+            dist.masked_fill_(col_ids[None, :] == exclude[q0:q0 + BLOCK_Q, None], float("inf"))
+            vals[q0:q0 + BLOCK_Q], idx[q0:q0 + BLOCK_Q] = torch.topk(dist, k_eff, dim=1,
+                                                                     largest=False, sorted=True)
+    if k_eff < k:  # tiny pool: the JAX merge's (inf, 0) init columns
+        pad = k - k_eff
+        vals = torch.cat([vals, vals.new_full((s, pad), float("inf"))], 1)
+        idx = torch.cat([idx, idx.new_zeros((s, pad))], 1)
+    bad = torch.isinf(vals) | (idx == exclude[:, None])
+    return torch.where(bad, idx[:, :1], idx)
 
 
 def _cand_hubness(q: torch.Tensor, cands: torch.Tensor, csls_k: int, metric: str = "cityblock",
@@ -119,12 +126,10 @@ def _hubness_both_approx(q_pool: torch.Tensor, cands: torch.Tensor,
 
 
 def _knn_query_blocked_approx(q: torch.Tensor, cands: torch.Tensor, exclude: torch.Tensor,
-                              k: int, metric: str, block_q: int = APPROX_BLOCK_Q,
-                              csls_k: int = 0,
+                              k: int, metric: str, csls_k: int = 0,
                               r_cand: torch.Tensor | None = None) -> torch.Tensor:
     """Approximate k-NN, selected by the sqeuclidean score through
-    ``select_rerank`` (cityblock with CSLS: from exact L1 tiles of
-    ``block_q`` queries).
+    ``select_rerank`` (cityblock with CSLS: exactly, through ``l1_topk``).
 
     ``r_cand``: the candidates' hubness for the CSLS score (the approximate
     eval passes the one it holds); computed here when None and
@@ -150,13 +155,7 @@ def _knn_query_blocked_approx(q: torch.Tensor, cands: torch.Tensor, exclude: tor
     elif metric == "sqeuclidean":
         idx = select_rerank(q, cands, k_eff, exclude=exclude, **csls)[0]
     else:
-        col_ids = torch.arange(c, device=q.device)
-        idx = torch.empty((s, k_eff), dtype=torch.int64, device=q.device)
-        for q0 in range(0, s, block_q):
-            ex = exclude[q0:q0 + block_q, None]
-            dmat = 2.0 * dist_tile(q[q0:q0 + block_q], cands) - r_cand[None, :]
-            dmat.masked_fill_(col_ids[None, :] == ex, float("inf"))
-            idx[q0:q0 + block_q] = torch.topk(dmat, k_eff, dim=1, largest=False).indices
+        idx = l1_topk(q, cands, k_eff, exclude=exclude, a=2.0, bias=r_cand.contiguous())[1]
     if k_eff < k:
         # tiny pool: repeat the row's best column, a valid negative (the
         # mask ran before selection)
