@@ -2,7 +2,12 @@
 
 Usage (from the repository root, on a machine with a CUDA card and nvcc):
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent-l1 DIR]
+
+``--parent-l1 DIR``: DIR holds another commit's ``l1_search.cu`` and
+``topk_queue.cuh`` (PR 19's entry points); ``phase_l1_search`` builds it
+there and holds the port's kernel to it at every shape, bit for bit and
+timed in turns.  Without it that comparison is not run.
 
 Phases, each printing one JSON line:
 
@@ -90,7 +95,9 @@ Phases, each printing one JSON line:
              count raw and CSLS, one ring block of ``dwy100k_dist`` v7r's
              mining and CSLS eval, and the tile route above the queue at
              k 300), timed beside the plain version, ``torch.cdist(p=1)``
-             with ``torch.topk`` or a compare-and-sum, and the bound.  The
+             with ``torch.topk`` or a compare-and-sum, and the bound, with
+             each launch's plan (strip, splits, units, waves, fill) and the
+             SM clock and power sampled while it runs.  The
              exact cityblock stages of every run (proposals, mining, CSLS
              hubness, evals, serving, the ring's) launch it, and each
              run's launches are held to ``_l1_launches``.
@@ -250,6 +257,7 @@ non-zero before that line.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import math
@@ -1869,7 +1877,102 @@ def _l1_library(entry: str, q, cands, k: int, kw: dict):
     return torch.topk(d, k, dim=1, largest=False)
 
 
-def _l1_case(name: str, entry: str, q, cands, k: int, kw: dict, smi: str) -> dict:
+def _parent_l1(src: str) -> dict:
+    """The L1 search of another commit: ``l1_search.cu`` (with its
+    ``topk_queue.cuh``) in ``src``, built there by nvcc with the port's
+    flags, its top-k and count entries (PR 19's C signatures) wrapped to
+    take the port's arguments."""
+    lib_path = os.path.join(src, "l1_search_parent.so")
+    t0 = time.perf_counter()
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib_path,
+                           os.path.join(src, "l1_search.cu")], capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the parent's l1_search.cu:\n{proc.stderr}")
+    lib = ctypes.CDLL(lib_path)
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.l1_topk_forward.argtypes = [P, P, P, P, P, F, I, I, I, I, I, P, P, P]
+    lib.l1_count_forward.argtypes = [P, P, P, P, P, F, I, I, I, P, P]
+    ptr = l1_search._ptr
+
+    def topk(q, cands, k, a=1.0, bias=None, col_mask=None, exclude=None):
+        vals = torch.empty((q.shape[0], k), dtype=torch.float32, device=q.device)
+        idx = torch.empty((q.shape[0], k), dtype=torch.int64, device=q.device)
+        l1_search._raise_on(lib.l1_topk_forward(
+            q.data_ptr(), cands.data_ptr(), ptr(bias), ptr(l1_search._mask_bytes(col_mask)),
+            ptr(exclude), float(a), q.shape[0], cands.shape[0], q.shape[1], k,
+            l1_search.queue_len(k), idx.data_ptr(), vals.data_ptr(), l1_search._stream(q)),
+            "parent l1_topk")
+        return vals, idx
+
+    def count(q, cands, thresh, a=1.0, bias=None, self_col=None):
+        out = torch.empty(q.shape[0], dtype=torch.int64, device=q.device)
+        l1_search._raise_on(lib.l1_count_forward(
+            q.data_ptr(), cands.data_ptr(), ptr(bias), thresh.data_ptr(), ptr(self_col),
+            float(a), q.shape[0], cands.shape[0], q.shape[1], out.data_ptr(),
+            l1_search._stream(q)), "parent l1_count")
+        return out
+
+    emit({"phase": "parent_l1_build", "src": src, "build_s": time.perf_counter() - t0,
+          "ptxas": [ln for ln in (proc.stdout + proc.stderr).splitlines()
+                    if "registers" in ln or "spill" in ln]})
+    return {"topk": topk, "count": count}
+
+
+def _smi_sample(fn, seconds: float = 1.0) -> dict:
+    """The SM clock (MHz) and power draw (W) that ``nvidia-smi`` samples
+    every 100 ms while ``fn`` runs back to back for ``seconds``: the median
+    of the samples after the first."""
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                             "--format=csv,noheader,nounits", "-lms", "100"],
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(4):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0]
+    rows = [ln.split(",") for ln in out.splitlines() if ln.count(",") == 1]
+    vals = [(float(a), float(b)) for a, b in rows[1:]
+            if a.strip().replace(".", "", 1).isdigit() and b.strip().replace(".", "", 1).isdigit()]
+    if not vals:
+        return {"sm_clock_mhz": None, "power_w": None, "samples": 0}
+    return {"sm_clock_mhz": float(np.median([v[0] for v in vals])),
+            "power_w": float(np.median([v[1] for v in vals])), "samples": len(vals)}
+
+
+def _l1_plan(entry: str, q, cands, k: int) -> dict:
+    """The plan ``l1_search`` launches this call with."""
+    kq = l1_search.queue_len(k) if entry == "topk" else 32
+    p, stages = l1_search._planned(q, cands.shape[0], k, entry, kq, None)
+    return {"strip": p.strip, "tile": p.tile, "splits": p.splits(), "units": p.units,
+            "slots": p.slots, "waves": p.waves, "fill": p.fill, "stages": stages,
+            "blocks_per_sm": p.slots // torch.cuda.get_device_properties(q.device)
+            .multi_processor_count}
+
+
+def _l1_parent_case(entry: str, kernel, parent_fn, args, opts, got) -> dict:
+    """The parent commit's kernel on the same inputs: its outputs against
+    this kernel's bit for bit, and both timed in turns (parent, this, this,
+    parent) by CUDA events."""
+    def old():
+        return parent_fn(*args, **opts)
+
+    want = old()
+    torch.cuda.synchronize()
+    bitwise = (all(torch.equal(a, b) for a, b in zip(got, want)) if entry == "topk"
+               else torch.equal(got, want))
+    times = [time_ms(f, warmup=2, iters=10) for f in (old, kernel, kernel, old)]
+    return {"bitwise": bitwise, "parent_ms": (times[0] + times[3]) / 2,
+            "ms": (times[1] + times[2]) / 2, "ratio": (times[1] + times[2]) / (times[0] + times[3]),
+            "turns_ms": times}
+
+
+def _l1_case(name: str, entry: str, q, cands, k: int, kw: dict, smi: str,
+             parent: dict | None = None) -> dict:
     """One L1 search entry on the card against its plain version (top-k:
     the same sets on ≥ 99 % of rows and, where they agree, the values within
     rtol L1_TOL, atol L1_TOL of the distance scale; count: equal but for the
@@ -1932,6 +2035,14 @@ def _l1_case(name: str, entry: str, q, cands, k: int, kw: dict, smi: str) -> dic
         raise AssertionError(f"l1_search ({name}): {check}, bit for bit {bitwise}, launches "
                              f"{launched} (expected {want_launch})")
     bound, bound_by = _l1_bound(entry, s, c, d, k, kw)
+    below = k <= l1_search.QUEUE_MAX
+    plan = _l1_plan(entry, q, cands, k) if below else None
+    versus = (_l1_parent_case(entry, kernel, parent[entry], args, opts, got)
+              if parent is not None and below else None)
+    if versus is not None and not versus["bitwise"]:
+        raise AssertionError(f"l1_search ({name}): the outputs differ from the parent "
+                             f"kernel's ({versus})")
+    clock = _smi_sample(kernel)
     ms = time_ms(kernel)
     # below the queue a call is one kernel, so a trace holding fewer device
     # events than calls lost records (its reading would be low): taken
@@ -1952,13 +2063,14 @@ def _l1_case(name: str, entry: str, q, cands, k: int, kw: dict, smi: str) -> dic
                share_of_bound_device=ratio(bound, dev_ms),
                library_ms=time_ms(lambda: _l1_library(entry, q, cands, k, kw), warmup=1,
                                   iters=2),
-               library="torch.cdist(p=1), then torch.topk or a compare-and-sum")
+               library="torch.cdist(p=1), then torch.topk or a compare-and-sum",
+               plan=plan, **clock, parent=versus)
     emit({"phase": "kernel", "kernel": "l1_search", "caller": name, **out,
           "bit_identical_runs": True, "card": smi})
     return out
 
 
-def phase_l1_search(smi: str, dev: torch.device) -> dict:
+def phase_l1_search(smi: str, dev: torch.device, parent_src: str | None = None) -> dict:
     """The L1 search's two entries on the card against their plain versions
     at each caller's shape (``L1_SHAPES``): random rows; the partner of
     query i at a random column; a mask of 24 % of the columns (the seed
@@ -1966,7 +2078,9 @@ def phase_l1_search(smi: str, dev: torch.device) -> dict:
     the counts each row's threshold its true match's score, as the eval's:
     the match at column i (aligned pools) or at a random column of the
     block, excluded by index, or (-1) outside the block, a row of its
-    own."""
+    own.  With ``parent_src`` each shape also runs the kernel built from
+    that directory (``_parent_l1``): outputs bit for bit, times in turns."""
+    parent = _parent_l1(parent_src) if parent_src is not None else None
     rng = np.random.default_rng(8)
     out = {}
     t0 = time.perf_counter()
@@ -1991,7 +2105,7 @@ def phase_l1_search(smi: str, dev: torch.device) -> dict:
             d_true = pairwise_l1(q, match).float()
             kw["thresh"] = (2.0 * d_true - kw["bias"][own] if "bias" in kw
                             else d_true).contiguous()
-        out[name] = _l1_case(name, entry, q, cands, k, kw, smi)
+        out[name] = _l1_case(name, entry, q, cands, k, kw, smi, parent)
         del q, cands, kw
     emit({"phase": "l1_search", "cases": len(out), "phase_s": time.perf_counter() - t0,
           "card": smi})
@@ -4307,7 +4421,13 @@ def _hits_of(ranks: torch.Tensor) -> tuple:
             float((1.0 / (r + 1.0)).mean()))
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
+    ap.add_argument("--parent-l1", default=None,
+                    help="a directory holding another commit's l1_search.cu and "
+                         "topk_queue.cuh, to hold the L1 search kernel to")
+    args = ap.parse_args(argv)
     smi = phase_device()
     phase_build()
     task = synthetic_align_task(**ZH_EN)
@@ -4331,7 +4451,7 @@ def main() -> int:
     k_sorted = phase_sorted_kernel(task, smi, dev)
     sorted_runs = phase_sorted(task, smi, dev)
     k_select, k_gather = phase_shortlist(smi, dev)
-    k_l1 = phase_l1_search(smi, dev)
+    k_l1 = phase_l1_search(smi, dev, args.parent_l1)
     approx = phase_approx(task, smi, dev, recipe_stages)
     fused = phase_fused(task, smi, dev)
     phase_profile(task, smi, dev)

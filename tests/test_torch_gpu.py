@@ -1,6 +1,7 @@
 """The port's CUDA kernels (fused GCN layer, ELL SpMM in fp32 and bf16,
 sorted-segment SpMM, Sinkhorn potential update, shortlist select-and-rerank
-and gathered distances, the exact L1 search's top-k, count and tile)
+and gathered distances, the exact L1 search's top-k, count and tile,
+bit for bit at any number of work units)
 against their plain versions, each exact cityblock search path on the card
 against the host, and training on
 the card: the attribute incidence's SpMM, a GCN layer on config highway's
@@ -22,6 +23,7 @@ it runs without the suite's conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 """
 
+import ctypes
 import math
 
 import numpy as np
@@ -34,7 +36,8 @@ import tpugraph_torch.nn.graphconv as graphconv_mod
 from tpugraph_torch.configs.configs import get_config
 from tpugraph_torch.configs.recipes import RECIPES
 from tpugraph_torch.data.synthetic import synthetic_align_task
-from tpugraph_torch.kernels import gcn_fused, l1_search, shortlist_dist, sinkhorn_fused, spmm_ell
+from tpugraph_torch.kernels import (_build, gcn_fused, l1_search, shortlist_dist, sinkhorn_fused,
+                                   spmm_ell)
 from tpugraph_torch.kernels import spmm as spmm_mod
 from tpugraph_torch.kernels.spmm import PACK_SLOTS, SEG_EDGES, segment_spmm, sorted_spmm
 from tpugraph_torch.kernels.gcn_fused import fused_gcn_layer, gcn_layer, reference_layer
@@ -818,6 +821,127 @@ def test_l1_search_refuses_what_it_does_not_take(cuda):
         l1_search.l1_topk(q, c, 4, col_mask=torch.ones(40, dtype=torch.uint8, device=cuda))
     with pytest.raises(TypeError):
         l1_search.l1_count(q, c, th, self_col=torch.zeros(8, dtype=torch.int32, device=cuda))
+
+
+def _l1_agrees(got, want, kw, csls):
+    """The top-k check of ``test_l1_topk_matches_plain``: ascending by
+    (score, column); the same index sets on ≥ 99 % of rows and there the
+    values within rtol 1e-5 (atol 1e-5 of the distance scale)."""
+    vals, idx = got[0].cpu(), got[1].cpu()
+    later = (vals[:, 1:] > vals[:, :-1]) | ((vals[:, 1:] == vals[:, :-1])
+                                           & (idx[:, 1:] > idx[:, :-1]))
+    assert later.all()
+    rows = (idx.sort(dim=1).values == want[1].sort(dim=1).values).all(dim=1)
+    assert float(rows.double().mean()) >= 0.99
+    finite = torch.isfinite(want[0])
+    scale = 1.0
+    if csls and bool(finite.any()):
+        scale = float((want[0] + kw["bias"].cpu()[want[1]])[finite].max())
+    torch.testing.assert_close(_by_id(idx[rows], vals[rows])[0],
+                               _by_id(want[1][rows], want[0][rows])[0], rtol=1e-5,
+                               atol=1e-5 * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 256, 512])
+@pytest.mark.parametrize("entry", ["topk", "count"])
+def test_l1_units_give_one_answer_bit_for_bit(cuda, entry, d):
+    """The top-k (k 100, a mask, exclusions, CSLS) and the count (CSLS,
+    ragged self columns) at 1, 2, 3 and 5 units and at the planned count
+    (one a tile here: 32 strips × 10 tiles) are bit for bit equal: a strip's
+    pieces merged by (score, column) or summed give one answer, whatever
+    unit arrives last."""
+    rng = np.random.default_rng(d + 7)
+    q, cands, kw = _l1_case(rng, 1003, 2503, d, entry == "topk", True)
+    q, cands, kw = q.to(cuda), cands.to(cuda), _on(cuda, kw)
+    if entry == "topk":
+        def run(units):
+            return l1_search.l1_topk(q, cands, 100, units=units, **kw)
+    else:
+        self_col = torch.from_numpy(rng.integers(-1, 2503, 1003)).to(cuda)
+        other = torch.from_numpy(rng.integers(0, 2503, 1003)).to(cuda)
+        thresh = 2.0 * (q - cands[other]).abs().sum(1) - kw["bias"][other]
+
+        def run(units):
+            return (l1_search.l1_count(q, cands, thresh, a=2.0, bias=kw["bias"],
+                                       self_col=self_col, units=units),)
+    want = run(None)
+    torch.cuda.synchronize()
+    if entry == "count":
+        assert int(want[0].sum()) > 0
+    for units in (1, 2, 3, 5):
+        got = run(units)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), units
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["ties_across_units", "exclusions_at_unit_edges", "q1",
+                                  "q_below_strip", "c_one_past_tile", "k256_d512"])
+def test_l1_edge_shapes_match_plain(cuda, case):
+    """Shapes at the work split's edges against the plain version, each at
+    the planned units and at 1 and 3 bit for bit: duplicate candidates tied
+    across tile and unit edges (the lower column first), exclusions at the
+    tiles' edges, one query, fewer queries than a strip (top-k and count),
+    one column past a tile, and k 256 at d 512."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    tile = l1_search.TILE
+    s, c, d, k = {"ties_across_units": (300, 1200, 128, 20),
+                  "exclusions_at_unit_edges": (300, 1200, 128, 10), "q1": (1, 5000, 256, 10),
+                  "q_below_strip": (17, 3000, 256, 25),
+                  "c_one_past_tile": (100, tile + 1, 128, 50),
+                  "k256_d512": (200, 3000, 512, 256)}[case]
+    q, cands, kw = _l1_case(rng, s, c, d, False, case == "q1")
+    if case == "ties_across_units":
+        cands[tile:2 * tile] = cands[:tile]  # candidate tile + i ties candidate i exactly
+        cands[2 * tile:3 * tile] = cands[:tile]
+    if case == "exclusions_at_unit_edges":
+        edges = [0, tile - 1, tile, 2 * tile - 1, 2 * tile, 3 * tile - 1, 3 * tile, c - 1]
+        kw["exclude"] = torch.from_numpy(rng.choice(edges, s))
+    want = l1_search.l1_topk_plain(q, cands, k, **kw)
+    qc, cc, kc = q.to(cuda), cands.to(cuda), _on(cuda, kw)
+    runs = [l1_search.l1_topk(qc, cc, k, units=u, **kc) for u in (None, 1, 3)]
+    for got in runs[1:]:
+        assert all(torch.equal(g, w) for g, w in zip(got, runs[0]))
+    _l1_agrees(runs[0], want, kw, case == "q1")
+    idx = runs[0][1].cpu()
+    if case == "ties_across_units":
+        for row in idx.tolist():
+            pos = {j: n for n, j in enumerate(row)}
+            for j, n in pos.items():
+                if tile <= j < 3 * tile and j - tile in pos:
+                    assert pos[j - tile] < n  # the tie goes to the lower column
+    if case == "exclusions_at_unit_edges":
+        assert not (idx == kw["exclude"][:, None]).any()
+    if case == "q_below_strip":
+        other = torch.from_numpy(rng.integers(0, c, s))
+        thresh = (q - cands[other]).abs().sum(1)
+        scores = l1_search.l1_tile_plain(q, cands)
+        near = ((scores - thresh[:, None]).abs() <= 1e-5 * thresh.abs()[:, None]).sum(1)
+        want_n = l1_search.l1_count_plain(q, cands, thresh, self_col=other)
+        for u in (None, 1, 3):
+            got_n = l1_search.l1_count(qc, cc, thresh.to(cuda), self_col=other.to(cuda),
+                                       units=u).cpu()
+            assert ((got_n - want_n).abs() <= near).all()
+
+
+@pytest.mark.gpu
+def test_l1_smem_model_and_occupancy_match_the_kernel(cuda):
+    """The planner's shared-memory model (``smem_bytes``) equals the
+    kernel's own for every entry, queue and ring depth, and the ring's
+    depth (``ring_stages``) puts two blocks on an SM where its model says
+    so: the count, the tile and the top-k at queues of up to 128."""
+    lib = _build.load("l1_search")
+    lib.l1_smem_bytes.restype = ctypes.c_longlong
+    lib.l1_smem_bytes.argtypes = [ctypes.c_int] * 3
+    for mode, entry in enumerate(("topk", "count", "tile")):
+        for kq in (32, 64, 128, 256):
+            for stages in range(3, 7):
+                assert lib.l1_smem_bytes(mode, kq, stages) == l1_search.smem_bytes(
+                    entry, kq, stages), (entry, kq, stages)
+            stages = l1_search.ring_stages(entry, kq)
+            two = 2 * (l1_search.smem_bytes(entry, kq, stages)
+                       + l1_search.BLOCK_SMEM_RESERVED) <= l1_search.SM_SMEM_BYTES
+            assert l1_search._blocks_per_sm(cuda, entry, kq, stages) == (2 if two else 1)
 
 
 def _aligned_pair(rng, n1=1500, n2=1700, d=64, noise=0.3):
