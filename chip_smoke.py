@@ -163,7 +163,9 @@ Phases, each printing one JSON line:
              boundary reads the table's own rows), the loss falling in
              each interval; one step with injected negatives against the
              single-device port's step on the same parameters, in ell and
-             in sorted, timed beside it; both SpMM kernels on the rank's
+             in sorted, timed beside it (the single-device step through
+             its kernels is held against its plain path too); both SpMM
+             kernels on the rank's
              local, boundary and boundary-transpose operators (output
              memory prefilled with NaN) against their plain versions, timed
              beside ``torch.sparse.mm`` and the bound.
@@ -182,6 +184,20 @@ Phases, each printing one JSON line:
              path on the same parameters; the ring OT alone at 4,096 × 256
              against its plain version, timed beside the single-device
              loss; and the potential update at the ring caller's shape.
+
+20a. single_sharded — the single-device trainers on ``dwy100k_dist``
+             as the JAX ``fit`` and ``fit_mtl`` train it (one card, the whole
+             200,000-row graph, the shard fields unread), called directly on
+             the tasks of phases 19 and 20: ``fit`` cut as phase 19 and
+             ``fit_mtl`` under v7r cut as phase 20, each with its launches
+             held to the single-device model (``gcn_fused`` for every
+             forward), the loss falling in each interval, the final loss
+             within rel 1e-3 and Hits@1 within 0.01 of that phase's
+             distributed run, peak memory, step median and stage times beside
+             it; one step of ``fit``'s trained model held against its plain
+             path; ``gcn_fused`` on each leg's operator at (128, 128) and
+             (256, 256) fp32 against its plain version, timed beside
+             cuSPARSE + GEMM and the bound.
 
 21. dist_options — the distributed trainer's run options on
              ``dwy100k_dist`` at full width through ``driver.run`` /
@@ -313,11 +329,11 @@ from tpugraph_torch.train.driver import evaluate, run, step_parts, uses_mtl
 from tpugraph_torch.train.bootstrap import propose_mutual_nn_pairs
 from tpugraph_torch.train.eval import _both_direction_ranks
 from tpugraph_torch.train.fused import CapturedStep, train_step
-from tpugraph_torch.train.loop import (IntervalBatch, build_model, embed, first_batch, load_task,
-                                       step_generator, step_seed)
+from tpugraph_torch.train.loop import (IntervalBatch, build_model, embed, first_batch, fit,
+                                       load_task, step_generator, step_seed)
 from tpugraph_torch.train.losses import margin_align_loss, pairwise_l1
 from tpugraph_torch.train.metrics import epoch_edge_ops
-from tpugraph_torch.train.mtl import draw_interval
+from tpugraph_torch.train.mtl import draw_interval, fit_mtl
 from tpugraph_torch.train.negatives import (blockwise_knn_l1, sample_hard_negatives,
                                             sample_uniform_negatives)
 from tpugraph_torch.train.optim import make_optimizer
@@ -541,71 +557,81 @@ def phase_kernel(task, smi: str, dev: torch.device) -> dict:
     # timed here only, never called by the port
     a_csr = _csr_of(op.fwd, op.diag)
 
-    zero_rows = plan.rows[-plan.n_zero_rows:].long() if plan.n_zero_rows else None
     rng = np.random.default_rng(0)
     results = {}
     for d, dtype in ((128, torch.float32), (128, torch.bfloat16), (256, torch.float32),
                      (256, torch.bfloat16)):
-        x = torch.from_numpy(rng.standard_normal((task.n_ent, d)).astype(np.float32)).to(dev)
-        wm = torch.from_numpy((rng.standard_normal((d, d)) / np.sqrt(d)).astype(np.float32)).to(dev)
-        b = torch.from_numpy(rng.standard_normal(d).astype(np.float32)).to(dev)
-        x, wm = x.to(dtype), wm.to(dtype)
-        got = fused_gcn_layer(op.fwd, op.diag, x, wm, b)
-        sync(dev)
-        want = reference_layer(op.fwd, op.diag, x, wm, b)
-        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
-        err = float((got.float() - want.float()).abs().max())
-        # every row's sum runs in a fixed order
-        same = torch.equal(got, fused_gcn_layer(op.fwd, op.diag, x, wm, b))
-        if not same:
-            raise AssertionError("gcn_fused: two launches on the same input differ")
-        zero_err = None
-        if zero_rows is not None:
-            # rows in no bucket: diag·x·W + b, computed without the ELL
-            zx = (op.diag[zero_rows, None] * x[zero_rows].float()) @ wm.float() + b
-            torch.testing.assert_close(got[zero_rows].float(), zx, **TOL[dtype])
-            zero_err = float((got[zero_rows].float() - zx).abs().max())
-        ms = time_ms(lambda: fused_gcn_layer(op.fwd, op.diag, x, wm, b))
-        dev_ms = device_ms(lambda: fused_gcn_layer(op.fwd, op.diag, x, wm, b))
-        ms_cold = time_cold_ms(lambda: fused_gcn_layer(op.fwd, op.diag, x, wm, b))
-        plain_ms = time_ms(lambda: reference_layer(op.fwd, op.diag, x, wm, b), iters=5)
-        lib_ms = lib_cold = lib_dev = lib_refused = None
-
-        def library():
-            return torch.sparse.mm(a_lib, x) @ wm + b.to(dtype)
-
-        try:
-            a_lib = a_csr.to(dtype)
-            lib = library()
-        except RuntimeError as e:  # a refusal of bf16 by the library is the finding
-            lib_refused = str(e).splitlines()[0][:200]
-        if lib_refused is None:
-            torch.testing.assert_close(lib.float(), want.float(), **TOL[dtype])
-            lib_ms = time_ms(library)
-            lib_dev = device_ms(library)
-            lib_cold = time_cold_ms(library)
-        bound, bound_by, bound_x_type = _bound_ms(op, x, wm, b)
-        split = _gcn_split(op.fwd, op.diag, x, wm, b)
-        results[d, dtype] = dict(
-            d_in=d, d_out=d, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-            bound_by=bound_by, library_ms=lib_ms, device_ms=dev_ms, ms_cold_l2=ms_cold,
-            library_device_ms=lib_dev, bound_x_type_ms=bound_x_type,
-            panels=gcn_fused.PANELS[d, d],
-            precision="3xtf32" if dtype == torch.float32 else "2xtf32")
-        emit({"phase": "kernel", "kernel": "gcn_fused", "d_in": d, "d_out": d,
-              "panels": gcn_fused.PANELS[d, d], "dtype": str(dtype).split(".")[1],
-              "max_abs_err": err, "no_bucket_rows_max_abs_err": zero_err, "ms": ms,
-              "device_ms": dev_ms, "ms_cold_l2": ms_cold, "plain_ms": plain_ms,
-              "library_ms": lib_ms, "library_device_ms": lib_dev,
-              "library_ms_cold_l2": lib_cold, "library_refused": lib_refused, "bound_ms": bound,
-              "bound_by": bound_by, "share_of_bound": bound / ms,
-              "share_of_bound_device": ratio(bound, dev_ms), "bound_x_type_ms": bound_x_type,
-              "share_of_x_type_bound_device": ratio(bound_x_type, dev_ms),
-              "bit_identical_runs": same, "split": split, "card": smi})
+        results[d, dtype] = _gcn_case(op, a_csr, rng, d, dtype, smi)
     # the recipe's width first; the others beside it
     return {**results[256, torch.float32],
             "bf16": results[256, torch.bfloat16],
             "at_d128": {**results[128, torch.float32], "bf16": results[128, torch.bfloat16]}}
+
+
+def _gcn_case(op, a_csr, rng, d: int, dtype: torch.dtype, smi: str, split: bool = True,
+              where: str = "zh_en") -> dict:
+    """``gcn_fused`` at (d, d) on ``op`` with random x, W and b: against its
+    plain version (the rows in no ELL bucket too), two launches bit for
+    bit; timed beside the plain version and cuSPARSE + GEMM (``a_csr``),
+    the bound, and with ``split`` its device time over parts of its work."""
+    dev, plan = op.fwd.device, fused_plan(op.fwd)
+    zero_rows = plan.rows[-plan.n_zero_rows:].long() if plan.n_zero_rows else None
+    x = torch.from_numpy(rng.standard_normal((op.n_rows, d)).astype(np.float32)).to(dev)
+    wm = torch.from_numpy((rng.standard_normal((d, d)) / np.sqrt(d)).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.standard_normal(d).astype(np.float32)).to(dev)
+    x, wm = x.to(dtype), wm.to(dtype)
+    got = fused_gcn_layer(op.fwd, op.diag, x, wm, b)
+    sync(dev)
+    want = reference_layer(op.fwd, op.diag, x, wm, b)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    err = float((got.float() - want.float()).abs().max())
+    # every row's sum runs in a fixed order
+    same = torch.equal(got, fused_gcn_layer(op.fwd, op.diag, x, wm, b))
+    if not same:
+        raise AssertionError("gcn_fused: two launches on the same input differ")
+    zero_err = None
+    if zero_rows is not None:
+        # rows in no bucket: diag·x·W + b, computed without the ELL
+        zx = (op.diag[zero_rows, None] * x[zero_rows].float()) @ wm.float() + b
+        torch.testing.assert_close(got[zero_rows].float(), zx, **TOL[dtype])
+        zero_err = float((got[zero_rows].float() - zx).abs().max())
+    ms = time_ms(lambda: fused_gcn_layer(op.fwd, op.diag, x, wm, b))
+    dev_ms = device_ms(lambda: fused_gcn_layer(op.fwd, op.diag, x, wm, b))
+    ms_cold = time_cold_ms(lambda: fused_gcn_layer(op.fwd, op.diag, x, wm, b))
+    plain_ms = time_ms(lambda: reference_layer(op.fwd, op.diag, x, wm, b), iters=5)
+    lib_ms = lib_cold = lib_dev = lib_refused = None
+
+    def library():
+        return torch.sparse.mm(a_lib, x) @ wm + b.to(dtype)
+
+    try:
+        a_lib = a_csr.to(dtype)
+        lib = library()
+    except RuntimeError as e:  # a refusal of bf16 by the library is the finding
+        lib_refused = str(e).splitlines()[0][:200]
+    if lib_refused is None:
+        torch.testing.assert_close(lib.float(), want.float(), **TOL[dtype])
+        lib_ms = time_ms(library)
+        lib_dev = device_ms(library)
+        lib_cold = time_cold_ms(library)
+    bound, bound_by, bound_x_type = _bound_ms(op, x, wm, b)
+    emit({"phase": "kernel", "kernel": "gcn_fused", "operator": where, "rows": op.n_rows,
+          "edges": op.nnz, "d_in": d, "d_out": d,
+          "panels": gcn_fused.PANELS[d, d], "dtype": str(dtype).split(".")[1],
+          "max_abs_err": err, "no_bucket_rows_max_abs_err": zero_err, "ms": ms,
+          "device_ms": dev_ms, "ms_cold_l2": ms_cold, "plain_ms": plain_ms,
+          "library_ms": lib_ms, "library_device_ms": lib_dev,
+          "library_ms_cold_l2": lib_cold, "library_refused": lib_refused, "bound_ms": bound,
+          "bound_by": bound_by, "share_of_bound": bound / ms,
+          "share_of_bound_device": ratio(bound, dev_ms), "bound_x_type_ms": bound_x_type,
+          "share_of_x_type_bound_device": ratio(bound_x_type, dev_ms),
+          "bit_identical_runs": same,
+          "split": _gcn_split(op.fwd, op.diag, x, wm, b) if split else None, "card": smi})
+    return dict(d_in=d, d_out=d, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by, library_ms=lib_ms, device_ms=dev_ms, ms_cold_l2=ms_cold,
+                library_device_ms=lib_dev, bound_x_type_ms=bound_x_type,
+                panels=gcn_fused.PANELS[d, d],
+                precision="3xtf32" if dtype == torch.float32 else "2xtf32")
 
 
 def host_ms(fn, calls: int = 200) -> float:
@@ -3262,12 +3288,14 @@ def phase_dist(smi: str, dev: torch.device) -> dict:
     t0 = time.perf_counter()
     task = load_task(cfg)
     task_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
     _reset_launch_counts()
     t0 = time.perf_counter()
     res = run(cfg, task=task, device=dev)
     sync(dev)
     run_s = time.perf_counter() - t0
     counts, t, losses = _launch_counts(), res.timings, res.losses
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     per_step = 4 * HALO_LAYER_LAUNCHES
     expected = {**{k: 0 for k in counts}, "spmm_ell": _dist_launches(t),
                 **_dist_l1_launches(t, cfg)}
@@ -3280,18 +3308,19 @@ def phase_dist(smi: str, dev: torch.device) -> dict:
     if not all(math.isfinite(v) for v in res.metrics.values()):
         raise AssertionError(f"non-finite metrics {res.metrics}")
     geometry = res.op.geometry
+    stages = {"task_s": task_s, "build_s": t["build_s"],
+              "step_median_s": float(np.median(t["step_s"])),
+              "step_first_s": t["step_s"][0], "mining_forward_s": t["forward_s"],
+              "mining_s": t["mine_s"], "final_eval_s": t["final_eval_s"], "run_s": run_s}
     emit({"phase": "dist", "config": cfg.name, "cuts": DIST_CUTS, "n_ent": task.n_ent,
           "train_pairs": int(len(task.train_pairs)), "test_pairs": int(len(task.test_pairs)),
           "partition": geometry, "exchange_route_buffer_mb": cfg.n_shards ** 2
           * geometry["halo_b"] * cfg.dim * 4 / 2 ** 20, "launches": counts,
           "launches_per_step": {"spmm_ell": per_step}, "losses": losses,
           "metrics": {k: res.metrics[k] for k in ("hits@1", "hits@10", "mrr")},
-          "stages_s": {"task_s": task_s, "build_s": t["build_s"],
-                       "step_median_s": float(np.median(t["step_s"])),
-                       "step_first_s": t["step_s"][0], "mining_forward_s": t["forward_s"],
-                       "mining_s": t["mine_s"], "final_eval_s": t["final_eval_s"],
-                       "run_s": run_s},
-          "peak_device_mb": torch.cuda.max_memory_allocated() / 2 ** 20, "card": smi})
+          "stages_s": stages, "peak_device_mb": peak_mb, "card": smi})
+    run_result = {"final_loss": res.metrics["final_loss"], "hits@1": res.metrics["hits@1"],
+                  "losses": losses, "stages_s": stages, "peak_device_mb": peak_mb}
 
     batch = _dist_batch(task, cfg, dev)
     single = step_parts(cfg.replace(n_shards=1), task, dev)
@@ -3310,7 +3339,7 @@ def phase_dist(smi: str, dev: torch.device) -> dict:
         return _step_gap(loss, {**grads, "emb": grads["emb"][:task.n_ent]}, ref_loss, ref_grads,
                          ("gc2.b",), tol=STEP_TOL[torch.float32] if hold else None)
 
-    checks = {"single_kernels_vs_plain": gap(s_kernels, s_plain, hold=False)}
+    checks = {"single_kernels_vs_plain": gap(s_kernels, s_plain)}
     ops = {}
     with make_mesh(cfg.n_shards, dev) as mesh:
         for impl in ("ell", "sorted"):
@@ -3355,7 +3384,9 @@ def phase_dist(smi: str, dev: torch.device) -> dict:
           "dtype": "float32", "spmm_ell": ell_ops, "spmm_sorted": sorted_ops, "card": smi})
     return {"launches": counts, "per_step": per_step, "spmm_ell": ell_ops,
             "spmm_sorted": sorted_ops, "sorted_step_launches": checks["sorted"]["launches"],
-            "steady_step_s": _steady_step(t)}
+            "steady_step_s": _steady_step(t), "task": task, "run": run_result,
+            "step_ms": {"distributed": checks["ell"]["step_ms"][0],
+                        "single_device": checks["ell"]["step_ms"][1]}}
 
 
 # recipe v7r on config dwy100k_dist as chip_smoke.py trains it: only these
@@ -3470,6 +3501,13 @@ def phase_dist_v7r(smi: str, dev: torch.device) -> dict:
     metrics = {k: res.metrics[k] for k in ("hits@1", "hits@10", "mrr")}
     if not all(math.isfinite(v) for v in res.metrics.values()):
         raise AssertionError(f"non-finite metrics {res.metrics}")
+    stages = {"task_s": task_s, "build_s": t["build_s"],
+              "step_median_s": float(np.median(t["step_s"])),
+              "step_first_s": t["step_s"][0], "boundary_forward_s": t["forward_s"],
+              "proposal_s": t["propose_s"], "mining_s": t["mine_s"],
+              "draw_s": t["draw_s"], "csls_final_eval_s": t["final_eval_s"], "run_s": run_s}
+    run_result = {"final_loss": res.metrics["final_loss"], "hits@1": res.metrics["hits@1"],
+                  "losses": losses, "stages_s": stages, "peak_device_mb": peak_mb}
     widths = [tuple(res.model.gc1.w.shape), tuple(res.model.attr_head.w.shape)]
     if widths != [(256, 256), (256, task.n_attr)]:
         raise AssertionError(f"widths {widths}")
@@ -3479,13 +3517,7 @@ def phase_dist_v7r(smi: str, dev: torch.device) -> dict:
           "dim": cfg.dim, "k_neg": cfg.k_neg, "eval_csls_k": cfg.eval_csls_k,
           "launches": counts, "launches_per_step": per_step, "losses": losses,
           "metrics_csls": metrics, "timings": {k: v for k, v in t.items() if k != "step_s"},
-          "stages_s": {"task_s": task_s, "build_s": t["build_s"],
-                       "step_median_s": float(np.median(t["step_s"])),
-                       "step_first_s": t["step_s"][0], "boundary_forward_s": t["forward_s"],
-                       "proposal_s": t["propose_s"], "mining_s": t["mine_s"],
-                       "draw_s": t["draw_s"], "csls_final_eval_s": t["final_eval_s"],
-                       "run_s": run_s},
-          "peak_device_mb": peak_mb, "card": smi})
+          "stages_s": stages, "peak_device_mb": peak_mb, "card": smi})
     del res
 
     batch = mp_worker.surface_batch(cfg, task, device=dev)
@@ -3532,7 +3564,99 @@ def phase_dist_v7r(smi: str, dev: torch.device) -> dict:
     ring_ot = _ring_ot_check(smi, dev)
     return {"launches": counts, "per_step": per_step, "ring_ot": ring_ot,
             "stages_s": {"proposal_s": t["propose_s"], "mining_s": t["mine_s"],
-                         "csls_final_eval_s": t["final_eval_s"], "run_s": run_s}}
+                         "csls_final_eval_s": t["final_eval_s"], "run_s": run_s},
+            "task": task, "run": run_result,
+            "step_ms": {"distributed": checks["dist"]["step_ms"][0],
+                        "single_device": checks["dist"]["step_ms"][1]}}
+
+
+# the final loss and Hits@1 of a single-device run of a sharded config
+# against the distributed run of the same config at R = 1: the JAX
+# package's bound for a run through another summation order
+# (tests/test_ell.py:98; PERF.md §2's sorted-vs-ELL row)
+SINGLE_VS_DIST = {"final_loss_rel": 1e-3, "hits@1_abs": 0.01}
+
+
+def _single_sharded_leg(trainer, cfg, task, dist: dict, smi: str, dev: torch.device) -> dict:
+    """``trainer`` (``fit`` or ``fit_mtl``) on the sharded config ``cfg``
+    at full width on one card, called directly: launches held to
+    ``_expected_launches`` (the single-device model: two ``gcn_fused``
+    launches per forward, two ``spmm_ell`` per step, no SpMM in a
+    forward), the loss finite and falling in each resample interval, the
+    final loss and Hits@1 against the distributed run of the same config
+    at R = 1 (``dist["run"]``) at ``SINGLE_VS_DIST``; peak memory, step
+    median and stage seconds beside the distributed run's."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    res = trainer(cfg, task=task, device=dev)
+    sync(dev)
+    run_s = time.perf_counter() - t0
+    counts, t, losses = _launch_counts(), res.timings, res.losses
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    expected = _expected_launches(cfg, t, task)
+    if counts != expected or t["steps"] != cfg.epochs or t["minings"] != 1:
+        raise AssertionError(f"launches {counts} (expected {expected}), timings {t}")
+    nb = cfg.neg_every
+    if not all(math.isfinite(v) for v in losses) or not all(
+            losses[i + nb - 1] < losses[i] for i in range(0, cfg.epochs, nb)):
+        raise AssertionError(f"losses not finite or not falling in each interval: {losses}")
+    if not all(math.isfinite(v) for v in res.metrics.values()):
+        raise AssertionError(f"non-finite metrics {res.metrics}")
+    ref = dist["run"]
+    gap = {"final_loss_rel": abs(res.metrics["final_loss"] - ref["final_loss"])
+           / abs(ref["final_loss"]),
+           "hits@1_abs": abs(res.metrics["hits@1"] - ref["hits@1"])}
+    if any(gap[k] > v for k, v in SINGLE_VS_DIST.items()):
+        raise AssertionError(f"single-device vs distributed: {gap} (bound {SINGLE_VS_DIST})")
+    stages = {"setup_s": t["setup_s"], "step_median_s": float(np.median(t["step_s"])),
+              "proposal_s": t["propose_s"] / t["proposals"] if t["proposals"] else None,
+              "mining_s": t["mine_s"] / t["minings"], "final_eval_s": t["final_eval_s"],
+              "run_s": run_s}
+    emit({"phase": "single_sharded", "trainer": trainer.__name__, "config": cfg.name,
+          "recipe": "v7r" if cfg.use_sinkhorn else None, "n_shards": cfg.n_shards,
+          "n_ent": task.n_ent, "dim": cfg.dim, "k_neg": cfg.k_neg, "epochs": cfg.epochs,
+          "launches": counts, "losses": losses, "losses_distributed": ref["losses"],
+          "final_loss": res.metrics["final_loss"], "final_loss_distributed": ref["final_loss"],
+          "hits@1": res.metrics["hits@1"], "hits@1_distributed": ref["hits@1"],
+          "gap": gap, "bound": SINGLE_VS_DIST, "stages_s": stages,
+          "stages_s_distributed": ref["stages_s"], "step_ms_events": dist["step_ms"],
+          "peak_device_mb": peak_mb, "peak_device_mb_distributed": ref["peak_device_mb"],
+          "card": smi})
+    return {"res": res, "launches": counts, "gap": gap, "stages_s": stages,
+            "peak_device_mb": peak_mb}
+
+
+def phase_single_sharded(smi: str, dev: torch.device, dist: dict, dist_v7r: dict) -> dict:
+    """The single-device trainers on config dwy100k_dist, as the JAX ``fit``
+    and ``fit_mtl`` train it (one device, the whole graph; the shard fields
+    unread), on the tasks of ``phase_dist`` and ``phase_dist_v7r``: leg A
+    ``fit`` cut to DIST_CUTS, leg B ``fit_mtl`` under recipe v7r cut to
+    DIST_V7R_CUTS with the OT head on 4,096 seed pairs
+    (``_single_sharded_leg``, each against that phase's run).  Then one
+    step of leg A's trained model through the kernels held against the
+    plain path at PERF.md §2's step limit, and ``gcn_fused`` on the
+    200,000-row operator of each leg at its width, (128, 128) and
+    (256, 256) fp32 (``_gcn_case``: against its plain version, timed beside
+    cuSPARSE + GEMM and the bound)."""
+    cfg_a = get_config("dwy100k_dist", **DIST_CUTS)
+    leg_a = _single_sharded_leg(fit, cfg_a, dist["task"], dist, smi, dev)
+    cfg_b = get_config("dwy100k_dist", **RECIPES["v7r"]).replace(
+        sinkhorn_pairs=DIST_V7R_OT_PAIRS, **DIST_V7R_CUTS)
+    leg_b = _single_sharded_leg(fit_mtl, cfg_b, dist_v7r["task"], dist_v7r, smi, dev)
+    res_a, res_b = leg_a.pop("res"), leg_b.pop("res")
+    batch = _dist_batch(dist["task"], cfg_a, dev)
+    step = _check_step(res_a.model, lambda: margin_align_loss(
+        res_a.model(res_a.op), batch["pairs"], batch["neg_l"], batch["neg_r"], cfg_a.gamma),
+        _mtl_step_launches(cfg_a), zero_grads=("gc2.b",))
+    emit({"phase": "single_sharded_step", "trainer": "fit", "config": cfg_a.name,
+          "check": step, "card": smi})
+    rng = np.random.default_rng(9)
+    kernel = {}
+    for res, d in ((res_a, cfg_a.dim), (res_b, cfg_b.dim)):
+        kernel[f"({d}, {d})"] = _gcn_case(res.op, _csr_of(res.op.fwd, res.op.diag), rng, d,
+                                          torch.float32, smi, split=False, where="dwy100k")
+    return {"fit": leg_a, "fit_mtl": leg_b, "step": step, "gcn_fused": kernel}
 
 
 # recipe v7r on dwy100k_dist with --fast's search set (sqeuclidean mining,
@@ -4460,6 +4584,7 @@ def main(argv: list[str] | None = None) -> int:
     phase_debug_nans(task, smi, dev)
     dist = phase_dist(smi, dev)
     dist_v7r = phase_dist_v7r(smi, dev)
+    single_sharded = phase_single_sharded(smi, dev, dist, dist_v7r)
     dist_options = phase_dist_options(smi, dev, dist_v7r["stages_s"])
     dist_mesh = phase_dist_mesh(smi, dev)
     dist_grouped = phase_dist_grouped(smi, dev, dist_options["approx"])
@@ -4467,6 +4592,10 @@ def main(argv: list[str] | None = None) -> int:
     # one potential update at the ring caller's shape: the v7r run's 4,096
     # pairs, one rank holding the 8 shards, so one launch per update
     k_sink_ring = phase_sinkhorn(smi, dev, s=DIST_V7R_OT_PAIRS, d=256)
+
+    def single_launches(kernel: str) -> dict:
+        return {leg: single_sharded[leg]["launches"][kernel] for leg in ("fit", "fit_mtl")}
+
     # the numbers at the recipe's width (d = 256); launches of the recipe's
     # run, with those of the other runs beside (the incidence's at mtl's
     # width, d = 128, where config mtl runs it); a fused run's launches on
@@ -4483,7 +4612,8 @@ def main(argv: list[str] | None = None) -> int:
                             if n != "replayed_interval"},
          "launches_replayed_interval": {n: v["gcn_fused"]
                                         for n, v in fused["replayed_interval"].items()},
-         **k_gcn},
+         **k_gcn, "launches_single_sharded": single_launches("gcn_fused"),
+         "at_dwy100k": single_sharded["gcn_fused"]},
         {"name": "spmm_ell", "route": "cuda", "source": "tpugraph_torch/csrc/spmm_ell.cu",
          "replaces": "tpugraph/kernels/spmm_ell.py:19", "launches": recipe["spmm_ell"],
          "launches_train": train["spmm_ell"], "launches_v7r": v7r["spmm_ell"],
@@ -4518,7 +4648,8 @@ def main(argv: list[str] | None = None) -> int:
              "v7r_run": dist_grouped["run"]["launches"]["spmm_ell"],
              "v7r_cut_run": dist_grouped["run"]["resume"]["cut_launches"]["spmm_ell"],
              "v7r_resumed_run": dist_grouped["run"]["resume"]["resumed_launches"]["spmm_ell"]},
-         "dist_grouped_operators": dist_grouped["kernel"]["spmm_ell"]},
+         "dist_grouped_operators": dist_grouped["kernel"]["spmm_ell"],
+         "launches_single_sharded": single_launches("spmm_ell")},
         {"name": "sinkhorn_fused", "route": "cuda",
          "source": "tpugraph_torch/csrc/sinkhorn_fused.cu",
          "replaces": "tpugraph/kernels/sinkhorn_pallas.py:38",
@@ -4539,7 +4670,8 @@ def main(argv: list[str] | None = None) -> int:
              "v7r_run": dist_grouped["run"]["launches"]["sinkhorn_fused"],
              "v7r_cut_run": dist_grouped["run"]["resume"]["cut_launches"]["sinkhorn_fused"],
              "v7r_resumed_run":
-                 dist_grouped["run"]["resume"]["resumed_launches"]["sinkhorn_fused"]}},
+                 dist_grouped["run"]["resume"]["resumed_launches"]["sinkhorn_fused"]},
+         "launches_single_sharded": single_launches("sinkhorn_fused")},
         {"name": "shortlist_dist", "route": "cuda",
          "source": "tpugraph_torch/csrc/shortlist_dist.cu",
          "replaces": "tpugraph/train/negatives.py:260",
@@ -4586,6 +4718,8 @@ def main(argv: list[str] | None = None) -> int:
          "launches_dist_v7r": {k: dist_v7r["launches"][k] for k in L1_NONE},
          "launches_dist_approx": {k: dist_options["approx"]["launches"].get(k, 0)
                                   for k in L1_NONE},
+         "launches_single_sharded": {leg: {k: single_sharded[leg]["launches"][k]
+                                           for k in L1_NONE} for leg in ("fit", "fit_mtl")},
          **{k: k_l1["mining"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms", "device_ms",
                                            "ms_cold_l2")},

@@ -1,7 +1,7 @@
 """Where one training step of config ``dwy100k_dist`` parts between the
 port's paths, on an NVIDIA GPU.
 
-    python3 scripts/dist_step_probe.py [--recipe v7r]
+    python3 scripts/dist_step_probe.py [--recipe v7r] [--gcn-src PATH ...]
 
 From the repository root: the full-width task of ``chip_smoke.py``'s dist
 phase and one batch of injected uniform negatives, through four paths on
@@ -23,17 +23,33 @@ margin pairs of weight > 0) whose sign differs; and the hinge terms
 (pair, negative) that are active on one path only.  A gradient's relative
 L2 difference grows as the square root of the flipped units and terms, so
 a few flips among 25.6 million units move it by ≈ 1e-3.
+
+``--gcn-src PATH`` (repeatable): another version of
+``tpugraph_torch/csrc/gcn_fused.cu`` (same C interface and headers),
+labelled by its directory's name.  Each is built (its ptxas registers and
+spills printed, or nvcc's refusal) and the single-device kernel step runs
+once more with it in place of the checkout's library, as the path
+``single_kernels@<label>``, compared with every other path.  Then
+``layer``: the fp32 (128, 128) layer on the zh-en-scale operator and on
+the step's DWY100K operator, with random x, W and b, through each
+version (timed by CUDA events in turns, the checkout's first and last)
+and through the plain version, each output's relative L2 error against
+the same layer in float64, with the checkout's (256, 128) instance's
+beside it.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import os
 import runpy
 import sys
+from pathlib import Path
 
+import numpy as np
 import torch
 
 BLOCK = 1024  # margin rows per comparison block: (1,024, k, d) fp32 each
@@ -59,14 +75,93 @@ def _margin_flips(ta, tb, pairs, neg_l, neg_r, gamma: float) -> tuple[int, int]:
     return signs, hinges
 
 
+def _gcn_versions(srcs: list[str], build) -> tuple[dict, dict]:
+    """Each ``--gcn-src`` built: {label: loaded library} for those that
+    built, and {label: ptxas lines or nvcc's error} for all."""
+    libs, info = {}, {}
+    for src in srcs:
+        label = Path(src).resolve().parent.name
+        try:
+            built = build("gcn_fused", src)
+        except RuntimeError as e:
+            info[label] = {"src": src, "error": str(e)[-2000:]}
+            continue
+        libs[label] = ctypes.CDLL(str(built.path))
+        info[label] = {"src": src, "ptxas": [ln.strip() for ln in built.log.splitlines()
+                                             if "registers" in ln or "spill" in ln]}
+    return libs, info
+
+
+@contextlib.contextmanager
+def _gcn_lib(build_mod, lib):
+    """``kernels/gcn_fused.py`` launching ``lib`` (None: the checkout's)."""
+    saved = build_mod._LIBS.get("gcn_fused")
+    if lib is not None:
+        build_mod._LIBS["gcn_fused"] = lib
+    try:
+        yield
+    finally:
+        if saved is None:
+            build_mod._LIBS.pop("gcn_fused", None)
+        else:
+            build_mod._LIBS["gcn_fused"] = saved
+
+
+def _layer_readings(g, build_mod, libs: dict, ops: dict, dev) -> dict:
+    """The fp32 (128, 128) layer on each operator through each version and
+    the plain version: relative L2 error against float64, ms in turns; the
+    checkout's (256, 128) instance beside it."""
+    from tpugraph_torch.kernels.gcn_fused import fused_gcn_layer, reference_layer
+
+    rng = np.random.default_rng(0)
+    out = {}
+    for name, op in ops.items():
+        csr = g["_csr_of"](op.fwd, op.diag).double()
+        rec = {}
+        for d_in in (128, 256):
+            x = torch.from_numpy(rng.standard_normal((op.n_rows, d_in)).astype(np.float32)).to(dev)
+            w = torch.from_numpy((rng.standard_normal((d_in, 128)) / np.sqrt(d_in))
+                                 .astype(np.float32)).to(dev)
+            b = torch.from_numpy(rng.standard_normal(128).astype(np.float32)).to(dev)
+            want = torch.sparse.mm(csr, x.double()) @ w.double() + b.double()
+
+            def rel(y):
+                return float((y.double() - want).norm() / want.norm())
+
+            plain = reference_layer(op.fwd, op.diag, x, w, b)
+            versions = {"checkout": None, **libs} if d_in == 128 else {"checkout": None}
+            got = {}
+            for label, lib in versions.items():
+                with _gcn_lib(build_mod, lib):
+                    y = fused_gcn_layer(op.fwd, op.diag, x, w, b)
+                got[label] = {"rel_l2_vs_float64": rel(y),
+                              "max_abs_err_vs_plain": float((y - plain).abs().max())}
+            if d_in == 128:
+                order = [*versions, *reversed(versions)]
+                times = {label: [] for label in versions}
+                for label in order:
+                    with _gcn_lib(build_mod, versions[label]):
+                        times[label].append(g["time_ms"](
+                            lambda: fused_gcn_layer(op.fwd, op.diag, x, w, b)))
+                for label in versions:
+                    got[label]["ms"] = times[label]
+            rec[f"({d_in}, 128)"] = {"plain_rel_l2_vs_float64": rel(plain), **got}
+        out[name] = {"rows": op.n_rows, "edges": op.nnz, **rec}
+    return out
+
+
 def main(argv=None) -> int:
     args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     args.add_argument("--recipe", choices=["v7r"], default=None)
+    args.add_argument("--gcn-src", action="append", default=[],
+                      help="another version of csrc/gcn_fused.cu (repeatable)")
     args = args.parse_args(argv)
     sys.path.insert(0, os.getcwd())
     g = runpy.run_path("chip_smoke.py", run_name="not_main")["main"].__globals__
     smi = g["phase_device"]()
     dev = torch.device("cuda")
+    build_mod = g["_build"]
+    libs, versions = _gcn_versions(args.gcn_src, build_mod.build)
     if args.recipe:
         cfg = g["get_config"]("dwy100k_dist", **g["RECIPES"][args.recipe]).replace(
             sinkhorn_pairs=g["DIST_V7R_OT_PAIRS"], **g["DIST_V7R_CUTS"])
@@ -93,8 +188,10 @@ def main(argv=None) -> int:
 
     single = g["step_parts"](cfg.replace(n_shards=1), task, dev)
     enc = getattr(single.model, "encoder", single.model)
-    for name, ctx in (("single_kernels", contextlib.nullcontext),
-                      ("single_plain", g["_plain_kernels"])):
+    runs = [("single_kernels", contextlib.nullcontext), ("single_plain", g["_plain_kernels"]),
+            *((f"single_kernels@{label}", lambda lib=lib: _gcn_lib(build_mod, lib))
+              for label, lib in libs.items())]
+    for name, ctx in runs:
         with ctx():
             single.model.zero_grad(set_to_none=True)
             loss = single.loss_fn(batch, None)[0]
@@ -129,11 +226,18 @@ def main(argv=None) -> int:
                 "margin_sign_flips": signs, "hinge_flips": hinges}
     z_plain = paths["single_plain"][2]
     rows = margin[0].shape[0]
+    layer = None
+    if libs:
+        zh = g["synthetic_align_task"](**g["ZH_EN"])
+        ops = {"zh_en": g["build_adjacency"](zh.n_ent, zh.merged_triples, n_rel=zh.n_rel).to(dev),
+               "dwy100k": single.op}
+        layer = _layer_readings(g, build_mod, libs, ops, dev)
     print(json.dumps({"card": smi, "recipe": args.recipe, "dim": cfg.dim, "k_neg": cfg.k_neg,
                       "layer1_units": int(z_plain.numel()),
                       "layer1_active": int((z_plain > 0).sum()), "margin_rows": rows,
                       "margin_terms": int(2 * rows * cfg.k_neg * cfg.dim),
-                      "hinge_terms": int(2 * rows * cfg.k_neg), "pairs": out}))
+                      "hinge_terms": int(2 * rows * cfg.k_neg), "gcn_versions": versions,
+                      "pairs": out, "layer": layer}))
     return 0
 
 

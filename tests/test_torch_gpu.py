@@ -14,7 +14,9 @@ replayed distributed interval, its ring stages (exact and shortlisted, at
 ``dwy100k_dist``'s block sizes), a bitwise resume, and one card holding
 every feature block and slice (its step bit for bit the F = L = 1 step);
 both SpMM kernels also at a tensor-parallel rank's width, d = 64; the
-grouped layout's halo SpMM (``halo_grouped``) by both routes.
+grouped layout's halo SpMM (``halo_grouped``) by both routes; the
+single-device trainers on a sharded config, the fp32 (128, 128) fused
+layer's error against float64, and ``sddmm_pairs``.
 
 Marked ``gpu``; each test skips without a CUDA device.  This file imports
 neither JAX nor the JAX package, so on a machine with a card (and no JAX)
@@ -42,6 +44,7 @@ from tpugraph_torch.kernels import spmm as spmm_mod
 from tpugraph_torch.kernels.spmm import PACK_SLOTS, SEG_EDGES, segment_spmm, sorted_spmm
 from tpugraph_torch.kernels.gcn_fused import fused_gcn_layer, gcn_layer, reference_layer
 from tpugraph_torch.kernels.sinkhorn_fused import sinkhorn_potential_update, sinkhorn_update_plain
+from tpugraph_torch.kernels.sddmm import sddmm_pairs
 from tpugraph_torch.kernels.spmm_ell import SEG_SLOTS, apply_with_diag, ell_spmm
 from tpugraph_torch.models.align import AlignMTL, init_mtl_params
 from tpugraph_torch.models.attr_channel import build_attr_operator
@@ -53,8 +56,9 @@ from tpugraph_torch.train.bootstrap import propose_mutual_nn_pairs
 from tpugraph_torch.train.driver import run, step_parts
 from tpugraph_torch.train.eval import _both_direction_ranks
 from tpugraph_torch.train.fused import CapturedStep, train_step
-from tpugraph_torch.train.loop import first_batch, step_generator, step_seed
+from tpugraph_torch.train.loop import first_batch, fit, step_generator, step_seed
 from tpugraph_torch.train.losses import margin_align_loss
+from tpugraph_torch.train.mtl import fit_mtl
 from tpugraph_torch.train.negatives import _hubness_both_approx, sample_hard_negatives
 from tpugraph_torch.train.optim import make_optimizer
 from tpugraph_torch.train.ot import sinkhorn_align_loss, sinkhorn_align_loss_plain
@@ -1931,3 +1935,79 @@ def test_the_grouped_halo_spmm_by_both_routes(cuda, impl):
         torch.testing.assert_close(got_g, want_g, rtol=1e-4, atol=1e-4)
         assert not got_g[n1:r0].any() and not got_g[r0 + n1:].any()
     assert torch.equal(out["cuda", False][0], out["cuda", True][0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trainer", ["fit", "fit_mtl"])
+def test_single_device_trainer_on_a_sharded_config(cuda, trainer):
+    """``fit`` (d 128, the (128, 128) fused layer) and ``fit_mtl`` (recipe
+    v7r at d 256, the OT head on 128 pairs) on config ``dwy100k_dist`` at
+    2,000 entities, called directly: one device over the whole graph, two
+    ``gcn_fused`` launches per forward and two ``spmm_ell`` per step, the
+    loss finite and falling in each interval, the final loss within rel
+    1e-4 of the same run unsharded (PERF.md §2: single-device runs on the
+    card)."""
+    task = synthetic_align_task(seed=2, n_ent=2000, n_rel=20, n_triples=8000, n_attr=40,
+                                attrs_per_ent=3)
+    if trainer == "fit":
+        fn, cfg = fit, get_config("dwy100k_dist", k_neg=10, epochs=6, neg_every=3,
+                                  eval_every=0)
+    else:
+        fn = fit_mtl
+        cfg = get_config("dwy100k_dist", **RECIPES["v7r"]).replace(
+            k_neg=10, epochs=4, boot_start=2, boot_cap=100, eval_every=0, sinkhorn_pairs=128)
+    before = (gcn_fused.launches, spmm_ell.launches)
+    res = fn(cfg, task=task, device=cuda)
+    t = res.timings
+    assert (gcn_fused.launches - before[0], spmm_ell.launches - before[1]) == (
+        2 * (t["steps"] + t["forwards"] + t["evals"]), 2 * t["steps"])
+    assert res.op.fwd.device.type == cuda.type
+    assert getattr(res.model, "encoder", res.model).gc1.w.shape[0] == cfg.dim
+    losses, nb = res.losses, cfg.neg_every
+    assert np.isfinite(losses).all() and all(
+        losses[i + nb - 1] < losses[i] for i in range(0, cfg.epochs, nb))
+    plain = fn(cfg.replace(n_shards=1), task=task, device=cuda)
+    assert res.metrics["final_loss"] == pytest.approx(plain.metrics["final_loss"], rel=1e-4)
+
+
+def _layer_float64(op, x, wm, b):
+    """(A·x)·W + b in float64 on x's device, from the ELL buckets."""
+    y = op.diag.double()[:, None] * x.double()
+    for bk in op.fwd.buckets:
+        y.index_add_(0, bk.rows.long(),
+                     (bk.w.double()[..., None] * x.double()[bk.idx.long()]).sum(1))
+    return y @ wm.double() + b.double()
+
+
+@pytest.mark.gpu
+def test_gcn_fused_128_fp32_error_against_float64(cuda):
+    """The fp32 (128, 128) instance on an operator with a hub row of K
+    5,300: its relative L2 error against the float64 layer is at most the
+    (256, 128) instance's on the same rows and the same layer (x widened by
+    128 random columns that W's 128 zero rows drop), as both sum each group
+    of 16 k's outside the tensor cores' accumulator."""
+    rng = np.random.default_rng(21)
+    op = _hub_graph(rng, HUB_DEGREES["hub_5300"]).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((op.n_rows, 256)).astype(np.float32)).to(cuda)
+    wm = torch.from_numpy((rng.standard_normal((128, 128)) / np.sqrt(128))
+                          .astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.standard_normal(128).astype(np.float32)).to(cuda)
+    x128 = x[:, :128].contiguous()
+    want = _layer_float64(op, x128, wm, b)
+    err = {}
+    for d_in, xi, wi in ((128, x128, wm), (256, x, torch.cat([wm, torch.zeros_like(wm)]))):
+        got = fused_gcn_layer(op.fwd, op.diag, xi, wi, b)
+        err[d_in] = float((got.double() - want).norm() / want.norm())
+    assert err[128] <= err[256] < 1e-6, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["cityblock", "sqeuclidean"])
+def test_sddmm_pairs_on_the_card(cuda, metric):
+    rng = np.random.default_rng(4)
+    emb = torch.from_numpy(rng.standard_normal((5000, 128)).astype(np.float32))
+    rows, cols = (torch.from_numpy(rng.integers(0, 5000, 20000)) for _ in range(2))
+    want = sddmm_pairs(emb, rows, cols, metric)
+    got = sddmm_pairs(emb.to(cuda), rows.to(cuda), cols.to(cuda), metric)
+    assert got.device.type == cuda.type
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=0)

@@ -34,7 +34,7 @@ from tpugraph_torch.sparse.build import build_adjacency
 from tpugraph_torch.sparse.graph import KG, AlignTask
 from tpugraph_torch.train.driver import evaluate, run
 from tpugraph_torch.train.checkpoint import Checkpointer
-from tpugraph_torch.train.loop import _check_resume, check_trainable
+from tpugraph_torch.train.loop import _check_resume, check_schedule
 from tpugraph_torch.train.mtl import check_ot_size, draw_interval, fit_mtl, interval_keys
 
 
@@ -319,7 +319,7 @@ def test_mtl_channel_run_and_eval_only_on_the_host(tmp_path, one_thread):
 def test_cli_recipe_v7_on_the_host(recipe, capsys, one_thread):
     """v7 and v7r (v6 + the attribute head at weight 4.0 or 0.25) at small
     sizes, through the CLI on the host."""
-    check_trainable(get_config("base", **RECIPES[recipe]))
+    check_schedule(get_config("base", **RECIPES[recipe]))
     argv = ["--recipe", recipe, "--device", "cpu", "--quiet", "--set", "syn_n_ent=150",
             "syn_n_triples=600", "epochs=4", "boot_start=2", "boot_cap=30", "k_neg=5",
             "eval_every=0", "dim=32", "sinkhorn_iters=5"]

@@ -35,7 +35,7 @@ from tpugraph_torch.serve import topk_alignments
 from tpugraph_torch.sparse.build import build_adjacency
 from tpugraph_torch.train.bootstrap import propose_mutual_nn_pairs
 from tpugraph_torch.train.eval import _both_direction_ranks, _knn_mean_l1, hits_at_k
-from tpugraph_torch.train.loop import check_trainable, embed
+from tpugraph_torch.train.loop import check_schedule, embed
 from tpugraph_torch.train.negatives import _cand_hubness, sample_hard_negatives
 
 
@@ -70,7 +70,7 @@ def _boot_setup(seed, n1=80, n2=100, d=12, s=30):
 def test_recipes_equal_the_jax_table():
     assert RECIPES == JAX_RECIPES
     for name in ("v1", "v2", "v3", "v4", "v5", "v6", "v7", "v7r"):
-        check_trainable(get_config("base", **RECIPES[name]))
+        check_schedule(get_config("base", **RECIPES[name]))
     v7, v7r = get_config("base", **RECIPES["v7"]), get_config("base", **RECIPES["v7r"])
     assert {k for k, v in v7.to_dict().items() if v7r.to_dict()[k] != v} == {"attr_weight"}
 

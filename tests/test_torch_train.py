@@ -28,12 +28,13 @@ from tpugraph_torch.cli.main import main as cli_main
 from tpugraph_torch.configs.configs import get_config
 from tpugraph_torch.convert import params_from_jax
 from tpugraph_torch.data.synthetic import synthetic_align_task
+from tpugraph_torch.dist import trainer as dist_trainer
 from tpugraph_torch.kernels import gcn_fused, sinkhorn_fused, spmm_ell
 from tpugraph_torch.models.align import AlignMTL
 from tpugraph_torch.nn.graphconv import GraphConvolution
 from tpugraph_torch.sparse.build import build_adjacency
 from tpugraph_torch.train.driver import run
-from tpugraph_torch.train.loop import build_model, check_trainable
+from tpugraph_torch.train.loop import build_model, check_schedule
 from tpugraph_torch.train.losses import margin_align_loss
 from tpugraph_torch.train.metrics import epoch_edge_ops
 from tpugraph_torch.train.mtl import check_ot_size
@@ -273,16 +274,23 @@ def test_cli_debug_nans_raises_at_the_poisoned_step(fused, capsys):
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["final_loss"] != 0.0
 
 
-def test_unported_options_and_the_card_default():
+def test_unported_options_and_the_card_default(monkeypatch):
+    # a sharded config: fit and fit_mtl take it (one device, as the JAX
+    # trainers do; tests/test_torch_sharded_single.py), and driver.run still
+    # sends it to the distributed trainer
+    routed = []
+    monkeypatch.setattr(dist_trainer, "fit_distributed",
+                        lambda cfg, **kw: routed.append(cfg.name) or "distributed")
     for over in (dict(slice_shards=2), dict(n_shards=2), dict(feature_shards=2)):
-        with pytest.raises(NotImplementedError):
-            check_trainable(get_config("sinkhorn", **over))
+        check_schedule(get_config("sinkhorn", **over))
+        assert run(get_config("sinkhorn", **over), device="cpu") == "distributed"
+    assert routed == ["sinkhorn"] * 3
     # the fused interval, profiling and the TensorBoard sink are ported
     # (tests/test_torch_fused.py, tests/test_torch_observability.py); bf16
     # training too (tests/test_torch_bf16.py)
     for over in (dict(steps_per_call=5), dict(profile_dir="prof"),
                  dict(param_dtype="bfloat16")):
-        check_trainable(get_config("sinkhorn", **over))
+        check_schedule(get_config("sinkhorn", **over))
     # every single-device SpMM impl builds (tests/test_torch_sorted.py); the
     # operator's layout follows it
     task = synthetic_align_task(seed=0, n_ent=40, n_rel=3, n_triples=120)
@@ -295,9 +303,9 @@ def test_unported_options_and_the_card_default():
     for over in (dict(boot_cap=10, boot_approx=True), dict(neg_metric="sqeuclidean"),
                  dict(eval_approx_k=50), dict(neg_approx=True), dict(neg_csls_k=5),
                  dict(boot_cap=10, neg_metric="sqeuclidean")):
-        check_trainable(get_config("sinkhorn", **over))
+        check_schedule(get_config("sinkhorn", **over))
     with pytest.raises(ValueError, match="neg_metric"):
-        check_trainable(get_config("sinkhorn", neg_metric="cosine"))
+        check_schedule(get_config("sinkhorn", neg_metric="cosine"))
     with pytest.raises(ValueError, match="sinkhorn_pairs"):
         check_ot_size(get_config("sinkhorn"), 9000)
     check_ot_size(get_config("sinkhorn"), 4500)

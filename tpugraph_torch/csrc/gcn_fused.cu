@@ -49,9 +49,12 @@
 //     loads free of bank conflicts without padding.  mma.sync's own adds
 //     into its fp32 accumulator lose more than fp32 adds (on the H100 a
 //     product of 256 k's took ~10× the error of the same products summed
-//     per group outside); the instances with one block per SM have the
-//     registers to do that, each group of 16 k's from zero, then one fp32
-//     add (kSumOutside).
+//     per group outside; at (128, 128) the layer's relative L2 error
+//     against float64 was 4.1e-7 inside, 7.2e-8 outside, the plain fp32
+//     layer's 9.7e-8), so every fp32 instance sums each group of 16 k's
+//     from zero, then adds it in fp32 (kSumOutside; at (128, 128) ptxas
+//     keeps the same registers, no spills, and the time did not move).
+//     Only the bf16 (128, 128) instance keeps its sum in the accumulator.
 //   * Every output row is written exactly once, straight to its natural
 //     position: no atomics on out, no zero fill, no row_order gather; every
 //     sum runs in a fixed order, so two launches give bit-identical results.
@@ -255,10 +258,10 @@ gcn_fused_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
   constexpr int NT = NW / 8;        // their mma n-tiles
   constexpr bool kWExact = sizeof(T) == 2;  // a bf16 W is exact in TF32
   // mma.sync adds into its fp32 accumulator less exactly than an fp32 add
-  // (probed on the H100: 10× the error of summing each group outside).  With
-  // one block per SM the registers are there to sum each group of 16 k's
-  // outside; at two blocks per SM (128 × 128) they are not.
-  constexpr bool kSumOutside = D_IN * DP > 128 * 128;
+  // (probed on the H100: 10× the error of summing each group outside), so
+  // each group of 16 k's is summed outside in fp32; the bf16 (128, 128)
+  // instance alone keeps its sum inside.
+  constexpr bool kSumOutside = sizeof(T) == 4 || D_IN * DP > 128 * 128;
   extern __shared__ float4 smem4[];
   float* w_s = reinterpret_cast<float*>(smem4);  // the panel of Wᵀ [DP][D_IN], swizzled
   float* a_s = w_s + DP * D_IN;                  // [kTileRows][D_IN], swizzled

@@ -184,7 +184,7 @@ def check_distributed(cfg: TrainConfig, task: AlignTask) -> None:
     in its order)."""
     if cfg.param_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unsupported param_dtype {cfg.param_dtype!r}")
-    check_ot_size(cfg, len(task.train_pairs))
+    check_ot_size(cfg, len(task.train_pairs), cfg.n_shards)
     no_attr = task.merged_attr_triples is None or task.n_attr == 0
     if cfg.use_attr_channel and no_attr:
         raise ValueError("attribute channel enabled but the task has no attribute triples")

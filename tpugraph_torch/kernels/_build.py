@@ -44,9 +44,10 @@ def _nvcc() -> str:
     return found
 
 
-def build(name: str) -> Built:
-    """Compile ``csrc/<name>.cu`` unless a library of the same sources exists."""
-    src = CSRC / f"{name}.cu"
+def build(name: str, src: Path | None = None) -> Built:
+    """Compile ``csrc/<name>.cu`` (or ``src``, another version of it that
+    includes the same headers) unless a library of the same sources exists."""
+    src = CSRC / f"{name}.cu" if src is None else Path(src)
     h = hashlib.sha256(src.read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
         h.update(hdr.read_bytes())
@@ -58,7 +59,7 @@ def build(name: str) -> Built:
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stdout}\n{proc.stderr}")

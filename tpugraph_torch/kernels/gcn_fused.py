@@ -14,7 +14,12 @@ row's last segment sums in order before its own product, then
 each block owns one 128-column panel of W (``PANELS``) and both panels'
 blocks walk the whole plan.  Each tile's rows
 are aggregated in shared memory (packed virtual-slot walks) and multiplied
-by W on the tensor cores as a 3× TF32 split, fp32-accurate.  Every row is
+by W on the tensor cores as a 3× TF32 split, each group of 16 k's summed
+outside the tensor cores' accumulator in fp32 (bf16 at (128, 128) sums
+inside): fp32-accurate, as measured on the H100 against a float64 layer
+(``scripts/dist_step_probe.py``): 6.9e-8 to 7.8e-8 relative L2 at (128,
+128) and (256, 128) on the zh-en and DWY100K operators, under the plain
+fp32 layer's 9.4e-8 to 1.4e-7.  Every row is
 written straight to its natural position, so the buckets' outputs need no
 concatenation and no ``row_order`` gather.  The work counters and the
 segments' partials are cached per (d_in, d_out, stream) and left at zero by the

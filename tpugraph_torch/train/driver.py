@@ -5,7 +5,9 @@
 ``dwy100k_dist``) goes to ``dist/trainer.py::fit_distributed``, one with
 an OT head or an MTL head or channel (configs ``sinkhorn`` and ``mtl``,
 recipes v5–v7r) to ``train/mtl.py::fit_mtl``, the others (configs
-``base`` and ``highway``) to ``train/loop.py::fit``.  ``evaluate`` restores trained parameters (a
+``base`` and ``highway``) to ``train/loop.py::fit``.  Called directly,
+``fit`` and ``fit_mtl`` train a sharded config on one device over the
+whole graph, as the JAX trainers do.  ``evaluate`` restores trained parameters (a
 training run's ``checkpoint_dir`` holds them; a sharded config's are scored
 by the distributed trainer at ``epochs=0``), runs the encoder forward
 over the merged graph once (with the attribute channel, the AE channel
@@ -55,8 +57,8 @@ def run(cfg: TrainConfig, task: AlignTask | None = None, device: str | torch.dev
 
 
 def sharded(cfg: TrainConfig) -> bool:
-    """Whether ``cfg`` runs on the distributed trainer (more than one shard
-    on any axis)."""
+    """Whether ``run`` sends ``cfg`` to the distributed trainer (more than
+    one shard on any axis)."""
     return max(cfg.n_shards, cfg.feature_shards, cfg.slice_shards) > 1
 
 

@@ -43,9 +43,12 @@ each step of the interval folds on the device (inside the captured graph
 on the card) and the interval's one synchronise reads, naming the
 interval's epochs.
 
-These trainers are single-device: ``check_trainable`` refuses more than
-one shard (``train/driver.py::run`` sends such a config to
-``dist/trainer.py::fit_distributed``).
+These trainers run on one device over the whole graph, as the JAX
+``fit`` and ``fit_mtl`` do, whatever ``n_shards``, ``feature_shards`` and
+``slice_shards`` say: they never read those fields, so a sharded config
+(``dwy100k_dist``) trains here exactly as its one-shard twin does.  Only
+``train/driver.py::run`` reads them, and sends such a config to
+``dist/trainer.py::fit_distributed``.
 """
 
 from __future__ import annotations
@@ -278,16 +281,6 @@ def step_generator(cfg: TrainConfig, epoch: int, dev: torch.device) -> torch.Gen
     """The generator of one training step's dropout mask, on the run's
     device (``step_seed``)."""
     return torch.Generator(device=dev).manual_seed(step_seed(cfg, epoch))
-
-
-def check_trainable(cfg: TrainConfig, refuse_fused_profile: bool = False) -> None:
-    """Refuse, before any work, a sharded config (``fit`` and ``fit_mtl``
-    train on one device) and what ``check_schedule`` refuses."""
-    check_schedule(cfg, refuse_fused_profile)
-    if max(cfg.n_shards, cfg.feature_shards, cfg.slice_shards) > 1:
-        raise NotImplementedError(
-            "fit and fit_mtl train on one device; a sharded config goes through "
-            "train.driver.run to dist.trainer.fit_distributed (ROADMAP.md)")
 
 
 def check_schedule(cfg: TrainConfig, refuse_fused_profile: bool = False) -> None:
@@ -599,6 +592,6 @@ def fit(cfg: TrainConfig, task: AlignTask | None = None, verbose: bool = False,
     """Train an AlignGCN with the margin loss per ``cfg`` (configs ``base``
     and ``highway``; ``margin_parts``)."""
     dev = resolve_device(device)
-    check_trainable(cfg, refuse_fused_profile=True)
+    check_schedule(cfg, refuse_fused_profile=True)
     task = task or load_task(cfg)
     return train_loop(cfg, task, margin_parts(cfg, task, dev), dev, verbose, debug_nans)

@@ -6,9 +6,10 @@ uniform negatives at epoch 0, bootstrap proposals and hard mining at each
 later ``neg_every`` boundary, eval at ``eval_every`` and at the end,
 checkpoints and resume; with ``steps_per_call = neg_every`` the fused
 interval (on the card a captured step, replayed; ``train/fused.py``), with
-the JAX ``fit_mtl``'s refusals (``loop.check_trainable``: unlike ``fit``,
+the JAX ``fit_mtl``'s refusals (``loop.check_schedule``: unlike ``fit``,
 a fused run may set ``profile_dir``, as the JAX ``fit_mtl`` never reads
-it; the port traces the intervals that hold epochs 2–5).  A fused save
+it; the port traces the intervals that hold epochs 2–5).  Like ``fit``,
+it trains a sharded config on one device over the whole graph.  A fused save
 keeps the interval's draws, as the JAX one keeps its batch.
 At each boundary ``fit_mtl`` adds its own draws to the batch, each from
 a host generator derived from (seed, the interval's first epoch)
@@ -44,27 +45,34 @@ from tpugraph_torch.nn.graphconv import operator_format
 from tpugraph_torch.sparse.ell import EllOperator
 from tpugraph_torch.sparse.graph import AlignTask, SpMMOperator
 from tpugraph_torch.train.loop import (StepParts, TrainResult, build_operator,
-                                       check_trainable, interval_generator, load_task,
+                                       check_schedule, interval_generator, load_task,
                                        train_loop)
 
 OT_PAIRS_MAX = 8192  # the JAX package's guard on the S×S OT problem
 ATTR_BATCH_MAX = 8192  # attribute triples per interval
 
 
-def check_ot_size(cfg: TrainConfig, n_seed: int) -> None:
+def check_ot_size(cfg: TrainConfig, n_seed: int, shards: int | None = None) -> None:
     """The JAX package refuses an effective OT problem above 8,192 pairs:
-    on one shard its S×S cost failed to compile; over more shards the ring
+    on one device its S×S cost failed to compile; over more shards the ring
     loss recomputes every S×S cost tile about 3× per iteration.  The port
-    keeps the guard, with the JAX message of each branch, so that a config
-    behaves the same in both packages."""
+    keeps the guard, with the JAX message of each trainer, so that a config
+    behaves the same in both packages.  ``shards``: None for ``fit_mtl``,
+    which trains on one device whatever the shard fields say; the
+    distributed trainer's ``n_shards`` for it."""
     if not cfg.use_sinkhorn or cfg.epochs == 0:
         return
     ot_eff = min(cfg.sinkhorn_pairs, n_seed) if cfg.sinkhorn_pairs > 0 else n_seed
     if ot_eff > OT_PAIRS_MAX:
-        where = ("does not compile in the JAX package at this scale" if cfg.n_shards <= 1 else
-                 f"runs the ring loss's ~3·S² per-iteration recompute "
-                 f"({3 * cfg.sinkhorn_iters * ot_eff ** 2 * cfg.dim:.1e} flops per loss step "
-                 f"at dim={cfg.dim}) — quadratically past any training-relevant budget")
+        if shards is None:
+            where = "does not compile at this scale"
+        elif shards == 1:
+            where = "does not compile at this scale on one shard"
+        else:
+            where = (f"runs the ring loss's ~3·S² per-iteration recompute "
+                     f"({3 * cfg.sinkhorn_iters * ot_eff ** 2 * cfg.dim:.1e} flops per loss "
+                     f"step at dim={cfg.dim}) — quadratically past any training-relevant "
+                     f"budget")
         raise ValueError(
             f"use_sinkhorn with an effective OT problem of {ot_eff} pairs (seeds={n_seed}, "
             f"sinkhorn_pairs={cfg.sinkhorn_pairs}) {where} — set sinkhorn_pairs <= "
@@ -165,7 +173,7 @@ def fit_mtl(cfg: TrainConfig, task: AlignTask | None = None, verbose: bool = Fal
             device: str | torch.device = "cuda", debug_nans: bool = False) -> TrainResult:
     """Train AlignMTL per ``cfg`` (``mtl_parts``)."""
     dev = resolve_device(device)
-    check_trainable(cfg)
+    check_schedule(cfg)
     task = task or load_task(cfg)
     attr_triples_of(cfg, task)
     check_ot_size(cfg, len(task.train_pairs))
