@@ -2,12 +2,18 @@
 
 Usage (from the repository root, on a machine with a CUDA card and nvcc):
 
-    python3 chip_smoke.py [--parent-l1 DIR]
+    python3 chip_smoke.py [--parent-l1 DIR] [--parent-gcn DIR]
 
 ``--parent-l1 DIR``: DIR holds another commit's ``l1_search.cu`` and
 ``topk_queue.cuh`` (PR 19's entry points); ``phase_l1_search`` builds it
 there and holds the port's kernel to it at every shape, bit for bit and
-timed in turns.  Without it that comparison is not run.
+timed in turns.  ``--parent-gcn DIR``: DIR holds another commit's
+``gcn_fused.cu`` whose C entry takes no cut-row table (the two-panel
+kernel at (256, 256)); ``phase_kernel`` holds the port's kernel to it at zh-en
+scale — the narrow widths bit for bit, (256, 256) fp32 and bf16 timed in
+turns, with its device-time split — and ``phase_single_sharded`` times the
+two in turns at (256, 256) on the DWY100K operator.  Without them those
+comparisons are not run.
 
 Phases, each printing one JSON line:
 
@@ -196,8 +202,9 @@ Phases, each printing one JSON line:
              distributed run, peak memory, step median and stage times beside
              it; one step of ``fit``'s trained model held against its plain
              path; ``gcn_fused`` on each leg's operator at (128, 128) and
-             (256, 256) fp32 against its plain version, timed beside
-             cuSPARSE + GEMM and the bound.
+             (256, 256) fp32, and (256, 256) bf16, against its plain
+             version, timed beside cuSPARSE + GEMM and the bound (with
+             ``--parent-gcn``, (256, 256) in turns with that kernel).
 
 21. dist_options — the distributed trainer's run options on
              ``dwy100k_dist`` at full width through ``driver.run`` /
@@ -275,6 +282,8 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import hashlib
+import itertools
 import json
 import math
 import os
@@ -475,9 +484,11 @@ def _bound_ms(op, x, wmat, bias) -> tuple[float, str, float]:
     (x, W, b, the buckets' rows/idx/w, diag), the output written once; the
     operations this graph needs as the kernel runs them: the real edges
     (the diagonal included) at the fp32 SIMT rate, then the product as
-    three TF32 products on the tensor cores (two for a bf16 W, which is
-    exact in TF32).  Third, the bound with the whole product at the peak
-    rate of x's type (fp32 SIMT, or bf16 tensor cores)."""
+    ``gcn_fused.PRODUCTS`` says: three TF32 products on the tensor cores
+    (two for a bf16 W below (256, 256), which is exact in TF32), or at bf16
+    (256, 256) three bf16 products on the bf16 tensor cores.  Third, the
+    bound with the whole product once at the peak rate of x's type (fp32
+    SIMT, or bf16 tensor cores)."""
     m = op.fwd
     n, d_in, d_out = m.n_rows, x.shape[1], wmat.shape[1]
     es = x.element_size()
@@ -485,9 +496,10 @@ def _bound_ms(op, x, wmat, bias) -> tuple[float, str, float]:
     nbytes = (n * d_in * es + d_in * d_out * es + bias.numel() * 4 + op.diag.numel() * 4
               + ell_bytes + n * d_out * es)
     edge_ops, gemm_ops = 2 * (m.nnz + op.n_diag) * d_in, 2 * n * d_in * d_out
-    n_products = 3 if x.dtype == torch.float32 else 2
+    n_products, unit = gcn_fused.PRODUCTS[d_in, d_out, x.dtype]
+    peak = PEAK_TF32_OPS if unit == "tf32" else PEAK_OPS[torch.bfloat16]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (edge_ops / PEAK_OPS[torch.float32] + n_products * gemm_ops / PEAK_TF32_OPS) * 1e3
+    t_ops = (edge_ops / PEAK_OPS[torch.float32] + n_products * gemm_ops / peak) * 1e3
     bound, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     return bound, bound_by, _bound(nbytes, edge_ops + gemm_ops, x.dtype)[0]
 
@@ -513,12 +525,14 @@ def _csr_of(m, diag: torch.Tensor | None = None) -> torch.Tensor:
             check_invariants=True).to(m.device)
 
 
-def _gcn_split(m, diag, x, wmat, bias) -> dict:
+def _gcn_split(m, diag, x, wmat, bias, launch=None) -> dict:
     """The fused layer's device time on parts of its work: all of it, the
     rows of K ≥ 1,024 (their segments) and the rest, the short rows
     (1 ≤ K ≤ 7), and the K = 0 tiles (no ELL gather: the diagonal and the
     product alone).  Rows outside the part are left unwritten; only the
-    time is read."""
+    time is read.  ``launch``: another kernel's launcher (``_parent_gcn``)
+    in place of the port's."""
+    launch = gcn_fused._launch if launch is None else launch
     plan = gcn_fused.layer_plan(m)
     tk, sk = plan.tiles.tiles[:, 2], plan.segs[:, 2]
     masks = {"all": None, "k_ge_1024": (tk >= 1024, sk >= 1024),
@@ -526,17 +540,17 @@ def _gcn_split(m, diag, x, wmat, bias) -> dict:
              "k_0": (tk == 0, sk < 0)}
     out = {}
     for name, mask in masks.items():
-        part = plan if mask is None else dataclasses.replace(
-            plan, tiles=dataclasses.replace(plan.tiles, tiles=plan.tiles.tiles[mask[0]].contiguous()),
-            segs=plan.segs[mask[1]].contiguous())
+        part = plan if mask is None else gcn_fused.sub_plan(
+            plan, plan.tiles.tiles[mask[0]].contiguous(), plan.segs[mask[1]].contiguous())
         out[name] = {"tiles": int(part.tiles.tiles.shape[0]), "segments": int(part.segs.shape[0]),
+                     "cut_rows": int(part.hub.shape[0]),
                      "device_ms": device_ms(
-                         lambda part=part: gcn_fused._launch(m, diag, x, wmat, bias, part))}
+                         lambda part=part: launch(m, diag, x, wmat, bias, part))}
     out["k_ge_1024_share"] = ratio(out["k_ge_1024"]["device_ms"], out["all"]["device_ms"])
     return out
 
 
-def phase_kernel(task, smi: str, dev: torch.device) -> dict:
+def phase_kernel(task, smi: str, dev: torch.device, parent=None) -> dict:
     t0 = time.perf_counter()
     op_host = build_adjacency(task.n_ent, task.merged_triples, n_rel=task.n_rel)
     op = op_host.to(dev)
@@ -561,19 +575,24 @@ def phase_kernel(task, smi: str, dev: torch.device) -> dict:
     results = {}
     for d, dtype in ((128, torch.float32), (128, torch.bfloat16), (256, torch.float32),
                      (256, torch.bfloat16)):
-        results[d, dtype] = _gcn_case(op, a_csr, rng, d, dtype, smi)
+        results[d, dtype] = _gcn_case(op, a_csr, rng, d, dtype, smi, parent=parent)
+    if parent is not None:
+        results["narrow_vs_parent"] = _gcn_narrow_bitwise(op, parent, smi)
     # the recipe's width first; the others beside it
     return {**results[256, torch.float32],
             "bf16": results[256, torch.bfloat16],
-            "at_d128": {**results[128, torch.float32], "bf16": results[128, torch.bfloat16]}}
+            "at_d128": {**results[128, torch.float32], "bf16": results[128, torch.bfloat16]},
+            **({"narrow_vs_parent": results["narrow_vs_parent"]} if parent is not None else {})}
 
 
 def _gcn_case(op, a_csr, rng, d: int, dtype: torch.dtype, smi: str, split: bool = True,
-              where: str = "zh_en") -> dict:
+              where: str = "zh_en", parent=None) -> dict:
     """``gcn_fused`` at (d, d) on ``op`` with random x, W and b: against its
     plain version (the rows in no ELL bucket too), two launches bit for
     bit; timed beside the plain version and cuSPARSE + GEMM (``a_csr``),
-    the bound, and with ``split`` its device time over parts of its work."""
+    the bound, and with ``split`` its device time over parts of its work.
+    With ``parent`` (``_parent_gcn``) at d = 256, that kernel too: against
+    the plain version, timed in turns with this one (and split)."""
     dev, plan = op.fwd.device, fused_plan(op.fwd)
     zero_rows = plan.rows[-plan.n_zero_rows:].long() if plan.n_zero_rows else None
     x = torch.from_numpy(rng.standard_normal((op.n_rows, d)).astype(np.float32)).to(dev)
@@ -615,9 +634,13 @@ def _gcn_case(op, a_csr, rng, d: int, dtype: torch.dtype, smi: str, split: bool 
         lib_dev = device_ms(library)
         lib_cold = time_cold_ms(library)
     bound, bound_by, bound_x_type = _bound_ms(op, x, wm, b)
+    versus = None
+    if parent is not None and d == 256:
+        versus = _gcn_parent_case(op, x, wm, b, dtype, parent, split)
+    n_products, unit = gcn_fused.PRODUCTS[d, d, dtype]
     emit({"phase": "kernel", "kernel": "gcn_fused", "operator": where, "rows": op.n_rows,
           "edges": op.nnz, "d_in": d, "d_out": d,
-          "panels": gcn_fused.PANELS[d, d], "dtype": str(dtype).split(".")[1],
+          "panels": gcn_fused.PANELS[d, d, dtype], "dtype": str(dtype).split(".")[1],
           "max_abs_err": err, "no_bucket_rows_max_abs_err": zero_err, "ms": ms,
           "device_ms": dev_ms, "ms_cold_l2": ms_cold, "plain_ms": plain_ms,
           "library_ms": lib_ms, "library_device_ms": lib_dev,
@@ -625,13 +648,106 @@ def _gcn_case(op, a_csr, rng, d: int, dtype: torch.dtype, smi: str, split: bool 
           "bound_by": bound_by, "share_of_bound": bound / ms,
           "share_of_bound_device": ratio(bound, dev_ms), "bound_x_type_ms": bound_x_type,
           "share_of_x_type_bound_device": ratio(bound_x_type, dev_ms),
-          "bit_identical_runs": same,
+          "bit_identical_runs": same, "parent": versus,
           "split": _gcn_split(op.fwd, op.diag, x, wm, b) if split else None, "card": smi})
     return dict(d_in=d, d_out=d, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=bound_by, library_ms=lib_ms, device_ms=dev_ms, ms_cold_l2=ms_cold,
                 library_device_ms=lib_dev, bound_x_type_ms=bound_x_type,
-                panels=gcn_fused.PANELS[d, d],
-                precision="3xtf32" if dtype == torch.float32 else "2xtf32")
+                panels=gcn_fused.PANELS[d, d, dtype], precision=f"{n_products}x{unit}",
+                **({} if versus is None else {"parent_ms": versus["parent_ms"],
+                                              "ratio_to_parent": versus["ratio"]}))
+
+
+def _parent_gcn(src: str):
+    """The fused layer of another commit: ``gcn_fused.cu`` in ``src``, whose
+    C entry takes no cut-row table, built by nvcc with the port's flags and
+    headers, and a launcher taking ``gcn_fused._launch``'s arguments (its
+    own scratch: at (256, 256) two panels' partials and counters)."""
+    t0 = time.perf_counter()
+    built = _build.build("gcn_fused_parent", os.path.join(src, "gcn_fused.cu"))
+    fn = ctypes.CDLL(str(built.path)).gcn_fused_forward
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P, P, P, P, P, P, P, P, I, P, I, I, P, P, P, P, I, I, I, P]
+    fn.restype = ctypes.c_int
+    scratch = {}
+
+    def launch(m, diag, x, wmat, bias, plan):
+        d_in, d_out = x.shape[1], wmat.shape[1]
+        panels = 2 if (d_in, d_out) == (256, 256) else 1
+        n_split = plan.split_p0.shape[0] - 1
+        stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+        key = (plan.n_partials, n_split, d_in, d_out, stream)  # left at zero by every launch
+        if key not in scratch:
+            scratch[key] = torch.zeros(panels * (plan.n_partials * d_in + n_split) + panels + 1,
+                                       dtype=torch.float32, device=x.device)
+        partial = scratch[key].data_ptr()
+        out = torch.empty((m.n_rows, d_out), dtype=x.dtype, device=x.device)
+        t = plan.tiles
+        err = fn(x.data_ptr(), wmat.data_ptr(), None if bias is None else bias.data_ptr(),
+                 None if diag is None else diag.data_ptr(), t.rows.data_ptr(), t.idx.data_ptr(),
+                 t.w.data_ptr(), t.tiles.data_ptr(), t.tiles.shape[0], plan.segs.data_ptr(),
+                 plan.segs.shape[0], SEG_SLOTS, plan.split_p0.data_ptr(),
+                 partial + 4 * panels * plan.n_partials * d_in, partial, out.data_ptr(), d_in,
+                 d_out, 0 if x.dtype == torch.float32 else 1, stream)
+        if err != 0:
+            raise RuntimeError(f"the parent's gcn_fused failed with CUDA error {err}")
+        return out
+
+    emit({"phase": "parent_gcn_build", "src": src, "build_s": time.perf_counter() - t0,
+          "ptxas": [ln.strip() for ln in built.log.splitlines()
+                    if "registers" in ln or "spill" in ln]})
+    return launch
+
+
+def _gcn_parent_case(op, x, wm, b, dtype, parent, split: bool) -> dict:
+    """The parent commit's layer on the same inputs: against the plain
+    version at ``TOL``, two launches bit for bit, and both kernels timed in
+    turns (parent, this, this, parent) by CUDA events; with ``split`` the
+    parent's device-time split (``_gcn_split``)."""
+    plan = gcn_fused.layer_plan(op.fwd)
+
+    def old():
+        return parent(op.fwd, op.diag, x, wm, b, plan)
+
+    def new():
+        return fused_gcn_layer(op.fwd, op.diag, x, wm, b)
+
+    want = reference_layer(op.fwd, op.diag, x, wm, b)
+    got = old()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    if not torch.equal(got, old()):
+        raise AssertionError("the parent's gcn_fused: two launches differ")
+    times = [time_ms(f, warmup=3, iters=20) for f in (old, new, new, old)]
+    return {"parent_ms": (times[0] + times[3]) / 2, "ms": (times[1] + times[2]) / 2,
+            "ratio": (times[1] + times[2]) / (times[0] + times[3]), "turns_ms": times,
+            "parent_max_abs_err": float((got.float() - want.float()).abs().max()),
+            "parent_split": (_gcn_split(op.fwd, op.diag, x, wm, b, launch=parent)
+                             if split else None)}
+
+
+def _gcn_narrow_bitwise(op, parent, smi: str) -> dict:
+    """The narrow instances, (128, 128), (128, 256) and (256, 128) in fp32
+    and bf16, against the parent commit's kernel on the same inputs: bit
+    for bit, and each output's SHA-256 (the card tests pin them)."""
+    rng = np.random.default_rng(12)
+    plan = gcn_fused.layer_plan(op.fwd)
+    out = {}
+    for (d_in, d_out), dtype in itertools.product(((128, 128), (128, 256), (256, 128)),
+                                                  (torch.float32, torch.bfloat16)):
+        x = torch.from_numpy(rng.standard_normal((op.n_rows, d_in)).astype(np.float32))
+        wm = torch.from_numpy((rng.standard_normal((d_in, d_out)) / np.sqrt(d_in))
+                              .astype(np.float32))
+        b = torch.from_numpy(rng.standard_normal(d_out).astype(np.float32)).to(op.fwd.device)
+        x, wm = x.to(op.fwd.device, dtype), wm.to(op.fwd.device, dtype)
+        got = fused_gcn_layer(op.fwd, op.diag, x, wm, b)
+        want = parent(op.fwd, op.diag, x, wm, b, plan)
+        name = f"({d_in}, {d_out}) {str(dtype).split('.')[1]}"
+        out[name] = {"bitwise": bool(torch.equal(got, want)),
+                     "sha256": hashlib.sha256(got.view(torch.uint8).cpu().numpy()).hexdigest()}
+        if not out[name]["bitwise"]:
+            raise AssertionError(f"gcn_fused {name}: differs from the parent's kernel")
+    emit({"phase": "kernel_narrow_vs_parent", "kernel": "gcn_fused", "cases": out, "card": smi})
+    return out
 
 
 def host_ms(fn, calls: int = 200) -> float:
@@ -3627,7 +3743,8 @@ def _single_sharded_leg(trainer, cfg, task, dist: dict, smi: str, dev: torch.dev
             "peak_device_mb": peak_mb}
 
 
-def phase_single_sharded(smi: str, dev: torch.device, dist: dict, dist_v7r: dict) -> dict:
+def phase_single_sharded(smi: str, dev: torch.device, dist: dict, dist_v7r: dict,
+                         parent=None) -> dict:
     """The single-device trainers on config dwy100k_dist, as the JAX ``fit``
     and ``fit_mtl`` train it (one device, the whole graph; the shard fields
     unread), on the tasks of ``phase_dist`` and ``phase_dist_v7r``: leg A
@@ -3637,8 +3754,9 @@ def phase_single_sharded(smi: str, dev: torch.device, dist: dict, dist_v7r: dict
     step of leg A's trained model through the kernels held against the
     plain path at PERF.md §2's step limit, and ``gcn_fused`` on the
     200,000-row operator of each leg at its width, (128, 128) and
-    (256, 256) fp32 (``_gcn_case``: against its plain version, timed beside
-    cuSPARSE + GEMM and the bound)."""
+    (256, 256) fp32, and (256, 256) bf16 (``_gcn_case``: against its plain
+    version, timed beside cuSPARSE + GEMM and the bound; with ``parent``,
+    (256, 256) in turns with that kernel)."""
     cfg_a = get_config("dwy100k_dist", **DIST_CUTS)
     leg_a = _single_sharded_leg(fit, cfg_a, dist["task"], dist, smi, dev)
     cfg_b = get_config("dwy100k_dist", **RECIPES["v7r"]).replace(
@@ -3653,9 +3771,13 @@ def phase_single_sharded(smi: str, dev: torch.device, dist: dict, dist_v7r: dict
           "check": step, "card": smi})
     rng = np.random.default_rng(9)
     kernel = {}
-    for res, d in ((res_a, cfg_a.dim), (res_b, cfg_b.dim)):
-        kernel[f"({d}, {d})"] = _gcn_case(res.op, _csr_of(res.op.fwd, res.op.diag), rng, d,
-                                          torch.float32, smi, split=False, where="dwy100k")
+    csr_b = _csr_of(res_b.op.fwd, res_b.op.diag)
+    for res, csr, d, dtype in ((res_a, _csr_of(res_a.op.fwd, res_a.op.diag), cfg_a.dim,
+                                torch.float32), (res_b, csr_b, cfg_b.dim, torch.float32),
+                               (res_b, csr_b, cfg_b.dim, torch.bfloat16)):
+        name = f"({d}, {d})" + ("" if dtype == torch.float32 else " bf16")
+        kernel[name] = _gcn_case(res.op, csr, rng, d, dtype, smi, split=False, where="dwy100k",
+                                 parent=parent)
     return {"fit": leg_a, "fit_mtl": leg_b, "step": step, "gcn_fused": kernel}
 
 
@@ -4551,12 +4673,16 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--parent-l1", default=None,
                     help="a directory holding another commit's l1_search.cu and "
                          "topk_queue.cuh, to hold the L1 search kernel to")
+    ap.add_argument("--parent-gcn", default=None,
+                    help="a directory holding another commit's gcn_fused.cu, to hold the "
+                         "fused GCN layer kernel to")
     args = ap.parse_args(argv)
     smi = phase_device()
     phase_build()
+    parent_gcn = _parent_gcn(args.parent_gcn) if args.parent_gcn is not None else None
     task = synthetic_align_task(**ZH_EN)
     dev = torch.device("cuda")
-    k_gcn = phase_kernel(task, smi, dev)
+    k_gcn = phase_kernel(task, smi, dev, parent_gcn)
     k_spmm = {**phase_spmm(task, smi, dev, d=256, split=False),
               "at_d128": phase_spmm(task, smi, dev, d=128),
               "bf16": {**phase_spmm(task, smi, dev, d=256, split=False, dtype=torch.bfloat16),
@@ -4584,7 +4710,7 @@ def main(argv: list[str] | None = None) -> int:
     phase_debug_nans(task, smi, dev)
     dist = phase_dist(smi, dev)
     dist_v7r = phase_dist_v7r(smi, dev)
-    single_sharded = phase_single_sharded(smi, dev, dist, dist_v7r)
+    single_sharded = phase_single_sharded(smi, dev, dist, dist_v7r, parent_gcn)
     dist_options = phase_dist_options(smi, dev, dist_v7r["stages_s"])
     dist_mesh = phase_dist_mesh(smi, dev)
     dist_grouped = phase_dist_grouped(smi, dev, dist_options["approx"])

@@ -26,6 +26,8 @@ it runs without the suite's conftest:
 """
 
 import ctypes
+import hashlib
+import itertools
 import math
 
 import numpy as np
@@ -249,20 +251,22 @@ def test_gcn_fused_short_and_hub_rows(cuda, dtype, d_in, d_out):
     assert gcn_fused.launches == before + 2
     assert torch.equal(got, again)
     plan = gcn_fused.layer_plan(op.fwd)
-    scratch = plan.scratch[(d_in, d_out, torch.cuda.current_stream().cuda_stream)]
-    counters = scratch[gcn_fused.PANELS[(d_in, d_out)] * plan.n_partials * d_in:]
-    assert plan.segs.shape[0] > 0 and not counters.view(torch.int32).any()
+    counters = gcn_fused.counters(plan, d_in, d_out, torch.cuda.current_stream().cuda_stream)
+    assert plan.segs.shape[0] > 0 and plan.hub.shape[0] > 0 and not counters.any()
     want = reference_layer(op.fwd, op.diag, x, wm, b)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
 @pytest.mark.gpu
-def test_gcn_fused_call_is_one_kernel(cuda):
-    """A warm call is one kernel on the device: no memset, no other work."""
+@pytest.mark.parametrize("d,dtype", [(128, torch.float32), (256, torch.float32),
+                                     (256, torch.bfloat16)])
+def test_gcn_fused_call_is_one_kernel(cuda, d, dtype):
+    """A warm call is one kernel on the device: no memset, no other work
+    (at (256, 256) fp32 one cluster launch of CTA pairs)."""
     rng = np.random.default_rng(4)
     op = _graph(rng).to(cuda)
-    x = torch.randn(op.n_rows, 128, device=cuda)
-    wm = torch.randn(128, 128, device=cuda)
+    x = torch.randn(op.n_rows, d, device=cuda, dtype=dtype)
+    wm = torch.randn(d, d, device=cuda, dtype=dtype)
     fused_gcn_layer(op.fwd, op.diag, x, wm)  # builds the tile table and the counters
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -270,6 +274,49 @@ def test_gcn_fused_call_is_one_kernel(cuda):
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(names) == 1 and "gcn_fused_kernel" in names[0], names
+
+
+# SHA-256 of each narrow instance's output on ``narrow_outputs``' inputs:
+# what the kernel computed before (256, 256) had a kernel of its own (the
+# parent commit's, which the redesign matches bit for bit on the H100:
+# ``chip_smoke.py --parent-gcn``)
+NARROW_SHA256 = {
+    "(128, 128) float32": "d438e8fecaf97475eda75ccf08e17123f091e255ac596ab7bbce1e9e8afa9e21",
+    "(128, 128) bfloat16": "4b5055e158ac0e2d1223b004eb33142a5f8e579ae983761563c1b952be4ee34a",
+    "(128, 256) float32": "72b560baa66083af3ab0d7b77fdf2f491691b81faa5239125ca7d3e51ab80be5",
+    "(128, 256) bfloat16": "f520e198800eda1e17fd564d56961beb0b5908a8b020a1c51ed4c280c24a680b",
+    "(256, 128) float32": "fae238e009feefcef727acda9850c499bab48a95e37c365fc8b4df04daad2041",
+    "(256, 128) bfloat16": "3bed24893fd463ad2c7619b13e9cfa9d2736e87a762c695c834ac64398a78781",
+}
+
+
+def narrow_outputs(cuda, layer=fused_gcn_layer) -> dict:
+    """``layer`` at (128, 128), (128, 256) and (256, 128) in fp32 and bf16
+    on a graph with a hub row of K = 5,300, seeded."""
+    rng = np.random.default_rng(21)
+    op = _hub_graph(rng, {3: 5300, 11: 300}).to(cuda)
+    out = {}
+    for (d_in, d_out), dtype in itertools.product(((128, 128), (128, 256), (256, 128)),
+                                                  (torch.float32, torch.bfloat16)):
+        x = torch.from_numpy(rng.standard_normal((op.n_rows, d_in)).astype(np.float32))
+        wm = torch.from_numpy((rng.standard_normal((d_in, d_out)) / np.sqrt(d_in))
+                              .astype(np.float32))
+        b = torch.from_numpy(rng.standard_normal(d_out).astype(np.float32)).to(cuda)
+        out[f"({d_in}, {d_out}) {str(dtype).split('.')[1]}"] = layer(
+            op.fwd, op.diag, x.to(cuda, dtype), wm.to(cuda, dtype), b)
+    return out
+
+
+def sha256_of(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()).hexdigest()
+
+
+@pytest.mark.gpu
+def test_gcn_fused_narrow_widths_bits_unchanged(cuda):
+    """The instances the (256, 256) redesign left alone give the bits they
+    gave before it."""
+    got = {name: sha256_of(y) for name, y in narrow_outputs(cuda).items()}
+    assert got == NARROW_SHA256
 
 
 @pytest.mark.gpu
@@ -1139,6 +1186,8 @@ def test_captured_step_replays_as_eager(cuda, case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel, d", [("gcn_fused", (128, 128)), ("gcn_fused", (256, 256)),
                                        ("gcn_fused", (128, 256)), ("gcn_fused", (256, 128)),
+                                       ("gcn_fused_bf16", (256, 256)),
+                                       ("gcn_fused_bf16", (128, 128)),
                                        ("spmm_ell", 128), ("spmm_ell", 256),
                                        ("spmm_sorted", 128), ("spmm_sorted", 256),
                                        ("sinkhorn_fused", 128), ("sinkhorn_fused", 256)])
@@ -1148,9 +1197,10 @@ def test_kernel_warm_up_then_capture(cuda, kernel, d):
     twice: both replays equal the eager call bit for bit."""
     rng = np.random.default_rng(5)
     op = _graph(rng, n=2000).to(cuda)
-    if kernel == "gcn_fused":
-        x = torch.from_numpy(rng.standard_normal((2000, d[0])).astype(np.float32)).to(cuda)
-        w = torch.from_numpy(rng.standard_normal(d).astype(np.float32) / 16).to(cuda)
+    if kernel.startswith("gcn_fused"):
+        dtype = torch.bfloat16 if kernel.endswith("bf16") else torch.float32
+        x = torch.from_numpy(rng.standard_normal((2000, d[0])).astype(np.float32)).to(cuda, dtype)
+        w = torch.from_numpy(rng.standard_normal(d).astype(np.float32) / 16).to(cuda, dtype)
         b = torch.from_numpy(rng.standard_normal(d[1]).astype(np.float32)).to(cuda)
 
         def call():

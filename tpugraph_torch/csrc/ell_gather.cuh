@@ -132,16 +132,15 @@ __device__ __forceinline__ void load_vslot(int v, int v1, int pos0, int k_row, l
 // slot's (source, weight, key) by load(v, src, w, key), which gives src < 0
 // for nothing to gather (v ≥ v1 among them); the warp broadcasts them by
 // shuffles, and the next 32 load before this chunk's gathers start, so that
-// load is off the critical path.  8 source rows (4 at D = 256) are in
-// flight per warp (8 at D = 64 too).  When the key changes, sink(key, acc) takes the finished
+// load is off the critical path.  U source rows are in flight per warp: by
+// default 8 (4 at D = 256).  When the key changes, sink(key, acc) takes the finished
 // row and acc restarts at 0; on return acc holds the last row, whose key is
 // `cur` (-1 if the item had no slot).
-template <typename T, int D, typename Load, typename Sink>
+template <typename T, int D, int U = 8 / kChunks<D>, typename Load, typename Sink>
 __device__ __forceinline__ void walk_slots(const T* __restrict__ x, int v0, int v1, int lane,
                                            float (&acc)[kChunks<D>][4], int& cur, Load&& load,
                                            Sink&& sink) {
   constexpr int CI = kChunks<D>, V = kVec<D>;
-  constexpr int U = 8 / CI;  // source rows in flight per warp
   cur = -1;
   int nx_src, nx_key;
   float nx_w;
@@ -190,8 +189,8 @@ __device__ __forceinline__ void walk_slots(const T* __restrict__ x, int v0, int 
 }
 
 // The virtual slots [v0, v1) of a run of rows of one ELL bucket (see
-// load_vslot), walked by walk_slots.
-template <typename T, int D, bool kNatural, typename Sink>
+// load_vslot), walked by walk_slots with U source rows in flight.
+template <typename T, int D, bool kNatural, int U = 8 / kChunks<D>, typename Sink>
 __device__ __forceinline__ void walk_vslots(const T* __restrict__ x,
                                             const float* __restrict__ diag,
                                             const int* __restrict__ rows,
@@ -199,7 +198,7 @@ __device__ __forceinline__ void walk_vslots(const T* __restrict__ x,
                                             const float* __restrict__ ew, int pos0, int k_row,
                                             long slot0, int v0, int v1, int lane,
                                             float (&acc)[kChunks<D>][4], int& cur, Sink&& sink) {
-  walk_slots<T, D>(
+  walk_slots<T, D, U>(
       x, v0, v1, lane, acc, cur,
       [&](int v, int& src, float& w, int& key) {
         load_vslot<kNatural>(v, v1, pos0, k_row, slot0, rows, idx, ew, diag, src, w, key);
