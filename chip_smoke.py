@@ -45,7 +45,8 @@ Phases, each printing one JSON line:
              through ``driver.run`` (uniform negatives, then one hard-mining
              interval); every kernel's launches counted; one step's loss and
              gradients held against the plain path on the card; the step's
-             time split into forward, backward, OT forward, OT backward and
+             time split into the encoder's forward, the margin's forward and
+             backward, OT forward, OT backward, the encoder's backward and
              Adam.
 6. recipe  — recipe v6 (dim 256, bootstrapping, the OT head, CSLS eval) at
              zh-en scale through ``driver.run``, cut to 10 of 600 epochs,
@@ -191,7 +192,25 @@ Phases, each printing one JSON line:
              against its plain version, timed beside the single-device
              loss; and the potential update at the ring caller's shape.
 
-20a. single_sharded — the single-device trainers on ``dwy100k_dist``
+20a. step_losses — the training step's two loss kernels against their
+             plain versions: ``margin_l1`` (the L1 margin loss, forward and
+             its fixed-order backward) at recipe v6's zh-en shape, config
+             sinkhorn's, ``dwy100k_dist``'s d-128 one and v7r's on it
+             (``MARGIN_SHAPES``): the loss and the table's gradient on the
+             rows as drawn at PERF.md §2's step limit with the hinge flips
+             counted, and with the hinges 1e-4 clear of their threshold at
+             rel 1e-5 / relative L2 1e-5; ``sinkhorn_reverse`` (the reverse
+             of one potential update) at 4,500² from d 256 and 128 rows and
+             at the ring's 4,096² block, rows and columns mode: C̄ and b̄ at
+             relative L2 1e-5.  Each: outputs on NaN-prefilled memory, two
+             calls bit for bit, a captured replay equal to eager, CUDA
+             events warm and with the L2 flushed beside the plain version
+             and the bound.  Then config sinkhorn's, recipe v6's and v7r's
+             steps (phases 5, 6 and 8) and the distributed v7r step (phase
+             20) by events and split by head, on the kernels and on the
+             parent's route (the two kernels' plain versions) in turns.
+
+20b. single_sharded — the single-device trainers on ``dwy100k_dist``
              as the JAX ``fit`` and ``fit_mtl`` train it (one card, the whole
              200,000-row graph, the shard fields unread), called directly on
              the tasks of phases 19 and 20: ``fit`` cut as phase 19 and
@@ -309,13 +328,16 @@ from tpugraph_torch.dist.halo import exchange, halo_spmm_ell
 from tpugraph_torch.dist.mesh import make_mesh, shard_operator
 from tpugraph_torch.dist.ring import ring_hits_at_k, ring_knn, ring_sinkhorn_align_loss
 from tpugraph_torch.dist.trainer import RowLayout, dist_parts
-from tpugraph_torch.kernels import (_build, gcn_fused, l1_search, shortlist_dist, sinkhorn_fused,
-                                    spmm_ell)
+from tpugraph_torch.kernels import (_build, gcn_fused, l1_search, margin_l1, shortlist_dist,
+                                    sinkhorn_fused, spmm_ell)
 from tpugraph_torch.kernels import spmm as spmm_mod
 from tpugraph_torch.kernels.spmm import SEG_EDGES, segment_spmm, sorted_spmm, spmm_xla
 from tpugraph_torch.kernels.gcn_fused import fused_gcn_layer, reference_layer
+from tpugraph_torch.kernels.margin_l1 import forward_plain as margin_forward_plain
+from tpugraph_torch.kernels.margin_l1 import margin_loss_plain
 from tpugraph_torch.kernels.sinkhorn_fused import (PRECISION, stream_plan,
                                                    sinkhorn_potential_update,
+                                                   sinkhorn_reverse, sinkhorn_reverse_plain,
                                                    sinkhorn_update_plain, sq_norms)
 from tpugraph_torch.kernels.spmm_ell import (SEG_SLOTS, apply_with_diag, ell_spmm, fused_plan,
                                              segment_plan)
@@ -326,7 +348,9 @@ import tpugraph_torch.nn.graphconv as graphconv_mod
 import tpugraph_torch.serve as serve_mod
 import tpugraph_torch.train.bootstrap as bootstrap_mod
 import tpugraph_torch.train.eval as eval_mod
+import tpugraph_torch.train.losses as losses_mod
 import tpugraph_torch.train.negatives as negatives_mod
+import tpugraph_torch.train.ot as ot_mod
 from tpugraph_torch.models.align import AlignMTL
 from tpugraph_torch.models.attr_channel import build_attr_operator
 from tpugraph_torch.models.encoder import AlignGCN, init_params
@@ -455,7 +479,7 @@ def phase_device() -> str:
 
 
 KERNELS = ("gcn_fused", "spmm_ell", "sinkhorn_fused", "shortlist_dist", "spmm_sorted",
-           "l1_search")
+           "l1_search", "margin_l1", "sinkhorn_reverse")
 
 
 def phase_build() -> None:
@@ -1016,22 +1040,35 @@ def phase_slice(task, smi: str, dev: torch.device) -> int:
 def _launch_counts() -> dict:
     """Each kernel's launches; ``shortlist_dist`` is the select-and-rerank
     kernel, ``shortlist_gather`` its gather-only entry (the unfused route);
-    ``l1_topk``, ``l1_count`` and ``l1_tile`` the L1 search's three entries."""
+    ``l1_topk``, ``l1_count`` and ``l1_tile`` the L1 search's three entries;
+    ``margin_l1`` the margin's forward and backward (one each),
+    ``sinkhorn_reverse`` the OT head's reverse updates."""
     return {"gcn_fused": gcn_fused.launches, "spmm_ell": spmm_ell.launches,
             "sinkhorn_fused": sinkhorn_fused.launches,
             "shortlist_dist": shortlist_dist.select_launches,
             "shortlist_gather": shortlist_dist.launches, "spmm_sorted": spmm_mod.launches,
             "l1_topk": l1_search.topk_launches, "l1_count": l1_search.count_launches,
-            "l1_tile": l1_search.tile_launches}
+            "l1_tile": l1_search.tile_launches, "margin_l1": margin_l1.launches,
+            "sinkhorn_reverse": sinkhorn_fused.reverse_launches}
 
 
 L1_NONE = {"l1_topk": 0, "l1_count": 0, "l1_tile": 0}  # a step's: it searches nothing
+LOSS_NONE = {"margin_l1": 0, "sinkhorn_reverse": 0}  # a forward's: it trains nothing
 
 
 def _reset_launch_counts() -> None:
     gcn_fused.launches = spmm_ell.launches = sinkhorn_fused.launches = 0
     shortlist_dist.launches = shortlist_dist.select_launches = spmm_mod.launches = 0
     l1_search.topk_launches = l1_search.count_launches = l1_search.tile_launches = 0
+    margin_l1.launches = sinkhorn_fused.reverse_launches = 0
+
+
+def _loss_launches(cfg, steps: int) -> dict:
+    """The loss kernels' launches in ``steps`` training steps: the margin's
+    forward and backward, for the table and for the AE channel's; with the
+    OT head 2·iters + 1 reverse updates (one per held block: one at R = 1)."""
+    return {"margin_l1": 2 * (1 + bool(cfg.use_attr_channel)) * steps,
+            "sinkhorn_reverse": (2 * cfg.sinkhorn_iters + 1) * steps if cfg.use_sinkhorn else 0}
 
 
 def _nonzero(counts: dict) -> dict:
@@ -1121,7 +1158,7 @@ def _expected_launches(cfg, t: dict, task) -> dict:
         "spmm_ell": (6 if ae else 2) * t["steps"] + (t["forwards"] + t["evals"] if ae else 0),
         "sinkhorn_fused": (2 * cfg.sinkhorn_iters + 1) * t["steps"] if cfg.use_sinkhorn else 0,
         "shortlist_dist": _shortlist_launches(cfg, task, t), "shortlist_gather": 0,
-        **_l1_launches(cfg, t)})
+        **_l1_launches(cfg, t), **_loss_launches(cfg, t["steps"])})
 
 
 def _mtl_step_launches(cfg) -> dict:
@@ -1130,7 +1167,13 @@ def _mtl_step_launches(cfg) -> dict:
     return _sorted_launches(cfg, {
         "gcn_fused": 4 if ae else 2, "spmm_ell": 6 if ae else 2,
         "sinkhorn_fused": 2 * cfg.sinkhorn_iters + 1 if cfg.use_sinkhorn else 0,
-        "shortlist_dist": 0, "shortlist_gather": 0, **L1_NONE})
+        "shortlist_dist": 0, "shortlist_gather": 0, **L1_NONE, **_loss_launches(cfg, 1)})
+
+
+# (model, operator, batch, config) of the steps phase_step_losses splits by
+# head: config sinkhorn's (phase_train), recipe v6's and v7r's with their
+# runs' last interval batches (phase_recipe, phase_recipe_v7r)
+STEP_CASES: dict[str, tuple] = {}
 
 
 def _step_batch(res, cfg, dev):
@@ -1173,15 +1216,16 @@ def _plain_kernels():
     """The plain path: every kernel swapped for its plain PyTorch version
     where the port calls it (the GCN layer, the ELL and sorted SpMMs, the
     OT head, differentiated by autograd; the search paths'
-    select-and-rerank and L1 search)."""
+    select-and-rerank and L1 search; the margin loss's composite)."""
     saved = (graphconv_mod.gcn_layer, graphconv_mod.spmm, attr_channel_mod.spmm_ell,
-             attr_channel_mod.spmm, align_mod.sinkhorn_align_loss,
+             attr_channel_mod.spmm, align_mod.sinkhorn_align_loss, losses_mod.margin_l1_loss,
              [m.select_rerank for m in SHORTLIST_CALLERS],
              [[getattr(m, n) for n in names] for m, names in L1_CALLERS])
     graphconv_mod.gcn_layer = lambda op, x, w, b=None: reference_layer(op.fwd, op.diag, x, w, b)
     graphconv_mod.spmm = attr_channel_mod.spmm = spmm_xla
     attr_channel_mod.spmm_ell = lambda op, x: apply_with_diag(op.fwd, op.diag, x)
     align_mod.sinkhorn_align_loss = sinkhorn_align_loss_plain
+    losses_mod.margin_l1_loss = margin_loss_plain
     for m in SHORTLIST_CALLERS:
         m.select_rerank = shortlist_dist.shortlist_select_plain
     for m, names in L1_CALLERS:
@@ -1191,7 +1235,8 @@ def _plain_kernels():
         yield
     finally:
         (graphconv_mod.gcn_layer, graphconv_mod.spmm, attr_channel_mod.spmm_ell,
-         attr_channel_mod.spmm, align_mod.sinkhorn_align_loss, fns, l1_fns) = saved
+         attr_channel_mod.spmm, align_mod.sinkhorn_align_loss, losses_mod.margin_l1_loss, fns,
+         l1_fns) = saved
         for m, fn in zip(SHORTLIST_CALLERS, fns):
             m.select_rerank = fn
         for (m, names), got in zip(L1_CALLERS, l1_fns):
@@ -1267,27 +1312,12 @@ def _step_gap(loss, grads: dict, ref_loss, ref: dict, zero_grads: tuple[str, ...
             "grad_max_abs": scale}
 
 
-def _profile_step(model, op, batch, cfg, dev, attr_op=None, reps: int = 5) -> dict:
-    """Median host wall time of each stage of an AlignMTL step, each ended
-    by a synchronise: encoder + margin forward; the OT head's forward and
-    backward; the relation head and the attribute head (forward and
-    backward each, on the detached table); the AE channel (its forward,
-    margin and backward); the rest of the backward (margin + the encoder's
-    layers); Adam."""
-    opt, _ = make_optimizer(cfg, model.parameters())
-    m_pairs = batch.get("pairs_aug", batch["pairs"])
-    heads = []
-    if model.rel_head is not None:
-        heads.append(("rel_head", lambda e: cfg.rel_weight * model.rel_head(
-            e, batch["rel_triples"], batch["rel_neg_t"], batch["rel_neg_h"])))
-    if model.attr_head is not None:
-        heads.append(("attr_head", lambda e: cfg.attr_weight * model.attr_head(
-            e, batch["attr_triples"])))
-    names = ["forward", *(["ot_forward", "ot_backward"] if cfg.use_sinkhorn else []),
-             *(h for h, _ in heads), *(["ae_channel"] if attr_op is not None else []),
-             "backward", "adam"]
+def _stage_medians(step, names: list[str], dev, reps: int = 5) -> dict:
+    """Median host wall time of each stage of ``step(mark)``, which calls
+    ``mark()`` at the end of each stage named in ``names``, in order;
+    ``mark`` synchronises first.  One warm-up call, then ``reps`` timed."""
     times = {k: [] for k in (*names, "step")}
-    for i in range(reps + 1):  # the first is a warm-up
+    for i in range(reps + 1):
         sync(dev)
         t = [time.perf_counter()]
 
@@ -1295,30 +1325,7 @@ def _profile_step(model, op, batch, cfg, dev, attr_op=None, reps: int = 5) -> di
             sync(dev)
             t.append(time.perf_counter())
 
-        opt.zero_grad(set_to_none=True)
-        emb = model.encoder(op)
-        margin = margin_align_loss(emb, m_pairs, batch["neg_l"], batch["neg_r"], cfg.gamma,
-                                   batch.get("w"))
-        mark()
-        emb_d = emb.detach().requires_grad_(True)
-        if cfg.use_sinkhorn:
-            ot = sinkhorn_align_loss(emb_d, batch.get("ot_pairs", batch["pairs"]),
-                                     tau=cfg.sinkhorn_tau, n_iters=cfg.sinkhorn_iters)
-            mark()
-            (cfg.sinkhorn_weight * ot).backward()
-            mark()
-        for _, head in heads:
-            head(emb_d).backward()
-            mark()
-        if attr_op is not None:
-            ae = model.ae_encoder(op, attr_op)
-            (cfg.attr_channel_weight * margin_align_loss(
-                ae, m_pairs, batch["neg_l"], batch["neg_r"], cfg.gamma, batch.get("w"))).backward()
-            mark()
-        torch.autograd.backward([margin, emb], [None, emb_d.grad])
-        mark()
-        opt.step()
-        mark()
+        step(mark)
         if i:
             for k, a, b in zip(names, t, t[1:]):
                 times[k].append(b - a)
@@ -1326,6 +1333,124 @@ def _profile_step(model, op, batch, cfg, dev, attr_op=None, reps: int = 5) -> di
     med = {f"{k}_s": float(np.median(v)) for k, v in times.items()}
     med["shares"] = {k: med[f"{k}_s"] / med["step_s"] for k in names}
     return med
+
+
+def _table_heads(cfg, batch: dict, rel_head, attr_head, rel_triples) -> list:
+    """(name, loss of the table) of the relation and attribute heads a step runs."""
+    heads = []
+    if rel_head is not None:
+        heads.append(("rel_head", lambda e: cfg.rel_weight * rel_head(
+            e, rel_triples, batch["rel_neg_t"], batch["rel_neg_h"])))
+    if attr_head is not None:
+        heads.append(("attr_head", lambda e: cfg.attr_weight * attr_head(
+            e, batch["attr_triples"])))
+    return heads
+
+
+def _loss_stages(emb_d, batch: dict, cfg, heads: list, ot_loss, mark) -> None:
+    """The table losses' stages of a step on the detached table ``emb_d``,
+    each ended by ``mark()``: the margin's forward and backward, the OT
+    head's forward and backward, each head's forward and backward."""
+    margin = margin_align_loss(emb_d, batch.get("pairs_aug", batch["pairs"]), batch["neg_l"],
+                               batch["neg_r"], cfg.gamma, batch.get("w"))
+    mark()
+    margin.backward()
+    mark()
+    if cfg.use_sinkhorn:
+        ot = ot_loss(emb_d, batch.get("ot_pairs", batch["pairs"]), tau=cfg.sinkhorn_tau,
+                     n_iters=cfg.sinkhorn_iters)
+        mark()
+        (cfg.sinkhorn_weight * ot).backward()
+        mark()
+    for _, head in heads:
+        head(emb_d).backward()
+        mark()
+
+
+def _loss_stage_names(cfg, heads: list) -> list[str]:
+    return ["margin_forward", "margin_backward",
+            *(["ot_forward", "ot_backward"] if cfg.use_sinkhorn else []), *(h for h, _ in heads)]
+
+
+def _profile_step(model, op, batch, cfg, dev, attr_op=None, reps: int = 5) -> dict:
+    """Median host wall time of each stage of an AlignMTL step, each ended
+    by a synchronise: the encoder's forward; the margin's forward and
+    backward (on the detached table); the OT head's forward and backward;
+    the relation head and the attribute head (forward and backward each, on
+    the detached table); the AE channel (its forward, margin and backward);
+    the encoder's backward; Adam."""
+    opt, _ = make_optimizer(cfg, model.parameters())
+    heads = _table_heads(cfg, batch, model.rel_head, model.attr_head, batch.get("rel_triples"))
+    names = ["forward", *_loss_stage_names(cfg, heads),
+             *(["ae_channel"] if attr_op is not None else []), "backward", "adam"]
+
+    def step(mark):
+        opt.zero_grad(set_to_none=True)
+        emb = model.encoder(op)
+        mark()
+        emb_d = emb.detach().requires_grad_(True)
+        _loss_stages(emb_d, batch, cfg, heads, sinkhorn_align_loss, mark)
+        if attr_op is not None:
+            ae = model.ae_encoder(op, attr_op)
+            (cfg.attr_channel_weight * margin_align_loss(
+                ae, batch.get("pairs_aug", batch["pairs"]), batch["neg_l"], batch["neg_r"],
+                cfg.gamma, batch.get("w"))).backward()
+            mark()
+        emb.backward(emb_d.grad)
+        mark()
+        opt.step()
+        mark()
+
+    return _stage_medians(step, names, dev, reps)
+
+
+def _profile_dist_step(parts, batch, cfg, dev, reps: int = 5) -> dict:
+    """``_profile_step`` for a distributed step (``DistParts``): the
+    tables' forward, the table losses' stages with the ring OT, and the
+    encoder's backward."""
+    model, mesh = parts.model, parts.op.mesh
+    heads = _table_heads(cfg, batch, model.rel_head, model.attr_head, parts.rel_triples)
+
+    def ring_ot(emb, pairs, **kw):
+        return ring_sinkhorn_align_loss(emb, pairs, mesh, **kw)
+
+    def step(mark):
+        model.zero_grad(set_to_none=True)
+        se, _ = parts.tables()
+        mark()
+        se_d = se.detach().requires_grad_(True)
+        _loss_stages(se_d, batch, cfg, heads, ring_ot, mark)
+        se.backward(se_d.grad)
+        mark()
+
+    return _stage_medians(step, ["forward", *_loss_stage_names(cfg, heads), "backward"], dev,
+                          reps)
+
+
+@contextlib.contextmanager
+def _parent_loss_route():
+    """The step's two loss kernels swapped for their plain versions where
+    the port calls them, the route of the step before ``margin_l1`` and
+    ``sinkhorn_reverse``: the margin's composite with autograd, and the
+    reverse updates as torch's elementwise passes (single-device and ring)."""
+    saved = losses_mod.margin_l1_loss, ot_mod.sinkhorn_reverse, ring_mod.sinkhorn_reverse
+    losses_mod.margin_l1_loss = margin_loss_plain
+    ot_mod.sinkhorn_reverse = ring_mod.sinkhorn_reverse = sinkhorn_reverse_plain
+    try:
+        yield
+    finally:
+        losses_mod.margin_l1_loss, ot_mod.sinkhorn_reverse, ring_mod.sinkhorn_reverse = saved
+
+
+def _in_turns(split, rounds: int = 2) -> dict:
+    """``split()`` under the parent's loss route and on the kernels, in
+    turns (parent, kernels, kernels, parent, ...): each route's readings."""
+    out = {"parent": [], "kernels": []}
+    for r in range(rounds):
+        for route in (("parent", "kernels") if r % 2 == 0 else ("kernels", "parent")):
+            with _parent_loss_route() if route == "parent" else contextlib.nullcontext():
+                out[route].append(split())
+    return out
 
 
 def _device_split(fn, dev, top: int = 6) -> dict:
@@ -1421,6 +1546,7 @@ def phase_train(task, smi: str, dev: torch.device) -> dict:
     batch = _step_batch(res, cfg, dev)
     step = _check_step(res.model, lambda: res.model(res.op, batch)[0], _mtl_step_launches(cfg))
     prof = _profile_step(res.model, res.op, batch, cfg, dev)
+    STEP_CASES["sinkhorn"] = (res.model, res.op, batch, cfg)
     busy = _device_busy(res, cfg, dev)
     emit({"phase": "train", "config": "sinkhorn", "n_ent": task.n_ent,
           "train_pairs": int(len(task.train_pairs)), "dim": cfg.dim, "k_neg": cfg.k_neg,
@@ -1534,6 +1660,7 @@ def phase_recipe(task, smi: str, dev: torch.device) -> dict:
             raise AssertionError("no proposal with weight > 0")
         step = _check_step(res.model, lambda: res.model(res.op, batch, train=True)[0],
                            _mtl_step_launches(cfg))
+        STEP_CASES["v6"] = (res.model, res.op, batch, cfg)
 
         # the same run preempted during epoch 5 (saved at 4 and 5), resumed to 10
         with _sigterm_in_step(6):
@@ -1655,6 +1782,7 @@ def phase_recipe_v7r(task, smi: str, dev: torch.device) -> dict:
     step = _check_step(model, lambda: model(res.op, batch, train=True)[0],
                        _mtl_step_launches(cfg))
     prof = _profile_step(model, res.op, batch, cfg, dev)
+    STEP_CASES["v7r"] = (model, res.op, batch, cfg)
     emit({"phase": "recipe_v7r", "recipe": "v7r", "n_ent": task.n_ent, "n_attr": task.n_attr,
           "dim": cfg.dim, "attr_weight": cfg.attr_weight,
           "attr_batch": int(batch["attr_triples"].shape[0]), "v7_differs_in": differ,
@@ -1690,7 +1818,8 @@ def phase_mtl(task, smi: str, dev: torch.device) -> dict:
         sync(dev)
         per_embed = _launch_counts()
         if per_embed != {"gcn_fused": 4, "spmm_ell": 1, "sinkhorn_fused": 0, "spmm_sorted": 0,
-                         "shortlist_dist": 0, "shortlist_gather": 0, **L1_NONE} or emb.shape != (
+                         "shortlist_dist": 0, "shortlist_gather": 0, **L1_NONE,
+                         **LOSS_NONE} or emb.shape != (
                 task.n_ent, 2 * cfg.dim):
             raise AssertionError(f"embed launched {per_embed}, shape {tuple(emb.shape)}")
         batch, _ = _saved_batch(full_dir, cfg, task, dev)
@@ -1755,7 +1884,8 @@ def phase_highway(task, smi: str, dev: torch.device) -> dict:
 
     step = _check_step(model, loss_fn, {"gcn_fused": 2, "spmm_ell": 2, "sinkhorn_fused": 0,
                                         "spmm_sorted": 0, "shortlist_dist": 0,
-                                        "shortlist_gather": 0, **L1_NONE})
+                                        "shortlist_gather": 0, **L1_NONE,
+                                        **_loss_launches(cfg, 1)})
     no_drop = AlignGCN(n_ent=task.n_ent, dim=cfg.dim, highway=True, device=dev)
     no_drop.load_state_dict(model.state_dict())
     with torch.no_grad():
@@ -2462,7 +2592,8 @@ KERNEL_SYMBOLS = {"gcn_fused": "gcn_fused_kernel", "spmm_ell": "spmm_ell_kernel"
                   "sinkhorn_fused": "sinkhorn_update_kernel",
                   "shortlist_dist": "shortlist_select_kernel",
                   "shortlist_gather": "shortlist_dist_kernel",
-                  "spmm_sorted": "spmm_sorted_kernel"}
+                  "spmm_sorted": "spmm_sorted_kernel", "margin_l1": "margin_l1_kernel",
+                  "sinkhorn_reverse": "sinkhorn_reverse_kernel"}
 # the fused phase's configs at zh-en scale: (config, recipe, overrides); v6
 # with --fast's settings (steps_per_call = neg_every = 2, sqeuclidean
 # approximate mining), highway with dropout 0.3 (neg_every 5), base
@@ -2492,7 +2623,8 @@ def _per_step_launches(cfg) -> dict:
     if uses_mtl(cfg):
         return _mtl_step_launches(cfg)
     return _sorted_launches(cfg, {"gcn_fused": 2, "spmm_ell": 2, "sinkhorn_fused": 0,
-                                  "shortlist_dist": 0, "shortlist_gather": 0, **L1_NONE})
+                                  "shortlist_dist": 0, "shortlist_gather": 0, **L1_NONE,
+                                  **_loss_launches(cfg, 1)})
 
 
 def _traced_launches(fn, dev: torch.device, what: str, warm=None) -> tuple:
@@ -3414,7 +3546,7 @@ def phase_dist(smi: str, dev: torch.device) -> dict:
     peak_mb = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     per_step = 4 * HALO_LAYER_LAUNCHES
     expected = {**{k: 0 for k in counts}, "spmm_ell": _dist_launches(t),
-                **_dist_l1_launches(t, cfg)}
+                **_dist_l1_launches(t, cfg), **_loss_launches(cfg, t["steps"])}
     if counts != expected or t["steps"] != cfg.epochs or t["minings"] != 1:
         raise AssertionError(f"launches {counts} (expected {expected}), timings {t}")
     nb = cfg.neg_every
@@ -3462,7 +3594,8 @@ def phase_dist(smi: str, dev: torch.device) -> dict:
             parts = dist_parts(cfg.replace(spmm_impl=impl), task, mesh)
             loss, grads, launched = _dist_step(parts, batch)
             kernel = "spmm_ell" if impl == "ell" else "spmm_sorted"
-            if launched != {**{k: 0 for k in launched}, kernel: per_step}:
+            if launched != {**{k: 0 for k in launched}, kernel: per_step,
+                            **_loss_launches(cfg, 1)}:
                 raise AssertionError(f"{impl} step launched {launched}, expected {per_step}")
             checks[impl] = {
                 "vs_single_plain": gap((loss, grads), s_plain),
@@ -3548,7 +3681,8 @@ def _ring_ot_check(smi: str, dev: torch.device, s: int = DIST_V7R_OT_PAIRS,
         loss.backward()
         sync(dev)
         launched = _launch_counts()
-        if launched != {**{k: 0 for k in launched}, "sinkhorn_fused": 2 * kw["n_iters"] + 1}:
+        if launched != {**{k: 0 for k in launched}, "sinkhorn_fused": 2 * kw["n_iters"] + 1,
+                        "sinkhorn_reverse": 2 * kw["n_iters"] + 1}:
             raise AssertionError(f"the ring OT launched {launched}")
         got = x.grad.clone()
         x.grad = None
@@ -3569,7 +3703,8 @@ def _ring_ot_check(smi: str, dev: torch.device, s: int = DIST_V7R_OT_PAIRS,
                    "plain_ms": time_ms(both(plain_fn), 1, 3),
                    "ring_ms_again": time_ms(both(ring_fn), 1, 5)}
         dev_ms = device_ms(ring_fn, iters=3)
-    out = {"pairs": s, "d": d, "launches": launched["sinkhorn_fused"], "loss": loss.item(),
+    out = {"pairs": s, "d": d, "launches": launched["sinkhorn_fused"],
+           "reverse_launches": launched["sinkhorn_reverse"], "loss": loss.item(),
            "loss_plain": want.item(), "loss_rel_err": loss_rel, "grad_rel_l2": grad_rel,
            "tolerance": tol, "forward": fwd, "forward_backward": fwd_bwd,
            "forward_device_ms": dev_ms}
@@ -3603,10 +3738,10 @@ def phase_dist_v7r(smi: str, dev: torch.device) -> dict:
     counts, t, losses = _launch_counts(), res.timings, res.losses
     peak_mb = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     per_step = {"spmm_ell": 4 * HALO_LAYER_LAUNCHES,
-                "sinkhorn_fused": 2 * cfg.sinkhorn_iters + 1}
+                "sinkhorn_fused": 2 * cfg.sinkhorn_iters + 1, **_loss_launches(cfg, 1)}
     expected = {**{k: 0 for k in counts}, "spmm_ell": _dist_launches(t),
                 "sinkhorn_fused": per_step["sinkhorn_fused"] * t["steps"],
-                **_dist_l1_launches(t, cfg)}
+                **_dist_l1_launches(t, cfg), **_loss_launches(cfg, t["steps"])}
     if counts != expected or (t["steps"], t["proposals"], t["minings"], t["forwards"],
                               t["draws"], t["evals"]) != (cfg.epochs, 1, 1, 1, 2, 1):
         raise AssertionError(f"launches {counts} (expected {expected}), timings {t}")
@@ -3671,6 +3806,12 @@ def phase_dist_v7r(smi: str, dev: torch.device) -> dict:
                                       time_ms(lambda: parts.grads(batch), 1, 5)],
                           "device_split": _device_split(lambda: parts.grads(batch), dev,
                                                         top=10)}
+        # the step before and after the loss kernels, by events and by head
+        checks["dist"]["step_ms_by_route"] = _in_turns(lambda: {
+            "distributed": time_ms(lambda: parts.grads(batch), 1, 5),
+            "single_device": time_ms(single_step, 1, 5)})
+        checks["dist"]["head_split"] = _in_turns(
+            lambda: _profile_dist_step(parts, batch, cfg, dev))
         del parts
     del single
     emit({"phase": "dist_v7r_step", "weighted_proposals": n_boot,
@@ -3679,6 +3820,7 @@ def phase_dist_v7r(smi: str, dev: torch.device) -> dict:
           "step_ms_order": ["distributed", "single-device", "distributed"], "card": smi})
     ring_ot = _ring_ot_check(smi, dev)
     return {"launches": counts, "per_step": per_step, "ring_ot": ring_ot,
+            "step_by_route": {k: checks["dist"][k] for k in ("step_ms_by_route", "head_split")},
             "stages_s": {"proposal_s": t["propose_s"], "mining_s": t["mine_s"],
                          "csls_final_eval_s": t["final_eval_s"], "run_s": run_s},
             "task": task, "run": run_result,
@@ -3841,7 +3983,8 @@ def _dist_approx_leg(smi: str, dev: torch.device, exact_stages: dict) -> dict:
     expected = {"spmm_ell": _dist_launches(t),
                 "sinkhorn_fused": (2 * cfg.sinkhorn_iters + 1) * t["steps"],
                 "shortlist_dist": _dist_select_launches(t, cfg),
-                **_nonzero(_dist_l1_launches(t, cfg))}
+                **_nonzero(_dist_l1_launches(t, cfg)),
+                **_nonzero(_loss_launches(cfg, t["steps"]))}
     if counts != expected or (t["steps"], t["proposals"], t["minings"], t["forwards"],
                               t["draws"], t["evals"]) != (cfg.epochs, 1, 1, 1, 2, 4):
         raise AssertionError(f"launches {counts} (expected {expected}), timings {t}")
@@ -4002,7 +4145,7 @@ def _dist_options_leg(smi: str, dev: torch.device) -> dict:
         zero_rel = 1e-5 if dtype == torch.float32 else math.sqrt(n) * 2 ** -8
         per_step = 4 * HALO_LAYER_LAUNCHES * (2 if cfg.use_attr_channel else 1) + (
             2 * cfg.n_shards if cfg.use_attr_channel else 0)
-        if launched != {"spmm_ell": per_step}:
+        if launched != {"spmm_ell": per_step, **_nonzero(_loss_launches(cfg, 1))}:
             raise AssertionError(f"{name}: one step launched {launched}, expected {per_step}")
         out[name] = {"launches_per_step": launched, "step_ms": step_ms,
                      **_step_gap(loss, {**grads, "emb": grads["emb"][:n]}, ref, ref_grads,
@@ -4110,7 +4253,8 @@ def phase_dist_mesh(smi: str, dev: torch.device) -> dict:
     batch = _dist_batch(task, cfg, dev)
     d128 = _mesh_step_pair(task, cfg, batch, dev)
     flat, tp = d128.pop("flat"), d128.pop("tp")
-    if d128["launches"] != {"spmm_ell": 4 * HALO_LAYER_LAUNCHES}:
+    if d128["launches"] != {"spmm_ell": 4 * HALO_LAYER_LAUNCHES,
+                            **_nonzero(_loss_launches(cfg, 1))}:
         raise AssertionError(f"the d-128 step launched {d128['launches']}")
     events = _all_events_ms(lambda: tp.grads(batch), dev)["top_kernels_ms"] or {}
     found = [k for k in events if any(w in k for w in NO_EXCHANGE)]
@@ -4125,7 +4269,8 @@ def phase_dist_mesh(smi: str, dev: torch.device) -> dict:
         sinkhorn_pairs=DIST_V7R_OT_PAIRS, **DIST_V7R_CUTS)
     v7r_step = _mesh_step_pair(task, v7r, mp_worker.surface_batch(v7r, task, device=dev), dev)
     del v7r_step["flat"], v7r_step["tp"]
-    want = {"spmm_ell": 4 * HALO_LAYER_LAUNCHES, "sinkhorn_fused": 2 * v7r.sinkhorn_iters + 1}
+    want = {"spmm_ell": 4 * HALO_LAYER_LAUNCHES, "sinkhorn_fused": 2 * v7r.sinkhorn_iters + 1,
+            **_loss_launches(v7r, 1)}
     if v7r_step["launches"] != want:
         raise AssertionError(f"the v7r step launched {v7r_step['launches']}, expected {want}")
     leg_s = time.perf_counter() - t_leg
@@ -4222,7 +4367,8 @@ def phase_dist_grouped(smi: str, dev: torch.device, leg_a: dict) -> dict:
         differ = [k for k in u["grads"] if not torch.equal(u["grads"][k], g["grads"][k])]
         if (rows.r0 != rows.n1 or not torch.equal(u["emb"], g["emb"])
                 or not torch.equal(u["loss"], g["loss"]) or differ
-                or u["launches"] != g["launches"] or g["launches"] != {kernel: per_step}):
+                or u["launches"] != g["launches"]
+                or g["launches"] != {kernel: per_step, **_nonzero(_loss_launches(cfg, 1))}):
             raise AssertionError(f"{impl}: the grouped step at the identity remap (r0 "
                                  f"{rows.r0}, n1 {rows.n1}): loss {g['loss'].item()} / "
                                  f"{u['loss'].item()}, gradients differ {differ}, launches "
@@ -4252,7 +4398,8 @@ def phase_dist_grouped(smi: str, dev: torch.device, leg_a: dict) -> dict:
     gap = _step_gap(g["loss"], {**g["grads"], "emb": rows.entities(g["grads"]["emb"])},
                     u["loss"], {**u["grads"], "emb": u["grads"]["emb"][:n]}, ("gc2.b",),
                     tol=STEP_TOL[torch.float32])
-    if rows.r0 - rows.n1 != 2 or g["launches"] != {"spmm_ell": per_step}:
+    if rows.r0 - rows.n1 != 2 or g["launches"] != {"spmm_ell": per_step,
+                                                   **_nonzero(_loss_launches(cfg, 1))}:
         raise AssertionError(f"the moved remap: r0 {rows.r0}, n1 {rows.n1}, launches "
                              f"{g['launches']}")
     moved = {"n1": rows.n1, "r0": rows.r0, "n_rows": rows.n_rows, "launches": g["launches"],
@@ -4386,7 +4533,8 @@ def _dist_r1_leg(smi: str, dev: torch.device, task, cfg) -> dict:
             parts = dist_parts(cfg.replace(spmm_impl=impl), task, mesh)
             loss, grads, launched = _dist_step(parts, batch)
             kernel = "spmm_ell" if impl == "ell" else "spmm_sorted"
-            if launched != {**{k: 0 for k in launched}, kernel: per_step}:
+            if launched != {**{k: 0 for k in launched}, kernel: per_step,
+                            **_loss_launches(cfg, 1)}:
                 raise AssertionError(f"the R = 1 {impl} step launched {launched}")
             again, grads2, _ = _dist_step(parts, batch)
             differ = [k for k in grads if not torch.equal(grads[k], grads2[k])]
@@ -4414,7 +4562,8 @@ def _dist_r1_leg(smi: str, dev: torch.device, task, cfg) -> dict:
         xparts = dist_parts(cfg, task, mesh, exchange=True)
         x_loss, x_grads, x_launched = _dist_step(xparts, batch)
         want = per_step + 2  # each layer's backward sums the returned rows: one launch
-        if x_launched != {**{k: 0 for k in x_launched}, "spmm_ell": want}:
+        if x_launched != {**{k: 0 for k in x_launched}, "spmm_ell": want,
+                          **_loss_launches(cfg, 1)}:
             raise AssertionError(f"the exchange route's step launched {x_launched}")
         gap = _step_gap(x_loss, {**x_grads, "emb": x_grads["emb"][:task.n_ent]}, loss,
                         {**grads, "emb": grads["emb"][:task.n_ent]}, ("gc2.b",),
@@ -4471,7 +4620,8 @@ def _dist_interval(task, cfg, batch, dev: torch.device, what: str) -> dict:
     device's busy share over a replayed and an unfused interval."""
     steps = cfg.neg_every
     per_step = {"spmm_ell": 4 * HALO_LAYER_LAUNCHES,
-                "sinkhorn_fused": (2 * cfg.sinkhorn_iters + 1) if cfg.use_sinkhorn else 0}
+                "sinkhorn_fused": (2 * cfg.sinkhorn_iters + 1) if cfg.use_sinkhorn else 0,
+                **_loss_launches(cfg, 1)}
     with make_mesh(cfg.n_shards, dev) as mesh:
         parts = dist_parts(cfg, task, mesh)
         model = parts.model
@@ -4569,6 +4719,7 @@ def _dist_fused_run(cfg, dev, fn) -> dict:
     if _dist_select_launches(t, cfg):
         expected["shortlist_dist"] = _dist_select_launches(t, cfg)
     expected.update(_nonzero(_dist_l1_launches(t, cfg)))
+    expected.update(_nonzero(_loss_launches(cfg, steps)))
     losses = res.losses
     if counts != expected or t["steps"] != cfg.epochs or not all(map(math.isfinite, losses)):
         raise AssertionError(f"{cfg.name} steps_per_call={cfg.steps_per_call}: launches "
@@ -4667,6 +4818,283 @@ def _hits_of(ranks: torch.Tensor) -> tuple:
             float((1.0 / (r + 1.0)).mean()))
 
 
+# ---- the training step's loss kernels: the L1 margin and the OT reverse update
+
+# (name, table rows, pairs, k, d, γ, weighted): the margin at its callers'
+# shapes (the weighted ones hold 2,500 proposals beside the seeds)
+MARGIN_SHAPES = (("v6_zh_en", 38_000, 7_000, 100, 256, 15.0, True),
+                 ("sinkhorn_zh_en", 38_000, 4_500, 50, 128, 10.0, False),
+                 ("dwy100k_dist_d128", 200_000, 15_000, 25, 128, 10.0, False),
+                 ("v7r_dwy100k_dist", 200_000, 17_500, 100, 256, 15.0, True))
+# against the plain composite: on rows whose hinges lie 1e-4 clear of their
+# threshold only the sums' order differs (the loss rel 1e-5, the gradient,
+# exact signs times one coefficient, relative L2 1e-5); on the rows as drawn
+# a hinge within rounding of its threshold may flip, held at PERF.md §2's
+# step limit
+MARGIN_TOL = {"loss_rel": 1e-5, "grad_rel_l2": 1e-5}
+MARGIN_NEAR = 1e-4
+# (name, pairs, d): the reverse update at 4,500² (configs sinkhorn and v6)
+# and at the ring's block (v7r's 4,096 OT pairs, one rank); C̄ and b̄ in
+# relative L2 (the same steps in the same order, exp to an ulp or two, b̄
+# summed in another order)
+REVERSE_SHAPES = (("zh_en_d256", 4500, 256), ("zh_en_d128", 4500, 128),
+                  ("ring_block_d256", DIST_V7R_OT_PAIRS, 256))
+REVERSE_TOL = 1e-5
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-300))
+
+
+def _margin_inputs(n: int, s: int, k: int, d: int, gamma: float, weighted: bool,
+                   dev: torch.device, seed: int = 11):
+    """A table whose pair rows lie about 0.2·γ apart in L1 and other rows
+    about 1.2·γ (so about half the hinges are active), pairs between the two
+    halves, k uniform negatives a side from the partner's half; an entity
+    in two pairs, one pair's negatives all one pair row, a hub row that
+    every pair reaches once, 1 % of the rows with the pool-of-one tie;
+    weighted: the last 2,500 pairs (proposals; half the pairs below 5,000)
+    at 0.5·u, u uniform."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sigma = 1.2 * gamma / (1.128 * d)  # E|x − y| = 1.128·σ for x, y ~ N(0, σ²)
+    emb = torch.randn((n, d), generator=g, device=dev) * sigma
+    half = n // 2
+    left = torch.randperm(half, generator=g, device=dev)[:s]
+    right = half + torch.randperm(n - half, generator=g, device=dev)[:s]
+    left[1] = left[0]
+    emb[right] = emb[left] + torch.randn((s, d), generator=g, device=dev) * (sigma / 6)
+    pairs = torch.stack([left, right], 1)
+    neg_l = torch.randint(0, half, (s, k), generator=g, device=dev)
+    neg_r = torch.randint(half, n, (s, k), generator=g, device=dev)
+    neg_r[: s // 100, 0] = right[: s // 100]
+    neg_l[2, :] = left[3]
+    neg_r[:, 1] = right[s // 2]  # a hub, as hard negatives crowd on hubs: S records
+    w = None
+    if weighted:
+        n_prop = min(2500, s // 2)
+        w = torch.ones(s, device=dev)
+        w[s - n_prop:] = 0.5 * torch.rand(n_prop, generator=g, device=dev)
+    return emb, pairs, neg_l, neg_r, w
+
+
+def _clear_near_threshold(emb, pairs, neg_l, neg_r, gamma: float) -> int:
+    """Move each negative whose hinge argument lies within MARGIN_NEAR of 0
+    (in float64) to the pair's partner, whose entry has no gradient: the
+    count moved."""
+    e = emb.double()
+    d_pos = (e[pairs[:, 0]] - e[pairs[:, 1]]).abs().sum(1, keepdim=True)
+    moved = 0
+    for neg, own, part in ((neg_r, 0, 1), (neg_l, 1, 0)):
+        for i0 in range(0, neg.shape[0], 1024):
+            blk, rows = neg[i0:i0 + 1024], pairs[i0:i0 + 1024]
+            h = d_pos[i0:i0 + 1024] + gamma - (e[rows[:, own]][:, None] - e[blk]).abs().sum(2)
+            near = h.abs() < MARGIN_NEAR
+            moved += int(near.sum())
+            blk[near] = rows[:, part:part + 1].expand_as(blk)[near]
+    return moved
+
+
+def _captured_equals_eager(call) -> bool:
+    """``call()`` captured as a CUDA graph (after a warm-up on the capture
+    stream) and replayed twice: each replay's outputs equal the eager
+    call's bit for bit."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        want = call()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = call()
+    same = True
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        same &= all(torch.equal(a, b) for a, b in zip(out, want))
+    return same
+
+
+def _margin_case(name: str, n: int, s: int, k: int, d: int, gamma: float, weighted: bool,
+                 smi: str, dev: torch.device) -> dict:
+    """The margin kernel (forward and backward) against the plain composite
+    at one shape: on the rows as drawn at PERF.md §2's step limit, with the
+    hinge flips counted; with the hinges near their threshold moved, at
+    MARGIN_TOL; every row of the gradient written (its memory prefilled
+    with NaN), two calls bit for bit, a captured replay equal to eager;
+    timed by events warm and with the L2 flushed, beside the plain version
+    and the bound."""
+    emb, pairs, neg_l, neg_r, w = _margin_inputs(n, s, k, d, gamma, weighted, dev)
+    e = emb.requires_grad_(True)
+
+    def step(fn, nl, nr):
+        def call():  # the loss detached: no graph of the table outlives the call
+            loss = fn(e, pairs, nl, nr, gamma, w)
+            return loss.detach(), torch.autograd.grad(loss, e)[0]
+        return call
+
+    # the rows as drawn: PERF.md §2's step limit, the hinge flips counted
+    got, want = step(margin_l1.margin_l1_loss, neg_l, neg_r)(), step(margin_loss_plain, neg_l,
+                                                                   neg_r)()
+    flags = margin_l1._forward_cuda(emb.detach(), pairs, neg_l, neg_r, gamma, w)[1]
+    flips = int((flags != margin_forward_plain(emb.detach(), pairs, neg_l, neg_r, gamma,
+                                               w)[1]).sum())
+    raw = {"loss_rel": abs(float(got[0]) - float(want[0])) / abs(float(want[0])),
+           "grad_rel_l2": _rel_l2(got[1], want[1]), "hinge_flips": flips,
+           "entries": 2 * s * k}
+    if raw["loss_rel"] > STEP_TOL[torch.float32]["loss_rel"] or (
+            raw["grad_rel_l2"] > STEP_TOL[torch.float32]["grad_rel_l2"]):
+        raise AssertionError(f"margin {name} on the rows as drawn: {raw}")
+    # hinges clear of their threshold: only the sums' order differs
+    nl, nr = neg_l.clone(), neg_r.clone()
+    moved = _clear_near_threshold(emb.detach(), pairs, nl, nr, gamma)
+    kernel, plain = step(margin_l1.margin_l1_loss, nl, nr), step(margin_loss_plain, nl, nr)
+    want = plain()
+    runs = []
+    for _ in range(2):
+        torch.full((n, d), float("nan"), device=dev)  # the gradient lands on NaNs
+        runs.append(kernel())
+    sync(dev)
+    (loss, grad), again = runs
+    clean = {"loss_rel": abs(float(loss) - float(want[0])) / abs(float(want[0])),
+             "grad_rel_l2": _rel_l2(grad, want[1]), "moved_near_threshold": moved}
+    bitwise = torch.equal(loss, again[0]) and torch.equal(grad, again[1])
+    if (clean["loss_rel"] > MARGIN_TOL["loss_rel"] or clean["grad_rel_l2"] > MARGIN_TOL[
+            "grad_rel_l2"] or not bool(torch.isfinite(grad).all()) or not bitwise):
+        raise AssertionError(f"margin {name}: {clean}, finite {bool(torch.isfinite(grad).all())}"
+                             f", two calls bit for bit {bitwise}")
+    captured = _captured_equals_eager(kernel)
+    if not captured:
+        raise AssertionError(f"margin {name}: a captured replay differs from eager")
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: margin_l1.margin_l1_loss(e, pairs, nl, nr, gamma, w))
+    ms = time_ms(kernel)
+    ms_cold = time_cold_ms(kernel)
+    index_ms = time_ms(lambda: margin_l1.contribution_index(pairs, nl, nr, n))
+    dev_ms = device_ms(kernel, iters=5)  # the device's work alone: small shapes wait on the host
+    plain_ms = time_ms(plain, 1, 5)
+    plain_fwd_ms = time_ms(lambda: margin_loss_plain(e.detach(), pairs, nl, nr, gamma, w), 1, 5)
+    # each input read once (the table, the ids, the weights), the loss and
+    # the table's gradient written once; 3 fp32 operations an element of
+    # each of the 2·S·k row pairs, forward and backward
+    nbytes = 2 * n * d * 4 + (2 * s * k + 2 * s) * 8 + (s * 4 if weighted else 0) + 4
+    bound, bound_by = _bound(nbytes, 12 * s * k * d)
+    # every gathered row read from device memory in both passes (no L2 hit):
+    # an estimate for a table above the 50 MB L2, not a bound
+    rows_bytes = 2 * 2 * s * k * d * 4
+    out = {"name": name, "n": n, "s": s, "k": k, "d": d, "gamma": gamma, "weighted": weighted,
+           "table_mb": n * d * 4 / 2**20, "table_in_l2": n * d * 4 < 50e6,
+           "as_drawn": raw, "clear": clean, "tolerance": MARGIN_TOL, "bitwise": bitwise,
+           "captured_equals_eager": captured, "max_abs_err": float((grad - want[1]).abs().max()),
+           "ms": ms, "ms_cold_l2": ms_cold, "device_ms": dev_ms, "forward_ms": fwd_ms,
+           "backward_ms": ms - fwd_ms,
+           "index_ms": index_ms, "plain_ms": plain_ms, "plain_forward_ms": plain_fwd_ms,
+           "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+           "rows_from_hbm_ms": rows_bytes / HBM_BYTES_PER_S * 1e3}
+    emit({"phase": "step_losses", "kernel": "margin_l1", **out, "card": smi})
+    return out
+
+
+def _reverse_case(name: str, s: int, d: int, smi: str, dev: torch.device,
+                  tau: float = 0.3) -> dict:
+    """The reverse update against its plain version at one (s, s) block of
+    the sqeuclidean cost of unit rows, both modes: C̄ and b̄ at REVERSE_TOL
+    (b̄'s memory prefilled with NaN), two calls bit for bit, a captured
+    replay equal to eager; timed by events warm and with the L2 flushed,
+    beside the plain version and the bound."""
+    l, r, _, _ = _sinkhorn_inputs(dev, s, d)
+    cost = (sq_norms(l)[:, None] + sq_norms(r)[None, :] - 2.0 * (l @ r.t())).clamp_min(0.0)
+    g = torch.Generator(device=dev).manual_seed(3)
+    out = {"name": name, "s": s, "d": d, "tau": tau}
+    for rows in (True, False):
+        b = 0.1 * torch.randn(s, generator=g, device=dev)
+        z = ((b[None, :] if rows else b[:, None]) - cost) / tau
+        lse = torch.logsumexp(z, dim=1 if rows else 0)
+        ob = torch.randn(s, generator=g, device=dev) / s
+        cbar0 = 1e-3 * torch.randn((s, s), generator=g, device=dev)
+        want_c = cbar0.clone()
+        want_b = sinkhorn_reverse_plain(want_c, cost, b, lse, ob, tau, rows)
+        runs = []
+        for _ in range(2):
+            cbar = cbar0.clone()
+            torch.full((s,), float("nan"), device=dev)  # b̄ lands on NaNs
+            runs.append((sinkhorn_reverse(cbar, cost, b, lse, ob, tau, rows), cbar))
+        sync(dev)
+        (got_b, got_c), (b2, c2) = runs
+        err = {"cbar_rel_l2": _rel_l2(got_c, want_c), "bbar_rel_l2": _rel_l2(got_b, want_b)}
+        bitwise = torch.equal(got_b, b2) and torch.equal(got_c, c2)
+        cap = cbar0.clone()
+
+        def call():
+            cap.copy_(cbar0)
+            return sinkhorn_reverse(cap, cost, b, lse, ob, tau, rows), cap
+
+        captured = _captured_equals_eager(call)
+        if (max(err.values()) > REVERSE_TOL or not bool(torch.isfinite(got_b).all())
+                or not bitwise or not captured):
+            raise AssertionError(f"reverse {name} rows={rows}: {err}, bit for bit {bitwise}, "
+                                 f"captured {captured}")
+        del runs, want_c, z
+        ms = time_ms(lambda: sinkhorn_reverse(got_c, cost, b, lse, ob, tau, rows))
+        dev_ms = device_ms(lambda: sinkhorn_reverse(got_c, cost, b, lse, ob, tau, rows))
+        ms_cold = time_cold_ms(lambda: sinkhorn_reverse(got_c, cost, b, lse, ob, tau, rows))
+        plain_ms = time_ms(lambda: sinkhorn_reverse_plain(got_c, cost, b, lse, ob, tau, rows),
+                           1, 5)
+        # C read once, C̄ read and written once, the three vectors and b̄;
+        # an exp and five fp32 operations an entry
+        bound, bound_by = _bound(12 * s * s + 4 * 4 * s, 6 * s * s)
+        out["rows" if rows else "columns"] = {
+            **err, "tolerance": REVERSE_TOL, "bitwise": bitwise, "captured_equals_eager": captured,
+            "max_abs_err": float((got_b - want_b).abs().max()), "ms": ms, "ms_cold_l2": ms_cold,
+            "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+    emit({"phase": "step_losses", "kernel": "sinkhorn_reverse", **out, "card": smi})
+    return out
+
+
+def _one_step(model, op, batch):
+    def step():
+        model.zero_grad(set_to_none=True)
+        model(op, batch, train=True)[0].backward()
+    return step
+
+
+def _route_medians(turns: dict) -> dict:
+    """Each route's median of its readings (numbers, or dicts of them)."""
+    def med(vals):
+        if isinstance(vals[0], dict):
+            return {k: med([v[k] for v in vals]) for k in vals[0] if k != "shares"}
+        return float(np.median(vals))
+    return {route: med(vals) for route, vals in turns.items()}
+
+
+def phase_step_losses(smi: str, dev: torch.device, dist_v7r: dict) -> dict:
+    """The step's loss kernels on the card: ``margin_l1`` at MARGIN_SHAPES
+    and ``sinkhorn_reverse`` at REVERSE_SHAPES against their plain versions
+    (``_margin_case``, ``_reverse_case``); then the steps of config
+    sinkhorn, recipe v6 and v7r (STEP_CASES) by events and split by head
+    (``_profile_step``), on the kernels and on the parent's route (the two
+    kernels' plain versions, ``_parent_loss_route``) in turns, beside the
+    distributed v7r step's (``phase_dist_v7r``)."""
+    t0 = time.perf_counter()
+    margin = {c[0]: _margin_case(*c, smi, dev) for c in MARGIN_SHAPES}
+    torch.cuda.empty_cache()
+    reverse = {c[0]: _reverse_case(*c, smi, dev) for c in REVERSE_SHAPES}
+    torch.cuda.empty_cache()
+    steps = {}
+    for name, (model, op, batch, cfg) in STEP_CASES.items():
+        step = _one_step(model, op, batch)
+        by_events = _in_turns(lambda: time_ms(step, 1, 5))
+        split = _in_turns(lambda: _profile_step(model, op, batch, cfg, dev))
+        steps[name] = {"step_ms": _route_medians(by_events), "step_ms_turns": by_events,
+                       "head_split_s": _route_medians(split)}
+    dist = dist_v7r["step_by_route"]
+    steps["dist_v7r"] = {"step_ms": _route_medians(dist["step_ms_by_route"]),
+                         "head_split_s": _route_medians(dist["head_split"])}
+    emit({"phase": "step_losses", "steps": steps, "routes": ["parent", "kernels"],
+          "phase_s": time.perf_counter() - t0, "card": smi})
+    return {"margin": margin, "reverse": reverse, "steps": steps}
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
@@ -4710,6 +5138,8 @@ def main(argv: list[str] | None = None) -> int:
     phase_debug_nans(task, smi, dev)
     dist = phase_dist(smi, dev)
     dist_v7r = phase_dist_v7r(smi, dev)
+    losses = phase_step_losses(smi, dev, dist_v7r)
+    STEP_CASES.clear()
     single_sharded = phase_single_sharded(smi, dev, dist, dist_v7r, parent_gcn)
     dist_options = phase_dist_options(smi, dev, dist_v7r["stages_s"])
     dist_mesh = phase_dist_mesh(smi, dev)
@@ -4721,6 +5151,24 @@ def main(argv: list[str] | None = None) -> int:
 
     def single_launches(kernel: str) -> dict:
         return {leg: single_sharded[leg]["launches"][kernel] for leg in ("fit", "fit_mtl")}
+
+    def loss_launches(kernel: str) -> dict:
+        """The loss kernel's launches in each run that trains."""
+        return {"launches": recipe[kernel], "launches_train": train[kernel],
+                "launches_v7r": v7r[kernel], "launches_mtl": mtl[kernel],
+                "launches_highway": highway[kernel], "launches_bf16_v6": bf16["v6"][kernel],
+                "launches_bf16_base": bf16["base"][kernel],
+                "launches_sorted": {k: v[kernel] for k, v in sorted_runs.items()},
+                "launches_fused": {n: v[kernel] for n, v in fused.items()
+                                   if n != "replayed_interval"},
+                "launches_replayed_interval": {n: v[kernel]
+                                               for n, v in fused["replayed_interval"].items()},
+                "launches_dist": dist["launches"][kernel],
+                "launches_dist_v7r": dist_v7r["launches"][kernel],
+                "launches_dist_approx": dist_options["approx"]["launches"].get(kernel, 0),
+                "launches_dist_fused_runs": {k: v["launches"].get(kernel, 0)
+                                             for k, v in dist_fused["runs"].items()},
+                "launches_single_sharded": single_launches(kernel)}
 
     # the numbers at the recipe's width (d = 256); launches of the recipe's
     # run, with those of the other runs beside (the incidence's at mtl's
@@ -4852,6 +5300,28 @@ def main(argv: list[str] | None = None) -> int:
          "caller": "mining", "s": k_l1["mining"]["s"], "c": k_l1["mining"]["c"],
          "d": k_l1["mining"]["d"], "k": k_l1["mining"]["k"],
          "at_callers": {k: v for k, v in k_l1.items() if k != "mining"}},
+        {"name": "margin_l1", "route": "cuda", "source": "tpugraph_torch/csrc/margin_l1.cu",
+         "replaces": "tpugraph/train/losses.py:22",
+         "replaces_kind": "XLA ops (two (S, k, d) gathers, |a - b|, the sums) and their "
+                          "autodiff, not a Pallas kernel",
+         **loss_launches("margin_l1"),
+         **{k: losses["margin"]["v6_zh_en"][k]
+            for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                      "ms_cold_l2", "device_ms", "forward_ms", "backward_ms", "index_ms",
+                      "rows_from_hbm_ms")},
+         "shape": "v6_zh_en: forward and backward", "s": 7000, "k": 100, "d": 256,
+         "at_shapes": {k: v for k, v in losses["margin"].items() if k != "v6_zh_en"}},
+        {"name": "sinkhorn_reverse", "route": "cuda",
+         "source": "tpugraph_torch/csrc/sinkhorn_reverse.cu",
+         "replaces": "tpugraph/train/ot.py:24",
+         "replaces_kind": "XLA autodiff of the unrolled Sinkhorn solver (also "
+                          "tpugraph/dist/ring.py:432), not a Pallas kernel",
+         **loss_launches("sinkhorn_reverse"),
+         **{k: losses["reverse"]["zh_en_d256"]["rows"][k]
+            for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                      "ms_cold_l2", "device_ms")},
+         "shape": "zh_en_d256 rows: 4,500 x 4,500", "at_shapes": losses["reverse"],
+         "steps": losses["steps"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

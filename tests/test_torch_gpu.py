@@ -16,7 +16,10 @@ every feature block and slice (its step bit for bit the F = L = 1 step);
 both SpMM kernels also at a tensor-parallel rank's width, d = 64; the
 grouped layout's halo SpMM (``halo_grouped``) by both routes; the
 single-device trainers on a sharded config, the fp32 (128, 128) fused
-layer's error against float64, and ``sddmm_pairs``.
+layer's error against float64, and ``sddmm_pairs``; the training step's
+loss kernels (the L1 margin's forward and fixed-order backward, the OT
+head's reverse update) against their plain versions, bit for bit over two
+calls and through a captured replay.
 
 Marked ``gpu``; each test skips without a CUDA device.  This file imports
 neither JAX nor the JAX package, so on a machine with a card (and no JAX)
@@ -40,8 +43,8 @@ import tpugraph_torch.nn.graphconv as graphconv_mod
 from tpugraph_torch.configs.configs import get_config
 from tpugraph_torch.configs.recipes import RECIPES
 from tpugraph_torch.data.synthetic import synthetic_align_task
-from tpugraph_torch.kernels import (_build, gcn_fused, l1_search, shortlist_dist, sinkhorn_fused,
-                                   spmm_ell)
+from tpugraph_torch.kernels import (_build, gcn_fused, l1_search, margin_l1, shortlist_dist,
+                                   sinkhorn_fused, spmm_ell)
 from tpugraph_torch.kernels import spmm as spmm_mod
 from tpugraph_torch.kernels.spmm import PACK_SLOTS, SEG_EDGES, segment_spmm, sorted_spmm
 from tpugraph_torch.kernels.gcn_fused import fused_gcn_layer, gcn_layer, reference_layer
@@ -2061,3 +2064,204 @@ def test_sddmm_pairs_on_the_card(cuda, metric):
     got = sddmm_pairs(emb.to(cuda), rows.to(cuda), cols.to(cuda), metric)
     assert got.device.type == cuda.type
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=0)
+
+
+# ---- the training step's loss kernels: the L1 margin and the OT reverse update
+
+def _margin_case(rng, n: int, s: int, k: int, d: int, weighted: bool, dev, gamma: float = 3.0,
+                 margin_of_flip: float = 1e-4):
+    """A table (N, d), pairs from the two halves and k negatives a side,
+    with some rows repeated (a negative that is a pair row, an entity in
+    two pairs) and a few pool-of-one ties; a negative whose hinge lies
+    within ``margin_of_flip`` of its threshold (float64) is moved to the
+    pair's partner, so the sums' order flips no hinge."""
+    emb = (rng.standard_normal((n, d)) / np.sqrt(d)).astype(np.float32)
+    half = n // 2
+    pairs = np.stack([rng.integers(0, half, s), rng.integers(half, n, s)], 1)
+    pairs[1] = pairs[0]
+    neg_l, neg_r = rng.integers(0, half, (s, k)), rng.integers(half, n, (s, k))
+    neg_r[: s // 50, 0] = pairs[: s // 50, 1]
+    neg_l[2, :] = pairs[3, 0]
+    neg_r[:, 1] = half  # a hub row that every pair's right side reaches
+    e64 = emb.astype(np.float64)
+    d_pos = np.abs(e64[pairs[:, 0]] - e64[pairs[:, 1]]).sum(1)[:, None]
+    for neg, own, part in ((neg_r, 0, 1), (neg_l, 1, 0)):
+        for j0 in range(0, k, 16):  # blocks of negatives keep the float64 temporaries small
+            nb = neg[:, j0:j0 + 16]
+            h = d_pos + gamma - np.abs(e64[pairs[:, own]][:, None] - e64[nb]).sum(2)
+            near = np.abs(h) < margin_of_flip
+            nb[near] = np.broadcast_to(pairs[:, part:part + 1], nb.shape)[near]
+    w = rng.uniform(0.0, 2.0, s).astype(np.float32) if weighted else None
+    t = [torch.from_numpy(a).to(dev) for a in (emb, pairs, neg_l, neg_r)]
+    return (*t, None if w is None else torch.from_numpy(w).to(dev))
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-300))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, s, k, d, weighted", [
+    (300, 64, 5, 128, False), (300, 64, 5, 256, True), (200, 40, 7, 16, True),
+    (200, 40, 3, 64, False), (200, 40, 9, 512, True), (38_000, 7_000, 100, 256, True)])
+def test_margin_l1_kernel_matches_plain(cuda, n, s, k, d, weighted):
+    """The loss at rel 1e-5 and the table's gradient at relative L2 1e-5
+    against the plain composite, every row written (the output's memory
+    prefilled with NaN), two calls bit for bit; the last case is recipe
+    v6's zh-en step (7,000 pairs with proposals, k 100, d 256)."""
+    emb, pairs, neg_l, neg_r, w = _margin_case(np.random.default_rng(d + k), n, s, k, d,
+                                               weighted, cuda)
+    e = emb.clone().requires_grad_(True)
+    want = margin_l1.margin_loss_plain(e, pairs, neg_l, neg_r, 3.0, w)
+    (g_want,) = torch.autograd.grad(want, e)
+    got, grads = [], []
+    for _ in range(2):
+        torch.full((n, d), float("nan"), device=cuda)  # the next (n, d) output lands on NaNs
+        before = margin_l1.launches
+        loss = margin_l1.margin_l1_loss(e, pairs, neg_l, neg_r, 3.0, w)
+        (g,) = torch.autograd.grad(loss, e)
+        torch.cuda.synchronize()
+        assert margin_l1.launches == before + 2
+        got.append(loss)
+        grads.append(g)
+    assert torch.isfinite(grads[0]).all()
+    assert float(got[0]) == pytest.approx(float(want), rel=1e-5)
+    assert _rel_l2(grads[0], g_want) < 1e-5
+    assert torch.equal(got[0], got[1]) and torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.gpu
+def test_margin_l1_captured_replay_equals_eager(cuda):
+    emb, pairs, neg_l, neg_r, w = _margin_case(np.random.default_rng(5), 500, 120, 10, 128,
+                                               True, cuda)
+    e = emb.clone().requires_grad_(True)
+
+    def call():
+        loss = margin_l1.margin_l1_loss(e, pairs, neg_l, neg_r, 3.0, w)
+        return loss.detach(), torch.autograd.grad(loss, e)[0]
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        want = call()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = call()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+
+
+@pytest.mark.gpu
+def test_margin_l1_refuses_what_it_has_no_instance_for(cuda):
+    emb, pairs, neg_l, neg_r, _ = _margin_case(np.random.default_rng(6), 100, 20, 3, 128,
+                                               False, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        margin_l1.margin_l1_loss(emb.double(), pairs, neg_l, neg_r)
+    with pytest.raises(ValueError, match="no instance"):
+        margin_l1.margin_l1_loss(emb[:, :100].contiguous(), pairs, neg_l, neg_r)
+
+
+def _reverse_case(rng, q: int, c: int, rows: bool, dev, offset: int = 0, extra: int = 0,
+                  tau: float = 0.05):
+    """A (q, c) column block at column ``offset`` of (q, c + extra) cost and
+    C̄ matrices, b, the saved LSE and ō of a potential update on unit rows."""
+    width = c + extra
+    l = rng.standard_normal((q, 64))
+    r = rng.standard_normal((width, 64))
+    l /= np.linalg.norm(l, axis=1, keepdims=True)
+    r /= np.linalg.norm(r, axis=1, keepdims=True)
+    cost = np.maximum(2.0 - 2.0 * l @ r.T, 0.0)  # the sqeuclidean cost of unit rows
+    cbar = rng.standard_normal((q, width)) * 1e-3
+    n_b, n_o = (c, q) if rows else (q, c)
+    b = rng.standard_normal(n_b) * 0.1
+    blk = cost[:, offset:offset + c]
+    z = (b[None, :] - blk) / tau if rows else (b[:, None] - blk) / tau
+    lse = np.log(np.exp(z - z.max(1 if rows else 0, keepdims=True)).sum(1 if rows else 0)) + (
+        z.max(1 if rows else 0))
+    ob = rng.standard_normal(n_o) / n_o
+    t = [torch.from_numpy(np.asarray(a, dtype=np.float32)).to(dev)
+         for a in (cost, cbar, b, lse, ob)]
+    return t[0][:, offset:offset + c], t[1][:, offset:offset + c], t[1], *t[2:]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q, c, offset, extra", [(70, 300, 0, 0), (70, 300, 37, 80),
+                                                 (4500, 4500, 0, 0), (4096, 4096, 0, 0)])
+@pytest.mark.parametrize("rows", [True, False])
+def test_sinkhorn_reverse_kernel_matches_plain(cuda, q, c, offset, extra, rows):
+    """C̄ and b̄ at relative L2 1e-5 against the plain version, on whole
+    blocks and a strided column block (the rest of C̄ untouched), b̄'s
+    memory prefilled with NaN; two calls from the same C̄ bit for bit."""
+    cost, cbar, whole, b, lse, ob = _reverse_case(np.random.default_rng(q + offset), q, c,
+                                                  rows, cuda, offset, extra)
+    before = whole.clone()
+    want_c = whole.clone()
+    want_b = sinkhorn_fused.sinkhorn_reverse_plain(want_c[:, offset:offset + c], cost, b, lse,
+                                                   ob, 0.05, rows)
+    outs = []
+    for _ in range(2):
+        whole.copy_(before)
+        torch.full((q if not rows else c,), float("nan"), device=cuda)
+        n0 = sinkhorn_fused.reverse_launches
+        got_b = sinkhorn_fused.sinkhorn_reverse(cbar, cost, b, lse, ob, 0.05, rows)
+        torch.cuda.synchronize()
+        assert sinkhorn_fused.reverse_launches == n0 + 1
+        outs.append((got_b, whole.clone()))
+    got_b, got_c = outs[0]
+    assert torch.isfinite(got_b).all()
+    assert _rel_l2(got_c, want_c) < 1e-5 and _rel_l2(got_b, want_b) < 1e-5
+    outside = torch.ones_like(before, dtype=torch.bool)
+    outside[:, offset:offset + c] = False
+    assert torch.equal(got_c[outside], before[outside])
+    assert torch.equal(outs[1][0], got_b) and torch.equal(outs[1][1], got_c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [True, False])
+def test_sinkhorn_reverse_captured_replay_equals_eager(cuda, rows):
+    cost, cbar, whole, b, lse, ob = _reverse_case(np.random.default_rng(9), 300, 260, rows,
+                                                  cuda)
+    start = whole.clone()
+
+    def call():
+        whole.copy_(start)
+        return sinkhorn_fused.sinkhorn_reverse(cbar, cost, b, lse, ob, 0.05, rows)
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        want_b = call()
+        want_c = whole.clone()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = call()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want_b) and torch.equal(whole, want_c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s, d", [(4500, 256), (4500, 128)])
+def test_ot_loss_gradient_on_the_reverse_kernel_matches_plain(cuda, s, d):
+    """The OT head's loss and gradient, the reverse sweep on the kernel
+    (41 launches), against the plain version differentiated by autograd:
+    loss rel 1e-4, gradient relative L2 1e-3 (PERF.md §2's step limits)."""
+    rng = np.random.default_rng(s + d)
+    emb = torch.from_numpy(rng.standard_normal((2 * s, d)).astype(np.float32)).to(cuda)
+    pairs = torch.stack([torch.arange(s), torch.arange(s, 2 * s)], 1).to(cuda)
+    e = emb.clone().requires_grad_(True)
+    n0 = sinkhorn_fused.reverse_launches
+    loss = sinkhorn_align_loss(e, pairs, tau=0.05, n_iters=20)
+    (g,) = torch.autograd.grad(loss, e)
+    torch.cuda.synchronize()
+    assert sinkhorn_fused.reverse_launches == n0 + 41
+    e2 = emb.clone().requires_grad_(True)
+    want = sinkhorn_align_loss_plain(e2, pairs, tau=0.05, n_iters=20)
+    (g_want,) = torch.autograd.grad(want, e2)
+    assert float(loss) == pytest.approx(float(want), rel=1e-4)
+    assert _rel_l2(g, g_want) < 1e-3

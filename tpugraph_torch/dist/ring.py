@@ -40,7 +40,8 @@ graph groups.
   single-device ``train/ot.py`` launches.  The loss is a
   ``torch.autograd.Function`` whose backward is the exact gradient of the
   unrolled solver (``train/ot.py::_SinkhornNLL.backward``'s reverse sweep),
-  over a rank's (S/R) × S share of the cost and C̄; the reverse of each
+  over a rank's (S/R) × S share of the cost and C̄, one ``sinkhorn_reverse``
+  launch per held block of each update; the reverse of each
   f-update sums b̄ over the rank's rows into an accumulator that travels
   with its chunk and comes home after the R-th pass, as r̄ does at the
   end.  Value and gradient are whole on every rank (the trainer's
@@ -81,7 +82,8 @@ import torch.distributed as dist
 from tpugraph_torch.dist.mesh import ShardMesh
 from tpugraph_torch.kernels.l1_search import l1_count, l1_topk
 from tpugraph_torch.kernels.shortlist_dist import check_metric, select_rerank
-from tpugraph_torch.kernels.sinkhorn_fused import sinkhorn_potential_update, sq_norms
+from tpugraph_torch.kernels.sinkhorn_fused import (sinkhorn_potential_update, sinkhorn_reverse,
+                                                   sq_norms)
 from tpugraph_torch.train.eval import dist_tile, rank_metrics
 from tpugraph_torch.train.losses import pairwise_l1
 from tpugraph_torch.train.ot import _normalized_sides
@@ -491,10 +493,8 @@ class _RingSinkhornNLL(torch.autograd.Function):
 
             def visit(src, held):
                 cs, m = cols(src)
-                t = ((held[0][None, :m] - cost[:, cs]) / tau - lse[:, None]).exp_().mul_(
-                    out_bar[:nq, None])
-                cbar[:, cs] += t
-                held[1][:m] -= t.sum(0)
+                held[1][:m] += sinkhorn_reverse(cbar[:, cs], cost[:, cs], held[0][:m], lse,
+                                                out_bar[:nq], tau, rows=True)
 
             return _ring_pass((b, torch.zeros_like(b)), mesh, visit, home=True)[1]
 
@@ -506,11 +506,9 @@ class _RingSinkhornNLL(torch.autograd.Function):
 
             def visit(src, held):
                 cs, m = cols(src)
-                lse = log_m - held[0][:m] / tau
-                t = ((b[:nq, None] - cost[:, cs]) / tau - lse[None, :]).exp_().mul_(
-                    held[1][None, :m])
-                cbar[:, cs] += t
-                b_bar[:nq] -= t.sum(1)
+                b_bar[:nq] += sinkhorn_reverse(cbar[:, cs], cost[:, cs], b[:nq],
+                                               log_m - held[0][:m] / tau, held[1][:m], tau,
+                                               rows=False)
 
             _ring_pass((out, out_bar), mesh, visit)
             return b_bar

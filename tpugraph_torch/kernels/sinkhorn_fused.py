@@ -16,6 +16,13 @@
   whose partial (max, sumexp) the strip's last block merges in split order.
 * ``sinkhorn_potentials_fused`` — the solver: alternate f- and g-updates by
   swapping the two sides, the squared norms computed once per solve.
+* ``sinkhorn_reverse`` — the reverse of one update over a block of a
+  materialised cost (the OT head's backward, ``train/ot.py`` and
+  ``dist/ring.py``): adds ō⊙P to the block of C̄ in place and returns
+  b̄ = −Σ ō⊙P along the update's axis.  On a CUDA tensor one launch of the
+  hand-written Hopper kernel ``csrc/sinkhorn_reverse.cu`` (the elementwise
+  pass with per-tile partial sums, then their sum in tile order); on a CPU
+  tensor the plain version ``sinkhorn_reverse_plain``.
 """
 
 from __future__ import annotations
@@ -32,8 +39,11 @@ TILE_Q, TILE_C = 64, 128  # kBQ, kBC in csrc/sinkhorn_fused.cu
 MAX_D = 256  # the query strip's (big, small) halves and the ring fill 218 KB of shared memory
 PRECISION = "3xtf32"  # the kernel's product: big·big + big·small + small·big in TF32
 
-# kernel launches since the process started (or the caller last reset it)
+# kernel launches since the process started (or the caller last reset them):
+# the potential update's and the reverse update's
 launches = 0
+reverse_launches = 0
+REV_TILE_Q, REV_TILE_C = 32, 256  # kTQ, kTC in csrc/sinkhorn_reverse.cu
 
 # (q, c, device, stream) -> the kernel's scratch there: the splits' partial
 # (max, sumexp), then the strips' counters, zeroed once (the kernel leaves
@@ -170,3 +180,67 @@ def sinkhorn_potentials_fused(l: torch.Tensor, r: torch.Tensor, tau: float = 0.0
         raise ValueError("n_iters must be >= 1")
     fs, gs = solve(l.float().contiguous(), r.float().contiguous(), tau, n_iters)
     return fs[-1], gs[-1]
+
+
+def sinkhorn_reverse_plain(cbar: torch.Tensor, cost: torch.Tensor, b: torch.Tensor,
+                           lse: torch.Tensor, out_bar: torch.Tensor, tau: float,
+                           rows: bool) -> torch.Tensor:
+    """The plain version of ``sinkhorn_reverse``: torch's elementwise passes."""
+    if rows:
+        t = (b[None, :] - cost).div_(tau).sub_(lse[:, None]).exp_().mul_(out_bar[:, None])
+    else:
+        t = (b[:, None] - cost).div_(tau).sub_(lse[None, :]).exp_().mul_(out_bar[None, :])
+    cbar.add_(t)
+    return -t.sum(0 if rows else 1)
+
+
+def _reverse_lib():
+    fn = _build.load("sinkhorn_reverse").sinkhorn_reverse_forward
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, ctypes.c_int64, i, i, p, p, p, ctypes.c_float, i, p, p, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def sinkhorn_reverse(cbar: torch.Tensor, cost: torch.Tensor, b: torch.Tensor,
+                     lse: torch.Tensor, out_bar: torch.Tensor, tau: float,
+                     rows: bool) -> torch.Tensor:
+    """The reverse of one potential update out = τ(log m − LSE((b − C)/τ))
+    over a block C (Q, C′) of the cost, float32, rows of any stride and
+    columns contiguous (a column slice), with C̄ ``cbar`` of the same
+    layout.  ``rows``: an f-update over the block's rows, b (C′,), the
+    saved ``lse`` = log m − out/τ and ō (Q,); else a g-update over its
+    columns, b (Q,), lse and ō (C′,).  With P = exp((b − C)/τ − lse) it
+    adds ō⊙P to ``cbar`` in place and returns b̄ = −Σ ō⊙P, summed over the
+    rows (rows) or the columns."""
+    if cost.device.type == "cpu":
+        return sinkhorn_reverse_plain(cbar, cost, b, lse, out_bar, tau, rows)
+    if cost.device.type != "cuda":
+        raise ValueError(f"sinkhorn_reverse runs on cuda or cpu, not {cost.device}")
+    q, c = cost.shape
+    if (cost.dtype != torch.float32 or cbar.dtype != torch.float32 or cbar.shape != cost.shape
+            or cbar.stride() != cost.stride() or cost.stride(1) != 1
+            or cost.stride(0) < c or cbar.device != cost.device):
+        raise ValueError(f"cost and cbar must be float32 blocks of one layout with contiguous "
+                         f"columns, got {cost.dtype} {tuple(cost.shape)} {cost.stride()} and "
+                         f"{cbar.dtype} {tuple(cbar.shape)} {cbar.stride()}")
+    n_b, n_o = (c, q) if rows else (q, c)
+    vecs = []
+    for name, t, n in (("b", b, n_b), ("lse", lse, n_o), ("out_bar", out_bar, n_o)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (n,) or t.device != cost.device:
+            raise ValueError(f"{name} must be float32 of shape ({n},) on {cost.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        vecs.append(t.contiguous())
+    n_tiles = -(-q // REV_TILE_Q) if rows else -(-c // REV_TILE_C)
+    partial = torch.empty(n_tiles * n_b, dtype=torch.float32, device=cost.device)
+    out = torch.empty(n_b, dtype=torch.float32, device=cost.device)
+    err = _reverse_lib()(cost.data_ptr(), cbar.data_ptr(), cost.stride(0), q, c,
+                         *(t.data_ptr() for t in vecs), float(tau), int(rows),
+                         partial.data_ptr(), out.data_ptr(),
+                         torch._C._cuda_getCurrentRawStream(cost.device.index))
+    if err != 0:
+        raise RuntimeError(f"sinkhorn_reverse launch failed with CUDA error {err}")
+    global reverse_launches
+    reverse_launches += 1
+    return out

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from tpugraph_torch.kernels.margin_l1 import margin_l1_loss, margin_loss_plain
+
 
 def pairwise_l1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(…, d), (…, d) -> broadcasted L1 distance over the last axis."""
@@ -21,18 +23,12 @@ def margin_align_loss(emb: torch.Tensor, pairs: torch.Tensor, neg_l: torch.Tenso
     0.5 * (mean ReLU(d⁺ + γ − d(e_l, neg_r)) + mean ReLU(d⁺ + γ − d(neg_l, e_r)))
 
     ``weights`` (S,) down-weights rows: each side's mean becomes
-    Σ w·ReLU / (Σ w · k)."""
+    Σ w·ReLU / (Σ w · k).  On a CPU table the plain composite; on a CUDA
+    one the hand kernel ``kernels/margin_l1.py`` (forward and a fixed-order
+    backward)."""
     if emb.dim() != 2 or pairs.shape != (neg_l.shape[0], 2) or neg_l.shape != neg_r.shape:
         raise ValueError(f"shapes: emb {tuple(emb.shape)}, pairs {tuple(pairs.shape)}, "
                          f"neg_l {tuple(neg_l.shape)}, neg_r {tuple(neg_r.shape)}")
-    e_l, e_r = emb[pairs[:, 0]], emb[pairs[:, 1]]
-    d_pos = pairwise_l1(e_l, e_r)[:, None]  # (S, 1)
-    d_neg_r = pairwise_l1(e_l[:, None, :], emb[neg_r])  # (S, k)
-    d_neg_l = pairwise_l1(emb[neg_l], e_r[:, None, :])  # (S, k)
-    h_r = (d_pos + gamma - d_neg_r).clamp_min(0.0)
-    h_l = (d_pos + gamma - d_neg_l).clamp_min(0.0)
-    if weights is None:
-        return 0.5 * (h_r.mean() + h_l.mean())
-    w = weights[:, None]
-    denom = weights.sum().clamp_min(1e-9) * neg_r.shape[1]
-    return 0.5 * ((w * h_r).sum() + (w * h_l).sum()) / denom
+    if emb.device.type == "cpu":
+        return margin_loss_plain(emb, pairs, neg_l, neg_r, gamma, weights)
+    return margin_l1_loss(emb, pairs, neg_l, neg_r, gamma, weights)

@@ -14,8 +14,10 @@ the final g gives f′ with LSE_j((g_j − C_ij)/τ) = log μ_i − f′_i/τ.  
 and the forward is 2·n_iters + 1 launches of the fused potential-update
 kernel plus the diagonal C_ii: no S×S tensor.  The gradient is the exact
 one of the unrolled solver (what ``jax.grad`` computes through the scan),
-by an analytic reverse sweep over a materialised cost in torch ops.  The
-L2 normalisation and the gathers stay ordinary autograd outside.
+by an analytic reverse sweep over a materialised cost: each update's
+reverse is one launch of the reverse kernel (``sinkhorn_reverse``), and the
+final contraction to l̄ and r̄ two matrix products.  The L2 normalisation
+and the gathers stay ordinary autograd outside.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import torch
 
 from tpugraph_torch.kernels.sddmm import pairwise_dist
 from tpugraph_torch.kernels.sinkhorn import sinkhorn_log_plan
-from tpugraph_torch.kernels.sinkhorn_fused import sinkhorn_potential_update, solve, sq_norms
+from tpugraph_torch.kernels.sinkhorn_fused import (sinkhorn_potential_update, sinkhorn_reverse,
+                                                   solve, sq_norms)
 
 
 def _normalized_sides(emb: torch.Tensor, pairs: torch.Tensor):
@@ -44,14 +47,9 @@ def _reverse_update(cbar: torch.Tensor, cost: torch.Tensor, b: torch.Tensor,
     """Backward of one potential update out = τ(log m − LSE((b − C)/τ)),
     over the rows of C (an f-update) or its columns (a g-update).  Adds
     ō⊙P to C̄ in place and returns b̄ = −Σ ō⊙P, with
-    P = exp((b − C)/τ − lse) and lse = log m − out/τ."""
-    lse = log_m - out / tau
-    if rows:
-        t = (b[None, :] - cost).div_(tau).sub_(lse[:, None]).exp_().mul_(out_bar[:, None])
-    else:
-        t = (b[:, None] - cost).div_(tau).sub_(lse[None, :]).exp_().mul_(out_bar[None, :])
-    cbar.add_(t)
-    return -t.sum(0 if rows else 1)
+    P = exp((b − C)/τ − lse) and lse = log m − out/τ: one
+    ``sinkhorn_reverse`` (the kernel on the card)."""
+    return sinkhorn_reverse(cbar, cost, b, log_m - out / tau, out_bar, tau, rows)
 
 
 class _SinkhornNLL(torch.autograd.Function):
