@@ -2,7 +2,7 @@
 
 Usage (from the repository root, on a machine with a CUDA card and nvcc):
 
-    python3 chip_smoke.py [--parent-l1 DIR] [--parent-gcn DIR]
+    python3 chip_smoke.py [--parent-l1 DIR] [--parent-gcn DIR] [--parent-margin DIR]
 
 ``--parent-l1 DIR``: DIR holds another commit's ``l1_search.cu`` and
 ``topk_queue.cuh`` (PR 19's entry points); ``phase_l1_search`` builds it
@@ -12,8 +12,13 @@ timed in turns.  ``--parent-gcn DIR``: DIR holds another commit's
 kernel at (256, 256)); ``phase_kernel`` holds the port's kernel to it at zh-en
 scale — the narrow widths bit for bit, (256, 256) fp32 and bf16 timed in
 turns, with its device-time split — and ``phase_single_sharded`` times the
-two in turns at (256, 256) on the DWY100K operator.  Without them those
-comparisons are not run.
+two in turns at (256, 256) on the DWY100K operator.  ``--parent-margin
+DIR``: DIR holds the previous design's ``margin_l1.cu`` (commit 461a30d:
+its backward reads the table's rows again over an index built in every
+call); ``phase_step_losses``
+holds the port's margin kernel to it bit for bit at every margin shape and
+times the two in turns, alone and in the steps by head.  Without them
+those comparisons are not run.
 
 Phases, each printing one JSON line:
 
@@ -205,10 +210,22 @@ Phases, each printing one JSON line:
              relative L2 1e-5.  Each: outputs on NaN-prefilled memory, two
              calls bit for bit, a captured replay equal to eager, CUDA
              events warm and with the L2 flushed beside the plain version
-             and the bound.  Then config sinkhorn's, recipe v6's and v7r's
-             steps (phases 5, 6 and 8) and the distributed v7r step (phase
-             20) by events and split by head, on the kernels and on the
-             parent's route (the two kernels' plain versions) in turns.
+             and the bound.  The margin's backward index is built once
+             beforehand, as the batch carries it, and the margin also: a
+             captured call whose negatives and index are reloaded equal to
+             the second batch's eager call; its gather-only entry (the
+             forward's floor) against its plain version and timed; its sign
+             planes' MB.  With ``--parent-margin DIR`` (the previous design's
+             ``margin_l1.cu``): the loss and the gradient bit for bit PR
+             23's kernel's at every shape, on both sets of rows, and the
+             two timed in turns (forward, forward + backward warm and
+             flushed, the index).  Then config sinkhorn's, recipe v6's and
+             v7r's steps (phases 5, 6 and 8) and the distributed v7r step
+             (phase 20) by events and split by head, on the kernels and on
+             the parent's route (the two kernels' plain versions), with
+             ``--parent-margin`` also on the previous margin kernel, in turns.
+             Every checked run's margin index builds equal its batches (one
+             a resample interval, none inside a step).
 
 20b. single_sharded — the single-device trainers on ``dwy100k_dist``
              as the JAX ``fit`` and ``fit_mtl`` train it (one card, the whole
@@ -364,7 +381,7 @@ from tpugraph_torch.train.eval import _both_direction_ranks
 from tpugraph_torch.train.fused import CapturedStep, train_step
 from tpugraph_torch.train.loop import (IntervalBatch, build_model, embed, first_batch, fit,
                                        load_task, step_generator, step_seed)
-from tpugraph_torch.train.losses import margin_align_loss, pairwise_l1
+from tpugraph_torch.train.losses import MARGIN_INDEX, margin_align_loss, pairwise_l1
 from tpugraph_torch.train.metrics import epoch_edge_ops
 from tpugraph_torch.train.mtl import draw_interval, fit_mtl
 from tpugraph_torch.train.negatives import (blockwise_knn_l1, sample_hard_negatives,
@@ -1061,6 +1078,7 @@ def _reset_launch_counts() -> None:
     shortlist_dist.launches = shortlist_dist.select_launches = spmm_mod.launches = 0
     l1_search.topk_launches = l1_search.count_launches = l1_search.tile_launches = 0
     margin_l1.launches = sinkhorn_fused.reverse_launches = 0
+    margin_l1.index_builds = margin_l1.gather_launches = 0
 
 
 def _loss_launches(cfg, steps: int) -> dict:
@@ -1176,18 +1194,26 @@ def _mtl_step_launches(cfg) -> dict:
 STEP_CASES: dict[str, tuple] = {}
 
 
+def _with_index(batch: dict, n_rows: int) -> dict:
+    """``batch`` with the margin's backward index over a table of
+    ``n_rows`` rows, as ``loop.IntervalBatch`` adds it once per batch."""
+    return {**batch, MARGIN_INDEX: margin_l1.build_index(
+        batch.get("pairs_aug", batch["pairs"]), batch["neg_l"], batch["neg_r"], n_rows)}
+
+
 def _step_batch(res, cfg, dev):
     task = res.task
     pairs = torch.as_tensor(task.train_pairs, dtype=torch.int64, device=dev)
     neg_l, neg_r = sample_uniform_negatives(torch.Generator().manual_seed(1), pairs,
                                             task.kg1.n_ent, task.n_ent, cfg.k_neg)
-    return {"pairs": pairs, "neg_l": neg_l, "neg_r": neg_r}
+    return _with_index({"pairs": pairs, "neg_l": neg_l, "neg_r": neg_r}, task.n_ent)
 
 
 def _saved_batch(ckpt_dir: str, cfg, task, dev) -> tuple[dict, int]:
     """The last interval's batch as the run saved it: its negatives, its
-    proposals with their weights, fit_mtl's draws; and the proposals of
-    weight > 0.  The relation triples join it as fit_mtl's constant."""
+    proposals with their weights, fit_mtl's draws, the margin's index; and
+    the proposals of weight > 0.  The relation triples join it as
+    fit_mtl's constant."""
     saved = Checkpointer(ckpt_dir, cfg.checkpoint_every).restore_latest(dev)[1]
     pairs = torch.as_tensor(task.train_pairs, dtype=torch.int64, device=dev)
     batch = {"pairs": pairs, "neg_l": saved["neg_l"], "neg_r": saved["neg_r"],
@@ -1201,7 +1227,7 @@ def _saved_batch(ckpt_dir: str, cfg, task, dev) -> tuple[dict, int]:
     if cfg.use_rel_head:
         batch["rel_triples"] = torch.as_tensor(task.merged_triples, dtype=torch.int64,
                                                device=dev)
-    return batch, n_boot
+    return _with_index(batch, task.n_ent), n_boot
 
 
 SHORTLIST_CALLERS = (negatives_mod, bootstrap_mod, eval_mod, serve_mod)
@@ -1209,6 +1235,12 @@ SHORTLIST_CALLERS = (negatives_mod, bootstrap_mod, eval_mod, serve_mod)
 L1_CALLERS = ((eval_mod, ("l1_topk", "l1_count", "l1_tile")), (negatives_mod, ("l1_topk",)),
               (bootstrap_mod, ("l1_topk",)), (serve_mod, ("l1_topk",)),
               (ring_mod, ("l1_topk", "l1_count")))
+
+
+def _plain_margin(*args, index=None):
+    """The margin's composite where the port calls the kernel (it reads no
+    index)."""
+    return margin_loss_plain(*args)
 
 
 @contextlib.contextmanager
@@ -1225,7 +1257,7 @@ def _plain_kernels():
     graphconv_mod.spmm = attr_channel_mod.spmm = spmm_xla
     attr_channel_mod.spmm_ell = lambda op, x: apply_with_diag(op.fwd, op.diag, x)
     align_mod.sinkhorn_align_loss = sinkhorn_align_loss_plain
-    losses_mod.margin_l1_loss = margin_loss_plain
+    losses_mod.margin_l1_loss = _plain_margin
     for m in SHORTLIST_CALLERS:
         m.select_rerank = shortlist_dist.shortlist_select_plain
     for m, names in L1_CALLERS:
@@ -1352,7 +1384,8 @@ def _loss_stages(emb_d, batch: dict, cfg, heads: list, ot_loss, mark) -> None:
     each ended by ``mark()``: the margin's forward and backward, the OT
     head's forward and backward, each head's forward and backward."""
     margin = margin_align_loss(emb_d, batch.get("pairs_aug", batch["pairs"]), batch["neg_l"],
-                               batch["neg_r"], cfg.gamma, batch.get("w"))
+                               batch["neg_r"], cfg.gamma, batch.get("w"),
+                               index=batch.get(MARGIN_INDEX))
     mark()
     margin.backward()
     mark()
@@ -1394,7 +1427,7 @@ def _profile_step(model, op, batch, cfg, dev, attr_op=None, reps: int = 5) -> di
             ae = model.ae_encoder(op, attr_op)
             (cfg.attr_channel_weight * margin_align_loss(
                 ae, batch.get("pairs_aug", batch["pairs"]), batch["neg_l"], batch["neg_r"],
-                cfg.gamma, batch.get("w"))).backward()
+                cfg.gamma, batch.get("w"), index=batch.get(MARGIN_INDEX))).backward()
             mark()
         emb.backward(emb_d.grad)
         mark()
@@ -1434,7 +1467,7 @@ def _parent_loss_route():
     ``sinkhorn_reverse``: the margin's composite with autograd, and the
     reverse updates as torch's elementwise passes (single-device and ring)."""
     saved = losses_mod.margin_l1_loss, ot_mod.sinkhorn_reverse, ring_mod.sinkhorn_reverse
-    losses_mod.margin_l1_loss = margin_loss_plain
+    losses_mod.margin_l1_loss = _plain_margin
     ot_mod.sinkhorn_reverse = ring_mod.sinkhorn_reverse = sinkhorn_reverse_plain
     try:
         yield
@@ -1442,13 +1475,34 @@ def _parent_loss_route():
         losses_mod.margin_l1_loss, ot_mod.sinkhorn_reverse, ring_mod.sinkhorn_reverse = saved
 
 
+# the previous margin kernel (``--parent-margin``, ``_parent_margin``), or None
+PARENT_MARGIN: dict | None = None
+
+
+@contextlib.contextmanager
+def _parent_margin_route():
+    """The step with the previous margin kernel where the port calls the margin
+    (it builds its index in every backward, as it did)."""
+    saved = losses_mod.margin_l1_loss
+    losses_mod.margin_l1_loss = PARENT_MARGIN["loss"]
+    try:
+        yield
+    finally:
+        losses_mod.margin_l1_loss = saved
+
+
 def _in_turns(split, rounds: int = 2) -> dict:
-    """``split()`` under the parent's loss route and on the kernels, in
-    turns (parent, kernels, kernels, parent, ...): each route's readings."""
-    out = {"parent": [], "kernels": []}
+    """``split()`` under the parent's loss route (the loss kernels' plain
+    versions), with ``--parent-margin`` also under the previous margin kernel
+    ("previous_margin"), and on the kernels, in turns (parent, [previous_margin,]
+    kernels, then backwards, ...): each route's readings."""
+    routes = ("parent", *(("previous_margin",) if PARENT_MARGIN else ()), "kernels")
+    contexts = {"parent": _parent_loss_route, "previous_margin": _parent_margin_route,
+                "kernels": contextlib.nullcontext}
+    out = {route: [] for route in routes}
     for r in range(rounds):
-        for route in (("parent", "kernels") if r % 2 == 0 else ("kernels", "parent")):
-            with _parent_loss_route() if route == "parent" else contextlib.nullcontext():
+        for route in (routes if r % 2 == 0 else routes[::-1]):
+            with contexts[route]():
                 out[route].append(split())
     return out
 
@@ -1507,7 +1561,9 @@ def _device_busy(res, cfg, dev, steps: int = 3) -> dict:
 def _run_checked(cfg, task, dev, **timing_counts) -> tuple:
     """A run through driver.run with every count at 0 just before and read
     just after: its result, its launches (held to ``_expected_launches``),
-    its wall seconds; ``timing_counts`` (steps, minings, ...) are held too."""
+    its wall seconds; ``timing_counts`` (steps, minings, ...) are held too,
+    and the margin's index builds to the run's batches (one a resample
+    interval: none inside a step)."""
     _reset_launch_counts()
     t0 = time.perf_counter()
     res = run(cfg, task=task, device=dev)
@@ -1517,12 +1573,25 @@ def _run_checked(cfg, task, dev, **timing_counts) -> tuple:
     expected = _expected_launches(cfg, t, task)
     if counts != expected or any(t[k] != v for k, v in timing_counts.items()):
         raise AssertionError(f"launches {counts} (expected {expected}), timings {t}")
+    batches = len(range(t["start_epoch"], cfg.epochs, cfg.neg_every))
+    if margin_l1.index_builds != batches:
+        raise AssertionError(f"the margin's index was built {margin_l1.index_builds} times "
+                             f"in a run of {batches} batches")
+    INDEX_BUILDS.append({"config": cfg.name, "param_dtype": cfg.param_dtype,
+                         "spmm_impl": cfg.spmm_impl, "epochs": cfg.epochs,
+                         "neg_every": cfg.neg_every, "batches": batches,
+                         "index_builds": margin_l1.index_builds,
+                         "margin_launches": counts["margin_l1"]})
     losses = res.losses
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"losses not finite or not falling: {losses}")
     if not all(math.isfinite(v) for v in res.metrics.values()):
         raise AssertionError(f"non-finite metrics {res.metrics}")
     return res, counts, run_s
+
+
+# each checked run's margin index builds beside its batches and margin launches
+INDEX_BUILDS: list[dict] = []
 
 
 def _stages(t: dict) -> dict:
@@ -2189,6 +2258,72 @@ def _parent_l1(src: str) -> dict:
           "ptxas": [ln for ln in (proc.stdout + proc.stderr).splitlines()
                     if "registers" in ln or "spill" in ln]})
     return {"topk": topk, "count": count}
+
+
+def _parent_margin(src: str) -> dict:
+    """The previous margin kernel: ``margin_l1.cu`` in ``src``, built by nvcc
+    with the port's flags, its forward and backward (commit 461a30d's C signatures:
+    the backward reads the table's rows again, over an int64 index that it
+    builds in every call) as an autograd Function taking the port's
+    arguments.  "loss" (a stand-in for ``margin_l1_loss``: it ignores a
+    batch's index), "index" (its per-call index build) and "build_s"."""
+    t0 = time.perf_counter()
+    built = _build.build("margin_l1_parent", os.path.join(src, "margin_l1.cu"))
+    lib = ctypes.CDLL(str(built.path))
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.margin_l1_forward.argtypes = [P, P, P, P, P, F, I, I, I, P, P, P, P, P]
+    lib.margin_l1_backward.argtypes = [P] * 11 + [I] * 5 + [P, P, P]
+    stream = margin_l1._stream
+
+    def index(pairs, neg_l, neg_r, n_rows):
+        keys, order, row_ptr = margin_l1.contribution_index(pairs, neg_l, neg_r, n_rows)
+        item_ptr, n_items = margin_l1.record_items(row_ptr, len(keys))
+        return order, row_ptr, item_ptr, n_items
+
+    class ParentMargin(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, emb, pairs, neg_l, neg_r, w, gamma):
+            (s, k), d = neg_r.shape, emb.shape[1]
+            flags = torch.empty((s, k), dtype=torch.uint8, device=emb.device)
+            row_sum = torch.empty(s, dtype=torch.float32, device=emb.device)
+            loss = torch.empty((), dtype=torch.float32, device=emb.device)
+            denom = torch.empty(1, dtype=torch.float32, device=emb.device)
+            err = lib.margin_l1_forward(
+                emb.data_ptr(), pairs.data_ptr(), neg_l.data_ptr(), neg_r.data_ptr(),
+                None if w is None else w.data_ptr(), float(gamma), s, k, d, flags.data_ptr(),
+                row_sum.data_ptr(), loss.data_ptr(), denom.data_ptr(), stream(emb))
+            if err != 0:
+                raise RuntimeError(f"the parent's margin forward failed with CUDA error {err}")
+            ctx.save_for_backward(emb, pairs, neg_l, neg_r, w, flags, denom)
+            return loss
+
+        @staticmethod
+        def backward(ctx, grad):
+            emb, pairs, neg_l, neg_r, w, flags, denom = ctx.saved_tensors
+            (s, k), (n, d) = neg_r.shape, emb.shape
+            order, row_ptr, item_ptr, n_items = index(pairs, neg_l, neg_r, n)
+            grad = grad.to(torch.float32).reshape(1).contiguous()
+            partial = torch.empty((n_items, d), dtype=torch.float32, device=emb.device)
+            out = torch.empty_like(emb)
+            err = lib.margin_l1_backward(
+                emb.data_ptr(), pairs.data_ptr(), neg_l.data_ptr(), neg_r.data_ptr(),
+                None if w is None else w.data_ptr(), flags.data_ptr(), denom.data_ptr(),
+                grad.data_ptr(), order.data_ptr(), row_ptr.data_ptr(), item_ptr.data_ptr(),
+                n_items, n, s, k, d, partial.data_ptr(), out.data_ptr(), stream(emb))
+            if err != 0:
+                raise RuntimeError(f"the parent's margin backward failed with CUDA error {err}")
+            return out, None, None, None, None, None
+
+    def loss(emb, pairs, neg_l, neg_r, gamma=10.0, weights=None, index=None):
+        ids = [t.to(torch.int64).contiguous() for t in (pairs, neg_l, neg_r)]
+        w = None if weights is None else weights.to(torch.float32).contiguous()
+        return ParentMargin.apply(emb.contiguous(), *ids, w, float(gamma))
+
+    out = {"loss": loss, "index": index, "build_s": time.perf_counter() - t0}
+    emit({"phase": "parent_margin_build", "src": src, "build_s": out["build_s"],
+          "ptxas": [ln.strip() for ln in built.log.splitlines()
+                    if "registers" in ln or "spill" in ln]})
+    return out
 
 
 def _smi_sample(fn, seconds: float = 1.0) -> dict:
@@ -3771,7 +3906,8 @@ def phase_dist_v7r(smi: str, dev: torch.device) -> dict:
           "stages_s": stages, "peak_device_mb": peak_mb, "card": smi})
     del res
 
-    batch = mp_worker.surface_batch(cfg, task, device=dev)
+    surface = mp_worker.surface_batch(cfg, task, device=dev)
+    batch = _with_index(surface, task.n_ent)  # the single-device table's rows
     n_boot = int((batch["w"][len(task.train_pairs):] > 0).sum())
     single = step_parts(cfg.replace(n_shards=1), task, dev)
 
@@ -3794,24 +3930,25 @@ def phase_dist_v7r(smi: str, dev: torch.device) -> dict:
     checks = {"single_kernels_vs_plain": gap(s_kernels, s_plain, hold=False)}
     with make_mesh(cfg.n_shards, dev) as mesh:
         parts = dist_parts(cfg, task, mesh)
-        loss, grads, launched = _dist_step(parts, batch)
+        d_batch = _with_index(surface, parts.hg.n_loc * parts.hg.n_shards)  # its table's rows
+        loss, grads, launched = _dist_step(parts, d_batch)
         if launched != {**{k: 0 for k in launched}, **per_step}:
             raise AssertionError(f"the v7r step launched {launched}, expected {per_step}")
         checks["dist"] = {"vs_single_plain": gap((loss, grads), s_plain),
                           "vs_single_kernels": gap((loss, grads), s_kernels, hold=False),
                           "launches": launched, "loss_terms": {k: v.item() for k, v in
                                                                parts.aux.items()},
-                          "step_ms": [time_ms(lambda: parts.grads(batch), 1, 5),
+                          "step_ms": [time_ms(lambda: parts.grads(d_batch), 1, 5),
                                       time_ms(single_step, 1, 5),
-                                      time_ms(lambda: parts.grads(batch), 1, 5)],
-                          "device_split": _device_split(lambda: parts.grads(batch), dev,
+                                      time_ms(lambda: parts.grads(d_batch), 1, 5)],
+                          "device_split": _device_split(lambda: parts.grads(d_batch), dev,
                                                         top=10)}
         # the step before and after the loss kernels, by events and by head
         checks["dist"]["step_ms_by_route"] = _in_turns(lambda: {
-            "distributed": time_ms(lambda: parts.grads(batch), 1, 5),
+            "distributed": time_ms(lambda: parts.grads(d_batch), 1, 5),
             "single_device": time_ms(single_step, 1, 5)})
         checks["dist"]["head_split"] = _in_turns(
-            lambda: _profile_dist_step(parts, batch, cfg, dev))
+            lambda: _profile_dist_step(parts, d_batch, cfg, dev))
         del parts
     del single
     emit({"phase": "dist_v7r_step", "weighted_proposals": n_boot,
@@ -4914,15 +5051,55 @@ def _captured_equals_eager(call) -> bool:
     return same
 
 
+def _reloaded_capture(call, first: list, second: list) -> bool:
+    """``call(*bufs)`` captured as a CUDA graph over the static buffers
+    ``bufs`` (copies of ``first``): a replay equals the eager call on
+    ``first``, and after ``second`` is copied into the buffers (as
+    ``CapturedStep.load`` reloads a batch) a replay equals the eager call
+    on ``second``, bit for bit."""
+    bufs = [t.clone() for t in first]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        want = call(*first)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = call(*bufs)
+    same = True
+    for src, want_src in ((first, want), (second, call(*second))):
+        for buf, t in zip(bufs, src):
+            buf.copy_(t)
+        graph.replay()
+        torch.cuda.synchronize()
+        same &= all(torch.equal(a, b) for a, b in zip(out, want_src))
+    return same
+
+
+def _margin_turns(calls: dict, timer) -> dict:
+    """Each of ``calls`` (the previous kernel first) timed by ``timer`` in turns
+    (parent, this, this, parent): each one's mean."""
+    names = list(calls)
+    readings = {k: [] for k in names}
+    for route in (*names, *names[::-1]):
+        readings[route].append(timer(calls[route]))
+    return {k: float(np.mean(v)) for k, v in readings.items()}
+
+
 def _margin_case(name: str, n: int, s: int, k: int, d: int, gamma: float, weighted: bool,
                  smi: str, dev: torch.device) -> dict:
-    """The margin kernel (forward and backward) against the plain composite
+    """The margin kernel (forward and backward, the backward's index built
+    once beforehand, as the batch carries it) against the plain composite
     at one shape: on the rows as drawn at PERF.md §2's step limit, with the
     hinge flips counted; with the hinges near their threshold moved, at
     MARGIN_TOL; every row of the gradient written (its memory prefilled
     with NaN), two calls bit for bit, a captured replay equal to eager;
-    timed by events warm and with the L2 flushed, beside the plain version
-    and the bound."""
+    timed by events warm and with the L2 flushed, beside the gather-only
+    entry, the plain version and the bound; the sign planes' size; the
+    index its kernel entries build equal to the plain version's.  With
+    ``--parent-margin`` also held bit for bit to the previous kernel (loss and
+    gradient, on both sets of rows) and timed in turns with it: forward,
+    forward + backward warm and flushed, and the index."""
     emb, pairs, neg_l, neg_r, w = _margin_inputs(n, s, k, d, gamma, weighted, dev)
     e = emb.requires_grad_(True)
 
@@ -4932,9 +5109,18 @@ def _margin_case(name: str, n: int, s: int, k: int, d: int, gamma: float, weight
             return loss.detach(), torch.autograd.grad(loss, e)[0]
         return call
 
+    def with_index(nl, nr):
+        index = margin_l1.build_index(pairs, nl, nr, n)
+        if not torch.equal(index, margin_l1.build_index_plain(pairs, nl, nr, n)):
+            raise AssertionError(f"margin {name}: the index kernel's index differs from the "
+                                 f"plain version's")
+        return lambda *a: margin_l1.margin_l1_loss(*a, index=index)
+
+    parent = PARENT_MARGIN
+    vs_parent = {}
     # the rows as drawn: PERF.md §2's step limit, the hinge flips counted
-    got, want = step(margin_l1.margin_l1_loss, neg_l, neg_r)(), step(margin_loss_plain, neg_l,
-                                                                   neg_r)()
+    got, want = step(with_index(neg_l, neg_r), neg_l, neg_r)(), step(margin_loss_plain, neg_l,
+                                                                    neg_r)()
     flags = margin_l1._forward_cuda(emb.detach(), pairs, neg_l, neg_r, gamma, w)[1]
     flips = int((flags != margin_forward_plain(emb.detach(), pairs, neg_l, neg_r, gamma,
                                                w)[1]).sum())
@@ -4944,10 +5130,15 @@ def _margin_case(name: str, n: int, s: int, k: int, d: int, gamma: float, weight
     if raw["loss_rel"] > STEP_TOL[torch.float32]["loss_rel"] or (
             raw["grad_rel_l2"] > STEP_TOL[torch.float32]["grad_rel_l2"]):
         raise AssertionError(f"margin {name} on the rows as drawn: {raw}")
+    if parent is not None:
+        old = step(parent["loss"], neg_l, neg_r)()
+        vs_parent["as_drawn_bitwise"] = torch.equal(got[0], old[0]) and torch.equal(got[1],
+                                                                                   old[1])
     # hinges clear of their threshold: only the sums' order differs
     nl, nr = neg_l.clone(), neg_r.clone()
     moved = _clear_near_threshold(emb.detach(), pairs, nl, nr, gamma)
-    kernel, plain = step(margin_l1.margin_l1_loss, nl, nr), step(margin_loss_plain, nl, nr)
+    fn = with_index(nl, nr)
+    kernel, plain = step(fn, nl, nr), step(margin_loss_plain, nl, nr)
     want = plain()
     runs = []
     for _ in range(2):
@@ -4965,14 +5156,64 @@ def _margin_case(name: str, n: int, s: int, k: int, d: int, gamma: float, weight
     captured = _captured_equals_eager(kernel)
     if not captured:
         raise AssertionError(f"margin {name}: a captured replay differs from eager")
+    # the captured step reloaded with a second batch's negatives and index
+    g2 = torch.Generator(device=dev).manual_seed(12)
+    nl2 = torch.randint(0, n // 2, (s, k), generator=g2, device=dev)
+    nr2 = torch.randint(n // 2, n, (s, k), generator=g2, device=dev)
+
+    def indexed(nl_, nr_, index):
+        loss = margin_l1.margin_l1_loss(e, pairs, nl_, nr_, gamma, w, index=index)
+        return loss.detach(), torch.autograd.grad(loss, e)[0]
+
+    reloaded = _reloaded_capture(
+        indexed, [nl, nr, margin_l1.build_index(pairs, nl, nr, n)],
+        [nl2, nr2, margin_l1.build_index(pairs, nl2, nr2, n)])
+    if not reloaded:
+        raise AssertionError(f"margin {name}: a captured replay after a reload of negatives "
+                             f"and index differs from the second batch's eager call")
+    if parent is not None:
+        old_kernel = step(parent["loss"], nl, nr)
+        old = old_kernel()
+        vs_parent["clear_bitwise"] = torch.equal(loss, old[0]) and torch.equal(grad, old[1])
+        if not (vs_parent["as_drawn_bitwise"] and vs_parent["clear_bitwise"]):
+            raise AssertionError(f"margin {name}: not bit for bit the previous kernel {vs_parent}")
+    # the gather alone, the forward's floor: against its plain version
+    gathered = margin_l1.gather_rows_sum(e.detach(), nl, nr)
+    g_plain = margin_l1.gather_rows_sum_plain(e.detach(), nl, nr)
+    gather_err = float((gathered - g_plain).abs().max() / g_plain.abs().max())
+    if gather_err > 1e-4:
+        raise AssertionError(f"margin {name}: the gather-only entry is {gather_err} off")
     with torch.no_grad():
-        fwd_ms = time_ms(lambda: margin_l1.margin_l1_loss(e, pairs, nl, nr, gamma, w))
+        fwd_ms = time_ms(lambda: fn(e, pairs, nl, nr, gamma, w))
     ms = time_ms(kernel)
     ms_cold = time_cold_ms(kernel)
-    index_ms = time_ms(lambda: margin_l1.contribution_index(pairs, nl, nr, n))
+    index_ms = time_ms(lambda: margin_l1.build_index(pairs, nl, nr, n))
+    index_plain_ms = time_ms(lambda: margin_l1.build_index_plain(pairs, nl, nr, n))
+    gather_ms = time_ms(lambda: margin_l1.gather_rows_sum(e.detach(), nl, nr))
+    gather_ms_cold = time_cold_ms(lambda: margin_l1.gather_rows_sum(e.detach(), nl, nr))
     dev_ms = device_ms(kernel, iters=5)  # the device's work alone: small shapes wait on the host
     plain_ms = time_ms(plain, 1, 5)
     plain_fwd_ms = time_ms(lambda: margin_loss_plain(e.detach(), pairs, nl, nr, gamma, w), 1, 5)
+    if parent is not None:
+        calls = {"parent": old_kernel, "this": kernel}
+
+        def forward_of(f):
+            def call():
+                with torch.no_grad():
+                    return f(e, pairs, nl, nr, gamma, w)
+            return call
+
+        vs_parent.update({
+            "ms": _margin_turns(calls, time_ms),
+            "ms_cold_l2": _margin_turns(calls, time_cold_ms),
+            "forward_ms": _margin_turns({"parent": forward_of(parent["loss"]),
+                                         "this": forward_of(fn)}, time_ms),
+            "index_ms": _margin_turns({"parent": lambda: parent["index"](pairs, nl, nr, n),
+                                       "this": lambda: margin_l1.build_index(pairs, nl, nr, n)},
+                                      time_ms),
+            "device_ms": {"parent": device_ms(old_kernel, iters=5), "this": dev_ms}})
+        vs_parent["backward_ms"] = {r: vs_parent["ms"][r] - vs_parent["forward_ms"][r]
+                                    for r in ("parent", "this")}
     # each input read once (the table, the ids, the weights), the loss and
     # the table's gradient written once; 3 fp32 operations an element of
     # each of the 2·S·k row pairs, forward and backward
@@ -4981,15 +5222,25 @@ def _margin_case(name: str, n: int, s: int, k: int, d: int, gamma: float, weight
     # every gathered row read from device memory in both passes (no L2 hit):
     # an estimate for a table above the 50 MB L2, not a bound
     rows_bytes = 2 * 2 * s * k * d * 4
+    plane_bytes = 8 * max(d // 32, 1)
+    active = int((flags & 1).bool().sum() + (flags & 2).bool().sum())
     out = {"name": name, "n": n, "s": s, "k": k, "d": d, "gamma": gamma, "weighted": weighted,
            "table_mb": n * d * 4 / 2**20, "table_in_l2": n * d * 4 < 50e6,
            "as_drawn": raw, "clear": clean, "tolerance": MARGIN_TOL, "bitwise": bitwise,
-           "captured_equals_eager": captured, "max_abs_err": float((grad - want[1]).abs().max()),
+           "captured_equals_eager": captured, "captured_after_reload_equals_eager": reloaded,
+           "max_abs_err": float((grad - want[1]).abs().max()),
            "ms": ms, "ms_cold_l2": ms_cold, "device_ms": dev_ms, "forward_ms": fwd_ms,
-           "backward_ms": ms - fwd_ms,
-           "index_ms": index_ms, "plain_ms": plain_ms, "plain_forward_ms": plain_fwd_ms,
+           "backward_ms": ms - fwd_ms, "index_ms": index_ms, "index_plain_ms": index_plain_ms,
+           "gather_ms": gather_ms, "gather_ms_cold_l2": gather_ms_cold,
+           "gather_rel_err": gather_err, "plain_ms": plain_ms, "plain_forward_ms": plain_fwd_ms,
            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
-           "rows_from_hbm_ms": rows_bytes / HBM_BYTES_PER_S * 1e3}
+           "rows_from_hbm_ms": rows_bytes / HBM_BYTES_PER_S * 1e3,
+           "active_records": active,
+           "planes_mb": {"active": active * plane_bytes / 2**20,
+                         "allocated": 2 * s * k * plane_bytes / 2**20,
+                         "pair_vectors": 2 * s * d * 4 / 2**20,
+                         "index": margin_l1.index_size(s, k, n) * 4 / 2**20},
+           "vs_parent": vs_parent or None}
     emit({"phase": "step_losses", "kernel": "margin_l1", **out, "card": smi})
     return out
 
@@ -5090,12 +5341,13 @@ def phase_step_losses(smi: str, dev: torch.device, dist_v7r: dict) -> dict:
     dist = dist_v7r["step_by_route"]
     steps["dist_v7r"] = {"step_ms": _route_medians(dist["step_ms_by_route"]),
                          "head_split_s": _route_medians(dist["head_split"])}
-    emit({"phase": "step_losses", "steps": steps, "routes": ["parent", "kernels"],
+    emit({"phase": "step_losses", "steps": steps, "routes": list(steps["dist_v7r"]["step_ms"]),
           "phase_s": time.perf_counter() - t0, "card": smi})
     return {"margin": margin, "reverse": reverse, "steps": steps}
 
 
 def main(argv: list[str] | None = None) -> int:
+    global PARENT_MARGIN
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--parent-l1", default=None,
@@ -5104,10 +5356,15 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--parent-gcn", default=None,
                     help="a directory holding another commit's gcn_fused.cu, to hold the "
                          "fused GCN layer kernel to")
+    ap.add_argument("--parent-margin", default=None,
+                    help="a directory holding the previous margin_l1.cu, to hold the L1 margin "
+                         "kernel to (bit for bit) and time it beside, alone and in the steps")
     args = ap.parse_args(argv)
     smi = phase_device()
     phase_build()
     parent_gcn = _parent_gcn(args.parent_gcn) if args.parent_gcn is not None else None
+    if args.parent_margin is not None:
+        PARENT_MARGIN = _parent_margin(args.parent_margin)
     task = synthetic_align_task(**ZH_EN)
     dev = torch.device("cuda")
     k_gcn = phase_kernel(task, smi, dev, parent_gcn)
@@ -5305,9 +5562,11 @@ def main(argv: list[str] | None = None) -> int:
          "replaces_kind": "XLA ops (two (S, k, d) gathers, |a - b|, the sums) and their "
                           "autodiff, not a Pallas kernel",
          **loss_launches("margin_l1"),
+         "index_builds_by_run": INDEX_BUILDS,
          **{k: losses["margin"]["v6_zh_en"][k]
             for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                       "ms_cold_l2", "device_ms", "forward_ms", "backward_ms", "index_ms",
+                      "index_plain_ms", "gather_ms", "gather_ms_cold_l2", "planes_mb", "vs_parent",
                       "rows_from_hbm_ms")},
          "shape": "v6_zh_en: forward and backward", "s": 7000, "k": 100, "d": 256,
          "at_shapes": {k: v for k, v in losses["margin"].items() if k != "v6_zh_en"}},

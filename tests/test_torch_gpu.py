@@ -17,9 +17,11 @@ both SpMM kernels also at a tensor-parallel rank's width, d = 64; the
 grouped layout's halo SpMM (``halo_grouped``) by both routes; the
 single-device trainers on a sharded config, the fp32 (128, 128) fused
 layer's error against float64, and ``sddmm_pairs``; the training step's
-loss kernels (the L1 margin's forward and fixed-order backward, the OT
-head's reverse update) against their plain versions, bit for bit over two
-calls and through a captured replay.
+loss kernels (the L1 margin's forward and fixed-order backward, its sign
+planes and pair vectors, the OT head's reverse update) against their plain
+versions, bit for bit over two calls and through a captured replay (the
+margin's also after a reload of negatives and index), and a margin step
+that takes its index from the batch.
 
 Marked ``gpu``; each test skips without a CUDA device.  This file imports
 neither JAX nor the JAX package, so on a machine with a card (and no JAX)
@@ -2162,6 +2164,110 @@ def test_margin_l1_refuses_what_it_has_no_instance_for(cuda):
         margin_l1.margin_l1_loss(emb.double(), pairs, neg_l, neg_r)
     with pytest.raises(ValueError, match="no instance"):
         margin_l1.margin_l1_loss(emb[:, :100].contiguous(), pairs, neg_l, neg_r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, s, k, d, weighted", [
+    (300, 64, 5, 128, False), (38_000, 7_000, 100, 256, True)])
+def test_margin_l1_planes_and_backward_match_their_plain_versions(cuda, n, s, k, d, weighted):
+    """The forward's flags, pair vectors and the active records' sign
+    planes equal ``forward_plain``'s bit for bit; the index its kernel
+    entries build equals ``build_index_plain``'s; the backward from them,
+    with the batch's index, within relative L2 1e-6 of ``backward_plain``
+    on the same planes, run on the card (its sums by atomics in another
+    order; the gradient's memory prefilled with NaN), two
+    launches bit for bit; the gather-only entry within rel 1e-5 of its
+    plain version; the last case is recipe v6's zh-en shape."""
+    emb, pairs, neg_l, neg_r, w = _margin_case(np.random.default_rng(d + k + 1), n, s, k, d,
+                                               weighted, cuda)
+    loss, flags, denom, planes, vecs = margin_l1._forward_cuda(emb, pairs, neg_l, neg_r, 3.0, w)
+    p_loss, p_flags, _, p_planes, p_vecs = margin_l1.forward_plain(emb, pairs, neg_l, neg_r,
+                                                                   3.0, w)
+    assert torch.equal(flags, p_flags) and torch.equal(vecs, p_vecs)
+    act = torch.cat([(p_flags & 1).reshape(-1), (p_flags & 2).reshape(-1)]).bool()
+    assert torch.equal(planes[act], p_planes[act])
+    assert float(loss) == pytest.approx(float(p_loss), rel=1e-5)
+    index = margin_l1.build_index(pairs, neg_l, neg_r, n)  # the kernel's index entries
+    assert torch.equal(index, margin_l1.build_index_plain(pairs, neg_l, neg_r, n))
+    grad = torch.tensor(0.75, device=cuda)
+    outs = []
+    for _ in range(2):
+        torch.full((n, d), float("nan"), device=cuda)  # the gradient lands on NaNs
+        before = margin_l1.launches
+        outs.append(margin_l1._backward_cuda(w, flags, denom, planes, vecs, index, grad, n))
+        torch.cuda.synchronize()
+        assert margin_l1.launches == before + 1
+    want = margin_l1.backward_plain(w, flags, denom, planes, vecs, index, grad, n)
+    assert torch.isfinite(outs[0]).all() and torch.equal(outs[0], outs[1])
+    assert _rel_l2(outs[0], want) < 1e-6
+    got = margin_l1.gather_rows_sum(emb, neg_l, neg_r)
+    torch.testing.assert_close(got, margin_l1.gather_rows_sum_plain(emb, neg_l, neg_r),
+                               rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_margin_l1_captured_replay_after_a_reload(cuda):
+    """A captured loss and gradient over static negatives and index buffers
+    equal eager, and after the buffers are reloaded with a second batch's
+    negatives and index (as ``CapturedStep.load`` does) equal that batch's
+    eager call: nothing of the first batch is kept by address."""
+    emb, pairs, neg_l, neg_r, w = _margin_case(np.random.default_rng(8), 600, 150, 12, 256,
+                                               True, cuda)
+    _, _, neg_l2, neg_r2, _ = _margin_case(np.random.default_rng(9), 600, 150, 12, 256, True,
+                                           cuda)
+    e = emb.clone().requires_grad_(True)
+    static = [neg_l.clone(), neg_r.clone(), margin_l1.build_index(pairs, neg_l, neg_r, 600)]
+
+    def call(nl, nr, index):
+        loss = margin_l1.margin_l1_loss(e, pairs, nl, nr, 3.0, w, index=index)
+        return loss.detach(), torch.autograd.grad(loss, e)[0]
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        want = call(*static)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = call(*static)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+    second = (neg_l2, neg_r2, margin_l1.build_index(pairs, neg_l2, neg_r2, 600))
+    want2 = call(*second)
+    assert not torch.equal(want2[1], want[1])
+    for buf, src in zip(static, second):
+        buf.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], want2[0]) and torch.equal(out[1], want2[1])
+
+
+@pytest.mark.gpu
+def test_margin_step_takes_its_index_from_the_batch(cuda):
+    """One training step of config base on ``loop.first_batch`` (which
+    carries the margin's index): the margin launches twice and builds no
+    index; the batch without its index builds one, with the same loss and
+    gradients bit for bit."""
+    cfg = get_config("base", syn_n_ent=600, dim=128, k_neg=10)
+    task = synthetic_align_task(seed=3, n_ent=1200, n_rel=20, n_triples=5000)
+    parts = step_parts(cfg, task, cuda)
+    batch = first_batch(cfg, task, parts, cuda)
+    assert batch["margin_index"].dtype == torch.int32
+
+    def step(b):
+        parts.model.zero_grad(set_to_none=True)
+        loss, _ = parts.loss_fn(b, None)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.detach(), [p.grad.clone() for p in parts.model.parameters()]
+
+    launches, builds = margin_l1.launches, margin_l1.index_builds
+    got = step(batch)
+    assert margin_l1.launches == launches + 2 and margin_l1.index_builds == builds
+    want = step({k: v for k, v in batch.items() if k != "margin_index"})
+    assert margin_l1.index_builds == builds + 1
+    assert torch.equal(got[0], want[0]) and all(map(torch.equal, got[1], want[1]))
 
 
 def _reverse_case(rng, q: int, c: int, rows: bool, dev, offset: int = 0, extra: int = 0,

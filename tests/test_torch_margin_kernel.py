@@ -109,9 +109,10 @@ def test_fixed_order_backward_replays_autograd(weighted):
     e = torch.from_numpy(emb).requires_grad_(True)
     (want,) = torch.autograd.grad(margin_l1.margin_loss_plain(e, *t, GAMMA, tw), e)
     x = torch.from_numpy(emb)
-    loss, flags, denom = margin_l1.forward_plain(x, *t, GAMMA, tw)
+    loss, flags, denom, planes, vecs = margin_l1.forward_plain(x, *t, GAMMA, tw)
     grad = torch.ones(())
-    got = margin_l1.backward_plain(x, *t, tw, flags, denom, grad)
+    index = margin_l1.build_index(*t, emb.shape[0])
+    got = margin_l1.backward_plain(tw, flags, denom, planes, vecs, index, grad, emb.shape[0])
     rel = float((got - want).norm() / want.norm())
     assert rel < 1e-6
     keys, order, row_ptr = margin_l1.contribution_index(*t, emb.shape[0])

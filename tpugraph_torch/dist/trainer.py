@@ -174,7 +174,7 @@ from tpugraph_torch.train.fused import CapturedStep, finite_flag
 from tpugraph_torch.train.loop import (IntervalBatch, TrainResult, _check_resume, _non_finite,
                                        _start_profile, _stop_profile, check_schedule, load_task,
                                        step_generator, step_seed)
-from tpugraph_torch.train.losses import margin_align_loss
+from tpugraph_torch.train.losses import MARGIN_INDEX, margin_align_loss
 from tpugraph_torch.train.metrics import MetricsLogger, epoch_edge_ops
 from tpugraph_torch.train.mtl import attr_triples_of, check_ot_size, draw_interval, interval_keys
 from tpugraph_torch.train.optim import load_optimizer_state, make_optimizer, optimizer_state
@@ -635,7 +635,7 @@ class DistParts:
         if ae is not None:
             aux["ae"] = margin_align_loss(ae, batch.get("pairs_aug", batch["pairs"]),
                                           batch["neg_l"], batch["neg_r"], cfg.gamma,
-                                          batch.get("w"))
+                                          batch.get("w"), index=batch.get(MARGIN_INDEX))
         return weighted_loss(cfg, aux), aux
 
     def slice_loss(self, se: torch.Tensor, ae: torch.Tensor | None,
@@ -651,10 +651,12 @@ class DistParts:
         alone, so that it counts once in the gradient summed over the
         slices.  The value returned is the whole loss (the shares summed
         over the slice group; its gradient the share's), and the terms are
-        whole."""
+        whole.  The batch's margin index belongs to the whole batch: a
+        stripe's margin builds its own."""
         cfg, mesh = self.cfg, self.op.mesh
         first = mesh.slice_rank == 0
-        whole = {**batch, "ot_pairs": batch.get("ot_pairs", batch["pairs"])}
+        whole = {**{k: v for k, v in batch.items() if k != MARGIN_INDEX},
+                 "ot_pairs": batch.get("ot_pairs", batch["pairs"])}
         rows = {k: None if k == "ot_pairs" or v is None else _stripe(v.shape[0], mesh)
                 for k, v in whole.items()}
         part = {k: v if rows[k] is None else v[rows[k]] for k, v in whole.items()}
@@ -902,7 +904,7 @@ def _fit(cfg: TrainConfig, task: AlignTask, mesh: ShardMesh, verbose: bool,
     captured_on_card = steps > 1 and dev.type == "cuda"
     opt, sched = make_optimizer(cfg, model.parameters(), capturable=captured_on_card)
     rows = parts.layout  # the ids of every batch, mining and eval are table rows
-    make = IntervalBatch(cfg, task, dev, kg2_row=rows.r0)
+    make = IntervalBatch(cfg, task, dev, kg2_row=rows.r0, table_rows=n_pad)
     pairs = make.pairs
     n1, n, r0, r1 = rows.n1, rows.n, rows.r0, rows.r1
     extra_keys = interval_keys(cfg, len(pairs))

@@ -6,7 +6,9 @@ out[i] = Σ_{e: dst[e]=i} w[e] · x[src[e]] over a ``PaddedEdges`` list.
 
 * ``segment_spmm`` — the plain version: an fp32 gather·w, ``index_add_``
   into ``n_rows + 1`` rows (the last is the padding's dump row), sliced,
-  cast to x's type.
+  cast to x's type.  On the card ``index_add_`` adds by atomics in no
+  fixed order, so there it sums in float64, where the order moves a sum
+  far below one fp32 rounding: its result is the same from run to run.
 * ``sorted_spmm`` — the same function by the hand-written Hopper kernel
   ``csrc/spmm_sorted.cu`` on a CUDA tensor (fp32 or bf16, d ∈ {128, 256}),
   the plain version on a CPU tensor.  It never falls back from the card.
@@ -69,11 +71,13 @@ def check_n_cols(edges: PaddedEdges, x: torch.Tensor) -> None:
 
 def segment_spmm(edges: PaddedEdges, x: torch.Tensor) -> torch.Tensor:
     """The plain version: rows [0, n_rows) of the dump-row-padded segment
-    sum, accumulated in fp32 and cast to x's type."""
+    sum of fp32 messages, accumulated in fp32 on the host (in edge order)
+    and in float64 on the card (atomics), and cast to x's type."""
     check_n_cols(edges, x)
     msg = x.index_select(0, edges.src).float() * edges.w[:, None]
-    out = torch.zeros((edges.n_rows + 1, x.shape[1]), dtype=torch.float32, device=x.device)
-    out.index_add_(0, edges.dst, msg)
+    acc = torch.float64 if x.is_cuda else torch.float32
+    out = torch.zeros((edges.n_rows + 1, x.shape[1]), dtype=acc, device=x.device)
+    out.index_add_(0, edges.dst, msg.to(acc))
     return out[:edges.n_rows].to(x.dtype)
 
 

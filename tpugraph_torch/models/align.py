@@ -18,7 +18,7 @@ from tpugraph_torch.models.encoder import AlignGCN, init_params
 from tpugraph_torch.models.heads import AttributeHead, RelationHead, init_head_params
 from tpugraph_torch.sparse.ell import EllOperator
 from tpugraph_torch.sparse.graph import SpMMOperator
-from tpugraph_torch.train.losses import margin_align_loss
+from tpugraph_torch.train.losses import MARGIN_INDEX, margin_align_loss
 from tpugraph_torch.train.ot import sinkhorn_align_loss
 
 Operator = EllOperator | SpMMOperator
@@ -63,7 +63,8 @@ class AlignMTL(nn.Module):
         seed pairs and the proposals for the margin losses only; optional
         ot_pairs, the interval's subsample of the seed pairs for the OT head;
         per enabled head rel_triples (T, 3), rel_neg_t, rel_neg_h (T, k) and
-        attr_triples (B, 2).  ``train`` (with ``generator``) turns the
+        attr_triples (B, 2); optional ``MARGIN_INDEX``, the margins' backward
+        index over the table's rows.  ``train`` (with ``generator``) turns the
         encoder's dropout on.  Returns (loss, {"margin", ["sinkhorn"],
         ["rel"], ["attr"], ["ae"], "total"})."""
         c = self.cfg
@@ -72,7 +73,8 @@ class AlignMTL(nn.Module):
         if self.ae_encoder is not None and attr_op is not None:
             ae = self.ae_encoder(op, attr_op)
             l_ae = margin_align_loss(ae, batch.get("pairs_aug", batch["pairs"]), batch["neg_l"],
-                                     batch["neg_r"], c.gamma, batch.get("w"))
+                                     batch["neg_r"], c.gamma, batch.get("w"),
+                                     index=batch.get(MARGIN_INDEX))
             aux["ae"] = l_ae
             loss = loss + c.attr_channel_weight * l_ae
         aux["total"] = loss
@@ -88,7 +90,8 @@ def table_losses(cfg: TrainConfig, emb: torch.Tensor, batch: dict,
     and the heads given, weighted; returns (loss, {"margin", ["sinkhorn"],
     ["rel"], ["attr"]})."""
     aux = {"margin": margin_align_loss(emb, batch.get("pairs_aug", batch["pairs"]),
-                                       batch["neg_l"], batch["neg_r"], cfg.gamma, batch.get("w"))}
+                                       batch["neg_l"], batch["neg_r"], cfg.gamma, batch.get("w"),
+                                       index=batch.get(MARGIN_INDEX))}
     if cfg.use_sinkhorn:
         aux["sinkhorn"] = (ot_loss or sinkhorn_align_loss)(
             emb, batch.get("ot_pairs", batch["pairs"]), tau=cfg.sinkhorn_tau,

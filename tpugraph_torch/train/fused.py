@@ -11,7 +11,9 @@ host work) and copies each boundary's batch into this step's static
 buffers (``load``).  ``CapturedStep`` holds:
 
 * the static batch: every tensor the step reads (pairs, weights,
-  negatives, ``fit_mtl``'s draws), copied in at each boundary;
+  negatives with the margin's backward index, ``fit_mtl``'s draws), copied
+  in at each boundary: the index is read from the buffer, never kept by
+  its address, so a replay after a reload reads the new batch's;
 * one captured ``train_step``, the step the unfused loop runs eagerly:
   ``zero_grad``, forward, loss, backward and the step of a capturable
   Adam (``train/optim.py``), whose learning rate is a

@@ -65,6 +65,7 @@ from tpugraph_torch import resolve_device
 from tpugraph_torch.configs.configs import TrainConfig
 from tpugraph_torch.convert import embed_params
 from tpugraph_torch.data import load_dbp15k, load_openea, synthetic_align_task
+from tpugraph_torch.kernels.margin_l1 import build_index
 from tpugraph_torch.kernels.shortlist_dist import METRICS
 from tpugraph_torch.models.encoder import AlignGCN, init_params
 from tpugraph_torch.nn.graphconv import operator_format
@@ -75,7 +76,7 @@ from tpugraph_torch.train.bootstrap import propose_mutual_nn_pairs
 from tpugraph_torch.train.checkpoint import Checkpointer
 from tpugraph_torch.train.eval import hits_at_k
 from tpugraph_torch.train.fused import CapturedStep, finite_flag, train_step
-from tpugraph_torch.train.losses import margin_align_loss
+from tpugraph_torch.train.losses import MARGIN_INDEX, margin_align_loss
 from tpugraph_torch.train.metrics import MetricsLogger, epoch_edge_ops
 from tpugraph_torch.train.negatives import sample_hard_negatives, sample_uniform_negatives
 from tpugraph_torch.train.optim import load_optimizer_state, make_optimizer, optimizer_state
@@ -133,11 +134,19 @@ class IntervalBatch:
     the distributed trainer's grouped layout (``dist/trainer.py::
     RowLayout``), whose KG1 rows [n1, r0) are padding: the pairs, the
     proposals and the negatives are then rows of that table, KG2 entity
-    n1 + j at row r0 + j."""
+    n1 + j at row r0 + j.
+
+    ``table_rows``: the rows of the table the margin reads (the trainer's:
+    n on one device, the distributed trainer's padded rows).  Given, each
+    batch with negatives carries the margin's backward index over that
+    many rows under ``MARGIN_INDEX`` (``kernels/margin_l1.py::
+    build_index``), built once here, where its pairs and negatives are
+    set, and never inside a step."""
 
     def __init__(self, cfg: TrainConfig, task: AlignTask, dev: torch.device,
-                 kg2_row: int | None = None):
+                 kg2_row: int | None = None, table_rows: int | None = None):
         self.cfg, self.n1, self.n = cfg, task.kg1.n_ent, task.n_ent
+        self.table_rows = table_rows
         self.r0 = self.n1 if kg2_row is None else kg2_row
         self.r1 = self.r0 + self.n - self.n1
         pairs = np.asarray(task.train_pairs)
@@ -158,12 +167,21 @@ class IntervalBatch:
 
     def __call__(self, boot, neg_l=None, neg_r=None) -> dict[str, torch.Tensor]:
         """The batch of the proposals ``boot`` (pairs, weights), and the
-        negatives if given."""
+        negatives (with their index) if given."""
         batch = {"pairs": self.pairs, "neg_l": neg_l, "neg_r": neg_r}
         if self.use_boot:
             batch["pairs_aug"] = torch.cat([self.pairs, boot[0]])
             batch["w"] = torch.cat([self.ones_seed, boot[1] * self.cfg.boot_weight])
+        if neg_l is not None:
+            self.index(batch)
         return batch
+
+    def index(self, batch: dict) -> None:
+        """With ``table_rows``, the margin's backward index of the batch's
+        margin pairs and negatives, under ``MARGIN_INDEX``."""
+        if self.table_rows is not None:
+            batch[MARGIN_INDEX] = build_index(batch.get("pairs_aug", self.pairs),
+                                              batch["neg_l"], batch["neg_r"], self.table_rows)
 
     def uniform(self, batch: dict, epoch0: int) -> None:
         """The interval's uniform negatives over the batch's margin pairs,
@@ -173,6 +191,7 @@ class IntervalBatch:
             interval_generator(self.cfg, epoch0), batch.get("pairs_aug", self.pairs), self.n1,
             self.n, self.cfg.k_neg)
         batch["neg_l"], batch["neg_r"] = neg_l, neg_r + (self.r0 - self.n1)
+        self.index(batch)
 
     def at_boundary(self, epoch: int, embed_fn: Callable[[], torch.Tensor],
                     mine_fn: Callable[[torch.Tensor, torch.Tensor], tuple],
@@ -182,8 +201,9 @@ class IntervalBatch:
         proposes or mines; from ``boot_start`` the mutual-NN proposals on
         it; the negatives over the seed pairs and proposals,
         ``mine_fn(table, pairs)`` in hard mode after epoch 0, else
-        uniform; then ``draw_extra(epoch0)``.  ``timed(key, count, fn)``
-        runs each stage under its ``TrainResult.timings`` names."""
+        uniform, with their index (``index``); then ``draw_extra(epoch0)``.
+        ``timed(key, count, fn)`` runs each stage under its
+        ``TrainResult.timings`` names."""
         cfg = self.cfg
         epoch0 = epoch - epoch % cfg.neg_every
         propose = self.use_boot and epoch >= cfg.boot_start and epoch > 0
@@ -199,6 +219,7 @@ class IntervalBatch:
             pairs_t = batch.get("pairs_aug", self.pairs)
             batch["neg_l"], batch["neg_r"] = timed("mine_s", "minings",
                                                    lambda: mine_fn(emb, pairs_t))
+            self.index(batch)
         else:
             self.uniform(batch, epoch0)
         if draw_extra is not None:
@@ -209,9 +230,9 @@ class IntervalBatch:
 def first_batch(cfg: TrainConfig, task: AlignTask, parts: StepParts, dev: torch.device,
                 boot: tuple[torch.Tensor, torch.Tensor] | None = None) -> dict:
     """Epoch 0's batch as ``train_loop`` builds it: the seed pairs, the
-    placeholder proposals (or ``boot``), uniform negatives and the
-    trainer's draws."""
-    make = IntervalBatch(cfg, task, dev)
+    placeholder proposals (or ``boot``), uniform negatives with the
+    margin's index and the trainer's draws."""
+    make = IntervalBatch(cfg, task, dev, table_rows=task.n_ent)
     batch = make(boot if boot is not None else make.placeholder)
     make.uniform(batch, 0)
     if parts.draw_extra is not None:
@@ -373,7 +394,7 @@ def train_loop(cfg: TrainConfig, task: AlignTask, parts: StepParts, dev: torch.d
     steps = max(1, cfg.steps_per_call)
     captured_on_card = steps > 1 and dev.type == "cuda"
     opt, sched = make_optimizer(cfg, model.parameters(), capturable=captured_on_card)
-    interval_batch = IntervalBatch(cfg, task, dev)
+    interval_batch = IntervalBatch(cfg, task, dev, table_rows=task.n_ent)
     pairs = interval_batch.pairs
     n1, n = task.kg1.n_ent, task.n_ent
     logger = MetricsLogger(cfg.metrics_path, config=cfg.to_dict(), tb_dir=cfg.tb_dir)
@@ -581,7 +602,8 @@ def margin_parts(cfg: TrainConfig, task: AlignTask, dev: torch.device) -> StepPa
     def loss_fn(batch, generator):
         loss = margin_align_loss(model(op, train=True, generator=generator),
                                  batch.get("pairs_aug", batch["pairs"]),
-                                 batch["neg_l"], batch["neg_r"], cfg.gamma, batch.get("w"))
+                                 batch["neg_l"], batch["neg_r"], cfg.gamma, batch.get("w"),
+                                 index=batch.get(MARGIN_INDEX))
         return loss, {"margin": loss}
 
     return StepParts(model, op, loss_fn, lambda: embed(model, op))
