@@ -304,6 +304,27 @@ Phases, each printing one JSON line:
              beside phases 19's and 21 A's unfused runs; ``profile_dir``
              on a 6-epoch run (the trace of epochs 2-5 holds ``spmm_ell``).
 
+25. widths — every width the JAX package takes, up to 512: the ELL SpMM on
+             the zh-en transpose and the sorted SpMM on the zh-en adjacency
+             (their 128-column panels), the L1 margin at recipe v6's shape
+             (its masked instances at 50 and 300, float4 ones at 384 and
+             512) and the Sinkhorn update at 4,500² (the strip streamed
+             above 256, zero columns at 50), at d 50, 300, 384 and 512 in
+             fp32 and the SpMMs at 300 and 384 in bf16: against their
+             plain versions on NaN-prefilled memory, two launches bit for
+             bit, timed beside the plain version, cuSPARSE or ``addmm`` +
+             ``logsumexp`` and the bound; then ``driver.run`` at zh-en
+             scale with recipe v6 at dim 384 and 512 and at 384 in bf16,
+             config ``base`` at dim 64, at dim 50 with hidden 300 and at
+             384 with ``spmm_impl="sorted"`` (``WIDTH_RUNS``): launches
+             held to a model that knows each layer's route (``gcn_fused``
+             at a fused width, else x·W and ``spmm_ell``), the loss
+             falling in every resample interval, one step held to the
+             plain path (the bf16 limits for bf16), the run wall and the
+             step median; and one ``dwy100k_dist`` step at dim 384 (one
+             rank holding the 8 shards) held to the single-device step's
+             plain path.
+
 A step is held against its plain path by running the same model code with
 every kernel swapped for its plain version (``_plain_kernels``), which
 autograd differentiates.
@@ -1159,21 +1180,37 @@ def _shortlist_launches(cfg, task, t: dict) -> int:
             + per_eval * (t["evals"] - 1))  # the final eval is exact
 
 
+def _layer_routes(cfg) -> tuple[int, int]:
+    """(fused, unfused) GCN layers of one forward: the encoder's (dim,
+    hidden) and (hidden, dim), and the attribute channel's two (dim, dim).
+    A layer at a width with a fused instance (``gcn_fused.fused_width``) is
+    one ``gcn_fused`` launch; any other runs x·W and one ``spmm_ell``."""
+    hidden = cfg.hidden or cfg.dim
+    widths = [(cfg.dim, hidden), (hidden, cfg.dim)]
+    widths += [(cfg.dim, cfg.dim)] * (2 if cfg.use_attr_channel else 0)
+    fused = sum(gcn_fused.fused_width(*w) for w in widths)
+    return fused, len(widths) - fused
+
+
 def _expected_launches(cfg, t: dict, task) -> dict:
-    """A training run's launches from its timings' counts: two fused layers
-    per encoder forward (each step, each interval boundary's forward, each
-    eval), two SpMMs per step (the layers' backward), 2·iters + 1 potential
-    updates per step with the OT head.  The attribute channel adds two
-    fused layers per forward, four SpMMs per step (its layers' backward,
-    the incidence forward and backward) and one per boundary forward and
-    eval (the incidence forward).  The shortlist kernel runs only on the
-    approximate search paths (``_shortlist_launches``), the L1 search on the
-    exact cityblock ones (``_l1_launches``)."""
+    """A training run's launches from its timings' counts: per encoder
+    forward (each step, each interval boundary's forward, each eval) one
+    launch per GCN layer, ``gcn_fused`` for a layer at a fused width and
+    ``spmm_ell`` for any other (``_layer_routes``); one SpMM per layer and
+    step (the layers' backward); 2·iters + 1 potential updates per step
+    with the OT head.  The attribute channel's two layers count as the
+    encoder's; it adds two SpMMs per step (the incidence forward and
+    backward) and one per boundary forward and eval (the incidence
+    forward).  The shortlist kernel runs only on the approximate search
+    paths (``_shortlist_launches``), the L1 search on the exact cityblock
+    ones (``_l1_launches``)."""
     ae = cfg.use_attr_channel
     forwards = t["steps"] + t["forwards"] + t["evals"]
+    fused, unfused = _layer_routes(cfg)
     return _sorted_launches(cfg, {
-        "gcn_fused": (4 if ae else 2) * forwards,
-        "spmm_ell": (6 if ae else 2) * t["steps"] + (t["forwards"] + t["evals"] if ae else 0),
+        "gcn_fused": fused * forwards,
+        "spmm_ell": (fused + unfused + (2 if ae else 0)) * t["steps"] + unfused * forwards
+        + (t["forwards"] + t["evals"] if ae else 0),
         "sinkhorn_fused": (2 * cfg.sinkhorn_iters + 1) * t["steps"] if cfg.use_sinkhorn else 0,
         "shortlist_dist": _shortlist_launches(cfg, task, t), "shortlist_gather": 0,
         **_l1_launches(cfg, t), **_loss_launches(cfg, t["steps"])})
@@ -1182,8 +1219,9 @@ def _expected_launches(cfg, t: dict, task) -> dict:
 def _mtl_step_launches(cfg) -> dict:
     """One AlignMTL training step's launches (``_expected_launches``'s per step)."""
     ae = cfg.use_attr_channel
+    fused, unfused = _layer_routes(cfg)
     return _sorted_launches(cfg, {
-        "gcn_fused": 4 if ae else 2, "spmm_ell": 6 if ae else 2,
+        "gcn_fused": fused, "spmm_ell": fused + 2 * unfused + (2 if ae else 0),
         "sinkhorn_fused": 2 * cfg.sinkhorn_iters + 1 if cfg.use_sinkhorn else 0,
         "shortlist_dist": 0, "shortlist_gather": 0, **L1_NONE, **_loss_launches(cfg, 1)})
 
@@ -1253,7 +1291,7 @@ def _plain_kernels():
              attr_channel_mod.spmm, align_mod.sinkhorn_align_loss, losses_mod.margin_l1_loss,
              [m.select_rerank for m in SHORTLIST_CALLERS],
              [[getattr(m, n) for n in names] for m, names in L1_CALLERS])
-    graphconv_mod.gcn_layer = lambda op, x, w, b=None: reference_layer(op.fwd, op.diag, x, w, b)
+    graphconv_mod.gcn_layer = gcn_fused.gcn_layer_plain
     graphconv_mod.spmm = attr_channel_mod.spmm = spmm_xla
     attr_channel_mod.spmm_ell = lambda op, x: apply_with_diag(op.fwd, op.diag, x)
     align_mod.sinkhorn_align_loss = sinkhorn_align_loss_plain
@@ -2757,7 +2795,9 @@ def _per_step_launches(cfg) -> dict:
     AlignMTL: ``_mtl_step_launches``)."""
     if uses_mtl(cfg):
         return _mtl_step_launches(cfg)
-    return _sorted_launches(cfg, {"gcn_fused": 2, "spmm_ell": 2, "sinkhorn_fused": 0,
+    fused, unfused = _layer_routes(cfg)
+    return _sorted_launches(cfg, {"gcn_fused": fused, "spmm_ell": fused + 2 * unfused,
+                                  "sinkhorn_fused": 0,
                                   "shortlist_dist": 0, "shortlist_gather": 0, **L1_NONE,
                                   **_loss_launches(cfg, 1)})
 
@@ -3588,11 +3628,12 @@ def _dist_batch(task, cfg, dev) -> dict:
     return {"pairs": pairs, "neg_l": neg_l, "neg_r": neg_r}
 
 
-def _nan_cache(rows: int, d: int, dev: torch.device) -> None:
-    """Free a NaN-filled block of an output's size to the allocator's cache:
-    the next output of that size lands on it, so a row the kernel leaves
-    unwritten shows as NaN."""
-    torch.full((rows, d), float("nan"), device=dev)
+def _nan_cache(rows: int, d: int, dev: torch.device,
+               dtype: torch.dtype = torch.float32) -> None:
+    """Free a NaN-filled block of an output's size and type to the
+    allocator's cache: the next output of that size lands on it, so a row
+    the kernel leaves unwritten shows as NaN."""
+    torch.full((rows, d), float("nan"), dtype=dtype, device=dev)
 
 
 def _dist_ell_case(m, diag, x: torch.Tensor, cold: bool = False) -> dict:
@@ -3602,7 +3643,7 @@ def _dist_ell_case(m, diag, x: torch.Tensor, cold: bool = False) -> dict:
     launches, timed (with ``cold`` also after an L2 flush) beside the plain
     version, ``torch.sparse.mm`` and the bound (bytes)."""
     d = x.shape[1]
-    _nan_cache(m.n_rows, d, x.device)
+    _nan_cache(m.n_rows, d, x.device, x.dtype)
     got = ell_spmm(m, diag, x)
     sync(x.device)
     want = apply_with_diag(m, diag, x)
@@ -5222,7 +5263,7 @@ def _margin_case(name: str, n: int, s: int, k: int, d: int, gamma: float, weight
     # every gathered row read from device memory in both passes (no L2 hit):
     # an estimate for a table above the 50 MB L2, not a bound
     rows_bytes = 2 * 2 * s * k * d * 4
-    plane_bytes = 8 * max(d // 32, 1)
+    plane_bytes = 32 * margin_l1.plane_bytes(d)  # a record's, all 32 lanes
     active = int((flags & 1).bool().sum() + (flags & 2).bool().sum())
     out = {"name": name, "n": n, "s": s, "k": k, "d": d, "gamma": gamma, "weighted": weighted,
            "table_mb": n * d * 4 / 2**20, "table_in_l2": n * d * 4 < 50e6,
@@ -5346,6 +5387,205 @@ def phase_step_losses(smi: str, dev: torch.device, dist_v7r: dict) -> dict:
     return {"margin": margin, "reverse": reverse, "steps": steps}
 
 
+# Every width the JAX package takes, up to 512: the changed kernels at
+# widths with no instance (50 and 300 with a masked tail, the sweeps' 384 and
+# 512; bf16 at 300 and 384) on the zh-en task, and the repo's own runs at
+# those widths (scripts/ot_sweep.py:72-73, the JAX CLI's docstring,
+# scripts/v7_sweep.py:70), cut as phase 6 cuts v6: (name, config, recipe,
+# overrides).  50 % 4 = 2 and 300 % 8 = 4 are chosen to hit the tails.
+WIDTH_DS = (50, 300, 384, 512)
+WIDTH_BF16_DS = (300, 384)
+WIDTH_RUNS = (("v6_dim384", "base", "v6", dict(dim=384)),
+              ("v6_dim512", "base", "v6", dict(dim=512)),
+              ("base_dim64", "base", None, dict(dim=64)),
+              ("base_dim50_hidden300", "base", None, dict(dim=50, hidden=300)),
+              ("v6_dim384_bf16", "base", "v6", dict(dim=384, param_dtype="bfloat16")),
+              ("base_dim384_sorted", "base", None, dict(dim=384, spmm_impl="sorted")))
+# config base's runs: 8 intervals of its 5 epochs, so the loss ends below its
+# first value after each mining's jump even at the narrow widths
+WIDTH_BASE_CUTS = {"epochs": 40, "eval_every": 0}
+WIDTH_MARGIN = ("v6_zh_en", 38_000, 7_000, 100, 15.0, True)  # MARGIN_SHAPES' v6 row, any d
+WIDTH_DIST_DIM = 384
+
+
+def _falls_per_interval(losses: list, every: int) -> bool:
+    """Each resample interval's last loss below its first (an interval of
+    one step has nothing to compare)."""
+    ends = [(i, min(i + every, len(losses)) - 1) for i in range(0, len(losses), every)]
+    return all(losses[b] < losses[a] for a, b in ends if b > a)
+
+
+def _width_run(task, name: str, config: str, recipe: str | None, over: dict, dev) -> dict:
+    """One run of WIDTH_RUNS through ``driver.run`` (``_run_checked``: its
+    launches held to ``_expected_launches``, which knows each layer's route
+    by width), the losses falling in every resample interval, and one step
+    on a uniform batch held to the plain path at ``STEP_TOL`` of the run's
+    type."""
+    cuts = RECIPE_CUTS if recipe else WIDTH_BASE_CUTS
+    cfg, reduced = _cut_config(task, config, cuts, recipe, **over)
+    boundaries = (cfg.epochs - 1) // cfg.neg_every
+    timing = dict(steps=cfg.epochs, forwards=boundaries, minings=boundaries)
+    if recipe:
+        timing["proposals"] = boundaries
+    res, counts, run_s = _run_checked(cfg, task, dev, **timing)
+    if not _falls_per_interval(res.losses, cfg.neg_every):
+        raise AssertionError(f"{name}: the loss does not fall in every interval: {res.losses}")
+    model, op, batch = res.model, res.op, _step_batch(res, cfg, dev)
+    dtype = getattr(torch, cfg.param_dtype)
+    if uses_mtl(cfg):
+        step = _check_step(model, lambda: model(op, batch, train=True)[0],
+                           _mtl_step_launches(cfg), dtype=dtype)
+    else:
+        step = _check_step(model, lambda: margin_align_loss(
+            model(op, train=True), batch["pairs"], batch["neg_l"], batch["neg_r"], cfg.gamma),
+            _per_step_launches(cfg), ("gc2.b",), dtype=dtype)
+    out = {"dim": cfg.dim, "hidden": cfg.hidden or cfg.dim, "spmm_impl": cfg.spmm_impl,
+           "param_dtype": cfg.param_dtype,
+           "layer_routes": dict(zip(("fused", "x_w_then_spmm"), _layer_routes(cfg))),
+           "reduced": reduced, "losses": res.losses, "launches": counts, "run_s": run_s,
+           "step_median_s": float(np.median(res.timings["step_s"])),
+           "stages_s": _stages(res.timings),
+           "metrics": {k: res.metrics[k] for k in ("hits@1", "hits@10", "mrr")},
+           "step_check": step}
+    del res, model, op, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _width_dist_step(task, dev: torch.device) -> dict:
+    """One ``dwy100k_dist`` step at dim 384 (R = 1, one rank holding the 8
+    shards; 4 ``spmm_ell`` launches a way) held to the single-device step's
+    plain path at STEP_TOL[fp32]; the single-device step through its
+    kernels (each layer x·W then ``spmm_ell``) held to it too."""
+    cfg = get_config("dwy100k_dist", **DIST_CUTS, dim=WIDTH_DIST_DIM)
+    batch = _dist_batch(task, cfg, dev)
+    single = step_parts(cfg.replace(n_shards=1), task, dev)
+
+    def single_step():
+        single.model.zero_grad(set_to_none=True)
+        _reset_launch_counts()
+        loss = single.loss_fn(batch, None)[0]
+        loss.backward()
+        sync(dev)
+        return loss.detach(), {k: p.grad.clone() for k, p in single.model.named_parameters()}
+
+    s_kernels = single_step()
+    single_launches = _launch_counts()
+    if single_launches != {**{k: 0 for k in single_launches}, "spmm_ell": 4,
+                           **_loss_launches(cfg, 1)}:
+        raise AssertionError(f"the single-device step at dim {cfg.dim} launched "
+                             f"{single_launches}")
+    with _plain_kernels():
+        s_plain = single_step()
+
+    def gap(step, ref):  # the table's gradient on its n real rows
+        (loss, grads), (ref_loss, ref_grads) = step, ref
+        return _step_gap(loss, {**grads, "emb": grads["emb"][:task.n_ent]}, ref_loss, ref_grads,
+                         ("gc2.b",), tol=STEP_TOL[torch.float32])
+
+    out = {"dim": cfg.dim, "single_kernels_vs_plain": gap(s_kernels, s_plain),
+           "single_launches": _nonzero(single_launches)}
+    del single
+    with make_mesh(cfg.n_shards, dev) as mesh:
+        parts = dist_parts(cfg, task, mesh)
+        loss, grads, launched = _dist_step(parts, batch)
+        per_step = 4 * HALO_LAYER_LAUNCHES
+        if launched != {**{k: 0 for k in launched}, "spmm_ell": per_step,
+                        **_loss_launches(cfg, 1)}:
+            raise AssertionError(f"the distributed step launched {launched}")
+        out.update(vs_single_plain=gap((loss, grads), s_plain), launches=_nonzero(launched),
+                   step_ms=time_ms(lambda: parts.grads(batch), 1, 5))
+        del parts
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_widths(task, dist_task, smi: str, dev: torch.device) -> dict:
+    """The port at widths the fused GCN layer has no instance for, on the
+    card.  The ELL SpMM on the zh-en transpose and the sorted SpMM on the
+    zh-en adjacency (their panel path), the L1 margin at recipe v6's shape
+    (its masked instances; 384 and 512 have float4 ones) and the Sinkhorn
+    update at 4,500² (above 256 the strip streams), each at WIDTH_DS in
+    fp32 and the SpMMs at WIDTH_BF16_DS in bf16: against the plain version
+    at PERF.md §2's limits, on NaN-prefilled output memory, two launches bit
+    for bit, timed by events (and the profiler's device time) beside the
+    plain version, the library call (cuSPARSE by ``torch.sparse.mm``;
+    ``addmm`` + ``logsumexp`` for the update) and the bound.  Then the six
+    WIDTH_RUNS through ``driver.run`` (``_width_run``) and one
+    ``dwy100k_dist`` step at dim 384 (``_width_dist_step``)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(25)
+    op = build_adjacency(task.n_ent, task.merged_triples, n_rel=task.n_rel).to(dev)
+    sop = build_adjacency(task.n_ent, task.merged_triples, n_rel=task.n_rel,
+                          fmt="sorted").to(dev)
+    csr = _csr_of_edges(sop.fwd)
+    cases = ([(d, torch.float32) for d in WIDTH_DS]
+             + [(d, torch.bfloat16) for d in WIDTH_BF16_DS])
+    kernels = {"spmm_ell": {}, "spmm_sorted": {}, "margin_l1": {}, "sinkhorn_fused": {}}
+    for d, dtype in cases:
+        key = f"d{d}" + ("_bf16" if dtype == torch.bfloat16 else "")
+        g = torch.from_numpy(rng.standard_normal((op.bwd.n_cols, d)).astype(np.float32))
+        g = g.to(dev, dtype)
+        kernels["spmm_ell"][key] = {"operator": "transpose",
+                                    **_dist_ell_case(op.bwd, op.diag, g, cold=True)}
+        x = torch.from_numpy(rng.standard_normal((sop.fwd.n_cols, d)).astype(np.float32))
+        x = x.to(dev, dtype)
+        _nan_cache(sop.fwd.n_rows, d, dev, dtype)
+        kernels["spmm_sorted"][key] = {"operator": "forward",
+                                       **_sorted_case(sop.fwd, csr, x, timed=True)}
+        for name in ("spmm_ell", "spmm_sorted"):
+            emit({"phase": "widths", "kernel": name, "d": d, "dtype": str(dtype)[6:],
+                  **kernels[name][key], "card": smi})
+    name, n, s, k, gamma, weighted = WIDTH_MARGIN
+    for d in WIDTH_DS:
+        kernels["margin_l1"][f"d{d}"] = _margin_case(f"{name}_d{d}", n, s, k, d, gamma,
+                                                     weighted, smi, dev)
+        torch.cuda.empty_cache()
+        kernels["sinkhorn_fused"][f"d{d}"] = phase_sinkhorn(smi, dev, d=d)
+    kernel_s = time.perf_counter() - t0
+    del op, sop, csr
+    torch.cuda.empty_cache()
+    runs = {}
+    for name, config, recipe, over in WIDTH_RUNS:
+        runs[name] = _width_run(task, name, config, recipe, over, dev)
+        emit({"phase": "widths", "run": name, **runs[name], "card": smi})
+    dist_step = _width_dist_step(dist_task, dev)
+    emit({"phase": "widths", "dist_step": dist_step, "kernel_s": kernel_s,
+          "phase_s": time.perf_counter() - t0, "card": smi})
+    return {"kernels": kernels, "runs": runs, "dist_step": dist_step}
+
+
+# the widths each kernel takes on the card, for the kernel table
+WIDTHS_TAKEN = {
+    "gcn_fused": f"(d_in, d_out) in {gcn_fused.WIDTHS}; a layer at any other width up to 512 "
+                 "runs x·W, then spmm_ell",
+    "spmm_ell": "1-512: instances at 64, 128, 256; 128-column panels at every other d",
+    "spmm_sorted": "1-512: instances at 64, 128, 256; 128-column panels at every other d",
+    "sinkhorn_fused": "1-512: the strip resident up to 256, streamed above; zero columns to a "
+                      "multiple of 4",
+    "shortlist_dist": "1-512: zero columns to a multiple of 4 (8 with bf16 products)",
+    "l1_search": "1-512: zero columns to a multiple of 4",
+    "margin_l1": "1-512: instances at 16, 32, 64, 128, 256, 384, 512; masked instances at "
+                 "32, 64, 128, 192, ..., 512 elsewhere",
+    "sinkhorn_reverse": "any (it works on the S x S cost)"}
+WIDTH_KEYS = ("max_abs_err", "ms", "device_ms", "ms_cold_l2", "plain_ms", "bound_ms",
+              "bound_by", "library_ms")
+
+
+def _kernel_widths(name: str, widths: dict) -> dict:
+    """A kernel's ``widths`` in the kernel table: what it takes, its
+    numbers at phase_widths' widths (for the kernels that run there), and
+    its launches in each of phase_widths' runs."""
+    keys = ("l1_topk", "l1_count", "l1_tile") if name == "l1_search" else (name,)
+    out = {"takes": WIDTHS_TAKEN[name],
+           "launches_runs": {run: sum(r["launches"].get(k, 0) for k in keys)
+                             for run, r in widths["runs"].items()}}
+    at = widths["kernels"].get(name)
+    if at:
+        out["at"] = {w: {k: v.get(k) for k in WIDTH_KEYS} for w, v in at.items()}
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     global PARENT_MARGIN
     import argparse
@@ -5402,6 +5642,7 @@ def main(argv: list[str] | None = None) -> int:
     dist_mesh = phase_dist_mesh(smi, dev)
     dist_grouped = phase_dist_grouped(smi, dev, dist_options["approx"])
     dist_fused = phase_dist_fused(smi, dev, dist, dist_options["approx"]["stages_s"])
+    widths = phase_widths(task, dist["task"], smi, dev)
     # one potential update at the ring caller's shape: the v7r run's 4,096
     # pairs, one rank holding the 8 shards, so one launch per update
     k_sink_ring = phase_sinkhorn(smi, dev, s=DIST_V7R_OT_PAIRS, d=256)
@@ -5432,7 +5673,7 @@ def main(argv: list[str] | None = None) -> int:
     # width, d = 128, where config mtl runs it); a fused run's launches on
     # the device as a profiler trace of the run counts them (its eager
     # ones, the warm-up step's and each replay's)
-    emit({"kernels": [
+    table = [
         {"name": "gcn_fused", "route": "cuda", "source": "tpugraph_torch/csrc/gcn_fused.cu",
          "replaces": "tpugraph/kernels/gcn_fused_pallas.py:40", "launches": recipe["gcn_fused"],
          "launches_train": train["gcn_fused"], "launches_serve": serve_launches,
@@ -5581,7 +5822,10 @@ def main(argv: list[str] | None = None) -> int:
                       "ms_cold_l2", "device_ms")},
          "shape": "zh_en_d256 rows: 4,500 x 4,500", "at_shapes": losses["reverse"],
          "steps": losses["steps"]},
-    ]})
+    ]
+    for entry in table:
+        entry["widths"] = _kernel_widths(entry["name"], widths)
+    emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

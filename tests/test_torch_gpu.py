@@ -21,7 +21,12 @@ loss kernels (the L1 margin's forward and fixed-order backward, its sign
 planes and pair vectors, the OT head's reverse update) against their plain
 versions, bit for bit over two calls and through a captured replay (the
 margin's also after a reload of negatives and index), and a margin step
-that takes its index from the batch.
+that takes its index from the batch; every width up to 512: the SpMMs'
+panels, the margin's masked instances and the streamed Sinkhorn strip
+against their plain versions (two launches bit for bit, captured replays at
+d 384), the GCN layer at widths without a fused instance (x·W, then the
+ELL SpMM), the searches' zero columns, and pins of the outputs at the
+widths that had instances before (``scripts/width_pins.py``).
 
 Marked ``gpu``; each test skips without a CUDA device.  This file imports
 neither JAX nor the JAX package, so on a machine with a card (and no JAX)
@@ -185,8 +190,14 @@ def test_spmm_ell_kernel_matches_plain(cuda, d, split_diag):
         torch.testing.assert_close(got, apply_with_diag(m, op.diag, x), rtol=1e-4, atol=1e-4)
     with pytest.raises(TypeError):  # float32 and bfloat16 only
         ell_spmm(op.fwd, op.diag, x.to(torch.float16))
-    with pytest.raises(ValueError):  # 64, 128 and 256 only
-        ell_spmm(op.fwd, op.diag, x[:, :32].contiguous())
+    # d = 32 has no instance: the panel path, against the plain version
+    x32 = x[:, :32].contiguous()
+    torch.testing.assert_close(ell_spmm(op.fwd, op.diag, x32),
+                               apply_with_diag(op.fwd, op.diag, x32), rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="widths 1 to 512"):  # above 512
+        ell_spmm(op.fwd, op.diag, torch.zeros(op.n_rows, 513, device=cuda))
+    with pytest.raises(ValueError):  # misaligned rows
+        ell_spmm(op.fwd, op.diag, torch.zeros(op.n_rows * d + 1, device=cuda)[1:].view(-1, d))
 
 
 def _hub_graph(rng, degrees, n=8000, split_diag=True):
@@ -326,12 +337,14 @@ def test_gcn_fused_narrow_widths_bits_unchanged(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("q,c,d", [(70, 4001, 4), (1000, 777, 20), (4500, 4500, 128),
-                                   (130, 2050, 256), (9000, 4500, 192), (333, 2049, 64)])
+                                   (130, 2050, 256), (9000, 4500, 192), (333, 2049, 64),
+                                   (1000, 777, 300), (4500, 4500, 384), (333, 2049, 512)])
 def test_sinkhorn_splits_match_plain(cuda, q, c, d):
     """Ragged Q and C (no multiple of the 64 × 128 tile or of a block's
-    share, odd Q too), every d the kernel takes from 4 to 256, τ = 0.05 and
-    0.3, and strips cut into one to 33 candidate splits; the wrapper refuses
-    other d."""
+    share, odd Q too), d from 4 to 512 (above 256 the strip streams beside
+    the candidates), τ = 0.05 and 0.3, and strips cut into one to 33
+    candidate splits; widths that are no multiple of 4 are taken with zero
+    columns, above 512 the wrapper refuses."""
     rng = np.random.default_rng(q + c + d)
 
     def unit(n, dd=d):
@@ -345,9 +358,15 @@ def test_sinkhorn_splits_match_plain(cuda, q, c, d):
         got = sinkhorn_potential_update(l, r, g, log_mu, tau)
         torch.testing.assert_close(got, sinkhorn_update_plain(l, r, g, log_mu, tau),
                                    rtol=1e-4, atol=1e-4)
-    for bad in (d + 2, 260):
-        with pytest.raises(ValueError):
-            sinkhorn_potential_update(unit(q, bad), unit(c, bad), g, log_mu, 0.3)
+    # d + 2 (no multiple of 4: zero columns appended) and 260 (the strip
+    # streamed beside the candidates) are taken too; above 512 is refused
+    for other in (d + 2 if d + 2 <= 512 else d - 2, 260):
+        lo, ro = unit(q, other), unit(c, other)
+        torch.testing.assert_close(sinkhorn_potential_update(lo, ro, g, log_mu, 0.3),
+                                   sinkhorn_update_plain(lo, ro, g, log_mu, 0.3),
+                                   rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="widths 1 to 512"):
+        sinkhorn_potential_update(unit(q, 516), unit(c, 516), g, log_mu, 0.3)
 
 
 @pytest.mark.gpu
@@ -373,7 +392,8 @@ def test_sinkhorn_masked_columns_and_rows(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("q,c,d", [(70, 90, 16), (257, 300, 128), (33, 1000, 256),
-                                   (4500, 130, 128)])
+                                   (4500, 130, 128), (70, 90, 52), (257, 300, 384),
+                                   (33, 1000, 512)])
 def test_sinkhorn_kernel_matches_plain(cuda, q, c, d):
     """Query and candidate counts that are not multiples of the 32 × 128
     tile; potentials of both signs.  fp32 dot products in another order:
@@ -394,9 +414,12 @@ def test_sinkhorn_kernel_matches_plain(cuda, q, c, d):
         assert sinkhorn_fused.launches == before + 1
         torch.testing.assert_close(got, sinkhorn_update_plain(l, r, g, log_mu, tau),
                                    rtol=1e-4, atol=1e-4)
-    with pytest.raises(ValueError):
-        sinkhorn_potential_update(l[:, :d - 2].contiguous(), r[:, :d - 2].contiguous(), g,
-                                  log_mu, 0.3)
+    # d − 2 (no multiple of 4) is taken with zero columns appended
+    lo, ro = l[:, :d - 2].contiguous(), r[:, :d - 2].contiguous()
+    torch.testing.assert_close(sinkhorn_potential_update(lo, ro, g, log_mu, 0.3),
+                               sinkhorn_update_plain(lo, ro, g, log_mu, 0.3), rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError):  # float64
+        sinkhorn_potential_update(l.double(), r.double(), g, log_mu, 0.3)
 
 
 @pytest.mark.gpu
@@ -699,9 +722,13 @@ def test_select_rerank_is_unfused_above_the_queue(cuda):
 @pytest.mark.gpu
 def test_shortlist_select_refuses_what_it_does_not_take(cuda):
     q = torch.zeros(8, 16, device=cuda)
-    with pytest.raises(ValueError):
-        shortlist_dist.shortlist_select(torch.zeros(8, 6, device=cuda),
-                                        torch.zeros(40, 6, device=cuda), 4)
+    # width 6 is taken with zero columns up to 8: the plain version's answer
+    q6, c6 = torch.randn(8, 6, device=cuda), torch.randn(40, 6, device=cuda)
+    for bf16 in (False, True):  # zero columns up to 8 and to 8
+        got = shortlist_dist.shortlist_select(q6, c6, 4, bf16=bf16, rerank="cityblock")
+        want = shortlist_dist.shortlist_select_plain(q6, c6, 4, bf16=bf16, rerank="cityblock")
+        assert torch.equal(got[0], want[0])
+        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError):
         shortlist_dist.shortlist_select(torch.zeros(8, 516, device=cuda),
                                         torch.zeros(40, 516, device=cuda), 4)
@@ -857,10 +884,15 @@ def test_l1_search_refuses_what_it_does_not_take(cuda):
         l1_search.l1_topk(q.double(), c.double(), 4)
     with pytest.raises(TypeError):
         l1_search.l1_count(q, c, th.double())
-    for width in (6, 516):
-        with pytest.raises(ValueError):
-            l1_search.l1_topk(torch.zeros(8, width, device=cuda),
-                              torch.zeros(40, width, device=cuda), 4)
+    # width 6 is taken with zero columns up to 8: the plain version's answer
+    q6 = torch.randn(8, 6, device=cuda)
+    c6 = torch.randn(40, 6, device=cuda)
+    vals, idx = l1_search.l1_topk(q6, c6, 4)
+    want = l1_search.l1_topk_plain(q6.cpu(), c6.cpu(), 4)
+    assert torch.equal(idx.cpu(), want[1])
+    torch.testing.assert_close(vals.cpu(), want[0], rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="widths 1 to 512"):
+        l1_search.l1_topk(torch.zeros(8, 516, device=cuda), torch.zeros(40, 516, device=cuda), 4)
     with pytest.raises(ValueError):
         l1_search.l1_topk(q, c.cpu(), 4)
     with pytest.raises(ValueError):
@@ -1357,8 +1389,15 @@ def test_spmm_sorted_matches_plain(cuda, dtype, d):
     torch.testing.assert_close(t1.grad.float(), segment_spmm(inc.bwd, cot).float(), **tol)
     with pytest.raises(TypeError):
         sorted_spmm(op.fwd, x.to(torch.float16))
-    with pytest.raises(ValueError):  # 64, 128 and 256 only
-        sorted_spmm(op.fwd, torch.zeros(op.fwd.n_cols, 32, device=cuda))
+    # d = 32 has no instance: the panel path, against the plain version
+    x32 = torch.from_numpy(rng.standard_normal((op.fwd.n_cols, 32)).astype(np.float32))
+    x32 = x32.to(cuda, dtype)
+    torch.testing.assert_close(sorted_spmm(op.fwd, x32).float(),
+                               segment_spmm(op.fwd, x32).float(), **tol)
+    with pytest.raises(ValueError, match="widths 1 to 512"):  # above 512
+        sorted_spmm(op.fwd, torch.zeros(op.fwd.n_cols, 513, device=cuda))
+    with pytest.raises(ValueError):  # non-contiguous
+        sorted_spmm(op.fwd, torch.zeros(64, op.fwd.n_cols, device=cuda).t())
 
 
 def _gapped_sorted_graph(rng, n=6000):
@@ -2105,7 +2144,9 @@ def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
 @pytest.mark.gpu
 @pytest.mark.parametrize("n, s, k, d, weighted", [
     (300, 64, 5, 128, False), (300, 64, 5, 256, True), (200, 40, 7, 16, True),
-    (200, 40, 3, 64, False), (200, 40, 9, 512, True), (38_000, 7_000, 100, 256, True)])
+    (200, 40, 3, 64, False), (200, 40, 9, 512, True), (38_000, 7_000, 100, 256, True),
+    (200, 40, 7, 1, True), (300, 64, 5, 50, False), (300, 64, 5, 300, True),
+    (300, 64, 5, 384, False), (200, 40, 9, 500, True), (38_000, 7_000, 100, 384, True)])
 def test_margin_l1_kernel_matches_plain(cuda, n, s, k, d, weighted):
     """The loss at rel 1e-5 and the table's gradient at relative L2 1e-5
     against the plain composite, every row written (the output's memory
@@ -2162,13 +2203,20 @@ def test_margin_l1_refuses_what_it_has_no_instance_for(cuda):
                                                False, cuda)
     with pytest.raises(ValueError, match="float32"):
         margin_l1.margin_l1_loss(emb.double(), pairs, neg_l, neg_r)
-    with pytest.raises(ValueError, match="no instance"):
-        margin_l1.margin_l1_loss(emb[:, :100].contiguous(), pairs, neg_l, neg_r)
+    # d = 100 runs on the masked instance of 128: against the plain version
+    e = emb[:, :100].contiguous().requires_grad_(True)
+    got = margin_l1.margin_l1_loss(e, pairs, neg_l, neg_r)
+    want = margin_l1.margin_loss_plain(e, pairs, neg_l, neg_r)
+    assert float(got) == pytest.approx(float(want), rel=1e-5)
+    assert _rel_l2(torch.autograd.grad(got, e)[0], torch.autograd.grad(want, e)[0]) < 1e-5
+    with pytest.raises(ValueError, match="widths 1 to 512"):  # above 512: no instance
+        margin_l1.margin_l1_loss(emb.repeat(1, 5)[:, :520].contiguous(), pairs, neg_l, neg_r)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n, s, k, d, weighted", [
-    (300, 64, 5, 128, False), (38_000, 7_000, 100, 256, True)])
+    (300, 64, 5, 128, False), (38_000, 7_000, 100, 256, True), (300, 64, 5, 50, True),
+    (300, 64, 5, 300, False), (300, 64, 5, 384, True)])
 def test_margin_l1_planes_and_backward_match_their_plain_versions(cuda, n, s, k, d, weighted):
     """The forward's flags, pair vectors and the active records' sign
     planes equal ``forward_plain``'s bit for bit; the index its kernel
@@ -2371,3 +2419,249 @@ def test_ot_loss_gradient_on_the_reverse_kernel_matches_plain(cuda, s, d):
     (g_want,) = torch.autograd.grad(want, e2)
     assert float(loss) == pytest.approx(float(want), rel=1e-4)
     assert _rel_l2(g, g_want) < 1e-3
+
+
+# Every width the JAX package takes, up to 512: the kernels' panel and
+# masked paths, the GCN layer's route at widths without a fused instance,
+# and the pins of the widths that had instances before.
+
+# (d, dtype) of the SpMM kernels' panel path: d % 4 ≠ 0 in fp32 (1, 50:
+# scalar loads), the sweeps' 384 and 512, and bf16 at 50, 300 (300 % 8 = 4)
+# and 384
+PANEL_CASES = [(1, torch.float32), (50, torch.float32), (300, torch.float32),
+               (384, torch.float32), (512, torch.float32), (50, torch.bfloat16),
+               (300, torch.bfloat16), (384, torch.bfloat16)]
+SPMM_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+            torch.bfloat16: dict(rtol=2 ** -7, atol=1e-3)}
+
+
+def _spmm_route(kind: str, rng, cuda):
+    """(operator matrices, the wrapper, its plain version, its module) of
+    the ELL or sorted SpMM on a graph with rows of 5,300 and 300 edges."""
+    if kind == "ell":
+        op = _hub_graph(rng, HUB_DEGREES["hub_5300"]).to(cuda)
+        return ((op.fwd, op.bwd), lambda m, x: ell_spmm(m, op.diag, x),
+                lambda m, x: apply_with_diag(m, op.diag, x), spmm_ell)
+    op = _sorted_graph(rng, hubs=(5300, 300)).to(cuda)
+    return (op.fwd, op.bwd), sorted_spmm, segment_spmm, spmm_mod
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ell", "sorted"])
+@pytest.mark.parametrize("d,dtype", PANEL_CASES)
+def test_spmm_kernels_at_every_width_match_plain(cuda, kind, d, dtype):
+    """The panel path (128-column panels over the grid, the last masked at
+    d; rows cut into segments whose partials are summed per panel) over A
+    and Aᵀ: against the plain version (fp32 1e-4; bf16, one rounding of
+    fp32 sums on both sides: rel 2^-7, atol 1e-3), every row written (the
+    output's memory prefilled with NaN), two launches bit for bit.  The
+    ELL kernel in bf16 is held, as its instances are, within half a bf16
+    ulp of the fp32 plain sums of the same input (rel 2^-8, atol 1e-3)."""
+    rng = np.random.default_rng(d + 1000 * (dtype == torch.bfloat16))
+    mats, call, plain, mod = _spmm_route(kind, rng, cuda)
+    if kind == "ell" and dtype == torch.bfloat16:  # its bf16 plain version rounds twice
+        tol, ref = dict(rtol=2 ** -8, atol=1e-3), torch.float32
+    else:
+        tol, ref = SPMM_TOL[dtype], dtype
+    for m in mats:
+        x = torch.from_numpy(rng.standard_normal((m.n_cols, d)).astype(np.float32))
+        x = x.to(cuda, dtype)
+        outs = []
+        for _ in range(2):
+            torch.full((m.n_rows, d), float("nan"), dtype=dtype, device=cuda)  # lands on NaNs
+            before = mod.launches
+            outs.append(call(m, x))
+            torch.cuda.synchronize()
+            assert mod.launches == before + 1
+        assert outs[0].dtype == dtype and outs[0].shape == (m.n_rows, d)
+        assert torch.isfinite(outs[0]).all() and torch.equal(outs[0], outs[1])
+        torch.testing.assert_close(outs[0].float(), plain(m, x.to(ref)).float(), **tol)
+
+
+def _replays_as_eager(call) -> None:
+    """``call()`` (a tuple of tensors) captured in a CUDA graph: two
+    replays equal the eager call bit for bit."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        want = call()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = call()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_kernels_at_d384_replay_as_eager(cuda):
+    """The ELL and sorted SpMMs (fp32 and bf16), the margin's forward and
+    backward and the Sinkhorn update (strip streamed) at d = 384, each
+    captured in a CUDA graph: its replays equal eager bit for bit."""
+    rng = np.random.default_rng(384)
+    for kind in ("ell", "sorted"):
+        mats, call, _, _ = _spmm_route(kind, rng, cuda)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(rng.standard_normal((mats[0].n_cols, 384)).astype(np.float32))
+            x = x.to(cuda, dtype)
+            _replays_as_eager(lambda: (call(mats[0], x), call(mats[1], x)))
+    emb, pairs, neg_l, neg_r, w = _margin_case(rng, 3000, 600, 20, 384, True, cuda)
+    e = emb.clone().requires_grad_(True)
+
+    def margin():
+        loss = margin_l1.margin_l1_loss(e, pairs, neg_l, neg_r, 3.0, w)
+        return loss.detach(), torch.autograd.grad(loss, e)[0]
+
+    _replays_as_eager(margin)
+    l = torch.nn.functional.normalize(torch.randn(1000, 384, device=cuda), dim=1)
+    r = torch.nn.functional.normalize(torch.randn(1200, 384, device=cuda), dim=1)
+    g = 0.2 * torch.randn(1200, device=cuda)
+    log_mu = torch.full((1000,), -math.log(1000), device=cuda)
+    _replays_as_eager(lambda: (sinkhorn_potential_update(l, r, g, log_mu, 0.05),))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d_in,d_out", [(50, 300), (64, 64), (384, 384), (512, 128)])
+def test_gcn_layer_at_widths_without_a_fused_instance(cuda, dtype, d_in, d_out):
+    """x·W then the ELL SpMM kernel (one launch forward, one backward over
+    the transpose, no fused launch), against ``gcn_layer_plain``
+    differentiated by autograd: the output at ``TOL`` and each gradient at
+    relative L2 1e-4 (fp32) or 2e-2 (bf16: the plain version rounds the
+    bucket sums and the diagonal term apart)."""
+    assert not gcn_fused.fused_width(d_in, d_out)
+    rng = np.random.default_rng(d_in + d_out)
+    op = _graph(rng).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((op.n_rows, d_in)).astype(np.float32))
+    wm = torch.from_numpy((rng.standard_normal((d_in, d_out)) / np.sqrt(d_in)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(d_out).astype(np.float32)).to(cuda)
+    cot = torch.from_numpy(rng.standard_normal((op.n_rows, d_out)).astype(np.float32))
+    cot = cot.to(cuda, dtype)
+    grads = []
+    for layer in (gcn_layer, gcn_fused.gcn_layer_plain):
+        xt = x.to(cuda, dtype).requires_grad_(True)
+        wt = wm.to(cuda, dtype).requires_grad_(True)
+        bt = b.clone().requires_grad_(True)
+        before = (gcn_fused.launches, spmm_ell.launches)
+        out = layer(op, xt, wt, bt)
+        (out * cot).sum().backward()
+        torch.cuda.synchronize()
+        launched = (gcn_fused.launches - before[0], spmm_ell.launches - before[1])
+        assert launched == ((0, 2) if layer is gcn_layer else (0, 0))
+        grads.append((out.detach(), xt.grad, wt.grad, bt.grad))
+    got, want = grads
+    assert got[0].dtype == dtype and got[0].shape == (op.n_rows, d_out)
+    torch.testing.assert_close(got[0].float(), want[0].float(), **TOL[dtype])
+    for a, b_ in zip(got[1:], want[1:]):
+        assert _rel_l2(a.float(), b_.float()) < (1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [3, 50])
+def test_search_kernels_at_widths_of_no_multiple_of_4(cuda, d):
+    """The L1 search's top-k and count and the select-and-rerank kernel
+    (fp32 and bf16 products) at d % 4 ≠ 0: the wrappers give the kernels
+    rows with zero columns (to 4 or 8), and the answers are the plain
+    versions' on the unpadded rows: the top-k as ``_l1_agrees`` holds it,
+    each count exact at a threshold halfway between the plain version's
+    fourth and fifth distances, the select's shortlists on ≥ 99 % of the
+    entries and the reranked distances within 1e-5."""
+    rng = np.random.default_rng(d)
+    q, cands, kw = _l1_case(rng, 300, 2000, d, True, True)
+    got = l1_search.l1_topk(q.to(cuda), cands.to(cuda), 10, **_on(cuda, kw))
+    _l1_agrees(got, l1_search.l1_topk_plain(q, cands, 10, **kw), kw, True)
+    raw = l1_search.l1_topk_plain(q, cands, 5)[0]
+    thresh = (0.5 * (raw[:, 3] + raw[:, 4])).contiguous()
+    count = l1_search.l1_count(q.to(cuda), cands.to(cuda), thresh.to(cuda))
+    assert torch.equal(count.cpu(), torch.full((300,), 4))
+    for bf16 in (False, True):
+        got = shortlist_dist.shortlist_select(q.to(cuda), cands.to(cuda), 16, bf16=bf16,
+                                              rerank="cityblock")
+        want = shortlist_dist.shortlist_select_plain(q, cands, 16, bf16=bf16,
+                                                     rerank="cityblock")
+        assert float((got[0].cpu() == want[0]).float().mean()) > 0.99
+        torch.testing.assert_close(got[2].cpu().sort(1).values, want[2].sort(1).values,
+                                   rtol=1e-5, atol=1e-5)
+
+
+# SHA-256 of each kernel's output on ``scripts/width_pins.py``'s inputs at
+# the widths that had instances before every width up to 512 did, as the
+# commit d43e3b5, the last before them, computed it on an NVIDIA H100 80GB
+# HBM3 (``scripts/width_pins.py --root``)
+WIDTH_PINS = {
+    "margin_l1 grad d128": "6e0c359d050ba079b4f98f4a7c91ae78d437cbcc6936cfbef586b33fdf7b7220",
+    "margin_l1 grad d16": "20f1fe471ad63d08c186ecccb7a6b726a0b5f47b6ebcb74d63c8f070e6e1ca15",
+    "margin_l1 grad d256": "0595f5451d7f2cab6d8f415fd587bdbb4a10812236c6eca02a88bc7dbd53ef8e",
+    "margin_l1 grad d32": "3e5a71009dbe2ed07327d431a742caf83b2b70d576fb2ddfe43abed79dc78fed",
+    "margin_l1 grad d512": "3117c118b10362cb012fbd7a8dc20a43651aab16f2a2e2d50e9265840e7b4523",
+    "margin_l1 grad d64": "e721ff56cfc9f52e8b3991443e31767de9bc5c2d632c78d15b8f4e8fb4cb05e2",
+    "margin_l1 loss d128": "c2ce27993758ef4ca979e370a3ec1ff5812bf67a122380afcb5ad6c4fa54f52a",
+    "margin_l1 loss d16": "be771050e7a2f223fc1a21188c664d20545ea4c1f403bd6fa77843eb6a0d15ba",
+    "margin_l1 loss d256": "bfe9da13aa8d11df72ba38343ed94dadc8ef55d021ef0542919661c0d1aa92c9",
+    "margin_l1 loss d32": "45ebe3e204bbc208da7ba2d4b225b16c87e21151f416b8655a4e839936b39581",
+    "margin_l1 loss d512": "942426c6cb7c6f88d6f992a289aa1268f652f96f21849f5d002ac9a19d814bc5",
+    "margin_l1 loss d64": "72d73fbe9907cfc139dcd4653507db815598a3a6df1e21b780e0b7ab5eb994b8",
+    "sinkhorn_fused d128 tau0.05":
+        "a617742ce7fb8121647210602d645a07e63d63bab8b69cf4beceea69b6375625",
+    "sinkhorn_fused d128 tau0.3":
+        "158de00fc0833bbfdf02c270dfc702314a89a9db44109915fb1076737596b3c6",
+    "sinkhorn_fused d16 tau0.05":
+        "c9fe19b50c0f461a6da1dff52665cc17695ee29f01a5703261b8b5fcd56feeff",
+    "sinkhorn_fused d16 tau0.3": "212a2b3f281fa6f4d40401f9cee43b0ee7231e412e7397e5a1de215f23d2fca3",
+    "sinkhorn_fused d192 tau0.05":
+        "20aef3e142e3e1c9da5645e9b9a36c367be1e268dce68fe920f593acffc30bfe",
+    "sinkhorn_fused d192 tau0.3":
+        "a7f25a9dc4f931822a3ca57b788dd94796053e10ff4df722aac85e7b6cf57143",
+    "sinkhorn_fused d256 tau0.05":
+        "ec670dafdfb47f6df1791758ecaedaa672e4635c2c6e39e09cb4c9b19aefb939",
+    "sinkhorn_fused d256 tau0.3":
+        "3e05d716faa1277ebe69b00e5e0146e9549dc24cba5cd491ac53e2dbbbe30d99",
+    "sinkhorn_fused d4 tau0.05": "42927ec2250d1497d28291068b0a49e75db79a046a14dfe644f1d3d3cd5208ce",
+    "sinkhorn_fused d4 tau0.3": "96bba16d80eefa6ad5a91dd42ceda109e2c652a6ce070886a439535ff652fa4e",
+    "spmm_ell bwd d128 bfloat16":
+        "c54a6f425864bc02d2fa2922fc61a7df1d79808fe4a902fc7ca399dafc16c4dc",
+    "spmm_ell bwd d128 float32": "4c6dfb43c15c95adbbcd9c3761c1c2455f604bd17219c17c7df77f0b5d19422c",
+    "spmm_ell bwd d256 bfloat16":
+        "79106ca3ba26fdf86b4c8fe55ecd7ea2d9d36d7431948383c106bdc61b7d7208",
+    "spmm_ell bwd d256 float32": "71750586f0930d8f6ec0079492108a5b2c9ef9d4f11f88e4f330176908f1c2b9",
+    "spmm_ell bwd d64 bfloat16": "b8cf5ceaf40822b338f0965ec122f75276457599f0cafe4b35bdb27104e9165f",
+    "spmm_ell bwd d64 float32": "c87c06305c1ebbed47f9f5571dad8078a2e8ed993da7ef61d33bf08b81f63546",
+    "spmm_ell fwd d128 bfloat16":
+        "0b1d1f18f8709ea469b9c8d82dd72e970e693c94dea9c1615e271b4c559e0c61",
+    "spmm_ell fwd d128 float32": "23b99936ed5c483565cab00ec2300288294cb622f99468994ee2326cfe3c40bd",
+    "spmm_ell fwd d256 bfloat16":
+        "c5fbe09be5d79f4351e29ea2e356dd8a942315b2983749550f13e185b5259d73",
+    "spmm_ell fwd d256 float32": "570398247c35273a62205441018d8d4dd3fcc000c63aa85f62a7654510167aad",
+    "spmm_ell fwd d64 bfloat16": "ba610ffa7e097c9aeed496a130c5de08439eb130a5c8528868bed8bdd6864525",
+    "spmm_ell fwd d64 float32": "bb46b89d0e75f6cf5c89ab14a4873a3af3480dc9d716b5e93b0a35fec9cb62f3",
+    "spmm_sorted fwd d128 bfloat16":
+        "fd815059629978309fe63b434c031311941b157a4fbb0e0de27101b7ecdadd00",
+    "spmm_sorted fwd d128 float32":
+        "d8f8b6356a237e9d69b4261a6a2d2a70989964b92c3a53ac0214657c08f413a1",
+    "spmm_sorted fwd d256 bfloat16":
+        "263d712c6296f83574be3e351fa46c50d4ef21dac1354b3de4b61786cca36908",
+    "spmm_sorted fwd d256 float32":
+        "761c7e5e4b4a8cf8af32bf339427abe02fc651d9e26bbf6762bffdfc8e284e12",
+    "spmm_sorted fwd d64 bfloat16":
+        "e21c4c479eec150f991780e8e6c109739416a76f2728523a12259baa58a8dafe",
+    "spmm_sorted fwd d64 float32":
+        "d30876817fa0f1c9c74a30196556cd250d91bec3663a9538a55f05aea4d9e7eb",
+}
+
+
+@pytest.mark.gpu
+def test_existing_widths_bits_unchanged(cuda):
+    """The SpMMs at d 64, 128 and 256, the margin at its six instance
+    widths and the Sinkhorn update up to 256 give the bits they gave before
+    the panel, masked and streamed paths were added."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "scripts" / "width_pins.py"
+    spec = importlib.util.spec_from_file_location("width_pins", path)
+    pins = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pins)
+    got = {k: pins.sha256_of(v) for k, v in pins.pinned_outputs(cuda).items()}
+    assert got == WIDTH_PINS

@@ -185,7 +185,9 @@ def test_ring_exact_stages_at_1_and_8_shards(stage):
 def test_wrapper_refuses_what_the_kernel_does_not_take(case):
     """The checks the card's wrapper makes before any launch (``_check``), and
     a device that is neither the CPU nor the card: each raises, none falls
-    back to the plain version."""
+    back to the plain version.  A width the kernel does not take below the
+    limit (6: it reads d % 4 == 0) never reaches it: ``_check`` hands it the
+    rows with zero columns up to 8."""
     q, c = torch.from_numpy(_rows(24, 8, 16)), torch.from_numpy(_rows(25, 20, 16))
     if case == "meta_device":
         with pytest.raises(ValueError):
@@ -196,6 +198,11 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case):
         q = q.double()
     elif case == "width_6":
         q, c = q[:, :6].contiguous(), c[:, :6].contiguous()
+        q8, c8 = l1_search._check(q, c)
+        assert q8.shape == (8, 8) and c8.shape == (20, 8)
+        assert torch.equal(q8[:, :6], q) and torch.equal(c8[:, :6], c)
+        assert not q8[:, 6:].any() and not c8[:, 6:].any()
+        return
     elif case == "width_516":
         q, c = q.repeat(1, 33)[:, :516].contiguous(), c.repeat(1, 33)[:, :516].contiguous()
     elif case == "strided":

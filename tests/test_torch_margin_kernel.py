@@ -136,8 +136,11 @@ def test_fixed_order_backward_replays_autograd(weighted):
 
 @pytest.mark.parametrize("bad", ["float64_table", "width_without_instance"])
 def test_the_wrapper_refuses(bad):
-    emb, pairs, neg_l, neg_r, _ = _case(7, 3, False, d=16 if bad == "float64_table" else 100)
+    """A float64 table, and a width above MAX_D (512), the widest instance:
+    every width from 1 to 512 has one, masked or not."""
+    emb, pairs, neg_l, neg_r, _ = _case(7, 3, False, d=16 if bad == "float64_table" else 520)
     e = torch.from_numpy(emb).double() if bad == "float64_table" else torch.from_numpy(emb)
     t = [torch.from_numpy(np.asarray(a)).long() for a in (pairs, neg_l, neg_r)]
-    with pytest.raises(ValueError, match="float32" if bad == "float64_table" else "no instance"):
+    with pytest.raises(ValueError,
+                       match="float32" if bad == "float64_table" else "widths 1 to 512, got d=520"):
         margin_l1.margin_l1_loss(e, *t)

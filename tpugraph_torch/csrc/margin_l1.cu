@@ -74,7 +74,13 @@
 //     records in order.  An item reads its row and records from the index
 //     in one load (no search), so a warp waits on four dependent loads.
 //     The combine loads a hub row's partials 8 at a time (16 at d ≤ 128, 4
-//     at 512) and adds them in order.
+//     above 256) and adds them in order.
+//   * widths: instances at d = 16, 32, 64, 128, 256, 384 and 512 (float4
+//     rows where 128 divides d); every other d ≤ 512 runs on the masked
+//     instance of the next width in 32, 64, 128, 192, …, 512 (scalar rows,
+//     the lanes' elements past d read as 0 and never written), whose
+//     distances, planes, pair vectors and gradient are those of the d-wide
+//     rows: a masked element adds |0 − 0| = 0 and a sign of 0.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,16 +96,21 @@ constexpr int kSeg = 32;  // records an item of the backward: a longer row spans
 static_assert(kSeg == 32, "an item's records are one a lane");
 constexpr unsigned kFull = 0xffffffffu;
 
-// A row of width D as a lane's share: D/32 floats a lane; float4 loads when
-// D is a multiple of 128 (element (c·32 + lane)·4 + t), else scalar loads
-// (element t·32 + lane; lanes past D read nothing).
-template <int D>
+// A row as a lane's share: D/32 floats a lane.  At an instance's width
+// (kExact: the row is D wide) float4 loads when D is a multiple of 128
+// (element (c·32 + lane)·4 + t), else scalar loads (element t·32 + lane;
+// lanes past D read nothing).  A masked instance (kExact false) holds a row
+// of any width d ≤ D in the scalar layout, elements past d read as 0 and
+// never stored: |0 − 0| adds 0 to a distance and sign(0 − 0) = 0 to a
+// gradient, so the loss and gradient are those of the d-wide rows.
+template <int D, bool kExact = true>
 struct Row {
   static constexpr int kPer = D >= 32 ? D / 32 : 1;
-  static constexpr bool kVec = D % 128 == 0;
+  static constexpr bool kVec = kExact && D % 128 == 0;
   float v[kPer];
 
-  __device__ __forceinline__ void load(const float* __restrict__ row, int lane) {
+  // row: the row's first element; d its width (D at an instance's width)
+  __device__ __forceinline__ void load(const float* __restrict__ row, int lane, int d) {
     if constexpr (kVec) {
 #pragma unroll
       for (int c = 0; c < kPer / 4; ++c) {
@@ -110,21 +121,23 @@ struct Row {
         v[4 * c + 3] = q.w;
       }
     } else {
+      const int n = kExact ? D : d;
 #pragma unroll
-      for (int t = 0; t < kPer; ++t) v[t] = t * 32 + lane < D ? __ldg(row + t * 32 + lane) : 0.f;
+      for (int t = 0; t < kPer; ++t) v[t] = t * 32 + lane < n ? __ldg(row + t * 32 + lane) : 0.f;
     }
   }
 
-  __device__ __forceinline__ void store(float* __restrict__ row, int lane) const {
+  __device__ __forceinline__ void store(float* __restrict__ row, int lane, int d) const {
     if constexpr (kVec) {
 #pragma unroll
       for (int c = 0; c < kPer / 4; ++c)
         reinterpret_cast<float4*>(row)[c * 32 + lane] =
             make_float4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
     } else {
+      const int n = kExact ? D : d;
 #pragma unroll
       for (int t = 0; t < kPer; ++t)
-        if (t * 32 + lane < D) row[t * 32 + lane] = v[t];
+        if (t * 32 + lane < n) row[t * 32 + lane] = v[t];
     }
   }
 
@@ -142,11 +155,11 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int D>
-__device__ __forceinline__ float l1(const Row<D>& a, const Row<D>& b) {
+template <int D, bool E>
+__device__ __forceinline__ float l1(const Row<D, E>& a, const Row<D, E>& b) {
   float s = 0.f;
 #pragma unroll
-  for (int t = 0; t < Row<D>::kPer; ++t) s += fabsf(a.v[t] - b.v[t]);
+  for (int t = 0; t < Row<D, E>::kPer; ++t) s += fabsf(a.v[t] - b.v[t]);
   return warp_sum(s);
 }
 
@@ -162,13 +175,13 @@ __device__ __forceinline__ float relu(float x) { return x < 0.f ? 0.f : x; }
 // is "e > n" at its element of slot t, bit kPer + t "e < n" (sign(0) = 0);
 // the 32 lanes' values lie in lane order, so a record is one coalesced
 // store and one coalesced load, and a lane reads only its own bits.  8
-// bits a lane up to d = 128, 16 at 256, 32 at 512: 8·⌈d/32⌉ bytes a record
-// from d = 128 on (64 at d = 256), 32 below.
+// bits a lane up to d = 128, 16 up to 256, 32 up to 512: 32 bytes a record
+// up to d = 128, 64 up to 256, 128 up to 512.
 template <int D>
 struct Signs {
   static constexpr int kPer = Row<D>::kPer;
   using Bits = std::conditional_t<(kPer <= 4), uint8_t,
-                                  std::conditional_t<(kPer == 8), uint16_t, uint32_t>>;
+                                  std::conditional_t<(kPer <= 8), uint16_t, uint32_t>>;
   static constexpr int kBytes = 32 * sizeof(Bits);
 
   // the lane's sign at slot t, as sgn() gives it
@@ -181,10 +194,10 @@ struct Signs {
 // (no vote: the branch around this is the warp's, but the compiler cannot
 // know it, and a ballot there costs a collective sequence), and the signs
 // added to the lane's running integer sums
-template <int D>
-__device__ __forceinline__ void put_signs(const Row<D>& p, const Row<D>& n,
+template <int D, bool E>
+__device__ __forceinline__ void put_signs(const Row<D, E>& p, const Row<D, E>& n,
                                           uint8_t* __restrict__ rec, int lane, int* sum) {
-  constexpr int kPer = Row<D>::kPer;
+  constexpr int kPer = Row<D, E>::kPer;
   uint32_t m = 0;
 #pragma unroll
   for (int t = 0; t < kPer; ++t) {
@@ -196,27 +209,29 @@ __device__ __forceinline__ void put_signs(const Row<D>& p, const Row<D>& n,
       static_cast<typename Signs<D>::Bits>(m);
 }
 
-template <int D>
+// E: an instance's width (the table is D wide), or a masked instance (d ≤ D)
+template <int D, bool E>
 __global__ void __launch_bounds__(kThreads)
 margin_l1_kernel_fwd(const float* __restrict__ emb, const int64_t* __restrict__ pairs,
                      const int64_t* __restrict__ neg_l, const int64_t* __restrict__ neg_r,
-                     const float* __restrict__ w, float gamma, int n_pairs, int k,
+                     const float* __restrict__ w, float gamma, int n_pairs, int k, int d_in,
                      uint8_t* __restrict__ flags, float* __restrict__ row_sum,
                      uint8_t* __restrict__ planes, float* __restrict__ vecs) {
+  const int d = E ? D : d_in;  // the table's width: its row pitch
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (i >= n_pairs) return;
   const int64_t il = __ldg(pairs + 2 * i), ir = __ldg(pairs + 2 * i + 1);
-  Row<D> a, b;
-  a.load(emb + il * D, lane);
-  b.load(emb + ir * D, lane);
+  Row<D, E> a, b;
+  a.load(emb + il * d, lane, d);
+  b.load(emb + ir * d, lane, d);
   const float thr = l1(a, b) + gamma;
   const int64_t* nr = neg_r + static_cast<long>(i) * k;
   const int64_t* nl = neg_l + static_cast<long>(i) * k;
   const long sk = static_cast<long>(n_pairs) * k;
   // Σ sign(e_l − n) over the right side's active entries, Σ sign(e_r − n)
   // over the left side's, and the row's active entries
-  constexpr int kPer = Row<D>::kPer;
+  constexpr int kPer = Row<D, E>::kPer;
   int sum_r[kPer], sum_l[kPer];
 #pragma unroll
   for (int t = 0; t < kPer; ++t) sum_r[t] = sum_l[t] = 0;
@@ -233,18 +248,18 @@ margin_l1_kernel_fwd(const float* __restrict__ emb, const int64_t* __restrict__ 
       const int64_t r0 = __shfl_sync(kFull, my_r, u), l0 = __shfl_sync(kFull, my_l, u);
       const int64_t r1 = __shfl_sync(kFull, my_r, two ? u + 1 : u);
       const int64_t l1i = __shfl_sync(kFull, my_l, two ? u + 1 : u);
-      Row<D> x0, y0, x1, y1;  // two entries' rows in flight
-      x0.load(emb + r0 * D, lane);
-      y0.load(emb + l0 * D, lane);
+      Row<D, E> x0, y0, x1, y1;  // two entries' rows in flight
+      x0.load(emb + r0 * d, lane, d);
+      y0.load(emb + l0 * d, lane, d);
       if (two) {
-        x1.load(emb + r1 * D, lane);
-        y1.load(emb + l1i * D, lane);
+        x1.load(emb + r1 * d, lane, d);
+        y1.load(emb + l1i * d, lane, d);
       }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         if (h == 1 && !two) break;
-        const Row<D>& xr = h ? x1 : x0;
-        const Row<D>& yl = h ? y1 : y0;
+        const Row<D, E>& xr = h ? x1 : x0;
+        const Row<D, E>& yl = h ? y1 : y0;
         const float hr = thr - l1(a, xr);
         const float hl = thr - l1(yl, b);
         acc += relu(hr) + relu(hl);
@@ -262,13 +277,13 @@ margin_l1_kernel_fwd(const float* __restrict__ emb, const int64_t* __restrict__ 
   }
   if (lane == 0) row_sum[i] = w != nullptr ? __ldg(w + i) * acc : acc;
   const float fc = static_cast<float>(active);
-  Row<D> vec;
+  Row<D, E> vec;
 #pragma unroll
   for (int t = 0; t < kPer; ++t) vec.v[t] = fc * sgn(a.v[t], b.v[t]) - static_cast<float>(sum_r[t]);
-  vec.store(vecs + static_cast<long>(i) * D, lane);
+  vec.store(vecs + static_cast<long>(i) * d, lane, d);
 #pragma unroll
   for (int t = 0; t < kPer; ++t) vec.v[t] = fc * sgn(b.v[t], a.v[t]) - static_cast<float>(sum_l[t]);
-  vec.store(vecs + (static_cast<long>(n_pairs) + i) * D, lane);
+  vec.store(vecs + (static_cast<long>(n_pairs) + i) * d, lane, d);
 }
 
 // (loss, D): the row partials and the weights summed by one block in a
@@ -301,15 +316,16 @@ margin_sum_kernel(const float* __restrict__ row_sum, const float* __restrict__ w
   }
 }
 
-template <int D>
+template <int D, bool E>
 __global__ void __launch_bounds__(kThreads)
 margin_l1_kernel_bwd(const float* __restrict__ w, const uint8_t* __restrict__ flags,
                      const uint8_t* __restrict__ planes, const float* __restrict__ vecs,
                      const float* __restrict__ denom, const float* __restrict__ grad,
                      const int4* __restrict__ items, const int32_t* __restrict__ order,
-                     int n_items, int n_rows, int n_pairs, int k, float* __restrict__ partial,
-                     float* __restrict__ out) {
+                     int n_items, int n_rows, int n_pairs, int k, int d_in,
+                     float* __restrict__ partial, float* __restrict__ out) {
   using Bits = typename Signs<D>::Bits;
+  const int d = E ? D : d_in;
   constexpr int kBatch = 8;  // records whose planes a warp loads at once
   const int lane = threadIdx.x & 31;
   const int it = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -331,7 +347,7 @@ margin_l1_kernel_bwd(const float* __restrict__ w, const uint8_t* __restrict__ fl
     const int p = __ldg(order + p0 + lane);
     if (p < 2 * n_pairs) {
       kind = 2;
-      at = static_cast<long>(p) * D;
+      at = static_cast<long>(p) * d;
       coef = w != nullptr ? g * __ldg(w + (p < n_pairs ? p : p - n_pairs)) : g;
     } else {
       const long q = static_cast<long>(p) - 2L * n_pairs;
@@ -344,7 +360,7 @@ margin_l1_kernel_bwd(const float* __restrict__ w, const uint8_t* __restrict__ fl
       }
     }
   }
-  Row<D> acc;
+  Row<D, E> acc;
   acc.zero();
   for (int u0 = 0; u0 < n; u0 += kBatch) {
     // each lane's bits of kBatch records, loaded at once, and their
@@ -365,60 +381,62 @@ margin_l1_kernel_bwd(const float* __restrict__ w, const uint8_t* __restrict__ fl
       if (kinds[j] == 1) continue;
       const float c = cs[j];
       if (kinds[j] == 2) {  // a pair record: its vector
-        Row<D> vec;
-        vec.load(vecs + __shfl_sync(kFull, at, u0 + j), lane);
+        Row<D, E> vec;
+        vec.load(vecs + __shfl_sync(kFull, at, u0 + j), lane, d);
 #pragma unroll
-        for (int e = 0; e < Row<D>::kPer; ++e) acc.v[e] += c * vec.v[e];
+        for (int e = 0; e < Row<D, E>::kPer; ++e) acc.v[e] += c * vec.v[e];
       } else {  // an active negative record: its signs
 #pragma unroll
-        for (int e = 0; e < Row<D>::kPer; ++e) acc.v[e] += c * Signs<D>::at(bits[j], e);
+        for (int e = 0; e < Row<D, E>::kPer; ++e) acc.v[e] += c * Signs<D>::at(bits[j], e);
       }
     }
   }
   // a row of one item is written here; a longer row's items leave partials
-  acc.store(item.w ? partial + static_cast<long>(it) * D : out + static_cast<long>(r) * D,
-            lane);
+  acc.store(item.w ? partial + static_cast<long>(it) * d : out + static_cast<long>(r) * d,
+            lane, d);
 }
 
 // The rows of several items: their partials summed in item order, written
 // once.  A hub row has hundreds of items: their partials are loaded
 // kBatch at a time, so that the row waits on one load in kBatch, and added
 // one by one, in order.
-template <int D>
+template <int D, bool E>
 __global__ void __launch_bounds__(kThreads)
 margin_l1_combine(const int32_t* __restrict__ item_ptr, const float* __restrict__ partial,
-                  int n_rows, float* __restrict__ out) {
-  constexpr int kBatch = D <= 128 ? 16 : D == 256 ? 8 : 4;  // deeper costs every row registers
+                  int n_rows, int d_in, float* __restrict__ out) {
+  constexpr int kBatch = D <= 128 ? 16 : D <= 256 ? 8 : 4;  // deeper costs every row registers
+  const int d = E ? D : d_in;
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (r >= n_rows) return;
   const long i0 = __ldg(item_ptr + r), i1 = __ldg(item_ptr + r + 1);
   if (i1 - i0 < 2) return;
-  Row<D> acc;
-  acc.load(partial + i0 * D, lane);
+  Row<D, E> acc;
+  acc.load(partial + i0 * d, lane, d);
   for (long i = i0 + 1; i < i1; i += kBatch) {
-    Row<D> part[kBatch];
+    Row<D, E> part[kBatch];
 #pragma unroll
     for (int b = 0; b < kBatch; ++b)
-      if (i + b < i1) part[b].load(partial + (i + b) * D, lane);
+      if (i + b < i1) part[b].load(partial + (i + b) * d, lane, d);
 #pragma unroll
     for (int b = 0; b < kBatch; ++b)
       if (i + b < i1) {
 #pragma unroll
-        for (int t = 0; t < Row<D>::kPer; ++t) acc.v[t] += part[b].v[t];
+        for (int t = 0; t < Row<D, E>::kPer; ++t) acc.v[t] += part[b].v[t];
       }
   }
-  acc.store(out + static_cast<long>(r) * D, lane);
+  acc.store(out + static_cast<long>(r) * d, lane, d);
 }
 
 // The forward's gather alone (a yardstick): the 2·S·k negative rows read in
 // the forward's order, two entries in flight, their elements summed; one
 // float a pair row
-template <int D>
+template <int D, bool E>
 __global__ void __launch_bounds__(kThreads)
 margin_gather_only(const float* __restrict__ emb, const int64_t* __restrict__ neg_l,
-                   const int64_t* __restrict__ neg_r, int n_pairs, int k,
+                   const int64_t* __restrict__ neg_r, int n_pairs, int k, int d_in,
                    float* __restrict__ out) {
+  const int d = E ? D : d_in;
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (i >= n_pairs) return;
@@ -434,18 +452,18 @@ margin_gather_only(const float* __restrict__ emb, const int64_t* __restrict__ ne
       const int64_t r0 = __shfl_sync(kFull, my_r, u), l0 = __shfl_sync(kFull, my_l, u);
       const int64_t r1 = __shfl_sync(kFull, my_r, two ? u + 1 : u);
       const int64_t l1i = __shfl_sync(kFull, my_l, two ? u + 1 : u);
-      Row<D> x0, y0, x1, y1;
-      x0.load(emb + r0 * D, lane);
-      y0.load(emb + l0 * D, lane);
+      Row<D, E> x0, y0, x1, y1;
+      x0.load(emb + r0 * d, lane, d);
+      y0.load(emb + l0 * d, lane, d);
       if (two) {
-        x1.load(emb + r1 * D, lane);
-        y1.load(emb + l1i * D, lane);
+        x1.load(emb + r1 * d, lane, d);
+        y1.load(emb + l1i * d, lane, d);
       }
 #pragma unroll
-      for (int t = 0; t < Row<D>::kPer; ++t) acc += x0.v[t] + y0.v[t];
+      for (int t = 0; t < Row<D, E>::kPer; ++t) acc += x0.v[t] + y0.v[t];
       if (two) {
 #pragma unroll
-        for (int t = 0; t < Row<D>::kPer; ++t) acc += x1.v[t] + y1.v[t];
+        for (int t = 0; t < Row<D, E>::kPer; ++t) acc += x1.v[t] + y1.v[t];
       }
     }
   }
@@ -512,52 +530,59 @@ margin_index_items(const int32_t* __restrict__ item_ptr, int n_items, int n_rows
   items[it] = make_int4(r, first, count, __ldg(item_ptr + r + 1) - i0 > 1);
 }
 
-template <int D>
+template <int D, bool E>
 cudaError_t launch_fwd(const float* emb, const int64_t* pairs, const int64_t* neg_l,
                        const int64_t* neg_r, const float* w, float gamma, int n_pairs, int k,
-                       uint8_t* flags, float* row_sum, uint8_t* planes, float* vecs,
+                       int d, uint8_t* flags, float* row_sum, uint8_t* planes, float* vecs,
                        float* loss, float* denom, cudaStream_t s) {
-  margin_l1_kernel_fwd<D><<<(n_pairs + kWarps - 1) / kWarps, kThreads, 0, s>>>(
-      emb, pairs, neg_l, neg_r, w, gamma, n_pairs, k, flags, row_sum, planes, vecs);
+  margin_l1_kernel_fwd<D, E><<<(n_pairs + kWarps - 1) / kWarps, kThreads, 0, s>>>(
+      emb, pairs, neg_l, neg_r, w, gamma, n_pairs, k, d, flags, row_sum, planes, vecs);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   margin_sum_kernel<<<1, kSumThreads, 0, s>>>(row_sum, w, n_pairs, k, loss, denom);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool E>
 cudaError_t launch_bwd(const float* w, const uint8_t* flags, const uint8_t* planes,
                        const float* vecs, const float* denom, const float* grad,
-                       const int32_t* index, int n_items, int n_rows, int n_pairs, int k,
+                       const int32_t* index, int n_items, int n_rows, int n_pairs, int k, int d,
                        float* partial, float* out, cudaStream_t s) {
   const long n_records = 2L * n_pairs + 2L * n_pairs * k;
   const int4* items = reinterpret_cast<const int4*>(index);
   const int32_t* order = index + 4L * n_items;
   const int32_t* item_ptr = order + n_records + n_rows + 1;
-  margin_l1_kernel_bwd<D><<<(n_items + kWarps - 1) / kWarps, kThreads, 0, s>>>(
-      w, flags, planes, vecs, denom, grad, items, order, n_items, n_rows, n_pairs, k, partial,
+  margin_l1_kernel_bwd<D, E><<<(n_items + kWarps - 1) / kWarps, kThreads, 0, s>>>(
+      w, flags, planes, vecs, denom, grad, items, order, n_items, n_rows, n_pairs, k, d, partial,
       out);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  margin_l1_combine<D><<<(n_rows + kWarps - 1) / kWarps, kThreads, 0, s>>>(item_ptr, partial,
-                                                                          n_rows, out);
+  margin_l1_combine<D, E><<<(n_rows + kWarps - 1) / kWarps, kThreads, 0, s>>>(
+      item_ptr, partial, n_rows, d, out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-#define MARGIN_WIDTHS(X) X(16) X(32) X(64) X(128) X(256) X(512)
+// The instances: at these widths the table is D wide (E true); every other
+// width d ≤ 512 takes the masked instance of the least MASKED_WIDTHS entry
+// ≥ d (32, then the multiples of 64), its elements past d zero.
+#define MARGIN_WIDTHS(X) X(16) X(32) X(64) X(128) X(256) X(384) X(512)
+#define MASKED_WIDTHS(X) X(32) X(64) X(128) X(192) X(256) X(320) X(384) X(448) X(512)
+
+static int masked_width(int d) { return d <= 32 ? 32 : (d + 63) / 64 * 64; }
 
 // Forward.  emb (n_rows, d) float32, rows 16-byte aligned; pairs (n_pairs, 2),
 // neg_l and neg_r (n_pairs, k) int64; w (n_pairs,) float32 or null.  Writes
 // flags (n_pairs, k) uint8; row_sum (n_pairs,) float32 scratch; planes
 // (2·n_pairs·k, 32·b) uint8, 4-byte aligned, b = 1 byte a lane up to d =
-// 128, 2 at 256, 4 at 512: the sign planes of the active records
-// (right-side entries i·k + j first, then the left side's; an inactive
-// record's left as it was; see Signs); vecs (2·n_pairs, d) float32, the pair
-// vectors (e_l's, then e_r's); loss (1,) and denom (1,) float32 (D).  Two
-// kernel launches (the rows, then the fixed-order sum); returns the
-// cudaError_t (0 on success).  d is one of 16, 32, 64, 128, 256 and 512.
+// 128, 2 up to 256, 4 up to 512 (of the instance's width): the sign planes
+// of the active records (right-side entries i·k + j first, then the left
+// side's; an inactive record's left as it was; see Signs); vecs
+// (2·n_pairs, d) float32, the pair vectors (e_l's, then e_r's); loss (1,)
+// and denom (1,) float32 (D).  Two kernel launches (the rows, then the
+// fixed-order sum); returns the cudaError_t (0 on success).  d is any width
+// from 1 to 512.
 extern "C" int margin_l1_forward(const float* emb, const int64_t* pairs, const int64_t* neg_l,
                                  const int64_t* neg_r, const float* w, float gamma,
                                  int n_pairs, int k, int d, uint8_t* flags, float* row_sum,
@@ -565,11 +590,17 @@ extern "C" int margin_l1_forward(const float* emb, const int64_t* pairs, const i
                                  void* stream) {
   if (n_pairs <= 0 || k <= 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MARGIN_FWD(D)                                                                  \
-  if (d == D)                                                                          \
-    return launch_fwd<D>(emb, pairs, neg_l, neg_r, w, gamma, n_pairs, k, flags, row_sum, \
-                         planes, vecs, loss, denom, s);
-  MARGIN_WIDTHS(MARGIN_FWD)
+#define MARGIN_FWD(D, E, W)                                                               \
+  if (W == D)                                                                             \
+    return launch_fwd<D, E>(emb, pairs, neg_l, neg_r, w, gamma, n_pairs, k, d, flags, row_sum, \
+                            planes, vecs, loss, denom, s);
+#define MARGIN_FWD_EXACT(D) MARGIN_FWD(D, true, d)
+#define MARGIN_FWD_MASKED(D) MARGIN_FWD(D, false, masked_width(d))
+  MARGIN_WIDTHS(MARGIN_FWD_EXACT)
+  if (d < 1 || d > 512) return cudaErrorInvalidValue;
+  MASKED_WIDTHS(MARGIN_FWD_MASKED)
+#undef MARGIN_FWD_MASKED
+#undef MARGIN_FWD_EXACT
 #undef MARGIN_FWD
   return cudaErrorInvalidValue;
 }
@@ -592,11 +623,17 @@ extern "C" int margin_l1_backward(const float* w, const uint8_t* flags, const ui
                                   int k, int d, float* partial, float* out, void* stream) {
   if (n_pairs <= 0 || k <= 0 || n_rows <= 0 || n_items < n_rows) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MARGIN_BWD(D)                                                                     \
-  if (d == D)                                                                             \
-    return launch_bwd<D>(w, flags, planes, vecs, denom, grad, index, n_items, n_rows,      \
-                         n_pairs, k, partial, out, s);
-  MARGIN_WIDTHS(MARGIN_BWD)
+#define MARGIN_BWD(D, E, W)                                                              \
+  if (W == D)                                                                            \
+    return launch_bwd<D, E>(w, flags, planes, vecs, denom, grad, index, n_items, n_rows, \
+                            n_pairs, k, d, partial, out, s);
+#define MARGIN_BWD_EXACT(D) MARGIN_BWD(D, true, d)
+#define MARGIN_BWD_MASKED(D) MARGIN_BWD(D, false, masked_width(d))
+  MARGIN_WIDTHS(MARGIN_BWD_EXACT)
+  if (d < 1 || d > 512) return cudaErrorInvalidValue;
+  MASKED_WIDTHS(MARGIN_BWD_MASKED)
+#undef MARGIN_BWD_MASKED
+#undef MARGIN_BWD_EXACT
 #undef MARGIN_BWD
   return cudaErrorInvalidValue;
 }
@@ -633,13 +670,19 @@ extern "C" int margin_l1_gather(const float* emb, const int64_t* neg_l, const in
                                 int n_pairs, int k, int d, float* out, void* stream) {
   if (n_pairs <= 0 || k <= 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MARGIN_GATHER(D)                                                                \
-  if (d == D) {                                                                        \
-    margin_gather_only<D><<<(n_pairs + kWarps - 1) / kWarps, kThreads, 0, s>>>(          \
-        emb, neg_l, neg_r, n_pairs, k, out);                                            \
+#define MARGIN_GATHER(D, E, W)                                                          \
+  if (W == D) {                                                                        \
+    margin_gather_only<D, E><<<(n_pairs + kWarps - 1) / kWarps, kThreads, 0, s>>>(       \
+        emb, neg_l, neg_r, n_pairs, k, d, out);                                         \
     return cudaGetLastError();                                                          \
   }
-  MARGIN_WIDTHS(MARGIN_GATHER)
+#define MARGIN_GATHER_EXACT(D) MARGIN_GATHER(D, true, d)
+#define MARGIN_GATHER_MASKED(D) MARGIN_GATHER(D, false, masked_width(d))
+  MARGIN_WIDTHS(MARGIN_GATHER_EXACT)
+  if (d < 1 || d > 512) return cudaErrorInvalidValue;
+  MASKED_WIDTHS(MARGIN_GATHER_MASKED)
+#undef MARGIN_GATHER_MASKED
+#undef MARGIN_GATHER_EXACT
 #undef MARGIN_GATHER
   return cudaErrorInvalidValue;
 }

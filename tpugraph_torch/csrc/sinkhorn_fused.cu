@@ -50,7 +50,18 @@
 //     last, and resets the counter, so a call is one launch;
 //   * the -inf guards of the TPU kernel are kept: columns past C carry
 //     z = -inf, a split with no valid column contributes (-inf, 0), and an
-//     all-masked row ends with lse = log(1e-38).
+//     all-masked row ends with lse = log(1e-38);
+//   * above d = 256 (kStream) the strip's (big, small) halves no longer fit
+//     beside the ring (2 × 64 × 528 floats at 512 alone are 270 KB), so the
+//     strip streams too: each ring slot holds the candidate chunk and the
+//     strip's chunk of the same 64 of d, fp32, and each warp splits its
+//     query fragments in registers as it does the candidates'.  A tile's
+//     dot products are still summed over every chunk of d in the same
+//     accumulators before its exp and LSE fold; the strip is read once per
+//     tile (from L2) instead of once per split.  At d ≤ 256 the kernel is
+//     the resident-strip one above, unchanged.  Rows are d % 4 == 0 wide:
+//     the wrapper pads others with zero columns, which change neither
+//     norm nor dot product.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -116,6 +127,27 @@ __device__ __forceinline__ void load_chunk(float* dst, const float* __restrict__
   }
 }
 
+// The query rows [q0, q0 + kBQ) × d-chunk [k0, k0 + kKC) into a ring slot
+// after its candidate chunk (kStream); rows past Q and columns past d are
+// zero-filled.
+__device__ __forceinline__ void load_query_chunk(float* dst, const float* __restrict__ l, int q0,
+                                                 int k0, int n_q, int d, int tid) {
+#pragma unroll
+  for (int j = 0; j < kBQ * (kKC / 4) / kThreads; ++j) {
+    const int i = j * kThreads + tid;
+    const int row = i / (kKC / 4), f4 = i % (kKC / 4);
+    const int q = q0 + row, k = k0 + f4 * 4;
+    const bool valid = q < n_q && k < d;
+    const float* src = valid ? l + static_cast<long>(q) * d + k : l;
+    cp_async16(dst + row * kRStride + f4 * 4, src, valid);
+  }
+}
+
+// The floats of one ring slot: the candidate chunk, and with kStream the
+// strip's chunk after it
+template <bool kStream>
+constexpr int kSlot = (kBC + (kStream ? kBQ : 0)) * kRStride;
+
 // The query rows [q0, q0 + kBQ) split into (big, small) halves in shared
 // memory; rows past Q and columns past d are zero.
 __device__ __forceinline__ void stage_strip(uint32_t* l_big, uint32_t* l_small,
@@ -148,7 +180,7 @@ __device__ __forceinline__ void stage_strip(uint32_t* l_big, uint32_t* l_small,
   }
 }
 
-template <int kStages>
+template <int kStages, bool kStream>
 __global__ void __launch_bounds__(kThreads, 1)
 sinkhorn_update_kernel(const float* __restrict__ l, const float* __restrict__ r,
                        const float* __restrict__ l2, const float* __restrict__ r2,
@@ -158,11 +190,12 @@ sinkhorn_update_kernel(const float* __restrict__ l, const float* __restrict__ r,
                        float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
   const int d_pad = (d + kKC - 1) / kKC * kKC;
-  const int l_stride = d_pad + kPad;
+  const int l_stride = kStream ? 0 : d_pad + kPad;  // the resident strip's halves, if any
   uint32_t* l_big = reinterpret_cast<uint32_t*>(smem);    // [kBQ][l_stride]
   uint32_t* l_small = l_big + kBQ * l_stride;              // [kBQ][l_stride]
-  float* ring = reinterpret_cast<float*>(l_small + kBQ * l_stride);  // [kStages][kBC][kRStride]
-  float2* red = reinterpret_cast<float2*>(ring + kStages * kBC * kRStride);  // [kWarpsN][kBQ]
+  // [kStages][kBC (+ kBQ with kStream)][kRStride]
+  float* ring = reinterpret_cast<float*>(l_small + kBQ * l_stride);
+  float2* red = reinterpret_cast<float2*>(ring + kStages * kSlot<kStream>);  // [kWarpsN][kBQ]
   __shared__ int s_last;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -179,13 +212,20 @@ sinkhorn_update_kernel(const float* __restrict__ l, const float* __restrict__ r,
   // the loads run kStages - 1 chunks ahead of the products: the next
   // chunk to load is d-chunk ld_kc of tile ld_tile, into ring slot ld_slot
   int ld_left = (u1 - u0) * nkc, ld_slot = 0, ld_tile = u0 % n_tiles, ld_kc = 0;
+  int ld_strip = u0 / n_tiles;  // with kStream: the strip whose chunk loads beside
   auto load_next = [&]() {
     if (ld_left > 0) {
-      load_chunk(ring + ld_slot * kBC * kRStride, r, ld_tile * kBC, ld_kc * kKC, n_c, d, tid);
+      float* dst = ring + ld_slot * kSlot<kStream>;
+      load_chunk(dst, r, ld_tile * kBC, ld_kc * kKC, n_c, d, tid);
+      if constexpr (kStream)
+        load_query_chunk(dst + kBC * kRStride, l, ld_strip * kBQ, ld_kc * kKC, n_q, d, tid);
       --ld_left;
       if (++ld_kc == nkc) {
         ld_kc = 0;
-        if (++ld_tile == n_tiles) ld_tile = 0;
+        if (++ld_tile == n_tiles) {
+          ld_tile = 0;
+          ++ld_strip;
+        }
       }
       if (++ld_slot == kStages) ld_slot = 0;
     }
@@ -201,7 +241,7 @@ sinkhorn_update_kernel(const float* __restrict__ l, const float* __restrict__ r,
     const int split_end = min(u1, (strip + 1) * n_tiles);
     const int q0 = strip * kBQ;
     __syncthreads();  // the last split is done with the strip, red and s_last
-    stage_strip(l_big, l_small, l, q0, n_q, d, d_pad, l_stride, tid);
+    if constexpr (!kStream) stage_strip(l_big, l_small, l, q0, n_q, d, d_pad, l_stride, tid);
 
     // this thread's 4 rows (fragment rows g and g + 8 of two m-tiles) and
     // 8 columns (2 of each of four n-tiles)
@@ -229,7 +269,7 @@ sinkhorn_update_kernel(const float* __restrict__ l, const float* __restrict__ r,
         cp_async_wait<kStages - 2>();
         __syncthreads();  // this chunk (and the strip) is in; the oldest slot is free
         load_next();
-        const float* rb_s = ring + slot * kBC * kRStride;
+        const float* rb_s = ring + slot * kSlot<kStream>;
         if (++slot == kStages) slot = 0;
 #pragma unroll
         for (int kk = 0; kk < kKC; kk += 16) {
@@ -240,12 +280,21 @@ sinkhorn_update_kernel(const float* __restrict__ l, const float* __restrict__ r,
           for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
-              const int off =
-                  (wm * 32 + mt * 16 + h * 8 + gq) * l_stride + kc * kKC + kk + tq * 4;
-              const uint4 vb = *reinterpret_cast<const uint4*>(l_big + off);
-              const uint4 vs = *reinterpret_cast<const uint4*>(l_small + off);
-              ab[mt][h][0] = vb.x; ab[mt][h][1] = vb.y; ab[mt][h][2] = vb.z; ab[mt][h][3] = vb.w;
-              as[mt][h][0] = vs.x; as[mt][h][1] = vs.y; as[mt][h][2] = vs.z; as[mt][h][3] = vs.w;
+              const int row = wm * 32 + mt * 16 + h * 8 + gq;
+              if constexpr (kStream) {  // the strip's chunk, split here
+                const float4 v = *reinterpret_cast<const float4*>(
+                    rb_s + (kBC + row) * kRStride + kk + tq * 4);
+                split_tf32(v.x, ab[mt][h][0], as[mt][h][0]);
+                split_tf32(v.y, ab[mt][h][1], as[mt][h][1]);
+                split_tf32(v.z, ab[mt][h][2], as[mt][h][2]);
+                split_tf32(v.w, ab[mt][h][3], as[mt][h][3]);
+              } else {
+                const int off = row * l_stride + kc * kKC + kk + tq * 4;
+                const uint4 vb = *reinterpret_cast<const uint4*>(l_big + off);
+                const uint4 vs = *reinterpret_cast<const uint4*>(l_small + off);
+                ab[mt][h][0] = vb.x; ab[mt][h][1] = vb.y; ab[mt][h][2] = vb.z; ab[mt][h][3] = vb.w;
+                as[mt][h][0] = vs.x; as[mt][h][1] = vs.y; as[mt][h][2] = vs.z; as[mt][h][3] = vs.w;
+              }
             }
           uint32_t bb[4][4], bs[4][4];
 #pragma unroll
@@ -354,20 +403,21 @@ sinkhorn_update_kernel(const float* __restrict__ l, const float* __restrict__ r,
   cp_async_wait<0>();
 }
 
-size_t smem_bytes(int d, int stages) {
+size_t smem_bytes(int d, int stages, bool stream) {
   const int d_pad = (d + kKC - 1) / kKC * kKC;
-  return sizeof(float) * (2 * static_cast<size_t>(kBQ) * (d_pad + kPad) +
-                          static_cast<size_t>(stages) * kBC * kRStride) +
+  const size_t strip = stream ? 0 : 2 * static_cast<size_t>(kBQ) * (d_pad + kPad);
+  const size_t slot = stream ? kSlot<true> : kSlot<false>;
+  return sizeof(float) * (strip + static_cast<size_t>(stages) * slot) +
          sizeof(float2) * kWarpsN * kBQ;
 }
 
-template <int kStages>
+template <int kStages, bool kStream>
 cudaError_t launch(const float* l, const float* r, const float* l2, const float* r2,
                    const float* g, const float* log_mu, float tau, int n_q, int n_c, int d,
                    int grid, int max_splits, float2* partial, int* counters, float* out,
                    cudaStream_t stream) {
-  auto kern = sinkhorn_update_kernel<kStages>;
-  const size_t smem = smem_bytes(d, kStages);
+  auto kern = sinkhorn_update_kernel<kStages, kStream>;
+  const size_t smem = smem_bytes(d, kStages, kStream);
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -380,8 +430,9 @@ cudaError_t launch(const float* l, const float* r, const float* l2, const float*
 
 // f (n_q,) float32 from l (n_q, d), r (n_c, d), l2 = ‖l‖² (n_q,),
 // r2 = ‖r‖² (n_c,), g (n_c,), log_mu (n_q,); all float32, contiguous, rows
-// 16-byte aligned (d % 4 == 0, d ≤ 256: the strip's two halves and a
-// 2-stage ring fill 218 KB of shared memory at 256).  `grid` blocks share
+// 16-byte aligned (d % 4 == 0, d ≤ 512: up to 256 the strip stays in shared
+// memory, its two halves and a 2-stage ring filling 218 KB at 256; above
+// it the strip streams through a 3-stage ring, 186 KB).  `grid` blocks share
 // the ceil(n_q / 64) × ceil(n_c / 128) work units evenly (grid ≤ units);
 // partial is (ceil(n_q / 64), max_splits, 64) float2 scratch, where
 // max_splits bounds the blocks any strip is shared by, and counters
@@ -395,7 +446,7 @@ extern "C" int sinkhorn_update_forward(const float* l, const float* r, const flo
                                        void* stream) {
   if (n_q <= 0) return cudaSuccess;
   const long long units = static_cast<long long>((n_q + kBQ - 1) / kBQ) * ((n_c + kBC - 1) / kBC);
-  if (d <= 0 || d % 4 != 0 || d > 256 || n_c <= 0 || grid <= 0 || grid > units ||
+  if (d <= 0 || d % 4 != 0 || d > 512 || n_c <= 0 || grid <= 0 || grid > units ||
       units >= (1LL << 28) || max_splits <= 0)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -406,9 +457,12 @@ extern "C" int sinkhorn_update_forward(const float* l, const float* r, const flo
       cudaSuccess)
     return err;
   float2* part = static_cast<float2*>(partial);
-  if (smem_bytes(d, 3) <= static_cast<size_t>(limit))
-    return launch<3>(l, r, l2, r2, g, log_mu, tau, n_q, n_c, d, grid, max_splits, part,
-                     counters, out, s);
-  return launch<2>(l, r, l2, r2, g, log_mu, tau, n_q, n_c, d, grid, max_splits, part, counters,
-                   out, s);
+  if (d > 256)
+    return launch<3, true>(l, r, l2, r2, g, log_mu, tau, n_q, n_c, d, grid, max_splits, part,
+                           counters, out, s);
+  if (smem_bytes(d, 3, false) <= static_cast<size_t>(limit))
+    return launch<3, false>(l, r, l2, r2, g, log_mu, tau, n_q, n_c, d, grid, max_splits, part,
+                            counters, out, s);
+  return launch<2, false>(l, r, l2, r2, g, log_mu, tau, n_q, n_c, d, grid, max_splits, part,
+                          counters, out, s);
 }

@@ -2,6 +2,10 @@
 // ELL matrix, written straight to natural row order.  x and out are fp32,
 // or both bf16 (bf16 training): the products and sums are fp32 either way,
 // the cut rows' partials too, and a bf16 row is rounded once, at the end.
+// Any width d from 1 to 512: instances at 64, 128 and 256, and 128-column
+// panels of the row over the grid's second axis at every other d (the
+// GCN layer's forward at widths without a fused instance, and its
+// backward, run here; ell_gather.cuh's FixedCols and PanelCols).
 //
 // Replaces the XLA ops of tpugraph/kernels/spmm_ell.py::_ell_apply and
 // _apply_with_diag (the bucket gathers + K reduction + row_order gather).
@@ -40,7 +44,13 @@
 //     segment finished last and is bit-identical from run to run;
 //   * every output row is written exactly once: no atomics on out, no zero
 //     fill, no row_order gather.  Rows in no bucket are items of diagonal
-//     slots only (0 without a diagonal).
+//     slots only (0 without a diagonal);
+//   * at a width without an instance each item runs once per 128-column
+//     panel (blockIdx.y), the tail panel masked at d, 8 source rows in
+//     flight; a cut row's partials are then rows of 128·panels (aligned for
+//     any d), with one counter per cut row and panel.  A panel's columns
+//     are summed in the same slot order as an instance's, so the sums per
+//     element are the instance's arithmetic.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,17 +62,20 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 
-template <typename T, int D>
+// Cols: ell::FixedCols<D> at a width with an instance, else ell::PanelCols<d % 4 == 0>
+// (one 128-column panel of the row per block row of the grid)
+template <typename T, typename Cols>
 __global__ void __launch_bounds__(kThreads)
 spmm_ell_kernel(const T* __restrict__ x, const float* __restrict__ diag,
                 const int* __restrict__ rows, const int* __restrict__ idx,
                 const float* __restrict__ ew, const int4* __restrict__ items, int n_items,
                 const int* __restrict__ split_p0, int* __restrict__ counters,
-                float* __restrict__ partial, T* __restrict__ out) {
-  constexpr int CI = ell::kChunks<D>;
+                float* __restrict__ partial, T* __restrict__ out, int d) {
+  constexpr int CI = Cols::kCI;
   const int lane = threadIdx.x & 31;
   const int item = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (item >= n_items) return;
+  const Cols cols = Cols::at(d, lane);
   // (first row's position in rows, rows, K, first slot), (virtual slots
   // [v0, v1), partial index or -1, split-row index or -1)
   const int4 a = __ldg(items + 2 * item), b = __ldg(items + 2 * item + 1);
@@ -72,59 +85,72 @@ spmm_ell_kernel(const T* __restrict__ x, const float* __restrict__ diag,
 
   float acc[CI][4] = {};
   int cur;  // the row acc belongs to
-  ell::walk_vslots<T, D, true>(
-      x, diag, rows, idx, ew, pos0, k_row, slot0, v0, v1, lane, acc, cur,
+  ell::walk_cols<CI, Cols::kV, Cols::kU>(
+      [&](int src, int c, float (&v)[4]) { cols.load(x, src, c, v); }, v0, v1, lane, acc, cur,
+      [&](int v, int& src, float& w, int& key) {
+        ell::load_vslot<true>(v, v1, pos0, k_row, slot0, rows, idx, ew, diag, src, w, key);
+      },
       [&](int row, const float (&a)[CI][4]) {  // a packed item moves on to its next row
-        ell::put_row<D>(out + static_cast<long>(row) * D, lane, a);
-      });
+        cols.put(out, row, a);
+      },
+      cols.lane_ok());
   if (part < 0) {
-    ell::put_row<D>(out + static_cast<long>(cur) * D, lane, acc);
+    cols.put(out, cur, acc);
     return;
   }
 
   // one segment of a long row: publish the partial; the row's last segment
   // to arrive sums all of them in segment order
   float sum[CI][4];
-  if (ell::sum_segments<D>(partial, part, __ldg(split_p0 + split), __ldg(split_p0 + split + 1),
-                           counters + split, lane, acc, sum))
-    ell::put_row<D>(out + static_cast<long>(cur) * D, lane, sum);
+  if (cols.sum_segments(partial, part, __ldg(split_p0 + split), __ldg(split_p0 + split + 1),
+                        counters, split, acc, sum))
+    cols.put(out, cur, sum);
 }
 
-template <typename T, int D>
+template <typename T, typename Cols>
 cudaError_t launch(const void* x, const float* diag, const int* rows, const int* idx,
                    const float* ew, const int* items, int n_items, const int* split_p0,
-                   int* counters, float* partial, void* out, cudaStream_t stream) {
-  const int grid = (n_items + kWarps - 1) / kWarps;
-  spmm_ell_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+                   int* counters, float* partial, void* out, int d, int n_panels,
+                   cudaStream_t stream) {
+  const dim3 grid((n_items + kWarps - 1) / kWarps, n_panels);
+  spmm_ell_kernel<T, Cols><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), diag, rows, idx, ew, reinterpret_cast<const int4*>(items),
-      n_items, split_p0, counters, partial, static_cast<T*>(out));
+      n_items, split_p0, counters, partial, static_cast<T*>(out), d);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // out (n_rows, d) of x's type = A·x + diag ⊙ x.  diag may be null.  d is
-// 64 (a tensor-parallel rank's half of a 128-wide layer), 128 or 256; dtype
-// 0 is float32, 1 bfloat16.  items is the (n_items, 8) int32 segment table;
-// split_p0 (n_split + 1) the first partial of each cut row; counters
-// (n_split) int scratch, zero on entry and left zero on exit, and partial
-// (split_p0[n_split], d) float32 scratch.  One kernel launch; returns its
-// cudaError_t (0 on success), and the work itself runs asynchronously on
-// `stream`.
+// any width from 1 to 512: 64 (a tensor-parallel rank's half of a 128-wide
+// layer), 128 and 256 have instances, any other d runs in 128-column
+// panels; dtype 0 is float32, 1 bfloat16.  items is the (n_items, 8) int32
+// segment table; split_p0 (n_split + 1) the first partial of each cut row;
+// counters (n_split·P) int scratch, zero on entry and left zero on exit,
+// and partial (split_p0[n_split], W) float32 scratch, with (W, P) = (d, 1)
+// at an instance's width, else (128·P, ceil(d / 128)).  One kernel launch;
+// returns its cudaError_t (0 on success), and the work itself runs
+// asynchronously on `stream`.
 extern "C" int spmm_ell_forward(const void* x, const float* diag, const int* rows,
                                 const int* idx, const float* ew, const int* items, int n_items,
                                 const int* split_p0, int* counters, float* partial, void* out,
                                 int d, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_items <= 0) return cudaSuccess;
-#define SPMM_ELL_LAUNCH(T, D) \
-  launch<T, D>(x, diag, rows, idx, ew, items, n_items, split_p0, counters, partial, out, s)
-  if (dtype == 0 && d == 64) return SPMM_ELL_LAUNCH(float, 64);
-  if (dtype == 0 && d == 128) return SPMM_ELL_LAUNCH(float, 128);
-  if (dtype == 0 && d == 256) return SPMM_ELL_LAUNCH(float, 256);
-  if (dtype == 1 && d == 64) return SPMM_ELL_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == 1 && d == 128) return SPMM_ELL_LAUNCH(__nv_bfloat16, 128);
-  if (dtype == 1 && d == 256) return SPMM_ELL_LAUNCH(__nv_bfloat16, 256);
+  if (d < 1 || d > 512 || dtype < 0 || dtype > 1) return cudaErrorInvalidValue;
+#define SPMM_ELL_LAUNCH(T, COLS, P) \
+  launch<T, COLS>(x, diag, rows, idx, ew, items, n_items, split_p0, counters, partial, out, d, P, s)
+  if (dtype == 0 && d == 64) return SPMM_ELL_LAUNCH(float, ell::FixedCols<64>, 1);
+  if (dtype == 0 && d == 128) return SPMM_ELL_LAUNCH(float, ell::FixedCols<128>, 1);
+  if (dtype == 0 && d == 256) return SPMM_ELL_LAUNCH(float, ell::FixedCols<256>, 1);
+  if (dtype == 1 && d == 64) return SPMM_ELL_LAUNCH(__nv_bfloat16, ell::FixedCols<64>, 1);
+  if (dtype == 1 && d == 128) return SPMM_ELL_LAUNCH(__nv_bfloat16, ell::FixedCols<128>, 1);
+  if (dtype == 1 && d == 256) return SPMM_ELL_LAUNCH(__nv_bfloat16, ell::FixedCols<256>, 1);
+  const int panels = (d + 127) / 128;
+  if (d % 4 == 0)
+    return dtype == 0 ? SPMM_ELL_LAUNCH(float, ell::PanelCols<true>, panels)
+                      : SPMM_ELL_LAUNCH(__nv_bfloat16, ell::PanelCols<true>, panels);
+  return dtype == 0 ? SPMM_ELL_LAUNCH(float, ell::PanelCols<false>, panels)
+                    : SPMM_ELL_LAUNCH(__nv_bfloat16, ell::PanelCols<false>, panels);
 #undef SPMM_ELL_LAUNCH
-  return cudaErrorInvalidValue;
 }

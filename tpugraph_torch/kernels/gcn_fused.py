@@ -33,13 +33,20 @@ concatenation and no ``row_order`` gather.  The work counters and the
 segments' partials are cached per (d_in, d_out, stream) and left at zero by
 the kernel, so a call is one launch: no memset, no scratch allocation.
 
-``gcn_layer`` is the trainable layer, a ``torch.autograd.Function``: the
-forward is this kernel; the backward is u = Aᵀ·ḡ by the ELL SpMM kernel
+``gcn_layer`` is the trainable layer, a ``torch.autograd.Function``.  Its
+forward is this kernel where (d_in, d_out) has an instance (``WIDTHS``);
+at every other width (any d_in, d_out ≤ 512) it runs the JAX layer's own
+order: support = x·W by ``torch.matmul`` in x's type (a plain matrix
+product, which the JAX package leaves to XLA), then A·support +
+diag ⊙ support by the ELL SpMM kernel over ``op.fwd`` (one launch), then
+the bias.  ``fused_width`` is the one place that choice is made.  The
+backward is the same for both routes: u = Aᵀ·ḡ by the ELL SpMM kernel
 over the prebuilt transpose (one launch, in ḡ's type), then dx = u·Wᵀ,
 dW = xᵀ·u (plain matrix products in x's type, bf16 under bf16 training, as
 the JAX package leaves them to XLA) and db = Σ ḡ in fp32.  On CPU tensors
 both halves run their plain versions, so the CPU tests exercise the
-backward formula itself.
+backward formula itself; ``gcn_layer_plain`` is the whole layer's plain
+version, by the same route.
 """
 
 from __future__ import annotations
@@ -76,15 +83,23 @@ PRODUCTS = {key: (3, "bf16") if key == (256, 256, torch.bfloat16)
 launches = 0
 
 
+def fused_width(d_in: int, d_out: int) -> bool:
+    """Whether the GCN layer at (d_in, d_out) runs the fused kernel (an
+    instance of csrc/gcn_fused.cu), else x·W then the ELL SpMM: the one
+    place ``gcn_layer`` and ``gcn_layer_plain`` choose their route."""
+    return (d_in, d_out) in WIDTHS
+
+
+def _add_bias(out: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+    return out if bias is None else out + bias.to(out.dtype)
+
+
 def reference_layer(m: EllMatrix, diag: torch.Tensor | None, x: torch.Tensor,
                     wmat: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
     """The plain version: ELL aggregate (gather + fp32 reduce), then the
     GEMM in fp32, cast to x's type, then the bias."""
     out = apply_with_diag(m, diag, x)
-    out = torch.matmul(out.float(), wmat.float()).to(x.dtype)
-    if bias is not None:
-        out = out + bias.to(out.dtype)
-    return out
+    return _add_bias(torch.matmul(out.float(), wmat.float()).to(x.dtype), bias)
 
 
 def _lib():
@@ -227,7 +242,9 @@ class _GcnLayer(torch.autograd.Function):
     def forward(ctx, x, wmat, bias, op):
         ctx.op = op
         ctx.save_for_backward(x, wmat)
-        return fused_gcn_layer(op.fwd, op.diag, x, wmat, bias)
+        if fused_width(x.shape[1], wmat.shape[1]):
+            return fused_gcn_layer(op.fwd, op.diag, x, wmat, bias)
+        return _add_bias(ell_spmm(op.fwd, op.diag, torch.matmul(x, wmat)), bias)
 
     @staticmethod
     def backward(ctx, g):
@@ -248,3 +265,13 @@ def gcn_layer(op: EllOperator, x: torch.Tensor, wmat: torch.Tensor,
     through the cast), b float32.  The operator is a constant and gets
     none, as in the JAX package's ``spmm_ell``."""
     return _GcnLayer.apply(x, wmat, bias, op)
+
+
+def gcn_layer_plain(op: EllOperator, x: torch.Tensor, wmat: torch.Tensor,
+                    bias: torch.Tensor | None = None) -> torch.Tensor:
+    """``gcn_layer``'s plain version by the same route, differentiated by
+    autograd: ``reference_layer`` at a fused width, else x·W then
+    ``apply_with_diag``."""
+    if fused_width(x.shape[1], wmat.shape[1]):
+        return reference_layer(op.fwd, op.diag, x, wmat, bias)
+    return _add_bias(apply_with_diag(op.fwd, op.diag, torch.matmul(x, wmat)), bias)

@@ -31,9 +31,10 @@ On a CPU tensor each entry is its plain version (``l1_topk_plain``,
 blocks reduced by ``pairwise_l1``.  The kernel sums each distance in the
 order c = 0, 1, …, d − 1, the plain version in PyTorch's; both depend only
 on the two rows, never on the pair's place in a tile.  The kernel takes
-d % 4 == 0 and 4 ≤ d ≤ ``MAX_D`` (the tables' widths are 128, 256 and 512)
-and float32 rows that start 16-byte aligned.  No wrapper falls back from
-the card.
+d % 4 == 0 and float32 rows that start 16-byte aligned; the wrappers take
+any 1 ≤ d ≤ ``MAX_D`` and give rows of another width zero columns up to
+the next multiple of 4 (``pad.pad_columns``), which change no distance.
+No wrapper falls back from the card.
 
 Each launch spreads its work over ``units`` blocks by ``plan``: the
 (strip of ``STRIP`` queries, tile of ``TILE`` candidates) pairs, strip-major,
@@ -56,6 +57,7 @@ from dataclasses import dataclass
 import torch
 
 from tpugraph_torch.kernels import _build
+from tpugraph_torch.kernels.pad import pad_columns
 from tpugraph_torch.kernels.shortlist_dist import QUEUE_MAX, _least_k, queue_len
 from tpugraph_torch.train.losses import pairwise_l1
 
@@ -286,17 +288,18 @@ def _on_cpu(q, *others) -> bool:
     return q.device.type == "cpu"
 
 
-def _check(q, cands, **rows) -> None:
-    """What the kernel takes: float32 (Q, d) and (C, d) rows, d % 4 == 0 and
-    4 ≤ d ≤ MAX_D, contiguous and 16-byte aligned; each per-row or
-    per-column operand of its type and length, contiguous."""
+def _check(q, cands, **rows) -> tuple[torch.Tensor, torch.Tensor]:
+    """What the kernel takes: float32 (Q, d) and (C, d) rows, 1 ≤ d ≤ MAX_D,
+    contiguous and 16-byte aligned; each per-row or per-column operand of
+    its type and length, contiguous.  Returns q and cands with zero columns
+    up to a multiple of 4 (the kernel's d)."""
     if q.dim() != 2 or cands.dim() != 2 or q.shape[1] != cands.shape[1]:
         raise ValueError(f"q (Q, d) and cands (C, d) must share d, got {tuple(q.shape)}, "
                          f"{tuple(cands.shape)}")
     d = q.shape[1]
-    if d % 4 != 0 or not 4 <= d <= MAX_D:
-        raise ValueError(f"the L1 search kernel takes d % 4 == 0 and 4 ≤ d ≤ {MAX_D}, "
-                         f"got d = {d}")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"the L1 search kernel takes widths 1 to {MAX_D}, got d = {d}")
+    q, cands = pad_columns(q, 4), pad_columns(cands, 4)
     if cands.shape[0] == 0:
         raise ValueError("the L1 search takes at least one candidate")
     n = {"q": None, "cands": None, "bias": cands.shape[0], "col_mask": cands.shape[0],
@@ -314,6 +317,7 @@ def _check(q, cands, **rows) -> None:
             raise ValueError(f"{name} must be contiguous")
         if n[name] is None and t.data_ptr() % 16:
             raise ValueError(f"{name}'s rows must start 16-byte aligned")
+    return q, cands
 
 
 def _fn(name: str, argtypes: list):
@@ -352,7 +356,7 @@ def l1_tile(q, cands, *, a: float = 1.0, bias=None, col_mask=None, exclude=None,
     ``units``: the blocks of the launch (default: ``plan``'s)."""
     if _on_cpu(q, cands, bias, col_mask, exclude):
         return l1_tile_plain(q, cands, a=a, bias=bias, col_mask=col_mask, exclude=exclude)
-    _check(q, cands, bias=bias, col_mask=col_mask, exclude=exclude)
+    q, cands = _check(q, cands, bias=bias, col_mask=col_mask, exclude=exclude)
     s, c = q.shape[0], cands.shape[0]
     out = torch.empty((s, c), dtype=torch.float32, device=q.device)
     if s == 0:
@@ -378,7 +382,7 @@ def l1_topk(q, cands, k: int, *, a: float = 1.0, bias=None, col_mask=None,
     opts = dict(a=a, bias=bias, col_mask=col_mask, exclude=exclude)
     if _on_cpu(q, cands, bias, col_mask, exclude):
         return l1_topk_plain(q, cands, k, **opts)
-    _check(q, cands, bias=bias, col_mask=col_mask, exclude=exclude)
+    q, cands = _check(q, cands, bias=bias, col_mask=col_mask, exclude=exclude)
     _check_k(k, cands.shape[0])
     s, c = q.shape[0], cands.shape[0]
     vals = torch.empty((s, k), dtype=torch.float32, device=q.device)
@@ -415,7 +419,7 @@ def l1_count(q, cands, thresh, *, a: float = 1.0, bias=None, self_col=None,
     one."""
     if _on_cpu(q, cands, thresh, bias, self_col):
         return l1_count_plain(q, cands, thresh, a=a, bias=bias, self_col=self_col)
-    _check(q, cands, bias=bias, thresh=thresh, self_col=self_col)
+    q, cands = _check(q, cands, bias=bias, thresh=thresh, self_col=self_col)
     s, c = q.shape[0], cands.shape[0]
     count = torch.empty(s, dtype=torch.int64, device=q.device)
     if s == 0:

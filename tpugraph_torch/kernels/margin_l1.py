@@ -45,7 +45,8 @@ import torch
 
 from tpugraph_torch.kernels import _build
 
-WIDTHS = (16, 32, 64, 128, 256, 512)  # the kernel's instances (csrc/margin_l1.cu)
+WIDTHS = (16, 32, 64, 128, 256, 384, 512)  # the instances whose rows are d wide (margin_l1.cu)
+MAX_D = 512  # the widest table; any other d ≤ MAX_D runs on a masked instance (lane_width)
 SEG = 32  # records an item of the backward (kSeg): a row of more spans several items
 
 # kernel launches (forward and backward each count one) since the process
@@ -77,22 +78,33 @@ def margin_loss_plain(emb: torch.Tensor, pairs: torch.Tensor, neg_l: torch.Tenso
     return 0.5 * ((w * h_r).sum() + (w * h_l).sum()) / denom
 
 
+def lane_width(d: int) -> int:
+    """The width of the kernel's instance that holds rows of width d: d at
+    an instance's width (``WIDTHS``), else the masked instance of the least
+    of 32, 64, 128, 192, …, 512 that is ≥ d (``masked_width`` in
+    csrc/margin_l1.cu), whose elements past d are 0."""
+    if d in WIDTHS:
+        return d
+    return 32 if d <= 32 else -(-d // 64) * 64
+
+
 @functools.lru_cache
 def _lane_elems(d: int) -> torch.Tensor:
     """(slots, 32): the element that lane t holds in each register slot of
-    the kernel's ``Row<d>`` (float4 layout where 128 divides d: slot 4c + u
-    of lane t is element (32c + t)·4 + u; else slot s is element 32s + t),
-    d where the lane holds none."""
-    t, lane = torch.arange(max(d // 32, 1))[:, None], torch.arange(32)[None, :]
-    e = (t // 4 * 32 + lane) * 4 + t % 4 if d % 128 == 0 else t * 32 + lane
+    the kernel's row at width d (``max(lane_width(d) / 32, 1)`` slots;
+    float4 layout at an instance's width that 128 divides: slot 4c + u of
+    lane t is element (32c + t)·4 + u; else slot s is element 32s + t), d
+    where the lane holds none."""
+    t, lane = torch.arange(max(lane_width(d) // 32, 1))[:, None], torch.arange(32)[None, :]
+    e = (t // 4 * 32 + lane) * 4 + t % 4 if d in WIDTHS and d % 128 == 0 else t * 32 + lane
     return torch.where(e < d, e, d)
 
 
 def plane_bytes(d: int) -> int:
     """Bytes a lane of one record's sign planes: 2 bits for each of its
-    ``max(d / 32, 1)`` elements, in 1, 2 or 4 bytes."""
-    per = max(d // 32, 1)
-    return 1 if per <= 4 else 2 if per == 8 else 4
+    ``max(lane_width(d) / 32, 1)`` slots, in 1, 2 or 4 bytes."""
+    per = max(lane_width(d) // 32, 1)
+    return 1 if per <= 4 else 2 if per <= 8 else 4
 
 
 def pack_planes(signs: torch.Tensor) -> torch.Tensor:
@@ -396,8 +408,8 @@ def _check(emb, pairs, neg_l, neg_r, weights, index) -> None:
     if emb.dim() != 2 or emb.dtype != torch.float32:
         raise ValueError(f"margin_l1 takes a float32 table (N, d), got {emb.dtype} "
                          f"{tuple(emb.shape)}")
-    if emb.shape[1] not in WIDTHS:
-        raise ValueError(f"margin_l1 has no instance for d={emb.shape[1]} (widths {WIDTHS})")
+    if not 1 <= emb.shape[1] <= MAX_D:
+        raise ValueError(f"margin_l1 takes widths 1 to {MAX_D}, got d={emb.shape[1]}")
     s = neg_r.shape[0]
     if (pairs.shape != (s, 2) or neg_l.shape != neg_r.shape or neg_r.dim() != 2 or s == 0
             or neg_r.shape[1] == 0):
@@ -426,8 +438,9 @@ def margin_l1_loss(emb: torch.Tensor, pairs: torch.Tensor, neg_l: torch.Tensor,
     (S, 2) and the negatives (S, k); ids are taken as int64, ``weights``
     as float32; ``index``, where the caller's batch carries it,
     ``build_index`` of these pairs and negatives over N rows (else it is
-    built in the backward).  On a CUDA table the kernel (d in ``WIDTHS``),
-    on a CPU one its arithmetic in torch; any other device raises."""
+    built in the backward).  On a CUDA table the kernel (1 ≤ d ≤
+    ``MAX_D``), on a CPU one its arithmetic in torch; any other device
+    raises."""
     _check(emb, pairs, neg_l, neg_r, weights, index)
     if emb.device.type not in ("cuda", "cpu"):
         raise ValueError(f"margin_l1_loss runs on cuda or cpu, not {emb.device}")
@@ -456,9 +469,9 @@ def gather_rows_sum(emb: torch.Tensor, neg_l: torch.Tensor, neg_r: torch.Tensor)
     if not emb.is_cuda:
         return gather_rows_sum_plain(emb, neg_l, neg_r)
     emb = emb.contiguous()
-    if emb.dtype != torch.float32 or emb.shape[1] not in WIDTHS or emb.data_ptr() % 16:
-        raise ValueError(f"margin_l1_gather takes a 16-byte aligned float32 table of a width "
-                         f"in {WIDTHS}, got {emb.dtype} {tuple(emb.shape)}")
+    if emb.dtype != torch.float32 or not 1 <= emb.shape[1] <= MAX_D or emb.data_ptr() % 16:
+        raise ValueError(f"margin_l1_gather takes a 16-byte aligned float32 table of width 1 "
+                         f"to {MAX_D}, got {emb.dtype} {tuple(emb.shape)}")
     neg_l, neg_r = (t.to(torch.int64).contiguous() for t in (neg_l, neg_r))
     s, k = neg_r.shape
     out = torch.empty(s, dtype=torch.float32, device=emb.device)

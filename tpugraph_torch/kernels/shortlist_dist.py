@@ -27,9 +27,11 @@ is ``lax.top_k``'s.
 * ``shortlist_select`` — on a CUDA tensor one launch of the hand-written
   Hopper kernel ``csrc/shortlist_dist.cu::shortlist_select_forward``, which
   never writes an (S, C) tile; on a CPU tensor ``shortlist_select_plain``.
-  It refuses (``ValueError``) a ``k`` above ``QUEUE_MAX`` and a width it
-  lacks (d % 4 != 0 or d > ``SELECT_MAX_D``), and (``TypeError``) any
-  operand that is not float32.
+  It takes any 1 ≤ d ≤ ``SELECT_MAX_D``, rows of another width than a
+  multiple of 4 (of 8 with ``bf16``) padded with zero columns
+  (``pad.pad_columns``), which change no score and no distance.  It
+  refuses (``ValueError``) a ``k`` above ``QUEUE_MAX`` and a width above
+  ``SELECT_MAX_D``, and (``TypeError``) any operand that is not float32.
 * ``shortlist_select_plain`` — the plain version: per block of
   ``PLAIN_BLOCK_Q`` queries the fp32 (or bf16-rounded) product tile, the
   bias and masks, the k least by ``torch.topk`` with ties at the k-th value
@@ -52,6 +54,7 @@ import ctypes
 import torch
 
 from tpugraph_torch.kernels import _build
+from tpugraph_torch.kernels.pad import pad_columns
 from tpugraph_torch.train.losses import pairwise_l1
 
 METRICS = ("cityblock", "sqeuclidean")
@@ -209,7 +212,10 @@ def shortlist_select_plain(q: torch.Tensor, cands: torch.Tensor, k: int, **opts)
     return _select_blocked(q, cands, k, shortlist_dist_plain, **opts)
 
 
-def _check_select(q, cands, k, q2, c2, bias, col_mask, exclude) -> None:
+def _check_select(q, cands, k, q2, c2, bias, col_mask, exclude,
+                  bf16: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's operands checked; returns q and cands with zero columns
+    up to a multiple of 4 (8 with bf16: the kernel's d)."""
     if q.dim() != 2 or cands.dim() != 2 or q.shape[1] != cands.shape[1]:
         raise ValueError(f"q (S, d) and cands (C, d) must share d, got {tuple(q.shape)}, "
                          f"{tuple(cands.shape)}")
@@ -217,9 +223,9 @@ def _check_select(q, cands, k, q2, c2, bias, col_mask, exclude) -> None:
     if not 1 <= k <= min(c, QUEUE_MAX):
         raise ValueError(f"the select kernel takes 1 ≤ k ≤ min(C, {QUEUE_MAX}), got k = {k}, "
                          f"C = {c}")
-    if d % 4 != 0 or not 4 <= d <= SELECT_MAX_D:
-        raise ValueError(f"the select kernel takes d % 4 == 0 and 4 ≤ d ≤ {SELECT_MAX_D}, "
-                         f"got d = {d}")
+    if not 1 <= d <= SELECT_MAX_D:
+        raise ValueError(f"the select kernel takes widths 1 to {SELECT_MAX_D}, got d = {d}")
+    q, cands = pad_columns(q, 8 if bf16 else 4), pad_columns(cands, 8 if bf16 else 4)
     for name, t, n, dtype in (("q", q, None, torch.float32),
                               ("cands", cands, None, torch.float32),
                               ("q2", q2, s, torch.float32), ("c2", c2, c, torch.float32),
@@ -236,6 +242,7 @@ def _check_select(q, cands, k, q2, c2, bias, col_mask, exclude) -> None:
             raise ValueError(f"{name} must be contiguous and on {q.device}")
         if n is None and t.data_ptr() % 16:
             raise ValueError(f"{name}'s rows must start 16-byte aligned")
+    return q, cands
 
 
 def shortlist_select(q: torch.Tensor, cands: torch.Tensor, k: int, *,
@@ -253,7 +260,7 @@ def shortlist_select(q: torch.Tensor, cands: torch.Tensor, k: int, *,
         check_metric(rerank)
     if q.device.type == "cpu":
         return shortlist_select_plain(q, cands, k, **opts)
-    _check_select(q, cands, k, q2, c2, bias, col_mask, exclude)
+    q, cands = _check_select(q, cands, k, q2, c2, bias, col_mask, exclude, bf16)
     if q.device.type != "cuda":
         raise ValueError(f"shortlist_select runs on cuda or cpu, not {q.device}")
     s = q.shape[0]

@@ -9,7 +9,10 @@
   the cost tile by tile on the tensor cores (a 3× TF32 split, fp32's
   accuracy) and never stores it; on a CPU tensor the plain version
   ``sinkhorn_update_plain`` (a materialised cost, then ``torch.logsumexp``).
-  It never falls back from the card.
+  Any d from 1 to ``MAX_D``: rows of a width that is no multiple of 4 get
+  zero columns (``pad.pad_columns``), which change no norm and no dot
+  product; above 256 the kernel streams the query strip beside the
+  candidate tiles.  It never falls back from the card.
 * ``stream_plan`` — how the persistent kernel shares the work: one block
   per SM takes an equal run of the (query strip, candidate tile) units; the
   piece of a strip each block covers is one split of its candidate axis,
@@ -34,9 +37,12 @@ import math
 import torch
 
 from tpugraph_torch.kernels import _build
+from tpugraph_torch.kernels.pad import pad_columns
 
 TILE_Q, TILE_C = 64, 128  # kBQ, kBC in csrc/sinkhorn_fused.cu
-MAX_D = 256  # the query strip's (big, small) halves and the ring fill 218 KB of shared memory
+# up to 256 the query strip's (big, small) halves and the ring fill 218 KB of
+# shared memory; above it the strip streams through the ring (186 KB)
+MAX_D = 512
 PRECISION = "3xtf32"  # the kernel's product: big·big + big·small + small·big in TF32
 
 # kernel launches since the process started (or the caller last reset them):
@@ -102,8 +108,8 @@ def _check(l, r, g, log_mu, l_sq, r_sq) -> None:
         raise ValueError(f"l (Q, d) and r (C, d) must share d, got {tuple(l.shape)}, "
                          f"{tuple(r.shape)}")
     if l.shape[1] % 4 or l.shape[1] > MAX_D or r.shape[0] == 0:
-        raise ValueError(f"the kernel needs d % 4 == 0, d <= {MAX_D} and C > 0, "
-                         f"got d={l.shape[1]}, C={r.shape[0]}")
+        raise ValueError(f"the kernel takes widths 1 to {MAX_D} (padded to a multiple of 4) "
+                         f"and C > 0, got d={l.shape[1]}, C={r.shape[0]}")
     q, c = l.shape[0], r.shape[0]
     for name, t, shape in (("l", l, tuple(l.shape)), ("r", r, tuple(r.shape)),
                            ("g", g, (c,)), ("log_mu", log_mu, (q,)),
@@ -130,6 +136,8 @@ def sinkhorn_potential_update(l: torch.Tensor, r: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"sinkhorn_potential_update runs on cuda or cpu, not {l.device}")
     l_sq = sq_norms(l) if l_sq is None else l_sq
     r_sq = sq_norms(r) if r_sq is None else r_sq
+    if l.dim() == 2 and r.dim() == 2 and l.shape[1] == r.shape[1] <= MAX_D:
+        l, r = pad_columns(l, 4), pad_columns(r, 4)
     _check(l, r, g, log_mu, l_sq, r_sq)
     (q, d), c = l.shape, r.shape[0]
     index = l.device.index if l.device.index is not None else torch.cuda.current_device()
@@ -160,6 +168,8 @@ def solve(l: torch.Tensor, r: torch.Tensor, tau: float,
     updates, f first, from f = g = 0 and uniform marginals."""
     q, c = l.shape[0], r.shape[0]
     l_sq, r_sq = sq_norms(l), sq_norms(r)
+    if l.is_cuda:  # the kernel's rows are padded once here, not in each update
+        l, r = pad_columns(l, 4), pad_columns(r, 4)
     log_mu = torch.full((q,), -math.log(q), dtype=torch.float32, device=l.device)
     log_nu = torch.full((c,), -math.log(c), dtype=torch.float32, device=l.device)
     g = torch.zeros(c, dtype=torch.float32, device=l.device)

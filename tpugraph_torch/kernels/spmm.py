@@ -10,7 +10,9 @@ out[i] = Σ_{e: dst[e]=i} w[e] · x[src[e]] over a ``PaddedEdges`` list.
   fixed order, so there it sums in float64, where the order moves a sum
   far below one fp32 rounding: its result is the same from run to run.
 * ``sorted_spmm`` — the same function by the hand-written Hopper kernel
-  ``csrc/spmm_sorted.cu`` on a CUDA tensor (fp32 or bf16, d ∈ {128, 256}),
+  ``csrc/spmm_sorted.cu`` on a CUDA tensor (fp32 or bf16, any d from 1 to
+  512: instances at 64, 128 and 256, ``spmm_ell.panel_layout``'s panels at
+  every other d),
   the plain version on a CPU tensor.  It never falls back from the card.
   Its work table (``segment_plan``) is built on the host once per edge list
   and cached on it, with its scratch once per (d, stream), so a call does
@@ -46,10 +48,9 @@ import numpy as np
 import torch
 
 from tpugraph_torch.kernels import _build
-from tpugraph_torch.kernels.spmm_ell import segment_scratch
+from tpugraph_torch.kernels.spmm_ell import check_width, segment_scratch
 from tpugraph_torch.sparse.graph import PaddedEdges, SpMMOperator
 
-SUPPORTED_DIMS = (64, 128, 256)  # csrc/spmm_sorted.cu template instances
 # The work table's two constants, chosen on an H100 at zh-en scale (the
 # sweep in PERF.md §6): caps of 64/96/128/192 edges by packings of 32/64/128
 # slots; 96 and 32 were best, or within noise of it, at d = 128 and on the
@@ -155,7 +156,7 @@ def _lib():
 def sorted_spmm(edges: PaddedEdges, x: torch.Tensor) -> torch.Tensor:
     """A @ x over a sorted edge list: the kernel on a CUDA tensor,
     ``segment_spmm`` on a CPU tensor.  x (n_cols, d) float32 or bfloat16,
-    d ∈ {128, 256} on the card; the output has x's type."""
+    1 ≤ d ≤ 512 on the card; the output has x's type."""
     if x.device.type == "cpu":
         return segment_spmm(edges, x)
     if x.device.type != "cuda":
@@ -164,8 +165,7 @@ def sorted_spmm(edges: PaddedEdges, x: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"the sorted SpMM kernel takes float32 or bfloat16, got {x.dtype}")
     if x.dim() != 2 or not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("x must be a contiguous, 16-byte aligned (N, d) tensor")
-    if x.shape[1] not in SUPPORTED_DIMS:
-        raise ValueError(f"d={x.shape[1]} not in {SUPPORTED_DIMS}")
+    check_width(x, "sorted SpMM")
     check_n_cols(edges, x)
     if edges.device != x.device:
         raise ValueError(f"the operator must be on {x.device}")

@@ -6,9 +6,10 @@ out[row] = Σ_k w[row, k] · x[idx[row, k]] + diag[row] · x[row].
   ``index_select`` gather per degree bucket, an fp32 ``einsum`` over K, one
   ``row_order`` gather back to natural row order, plus ``diag ⊙ x``.
 * ``ell_spmm`` — the same function by the hand-written Hopper kernel
-  ``csrc/spmm_ell.cu`` on a CUDA tensor (fp32 or bf16, d ∈ {128, 256};
-  fp32 sums, a bf16 row rounded once at the end), the plain version on a
-  CPU tensor.  It never falls back from the card.  Applied to
+  ``csrc/spmm_ell.cu`` on a CUDA tensor (fp32 or bf16, any d from 1 to
+  ``MAX_D``: instances at ``SUPPORTED_DIMS``, 128-column panels of the row
+  at every other d, ``panel_layout``; fp32 sums, a bf16 row rounded once at
+  the end), the plain version on a CPU tensor.  It never falls back from the card.  Applied to
   the prebuilt transpose ``op.bwd`` it is the backward of A·x with no
   scatter (``kernels/gcn_fused.py::gcn_layer``).  Pad slots hold
   ``idx = 0``, ``w = 0``: a non-finite x[0] poisons the padded rows
@@ -44,7 +45,9 @@ TILE_ROWS = 32  # kTileRows in csrc/gcn_fused.cu
 TILE_SLOTS = 1024  # target ELL slots per tile: large-K buckets get fewer rows
 SEG_SLOTS = 128  # longest run of one row's ELL slots in one SpMM work item
 PACK_VSLOTS = 64  # virtual slots (K + 1 per row) of a packed SpMM item: two chunks
-SUPPORTED_DIMS = (64, 128, 256)  # csrc/spmm_ell.cu template instances
+SUPPORTED_DIMS = (64, 128, 256)  # the template instances of csrc/spmm_ell.cu, spmm_sorted.cu
+MAX_D = 512  # the widest row either SpMM kernel takes (in PANEL-column panels elsewhere)
+PANEL = 128  # columns of one panel of the kernels' panel path (ell_gather.cuh's PanelCols)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the process started (or the caller last reset it)
@@ -209,19 +212,37 @@ def segment_plan(m: EllMatrix) -> SegmentPlan:
     return plan
 
 
+def check_width(x: torch.Tensor, what: str) -> None:
+    """The SpMM kernels take any width from 1 to ``MAX_D``; refuse others,
+    naming the width and the limit."""
+    if not 1 <= x.shape[1] <= MAX_D:
+        raise ValueError(f"the {what} kernel takes widths 1 to {MAX_D}, got d={x.shape[1]}")
+
+
+def panel_layout(d: int) -> tuple[int, int]:
+    """(width of a cut row's fp32 partial, panels of the row) at width d:
+    (d, 1) at an instance's width, else (PANEL·P, P) with P = ceil(d /
+    PANEL), each panel a row of the kernel's grid."""
+    if d in SUPPORTED_DIMS:
+        return d, 1
+    panels = -(-d // PANEL)
+    return PANEL * panels, panels
+
+
 def segment_scratch(plan, d: int, device: torch.device, stream: int) -> tuple[int, int]:
     """The addresses of the cut rows' fp32 partials and of their counters
-    in a segment table's scratch for width d on ``stream`` (``plan`` has
-    ``n_partials``, ``split_p0`` and the ``scratch`` dict: this module's
-    ``SegmentPlan`` or the sorted kernel's).  Allocated and zeroed at the
-    first call there, outside any capture; the kernels leave each counter
-    at 0."""
+    (one per cut row and panel) in a segment table's scratch for width d on
+    ``stream`` (``plan`` has ``n_partials``, ``split_p0`` and the
+    ``scratch`` dict: this module's ``SegmentPlan`` or the sorted kernel's).
+    Allocated and zeroed at the first call there, outside any capture; the
+    kernels leave each counter at 0."""
+    width, panels = panel_layout(d)
     scratch = plan.scratch.get((d, stream))
     if scratch is None:
-        scratch = torch.zeros(plan.n_partials * d + plan.split_p0.shape[0] - 1,
+        scratch = torch.zeros(plan.n_partials * width + (plan.split_p0.shape[0] - 1) * panels,
                               dtype=torch.float32, device=device)
         plan.scratch[(d, stream)] = scratch
-    return scratch.data_ptr(), scratch.data_ptr() + 4 * plan.n_partials * d
+    return scratch.data_ptr(), scratch.data_ptr() + 4 * plan.n_partials * width
 
 
 def check_diag(m: EllMatrix, diag: torch.Tensor | None, dev: torch.device) -> None:
@@ -246,8 +267,8 @@ def _lib():
 
 def ell_spmm(m: EllMatrix, diag: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor:
     """A @ x + diag ⊙ x: the kernel on a CUDA tensor, ``apply_with_diag``
-    on a CPU tensor.  x (n_cols, d) float32 or bfloat16, d ∈ {128, 256} on
-    the card; the output has x's type."""
+    on a CPU tensor.  x (n_cols, d) float32 or bfloat16, 1 ≤ d ≤ ``MAX_D``
+    on the card; the output has x's type."""
     if x.device.type == "cpu":
         return apply_with_diag(m, diag, x)
     if x.device.type != "cuda":
@@ -256,8 +277,7 @@ def ell_spmm(m: EllMatrix, diag: torch.Tensor | None, x: torch.Tensor) -> torch.
         raise TypeError(f"the ELL SpMM kernel takes float32 or bfloat16, got {x.dtype}")
     if x.dim() != 2 or not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("x must be a contiguous, 16-byte aligned (N, d) tensor")
-    if x.shape[1] not in SUPPORTED_DIMS:
-        raise ValueError(f"d={x.shape[1]} not in {SUPPORTED_DIMS}")
+    check_width(x, "ELL SpMM")
     check_n_cols(m, x)
     check_diag(m, diag, x.device)
     if m.device != x.device:
