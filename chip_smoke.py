@@ -266,7 +266,8 @@ Phases, each printing one JSON line:
 22. dist_mesh — tensor parallelism and slices (``feature_shards = 2``,
              ``slice_shards = 2``) on ``dwy100k_dist`` at full width on the
              same one-rank group, which holds every feature block and
-             slice: one step at d 128 and one v7r step at d 256 equal to the
+             slice: one step at d 128, one v7r step at d 256 and one step
+             at d 384 (column blocks of 192: the SpMMs' panels) equal to the
              F = L = 1 steps bit for bit with the same launches, no
              ``nccl`` event in the d-128 step's trace; then ``spmm_ell`` and
              ``spmm_sorted`` at a tensor-parallel rank's width (d/F = 64)
@@ -304,26 +305,30 @@ Phases, each printing one JSON line:
              beside phases 19's and 21 A's unfused runs; ``profile_dir``
              on a 6-epoch run (the trace of epochs 2-5 holds ``spmm_ell``).
 
-25. widths — every width the JAX package takes, up to 512: the ELL SpMM on
-             the zh-en transpose and the sorted SpMM on the zh-en adjacency
-             (their 128-column panels), the L1 margin at recipe v6's shape
-             (its masked instances at 50 and 300, float4 ones at 384 and
-             512) and the Sinkhorn update at 4,500² (the strip streamed
-             above 256, zero columns at 50), at d 50, 300, 384 and 512 in
-             fp32 and the SpMMs at 300 and 384 in bf16: against their
-             plain versions on NaN-prefilled memory, two launches bit for
-             bit, timed beside the plain version, cuSPARSE or ``addmm`` +
-             ``logsumexp`` and the bound; then ``driver.run`` at zh-en
-             scale with recipe v6 at dim 384 and 512 and at 384 in bf16,
-             config ``base`` at dim 64, at dim 50 with hidden 300 and at
-             384 with ``spmm_impl="sorted"`` (``WIDTH_RUNS``): launches
-             held to a model that knows each layer's route (``gcn_fused``
-             at a fused width, else x·W and ``spmm_ell``), the loss
-             falling in every resample interval, one step held to the
-             plain path (the bf16 limits for bf16), the run wall and the
-             step median; and one ``dwy100k_dist`` step at dim 384 (one
-             rank holding the 8 shards) held to the single-device step's
-             plain path.
+25. widths — every width the JAX package takes: the ELL SpMM on the zh-en
+             transpose and the sorted SpMM on the zh-en adjacency (their
+             128-column panels), the L1 margin at recipe v6's shape (its
+             masked instances at 50 and 300, float4 ones at 384 and 512,
+             the column slabs above 512) and the Sinkhorn update at 4,500²
+             (the strip streamed above 256, zero columns at 50, 514 and
+             1,030), at d 50, 300, 384, 512, 514, 768 and 1,030 in fp32
+             and the SpMMs at 300, 384 and 768 in bf16; above 512 also the
+             L1 search's mining top-k and rank count and the select
+             kernel's mining and CSLS eval (its strip streamed): against
+             their plain versions (the SpMMs and the margin on
+             NaN-prefilled memory), two launches bit for bit, timed beside
+             the plain version, the library call and the bound; then
+             ``driver.run`` at zh-en scale with recipe v6 at dim 384, 512
+             and 768 and at 384 in bf16, config ``base`` at dim 64, at dim
+             50 with hidden 300 and at 384 with ``spmm_impl="sorted"``,
+             config ``mtl`` with the attribute channel at dim 384 (its
+             search table 768 wide) (``WIDTH_RUNS``): launches held to a
+             model that knows each layer's route (``gcn_fused`` at a fused
+             width, else x·W and ``spmm_ell``), the loss falling in every
+             resample interval, one step held to the plain path (the bf16
+             limits for bf16), the run wall and the step median; and one
+             ``dwy100k_dist`` step at dim 384 and at 768 (one rank holding
+             the 8 shards) held to the single-device step's plain path.
 
 A step is held against its plain path by running the same model code with
 every kernel swapped for its plain version (``_plain_kernels``), which
@@ -2515,6 +2520,31 @@ def _l1_case(name: str, entry: str, q, cands, k: int, kw: dict, smi: str,
     return out
 
 
+def _l1_inputs(rng, entry: str, s: int, c: int, d: int, opts: dict, dev: torch.device):
+    """Random rows and one caller's options (``phase_l1_search``'s)."""
+    q = torch.from_numpy(rng.standard_normal((s, d)).astype(np.float32)).to(dev)
+    cands = torch.from_numpy(rng.standard_normal((c, d)).astype(np.float32)).to(dev)
+    kw = {}
+    if opts.get("exclude"):
+        kw["exclude"] = torch.from_numpy(rng.integers(0, c, s)).to(dev)
+    if opts.get("mask"):
+        kw["col_mask"] = torch.from_numpy(rng.random(c) >= 0.24).to(dev)
+    if opts.get("csls"):
+        kw["a"] = 2.0
+        kw["bias"] = torch.from_numpy(
+            (1.0 * d + 0.05 * d * rng.standard_normal(c)).astype(np.float32)).to(dev)
+    if entry == "count":
+        kw["self_col"] = (torch.arange(s, device=dev) if s == c
+                          else torch.from_numpy(rng.integers(-1, c, s)).to(dev))
+        own = kw["self_col"].clamp_min(0)
+        elsewhere = torch.from_numpy(rng.standard_normal((s, d)).astype(np.float32)).to(dev)
+        match = torch.where(kw["self_col"][:, None] >= 0, cands[own], elsewhere)
+        d_true = pairwise_l1(q, match).float()
+        kw["thresh"] = (2.0 * d_true - kw["bias"][own] if "bias" in kw
+                        else d_true).contiguous()
+    return q, cands, kw
+
+
 def phase_l1_search(smi: str, dev: torch.device, parent_src: str | None = None) -> dict:
     """The L1 search's two entries on the card against their plain versions
     at each caller's shape (``L1_SHAPES``): random rows; the partner of
@@ -2530,26 +2560,7 @@ def phase_l1_search(smi: str, dev: torch.device, parent_src: str | None = None) 
     out = {}
     t0 = time.perf_counter()
     for name, entry, s, c, d, k, opts in L1_SHAPES:
-        q = torch.from_numpy(rng.standard_normal((s, d)).astype(np.float32)).to(dev)
-        cands = torch.from_numpy(rng.standard_normal((c, d)).astype(np.float32)).to(dev)
-        kw = {}
-        if opts.get("exclude"):
-            kw["exclude"] = torch.from_numpy(rng.integers(0, c, s)).to(dev)
-        if opts.get("mask"):
-            kw["col_mask"] = torch.from_numpy(rng.random(c) >= 0.24).to(dev)
-        if opts.get("csls"):
-            kw["a"] = 2.0
-            kw["bias"] = torch.from_numpy(
-                (1.0 * d + 0.05 * d * rng.standard_normal(c)).astype(np.float32)).to(dev)
-        if entry == "count":
-            kw["self_col"] = (torch.arange(s, device=dev) if s == c
-                              else torch.from_numpy(rng.integers(-1, c, s)).to(dev))
-            own = kw["self_col"].clamp_min(0)
-            elsewhere = torch.from_numpy(rng.standard_normal((s, d)).astype(np.float32)).to(dev)
-            match = torch.where(kw["self_col"][:, None] >= 0, cands[own], elsewhere)
-            d_true = pairwise_l1(q, match).float()
-            kw["thresh"] = (2.0 * d_true - kw["bias"][own] if "bias" in kw
-                            else d_true).contiguous()
+        q, cands, kw = _l1_inputs(rng, entry, s, c, d, opts, dev)
         out[name] = _l1_case(name, entry, q, cands, k, kw, smi, parent)
         del q, cands, kw
     emit({"phase": "l1_search", "cases": len(out), "phase_s": time.perf_counter() - t0,
@@ -4388,6 +4399,7 @@ def phase_dist_options(smi: str, dev: torch.device, exact_stages: dict) -> dict:
 # the grid asked for: two feature blocks and two slices; one rank of one
 # card holds every block (W = 1), so its step is the F = L = 1 step
 DIST_MESH = {"feature_shards": 2, "slice_shards": 2}
+DIST_MESH_PANEL_DIM = 384  # each rank's column blocks 192 wide: the SpMMs' panel path
 
 
 def _mesh_step_pair(task, cfg, batch, dev) -> dict:
@@ -4420,7 +4432,9 @@ def phase_dist_mesh(smi: str, dev: torch.device) -> dict:
     (``DIST_CUTS``, ``_dist_batch``) and one v7r step at d 256 (phase 20's
     cuts, ``mp_worker.surface_batch``), each equal to its F = L = 1 step
     bit for bit with the same launches; a profiler trace of the d-128 step
-    (no ``nccl`` event).  Then the kernels at a tensor-parallel rank's
+    (no ``nccl`` event); one step at ``DIST_MESH_PANEL_DIM`` (blocks of 192
+    columns, which the SpMMs run in two panels, the second masked), held the
+    same way and timed by events.  Then the kernels at a tensor-parallel rank's
     width (d/F = 64) on the rank's stacked operators: ``spmm_ell`` fp32 and
     bf16, ``spmm_sorted``, against their plain versions.  (Leg A's run at
     F = L = 2 and its cut and resume, and the interleaved step timing,
@@ -4451,9 +4465,22 @@ def phase_dist_mesh(smi: str, dev: torch.device) -> dict:
             **_loss_launches(v7r, 1)}
     if v7r_step["launches"] != want:
         raise AssertionError(f"the v7r step launched {v7r_step['launches']}, expected {want}")
+    panel_cfg = cfg.replace(dim=DIST_MESH_PANEL_DIM)
+    panel_step = _mesh_step_pair(task, panel_cfg, batch, dev)
+    tp_panel = panel_step.pop("tp")
+    del panel_step["flat"]
+    if panel_step["launches"] != {"spmm_ell": 4 * HALO_LAYER_LAUNCHES,
+                                  **_nonzero(_loss_launches(panel_cfg, 1))}:
+        raise AssertionError(f"the d-{DIST_MESH_PANEL_DIM} step launched "
+                             f"{panel_step['launches']}")
+    panel_step.update(dim=DIST_MESH_PANEL_DIM,
+                      block_width=DIST_MESH_PANEL_DIM // DIST_MESH["feature_shards"],
+                      step_ms=time_ms(lambda: tp_panel.grads(batch), 1, 5))
+    del tp_panel
+    torch.cuda.empty_cache()
     leg_s = time.perf_counter() - t_leg
     out = {"grid_asked": DIST_MESH, "grid_held": [1, 1, 1], "d128_step": d128,
-           "v7r_step": v7r_step, "leg_s": leg_s}
+           "v7r_step": v7r_step, "panel_step": panel_step, "leg_s": leg_s}
     emit({"phase": "dist_mesh", **out, "card": smi})
 
     # the kernels at d/F = 64 on the rank's stacked operators (fp32, bf16)
@@ -5278,6 +5305,9 @@ def _margin_case(name: str, n: int, s: int, k: int, d: int, gamma: float, weight
            "rows_from_hbm_ms": rows_bytes / HBM_BYTES_PER_S * 1e3,
            "active_records": active,
            "planes_mb": {"active": active * plane_bytes / 2**20,
+                         # above margin_l1.SLAB the forward writes every record's
+                         "written": (2 * s * k if d > margin_l1.SLAB else active) * plane_bytes
+                         / 2**20,
                          "allocated": 2 * s * k * plane_bytes / 2**20,
                          "pair_vectors": 2 * s * d * 4 / 2**20,
                          "index": margin_l1.index_size(s, k, n) * 4 / 2**20},
@@ -5387,25 +5417,42 @@ def phase_step_losses(smi: str, dev: torch.device, dist_v7r: dict) -> dict:
     return {"margin": margin, "reverse": reverse, "steps": steps}
 
 
-# Every width the JAX package takes, up to 512: the changed kernels at
-# widths with no instance (50 and 300 with a masked tail, the sweeps' 384 and
-# 512; bf16 at 300 and 384) on the zh-en task, and the repo's own runs at
+# Every width the JAX package takes: the changed kernels at widths with no
+# instance (50 and 300 with a masked tail, the sweeps' 384 and 512; bf16 at
+# 300 and 384; WIDE_DS above 512) on the zh-en task, and the repo's own runs at
 # those widths (scripts/ot_sweep.py:72-73, the JAX CLI's docstring,
 # scripts/v7_sweep.py:70), cut as phase 6 cuts v6: (name, config, recipe,
 # overrides).  50 % 4 = 2 and 300 % 8 = 4 are chosen to hit the tails.
 WIDTH_DS = (50, 300, 384, 512)
 WIDTH_BF16_DS = (300, 384)
+# above 512: one column past a slab and a panel (514, the margin's second
+# slab 2 wide, 1 float4 past the panels), the attribute channel's table at
+# dim 384 (768), and 1,030 (3 slabs, a tail no multiple of 4); the SpMMs
+# also in bf16 at 768.  The searches run here too, at their mining and
+# count (top-k) or CSLS-eval (select) shapes of L1_SHAPES and SELECT_SHAPES.
+WIDE_DS = (514, 768, 1030)
+WIDE_BF16_DS = (768,)
+WIDE_L1 = ("mining", "ranks")
+WIDE_SELECT = ("mining", "eval_csls")
+# the GCN layer at widths without a fused instance: x·W, then spmm_ell
+LAYER_DS = (384, 512, 768)
 WIDTH_RUNS = (("v6_dim384", "base", "v6", dict(dim=384)),
               ("v6_dim512", "base", "v6", dict(dim=512)),
               ("base_dim64", "base", None, dict(dim=64)),
               ("base_dim50_hidden300", "base", None, dict(dim=50, hidden=300)),
               ("v6_dim384_bf16", "base", "v6", dict(dim=384, param_dtype="bfloat16")),
-              ("base_dim384_sorted", "base", None, dict(dim=384, spmm_impl="sorted")))
+              ("base_dim384_sorted", "base", None, dict(dim=384, spmm_impl="sorted")),
+              # the channel's table 768 wide through every search, as
+              # scripts/v7_sweep.py's ae runs it at scripts/ot_sweep.py:72's dim
+              ("mtl_ae_dim384", "mtl", None, dict(dim=384, use_attr_channel=True)),
+              # every training kernel but gcn_fused at d 768
+              ("v6_dim768", "base", "v6", dict(dim=768)))
 # config base's runs: 8 intervals of its 5 epochs, so the loss ends below its
 # first value after each mining's jump even at the narrow widths
 WIDTH_BASE_CUTS = {"epochs": 40, "eval_every": 0}
+WIDTH_MTL_CUTS = {"epochs": 10, "eval_every": 0}  # phase_mtl's
 WIDTH_MARGIN = ("v6_zh_en", 38_000, 7_000, 100, 15.0, True)  # MARGIN_SHAPES' v6 row, any d
-WIDTH_DIST_DIM = 384
+WIDTH_DIST_DIMS = (384, 768)
 
 
 def _falls_per_interval(losses: list, every: int) -> bool:
@@ -5419,28 +5466,39 @@ def _width_run(task, name: str, config: str, recipe: str | None, over: dict, dev
     """One run of WIDTH_RUNS through ``driver.run`` (``_run_checked``: its
     launches held to ``_expected_launches``, which knows each layer's route
     by width), the losses falling in every resample interval, and one step
-    on a uniform batch held to the plain path at ``STEP_TOL`` of the run's
-    type."""
-    cuts = RECIPE_CUTS if recipe else WIDTH_BASE_CUTS
+    held to the plain path at ``STEP_TOL`` of the run's type: on a uniform
+    batch, or with the relation and attribute heads (config mtl) on the
+    run's last interval batch as its checkpoint saved it (``_saved_batch``:
+    the heads' draws too)."""
+    cuts = RECIPE_CUTS if recipe else WIDTH_MTL_CUTS if config == "mtl" else WIDTH_BASE_CUTS
     cfg, reduced = _cut_config(task, config, cuts, recipe, **over)
     boundaries = (cfg.epochs - 1) // cfg.neg_every
     timing = dict(steps=cfg.epochs, forwards=boundaries, minings=boundaries)
     if recipe:
         timing["proposals"] = boundaries
-    res, counts, run_s = _run_checked(cfg, task, dev, **timing)
+    heads = cfg.use_rel_head or cfg.use_attr_head  # their draws come with the saved batch
+    with tempfile.TemporaryDirectory() as tmp:
+        if heads:
+            cfg = cfg.replace(checkpoint_dir=tmp, checkpoint_every=cfg.epochs)
+        res, counts, run_s = _run_checked(cfg, task, dev, **timing)
+        batch = _saved_batch(tmp, cfg, task, dev)[0] if heads else _step_batch(res, cfg, dev)
     if not _falls_per_interval(res.losses, cfg.neg_every):
         raise AssertionError(f"{name}: the loss does not fall in every interval: {res.losses}")
-    model, op, batch = res.model, res.op, _step_batch(res, cfg, dev)
+    model, op = res.model, res.op
     dtype = getattr(torch, cfg.param_dtype)
     if uses_mtl(cfg):
-        step = _check_step(model, lambda: model(op, batch, train=True)[0],
-                           _mtl_step_launches(cfg), dtype=dtype)
+        attr_op = (build_attr_operator(task.merged_attr_triples, task.n_ent, task.n_attr).to(dev)
+                   if cfg.use_attr_channel else None)
+        zero = ("ae_encoder.gc2.b",) if cfg.use_attr_channel else ()
+        step = _check_step(model, lambda: model(op, batch, train=True, attr_op=attr_op)[0],
+                           _mtl_step_launches(cfg), zero, dtype=dtype)
     else:
         step = _check_step(model, lambda: margin_align_loss(
             model(op, train=True), batch["pairs"], batch["neg_l"], batch["neg_r"], cfg.gamma),
             _per_step_launches(cfg), ("gc2.b",), dtype=dtype)
     out = {"dim": cfg.dim, "hidden": cfg.hidden or cfg.dim, "spmm_impl": cfg.spmm_impl,
-           "param_dtype": cfg.param_dtype,
+           "param_dtype": cfg.param_dtype, "config": config,
+           "search_width": 2 * cfg.dim if cfg.use_attr_channel else cfg.dim,
            "layer_routes": dict(zip(("fused", "x_w_then_spmm"), _layer_routes(cfg))),
            "reduced": reduced, "losses": res.losses, "launches": counts, "run_s": run_s,
            "step_median_s": float(np.median(res.timings["step_s"])),
@@ -5452,12 +5510,12 @@ def _width_run(task, name: str, config: str, recipe: str | None, over: dict, dev
     return out
 
 
-def _width_dist_step(task, dev: torch.device) -> dict:
-    """One ``dwy100k_dist`` step at dim 384 (R = 1, one rank holding the 8
+def _width_dist_step(task, dev: torch.device, dim: int) -> dict:
+    """One ``dwy100k_dist`` step at ``dim`` (R = 1, one rank holding the 8
     shards; 4 ``spmm_ell`` launches a way) held to the single-device step's
     plain path at STEP_TOL[fp32]; the single-device step through its
     kernels (each layer x·W then ``spmm_ell``) held to it too."""
-    cfg = get_config("dwy100k_dist", **DIST_CUTS, dim=WIDTH_DIST_DIM)
+    cfg = get_config("dwy100k_dist", **DIST_CUTS, dim=dim)
     batch = _dist_batch(task, cfg, dev)
     single = step_parts(cfg.replace(n_shards=1), task, dev)
 
@@ -5500,28 +5558,90 @@ def _width_dist_step(task, dev: torch.device) -> dict:
     return out
 
 
+def _unfused_layer_case(op, a_csr, rng, d: int, smi: str) -> dict:
+    """The GCN layer at (d, d) where ``gcn_fused`` has no instance, by the
+    port's route (``gcn_layer``: x·W by ``torch.matmul``, then one
+    ``spmm_ell`` launch over ``op.fwd``) against its plain version
+    (``gcn_layer_plain``), two calls bit for bit; timed beside it,
+    cuSPARSE + GEMM and the bound: x, W, b, the ELL arrays, the diagonal
+    read once and the output written once, or the product and the edges'
+    operations at the fp32 SIMT rate (a fp32 ``matmul`` runs in full fp32
+    here, and the ELL sums are fp32), whichever is larger."""
+    dev = op.fwd.device
+    x = torch.from_numpy(rng.standard_normal((op.n_rows, d)).astype(np.float32)).to(dev)
+    wm = torch.from_numpy((rng.standard_normal((d, d)) / np.sqrt(d)).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.standard_normal(d).astype(np.float32)).to(dev)
+    if gcn_fused.fused_width(d, d):
+        raise AssertionError(f"({d}, {d}) has a fused instance")
+
+    def layer():
+        with torch.no_grad():
+            return gcn_fused.gcn_layer(op, x, wm, b)
+
+    before = spmm_ell.launches
+    got = layer()
+    sync(dev)
+    if spmm_ell.launches != before + 1:
+        raise AssertionError(f"the layer at ({d}, {d}) launched {spmm_ell.launches - before} "
+                             f"spmm_ell")
+    want = gcn_fused.gcn_layer_plain(op, x, wm, b)
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
+    if not torch.equal(got, layer()):
+        raise AssertionError(f"the layer at ({d}, {d}): two calls differ")
+
+    def library():
+        return torch.sparse.mm(a_csr, x) @ wm + b
+
+    torch.testing.assert_close(library(), want, **TOL[torch.float32])
+    m = op.fwd
+    ell_bytes = sum(bk.rows.numel() * 4 + bk.idx.numel() * 4 + bk.w.numel() * 4
+                    for bk in m.buckets)
+    nbytes = (2 * op.n_rows * d + d * d + d) * 4 + op.diag.numel() * 4 + ell_bytes
+    bound, bound_by = _bound(nbytes, 2 * (m.nnz + op.n_diag) * d + 2 * op.n_rows * d * d)
+    ms, dev_ms = time_ms(layer), device_ms(layer)
+    out = dict(d_in=d, d_out=d, route="x·W by torch.matmul, then spmm_ell",
+               max_abs_err=float((got - want).abs().max()), ms=ms, device_ms=dev_ms,
+               ms_cold_l2=time_cold_ms(layer),
+               plain_ms=time_ms(lambda: gcn_fused.gcn_layer_plain(op, x, wm, b), iters=5),
+               library_ms=time_ms(library), library_device_ms=device_ms(library),
+               library="cuSPARSE (torch.sparse.mm) + GEMM", bound_ms=bound, bound_by=bound_by,
+               share_of_bound=bound / ms, share_of_bound_device=ratio(bound, dev_ms))
+    emit({"phase": "widths", "kernel": "gcn_layer_unfused", **out, "bit_identical_runs": True,
+          "card": smi})
+    return out
+
+
 def phase_widths(task, dist_task, smi: str, dev: torch.device) -> dict:
     """The port at widths the fused GCN layer has no instance for, on the
     card.  The ELL SpMM on the zh-en transpose and the sorted SpMM on the
     zh-en adjacency (their panel path), the L1 margin at recipe v6's shape
-    (its masked instances; 384 and 512 have float4 ones) and the Sinkhorn
-    update at 4,500² (above 256 the strip streams), each at WIDTH_DS in
-    fp32 and the SpMMs at WIDTH_BF16_DS in bf16: against the plain version
-    at PERF.md §2's limits, on NaN-prefilled output memory, two launches bit
-    for bit, timed by events (and the profiler's device time) beside the
-    plain version, the library call (cuSPARSE by ``torch.sparse.mm``;
-    ``addmm`` + ``logsumexp`` for the update) and the bound.  Then the six
-    WIDTH_RUNS through ``driver.run`` (``_width_run``) and one
-    ``dwy100k_dist`` step at dim 384 (``_width_dist_step``)."""
+    (its masked instances; 384 and 512 have float4 ones; above 512 the slab
+    kernels) and the Sinkhorn update at 4,500² (above 256 the strip
+    streams), each at WIDTH_DS and WIDE_DS in fp32 and the SpMMs at
+    WIDTH_BF16_DS and WIDE_BF16_DS in bf16; at WIDE_DS also the L1 search at
+    its WIDE_L1 and the select kernel at its WIDE_SELECT shapes (above 512
+    its strip streams): against the plain version at PERF.md §2's limits,
+    on NaN-prefilled output memory (the SpMMs, the margin), two launches
+    bit for bit, timed by events (and the profiler's device time) beside
+    the plain version, the library call (cuSPARSE by ``torch.sparse.mm``;
+    ``addmm`` + ``logsumexp`` for the update; ``cdist`` + ``topk`` for the
+    L1 search; the replaced route for the select kernel) and the bound.
+    Then the WIDTH_RUNS through ``driver.run`` (``_width_run``) and one
+    ``dwy100k_dist`` step at each of WIDTH_DIST_DIMS (``_width_dist_step``)."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(25)
     op = build_adjacency(task.n_ent, task.merged_triples, n_rel=task.n_rel).to(dev)
     sop = build_adjacency(task.n_ent, task.merged_triples, n_rel=task.n_rel,
                           fmt="sorted").to(dev)
     csr = _csr_of_edges(sop.fwd)
-    cases = ([(d, torch.float32) for d in WIDTH_DS]
-             + [(d, torch.bfloat16) for d in WIDTH_BF16_DS])
-    kernels = {"spmm_ell": {}, "spmm_sorted": {}, "margin_l1": {}, "sinkhorn_fused": {}}
+    cases = ([(d, torch.float32) for d in WIDTH_DS + WIDE_DS]
+             + [(d, torch.bfloat16) for d in WIDTH_BF16_DS + WIDE_BF16_DS])
+    kernels = {"spmm_ell": {}, "spmm_sorted": {}, "margin_l1": {}, "sinkhorn_fused": {},
+               "l1_search": {}, "shortlist_dist": {}, "gcn_fused": {}}
+    a_csr, layer_rng = _csr_of(op.fwd, op.diag), np.random.default_rng(28)
+    for d in LAYER_DS:  # a width without a fused instance: x·W, then spmm_ell
+        kernels["gcn_fused"][f"d{d}_unfused"] = _unfused_layer_case(op, a_csr, layer_rng, d, smi)
+    del a_csr
     for d, dtype in cases:
         key = f"d{d}" + ("_bf16" if dtype == torch.bfloat16 else "")
         g = torch.from_numpy(rng.standard_normal((op.bwd.n_cols, d)).astype(np.float32))
@@ -5536,37 +5656,54 @@ def phase_widths(task, dist_task, smi: str, dev: torch.device) -> dict:
         for name in ("spmm_ell", "spmm_sorted"):
             emit({"phase": "widths", "kernel": name, "d": d, "dtype": str(dtype)[6:],
                   **kernels[name][key], "card": smi})
+    del op, sop, csr
+    torch.cuda.empty_cache()
     name, n, s, k, gamma, weighted = WIDTH_MARGIN
-    for d in WIDTH_DS:
+    for d in WIDTH_DS + WIDE_DS:
         kernels["margin_l1"][f"d{d}"] = _margin_case(f"{name}_d{d}", n, s, k, d, gamma,
                                                      weighted, smi, dev)
         torch.cuda.empty_cache()
         kernels["sinkhorn_fused"][f"d{d}"] = phase_sinkhorn(smi, dev, d=d)
+    l1_rng, select_rng = np.random.default_rng(26), np.random.default_rng(27)
+    for d in WIDE_DS:
+        for name, entry, s, c, _, k, opts in L1_SHAPES:
+            if name in WIDE_L1:
+                q, cands, kw = _l1_inputs(l1_rng, entry, s, c, d, opts, dev)
+                kernels["l1_search"][f"{name}_d{d}"] = _l1_case(f"{name}_d{d}", entry, q, cands,
+                                                                k, kw, smi)
+                del q, cands, kw
+        for name, s, k, c, _, opts in SELECT_SHAPES:
+            if name in WIDE_SELECT:
+                q, cands, kw = _select_inputs(select_rng, s, c, d, opts, dev)
+                kernels["shortlist_dist"][f"{name}_d{d}"] = _select_case(f"{name}_d{d}", q,
+                                                                         cands, k, kw, opts, smi)
+                del q, cands, kw
+        torch.cuda.empty_cache()
     kernel_s = time.perf_counter() - t0
-    del op, sop, csr
-    torch.cuda.empty_cache()
     runs = {}
     for name, config, recipe, over in WIDTH_RUNS:
         runs[name] = _width_run(task, name, config, recipe, over, dev)
         emit({"phase": "widths", "run": name, **runs[name], "card": smi})
-    dist_step = _width_dist_step(dist_task, dev)
-    emit({"phase": "widths", "dist_step": dist_step, "kernel_s": kernel_s,
+    dist_steps = {f"dim{dim}": _width_dist_step(dist_task, dev, dim) for dim in WIDTH_DIST_DIMS}
+    emit({"phase": "widths", "dist_steps": dist_steps, "kernel_s": kernel_s,
           "phase_s": time.perf_counter() - t0, "card": smi})
-    return {"kernels": kernels, "runs": runs, "dist_step": dist_step}
+    return {"kernels": kernels, "runs": runs, "dist_steps": dist_steps}
 
 
 # the widths each kernel takes on the card, for the kernel table
 WIDTHS_TAKEN = {
-    "gcn_fused": f"(d_in, d_out) in {gcn_fused.WIDTHS}; a layer at any other width up to 512 "
+    "gcn_fused": f"(d_in, d_out) in {gcn_fused.WIDTHS}; a layer at any other width "
                  "runs x·W, then spmm_ell",
-    "spmm_ell": "1-512: instances at 64, 128, 256; 128-column panels at every other d",
-    "spmm_sorted": "1-512: instances at 64, 128, 256; 128-column panels at every other d",
-    "sinkhorn_fused": "1-512: the strip resident up to 256, streamed above; zero columns to a "
-                      "multiple of 4",
-    "shortlist_dist": "1-512: zero columns to a multiple of 4 (8 with bf16 products)",
-    "l1_search": "1-512: zero columns to a multiple of 4",
-    "margin_l1": "1-512: instances at 16, 32, 64, 128, 256, 384, 512; masked instances at "
-                 "32, 64, 128, 192, ..., 512 elsewhere",
+    "spmm_ell": "every d >= 1: instances at 64, 128, 256; 128-column panels at every other d",
+    "spmm_sorted": "every d >= 1: instances at 64, 128, 256; 128-column panels at every other d",
+    "sinkhorn_fused": "every d >= 1: the strip resident up to 256, streamed above; zero "
+                      "columns to a multiple of 4",
+    "shortlist_dist": "every d >= 1: the select kernel's strip resident up to 512, streamed "
+                      "above; zero columns to a multiple of 4 (8 with bf16 products)",
+    "l1_search": "every d >= 1: zero columns to a multiple of 4",
+    "margin_l1": "every d >= 1: instances at 16, 32, 64, 128, 256, 384, 512; masked instances "
+                 "at 32, 64, 128, 192, ..., 512 elsewhere up to 512; column slabs of 512 "
+                 "above",
     "sinkhorn_reverse": "any (it works on the S x S cost)"}
 WIDTH_KEYS = ("max_abs_err", "ms", "device_ms", "ms_cold_l2", "plain_ms", "bound_ms",
               "bound_by", "library_ms")
@@ -5712,6 +5849,8 @@ def main(argv: list[str] | None = None) -> int:
              "fused_runs": {k: v["launches"]["spmm_ell"]
                             for k, v in dist_fused["runs"].items()}},
          "launches_dist_mesh": {"d128_step": dist_mesh["d128_step"]["launches"]["spmm_ell"],
+                                "d384_panel_step":
+                                    dist_mesh["panel_step"]["launches"]["spmm_ell"],
                                 "v7r_step": dist_mesh["v7r_step"]["launches"]["spmm_ell"]},
          "dist_tp_operators_d64": dist_mesh["kernel"]["spmm_ell"],
          "launches_dist_grouped": {

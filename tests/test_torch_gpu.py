@@ -194,8 +194,14 @@ def test_spmm_ell_kernel_matches_plain(cuda, d, split_diag):
     x32 = x[:, :32].contiguous()
     torch.testing.assert_close(ell_spmm(op.fwd, op.diag, x32),
                                apply_with_diag(op.fwd, op.diag, x32), rtol=1e-4, atol=1e-4)
-    with pytest.raises(ValueError, match="widths 1 to 512"):  # above 512
-        ell_spmm(op.fwd, op.diag, torch.zeros(op.n_rows, 513, device=cuda))
+    # above 512 the panels go on: 5 and 9 of them, the last masked
+    for wide in (513, 1030):
+        xw = torch.from_numpy(rng.standard_normal((op.n_rows, wide)).astype(np.float32))
+        xw = xw.to(cuda)
+        got = ell_spmm(op.fwd, op.diag, xw)
+        assert torch.equal(got, ell_spmm(op.fwd, op.diag, xw))
+        torch.testing.assert_close(got, apply_with_diag(op.fwd, op.diag, xw), rtol=1e-4,
+                                   atol=1e-4)
     with pytest.raises(ValueError):  # misaligned rows
         ell_spmm(op.fwd, op.diag, torch.zeros(op.n_rows * d + 1, device=cuda)[1:].view(-1, d))
 
@@ -338,13 +344,14 @@ def test_gcn_fused_narrow_widths_bits_unchanged(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("q,c,d", [(70, 4001, 4), (1000, 777, 20), (4500, 4500, 128),
                                    (130, 2050, 256), (9000, 4500, 192), (333, 2049, 64),
-                                   (1000, 777, 300), (4500, 4500, 384), (333, 2049, 512)])
+                                   (1000, 777, 300), (4500, 4500, 384), (333, 2049, 512),
+                                   (1000, 777, 768), (333, 2049, 1028)])
 def test_sinkhorn_splits_match_plain(cuda, q, c, d):
     """Ragged Q and C (no multiple of the 64 × 128 tile or of a block's
-    share, odd Q too), d from 4 to 512 (above 256 the strip streams beside
-    the candidates), τ = 0.05 and 0.3, and strips cut into one to 33
+    share, odd Q too), d from 4 to 1,028 (above 256 the strip streams
+    beside the candidates), τ = 0.05 and 0.3, and strips cut into one to 33
     candidate splits; widths that are no multiple of 4 are taken with zero
-    columns, above 512 the wrapper refuses."""
+    columns, and widths above 512 too (514 and 1,030)."""
     rng = np.random.default_rng(q + c + d)
 
     def unit(n, dd=d):
@@ -358,15 +365,13 @@ def test_sinkhorn_splits_match_plain(cuda, q, c, d):
         got = sinkhorn_potential_update(l, r, g, log_mu, tau)
         torch.testing.assert_close(got, sinkhorn_update_plain(l, r, g, log_mu, tau),
                                    rtol=1e-4, atol=1e-4)
-    # d + 2 (no multiple of 4: zero columns appended) and 260 (the strip
-    # streamed beside the candidates) are taken too; above 512 is refused
-    for other in (d + 2 if d + 2 <= 512 else d - 2, 260):
+    # d + 2 (no multiple of 4: zero columns appended), 260 (the strip
+    # streamed beside the candidates) and above 512 are taken too
+    for other in (d + 2, 260, 514 if d <= 512 else 1030):
         lo, ro = unit(q, other), unit(c, other)
         torch.testing.assert_close(sinkhorn_potential_update(lo, ro, g, log_mu, 0.3),
                                    sinkhorn_update_plain(lo, ro, g, log_mu, 0.3),
                                    rtol=1e-4, atol=1e-4)
-    with pytest.raises(ValueError, match="widths 1 to 512"):
-        sinkhorn_potential_update(unit(q, 516), unit(c, 516), g, log_mu, 0.3)
 
 
 @pytest.mark.gpu
@@ -655,7 +660,7 @@ def _by_id(idx, *vals):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("k", [10, 16, 128, 200, 256])
-@pytest.mark.parametrize("d", [128, 256, 512])
+@pytest.mark.parametrize("d", [128, 256, 512, 768, 1030])
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("masked", [False, True])
 def test_shortlist_select_matches_plain(cuda, k, d, bf16, masked):
@@ -729,9 +734,13 @@ def test_shortlist_select_refuses_what_it_does_not_take(cuda):
         want = shortlist_dist.shortlist_select_plain(q6, c6, 4, bf16=bf16, rerank="cityblock")
         assert torch.equal(got[0], want[0])
         torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-5)
-    with pytest.raises(ValueError):
-        shortlist_dist.shortlist_select(torch.zeros(8, 516, device=cuda),
-                                        torch.zeros(40, 516, device=cuda), 4)
+    # above 512 too (the strip streamed): 516, and 1,030 with zero columns up to 1,032
+    for wide in (516, 1030):
+        qw, cw = torch.randn(8, wide, device=cuda), torch.randn(40, wide, device=cuda)
+        got = shortlist_dist.shortlist_select(qw, cw, 4, rerank="cityblock")
+        want = shortlist_dist.shortlist_select_plain(qw, cw, 4, rerank="cityblock")
+        assert torch.equal(got[0], want[0])
+        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-5)
     with pytest.raises(TypeError):
         shortlist_dist.shortlist_select(q.half(), q.half(), 4)
     with pytest.raises(ValueError):
@@ -766,7 +775,7 @@ def _on(dev, kw):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("k", [1, 10, 25, 100, 256, 300])
-@pytest.mark.parametrize("d", [128, 256, 512])
+@pytest.mark.parametrize("d", [128, 256, 512, 768, 1028])
 def test_l1_topk_matches_plain(cuda, k, d):
     """``l1_topk`` on ragged Q and C (1,003 × 2,503) against its plain version
     at every table width and at k from 1 to the queue's 256 and above it
@@ -803,7 +812,7 @@ def test_l1_topk_matches_plain(cuda, k, d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [128, 256, 512])
+@pytest.mark.parametrize("d", [128, 256, 512, 1028])
 @pytest.mark.parametrize("csls", [False, True])
 def test_l1_count_matches_plain(cuda, d, csls):
     """``l1_count`` against its plain version: position-aligned pools (the
@@ -891,8 +900,13 @@ def test_l1_search_refuses_what_it_does_not_take(cuda):
     want = l1_search.l1_topk_plain(q6.cpu(), c6.cpu(), 4)
     assert torch.equal(idx.cpu(), want[1])
     torch.testing.assert_close(vals.cpu(), want[0], rtol=1e-5, atol=1e-5)
-    with pytest.raises(ValueError, match="widths 1 to 512"):
-        l1_search.l1_topk(torch.zeros(8, 516, device=cuda), torch.zeros(40, 516, device=cuda), 4)
+    # above 512 too: 1,030 taken with zero columns up to 1,032
+    q_w = torch.randn(8, 1030, device=cuda)
+    c_w = torch.randn(40, 1030, device=cuda)
+    vals, idx = l1_search.l1_topk(q_w, c_w, 4)
+    want = l1_search.l1_topk_plain(q_w.cpu(), c_w.cpu(), 4)
+    assert torch.equal(idx.cpu(), want[1])
+    torch.testing.assert_close(vals.cpu(), want[0], rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError):
         l1_search.l1_topk(q, c.cpu(), 4)
     with pytest.raises(ValueError):
@@ -1394,8 +1408,13 @@ def test_spmm_sorted_matches_plain(cuda, dtype, d):
     x32 = x32.to(cuda, dtype)
     torch.testing.assert_close(sorted_spmm(op.fwd, x32).float(),
                                segment_spmm(op.fwd, x32).float(), **tol)
-    with pytest.raises(ValueError, match="widths 1 to 512"):  # above 512
-        sorted_spmm(op.fwd, torch.zeros(op.fwd.n_cols, 513, device=cuda))
+    # above 512 the panels go on: 5 and 9 of them, the last masked
+    for wide in (513, 1030):
+        xw = torch.from_numpy(rng.standard_normal((op.fwd.n_cols, wide)).astype(np.float32))
+        xw = xw.to(cuda, dtype)
+        got = sorted_spmm(op.fwd, xw)
+        assert torch.equal(got, sorted_spmm(op.fwd, xw))
+        torch.testing.assert_close(got.float(), segment_spmm(op.fwd, xw).float(), **tol)
     with pytest.raises(ValueError):  # non-contiguous
         sorted_spmm(op.fwd, torch.zeros(64, op.fwd.n_cols, device=cuda).t())
 
@@ -2146,7 +2165,8 @@ def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     (300, 64, 5, 128, False), (300, 64, 5, 256, True), (200, 40, 7, 16, True),
     (200, 40, 3, 64, False), (200, 40, 9, 512, True), (38_000, 7_000, 100, 256, True),
     (200, 40, 7, 1, True), (300, 64, 5, 50, False), (300, 64, 5, 300, True),
-    (300, 64, 5, 384, False), (200, 40, 9, 500, True), (38_000, 7_000, 100, 384, True)])
+    (300, 64, 5, 384, False), (200, 40, 9, 500, True), (38_000, 7_000, 100, 384, True),
+    (300, 64, 5, 520, True), (200, 40, 37, 1030, False), (38_000, 7_000, 100, 768, True)])
 def test_margin_l1_kernel_matches_plain(cuda, n, s, k, d, weighted):
     """The loss at rel 1e-5 and the table's gradient at relative L2 1e-5
     against the plain composite, every row written (the output's memory
@@ -2209,14 +2229,19 @@ def test_margin_l1_refuses_what_it_has_no_instance_for(cuda):
     want = margin_l1.margin_loss_plain(e, pairs, neg_l, neg_r)
     assert float(got) == pytest.approx(float(want), rel=1e-5)
     assert _rel_l2(torch.autograd.grad(got, e)[0], torch.autograd.grad(want, e)[0]) < 1e-5
-    with pytest.raises(ValueError, match="widths 1 to 512"):  # above 512: no instance
-        margin_l1.margin_l1_loss(emb.repeat(1, 5)[:, :520].contiguous(), pairs, neg_l, neg_r)
+    # above 512 the slab kernels: 520 (two slabs, the second 8 wide) against the plain version
+    e = emb.repeat(1, 5)[:, :520].contiguous().requires_grad_(True)
+    got = margin_l1.margin_l1_loss(e, pairs, neg_l, neg_r)
+    want = margin_l1.margin_loss_plain(e, pairs, neg_l, neg_r)
+    assert float(got) == pytest.approx(float(want), rel=1e-5)
+    assert _rel_l2(torch.autograd.grad(got, e)[0], torch.autograd.grad(want, e)[0]) < 1e-5
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n, s, k, d, weighted", [
     (300, 64, 5, 128, False), (38_000, 7_000, 100, 256, True), (300, 64, 5, 50, True),
-    (300, 64, 5, 300, False), (300, 64, 5, 384, True)])
+    (300, 64, 5, 300, False), (300, 64, 5, 384, True), (300, 64, 5, 600, True),
+    (200, 40, 37, 1030, False)])
 def test_margin_l1_planes_and_backward_match_their_plain_versions(cuda, n, s, k, d, weighted):
     """The forward's flags, pair vectors and the active records' sign
     planes equal ``forward_plain``'s bit for bit; the index its kernel

@@ -185,9 +185,10 @@ def test_ring_exact_stages_at_1_and_8_shards(stage):
 def test_wrapper_refuses_what_the_kernel_does_not_take(case):
     """The checks the card's wrapper makes before any launch (``_check``), and
     a device that is neither the CPU nor the card: each raises, none falls
-    back to the plain version.  A width the kernel does not take below the
-    limit (6: it reads d % 4 == 0) never reaches it: ``_check`` hands it the
-    rows with zero columns up to 8."""
+    back to the plain version.  A width the kernel does not take (6: it
+    reads d % 4 == 0) never reaches it: ``_check`` hands it the rows with
+    zero columns up to 8.  No width is refused: 516 (d % 4 == 0) passes as
+    it is, 514 with zero columns up to 516."""
     q, c = torch.from_numpy(_rows(24, 8, 16)), torch.from_numpy(_rows(25, 20, 16))
     if case == "meta_device":
         with pytest.raises(ValueError):
@@ -205,6 +206,12 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case):
         return
     elif case == "width_516":
         q, c = q.repeat(1, 33)[:, :516].contiguous(), c.repeat(1, 33)[:, :516].contiguous()
+        q516, c516 = l1_search._check(q, c)
+        assert q516 is q and c516 is c
+        q514, c514 = l1_search._check(q[:, :514].contiguous(), c[:, :514].contiguous())
+        assert q514.shape == (8, 516) and torch.equal(q514[:, :514], q[:, :514])
+        assert not q514[:, 514:].any() and not c514[:, 514:].any()
+        return
     elif case == "strided":
         c = c.t().contiguous().t()
     else:

@@ -7,7 +7,8 @@ negative that is a pair row, one negative twice in a row, an entity in two
 pairs); the pool-of-one tie, whose entries have no gradient; the fixed-order
 backward replayed from its contribution index against autograd of the
 plain composite (rel 1e-6), each contribution counted once; the wrapper's
-refusals."""
+refusal of a float64 table and its taking of a width above the widest
+instance."""
 
 import jax
 import jax.numpy as jnp
@@ -136,11 +137,18 @@ def test_fixed_order_backward_replays_autograd(weighted):
 
 @pytest.mark.parametrize("bad", ["float64_table", "width_without_instance"])
 def test_the_wrapper_refuses(bad):
-    """A float64 table, and a width above MAX_D (512), the widest instance:
-    every width from 1 to 512 has one, masked or not."""
+    """A float64 table is refused.  A width above the widest instance (d
+    520 > ``SLAB``) is not: it runs in two column slabs, the second 8 wide,
+    and its loss and gradient equal ``jax.value_and_grad`` of the JAX margin
+    at this file's bounds."""
     emb, pairs, neg_l, neg_r, _ = _case(7, 3, False, d=16 if bad == "float64_table" else 520)
-    e = torch.from_numpy(emb).double() if bad == "float64_table" else torch.from_numpy(emb)
+    if bad == "width_without_instance":
+        assert margin_l1.lane_width(520) == 1024 and margin_l1.plane_bytes(520) == 8
+        got, g_got = _port(emb, pairs, neg_l, neg_r, None)
+        want, g_want = _jax(emb, pairs, neg_l, neg_r, None)
+        assert got == pytest.approx(want, rel=1e-5)
+        np.testing.assert_allclose(g_got, g_want, rtol=1e-5, atol=1e-6)
+        return
     t = [torch.from_numpy(np.asarray(a)).long() for a in (pairs, neg_l, neg_r)]
-    with pytest.raises(ValueError,
-                       match="float32" if bad == "float64_table" else "widths 1 to 512, got d=520"):
-        margin_l1.margin_l1_loss(e, *t)
+    with pytest.raises(ValueError, match="float32"):
+        margin_l1.margin_l1_loss(torch.from_numpy(emb).double(), *t)

@@ -185,15 +185,23 @@ def test_route_above_the_queue_is_unfused(monkeypatch):
 @pytest.mark.parametrize("case", ["width_not_4", "width_above", "dtype", "k_above_queue",
                                   "k_above_pool", "mask_dtype", "not_cuda"])
 def test_kernel_wrapper_refuses(case):
-    """What the kernel lacks raises before any launch: a width not a
-    multiple of 4 or above ``SELECT_MAX_D``, an operand that is not float32,
-    a k above the queue or the pool, a mask that is not bool; a tensor that
-    passes every check but lies on neither the card nor the host."""
+    """What the kernel lacks raises before any launch: an operand that is
+    not float32, a k above the queue or the pool, a mask that is not bool; a
+    tensor that passes every check but lies on neither the card nor the
+    host, as do rows of a width not a multiple of 4 (padded with zero
+    columns) and rows above ``SELECT_RESIDENT_D`` (the strip streams), which
+    are then refused for their device alone.  On the host that wide a call
+    is the plain version."""
     d, k, c, dtype, kw = 16, 8, 50, torch.float32, {}
     if case == "width_not_4":
         d = 6
     elif case == "width_above":
-        d = sd.SELECT_MAX_D + 4
+        d = sd.SELECT_RESIDENT_D + 4
+        assert sd.select_streams(d) and not sd.select_streams(d - 4)
+        rows, cols = (torch.from_numpy(a) for a in _rows(8, (30, d), (400, d)))
+        got = sd.shortlist_select(rows, cols, 16, rerank="cityblock")
+        want = sd.shortlist_select_plain(rows, cols, 16, rerank="cityblock")
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
     elif case == "dtype":
         dtype = torch.float16
     elif case == "k_above_queue":
@@ -205,7 +213,7 @@ def test_kernel_wrapper_refuses(case):
     q = torch.empty(10, d, dtype=dtype, device="meta")
     cands = torch.empty(c, d, dtype=dtype, device="meta")
     error = TypeError if case in ("dtype", "mask_dtype") else ValueError
-    match = "cuda or cpu" if case == "not_cuda" else None
+    match = "cuda or cpu" if case in ("not_cuda", "width_above") else None
     with pytest.raises(error, match=match):
         sd.shortlist_select(q, cands, k, **kw)
 

@@ -18,7 +18,8 @@ where every kernel runs its plain version), against the JAX package:
 * the kernels' new arithmetic replayed in torch: the SpMMs' 128-column
   panels with the masked tail (each panel the instances' item walk), and
   the Sinkhorn update's 3× TF32 dot products summed over 64-wide chunks of
-  d at 384 and 512, within the error budget of the 256-wide kernel.
+  d at 384 and 512 (and above 512: 516, 768, 1,032), within the error
+  budget of the 256-wide kernel.
 
 Torch runs on one thread here: the OT loss's exp(−C/τ) amplifies the
 threaded reductions' order."""
@@ -167,14 +168,16 @@ def _tf32(x):
     return ((u + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
 
 
-@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("d", [384, 512, 516, 768, 1032])
 def test_update_chunked_3xtf32_error_budget(d):
     """The kernel above d = 256: each 64-wide chunk of the strip split
     into (big, small) in registers, as the candidates' are, and its three
     TF32 products added to the tile's fp32 sums chunk by chunk, all before
     the exp and LSE fold.  The update keeps within 1 % of the tolerance
     1e-4 + 1e-4·|f| against a float64 reference at τ 0.05 and 0.3 (the
-    256-wide kernel's budget, tests/test_torch_sinkhorn_split.py)."""
+    256-wide kernel's budget, tests/test_torch_sinkhorn_split.py), also
+    above 512 (516 and 1,032: 514 and 1,030 padded to a multiple of 4),
+    where the split's error grows with d as a fp32 dot product's does."""
     rng = np.random.default_rng(d + 1)
     l, r = _unit_rows(rng, 512, d), _unit_rows(rng, 512, d)
     g = (0.2 * rng.standard_normal(512)).astype(np.float32)

@@ -7,7 +7,7 @@
 //   * at a width with an instance (FixedCols<D>: D = 128, 256, or 64, a
 //     tensor-parallel rank's half of a 128-wide layer), 4 columns per lane
 //     per 128-column chunk (2 per lane in one 64-column chunk at D = 64);
-//   * at any other width d ≤ 512 (PanelCols), one 128-column panel of the
+//   * at any other width d (PanelCols), one 128-column panel of the
 //     row per block row of the grid (blockIdx.y), 4 columns per lane, the
 //     tail panel masked at d: 16-byte (fp32) or 8-byte (bf16) loads where
 //     d % 4 == 0, scalar loads elsewhere.  Each output element still sums
@@ -318,7 +318,7 @@ __device__ __forceinline__ void st_elem(float* p, float v) { *p = v; }
 
 __device__ __forceinline__ void st_elem(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-// The columns a lane holds at any other width d ≤ 512: panel blockIdx.y of
+// The columns a lane holds at any other width d: panel blockIdx.y of
 // gridDim.y (each 128 columns of the row, the last one masked at d), 4
 // consecutive columns a lane from col = 128·panel + 4·lane.  A row of x or
 // out is d wide (its pitch); kVec (d % 4 == 0: every row then starts

@@ -22,6 +22,9 @@
 // 3. l1_tile_forward — the masked (Q, C) score tile (NaN as +inf), for k
 //    above the queue (the caller selects with torch.topk).
 //
+// Any width d % 4 == 0 (the wrapper pads others with zero columns): d
+// streams through the copy ring 8 columns a stage.
+//
 // Replaces XLA ops, not a Pallas kernel: the blockwise L1 tiles and the
 // lax.top_k / argmin / rank count over them of tpugraph/train/negatives.py:45
 // (blockwise_knn_l1) and :128 (_cand_hubness), train/bootstrap.py:26 (_nn1),
@@ -106,7 +109,6 @@ constexpr int kStageRows = kBQ + kBC;           // the strip's rows, then the ti
 constexpr int kStageFloats = kStageRows * kKC;
 constexpr int kBuf = 128;                       // survivors a row holds between merges
 constexpr int kMergeAt = kBuf / 4;              // a forced round merges the rows holding this many
-constexpr int kMaxD = 512;
 constexpr int kMinStages = 2, kMaxStages = 8;
 constexpr int kBarScore = 1;                    // the score warps' own barrier
 constexpr int kAlign = 1024;                    // the ring's alignment (the copies' swizzle)
@@ -726,7 +728,10 @@ cudaError_t prepare(size_t smem) {
 }
 
 // A (rows, d) fp32 matrix as a tensor map of boxes of kKC × box_rows,
-// 32-byte swizzled, zero past its rows and d.
+// 32-byte swizzled, zero past its rows and d.  The map's dims and row
+// stride are 64-bit (the stride, 4·d bytes, a multiple of 16 as d % 4 ==
+// 0), so any width takes it: d sets only the count of ring stages a tile
+// runs, never the shared memory, and a box's column kc·kKC < d is an int.
 int tensor_map(CUtensorMap* map, const float* base, int rows, int d, int box_rows) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
@@ -795,7 +800,7 @@ int dispatch(int mode, int kq, const Args& a, cudaStream_t stream, int* blocks) 
 
 bool bad_kq(int kq) { return kq < 32 || kq > 256 || (kq & (kq - 1)) != 0; }
 
-bool bad_shape(int s, int c, int d) { return s < 0 || c < 1 || d < 4 || d > kMaxD || d % 4 != 0; }
+bool bad_shape(int s, int c, int d) { return s < 0 || c < 1 || d < 4 || d % 4 != 0; }
 
 // 1 ≤ units ≤ the strips' tiles; stages in [kMinStages, kMaxStages].
 bool bad_plan(int s, int c, int units, int stages) {
@@ -808,7 +813,7 @@ bool bad_plan(int s, int c, int units, int stages) {
 
 // q (s, d), cands (c, d), bias (c,) float32; col_mask (c,) uint8; exclude
 // (s,) int64 (< 0: none); bias, col_mask and exclude may be null.  All
-// contiguous and 16-byte aligned, d % 4 == 0, 4 ≤ d ≤ 512, 1 ≤ k ≤ min(kq,
+// contiguous and 16-byte aligned, d % 4 == 0, d ≥ 4, 1 ≤ k ≤ min(kq,
 // c), kq a power of two in [32, 256].  `units` blocks (1 ≤ units ≤ the
 // strips' tiles, ceil(s/32)·ceil(c/256)) and a ring of `stages` stages.
 // part_v (float32) and part_i (int32) hold (s/32 + units) · 32 · k entries

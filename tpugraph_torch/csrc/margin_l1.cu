@@ -81,6 +81,24 @@
 //     the lanes' elements past d read as 0 and never written), whose
 //     distances, planes, pair vectors and gradient are those of the d-wide
 //     rows: a masked element adds |0 − 0| = 0 and a sign of 0.
+//   * above 512 (the slab kernels): a lane holds at most 16 elements of a
+//     row, so a row is cut into column slabs of 512, each in the masked
+//     512 instance's layout (element 512·s + 32·t + lane at slot t; the
+//     last slab masked at d), and every loop runs over the slabs in column
+//     order.  The forward reads each negative row once: for each entry it
+//     walks the slabs of its rows, adding |a − b| to the lane's sum in
+//     column order (a distance still depends only on its two rows, so the
+//     partner's d⁻ is d⁺ bit for bit), and writes each slab's sign planes
+//     (128 bytes a slab: the 512 instance's words, slab after slab) before
+//     it knows whether the record is active, so every record's planes are
+//     written.  A second walk of the pair row, slab by slab, sums the
+//     active records' signs from the planes it wrote (its own lane's words:
+//     no row is read again) into the pair vectors.  The pair rows are read
+//     again per entry, from L1, instead of held in registers, so no width
+//     is refused.  The backward and the combine walk the slabs of an item
+//     or row in turn, each record's planes and vector by slab; each
+//     element's sum is the same records in the same order, so the gradient
+//     is still the contributions summed in the index's order, bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -471,6 +489,305 @@ margin_gather_only(const float* __restrict__ emb, const int64_t* __restrict__ ne
   if (lane == 0) out[i] = acc;
 }
 
+// ---- rows wider than 512: column slabs of kSlab in the masked 512
+// instance's layout (Slab), walked in column order
+
+constexpr int kSlab = 512;
+constexpr int kSlabBytes = Signs<kSlab>::kBytes;  // a slab's planes: 32 lanes × 4 bytes
+using Slab = Row<kSlab, false>;
+static_assert(Slab::kPer == 16 && Signs<kSlab>::kPer == 16, "a lane holds 16 of a slab");
+
+__device__ __forceinline__ int n_slabs(int d) { return (d + kSlab - 1) / kSlab; }
+
+// slab s of a d-wide row: its first element and its width
+__device__ __forceinline__ void load_slab(Slab& r, const float* __restrict__ row, int s, int d,
+                                          int lane) {
+  r.load(row + s * kSlab, lane, min(kSlab, d - s * kSlab));
+}
+
+__device__ __forceinline__ void store_slab(const Slab& r, float* __restrict__ row, int s, int d,
+                                           int lane) {
+  r.store(row + s * kSlab, lane, min(kSlab, d - s * kSlab));
+}
+
+// Σ_t |a_t − b_t| added to the lane's running sum, slot by slot
+__device__ __forceinline__ void add_l1(float& acc, const Slab& a, const Slab& b) {
+#pragma unroll
+  for (int t = 0; t < Slab::kPer; ++t) acc += fabsf(a.v[t] - b.v[t]);
+}
+
+// the lane's word of a slab's planes of sign(p − n) (bit t "p > n", bit 16 + t "p < n")
+__device__ __forceinline__ uint32_t slab_signs(const Slab& p, const Slab& n) {
+  uint32_t m = 0;
+#pragma unroll
+  for (int t = 0; t < Slab::kPer; ++t)
+    m |= (static_cast<uint32_t>(p.v[t] > n.v[t]) << t) |
+         (static_cast<uint32_t>(p.v[t] < n.v[t]) << (Slab::kPer + t));
+  return m;
+}
+
+__global__ void __launch_bounds__(kThreads)
+margin_l1_slabs_fwd(const float* __restrict__ emb, const int64_t* __restrict__ pairs,
+                    const int64_t* __restrict__ neg_l, const int64_t* __restrict__ neg_r,
+                    const float* __restrict__ w, float gamma, int n_pairs, int k, int d,
+                    uint8_t* __restrict__ flags, float* __restrict__ row_sum,
+                    uint8_t* __restrict__ planes, float* __restrict__ vecs) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (i >= n_pairs) return;
+  const int ns = n_slabs(d);
+  const long rec_bytes = static_cast<long>(ns) * kSlabBytes;
+  const int64_t il = __ldg(pairs + 2 * i), ir = __ldg(pairs + 2 * i + 1);
+  const float* ea = emb + il * d;
+  const float* eb = emb + ir * d;
+  float pos = 0.f;
+  for (int s = 0; s < ns; ++s) {
+    Slab a, b;
+    load_slab(a, ea, s, d, lane);
+    load_slab(b, eb, s, d, lane);
+    add_l1(pos, a, b);
+  }
+  const float thr = warp_sum(pos) + gamma;
+  const int64_t* nr = neg_r + static_cast<long>(i) * k;
+  const int64_t* nl = neg_l + static_cast<long>(i) * k;
+  const long sk = static_cast<long>(n_pairs) * k;
+  int active = 0;
+  float acc = 0.f;
+  for (int j0 = 0; j0 < k; j0 += 32) {
+    const int jl = j0 + lane;
+    const int64_t my_r = jl < k ? __ldg(nr + jl) : 0, my_l = jl < k ? __ldg(nl + jl) : 0;
+    const int n = min(32, k - j0);
+    uint8_t my_flag = 0;
+    for (int u = 0; u < n; u += 2) {
+      const bool two = u + 1 < n;
+      const int64_t r0 = __shfl_sync(kFull, my_r, u), l0 = __shfl_sync(kFull, my_l, u);
+      const int64_t r1 = __shfl_sync(kFull, my_r, two ? u + 1 : u);
+      const int64_t l1i = __shfl_sync(kFull, my_l, two ? u + 1 : u);
+      const long e0 = static_cast<long>(i) * k + j0 + u;
+      float dr[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};  // the lane's sums, column order
+      for (int s = 0; s < ns; ++s) {
+        Slab a, b, x0, y0, x1, y1;  // two entries' rows in flight
+        load_slab(a, ea, s, d, lane);
+        load_slab(b, eb, s, d, lane);
+        load_slab(x0, emb + r0 * d, s, d, lane);
+        load_slab(y0, emb + l0 * d, s, d, lane);
+        if (two) {
+          load_slab(x1, emb + r1 * d, s, d, lane);
+          load_slab(y1, emb + l1i * d, s, d, lane);
+        }
+        add_l1(dr[0], a, x0);
+        add_l1(dl[0], y0, b);
+        uint8_t* at = planes + e0 * rec_bytes + s * kSlabBytes;
+        reinterpret_cast<uint32_t*>(at)[lane] = slab_signs(a, x0);
+        reinterpret_cast<uint32_t*>(at + sk * rec_bytes)[lane] = slab_signs(b, y0);
+        if (two) {
+          add_l1(dr[1], a, x1);
+          add_l1(dl[1], y1, b);
+          reinterpret_cast<uint32_t*>(at + rec_bytes)[lane] = slab_signs(a, x1);
+          reinterpret_cast<uint32_t*>(at + (sk + 1) * rec_bytes)[lane] = slab_signs(b, y1);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (h == 1 && !two) break;
+        const float hr = thr - warp_sum(dr[h]);
+        const float hl = thr - warp_sum(dl[h]);
+        acc += relu(hr) + relu(hl);
+        const int64_t rr = h ? r1 : r0, ll = h ? l1i : l0;
+        const bool act_r = hr >= 0.f && rr != ir, act_l = hl >= 0.f && ll != il;
+        active += act_r + act_l;
+        if (lane == u + h) my_flag = static_cast<uint8_t>(act_r | (act_l << 1));
+      }
+    }
+    if (lane < n) flags[static_cast<long>(i) * k + j0 + lane] = my_flag;
+  }
+  if (lane == 0) row_sum[i] = w != nullptr ? __ldg(w + i) * acc : acc;
+  // the pair vectors, slab by slab: the active records' signs from the
+  // planes just written (each lane its own words and its own entries'
+  // flags, so its own stores), as exact integer sums
+  const float fc = static_cast<float>(active);
+  for (int s = 0; s < ns; ++s) {
+    int sum_r[Slab::kPer], sum_l[Slab::kPer];
+#pragma unroll
+    for (int t = 0; t < Slab::kPer; ++t) sum_r[t] = sum_l[t] = 0;
+    for (int j0 = 0; j0 < k; j0 += 32) {
+      const int n = min(32, k - j0);
+      const int my_flag = lane < n ? flags[static_cast<long>(i) * k + j0 + lane] : 0;
+      for (int u = 0; u < n; ++u) {
+        const int f = __shfl_sync(kFull, my_flag, u);
+        const long e = static_cast<long>(i) * k + j0 + u;
+        const uint8_t* at = planes + e * rec_bytes + s * kSlabBytes;
+        const uint32_t mr = f & 1 ? reinterpret_cast<const uint32_t*>(at)[lane] : 0u;
+        const uint32_t ml = f & 2 ? reinterpret_cast<const uint32_t*>(at + sk * rec_bytes)[lane]
+                                  : 0u;
+#pragma unroll
+        for (int t = 0; t < Slab::kPer; ++t) {
+          sum_r[t] += static_cast<int>((mr >> t) & 1u) - static_cast<int>((mr >> (16 + t)) & 1u);
+          sum_l[t] += static_cast<int>((ml >> t) & 1u) - static_cast<int>((ml >> (16 + t)) & 1u);
+        }
+      }
+    }
+    Slab a, b, vec;
+    load_slab(a, ea, s, d, lane);
+    load_slab(b, eb, s, d, lane);
+#pragma unroll
+    for (int t = 0; t < Slab::kPer; ++t)
+      vec.v[t] = fc * sgn(a.v[t], b.v[t]) - static_cast<float>(sum_r[t]);
+    store_slab(vec, vecs + static_cast<long>(i) * d, s, d, lane);
+#pragma unroll
+    for (int t = 0; t < Slab::kPer; ++t)
+      vec.v[t] = fc * sgn(b.v[t], a.v[t]) - static_cast<float>(sum_l[t]);
+    store_slab(vec, vecs + (static_cast<long>(n_pairs) + i) * d, s, d, lane);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+margin_l1_slabs_bwd(const float* __restrict__ w, const uint8_t* __restrict__ flags,
+                    const uint8_t* __restrict__ planes, const float* __restrict__ vecs,
+                    const float* __restrict__ denom, const float* __restrict__ grad,
+                    const int4* __restrict__ items, const int32_t* __restrict__ order,
+                    int n_items, int n_rows, int n_pairs, int k, int d,
+                    float* __restrict__ partial, float* __restrict__ out) {
+  constexpr int kBatch = 8;  // records whose planes a warp loads at once
+  const int lane = threadIdx.x & 31;
+  const int it = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (it >= n_items) return;
+  const int4 item = __ldg(items + it);
+  const int r = item.x, p0 = item.y, n = item.z;
+  if (r >= n_rows) return;
+  const int ns = n_slabs(d);
+  const long rec_bytes = static_cast<long>(ns) * kSlabBytes;
+  const float g = __ldg(grad) * 0.5f / __ldg(denom);
+  const long sk = static_cast<long>(n_pairs) * k;
+  // lane u: record p0 + u → its kind (0 an active negative record, 1 an
+  // inactive one, 2 a pair record), its coefficient, and where its planes
+  // or its vector begin
+  int kind = 1;
+  long at = 0;
+  float coef = 0.f;
+  if (lane < n) {
+    const int p = __ldg(order + p0 + lane);
+    if (p < 2 * n_pairs) {
+      kind = 2;
+      at = static_cast<long>(p) * d;
+      coef = w != nullptr ? g * __ldg(w + (p < n_pairs ? p : p - n_pairs)) : g;
+    } else {
+      const long q = static_cast<long>(p) - 2L * n_pairs;
+      const bool right_side = q < sk;
+      const long e = right_side ? q : q - sk;
+      if (__ldg(flags + e) & (right_side ? 1 : 2)) {
+        kind = 0;
+        at = q * rec_bytes;
+        coef = w != nullptr ? g * __ldg(w + e / k) : g;
+      }
+    }
+  }
+  float* dst = item.w ? partial + static_cast<long>(it) * d : out + static_cast<long>(r) * d;
+  for (int s = 0; s < ns; ++s) {
+    Slab acc;
+    acc.zero();
+    for (int u0 = 0; u0 < n; u0 += kBatch) {
+      int kinds[kBatch];
+      uint32_t bits[kBatch];
+      float cs[kBatch];
+      long ats[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        kinds[j] = __shfl_sync(kFull, kind, u0 + j);
+        cs[j] = __shfl_sync(kFull, coef, u0 + j);
+        ats[j] = __shfl_sync(kFull, at, u0 + j);
+        bits[j] = kinds[j] == 0
+                      ? __ldg(reinterpret_cast<const uint32_t*>(planes + ats[j] + s * kSlabBytes) +
+                              lane)
+                      : 0u;
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {  // the records in order
+        if (kinds[j] == 1) continue;
+        const float c = cs[j];
+        if (kinds[j] == 2) {
+          Slab vec;
+          load_slab(vec, vecs + ats[j], s, d, lane);
+#pragma unroll
+          for (int e = 0; e < Slab::kPer; ++e) acc.v[e] += c * vec.v[e];
+        } else {
+#pragma unroll
+          for (int e = 0; e < Slab::kPer; ++e) acc.v[e] += c * Signs<kSlab>::at(bits[j], e);
+        }
+      }
+    }
+    store_slab(acc, dst, s, d, lane);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+margin_l1_slabs_combine(const int32_t* __restrict__ item_ptr, const float* __restrict__ partial,
+                        int n_rows, int d, float* __restrict__ out) {
+  constexpr int kBatch = 4;
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (r >= n_rows) return;
+  const long i0 = __ldg(item_ptr + r), i1 = __ldg(item_ptr + r + 1);
+  if (i1 - i0 < 2) return;
+  for (int s = 0; s < n_slabs(d); ++s) {
+    Slab acc;
+    load_slab(acc, partial + i0 * d, s, d, lane);
+    for (long i = i0 + 1; i < i1; i += kBatch) {
+      Slab part[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+        if (i + b < i1) load_slab(part[b], partial + (i + b) * d, s, d, lane);
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+        if (i + b < i1) {
+#pragma unroll
+          for (int t = 0; t < Slab::kPer; ++t) acc.v[t] += part[b].v[t];
+        }
+    }
+    store_slab(acc, out + static_cast<long>(r) * d, s, d, lane);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+margin_slabs_gather_only(const float* __restrict__ emb, const int64_t* __restrict__ neg_l,
+                         const int64_t* __restrict__ neg_r, int n_pairs, int k, int d,
+                         float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (i >= n_pairs) return;
+  const int64_t* nr = neg_r + static_cast<long>(i) * k;
+  const int64_t* nl = neg_l + static_cast<long>(i) * k;
+  float acc = 0.f;
+  for (int j0 = 0; j0 < k; j0 += 32) {
+    const int jl = j0 + lane;
+    const int64_t my_r = jl < k ? __ldg(nr + jl) : 0, my_l = jl < k ? __ldg(nl + jl) : 0;
+    const int n = min(32, k - j0);
+    for (int u = 0; u < n; u += 2) {
+      const bool two = u + 1 < n;
+      const int64_t r0 = __shfl_sync(kFull, my_r, u), l0 = __shfl_sync(kFull, my_l, u);
+      const int64_t r1 = __shfl_sync(kFull, my_r, two ? u + 1 : u);
+      const int64_t l1i = __shfl_sync(kFull, my_l, two ? u + 1 : u);
+      for (int s = 0; s < n_slabs(d); ++s) {
+        Slab x0, y0, x1, y1;
+        load_slab(x0, emb + r0 * d, s, d, lane);
+        load_slab(y0, emb + l0 * d, s, d, lane);
+        if (two) {
+          load_slab(x1, emb + r1 * d, s, d, lane);
+          load_slab(y1, emb + l1i * d, s, d, lane);
+        }
+#pragma unroll
+        for (int t = 0; t < Slab::kPer; ++t) acc += x0.v[t] + y0.v[t];
+        if (two) {
+#pragma unroll
+          for (int t = 0; t < Slab::kPer; ++t) acc += x1.v[t] + y1.v[t];
+        }
+      }
+    }
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) out[i] = acc;
+}
+
 // The backward's index from the records' rows sorted stably (keys, R of
 // them, and their records, order): thread p ≤ R writes order[p] as int32,
 // row_ptr[r] = p for the rows r in (keys[p − 1], keys[p]] (the rows after
@@ -543,6 +860,18 @@ cudaError_t launch_fwd(const float* emb, const int64_t* pairs, const int64_t* ne
   return cudaGetLastError();
 }
 
+cudaError_t launch_slabs_fwd(const float* emb, const int64_t* pairs, const int64_t* neg_l,
+                             const int64_t* neg_r, const float* w, float gamma, int n_pairs,
+                             int k, int d, uint8_t* flags, float* row_sum, uint8_t* planes,
+                             float* vecs, float* loss, float* denom, cudaStream_t s) {
+  margin_l1_slabs_fwd<<<(n_pairs + kWarps - 1) / kWarps, kThreads, 0, s>>>(
+      emb, pairs, neg_l, neg_r, w, gamma, n_pairs, k, d, flags, row_sum, planes, vecs);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  margin_sum_kernel<<<1, kSumThreads, 0, s>>>(row_sum, w, n_pairs, k, loss, denom);
+  return cudaGetLastError();
+}
+
 template <int D, bool E>
 cudaError_t launch_bwd(const float* w, const uint8_t* flags, const uint8_t* planes,
                        const float* vecs, const float* denom, const float* grad,
@@ -562,11 +891,30 @@ cudaError_t launch_bwd(const float* w, const uint8_t* flags, const uint8_t* plan
   return cudaGetLastError();
 }
 
+cudaError_t launch_slabs_bwd(const float* w, const uint8_t* flags, const uint8_t* planes,
+                             const float* vecs, const float* denom, const float* grad,
+                             const int32_t* index, int n_items, int n_rows, int n_pairs, int k,
+                             int d, float* partial, float* out, cudaStream_t s) {
+  const long n_records = 2L * n_pairs + 2L * n_pairs * k;
+  const int4* items = reinterpret_cast<const int4*>(index);
+  const int32_t* order = index + 4L * n_items;
+  const int32_t* item_ptr = order + n_records + n_rows + 1;
+  margin_l1_slabs_bwd<<<(n_items + kWarps - 1) / kWarps, kThreads, 0, s>>>(
+      w, flags, planes, vecs, denom, grad, items, order, n_items, n_rows, n_pairs, k, d, partial,
+      out);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  margin_l1_slabs_combine<<<(n_rows + kWarps - 1) / kWarps, kThreads, 0, s>>>(item_ptr, partial,
+                                                                             n_rows, d, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The instances: at these widths the table is D wide (E true); every other
 // width d ≤ 512 takes the masked instance of the least MASKED_WIDTHS entry
-// ≥ d (32, then the multiples of 64), its elements past d zero.
+// ≥ d (32, then the multiples of 64), its elements past d zero; every
+// width above 512 the slab kernels.
 #define MARGIN_WIDTHS(X) X(16) X(32) X(64) X(128) X(256) X(384) X(512)
 #define MASKED_WIDTHS(X) X(32) X(64) X(128) X(192) X(256) X(320) X(384) X(448) X(512)
 
@@ -578,11 +926,12 @@ static int masked_width(int d) { return d <= 32 ? 32 : (d + 63) / 64 * 64; }
 // (2·n_pairs·k, 32·b) uint8, 4-byte aligned, b = 1 byte a lane up to d =
 // 128, 2 up to 256, 4 up to 512 (of the instance's width): the sign planes
 // of the active records (right-side entries i·k + j first, then the left
-// side's; an inactive record's left as it was; see Signs); vecs
-// (2·n_pairs, d) float32, the pair vectors (e_l's, then e_r's); loss (1,)
-// and denom (1,) float32 (D).  Two kernel launches (the rows, then the
-// fixed-order sum); returns the cudaError_t (0 on success).  d is any width
-// from 1 to 512.
+// side's; an inactive record's left as it was; see Signs); above 512 b =
+// 4·ceil(d / 512), a record's slabs' planes one after another, and every
+// record's written; vecs (2·n_pairs, d) float32, the pair vectors (e_l's,
+// then e_r's); loss (1,) and denom (1,) float32 (D).  Two kernel launches
+// (the rows, then the fixed-order sum); returns the cudaError_t (0 on
+// success).  d is any width ≥ 1.
 extern "C" int margin_l1_forward(const float* emb, const int64_t* pairs, const int64_t* neg_l,
                                  const int64_t* neg_r, const float* w, float gamma,
                                  int n_pairs, int k, int d, uint8_t* flags, float* row_sum,
@@ -597,7 +946,10 @@ extern "C" int margin_l1_forward(const float* emb, const int64_t* pairs, const i
 #define MARGIN_FWD_EXACT(D) MARGIN_FWD(D, true, d)
 #define MARGIN_FWD_MASKED(D) MARGIN_FWD(D, false, masked_width(d))
   MARGIN_WIDTHS(MARGIN_FWD_EXACT)
-  if (d < 1 || d > 512) return cudaErrorInvalidValue;
+  if (d < 1) return cudaErrorInvalidValue;
+  if (d > kSlab)
+    return launch_slabs_fwd(emb, pairs, neg_l, neg_r, w, gamma, n_pairs, k, d, flags, row_sum,
+                            planes, vecs, loss, denom, s);
   MASKED_WIDTHS(MARGIN_FWD_MASKED)
 #undef MARGIN_FWD_MASKED
 #undef MARGIN_FWD_EXACT
@@ -630,7 +982,10 @@ extern "C" int margin_l1_backward(const float* w, const uint8_t* flags, const ui
 #define MARGIN_BWD_EXACT(D) MARGIN_BWD(D, true, d)
 #define MARGIN_BWD_MASKED(D) MARGIN_BWD(D, false, masked_width(d))
   MARGIN_WIDTHS(MARGIN_BWD_EXACT)
-  if (d < 1 || d > 512) return cudaErrorInvalidValue;
+  if (d < 1) return cudaErrorInvalidValue;
+  if (d > kSlab)
+    return launch_slabs_bwd(w, flags, planes, vecs, denom, grad, index, n_items, n_rows, n_pairs,
+                            k, d, partial, out, s);
   MASKED_WIDTHS(MARGIN_BWD_MASKED)
 #undef MARGIN_BWD_MASKED
 #undef MARGIN_BWD_EXACT
@@ -679,7 +1034,12 @@ extern "C" int margin_l1_gather(const float* emb, const int64_t* neg_l, const in
 #define MARGIN_GATHER_EXACT(D) MARGIN_GATHER(D, true, d)
 #define MARGIN_GATHER_MASKED(D) MARGIN_GATHER(D, false, masked_width(d))
   MARGIN_WIDTHS(MARGIN_GATHER_EXACT)
-  if (d < 1 || d > 512) return cudaErrorInvalidValue;
+  if (d < 1) return cudaErrorInvalidValue;
+  if (d > kSlab) {
+    margin_slabs_gather_only<<<(n_pairs + kWarps - 1) / kWarps, kThreads, 0, s>>>(
+        emb, neg_l, neg_r, n_pairs, k, d, out);
+    return cudaGetLastError();
+  }
   MASKED_WIDTHS(MARGIN_GATHER_MASKED)
 #undef MARGIN_GATHER_MASKED
 #undef MARGIN_GATHER_EXACT

@@ -33,6 +33,14 @@
 //        warps each own 4 of the rows.  The query rows stay in shared memory
 //        in fp32; candidate tiles stream through a two-stage cp.async ring
 //        in chunks of 32 of d (unpadded rows with a swizzle);
+//      * above d = 512 (kResidentD) the strip no longer stays (its 32 rows
+//        alone would take 4·32·d bytes, 132 KB at 1,024, beside the queues):
+//        it streams too, each ring slot holding the candidate chunk and the
+//        strip's chunk of the same 32 of d in the same swizzled layout, so
+//        shared memory does not grow with d and any width runs.  A tile's
+//        products are still summed over the chunks of d in the same order
+//        into the same accumulators, so a score is the resident kernel's
+//        arithmetic; the strip is read once a tile (from L2);
 //      * the product warps' epilogue applies the norms, a, the bias, the
 //        column mask and the exclusion in registers and leaves the tile's
 //        scores in one of up to 4 slots of shared memory; named barriers
@@ -43,7 +51,8 @@
 //        Douze and Jégou, 2017): exact by (sel, column) whatever the order
 //        of the tiles, so two launches agree bit for bit;
 //      * the rerank scores the queue's rows with one warp per query, 8 table
-//        rows in flight, float4 loads, the query row from shared memory.
+//        rows in flight, float4 loads, the query row from shared memory
+//        (from L2 above kResidentD, in the same order of terms).
 //
 // 2. shortlist_dist_forward — the gathered distances alone, for a shortlist
 //    the caller already holds (the unfused route, k above the queue's 256):
@@ -172,6 +181,7 @@ constexpr int kKC = 32;        // d per pipeline chunk: a ring row is 128 bytes
 constexpr int kStages = 2;     // ring depth: deeper rings measured no faster
 constexpr int kPad = 16;       // query-row padding (floats): stride ≡ 16 mod 32 banks
 constexpr int kRerankRows = 8;  // table rows in flight per warp in the rerank
+constexpr int kResidentD = 512;  // the widest d whose query strip stays in shared memory
 
 struct SelectArgs {
   const float* q;              // (s, d)
@@ -224,11 +234,32 @@ __device__ __forceinline__ void load_chunk(float* dst, const float* __restrict__
   }
 }
 
+// The strip's rows [q0, q0 + kBQ) × d-chunk [k0, k0 + kKC) into a ring
+// slot after its candidate chunk (kStream), one 16-byte copy a product
+// thread, in the candidates' swizzled layout; rows past S and columns past
+// d are zero-filled.
+__device__ __forceinline__ void load_query_chunk(float* dst, const float* __restrict__ q, int q0,
+                                                 int k0, int n_q, int d, int tid) {
+  static_assert(kBQ * (kKC / 4) == kMmaThreads, "one copy a product thread");
+  const int row = tid / (kKC / 4), f4 = tid % (kKC / 4);
+  const int qr = q0 + row, k = k0 + f4 * 4;
+  const bool valid = qr < n_q && k < d;
+  const float* src = valid ? q + static_cast<size_t>(qr) * d + k : q;
+  cp_async16(dst + ring_at(row, f4), src, valid);
+}
+
+// The floats of one ring slot: the candidate chunk, and with kStream the
+// strip's chunk after it.
+template <bool kStream>
+constexpr int kSlot = (kBC + (kStream ? kBQ : 0)) * kKC;
+
 // This warp's piece of one d-chunk's products: its 32 columns of the tile
 // against its 16·kMT rows.  Fragment rows are g and g + 8 of each m-tile;
 // the k index of each group of 16 is permuted the same way for both operands
-// so every fragment row is one 16-byte shared load.
-template <bool kBf16>
+// so every fragment row is one 16-byte shared load.  The strip's rows are
+// the resident strip's (row stride l_stride, the chunk at koff) or, with
+// kStream, the slot's chunk after the candidates' (rb + kBC·kKC, swizzled).
+template <bool kBf16, bool kStream>
 __device__ __forceinline__ void chunk_products(float (&acc)[kMT][4][4], const float* strip,
                                                int l_stride, int koff, const float* rb, int wm,
                                                int wn, int gq, int tq) {
@@ -238,9 +269,13 @@ __device__ __forceinline__ void chunk_products(float (&acc)[kMT][4][4], const fl
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        av[mt][h] = *reinterpret_cast<const float4*>(
-            strip + (wm * 16 * kMT + mt * 16 + h * 8 + gq) * l_stride + koff + kk + tq * 4);
+      for (int h = 0; h < 2; ++h) {
+        const int row = wm * 16 * kMT + mt * 16 + h * 8 + gq;
+        av[mt][h] = kStream ? *reinterpret_cast<const float4*>(rb + kBC * kKC +
+                                                               ring_at(row, kk / 4 + tq))
+                            : *reinterpret_cast<const float4*>(strip + row * l_stride + koff +
+                                                               kk + tq * 4);
+      }
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt)
       bv[nt] = *reinterpret_cast<const float4*>(rb + ring_at(wn * 32 + nt * 8 + gq, kk / 4 + tq));
@@ -312,7 +347,9 @@ __device__ __forceinline__ void chunk_products(float (&acc)[kMT][4][4], const fl
   }
 }
 
-template <bool kBf16>
+// kStream: d > kResidentD, the strip streamed through the ring beside the
+// candidates (else resident in shared memory)
+template <bool kBf16, bool kStream>
 __global__ void __launch_bounds__(kThreads, 1)
 shortlist_select_kernel(SelectArgs p, int n_slots) {
   extern __shared__ __align__(16) float smem[];
@@ -320,11 +357,11 @@ shortlist_select_kernel(SelectArgs p, int n_slots) {
   __shared__ int thi[kBQ];    // of its queue's entry k − 1, +inf until it fills
   __shared__ int cnt[kBQ];    // each row's buffered survivors
   const int d_pad = (p.d + kKC - 1) / kKC * kKC;
-  const int l_stride = d_pad + kPad;
+  const int l_stride = kStream ? 0 : d_pad + kPad;
   const int kq = p.kq;
-  float* strip = smem;                                  // [kBQ][l_stride]
-  float* ring = strip + kBQ * l_stride;                 // [kStages][kBC][kKC]
-  float* tiles = ring + kStages * kBC * kKC;            // [n_slots][kBQ][kTStride]
+  float* strip = smem;                                  // [kBQ][l_stride], none with kStream
+  float* ring = strip + kBQ * l_stride;                 // [kStages][kSlot<kStream>]
+  float* tiles = ring + kStages * kSlot<kStream>;       // [n_slots][kBQ][kTStride]
   const Rows rs = carve_rows(tiles + n_slots * kBQ * kTStride, kq, thv, thi, cnt);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -337,8 +374,10 @@ shortlist_select_kernel(SelectArgs p, int n_slots) {
   int ld_left = n_tiles * nkc, ld_slot = 0, ld_tile = 0, ld_kc = 0;
   auto load_next = [&]() {
     if (ld_left > 0) {
-      load_chunk(ring + ld_slot * kBC * kKC, p.cands, ld_tile * kBC, ld_kc * kKC, p.c, p.d,
-                 tid);
+      float* slot = ring + ld_slot * kSlot<kStream>;
+      load_chunk(slot, p.cands, ld_tile * kBC, ld_kc * kKC, p.c, p.d, tid);
+      if constexpr (kStream)
+        load_query_chunk(slot + kBC * kKC, p.q, q0, ld_kc * kKC, p.s, p.d, tid);
       --ld_left;
       if (++ld_kc == nkc) {
         ld_kc = 0;
@@ -353,8 +392,9 @@ shortlist_select_kernel(SelectArgs p, int n_slots) {
     for (int st = 0; st < kStages - 1; ++st) load_next();
   }
 
-  // the query rows in fp32, zero past S and past d; empty queues
-  const int per_row = d_pad / 4;
+  // the query rows in fp32, zero past S and past d (resident strip only);
+  // empty queues
+  const int per_row = kStream ? 0 : d_pad / 4;
   for (int i = tid; i < kBQ * per_row; i += kThreads) {
     const int r = i / per_row, k = (i % per_row) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -386,8 +426,8 @@ shortlist_select_kernel(SelectArgs p, int n_slots) {
         cp_async_wait<kStages - 2>();
         bar_sync(kBarScore, kMmaThreads);  // this chunk is in; the oldest slot is free
         load_next();
-        chunk_products<kBf16>(acc, strip, l_stride, kc * kKC, ring + slot * kBC * kKC, wm, wn,
-                              gq, tq);
+        chunk_products<kBf16, kStream>(acc, strip, l_stride, kc * kKC,
+                                       ring + slot * kSlot<kStream>, wm, wn, gq, tq);
         if (++slot == kStages) slot = 0;
       }
       // the epilogue: norms, a, bias, mask and exclusion, into a slot for
@@ -441,7 +481,8 @@ shortlist_select_kernel(SelectArgs p, int n_slots) {
   if (p.rerank == 0) return;
   const float4* tab = reinterpret_cast<const float4*>(p.cands);
   for (int r = warp; r < n_rows; r += kWarps) {
-    const float4* qrow = reinterpret_cast<const float4*>(strip + r * l_stride);
+    const float4* qrow = reinterpret_cast<const float4*>(
+        kStream ? p.q + static_cast<size_t>(q0 + r) * p.d : strip + r * l_stride);
     const int* rq = rs.qi + r * kq;
     float* orow = p.dist + static_cast<size_t>(q0 + r) * p.k;
     if (p.rerank == 2)
@@ -453,23 +494,26 @@ shortlist_select_kernel(SelectArgs p, int n_slots) {
   }
 }
 
+// Dynamic shared memory of one block; kernels/shortlist_dist.py::select_smem
+// mirrors it.  Above kResidentD no term grows with d.
 size_t select_smem(int d, int kq, int n_slots) {
+  const bool stream = d > kResidentD;
   const int d_pad = (d + kKC - 1) / kKC * kKC;
-  return sizeof(float) * (static_cast<size_t>(kBQ) * (d_pad + kPad) +
-                          static_cast<size_t>(kStages) * kBC * kKC +
+  return sizeof(float) * (stream ? 0 : static_cast<size_t>(kBQ) * (d_pad + kPad)) +
+         sizeof(float) * (static_cast<size_t>(kStages) * (stream ? kSlot<true> : kSlot<false>) +
                           static_cast<size_t>(n_slots) * kBQ * kTStride) +
          queue_smem(kq);
 }
 
 // As many score-tile slots as fit, up to 4: they absorb the selection
 // warps' bursts of merges.
-template <bool kBf16>
+template <bool kBf16, bool kStream>
 int launch_select(const SelectArgs& a, size_t room, cudaStream_t stream) {
   int n_slots = kMaxSlots;
   while (n_slots > 1 && select_smem(a.d, a.kq, n_slots) > room) --n_slots;
   const size_t smem = select_smem(a.d, a.kq, n_slots);
   if (smem > room) return cudaErrorInvalidValue;
-  auto kern = shortlist_select_kernel<kBf16>;
+  auto kern = shortlist_select_kernel<kBf16, kStream>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -492,7 +536,8 @@ extern "C" int shortlist_dist_forward(const float* q, const float* table, const 
 
 // The select-and-rerank launch.  q (s, d), cands (c, d), q2 (s,), c2 (c,)
 // float32; bias (c,) float32, col_mask (c,) uint8 and exclude (s,) int64
-// may be null; all contiguous, 16-byte aligned, d % 4 == 0, 4 ≤ d ≤ 512;
+// may be null; all contiguous, 16-byte aligned, d % 4 == 0, d ≥ 4 (above
+// kResidentD = 512 the strip streams);
 // 1 ≤ k ≤ min(kq, c), kq a power of two in [32, 256].  bf16 = 1
 // rounds both operands of the product to bf16.  rerank: 0 none, 1
 // cityblock, 2 sqeuclidean (dist may then be null).  Writes sidx (s, k)
@@ -505,7 +550,7 @@ extern "C" int shortlist_select_forward(const float* q, const float* cands, cons
                                         int rerank, long long* sidx, float* sval, float* dist,
                                         void* stream) {
   if (s <= 0) return cudaSuccess;
-  if (d < 4 || d > 512 || d % 4 != 0 || k < 1 || k > kq || kq < 32 || kq > 256 ||
+  if (d < 4 || d % 4 != 0 || k < 1 || k > kq || kq < 32 || kq > 256 ||
       (kq & (kq - 1)) != 0 || k > c || rerank < 0 || rerank > 2 ||
       (rerank != 0 && dist == nullptr))
     return cudaErrorInvalidValue;
@@ -520,5 +565,9 @@ extern "C" int shortlist_select_forward(const float* q, const float* cands, cons
   const SelectArgs args{q, cands, q2, c2, bias, col_mask, exclude, a, s, c, d, k, kq,
                         rerank, sidx, sval, dist};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_select<true>(args, room, st) : launch_select<false>(args, room, st);
+  if (d > kResidentD)  // the one choice of the strip's path, by width
+    return bf16 ? launch_select<true, true>(args, room, st)
+                : launch_select<false, true>(args, room, st);
+  return bf16 ? launch_select<true, false>(args, room, st)
+              : launch_select<false, false>(args, room, st);
 }

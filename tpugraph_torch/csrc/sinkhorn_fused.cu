@@ -58,8 +58,11 @@
 //     query fragments in registers as it does the candidates'.  A tile's
 //     dot products are still summed over every chunk of d in the same
 //     accumulators before its exp and LSE fold; the strip is read once per
-//     tile (from L2) instead of once per split.  At d ≤ 256 the kernel is
-//     the resident-strip one above, unchanged.  Rows are d % 4 == 0 wide:
+//     tile (from L2) instead of once per split.  Its shared memory does not
+//     grow with d, so it takes any width; the 3× TF32 split's error grows
+//     with d as a fp32 dot product's does (tests/test_torch_widths.py holds
+//     the update within its error budget up to d 1,032).  At d ≤ 256 the
+//     kernel is the resident-strip one above, unchanged.  Rows are d % 4 == 0 wide:
 //     the wrapper pads others with zero columns, which change neither
 //     norm nor dot product.
 
@@ -430,9 +433,9 @@ cudaError_t launch(const float* l, const float* r, const float* l2, const float*
 
 // f (n_q,) float32 from l (n_q, d), r (n_c, d), l2 = ‖l‖² (n_q,),
 // r2 = ‖r‖² (n_c,), g (n_c,), log_mu (n_q,); all float32, contiguous, rows
-// 16-byte aligned (d % 4 == 0, d ≤ 512: up to 256 the strip stays in shared
+// 16-byte aligned (d % 4 == 0, any d: up to 256 the strip stays in shared
 // memory, its two halves and a 2-stage ring filling 218 KB at 256; above
-// it the strip streams through a 3-stage ring, 186 KB).  `grid` blocks share
+// it the strip streams through a 3-stage ring, 186 KB at every d).  `grid` blocks share
 // the ceil(n_q / 64) × ceil(n_c / 128) work units evenly (grid ≤ units);
 // partial is (ceil(n_q / 64), max_splits, 64) float2 scratch, where
 // max_splits bounds the blocks any strip is shared by, and counters
@@ -446,7 +449,7 @@ extern "C" int sinkhorn_update_forward(const float* l, const float* r, const flo
                                        void* stream) {
   if (n_q <= 0) return cudaSuccess;
   const long long units = static_cast<long long>((n_q + kBQ - 1) / kBQ) * ((n_c + kBC - 1) / kBC);
-  if (d <= 0 || d % 4 != 0 || d > 512 || n_c <= 0 || grid <= 0 || grid > units ||
+  if (d <= 0 || d % 4 != 0 || n_c <= 0 || grid <= 0 || grid > units ||
       units >= (1LL << 28) || max_splits <= 0)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -2,7 +2,7 @@
 // ELL matrix, written straight to natural row order.  x and out are fp32,
 // or both bf16 (bf16 training): the products and sums are fp32 either way,
 // the cut rows' partials too, and a bf16 row is rounded once, at the end.
-// Any width d from 1 to 512: instances at 64, 128 and 256, and 128-column
+// Any width d ≥ 1: instances at 64, 128 and 256, and 128-column
 // panels of the row over the grid's second axis at every other d (the
 // GCN layer's forward at widths without a fused instance, and its
 // backward, run here; ell_gather.cuh's FixedCols and PanelCols).
@@ -122,7 +122,7 @@ cudaError_t launch(const void* x, const float* diag, const int* rows, const int*
 }  // namespace
 
 // out (n_rows, d) of x's type = A·x + diag ⊙ x.  diag may be null.  d is
-// any width from 1 to 512: 64 (a tensor-parallel rank's half of a 128-wide
+// any width ≥ 1: 64 (a tensor-parallel rank's half of a 128-wide
 // layer), 128 and 256 have instances, any other d runs in 128-column
 // panels; dtype 0 is float32, 1 bfloat16.  items is the (n_items, 8) int32
 // segment table; split_p0 (n_split + 1) the first partial of each cut row;
@@ -137,7 +137,7 @@ extern "C" int spmm_ell_forward(const void* x, const float* diag, const int* row
                                 int d, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_items <= 0) return cudaSuccess;
-  if (d < 1 || d > 512 || dtype < 0 || dtype > 1) return cudaErrorInvalidValue;
+  if (d < 1 || dtype < 0 || dtype > 1) return cudaErrorInvalidValue;
 #define SPMM_ELL_LAUNCH(T, COLS, P) \
   launch<T, COLS>(x, diag, rows, idx, ew, items, n_items, split_p0, counters, partial, out, d, P, s)
   if (dtype == 0 && d == 64) return SPMM_ELL_LAUNCH(float, ell::FixedCols<64>, 1);

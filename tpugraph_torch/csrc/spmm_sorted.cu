@@ -1,6 +1,6 @@
 // Sorted-segment SpMM for Hopper (sm_90a): out[i] = Σ_{e: dst[e]=i} w[e]·x[src[e]]
-// over a (dst, src)-sorted padded edge list, x float32 or bfloat16, any d
-// from 1 to 512 (instances at 64, 128 and 256, 64 a tensor-parallel rank's
+// over a (dst, src)-sorted padded edge list, x float32 or bfloat16, any
+// d ≥ 1 (instances at 64, 128 and 256, 64 a tensor-parallel rank's
 // half of a 128-wide layer; 128-column panels of the row over the grid's
 // second axis at every other d, ell_gather.cuh's PanelCols), fp32
 // accumulation and one rounding to x's type at the end.
@@ -128,7 +128,7 @@ cudaError_t launch(const void* x, const int* src, const float* ew, const int* ds
 // (n_split + 1) the first partial of each cut row; counters (n_split·P) int
 // scratch, zero on entry and left zero on exit; partial (split_p0[n_split],
 // W) float32 scratch, with (W, P) = (d, 1) at an instance's width (64, 128,
-// 256), else (128·P, ceil(d / 128)).  d is any width from 1 to 512; dtype 0
+// 256), else (128·P, ceil(d / 128)).  d is any width ≥ 1; dtype 0
 // is float32, 1 bfloat16.  One kernel launch; returns its cudaError_t (0 on
 // success), and the work itself runs asynchronously on `stream`.
 extern "C" int spmm_sorted_forward(const void* x, const int* src, const float* ew,
@@ -137,7 +137,7 @@ extern "C" int spmm_sorted_forward(const void* x, const int* src, const float* e
                                    void* out, int d, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_items <= 0) return cudaSuccess;
-  if (d < 1 || d > 512 || dtype < 0 || dtype > 1) return cudaErrorInvalidValue;
+  if (d < 1 || dtype < 0 || dtype > 1) return cudaErrorInvalidValue;
 #define SPMM_SORTED_LAUNCH(T, COLS, P) \
   launch<T, COLS>(x, src, ew, dst, items, n_items, split_p0, counters, partial, out, d, P, s)
   if (dtype == 0 && d == 64) return SPMM_SORTED_LAUNCH(float, ell::FixedCols<64>, 1);

@@ -32,8 +32,11 @@ blocks reduced by ``pairwise_l1``.  The kernel sums each distance in the
 order c = 0, 1, …, d − 1, the plain version in PyTorch's; both depend only
 on the two rows, never on the pair's place in a tile.  The kernel takes
 d % 4 == 0 and float32 rows that start 16-byte aligned; the wrappers take
-any 1 ≤ d ≤ ``MAX_D`` and give rows of another width zero columns up to
-the next multiple of 4 (``pad.pad_columns``), which change no distance.
+any d ≥ 1 and give rows of another width zero columns up to the next
+multiple of 4 (``pad.pad_columns``), which change no distance.  The
+kernel streams d through its copy ring, 8 columns a stage, so its shared
+memory does not grow with d (``smem_bytes``): no width is refused, and a
+width the card's memory cannot hold fails at allocation.
 No wrapper falls back from the card.
 
 Each launch spreads its work over ``units`` blocks by ``plan``: the
@@ -61,7 +64,6 @@ from tpugraph_torch.kernels.pad import pad_columns
 from tpugraph_torch.kernels.shortlist_dist import QUEUE_MAX, _least_k, queue_len
 from tpugraph_torch.train.losses import pairwise_l1
 
-MAX_D = 512
 BLOCK_Q = 256  # plain: queries per score tile
 BLOCK_C = 1024  # plain: candidates per difference block; (256, 1024, 256) fp32 is 268 MB
 TILE_BLOCK_Q = 4096  # the route above the queue: a (4,096, C) fp32 tile per launch
@@ -289,7 +291,7 @@ def _on_cpu(q, *others) -> bool:
 
 
 def _check(q, cands, **rows) -> tuple[torch.Tensor, torch.Tensor]:
-    """What the kernel takes: float32 (Q, d) and (C, d) rows, 1 ≤ d ≤ MAX_D,
+    """What the kernel takes: float32 (Q, d) and (C, d) rows, any d ≥ 1,
     contiguous and 16-byte aligned; each per-row or per-column operand of
     its type and length, contiguous.  Returns q and cands with zero columns
     up to a multiple of 4 (the kernel's d)."""
@@ -297,8 +299,8 @@ def _check(q, cands, **rows) -> tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"q (Q, d) and cands (C, d) must share d, got {tuple(q.shape)}, "
                          f"{tuple(cands.shape)}")
     d = q.shape[1]
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"the L1 search kernel takes widths 1 to {MAX_D}, got d = {d}")
+    if d < 1:
+        raise ValueError(f"the L1 search kernel takes widths d ≥ 1, got d = {d}")
     q, cands = pad_columns(q, 4), pad_columns(cands, 4)
     if cands.shape[0] == 0:
         raise ValueError("the L1 search takes at least one candidate")

@@ -29,7 +29,10 @@ is ≥ 0 and the negative is not the pair's own partner, which the
 pool-of-one fill hands back: there the hinge is γ whatever the rows); the
 denominator D; the sign planes of the active records, sign(e_pair − n) as
 two bit planes "e > n" and "e < n", each lane's bits of the elements it
-holds in the kernel's register layout (``pack_planes``); and each pair
+holds in the kernel's register layout (``pack_planes``; above ``SLAB``
+columns a record's planes are its column slabs' planes, slab after slab,
+each in the masked 512 instance's layout, and the kernel writes every
+record's, active or not); and each pair
 record's vector A_i·sign(x − partner) −
 Σ_j sign(x − n_ij) over its side's active entries (exact integers).  Each
 record's contribution c_i·(sign or vector), c_i = ḡ·0.5/D·w_i, is the one
@@ -46,7 +49,9 @@ import torch
 from tpugraph_torch.kernels import _build
 
 WIDTHS = (16, 32, 64, 128, 256, 384, 512)  # the instances whose rows are d wide (margin_l1.cu)
-MAX_D = 512  # the widest table; any other d ≤ MAX_D runs on a masked instance (lane_width)
+# the widest instance: any other d ≤ SLAB runs on a masked instance, any d
+# above it on the slab kernels, in column slabs of SLAB (lane_width)
+SLAB = 512
 SEG = 32  # records an item of the backward (kSeg): a row of more spans several items
 
 # kernel launches (forward and backward each count one) since the process
@@ -79,13 +84,22 @@ def margin_loss_plain(emb: torch.Tensor, pairs: torch.Tensor, neg_l: torch.Tenso
 
 
 def lane_width(d: int) -> int:
-    """The width of the kernel's instance that holds rows of width d: d at
-    an instance's width (``WIDTHS``), else the masked instance of the least
-    of 32, 64, 128, 192, …, 512 that is ≥ d (``masked_width`` in
-    csrc/margin_l1.cu), whose elements past d are 0."""
+    """The width of the kernel's layout that holds rows of width d: d at an
+    instance's width (``WIDTHS``), the masked instance of the least of 32,
+    64, 128, 192, …, 512 that is ≥ d (``masked_width`` in
+    csrc/margin_l1.cu) up to ``SLAB``, and above it ``SLAB``·ceil(d /
+    ``SLAB``), the slab kernels' column slabs; elements past d are 0."""
     if d in WIDTHS:
         return d
+    if d > SLAB:
+        return -(-d // SLAB) * SLAB
     return 32 if d <= 32 else -(-d // 64) * 64
+
+
+def slabs(d: int) -> int:
+    """Column slabs of a row of width d in the kernel's layout: 1 up to
+    ``SLAB``, else ceil(d / ``SLAB``)."""
+    return max(1, -(-d // SLAB))
 
 
 @functools.lru_cache
@@ -93,43 +107,55 @@ def _lane_elems(d: int) -> torch.Tensor:
     """(slots, 32): the element that lane t holds in each register slot of
     the kernel's row at width d (``max(lane_width(d) / 32, 1)`` slots;
     float4 layout at an instance's width that 128 divides: slot 4c + u of
-    lane t is element (32c + t)·4 + u; else slot s is element 32s + t), d
+    lane t is element (32c + t)·4 + u; else slot s is element 32s + t, so
+    above ``SLAB`` slot 16·b + u of slab b is element 512·b + 32u + t), d
     where the lane holds none."""
     t, lane = torch.arange(max(lane_width(d) // 32, 1))[:, None], torch.arange(32)[None, :]
     e = (t // 4 * 32 + lane) * 4 + t % 4 if d in WIDTHS and d % 128 == 0 else t * 32 + lane
     return torch.where(e < d, e, d)
 
 
+def _slab_layout(d: int) -> tuple[int, int, int]:
+    """(slabs, slots a lane holds of a slab, bytes of a lane's word of a
+    slab): one slab of ``max(lane_width(d) / 32, 1)`` slots in 1, 2 or 4
+    bytes up to ``SLAB``, else ``slabs(d)`` slabs of 16 slots in 4."""
+    per = max(lane_width(d) // 32, 1) // slabs(d)
+    return slabs(d), per, 1 if per <= 4 else 2 if per <= 8 else 4
+
+
 def plane_bytes(d: int) -> int:
-    """Bytes a lane of one record's sign planes: 2 bits for each of its
-    ``max(lane_width(d) / 32, 1)`` slots, in 1, 2 or 4 bytes."""
-    per = max(lane_width(d) // 32, 1)
-    return 1 if per <= 4 else 2 if per <= 8 else 4
+    """Bytes a lane holds of one record's sign planes: 2 bits for each of
+    its ``max(lane_width(d) / 32, 1)`` slots, in 1, 2 or 4 bytes a slab
+    (4·ceil(d / 512) above ``SLAB``)."""
+    n, _, size = _slab_layout(d)
+    return n * size
 
 
 def pack_planes(signs: torch.Tensor) -> torch.Tensor:
     """Signs (R, d) in {−1, 0, 1} as the kernel's sign planes (R, 32·b)
-    uint8, b = ``plane_bytes(d)``: lane t's value, little-endian in bytes
-    [t·b, (t + 1)·b), has bit s set where its element of slot s is > 0 and
-    bit slots + s where it is < 0."""
+    uint8, b = ``plane_bytes(d)``: per slab (one up to ``SLAB``), lane t's
+    word of it, little-endian in the slab's bytes [t·w, (t + 1)·w), has bit
+    u set where its element of the slab's slot u is > 0 and bit per + u
+    where it is < 0 (per: the slab's slots a lane holds); the slabs' planes
+    lie one after another."""
     d = signs.shape[1]
-    lanes = _lane_elems(d).to(signs.device)
-    per, size = lanes.shape[0], plane_bytes(d)
+    n, per, size = _slab_layout(d)
+    lanes = _lane_elems(d).to(signs.device).reshape(n, per, 32)
     padded = torch.cat([signs, signs.new_zeros((signs.shape[0], 1))], 1)[:, lanes]
     shift = torch.arange(per, device=signs.device)[:, None]
-    value = (((padded > 0).long() << shift) | ((padded < 0).long() << (shift + per))).sum(1)
+    value = (((padded > 0).long() << shift) | ((padded < 0).long() << (shift + per))).sum(2)
     octets = (value[..., None] >> (8 * torch.arange(size, device=signs.device))) & 0xFF
-    return octets.to(torch.uint8).reshape(signs.shape[0], 32 * size)
+    return octets.to(torch.uint8).reshape(signs.shape[0], 32 * n * size)
 
 
 def unpack_planes(planes: torch.Tensor, d: int) -> torch.Tensor:
     """``pack_planes`` undone: (R, 32·b) uint8 -> the signs (R, d) float32."""
     lanes = _lane_elems(d).to(planes.device)
-    per, size = lanes.shape[0], plane_bytes(d)
+    n, per, size = _slab_layout(d)
     j = torch.arange(2 * per, device=planes.device)
-    octets = planes.reshape(planes.shape[0], 32, size)[:, :, j // 8]  # (R, lane, bit)
+    octets = planes.reshape(planes.shape[0], n, 32, size)[..., j // 8]  # (R, slab, lane, bit)
     bits = ((octets >> (j % 8).to(torch.uint8)) & 1).to(torch.int8)
-    signs = (bits[..., :per] - bits[..., per:]).transpose(1, 2).reshape(planes.shape[0], -1)
+    signs = (bits[..., :per] - bits[..., per:]).transpose(2, 3).reshape(planes.shape[0], -1)
     out = torch.zeros((planes.shape[0], d + 1), dtype=torch.float32, device=planes.device)
     out[:, lanes.reshape(-1)] = signs.float()
     return out[:, :d]
@@ -408,8 +434,8 @@ def _check(emb, pairs, neg_l, neg_r, weights, index) -> None:
     if emb.dim() != 2 or emb.dtype != torch.float32:
         raise ValueError(f"margin_l1 takes a float32 table (N, d), got {emb.dtype} "
                          f"{tuple(emb.shape)}")
-    if not 1 <= emb.shape[1] <= MAX_D:
-        raise ValueError(f"margin_l1 takes widths 1 to {MAX_D}, got d={emb.shape[1]}")
+    if emb.shape[1] < 1:
+        raise ValueError(f"margin_l1 takes widths d ≥ 1, got d={emb.shape[1]}")
     s = neg_r.shape[0]
     if (pairs.shape != (s, 2) or neg_l.shape != neg_r.shape or neg_r.dim() != 2 or s == 0
             or neg_r.shape[1] == 0):
@@ -438,9 +464,9 @@ def margin_l1_loss(emb: torch.Tensor, pairs: torch.Tensor, neg_l: torch.Tensor,
     (S, 2) and the negatives (S, k); ids are taken as int64, ``weights``
     as float32; ``index``, where the caller's batch carries it,
     ``build_index`` of these pairs and negatives over N rows (else it is
-    built in the backward).  On a CUDA table the kernel (1 ≤ d ≤
-    ``MAX_D``), on a CPU one its arithmetic in torch; any other device
-    raises."""
+    built in the backward).  On a CUDA table the kernel (any d ≥ 1: an
+    instance up to ``SLAB``, the slab kernels above), on a CPU one its
+    arithmetic in torch; any other device raises."""
     _check(emb, pairs, neg_l, neg_r, weights, index)
     if emb.device.type not in ("cuda", "cpu"):
         raise ValueError(f"margin_l1_loss runs on cuda or cpu, not {emb.device}")
@@ -469,9 +495,9 @@ def gather_rows_sum(emb: torch.Tensor, neg_l: torch.Tensor, neg_r: torch.Tensor)
     if not emb.is_cuda:
         return gather_rows_sum_plain(emb, neg_l, neg_r)
     emb = emb.contiguous()
-    if emb.dtype != torch.float32 or not 1 <= emb.shape[1] <= MAX_D or emb.data_ptr() % 16:
-        raise ValueError(f"margin_l1_gather takes a 16-byte aligned float32 table of width 1 "
-                         f"to {MAX_D}, got {emb.dtype} {tuple(emb.shape)}")
+    if emb.dtype != torch.float32 or emb.shape[1] < 1 or emb.data_ptr() % 16:
+        raise ValueError(f"margin_l1_gather takes a 16-byte aligned float32 table of width "
+                         f"d ≥ 1, got {emb.dtype} {tuple(emb.shape)}")
     neg_l, neg_r = (t.to(torch.int64).contiguous() for t in (neg_l, neg_r))
     s, k = neg_r.shape
     out = torch.empty(s, dtype=torch.float32, device=emb.device)

@@ -27,11 +27,14 @@ is ``lax.top_k``'s.
 * ``shortlist_select`` — on a CUDA tensor one launch of the hand-written
   Hopper kernel ``csrc/shortlist_dist.cu::shortlist_select_forward``, which
   never writes an (S, C) tile; on a CPU tensor ``shortlist_select_plain``.
-  It takes any 1 ≤ d ≤ ``SELECT_MAX_D``, rows of another width than a
-  multiple of 4 (of 8 with ``bf16``) padded with zero columns
-  (``pad.pad_columns``), which change no score and no distance.  It
-  refuses (``ValueError``) a ``k`` above ``QUEUE_MAX`` and a width above
-  ``SELECT_MAX_D``, and (``TypeError``) any operand that is not float32.
+  It takes any d ≥ 1, rows of another width than a multiple of 4 (of 8
+  with ``bf16``) padded with zero columns (``pad.pad_columns``), which
+  change no score and no distance.  Up to ``SELECT_RESIDENT_D`` the query
+  strip stays in shared memory; above it the strip streams beside the
+  candidate tiles and the rerank reads its query row from L2, in shared
+  memory that does not grow with d (``select_smem``).  It refuses
+  (``ValueError``) a ``k`` above ``QUEUE_MAX``, and (``TypeError``) any
+  operand that is not float32.
 * ``shortlist_select_plain`` — the plain version: per block of
   ``PLAIN_BLOCK_Q`` queries the fp32 (or bf16-rounded) product tile, the
   bias and masks, the k least by ``torch.topk`` with ties at the k-th value
@@ -61,7 +64,17 @@ METRICS = ("cityblock", "sqeuclidean")
 PLAIN_BLOCK_ELEMS = 1 << 26  # 256 MB of fp32 per gathered (rows, K, d) block
 PLAIN_BLOCK_Q = 4096  # queries per plain selection tile: 311 MB at 19,000 candidates
 QUEUE_MAX = 256  # the select kernel's largest per-row queue
-SELECT_MAX_D = 512  # the query rows and queues fill up to 166 KB of shared memory at 512
+# the widest d whose query strip stays in shared memory (kResidentD in
+# csrc/shortlist_dist.cu): the rows and queues fill up to 166 KB at 512
+SELECT_RESIDENT_D = 512
+# the select kernel's block (csrc/shortlist_dist.cu, topk_queue.cuh): strips
+# of SELECT_BQ queries, tiles of SELECT_BC candidates, chunks of SELECT_KC
+# of d through a SELECT_STAGES-deep ring, up to SELECT_SLOTS score tiles of
+# rows SELECT_TSTRIDE floats apart, and each row's queue and KBUF buffer
+SELECT_BQ, SELECT_BC, SELECT_KC, SELECT_STAGES, SELECT_SLOTS = 32, 128, 32, 2, 4
+SELECT_TSTRIDE, SELECT_KBUF, SELECT_PAD = 132, 128, 16
+# what one H100 block may take, and the block's static rows (thv, thi, cnt)
+SELECT_ROOM = 232448 - 3 * 4 * SELECT_BQ
 
 # kernel launches since the process started (or the caller last reset
 # them): the gather kernel's, and the select-and-rerank kernel's
@@ -212,6 +225,24 @@ def shortlist_select_plain(q: torch.Tensor, cands: torch.Tensor, k: int, **opts)
     return _select_blocked(q, cands, k, shortlist_dist_plain, **opts)
 
 
+def select_streams(d: int) -> bool:
+    """Whether the select kernel streams the query strip at width d (the
+    kernel's d, padded to a multiple of 4 or 8)."""
+    return d > SELECT_RESIDENT_D
+
+
+def select_smem(d: int, kq: int, n_slots: int) -> int:
+    """Dynamic shared memory of one select block at width d, queue kq and
+    ``n_slots`` score tiles (``select_smem`` in the kernel): the resident
+    strip (none when it streams), the ring (with the strip's chunks when it
+    streams), the score tiles, the queues and buffers."""
+    d_pad = -(-d // SELECT_KC) * SELECT_KC
+    strip = 0 if select_streams(d) else SELECT_BQ * (d_pad + SELECT_PAD)
+    slot = (SELECT_BC + SELECT_BQ * select_streams(d)) * SELECT_KC
+    tiles = n_slots * SELECT_BQ * SELECT_TSTRIDE
+    return 4 * (strip + SELECT_STAGES * slot + tiles) + 8 * SELECT_BQ * (kq + SELECT_KBUF)
+
+
 def _check_select(q, cands, k, q2, c2, bias, col_mask, exclude,
                   bf16: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's operands checked; returns q and cands with zero columns
@@ -223,8 +254,8 @@ def _check_select(q, cands, k, q2, c2, bias, col_mask, exclude,
     if not 1 <= k <= min(c, QUEUE_MAX):
         raise ValueError(f"the select kernel takes 1 ≤ k ≤ min(C, {QUEUE_MAX}), got k = {k}, "
                          f"C = {c}")
-    if not 1 <= d <= SELECT_MAX_D:
-        raise ValueError(f"the select kernel takes widths 1 to {SELECT_MAX_D}, got d = {d}")
+    if d < 1:
+        raise ValueError(f"the select kernel takes widths d ≥ 1, got d = {d}")
     q, cands = pad_columns(q, 8 if bf16 else 4), pad_columns(cands, 8 if bf16 else 4)
     for name, t, n, dtype in (("q", q, None, torch.float32),
                               ("cands", cands, None, torch.float32),

@@ -9,10 +9,11 @@
   the cost tile by tile on the tensor cores (a 3× TF32 split, fp32's
   accuracy) and never stores it; on a CPU tensor the plain version
   ``sinkhorn_update_plain`` (a materialised cost, then ``torch.logsumexp``).
-  Any d from 1 to ``MAX_D``: rows of a width that is no multiple of 4 get
-  zero columns (``pad.pad_columns``), which change no norm and no dot
-  product; above 256 the kernel streams the query strip beside the
-  candidate tiles.  It never falls back from the card.
+  Any d ≥ 1: rows of a width that is no multiple of 4 get zero columns
+  (``pad.pad_columns``), which change no norm and no dot product; above
+  256 the kernel streams the query strip beside the candidate tiles, in
+  shared memory that does not grow with d.  It never falls back
+  from the card.
 * ``stream_plan`` — how the persistent kernel shares the work: one block
   per SM takes an equal run of the (query strip, candidate tile) units; the
   piece of a strip each block covers is one split of its candidate axis,
@@ -40,9 +41,6 @@ from tpugraph_torch.kernels import _build
 from tpugraph_torch.kernels.pad import pad_columns
 
 TILE_Q, TILE_C = 64, 128  # kBQ, kBC in csrc/sinkhorn_fused.cu
-# up to 256 the query strip's (big, small) halves and the ring fill 218 KB of
-# shared memory; above it the strip streams through the ring (186 KB)
-MAX_D = 512
 PRECISION = "3xtf32"  # the kernel's product: big·big + big·small + small·big in TF32
 
 # kernel launches since the process started (or the caller last reset them):
@@ -107,9 +105,9 @@ def _check(l, r, g, log_mu, l_sq, r_sq) -> None:
     if l.dim() != 2 or r.dim() != 2 or l.shape[1] != r.shape[1]:
         raise ValueError(f"l (Q, d) and r (C, d) must share d, got {tuple(l.shape)}, "
                          f"{tuple(r.shape)}")
-    if l.shape[1] % 4 or l.shape[1] > MAX_D or r.shape[0] == 0:
-        raise ValueError(f"the kernel takes widths 1 to {MAX_D} (padded to a multiple of 4) "
-                         f"and C > 0, got d={l.shape[1]}, C={r.shape[0]}")
+    if l.shape[1] % 4 or l.shape[1] == 0 or r.shape[0] == 0:
+        raise ValueError(f"the kernel takes widths d ≥ 1 (padded to a multiple of 4) and "
+                         f"C > 0, got d={l.shape[1]}, C={r.shape[0]}")
     q, c = l.shape[0], r.shape[0]
     for name, t, shape in (("l", l, tuple(l.shape)), ("r", r, tuple(r.shape)),
                            ("g", g, (c,)), ("log_mu", log_mu, (q,)),
@@ -136,7 +134,7 @@ def sinkhorn_potential_update(l: torch.Tensor, r: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"sinkhorn_potential_update runs on cuda or cpu, not {l.device}")
     l_sq = sq_norms(l) if l_sq is None else l_sq
     r_sq = sq_norms(r) if r_sq is None else r_sq
-    if l.dim() == 2 and r.dim() == 2 and l.shape[1] == r.shape[1] <= MAX_D:
+    if l.dim() == 2 and r.dim() == 2 and l.shape[1] == r.shape[1]:
         l, r = pad_columns(l, 4), pad_columns(r, 4)
     _check(l, r, g, log_mu, l_sq, r_sq)
     (q, d), c = l.shape, r.shape[0]

@@ -10,8 +10,8 @@ out[i] = Σ_{e: dst[e]=i} w[e] · x[src[e]] over a ``PaddedEdges`` list.
   fixed order, so there it sums in float64, where the order moves a sum
   far below one fp32 rounding: its result is the same from run to run.
 * ``sorted_spmm`` — the same function by the hand-written Hopper kernel
-  ``csrc/spmm_sorted.cu`` on a CUDA tensor (fp32 or bf16, any d from 1 to
-  512: instances at 64, 128 and 256, ``spmm_ell.panel_layout``'s panels at
+  ``csrc/spmm_sorted.cu`` on a CUDA tensor (fp32 or bf16, any d ≥ 1:
+  instances at 64, 128 and 256, ``spmm_ell.panel_layout``'s panels at
   every other d),
   the plain version on a CPU tensor.  It never falls back from the card.
   Its work table (``segment_plan``) is built on the host once per edge list
@@ -156,7 +156,7 @@ def _lib():
 def sorted_spmm(edges: PaddedEdges, x: torch.Tensor) -> torch.Tensor:
     """A @ x over a sorted edge list: the kernel on a CUDA tensor,
     ``segment_spmm`` on a CPU tensor.  x (n_cols, d) float32 or bfloat16,
-    1 ≤ d ≤ 512 on the card; the output has x's type."""
+    any d ≥ 1 on the card; the output has x's type."""
     if x.device.type == "cpu":
         return segment_spmm(edges, x)
     if x.device.type != "cuda":

@@ -6,10 +6,10 @@ out[row] = Σ_k w[row, k] · x[idx[row, k]] + diag[row] · x[row].
   ``index_select`` gather per degree bucket, an fp32 ``einsum`` over K, one
   ``row_order`` gather back to natural row order, plus ``diag ⊙ x``.
 * ``ell_spmm`` — the same function by the hand-written Hopper kernel
-  ``csrc/spmm_ell.cu`` on a CUDA tensor (fp32 or bf16, any d from 1 to
-  ``MAX_D``: instances at ``SUPPORTED_DIMS``, 128-column panels of the row
-  at every other d, ``panel_layout``; fp32 sums, a bf16 row rounded once at
-  the end), the plain version on a CPU tensor.  It never falls back from the card.  Applied to
+  ``csrc/spmm_ell.cu`` on a CUDA tensor (fp32 or bf16, any d ≥ 1:
+  instances at ``SUPPORTED_DIMS``, 128-column panels of the row at every
+  other d, ``panel_layout``; fp32 sums, a bf16 row rounded once at the
+  end), the plain version on a CPU tensor.  It never falls back from the card.  Applied to
   the prebuilt transpose ``op.bwd`` it is the backward of A·x with no
   scatter (``kernels/gcn_fused.py::gcn_layer``).  Pad slots hold
   ``idx = 0``, ``w = 0``: a non-finite x[0] poisons the padded rows
@@ -46,7 +46,6 @@ TILE_SLOTS = 1024  # target ELL slots per tile: large-K buckets get fewer rows
 SEG_SLOTS = 128  # longest run of one row's ELL slots in one SpMM work item
 PACK_VSLOTS = 64  # virtual slots (K + 1 per row) of a packed SpMM item: two chunks
 SUPPORTED_DIMS = (64, 128, 256)  # the template instances of csrc/spmm_ell.cu, spmm_sorted.cu
-MAX_D = 512  # the widest row either SpMM kernel takes (in PANEL-column panels elsewhere)
 PANEL = 128  # columns of one panel of the kernels' panel path (ell_gather.cuh's PanelCols)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -213,10 +212,10 @@ def segment_plan(m: EllMatrix) -> SegmentPlan:
 
 
 def check_width(x: torch.Tensor, what: str) -> None:
-    """The SpMM kernels take any width from 1 to ``MAX_D``; refuse others,
-    naming the width and the limit."""
-    if not 1 <= x.shape[1] <= MAX_D:
-        raise ValueError(f"the {what} kernel takes widths 1 to {MAX_D}, got d={x.shape[1]}")
+    """The SpMM kernels take any width d ≥ 1 (a width the card's memory
+    cannot hold fails at allocation); refuse an empty row."""
+    if x.shape[1] < 1:
+        raise ValueError(f"the {what} kernel takes widths d ≥ 1, got d={x.shape[1]}")
 
 
 def panel_layout(d: int) -> tuple[int, int]:
@@ -235,7 +234,8 @@ def segment_scratch(plan, d: int, device: torch.device, stream: int) -> tuple[in
     ``stream`` (``plan`` has ``n_partials``, ``split_p0`` and the
     ``scratch`` dict: this module's ``SegmentPlan`` or the sorted kernel's).
     Allocated and zeroed at the first call there, outside any capture; the
-    kernels leave each counter at 0."""
+    kernels leave each counter at 0.  The kernels index it with 64-bit
+    offsets, so it serves any d (P = ceil(d / 128) panels)."""
     width, panels = panel_layout(d)
     scratch = plan.scratch.get((d, stream))
     if scratch is None:
@@ -267,8 +267,8 @@ def _lib():
 
 def ell_spmm(m: EllMatrix, diag: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor:
     """A @ x + diag ⊙ x: the kernel on a CUDA tensor, ``apply_with_diag``
-    on a CPU tensor.  x (n_cols, d) float32 or bfloat16, 1 ≤ d ≤ ``MAX_D``
-    on the card; the output has x's type."""
+    on a CPU tensor.  x (n_cols, d) float32 or bfloat16, any d ≥ 1 on the
+    card; the output has x's type."""
     if x.device.type == "cpu":
         return apply_with_diag(m, diag, x)
     if x.device.type != "cuda":
