@@ -305,7 +305,18 @@ Phases, each printing one JSON line:
              beside phases 19's and 21 A's unfused runs; ``profile_dir``
              on a 6-epoch run (the trace of epochs 2-5 holds ``spmm_ell``).
 
-25. widths — every width the JAX package takes: the ELL SpMM on the zh-en
+25. widths — every width the JAX package takes: the fused GCN layer's
+             any-width kernel at (384, 384), (512, 512), (768, 768),
+             (50, 300), (300, 50) and (64, 64) fp32 and (384, 384) and
+             (768, 768) bf16 on the zh-en operator and (384, 384) on the
+             200,000-row ``dwy100k_dist`` one (against its plain version on
+             NaN-prefilled memory, two launches bit for bit, one launch a
+             call, the layer by its route; timed in turns with x·W +
+             ``spmm_ell`` and cuSPARSE + GEMM, beside its bound: where it
+             is faster, ``gcn_fused.FUSED_WIDTHS`` holds the width); the
+             probe's stages 0 and 1 (the row copy bit for bit,
+             ``fused_bucket_apply`` at n 2,000, R 512, K 4, d 128) with the
+             counts at 0 before them; the ELL SpMM on the zh-en
              transpose and the sorted SpMM on the zh-en adjacency (their
              128-column panels), the L1 margin at recipe v6's shape (its
              masked instances at 50 and 300, float4 ones at 384 and 512,
@@ -349,6 +360,7 @@ import itertools
 import json
 import math
 import os
+import runpy
 import signal
 import subprocess
 import sys
@@ -371,8 +383,8 @@ from tpugraph_torch.dist.halo import exchange, halo_spmm_ell
 from tpugraph_torch.dist.mesh import make_mesh, shard_operator
 from tpugraph_torch.dist.ring import ring_hits_at_k, ring_knn, ring_sinkhorn_align_loss
 from tpugraph_torch.dist.trainer import RowLayout, dist_parts
-from tpugraph_torch.kernels import (_build, gcn_fused, l1_search, margin_l1, shortlist_dist,
-                                    sinkhorn_fused, spmm_ell)
+from tpugraph_torch.kernels import (_build, gcn_fused, l1_search, margin_l1, probe,
+                                    shortlist_dist, sinkhorn_fused, spmm_ell)
 from tpugraph_torch.kernels import spmm as spmm_mod
 from tpugraph_torch.kernels.spmm import SEG_EDGES, segment_spmm, sorted_spmm, spmm_xla
 from tpugraph_torch.kernels.gcn_fused import fused_gcn_layer, reference_layer
@@ -522,7 +534,7 @@ def phase_device() -> str:
 
 
 KERNELS = ("gcn_fused", "spmm_ell", "sinkhorn_fused", "shortlist_dist", "spmm_sorted",
-           "l1_search", "margin_l1", "sinkhorn_reverse")
+           "l1_search", "margin_l1", "sinkhorn_reverse", "row_copy")
 
 
 def phase_build() -> None:
@@ -551,9 +563,10 @@ def _bound_ms(op, x, wmat, bias) -> tuple[float, str, float]:
     (x, W, b, the buckets' rows/idx/w, diag), the output written once; the
     operations this graph needs as the kernel runs them: the real edges
     (the diagonal included) at the fp32 SIMT rate, then the product as
-    ``gcn_fused.PRODUCTS`` says: three TF32 products on the tensor cores
-    (two for a bf16 W below (256, 256), which is exact in TF32), or at bf16
-    (256, 256) three bf16 products on the bf16 tensor cores.  Third, the
+    ``gcn_fused.products`` says: three TF32 products on the tensor cores
+    (two for a bf16 W of a narrow instance, which is exact in TF32), or at
+    bf16 (256, 256) and every bf16 width without an instance three bf16
+    products on the bf16 tensor cores.  Third, the
     bound with the whole product once at the peak rate of x's type (fp32
     SIMT, or bf16 tensor cores)."""
     m = op.fwd
@@ -563,7 +576,7 @@ def _bound_ms(op, x, wmat, bias) -> tuple[float, str, float]:
     nbytes = (n * d_in * es + d_in * d_out * es + bias.numel() * 4 + op.diag.numel() * 4
               + ell_bytes + n * d_out * es)
     edge_ops, gemm_ops = 2 * (m.nnz + op.n_diag) * d_in, 2 * n * d_in * d_out
-    n_products, unit = gcn_fused.PRODUCTS[d_in, d_out, x.dtype]
+    n_products, unit = gcn_fused.products(d_in, d_out, x.dtype)
     peak = PEAK_TF32_OPS if unit == "tf32" else PEAK_OPS[torch.bfloat16]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = (edge_ops / PEAK_OPS[torch.float32] + n_products * gemm_ops / peak) * 1e3
@@ -2369,7 +2382,7 @@ def _parent_margin(src: str) -> dict:
     return out
 
 
-def _smi_sample(fn, seconds: float = 1.0) -> dict:
+def _smi_sample(fn, seconds: float = 0.5) -> dict:
     """The SM clock (MHz) and power draw (W) that ``nvidia-smi`` samples
     every 100 ms while ``fn`` runs back to back for ``seconds``: the median
     of the samples after the first."""
@@ -2508,11 +2521,11 @@ def _l1_case(name: str, entry: str, q, cands, k: int, kw: dict, smi: str,
     out = dict(entry=entry, s=s, c=c, d=d, k=k, options=sorted(kw), **check,
                ms=ms, device_ms=dev_ms, device_traces=traces,
                ms_cold_l2=time_cold_ms(kernel, iters=3),
-               plain_ms=time_ms(lambda: plain(*args, **opts), warmup=1, iters=2),
+               plain_ms=time_ms(lambda: plain(*args, **opts), warmup=1, iters=1),
                bound_ms=bound, bound_by=bound_by, share_of_bound=ratio(bound, ms),
                share_of_bound_device=ratio(bound, dev_ms),
                library_ms=time_ms(lambda: _l1_library(entry, q, cands, k, kw), warmup=1,
-                                  iters=2),
+                                  iters=1),
                library="torch.cdist(p=1), then torch.topk or a compare-and-sum",
                plan=plan, **clock, parent=versus)
     emit({"phase": "kernel", "kernel": "l1_search", "caller": name, **out,
@@ -5434,8 +5447,20 @@ WIDE_DS = (514, 768, 1030)
 WIDE_BF16_DS = (768,)
 WIDE_L1 = ("mining", "ranks")
 WIDE_SELECT = ("mining", "eval_csls")
-# the GCN layer at widths without a fused instance: x·W, then spmm_ell
-LAYER_DS = (384, 512, 768)
+# the fused layer's any-width kernel (csrc/gcn_fused.cu, gcn_fused_kernel_any)
+# on the zh-en operator: the sweeps' square layers, the (50, 300) run's two
+# layers (d_in < d_out and >), base at dim 64; bf16 at 384 and 768; and
+# (384, 384) on the 200,000-row dwy100k_dist operator.  Each is timed in
+# turns with the layer's unfused route, x·W then spmm_ell, which decides
+# gcn_fused.FUSED_WIDTHS.
+ANY_WIDTHS = ((384, 384, torch.float32), (512, 512, torch.float32), (768, 768, torch.float32),
+              (50, 300, torch.float32), (300, 50, torch.float32), (64, 64, torch.float32),
+              (384, 384, torch.bfloat16), (768, 768, torch.bfloat16))
+ANY_WIDTHS_DWY100K = ((384, 384, torch.float32),)
+# rounds of (unfused, fused, library, library, fused, unfused); the medians
+# decide: a narrow layer's unfused route (three launches) waits on the host,
+# and one reading of it ranged 0.046-0.082 ms at (64, 64) (PERF.md §6)
+ANY_WIDTH_ROUNDS = 3
 WIDTH_RUNS = (("v6_dim384", "base", "v6", dict(dim=384)),
               ("v6_dim512", "base", "v6", dict(dim=512)),
               ("base_dim64", "base", None, dict(dim=64)),
@@ -5558,63 +5583,144 @@ def _width_dist_step(task, dev: torch.device, dim: int) -> dict:
     return out
 
 
-def _unfused_layer_case(op, a_csr, rng, d: int, smi: str) -> dict:
-    """The GCN layer at (d, d) where ``gcn_fused`` has no instance, by the
-    port's route (``gcn_layer``: x·W by ``torch.matmul``, then one
-    ``spmm_ell`` launch over ``op.fwd``) against its plain version
-    (``gcn_layer_plain``), two calls bit for bit; timed beside it,
-    cuSPARSE + GEMM and the bound: x, W, b, the ELL arrays, the diagonal
-    read once and the output written once, or the product and the edges'
-    operations at the fp32 SIMT rate (a fp32 ``matmul`` runs in full fp32
-    here, and the ELL sums are fp32), whichever is larger."""
+def _any_width_case(op, a_csr, rng, d_in: int, d_out: int, dtype: torch.dtype, smi: str,
+                    where: str = "zh_en") -> dict:
+    """``fused_gcn_layer`` at (d_in, d_out) on ``op`` by the any-width
+    kernel: against ``reference_layer`` at ``TOL`` on NaN-prefilled output
+    memory, two launches bit for bit, one launch a call; the layer
+    (``gcn_layer``) by its route at this width (``fused_width``: one
+    ``gcn_fused`` launch, or x·W and one ``spmm_ell``) against
+    ``gcn_layer_plain``, two calls bit for bit.  Timed by events in turns
+    with the unfused route (x·W by ``torch.matmul``, ``spmm_ell``, the bias)
+    and cuSPARSE + GEMM (``ANY_WIDTH_ROUNDS`` rounds, medians), beside the
+    plain version and the bound
+    (``_bound_ms``: the layer's bytes, or the edges at the fp32 SIMT rate
+    and the kernel's three products at their tensor-core rate)."""
     dev = op.fwd.device
-    x = torch.from_numpy(rng.standard_normal((op.n_rows, d)).astype(np.float32)).to(dev)
-    wm = torch.from_numpy((rng.standard_normal((d, d)) / np.sqrt(d)).astype(np.float32)).to(dev)
-    b = torch.from_numpy(rng.standard_normal(d).astype(np.float32)).to(dev)
-    if gcn_fused.fused_width(d, d):
-        raise AssertionError(f"({d}, {d}) has a fused instance")
+    x = torch.from_numpy(rng.standard_normal((op.n_rows, d_in)).astype(np.float32)).to(dev, dtype)
+    wm = torch.from_numpy((rng.standard_normal((d_in, d_out)) / np.sqrt(d_in)).astype(np.float32))
+    wm = wm.to(dev, dtype)
+    b = torch.from_numpy(rng.standard_normal(d_out).astype(np.float32)).to(dev)
+    plan = gcn_fused.kernel_plan(d_in, d_out, dtype)
+    if plan.kernel != "gcn_fused_kernel_any":
+        raise AssertionError(f"({d_in}, {d_out}) has an instance: {plan.kernel}")
+
+    def fused():
+        return fused_gcn_layer(op.fwd, op.diag, x, wm, b)
+
+    def unfused():
+        return ell_spmm(op.fwd, op.diag, torch.matmul(x, wm)) + b.to(dtype)
 
     def layer():
         with torch.no_grad():
             return gcn_fused.gcn_layer(op, x, wm, b)
 
-    before = spmm_ell.launches
+    runs = []
+    for _ in range(2):
+        _nan_cache(op.n_rows, d_out, dev, dtype)
+        before = gcn_fused.launches
+        runs.append(fused())
+        sync(dev)
+        if gcn_fused.launches != before + 1:
+            raise AssertionError(f"gcn_fused at ({d_in}, {d_out}): "
+                                 f"{gcn_fused.launches - before} launches in one call")
+    want = reference_layer(op.fwd, op.diag, x, wm, b)
+    torch.testing.assert_close(runs[0].float(), want.float(), **TOL[dtype])
+    if not torch.equal(runs[0], runs[1]):
+        raise AssertionError(f"gcn_fused at ({d_in}, {d_out}): two launches differ")
+    torch.testing.assert_close(unfused().float(), want.float(), **TOL[dtype])
+    route = gcn_fused.fused_width(d_in, d_out)
+    before = (gcn_fused.launches, spmm_ell.launches)
     got = layer()
     sync(dev)
-    if spmm_ell.launches != before + 1:
-        raise AssertionError(f"the layer at ({d}, {d}) launched {spmm_ell.launches - before} "
-                             f"spmm_ell")
-    want = gcn_fused.gcn_layer_plain(op, x, wm, b)
-    torch.testing.assert_close(got, want, **TOL[torch.float32])
+    routed = (gcn_fused.launches - before[0], spmm_ell.launches - before[1])
+    if routed != ((1, 0) if route else (0, 1)):
+        raise AssertionError(f"the layer at ({d_in}, {d_out}) launched {routed} "
+                             f"(gcn_fused, spmm_ell); fused_width {route}")
+    torch.testing.assert_close(got.float(), gcn_fused.gcn_layer_plain(op, x, wm, b).float(),
+                               **TOL[dtype])
     if not torch.equal(got, layer()):
-        raise AssertionError(f"the layer at ({d}, {d}): two calls differ")
+        raise AssertionError(f"the layer at ({d_in}, {d_out}): two calls differ")
+    lib_refused = None
 
     def library():
-        return torch.sparse.mm(a_csr, x) @ wm + b
+        return torch.sparse.mm(a_lib, x) @ wm + b.to(dtype)
 
-    torch.testing.assert_close(library(), want, **TOL[torch.float32])
-    m = op.fwd
-    ell_bytes = sum(bk.rows.numel() * 4 + bk.idx.numel() * 4 + bk.w.numel() * 4
-                    for bk in m.buckets)
-    nbytes = (2 * op.n_rows * d + d * d + d) * 4 + op.diag.numel() * 4 + ell_bytes
-    bound, bound_by = _bound(nbytes, 2 * (m.nnz + op.n_diag) * d + 2 * op.n_rows * d * d)
-    ms, dev_ms = time_ms(layer), device_ms(layer)
-    out = dict(d_in=d, d_out=d, route="x·W by torch.matmul, then spmm_ell",
-               max_abs_err=float((got - want).abs().max()), ms=ms, device_ms=dev_ms,
-               ms_cold_l2=time_cold_ms(layer),
-               plain_ms=time_ms(lambda: gcn_fused.gcn_layer_plain(op, x, wm, b), iters=5),
-               library_ms=time_ms(library), library_device_ms=device_ms(library),
+    try:
+        a_lib = a_csr.to(dtype)
+        torch.testing.assert_close(library().float(), want.float(), **TOL[dtype])
+    except RuntimeError as e:  # a refusal of bf16 by the library is the finding
+        lib_refused = str(e).splitlines()[0][:200]
+    fns = {"fused": fused, "unfused": unfused, "library": library}
+    turns = {name: [] for name in fns}
+    order = ("unfused", "fused", "library", "library", "fused", "unfused") * ANY_WIDTH_ROUNDS
+    for name in order:
+        if name != "library" or lib_refused is None:
+            turns[name].append(time_ms(fns[name], iters=10))
+    ms, unfused_ms = float(np.median(turns["fused"])), float(np.median(turns["unfused"]))
+    lib_ms = float(np.median(turns["library"])) if turns["library"] else None
+    bound, bound_by, bound_x_type = _bound_ms(op, x, wm, b)
+    n_products, unit = gcn_fused.products(d_in, d_out, dtype)
+    out = dict(d_in=d_in, d_out=d_out, dtype=str(dtype).removeprefix("torch."), operator=where,
+               rows=op.n_rows, edges=op.nnz, plan=dataclasses.asdict(plan),
+               precision=f"{n_products}x{unit}",
+               max_abs_err=float((runs[0].float() - want.float()).abs().max()), ms=ms,
+               ms_turns=turns["fused"], ms_cold_l2=time_cold_ms(fused),
+               plain_ms=time_ms(lambda: reference_layer(op.fwd, op.diag, x, wm, b), iters=5),
+               unfused_ms=unfused_ms, unfused_turns=turns["unfused"],
+               unfused_route="x·W by torch.matmul, then spmm_ell, then the bias",
+               library_ms=lib_ms, library_turns=turns["library"], library_refused=lib_refused,
                library="cuSPARSE (torch.sparse.mm) + GEMM", bound_ms=bound, bound_by=bound_by,
-               share_of_bound=bound / ms, share_of_bound_device=ratio(bound, dev_ms))
-    emit({"phase": "widths", "kernel": "gcn_layer_unfused", **out, "bit_identical_runs": True,
-          "card": smi})
+               bound_x_type_ms=bound_x_type, share_of_bound=bound / ms,
+               fused_over_unfused=ms / unfused_ms, faster_than_unfused=ms < unfused_ms,
+               fused_width=route, route_agrees=(ms < unfused_ms) == route,
+               layer_launches=dict(zip(("gcn_fused", "spmm_ell"), routed)),
+               launches_per_call=1, bit_identical_runs=True)
+    emit({"phase": "widths", "kernel": "gcn_fused", **out, "card": smi})
+    return out
+
+
+def _probe_case(smi: str, dev: torch.device) -> dict:
+    """The fused layer's probe (``scripts/fused_gcn_probe_torch.py``), stages
+    0 and 1 through its ``run`` with every count at 0 before and read after
+    (one ``row_copy`` launch, one ``gcn_fused``), each stage held to its
+    plain version there (stage 0 bit for bit); then the row copy timed
+    beside its plain version, ``index_select`` and its bound (bytes)."""
+    runner = runpy.run_path(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                         "scripts", "fused_gcn_probe_torch.py"),
+                            run_name="fused_gcn_probe_torch")["run"]
+    _reset_launch_counts()
+    probe.launches = 0
+    stages = runner(1, torch.float32)
+    sync(dev)
+    launched = {"row_copy": probe.launches, **_nonzero(_launch_counts())}
+    if launched != {"row_copy": 1, "gcn_fused": 1}:
+        raise AssertionError(f"the probe's stages 0-1 launched {launched}")
+    rng = np.random.default_rng(29)
+    x = torch.from_numpy(rng.standard_normal((16, 128)).astype(np.float32)).to(dev)
+    idx = torch.tensor([[3]], dtype=torch.int32, device=dev)
+    got = probe.row_copy(x, idx)
+    if not torch.equal(got, probe.row_copy_plain(x, idx)):
+        raise AssertionError("row_copy differs from x[idx[0, 0]]")
+    bound, bound_by = _bound(4 + 2 * x.shape[1] * x.element_size(), 0)
+    out = {"stages": stages, "launches": launched, "max_abs_err": 0.0,
+           "ms": time_ms(lambda: probe.row_copy(x, idx)),
+           "plain_ms": time_ms(lambda: probe.row_copy_plain(x, idx)),
+           "library_ms": time_ms(lambda: torch.index_select(x, 0, idx.view(-1))),
+           "library": "torch.index_select", "bound_ms": bound, "bound_by": bound_by,
+           "shape": [16, 128], "bit_identical": True}
+    emit({"phase": "widths", "kernel": "row_copy", **out, "card": smi})
     return out
 
 
 def phase_widths(task, dist_task, smi: str, dev: torch.device) -> dict:
     """The port at widths the fused GCN layer has no instance for, on the
-    card.  The ELL SpMM on the zh-en transpose and the sorted SpMM on the
-    zh-en adjacency (their panel path), the L1 margin at recipe v6's shape
+    card.  The fused layer's any-width kernel at ANY_WIDTHS on the zh-en
+    operator and ANY_WIDTHS_DWY100K on the 200,000-row one
+    (``_any_width_case``: timed in turns with the unfused route), and the
+    probe's row copy and one-bucket entry (``_probe_case``).  The ELL SpMM
+    on the zh-en transpose and the sorted SpMM on the zh-en adjacency
+    (their panel path), the L1 margin at recipe v6's shape
     (its masked instances; 384 and 512 have float4 ones; above 512 the slab
     kernels) and the Sinkhorn update at 4,500² (above 256 the strip
     streams), each at WIDTH_DS and WIDE_DS in fp32 and the SpMMs at
@@ -5637,11 +5743,19 @@ def phase_widths(task, dist_task, smi: str, dev: torch.device) -> dict:
     cases = ([(d, torch.float32) for d in WIDTH_DS + WIDE_DS]
              + [(d, torch.bfloat16) for d in WIDTH_BF16_DS + WIDE_BF16_DS])
     kernels = {"spmm_ell": {}, "spmm_sorted": {}, "margin_l1": {}, "sinkhorn_fused": {},
-               "l1_search": {}, "shortlist_dist": {}, "gcn_fused": {}}
+               "l1_search": {}, "shortlist_dist": {}, "gcn_fused": {}, "row_copy": {}}
     a_csr, layer_rng = _csr_of(op.fwd, op.diag), np.random.default_rng(28)
-    for d in LAYER_DS:  # a width without a fused instance: x·W, then spmm_ell
-        kernels["gcn_fused"][f"d{d}_unfused"] = _unfused_layer_case(op, a_csr, layer_rng, d, smi)
+    for d_in, d_out, dtype in ANY_WIDTHS:
+        key = f"{d_in}x{d_out}" + ("_bf16" if dtype == torch.bfloat16 else "")
+        kernels["gcn_fused"][key] = _any_width_case(op, a_csr, layer_rng, d_in, d_out, dtype, smi)
     del a_csr
+    dop = build_adjacency(dist_task.n_ent, dist_task.merged_triples, n_rel=dist_task.n_rel).to(dev)
+    d_csr = _csr_of(dop.fwd, dop.diag)
+    for d_in, d_out, dtype in ANY_WIDTHS_DWY100K:
+        kernels["gcn_fused"][f"{d_in}x{d_out}_dwy100k"] = _any_width_case(
+            dop, d_csr, layer_rng, d_in, d_out, dtype, smi, where="dwy100k")
+    del dop, d_csr
+    kernels["row_copy"] = {"probe": _probe_case(smi, dev)}
     for d, dtype in cases:
         key = f"d{d}" + ("_bf16" if dtype == torch.bfloat16 else "")
         g = torch.from_numpy(rng.standard_normal((op.bwd.n_cols, d)).astype(np.float32))
@@ -5692,8 +5806,9 @@ def phase_widths(task, dist_task, smi: str, dev: torch.device) -> dict:
 
 # the widths each kernel takes on the card, for the kernel table
 WIDTHS_TAKEN = {
-    "gcn_fused": f"(d_in, d_out) in {gcn_fused.WIDTHS}; a layer at any other width "
-                 "runs x·W, then spmm_ell",
+    "gcn_fused": f"every (d_in, d_out) >= 1: instances at {gcn_fused.WIDTHS}, the any-width "
+                 "kernel elsewhere; the layer runs the kernel at "
+                 f"{sorted(gcn_fused.FUSED_WIDTHS)}, x·W then spmm_ell at any other width",
     "spmm_ell": "every d >= 1: instances at 64, 128, 256; 128-column panels at every other d",
     "spmm_sorted": "every d >= 1: instances at 64, 128, 256; 128-column panels at every other d",
     "sinkhorn_fused": "every d >= 1: the strip resident up to 256, streamed above; zero "
@@ -5704,9 +5819,10 @@ WIDTHS_TAKEN = {
     "margin_l1": "every d >= 1: instances at 16, 32, 64, 128, 256, 384, 512; masked instances "
                  "at 32, 64, 128, 192, ..., 512 elsewhere up to 512; column slabs of 512 "
                  "above",
-    "sinkhorn_reverse": "any (it works on the S x S cost)"}
+    "sinkhorn_reverse": "any (it works on the S x S cost)",
+    "row_copy": "any row (4-byte words, else bytes)"}
 WIDTH_KEYS = ("max_abs_err", "ms", "device_ms", "ms_cold_l2", "plain_ms", "bound_ms",
-              "bound_by", "library_ms")
+              "bound_by", "library_ms", "unfused_ms", "fused_width")
 
 
 def _kernel_widths(name: str, widths: dict) -> dict:
@@ -5822,6 +5938,7 @@ def main(argv: list[str] | None = None) -> int:
          "launches_replayed_interval": {n: v["gcn_fused"]
                                         for n, v in fused["replayed_interval"].items()},
          **k_gcn, "launches_single_sharded": single_launches("gcn_fused"),
+         "launches_probe": widths["kernels"]["row_copy"]["probe"]["launches"]["gcn_fused"],
          "at_dwy100k": single_sharded["gcn_fused"]},
         {"name": "spmm_ell", "route": "cuda", "source": "tpugraph_torch/csrc/spmm_ell.cu",
          "replaces": "tpugraph/kernels/spmm_ell.py:19", "launches": recipe["spmm_ell"],
@@ -5961,6 +6078,13 @@ def main(argv: list[str] | None = None) -> int:
                       "ms_cold_l2", "device_ms")},
          "shape": "zh_en_d256 rows: 4,500 x 4,500", "at_shapes": losses["reverse"],
          "steps": losses["steps"]},
+        {"name": "row_copy", "route": "cuda", "source": "tpugraph_torch/csrc/row_copy.cu",
+         "replaces": "scripts/fused_gcn_probe.py:41",
+         "replaces_kind": "the probe's stage-0 Pallas kernel (tiny_kernel: one row by one DMA)",
+         "launches": widths["kernels"]["row_copy"]["probe"]["launches"]["row_copy"],
+         **{k: widths["kernels"]["row_copy"]["probe"][k]
+            for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "shape": "(16, 128) -> (1, 128), index [[3]]"},
     ]
     for entry in table:
         entry["widths"] = _kernel_widths(entry["name"], widths)

@@ -110,9 +110,15 @@ def _graph(rng, n=1000, split_diag=True):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d_in,d_out", [(128, 128), (128, 256), (256, 128), (256, 256)])
+@pytest.mark.parametrize("d_in,d_out", [(128, 128), (128, 256), (256, 128), (256, 256),
+                                        (3, 5), (50, 300), (300, 50), (64, 64), (384, 384),
+                                        (768, 768), (1030, 1030), (2048, 64)])
 @pytest.mark.parametrize("split_diag", [False, True])
 def test_kernel_matches_plain(cuda, dtype, d_in, d_out, split_diag):
+    """The instances at {128, 256}² and the any-width kernel elsewhere
+    (tails of 3, 5, 50, 300 and 1,030 columns; (2048, 64) aggregates d_in
+    in two chunks), on a graph with hub rows: one launch, against the plain
+    version, with and without a bias."""
     rng = np.random.default_rng(d_in + d_out + split_diag)
     op = _graph(rng, split_diag=split_diag).to(cuda)
     x = torch.from_numpy(rng.standard_normal((op.n_rows, d_in)).astype(np.float32))
@@ -140,12 +146,56 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         fused_gcn_layer(op.fwd, op.diag, x, wm.to(torch.bfloat16))
     with pytest.raises(ValueError):
         fused_gcn_layer(op.fwd, op.diag, x.t().contiguous().t(), wm)
-    with pytest.raises(ValueError):
-        fused_gcn_layer(op.fwd, op.diag, x[:, :64].contiguous(), wm[:64, :64].contiguous())
+    # (64, 64) has no instance: the any-width kernel, not a refusal
+    x64, w64 = x[:, :64].contiguous(), wm[:64, :64].contiguous()
+    torch.testing.assert_close(fused_gcn_layer(op.fwd, op.diag, x64, w64),
+                               reference_layer(op.fwd, op.diag, x64, w64), rtol=1e-4, atol=1e-4)
     with pytest.raises(ValueError):
         fused_gcn_layer(op.fwd, op.diag, x[1:], wm)
     with pytest.raises(ValueError):
         fused_gcn_layer(op.fwd, op.diag.cpu(), x, wm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,d_in,d_out", [(4, 128, 128), (200, 64, 96), (8, 50, 300)])
+def test_fused_bucket_apply_matches_plain(cuda, dtype, k, d_in, d_out):
+    """One ELL bucket through the any-width kernel (K 200 cuts each row into
+    segments): the JAX entry's padded shape, zero rows past R, one launch,
+    the rest against the plain version; the bucket's matrix reused."""
+    rng = np.random.default_rng(k + d_in)
+    n, r = 2000, 300
+    idx = torch.from_numpy(rng.integers(0, n, (r, k)).astype(np.int32)).to(cuda)
+    w = torch.from_numpy(rng.standard_normal((r, k)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((n, d_in)).astype(np.float32)).to(cuda, dtype)
+    wm = torch.from_numpy((rng.standard_normal((d_in, d_out)) * 0.1).astype(np.float32))
+    wm = wm.to(cuda, dtype)
+    m = gcn_fused.bucket_matrix(idx, w, n)
+    before = gcn_fused.launches
+    got = gcn_fused.fused_bucket_apply(idx, w, x, wm, matrix=m)
+    torch.cuda.synchronize()
+    assert gcn_fused.launches == before + 1
+    r_pad = -(-r // gcn_fused.bucket_tile_rows(k)) * gcn_fused.bucket_tile_rows(k)
+    assert got.shape == (r_pad, d_out) and got.dtype == dtype and not got[r:].any()
+    want = gcn_fused.fused_bucket_apply_plain(idx, w, x, wm)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert torch.equal(got, gcn_fused.fused_bucket_apply(idx, w, x, wm, matrix=m))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 128), (torch.bfloat16, 128),
+                                     (torch.bfloat16, 3)])
+def test_row_copy_matches_plain(cuda, dtype, d):
+    """The probe's stage 0: x[idx[0, 0]] copied bit for bit, one launch; a
+    row of an odd number of bf16 values goes by bytes."""
+    from tpugraph_torch.kernels import probe
+    x = torch.randn(16, d, device=cuda).to(dtype)
+    idx = torch.tensor([[3]], dtype=torch.int32, device=cuda)
+    before = probe.launches
+    got = probe.row_copy(x, idx)
+    torch.cuda.synchronize()
+    assert probe.launches == before + 1
+    assert got.shape == (1, d) and torch.equal(got, probe.row_copy_plain(x, idx))
 
 
 @pytest.mark.gpu
@@ -2550,7 +2600,7 @@ def test_kernels_at_d384_replay_as_eager(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d_in,d_out", [(50, 300), (64, 64), (384, 384), (512, 128)])
+@pytest.mark.parametrize("d_in,d_out", [(300, 50), (64, 128), (384, 384), (512, 128)])
 def test_gcn_layer_at_widths_without_a_fused_instance(cuda, dtype, d_in, d_out):
     """x·W then the ELL SpMM kernel (one launch forward, one backward over
     the transpose, no fused launch), against ``gcn_layer_plain``

@@ -106,6 +106,40 @@
 //     16 cycles per scheduler, so the product sets a step's time
 //     (PERF.md §6).
 //
+// Every other (d_in, d_out) ≥ 1 (gcn_fused_kernel_any, namespace any; the
+// host plan is kernels/gcn_fused.py::kernel_plan).  Beyond (256, 256) the
+// fp32 Wᵀ (d_in·d_out·4 bytes: 576 KB at 384², 2.25 MB at 768²) fits no
+// block, and a tile's aggregate may not either (32 × 1,030 fp32 is 132 KB).
+// What bounds the layer is unchanged: the gather's bytes and the three
+// products.  The design keeps the instances' work split and arithmetic and
+// bounds what a block holds:
+//
+//   * The same units from the same layer plan: groups of 8 cut-row
+//     segments (one a warp, each a fp32 partial row of d_in rounded up to
+//     128 columns), then the cut rows 32 at a time (each waits for its
+//     segments, all taken before it, and sums its partials in segment
+//     order), then the tiles but those of the cut rows.  Persistent blocks
+//     take them from one counter; the last block out resets the counters.
+//   * A unit's aggregate is gathered into shared memory one 128-column
+//     panel of x at a time (ell::PanelCols: 4 columns a lane, masked at
+//     d_in, 16-byte loads where d_in % 4 == 0), `ka` columns of d_in at
+//     once: all of d_in up to 1,536 (1,664 with 64-column output panels),
+//     else chunk by chunk, gathered again for each output panel.
+//   * The product runs in output panels of 64 or 128 columns (8 warps × 1
+//     or 2 n-tiles of 8), as the narrow instances multiply: 3× TF32 in
+//     fp32, the aggregate's three bf16 terms on the bf16 tensor cores in
+//     bf16 (W is staged as fp32 and packed back to bf16 exactly), each
+//     group of 16 k's summed outside the accumulator.  Wᵀ is staged whole
+//     once a block where it fits beside the aggregate in half an SM's
+//     shared memory (two blocks an SM), else 64 k's of one panel at a
+//     time, for every unit: at (384, 384) that moves 0.59 MB of W from L2
+//     a 32-row tile.
+//   * Columns past d_in are zero in the aggregate and in Wᵀ, so the
+//     product's k runs to d_in rounded up to 16; columns past d_out are
+//     multiplied (a panel's last n-tiles) but never written.  Every row is written
+//     once, straight to its natural position, in a fixed order: two
+//     launches give the same bits.
+//
 // bf16 x/W gather in bf16, accumulate in fp32 and cast once at the end, as
 // the TPU kernel does.
 
@@ -991,6 +1025,432 @@ cudaError_t launch(const void* x, const void* wmat, const float* bias, const flo
 
 }  // namespace wide
 
+// ---------------------------------------------------------------------------
+// Any other (d_in, d_out): gcn_fused_kernel_any
+
+namespace any {
+
+constexpr int kPanel = 128;  // columns of a gather panel (ell::PanelCols: 4 a lane)
+constexpr int kWChunk = 64;  // k's of Wᵀ staged at a time when W is not resident
+
+// float4 f of row r of an fp32 array of `pitch` floats (a multiple of 32)
+// in shared memory, swizzled as swz: odd rows swap the halves of each group
+// of 8 float4s
+template <typename F>
+__device__ __forceinline__ F* swzp(F* base, int pitch, int r, int f) {
+  return base + r * pitch + ((f ^ ((r & 1) << 2)) << 2);
+}
+
+// Wᵀ rows [n0, n0 + rows) (columns of W) × k's [k0, k0 + kcols) into w_s as
+// fp32 (pitch kcols, swizzled), zero past d_in and d_out; rows a multiple of
+// 8 and kcols of 32.  Each group of 32 threads moves 8 columns × 16 k's.
+template <typename T>
+__device__ __forceinline__ void stage_wt(float* w_s, const T* __restrict__ wmat, int d_in,
+                                         int d_out, int n0, int k0, int rows, int kcols,
+                                         int tid) {
+  const int nf = kcols / 4;
+  for (int i = tid; i < rows * nf; i += kThreads) {
+    const int grp = i >> 5, l = i & 31;
+    const int n = (grp % (rows / 8)) * 8 + (l >> 2), f = (grp / (rows / 8)) * 4 + (l & 3);
+    const int col = n0 + n, k = k0 + 4 * f;
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v[e] = col < d_out && k + e < d_in
+                 ? ell::ld_elem(wmat + static_cast<long>(k + e) * d_out + col)
+                 : 0.f;
+    *reinterpret_cast<float4*>(swzp(w_s, kcols, n, f)) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// c += rows [0, 16·n_mt) of the aggregate × NT n-tiles of Wᵀ from row wrow,
+// over `len` k's (a multiple of 16) from float4 fa of a_s's rows and fw of
+// w_s's: the k order of gcn_fused_kernel (k-slots t, t + 4 of a k-step are
+// d = kk + 4t + 2ks + {0, 1}), each group of 16 k's summed from zero, then
+// added in fp32.  fp32: 3× TF32 (small terms first, then big·big), as
+// products16.  bf16: the aggregate's three bf16 terms (lo, mid, hi) times
+// the bf16 W on the bf16 tensor cores (m16n8k16), as the (256, 256) bf16
+// instance multiplies; W is staged as fp32 and packed back to bf16 exactly.
+template <typename T, int NT>
+__device__ __forceinline__ void product(float (&c)[2][NT][4], const float* a_s, int pa, int fa,
+                                        const float* w_s, int pw, int wrow, int fw, int len,
+                                        int n_mt, int lane) {
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll 1
+  for (int kk = 0; kk < len; kk += 16) {
+    float4 av[2][2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        av[mt][h] = mt < n_mt ? *reinterpret_cast<const float4*>(
+                                    swzp(a_s, pa, mt * 16 + h * 8 + gq, fa + kk / 4 + tq))
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 bv[NT];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      bv[nt] = *reinterpret_cast<const float4*>(
+          swzp(w_s, pw, wrow + nt * 8 + gq, fw + kk / 4 + tq));
+    float t[2][NT][4] = {};
+    if constexpr (sizeof(T) == 4) {
+      uint32_t ab[2][2][4], as[2][2][4], bb[NT][4], bs[NT][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          wide::split_tf32_bits(av[mt][h].x, ab[mt][h][0], as[mt][h][0]);
+          wide::split_tf32_bits(av[mt][h].y, ab[mt][h][1], as[mt][h][1]);
+          wide::split_tf32_bits(av[mt][h].z, ab[mt][h][2], as[mt][h][2]);
+          wide::split_tf32_bits(av[mt][h].w, ab[mt][h][3], as[mt][h][3]);
+        }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        wide::split_tf32_bits(bv[nt].x, bb[nt][0], bs[nt][0]);
+        wide::split_tf32_bits(bv[nt].y, bb[nt][1], bs[nt][1]);
+        wide::split_tf32_bits(bv[nt].z, bb[nt][2], bs[nt][2]);
+        wide::split_tf32_bits(bv[nt].w, bb[nt][3], bs[nt][3]);
+      }
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        const int k0 = 2 * ks, k1 = 2 * ks + 1;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          if (mt >= n_mt) break;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            wide::mma_tf32(t[mt][nt], ab[mt][0][k0], ab[mt][1][k0], ab[mt][0][k1], ab[mt][1][k1],
+                           bs[nt][k0], bs[nt][k1]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          if (mt >= n_mt) break;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            wide::mma_tf32(t[mt][nt], as[mt][0][k0], as[mt][1][k0], as[mt][0][k1], as[mt][1][k1],
+                           bb[nt][k0], bb[nt][k1]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          if (mt >= n_mt) break;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            wide::mma_tf32(t[mt][nt], ab[mt][0][k0], ab[mt][1][k0], ab[mt][0][k1], ab[mt][1][k1],
+                           bb[nt][k0], bb[nt][k1]);
+        }
+      }
+    } else {
+      uint32_t a[2][3][4];  // [m-tile][hi, mid, lo][fragment register]
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          wide::split3_bf16(av[mt][h].x, av[mt][h].y, a[mt][0][h], a[mt][1][h], a[mt][2][h]);
+          wide::split3_bf16(av[mt][h].z, av[mt][h].w, a[mt][0][h + 2], a[mt][1][h + 2],
+                            a[mt][2][h + 2]);
+        }
+      uint32_t b[NT][2];  // the staged values are bf16, so their top halves are exact
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        b[nt][0] = __byte_perm(__float_as_uint(bv[nt].x), __float_as_uint(bv[nt].y), 0x7632);
+        b[nt][1] = __byte_perm(__float_as_uint(bv[nt].z), __float_as_uint(bv[nt].w), 0x7632);
+      }
+#pragma unroll
+      for (int term = 2; term >= 0; --term)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          if (mt >= n_mt) break;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            wide::mma_bf16(t[mt][nt], a[mt][term][0], a[mt][term][1], a[mt][term][2],
+                           a[mt][term][3], b[nt][0], b[nt][1]);
+        }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[mt][nt][e] += t[mt][nt][e];
+  }
+}
+
+// One segment of a cut row (segment_plan's item a, b): its virtual slots
+// walked once per 128-column panel of d_in, its fp32 partial row (pitch kp,
+// zero past d_in) written, then counted.
+template <typename T, bool kVec>
+__device__ __forceinline__ void segment(const T* __restrict__ x, const float* __restrict__ diag,
+                                        const int* __restrict__ rows, const int* __restrict__ idx,
+                                        const float* __restrict__ ew, int4 a, int4 b, int d_in,
+                                        int kp, float* __restrict__ partial,
+                                        int* __restrict__ seg_counters, int lane) {
+  for (int q = 0; q < kp / kPanel; ++q) {
+    const ell::PanelCols<kVec> cols{lane, d_in, kPanel * q + 4 * lane, q, kp / kPanel};
+    float acc[1][4] = {};
+    int row;  // a segment covers one row: the walk never moves on
+    ell::walk_cols<1, 4, 8>(
+        [&](int src, int c, float (&v)[4]) { cols.load(x, src, c, v); }, b.x, b.y, lane, acc, row,
+        [&](int v, int& src, float& w, int& key) {
+          ell::load_vslot<true>(v, b.y, a.x, a.z, a.w, rows, idx, ew, diag, src, w, key);
+        },
+        [](int, const float (&)[1][4]) {}, cols.lane_ok());
+    ell::store4(partial + static_cast<long>(b.z) * kp + cols.col, acc[0]);
+  }
+  __threadfence();
+  __syncwarp();
+  if (lane == 0) atomicAdd(seg_counters + b.w, 1);
+}
+
+// Rows [r0, r1) of a tile (K slots each from slot0, then the diagonal),
+// columns [ka0, ka0 + ka) ∩ [0, kp) of their aggregate into a_s (pitch ka),
+// one 128-column panel at a time, each row's slots summed in slot order.
+template <typename T, bool kVec>
+__device__ __forceinline__ void gather_tile(const T* __restrict__ x,
+                                            const float* __restrict__ diag,
+                                            const int* __restrict__ rows,
+                                            const int* __restrict__ idx,
+                                            const float* __restrict__ ew, int k, long slot0,
+                                            int r0, int r1, int d_in, int kp, int ka0, int ka,
+                                            float* a_s, int lane) {
+  const int q0 = ka0 / kPanel, q1 = min(ka0 + ka, kp) / kPanel;
+  const int v1 = r1 * (k + 1);
+  for (int q = q0; q < q1; ++q) {
+    const ell::PanelCols<kVec> cols{lane, d_in, kPanel * q + 4 * lane, q, kp / kPanel};
+    const int f = (q - q0) * 32 + lane;
+    auto sink = [&](int r, const float (&v)[1][4]) { ell::store4(swzp(a_s, ka, r, f), v[0]); };
+    float acc[1][4] = {};
+    int cur;
+    ell::walk_cols<1, 4, 8>(
+        [&](int src, int c, float (&v)[4]) { cols.load(x, src, c, v); }, r0 * (k + 1), v1, lane,
+        acc, cur,
+        [&](int v, int& src, float& w, int& key) {
+          ell::load_vslot<false>(v, v1, 0, k, slot0, rows, idx, ew, diag, src, w, key);
+        },
+        sink, cols.lane_ok());
+    sink(cur, acc);
+  }
+}
+
+// Work units, in the order they are taken: groups of kWarps cut-row
+// segments (one a warp), the cut rows kTileRows at a time (each waits for
+// its segments, all taken before it, then sums its partials in segment
+// order), then the tiles (those of K > k_cut skipped).  A unit's rows are
+// aggregated into a_s (ka columns of d_in at a time: all of them once when
+// ka covers d_in, else again for each output panel) and multiplied by W
+// panel by panel (NP = 64·NT columns, NT n-tiles a warp), W resident
+// (w_res: Wᵀ whole, staged once per block) or streamed kWChunk k's at a
+// time.  counters: [0] the unit counter, [1] blocks done, then one per cut
+// row.
+template <typename T, int NT, bool kVec>
+__global__ void __launch_bounds__(kThreads, 2)
+gcn_fused_kernel_any(const T* __restrict__ x, const T* __restrict__ wmat,
+                     const float* __restrict__ bias, const float* __restrict__ diag,
+                     const int* __restrict__ rows, const int* __restrict__ idx,
+                     const float* __restrict__ ew, const int4* __restrict__ tiles, int n_tiles,
+                     const int4* __restrict__ segs, int n_segs, int k_cut,
+                     const int* __restrict__ split_p0, const int2* __restrict__ hub, int n_hub,
+                     int* __restrict__ counters, float* __restrict__ partial,
+                     T* __restrict__ out, int d_in, int d_out, int ka, int w_res) {
+  constexpr int NP = 8 * kWarps * NT;  // output columns of a panel
+  extern __shared__ float4 smem4[];
+  const int kp = (d_in + kPanel - 1) / kPanel * kPanel;  // the partials' pitch
+  const int kpad = (d_in + 15) / 16 * 16;                 // the product's k's
+  const int n_ach = (kp + ka - 1) / ka;
+  const int n_pan = (d_out + NP - 1) / NP;
+  const int pw = w_res ? (d_in + 31) / 32 * 32 : kWChunk;  // w_s's pitch
+  float* a_s = reinterpret_cast<float*>(smem4);  // [kTileRows][ka], swizzled
+  float* w_s = a_s + kTileRows * ka;             // Wᵀ [n_pan·NP][pw] or [NP][kWChunk]
+  __shared__ int s_unit[2];
+  __shared__ int s_orow[kTileRows];  // the unit's rows, natural ids
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  if (w_res) stage_wt<T>(w_s, wmat, d_in, d_out, 0, 0, n_pan * NP, pw, tid);
+  const int n_groups = (n_segs + kWarps - 1) / kWarps;
+  const int tile0 = n_groups + (n_hub + kTileRows - 1) / kTileRows;
+  const int total = tile0 + n_tiles;
+  int* seg_counters = counters + 2;
+
+  for (int it = 0;; ++it) {
+    if (tid == 0) s_unit[it & 1] = atomicAdd(counters, 1);
+    __syncthreads();  // publishes the unit; W staged; the last unit's reads of a_s done
+    const int u = s_unit[it & 1];
+    if (u >= total) break;
+    if (u < n_groups) {
+      const int item = u * kWarps + warp;
+      if (item < n_segs)
+        segment<T, kVec>(x, diag, rows, idx, ew, __ldg(segs + 2 * item),
+                         __ldg(segs + 2 * item + 1), d_in, kp, partial, seg_counters, lane);
+      continue;
+    }
+    const bool cut = u < tile0;
+    int nrows, h0 = 0, k = 0;
+    int4 td = make_int4(0, 0, 0, 0);
+    if (cut) {
+      h0 = (u - n_groups) * kTileRows;
+      nrows = min(kTileRows, n_hub - h0);
+      if (tid < nrows) {  // one thread a cut row: wait for its segments
+        const int2 hr = __ldg(hub + h0 + tid);  // (split, natural row)
+        const int want = __ldg(split_p0 + hr.x + 1) - __ldg(split_p0 + hr.x);
+        int* counter = seg_counters + hr.x;
+        for (long spin = 0; wide::ld_acquire(counter) < want; ++spin) {
+          if (spin > (1l << 24)) __trap();  // a segment that never counts: fail, not hang
+          __nanosleep(64);
+        }
+        *counter = 0;  // every segment has counted: ready for the next launch
+        __threadfence();
+        s_orow[tid] = hr.y;
+      }
+    } else {
+      td = __ldg(tiles + (u - tile0));
+      if (td.z > k_cut) continue;
+      nrows = td.y;
+      k = td.z;
+      if (tid < nrows) s_orow[tid] = __ldg(rows + td.x + tid);
+    }
+    const int n_mt = nrows > 16 ? 2 : 1;
+    for (int p = 0; p < n_pan; ++p) {
+      float c[2][NT][4] = {};
+      for (int ac = 0; ac < n_ach; ++ac) {
+        const int ka0 = ac * ka;
+        if (n_ach > 1 || p == 0) {
+          __syncthreads();  // the last product's reads of a_s done
+          if (cut) {  // a warp a row: its partials in segment order
+            const int q0 = ka0 / kPanel, q1 = min(ka0 + ka, kp) / kPanel;
+            for (int r = warp; r < nrows; r += kWarps) {
+              const int split = __ldg(&hub[h0 + r].x);
+              const int p0 = __ldg(split_p0 + split), p1 = __ldg(split_p0 + split + 1);
+              for (int q = q0; q < q1; ++q) {
+                float s[4] = {};
+#pragma unroll 4  // loads in flight; the adds stay in segment order
+                for (int pp = p0; pp < p1; ++pp) {
+                  const float4 v = __ldcg(reinterpret_cast<const float4*>(
+                                              partial + static_cast<long>(pp) * kp + kPanel * q) +
+                                          lane);
+                  s[0] += v.x;
+                  s[1] += v.y;
+                  s[2] += v.z;
+                  s[3] += v.w;
+                }
+                ell::store4(swzp(a_s, ka, r, (q - q0) * 32 + lane), s);
+              }
+            }
+          } else {  // a contiguous run of the tile's rows a warp
+            const int r0 = warp * nrows / kWarps, r1 = (warp + 1) * nrows / kWarps;
+            if (r1 > r0)
+              gather_tile<T, kVec>(x, diag, rows + td.x, idx, ew, k, td.w, r0, r1, d_in, kp, ka0,
+                                   ka, a_s, lane);
+          }
+          __syncthreads();
+        }
+        const int kend = min(ka0 + ka, kpad);
+        if (w_res) {
+          product<T, NT>(c, a_s, ka, 0, w_s, pw, p * NP + warp * 8 * NT, ka0 / 4, kend - ka0,
+                         n_mt, lane);
+        } else {
+          for (int k0 = ka0; k0 < kend; k0 += kWChunk) {
+            __syncthreads();  // the last chunk's reads done
+            stage_wt<T>(w_s, wmat, d_in, d_out, p * NP, k0, NP, kWChunk, tid);
+            __syncthreads();
+            product<T, NT>(c, a_s, ka, (k0 - ka0) / 4, w_s, kWChunk, warp * 8 * NT, 0,
+                           min(kWChunk, kend - k0), n_mt, lane);
+          }
+        }
+      }
+      // c[mt][nt] = (row g, columns 2t, 2t + 1), (row g + 8, the same)
+      const int col0 = p * NP + warp * 8 * NT + 2 * tq;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = mt * 16 + h * 8 + gq;
+          if (r >= nrows) continue;
+          T* orow = out + static_cast<long>(s_orow[r]) * d_out;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const int col = col0 + nt * 8;
+            if (col >= d_out) continue;
+            const float v0 = c[mt][nt][2 * h] + (bias ? __ldg(bias + col) : 0.f);
+            if (col + 1 < d_out) {
+              const float v1 = c[mt][nt][2 * h + 1] + (bias ? __ldg(bias + col + 1) : 0.f);
+              if (d_out % 2 == 0) {
+                store2(orow + col, v0, v1);
+              } else {
+                store1(orow + col, v0);
+                store1(orow + col + 1, v1);
+              }
+            } else {
+              store1(orow + col, v0);
+            }
+          }
+        }
+    }
+  }
+
+  // the last block out resets the counters for the next launch: every
+  // block has taken its last unit by the time it counts itself done
+  if (tid == 0) {
+    __threadfence();
+    if (atomicAdd(counters + 1, 1) == static_cast<int>(gridDim.x) - 1)
+      counters[0] = counters[1] = 0;
+  }
+}
+
+// The shared memory a launch needs: the aggregate's kTileRows × ka fp32,
+// then Wᵀ whole (w_res) or one chunk of kWChunk k's × one panel, fp32
+__host__ __device__ constexpr long smem_bytes(int d_in, int d_out, int ka, int nt, int w_res) {
+  return 4L * kTileRows * ka +
+         (w_res ? 4L * ((d_out + 64 * nt - 1) / (64 * nt)) * 64 * nt * ((d_in + 31) / 32 * 32)
+                : 4L * 64 * nt * kWChunk);
+}
+
+template <typename T, int NT, bool kVec>
+cudaError_t launch(const void* x, const void* wmat, const float* bias, const float* diag,
+                   const int* rows, const int* idx, const float* ew, const int* tiles,
+                   int n_tiles, const int* segs, int n_segs, int k_cut, const int* split_p0,
+                   const int* hub, int n_hub, int* counters, float* partial, void* out, int d_in,
+                   int d_out, int ka, int w_res, int smem, cudaStream_t stream) {
+  auto kern = gcn_fused_kernel_any<T, NT, kVec>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, n_sm = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem)) !=
+      cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;  // raised by the wrapper, no fallback
+  const int units = (n_segs + kWarps - 1) / kWarps + (n_hub + kTileRows - 1) / kTileRows + n_tiles;
+  const int grid = std::max(1, std::min(units, n_sm * per_sm));
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(wmat), bias, diag, rows, idx, ew,
+      reinterpret_cast<const int4*>(tiles), n_tiles, reinterpret_cast<const int4*>(segs), n_segs,
+      k_cut, split_p0, reinterpret_cast<const int2*>(hub), n_hub, counters, partial,
+      static_cast<T*>(out), d_in, d_out, ka, w_res);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(int nt, int d_in, const void* x, const void* wmat, const float* bias,
+                     const float* diag, const int* rows, const int* idx, const float* ew,
+                     const int* tiles, int n_tiles, const int* segs, int n_segs, int k_cut,
+                     const int* split_p0, const int* hub, int n_hub, int* counters,
+                     float* partial, void* out, int d_out, int ka, int w_res, int smem,
+                     cudaStream_t stream) {
+#define GCN_ANY_LAUNCH(NT, VEC)                                                                \
+  launch<T, NT, VEC>(x, wmat, bias, diag, rows, idx, ew, tiles, n_tiles, segs, n_segs, k_cut, \
+                     split_p0, hub, n_hub, counters, partial, out, d_in, d_out, ka, w_res,    \
+                     smem, stream)
+  const bool vec = d_in % 4 == 0;  // every row of x starts 16-byte (fp32) or 8-byte aligned
+  if (nt == 1) return vec ? GCN_ANY_LAUNCH(1, true) : GCN_ANY_LAUNCH(1, false);
+  if (nt == 2) return vec ? GCN_ANY_LAUNCH(2, true) : GCN_ANY_LAUNCH(2, false);
+  return cudaErrorInvalidValue;
+#undef GCN_ANY_LAUNCH
+}
+
+}  // namespace any
+
 template <typename T, int D_IN, int D_OUT>
 cudaError_t launch(const void* x, const void* wmat, const float* bias, const float* diag,
                    const int* rows, const int* idx, const float* ew, const int* tiles,
@@ -1061,5 +1521,36 @@ extern "C" int gcn_fused_forward(const void* x, const void* wmat, const float* b
     return dispatch<__nv_bfloat16>(d_in, d_out, x, wmat, bias, diag, rows, idx, ew, tiles,
                                    n_tiles, segs, n_segs, k_cut, split_p0, hub, n_hub, counters,
                                    partial, out, s);
+  return cudaErrorInvalidValue;
+}
+
+// Any (d_in, d_out) ≥ 1 on gcn_fused_kernel_any, by the host plan of
+// kernels/gcn_fused.py::kernel_plan: ka the aggregate's columns held at
+// once (a multiple of 128), nt the n-tiles of a warp (output panels of
+// 64·nt columns), w_res whether Wᵀ is staged whole, smem the block's
+// dynamic shared memory (at least what those need).  The other arguments
+// are gcn_fused_forward's; hub is read at every width, counters is
+// (2 + n_split,) and partial (split_p0[n_split], ceil(d_in / 128)·128)
+// float32.  One kernel launch; returns its cudaError_t.
+extern "C" int gcn_fused_any_forward(const void* x, const void* wmat, const float* bias,
+                                     const float* diag, const int* rows, const int* idx,
+                                     const float* ew, const int* tiles, int n_tiles,
+                                     const int* segs, int n_segs, int k_cut, const int* split_p0,
+                                     const int* hub, int n_hub, int* counters, float* partial,
+                                     void* out, int d_in, int d_out, int dtype, int ka, int nt,
+                                     int w_res, int smem, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_tiles + n_segs <= 0) return cudaSuccess;
+  if (d_in < 1 || d_out < 1 || ka < any::kPanel || ka % any::kPanel || (nt != 1 && nt != 2) ||
+      smem < any::smem_bytes(d_in, d_out, ka, nt, w_res))
+    return cudaErrorInvalidValue;
+  if (dtype == 0)
+    return any::dispatch<float>(nt, d_in, x, wmat, bias, diag, rows, idx, ew, tiles, n_tiles,
+                                segs, n_segs, k_cut, split_p0, hub, n_hub, counters, partial, out,
+                                d_out, ka, w_res, smem, s);
+  if (dtype == 1)
+    return any::dispatch<__nv_bfloat16>(nt, d_in, x, wmat, bias, diag, rows, idx, ew, tiles,
+                                        n_tiles, segs, n_segs, k_cut, split_p0, hub, n_hub,
+                                        counters, partial, out, d_out, ka, w_res, smem, s);
   return cudaErrorInvalidValue;
 }

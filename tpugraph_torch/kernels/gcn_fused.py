@@ -33,20 +33,32 @@ concatenation and no ``row_order`` gather.  The work counters and the
 segments' partials are cached per (d_in, d_out, stream) and left at zero by
 the kernel, so a call is one launch: no memset, no scratch allocation.
 
+At every other (d_in, d_out) ≥ 1 one kernel takes any width
+(``gcn_fused_kernel_any``), by the host plan ``kernel_plan``: a tile's
+aggregate held in shared memory ``k_chunk`` columns of d_in at a time (all
+of d_in once up to 1,536 or more columns, else chunk by chunk again for each
+output panel), multiplied by W in output panels of 64 or 128 columns, W
+staged whole where it fits beside the aggregate in half an SM's shared
+memory, else streamed 64 k's at a time; the cut rows are units after their
+segments, as at (256, 256).  fp32 multiplies by 3× TF32, bf16 by the
+aggregate's three bf16 terms; each group of 16 k's is summed outside the
+accumulator.  ``fused_bucket_apply`` runs it over one ELL bucket (the JAX
+entry of that name).
+
 ``gcn_layer`` is the trainable layer, a ``torch.autograd.Function``.  Its
-forward is this kernel where (d_in, d_out) has an instance (``WIDTHS``);
-at every other width (any d_in, d_out ≤ 512) it runs the JAX layer's own
-order: support = x·W by ``torch.matmul`` in x's type (a plain matrix
-product, which the JAX package leaves to XLA), then A·support +
-diag ⊙ support by the ELL SpMM kernel over ``op.fwd`` (one launch), then
-the bias.  ``fused_width`` is the one place that choice is made.  The
-backward is the same for both routes: u = Aᵀ·ḡ by the ELL SpMM kernel
-over the prebuilt transpose (one launch, in ḡ's type), then dx = u·Wᵀ,
-dW = xᵀ·u (plain matrix products in x's type, bf16 under bf16 training, as
-the JAX package leaves them to XLA) and db = Σ ḡ in fp32.  On CPU tensors
-both halves run their plain versions, so the CPU tests exercise the
-backward formula itself; ``gcn_layer_plain`` is the whole layer's plain
-version, by the same route.
+forward is this kernel where ``fused_width`` says so (``FUSED_WIDTHS``: the
+instances' widths and those where the card measured the any-width kernel
+faster); at every other width it runs the JAX layer's own order: support =
+x·W by ``torch.matmul`` in x's type (a plain matrix product, which the JAX
+package leaves to XLA), then A·support + diag ⊙ support by the ELL SpMM
+kernel over ``op.fwd`` (one launch), then the bias.  ``fused_width`` is the
+one place that choice is made.  The backward is the same for both routes:
+u = Aᵀ·ḡ by the ELL SpMM kernel over the prebuilt transpose (one launch, in
+ḡ's type), then dx = u·Wᵀ, dW = xᵀ·u (plain matrix products in x's type,
+bf16 under bf16 training, as the JAX package leaves them to XLA) and db =
+Σ ḡ in fp32.  On CPU tensors both halves run their plain versions, so the
+CPU tests exercise the backward formula itself; ``gcn_layer_plain`` is the
+whole layer's plain version, by the same route.
 """
 
 from __future__ import annotations
@@ -59,10 +71,10 @@ import numpy as np
 import torch
 
 from tpugraph_torch.kernels import _build
-from tpugraph_torch.kernels.spmm_ell import (SEG_SLOTS, FusedPlan, apply_with_diag,
-                                              check_diag, check_n_cols, ell_spmm, fused_plan,
-                                              segment_plan)
-from tpugraph_torch.sparse.ell import EllMatrix, EllOperator
+from tpugraph_torch.kernels.spmm_ell import (PANEL, SEG_SLOTS, TILE_ROWS, FusedPlan,
+                                              apply_with_diag, check_diag, check_n_cols,
+                                              ell_spmm, fused_plan, segment_plan)
+from tpugraph_torch.sparse.ell import EllBucket, EllMatrix, EllOperator
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # (d_in, d_out, dtype) -> panels of W, the CTAs that share a tile, each
@@ -79,15 +91,105 @@ WIDTHS = sorted({(d_in, d_out) for d_in, d_out, _ in PANELS})
 PRODUCTS = {key: (3, "bf16") if key == (256, 256, torch.bfloat16)
             else (3 if key[2] == torch.float32 else 2, "tf32") for key in PANELS}
 
+
+def products(d_in: int, d_out: int, dtype: torch.dtype) -> tuple[int, str]:
+    """The tensor-core products of a tile's aggregate by W at any width:
+    ``PRODUCTS`` at an instance's, else the any-width kernel's: 3× TF32 in
+    fp32, the aggregate's three bf16 terms in bf16."""
+    return PRODUCTS.get((d_in, d_out, dtype),
+                        (3, "tf32" if dtype == torch.float32 else "bf16"))
+
+
+# The widths where gcn_layer runs the fused kernel: the instances', and
+# those where the any-width kernel measured faster on the card than x·W then
+# spmm_ell (PERF.md §6)
+FUSED_WIDTHS = frozenset(WIDTHS) | {(50, 300), (64, 64)}
+
+# the any-width kernel's shape (csrc/gcn_fused.cu, namespace any; its tiles
+# are TILE_ROWS rows, its gather panels PANEL columns, the aggregate's
+# chunks multiples of PANEL)
+W_CHUNK = 64  # kWChunk: k's of Wᵀ staged at a time when W is not resident
+SMEM_BLOCK = 232_448  # shared memory a block may use on the H100
+SMEM_DYNAMIC = SMEM_BLOCK - 1024  # less the kernel's static arrays, with room to spare
+SMEM_TWO_BLOCKS = 114_688  # at most this, two blocks fit an SM (228 KB, 1 KB reserved each)
+
 # kernel launches since the process started (or the caller last reset it)
 launches = 0
 
 
 def fused_width(d_in: int, d_out: int) -> bool:
-    """Whether the GCN layer at (d_in, d_out) runs the fused kernel (an
-    instance of csrc/gcn_fused.cu), else x·W then the ELL SpMM: the one
-    place ``gcn_layer`` and ``gcn_layer_plain`` choose their route."""
-    return (d_in, d_out) in WIDTHS
+    """Whether the GCN layer at (d_in, d_out) runs the fused kernel, else
+    x·W then the ELL SpMM: the one place ``gcn_layer`` and
+    ``gcn_layer_plain`` choose their route."""
+    return (d_in, d_out) in FUSED_WIDTHS
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def partial_floats(d_in: int) -> int:
+    """Floats of a cut row's fp32 partial in every kernel's scratch: d_in
+    rounded up to a whole gather panel (d_in itself at the instances')."""
+    return _up(d_in, PANEL)
+
+
+@dataclass(frozen=True)
+class KernelPlan:
+    """What a launch at (d_in, d_out, dtype) holds in a block and in scratch."""
+
+    kernel: str  # "gcn_fused_kernel", "gcn_fused_kernel_wide" or "gcn_fused_kernel_any"
+    k_chunk: int  # columns of d_in aggregated in shared memory at once
+    n_k_chunks: int
+    panel: int  # output columns multiplied in one pass over the aggregate
+    n_panels: int
+    cluster: int  # CTAs that share a tile's aggregate (distributed shared memory)
+    w_resident: bool  # W staged whole once per block, else streamed per tile and panel
+    w_chunk: int  # k's of W staged at a time
+    smem_bytes: int  # dynamic shared memory a block
+    # floats of a cut row's fp32 partial in the scratch, which holds the
+    # partials, then the unit and done counters and one counter a cut row
+    partial_pitch: int
+
+    @property
+    def n_tiles_a_warp(self) -> int:
+        """mma n-tiles of 8 columns a warp (any-width kernel: 1 or 2)."""
+        return self.panel // 64
+
+
+def kernel_plan(d_in: int, d_out: int, dtype: torch.dtype,
+                any_width: bool = False) -> KernelPlan:
+    """The launch plan of the layer at (d_in, d_out): the instance's at
+    ``WIDTHS`` (unless ``any_width``), else the any-width kernel's.  There
+    the output panels are 64 or 128 columns, whichever pads d_out less (128
+    on a tie); the aggregate holds all of d_in (rounded up to 128 columns)
+    when that fits beside one W chunk, else the widest multiple of 128 that
+    does; W is resident when it fits with the aggregate in
+    ``SMEM_TWO_BLOCKS``."""
+    if d_in < 1 or d_out < 1:
+        raise ValueError(f"the fused layer takes widths >= 1, got ({d_in}, {d_out})")
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"the fused layer takes float32 or bfloat16, got {dtype}")
+    if (d_in, d_out) in WIDTHS and not any_width:
+        pair = PANELS[d_in, d_out, dtype]
+        if (d_in, d_out) == (256, 256):
+            smem = 128 * 1024 + 2 * 4 * TILE_ROWS * 256
+        else:
+            smem = 4 * (d_in * d_out + TILE_ROWS * d_in)
+        return KernelPlan("gcn_fused_kernel_wide" if (d_in, d_out) == (256, 256)
+                          else "gcn_fused_kernel", d_in, 1, d_out // pair, pair, pair, True,
+                          d_in, smem, partial_floats(d_in))
+    panel = 64 if _up(d_out, 64) < _up(d_out, 128) else 128
+    kp = partial_floats(d_in)
+    w_chunk_bytes = 4 * panel * W_CHUNK
+    fit = (SMEM_DYNAMIC - w_chunk_bytes) // (4 * TILE_ROWS) // PANEL * PANEL
+    k_chunk = min(kp, fit)
+    a_bytes = 4 * TILE_ROWS * k_chunk
+    w_bytes = 4 * _up(d_out, panel) * _up(d_in, 32)
+    resident = a_bytes + w_bytes <= SMEM_TWO_BLOCKS
+    return KernelPlan("gcn_fused_kernel_any", k_chunk, -(-kp // k_chunk), panel,
+                      -(-d_out // panel), 1, resident, _up(d_in, 32) if resident else W_CHUNK,
+                      a_bytes + (w_bytes if resident else w_chunk_bytes), kp)
 
 
 def _add_bias(out: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
@@ -102,12 +204,13 @@ def reference_layer(m: EllMatrix, diag: torch.Tensor | None, x: torch.Tensor,
     return _add_bias(torch.matmul(out.float(), wmat.float()).to(x.dtype), bias)
 
 
-def _lib():
+def _lib(name: str = "gcn_fused_forward"):
     lib = _build.load("gcn_fused")
-    fn = lib.gcn_fused_forward
+    fn = getattr(lib, name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, p, i, i, p, p, i, p, p, p, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, p, i, i, p, p, i, p, p, p, i, i, i]
+        fn.argtypes += [i, i, i, i, p] if name == "gcn_fused_any_forward" else [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -122,8 +225,8 @@ def _check(m: EllMatrix, diag, x, wmat, bias) -> None:
     if wmat.dtype != x.dtype or wmat.dim() != 2 or wmat.shape[0] != x.shape[1]:
         raise ValueError(f"W must be ({x.shape[1]}, d_out) of {x.dtype}, got "
                          f"{tuple(wmat.shape)} of {wmat.dtype}")
-    if (x.shape[1], wmat.shape[1]) not in WIDTHS:
-        raise ValueError(f"(d_in, d_out)={x.shape[1], wmat.shape[1]} not in {WIDTHS}")
+    if x.shape[1] < 1 or wmat.shape[1] < 1:
+        raise ValueError(f"the fused layer takes widths >= 1, got {x.shape[1], wmat.shape[1]}")
     if wmat.shape == (256, 256) and (not wmat.is_contiguous() or wmat.data_ptr() % 16):
         raise ValueError("W at (256, 256) must be contiguous and 16-byte aligned")
     if bias is not None and (bias.dtype != torch.float32 or bias.shape != (wmat.shape[1],)):
@@ -147,6 +250,63 @@ def fused_gcn_layer(m: EllMatrix, diag: torch.Tensor | None, x: torch.Tensor,
         raise ValueError(f"fused_gcn_layer runs on cuda or cpu, not {x.device}")
     _check(m, diag, x, wmat, bias)
     return _launch(m, diag, x, wmat, bias, layer_plan(m))
+
+
+def bucket_tile_rows(k: int) -> int:
+    """The JAX kernel's tile rows for a bucket of K slots (its
+    ``_tile_sizes``: TR = 8·CR, CR·K ≈ 256 DMAs in flight, TR at most 512):
+    ``fused_bucket_apply`` pads its rows to a multiple of this."""
+    return 8 * max(1, min(64, 256 // k))
+
+
+def bucket_matrix(idx: torch.Tensor, w: torch.Tensor, n_cols: int) -> EllMatrix:
+    """One (R, K) ELL bucket as an EllMatrix of R_pad rows (rows past R in
+    no bucket, so zero), on idx's device: the operand of
+    ``fused_bucket_apply``, built once per bucket by a caller that applies
+    it often (the kernel's plans are cached on it)."""
+    r, k = idx.shape
+    r_pad = _up(r, bucket_tile_rows(k))
+    dev = idx.device
+    order = torch.full((r_pad,), r, dtype=torch.int32)
+    order[:r] = torch.arange(r, dtype=torch.int32)
+    bucket = EllBucket(rows=torch.arange(r, dtype=torch.int32, device=dev),
+                       idx=idx.to(torch.int32).contiguous(), w=w.to(torch.float32).contiguous(),
+                       k=int(k))
+    return EllMatrix(buckets=[bucket], row_order=order.to(dev), n_rows=r_pad,
+                     nnz=int(r * k), n_cols=int(n_cols))
+
+
+def fused_bucket_apply_plain(idx: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
+                             wmat: torch.Tensor) -> torch.Tensor:
+    """``fused_bucket_apply``'s plain version, on x's device: Σ_k w·x[idx]
+    in fp32, times W in fp32, cast to x's type, zero rows to R_pad."""
+    r, k = idx.shape
+    agg = torch.einsum("rk,rkd->rd", w.float(), x[idx.long()].float())
+    out = torch.zeros((_up(r, bucket_tile_rows(k)), wmat.shape[1]), dtype=x.dtype,
+                      device=x.device)
+    out[:r] = (agg @ wmat.float()).to(x.dtype)
+    return out
+
+
+def fused_bucket_apply(idx: torch.Tensor, w: torch.Tensor, x: torch.Tensor, wmat: torch.Tensor,
+                       matrix: EllMatrix | None = None) -> torch.Tensor:
+    """(R, K) ELL bucket → (R_pad, d_out) = (the bucket's aggregate of x)·W,
+    R_pad the multiple of ``bucket_tile_rows(K)`` at or above R, rows past R
+    zero (``tpugraph/kernels/gcn_fused_pallas.py::fused_bucket_apply``;
+    callers slice [:R]).  No diagonal, no bias.  On a CUDA tensor one launch
+    of the any-width kernel over the bucket (``matrix``: its
+    ``bucket_matrix``, else built here); on the CPU the weighted sums of
+    x[idx] in fp32, then the product in fp32, cast to x's type."""
+    if x.device.type == "cpu":
+        return fused_bucket_apply_plain(idx, w, x, wmat)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_bucket_apply runs on cuda or cpu, not {x.device}")
+    m = bucket_matrix(idx, w, x.shape[0]) if matrix is None else matrix
+    r, k = idx.shape
+    if m.n_rows != _up(r, bucket_tile_rows(k)) or m.buckets[0].idx.shape != idx.shape:
+        raise ValueError("matrix is not this bucket's bucket_matrix")
+    _check(m, None, x, wmat, None)
+    return _launch(m, None, x, wmat, None, layer_plan(m), any_width=True)
 
 
 @dataclass
@@ -202,8 +362,8 @@ def _scratch(plan: LayerPlan, d_in: int, d_out: int, device: torch.device,
     scratch = plan.scratch.get((d_in, d_out, stream))
     if scratch is None:
         n_split = plan.split_p0.shape[0] - 1
-        scratch = torch.zeros(plan.n_partials * d_in + 2 + n_split, dtype=torch.float32,
-                              device=device)
+        scratch = torch.zeros(plan.n_partials * partial_floats(d_in) + 2 + n_split,
+                              dtype=torch.float32, device=device)
         plan.scratch[(d_in, d_out, stream)] = scratch
     return scratch
 
@@ -211,25 +371,33 @@ def _scratch(plan: LayerPlan, d_in: int, d_out: int, device: torch.device,
 def counters(plan: LayerPlan, d_in: int, d_out: int, stream: int) -> torch.Tensor:
     """The kernel's int32 counters in ``plan``'s scratch for (d_in, d_out)
     on ``stream``: 0 after every launch."""
-    return plan.scratch[(d_in, d_out, stream)][plan.n_partials * d_in:].view(torch.int32)
+    pitch = partial_floats(d_in)
+    return plan.scratch[(d_in, d_out, stream)][plan.n_partials * pitch:].view(torch.int32)
 
 
 def _launch(m: EllMatrix, diag: torch.Tensor | None, x: torch.Tensor, wmat: torch.Tensor,
-            bias: torch.Tensor | None, plan: LayerPlan) -> torch.Tensor:
-    """One kernel launch over ``plan``'s segments and tiles, on checked inputs."""
+            bias: torch.Tensor | None, plan: LayerPlan, any_width: bool = False) -> torch.Tensor:
+    """One kernel launch over ``plan``'s segments and tiles, on checked
+    inputs: the instance at ``WIDTHS`` unless ``any_width``, else the
+    any-width kernel."""
     d_in, d_out = x.shape[1], wmat.shape[1]
+    kp = kernel_plan(d_in, d_out, x.dtype, any_width)
     stream = torch._C._cuda_getCurrentRawStream(x.device.index)
     partial = _scratch(plan, d_in, d_out, x.device, stream).data_ptr()
     tiles = plan.tiles
-    out = torch.empty((m.n_rows, wmat.shape[1]), dtype=x.dtype, device=x.device)
-    err = _lib()(x.data_ptr(), wmat.data_ptr(),
-                 None if bias is None else bias.data_ptr(),
-                 None if diag is None else diag.data_ptr(),
-                 tiles.rows.data_ptr(), tiles.idx.data_ptr(), tiles.w.data_ptr(),
-                 tiles.tiles.data_ptr(), tiles.tiles.shape[0], plan.segs.data_ptr(),
-                 plan.segs.shape[0], SEG_SLOTS, plan.split_p0.data_ptr(), plan.hub.data_ptr(),
-                 plan.hub.shape[0], partial + 4 * plan.n_partials * d_in, partial,
-                 out.data_ptr(), d_in, d_out, _DTYPE_CODE[x.dtype], stream)
+    out = torch.empty((m.n_rows, d_out), dtype=x.dtype, device=x.device)
+    args = (x.data_ptr(), wmat.data_ptr(), None if bias is None else bias.data_ptr(),
+            None if diag is None else diag.data_ptr(), tiles.rows.data_ptr(),
+            tiles.idx.data_ptr(), tiles.w.data_ptr(), tiles.tiles.data_ptr(),
+            tiles.tiles.shape[0], plan.segs.data_ptr(), plan.segs.shape[0], SEG_SLOTS,
+            plan.split_p0.data_ptr(), plan.hub.data_ptr(), plan.hub.shape[0],
+            partial + 4 * plan.n_partials * kp.partial_pitch, partial, out.data_ptr(), d_in,
+            d_out, _DTYPE_CODE[x.dtype])
+    if kp.kernel == "gcn_fused_kernel_any":
+        err = _lib("gcn_fused_any_forward")(*args, kp.k_chunk, kp.n_tiles_a_warp,
+                                            int(kp.w_resident), kp.smem_bytes, stream)
+    else:
+        err = _lib()(*args, stream)
     if err != 0:
         raise RuntimeError(f"gcn_fused launch failed with CUDA error {err}")
     global launches

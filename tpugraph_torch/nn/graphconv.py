@@ -5,11 +5,13 @@ layer dispatches on ``impl``, and the operator's type must match it
 (``operator_format``):
 
 * ``ell`` (``pallas`` is its alias): ``kernels/gcn_fused.py::gcn_layer``
-  over an ``EllOperator``.  Where (d_in, d_out) has an instance of the
-  fused GCN-layer kernel (``gcn_fused.WIDTHS``), (A·x)·W in one launch of
-  it; the JAX layer computes A·(x·W), equal by associativity in fp32; in
-  bf16 the two round at other points.  At every other width the JAX
-  layer's own order: x·W, then the ELL SpMM kernel.  The backward runs the
+  over an ``EllOperator``.  Where (d_in, d_out) is in
+  ``gcn_fused.FUSED_WIDTHS`` (the fused kernel's instances, and the widths
+  where its any-width kernel timed faster on the card), (A·x)·W in one
+  launch of the fused GCN-layer kernel; the JAX layer computes A·(x·W),
+  equal by associativity in fp32; in bf16 the two round at other points.
+  At every other width the JAX layer's own order: x·W, then the ELL SpMM
+  kernel.  The backward runs the
   ELL SpMM kernel over the transpose.  Pad slots gather x[0] with
   weight 0, so a non-finite x[0] poisons the padded rows (0·NaN), as in the
   JAX package (``tpugraph/kernels/spmm_ell.py:53-65``).
