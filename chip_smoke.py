@@ -739,44 +739,92 @@ def _gcn_case(op, a_csr, rng, d: int, dtype: torch.dtype, smi: str, split: bool 
 
 
 def _parent_gcn(src: str):
-    """The fused layer of another commit: ``gcn_fused.cu`` in ``src``, whose
-    C entry takes no cut-row table, built by nvcc with the port's flags and
-    headers, and a launcher taking ``gcn_fused._launch``'s arguments (its
-    own scratch: at (256, 256) two panels' partials and counters)."""
+    """The fused layer of another commit: ``gcn_fused.cu`` in ``src``, built
+    by nvcc with the port's flags and headers, and a launcher taking
+    ``gcn_fused._launch``'s arguments (its own scratch).  An older entry
+    takes no cut-row table (at (256, 256) two panels' partials and
+    counters), a newer one takes it.  Where the commit also has the
+    any-width entry (``gcn_fused_any_forward``), ``launch.any_width``
+    launches it under ``parent_any_plan``, that kernel's plan rule."""
     t0 = time.perf_counter()
-    built = _build.build("gcn_fused_parent", os.path.join(src, "gcn_fused.cu"))
-    fn = ctypes.CDLL(str(built.path)).gcn_fused_forward
+    path = os.path.join(src, "gcn_fused.cu")
+    text = open(path).read()
+    built = _build.build("gcn_fused_parent", path)
+    lib = ctypes.CDLL(str(built.path))
+    fn = lib.gcn_fused_forward
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, P, P, P, P, P, P, I, P, I, I, P, P, P, P, I, I, I, P]
+    decl = text.split('extern "C" int gcn_fused_forward')[1][:600]
+    hub_entry = "int n_hub" in decl
+    head = [P, P, P, P, P, P, P, P, I, P, I, I, P]
+    fn.argtypes = head + ([P, I] if hub_entry else []) + [P, P, P, I, I, I, P]
     fn.restype = ctypes.c_int
+    any_fn = getattr(lib, "gcn_fused_any_forward", None) if hub_entry else None
+    if any_fn is not None:
+        any_fn.argtypes = head + [P, I, P, P, P, I, I, I, I, I, I, I, P]
+        any_fn.restype = ctypes.c_int
     scratch = {}
 
-    def launch(m, diag, x, wmat, bias, plan):
-        d_in, d_out = x.shape[1], wmat.shape[1]
-        panels = 2 if (d_in, d_out) == (256, 256) else 1
+    def _partial(plan, d_in, d_out, x, stream, old):
         n_split = plan.split_p0.shape[0] - 1
-        stream = torch._C._cuda_getCurrentRawStream(x.device.index)
-        key = (plan.n_partials, n_split, d_in, d_out, stream)  # left at zero by every launch
+        panels = 2 if old and (d_in, d_out) == (256, 256) else 1
+        pitch = d_in if old else gcn_fused.partial_floats(d_in)
+        key = (id(plan), old, d_in, d_out, stream)  # left at zero by every launch
         if key not in scratch:
-            scratch[key] = torch.zeros(panels * (plan.n_partials * d_in + n_split) + panels + 1,
-                                       dtype=torch.float32, device=x.device)
-        partial = scratch[key].data_ptr()
-        out = torch.empty((m.n_rows, d_out), dtype=x.dtype, device=x.device)
+            size = (panels * (plan.n_partials * pitch + n_split) + panels + 1 if old
+                    else plan.n_partials * pitch + 2 + n_split)
+            scratch[key] = torch.zeros(size, dtype=torch.float32, device=x.device)
+        base = scratch[key].data_ptr()
+        return base, base + 4 * panels * plan.n_partials * pitch
+
+    def _args(m, diag, x, wmat, bias, plan, old):
+        stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+        partial, counters = _partial(plan, x.shape[1], wmat.shape[1], x, stream, old)
+        out = torch.empty((m.n_rows, wmat.shape[1]), dtype=x.dtype, device=x.device)
         t = plan.tiles
-        err = fn(x.data_ptr(), wmat.data_ptr(), None if bias is None else bias.data_ptr(),
-                 None if diag is None else diag.data_ptr(), t.rows.data_ptr(), t.idx.data_ptr(),
-                 t.w.data_ptr(), t.tiles.data_ptr(), t.tiles.shape[0], plan.segs.data_ptr(),
-                 plan.segs.shape[0], SEG_SLOTS, plan.split_p0.data_ptr(),
-                 partial + 4 * panels * plan.n_partials * d_in, partial, out.data_ptr(), d_in,
-                 d_out, 0 if x.dtype == torch.float32 else 1, stream)
+        args = [x.data_ptr(), wmat.data_ptr(), None if bias is None else bias.data_ptr(),
+                None if diag is None else diag.data_ptr(), t.rows.data_ptr(), t.idx.data_ptr(),
+                t.w.data_ptr(), t.tiles.data_ptr(), t.tiles.shape[0], plan.segs.data_ptr(),
+                plan.segs.shape[0], SEG_SLOTS, plan.split_p0.data_ptr()]
+        if not old:
+            args += [plan.hub.data_ptr(), plan.hub.shape[0]]
+        args += [counters, partial, out.data_ptr(), x.shape[1], wmat.shape[1],
+                 0 if x.dtype == torch.float32 else 1]
+        return args, out, stream
+
+    def launch(m, diag, x, wmat, bias, plan):
+        args, out, stream = _args(m, diag, x, wmat, bias, plan, not hub_entry)
+        err = fn(*args, stream)
         if err != 0:
             raise RuntimeError(f"the parent's gcn_fused failed with CUDA error {err}")
         return out
 
+    def any_width(m, diag, x, wmat, bias, plan):
+        args, out, stream = _args(m, diag, x, wmat, bias, plan, False)
+        err = any_fn(*args, *parent_any_plan(x.shape[1], wmat.shape[1]), stream)
+        if err != 0:
+            raise RuntimeError(f"the parent's any-width gcn_fused failed with CUDA error {err}")
+        return out
+
+    launch.any_width = any_width if any_fn is not None else None
     emit({"phase": "parent_gcn_build", "src": src, "build_s": time.perf_counter() - t0,
+          "entry_takes_cut_rows": hub_entry, "any_width_entry": any_fn is not None,
           "ptxas": [ln.strip() for ln in built.log.splitlines()
                     if "registers" in ln or "spill" in ln]})
     return launch
+
+
+def parent_any_plan(d_in: int, d_out: int) -> tuple[int, int, int, int]:
+    """The plan rule of the per-tile any-width kernel (``gcn_fused_kernel_any``),
+    copied here so the parent's kernel runs under its own rule whatever
+    ``gcn_fused.kernel_plan`` becomes: (k_chunk, n-tiles a warp, W resident,
+    shared memory), the arguments after ``dtype`` of ``gcn_fused_any_forward``."""
+    up = gcn_fused._up
+    panel = 64 if up(d_out, 64) < up(d_out, 128) else 128
+    fit = (gcn_fused.SMEM_DYNAMIC - 4 * panel * 64) // (4 * 32) // 128 * 128
+    k_chunk = min(up(d_in, 128), fit)
+    a_bytes, w_bytes = 4 * 32 * k_chunk, 4 * up(d_out, panel) * up(d_in, 32)
+    resident = a_bytes + w_bytes <= gcn_fused.SMEM_TWO_BLOCKS
+    return k_chunk, panel // 64, int(resident), a_bytes + (w_bytes if resident else 4 * panel * 64)
 
 
 def _gcn_parent_case(op, x, wm, b, dtype, parent, split: bool) -> dict:
@@ -5447,12 +5495,13 @@ WIDE_DS = (514, 768, 1030)
 WIDE_BF16_DS = (768,)
 WIDE_L1 = ("mining", "ranks")
 WIDE_SELECT = ("mining", "eval_csls")
-# the fused layer's any-width kernel (csrc/gcn_fused.cu, gcn_fused_kernel_any)
-# on the zh-en operator: the sweeps' square layers, the (50, 300) run's two
-# layers (d_in < d_out and >), base at dim 64; bf16 at 384 and 768; and
-# (384, 384) on the 200,000-row dwy100k_dist operator.  Each is timed in
-# turns with the layer's unfused route, x·W then spmm_ell, which decides
-# gcn_fused.FUSED_WIDTHS.
+# the fused layer's any-width kernels (csrc/gcn_fused.cu: gcn_fused_kernel_wgmma,
+# and gcn_fused_kernel_any where the plan keeps W resident) on the zh-en
+# operator: the sweeps' square layers, the (50, 300) run's two layers (d_in <
+# d_out and >), base at dim 64; bf16 at 384 and 768; and (384, 384) on the
+# 200,000-row dwy100k_dist operator.  Each is timed in turns with the layer's
+# unfused route, x·W then spmm_ell, which decides gcn_fused.FUSED_WIDTHS, and
+# with --parent-gcn with the parent's any-width kernel under its plan.
 ANY_WIDTHS = ((384, 384, torch.float32), (512, 512, torch.float32), (768, 768, torch.float32),
               (50, 300, torch.float32), (300, 50, torch.float32), (64, 64, torch.float32),
               (384, 384, torch.bfloat16), (768, 768, torch.bfloat16))
@@ -5461,6 +5510,7 @@ ANY_WIDTHS_DWY100K = ((384, 384, torch.float32),)
 # decide: a narrow layer's unfused route (three launches) waits on the host,
 # and one reading of it ranged 0.046-0.082 ms at (64, 64) (PERF.md §6)
 ANY_WIDTH_ROUNDS = 3
+PROBE_ROUNDS = 3  # rounds of (row_copy, index_select, an empty launch) and back
 WIDTH_RUNS = (("v6_dim384", "base", "v6", dict(dim=384)),
               ("v6_dim512", "base", "v6", dict(dim=512)),
               ("base_dim64", "base", None, dict(dim=64)),
@@ -5583,26 +5633,45 @@ def _width_dist_step(task, dev: torch.device, dim: int) -> dict:
     return out
 
 
+def _layer64(op, x, wm, b):
+    """(A·x)·W + b in float64 on x's device, from the ELL buckets: the
+    yardstick of a layer's error."""
+    y = op.diag.double()[:, None] * x.double()
+    for bk in op.fwd.buckets:
+        y.index_add_(0, bk.rows.long(),
+                     (bk.w.double()[..., None] * x.double()[bk.idx.long()]).sum(1))
+    return y @ wm.double() + b.double()
+
+
+def _rel_l2(a, ref) -> float:
+    return float((a.double() - ref).norm() / ref.norm())
+
+
 def _any_width_case(op, a_csr, rng, d_in: int, d_out: int, dtype: torch.dtype, smi: str,
-                    where: str = "zh_en") -> dict:
-    """``fused_gcn_layer`` at (d_in, d_out) on ``op`` by the any-width
-    kernel: against ``reference_layer`` at ``TOL`` on NaN-prefilled output
-    memory, two launches bit for bit, one launch a call; the layer
-    (``gcn_layer``) by its route at this width (``fused_width``: one
-    ``gcn_fused`` launch, or x·W and one ``spmm_ell``) against
-    ``gcn_layer_plain``, two calls bit for bit.  Timed by events in turns
-    with the unfused route (x·W by ``torch.matmul``, ``spmm_ell``, the bias)
-    and cuSPARSE + GEMM (``ANY_WIDTH_ROUNDS`` rounds, medians), beside the
-    plain version and the bound
-    (``_bound_ms``: the layer's bytes, or the edges at the fp32 SIMT rate
-    and the kernel's three products at their tensor-core rate)."""
+                    where: str = "zh_en", parent=None) -> dict:
+    """``fused_gcn_layer`` at (d_in, d_out) on ``op`` by the plan's
+    any-width kernel: against ``reference_layer`` at ``TOL`` on NaN-prefilled
+    output memory, two launches bit for bit, one launch of the layer a call
+    (and, for the wgmma kernel, one of its W prologue, ``wt_layout``,
+    counted apart as ``gcn_fused.prologue_launches``); in fp32 its
+    relative L2 error against a float64 layer at most twice the plain fp32
+    layer's; the layer (``gcn_layer``) by its route at this width
+    (``fused_width``: one ``gcn_fused`` launch, or x·W and one ``spmm_ell``)
+    against ``gcn_layer_plain``, two calls bit for bit.  Timed by events in
+    turns with the unfused route (x·W by ``torch.matmul``, ``spmm_ell``, the
+    bias), cuSPARSE + GEMM and, with ``parent`` (``_parent_gcn``), the
+    parent's any-width kernel under its plan (``ANY_WIDTH_ROUNDS`` rounds,
+    medians), beside the plain version and the bound (``_bound_ms``: the
+    layer's bytes, or the edges at the fp32 SIMT rate and the kernel's three
+    products at their tensor-core rate).  Emits the plan's cluster, unit
+    rows and W bytes a layer reads."""
     dev = op.fwd.device
     x = torch.from_numpy(rng.standard_normal((op.n_rows, d_in)).astype(np.float32)).to(dev, dtype)
     wm = torch.from_numpy((rng.standard_normal((d_in, d_out)) / np.sqrt(d_in)).astype(np.float32))
     wm = wm.to(dev, dtype)
     b = torch.from_numpy(rng.standard_normal(d_out).astype(np.float32)).to(dev)
     plan = gcn_fused.kernel_plan(d_in, d_out, dtype)
-    if plan.kernel != "gcn_fused_kernel_any":
+    if plan.kernel not in ("gcn_fused_kernel_wgmma", "gcn_fused_kernel_any"):
         raise AssertionError(f"({d_in}, {d_out}) has an instance: {plan.kernel}")
 
     def fused():
@@ -5615,28 +5684,55 @@ def _any_width_case(op, a_csr, rng, d_in: int, d_out: int, dtype: torch.dtype, s
         with torch.no_grad():
             return gcn_fused.gcn_layer(op, x, wm, b)
 
+    # a call's launches: the layer's one, and the wgmma kernel's W prologue
+    per_call = {"gcn_fused": 1, "wt_layout": int(plan.kernel == "gcn_fused_kernel_wgmma")}
+
+    def count(before=(0, 0)):
+        return {"gcn_fused": gcn_fused.launches - before[0],
+                "wt_layout": gcn_fused.prologue_launches - before[1]}
+
     runs = []
     for _ in range(2):
         _nan_cache(op.n_rows, d_out, dev, dtype)
-        before = gcn_fused.launches
+        before = (gcn_fused.launches, gcn_fused.prologue_launches)
         runs.append(fused())
         sync(dev)
-        if gcn_fused.launches != before + 1:
-            raise AssertionError(f"gcn_fused at ({d_in}, {d_out}): "
-                                 f"{gcn_fused.launches - before} launches in one call")
+        if count(before) != per_call:
+            raise AssertionError(f"gcn_fused at ({d_in}, {d_out}): {count(before)} launches "
+                                 f"in one call, not {per_call}")
     want = reference_layer(op.fwd, op.diag, x, wm, b)
     torch.testing.assert_close(runs[0].float(), want.float(), **TOL[dtype])
     if not torch.equal(runs[0], runs[1]):
         raise AssertionError(f"gcn_fused at ({d_in}, {d_out}): two launches differ")
+    ref = _layer64(op, x, wm, b)
+    err64 = {"kernel": _rel_l2(runs[0], ref), "plain": _rel_l2(want, ref)}
+    del ref
+    if dtype == torch.float32 and err64["kernel"] > 2 * err64["plain"]:
+        raise AssertionError(f"gcn_fused at ({d_in}, {d_out}): relative L2 error {err64} "
+                             "against float64, above twice the plain fp32 layer's")
+    old = None
+    if parent is not None and parent.any_width is not None:
+        lplan = gcn_fused.layer_plan(op.fwd)
+
+        def old():
+            return parent.any_width(op.fwd, op.diag, x, wm, b, lplan)
+
+        got_old = old()
+        torch.testing.assert_close(got_old.float(), want.float(), **TOL[dtype])
+        if not torch.equal(got_old, old()):
+            raise AssertionError(f"the parent's gcn_fused at ({d_in}, {d_out}): "
+                                 "two launches differ")
+        del got_old
     torch.testing.assert_close(unfused().float(), want.float(), **TOL[dtype])
     route = gcn_fused.fused_width(d_in, d_out)
-    before = (gcn_fused.launches, spmm_ell.launches)
+    before = (gcn_fused.launches, spmm_ell.launches, gcn_fused.prologue_launches)
     got = layer()
     sync(dev)
-    routed = (gcn_fused.launches - before[0], spmm_ell.launches - before[1])
-    if routed != ((1, 0) if route else (0, 1)):
+    routed = (gcn_fused.launches - before[0], spmm_ell.launches - before[1],
+              gcn_fused.prologue_launches - before[2])
+    if routed != ((1, 0, per_call["wt_layout"]) if route else (0, 1, 0)):
         raise AssertionError(f"the layer at ({d_in}, {d_out}) launched {routed} "
-                             f"(gcn_fused, spmm_ell); fused_width {route}")
+                             f"(gcn_fused, spmm_ell, wt_layout); fused_width {route}")
     torch.testing.assert_close(got.float(), gcn_fused.gcn_layer_plain(op, x, wm, b).float(),
                                **TOL[dtype])
     if not torch.equal(got, layer()):
@@ -5651,19 +5747,23 @@ def _any_width_case(op, a_csr, rng, d_in: int, d_out: int, dtype: torch.dtype, s
         torch.testing.assert_close(library().float(), want.float(), **TOL[dtype])
     except RuntimeError as e:  # a refusal of bf16 by the library is the finding
         lib_refused = str(e).splitlines()[0][:200]
-    fns = {"fused": fused, "unfused": unfused, "library": library}
+    fns = {"fused": fused, "unfused": unfused, "library": library, "parent": old}
     turns = {name: [] for name in fns}
-    order = ("unfused", "fused", "library", "library", "fused", "unfused") * ANY_WIDTH_ROUNDS
+    order = ("unfused", "fused", "parent", "library", "library", "parent", "fused",
+             "unfused") * ANY_WIDTH_ROUNDS
     for name in order:
-        if name != "library" or lib_refused is None:
+        if (name != "library" or lib_refused is None) and fns[name] is not None:
             turns[name].append(time_ms(fns[name], iters=10))
     ms, unfused_ms = float(np.median(turns["fused"])), float(np.median(turns["unfused"]))
     lib_ms = float(np.median(turns["library"])) if turns["library"] else None
+    parent_ms = float(np.median(turns["parent"])) if turns["parent"] else None
     bound, bound_by, bound_x_type = _bound_ms(op, x, wm, b)
     n_products, unit = gcn_fused.products(d_in, d_out, dtype)
     out = dict(d_in=d_in, d_out=d_out, dtype=str(dtype).removeprefix("torch."), operator=where,
                rows=op.n_rows, edges=op.nnz, plan=dataclasses.asdict(plan),
-               precision=f"{n_products}x{unit}",
+               plan_kernel=plan.kernel, cluster=plan.cluster, unit_rows=plan.unit_rows,
+               w_pass_rows=plan.w_pass_rows, w_bytes_per_layer=plan.w_bytes_per_layer(op.n_rows),
+               rel_l2_vs_float64=err64, precision=f"{n_products}x{unit}",
                max_abs_err=float((runs[0].float() - want.float()).abs().max()), ms=ms,
                ms_turns=turns["fused"], ms_cold_l2=time_cold_ms(fused),
                plain_ms=time_ms(lambda: reference_layer(op.fwd, op.diag, x, wm, b), iters=5),
@@ -5674,8 +5774,10 @@ def _any_width_case(op, a_csr, rng, d_in: int, d_out: int, dtype: torch.dtype, s
                bound_x_type_ms=bound_x_type, share_of_bound=bound / ms,
                fused_over_unfused=ms / unfused_ms, faster_than_unfused=ms < unfused_ms,
                fused_width=route, route_agrees=(ms < unfused_ms) == route,
-               layer_launches=dict(zip(("gcn_fused", "spmm_ell"), routed)),
-               launches_per_call=1, bit_identical_runs=True)
+               parent_ms=parent_ms, parent_turns=turns["parent"],
+               ratio_to_parent=None if parent_ms is None else ms / parent_ms,
+               layer_launches=dict(zip(("gcn_fused", "spmm_ell", "wt_layout"), routed)),
+               launches_per_call=per_call, bit_identical_runs=True)
     emit({"phase": "widths", "kernel": "gcn_fused", **out, "card": smi})
     return out
 
@@ -5684,8 +5786,10 @@ def _probe_case(smi: str, dev: torch.device) -> dict:
     """The fused layer's probe (``scripts/fused_gcn_probe_torch.py``), stages
     0 and 1 through its ``run`` with every count at 0 before and read after
     (one ``row_copy`` launch, one ``gcn_fused``), each stage held to its
-    plain version there (stage 0 bit for bit); then the row copy timed
-    beside its plain version, ``index_select`` and its bound (bytes)."""
+    plain version there (stage 0 bit for bit); then the row copy,
+    ``index_select`` and an empty launch (``torch.cuda._sleep(0)``) timed in
+    turns (``PROBE_ROUNDS`` rounds each way; medians and spreads), beside
+    its plain version and its bound (bytes)."""
     runner = runpy.run_path(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                          "scripts", "fused_gcn_probe_torch.py"),
                             run_name="fused_gcn_probe_torch")["run"]
@@ -5703,17 +5807,27 @@ def _probe_case(smi: str, dev: torch.device) -> dict:
     if not torch.equal(got, probe.row_copy_plain(x, idx)):
         raise AssertionError("row_copy differs from x[idx[0, 0]]")
     bound, bound_by = _bound(4 + 2 * x.shape[1] * x.element_size(), 0)
+    fns = {"row_copy": lambda: probe.row_copy(x, idx),
+           "index_select": lambda: torch.index_select(x, 0, idx.view(-1)),
+           "empty_launch": lambda: torch.cuda._sleep(0)}
+    turns = {name: [] for name in fns}
+    for name in (*fns, *reversed(fns)) * PROBE_ROUNDS:
+        turns[name].append(time_ms(fns[name]))
+    med = {name: float(np.median(v)) for name, v in turns.items()}
+    spread = {name: float(max(v) - min(v)) for name, v in turns.items()}
     out = {"stages": stages, "launches": launched, "max_abs_err": 0.0,
-           "ms": time_ms(lambda: probe.row_copy(x, idx)),
-           "plain_ms": time_ms(lambda: probe.row_copy_plain(x, idx)),
-           "library_ms": time_ms(lambda: torch.index_select(x, 0, idx.view(-1))),
-           "library": "torch.index_select", "bound_ms": bound, "bound_by": bound_by,
-           "shape": [16, 128], "bit_identical": True}
+           "ms": med["row_copy"], "plain_ms": time_ms(lambda: probe.row_copy_plain(x, idx)),
+           "library_ms": med["index_select"], "library": "torch.index_select",
+           "empty_launch_ms": med["empty_launch"], "turns": turns, "spread_ms": spread,
+           "slower_than_library_beyond_spread":
+               med["row_copy"] - med["index_select"] > max(spread["row_copy"],
+                                                          spread["index_select"]),
+           "bound_ms": bound, "bound_by": bound_by, "shape": [16, 128], "bit_identical": True}
     emit({"phase": "widths", "kernel": "row_copy", **out, "card": smi})
     return out
 
 
-def phase_widths(task, dist_task, smi: str, dev: torch.device) -> dict:
+def phase_widths(task, dist_task, smi: str, dev: torch.device, parent=None) -> dict:
     """The port at widths the fused GCN layer has no instance for, on the
     card.  The fused layer's any-width kernel at ANY_WIDTHS on the zh-en
     operator and ANY_WIDTHS_DWY100K on the 200,000-row one
@@ -5733,7 +5847,9 @@ def phase_widths(task, dist_task, smi: str, dev: torch.device) -> dict:
     ``addmm`` + ``logsumexp`` for the update; ``cdist`` + ``topk`` for the
     L1 search; the replaced route for the select kernel) and the bound.
     Then the WIDTH_RUNS through ``driver.run`` (``_width_run``) and one
-    ``dwy100k_dist`` step at each of WIDTH_DIST_DIMS (``_width_dist_step``)."""
+    ``dwy100k_dist`` step at each of WIDTH_DIST_DIMS (``_width_dist_step``).
+    With ``parent`` (``_parent_gcn``) the any-width cases are also timed in
+    turns with the parent's any-width kernel."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(25)
     op = build_adjacency(task.n_ent, task.merged_triples, n_rel=task.n_rel).to(dev)
@@ -5747,13 +5863,14 @@ def phase_widths(task, dist_task, smi: str, dev: torch.device) -> dict:
     a_csr, layer_rng = _csr_of(op.fwd, op.diag), np.random.default_rng(28)
     for d_in, d_out, dtype in ANY_WIDTHS:
         key = f"{d_in}x{d_out}" + ("_bf16" if dtype == torch.bfloat16 else "")
-        kernels["gcn_fused"][key] = _any_width_case(op, a_csr, layer_rng, d_in, d_out, dtype, smi)
+        kernels["gcn_fused"][key] = _any_width_case(op, a_csr, layer_rng, d_in, d_out, dtype, smi,
+                                                    parent=parent)
     del a_csr
     dop = build_adjacency(dist_task.n_ent, dist_task.merged_triples, n_rel=dist_task.n_rel).to(dev)
     d_csr = _csr_of(dop.fwd, dop.diag)
     for d_in, d_out, dtype in ANY_WIDTHS_DWY100K:
         kernels["gcn_fused"][f"{d_in}x{d_out}_dwy100k"] = _any_width_case(
-            dop, d_csr, layer_rng, d_in, d_out, dtype, smi, where="dwy100k")
+            dop, d_csr, layer_rng, d_in, d_out, dtype, smi, where="dwy100k", parent=parent)
     del dop, d_csr
     kernels["row_copy"] = {"probe": _probe_case(smi, dev)}
     for d, dtype in cases:
@@ -5806,8 +5923,10 @@ def phase_widths(task, dist_task, smi: str, dev: torch.device) -> dict:
 
 # the widths each kernel takes on the card, for the kernel table
 WIDTHS_TAKEN = {
-    "gcn_fused": f"every (d_in, d_out) >= 1: instances at {gcn_fused.WIDTHS}, the any-width "
-                 "kernel elsewhere; the layer runs the kernel at "
+    "gcn_fused": f"every (d_in, d_out) >= 1: instances at {gcn_fused.WIDTHS}; the wgmma "
+                 "kernel (W once per 128 rows) wherever d_in <= 768 and W does not fit whole "
+                 "in half an SM, the per-tile kernel elsewhere (W resident, or d_in "
+                 "above 768); the layer runs the kernel at "
                  f"{sorted(gcn_fused.FUSED_WIDTHS)}, x·W then spmm_ell at any other width",
     "spmm_ell": "every d >= 1: instances at 64, 128, 256; 128-column panels at every other d",
     "spmm_sorted": "every d >= 1: instances at 64, 128, 256; 128-column panels at every other d",
@@ -5822,7 +5941,7 @@ WIDTHS_TAKEN = {
     "sinkhorn_reverse": "any (it works on the S x S cost)",
     "row_copy": "any row (4-byte words, else bytes)"}
 WIDTH_KEYS = ("max_abs_err", "ms", "device_ms", "ms_cold_l2", "plain_ms", "bound_ms",
-              "bound_by", "library_ms", "unfused_ms", "fused_width")
+              "bound_by", "library_ms", "unfused_ms", "fused_width", "plan_kernel", "parent_ms")
 
 
 def _kernel_widths(name: str, widths: dict) -> dict:
@@ -5895,7 +6014,7 @@ def main(argv: list[str] | None = None) -> int:
     dist_mesh = phase_dist_mesh(smi, dev)
     dist_grouped = phase_dist_grouped(smi, dev, dist_options["approx"])
     dist_fused = phase_dist_fused(smi, dev, dist, dist_options["approx"]["stages_s"])
-    widths = phase_widths(task, dist["task"], smi, dev)
+    widths = phase_widths(task, dist["task"], smi, dev, parent_gcn)
     # one potential update at the ring caller's shape: the v7r run's 4,096
     # pairs, one rank holding the 8 shards, so one launch per update
     k_sink_ring = phase_sinkhorn(smi, dev, s=DIST_V7R_OT_PAIRS, d=256)

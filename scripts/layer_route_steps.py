@@ -1,15 +1,18 @@
-"""A training step of config ``base`` at a width by each route of the GCN
-layer, on the card: the fused kernel (``gcn_fused.FUSED_WIDTHS`` holds the
-width) against x·W then ``spmm_ell`` (the width taken out of it), in turns.
+"""A training step of config ``base`` (or of a recipe) at a width by each
+route of the GCN layer, on the card: the fused kernel
+(``gcn_fused.FUSED_WIDTHS`` holds the width) against x·W then ``spmm_ell``
+(the width taken out of it), in turns.
 
-For each (dim, hidden) the zh-en-scale task's model takes margin steps
-(forward and backward, uniform negatives) timed three ways: CUDA events
-over back-to-back steps, the host's wall of one step ended by a
-synchronise (median), and the first layer's forward alone by events and
-by the host's enqueue time a call.  One
-JSON line a width and route.  It needs a CUDA device:
+For each (dim, hidden) the zh-en-scale task's model takes steps (forward
+and backward; config base: the margin over uniform negatives; with
+``--recipe``: the recipe's whole loss through ``driver.step_parts`` on its
+first batch, ``loop.first_batch``, e.g. v6's margin and OT head) timed
+three ways: CUDA events over back-to-back steps, the host's wall of one
+step ended by a synchronise (median), and the first layer's forward alone
+by events and by the host's enqueue time a call.  One JSON line a width and
+route.  It needs a CUDA device:
 
-    python3 scripts/layer_route_steps.py [--widths 64x64,50x300] [--rounds 3]
+    python3 scripts/layer_route_steps.py [--widths 64x64,50x300] [--rounds 3] [--recipe v6]
 """
 
 import argparse
@@ -24,10 +27,13 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from tpugraph_torch.configs.configs import get_config  # noqa: E402
+from tpugraph_torch.configs.recipes import RECIPES  # noqa: E402
 from tpugraph_torch.data.synthetic import synthetic_align_task  # noqa: E402
 from tpugraph_torch.kernels import gcn_fused  # noqa: E402
 from tpugraph_torch.models.encoder import AlignGCN  # noqa: E402
 from tpugraph_torch.sparse.build import build_adjacency  # noqa: E402
+from tpugraph_torch.train.driver import step_parts  # noqa: E402
+from tpugraph_torch.train.loop import first_batch  # noqa: E402
 from tpugraph_torch.train.losses import margin_align_loss  # noqa: E402
 from tpugraph_torch.train.negatives import sample_uniform_negatives  # noqa: E402
 
@@ -78,6 +84,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--widths", default="64x64,50x300")
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--recipe", default=None, choices=sorted(RECIPES),
+                    help="time this recipe's step on config base instead of the margin step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("layer_route_steps: no CUDA device", file=sys.stderr)
@@ -90,21 +98,35 @@ def main() -> int:
     table = gcn_fused.FUSED_WIDTHS
     for width in args.widths.split(","):
         dim, hidden = (int(v) for v in width.split("x"))
-        cfg = get_config("base", dim=dim, hidden=hidden)
-        neg_l, neg_r = sample_uniform_negatives(torch.Generator().manual_seed(1), pairs,
-                                                task.kg1.n_ent, task.n_ent, cfg.k_neg)
-        model = AlignGCN(n_ent=task.n_ent, dim=dim, hidden=hidden, device=dev)
-        torch.manual_seed(0)
-        for p in model.parameters():
-            torch.nn.init.normal_(p, std=dim ** -0.5)
+        if args.recipe is None:
+            cfg = get_config("base", dim=dim, hidden=hidden)
+            neg_l, neg_r = sample_uniform_negatives(torch.Generator().manual_seed(1), pairs,
+                                                    task.kg1.n_ent, task.n_ent, cfg.k_neg)
+            model = AlignGCN(n_ent=task.n_ent, dim=dim, hidden=hidden, device=dev)
+            layer_op, enc = op, model
+            torch.manual_seed(0)
+            for p in model.parameters():
+                torch.nn.init.normal_(p, std=dim ** -0.5)
 
-        def step():
-            model.zero_grad(set_to_none=True)
-            margin_align_loss(model(op, train=True), pairs, neg_l, neg_r, cfg.gamma).backward()
+            def step():
+                model.zero_grad(set_to_none=True)
+                margin_align_loss(model(op, train=True), pairs, neg_l, neg_r,
+                                  cfg.gamma).backward()
+        else:
+            cfg = get_config("base", **{**RECIPES[args.recipe], "dim": dim, "hidden": hidden})
+            torch.manual_seed(0)
+            parts = step_parts(cfg, task, dev)
+            model, batch = parts.model, first_batch(cfg, task, parts, dev)
+            layer_op = parts.op
+            enc = getattr(model, "encoder", model)  # AlignMTL wraps the encoder
+
+            def step():
+                model.zero_grad(set_to_none=True)
+                parts.loss_fn(batch, None)[0].backward()
 
         def first_layer():
             with torch.no_grad():
-                return gcn_fused.gcn_layer(op, model.emb, model.gc1.w, model.gc1.b)
+                return gcn_fused.gcn_layer(layer_op, enc.emb, enc.gc1.w, enc.gc1.b)
 
         routes = {"fused": table | {(dim, hidden)}, "unfused": table - {(dim, hidden)}}
         got = {name: {"events_ms": [], "synced_ms": [], "layer1_ms": [], "layer1_host_us": []}
@@ -117,7 +139,7 @@ def main() -> int:
             got[name]["layer1_host_us"].append(_host_us(first_layer))
         gcn_fused.FUSED_WIDTHS = table
         for name, t in got.items():
-            print(json.dumps({"dim": dim, "hidden": hidden, "route": name,
+            print(json.dumps({"dim": dim, "hidden": hidden, "recipe": args.recipe, "route": name,
                               **{k: float(np.median(v)) for k, v in t.items()},
                               "turns": t, "card": torch.cuda.get_device_name(0)}), flush=True)
     return 0

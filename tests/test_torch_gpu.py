@@ -16,7 +16,8 @@ every feature block and slice (its step bit for bit the F = L = 1 step);
 both SpMM kernels also at a tensor-parallel rank's width, d = 64; the
 grouped layout's halo SpMM (``halo_grouped``) by both routes; the
 single-device trainers on a sharded config, the fp32 (128, 128) fused
-layer's error against float64, and ``sddmm_pairs``; the training step's
+layer's error against float64, the wgmma any-width layer's (bit for bit
+over two calls, its W prologue's layout), and ``sddmm_pairs``; the training step's
 loss kernels (the L1 margin's forward and fixed-order backward, its sign
 planes and pair vectors, the OT head's reverse update) against their plain
 versions, bit for bit over two calls and through a captured replay (the
@@ -112,13 +113,17 @@ def _graph(rng, n=1000, split_diag=True):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d_in,d_out", [(128, 128), (128, 256), (256, 128), (256, 256),
                                         (3, 5), (50, 300), (300, 50), (64, 64), (384, 384),
-                                        (768, 768), (1030, 1030), (2048, 64)])
+                                        (768, 768), (1030, 1030), (2048, 64), (384, 100),
+                                        (514, 130)])
 @pytest.mark.parametrize("split_diag", [False, True])
 def test_kernel_matches_plain(cuda, dtype, d_in, d_out, split_diag):
-    """The instances at {128, 256}² and the any-width kernel elsewhere
-    (tails of 3, 5, 50, 300 and 1,030 columns; (2048, 64) aggregates d_in
-    in two chunks), on a graph with hub rows: one launch, against the plain
-    version, with and without a bias."""
+    """The instances at {128, 256}² and the any-width kernels elsewhere by
+    the plan (the wgmma kernel at (300, 50), (384, *), (514, 130), (768,
+    768); the per-tile kernel with W resident or past d_in 768; tails of 3, 5,
+    50, 100, 130, 300 and 1,030 columns, d_out no multiple of the cluster's
+    2 × 8 at 50, 100 and 130; (2048, 64) aggregates d_in in two chunks), on
+    a graph with hub rows: one launch, against the plain version, with and
+    without a bias."""
     rng = np.random.default_rng(d_in + d_out + split_diag)
     op = _graph(rng, split_diag=split_diag).to(cuda)
     x = torch.from_numpy(rng.standard_normal((op.n_rows, d_in)).astype(np.float32))
@@ -135,6 +140,47 @@ def test_kernel_matches_plain(cuda, dtype, d_in, d_out, split_diag):
     # no bias: the bias-free path
     torch.testing.assert_close(fused_gcn_layer(op.fwd, op.diag, x, wm).float(),
                                reference_layer(op.fwd, op.diag, x, wm).float(), **TOL[dtype])
+
+
+def _rel_l2(a, ref):
+    return float((a.double() - ref).norm() / ref.norm())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d_in,d_out", [(300, 50), (384, 384), (384, 100), (512, 512),
+                                        (768, 768)])
+def test_wgmma_kernel_bitwise_and_float64(cuda, dtype, d_in, d_out):
+    """The wgmma any-width kernel on a graph with hub rows (cut into
+    segments, so the cut-row units run beside the tile pairs of both CTAs
+    of each cluster): one launch of the layer and one of its W prologue a
+    call on NaN-prefilled memory, two calls bit for bit, the prologue's
+    layout of W equal to ``wt_layout_plain``; fp32 within 2× the plain fp32 layer's relative L2 error against a
+    float64 layer, bf16 within PERF.md §2's bf16 limit of the plain
+    version."""
+    assert gcn_fused.kernel_plan(d_in, d_out, dtype).kernel == "gcn_fused_kernel_wgmma"
+    rng = np.random.default_rng(d_in * 3 + d_out)
+    op = _graph(rng).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((op.n_rows, d_in)).astype(np.float32))
+    wm = torch.from_numpy((rng.standard_normal((d_in, d_out)) / np.sqrt(d_in)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(d_out).astype(np.float32)).to(cuda)
+    x, wm = x.to(cuda, dtype), wm.to(cuda, dtype)
+    runs = []
+    for _ in range(2):
+        torch.full((op.n_rows, d_out), float("nan"), device=cuda, dtype=dtype)
+        before = (gcn_fused.launches, gcn_fused.prologue_launches)
+        runs.append(fused_gcn_layer(op.fwd, op.diag, x, wm, b))
+        torch.cuda.synchronize()
+        assert (gcn_fused.launches, gcn_fused.prologue_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(runs[0], runs[1]) and not runs[0].isnan().any()
+    stream = torch._C._cuda_getCurrentRawStream(cuda.index or 0)
+    wt = gcn_fused.layer_plan(op.fwd).scratch[("wt", d_in, d_out, dtype, stream)]
+    assert torch.equal(wt, gcn_fused.wt_layout_plain(wm).reshape(-1).view(torch.uint8))
+    plain = reference_layer(op.fwd, op.diag, x, wm, b)
+    if dtype == torch.float32:
+        ref = _layer_float64(op, x, wm, b)
+        assert _rel_l2(runs[0], ref) <= 2 * _rel_l2(plain, ref)
+    torch.testing.assert_close(runs[0].float(), plain.float(), **TOL[dtype])
 
 
 @pytest.mark.gpu

@@ -106,12 +106,53 @@
 //     16 cycles per scheduler, so the product sets a step's time
 //     (PERF.md §6).
 //
-// Every other (d_in, d_out) ≥ 1 (gcn_fused_kernel_any, namespace any; the
-// host plan is kernels/gcn_fused.py::kernel_plan).  Beyond (256, 256) the
-// fp32 Wᵀ (d_in·d_out·4 bytes: 576 KB at 384², 2.25 MB at 768²) fits no
-// block, and a tile's aggregate may not either (32 × 1,030 fp32 is 132 KB).
-// What bounds the layer is unchanged: the gather's bytes and the three
-// products.  The design keeps the instances' work split and arithmetic and
+// Every other (d_in, d_out) ≥ 1 takes one of two kernels, by the host plan
+// kernels/gcn_fused.py::kernel_plan.  Beyond (256, 256) the fp32 Wᵀ
+// (d_in·d_out·4 bytes: 576 KB at 384², 2.25 MB at 768²) fits no block, and
+// a tile's aggregate may not either (32 × 1,030 fp32 is 132 KB).  What
+// bounds the layer is unchanged: the gather's bytes and the three products.
+//
+// gcn_fused_kernel_wgmma (namespace wg), wherever d_in ≤ 768 and W does not
+// fit whole in half an SM beside a 32-row aggregate:
+//
+//   * W moves from L2 once per 128 rows.  A cluster of two CTAs takes two
+//     64-row units a step (two plan tiles each), and both walk W's chunks
+//     in one order: each chunk (64 output columns × 128 bytes of k) is one
+//     multicast bulk copy (cp.async.bulk .multicast::cluster), each CTA
+//     issuing half, into a ring of slots guarded by mbarriers (full: the
+//     chunk's bytes in this CTA; empty: both CTAs' warpgroups are done with
+//     the slot).  A prologue launch lays Wᵀ out once per call in the
+//     product's layout (wt_layout: K-major rows of 128 bytes, 128-byte
+//     swizzle, each group of 16 k's permuted as the aggregate's fragments
+//     want), so the bytes arrive ready for wgmma: fp32 as W's big and small
+//     TF32 planes (16 KB a chunk; splitting each chunk in the CTAs cost
+//     13-17 % of the layer), bf16 as W (8 KB).
+//   * The gather overlaps the product.  Warps 0-10 gather the step's unit
+//     into one aggregate buffer (64 rows × d_in fp32, in 128-column slabs)
+//     while the warpgroup (warps 12-15) multiplies the unit gathered a step
+//     before from the other; warp 11 streams W.  Where two buffers do not
+//     fit (d_in above 384), one buffer, and the product follows the gather
+//     within the step.  One barrier of the cluster a step hands the
+//     buffers and the units over.  A warp's walk is latency-bound, so a
+//     unit's rows are split over the gather warps by their slots, not
+//     their count (a run of long rows held the cluster's barrier), and a
+//     walk takes up to three slabs of a row at once.
+//   * The product is wgmma m64n64 (k8 TF32, k16 bf16), A (the aggregate)
+//     from registers, B (W) from the ring.  fp32: 3× TF32 as above, the
+//     aggregate split in registers.  bf16: the aggregate's three bf16 terms
+//     times the bf16 W.  Each group of 16 k's is summed from zero and then
+//     added in fp32, and waited for before the next (its A registers stay
+//     live until it completes).
+//   * The units and their order are the layer plan's: groups of cut-row
+//     segments, the cut rows 16 at a time (each sums its partials in
+//     segment order), then pairs of tiles.  One launch of the layer (after
+//     the prologue's), persistent clusters on one counter that the last CTA
+//     resets; every row written once, in place, in a fixed order.
+//
+// gcn_fused_kernel_any (namespace any), the per-tile kernel, everywhere else:
+// where W fits whole beside the aggregate in half an SM (staged once per
+// block: (50, 300), (64, 64)), and where no layout of the redesign fits
+// (d_in above 768).  It keeps the instances' work split and arithmetic and
 // bounds what a block holds:
 //
 //   * The same units from the same layer plan: groups of 8 cut-row
@@ -132,8 +173,7 @@
 //     group of 16 k's summed outside the accumulator.  Wᵀ is staged whole
 //     once a block where it fits beside the aggregate in half an SM's
 //     shared memory (two blocks an SM), else 64 k's of one panel at a
-//     time, for every unit: at (384, 384) that moves 0.59 MB of W from L2
-//     a 32-row tile.
+//     time, for every unit.
 //   * Columns past d_in are zero in the aggregate and in Wᵀ, so the
 //     product's k runs to d_in rounded up to 16; columns past d_out are
 //     multiplied (a panel's last n-tiles) but never written.  Every row is written
@@ -1451,6 +1491,731 @@ cudaError_t dispatch(int nt, int d_in, const void* x, const void* wmat, const fl
 
 }  // namespace any
 
+// ---------------------------------------------------------------------------
+// The redesigned any-width kernel: gcn_fused_kernel_wgmma
+
+namespace wg {
+
+// Warps 0-10 gather, warp 11 streams W, warps 12-15 (one warpgroup,
+// wgmma's 64 rows) multiply
+constexpr int kGatherWarps = 11;
+constexpr int kProducerWarp = kGatherWarps;
+constexpr int kProductWarp0 = 12;
+constexpr int kProductWarps = 4;
+constexpr int kThreads = (kProductWarp0 + kProductWarps) * 32;
+constexpr int kRows = 64;       // rows of a unit: two plan tiles of kTileRows
+constexpr int kCluster = 2;     // CTAs that share each W chunk (one multicast copy)
+constexpr int kN = 64;          // output columns of a product pass (wgmma's N)
+constexpr int kSlab = 128;      // aggregate columns of a slab (one gather panel)
+constexpr int kSlabFloats = kRows * kSlab;  // 32 KB
+constexpr int kPlaneBytes = kN * 128;       // 64 rows of Wᵀ × 128 bytes of k: 8 KB
+constexpr int kMaxStages = 16;
+// cut rows a unit: each sums its segments' partials alone, so few rows a
+// unit spread those sums over many CTAs (64 left one CTA the layer's tail)
+constexpr int kHubRows = 16;
+constexpr int kUnitSlots = 3;  // step bases in flight: gathered, multiplied, claimed
+constexpr int kProductBar = 1, kGatherBar = 2;  // named barriers (0 is __syncthreads)
+
+// k's of a W chunk: one 128-byte row of the swizzle atom, 32 TF32 or 64 bf16
+template <typename T>
+constexpr int kChunkK = 128 / static_cast<int>(sizeof(T));
+// a W chunk: fp32 W's big and small TF32 planes (the prologue splits W once
+// a call, so no CTA splits a chunk it receives), or the bf16 W's one plane
+template <typename T>
+constexpr int kChunkBytes = sizeof(T) == 4 ? 2 * kPlaneBytes : kPlaneBytes;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// arrive on the barrier at bar's offset in CTA `cta` of the cluster.  The
+// release is the CTA's (as CUTLASS's ClusterBarrier arrives): it publishes
+// nothing to the peer, only that a slot's reads are done, and a release at
+// the cluster's scope first drains the thread's stores to global memory,
+// which stalled the warpgroup at every W chunk
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}" ::"r"(smem_u32(bar)),
+      "r"(cta)
+      : "memory");
+}
+
+// wait for the phase of `parity` to complete; a barrier that never does
+// (a lost arrival) traps rather than hangs
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  for (long spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spin > (1l << 24)) __trap();
+  }
+}
+
+// `bytes` from global src into shared dst of every CTA in `mask`, each
+// copy's bytes counted on the barrier at bar's offset in that CTA
+__device__ __forceinline__ void bulk_multicast(void* dst, const void* src, uint32_t bytes,
+                                               uint64_t* bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1], %2, [%3], %4;" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "h"(mask)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// ties the registers to the asm statements around them, so the compiler
+// neither reads the accumulator before the wait nor moves a write past it
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// B operand descriptor: K-major, 128-byte swizzle, 8-row groups 1,024
+// bytes apart; p lies in a 1,024-byte aligned tile (plus a k offset)
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+#define GCN_WG_D32                                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "   \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define GCN_WG_OUT32(d)                                                                       \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// d (64 × 64, fp32) = [d +] A · B: A (64 × 8 TF32) from the warpgroup's
+// registers, a0..a3 = (row g, k t), (g + 8, t), (g, t + 4), (g + 8, t + 4) of
+// the warp's 16 rows; B (8 × 64) by its descriptor
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2,
+                                           uint32_t a3, uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " GCN_WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : GCN_WG_OUT32(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc), "r"(scale_d));
+}
+
+// d (64 × 64, fp32) = [d +] A · B: A (64 × 16 bf16) from registers, a0..a3 =
+// (row g, k 2t, 2t + 1), (g + 8, 2t, 2t + 1), (g, 2t + 8, 2t + 9),
+// (g + 8, 2t + 8, 2t + 9); B (16 × 64) K-major by its descriptor
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2,
+                                           uint32_t a3, uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " GCN_WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : GCN_WG_OUT32(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc), "r"(scale_d));
+}
+
+#undef GCN_WG_OUT32
+#undef GCN_WG_D32
+
+// The column of d_in held at k position `pos` of a chunk's 128-byte row of
+// Wᵀ: each group of 16 k's is permuted so that a lane's four aggregate
+// columns kk + 4t .. + 3 are one 16-byte load and its fragment registers
+// (TF32: k t, t + 4 of k-steps 0 and 1; bf16: k 2t, 2t + 1, 2t + 8, 2t + 9)
+// take them in order, as gcn_fused_kernel permutes both operands
+template <typename T>
+__host__ __device__ constexpr int k_of(int pos) {
+  const int j = pos % 16;
+  return pos / 16 * 16 + (sizeof(T) == 4 ? 4 * (j % 4) + 2 * (j / 8) + (j % 8) / 4
+                                         : 4 * ((j % 8) / 2) + 2 * (j / 8) + j % 2);
+}
+
+template <typename T>
+struct Bits;
+template <>
+struct Bits<float> {
+  using type = uint32_t;
+};
+template <>
+struct Bits<__nv_bfloat16> {
+  using type = uint16_t;
+};
+
+// The prologue: Wᵀ into the product's layout, once per call.  Chunk
+// (panel p, k-chunk c) holds columns [64p, 64p + 64) of W (rows n of Wᵀ) ×
+// k's [c·CK, c·CK + CK), each row 128 bytes in k_of order, the 16-byte
+// pieces of row n swizzled by n % 8 (Swizzle<3, 4, 3>, as wgmma reads a
+// 128-byte-swizzled K-major tile); zero past d_in and d_out.  fp32: two
+// such planes, big = W rounded to TF32 and small = W − big rounded to TF32
+// (wide::split_tf32_bits); bf16: W.  One thread an element, stores
+// coalesced.
+template <typename T>
+__global__ void wt_layout(const T* __restrict__ wmat, T* __restrict__ wt, int d_in, int d_out,
+                          int n_kc, long n_elems) {
+  using B = typename Bits<T>::type;
+  constexpr int E = static_cast<int>(sizeof(T));
+  constexpr int kPer = kPlaneBytes / E;                  // elements a plane
+  constexpr int kPlanes = kChunkBytes<T> / kPlaneBytes;  // planes a chunk
+  const B* w = reinterpret_cast<const B*>(wmat);
+  B* o = reinterpret_cast<B*>(wt);
+  for (long e = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x; e < n_elems;
+       e += static_cast<long>(gridDim.x) * blockDim.x) {
+    const long chunk = e / (kPer * kPlanes);
+    const int plane = static_cast<int>(e / kPer % kPlanes);
+    const int b = static_cast<int>(e % kPer) * E;  // byte in the plane
+    const int pan = static_cast<int>(chunk / n_kc), c = static_cast<int>(chunk % n_kc);
+    const int n = b / 128, piece = ((b % 128) / 16) ^ (n & 7);
+    const int k = c * kChunkK<T> + k_of<T>((piece * 16 + b % 16) / E), col = pan * kN + n;
+    B v = k < d_in && col < d_out ? w[static_cast<long>(k) * d_out + col] : B(0);
+    if constexpr (kPlanes == 2) {
+      uint32_t big, small;
+      wide::split_tf32_bits(__uint_as_float(v), big, small);
+      v = plane == 0 ? big : small;
+    }
+    o[e] = v;
+  }
+}
+
+// The unit kinds, in the order the counter hands them out: groups of
+// kGatherWarps cut-row segments, the cut rows kHubRows at a time, then pairs of
+// plan tiles (a tile of K > k_cut holds cut rows and is skipped)
+struct Units {
+  int n_groups, tile0, total;
+  const int4* tiles;
+  int n_tiles, k_cut;
+
+  __device__ __forceinline__ bool tile_ok(int t) const {
+    return t < n_tiles && __ldg(&tiles[t].z) <= k_cut;
+  }
+  // whether unit u has rows to multiply
+  __device__ __forceinline__ bool product(int u) const {
+    if (u < n_groups || u >= total) return false;
+    if (u < tile0) return true;
+    return tile_ok(2 * (u - tile0)) || tile_ok(2 * (u - tile0) + 1);
+  }
+};
+
+// This CTA's share of a W chunk: its 1/kCluster of chunk `q` of the step
+// into ring slot `slot` of every CTA of the cluster, counted on each one's
+// full barrier (which expects the whole chunk: every CTA's share)
+template <typename T>
+__device__ __forceinline__ void issue_chunk(uint8_t* ring, uint64_t* full, const uint8_t* wt,
+                                           long q, int slot, int rank) {
+  constexpr int kShare = kChunkBytes<T> / kCluster;
+  mbar_expect_tx(&full[slot], kChunkBytes<T>);
+  bulk_multicast(ring + slot * kChunkBytes<T> + rank * kShare,
+                 wt + q * kChunkBytes<T> + rank * kShare, kShare, &full[slot],
+                 (1 << kCluster) - 1);
+}
+
+// One group of 16 k's (columns kk.. of the aggregate, k-steps `step0`.. of
+// the chunk's rows) into tmp from zero: fp32 3× TF32, small terms first,
+// then big·big, per k-step (W's big plane at `chunk`, its small plane at
+// `small`); bf16 the aggregate's three bf16 terms (lo, mid, hi) times the
+// bf16 W.  Committed as one wgmma group.
+template <typename T>
+__device__ __forceinline__ void group(float (&tmp)[32], const float* agg, int kk, int r0, int tq,
+                                      const uint8_t* chunk, const uint8_t* small, int step0) {
+  const float* slab = agg + (kk / kSlab) * kSlabFloats;
+  const int f = (kk % kSlab) / 4 + tq;
+  const float4 v0 = *reinterpret_cast<const float4*>(any::swzp(slab, kSlab, r0, f));
+  const float4 v1 = *reinterpret_cast<const float4*>(any::swzp(slab, kSlab, r0 + 8, f));
+  if constexpr (sizeof(T) == 4) {
+    uint32_t ab[2][4], as[2][4];  // [row g, g + 8][component]
+    wide::split_tf32_bits(v0.x, ab[0][0], as[0][0]);
+    wide::split_tf32_bits(v0.y, ab[0][1], as[0][1]);
+    wide::split_tf32_bits(v0.z, ab[0][2], as[0][2]);
+    wide::split_tf32_bits(v0.w, ab[0][3], as[0][3]);
+    wide::split_tf32_bits(v1.x, ab[1][0], as[1][0]);
+    wide::split_tf32_bits(v1.y, ab[1][1], as[1][1]);
+    wide::split_tf32_bits(v1.z, ab[1][2], as[1][2]);
+    wide::split_tf32_bits(v1.w, ab[1][3], as[1][3]);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const int k0 = 2 * ks, k1 = 2 * ks + 1;
+      const int off = (step0 + ks) * 32;  // the k-step's 32 bytes of the rows
+      const uint64_t db = desc_sw128(chunk + off), ds = desc_sw128(small + off);
+      wgmma_tf32(tmp, ab[0][k0], ab[1][k0], ab[0][k1], ab[1][k1], ds, ks);
+      wgmma_tf32(tmp, as[0][k0], as[1][k0], as[0][k1], as[1][k1], db, 1);
+      wgmma_tf32(tmp, ab[0][k0], ab[1][k0], ab[0][k1], ab[1][k1], db, 1);
+    }
+  } else {
+    uint32_t a[3][4];  // [hi, mid, lo][fragment register]
+    wide::split3_bf16(v0.x, v0.y, a[0][0], a[1][0], a[2][0]);
+    wide::split3_bf16(v1.x, v1.y, a[0][1], a[1][1], a[2][1]);
+    wide::split3_bf16(v0.z, v0.w, a[0][2], a[1][2], a[2][2]);
+    wide::split3_bf16(v1.z, v1.w, a[0][3], a[1][3], a[2][3]);
+    const uint64_t db = desc_sw128(chunk + step0 * 32);
+    wgmma_fence();
+#pragma unroll
+    for (int term = 2; term >= 0; --term)
+      wgmma_bf16(tmp, a[term][0], a[term][1], a[term][2], a[term][3], db, term != 2);
+  }
+  wgmma_commit();
+}
+
+// The product warpgroup's work on the W chunks [i0, i0 + n_pan·n_kc) of a
+// step, output panel by panel (kN columns): each chunk waited for,
+// multiplied when `mine` (this CTA's unit has rows), then released to both
+// CTAs' producers.  acc = Σ over the panel's groups of 16 k's, each
+// group's products summed from zero in tmp, then added in fp32 (the tensor
+// cores' own adds lose more than fp32's; this file's header).  A group's A
+// fragments are registers, which a wgmma reads until it completes, so a
+// group is waited for before the next one is loaded (two groups in flight
+// made ptxas serialise them, and ran slower: PERF.md §6).  fp32 reads W's
+// big and small TF32 planes as the prologue laid them out.
+template <typename T>
+__device__ __forceinline__ void product(uint8_t* ring, uint64_t* full,
+                                        uint64_t* empty, int stages, long i0, int n_pan,
+                                        int n_kc, int kpad, const float* agg, const int* orow,
+                                        bool mine, const float* __restrict__ bias, int d_out,
+                                        T* __restrict__ out, int pt) {
+  constexpr int G = kChunkK<T> / 16;  // groups of 16 k's a chunk
+  const int lane = pt & 31, w4 = pt >> 5, tq = lane & 3;
+  const int r0 = 16 * w4 + (lane >> 2);  // the lane's rows r0, r0 + 8 of the unit
+  float tmp[32];                         // wgmma's scale-d 0 restarts each group
+#pragma unroll
+  for (int e = 0; e < 32; ++e) tmp[e] = 0.f;
+  for (int pan = 0; pan < n_pan; ++pan) {
+    float acc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+    float2 bv[kN / 8];  // the lane's bias, loaded before the products hide its latency
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j) {
+      const int col = pan * kN + 8 * j + 2 * tq;
+      bv[j].x = mine && bias && col < d_out ? __ldg(bias + col) : 0.f;
+      bv[j].y = mine && bias && col + 1 < d_out ? __ldg(bias + col + 1) : 0.f;
+    }
+    for (int c = 0; c < n_kc; ++c) {
+      const long i = i0 + static_cast<long>(pan) * n_kc + c;
+      const int slot = static_cast<int>(i % stages);
+      mbar_wait(&full[slot], static_cast<uint32_t>((i / stages) & 1));
+      if (mine) {
+        const uint8_t* chunk = ring + slot * kChunkBytes<T>;
+        for (int gi = 0; gi < G; ++gi) {
+          const int kk = c * kChunkK<T> + gi * 16;  // the group's first column of d_in
+          if (kk >= kpad) break;
+          group<T>(tmp, agg, kk, r0, tq, chunk, chunk + kPlaneBytes,
+                   sizeof(T) == 4 ? 2 * gi : gi);
+          wgmma_wait0();
+          fence_regs(tmp);
+#pragma unroll
+          for (int e = 0; e < 32; ++e) acc[e] += tmp[e];
+        }
+      }
+      named_sync(kProductBar, kProductWarps * 32);  // every warp's products of the chunk done
+      if (pt == 0)
+        for (int r = 0; r < kCluster; ++r) mbar_arrive_cluster(&empty[slot], r);
+    }
+    if (!mine) continue;
+    // acc[4j + e]: rows r0 (e < 2), r0 + 8; columns 8j + 2t + e % 2 of the panel
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = orow[r0 + 8 * h];
+      if (row < 0) continue;
+      T* orow_p = out + static_cast<long>(row) * d_out;
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+        const int col = pan * kN + 8 * j + 2 * tq;
+        if (col >= d_out) continue;
+        const float v0 = acc[4 * j + 2 * h] + bv[j].x;
+        if (col + 1 < d_out) {
+          const float v1 = acc[4 * j + 2 * h + 1] + bv[j].y;
+          if (d_out % 2 == 0) {
+            store2(orow_p + col, v0, v1);
+          } else {
+            store1(orow_p + col, v0);
+            store1(orow_p + col + 1, v1);
+          }
+        } else {
+          store1(orow_p + col, v0);
+        }
+      }
+    }
+  }
+}
+
+// Rows [r0, r1) of a tile (K slots each from slot0, then the diagonal),
+// CI slabs [q0, q0 + CI) of their aggregate in one walk: a lane's 4 columns
+// from 128·(q0 + c) + 4·lane of each, 16-byte loads (d_in % 4 == 0); only
+// the row's last slab may pass d_in, and there a lane past it loads column
+// 0 and keeps zero, so the loads stay unconditional and issue together.  A
+// warp's walk is latency-bound: one walk over CI slabs takes CI× fewer
+// dependent steps than a walk a slab (any::gather_tile).
+template <typename T, int CI>
+__device__ __forceinline__ void gather_slabs(const T* __restrict__ x,
+                                             const float* __restrict__ diag,
+                                             const int* __restrict__ rows,
+                                             const int* __restrict__ idx,
+                                             const float* __restrict__ ew, int k, long slot0,
+                                             int r0, int r1, int d_in, int q0, float* agg,
+                                             int lane) {
+  constexpr int U = CI == 1 ? 8 : CI == 2 ? 4 : 3;  // source rows in flight
+  bool ok[CI];
+  int col[CI];
+#pragma unroll
+  for (int c = 0; c < CI; ++c) {
+    col[c] = (q0 + c) * kSlab + 4 * lane;
+    ok[c] = col[c] < d_in;
+    if (!ok[c]) col[c] = 0;
+  }
+  auto sink = [&](int r, const float (&v)[CI][4]) {
+#pragma unroll
+    for (int c = 0; c < CI; ++c)
+      ell::store4(any::swzp(agg + (q0 + c) * kSlabFloats, kSlab, r, lane), v[c]);
+  };
+  const int v1 = r1 * (k + 1);
+  float acc[CI][4] = {};
+  int cur;
+  ell::walk_cols<CI, 4, U>(
+      [&](int src, int c, float (&v)[4]) {
+        ell::load4(x + static_cast<long>(src) * d_in + col[c], v);
+        if (!ok[c]) v[0] = v[1] = v[2] = v[3] = 0.f;
+      },
+      r0 * (k + 1), v1, lane, acc, cur,
+      [&](int v, int& src, float& w, int& key) {
+        ell::load_vslot<false>(v, v1, 0, k, slot0, rows, idx, ew, diag, src, w, key);
+      },
+      sink);
+  sink(cur, acc);
+}
+
+// The gather warps' work on unit u into the aggregate `agg` (n_slab slabs
+// of kRows × kSlab fp32) and its rows' natural ids into orow (-1: no row):
+// a segment group (one segment a warp: its partial, then its count),
+// kHubRows cut rows (each waits for its segments, then sums its partials in
+// segment order), or a pair of tiles (tile h's rows from row 32h; the pair's rows in
+// turn split into one contiguous run a warp, of about equal slots, within
+// one tile or across the two).
+template <typename T, bool kVec>
+__device__ __forceinline__ void gather(const Units& un, int u, const T* __restrict__ x,
+                                       const float* __restrict__ diag,
+                                       const int* __restrict__ rows, const int* __restrict__ idx,
+                                       const float* __restrict__ ew,
+                                       const int4* __restrict__ segs, int n_segs,
+                                       const int* __restrict__ split_p0,
+                                       const int2* __restrict__ hub, int n_hub,
+                                       int* __restrict__ seg_counters,
+                                       float* __restrict__ partial, int d_in, int n_slab,
+                                       float* agg, int* orow, int gt) {
+  const int lane = gt & 31, warp = gt >> 5;
+  const int kp = n_slab * kSlab;
+  if (u >= un.total) return;
+  if (u < un.n_groups) {
+    const int item = u * kGatherWarps + warp;
+    if (item < n_segs)
+      any::segment<T, kVec>(x, diag, rows, idx, ew, __ldg(segs + 2 * item),
+                            __ldg(segs + 2 * item + 1), d_in, kp, partial, seg_counters, lane);
+    return;
+  }
+  if (u < un.tile0) {
+    const int h0 = (u - un.n_groups) * kHubRows, nrows = min(kHubRows, n_hub - h0);
+    if (gt < kRows) {
+      int orig = -1;
+      if (gt < nrows) {  // one thread a cut row: wait for its segments
+        const int2 hr = __ldg(hub + h0 + gt);  // (split, natural row)
+        const int want = __ldg(split_p0 + hr.x + 1) - __ldg(split_p0 + hr.x);
+        int* counter = seg_counters + hr.x;
+        for (long spin = 0; wide::ld_acquire(counter) < want; ++spin) {
+          if (spin > (1l << 24)) __trap();  // a segment that never counts: fail, not hang
+          __nanosleep(64);
+        }
+
+        *counter = 0;  // every segment has counted: ready for the next launch
+        __threadfence();
+        orig = hr.y;
+      }
+      orow[gt] = orig;
+    }
+    named_sync(kGatherBar, kGatherWarps * 32);
+    for (int r = warp; r < nrows; r += kGatherWarps) {
+      const int split = __ldg(&hub[h0 + r].x);
+      const int p0 = __ldg(split_p0 + split), p1 = __ldg(split_p0 + split + 1);
+      for (int q = 0; q < n_slab; ++q) {
+        float s[4] = {};
+#pragma unroll 8  // loads in flight; the adds stay in segment order
+        for (int pp = p0; pp < p1; ++pp) {
+          const float4 v = __ldcg(
+              reinterpret_cast<const float4*>(partial + static_cast<long>(pp) * kp + kSlab * q) +
+              lane);
+          s[0] += v.x;
+          s[1] += v.y;
+          s[2] += v.z;
+          s[3] += v.w;
+        }
+        ell::store4(any::swzp(agg + q * kSlabFloats, kSlab, r, lane), s);
+      }
+    }
+    return;
+  }
+  int4 td[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = 2 * (u - un.tile0) + h;
+    td[h] = un.tile_ok(t) ? __ldg(un.tiles + t) : make_int4(0, 0, 0, 0);
+    if (warp == h)
+      for (int r = lane; r < kTileRows; r += 32)
+        orow[h * kTileRows + r] = r < td[h].y ? __ldg(rows + td[h].x + r) : -1;
+  }
+  // the rows split by their slots (K + 1 a row), not their count: a warp's
+  // walk is latency-bound, so a run of long rows beside short ones held
+  // the whole cluster at the step's barrier
+  const long va = static_cast<long>(td[0].y) * (td[0].z + 1);
+  const long vt = va + static_cast<long>(td[1].y) * (td[1].z + 1);
+  auto bound = [&](int w) {  // the first row of warp w's run, rounded to the nearest row
+    const long t = w * vt / kGatherWarps;
+    if (t <= va) return static_cast<int>((t + td[0].z / 2) / (td[0].z + 1));
+    return td[0].y + static_cast<int>((t - va + td[1].z / 2) / (td[1].z + 1));
+  };
+  const int v0 = bound(warp), v1 = bound(warp + 1);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // the warp's run within tile h (rows of the pair from h·td[0].y)
+    const int base = h ? td[0].y : 0;
+    const int r0 = max(v0 - base, 0), r1 = min(v1 - base, td[h].y);
+    if (r1 <= r0) continue;
+    float* agg_h = agg + h * kTileRows * kSlab;
+    if constexpr (kVec) {  // up to three slabs a walk
+      for (int q = 0; q < n_slab; q += 3) {
+        const int n = min(3, n_slab - q);
+        if (n == 3)
+          gather_slabs<T, 3>(x, diag, rows + td[h].x, idx, ew, td[h].z, td[h].w, r0, r1, d_in,
+                             q, agg_h, lane);
+        else if (n == 2)
+          gather_slabs<T, 2>(x, diag, rows + td[h].x, idx, ew, td[h].z, td[h].w, r0, r1, d_in,
+                             q, agg_h, lane);
+        else
+          gather_slabs<T, 1>(x, diag, rows + td[h].x, idx, ew, td[h].z, td[h].w, r0, r1, d_in,
+                             q, agg_h, lane);
+      }
+    } else {  // element by element at a tail of d_in % 4: a walk a slab
+      for (int q = 0; q < n_slab; ++q)
+        any::gather_tile<T, kVec>(x, diag, rows + td[h].x, idx, ew, td[h].z, td[h].w, r0, r1,
+                                  d_in, kp, q * kSlab, kSlab, agg_h + q * kSlabFloats, lane);
+    }
+  }
+}
+
+// Persistent clusters of kCluster CTAs.  Each step a cluster takes
+// kCluster consecutive units from the counter (rank 0 claims the next
+// step's during this one and writes it into both CTAs), one a CTA.  The
+// gather warps aggregate the step's unit into aggregate buffer s % bufs
+// while the product warpgroup multiplies the one gathered a step before
+// (bufs = 2), or after it within the step (bufs = 1: a second barrier of
+// the cluster between the two).  Where either unit of the step it
+// multiplies has rows, both CTAs walk the W chunks of every output panel
+// and k-chunk in the same order: a chunk is one multicast copy of the
+// prologue's layout, each CTA issuing half, into a ring of `stages` slots;
+// a slot is refilled once both CTAs' warpgroups have released it (with
+// bufs = 2 the producer goes on into the next step's first chunks).  One
+// barrier of the cluster a step hands the aggregate buffers and the units
+// over.  counters: [0] the unit counter, [1] CTAs done, then one per cut
+// row.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads, 1)
+gcn_fused_kernel_wgmma(const T* __restrict__ x, const uint8_t* __restrict__ wt,
+                       const float* __restrict__ bias, const float* __restrict__ diag,
+                       const int* __restrict__ rows, const int* __restrict__ idx,
+                       const float* __restrict__ ew, const int4* __restrict__ tiles, int n_tiles,
+                       const int4* __restrict__ segs, int n_segs, int k_cut,
+                       const int* __restrict__ split_p0, const int2* __restrict__ hub, int n_hub,
+                       int* __restrict__ counters, float* __restrict__ partial,
+                       T* __restrict__ out, int d_in, int d_out, int bufs, int stages) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  float* agg = reinterpret_cast<float*>(ring + stages * kChunkBytes<T>);
+  __shared__ uint64_t full[kMaxStages], empty[kMaxStages];
+  __shared__ int s_unit[kUnitSlots];
+  __shared__ int s_orow[2][kRows];
+
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = static_cast<int>(cl.block_rank());
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int n_slab = (d_in + kSlab - 1) / kSlab;
+  const int kpad = (d_in + 15) / 16 * 16;
+  const int n_pan = (d_out + kN - 1) / kN, n_kc = (d_in + kChunkK<T> - 1) / kChunkK<T>;
+  const int n_groups = (n_segs + kGatherWarps - 1) / kGatherWarps;
+  const int tile0 = n_groups + (n_hub + kHubRows - 1) / kHubRows;
+  const Units un{n_groups, tile0, tile0 + (n_tiles + 1) / 2, tiles, n_tiles, k_cut};
+  int* seg_counters = counters + 2;
+  auto publish = [&](int slot, int u) {  // the claimer's unit for a step, into every CTA
+    for (int r = 0; r < kCluster; ++r) cl.map_shared_rank(s_unit, r)[slot] = u;
+  };
+  const int producer_warp = kProducerWarp;
+  const bool claimer = rank == 0 && tid == producer_warp * 32;
+  const bool lag = bufs == 2;  // the product a step behind the gather
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kCluster);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if (claimer) {
+    publish(0, atomicAdd(counters, kCluster));
+  }
+  cl.sync();
+
+  long chunk0 = 0;  // W chunks walked before this step, the same in both CTAs
+  const long step_chunks = static_cast<long>(n_pan) * n_kc;
+  const long ahead = step_chunks < stages ? step_chunks : stages;  // bufs = 1: before the barrier
+  auto walks = [&](int b) {  // whether any unit of the step at b has rows to multiply
+    bool any = false;
+    for (int r = 0; r < kCluster; ++r) any = any || (b >= 0 && un.product(b + r));
+    return any;
+  };
+  long issued = 0;  // the producer: W chunks issued so far
+  // the chunks [start + from, start + to) of the step whose chunks start at
+  // `start`, those not issued yet
+  auto produce = [&](long start, long from, long to) {
+    for (long i = issued > start + from ? issued : start + from; i < start + to; ++i, issued = i) {
+      const int slot = static_cast<int>(i % stages);
+      if (i >= stages) {  // the slot's last chunk released by both CTAs' warpgroups
+        mbar_wait(&empty[slot], static_cast<uint32_t>((i / stages - 1) & 1));
+      }
+      issue_chunk<T>(ring, full, wt, i - start, slot, rank);
+    }
+  };
+  auto multiply = [&](int b, int buf, int obuf) {
+    product<T>(ring, full, empty, stages, chunk0, n_pan, n_kc, kpad,
+               agg + static_cast<long>(buf) * n_slab * kSlabFloats, s_orow[obuf],
+               un.product(b + rank), bias, d_out, out, tid - kProductWarp0 * 32);
+  };
+  for (int s = 0;; ++s) {
+    const int g = s_unit[s % kUnitSlots];  // the step base gathered now
+    const int p = lag ? (s > 0 ? s_unit[(s + kUnitSlots - 1) % kUnitSlots] : -1) : g;
+    if (p >= un.total) break;
+    int nxt = un.total;
+    if (claimer && g < un.total) nxt = atomicAdd(counters, kCluster);  // read at the step's end
+    const bool walk = walks(p);
+    if (warp < kGatherWarps) {
+      gather<T, kVec>(un, g + rank, x, diag, rows, idx, ew, segs, n_segs, split_p0, hub, n_hub,
+                      seg_counters, partial, d_in, n_slab,
+                      agg + static_cast<long>(s % bufs) * n_slab * kSlabFloats, s_orow[s % 2], tid);
+    } else if (warp >= kProductWarp0) {
+      if (lag && walk) multiply(p, (s + 1) % 2, (s + 1) % 2);
+    } else if (tid == producer_warp * 32) {
+      // with bufs = 1 only what the ring holds, so the producer never
+      // waits on the warpgroup across the barrier below; with bufs = 2 the
+      // step's chunks, then the first of the next step's (its product is
+      // the unit gathered now): their slots free up within this step
+      if (walk) produce(chunk0, 0, lag ? step_chunks : ahead);
+      if (lag && walks(g)) produce(chunk0 + (walk ? step_chunks : 0), 0, ahead);
+    }
+    if (!lag) {
+      cl.sync();  // the unit gathered: multiply it
+      if (walk) {
+        if (warp >= kProductWarp0) multiply(p, 0, s % 2);
+        if (tid == producer_warp * 32) produce(chunk0, ahead, step_chunks);
+      }
+    }
+    if (walk) chunk0 += step_chunks;
+    if (claimer) {
+      publish((s + 1) % kUnitSlots, nxt);
+    }
+    cl.sync();
+  }
+
+  // the last CTA out resets the counters for the next launch: every claim
+  // was made before its cluster's last step
+  if (tid == 0) {
+    __threadfence();
+    if (atomicAdd(counters + 1, 1) == static_cast<int>(gridDim.x) - 1)
+      counters[0] = counters[1] = 0;
+  }
+}
+
+// Dynamic shared memory of a launch: 1 KB to align the swizzled W ring,
+// `stages` W chunks (two planes in fp32), then `bufs` aggregates of n_slab
+// slabs
+__host__ __device__ constexpr long smem_bytes(int d_in, int dtype, int bufs, int stages) {
+  return 1024L + static_cast<long>(stages) * (dtype == 0 ? 2 : 1) * kPlaneBytes +
+         static_cast<long>(bufs) * ((d_in + kSlab - 1) / kSlab) * kSlabFloats * 4;
+}
+
+template <typename T, bool kVec>
+cudaError_t launch(const void* x, const void* wmat, const float* bias, const float* diag,
+                   const int* rows, const int* idx, const float* ew, const int* tiles,
+                   int n_tiles, const int* segs, int n_segs, int k_cut, const int* split_p0,
+                   const int* hub, int n_hub, int* counters, float* partial, void* out, int d_in,
+                   int d_out, void* wt, int bufs, int stages, int smem, cudaStream_t stream) {
+  const int n_kc = (d_in + kChunkK<T> - 1) / kChunkK<T>, n_pan = (d_out + kN - 1) / kN;
+  const long n_elems = static_cast<long>(n_pan) * n_kc * kChunkBytes<T> / sizeof(T);
+  const int pro_blocks = static_cast<int>(std::min<long>((n_elems + 255) / 256, 4096));
+  wt_layout<T><<<pro_blocks, 256, 0, stream>>>(static_cast<const T*>(wmat), static_cast<T*>(wt),
+                                                d_in, d_out, n_kc, n_elems);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto kern = gcn_fused_kernel_wgmma<T, kVec>;
+  if ((err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+      cudaSuccess)
+    return err;
+  int dev = 0, n_sm = 0, clusters = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cfg.gridDim = dim3(n_sm / kCluster * kCluster);
+  if ((err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg)) != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;  // raised by the wrapper, no fallback
+  const int units = (n_segs + kGatherWarps - 1) / kGatherWarps +
+                    (n_hub + kHubRows - 1) / kHubRows + (n_tiles + 1) / 2;
+  cfg.gridDim = dim3(kCluster * std::max(1, std::min((units + kCluster - 1) / kCluster, clusters)));
+  err = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(x),
+                           static_cast<const uint8_t*>(wt), bias, diag, rows, idx, ew,
+                           reinterpret_cast<const int4*>(tiles), n_tiles,
+                           reinterpret_cast<const int4*>(segs), n_segs, k_cut, split_p0,
+                           reinterpret_cast<const int2*>(hub), n_hub, counters, partial,
+                           static_cast<T*>(out), d_in, d_out, bufs, stages);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
 template <typename T, int D_IN, int D_OUT>
 cudaError_t launch(const void* x, const void* wmat, const float* bias, const float* diag,
                    const int* rows, const int* idx, const float* ew, const int* tiles,
@@ -1553,4 +2318,66 @@ extern "C" int gcn_fused_any_forward(const void* x, const void* wmat, const floa
                                         n_tiles, segs, n_segs, k_cut, split_p0, hub, n_hub,
                                         counters, partial, out, d_out, ka, w_res, smem, s);
   return cudaErrorInvalidValue;
+}
+
+// Any (d_in, d_out) with d_in ≤ 768 on gcn_fused_kernel_wgmma, by the host
+// plan of kernels/gcn_fused.py::kernel_plan: bufs the aggregate buffers (2:
+// the gather a step ahead of the product), stages the W ring's slots, smem
+// the block's dynamic shared memory (at least wg::smem_bytes).  wt is the
+// prologue's scratch, ceil(d_out / 64)·ceil(d_in / (128 / element size))
+// chunks of 16 KB (fp32: two planes) or 8 KB (bf16), 16-byte aligned; the other arguments are
+// gcn_fused_any_forward's.  Two launches (the W prologue, then the layer);
+// returns the first cudaError_t.
+extern "C" int gcn_fused_wgmma_forward(const void* x, const void* wmat, const float* bias,
+                                       const float* diag, const int* rows, const int* idx,
+                                       const float* ew, const int* tiles, int n_tiles,
+                                       const int* segs, int n_segs, int k_cut,
+                                       const int* split_p0, const int* hub, int n_hub,
+                                       int* counters, float* partial, void* out, int d_in,
+                                       int d_out, int dtype, void* wt, int bufs, int stages,
+                                       int smem, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_tiles + n_segs <= 0) return cudaSuccess;
+  if (d_in < 1 || d_out < 1 || (bufs != 1 && bufs != 2) || stages < 2 ||
+      stages > wg::kMaxStages || smem < wg::smem_bytes(d_in, dtype, bufs, stages) ||
+      reinterpret_cast<uintptr_t>(wt) % 16)
+    return cudaErrorInvalidValue;
+  const bool vec = d_in % 4 == 0;
+#define GCN_WG_LAUNCH(T, VEC)                                                                  \
+  wg::launch<T, VEC>(x, wmat, bias, diag, rows, idx, ew, tiles, n_tiles, segs, n_segs, k_cut, \
+                     split_p0, hub, n_hub, counters, partial, out, d_in, d_out, wt, bufs,     \
+                     stages, smem, s)
+  if (dtype == 0) return vec ? GCN_WG_LAUNCH(float, true) : GCN_WG_LAUNCH(float, false);
+  if (dtype == 1)
+    return vec ? GCN_WG_LAUNCH(__nv_bfloat16, true) : GCN_WG_LAUNCH(__nv_bfloat16, false);
+#undef GCN_WG_LAUNCH
+  return cudaErrorInvalidValue;
+}
+
+// The launch's clusters on this card at `smem` (cudaOccupancyMaxActiveClusters).
+// Returns the clusters, or minus a cudaError_t.
+extern "C" int gcn_fused_wgmma_probe(int dtype, int smem) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = wg::kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.blockDim = dim3(wg::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int dev = 0, n_sm = 0, clusters = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  cfg.gridDim = dim3(n_sm / wg::kCluster * wg::kCluster);
+  auto f32 = wg::gcn_fused_kernel_wgmma<float, true>;
+  auto b16 = wg::gcn_fused_kernel_wgmma<__nv_bfloat16, true>;
+  if (err == cudaSuccess)
+    err = dtype == 0 ? cudaFuncSetAttribute(f32, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
+                     : cudaFuncSetAttribute(b16, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = dtype == 0 ? cudaOccupancyMaxActiveClusters(&clusters, f32, &cfg)
+                     : cudaOccupancyMaxActiveClusters(&clusters, b16, &cfg);
+  return err == cudaSuccess ? clusters : -static_cast<int>(err);
 }

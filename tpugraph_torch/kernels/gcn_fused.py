@@ -33,16 +33,21 @@ concatenation and no ``row_order`` gather.  The work counters and the
 segments' partials are cached per (d_in, d_out, stream) and left at zero by
 the kernel, so a call is one launch: no memset, no scratch allocation.
 
-At every other (d_in, d_out) ≥ 1 one kernel takes any width
-(``gcn_fused_kernel_any``), by the host plan ``kernel_plan``: a tile's
-aggregate held in shared memory ``k_chunk`` columns of d_in at a time (all
-of d_in once up to 1,536 or more columns, else chunk by chunk again for each
-output panel), multiplied by W in output panels of 64 or 128 columns, W
-staged whole where it fits beside the aggregate in half an SM's shared
-memory, else streamed 64 k's at a time; the cut rows are units after their
-segments, as at (256, 256).  fp32 multiplies by 3× TF32, bf16 by the
-aggregate's three bf16 terms; each group of 16 k's is summed outside the
-accumulator.  ``fused_bucket_apply`` runs it over one ELL bucket (the JAX
+At every other (d_in, d_out) ≥ 1 an any-width kernel runs, by the host plan
+``kernel_plan``.  Wherever d_in ≤ 768 and W does not fit whole in half an
+SM, the wgmma kernel (``gcn_fused_kernel_wgmma``): a prologue launch lays
+Wᵀ out in the product's layout once per call (``wt_layout_plain`` is its
+plain version: fp32 as W's big and small TF32 planes, bf16 as W);
+clusters of two CTAs take 64-row units (two plan tiles each) and stream
+W's chunks by one multicast bulk copy each into a ring of shared memory,
+so W moves from L2 once per 128 rows; eleven gather warps aggregate a unit
+(rows split by their slots, up to three 128-column slabs a walk) while a
+warpgroup multiplies the one before it on wgmma (two aggregate buffers up
+to d_in 384, else one); fp32 as 3× TF32, bf16 as the aggregate's three
+bf16 terms, each group of 16 k's summed outside the accumulator.  Elsewhere
+the per-tile kernel (``gcn_fused_kernel_any``): W whole once per block where
+it fits beside a 32-row aggregate, else (d_in above 768) streamed 64 k's a
+tile.  ``fused_bucket_apply`` runs the layer over one ELL bucket (the JAX
 entry of that name).
 
 ``gcn_layer`` is the trainable layer, a ``torch.autograd.Function``.  Its
@@ -77,6 +82,7 @@ from tpugraph_torch.kernels.spmm_ell import (PANEL, SEG_SLOTS, TILE_ROWS, FusedP
 from tpugraph_torch.sparse.ell import EllBucket, EllMatrix, EllOperator
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ELEM = {torch.float32: 4, torch.bfloat16: 2}
 # (d_in, d_out, dtype) -> panels of W, the CTAs that share a tile, each
 # staging one: the template instances of csrc/gcn_fused.cu.  At (256, 256)
 # the fp32 Wᵀ (256 KB) does not fit in a block's shared memory, so a cluster
@@ -100,21 +106,33 @@ def products(d_in: int, d_out: int, dtype: torch.dtype) -> tuple[int, str]:
                         (3, "tf32" if dtype == torch.float32 else "bf16"))
 
 
-# The widths where gcn_layer runs the fused kernel: the instances', and
-# those where the any-width kernel measured faster on the card than x·W then
-# spmm_ell (PERF.md §6)
+# The widths where gcn_layer runs the fused kernel: the instances', and the
+# any-width widths where the plan's kernel measured faster on the card than
+# x·W then spmm_ell (PERF.md §6): at (50, 300) and (64, 64) the per-tile kernel
+# with W resident; the wgmma kernel beat that route at none of ANY_WIDTHS
 FUSED_WIDTHS = frozenset(WIDTHS) | {(50, 300), (64, 64)}
 
-# the any-width kernel's shape (csrc/gcn_fused.cu, namespace any; its tiles
-# are TILE_ROWS rows, its gather panels PANEL columns, the aggregate's
+# the per-tile any-width kernel's shape (csrc/gcn_fused.cu, namespace any; its
+# tiles are TILE_ROWS rows, its gather panels PANEL columns, the aggregate's
 # chunks multiples of PANEL)
 W_CHUNK = 64  # kWChunk: k's of Wᵀ staged at a time when W is not resident
 SMEM_BLOCK = 232_448  # shared memory a block may use on the H100
 SMEM_DYNAMIC = SMEM_BLOCK - 1024  # less the kernel's static arrays, with room to spare
 SMEM_TWO_BLOCKS = 114_688  # at most this, two blocks fit an SM (228 KB, 1 KB reserved each)
 
-# kernel launches since the process started (or the caller last reset it)
+# the redesigned kernel's shape (csrc/gcn_fused.cu, namespace wg)
+WG_ROWS = 64  # rows of a unit: two plan tiles, wgmma's M
+WG_CLUSTER = 2  # CTAs that share each W chunk: one multicast copy from L2
+WG_N = 64  # output columns of a product pass: wgmma's N
+WG_PLANE_BYTES = 8192  # a W chunk's plane: 64 rows of Wᵀ × 128 bytes of k (32 TF32, 64 bf16)
+WG_MAX_STAGES = 16  # W ring slots at most
+WG_ALIGN = 1024  # the swizzled ring's alignment, reserved in the dynamic memory
+SLAB_BYTES = 4 * WG_ROWS * PANEL  # an aggregate slab: WG_ROWS rows × PANEL fp32
+# kernel launches since the process started (or the caller last reset it):
+# the layer's, and the W prologue's (``wt_layout``, one before each launch of
+# the wgmma kernel)
 launches = 0
+prologue_launches = 0
 
 
 def fused_width(d_in: int, d_out: int) -> bool:
@@ -138,34 +156,164 @@ def partial_floats(d_in: int) -> int:
 class KernelPlan:
     """What a launch at (d_in, d_out, dtype) holds in a block and in scratch."""
 
-    kernel: str  # "gcn_fused_kernel", "gcn_fused_kernel_wide" or "gcn_fused_kernel_any"
+    # "gcn_fused_kernel", "gcn_fused_kernel_wide", "gcn_fused_kernel_wgmma"
+    # (the wgmma any-width kernel) or "gcn_fused_kernel_any" (the per-tile one,
+    # where W stays resident in it or no layout of the redesign fits)
+    kernel: str
     k_chunk: int  # columns of d_in aggregated in shared memory at once
     n_k_chunks: int
     panel: int  # output columns multiplied in one pass over the aggregate
     n_panels: int
-    cluster: int  # CTAs that share a tile's aggregate (distributed shared memory)
-    w_resident: bool  # W staged whole once per block, else streamed per tile and panel
-    w_chunk: int  # k's of W staged at a time
+    cluster: int  # CTAs that share a tile's aggregate or (wgmma) each W chunk
+    w_resident: bool  # W staged whole once per block, else streamed
+    w_chunk: int  # k's of W staged at a time (wgmma: of a chunk's 128-byte rows)
     smem_bytes: int  # dynamic shared memory a block
     # floats of a cut row's fp32 partial in the scratch, which holds the
     # partials, then the unit and done counters and one counter a cut row
     partial_pitch: int
+    unit_rows: int = TILE_ROWS  # rows a CTA multiplies a unit
+    # rows that share one pass of W from L2: a CTA's unit (resident W: every
+    # unit of the block), a cluster's step with the multicast
+    w_pass_rows: int = TILE_ROWS
+    # bytes of W one pass reads: the padded grid of panels × k-chunks it
+    # walks, at W's element size (the wgmma kernel's prologue layout)
+    w_pass_bytes: int = 0
+    agg_buffers: int = 1  # 2: the next unit gathered while this one is multiplied
+    w_stages: int = 0  # the wgmma kernel's W ring slots
 
     @property
     def n_tiles_a_warp(self) -> int:
-        """mma n-tiles of 8 columns a warp (any-width kernel: 1 or 2)."""
+        """mma n-tiles of 8 columns a warp (the per-tile kernel: 1 or 2)."""
         return self.panel // 64
+
+    def w_bytes_per_layer(self, n_rows: int, n_blocks: int = 132) -> int:
+        """W bytes the layer reads over ``n_rows`` rows: once per block
+        where W is resident (``n_blocks`` of them), else once per pass."""
+        if self.w_resident:
+            return n_blocks * self.w_pass_bytes
+        return -(-n_rows // self.w_pass_rows) * self.w_pass_bytes
+
+
+def chunk_k(dtype: torch.dtype) -> int:
+    """k's of one 128-byte row of a W chunk: 32 TF32 (fp32) or 64 bf16."""
+    return 128 // _ELEM[dtype]
+
+
+def wg_planes(dtype: torch.dtype) -> int:
+    """Planes of a W chunk: fp32 W's big and small TF32 parts, or bf16 W."""
+    return 2 if dtype == torch.float32 else 1
+
+
+def wgmma_layout(d_in: int, d_out: int, dtype: torch.dtype) -> tuple[int, int] | None:
+    """(buffers, stages) of the wgmma kernel at (d_in, d_out), or None where
+    no layout fits: two aggregate buffers where they fit beside two W
+    slots, else one; then as many W slots as fit, at most WG_MAX_STAGES."""
+    slabs = -(-d_in // PANEL)
+    chunk = wg_planes(dtype) * WG_PLANE_BYTES
+    for bufs in (2, 1):
+        stages = min(WG_MAX_STAGES,
+                     (SMEM_DYNAMIC - WG_ALIGN - bufs * slabs * SLAB_BYTES) // chunk)
+        if stages >= 2:
+            return bufs, stages
+    return None
+
+
+def wgmma_smem(d_in: int, dtype: torch.dtype, bufs: int, stages: int) -> int:
+    """The wgmma kernel's dynamic shared memory (csrc/gcn_fused.cu,
+    wg::smem_bytes): the alignment, the W ring's chunks, the aggregate
+    buffers."""
+    return (WG_ALIGN + stages * wg_planes(dtype) * WG_PLANE_BYTES
+            + bufs * -(-d_in // PANEL) * SLAB_BYTES)
+
+
+def wt_layout_bytes(d_in: int, d_out: int, dtype: torch.dtype) -> int:
+    """The prologue's layout of Wᵀ: ceil(d_out / 64) panels × ceil(d_in /
+    chunk_k) chunks of ``wg_planes`` planes of WG_PLANE_BYTES."""
+    return -(-d_out // WG_N) * -(-d_in // chunk_k(dtype)) * wg_planes(dtype) * WG_PLANE_BYTES
+
+
+def k_of(pos: np.ndarray, dtype: torch.dtype) -> np.ndarray:
+    """The column of d_in at k position ``pos`` of a W chunk's rows
+    (csrc/gcn_fused.cu, wg::k_of): each group of 16 k's permuted so that a
+    lane's aggregate columns kk + 4t .. + 3 fill its fragment registers in
+    order (TF32: k t, t + 4 of two k-steps; bf16: k 2t, 2t + 1, 2t + 8,
+    2t + 9)."""
+    j = pos % 16
+    if dtype == torch.float32:
+        d = 4 * (j % 4) + 2 * (j // 8) + (j % 8) // 4
+    else:
+        d = 4 * ((j % 8) // 2) + 2 * (j // 8) + j % 2
+    return pos // 16 * 16 + d
+
+
+def tf32_split(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp32 ``w`` = big + small, each rounded to TF32 as the kernels round
+    (to nearest, ties away from zero: half a TF32 ulp added to the bits,
+    then the low 13 cut; ``wide::split_tf32_bits``)."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32).to(torch.int64)
+        return (((bits + 0x1000) & 0xFFFFE000) & 0xFFFFFFFF).to(torch.uint32).view(torch.float32)
+    big = rna(w)
+    return big, rna(w - big)
+
+
+def wt_layout_plain(wmat: torch.Tensor) -> torch.Tensor:
+    """The W prologue's plain version: Wᵀ as (panels, k-chunks, planes,
+    plane elements) of W's type, chunk (p, c) the 64 columns [64p, 64p + 64)
+    of W as rows of 128 bytes (``chunk_k`` k's in ``k_of`` order from
+    c·chunk_k), the 16-byte pieces of row n swizzled by n % 8 (the 128-byte
+    swizzle wgmma reads); zero past W's edges.  fp32: the planes are W's
+    big and small TF32 parts (``tf32_split``); bf16: W itself."""
+    d_in, d_out = wmat.shape
+    elem = _ELEM[wmat.dtype]
+    ck, per = chunk_k(wmat.dtype), WG_PLANE_BYTES // elem
+    n_pan, n_kc = -(-d_out // WG_N), -(-d_in // ck)
+    b = np.arange(per) * elem
+    n = b // 128
+    pos = ((((b % 128) // 16) ^ (n % 8)) * 16 + b % 16) // elem
+    k = np.arange(n_kc)[:, None] * ck + k_of(pos, wmat.dtype)[None, :]
+    col = np.arange(n_pan)[:, None] * WG_N + n[None, :]
+    wp = torch.zeros((n_kc * ck, n_pan * WG_N), dtype=wmat.dtype, device=wmat.device)
+    wp[:d_in, :d_out] = wmat
+    kt, ct = torch.from_numpy(k).to(wmat.device), torch.from_numpy(col).to(wmat.device)
+    planes = tf32_split(wp) if wmat.dtype == torch.float32 else (wp,)
+    return torch.stack([pl[kt[None, :, :], ct[:, None, :]] for pl in planes], 2)
+
+
+def any_plan(d_in: int, d_out: int, dtype: torch.dtype) -> KernelPlan:
+    """The per-tile any-width kernel's plan (``gcn_fused_kernel_any``):
+    output panels of 64 or 128 columns, whichever pads d_out less (128 on a
+    tie); the aggregate all of d_in (rounded up to 128 columns) when that
+    fits beside one W chunk, else the widest multiple of 128 that does; W
+    resident (whole, once per block) where it fits with a 32-row aggregate
+    in half an SM, else streamed 64 k's a 32-row tile."""
+    panel = 64 if _up(d_out, 64) < _up(d_out, 128) else 128
+    kp = partial_floats(d_in)
+    w_chunk_bytes = 4 * panel * W_CHUNK
+    fit = (SMEM_DYNAMIC - w_chunk_bytes) // (4 * TILE_ROWS) // PANEL * PANEL
+    k_chunk = min(kp, fit)
+    a_bytes = 4 * TILE_ROWS * k_chunk
+    w_bytes = 4 * _up(d_out, panel) * _up(d_in, 32)
+    resident = a_bytes + w_bytes <= SMEM_TWO_BLOCKS
+    return KernelPlan("gcn_fused_kernel_any", k_chunk, -(-kp // k_chunk), panel,
+                      -(-d_out // panel), 1, resident, _up(d_in, 32) if resident else W_CHUNK,
+                      a_bytes + (w_bytes if resident else w_chunk_bytes), kp,
+                      w_pass_bytes=_ELEM[dtype] * _up(d_out, panel) * (
+                          _up(d_in, 32) if resident else _up(_up(d_in, 16), W_CHUNK)))
 
 
 def kernel_plan(d_in: int, d_out: int, dtype: torch.dtype,
                 any_width: bool = False) -> KernelPlan:
     """The launch plan of the layer at (d_in, d_out): the instance's at
-    ``WIDTHS`` (unless ``any_width``), else the any-width kernel's.  There
-    the output panels are 64 or 128 columns, whichever pads d_out less (128
-    on a tie); the aggregate holds all of d_in (rounded up to 128 columns)
-    when that fits beside one W chunk, else the widest multiple of 128 that
-    does; W is resident when it fits with the aggregate in
-    ``SMEM_TWO_BLOCKS``."""
+    ``WIDTHS`` (unless ``any_width``), else an any-width kernel's: the
+    per-tile kernel's (``any_plan``) where it keeps W resident (there it
+    measured faster on the H100 than the wgmma kernel: 0.120 against 0.141
+    ms at (50, 300), 0.051 against 0.075 at (64, 64), PERF.md §6) or where
+    no layout of the wgmma kernel fits (d_in above 768); everywhere else
+    that kernel (``wgmma_plan``): 64-row units, a cluster of two CTAs
+    sharing each W chunk by one multicast copy (W read once per 128 rows),
+    the aggregate whole in slabs of 128 columns, double-buffered where two
+    fit (``wgmma_layout``)."""
     if d_in < 1 or d_out < 1:
         raise ValueError(f"the fused layer takes widths >= 1, got ({d_in}, {d_out})")
     if dtype not in _DTYPE_CODE:
@@ -178,18 +326,26 @@ def kernel_plan(d_in: int, d_out: int, dtype: torch.dtype,
             smem = 4 * (d_in * d_out + TILE_ROWS * d_in)
         return KernelPlan("gcn_fused_kernel_wide" if (d_in, d_out) == (256, 256)
                           else "gcn_fused_kernel", d_in, 1, d_out // pair, pair, pair, True,
-                          d_in, smem, partial_floats(d_in))
-    panel = 64 if _up(d_out, 64) < _up(d_out, 128) else 128
+                          d_in, smem, partial_floats(d_in),
+                          w_pass_bytes=_ELEM[dtype] * d_in * d_out)
+    old = any_plan(d_in, d_out, dtype)
+    new = wgmma_plan(d_in, d_out, dtype)
+    return old if old.w_resident or new is None else new
+
+
+def wgmma_plan(d_in: int, d_out: int, dtype: torch.dtype) -> KernelPlan | None:
+    """The wgmma any-width kernel's plan at (d_in, d_out), or None where no
+    layout of it fits (``wgmma_layout``)."""
+    layout = wgmma_layout(d_in, d_out, dtype)
+    if layout is None:
+        return None
+    bufs, stages = layout
     kp = partial_floats(d_in)
-    w_chunk_bytes = 4 * panel * W_CHUNK
-    fit = (SMEM_DYNAMIC - w_chunk_bytes) // (4 * TILE_ROWS) // PANEL * PANEL
-    k_chunk = min(kp, fit)
-    a_bytes = 4 * TILE_ROWS * k_chunk
-    w_bytes = 4 * _up(d_out, panel) * _up(d_in, 32)
-    resident = a_bytes + w_bytes <= SMEM_TWO_BLOCKS
-    return KernelPlan("gcn_fused_kernel_any", k_chunk, -(-kp // k_chunk), panel,
-                      -(-d_out // panel), 1, resident, _up(d_in, 32) if resident else W_CHUNK,
-                      a_bytes + (w_bytes if resident else w_chunk_bytes), kp)
+    return KernelPlan("gcn_fused_kernel_wgmma", kp, 1, WG_N, -(-d_out // WG_N), WG_CLUSTER,
+                      False, chunk_k(dtype), wgmma_smem(d_in, dtype, bufs, stages), kp,
+                      unit_rows=WG_ROWS, w_pass_rows=WG_CLUSTER * WG_ROWS,
+                      w_pass_bytes=wt_layout_bytes(d_in, d_out, dtype), agg_buffers=bufs,
+                      w_stages=stages)
 
 
 def _add_bias(out: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
@@ -210,7 +366,8 @@ def _lib(name: str = "gcn_fused_forward"):
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, p, p, i, p, i, i, p, p, i, p, p, p, i, i, i]
-        fn.argtypes += [i, i, i, i, p] if name == "gcn_fused_any_forward" else [p]
+        fn.argtypes += {"gcn_fused_any_forward": [i, i, i, i, p],
+                        "gcn_fused_wgmma_forward": [p, i, i, i, p]}.get(name, [p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -368,6 +525,18 @@ def _scratch(plan: LayerPlan, d_in: int, d_out: int, device: torch.device,
     return scratch
 
 
+def _wt_scratch(plan: LayerPlan, d_in: int, d_out: int, dtype: torch.dtype,
+                device: torch.device, stream: int) -> torch.Tensor:
+    """The wgmma kernel's scratch for its prologue's layout of Wᵀ
+    (``wt_layout_bytes``), cached per (d_in, d_out, dtype, stream)."""
+    key = ("wt", d_in, d_out, dtype, stream)
+    wt = plan.scratch.get(key)
+    if wt is None:
+        wt = torch.empty(wt_layout_bytes(d_in, d_out, dtype), dtype=torch.uint8, device=device)
+        plan.scratch[key] = wt
+    return wt
+
+
 def counters(plan: LayerPlan, d_in: int, d_out: int, stream: int) -> torch.Tensor:
     """The kernel's int32 counters in ``plan``'s scratch for (d_in, d_out)
     on ``stream``: 0 after every launch."""
@@ -393,15 +562,21 @@ def _launch(m: EllMatrix, diag: torch.Tensor | None, x: torch.Tensor, wmat: torc
             plan.split_p0.data_ptr(), plan.hub.data_ptr(), plan.hub.shape[0],
             partial + 4 * plan.n_partials * kp.partial_pitch, partial, out.data_ptr(), d_in,
             d_out, _DTYPE_CODE[x.dtype])
-    if kp.kernel == "gcn_fused_kernel_any":
+    wgmma = kp.kernel == "gcn_fused_kernel_wgmma"
+    if wgmma:  # two launches: the W prologue, then the layer
+        wt = _wt_scratch(plan, d_in, d_out, x.dtype, x.device, stream)
+        err = _lib("gcn_fused_wgmma_forward")(*args, wt.data_ptr(), kp.agg_buffers, kp.w_stages,
+                                              kp.smem_bytes, stream)
+    elif kp.kernel == "gcn_fused_kernel_any":
         err = _lib("gcn_fused_any_forward")(*args, kp.k_chunk, kp.n_tiles_a_warp,
                                             int(kp.w_resident), kp.smem_bytes, stream)
     else:
         err = _lib()(*args, stream)
     if err != 0:
         raise RuntimeError(f"gcn_fused launch failed with CUDA error {err}")
-    global launches
+    global launches, prologue_launches
     launches += 1
+    prologue_launches += wgmma
     return out
 
 
